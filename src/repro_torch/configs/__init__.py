@@ -1,0 +1,5 @@
+from .base import ModelConfig, ShapeConfig, smoke_config
+from .registry import ARCHS, get_config, list_archs
+
+__all__ = ["ModelConfig", "ShapeConfig", "smoke_config", "ARCHS",
+           "get_config", "list_archs"]

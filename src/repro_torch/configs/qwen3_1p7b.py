@@ -1,0 +1,10 @@
+"""qwen3-1.7b [dense]: GQA kv=8, qk_norm. [hf:Qwen/Qwen3-8B; hf]"""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-1.7b", family="dense",
+    num_layers=28, d_model=2048, num_heads=16, num_kv_heads=8, head_dim=128,
+    d_ff=6144, vocab_size=151936, qk_norm=True, rope_theta=1e6,
+    supports_long_context=False,   # pure full attention
+    source="hf:Qwen/Qwen3-8B",
+)

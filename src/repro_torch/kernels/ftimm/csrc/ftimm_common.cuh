@@ -1,0 +1,197 @@
+// Shared device code of the ftIMM GEMM kernels for Hopper (sm_90a).
+//
+// One CTA owns one (BM, BN) output tile.  It walks K in BK steps through
+// shared memory and keeps its fp32 accumulators in registers: each thread
+// owns a TM x TN micro-tile, strided across the CTA tile so that shared-memory
+// reads and global stores of neighbouring threads touch neighbouring
+// addresses.  The next K step's operand panels are staged in registers while
+// the current step computes (register double buffering), so one global load
+// latency per step hides behind the FMAs.
+//
+// Operands are addressed through element strides, op(X)(row, k) =
+// X[row * s_row + k * s_k], which is how the three trans variants (nn / tn /
+// nt) and a group-shared 2-D operand (group stride 0) reach one body.  The
+// panel loader walks whichever of row / k has unit stride fastest, so a warp
+// reads consecutive addresses in every layout.
+//
+// Masking: every load outside [0, rows) x [0, K) is predicated off and writes
+// 0 to shared memory, on BOTH operands (0 * NaN is NaN, so masking one side
+// is not enough) -- out-of-range memory is never read.  M / N edges are
+// masked again at the store.  Shapes need not be tile multiples.
+//
+// The epilogue runs on the fp32 accumulator at the flush, in the order
+// scale_vec -> scale -> bias -> activation -> residual, then the cast to the
+// output type -- the order of the reference's Epilogue.apply.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace ftimm {
+
+template <typename T> __device__ __forceinline__ float to_f(T x);
+template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even, as torch's .to(bfloat16)
+}
+
+// The compiled tile menu.  The planner (core/gemm/tuner.py) chooses among
+// exactly these; kernel.py's TILES lists them in the same order.
+template <int BM_, int BN_, int BK_, int TM_, int TN_>
+struct TileCfg {
+  static constexpr int BM = BM_, BN = BN_, BK = BK_, TM = TM_, TN = TN_;
+  static constexpr int THREADS = (BM / TM) * (BN / TN);
+};
+using Tile0 = TileCfg<16, 32, 64, 2, 2>;     // skinny M (decode): most CTAs
+using Tile1 = TileCfg<32, 64, 32, 2, 4>;
+using Tile2 = TileCfg<64, 64, 32, 4, 4>;
+using Tile3 = TileCfg<128, 128, 16, 8, 8>;   // large M: most reuse per byte
+
+// Each kernel's C entry switches over these tile ids and, inside, over the
+// operand type codes shared with kernel.py: 0 bf16 -> bf16, 1 bf16 -> fp32,
+// 2 fp32 -> fp32 (operands -> output; the residual has the operands' type).
+#define FTIMM_TILES(X) X(0, ftimm::Tile0) X(1, ftimm::Tile1) X(2, ftimm::Tile2) X(3, ftimm::Tile3)
+
+__host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// ROWS x BK panel of one operand for one K step, staged in registers.
+template <int ROWS, int BK, int THREADS, typename T>
+struct Panel {
+  static_assert((ROWS * BK) % THREADS == 0, "panel must split evenly over the CTA");
+  static constexpr int PER = ROWS * BK / THREADS;
+  float r[PER];
+
+  __device__ __forceinline__ void load(const T* __restrict__ p, int64_t s_row, int64_t s_k,
+                                       int row0, int rows, int k0, int K, bool k_fast,
+                                       int tid) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int idx = tid + i * THREADS;
+      const int rr = k_fast ? idx / BK : idx % ROWS;
+      const int kk = k_fast ? idx % BK : idx / ROWS;
+      const int gr = row0 + rr, gk = k0 + kk;
+      r[i] = (gr < rows && gk < K) ? to_f(p[(int64_t)gr * s_row + (int64_t)gk * s_k]) : 0.f;
+    }
+  }
+
+  // Shared layout [BK][ROWS + 1]: the odd row pitch keeps both walk orders
+  // free of bank conflicts.
+  __device__ __forceinline__ void store(float (*s)[ROWS + 1], bool k_fast, int tid) const {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int idx = tid + i * THREADS;
+      const int rr = k_fast ? idx / BK : idx % ROWS;
+      const int kk = k_fast ? idx % BK : idx / ROWS;
+      s[kk][rr] = r[i];
+    }
+  }
+};
+
+// acc[nb] += op(A)[m0:m0+BM, :] . op(B_nb)[:, n0:n0+BN] for NB panels B_nb
+// that share the A panel (NB = 2 is the fused SwiGLU pair).
+template <class C, int NB, typename TA, typename TB>
+__device__ __forceinline__ void accumulate(float (&acc)[NB][C::TM][C::TN],
+                                           const TA* __restrict__ a, int64_t sam, int64_t sak,
+                                           const TB* const (&b)[NB], int64_t sbk, int64_t sbn,
+                                           int M, int N, int K, int m0, int n0) {
+  __shared__ float sA[C::BK][C::BM + 1];
+  __shared__ float sB[NB][C::BK][C::BN + 1];
+  const int tid = threadIdx.x;
+  const int tx = tid % (C::BN / C::TN);
+  const int ty = tid / (C::BN / C::TN);
+  const bool a_kfast = (sak == 1);
+  const bool b_kfast = (sbk == 1);
+
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int i = 0; i < C::TM; ++i)
+#pragma unroll
+      for (int j = 0; j < C::TN; ++j) acc[nb][i][j] = 0.f;
+
+  Panel<C::BM, C::BK, C::THREADS, TA> pa;
+  Panel<C::BN, C::BK, C::THREADS, TB> pb[NB];
+  pa.load(a, sam, sak, m0, M, 0, K, a_kfast, tid);
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb) pb[nb].load(b[nb], sbn, sbk, n0, N, 0, K, b_kfast, tid);
+
+  for (int k0 = 0; k0 < K; k0 += C::BK) {
+    __syncthreads();  // the previous step's reads of shared memory are done
+    pa.store(sA, a_kfast, tid);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) pb[nb].store(sB[nb], b_kfast, tid);
+    __syncthreads();
+    if (k0 + C::BK < K) {  // stage the next step while this one computes
+      pa.load(a, sam, sak, m0, M, k0 + C::BK, K, a_kfast, tid);
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+        pb[nb].load(b[nb], sbn, sbk, n0, N, k0 + C::BK, K, b_kfast, tid);
+    }
+#pragma unroll
+    for (int kk = 0; kk < C::BK; ++kk) {
+      float av[C::TM];
+#pragma unroll
+      for (int i = 0; i < C::TM; ++i) av[i] = sA[kk][ty + i * (C::BM / C::TM)];
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int j = 0; j < C::TN; ++j) {
+          const float bv = sB[nb][kk][tx + j * (C::BN / C::TN)];
+#pragma unroll
+          for (int i = 0; i < C::TM; ++i) acc[nb][i][j] = fmaf(av[i], bv, acc[nb][i][j]);
+        }
+    }
+  }
+}
+
+// Flush-time epilogue operands.  Vectors are fp32 (N,) shared by every group
+// (group stride 0) or (G, N) per group (group stride N).
+struct EpiArgs {
+  const float* scale_vec;
+  int64_t scale_vec_g;
+  int has_scale;
+  float scale;
+  const float* bias;
+  int64_t bias_g;
+  int act;               // 0 none, 1 silu, 2 gelu (tanh form)
+  const void* residual;  // (G, M, N) contiguous, the operands' type
+  int64_t res_g;
+};
+
+template <typename TR>
+__device__ __forceinline__ float apply_epi(float v, const EpiArgs& e, int g, int row, int col,
+                                           int N) {
+  if (e.scale_vec) v *= e.scale_vec[g * e.scale_vec_g + col];
+  if (e.has_scale) v *= e.scale;
+  if (e.bias) v += e.bias[g * e.bias_g + col];
+  if (e.act == 1) {
+    v = v * (1.f / (1.f + expf(-v)));
+  } else if (e.act == 2) {
+    const float c = 0.7978845608028654f;  // sqrt(2 / pi)
+    v = 0.5f * v * (1.f + tanhf(c * (v + 0.044715f * v * v * v)));
+  }
+  if (e.residual)
+    v += to_f(static_cast<const TR*>(e.residual)[g * e.res_g + (int64_t)row * N + col]);
+  return v;
+}
+
+// Which output tile this CTA owns: blockIdx.x walks the (M, N) tile grid with
+// M outer ("mn") or N outer ("nm"), the reference's dim_order.
+__device__ __forceinline__ void tile_coords(int BM, int BN, int M, int N, int nm_order, int& m0,
+                                            int& n0) {
+  const int gm = cdiv(M, BM), gn = cdiv(N, BN);
+  const int t = blockIdx.x;
+  const int mt = nm_order ? t % gm : t / gn;
+  const int nt = nm_order ? t / gm : t % gn;
+  m0 = mt * BM;
+  n0 = nt * BN;
+}
+
+}  // namespace ftimm

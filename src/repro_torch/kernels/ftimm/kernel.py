@@ -1,0 +1,384 @@
+"""ftIMM GEMM kernels for Hopper, with their plain PyTorch versions.
+
+The kernels are CUDA C++ for ``sm_90a`` in ``csrc/``, one source per kernel:
+
+  * ``ftimm_gemm``          dense C = epi(op(A) . op(B)), trans nn / tn / nt;
+  * ``ftimm_gemm_swiglu``   silu(x . Wg) * (x . Wu) in one launch;
+  * ``ftimm_gemm_grouped``  one GEMM per group, either operand may be shared.
+
+Each is compiled by ``nvcc`` at first use into a shared library with a plain
+C interface under the git-ignored ``build/ftimm/`` directory of the checkout
+(one ``nvcc`` per source, all started together; a library is named by the
+hash of the sources and flags, so an edit never reuses a stale build) and
+bound with ``ctypes``.
+
+Every wrapper decides its engine by the device of the tensor it is given: a
+CPU tensor takes the plain version (the ``*_plain`` functions here, built on
+``ref``), a CUDA tensor launches the kernel or raises -- there is no path on
+which a CUDA tensor quietly takes the plain version.  Each successful launch
+adds one to that kernel's count (``launch_counts``), and nothing else does.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+from . import ref
+from .epilogue import IDENTITY, Epilogue
+
+KERNELS = ("ftimm_gemm", "ftimm_gemm_swiglu", "ftimm_gemm_grouped")
+CSRC = Path(__file__).with_name("csrc")
+BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "ftimm"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# The compiled tile menu (bm, bn, bk), in the order of Tile0..Tile3 in
+# csrc/ftimm_common.cuh.  The planner chooses among exactly these.
+TILES = ((16, 32, 64), (32, 64, 32), (64, 64, 32), (128, 128, 16))
+
+# (operand dtype, output dtype) -> the type code of the C entries.
+_TYPE_CODES = {
+    (torch.bfloat16, torch.bfloat16): 0,
+    (torch.bfloat16, torch.float32): 1,
+    (torch.float32, torch.float32): 2,
+}
+_ACT_CODES = {"none": 0, "silu": 1, "gelu": 2}
+
+_launches = dict.fromkeys(KERNELS, 0)
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches since the last ``reset_launch_counts``."""
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    for name in _launches:
+        _launches[name] = 0
+
+
+def smem_bytes(bm: int, bn: int, bk: int, panels: int = 1) -> int:
+    """Static shared memory of one CTA: fp32 [bk][bm+1] A panel plus
+    ``panels`` [bk][bn+1] B panels (2 for the fused SwiGLU pair)."""
+    return 4 * (bk * (bm + 1) + panels * bk * (bn + 1))
+
+
+def tile_id(bm: int, bn: int, bk: int) -> int:
+    try:
+        return TILES.index((bm, bn, bk))
+    except ValueError:
+        raise ValueError(f"({bm}, {bn}, {bk}) is not a compiled tile; "
+                         f"the menu is {TILES}") from None
+
+
+def mkn(trans: str, a_shape, b_shape) -> tuple[int, int, int]:
+    if trans == "nn":
+        (m, k), (_, n) = a_shape, b_shape
+    elif trans == "tn":
+        (k, m), (_, n) = a_shape, b_shape
+    elif trans == "nt":
+        (m, k), (n, _) = a_shape, b_shape
+    else:
+        raise ValueError(f"unknown trans: {trans!r}")
+    return m, k, n
+
+
+# ---------------------------------------------------------------------------
+# Build and bind
+# ---------------------------------------------------------------------------
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None and Path("/usr/local/cuda/bin/nvcc").exists():
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError("nvcc not found: the ftIMM CUDA kernels are built "
+                           "on a machine with the CUDA toolkit")
+    return path
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.iterdir()):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build(names=KERNELS) -> dict[str, Path]:
+    """Compile every kernel library that is not built yet, one ``nvcc`` per
+    source, all started together.  Returns {kernel: library path}; raises
+    with the compiler's output when a build fails.  The compiler's report
+    (``-Xptxas -v``: registers, shared memory, spills) stays in a ``.log``
+    beside each library."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    running = []
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        with open(out.with_suffix(".log"), "w") as log:
+            proc = subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                stdout=log, stderr=subprocess.STDOUT)
+        running.append((name, proc, tmp, out))
+    failed = []
+    for name, proc, tmp, out in running:
+        if proc.wait() != 0:
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n"
+                          + out.with_suffix(".log").read_text())
+        else:
+            os.replace(tmp, out)   # atomic: a concurrent builder sees all or nothing
+    if failed:
+        raise RuntimeError("ftIMM kernel build failed:\n" + "\n".join(failed))
+    return {name: _lib_path(name) for name in names}
+
+
+_VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_ARGTYPES = {
+    "ftimm_gemm": [_I, _I, _I, _VP, _VP, _VP, _I, _I, _I, _LL, _LL, _LL, _LL,
+                   _I, _VP, _I, _F, _VP, _I, _VP, _VP],
+    "ftimm_gemm_swiglu": [_I, _I, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _LL, _LL,
+                          _LL, _LL, _VP],
+    "ftimm_gemm_grouped": [_I, _I, _I, _VP, _VP, _VP, _I, _I, _I, _I, _LL, _LL,
+                           _LL, _LL, _LL, _LL, _I, _VP, _LL, _I, _F, _VP, _LL,
+                           _I, _VP, _VP],
+}
+_entries: dict[str, object] = {}
+_libs: list[ctypes.CDLL] = []     # keeps the loaded libraries alive
+
+
+def _entry(name: str):
+    fn = _entries.get(name)
+    if fn is None:
+        lib = ctypes.CDLL(str(build()[name]))
+        _libs.append(lib)
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        _entries[name] = fn
+    return fn
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = _entry(name)(device.index or 0, *args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    _launches[name] += 1
+
+
+def _cuda_operands(name: str, a: torch.Tensor, b: torch.Tensor, out_dtype,
+                   *others) -> int:
+    """Check what the CUDA kernels take; return the type code."""
+    if a.device.type != "cuda":
+        raise ValueError(f"{name}: tensors on {a.device} have no kernel "
+                         "(CPU tensors take the plain version)")
+    for t in (b, *others):
+        if t is not None and t.device != a.device:
+            raise ValueError(f"{name}: operands on {a.device} and {t.device}")
+    code = _TYPE_CODES.get((a.dtype, out_dtype))
+    if code is None or b.dtype != a.dtype:
+        raise NotImplementedError(
+            f"{name}: {a.dtype} x {b.dtype} -> {out_dtype} has no kernel yet "
+            "(bf16 -> bf16/fp32 and fp32 -> fp32 are built; the int8, fp8 "
+            "and mixed paths come with quantization)")
+    return code
+
+
+def _vec(v: torch.Tensor | None) -> torch.Tensor | None:
+    return None if v is None else v.to(torch.float32).contiguous()
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _residual(residual, shape, dtype) -> torch.Tensor | None:
+    if residual is None:
+        return None
+    if tuple(residual.shape) != tuple(shape) or not residual.is_contiguous():
+        raise ValueError(f"residual must be contiguous {tuple(shape)}, got "
+                         f"{tuple(residual.shape)}")
+    if residual.dtype != dtype:
+        raise ValueError(f"residual must have the operands' dtype {dtype}, "
+                         f"got {residual.dtype}")
+    return residual
+
+
+def _epi_scalars(epi: Epilogue) -> tuple[int, float, int]:
+    return (int(epi.scale is not None),
+            0.0 if epi.scale is None else float(epi.scale),
+            _ACT_CODES[epi.activation])
+
+
+# ---------------------------------------------------------------------------
+# Dense GEMM  (replaces src/repro/kernels/ftimm/kernel.py:ftimm_gemm)
+# ---------------------------------------------------------------------------
+
+def ftimm_gemm_plain(a, b, *, trans: str = "nn", out_dtype=None,
+                     epilogue: Epilogue = IDENTITY, bias=None, residual=None,
+                     scale=None) -> torch.Tensor:
+    """Plain version of ``ftimm_gemm``: fp32-accumulating matmul, the
+    epilogue on the fp32 result, then the output cast."""
+    out_dtype = out_dtype or a.dtype
+    if epilogue.is_identity:
+        return ref.REF[trans](a, b, out_dtype)
+    z = ref.REF[trans](a, b, torch.float32)
+    return epilogue.apply(z, bias=bias, residual=residual,
+                          scale=scale).to(out_dtype)
+
+
+def ftimm_gemm(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int, bk: int,
+               trans: str = "nn", dim_order: str = "mn", out_dtype=None,
+               epilogue: Epilogue = IDENTITY, bias=None, residual=None,
+               scale=None) -> torch.Tensor:
+    """C = epi(op(A) . op(B)) -> (M, N).  trans "nn": A (M,K), B (K,N);
+    "tn": A (K,M); "nt": B (N,K).  Operands may be any strided 2-D views.
+    ``bias`` / ``scale`` (N,) and ``residual`` (M, N) ride along when the
+    epilogue asks for them; the residual has the operands' dtype."""
+    m, k, n = mkn(trans, a.shape, b.shape)
+    out_dtype = out_dtype or a.dtype
+    if a.device.type == "cpu":
+        return ftimm_gemm_plain(a, b, trans=trans, out_dtype=out_dtype,
+                                epilogue=epilogue, bias=bias,
+                                residual=residual, scale=scale)
+    bias = bias if epilogue.bias else None
+    scale = scale if epilogue.scale_vec else None
+    types = _cuda_operands("ftimm_gemm", a, b, out_dtype, bias, residual, scale)
+    tile = tile_id(bm, bn, bk)
+    res = _residual(residual if epilogue.residual else None, (m, n), a.dtype)
+    bias32, scale32 = _vec(bias), _vec(scale)
+    sam, sak = ((a.stride(1), a.stride(0)) if trans == "tn"
+                else (a.stride(0), a.stride(1)))
+    sbk, sbn = ((b.stride(1), b.stride(0)) if trans == "nt"
+                else (b.stride(0), b.stride(1)))
+    c = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    if m == 0 or n == 0:
+        return c
+    has_scale, scale_val, act = _epi_scalars(epilogue)
+    _launch("ftimm_gemm", a.device, tile, types, a.data_ptr(), b.data_ptr(),
+            c.data_ptr(), m, n, k, sam, sak, sbk, sbn, int(dim_order == "nm"),
+            _ptr(scale32), has_scale, scale_val, _ptr(bias32), act, _ptr(res))
+    return c
+
+
+# ---------------------------------------------------------------------------
+# Fused SwiGLU pair  (replaces kernel.py:ftimm_gemm_swiglu)
+# ---------------------------------------------------------------------------
+
+def ftimm_gemm_swiglu_plain(x, w_gate, w_up, *, out_dtype=None) -> torch.Tensor:
+    """Plain version of ``ftimm_gemm_swiglu``."""
+    g = ref.matmul_nn(x, w_gate, torch.float32)
+    u = ref.matmul_nn(x, w_up, torch.float32)
+    return (g * torch.sigmoid(g) * u).to(out_dtype or x.dtype)
+
+
+def ftimm_gemm_swiglu(x: torch.Tensor, w_gate: torch.Tensor,
+                      w_up: torch.Tensor, *, bm: int, bn: int, bk: int,
+                      out_dtype=None) -> torch.Tensor:
+    """silu(x @ Wg) * (x @ Wu): x (M, K), both panels (K, N) -> (M, N)."""
+    m, k = x.shape
+    kw, n = w_gate.shape
+    if kw != k or w_up.shape != w_gate.shape:
+        raise ValueError(f"swiglu shapes {tuple(x.shape)} x "
+                         f"{tuple(w_gate.shape)} / {tuple(w_up.shape)}")
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu":
+        return ftimm_gemm_swiglu_plain(x, w_gate, w_up, out_dtype=out_dtype)
+    types = _cuda_operands("ftimm_gemm_swiglu", x, w_gate, out_dtype, w_up)
+    if w_up.dtype != x.dtype or w_up.stride() != w_gate.stride():
+        raise ValueError("swiglu panels must share dtype and layout")
+    tile = tile_id(bm, bn, bk)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if m == 0 or n == 0:
+        return out
+    _launch("ftimm_gemm_swiglu", x.device, tile, types, x.data_ptr(),
+            w_gate.data_ptr(), w_up.data_ptr(), out.data_ptr(), m, n, k,
+            x.stride(0), x.stride(1), w_gate.stride(0), w_gate.stride(1))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Grouped GEMM  (replaces kernel.py:ftimm_gemm_grouped / ftimm_gemm_batched)
+# ---------------------------------------------------------------------------
+
+def _per_group(v):
+    """(G, N) per-group vectors broadcast over the rows of (G, M, N)."""
+    return v if v is None or v.ndim == 1 else v.unsqueeze(-2)
+
+
+def ftimm_gemm_grouped_plain(a, b, *, trans: str = "nn", out_dtype=None,
+                             epilogue: Epilogue = IDENTITY, bias=None,
+                             residual=None, scale=None) -> torch.Tensor:
+    """Plain version of ``ftimm_gemm_grouped`` (a 2-D operand broadcasts
+    over the groups)."""
+    out_dtype = out_dtype or a.dtype
+    z = ref.REF[trans](a, b, torch.float32)
+    if not epilogue.is_identity:
+        z = epilogue.apply(z, bias=_per_group(bias), residual=residual,
+                           scale=_per_group(scale))
+    return z.to(out_dtype)
+
+
+def ftimm_gemm_grouped(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int,
+                       bk: int, trans: str = "nn", dim_order: str = "mn",
+                       out_dtype=None, epilogue: Epilogue = IDENTITY,
+                       bias=None, residual=None, scale=None) -> torch.Tensor:
+    """Grouped GEMM -> (G, M, N).  Either operand may be 3-D (one panel per
+    group) or 2-D (one panel shared by every group); at least one is 3-D.
+    ``bias`` / ``scale`` are (N,) shared or (G, N) per group, ``residual``
+    (G, M, N)."""
+    if a.ndim not in (2, 3) or b.ndim not in (2, 3) or a.ndim + b.ndim < 5:
+        raise ValueError(f"grouped GEMM needs a 3-D operand: {tuple(a.shape)}"
+                         f" x {tuple(b.shape)}")
+    if a.ndim == 3 and b.ndim == 3 and a.shape[0] != b.shape[0]:
+        raise ValueError(f"group counts differ: {tuple(a.shape)} x "
+                         f"{tuple(b.shape)}")
+    g = a.shape[0] if a.ndim == 3 else b.shape[0]
+    m, k, n = mkn(trans, a.shape[-2:], b.shape[-2:])
+    out_dtype = out_dtype or a.dtype
+    if a.device.type == "cpu":
+        return ftimm_gemm_grouped_plain(a, b, trans=trans, out_dtype=out_dtype,
+                                        epilogue=epilogue, bias=bias,
+                                        residual=residual, scale=scale)
+    bias = bias if epilogue.bias else None
+    scale = scale if epilogue.scale_vec else None
+    types = _cuda_operands("ftimm_gemm_grouped", a, b, out_dtype, bias,
+                           residual, scale)
+    if g > 65535:
+        raise ValueError(f"{g} groups exceed the grid's z extent (65535)")
+    for v in (bias, scale):
+        if v is not None and tuple(v.shape) not in ((n,), (g, n)):
+            raise ValueError(f"epilogue vector {tuple(v.shape)} is neither "
+                             f"({n},) nor ({g}, {n})")
+    tile = tile_id(bm, bn, bk)
+    res = _residual(residual if epilogue.residual else None, (g, m, n),
+                    a.dtype)
+    bias32, scale32 = _vec(bias), _vec(scale)
+
+    def strides(t, rows_first: bool):
+        gs = t.stride(0) if t.ndim == 3 else 0
+        s0, s1 = t.stride(-2), t.stride(-1)
+        return (gs, s0, s1) if rows_first else (gs, s1, s0)
+
+    sag, sam, sak = strides(a, trans != "tn")
+    sbg, sbk, sbn = strides(b, trans != "nt")
+    c = torch.empty((g, m, n), dtype=out_dtype, device=a.device)
+    if g == 0 or m == 0 or n == 0:
+        return c
+    has_scale, scale_val, act = _epi_scalars(epilogue)
+    _launch("ftimm_gemm_grouped", a.device, tile, types, a.data_ptr(),
+            b.data_ptr(), c.data_ptr(), g, m, n, k, sag, sam, sak, sbg, sbk,
+            sbn, int(dim_order == "nm"), _ptr(scale32),
+            0 if scale is None or scale.ndim == 1 else n, has_scale, scale_val,
+            _ptr(bias32), 0 if bias is None or bias.ndim == 1 else n, act,
+            _ptr(res))
+    return c

@@ -1,0 +1,101 @@
+"""Public wrappers around the ftIMM kernels: ``gemm``, ``gemm_swiglu``,
+``batched_gemm`` and the timing primitive ``bench``.
+
+Edges are always masked in-kernel: unpadded operands go straight to the
+kernels and the output comes back unsliced, so no pad or slice copy ever
+touches device memory.  Requested blocks are clamped to the problem extent
+and mapped onto the compiled tile menu (``kernel.TILES``); each compiled
+tile carries its own K step, so ``bk`` follows the tile.
+"""
+from __future__ import annotations
+
+import time
+
+import torch
+
+from . import kernel as _k
+from .epilogue import Epilogue
+
+
+def _ceil_to(x: int, b: int) -> int:
+    return (x + b - 1) // b * b
+
+
+def clamp_tile(m: int, n: int, bm: int, bn: int) -> tuple[int, int, int]:
+    """The largest compiled tile within the requested blocks, after the
+    blocks are clamped to the (rounded) problem extent: a 4-row GEMM under a
+    128-row request runs the 16-row tile instead of masking 124 rows."""
+    bm_ = min(bm, _ceil_to(max(m, 1), 16))
+    bn_ = min(bn, _ceil_to(max(n, 1), 32))
+    for tile in reversed(_k.TILES):
+        if tile[0] <= bm_ and tile[1] <= bn_:
+            return tile
+    return _k.TILES[0]
+
+
+def bench(fn, *args, warmup: int = 1, repeats: int = 3) -> float:
+    """Median seconds of one ``fn(*args)``.  When an argument lies on a
+    CUDA device each repeat is timed with CUDA events around the call (the
+    device's time, not the enqueue); otherwise with the host clock."""
+    cuda = any(isinstance(a, torch.Tensor) and a.is_cuda for a in args)
+    for _ in range(max(warmup, 1)):
+        fn(*args)
+    ts = []
+    for _ in range(max(repeats, 1)):
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(*args)
+            end.record()
+            end.synchronize()
+            ts.append(start.elapsed_time(end) / 1e3)
+        else:
+            t0 = time.perf_counter()
+            fn(*args)
+            ts.append(time.perf_counter() - t0)
+    ts.sort()
+    return ts[len(ts) // 2]
+
+
+def gemm(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bn: int = 128,
+         bk: int = 16, trans: str = "nn", dim_order: str = "mn",
+         out_dtype=None, epilogue: Epilogue | None = None, bias=None,
+         residual=None, scale=None) -> torch.Tensor:
+    """Dense ftIMM GEMM with the epilogue fused at the flush.  ``scale`` is
+    the (N,) dequant vector when ``epilogue.scale_vec``."""
+    if dim_order not in ("mn", "nm"):
+        raise ValueError(f"unknown dim_order: {dim_order!r}")
+    m, _, n = _k.mkn(trans, a.shape, b.shape)
+    bm, bn, bk = clamp_tile(m, n, bm, bn)
+    return _k.ftimm_gemm(a, b, bm=bm, bn=bn, bk=bk, trans=trans,
+                         dim_order=dim_order, out_dtype=out_dtype,
+                         epilogue=epilogue or _k.IDENTITY, bias=bias,
+                         residual=residual, scale=scale)
+
+
+def batched_gemm(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
+                 bn: int = 128, bk: int = 16, trans: str = "nn",
+                 dim_order: str = "mn", out_dtype=None,
+                 epilogue: Epilogue | None = None, bias=None, residual=None,
+                 scale=None) -> torch.Tensor:
+    """Batched / grouped entry.  Either operand may be 2-D (shared across
+    the batch); ``bias`` and ``scale`` are (N,) shared or (G, N) per group,
+    ``residual`` (G, M, N)."""
+    if dim_order not in ("mn", "nm"):
+        raise ValueError(f"unknown dim_order: {dim_order!r}")
+    m, _, n = _k.mkn(trans, a.shape[-2:], b.shape[-2:])
+    bm, bn, bk = clamp_tile(m, n, bm, bn)
+    return _k.ftimm_gemm_grouped(a, b, bm=bm, bn=bn, bk=bk, trans=trans,
+                                 dim_order=dim_order, out_dtype=out_dtype,
+                                 epilogue=epilogue or _k.IDENTITY, bias=bias,
+                                 residual=residual, scale=scale)
+
+
+def gemm_swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+                *, bm: int = 128, bn: int = 128, bk: int = 16,
+                out_dtype=None) -> torch.Tensor:
+    """Dense fused SwiGLU pair: silu(x @ Wg) * (x @ Wu) in one launch."""
+    bm, bn, bk = clamp_tile(x.shape[0], w_gate.shape[1], bm, bn)
+    return _k.ftimm_gemm_swiglu(x, w_gate, w_up, bm=bm, bn=bn, bk=bk,
+                                out_dtype=out_dtype)

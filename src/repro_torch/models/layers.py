@@ -1,0 +1,91 @@
+"""Shared building blocks: norms, projections, rotary embeddings, MLPs.
+
+All dense contractions route through ``core.gemm.project`` so the ftIMM
+planner sees every GEMM and the CUDA kernels run them on the card.  Weights
+are cast to ``compute_dtype`` once, when the model is built
+(``models.model.init_params`` / ``models.weights.from_numpy_params``); the
+reference casts its fp32 master weights at every use, which gives the same
+values.
+
+Elementwise layer tails fuse into their producing GEMM: ``dense`` takes
+optional ``bias`` / ``residual`` / ``activation`` (an ``Epilogue`` applied at
+the fp32 accumulator flush), and ``swiglu`` runs its gate/up pair as one
+fused kernel launch with the residual add fused into the down projection.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.gemm import project, project_swiglu
+from ..kernels.ftimm.epilogue import Epilogue
+
+
+def dense(x: torch.Tensor, w: torch.Tensor, compute_dtype=torch.bfloat16, *,
+          bias: torch.Tensor | None = None,
+          residual: torch.Tensor | None = None,
+          activation: str = "none") -> torch.Tensor:
+    """y = act(x @ w + bias) + residual with fp32 accumulation; the tail,
+    when present, is a fused GEMM epilogue."""
+    epi = Epilogue(bias=bias is not None, activation=activation,
+                   residual=residual is not None)
+    return project(
+        x.to(compute_dtype), w.to(compute_dtype), out_dtype=compute_dtype,
+        epilogue=None if epi.is_identity else epi,
+        bias=None if bias is None else bias.to(compute_dtype),
+        residual=None if residual is None else residual.to(compute_dtype))
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm in fp32 with the (1 + scale) gain, cast back to x's dtype."""
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps) * (1.0 + scale.to(torch.float32))
+    return out.to(dtype)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor, compute_dtype=torch.bfloat16,
+           residual: torch.Tensor | None = None) -> torch.Tensor:
+    """SwiGLU MLP: down(silu(gate(x)) * up(x)) [+ residual], the gate/up
+    pair as one fused launch and the residual add in the down projection's
+    epilogue."""
+    h = project_swiglu(x.to(compute_dtype), w_gate.to(compute_dtype),
+                       w_up.to(compute_dtype), out_dtype=compute_dtype)
+    return dense(h, w_down, compute_dtype, residual=residual)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float = 10000.0) -> torch.Tensor:
+    """Rotary position embedding. x: (..., S, H, D), positions: (..., S)."""
+    d = x.shape[-1]
+    half = d // 2
+    exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freq = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                  device=x.device), exps)
+    angles = positions[..., None].to(torch.float32) * freq   # (..., S, half)
+    angles = angles[..., None, :]                            # (..., S, 1, half)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def embed(tokens: torch.Tensor, table: torch.Tensor,
+          compute_dtype=torch.bfloat16) -> torch.Tensor:
+    return table.to(compute_dtype)[tokens]
+
+
+def unembed(x: torch.Tensor, table: torch.Tensor, vocab_size: int,
+            compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Logits = x @ E^T over the (padded) vocab table; padded slots masked.
+    The GEMM runs "nt" against the (V, D) table itself, so no transposed
+    copy of the table is ever made."""
+    logits = project(x.to(compute_dtype), table.to(compute_dtype), trans="nt",
+                     out_dtype=torch.float32)
+    pad = logits.shape[-1] - vocab_size
+    if pad > 0:
+        mask = torch.arange(logits.shape[-1], device=logits.device) < vocab_size
+        logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    return logits

@@ -1,0 +1,108 @@
+"""The dense decoder stack: per-layer modules and the cached forward.
+
+The reference scans one traced body over layer-stacked parameters
+(``lax.scan``); PyTorch runs eagerly, so here each layer is its own module
+and the stack is a Python loop over them.  Caches keep the reference's
+layer-stacked layout -- dense (L, B, S, KVH, D) or the paged pool
+(L, P, page, KVH, D) -- and are written in place.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from .attention import AttentionParams, attention, frozen, init_attention_params
+from .layers import rms_norm, swiglu
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.compute_dtype)
+
+
+class MLPParams(nn.Module):
+    """w_gate / w_up (D, F) and w_down (F, D), in the compute dtype."""
+
+    def __init__(self, w_gate, w_up, w_down):
+        super().__init__()
+        self.w_gate, self.w_up, self.w_down = map(frozen, (w_gate, w_up, w_down))
+
+
+class DenseBlock(nn.Module):
+    """One decoder layer: ln1 -> attention -> ln2 -> SwiGLU MLP.  The norm
+    scales stay fp32 (the norm runs in fp32 either way)."""
+
+    def __init__(self, ln1, attn: AttentionParams, ln2, mlp: MLPParams):
+        super().__init__()
+        self.ln1, self.ln2 = frozen(ln1), frozen(ln2)
+        self.attn, self.mlp = attn, mlp
+
+
+def check_family(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"the {cfg.family} family is not ported yet (dense only)")
+
+
+def init_dense_block(gen: torch.Generator, cfg: ModelConfig,
+                     device: torch.device) -> DenseBlock:
+    """The reference's initialisation, drawn from ``gen``: He-scaled normal
+    projections, zero norm scales."""
+    dt = compute_dtype(cfg)
+    d, f = cfg.d_model, cfg.d_ff
+
+    def he(shape, fan_in):
+        return (torch.randn(shape, generator=gen, device=device)
+                * (2.0 / fan_in) ** 0.5).to(dt)
+
+    attn = init_attention_params(
+        gen, d, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_,
+        qk_norm=cfg.qk_norm, dtype=dt, device=device)
+    mlp = MLPParams(he((d, f), d), he((d, f), d), he((f, d), f))
+    zeros = torch.zeros(d, device=device)
+    return DenseBlock(zeros, attn, zeros.clone(), mlp)
+
+
+def dense_block(h: torch.Tensor, p: DenseBlock, cfg: ModelConfig, *,
+                positions: torch.Tensor, window: int, kv=None,
+                cache_index=None, causal: bool = True, use_rope: bool = True,
+                page_table: torch.Tensor | None = None):
+    """Returns (h, new_kv).  The residual adds ride the out-projections'
+    fused epilogues instead of separate elementwise passes."""
+    cdt = compute_dtype(cfg)
+    h, new_kv = attention(
+        rms_norm(h, p.ln1), p.attn,
+        num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.head_dim_, positions=positions, window=window,
+        causal=causal, qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
+        use_rope=use_rope, kv_cache=kv, cache_index=cache_index,
+        compute_dtype=cdt, residual=h, page_table=page_table)
+    h = swiglu(rms_norm(h, p.ln2), p.mlp.w_gate, p.mlp.w_up, p.mlp.w_down,
+               cdt, residual=h)
+    return h, new_kv
+
+
+def stack_cached(layers: nn.ModuleList, cfg: ModelConfig, h: torch.Tensor,
+                 positions: torch.Tensor, cache: dict, cache_index, *,
+                 causal: bool = True, use_rope: bool = True,
+                 page_table: torch.Tensor | None = None):
+    """Run the stack with KV caches (prefill and decode), writing each
+    layer's K/V into ``cache`` in place.  -> (h, cache).  ``page_table``
+    (B, max_pages): the cache leaves are paged pools shared by every slot
+    (one table for every layer)."""
+    for layer, (p, w) in enumerate(zip(layers, cfg.windows())):
+        h, _ = dense_block(
+            h, p, cfg, positions=positions, window=w,
+            kv=(cache["k"][layer], cache["v"][layer]),
+            cache_index=cache_index, causal=causal, use_rope=use_rope,
+            page_table=page_table)
+    return h, cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: torch.device, dtype: torch.dtype | None = None) -> dict:
+    check_family(cfg)
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim_)
+    dtype = dtype or compute_dtype(cfg)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -17,6 +17,10 @@ def pytest_configure(config):
         "markers",
         "slow: subprocess tests that boot a fresh interpreter with fake "
         "devices (tests/helpers.py); deselect with -m 'not slow'")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the port's CUDA kernels); "
+        "skips with a reason elsewhere")
 
 
 @pytest.fixture(scope="session")

@@ -1,0 +1,139 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Run on a machine with an NVIDIA GPU and the CUDA toolkit:
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
+
+Elsewhere every test here skips with a reason (a CUDA kernel has no
+interpret mode).  Tolerances are normwise, max|kernel - plain| / max|plain|:
+2e-2 for a bf16 output (one bf16 ulp is 2^-8 relative) and 1e-4 for fp32
+(the two sum the same fp32 products in different orders).
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.ftimm import kernel as K  # noqa: E402
+from repro_torch.kernels.ftimm import ops  # noqa: E402
+from repro_torch.kernels.ftimm.epilogue import Epilogue  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(got, want):
+    tol = 2e-2 if got.dtype == torch.bfloat16 else 1e-4
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    scale = max(want.abs().max().item(), 1e-30)
+    assert torch.isfinite(got).all()
+    assert err <= tol * scale, (err, scale)
+
+
+def _operands(trans, m, k, n, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sa = {"nn": (m, k), "tn": (k, m), "nt": (m, k)}[trans]
+    sb = {"nn": (k, n), "tn": (k, n), "nt": (n, k)}[trans]
+    a = torch.randn(sa, generator=g, device=dev).to(dtype)
+    b = torch.randn(sb, generator=g, device=dev).to(dtype)
+    return a, b
+
+
+@pytest.mark.parametrize("tile", K.TILES)
+@pytest.mark.parametrize("trans", ["nn", "tn", "nt"])
+@pytest.mark.parametrize("m,k,n", [(33, 257, 65), (4, 2048, 2048),
+                                   (128, 512, 96)])
+@pytest.mark.parametrize("types", [(torch.bfloat16, torch.bfloat16),
+                                   (torch.bfloat16, torch.float32),
+                                   (torch.float32, torch.float32)])
+def test_dense_kernel(dev, tile, trans, m, k, n, types):
+    a, b = _operands(trans, m, k, n, types[0], dev)
+    bm, bn, bk = tile
+    got = K.ftimm_gemm(a, b, bm=bm, bn=bn, bk=bk, trans=trans,
+                       out_dtype=types[1])
+    torch.cuda.synchronize()
+    _close(got, K.ftimm_gemm_plain(a, b, trans=trans, out_dtype=types[1]))
+
+
+@pytest.mark.parametrize("epi", [
+    Epilogue(residual=True), Epilogue(bias=True, activation="silu"),
+    Epilogue(bias=True, activation="gelu", scale=0.5, residual=True),
+    Epilogue(scale_vec=True)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dense_epilogue(dev, epi, dtype):
+    m, k, n = 33, 257, 65
+    a, b = _operands("nn", m, k, n, dtype, dev, seed=1)
+    g = torch.Generator(device=dev).manual_seed(2)
+    bias = torch.randn(n, generator=g, device=dev).to(dtype)
+    res = torch.randn(m, n, generator=g, device=dev).to(dtype)
+    scale = torch.rand(n, generator=g, device=dev)
+    kw = dict(epilogue=epi, bias=bias if epi.bias else None,
+              residual=res if epi.residual else None,
+              scale=scale if epi.scale_vec else None)
+    got = ops.gemm(a, b, **kw)
+    torch.cuda.synchronize()
+    _close(got, K.ftimm_gemm_plain(a, b, **kw))
+
+
+@pytest.mark.parametrize("tile", K.TILES)
+@pytest.mark.parametrize("m,k,n", [(33, 257, 65), (4, 2048, 6144)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_swiglu_kernel(dev, tile, m, k, n, dtype):
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+    wg = (torch.randn(k, n, generator=g, device=dev) / k ** 0.5).to(dtype)
+    wu = (torch.randn(k, n, generator=g, device=dev) / k ** 0.5).to(dtype)
+    bm, bn, bk = tile
+    got = K.ftimm_gemm_swiglu(x, wg, wu, bm=bm, bn=bn, bk=bk)
+    torch.cuda.synchronize()
+    _close(got, K.ftimm_gemm_swiglu_plain(x, wg, wu))
+
+
+@pytest.mark.parametrize("tile", K.TILES)
+@pytest.mark.parametrize("trans", ["nn", "tn", "nt"])
+@pytest.mark.parametrize("shared", ["none", "a", "b"])
+def test_grouped_kernel(dev, tile, trans, shared):
+    gsz, m, k, n = 5, 33, 129, 65
+    a, b = _operands(trans, m, k, n, torch.float32, dev, seed=4)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    if shared != "a":
+        a = torch.randn((gsz,) + tuple(a.shape), generator=gen, device=dev)
+    if shared != "b":
+        b = torch.randn((gsz,) + tuple(b.shape), generator=gen, device=dev)
+    bm, bn, bk = tile
+    got = K.ftimm_gemm_grouped(a, b, bm=bm, bn=bn, bk=bk, trans=trans)
+    torch.cuda.synchronize()
+    _close(got, K.ftimm_gemm_grouped_plain(a, b, trans=trans))
+
+
+@pytest.mark.parametrize("per_group", [False, True])
+def test_grouped_epilogue(dev, per_group):
+    gsz, m, k, n = 3, 17, 70, 40
+    gen = torch.Generator(device=dev).manual_seed(6)
+    a = torch.randn(gsz, m, k, generator=gen, device=dev).to(torch.bfloat16)
+    b = torch.randn(gsz, k, n, generator=gen, device=dev).to(torch.bfloat16)
+    bias = torch.randn((gsz, n) if per_group else (n,), generator=gen,
+                       device=dev).to(torch.bfloat16)
+    res = torch.randn(gsz, m, n, generator=gen, device=dev).to(torch.bfloat16)
+    epi = Epilogue(bias=True, residual=True)
+    got = ops.batched_gemm(a, b, epilogue=epi, bias=bias, residual=res)
+    torch.cuda.synchronize()
+    _close(got, K.ftimm_gemm_grouped_plain(a, b, epilogue=epi, bias=bias,
+                                           residual=res))
+
+
+def test_launch_counts_and_types(dev):
+    a, b = _operands("nn", 8, 16, 8, torch.bfloat16, dev)
+    K.reset_launch_counts()
+    ops.gemm(a, b)
+    assert K.launch_counts()["ftimm_gemm"] == 1
+    with pytest.raises(NotImplementedError):
+        ops.gemm(a.to(torch.float16), b.to(torch.float16))
+    assert K.launch_counts()["ftimm_gemm"] == 1

@@ -1,0 +1,203 @@
+"""The port's serving engine on the CPU: the same requests through the JAX
+``ServeEngine`` and the port's give the same tokens and terminal states
+(fp32 config, greedy), and the engine's paging, preemption, buckets and
+admission control behave as the reference's do."""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+
+from repro.configs import get_config as jget_config  # noqa: E402
+from repro.models.model import init_params as jinit_params  # noqa: E402
+from repro.serve import buckets as jbuckets  # noqa: E402
+from repro.serve.engine import Request as JRequest  # noqa: E402
+from repro.serve.engine import ServeEngine as JServeEngine  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models.model import init_params  # noqa: E402
+from repro_torch.models.weights import from_numpy_params  # noqa: E402
+from repro_torch.serve import buckets  # noqa: E402
+from repro_torch.serve.engine import Overloaded, Request, ServeEngine  # noqa: E402
+from repro_torch.serve.kv_pages import PageAllocator, PagesExhausted  # noqa: E402
+
+ARCH = "qwen3-1.7b-smoke"
+
+
+def _prompts(n, seed, lens=(12,)):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(2, 512, lens[i % len(lens)]).astype(np.int32)
+            for i in range(n)]
+
+
+def _engine(cfg=None, **kw):
+    cfg = cfg or get_config(ARCH)
+    kw.setdefault("device", "cpu")
+    return ServeEngine(cfg, init_params(cfg, 0, device="cpu"), **kw)
+
+
+def test_engine_matches_jax_engine():
+    """fp32 config, 2 slots, 3 requests (one waits for a slot), 4 new
+    tokens each: identical greedy tokens and terminal flags."""
+    jcfg = dataclasses.replace(jget_config(ARCH), compute_dtype="float32")
+    tcfg = dataclasses.replace(get_config(ARCH), compute_dtype="float32")
+    params = jinit_params(jcfg, jax.random.PRNGKey(0))
+    model = from_numpy_params(jax.tree.map(np.asarray, params), tcfg, "cpu")
+    prompts = _prompts(3, 0, lens=(12, 5, 9))
+    jreqs = JServeEngine(jcfg, params, batch_slots=2, max_len=32).run(
+        [JRequest(rid=i, prompt=p, max_new_tokens=4)
+         for i, p in enumerate(prompts)])
+    treqs = ServeEngine(tcfg, model, batch_slots=2, max_len=32,
+                        device="cpu").run(
+        [Request(rid=i, prompt=p, max_new_tokens=4)
+         for i, p in enumerate(prompts)])
+    for j, t in zip(jreqs, treqs):
+        assert t.out_tokens == j.out_tokens, (t.rid, t.out_tokens,
+                                              j.out_tokens)
+        assert (t.done, t.timed_out, t.shed) == (j.done, j.timed_out, j.shed)
+        assert t.done and len(t.out_tokens) == 4
+
+
+def test_batched_equals_single_with_mixed_lengths():
+    """Slots at different depths in one fused decode, and freed-slot reuse,
+    give each request its solo tokens."""
+    prompts = _prompts(4, 2, lens=(5, 12, 9, 7))
+    mnts = [3, 10, 6, 8]
+    single = [_engine(batch_slots=1, max_len=48).run(
+        [Request(rid=0, prompt=p, max_new_tokens=m)])[0].out_tokens
+        for p, m in zip(prompts, mnts)]
+    batched = _engine(batch_slots=2, max_len=48).run(
+        [Request(rid=i, prompt=p, max_new_tokens=m)
+         for i, (p, m) in enumerate(zip(prompts, mnts))])
+    assert [r.out_tokens for r in batched] == single
+
+
+def test_page_exhaustion_preempts_and_recovers():
+    """A pool too small for both requests' full depth: decode growth
+    preempts the youngest, which re-prefills prompt + generated tokens and
+    finishes with the tokens of an undisturbed run; the pool drains."""
+    prompts = _prompts(2, 5, lens=(6,))
+    mk = lambda: [Request(rid=i, prompt=p, max_new_tokens=8)  # noqa: E731
+                  for i, p in enumerate(prompts)]
+    ref = [r.out_tokens for r in _engine(batch_slots=2, max_len=32,
+                                         page_size=4).run(mk())]
+    eng = _engine(batch_slots=2, max_len=32, page_size=4, num_pages=6)
+    out = eng.run(mk())
+    assert [r.out_tokens for r in out] == ref
+    assert eng.faults["preemptions"] >= 1
+    assert eng.health()["degraded_mode"]
+    eng.alloc.check()
+    assert eng.alloc.available == eng.alloc.total
+
+
+def test_one_token_request_stops_after_its_prefill_token():
+    """The prefill's token can be a request's last: the engine finishes it
+    at once instead of decoding one more (the reference's engine returns
+    two tokens for max_new_tokens=1)."""
+    eng = _engine(batch_slots=2, max_len=32)
+    reqs = eng.run([Request(rid=i, prompt=p, max_new_tokens=1 + i)
+                    for i, p in enumerate(_prompts(2, 12))])
+    assert [len(r.out_tokens) for r in reqs] == [1, 2]
+    assert all(r.done for r in reqs)
+    assert eng.alloc.available == eng.alloc.total
+
+
+def test_bucket_miss_takes_the_exact_prefill_rung():
+    prompt = _prompts(1, 6, lens=(20,))[0]
+    mk = lambda: [Request(rid=0, prompt=prompt, max_new_tokens=4)]  # noqa: E731
+    ref = _engine(batch_slots=1, max_len=32).run(mk())[0].out_tokens
+    eng = _engine(batch_slots=1, max_len=32, buckets=(8, 16))
+    assert eng.run(mk())[0].out_tokens == ref
+    assert eng.faults["bucket_misses"] == 1
+
+
+def test_admission_rejects_with_typed_overloaded():
+    eng = _engine(batch_slots=1, max_len=64)
+    eng.run([Request(rid=i, prompt=p, max_new_tokens=3)
+             for i, p in enumerate(_prompts(3, 7))])
+    assert eng.cost.calibrated()
+    with pytest.raises(Overloaded) as exc:
+        eng.submit(Request(rid=9, prompt=_prompts(1, 8)[0],
+                           max_new_tokens=50, deadline_s=1e-9))
+    assert exc.value.projected_s > exc.value.deadline_s
+    assert eng.faults["admission_rejected"] == 1
+    assert not eng.queue
+
+
+def test_oversized_request_rejected_up_front():
+    eng = _engine(batch_slots=1, max_len=64, page_size=4, num_pages=2)
+    with pytest.raises(Overloaded, match="KV pages"):
+        eng.submit(Request(rid=0, prompt=_prompts(1, 9)[0],
+                           max_new_tokens=20))
+
+
+def test_expired_deadline_frees_the_slot():
+    eng = _engine(batch_slots=1, max_len=32)
+    reqs = [Request(rid=0, prompt=_prompts(1, 10)[0], max_new_tokens=6,
+                    deadline_s=0.0)]
+    eng.run(reqs)
+    assert reqs[0].done and reqs[0].timed_out
+    assert eng.faults["deadline_expired"] == 1
+    assert eng.alloc.available == eng.alloc.total
+
+
+def test_detokenize_and_temperature_sampling():
+    eng = _engine(batch_slots=2, max_len=32, seed=3,
+                  detokenize=lambda t: f"<{t}>")
+    reqs = eng.run([Request(rid=i, prompt=p, max_new_tokens=5,
+                            temperature=1.0)
+                    for i, p in enumerate(_prompts(2, 11))])
+    for r in reqs:
+        assert len(r.out_tokens) == 5
+        assert all(0 <= t < 512 for t in r.out_tokens)
+        assert r.text == "".join(f"<{t}>" for t in r.out_tokens)
+    eng.close()
+
+
+def test_engine_without_a_device_needs_a_card(monkeypatch):
+    cfg = get_config(ARCH)
+    model = init_params(cfg, 0, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(cfg, model)
+
+
+def test_engine_refuses_parameters_on_another_device():
+    cfg = get_config(ARCH)
+    model = init_params(cfg, 0, device="cpu").to("meta")
+    with pytest.raises(ValueError, match="parameters live on"):
+        ServeEngine(cfg, model, device="cpu")
+
+
+def test_page_allocator_lifo_and_all_or_nothing():
+    a = PageAllocator(4, first=1)
+    assert a.alloc(2, "x") == [1, 2]
+    with pytest.raises(PagesExhausted) as exc:
+        a.alloc(3, "y")
+    assert (exc.value.needed, exc.value.available) == (3, 2)
+    assert a.available == 2 and a.owned("y") == []
+    assert a.free_owner("x") == [1, 2]
+    a.check()
+    assert a.alloc(1, "z") == [2]
+
+
+@pytest.mark.parametrize("max_prompt", [1, 31, 32, 100, 512])
+def test_buckets_match_jax(max_prompt):
+    ladder = buckets.make_buckets(max_prompt)
+    assert ladder == jbuckets.make_buckets(max_prompt)
+    for n in (1, 17, 32, 33, max_prompt, max_prompt + 1):
+        assert (buckets.bucket_for(n, ladder)
+                == jbuckets.bucket_for(n, ladder))
+    cfg, jcfg = get_config("qwen3-1.7b"), jget_config("qwen3-1.7b")
+    assert (buckets.gemm_signatures(cfg, 4)
+            == jbuckets.gemm_signatures(jcfg, 4))
+
+
+def test_launcher_runs_on_the_cpu_when_asked(capsys):
+    from repro_torch.launch import serve
+    serve.main(["--arch", ARCH, "--device", "cpu", "--requests", "3",
+                "--slots", "2", "--max-new", "3", "--prompt-len", "6"])
+    out = capsys.readouterr().out
+    assert out.count("req ") == 3 and "serving done" in out
