@@ -7,29 +7,44 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
 /usr/local/cuda/bin) and no network.  Phases, in order:
 
 1. the card's name and power limit, as nvidia-smi reports them;
-2. build the three ftIMM kernels from src/repro_torch/kernels/ftimm/csrc;
-3. hold each kernel against its plain PyTorch version on the card: the
-   shapes serving qwen3-1.7b gives it (decode at 4 slots, and a 64-token
-   bucket prefill), unaligned shapes, every trans, the residual epilogue and
-   the shared 2-D operand.  Normwise tolerance max|kernel - plain| /
-   max|plain|: 2e-2 for a bf16 output (2^-8 is one bf16 ulp), 1e-4 for
-   fp32 (the same fp32 products summed in another order);
-4. a small-input reference: qwen3-1.7b-smoke in fp32, its weights on the card
-   and on the CPU (where every GEMM takes the plain version): prefill logits
-   within 1e-4 normwise and the same greedy tokens from ServeEngine;
-5. serve qwen3-1.7b at full width and depth (28 layers, random weights from
-   seed 0, bf16) through ServeEngine: 6 greedy requests over 4 slots,
-   prompts in two length buckets, 16 new tokens each.  The kernels' launch
-   counts are zeroed just before the run and read just after; every kernel
-   must have launched.  Then one prompt's full-width prefill logits are held
-   against the plain versions on the CPU (5e-2 normwise: 28 bf16 layers,
-   each of whose activations may round one bf16 ulp apart);
-6. time each kernel at the decode-step shapes (CUDA events around calls
-   enqueued behind a sleep kernel, so the card runs them back to back;
-   operands rotated through more copies than the 50 MB L2 holds) beside its plain
-   version, one PyTorch library call where one computes the same function,
-   and its bound: the larger of bytes / 3.35 TB/s and operations / peak
-   (989 TFLOP/s bf16, 67 TFLOP/s fp32; NVIDIA's H100 SXM data sheet).
+2. [build] the six ftIMM kernels from src/repro_torch/kernels/ftimm/csrc,
+   one nvcc per source, all started together;
+3. [check] hold each kernel against its plain PyTorch version on the card:
+   the shapes that serving qwen3-1.7b, mixtral-8x7b and
+   llama4-scout-17b-a16e gives it (decode at 4 slots, and the bucket
+   prefills), unaligned shapes, every trans, the epilogues, the shared 2-D
+   operand, and ragged group distributions (4 rows to 4 distinct groups,
+   all rows to one group, empty groups, a group spanning several tiles,
+   rows outside every group, totals not a multiple of 16).  Normwise
+   tolerance max|kernel - plain| / max|plain|: 2e-2 for a bf16 output
+   (2^-8 is one bf16 ulp), 1e-4 for fp32 (the same fp32 products summed in
+   another order);
+4. [reference] small and full-width references: qwen3-1.7b-smoke in fp32,
+   its weights on the card and on the CPU (where every GEMM takes the plain
+   version): prefill logits within 1e-4 normwise and the same greedy tokens
+   from ServeEngine; then each MoE model in fp32 at full width and 2
+   layers, card against CPU: a prefill and two decode steps must choose the
+   same experts for every token in every layer, and then give logits within
+   1e-3 normwise (in bf16 one rounding can move a near-tied token to another
+   expert, which is a different routing, not an error);
+5. [serve] qwen3-1.7b at full width and depth (28 layers), then
+   mixtral-8x7b and llama4-scout-17b-a16e at full width and 8 layers
+   (neither fits one 80 GB card whole; 8 layers keep whole periods of each
+   window pattern), random bf16 weights from seed 0, one model on the card
+   at a time, through ServeEngine: 6 greedy requests over 4 slots, prompts
+   in two length buckets, 16 new tokens each.  The launch counts are zeroed
+   just before each run and read just after; every kernel of that model's
+   path must have launched.  Then one prompt's full-width qwen3 prefill
+   logits are held against the plain versions on the CPU (5e-2 normwise:
+   28 bf16 layers, each of whose activations may round one bf16 ulp apart);
+6. [time] each kernel at the decode-step shapes of the model it serves
+   (CUDA events around calls enqueued behind a sleep kernel, so the card
+   runs them back to back; operands rotated through more copies than the
+   50 MB L2 holds) beside its plain version, one PyTorch library call where
+   one computes the same function, and its bound: the larger of the bytes
+   this input needs / 3.35 TB/s and its operations / peak (989 TFLOP/s bf16,
+   67 TFLOP/s fp32; NVIDIA's H100 SXM data sheet).  A ragged call's bytes
+   count only the expert panels its rows reach.
 
 It prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` as
 the last line.  Any failure raises and exits non-zero before that line.
@@ -38,6 +53,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -53,20 +69,42 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core.gemm import batched_matmul, matmul, matmul_swiglu  # noqa: E402
+from repro_torch.core.gemm import (batched_matmul, grouped_swiglu,  # noqa: E402
+                                   matmul, matmul_swiglu, ragged_matmul,
+                                   ragged_swiglu)
 from repro_torch.kernels.ftimm import kernel as K  # noqa: E402
+from repro_torch.kernels.ftimm import ops  # noqa: E402
 from repro_torch.kernels.ftimm.epilogue import Epilogue  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 
 BF16, FP32 = torch.bfloat16, torch.float32
+CPU = torch.device("cpu")
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {BF16: 989e12, FP32: 67e12}
 TOL = {BF16: 2e-2, FP32: 1e-4}
-REPLACES = {"ftimm_gemm": "src/repro/kernels/ftimm/kernel.py:202",
-            "ftimm_gemm_swiglu": "src/repro/kernels/ftimm/kernel.py:872",
-            "ftimm_gemm_grouped": "src/repro/kernels/ftimm/kernel.py:322"}
-ARCH = "qwen3-1.7b"
+MOE_REF_TOL = 1e-3
+_TPU = "src/repro/kernels/ftimm/kernel.py"
+REPLACES = {"ftimm_gemm": f"{_TPU}:202",
+            "ftimm_gemm_swiglu": f"{_TPU}:872",
+            "ftimm_gemm_grouped": f"{_TPU}:322",
+            "ftimm_gemm_grouped_swiglu": f"{_TPU}:920",
+            "ftimm_gemm_ragged": f"{_TPU}:506",
+            "ftimm_gemm_ragged_swiglu": f"{_TPU}:620"}
+ARCH, MIXTRAL, LLAMA4 = "qwen3-1.7b", "mixtral-8x7b", "llama4-scout-17b-a16e"
+MOE_LAYERS = 8          # served depth of the MoE models (width as published)
+REF_LAYERS = 2          # depth of their fp32 card-vs-CPU reference
+# The kernels each serving run must launch, and the model whose decode step
+# each kernel's entry in the kernels line is timed for.
+PATH_KERNELS = {ARCH: ("ftimm_gemm", "ftimm_gemm_swiglu", "ftimm_gemm_grouped"),
+                MIXTRAL: ("ftimm_gemm", "ftimm_gemm_grouped",
+                          "ftimm_gemm_grouped_swiglu"),
+                LLAMA4: ("ftimm_gemm", "ftimm_gemm_grouped",
+                         "ftimm_gemm_ragged", "ftimm_gemm_ragged_swiglu")}
+HOME = {"ftimm_gemm": ARCH, "ftimm_gemm_swiglu": ARCH,
+        "ftimm_gemm_grouped": ARCH, "ftimm_gemm_grouped_swiglu": MIXTRAL,
+        "ftimm_gemm_ragged": LLAMA4, "ftimm_gemm_ragged_swiglu": LLAMA4}
 SLOTS, NEW_TOKENS, PAGE, MAX_LEN = 4, 16, 16, 96
 PROMPT_LENS = (24, 24, 24, 50, 50, 50)     # buckets 32 and 64
 L2_BYTES = 50e6
@@ -74,6 +112,10 @@ L2_BYTES = 50e6
 
 def log(*args) -> None:
     print(*args, flush=True)
+
+
+def depth(arch: str) -> int:
+    return get_config(arch).num_layers if arch == ARCH else MOE_LAYERS
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -86,6 +128,11 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     return err / max(want.abs().max().item(), 1e-30), err
 
 
+def free_card() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # Kernel cases: inputs, the kernel path, the plain version, a library call
 # ---------------------------------------------------------------------------
@@ -95,19 +142,26 @@ class Case:
     kernel: str
     label: str
     make: object            # gen -> tuple of input tensors
-    run: object             # inputs -> output, through core.gemm
+    run: object             # inputs -> output, through core.gemm / ops
     plain: object           # inputs -> output, the plain version
     library: object | None  # inputs -> output, one PyTorch call
-    nbytes: int             # each input read once, each output written once
+    nbytes: int             # what this input needs: each input read once
+                            # (a ragged call: only the panels its rows
+                            # reach), each output written once
     flops: float
     dtype: torch.dtype      # the operands' type (picks the peak)
     out_dtype: torch.dtype
     per_step: int = 0       # launches in one decode step (0: check only)
+    model: str = ARCH       # whose decode step ``per_step`` counts
 
 
 def _randn(gen, shape, dtype, scale=1.0):
     return (torch.randn(shape, generator=gen, device=gen.device)
             * scale).to(dtype)
+
+
+def _size(dtype) -> int:
+    return torch.tensor([], dtype=dtype).element_size()
 
 
 def dense_case(label, m, k, n, *, trans="nn", dtype=BF16, out=None,
@@ -122,16 +176,15 @@ def dense_case(label, m, k, n, *, trans="nn", dtype=BF16, out=None,
         return (_randn(gen, sa, dtype), _randn(gen, sb, dtype, k ** -0.5),
                 res)
 
-    def ops(a, b):
+    def ops_(a, b):
         return (a.t() if trans == "tn" else a, b.t() if trans == "nt" else b)
 
     def library(a, b, res):
-        a, b = ops(a, b)
+        a, b = ops_(a, b)
         return torch.matmul(a, b) if res is None else torch.addmm(res, a, b)
 
-    size = torch.tensor([], dtype=dtype).element_size()
-    nbytes = ((m * k + k * n + (m * n if residual else 0)) * size
-              + m * n * torch.tensor([], dtype=out).element_size())
+    nbytes = ((m * k + k * n + (m * n if residual else 0)) * _size(dtype)
+              + m * n * _size(out))
     return Case(
         "ftimm_gemm", label, make,
         lambda a, b, r: matmul(a, b, trans=trans, out_dtype=out,
@@ -148,42 +201,123 @@ def swiglu_case(label, m, k, n, *, dtype=BF16, per_step=0) -> Case:
                 _randn(gen, (k, n), dtype, k ** -0.5),
                 _randn(gen, (k, n), dtype, k ** -0.5))
 
-    size = torch.tensor([], dtype=dtype).element_size()
     return Case("ftimm_gemm_swiglu", label, make,
                 lambda x, g, u: matmul_swiglu(x, g, u),
                 lambda x, g, u: K.ftimm_gemm_swiglu_plain(x, g, u),
-                None, (m * k + 2 * k * n + m * n) * size,
+                None, (m * k + 2 * k * n + m * n) * _size(dtype),
                 4.0 * m * n * k, dtype, dtype, per_step)
 
 
-def grouped_case(label, g, m, k, n, *, trans="nn", shared="none",
-                 per_step=0) -> Case:
+def grouped_case(label, g, m, k, n, *, trans="nn", shared="none", dtype=FP32,
+                 per_step=0, model=ARCH) -> Case:
+    """fp32 (attention) or bf16 (the capacity-MoE down projection)."""
     sa = {"nn": (m, k), "tn": (k, m), "nt": (m, k)}[trans]
     sb = {"nn": (k, n), "tn": (k, n), "nt": (n, k)}[trans]
 
     def make(gen):
-        a = _randn(gen, sa if shared == "a" else (g,) + sa, FP32)
-        b = _randn(gen, sb if shared == "b" else (g,) + sb, FP32)
+        a = _randn(gen, sa if shared == "a" else (g,) + sa, dtype)
+        b = _randn(gen, sb if shared == "b" else (g,) + sb, dtype, k ** -0.5)
         return a, b
 
     def library(a, b):
         a = a.transpose(-1, -2) if trans == "tn" else a
         b = b.transpose(-1, -2) if trans == "nt" else b
-        return torch.matmul(a, b)
+        return torch.bmm(a, b) if a.ndim == b.ndim == 3 else torch.matmul(a, b)
 
     ga, gb = (1 if shared == "a" else g), (1 if shared == "b" else g)
     return Case("ftimm_gemm_grouped", label, make,
                 lambda a, b: batched_matmul(a, b, trans=trans,
-                                            out_dtype=FP32),
+                                            out_dtype=dtype),
                 lambda a, b: K.ftimm_gemm_grouped_plain(a, b, trans=trans,
-                                                        out_dtype=FP32),
-                library, 4 * (ga * m * k + gb * k * n + g * m * n),
-                2.0 * g * m * n * k, FP32, FP32, per_step)
+                                                        out_dtype=dtype),
+                library, (ga * m * k + gb * k * n + g * m * n) * _size(dtype),
+                2.0 * g * m * n * k, dtype, dtype, per_step, model)
+
+
+def grouped_swiglu_case(label, g, m, k, n, *, shared=False, dtype=BF16,
+                        per_step=0, model=MIXTRAL) -> Case:
+    def make(gen):
+        x = _randn(gen, (m, k) if shared else (g, m, k), dtype)
+        return (x, _randn(gen, (g, k, n), dtype, k ** -0.5),
+                _randn(gen, (g, k, n), dtype, k ** -0.5))
+
+    gx = 1 if shared else g
+    return Case("ftimm_gemm_grouped_swiglu", label, make,
+                lambda x, wg, wu: grouped_swiglu(x, wg, wu),
+                lambda x, wg, wu: K.ftimm_gemm_grouped_swiglu_plain(x, wg, wu),
+                None, (gx * m * k + 2 * g * k * n + g * m * n) * _size(dtype),
+                4.0 * g * m * n * k, dtype, dtype, per_step, model)
+
+
+def _offsets(sizes, device) -> torch.Tensor:
+    return torch.tensor([0, *np.cumsum(sizes).tolist()], dtype=torch.int32,
+                        device=device)
+
+
+def _grouped_mm(x, w, offs, vec):
+    """One PyTorch call for the ragged product, where this PyTorch has one
+    and it takes these operands (``library_ms``; the port never calls it)."""
+    return torch._grouped_mm(x, w, offs=offs[1:])
+
+
+def ragged_case(label, sizes, k, n, *, trans="nn", dtype=BF16, epi=None,
+                tail=0, per_step=0, model=LLAMA4) -> Case:
+    """``sizes``: rows per group; ``tail`` more rows that no group owns."""
+    g, t = len(sizes), sum(sizes) + tail
+    w_shape = (g, k, n) if trans == "nn" else (g, n, k)
+    vec_of = (lambda v, flag: v if flag else None)
+
+    def make(gen):
+        vec = _randn(gen, (g, n), FP32) if epi is not None else None
+        return (_randn(gen, (t, k), dtype), _randn(gen, w_shape, dtype,
+                                                    k ** -0.5),
+                _offsets(sizes, gen.device), vec)
+
+    def run(x, w, offs, vec):
+        if epi is None and trans == "nn":
+            return ragged_matmul(x, w, offs)
+        return ops.ragged_gemm(x, w, offs, trans=trans, epilogue=epi,
+                               bias=vec_of(vec, epi and epi.bias),
+                               scale=vec_of(vec, epi and epi.scale_vec))
+
+    def plain(x, w, offs, vec):
+        return K.ftimm_gemm_ragged_plain(
+            x, w, offs, trans=trans, epilogue=epi or K.IDENTITY,
+            bias=vec_of(vec, epi and epi.bias),
+            scale=vec_of(vec, epi and epi.scale_vec))
+
+    touched = sum(1 for s in sizes if s)
+    nbytes = ((t * k + touched * k * n + t * n) * _size(dtype)
+              + (4 * g * n if epi is not None else 0))
+    library = _grouped_mm if epi is None and trans == "nn" and not tail \
+        else None
+    return Case("ftimm_gemm_ragged", label, make, run, plain, library,
+                nbytes, 2.0 * (t - tail) * k * n, dtype, dtype, per_step,
+                model)
+
+
+def ragged_swiglu_case(label, sizes, k, n, *, dtype=BF16, tail=0,
+                       per_step=0, model=LLAMA4) -> Case:
+    g, t = len(sizes), sum(sizes) + tail
+
+    def make(gen):
+        return (_randn(gen, (t, k), dtype),
+                _randn(gen, (g, k, n), dtype, k ** -0.5),
+                _randn(gen, (g, k, n), dtype, k ** -0.5),
+                _offsets(sizes, gen.device))
+
+    touched = sum(1 for s in sizes if s)
+    return Case("ftimm_gemm_ragged_swiglu", label, make,
+                lambda x, wg, wu, o: ragged_swiglu(x, wg, wu, o),
+                lambda x, wg, wu, o: K.ftimm_gemm_ragged_swiglu_plain(
+                    x, wg, wu, o),
+                None, (t * k + 2 * touched * k * n + t * n) * _size(dtype),
+                4.0 * (t - tail) * k * n, dtype, dtype, per_step, model)
 
 
 def main_path_cases(cfg, view_len: int, bucket: int) -> list[Case]:
-    """Every GEMM shape of one decode step at SLOTS slots (with its launch
-    count), and of one bucket prefill."""
+    """Every GEMM shape of one qwen3-1.7b decode step at SLOTS slots (with
+    its launch count), and of one bucket prefill."""
     d, f, v, n_layers = cfg.d_model, cfg.d_ff, cfg.vocab_padded, cfg.num_layers
     hq, hkv = cfg.num_heads * cfg.head_dim_, cfg.num_kv_heads * cfg.head_dim_
     hd, groups = cfg.head_dim_, SLOTS * cfg.num_kv_heads
@@ -214,8 +348,40 @@ def main_path_cases(cfg, view_len: int, bucket: int) -> list[Case]:
     ]
 
 
+def moe_path_cases() -> list[Case]:
+    """The expert GEMMs of the two MoE models: one decode step at SLOTS
+    slots (with its launch count at MOE_LAYERS layers) and the bucket
+    prefills of the serving run, plus their router products."""
+    mix, l4 = get_config(MIXTRAL), get_config(LLAMA4)
+    cases = []
+    e, d, f = mix.num_experts, mix.d_model, mix.d_ff
+    for label, t in (("decode", SLOTS), ("bucket 32", SLOTS * 32),
+                     ("bucket 64", SLOTS * 64)):
+        c = MOE.capacity(t, e, mix.top_k, mix.capacity_factor, dtype=BF16)
+        steps = MOE_LAYERS if label == "decode" else 0
+        cases += [
+            dense_case(f"mixtral {label} router", t, d, e, out=FP32),
+            grouped_swiglu_case(f"mixtral {label} gate/up C={c}", e, c, d, f,
+                                per_step=steps),
+            grouped_case(f"mixtral {label} down C={c}", e, c, f, d,
+                         dtype=BF16, per_step=steps, model=MIXTRAL)]
+    e, d, f = l4.num_experts, l4.d_model, l4.d_ff
+    decode = [1 if i % 4 == 0 else 0 for i in range(e)]   # 4 distinct
+    bucket = np.random.default_rng(5).multinomial(
+        SLOTS * 64, [1.0 / e] * e).tolist()
+    for label, sizes, steps in (("decode 4 experts", decode, MOE_LAYERS),
+                                ("bucket 64", bucket, 0)):
+        cases += [
+            dense_case(f"llama4 {label} router", sum(sizes), d, e, out=FP32),
+            ragged_swiglu_case(f"llama4 {label} gate/up", sizes, d, f,
+                               per_step=steps),
+            ragged_case(f"llama4 {label} down", sizes, f, d, per_step=steps)]
+    return cases
+
+
 def edge_cases() -> list[Case]:
-    """Unaligned shapes, every trans, the residual epilogue, shared operand."""
+    """Unaligned shapes, every trans, the epilogues, the shared operand,
+    and the ragged distributions."""
     cases = []
     for trans in ("nn", "tn", "nt"):
         for dtype in (BF16, FP32):
@@ -230,6 +396,36 @@ def edge_cases() -> list[Case]:
     cases.append(dense_case("33x257x65 bf16->fp32", 33, 257, 65, out=FP32))
     cases.append(swiglu_case("33x257x65", 33, 257, 65))
     cases.append(swiglu_case("33x257x65 fp32", 33, 257, 65, dtype=FP32))
+    cases.append(grouped_case("5x33x129x65 bf16", 5, 33, 129, 65, dtype=BF16))
+    for dtype in (BF16, FP32):
+        cases.append(grouped_swiglu_case(f"5x33x129x65 {dtype}", 5, 33, 129,
+                                         65, dtype=dtype))
+        cases.append(grouped_swiglu_case(f"5x33x129x65 shared x {dtype}", 5,
+                                         33, 129, 65, shared=True,
+                                         dtype=dtype))
+    dists = (("all rows to one group", [0, 37, 0, 0], 0),
+             ("empty groups, T=25", [5, 0, 17, 3, 0], 0),
+             ("one group over 9 tiles", [3, 150, 2], 0),
+             ("4 rows outside every group", [5, 0, 17, 3], 4))
+    for label, sizes, tail in dists:
+        for dtype in (BF16, FP32):
+            cases.append(ragged_case(f"{label} {dtype}", sizes, 257, 96,
+                                     dtype=dtype, tail=tail))
+            cases.append(ragged_swiglu_case(f"{label} {dtype}", sizes, 257,
+                                            96, dtype=dtype, tail=tail))
+    for dtype in (BF16, FP32):
+        cases.append(ragged_case(f"nt, empty groups {dtype}",
+                                 [5, 0, 17, 3, 0], 257, 96, trans="nt",
+                                 dtype=dtype))
+    for label, epi in (("(G,N) bias", Epilogue(bias=True)),
+                       ("(G,N) scale, scalar scale, silu",
+                        Epilogue(scale_vec=True, scale=0.5,
+                                 activation="silu")),
+                       ("(G,N) bias, gelu", Epilogue(bias=True,
+                                                     activation="gelu"))):
+        cases.append(ragged_case(label, [5, 0, 17, 3, 0], 257, 96, epi=epi))
+    cases.append(ragged_case("(G,N) bias fp32", [5, 0, 17, 3, 0], 257, 96,
+                             epi=Epilogue(bias=True), dtype=FP32))
     return cases
 
 
@@ -249,7 +445,8 @@ def check(cases: list[Case], dev) -> dict[str, float]:
                                  f"{rel:.3g} > {TOL[c.out_dtype]} "
                                  f"({got.dtype})")
         worst[c.kernel] = max(worst.get(c.kernel, 0.0), err)
-        log(f"  ok  {c.kernel:19s} {c.label:28s} normwise {rel:.2e}")
+        log(f"  ok  {c.kernel:25s} {c.label:40s} normwise {rel:.2e}")
+        del inputs, got, want
     return worst
 
 
@@ -272,27 +469,47 @@ def time_ms(fn, inputs: list[tuple], reps: int,
     A small GEMM takes less time on the card than its Python call takes on
     the host, so timing a loop of calls would time the host.  The stream is
     first held by a sleep kernel long enough for the host to enqueue every
-    call; the events then bracket the calls running back to back."""
+    call; the events then bracket the calls running back to back.  The
+    device's launch queue holds about a thousand launches: a call made of
+    many small launches (a plain version's loop over the groups) can fill
+    it during the hold and block the host, so such a call is timed again
+    with fewer repetitions."""
     t0 = time.perf_counter()
     for i in range(min(len(inputs), 3)):
         fn(*inputs[i])
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3 / min(len(inputs), 3)
-    hold_ms = 2.0 * reps * host_ms + 5.0
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(hold_ms / sleep_ms_per_mcycle * 10 ** 6))
-    t0 = time.perf_counter()
-    start.record()
-    for i in range(reps):
-        fn(*inputs[i % len(inputs)])
-    end.record()
-    enqueue_ms = (time.perf_counter() - t0) * 1e3
-    end.synchronize()
-    if enqueue_ms > hold_ms:
-        raise AssertionError(f"enqueue took {enqueue_ms:.1f} ms, longer "
-                             f"than the {hold_ms:.1f} ms hold")
-    return start.elapsed_time(end) / reps
+    for n in (reps, max(reps // 8, 2)):
+        hold_ms = 2.0 * n * host_ms + 5.0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(hold_ms / sleep_ms_per_mcycle * 10 ** 6))
+        t0 = time.perf_counter()
+        start.record()
+        for i in range(n):
+            fn(*inputs[i % len(inputs)])
+        end.record()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        end.synchronize()
+        if enqueue_ms <= hold_ms:
+            return start.elapsed_time(end) / n
+    raise AssertionError(f"enqueue of {n} calls took {enqueue_ms:.1f} ms, "
+                         f"longer than the {hold_ms:.1f} ms hold")
+
+
+def library_ms(c: Case, inputs, reps, sleep_ms) -> tuple[float | None, str]:
+    """The library call's time, or None and why: it must run on these
+    operands and agree with the plain version."""
+    if c.library is None:
+        return None, "no single PyTorch call computes this function"
+    try:
+        got = c.library(*inputs[0])
+    except (RuntimeError, TypeError, ValueError, NotImplementedError) as e:
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    rel, _ = rel_err(got, c.plain(*inputs[0]))
+    if rel > max(TOL.get(got.dtype, 0.0), TOL[c.out_dtype]):
+        return None, f"disagrees with the plain version (normwise {rel:.2e})"
+    return time_ms(c.library, inputs, reps, sleep_ms), ""
 
 
 def timings(cases: list[Case], dev) -> list[dict]:
@@ -307,21 +524,25 @@ def timings(cases: list[Case], dev) -> list[dict]:
         reps = max(20, copies)
         t_bytes = c.nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = c.flops / PEAK_FLOPS[c.dtype] * 1e3
+        lib, why = library_ms(c, inputs, reps, sleep_ms)
+        if why:
+            log(f"  {c.kernel} {c.label}: library_ms null ({why})")
         rows.append({
-            "kernel": c.kernel, "label": c.label, "per_step": c.per_step,
+            "kernel": c.kernel, "label": c.label, "model": c.model,
+            "per_step": c.per_step,
             "ms": time_ms(c.run, inputs, reps, sleep_ms),
             "plain_ms": time_ms(c.plain, inputs, reps, sleep_ms),
-            "library_ms": (None if c.library is None
-                           else time_ms(c.library, inputs, reps, sleep_ms)),
+            "library_ms": lib, "library_note": why or None,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes_ms": t_bytes, "ops_ms": t_ops})
         del inputs
+        free_card()
     return rows
 
 
 # ---------------------------------------------------------------------------
-# Serving
+# References
 # ---------------------------------------------------------------------------
 
 def small_reference(dev) -> None:
@@ -333,7 +554,7 @@ def small_reference(dev) -> None:
     gpu_model = copy.deepcopy(cpu_model).to(dev)
     toks = np.random.default_rng(3).integers(2, cfg.vocab_size, (2, 12))
     out = {}
-    for name, model, device in (("cpu", cpu_model, torch.device("cpu")),
+    for name, model, device in (("cpu", cpu_model, CPU),
                                 ("gpu", gpu_model, dev)):
         batch = {"tokens": torch.as_tensor(toks).to(device)}
         logits, _ = M.prefill(model, cfg, batch,
@@ -354,15 +575,112 @@ def small_reference(dev) -> None:
         f"{sum(map(len, out['gpu'][1]))} tokens identical")
 
 
-def serve_full_width(dev) -> tuple[dict, ServeEngine, dict]:
-    cfg = get_config(ARCH)
+def moe_reference(arch: str, dev) -> dict:
+    """``arch`` in fp32 at full width and REF_LAYERS layers: a 20-token
+    prefill of 2 prompts and two decode steps on the card (the kernels) and
+    on the CPU (the plain versions), same weights.  Every layer's expert
+    choices must be equal, then the logits within MOE_REF_TOL normwise."""
+    cfg = dataclasses.replace(get_config(arch), num_layers=REF_LAYERS,
+                              compute_dtype="float32")
+    t0 = time.monotonic()
+    gpu_model = M.init_params(cfg, 0, device=dev)
+    cpu_model = copy.deepcopy(gpu_model).to(CPU)
+    rng = np.random.default_rng(6)
+    prompt = rng.integers(2, cfg.vocab_size, (2, 20))
+    nxt = rng.integers(2, cfg.vocab_size, (2, 2))
+    runs = {}
+    router = MOE._router
+    for name, model, device in (("gpu", gpu_model, dev),
+                                ("cpu", cpu_model, CPU)):
+        choices = []
+
+        def recording(x, w, e, k, _sink=choices):
+            out = router(x, w, e, k)
+            _sink.append(out[1].cpu())
+            return out
+
+        MOE._router = recording
+        try:
+            t1 = time.monotonic()
+            cache = M.make_cache(cfg, 2, 24, device=device)
+            logits, cache = M.prefill(
+                model, cfg, {"tokens": torch.as_tensor(prompt).to(device)},
+                cache)
+            out = [logits.cpu()]
+            for step in range(2):
+                logits, cache = M.decode_step(
+                    model, cfg, torch.as_tensor(nxt[:, step:step + 1]).to(
+                        device), cache, 20 + step)
+                out.append(logits.cpu())
+            secs = time.monotonic() - t1
+        finally:
+            MOE._router = router
+        runs[name] = (out, choices, secs)
+    del gpu_model, cpu_model
+    free_card()
+    (g_out, g_choice, g_s), (c_out, c_choice, c_s) = runs["gpu"], runs["cpu"]
+    if len(g_choice) != 3 * REF_LAYERS or len(g_choice) != len(c_choice):
+        raise AssertionError(f"{arch}: {len(g_choice)} / {len(c_choice)} "
+                             "router calls recorded")
+    for i, (a, b) in enumerate(zip(g_choice, c_choice)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{arch}: router call {i} chose other "
+                                 f"experts on the card: {a.tolist()} vs "
+                                 f"{b.tolist()}")
+    rel = max(rel_err(a, b)[0] for a, b in zip(g_out, c_out))
+    if rel > MOE_REF_TOL:
+        raise AssertionError(f"{arch} fp32 reference: logits normwise "
+                             f"{rel:.3g} > {MOE_REF_TOL}")
+    tokens = sum(int(c.numel()) for c in g_choice)
+    log(f"  {arch} fp32, {REF_LAYERS} layers, full width: "
+        f"{len(g_choice)} router calls, {tokens} expert choices equal; "
+        f"logits normwise {rel:.2e} (card {g_s:.1f} s, CPU {c_s:.1f} s, "
+        f"{time.monotonic() - t0:.1f} s in all)")
+    return {"router_calls": len(g_choice), "expert_choices": tokens,
+            "logits_normwise": rel}
+
+
+def full_width_reference(engine: ServeEngine, dev) -> float:
+    """One prompt's full-width prefill logits: kernels on the card against
+    the plain versions on the CPU, same weights."""
+    cfg, model = engine.cfg, engine.params
+    toks = np.random.default_rng(4).integers(2, cfg.vocab_size, (1, 24))
+    gpu, _ = M.prefill(model, cfg, {"tokens": torch.as_tensor(toks).to(dev)},
+                       M.make_cache(cfg, 1, 24, device=dev))
+    gpu = gpu.cpu()
+    model.to("cpu")
+    t0 = time.monotonic()
+    cpu, _ = M.prefill(model, cfg, {"tokens": torch.as_tensor(toks)},
+                       M.make_cache(cfg, 1, 24, device=CPU))
+    rel, _ = rel_err(gpu, cpu)
+    log(f"  full-width prefill logits, card vs plain on the CPU "
+        f"({time.monotonic() - t0:.1f} s): normwise {rel:.2e}, argmax "
+        f"{int(gpu.argmax())} vs {int(cpu.argmax())}")
+    if rel > 5e-2:
+        raise AssertionError(f"full-width logits: normwise {rel:.3g}")
+    return rel
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+def serve(arch: str, dev) -> tuple[dict, ServeEngine, dict]:
+    """Serve ``arch`` at full width (MOE_LAYERS layers for the MoE models)
+    through ServeEngine; the launch counts of just this run."""
+    cfg = get_config(arch)
+    if arch != ARCH:
+        cfg = dataclasses.replace(cfg, num_layers=MOE_LAYERS)
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.monotonic()
     model = M.init_params(cfg, 0, device=dev)
     torch.cuda.synchronize()
-    log(f"  {ARCH}: {cfg.num_layers} layers, d {cfg.d_model}, heads "
+    moe = (f", {cfg.num_experts} experts top-{cfg.top_k} "
+           f"({cfg.moe_dispatch})" if cfg.family == "moe" else "")
+    log(f"  {arch}: {cfg.num_layers} layers, d {cfg.d_model}, heads "
         f"{cfg.num_heads}/{cfg.num_kv_heads}, head_dim {cfg.head_dim_}, "
-        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; init "
-        f"{time.monotonic() - t0:.1f} s, "
+        f"d_ff {cfg.d_ff}{moe}, vocab {cfg.vocab_size}, windows "
+        f"{cfg.window_pattern}; init {time.monotonic() - t0:.1f} s, "
         f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params")
     engine = ServeEngine(cfg, model, batch_slots=SLOTS, max_len=MAX_LEN,
                          page_size=PAGE, device=dev)
@@ -381,14 +699,16 @@ def serve_full_width(dev) -> tuple[dict, ServeEngine, dict]:
 
     for r in reqs:
         if not r.done or r.timed_out or len(r.out_tokens) != NEW_TOKENS:
-            raise AssertionError(f"request {r.rid} did not finish: "
+            raise AssertionError(f"{arch} request {r.rid} did not finish: "
                                  f"{len(r.out_tokens)} tokens")
         if not all(0 <= t < cfg.vocab_size for t in r.out_tokens):
-            raise AssertionError(f"request {r.rid}: token out of range")
+            raise AssertionError(f"{arch} request {r.rid}: token out of "
+                                 "range")
     if any(engine.faults.values()):
-        raise AssertionError(f"engine faults: {engine.faults}")
-    if not all(launches[k] > 0 for k in K.KERNELS):
-        raise AssertionError(f"a kernel never launched: {launches}")
+        raise AssertionError(f"{arch} engine faults: {engine.faults}")
+    missing = [k for k in PATH_KERNELS[arch] if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{arch}: {missing} never launched: {launches}")
     engine.alloc.check()
 
     decode = engine.walls["decode"]
@@ -396,44 +716,61 @@ def serve_full_width(dev) -> tuple[dict, ServeEngine, dict]:
     for bkt, s in engine.walls["prefill"]:
         prefill.setdefault(bkt, []).append(s)
     tokens = sum(len(r.out_tokens) for r in reqs)
-    stats = {"requests": len(reqs), "tokens": tokens, "wall_s": wall,
+    stats = {"layers": cfg.num_layers, "requests": len(reqs),
+             "tokens": tokens, "wall_s": wall,
              "tokens_per_s": tokens / wall, "decode_steps": len(decode),
              "decode_step_median_ms": statistics.median(decode[1:]) * 1e3,
              "prefill_ms": {str(b): [s * 1e3 for s in v]
                             for b, v in sorted(prefill.items())},
+             "peak_device_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
              "buckets": list(engine.buckets),
-             "view_len": engine.kv.table.shape[1] * PAGE}
+             "view_len": engine.kv.table.shape[1] * PAGE,
+             "launches": launches}
     log(f"  served {len(reqs)} requests, {tokens} tokens in {wall:.2f} s: "
         f"{stats['tokens_per_s']:.1f} tokens/s; {len(decode)} decode steps,"
         f" median {stats['decode_step_median_ms']:.2f} ms (first "
         f"{decode[0] * 1e3:.1f} ms); bucket prefill ms "
         + ", ".join(f"{b}: {[round(x, 1) for x in v]}"
-                    for b, v in stats["prefill_ms"].items()))
+                    for b, v in stats["prefill_ms"].items())
+        + f"; peak device memory {stats['peak_device_gb']:.2f} GB")
     log(f"  launches in the serving run: {launches}")
     for r in reqs[:2]:
         log(f"  req {r.rid} ({len(r.prompt)} prompt tokens): {r.out_tokens}")
     return stats, engine, launches
 
 
-def full_width_reference(engine: ServeEngine, dev) -> float:
-    """One prompt's full-width prefill logits: kernels on the card against
-    the plain versions on the CPU, same weights."""
-    cfg, model = engine.cfg, engine.params
-    toks = np.random.default_rng(4).integers(2, cfg.vocab_size, (1, 24))
-    gpu, _ = M.prefill(model, cfg, {"tokens": torch.as_tensor(toks).to(dev)},
-                       M.make_cache(cfg, 1, 24, device=dev))
-    gpu = gpu.cpu()
-    model.to("cpu")
-    t0 = time.monotonic()
-    cpu, _ = M.prefill(model, cfg, {"tokens": torch.as_tensor(toks)},
-                       M.make_cache(cfg, 1, 24, device=torch.device("cpu")))
-    rel, _ = rel_err(gpu, cpu)
-    log(f"  full-width prefill logits, card vs plain on the CPU "
-        f"({time.monotonic() - t0:.1f} s): normwise {rel:.2e}, argmax "
-        f"{int(gpu.argmax())} vs {int(cpu.argmax())}")
-    if rel > 5e-2:
-        raise AssertionError(f"full-width logits: normwise {rel:.3g}")
-    return rel
+# ---------------------------------------------------------------------------
+# The kernels line
+# ---------------------------------------------------------------------------
+
+def kernel_entries(rows, launches, worst) -> list[dict]:
+    entries = []
+    for name in K.KERNELS:
+        home = HOME[name]
+        mine = [r for r in rows if r["kernel"] == name and r["model"] == home]
+        total = {key: sum(r["per_step"] * r[key] for r in mine)
+                 for key in ("ms", "plain_ms", "bound_ms")}
+        lib = (None if any(r["library_ms"] is None for r in mine) else
+               sum(r["per_step"] * r["library_ms"] for r in mine))
+        t_bytes = sum(r["per_step"] * r["bytes_ms"] for r in mine)
+        t_ops = sum(r["per_step"] * r["ops_ms"] for r in mine)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/ftimm/csrc/{name}.cu",
+            "replaces": REPLACES[name], "launches": launches[home][name],
+            "max_abs_err": worst[name], "ms": total["ms"],
+            "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib,
+            "per": (f"one decode step of {home} at {depth(home)} layers, "
+                    f"{SLOTS} slots"),
+            "launches_by_run": {m: launches[m][name] for m in launches},
+            "shapes": [{k: r[k] for k in ("model", "label", "per_step", "ms",
+                                          "plain_ms", "library_ms",
+                                          "library_note", "bound_ms",
+                                          "bound_by")}
+                       for r in rows if r["kernel"] == name]})
+    return entries
 
 
 def main() -> int:
@@ -451,64 +788,66 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
+    phases = {}
+    t_all = time.monotonic()
 
     t0 = time.monotonic()
     K.build()
-    log(f"[build] {len(K.KERNELS)} kernels in {time.monotonic() - t0:.1f} s")
+    phases["build"] = time.monotonic() - t0
+    log(f"[build] {len(K.KERNELS)} kernels in {phases['build']:.1f} s")
 
+    t0 = time.monotonic()
     cfg = get_config(ARCH)
     view_len = math.ceil(MAX_LEN / PAGE) * PAGE
-    cases = main_path_cases(cfg, view_len, bucket=64)
+    qwen_cases = main_path_cases(cfg, view_len, bucket=64)
+    moe_cases = moe_path_cases()
     log("[check] kernels against their plain versions")
-    worst = check(cases + edge_cases(), dev)
+    worst = check(qwen_cases + moe_cases + edge_cases(), dev)
+    free_card()
+    phases["check"] = time.monotonic() - t0
+    log(f"[check] done in {phases['check']:.1f} s")
 
-    log("[reference] small input")
+    t0 = time.monotonic()
+    log("[reference] small input, and the MoE models in fp32 at full width")
     small_reference(dev)
+    refs = {arch: moe_reference(arch, dev) for arch in (MIXTRAL, LLAMA4)}
+    phases["reference"] = time.monotonic() - t0
+    log(f"[reference] done in {phases['reference']:.1f} s")
 
+    t0 = time.monotonic()
     log("[serve] full width")
-    stats, engine, launches = serve_full_width(dev)
-    if stats["view_len"] != view_len:
-        raise AssertionError(f"decode attends {stats['view_len']} rows, "
-                             f"timed at {view_len}")
-    full_width_reference(engine, dev)
-    del engine
-    torch.cuda.empty_cache()
+    stats, launches = {}, {}
+    for arch in (ARCH, MIXTRAL, LLAMA4):
+        stats[arch], engine, launches[arch] = serve(arch, dev)
+        if arch == ARCH:
+            if stats[arch]["view_len"] != view_len:
+                raise AssertionError(f"decode attends {stats[arch]['view_len']}"
+                                     f" rows, timed at {view_len}")
+            full_width_reference(engine, dev)
+        del engine
+        free_card()
+    phases["serve"] = time.monotonic() - t0
+    log(f"[serve] done in {phases['serve']:.1f} s")
 
+    t0 = time.monotonic()
     log("[time] decode-step shapes")
-    rows = timings(cases, dev)
+    rows = timings(qwen_cases + moe_cases, dev)
+    phases["time"] = time.monotonic() - t0
+    log(f"[time] done in {phases['time']:.1f} s")
+
     log("kernels:")
-    entries = []
-    for name in K.KERNELS:
-        mine = [r for r in rows if r["kernel"] == name]
-        total = {key: sum(r["per_step"] * r[key] for r in mine)
-                 for key in ("ms", "plain_ms", "bound_ms")}
-        lib = (None if any(r["library_ms"] is None for r in mine) else
-               sum(r["per_step"] * r["library_ms"] for r in mine))
-        t_bytes = sum(r["per_step"] * r["bytes_ms"] for r in mine)
-        t_ops = sum(r["per_step"] * r["ops_ms"] for r in mine)
-        entries.append({
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/ftimm/csrc/{name}.cu",
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": worst[name], "ms": total["ms"],
-            "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib,
-            "per": f"one decode step of {ARCH} at {SLOTS} slots",
-            "shapes": [{k: r[k] for k in ("label", "per_step", "ms",
-                                          "plain_ms", "library_ms",
-                                          "bound_ms", "bound_by")}
-                       for r in mine]})
-        for r in mine:
-            lib_s = ("-" if r["library_ms"] is None
-                     else f"{r['library_ms'] * 1e3:.1f}")
-            log(f"  {name:19s} {r['label']:16s} x{r['per_step']:<3d} "
-                f"kernel {r['ms'] * 1e3:9.1f} us  plain "
-                f"{r['plain_ms'] * 1e3:9.1f} us  library {lib_s:>9s} us  "
-                f"bound {r['bound_ms'] * 1e3:7.1f} us ({r['bound_by']})")
-    log(json.dumps({"serve": stats}))
+    for r in rows:
+        lib_s = ("-" if r["library_ms"] is None
+                 else f"{r['library_ms'] * 1e3:.1f}")
+        log(f"  {r['kernel']:25s} {r['label']:32s} x{r['per_step']:<3d} "
+            f"kernel {r['ms'] * 1e3:9.1f} us  plain "
+            f"{r['plain_ms'] * 1e3:9.1f} us  library {lib_s:>9s} us  "
+            f"bound {r['bound_ms'] * 1e3:7.1f} us ({r['bound_by']})")
+    phases["all"] = time.monotonic() - t_all
+    log(json.dumps({"serve": stats, "moe_reference": refs,
+                    "phases_s": phases}))
     log(card)
-    print(json.dumps({"kernels": entries}))
+    print(json.dumps({"kernels": kernel_entries(rows, launches, worst)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,13 @@
+"""mixtral-8x7b [moe]: 8 experts top-2, sliding-window attention 4096.
+[arXiv:2401.04088; hf]"""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mixtral-8x7b", family="moe",
+    num_layers=32, d_model=4096, num_heads=32, num_kv_heads=8, head_dim=128,
+    d_ff=14336, vocab_size=32000,
+    num_experts=8, top_k=2,
+    window_pattern=(4096,),
+    supports_long_context=True,    # SWA is sub-quadratic
+    source="arXiv:2401.04088",
+)

@@ -108,12 +108,42 @@ def estimate(m: int, k: int, n: int, *, bm: int, bn: int, bk: int,
 
 def estimate_batched(g: int, m: int, k: int, n: int, *, bm: int, bn: int,
                      bk: int, shared_a: bool = False, shared_b: bool = False,
-                     in_bytes: int = 4, out_bytes: int = 4,
+                     in_bytes: int = 4, out_bytes: int = 4, panels: int = 1,
                      spec: HopperSpec = H100) -> PlanEstimate:
     """Model one tile of the grouped GEMM C(g) = A(g) B(g), g < G.  A shared
     2-D operand is read from device memory once and re-read by the other
-    groups' CTAs from the 50 MB L2."""
+    groups' CTAs from the 50 MB L2.  ``panels`` = 2 prices the grouped
+    SwiGLU pair (two B panels per group, and their shared memory)."""
     return _estimate(g, m, k, n, bm=bm, bn=bn, bk=bk,
                      a_reads=1 if shared_a else g, b_reads=1 if shared_b else g,
-                     in_bytes=in_bytes, out_bytes=out_bytes, panels=1,
+                     in_bytes=in_bytes, out_bytes=out_bytes, panels=panels,
                      spec=spec)
+
+
+def estimate_ragged(g: int, total: int, k: int, n: int, *, bm: int, bn: int,
+                    bk: int, in_bytes: int = 4, out_bytes: int = 4,
+                    panels: int = 1, spec: HopperSpec = H100) -> PlanEstimate:
+    """Model one tile of the ragged grouped GEMM: ``total`` rows of a flat
+    (total, k) operand cut into ``g`` groups against per-group (k, n)
+    panels.  The per-group counts live on the device, so the price is the
+    distribution's worst case for these totals: the rows in ``bm``-row
+    chunks plus one partial chunk per group that has rows (at most
+    min(g, total) groups do).  Each chunk's CTAs read their group's panel
+    (``panels`` = 2 for the SwiGLU pair) once per N tile; x is read once
+    per N tile; empty groups read nothing."""
+    gn, gk = cdiv(n, bn), cdiv(k, bk)
+    chunks = cdiv(total, bm) + max(min(g, total) - 1, 0)
+    ctas = gn * chunks
+    occ = max(occupancy(ctas, spec), 1e-3)
+    flops_padded = 2.0 * ctas * bm * bn * gk * bk * panels
+    hbm = (total * k * gn * in_bytes + chunks * k * n * in_bytes * panels
+           + total * n * out_bytes)
+    return PlanEstimate(
+        flops_useful=2.0 * total * n * k * panels,
+        flops_padded=flops_padded,
+        hbm_bytes=float(hbm),
+        t_compute=flops_padded / (spec.kernel_flops() * occ),
+        t_memory=hbm / (spec.hbm_bw * occ),
+        smem_bytes=smem_bytes(bm, bn, bk, panels),
+        occupancy=occ,
+    )

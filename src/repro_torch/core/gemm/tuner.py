@@ -7,7 +7,8 @@ The candidates are exactly the tiles the CUDA kernels are compiled for
 Plans are LRU-cached per signature, so planning happens once per shape and
 is free afterwards.  Every plan is analytic (the CMR argmin): the measured
 plan store, autotuning, calibration and placement on a mesh are not ported
-yet.
+yet.  ``plan_moe_dispatch`` sizes an MoE layer's expert GEMM rows and holds
+the capacity rounding rule that decides which tokens drop.
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ import functools
 from dataclasses import dataclass
 
 from ...kernels.ftimm.kernel import TILES
-from .cmr import H100, HopperSpec, PlanEstimate, estimate, estimate_batched
+from .cmr import (H100, HopperSpec, PlanEstimate, ceil_to, estimate,
+                  estimate_batched, estimate_ragged)
 from .shapes import GemmClass, classify
 
 
@@ -39,8 +41,8 @@ class GemmPlan:
                     dim_order=self.dim_order)
 
 
-def _candidates(cls: GemmClass, estimator,
-                spec: HopperSpec) -> list[GemmPlan]:
+def _candidates(cls: GemmClass, estimator, spec: HopperSpec,
+                orders: tuple[str, ...] = ("mn", "nm")) -> list[GemmPlan]:
     cands = []
     for bm, bn, bk in TILES:
         e = estimator(bm=bm, bn=bn, bk=bk)
@@ -48,7 +50,7 @@ def _candidates(cls: GemmClass, estimator,
             continue
         # The model does not see L2 locality, so the two grid orders tie
         # and the argmin keeps "mn"; both stay candidates for measurement.
-        for order in ("mn", "nm"):
+        for order in orders:
             cands.append(GemmPlan(bm=bm, bn=bn, bk=bk, dim_order=order,
                                   gemm_class=cls, est=e))
     return cands
@@ -66,12 +68,28 @@ def gemm_candidates(m: int, k: int, n: int, in_bytes: int = 4,
 
 def batched_candidates(g: int, m: int, k: int, n: int, in_bytes: int = 4,
                        out_bytes: int = 4, shared: str = "none",
-                       spec: HopperSpec = H100) -> list[GemmPlan]:
-    """Candidate tiles for the grouped GEMM (same menu as the dense one)."""
+                       spec: HopperSpec = H100, *,
+                       panels: int = 1) -> list[GemmPlan]:
+    """Candidate tiles for the grouped GEMM (same menu as the dense one);
+    ``panels`` = 2 for the grouped SwiGLU pair."""
     est = functools.partial(estimate_batched, g, m, k, n,
                             shared_a=shared == "a", shared_b=shared == "b",
-                            in_bytes=in_bytes, out_bytes=out_bytes, spec=spec)
+                            in_bytes=in_bytes, out_bytes=out_bytes,
+                            panels=panels, spec=spec)
     return _candidates(classify(m, k, n), est, spec)
+
+
+def ragged_candidates(g: int, total: int, k: int, n: int, in_bytes: int = 4,
+                      out_bytes: int = 4, spec: HopperSpec = H100, *,
+                      panels: int = 1) -> list[GemmPlan]:
+    """Candidate tiles for the ragged grouped GEMM: the compiled menu,
+    scored by ``estimate_ragged``.  The per-group *mean* shape is
+    classified.  No grid-order choice: the ragged kernels fix their walk."""
+    est = functools.partial(estimate_ragged, g, total, k, n,
+                            in_bytes=in_bytes, out_bytes=out_bytes,
+                            panels=panels, spec=spec)
+    mean = max(total // max(g, 1), 1)
+    return _candidates(classify(mean, k, n), est, spec, orders=("mn",))
 
 
 def _better(a: GemmPlan, b: GemmPlan) -> bool:
@@ -106,11 +124,68 @@ def plan_gemm(m: int, k: int, n: int, in_bytes: int = 4, out_bytes: int = 4,
 @functools.lru_cache(maxsize=8192)
 def plan_batched_gemm(g: int, m: int, k: int, n: int, in_bytes: int = 4,
                       out_bytes: int = 4, shared: str = "none",
-                      spec: HopperSpec = H100) -> GemmPlan:
+                      spec: HopperSpec = H100, *,
+                      panels: int = 1) -> GemmPlan:
     """Pick the tile for the grouped GEMM C(g) = A(g) B(g); ``shared`` marks
-    a 2-D operand used by every group ("a" | "b" | "none")."""
+    a 2-D operand used by every group ("a" | "b" | "none"); ``panels`` = 2
+    plans the grouped SwiGLU pair."""
     return argmin_plan(batched_candidates(g, m, k, n, in_bytes, out_bytes,
-                                          shared, spec))
+                                          shared, spec, panels=panels))
+
+
+@functools.lru_cache(maxsize=8192)
+def plan_ragged_gemm(g: int, total: int, k: int, n: int, in_bytes: int = 4,
+                     out_bytes: int = 4, ragged: str = "m",
+                     spec: HopperSpec = H100, *,
+                     panels: int = 1) -> GemmPlan:
+    """Pick the tile for a ragged grouped GEMM over ``g`` groups.  The key
+    (g, total, k, n, widths) is the distribution signature: the per-group
+    counts stay on the device, so the plan prices the aggregate (total
+    rows plus one partial chunk per group) and serves every call with the
+    same signature.  Only ``ragged="m"`` (the forward: rows are ragged) is
+    ported; the ragged-K backward comes with training."""
+    if ragged != "m":
+        raise NotImplementedError(
+            f"ragged={ragged!r}: the ragged-K (dW) plan comes with training")
+    return argmin_plan(ragged_candidates(g, total, k, n, in_bytes, out_bytes,
+                                         spec, panels=panels))
+
+
+def capacity_multiple(elt_bytes: int) -> int:
+    """The capacity rounding of the reference: a multiple of its TPU
+    register tile's sublane count for the compute type (8 rows fp32, 16
+    bf16, 32 one-byte types), and at least one such multiple.  On the GPU
+    this is semantics, not layout: the capacity decides which tokens drop,
+    so the port keeps the reference's rule."""
+    return 8 if elt_bytes >= 4 else (32 if elt_bytes == 1 else 16)
+
+
+@dataclass(frozen=True)
+class MoeDispatchPlan:
+    """``rows``: the expert-GEMM row count one MoE layer's dispatch mode
+    produces -- E x capacity for "capacity" (every expert padded to the
+    capacity, overflow dropped), T x top_k for "ragged" (every routed
+    copy)."""
+    rows: int
+
+
+@functools.lru_cache(maxsize=8192)
+def plan_moe_dispatch(t: int, e: int, top_k: int, d_model: int, d_ff: int,
+                      *, dispatch: str = "capacity",
+                      capacity_factor: float = 1.25,
+                      elt_bytes: int = 2) -> MoeDispatchPlan:
+    """Rows of one MoE layer's expert GEMMs under ``dispatch``.  The
+    capacity is int(T * top_k * factor / E) rounded up to
+    ``capacity_multiple(elt_bytes)``.  ``d_model`` / ``d_ff`` stay in the
+    signature as in the reference (they size the layer's GEMMs for callers
+    that price the rows).  Expert placement on a mesh is not ported."""
+    if dispatch == "ragged":
+        return MoeDispatchPlan(rows=t * top_k)
+    if dispatch != "capacity":
+        raise ValueError(f"unknown moe dispatch: {dispatch}")
+    s = capacity_multiple(elt_bytes)
+    c = int(t * top_k * capacity_factor / e)
+    return MoeDispatchPlan(rows=e * max(s, ceil_to(c, s)))
 
 
 PLAN_MODE_COUNTS: collections.Counter = collections.Counter()
@@ -155,5 +230,7 @@ def clear_plan_cache() -> None:
     """Reset the planner caches and the telemetry counters."""
     plan_gemm.cache_clear()
     plan_batched_gemm.cache_clear()
+    plan_ragged_gemm.cache_clear()
+    plan_moe_dispatch.cache_clear()
     PLAN_MODE_COUNTS.clear()
     EPILOGUE_COUNTS.clear()

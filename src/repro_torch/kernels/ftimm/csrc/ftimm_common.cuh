@@ -194,4 +194,60 @@ __device__ __forceinline__ void tile_coords(int BM, int BN, int M, int N, int nm
   n0 = nt * BN;
 }
 
+// The ragged kernels' grid: blockIdx.x = (row chunk, N tile) with N inner,
+// blockIdx.y = the group, and one more y slot (== G) that zero-fills the rows
+// no group owns.  Group g's rows are [offsets[g], offsets[g + 1]), read from
+// device memory by the CTA itself (no host round trip).  A CTA of group g
+// owns rows row0 .. row0 + rows - 1 with row0 = offsets[g] + chunk * BM, so
+// every output row is written by exactly one CTA per N tile: no atomics, no
+// read-modify-write, no ordering between CTAs.  A CTA past its group's last
+// row returns before it loads anything, so an empty group reads no panel.
+// Offsets are clamped to [0, T]: a malformed array can give wrong rows but
+// never an access outside x or the output.
+struct RaggedChunk {
+  int g;     // group, or G for the zero-fill CTA
+  int n0;    // first column of the N tile
+  int row0;  // first row of the chunk
+  int rows;  // rows of the chunk this CTA owns (<= BM); 0 = nothing to do
+};
+
+__device__ __forceinline__ RaggedChunk ragged_chunk(int BM, int BN, int N, int T, int G,
+                                                    const int* __restrict__ offsets) {
+  const int gn = cdiv(N, BN);
+  const int chunk = blockIdx.x / gn;
+  RaggedChunk r;
+  r.g = blockIdx.y;
+  r.n0 = (blockIdx.x % gn) * BN;
+  if (r.g == G) {  // zero-fill: rows of this chunk outside [offsets[0], offsets[G])
+    r.row0 = chunk * BM;
+    r.rows = min(BM, T - r.row0);
+    return r;
+  }
+  const int lo = min(max(offsets[r.g], 0), T);
+  const int hi = min(max(offsets[r.g + 1], lo), T);
+  r.row0 = lo + chunk * BM;
+  r.rows = min(BM, hi - r.row0);
+  return r;
+}
+
+// The zero-fill CTA's store: rows of its chunk that no group owns.
+template <class C, typename TC>
+__device__ __forceinline__ void ragged_zero_fill(TC* __restrict__ c, const RaggedChunk& r, int N,
+                                                 int T, int G, const int* __restrict__ offsets) {
+  const int lo = min(max(offsets[0], 0), T);
+  const int hi = min(max(offsets[G], lo), T);
+  const int tx = threadIdx.x % (C::BN / C::TN);
+  const int ty = threadIdx.x / (C::BN / C::TN);
+#pragma unroll
+  for (int i = 0; i < C::TM; ++i) {
+    const int row = r.row0 + ty + i * (C::BM / C::TM);
+#pragma unroll
+    for (int j = 0; j < C::TN; ++j) {
+      const int col = r.n0 + tx + j * (C::BN / C::TN);
+      if (ty + i * (C::BM / C::TM) < r.rows && col < N && (row < lo || row >= hi))
+        c[(int64_t)row * N + col] = from_f<TC>(0.f);
+    }
+  }
+}
+
 }  // namespace ftimm

@@ -4,7 +4,11 @@ The kernels are CUDA C++ for ``sm_90a`` in ``csrc/``, one source per kernel:
 
   * ``ftimm_gemm``          dense C = epi(op(A) . op(B)), trans nn / tn / nt;
   * ``ftimm_gemm_swiglu``   silu(x . Wg) * (x . Wu) in one launch;
-  * ``ftimm_gemm_grouped``  one GEMM per group, either operand may be shared.
+  * ``ftimm_gemm_grouped``  one GEMM per group, either operand may be shared;
+  * ``ftimm_gemm_grouped_swiglu``  the SwiGLU pair per group (capacity MoE);
+  * ``ftimm_gemm_ragged``   per-group row chunks of one flat operand against
+                            per-group panels (capacity-free MoE);
+  * ``ftimm_gemm_ragged_swiglu``  the ragged SwiGLU pair.
 
 Each is compiled by ``nvcc`` at first use into a shared library with a plain
 C interface under the git-ignored ``build/ftimm/`` directory of the checkout
@@ -32,7 +36,9 @@ import torch
 from . import ref
 from .epilogue import IDENTITY, Epilogue
 
-KERNELS = ("ftimm_gemm", "ftimm_gemm_swiglu", "ftimm_gemm_grouped")
+KERNELS = ("ftimm_gemm", "ftimm_gemm_swiglu", "ftimm_gemm_grouped",
+           "ftimm_gemm_grouped_swiglu", "ftimm_gemm_ragged",
+           "ftimm_gemm_ragged_swiglu")
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "ftimm"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -150,6 +156,13 @@ _ARGTYPES = {
     "ftimm_gemm_grouped": [_I, _I, _I, _VP, _VP, _VP, _I, _I, _I, _I, _LL, _LL,
                            _LL, _LL, _LL, _LL, _I, _VP, _LL, _I, _F, _VP, _LL,
                            _I, _VP, _VP],
+    "ftimm_gemm_grouped_swiglu": [_I, _I, _I, _VP, _VP, _VP, _VP, _I, _I, _I,
+                                  _I, _LL, _LL, _LL, _LL, _LL, _LL, _VP],
+    "ftimm_gemm_ragged": [_I, _I, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _LL,
+                          _LL, _LL, _LL, _LL, _VP, _LL, _I, _F, _VP, _LL, _I,
+                          _VP],
+    "ftimm_gemm_ragged_swiglu": [_I, _I, _I, _VP, _VP, _VP, _VP, _VP, _I, _I,
+                                 _I, _I, _LL, _LL, _LL, _LL, _LL, _VP],
 }
 _entries: dict[str, object] = {}
 _libs: list[ctypes.CDLL] = []     # keeps the loaded libraries alive
@@ -382,3 +395,186 @@ def ftimm_gemm_grouped(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int,
             _ptr(bias32), 0 if bias is None or bias.ndim == 1 else n, act,
             _ptr(res))
     return c
+
+
+# ---------------------------------------------------------------------------
+# Grouped fused SwiGLU pair  (replaces kernel.py:ftimm_gemm_grouped_swiglu)
+# ---------------------------------------------------------------------------
+
+def ftimm_gemm_grouped_swiglu_plain(x, w_gate, w_up, *,
+                                    out_dtype=None) -> torch.Tensor:
+    """Plain version of ``ftimm_gemm_grouped_swiglu``: the dense pair's
+    arithmetic with a group axis (a 2-D ``x`` broadcasts over the groups)."""
+    return ftimm_gemm_swiglu_plain(x, w_gate, w_up, out_dtype=out_dtype)
+
+
+def ftimm_gemm_grouped_swiglu(x: torch.Tensor, w_gate: torch.Tensor,
+                              w_up: torch.Tensor, *, bm: int, bn: int,
+                              bk: int, out_dtype=None) -> torch.Tensor:
+    """silu(x_g @ Wg_g) * (x_g @ Wu_g) per group -> (G, M, N).  ``x`` is
+    (G, M, K), or (M, K) shared by every group; both panels (G, K, N)."""
+    if (x.ndim not in (2, 3) or w_gate.ndim != 3
+            or w_up.shape != w_gate.shape or x.shape[-1] != w_gate.shape[1]
+            or (x.ndim == 3 and x.shape[0] != w_gate.shape[0])):
+        raise ValueError(f"grouped swiglu shapes {tuple(x.shape)} x "
+                         f"{tuple(w_gate.shape)} / {tuple(w_up.shape)}")
+    g, k, n = w_gate.shape
+    m = x.shape[-2]
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu":
+        return ftimm_gemm_grouped_swiglu_plain(x, w_gate, w_up,
+                                               out_dtype=out_dtype)
+    types = _cuda_operands("ftimm_gemm_grouped_swiglu", x, w_gate, out_dtype,
+                           w_up)
+    if w_up.dtype != x.dtype or w_up.stride() != w_gate.stride():
+        raise ValueError("swiglu panels must share dtype and layout")
+    if g > 65535:
+        raise ValueError(f"{g} groups exceed the grid's z extent (65535)")
+    tile = tile_id(bm, bn, bk)
+    out = torch.empty((g, m, n), dtype=out_dtype, device=x.device)
+    if g == 0 or m == 0 or n == 0:
+        return out
+    _launch("ftimm_gemm_grouped_swiglu", x.device, tile, types, x.data_ptr(),
+            w_gate.data_ptr(), w_up.data_ptr(), out.data_ptr(), g, m, n, k,
+            x.stride(0) if x.ndim == 3 else 0, x.stride(-2), x.stride(-1),
+            *w_gate.stride())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Ragged grouped GEMM and its SwiGLU pair  (replace kernel.py:ftimm_gemm_ragged
+# and ftimm_gemm_ragged_swiglu).  ``group_offsets`` (G+1,) are the device
+# prefix sums of the per-group row counts: non-decreasing, offsets[0] == 0,
+# offsets[G] <= T; rows past offsets[G] belong to no group and come out as
+# zeros.  The kernels read the offsets on the device themselves, so the host
+# never waits for the routing (no visit list is built, unlike the TPU path).
+# ---------------------------------------------------------------------------
+
+def _ragged_shape(x, w, group_offsets, trans: str) -> tuple[int, int, int]:
+    """(T, K, N) of a ragged call; raises on a shape mismatch."""
+    if trans not in ("nn", "nt"):
+        raise ValueError(f"ragged trans must be 'nn' or 'nt', got {trans!r}")
+    if x.ndim != 2 or w.ndim != 3:
+        raise ValueError(f"ragged GEMM needs x (T, K) and w 3-D: "
+                         f"{tuple(x.shape)} x {tuple(w.shape)}")
+    k, n = (w.shape[1], w.shape[2]) if trans == "nn" else (w.shape[2],
+                                                            w.shape[1])
+    if x.shape[1] != k or tuple(group_offsets.shape) != (w.shape[0] + 1,):
+        raise ValueError(f"ragged shapes {tuple(x.shape)} x {tuple(w.shape)} "
+                         f"({trans}), offsets {tuple(group_offsets.shape)}")
+    return x.shape[0], k, n
+
+
+def _row_groups(group_offsets: torch.Tensor, t: int):
+    """Each row's group (clamped into range) and whether any group owns it."""
+    offs = group_offsets.to(torch.int64)
+    rows = torch.arange(t, device=offs.device)
+    gid = torch.searchsorted(offs[1:].contiguous(), rows, right=True)
+    owned = (rows >= offs[0]) & (gid < offs.shape[0] - 1)
+    return gid.clamp(max=max(offs.shape[0] - 2, 0)), owned
+
+
+def ftimm_gemm_ragged_plain(x, w, group_offsets, *, trans: str = "nn",
+                            out_dtype=None, epilogue: Epilogue = IDENTITY,
+                            bias=None, scale=None) -> torch.Tensor:
+    """Plain version of ``ftimm_gemm_ragged``: the masked per-group oracle,
+    then the epilogue on the rows a group owns (the (G, N) vectors picked
+    by each row's group)."""
+    out_dtype = out_dtype or x.dtype
+    z = ref.ragged_matmul_ref(x, w, group_offsets, trans=trans,
+                              out_dtype=torch.float32)
+    if not epilogue.is_identity:
+        gid, owned = _row_groups(group_offsets, x.shape[0])
+
+        def rows_of(v):
+            return v if v is None or v.ndim == 1 else v[gid]
+
+        z = torch.where(owned[:, None],
+                        epilogue.apply(z, bias=rows_of(bias),
+                                       scale=rows_of(scale)), 0.0)
+    return z.to(out_dtype)
+
+
+def ftimm_gemm_ragged(x: torch.Tensor, w: torch.Tensor,
+                      group_offsets: torch.Tensor, *, bm: int, bn: int,
+                      bk: int, trans: str = "nn", out_dtype=None,
+                      epilogue: Epilogue = IDENTITY, bias=None,
+                      scale=None) -> torch.Tensor:
+    """y[o_g:o_{g+1}] = epi(x[o_g:o_{g+1}] . op(W_g)) -> (T, N).  ``w`` is
+    (G, K, N) "nn" or (G, N, K) "nt"; ``bias`` / ``scale`` are (N,) shared
+    or (G, N) per group.  There is no residual operand."""
+    t, k, n = _ragged_shape(x, w, group_offsets, trans)
+    if epilogue.residual:
+        raise ValueError("the ragged kernel has no residual operand")
+    g = w.shape[0]
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu":
+        return ftimm_gemm_ragged_plain(x, w, group_offsets, trans=trans,
+                                       out_dtype=out_dtype, epilogue=epilogue,
+                                       bias=bias, scale=scale)
+    bias = bias if epilogue.bias else None
+    scale = scale if epilogue.scale_vec else None
+    types = _cuda_operands("ftimm_gemm_ragged", x, w, out_dtype,
+                           group_offsets, bias, scale)
+    if g + 1 > 65535:
+        raise ValueError(f"{g} groups exceed the grid's y extent (65534)")
+    for v in (bias, scale):
+        if v is not None and tuple(v.shape) not in ((n,), (g, n)):
+            raise ValueError(f"epilogue vector {tuple(v.shape)} is neither "
+                             f"({n},) nor ({g}, {n})")
+    tile = tile_id(bm, bn, bk)
+    offs = group_offsets.to(torch.int32).contiguous()
+    bias32, scale32 = _vec(bias), _vec(scale)
+    swk, swn = ((w.stride(1), w.stride(2)) if trans == "nn"
+                else (w.stride(2), w.stride(1)))
+    c = torch.empty((t, n), dtype=out_dtype, device=x.device)
+    if t == 0 or n == 0:
+        return c
+    has_scale, scale_val, act = _epi_scalars(epilogue)
+    _launch("ftimm_gemm_ragged", x.device, tile, types, x.data_ptr(),
+            w.data_ptr(), offs.data_ptr(), c.data_ptr(), t, n, k, g,
+            x.stride(0), x.stride(1), w.stride(0), swk, swn, _ptr(scale32),
+            0 if scale is None or scale.ndim == 1 else n, has_scale,
+            scale_val, _ptr(bias32), 0 if bias is None or bias.ndim == 1 else n,
+            act)
+    return c
+
+
+def ftimm_gemm_ragged_swiglu_plain(x, w_gate, w_up, group_offsets, *,
+                                   out_dtype=None) -> torch.Tensor:
+    """Plain version of ``ftimm_gemm_ragged_swiglu``."""
+    return ref.ragged_swiglu_ref(x, w_gate, w_up, group_offsets,
+                                 out_dtype=out_dtype)
+
+
+def ftimm_gemm_ragged_swiglu(x: torch.Tensor, w_gate: torch.Tensor,
+                             w_up: torch.Tensor, group_offsets: torch.Tensor,
+                             *, bm: int, bn: int, bk: int,
+                             out_dtype=None) -> torch.Tensor:
+    """silu(x[o_g:o_{g+1}] @ Wg_g) * (x[o_g:o_{g+1}] @ Wu_g) -> (T, N); both
+    panels (G, K, N)."""
+    t, k, n = _ragged_shape(x, w_gate, group_offsets, "nn")
+    if w_up.shape != w_gate.shape:
+        raise ValueError(f"swiglu panels {tuple(w_gate.shape)} / "
+                         f"{tuple(w_up.shape)}")
+    g = w_gate.shape[0]
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu":
+        return ftimm_gemm_ragged_swiglu_plain(x, w_gate, w_up, group_offsets,
+                                              out_dtype=out_dtype)
+    types = _cuda_operands("ftimm_gemm_ragged_swiglu", x, w_gate, out_dtype,
+                           w_up, group_offsets)
+    if w_up.dtype != x.dtype or w_up.stride() != w_gate.stride():
+        raise ValueError("swiglu panels must share dtype and layout")
+    if g + 1 > 65535:
+        raise ValueError(f"{g} groups exceed the grid's y extent (65534)")
+    tile = tile_id(bm, bn, bk)
+    offs = group_offsets.to(torch.int32).contiguous()
+    out = torch.empty((t, n), dtype=out_dtype, device=x.device)
+    if t == 0 or n == 0:
+        return out
+    _launch("ftimm_gemm_ragged_swiglu", x.device, tile, types, x.data_ptr(),
+            w_gate.data_ptr(), w_up.data_ptr(), offs.data_ptr(),
+            out.data_ptr(), t, n, k, g, x.stride(0), x.stride(1),
+            *w_gate.stride())
+    return out

@@ -1,11 +1,15 @@
 """Public wrappers around the ftIMM kernels: ``gemm``, ``gemm_swiglu``,
-``batched_gemm`` and the timing primitive ``bench``.
+``batched_gemm``, ``batched_gemm_swiglu``, ``ragged_gemm``,
+``ragged_gemm_swiglu`` and the timing primitive ``bench``.
 
 Edges are always masked in-kernel: unpadded operands go straight to the
 kernels and the output comes back unsliced, so no pad or slice copy ever
 touches device memory.  Requested blocks are clamped to the problem extent
 and mapped onto the compiled tile menu (``kernel.TILES``); each compiled
-tile carries its own K step, so ``bk`` follows the tile.
+tile carries its own K step, so ``bk`` follows the tile.  The ragged
+wrappers pass the device prefix sums straight to the kernels, which find
+each group's rows themselves: the TPU path's host-built visit list
+(``_ragged_metadata``) has no counterpart here.
 """
 from __future__ import annotations
 
@@ -99,3 +103,42 @@ def gemm_swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     bm, bn, bk = clamp_tile(x.shape[0], w_gate.shape[1], bm, bn)
     return _k.ftimm_gemm_swiglu(x, w_gate, w_up, bm=bm, bn=bn, bk=bk,
                                 out_dtype=out_dtype)
+
+
+def batched_gemm_swiglu(x: torch.Tensor, w_gate: torch.Tensor,
+                        w_up: torch.Tensor, *, bm: int = 128, bn: int = 128,
+                        bk: int = 16, out_dtype=None) -> torch.Tensor:
+    """Grouped fused SwiGLU pair -- the capacity-mode MoE gate/up projections
+    (E, C, D) @ 2 x (E, D, F) in one launch.  ``x`` may be (M, K), shared
+    by every group."""
+    bm, bn, bk = clamp_tile(x.shape[-2], w_gate.shape[-1], bm, bn)
+    return _k.ftimm_gemm_grouped_swiglu(x, w_gate, w_up, bm=bm, bn=bn, bk=bk,
+                                        out_dtype=out_dtype)
+
+
+def ragged_gemm(x: torch.Tensor, w: torch.Tensor, group_offsets: torch.Tensor,
+                *, bm: int = 128, bn: int = 128, bk: int = 16,
+                trans: str = "nn", out_dtype=None,
+                epilogue: Epilogue | None = None, bias=None,
+                scale=None) -> torch.Tensor:
+    """Capacity-free grouped GEMM: y[o_g:o_{g+1}] = x[o_g:o_{g+1}] @ W_g.
+    ``w`` (G, K, N) "nn" | (G, N, K) "nt"; ``group_offsets`` (G+1,) prefix
+    sums on the operands' device; ``bias`` / ``scale`` per-group (G, N)
+    vectors applied at the flush."""
+    n = w.shape[2] if trans == "nn" else w.shape[1]
+    bm, bn, bk = clamp_tile(x.shape[0], n, bm, bn)
+    return _k.ftimm_gemm_ragged(x, w, group_offsets, bm=bm, bn=bn, bk=bk,
+                                trans=trans, out_dtype=out_dtype,
+                                epilogue=epilogue or _k.IDENTITY, bias=bias,
+                                scale=scale)
+
+
+def ragged_gemm_swiglu(x: torch.Tensor, w_gate: torch.Tensor,
+                       w_up: torch.Tensor, group_offsets: torch.Tensor, *,
+                       bm: int = 128, bn: int = 128, bk: int = 16,
+                       out_dtype=None) -> torch.Tensor:
+    """Fused ragged pair: silu(x @ Wg_g) * (x @ Wu_g) per group, one launch
+    (same contract as ``ragged_gemm``)."""
+    bm, bn, bk = clamp_tile(x.shape[0], w_gate.shape[2], bm, bn)
+    return _k.ftimm_gemm_ragged_swiglu(x, w_gate, w_up, group_offsets, bm=bm,
+                                       bn=bn, bk=bk, out_dtype=out_dtype)

@@ -30,3 +30,31 @@ def matmul_nt(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor:
 
 
 REF = {"nn": matmul_nn, "tn": matmul_tn, "nt": matmul_nt}
+
+
+def ragged_matmul_ref(x: torch.Tensor, w: torch.Tensor,
+                      group_offsets: torch.Tensor, trans: str = "nn",
+                      out_dtype=None) -> torch.Tensor:
+    """Dense oracle for the ragged grouped GEMM: one masked full-width GEMM
+    per group, fp32 accumulation.  x (T, K), w (G, K, N) "nn" | (G, N, K)
+    "nt", ``group_offsets`` (G+1,) prefix sums (read on the device, never
+    on the host).  Rows outside every group (offsets[G] < T) yield zeros."""
+    out_dtype = out_dtype or x.dtype
+    rows = torch.arange(x.shape[0], device=x.device)[:, None]
+    n = w.shape[2] if trans == "nn" else w.shape[1]
+    xf = x.to(torch.float32)
+    acc = torch.zeros((x.shape[0], n), dtype=torch.float32, device=x.device)
+    for g in range(w.shape[0]):
+        mask = (rows >= group_offsets[g]) & (rows < group_offsets[g + 1])
+        wg = w[g].to(torch.float32)
+        acc = acc + torch.where(mask, xf, 0.0) @ (wg if trans == "nn" else wg.T)
+    return acc.to(out_dtype)
+
+
+def ragged_swiglu_ref(x: torch.Tensor, w_gate: torch.Tensor,
+                      w_up: torch.Tensor, group_offsets: torch.Tensor,
+                      out_dtype=None) -> torch.Tensor:
+    """Oracle for the fused ragged SwiGLU pair: silu(x@Wg_g) * (x@Wu_g)."""
+    a = ragged_matmul_ref(x, w_gate, group_offsets, out_dtype=torch.float32)
+    b = ragged_matmul_ref(x, w_up, group_offsets, out_dtype=torch.float32)
+    return (a * torch.sigmoid(a) * b).to(out_dtype or x.dtype)

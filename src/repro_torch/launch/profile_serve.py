@@ -2,19 +2,23 @@
 steady-state decode steps of the serving engine.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
-        [--arch qwen3-1.7b] [--slots 4] [--steps 5]
+        [--arch qwen3-1.7b] [--slots 4] [--steps 5] [--layers N]
 
 Fills every slot with a request (random weights from ``--seed``), runs a
 few warm decode steps, then profiles ``--steps`` decode steps and prints:
 the step wall time (host clock, ``ServeEngine.walls``), the device busy
 time per step (the sum of CUDA kernel and copy durations in the trace), the
 device idle share, and device time by kernel group.  The last line is one
-JSON object with the same numbers.  Needs a CUDA card.
+JSON object with the same numbers.  ``--layers`` cuts the depth (every
+width as published), so that a model whose full depth does not fit one
+card -- mixtral-8x7b, llama4-scout-17b-a16e -- can be profiled.  Needs a
+CUDA card.
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
 import statistics
 
@@ -30,7 +34,10 @@ from ..serve.engine import Request, ServeEngine
 
 # Device-event groups, matched by substring of the kernel name in order.
 GROUPS = (("ftimm_gemm_swiglu", "ftimm_gemm_swiglu_kernel"),
+          ("ftimm_gemm_grouped_swiglu", "ftimm_gemm_grouped_swiglu_kernel"),
           ("ftimm_gemm_grouped", "ftimm_gemm_grouped_kernel"),
+          ("ftimm_gemm_ragged_swiglu", "ftimm_gemm_ragged_swiglu_kernel"),
+          ("ftimm_gemm_ragged", "ftimm_gemm_ragged_kernel"),
           ("ftimm_gemm", "ftimm_gemm_kernel"),
           ("host <-> device copy", "memcpy"),
           ("copy / cast", "copy"),
@@ -54,10 +61,14 @@ def main(argv=None) -> None:
     ap.add_argument("--warm", type=int, default=3)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to N layers (default: as published)")
     args = ap.parse_args(argv)
 
     device = resolve_device(None)
     cfg = get_config(args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     new = args.warm + args.steps + 4
     engine = ServeEngine(cfg, init_params(cfg, args.seed, device=device),
                          batch_slots=args.slots, device=device,
@@ -91,8 +102,9 @@ def main(argv=None) -> None:
         k[1] += us
     busy_ms = sum(by_group.values()) / 1e3 / args.steps
     wall_ms = statistics.median(walls) * 1e3
-    print(f"{torch.cuda.get_device_name(device)}: {args.arch}, "
-          f"{args.slots} slots, {args.steps} decode steps profiled")
+    print(f"{torch.cuda.get_device_name(device)}: {args.arch} at "
+          f"{cfg.num_layers} layers, {args.slots} slots, {args.steps} decode "
+          "steps profiled")
     print(f"step wall median {wall_ms:.2f} ms; device busy "
           f"{busy_ms:.2f} ms/step; idle share {1 - busy_ms / wall_ms:.3f}")
     for group, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
@@ -104,7 +116,7 @@ def main(argv=None) -> None:
               f" {name[:100]}")
     print(json.dumps({
         "device": torch.cuda.get_device_name(device), "arch": args.arch,
-        "slots": args.slots, "steps": args.steps,
+        "layers": cfg.num_layers, "slots": args.slots, "steps": args.steps,
         "step_wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "idle_share": 1 - busy_ms / wall_ms,
         "device_ms_per_step": {g: us / 1e3 / args.steps

@@ -1,10 +1,10 @@
-from . import attention, layers, model, transformer, weights
+from . import attention, layers, model, moe, transformer, weights
 from .model import (DenseLM, decode_step, init_params, make_cache, prefill,
                     prefill_bucket)
 from .weights import from_numpy_params
 
 __all__ = [
-    "attention", "layers", "model", "transformer", "weights", "DenseLM",
+    "attention", "layers", "model", "moe", "transformer", "weights", "DenseLM",
     "decode_step", "init_params", "make_cache", "prefill", "prefill_bucket",
     "from_numpy_params",
 ]

@@ -1,11 +1,16 @@
-"""Top-level model API of the dense decoder: init / prefill / bucketed
-prefill / decode, and the KV cache.
+"""Top-level model API of the dense and MoE decoders: init / prefill /
+bucketed prefill / decode, and the KV cache.
 
 Batch dict convention, as in the reference: ``tokens`` (B, S) int.  The
 parameters are one ``DenseLM`` module (the reference's parameter pytree):
 the (V_pad, D) embedding table in the compute dtype, shared by the embed
 and the unembed, the fp32 final-norm scale, and one ``DenseBlock`` per
-layer.  Forward only: serving needs no gradient.
+layer, whose feed-forward is a SwiGLU MLP (dense) or routed experts (moe).
+Forward only: serving needs no gradient.
+
+In the capacity-dispatch MoE, every token of a stack pass is routed and
+takes capacity, the right-padding of a bucket prefill and the idle slots of
+a decode step included -- as in the reference.
 """
 from __future__ import annotations
 
@@ -36,7 +41,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
                 device: str | torch.device | None = None) -> DenseLM:
     """Random weights from a ``torch.Generator`` seeded with ``seed``, with
     the reference's distributions (embedding N(0, 0.02^2), He-scaled
-    projections, zero norm scales).  Runs on the CUDA card unless
+    projections, router and experts, zero norm scales).  Runs on the CUDA card unless
     ``device`` says otherwise; raises when no card is present and no device
     is given."""
     check_family(cfg)

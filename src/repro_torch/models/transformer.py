@@ -1,4 +1,5 @@
-"""The dense decoder stack: per-layer modules and the cached forward.
+"""The decoder stack of the dense and MoE families: per-layer modules and
+the cached forward.
 
 The reference scans one traced body over layer-stacked parameters
 (``lax.scan``); PyTorch runs eagerly, so here each layer is its own module
@@ -14,6 +15,9 @@ from torch import nn
 from ..configs.base import ModelConfig
 from .attention import AttentionParams, attention, frozen, init_attention_params
 from .layers import rms_norm, swiglu
+from .moe import MoEParams, init_moe_params, moe_mlp
+
+PORTED_FAMILIES = ("dense", "moe")
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -29,19 +33,25 @@ class MLPParams(nn.Module):
 
 
 class DenseBlock(nn.Module):
-    """One decoder layer: ln1 -> attention -> ln2 -> SwiGLU MLP.  The norm
-    scales stay fp32 (the norm runs in fp32 either way)."""
+    """One decoder layer: ln1 -> attention -> ln2 -> the SwiGLU MLP
+    (``mlp``, dense family) or the routed experts (``moe``, MoE family;
+    ``mlp`` is then None).  The norm scales stay fp32 (the norm runs in
+    fp32 either way)."""
 
-    def __init__(self, ln1, attn: AttentionParams, ln2, mlp: MLPParams):
+    def __init__(self, ln1, attn: AttentionParams, ln2,
+                 mlp: MLPParams | None = None, moe: MoEParams | None = None):
         super().__init__()
+        if (mlp is None) == (moe is None):
+            raise ValueError("a block has either an MLP or experts")
         self.ln1, self.ln2 = frozen(ln1), frozen(ln2)
-        self.attn, self.mlp = attn, mlp
+        self.attn, self.mlp, self.moe = attn, mlp, moe
 
 
 def check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"the {cfg.family} family is not ported yet (dense only)")
+            f"the {cfg.family} family is not ported yet (the port runs "
+            f"{', '.join(PORTED_FAMILIES)})")
 
 
 def init_dense_block(gen: torch.Generator, cfg: ModelConfig,
@@ -58,9 +68,13 @@ def init_dense_block(gen: torch.Generator, cfg: ModelConfig,
     attn = init_attention_params(
         gen, d, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_,
         qk_norm=cfg.qk_norm, dtype=dt, device=device)
-    mlp = MLPParams(he((d, f), d), he((d, f), d), he((f, d), f))
+    if cfg.family == "moe":
+        ffn = {"moe": init_moe_params(gen, d, f, cfg.num_experts, dtype=dt,
+                                      device=device)}
+    else:
+        ffn = {"mlp": MLPParams(he((d, f), d), he((d, f), d), he((f, d), f))}
     zeros = torch.zeros(d, device=device)
-    return DenseBlock(zeros, attn, zeros.clone(), mlp)
+    return DenseBlock(zeros, attn, zeros.clone(), **ffn)
 
 
 def dense_block(h: torch.Tensor, p: DenseBlock, cfg: ModelConfig, *,
@@ -68,7 +82,9 @@ def dense_block(h: torch.Tensor, p: DenseBlock, cfg: ModelConfig, *,
                 cache_index=None, causal: bool = True, use_rope: bool = True,
                 page_table: torch.Tensor | None = None):
     """Returns (h, new_kv).  The residual adds ride the out-projections'
-    fused epilogues instead of separate elementwise passes."""
+    fused epilogues instead of separate elementwise passes; an MoE block
+    adds its experts' output to the residual stream after them, and its
+    aux loss is dropped (serving does not use it, as in the reference)."""
     cdt = compute_dtype(cfg)
     h, new_kv = attention(
         rms_norm(h, p.ln1), p.attn,
@@ -77,8 +93,16 @@ def dense_block(h: torch.Tensor, p: DenseBlock, cfg: ModelConfig, *,
         causal=causal, qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
         use_rope=use_rope, kv_cache=kv, cache_index=cache_index,
         compute_dtype=cdt, residual=h, page_table=page_table)
-    h = swiglu(rms_norm(h, p.ln2), p.mlp.w_gate, p.mlp.w_up, p.mlp.w_down,
-               cdt, residual=h)
+    x = rms_norm(h, p.ln2)
+    if p.moe is not None:
+        b, s, d = x.shape
+        y, _ = moe_mlp(x.reshape(b * s, d), p.moe,
+                       num_experts=cfg.num_experts, top_k=cfg.top_k,
+                       capacity_factor=cfg.capacity_factor,
+                       compute_dtype=cdt, dispatch=cfg.moe_dispatch,
+                       quant=cfg.quant)
+        return h + y.reshape(b, s, d), new_kv
+    h = swiglu(x, p.mlp.w_gate, p.mlp.w_up, p.mlp.w_down, cdt, residual=h)
     return h, new_kv
 
 

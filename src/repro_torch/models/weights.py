@@ -11,6 +11,11 @@ leaves stacked on a leading (L,) axis:
                 "mlp": {"w_gate": (L, D, F), "w_up": (L, D, F),
                         "w_down": (L, F, D)}}}
 
+and in the MoE family ``layers.moe`` in place of ``layers.mlp``:
+
+    {"router": (L, D, E), "w_gate": (L, E, D, F), "w_up": (L, E, D, F),
+     "w_down": (L, E, F, D)}
+
 Projection weights and the embedding table are cast to the config's
 compute dtype once, here; norm scales stay fp32.  The reference keeps fp32
 masters and casts at every use, which gives the same values.
@@ -23,6 +28,7 @@ import torch
 from ..configs.base import ModelConfig
 from .attention import AttentionParams
 from .model import DenseLM
+from .moe import MoEParams
 from .transformer import DenseBlock, MLPParams, check_family, compute_dtype
 
 
@@ -45,10 +51,16 @@ def from_numpy_params(tree: dict, cfg: ModelConfig,
         attn = AttentionParams(t(a["wq"][i], cdt), t(a["wk"][i], cdt),
                                t(a["wv"][i], cdt), t(a["wo"][i], cdt),
                                **norms)
-        m = lay["mlp"]
-        mlp = MLPParams(t(m["w_gate"][i], cdt), t(m["w_up"][i], cdt),
-                        t(m["w_down"][i], cdt))
+        if cfg.family == "moe":
+            m = lay["moe"]
+            ffn = {"moe": MoEParams(*(t(m[n][i], cdt) for n in (
+                "router", "w_gate", "w_up", "w_down")))}
+        else:
+            m = lay["mlp"]
+            ffn = {"mlp": MLPParams(t(m["w_gate"][i], cdt),
+                                    t(m["w_up"][i], cdt),
+                                    t(m["w_down"][i], cdt))}
         blocks.append(DenseBlock(t(lay["ln1"][i], torch.float32), attn,
-                                 t(lay["ln2"][i], torch.float32), mlp))
+                                 t(lay["ln2"][i], torch.float32), **ffn))
     return DenseLM(t(tree["embed"], cdt), t(tree["final_norm"], torch.float32),
                    blocks)

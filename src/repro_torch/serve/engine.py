@@ -1,5 +1,7 @@
 """Overload-safe batched serving engine: bucketed batch prefill, paged KV,
-CMR-priced admission control, over the dense decoder's prefill and decode.
+CMR-priced admission control, over the prefill and decode of the dense and
+MoE decoders (``models.transformer.PORTED_FAMILIES``, the attention-cache
+families that the reference pages).
 
 The engine owns B decode slots.  The KV lives in a paged pool
 (``serve.kv_pages``): each request owns just the pages its depth needs,

@@ -137,3 +137,114 @@ def test_launch_counts_and_types(dev):
     with pytest.raises(NotImplementedError):
         ops.gemm(a.to(torch.float16), b.to(torch.float16))
     assert K.launch_counts()["ftimm_gemm"] == 1
+
+
+def _offsets(sizes, dev):
+    import numpy as np
+    return torch.tensor([0, *np.cumsum(sizes).tolist()], dtype=torch.int32,
+                        device=dev)
+
+
+# 4 rows to 4 distinct groups, all rows to one group, empty groups, one
+# group over several tiles, T not a multiple of 16.
+RAGGED_DISTS = [[1, 0, 0, 1, 0, 1, 1, 0], [0, 37, 0], [5, 0, 17, 3, 0],
+                [3, 150, 2]]
+
+
+@pytest.mark.parametrize("tile", K.TILES)
+@pytest.mark.parametrize("sizes", RAGGED_DISTS)
+@pytest.mark.parametrize("trans", ["nn", "nt"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ragged_kernel(dev, tile, sizes, trans, dtype):
+    g, t, k, n = len(sizes), sum(sizes), 257, 96
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(t, k, generator=gen, device=dev).to(dtype)
+    w = torch.randn((g, k, n) if trans == "nn" else (g, n, k), generator=gen,
+                    device=dev).to(dtype)
+    offs = _offsets(sizes, dev)
+    bm, bn, bk = tile
+    got = K.ftimm_gemm_ragged(x, w, offs, bm=bm, bn=bn, bk=bk, trans=trans)
+    torch.cuda.synchronize()
+    _close(got, K.ftimm_gemm_ragged_plain(x, w, offs, trans=trans))
+
+
+@pytest.mark.parametrize("tile", K.TILES)
+@pytest.mark.parametrize("sizes", RAGGED_DISTS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ragged_swiglu_kernel(dev, tile, sizes, dtype):
+    g, t, k, n = len(sizes), sum(sizes), 257, 96
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn(t, k, generator=gen, device=dev).to(dtype)
+    wg = (torch.randn(g, k, n, generator=gen, device=dev) / k ** 0.5).to(dtype)
+    wu = (torch.randn(g, k, n, generator=gen, device=dev) / k ** 0.5).to(dtype)
+    offs = _offsets(sizes, dev)
+    bm, bn, bk = tile
+    got = K.ftimm_gemm_ragged_swiglu(x, wg, wu, offs, bm=bm, bn=bn, bk=bk)
+    torch.cuda.synchronize()
+    _close(got, K.ftimm_gemm_ragged_swiglu_plain(x, wg, wu, offs))
+
+
+@pytest.mark.parametrize("epi", [Epilogue(bias=True),
+                                 Epilogue(scale_vec=True, scale=0.5,
+                                          activation="silu"),
+                                 Epilogue(bias=True, activation="gelu")])
+@pytest.mark.parametrize("per_group", [False, True])
+def test_ragged_epilogue_and_unowned_rows(dev, epi, per_group):
+    """(N,) or (G, N) vectors; the 4 trailing rows belong to no group and
+    come out as zeros."""
+    sizes, tail = [5, 0, 17, 3], 4
+    g, t, k, n = len(sizes), sum(sizes) + tail, 129, 65
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(t, k, generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randn(g, k, n, generator=gen, device=dev).to(torch.bfloat16)
+    vec = torch.randn((g, n) if per_group else (n,), generator=gen,
+                      device=dev)
+    kw = dict(epilogue=epi, bias=vec if epi.bias else None,
+              scale=vec if epi.scale_vec else None)
+    offs = _offsets(sizes, dev)
+    got = ops.ragged_gemm(x, w, offs, **kw)
+    torch.cuda.synchronize()
+    _close(got, K.ftimm_gemm_ragged_plain(x, w, offs, **kw))
+    assert (got[-tail:] == 0).all()
+
+
+@pytest.mark.parametrize("tile", K.TILES)
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_grouped_swiglu_kernel(dev, tile, shared, dtype):
+    g, m, k, n = 5, 33, 129, 65
+    gen = torch.Generator(device=dev).manual_seed(10)
+    x = torch.randn((m, k) if shared else (g, m, k), generator=gen,
+                    device=dev).to(dtype)
+    wg = (torch.randn(g, k, n, generator=gen, device=dev) / k ** 0.5).to(dtype)
+    wu = (torch.randn(g, k, n, generator=gen, device=dev) / k ** 0.5).to(dtype)
+    bm, bn, bk = tile
+    got = K.ftimm_gemm_grouped_swiglu(x, wg, wu, bm=bm, bn=bn, bk=bk)
+    torch.cuda.synchronize()
+    _close(got, K.ftimm_gemm_grouped_swiglu_plain(x, wg, wu))
+
+
+def test_moe_kernels_launch_and_count(dev):
+    """The MoE layer on the card goes through the new kernels, and only a
+    launch moves a count."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    for arch, kernels in (("mixtral-8x7b-smoke", ("ftimm_gemm_grouped_swiglu",
+                                                  "ftimm_gemm_grouped")),
+                          ("llama4-scout-17b-a16e-smoke",
+                           ("ftimm_gemm_ragged_swiglu", "ftimm_gemm_ragged"))):
+        cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
+        gen = torch.Generator(device=dev).manual_seed(11)
+        p = moe.init_moe_params(gen, cfg.d_model, cfg.d_ff, cfg.num_experts,
+                                dtype=torch.float32, device=dev)
+        x = torch.randn(37, cfg.d_model, generator=gen, device=dev)
+        kw = dict(num_experts=cfg.num_experts, top_k=cfg.top_k,
+                  compute_dtype=torch.float32, dispatch=cfg.moe_dispatch)
+        K.reset_launch_counts()
+        y, _ = moe.moe_mlp(x, p, **kw)
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        assert all(counts[k] == 1 for k in kernels), counts
+        want, _ = moe.moe_mlp(x.cpu(), p.to("cpu"), **kw)
+        _close(y.cpu(), want)

@@ -1,8 +1,9 @@
 """The port's ftIMM wrappers (their plain versions, on the CPU) against the
 JAX package's Pallas kernels run in interpret mode, on the same numpy
 inputs: dense (all trans, unaligned shapes, fused epilogues), the fused
-SwiGLU pair, and the grouped GEMM (shared operand, per-group bias).  Plus
-``Epilogue.apply`` and the shape taxonomy.
+SwiGLU pair, the grouped GEMM (shared operand, per-group bias), the grouped
+SwiGLU pair, and the ragged GEMM and its SwiGLU pair over degenerate group
+distributions.  Plus ``Epilogue.apply`` and the shape taxonomy.
 
 Tolerances: fp32 2e-4 (the same fp32 products summed in other orders),
 bf16 2e-2 (one bf16 ulp is 2^-8 relative; both sides round the same fp32
@@ -185,8 +186,126 @@ def test_cuda_tensor_never_takes_the_plain_version():
     """The tensor's device picks the engine: only a CPU tensor takes the
     plain version; any other launches its kernel or raises."""
     meta = torch.empty((8, 8), device="meta")
+    offs = torch.zeros(2, dtype=torch.int32, device="meta")
     for call in (lambda: tops.gemm(meta, meta),
                  lambda: tops.gemm_swiglu(meta, meta, meta),
-                 lambda: tops.batched_gemm(meta[None], meta)):
+                 lambda: tops.batched_gemm(meta[None], meta),
+                 lambda: tops.batched_gemm_swiglu(meta, meta[None],
+                                                  meta[None]),
+                 lambda: tops.ragged_gemm(meta, meta[None], offs),
+                 lambda: tops.ragged_gemm_swiglu(meta, meta[None],
+                                                 meta[None], offs)):
         with pytest.raises(ValueError, match="no kernel"):
             call()
+
+
+# Ragged group-size distributions: 4 rows to 4 distinct groups (decode),
+# all rows to one group, empty groups, a group spanning several 16-row
+# tiles, and totals that are not a multiple of 16.
+RAGGED_DISTS = [[1, 0, 1, 0, 1, 1], [0, 20, 0], [5, 0, 17, 3],
+                [3, 40, 2], [1, 1, 1, 1, 1, 1, 1]]
+
+
+def _offsets(sizes):
+    return np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+
+
+def _ragged_inputs(sizes, k, n, rng, trans="nn"):
+    g, t = len(sizes), int(sum(sizes))
+    w_shape = (g, k, n) if trans == "nn" else (g, n, k)
+    return _np((t, k), rng), _np(w_shape, rng, k ** -0.5), _offsets(sizes)
+
+
+@pytest.mark.parametrize("sizes", RAGGED_DISTS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ragged_gemm_matches_jax(sizes, dtype):
+    rng = np.random.default_rng(sum(sizes))
+    x, w, offs = _ragged_inputs(sizes, 40, 24, rng)
+    (jx, tx), (jw, tw) = (_pair(v, dtype) for v in (x, w))
+    want = jops.ragged_gemm(jx, jw, jnp.asarray(offs), bm=16, interpret=True)
+    _close(tops.ragged_gemm(tx, tw, torch.as_tensor(offs)), want, dtype)
+
+
+@pytest.mark.parametrize("sizes", RAGGED_DISTS[2:4])
+def test_ragged_gemm_nt_matches_jax(sizes):
+    rng = np.random.default_rng(7)
+    x, w, offs = _ragged_inputs(sizes, 40, 24, rng, trans="nt")
+    (jx, tx), (jw, tw) = (_pair(v, "float32") for v in (x, w))
+    want = jops.ragged_gemm(jx, jw, jnp.asarray(offs), bm=16, trans="nt",
+                            interpret=True)
+    _close(tops.ragged_gemm(tx, tw, torch.as_tensor(offs), trans="nt"), want,
+           "float32")
+
+
+@pytest.mark.parametrize("epi", [Epilogue(bias=True),
+                                 Epilogue(scale_vec=True, activation="silu"),
+                                 Epilogue(bias=True, scale=0.5,
+                                          activation="gelu")],
+                         ids=["bias", "scalevec-silu", "bias-scale-gelu"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ragged_gemm_epilogue_matches_jax(epi, dtype):
+    sizes = [5, 0, 17, 3]
+    rng = np.random.default_rng(8)
+    x, w, offs = _ragged_inputs(sizes, 40, 24, rng)
+    vec = _np((len(sizes), 24), rng)
+    (jx, tx), (jw, tw), (jv, tv) = (_pair(v, dtype) for v in (x, w, vec))
+    jepi = JEpilogue(bias=epi.bias, activation=epi.activation,
+                     scale=epi.scale, scale_vec=epi.scale_vec)
+    pick = lambda flag, v: v if flag else None  # noqa: E731
+    want = jops.ragged_gemm(jx, jw, jnp.asarray(offs), bm=16, interpret=True,
+                            epilogue=jepi, bias=pick(epi.bias, jv),
+                            scale=pick(epi.scale_vec, jnp.asarray(vec)))
+    got = tops.ragged_gemm(tx, tw, torch.as_tensor(offs), epilogue=epi,
+                           bias=pick(epi.bias, tv),
+                           scale=pick(epi.scale_vec, torch.as_tensor(vec)))
+    _close(got, want, dtype)
+
+
+def test_ragged_rows_outside_every_group_are_zero():
+    """offsets[G] < T: the trailing rows belong to no group and come out
+    as zeros, as the reference oracle defines (the epilogue skips them)."""
+    from repro.kernels.ftimm import ref as jref
+    rng = np.random.default_rng(9)
+    x, w, _ = _ragged_inputs([4, 6, 3], 40, 24, rng)
+    offs = np.array([0, 4, 7, 9], np.int32)          # rows 9..12 unowned
+    (jx, tx), (jw, tw) = (_pair(v, "float32") for v in (x, w))
+    want = jref.ragged_matmul_ref(jx, jw, jnp.asarray(offs))
+    got = tops.ragged_gemm(tx, tw, torch.as_tensor(offs))
+    _close(got, want, "float32")
+    bias = torch.as_tensor(_np((3, 24), rng))
+    got = tops.ragged_gemm(tx, tw, torch.as_tensor(offs),
+                           epilogue=Epilogue(bias=True), bias=bias)
+    assert (got[9:] == 0).all() and (got[:9] != 0).any()
+
+
+@pytest.mark.parametrize("sizes", RAGGED_DISTS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ragged_gemm_swiglu_matches_jax(sizes, dtype):
+    rng = np.random.default_rng(sum(sizes) + 1)
+    x, wg, offs = _ragged_inputs(sizes, 40, 24, rng)
+    wu = _np(wg.shape, rng, 40 ** -0.5)
+    (jx, tx), (jg, tg), (ju, tu) = (_pair(v, dtype) for v in (x, wg, wu))
+    want = jops.ragged_gemm_swiglu(jx, jg, ju, jnp.asarray(offs), bm=16,
+                                   interpret=True)
+    _close(tops.ragged_gemm_swiglu(tx, tg, tu, torch.as_tensor(offs)), want,
+           dtype)
+
+
+def test_ragged_zero_rows():
+    offs = torch.zeros(4, dtype=torch.int32)
+    w = torch.randn(3, 8, 5)
+    assert tops.ragged_gemm(torch.empty(0, 8), w, offs).shape == (0, 5)
+    assert tops.ragged_gemm_swiglu(torch.empty(0, 8), w, w,
+                                   offs).shape == (0, 5)
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("g,m,k,n", [(4, 16, 64, 96), (3, 17, 70, 40)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_batched_gemm_swiglu_matches_jax(shared, g, m, k, n, dtype):
+    rng = np.random.default_rng(g * m + n)
+    x = _np((m, k) if shared else (g, m, k), rng)
+    wg, wu = _np((g, k, n), rng, k ** -0.5), _np((g, k, n), rng, k ** -0.5)
+    (jx, tx), (jg, tg), (ju, tu) = (_pair(v, dtype) for v in (x, wg, wu))
+    want = jops.batched_gemm_swiglu(jx, jg, ju, interpret=True)
+    _close(tops.batched_gemm_swiglu(tx, tg, tu), want, dtype)

@@ -1,7 +1,8 @@
 """The port's serving engine on the CPU: the same requests through the JAX
 ``ServeEngine`` and the port's give the same tokens and terminal states
-(fp32 config, greedy), and the engine's paging, preemption, buckets and
-admission control behave as the reference's do."""
+(fp32 config, greedy; the dense decoder and both MoE decoders), and the
+engine's paging, preemption, buckets and admission control behave as the
+reference's do."""
 import dataclasses
 
 import numpy as np
@@ -58,6 +59,30 @@ def test_engine_matches_jax_engine():
                                               j.out_tokens)
         assert (t.done, t.timed_out, t.shed) == (j.done, j.timed_out, j.shed)
         assert t.done and len(t.out_tokens) == 4
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b-smoke",
+                                  "llama4-scout-17b-a16e-smoke"])
+def test_moe_engine_matches_jax_engine(arch):
+    """The MoE decoders (capacity and ragged dispatch) through both
+    engines: 2 slots, 3 requests, decode past the 16-position window."""
+    jcfg = dataclasses.replace(jget_config(arch), compute_dtype="float32")
+    tcfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
+    params = jinit_params(jcfg, jax.random.PRNGKey(1))
+    model = from_numpy_params(jax.tree.map(np.asarray, params), tcfg, "cpu")
+    prompts = _prompts(3, 1, lens=(18, 5, 11))
+    jreqs = JServeEngine(jcfg, params, batch_slots=2, max_len=32).run(
+        [JRequest(rid=i, prompt=p, max_new_tokens=6)
+         for i, p in enumerate(prompts)])
+    treqs = ServeEngine(tcfg, model, batch_slots=2, max_len=32,
+                        device="cpu").run(
+        [Request(rid=i, prompt=p, max_new_tokens=6)
+         for i, p in enumerate(prompts)])
+    for j, t in zip(jreqs, treqs):
+        assert t.out_tokens == j.out_tokens, (t.rid, t.out_tokens,
+                                              j.out_tokens)
+        assert (t.done, t.timed_out, t.shed) == (j.done, j.timed_out, j.shed)
+        assert t.done and len(t.out_tokens) == 6
 
 
 def test_batched_equals_single_with_mixed_lengths():
