@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the ftIMM serving stack on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port of the ftIMM stack on one NVIDIA GPU:
+serving and training.
 
     python3 chip_smoke.py
 
@@ -7,12 +8,15 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
 /usr/local/cuda/bin) and no network.  Phases, in order:
 
 1. the card's name and power limit, as nvidia-smi reports them;
-2. [build] the six ftIMM kernels from src/repro_torch/kernels/ftimm/csrc,
+2. [build] the eight ftIMM kernels from src/repro_torch/kernels/ftimm/csrc,
    one nvcc per source, all started together;
 3. [check] hold each kernel against its plain PyTorch version on the card:
    the shapes that serving qwen3-1.7b, mixtral-8x7b and
    llama4-scout-17b-a16e gives it (decode at 4 slots, and the bucket
-   prefills), unaligned shapes, every trans, the epilogues, the shared 2-D
+   prefills), the shapes training gives the two backward kernels (the
+   llama4-scout expert dW, T = 1024 routed rows; the split-K kernel at the
+   T2 dW shapes of qwen3-1.7b and the llama4-scout router, nsplit 2 / 4 /
+   8), unaligned shapes, every trans, the epilogues, the shared 2-D
    operand, and ragged group distributions (4 rows to 4 distinct groups,
    all rows to one group, empty groups, a group spanning several tiles,
    rows outside every group, totals not a multiple of 16).  Normwise
@@ -37,14 +41,49 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    path must have launched.  Then one prompt's full-width qwen3 prefill
    logits are held against the plain versions on the CPU (5e-2 normwise:
    28 bf16 layers, each of whose activations may round one bf16 ulp apart);
-6. [time] each kernel at the decode-step shapes of the model it serves
-   (CUDA events around calls enqueued behind a sleep kernel, so the card
-   runs them back to back; operands rotated through more copies than the
-   50 MB L2 holds) beside its plain version, one PyTorch library call where
-   one computes the same function, and its bound: the larger of the bytes
-   this input needs / 3.35 TB/s and its operations / peak (989 TFLOP/s bf16,
-   67 TFLOP/s fp32; NVIDIA's H100 SXM data sheet).  A ragged call's bytes
-   count only the expert panels its rows reach.
+6. [train-reference] training in fp32, card against CPU, same weights and
+   batches: qwen3-1.7b at full width and 2 layers, 2 AdamW steps of batch 2
+   x seq 32 (the loss of each step and every step-1 gradient leaf within
+   1e-3 normwise); llama4-scout-17b-a16e at full width and 1 layer, one
+   forward / backward of 64 tokens (the same experts for every token on
+   both, then the loss and every gradient leaf within 1e-3);
+7. [train] through ``Trainer``, bf16 compute on fp32 masters, AdamW (the
+   first 5 steps of a 20-step warmup to lr 3e-4), seq 128 x batch 8 (the
+   launcher's defaults), one model on the card at a time: qwen3-1.7b at
+   full width and depth (28 layers), and llama4-scout-17b-a16e and
+   mixtral-8x7b at full width and 1 layer (fp32 masters, gradients and
+   moments of 2 layers do not fit one 80 GB card).
+   The launch counts are zeroed just before each run and read just after;
+   every kernel of that model's training path must have launched
+   (``ftimm_gemm_ragged_dw`` for llama4-scout's expert dW, the grouped
+   kernel for mixtral's).  The loss must be finite and lower at step 5 than
+   at step 1.  Prints the median step time, tokens/s and peak device
+   memory.  Every distinct kernel call of these runs is recorded (kernel,
+   operand shapes, strides and dtypes, trans, tile, epilogue, out dtype;
+   the ragged offsets as routed);
+8. [train-check] each recorded call replayed on random operands of its
+   shapes against the kernel's plain version, at the tolerances of
+   [check]: the forward, remat, dX and dW products of the three training
+   steps, the mixed bf16 x fp32 products of the fp32 logits' and router's
+   cotangents included;
+9. [train-schedule] the launcher's own schedule for a 5-step run (a 1-step
+   warmup to lr 3e-4, ``launch.train.opt_config``): llama4-scout at 1 layer
+   in bf16 and in fp32 compute from the same masters and batches, and
+   qwen3-1.7b at 28 layers in bf16.  The losses are recorded, not gated
+   (with this 1-step warmup they spike at full width, in fp32 as in bf16);
+   the gates are that bf16 and fp32 give the same step-1 loss within 1e-2
+   and the same step-2 loss within 5e-2;
+10. [time] each kernel at the decode-step shapes of the model it serves, and
+   the two backward kernels at the training shapes (CUDA events around
+   calls enqueued behind a sleep kernel, so the card runs them back to
+   back; operands rotated through more copies than the 50 MB L2 holds)
+   beside its plain version, one PyTorch library call where one computes
+   the same function (``torch.matmul`` for the split-K kernel, which is
+   also timed beside ``ftimm_gemm`` at nsplit = 1), and its bound: the
+   larger of the bytes this input needs / 3.35 TB/s and its operations /
+   peak (989 TFLOP/s bf16, 67 TFLOP/s fp32; NVIDIA's H100 SXM data sheet).
+   A ragged call's bytes count only the expert panels its rows reach (the
+   ragged dW: every panel it writes).
 
 It prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` as
 the last line.  Any failure raises and exits non-zero before that line.
@@ -53,7 +92,9 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import gc
+import inspect
 import json
 import math
 import statistics
@@ -69,15 +110,21 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.core.gemm import (batched_matmul, grouped_swiglu,  # noqa: E402
-                                   matmul, matmul_swiglu, ragged_matmul,
-                                   ragged_swiglu)
+                                   matmul, matmul_swiglu, plan_ragged_gemm,
+                                   ragged_matmul, ragged_swiglu)
+from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.kernels.ftimm import kernel as K  # noqa: E402
 from repro_torch.kernels.ftimm import ops  # noqa: E402
 from repro_torch.kernels.ftimm.epilogue import Epilogue  # noqa: E402
+from repro_torch.launch.train import opt_config  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
+from repro_torch.models.weights import to_numpy_tree  # noqa: E402
+from repro_torch.optim import OptConfig, init_opt_state  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
+from repro_torch.train import Trainer, make_train_step  # noqa: E402
 
 BF16, FP32 = torch.bfloat16, torch.float32
 CPU = torch.device("cpu")
@@ -91,30 +138,59 @@ REPLACES = {"ftimm_gemm": f"{_TPU}:202",
             "ftimm_gemm_grouped": f"{_TPU}:322",
             "ftimm_gemm_grouped_swiglu": f"{_TPU}:920",
             "ftimm_gemm_ragged": f"{_TPU}:506",
-            "ftimm_gemm_ragged_swiglu": f"{_TPU}:620"}
+            "ftimm_gemm_ragged_swiglu": f"{_TPU}:620",
+            "ftimm_gemm_ragged_dw": f"{_TPU}:698",
+            "ftimm_gemm_splitk": f"{_TPU}:759"}
 ARCH, MIXTRAL, LLAMA4 = "qwen3-1.7b", "mixtral-8x7b", "llama4-scout-17b-a16e"
 MOE_LAYERS = 8          # served depth of the MoE models (width as published)
 REF_LAYERS = 2          # depth of their fp32 card-vs-CPU reference
-# The kernels each serving run must launch, and the model whose decode step
-# each kernel's entry in the kernels line is timed for.
-PATH_KERNELS = {ARCH: ("ftimm_gemm", "ftimm_gemm_swiglu", "ftimm_gemm_grouped"),
-                MIXTRAL: ("ftimm_gemm", "ftimm_gemm_grouped",
-                          "ftimm_gemm_grouped_swiglu"),
-                LLAMA4: ("ftimm_gemm", "ftimm_gemm_grouped",
-                         "ftimm_gemm_ragged", "ftimm_gemm_ragged_swiglu")}
-HOME = {"ftimm_gemm": ARCH, "ftimm_gemm_swiglu": ARCH,
-        "ftimm_gemm_grouped": ARCH, "ftimm_gemm_grouped_swiglu": MIXTRAL,
-        "ftimm_gemm_ragged": LLAMA4, "ftimm_gemm_ragged_swiglu": LLAMA4}
+# The kernels each run must launch (serving, then training), and the run
+# whose step each kernel's entry in the kernels line is timed for.  No
+# model path launches the split-K kernel (the planner never picks nsplit >
+# 1, as in the reference); its entry is timed per call at qwen's dW shapes
+# and its launches read from the qwen training run.
+PATH_KERNELS = {
+    ("serve", ARCH): ("ftimm_gemm", "ftimm_gemm_swiglu", "ftimm_gemm_grouped"),
+    ("serve", MIXTRAL): ("ftimm_gemm", "ftimm_gemm_grouped",
+                         "ftimm_gemm_grouped_swiglu"),
+    ("serve", LLAMA4): ("ftimm_gemm", "ftimm_gemm_grouped",
+                        "ftimm_gemm_ragged", "ftimm_gemm_ragged_swiglu"),
+    ("train", ARCH): ("ftimm_gemm", "ftimm_gemm_swiglu", "ftimm_gemm_grouped"),
+    ("train", LLAMA4): ("ftimm_gemm", "ftimm_gemm_grouped",
+                        "ftimm_gemm_ragged", "ftimm_gemm_ragged_swiglu",
+                        "ftimm_gemm_ragged_dw"),
+    ("train", MIXTRAL): ("ftimm_gemm", "ftimm_gemm_grouped",
+                         "ftimm_gemm_grouped_swiglu")}
+HOME = {"ftimm_gemm": ("serve", ARCH), "ftimm_gemm_swiglu": ("serve", ARCH),
+        "ftimm_gemm_grouped": ("serve", ARCH),
+        "ftimm_gemm_grouped_swiglu": ("serve", MIXTRAL),
+        "ftimm_gemm_ragged": ("serve", LLAMA4),
+        "ftimm_gemm_ragged_swiglu": ("serve", LLAMA4),
+        "ftimm_gemm_ragged_dw": ("train", LLAMA4),
+        "ftimm_gemm_splitk": ("train", ARCH)}
 SLOTS, NEW_TOKENS, PAGE, MAX_LEN = 4, 16, 16, 96
 PROMPT_LENS = (24, 24, 24, 50, 50, 50)     # buckets 32 and 64
 L2_BYTES = 50e6
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 5, 128, 8
+TRAIN_TOKENS = TRAIN_SEQ * TRAIN_BATCH
+TRAIN_LAYERS = {ARCH: None, LLAMA4: 1, MIXTRAL: 1}   # None: the full depth
+TRAIN_REF_TOL = 1e-3
+# The 5 steps are the start of a 20-step warmup to the launcher's lr 3e-4.
+# At full width an Adam step moves every weight by about lr (a sign step),
+# so each logit moves by about lr x d_model: with the launcher's 1-step
+# warmup for a 5-step run that is O(1) nats a step, and the loss spikes
+# above its start, in fp32 compute as in bf16 ([train-schedule] shows it;
+# PERF.md, Findings).
+TRAIN_WARMUP = 20
 
 
 def log(*args) -> None:
     print(*args, flush=True)
 
 
-def depth(arch: str) -> int:
+def depth(phase: str, arch: str) -> int:
+    if phase == "train":
+        return TRAIN_LAYERS[arch] or get_config(arch).num_layers
     return get_config(arch).num_layers if arch == ARCH else MOE_LAYERS
 
 
@@ -151,8 +227,12 @@ class Case:
     flops: float
     dtype: torch.dtype      # the operands' type (picks the peak)
     out_dtype: torch.dtype
-    per_step: int = 0       # launches in one decode step (0: check only)
-    model: str = ARCH       # whose decode step ``per_step`` counts
+    per_step: int = 0       # launches in one step (0: not on the path)
+    model: str = ARCH       # whose step ``per_step`` counts
+    phase: str = "serve"    # "serve" (a decode step) or "train" (a step)
+    timed: bool = False     # timed even with per_step 0
+    entry_calls: int = 0    # calls the kernels line sums for a kernel that
+                            # no step launches (split-K)
 
 
 def _randn(gen, shape, dtype, scale=1.0):
@@ -165,7 +245,8 @@ def _size(dtype) -> int:
 
 
 def dense_case(label, m, k, n, *, trans="nn", dtype=BF16, out=None,
-               residual=False, per_step=0) -> Case:
+               residual=False, per_step=0, phase="serve",
+               timed=False) -> Case:
     out = out or dtype
     sa = {"nn": (m, k), "tn": (k, m), "nt": (m, k)}[trans]
     sb = {"nn": (k, n), "tn": (k, n), "nt": (n, k)}[trans]
@@ -192,7 +273,44 @@ def dense_case(label, m, k, n, *, trans="nn", dtype=BF16, out=None,
         lambda a, b, r: K.ftimm_gemm_plain(a, b, trans=trans, out_dtype=out,
                                            epilogue=epi or K.IDENTITY,
                                            residual=r),
-        library, nbytes, 2.0 * m * n * k, dtype, out, per_step)
+        library, nbytes, 2.0 * m * n * k, dtype, out, per_step,
+        phase=phase, timed=timed)
+
+
+def splitk_case(label, m, k, n, nsplit, *, trans="tn", dtype=BF16,
+                epilogue=False, entry_calls=0, timed=False) -> Case:
+    """The split-K kernel through ``ops.gemm(nsplit=...)``; ``epilogue``
+    adds bias + silu + residual, applied after the sum."""
+    sa = {"nn": (m, k), "tn": (k, m), "nt": (m, k)}[trans]
+    sb = {"nn": (k, n), "tn": (k, n), "nt": (n, k)}[trans]
+    epi = (Epilogue(bias=True, activation="silu", residual=True) if epilogue
+           else None)
+    _, _, bk = ops.clamp_tile(m, n, 128, 128)
+    ns = ops.clamp_nsplit(k, bk, nsplit)
+
+    def make(gen):
+        extra = ((_randn(gen, (n,), FP32), _randn(gen, (m, n), dtype))
+                 if epilogue else (None, None))
+        return (_randn(gen, sa, dtype), _randn(gen, sb, dtype, k ** -0.5),
+                *extra)
+
+    def library(a, b, bias, res):
+        a = a.t() if trans == "tn" else a
+        b = b.t() if trans == "nt" else b
+        return torch.matmul(a, b)
+
+    nbytes = ((m * k + k * n + m * n) * _size(dtype)
+              + ((4 * n + m * n * _size(dtype)) if epilogue else 0))
+    return Case(
+        "ftimm_gemm_splitk", label, make,
+        lambda a, b, bias, res: ops.gemm(a, b, trans=trans, nsplit=nsplit,
+                                         epilogue=epi, bias=bias,
+                                         residual=res),
+        lambda a, b, bias, res: K.ftimm_gemm_splitk_plain(
+            a, b, bk=bk, nsplit=ns, trans=trans, epilogue=epi or K.IDENTITY,
+            bias=bias, residual=res, out_dtype=dtype),
+        None if epilogue else library, nbytes, 2.0 * m * n * k, dtype, dtype,
+        0, ARCH, "train", timed, entry_calls)
 
 
 def swiglu_case(label, m, k, n, *, dtype=BF16, per_step=0) -> Case:
@@ -315,6 +433,61 @@ def ragged_swiglu_case(label, sizes, k, n, *, dtype=BF16, tail=0,
                 4.0 * (t - tail) * k * n, dtype, dtype, per_step, model)
 
 
+def ragged_dw_case(label, sizes, d, f, *, dtype=BF16, tail=0,
+                   per_step=0) -> Case:
+    """dW[g] = x[rows_g]^T dy[rows_g] through the planned ragged-K kernel;
+    ``tail`` more rows that no group owns."""
+    g, t = len(sizes), sum(sizes) + tail
+
+    def make(gen):
+        return (_randn(gen, (t, d), dtype), _randn(gen, (t, f), dtype),
+                _offsets(sizes, gen.device))
+
+    def run(x, dy, offs):
+        plan = plan_ragged_gemm(g, t, d, f, _size(dtype), _size(dtype),
+                                ragged="k")
+        return ops.ragged_gemm_dw(x, dy, offs, bm=plan.bm, bn=plan.bn)
+
+    def library(x, dy, offs):
+        return torch._grouped_mm(x.t(), dy, offs=offs[1:])
+
+    return Case("ftimm_gemm_ragged_dw", label, make, run,
+                lambda x, dy, o: K.ftimm_gemm_ragged_dw_plain(x, dy, o),
+                None if tail else library,
+                (t * d + t * f + g * d * f) * _size(dtype),
+                2.0 * (t - tail) * d * f, dtype, dtype, per_step, LLAMA4,
+                "train")
+
+
+def train_cases() -> list[Case]:
+    """The two backward kernels at the training shapes (seq 128 x batch 8
+    = 1024 tokens): the llama4-scout expert dW (its gate / up and down
+    panels, with the launches of one 1-layer train step) under random
+    top-1 routing, and the split-K kernel at the T2 dW shapes of qwen3-1.7b
+    (q / o and gate / up projections) and of the llama4-scout router, with
+    ``ftimm_gemm`` (nsplit 1) at the same qwen shapes beside it."""
+    l4, qw = get_config(LLAMA4), get_config(ARCH)
+    e, d, f = l4.num_experts, l4.d_model, l4.d_ff
+    routed = np.random.default_rng(7).multinomial(
+        TRAIN_TOKENS, [1.0 / e] * e).tolist()
+    cases = [ragged_dw_case("llama4 train gate/up dW", routed, d, f,
+                            per_step=2),
+             ragged_dw_case("llama4 train down dW", routed, f, d, per_step=1)]
+    dq, fq = qw.d_model, qw.d_ff
+    for n in (dq, fq):
+        for ns in (2, 4, 8):
+            cases.append(splitk_case(f"qwen train dW {dq}x{n} nsplit {ns}",
+                                     dq, TRAIN_TOKENS, n, ns,
+                                     entry_calls=int(ns == 4), timed=True))
+        cases.append(dense_case(f"qwen train dW {dq}x{n} nsplit 1", dq,
+                                TRAIN_TOKENS, n, trans="tn", phase="train",
+                                timed=True))
+    for ns in (2, 4, 8):
+        cases.append(splitk_case(f"llama4 router dW {d}x{e} nsplit {ns}", d,
+                                 TRAIN_TOKENS, e, ns))
+    return cases
+
+
 def main_path_cases(cfg, view_len: int, bucket: int) -> list[Case]:
     """Every GEMM shape of one qwen3-1.7b decode step at SLOTS slots (with
     its launch count), and of one bucket prefill."""
@@ -426,6 +599,23 @@ def edge_cases() -> list[Case]:
         cases.append(ragged_case(label, [5, 0, 17, 3, 0], 257, 96, epi=epi))
     cases.append(ragged_case("(G,N) bias fp32", [5, 0, 17, 3, 0], 257, 96,
                              epi=Epilogue(bias=True), dtype=FP32))
+    for label, sizes, tail in dists + (("balanced", [16, 16, 16, 16], 0),
+                                       ("T = 0", [0, 0, 0], 0)):
+        for dtype in (BF16, FP32):
+            cases.append(ragged_dw_case(f"{label} {dtype}", sizes, 257, 96,
+                                        dtype=dtype, tail=tail))
+    for trans in ("nn", "tn", "nt"):
+        for dtype in (BF16, FP32):
+            for ns in (2, 4, 8):
+                cases.append(splitk_case(f"33x257x65 {trans} {dtype} nsplit "
+                                         f"{ns}", 33, 257, 65, ns,
+                                         trans=trans, dtype=dtype))
+            cases.append(splitk_case(f"33x257x65 {trans} {dtype} bias+silu"
+                                     "+residual nsplit 4", 33, 257, 65, 4,
+                                     trans=trans, dtype=dtype, epilogue=True))
+    cases.append(splitk_case("qwen train dW 2048x2048 bias+silu+residual "
+                             "nsplit 4", 2048, TRAIN_TOKENS, 2048, 4,
+                             epilogue=True))
     return cases
 
 
@@ -517,7 +707,7 @@ def timings(cases: list[Case], dev) -> list[dict]:
     sleep_ms = _sleep_ms_per_mcycle()
     rows = []
     for c in cases:
-        if not c.per_step:
+        if not (c.per_step or c.timed):
             continue
         copies = min(max(math.ceil(3 * L2_BYTES / c.nbytes), 1), 64)
         inputs = [c.make(gen) for _ in range(copies)]
@@ -529,7 +719,8 @@ def timings(cases: list[Case], dev) -> list[dict]:
             log(f"  {c.kernel} {c.label}: library_ms null ({why})")
         rows.append({
             "kernel": c.kernel, "label": c.label, "model": c.model,
-            "per_step": c.per_step,
+            "phase": c.phase, "per_step": c.per_step,
+            "entry_calls": c.entry_calls,
             "ms": time_ms(c.run, inputs, reps, sleep_ms),
             "plain_ms": time_ms(c.plain, inputs, reps, sleep_ms),
             "library_ms": lib, "library_note": why or None,
@@ -706,7 +897,7 @@ def serve(arch: str, dev) -> tuple[dict, ServeEngine, dict]:
                                  "range")
     if any(engine.faults.values()):
         raise AssertionError(f"{arch} engine faults: {engine.faults}")
-    missing = [k for k in PATH_KERNELS[arch] if launches[k] == 0]
+    missing = [k for k in PATH_KERNELS[("serve", arch)] if launches[k] == 0]
     if missing:
         raise AssertionError(f"{arch}: {missing} never launched: {launches}")
     engine.alloc.check()
@@ -740,20 +931,340 @@ def serve(arch: str, dev) -> tuple[dict, ServeEngine, dict]:
 
 
 # ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+class CallRecorder:
+    """Notes the distinct kernel calls of a run: while it is entered, every
+    kernel wrapper of ``K`` is wrapped so that each call records the kernel,
+    each tensor argument's shape, strides and dtype, and the other
+    arguments (a call's integer tensors -- the group offsets -- are kept on
+    the card as the first such call gave them: cloned, no host sync).  The
+    calls themselves go through the wrappers unchanged, launches counted as
+    ever."""
+
+    def __init__(self):
+        self.calls: dict[tuple, dict] = {}
+        self._saved: dict[str, object] = {}
+
+    def __enter__(self):
+        for name in K.KERNELS:
+            self._saved[name] = fn = getattr(K, name)
+            setattr(K, name, functools.partial(self._record, name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(K, name, fn)
+
+    @staticmethod
+    def _key(x):
+        if isinstance(x, torch.Tensor):
+            return ("tensor", tuple(x.shape), x.stride(), x.dtype)
+        return x
+
+    @staticmethod
+    def _spec(x):
+        if isinstance(x, torch.Tensor) and not x.is_floating_point():
+            return x.detach().clone()
+        return CallRecorder._key(x)
+
+    def _record(self, name, fn, *args, **kwargs):
+        key = (name, tuple(map(self._key, args)),
+               tuple((k, self._key(v)) for k, v in sorted(kwargs.items())))
+        call = self.calls.get(key)
+        if call is None:
+            call = self.calls[key] = {
+                "kernel": name, "count": 0,
+                "args": [self._spec(a) for a in args],
+                "kwargs": {k: self._spec(v) for k, v in kwargs.items()}}
+        call["count"] += 1
+        return fn(*args, **kwargs)
+
+
+def _strided(spec, gen):
+    """A tensor of random values with the recorded shape, strides and
+    dtype (any strides: transposed views, a group stride of 0)."""
+    _, shape, stride, dtype = spec
+    size = (1 + sum((n - 1) * st for n, st in zip(shape, stride))
+            if all(shape) else 0)
+    base = torch.randn(size, generator=gen, device=gen.device).to(dtype)
+    return base.as_strided(shape, stride)
+
+
+def recorded_cases(recorder: CallRecorder, arch: str) -> list[Case]:
+    """One case per distinct kernel call of a training run: the wrapper
+    (the kernel) and its plain version on the same random operands of the
+    recorded shapes, strides and dtypes, with the recorded offsets."""
+    cases = []
+    for call in recorder.calls.values():
+        name = call["kernel"]
+        kernel, plain = getattr(K, name), getattr(K, f"{name}_plain")
+        plain_kw = inspect.signature(plain).parameters
+
+        def make(gen, call=call):
+            def real(x):
+                if isinstance(x, tuple) and x and x[0] == "tensor":
+                    return _strided(x, gen)
+                return x
+            return (([real(a) for a in call["args"]],
+                     {k: real(v) for k, v in call["kwargs"].items()}),)
+
+        tensors = [a for a in (*call["args"], *call["kwargs"].values())
+                   if isinstance(a, tuple) and a and a[0] == "tensor"]
+        out = call["kwargs"].get("out_dtype") or tensors[0][3]
+        shapes = " x ".join(
+            f"{tuple(t[1])}{'' if t[2] == _contiguous(t[1]) else 'T'}"
+            f" {str(t[3]).removeprefix('torch.')}" for t in tensors)
+        label = (f"{arch} train {call['kwargs'].get('trans', '')} {shapes} "
+                 f"-> {str(out).removeprefix('torch.')} "
+                 f"x{call['count'] / TRAIN_STEPS:g}/step")
+        cases.append(Case(
+            name, label, make,
+            lambda c, fn=kernel: fn(*c[0], **c[1]),
+            lambda c, fn=plain, kw=plain_kw: fn(
+                *c[0], **{k: v for k, v in c[1].items() if k in kw}),
+            None, 0, 0.0, tensors[0][3], out, model=arch, phase="train"))
+    return cases
+
+
+def _contiguous(shape) -> tuple:
+    stride, acc = [], 1
+    for n in reversed(shape):
+        stride.append(acc)
+        acc *= max(n, 1)
+    return tuple(reversed(stride))
+
+
+def _grad_tree(model) -> dict:
+    return to_numpy_tree({n: p.grad for n, p in model.named_parameters()})
+
+
+def _worst_leaf(got: dict, want: dict, prefix: str = "") -> tuple[float, str]:
+    """The largest normwise error over the leaves of two trees."""
+    worst = (0.0, "")
+    for key in sorted(want):
+        name = f"{prefix}{key}"
+        if isinstance(want[key], dict):
+            worst = max(worst, _worst_leaf(got[key], want[key], name + "/"))
+        else:
+            rel, _ = rel_err(torch.as_tensor(got[key]),
+                             torch.as_tensor(want[key]))
+            worst = max(worst, (rel, name))
+    return worst
+
+
+def train_reference_qwen(dev) -> dict:
+    """qwen3-1.7b at full width and REF_LAYERS layers in fp32: 2 AdamW
+    steps of batch 2 x seq 32 on the card (the kernels) and on the CPU (the
+    plain versions), from the same weights and batches.  The loss of each
+    step and every step-1 gradient leaf within TRAIN_REF_TOL normwise."""
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=REF_LAYERS,
+                              compute_dtype="float32")
+    t0 = time.monotonic()
+    gpu_model = M.init_params(cfg, 0, device=dev, dtype=cfg.param_dtype)
+    cpu_model = copy.deepcopy(gpu_model).to(CPU)
+    data = SyntheticLM(cfg, ShapeConfig("ref", 32, 2, "train"), seed=0)
+    step = make_train_step(cfg, OptConfig(warmup_steps=1, total_steps=2))
+    runs = {}
+    for name, model, device in (("gpu", gpu_model, dev),
+                                ("cpu", cpu_model, CPU)):
+        opt = init_opt_state(dict(model.named_parameters()))
+        losses, grads = [], None
+        for i in range(2):
+            batch = {k: torch.as_tensor(v).to(device)
+                     for k, v in data.host_batch(i).items()}
+            model, opt, m = step(model, opt, batch)
+            losses.append(float(m["loss"]))
+            grads = grads or _grad_tree(model)
+        runs[name] = (losses, grads)
+    del gpu_model, cpu_model
+    free_card()
+    (g_loss, g_grads), (c_loss, c_grads) = runs["gpu"], runs["cpu"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(g_loss, c_loss))
+    grad_rel, leaf = _worst_leaf(g_grads, c_grads)
+    log(f"  {ARCH} fp32, {REF_LAYERS} layers, full width, 2 AdamW steps: "
+        f"losses card {g_loss} / CPU {c_loss} (rel {loss_rel:.2e}); step-1 "
+        f"gradients worst normwise {grad_rel:.2e} ({leaf}); "
+        f"{time.monotonic() - t0:.1f} s")
+    if loss_rel > TRAIN_REF_TOL or grad_rel > TRAIN_REF_TOL:
+        raise AssertionError(f"{ARCH} train reference: loss {loss_rel:.3g}, "
+                             f"gradient {grad_rel:.3g} ({leaf}) > "
+                             f"{TRAIN_REF_TOL}")
+    return {"losses_gpu": g_loss, "losses_cpu": c_loss,
+            "loss_rel": loss_rel, "grad_normwise": grad_rel}
+
+
+def train_reference_llama4(dev) -> dict:
+    """llama4-scout at full width and 1 layer in fp32: one forward /
+    backward of 64 tokens on the card and on the CPU, same weights.  Every
+    router call must choose the same experts, then the loss and every
+    gradient leaf within TRAIN_REF_TOL normwise."""
+    cfg = dataclasses.replace(get_config(LLAMA4), num_layers=1,
+                              compute_dtype="float32")
+    t0 = time.monotonic()
+    gpu_model = M.init_params(cfg, 0, device=dev, dtype=cfg.param_dtype)
+    cpu_model = copy.deepcopy(gpu_model).to(CPU)
+    host = SyntheticLM(cfg, ShapeConfig("ref", 32, 2, "train"),
+                       seed=0).host_batch(0)
+    router = MOE._router
+    runs = {}
+    for name, model, device in (("gpu", gpu_model, dev),
+                                ("cpu", cpu_model, CPU)):
+        choices = []
+
+        def recording(x, w, e, k, _sink=choices):
+            out = router(x, w, e, k)
+            _sink.append(out[1].cpu())
+            return out
+
+        MOE._router = recording
+        try:
+            batch = {k: torch.as_tensor(v).to(device)
+                     for k, v in host.items()}
+            total, _ = M.loss_fn(model, cfg, batch)
+            total.backward()
+        finally:
+            MOE._router = router
+        runs[name] = (total.item(), _grad_tree(model), choices)
+        del model
+    del gpu_model, cpu_model
+    free_card()
+    (g_loss, g_grads, g_ch), (c_loss, c_grads, c_ch) = runs["gpu"], runs["cpu"]
+    if len(g_ch) != len(c_ch) or not all(torch.equal(a, b)
+                                         for a, b in zip(g_ch, c_ch)):
+        raise AssertionError(f"{LLAMA4} train reference: the card chose "
+                             "other experts than the CPU")
+    loss_rel = abs(g_loss - c_loss) / abs(c_loss)
+    grad_rel, leaf = _worst_leaf(g_grads, c_grads)
+    log(f"  {LLAMA4} fp32, 1 layer, full width, 64 tokens: {len(g_ch)} "
+        f"router calls, {sum(int(c.numel()) for c in g_ch)} expert choices "
+        f"equal; loss {g_loss:.6f} / {c_loss:.6f} (rel {loss_rel:.2e}); "
+        f"gradients worst normwise {grad_rel:.2e} ({leaf}); "
+        f"{time.monotonic() - t0:.1f} s")
+    if loss_rel > TRAIN_REF_TOL or grad_rel > TRAIN_REF_TOL:
+        raise AssertionError(f"{LLAMA4} train reference: loss {loss_rel:.3g},"
+                             f" gradient {grad_rel:.3g} ({leaf}) > "
+                             f"{TRAIN_REF_TOL}")
+    return {"loss_gpu": g_loss, "loss_cpu": c_loss, "loss_rel": loss_rel,
+            "grad_normwise": grad_rel, "router_calls": len(g_ch)}
+
+
+def train(arch: str, dev, opt_cfg: OptConfig, *, compute_dtype=None,
+          gate: bool = True) -> tuple[dict, dict, CallRecorder]:
+    """Train ``arch`` at full width (TRAIN_LAYERS deep) for TRAIN_STEPS
+    steps through ``Trainer``: bf16 compute (or ``compute_dtype``), fp32
+    masters, AdamW on ``opt_cfg``; the launch counts and the distinct
+    kernel calls of just this run.  ``gate``: the loss must fall and every
+    kernel of the path must have launched."""
+    cfg = get_config(arch)
+    if TRAIN_LAYERS[arch]:
+        cfg = dataclasses.replace(cfg, num_layers=TRAIN_LAYERS[arch])
+    if compute_dtype:
+        cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
+    shape = ShapeConfig("chip", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                        kind="train")
+    free_card()
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer = Trainer(cfg, shape, opt_cfg, seed=0, log_every=1, device=dev)
+    K.reset_launch_counts()
+    t0 = time.monotonic()
+    with CallRecorder() as recorder:
+        model, opt = trainer.run(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = K.launch_counts()
+    params = sum(p.numel() for p in model.parameters())
+    del model, opt
+    log_ = trainer.metrics_log
+    losses = [m["loss"] for m in log_]
+    if len(log_) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{arch} train: losses {losses}")
+    if gate and not losses[-1] < losses[0]:
+        raise AssertionError(f"{arch} train: loss did not decrease: {losses}")
+    missing = [k for k in PATH_KERNELS[("train", arch)] if launches[k] == 0]
+    if gate and missing:
+        raise AssertionError(f"{arch} train: {missing} never launched: "
+                             f"{launches}")
+    walls = [log_[0]["wall_s"]] + [b["wall_s"] - a["wall_s"]
+                                   for a, b in zip(log_, log_[1:])]
+    median = statistics.median(walls[1:])
+    stats = {"layers": cfg.num_layers, "params": params,
+             "steps": TRAIN_STEPS, "tokens_per_step": TRAIN_TOKENS,
+             "losses": losses, "aux_losses": [m["aux_loss"] for m in log_],
+             "grad_norms": [m["grad_norm"] for m in log_],
+             "lrs": [m["lr"] for m in log_], "step_s": walls, "step_median_s": median,
+             "tokens_per_s": TRAIN_TOKENS / median, "wall_s": wall,
+             "peak_device_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+             "launches": launches,
+             "launches_per_step": {k: v / TRAIN_STEPS
+                                   for k, v in launches.items() if v}}
+    log(f"  {arch}: {cfg.num_layers} layers, {params / 1e9:.3f} B params, "
+        f"{cfg.compute_dtype} compute, {TRAIN_STEPS} steps of {TRAIN_BATCH} "
+        f"x {TRAIN_SEQ}, lr {[f'{x:.2e}' for x in stats['lrs']]}: losses "
+        f"{[round(x, 4) for x in losses]}; step s "
+        f"{[round(x, 3) for x in walls]} (median {median:.3f} s, first "
+        f"{walls[0]:.2f} s), {stats['tokens_per_s']:.1f} tokens/s; peak "
+        f"device memory {stats['peak_device_gb']:.2f} GB")
+    log(f"  launches per step: {stats['launches_per_step']}; "
+        f"{len(recorder.calls)} distinct kernel calls")
+    free_card()
+    return stats, launches, recorder
+
+
+def schedule_witness(dev) -> dict:
+    """The launcher's own schedule for a run of TRAIN_STEPS steps (a 1-step
+    warmup to lr 3e-4, then cosine): llama4-scout at 1 layer in bf16 and in
+    fp32 compute from the same fp32 masters and batches, and qwen3-1.7b at
+    28 layers in bf16.  Whether the loss falls is recorded, not gated (the
+    [train] phase gates it on a gentler warmup).  The gates: bf16 and fp32
+    agree before any update (the step-1 loss within 1e-2) and after the
+    first, full-lr update (the step-2 loss within 5e-2: one bf16 step moves
+    the loss as the fp32 step does, so a spike there is the schedule's)."""
+    runs = {}
+    for arch, dtype in ((LLAMA4, "bfloat16"), (LLAMA4, "float32"),
+                        (ARCH, "bfloat16")):
+        stats, _, _ = train(arch, dev, opt_config(TRAIN_STEPS, 3e-4),
+                            compute_dtype=dtype, gate=False)
+        runs[f"{arch} {dtype}"] = {k: stats[k] for k in (
+            "losses", "aux_losses", "grad_norms", "lrs", "step_median_s",
+            "peak_device_gb")}
+    bf, fp = (runs[f"{LLAMA4} {d}"]["losses"] for d in ("bfloat16",
+                                                         "float32"))
+    for i, tol in ((0, 1e-2), (1, 5e-2)):
+        if abs(bf[i] - fp[i]) > tol * abs(fp[i]):
+            raise AssertionError(f"{LLAMA4} step-{i + 1} loss bf16 {bf[i]} "
+                                 f"vs fp32 {fp[i]} (> {tol} relative)")
+    return runs
+
+
+# ---------------------------------------------------------------------------
 # The kernels line
 # ---------------------------------------------------------------------------
 
 def kernel_entries(rows, launches, worst) -> list[dict]:
     entries = []
     for name in K.KERNELS:
-        home = HOME[name]
-        mine = [r for r in rows if r["kernel"] == name and r["model"] == home]
-        total = {key: sum(r["per_step"] * r[key] for r in mine)
+        phase, model = home = HOME[name]
+        mine = [r for r in rows if r["kernel"] == name and r["model"] == model
+                and r["phase"] == phase]
+        calls = [(r["per_step"] or r["entry_calls"], r) for r in mine]
+        total = {key: sum(n * r[key] for n, r in calls)
                  for key in ("ms", "plain_ms", "bound_ms")}
-        lib = (None if any(r["library_ms"] is None for r in mine) else
-               sum(r["per_step"] * r["library_ms"] for r in mine))
-        t_bytes = sum(r["per_step"] * r["bytes_ms"] for r in mine)
-        t_ops = sum(r["per_step"] * r["ops_ms"] for r in mine)
+        lib = (None if any(r["library_ms"] is None for n, r in calls if n)
+               else sum(n * r["library_ms"] for n, r in calls))
+        t_bytes = sum(n * r["bytes_ms"] for n, r in calls)
+        t_ops = sum(n * r["ops_ms"] for n, r in calls)
+        if name == "ftimm_gemm_splitk":
+            per = ("one call each at qwen3-1.7b's T2 dW shapes (1024 tokens "
+                   "-> 2048x2048 and 2048x6144), nsplit 4; no model path "
+                   "launches it (the planner never picks nsplit > 1)")
+        elif phase == "train":
+            per = (f"one train step of {model} at {depth(phase, model)} "
+                   f"layers, {TRAIN_BATCH} x {TRAIN_SEQ} tokens")
+        else:
+            per = (f"one decode step of {model} at {depth(phase, model)} "
+                   f"layers, {SLOTS} slots")
         entries.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/ftimm/csrc/{name}.cu",
@@ -761,14 +1272,14 @@ def kernel_entries(rows, launches, worst) -> list[dict]:
             "max_abs_err": worst[name], "ms": total["ms"],
             "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib,
-            "per": (f"one decode step of {home} at {depth(home)} layers, "
-                    f"{SLOTS} slots"),
-            "launches_by_run": {m: launches[m][name] for m in launches},
-            "shapes": [{k: r[k] for k in ("model", "label", "per_step", "ms",
-                                          "plain_ms", "library_ms",
-                                          "library_note", "bound_ms",
-                                          "bound_by")}
+            "library_ms": lib, "per": per,
+            "launches_by_run": {f"{p} {m}": launches[(p, m)][name]
+                                for p, m in launches},
+            "shapes": [{k: r[k] for k in ("model", "phase", "label",
+                                          "per_step", "entry_calls", "ms",
+                                          "plain_ms",
+                                          "library_ms", "library_note",
+                                          "bound_ms", "bound_by")}
                        for r in rows if r["kernel"] == name]})
     return entries
 
@@ -801,8 +1312,9 @@ def main() -> int:
     view_len = math.ceil(MAX_LEN / PAGE) * PAGE
     qwen_cases = main_path_cases(cfg, view_len, bucket=64)
     moe_cases = moe_path_cases()
+    trn_cases = train_cases()
     log("[check] kernels against their plain versions")
-    worst = check(qwen_cases + moe_cases + edge_cases(), dev)
+    worst = check(qwen_cases + moe_cases + trn_cases + edge_cases(), dev)
     free_card()
     phases["check"] = time.monotonic() - t0
     log(f"[check] done in {phases['check']:.1f} s")
@@ -818,7 +1330,7 @@ def main() -> int:
     log("[serve] full width")
     stats, launches = {}, {}
     for arch in (ARCH, MIXTRAL, LLAMA4):
-        stats[arch], engine, launches[arch] = serve(arch, dev)
+        stats[arch], engine, launches[("serve", arch)] = serve(arch, dev)
         if arch == ARCH:
             if stats[arch]["view_len"] != view_len:
                 raise AssertionError(f"decode attends {stats[arch]['view_len']}"
@@ -830,8 +1342,42 @@ def main() -> int:
     log(f"[serve] done in {phases['serve']:.1f} s")
 
     t0 = time.monotonic()
-    log("[time] decode-step shapes")
-    rows = timings(qwen_cases + moe_cases, dev)
+    log("[train-reference] fp32 training, card against CPU, full width")
+    train_refs = {ARCH: train_reference_qwen(dev),
+                  LLAMA4: train_reference_llama4(dev)}
+    phases["train_reference"] = time.monotonic() - t0
+    log(f"[train-reference] done in {phases['train_reference']:.1f} s")
+
+    t0 = time.monotonic()
+    log("[train] full width, bf16 compute on fp32 masters, AdamW")
+    train_stats, train_calls = {}, []
+    opt_cfg = OptConfig(warmup_steps=TRAIN_WARMUP,
+                        total_steps=10 * TRAIN_WARMUP)
+    for arch in (ARCH, LLAMA4, MIXTRAL):
+        train_stats[arch], launches[("train", arch)], recorder = train(
+            arch, dev, opt_cfg)
+        train_calls += recorded_cases(recorder, arch)
+    phases["train"] = time.monotonic() - t0
+    log(f"[train] done in {phases['train']:.1f} s")
+
+    t0 = time.monotonic()
+    log(f"[train-check] the {len(train_calls)} distinct kernel calls of the "
+        "three training runs, each against its plain version")
+    for name, err in check(train_calls, dev).items():
+        worst[name] = max(worst.get(name, 0.0), err)
+    free_card()
+    phases["train_check"] = time.monotonic() - t0
+    log(f"[train-check] done in {phases['train_check']:.1f} s")
+
+    t0 = time.monotonic()
+    log("[train-schedule] the launcher's schedule (1-step warmup to 3e-4)")
+    witness = schedule_witness(dev)
+    phases["train_schedule"] = time.monotonic() - t0
+    log(f"[train-schedule] done in {phases['train_schedule']:.1f} s")
+
+    t0 = time.monotonic()
+    log("[time] decode-step and training shapes")
+    rows = timings(qwen_cases + moe_cases + trn_cases, dev)
     phases["time"] = time.monotonic() - t0
     log(f"[time] done in {phases['time']:.1f} s")
 
@@ -845,7 +1391,8 @@ def main() -> int:
             f"bound {r['bound_ms'] * 1e3:7.1f} us ({r['bound_by']})")
     phases["all"] = time.monotonic() - t_all
     log(json.dumps({"serve": stats, "moe_reference": refs,
-                    "phases_s": phases}))
+                    "train_reference": train_refs, "train": train_stats,
+                    "train_schedule": witness, "phases_s": phases}))
     log(card)
     print(json.dumps({"kernels": kernel_entries(rows, launches, worst)}))
     print(json.dumps({"ok": True, "device": {

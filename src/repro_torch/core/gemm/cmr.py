@@ -121,16 +121,44 @@ def estimate_batched(g: int, m: int, k: int, n: int, *, bm: int, bn: int,
 
 
 def estimate_ragged(g: int, total: int, k: int, n: int, *, bm: int, bn: int,
-                    bk: int, in_bytes: int = 4, out_bytes: int = 4,
-                    panels: int = 1, spec: HopperSpec = H100) -> PlanEstimate:
-    """Model one tile of the ragged grouped GEMM: ``total`` rows of a flat
-    (total, k) operand cut into ``g`` groups against per-group (k, n)
-    panels.  The per-group counts live on the device, so the price is the
-    distribution's worst case for these totals: the rows in ``bm``-row
-    chunks plus one partial chunk per group that has rows (at most
-    min(g, total) groups do).  Each chunk's CTAs read their group's panel
-    (``panels`` = 2 for the SwiGLU pair) once per N tile; x is read once
-    per N tile; empty groups read nothing."""
+                    bk: int, ragged: str = "m", in_bytes: int = 4,
+                    out_bytes: int = 4, panels: int = 1,
+                    spec: HopperSpec = H100) -> PlanEstimate:
+    """Model one tile of the ragged grouped GEMM over ``g`` groups.
+
+    ``ragged == "m"`` (the forward): ``total`` rows of a flat (total, k)
+    operand cut into groups against per-group (k, n) panels.  The per-group
+    counts live on the device, so the price is the distribution's worst case
+    for these totals: the rows in ``bm``-row chunks plus one partial chunk
+    per group that has rows (at most min(g, total) groups do).  Each chunk's
+    CTAs read their group's panel (``panels`` = 2 for the SwiGLU pair) once
+    per N tile; x is read once per N tile; empty groups read nothing.
+
+    ``ragged == "k"`` (the dW): the ragged rows are the contraction and
+    each group owns a (k, n) output panel (``k`` = D, ``n`` = F).  The grid
+    is (D tile x F tile, group): both row operands stream once per output
+    tile of their group, the rows are walked in ``bk`` steps with one
+    partial step per group, and each of the G panels is written once,
+    empty ones too."""
+    if ragged == "k":
+        gm, gn = cdiv(k, bm), cdiv(n, bn)
+        steps = cdiv(total, bk) + max(min(g, total) - 1, 0)
+        ctas = g * gm * gn
+        occ = max(occupancy(ctas, spec), 1e-3)
+        flops_padded = 2.0 * gm * bm * gn * bn * steps * bk
+        hbm = (total * k * gn * in_bytes + total * n * gm * in_bytes
+               + g * k * n * out_bytes)
+        return PlanEstimate(
+            flops_useful=2.0 * total * k * n,
+            flops_padded=flops_padded,
+            hbm_bytes=float(hbm),
+            t_compute=flops_padded / (spec.kernel_flops() * occ),
+            t_memory=hbm / (spec.hbm_bw * occ),
+            smem_bytes=smem_bytes(bm, bn, bk),
+            occupancy=occ,
+        )
+    if ragged != "m":
+        raise ValueError(f"unknown ragged axis: {ragged!r}")
     gn, gk = cdiv(n, bn), cdiv(k, bk)
     chunks = cdiv(total, bm) + max(min(g, total) - 1, 0)
     ctas = gn * chunks

@@ -27,6 +27,7 @@ class GemmPlan:
     bm: int
     bn: int
     bk: int
+    nsplit: int = 1                 # in-kernel split-K factor
     dim_order: str = "mn"
     gemm_class: GemmClass = GemmClass.REGULAR
     est: PlanEstimate | None = None
@@ -37,7 +38,7 @@ class GemmPlan:
         return self.est.t_total if self.est is not None else 0.0
 
     def kernel_kwargs(self) -> dict:
-        return dict(bm=self.bm, bn=self.bn, bk=self.bk,
+        return dict(bm=self.bm, bn=self.bn, bk=self.bk, nsplit=self.nsplit,
                     dim_order=self.dim_order)
 
 
@@ -80,16 +81,20 @@ def batched_candidates(g: int, m: int, k: int, n: int, in_bytes: int = 4,
 
 
 def ragged_candidates(g: int, total: int, k: int, n: int, in_bytes: int = 4,
-                      out_bytes: int = 4, spec: HopperSpec = H100, *,
+                      out_bytes: int = 4, ragged: str = "m",
+                      spec: HopperSpec = H100, *,
                       panels: int = 1) -> list[GemmPlan]:
     """Candidate tiles for the ragged grouped GEMM: the compiled menu,
     scored by ``estimate_ragged``.  The per-group *mean* shape is
-    classified.  No grid-order choice: the ragged kernels fix their walk."""
-    est = functools.partial(estimate_ragged, g, total, k, n,
+    classified: (rows, k, n) for the forward, (k, rows, n) for the dW
+    (``ragged="k"``, whose contraction is the rows).  No grid-order choice:
+    the ragged kernels fix their walk."""
+    est = functools.partial(estimate_ragged, g, total, k, n, ragged=ragged,
                             in_bytes=in_bytes, out_bytes=out_bytes,
                             panels=panels, spec=spec)
     mean = max(total // max(g, 1), 1)
-    return _candidates(classify(mean, k, n), est, spec, orders=("mn",))
+    cls = classify(mean, k, n) if ragged == "m" else classify(k, mean, n)
+    return _candidates(cls, est, spec, orders=("mn",))
 
 
 def _better(a: GemmPlan, b: GemmPlan) -> bool:
@@ -142,13 +147,11 @@ def plan_ragged_gemm(g: int, total: int, k: int, n: int, in_bytes: int = 4,
     (g, total, k, n, widths) is the distribution signature: the per-group
     counts stay on the device, so the plan prices the aggregate (total
     rows plus one partial chunk per group) and serves every call with the
-    same signature.  Only ``ragged="m"`` (the forward: rows are ragged) is
-    ported; the ragged-K backward comes with training."""
-    if ragged != "m":
-        raise NotImplementedError(
-            f"ragged={ragged!r}: the ragged-K (dW) plan comes with training")
+    same signature.  ``ragged="m"``: the forward, rows are ragged;
+    ``ragged="k"``: the dW, the ragged rows are the contraction and ``k`` x
+    ``n`` is each group's output panel (D x F)."""
     return argmin_plan(ragged_candidates(g, total, k, n, in_bytes, out_bytes,
-                                         spec, panels=panels))
+                                         ragged, spec, panels=panels))
 
 
 def capacity_multiple(elt_bytes: int) -> int:

@@ -55,9 +55,24 @@ using Tile2 = TileCfg<64, 64, 32, 4, 4>;
 using Tile3 = TileCfg<128, 128, 16, 8, 8>;   // large M: most reuse per byte
 
 // Each kernel's C entry switches over these tile ids and, inside, over the
-// operand type codes shared with kernel.py: 0 bf16 -> bf16, 1 bf16 -> fp32,
-// 2 fp32 -> fp32 (operands -> output; the residual has the operands' type).
+// operand type codes shared with kernel.py (_TYPE_CODES): code, A, B -> C.
+// Codes 0-2 pair operands of one type; every kernel takes them.  Codes 3-6
+// pair a bf16 operand with an fp32 one -- in the backward an fp32 cotangent
+// (of the fp32 logits or router scores) meets bf16 weights or activations --
+// and are taken by the kernels whose two operands are independent (dense,
+// grouped, ragged, ragged dW, split-K).  Loads convert either type to fp32,
+// so a mixed product is the fp32 product of the exact operand values.  The
+// residual has A's type.
 #define FTIMM_TILES(X) X(0, ftimm::Tile0) X(1, ftimm::Tile1) X(2, ftimm::Tile2) X(3, ftimm::Tile3)
+#define FTIMM_TYPES(X)                              \
+  X(0, __nv_bfloat16, __nv_bfloat16, __nv_bfloat16) \
+  X(1, __nv_bfloat16, __nv_bfloat16, float)         \
+  X(2, float, float, float)
+#define FTIMM_MIXED_TYPES(X)                \
+  X(3, __nv_bfloat16, float, __nv_bfloat16) \
+  X(4, __nv_bfloat16, float, float)         \
+  X(5, float, __nv_bfloat16, __nv_bfloat16) \
+  X(6, float, __nv_bfloat16, float)
 
 __host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
 

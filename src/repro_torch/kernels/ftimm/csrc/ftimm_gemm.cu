@@ -30,12 +30,12 @@ struct GemmArgs {
   ftimm::EpiArgs epi;
 };
 
-template <class C, typename TA, typename TC>
+template <class C, typename TA, typename TB, typename TC>
 __global__ void __launch_bounds__(C::THREADS) ftimm_gemm_kernel(GemmArgs p) {
   int m0, n0;
   ftimm::tile_coords(C::BM, C::BN, p.M, p.N, p.nm_order, m0, n0);
   float acc[1][C::TM][C::TN];
-  const TA* bs[1] = {static_cast<const TA*>(p.b)};
+  const TB* bs[1] = {static_cast<const TB*>(p.b)};
   ftimm::accumulate<C, 1>(acc, static_cast<const TA*>(p.a), p.sam, p.sak, bs, p.sbk, p.sbn,
                           p.M, p.N, p.K, m0, n0);
   TC* c = static_cast<TC*>(p.c);
@@ -54,18 +54,20 @@ __global__ void __launch_bounds__(C::THREADS) ftimm_gemm_kernel(GemmArgs p) {
   }
 }
 
-template <class C, typename TA, typename TC>
+template <class C, typename TA, typename TB, typename TC>
 static void launch(const GemmArgs& p, cudaStream_t stream) {
   const dim3 grid(ftimm::cdiv(p.M, C::BM) * ftimm::cdiv(p.N, C::BN));
-  ftimm_gemm_kernel<C, TA, TC><<<grid, C::THREADS, 0, stream>>>(p);
+  ftimm_gemm_kernel<C, TA, TB, TC><<<grid, C::THREADS, 0, stream>>>(p);
 }
 
 template <class C>
 static bool launch_types(int types, const GemmArgs& p, cudaStream_t stream) {
   switch (types) {
-    case 0: launch<C, __nv_bfloat16, __nv_bfloat16>(p, stream); return true;
-    case 1: launch<C, __nv_bfloat16, float>(p, stream); return true;
-    case 2: launch<C, float, float>(p, stream); return true;
+#define FTIMM_TYPE(ID, TA, TB, TC) \
+  case ID: launch<C, TA, TB, TC>(p, stream); return true;
+    FTIMM_TYPES(FTIMM_TYPE)
+    FTIMM_MIXED_TYPES(FTIMM_TYPE)
+#undef FTIMM_TYPE
   }
   return false;
 }

@@ -30,14 +30,14 @@ struct GroupedArgs {
   ftimm::EpiArgs epi;
 };
 
-template <class C, typename TA, typename TC>
+template <class C, typename TA, typename TB, typename TC>
 __global__ void __launch_bounds__(C::THREADS) ftimm_gemm_grouped_kernel(GroupedArgs p) {
   const int g = blockIdx.z;
   int m0, n0;
   ftimm::tile_coords(C::BM, C::BN, p.M, p.N, p.nm_order, m0, n0);
   float acc[1][C::TM][C::TN];
   const TA* a = static_cast<const TA*>(p.a) + g * p.sag;
-  const TA* bs[1] = {static_cast<const TA*>(p.b) + g * p.sbg};
+  const TB* bs[1] = {static_cast<const TB*>(p.b) + g * p.sbg};
   ftimm::accumulate<C, 1>(acc, a, p.sam, p.sak, bs, p.sbk, p.sbn, p.M, p.N, p.K, m0, n0);
   TC* c = static_cast<TC*>(p.c) + (int64_t)g * p.M * p.N;
   const int tx = threadIdx.x % (C::BN / C::TN);
@@ -55,18 +55,20 @@ __global__ void __launch_bounds__(C::THREADS) ftimm_gemm_grouped_kernel(GroupedA
   }
 }
 
-template <class C, typename TA, typename TC>
+template <class C, typename TA, typename TB, typename TC>
 static void launch(const GroupedArgs& p, int G, cudaStream_t stream) {
   const dim3 grid(ftimm::cdiv(p.M, C::BM) * ftimm::cdiv(p.N, C::BN), 1, G);
-  ftimm_gemm_grouped_kernel<C, TA, TC><<<grid, C::THREADS, 0, stream>>>(p);
+  ftimm_gemm_grouped_kernel<C, TA, TB, TC><<<grid, C::THREADS, 0, stream>>>(p);
 }
 
 template <class C>
 static bool launch_types(int types, const GroupedArgs& p, int G, cudaStream_t stream) {
   switch (types) {
-    case 0: launch<C, __nv_bfloat16, __nv_bfloat16>(p, G, stream); return true;
-    case 1: launch<C, __nv_bfloat16, float>(p, G, stream); return true;
-    case 2: launch<C, float, float>(p, G, stream); return true;
+#define FTIMM_TYPE(ID, TA, TB, TC) \
+  case ID: launch<C, TA, TB, TC>(p, G, stream); return true;
+    FTIMM_TYPES(FTIMM_TYPE)
+    FTIMM_MIXED_TYPES(FTIMM_TYPE)
+#undef FTIMM_TYPE
   }
   return false;
 }

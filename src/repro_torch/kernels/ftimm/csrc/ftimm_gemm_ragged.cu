@@ -44,7 +44,7 @@ struct RaggedArgs {
   ftimm::EpiArgs epi;
 };
 
-template <class C, typename TA, typename TC>
+template <class C, typename TA, typename TB, typename TC>
 __global__ void __launch_bounds__(C::THREADS) ftimm_gemm_ragged_kernel(RaggedArgs p) {
   const ftimm::RaggedChunk r = ftimm::ragged_chunk(C::BM, C::BN, p.N, p.T, p.G, p.offsets);
   TC* c = static_cast<TC*>(p.c);
@@ -55,7 +55,7 @@ __global__ void __launch_bounds__(C::THREADS) ftimm_gemm_ragged_kernel(RaggedArg
   if (r.rows <= 0) return;
   float acc[1][C::TM][C::TN];
   const TA* x = static_cast<const TA*>(p.x) + (int64_t)r.row0 * p.sxm;
-  const TA* ws[1] = {static_cast<const TA*>(p.w) + (int64_t)r.g * p.swg};
+  const TB* ws[1] = {static_cast<const TB*>(p.w) + (int64_t)r.g * p.swg};
   ftimm::accumulate<C, 1>(acc, x, p.sxm, p.sxk, ws, p.swk, p.swn, r.rows, p.N, p.K, 0, r.n0);
   const int tx = threadIdx.x % (C::BN / C::TN);
   const int ty = threadIdx.x / (C::BN / C::TN);
@@ -72,18 +72,20 @@ __global__ void __launch_bounds__(C::THREADS) ftimm_gemm_ragged_kernel(RaggedArg
   }
 }
 
-template <class C, typename TA, typename TC>
+template <class C, typename TA, typename TB, typename TC>
 static void launch(const RaggedArgs& p, cudaStream_t stream) {
   const dim3 grid(ftimm::cdiv(p.T, C::BM) * ftimm::cdiv(p.N, C::BN), p.G + 1);
-  ftimm_gemm_ragged_kernel<C, TA, TC><<<grid, C::THREADS, 0, stream>>>(p);
+  ftimm_gemm_ragged_kernel<C, TA, TB, TC><<<grid, C::THREADS, 0, stream>>>(p);
 }
 
 template <class C>
 static bool launch_types(int types, const RaggedArgs& p, cudaStream_t stream) {
   switch (types) {
-    case 0: launch<C, __nv_bfloat16, __nv_bfloat16>(p, stream); return true;
-    case 1: launch<C, __nv_bfloat16, float>(p, stream); return true;
-    case 2: launch<C, float, float>(p, stream); return true;
+#define FTIMM_TYPE(ID, TA, TB, TC) \
+  case ID: launch<C, TA, TB, TC>(p, stream); return true;
+    FTIMM_TYPES(FTIMM_TYPE)
+    FTIMM_MIXED_TYPES(FTIMM_TYPE)
+#undef FTIMM_TYPE
   }
   return false;
 }

@@ -8,7 +8,11 @@ The kernels are CUDA C++ for ``sm_90a`` in ``csrc/``, one source per kernel:
   * ``ftimm_gemm_grouped_swiglu``  the SwiGLU pair per group (capacity MoE);
   * ``ftimm_gemm_ragged``   per-group row chunks of one flat operand against
                             per-group panels (capacity-free MoE);
-  * ``ftimm_gemm_ragged_swiglu``  the ragged SwiGLU pair.
+  * ``ftimm_gemm_ragged_swiglu``  the ragged SwiGLU pair;
+  * ``ftimm_gemm_ragged_dw``  per-group x^T . dy over each group's rows, the
+                            weight gradient of the ragged experts;
+  * ``ftimm_gemm_splitk``   dense fp32 partial products over K slices
+                            (summed, then the epilogue, by the wrapper).
 
 Each is compiled by ``nvcc`` at first use into a shared library with a plain
 C interface under the git-ignored ``build/ftimm/`` directory of the checkout
@@ -38,7 +42,8 @@ from .epilogue import IDENTITY, Epilogue
 
 KERNELS = ("ftimm_gemm", "ftimm_gemm_swiglu", "ftimm_gemm_grouped",
            "ftimm_gemm_grouped_swiglu", "ftimm_gemm_ragged",
-           "ftimm_gemm_ragged_swiglu")
+           "ftimm_gemm_ragged_swiglu", "ftimm_gemm_ragged_dw",
+           "ftimm_gemm_splitk")
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "ftimm"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -48,12 +53,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # csrc/ftimm_common.cuh.  The planner chooses among exactly these.
 TILES = ((16, 32, 64), (32, 64, 32), (64, 64, 32), (128, 128, 16))
 
-# (operand dtype, output dtype) -> the type code of the C entries.
+# (A dtype, B dtype, output dtype) -> the type code of the C entries
+# (FTIMM_TYPES / FTIMM_MIXED_TYPES in csrc/ftimm_common.cuh).  The mixed
+# bf16 x fp32 pairs are built for the kernels in _MIXED, whose operands are
+# independent: the backward meets them where an fp32 cotangent (the logits',
+# the router's) multiplies bf16 weights or activations.
+_BF16, _F32 = torch.bfloat16, torch.float32
 _TYPE_CODES = {
-    (torch.bfloat16, torch.bfloat16): 0,
-    (torch.bfloat16, torch.float32): 1,
-    (torch.float32, torch.float32): 2,
+    (_BF16, _BF16, _BF16): 0, (_BF16, _BF16, _F32): 1, (_F32, _F32, _F32): 2,
+    (_BF16, _F32, _BF16): 3, (_BF16, _F32, _F32): 4,
+    (_F32, _BF16, _BF16): 5, (_F32, _BF16, _F32): 6,
 }
+_MIXED = frozenset({"ftimm_gemm", "ftimm_gemm_grouped", "ftimm_gemm_ragged",
+                    "ftimm_gemm_ragged_dw", "ftimm_gemm_splitk"})
 _ACT_CODES = {"none": 0, "silu": 1, "gelu": 2}
 
 _launches = dict.fromkeys(KERNELS, 0)
@@ -163,6 +175,10 @@ _ARGTYPES = {
                           _VP],
     "ftimm_gemm_ragged_swiglu": [_I, _I, _I, _VP, _VP, _VP, _VP, _VP, _I, _I,
                                  _I, _I, _LL, _LL, _LL, _LL, _LL, _VP],
+    "ftimm_gemm_ragged_dw": [_I, _I, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
+                             _LL, _LL, _LL, _LL, _VP],
+    "ftimm_gemm_splitk": [_I, _I, _I, _VP, _VP, _VP, _I, _I, _I, _I, _I, _LL,
+                          _LL, _LL, _LL, _I, _VP],
 }
 _entries: dict[str, object] = {}
 _libs: list[ctypes.CDLL] = []     # keeps the loaded libraries alive
@@ -197,12 +213,13 @@ def _cuda_operands(name: str, a: torch.Tensor, b: torch.Tensor, out_dtype,
     for t in (b, *others):
         if t is not None and t.device != a.device:
             raise ValueError(f"{name}: operands on {a.device} and {t.device}")
-    code = _TYPE_CODES.get((a.dtype, out_dtype))
-    if code is None or b.dtype != a.dtype:
+    code = _TYPE_CODES.get((a.dtype, b.dtype, out_dtype))
+    if code is None or (a.dtype != b.dtype and name not in _MIXED):
         raise NotImplementedError(
             f"{name}: {a.dtype} x {b.dtype} -> {out_dtype} has no kernel yet "
-            "(bf16 -> bf16/fp32 and fp32 -> fp32 are built; the int8, fp8 "
-            "and mixed paths come with quantization)")
+            "(bf16 -> bf16/fp32 and fp32 -> fp32 are built, and bf16 x fp32 "
+            "in either order for the kernels with independent operands; the "
+            "int8 and fp8 paths come with quantization)")
     return code
 
 
@@ -221,7 +238,7 @@ def _residual(residual, shape, dtype) -> torch.Tensor | None:
         raise ValueError(f"residual must be contiguous {tuple(shape)}, got "
                          f"{tuple(residual.shape)}")
     if residual.dtype != dtype:
-        raise ValueError(f"residual must have the operands' dtype {dtype}, "
+        raise ValueError(f"residual must have A's dtype {dtype}, "
                          f"got {residual.dtype}")
     return residual
 
@@ -256,7 +273,8 @@ def ftimm_gemm(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int, bk: int,
     """C = epi(op(A) . op(B)) -> (M, N).  trans "nn": A (M,K), B (K,N);
     "tn": A (K,M); "nt": B (N,K).  Operands may be any strided 2-D views.
     ``bias`` / ``scale`` (N,) and ``residual`` (M, N) ride along when the
-    epilogue asks for them; the residual has the operands' dtype."""
+    epilogue asks for them; the residual has A's dtype.  A and B may be
+    bf16 and fp32 in either order (the product of their exact values)."""
     m, k, n = mkn(trans, a.shape, b.shape)
     out_dtype = out_dtype or a.dtype
     if a.device.type == "cpu":
@@ -465,7 +483,7 @@ def _ragged_shape(x, w, group_offsets, trans: str) -> tuple[int, int, int]:
     return x.shape[0], k, n
 
 
-def _row_groups(group_offsets: torch.Tensor, t: int):
+def row_groups(group_offsets: torch.Tensor, t: int):
     """Each row's group (clamped into range) and whether any group owns it."""
     offs = group_offsets.to(torch.int64)
     rows = torch.arange(t, device=offs.device)
@@ -484,7 +502,7 @@ def ftimm_gemm_ragged_plain(x, w, group_offsets, *, trans: str = "nn",
     z = ref.ragged_matmul_ref(x, w, group_offsets, trans=trans,
                               out_dtype=torch.float32)
     if not epilogue.is_identity:
-        gid, owned = _row_groups(group_offsets, x.shape[0])
+        gid, owned = row_groups(group_offsets, x.shape[0])
 
         def rows_of(v):
             return v if v is None or v.ndim == 1 else v[gid]
@@ -578,3 +596,111 @@ def ftimm_gemm_ragged_swiglu(x: torch.Tensor, w_gate: torch.Tensor,
             out.data_ptr(), t, n, k, g, x.stride(0), x.stride(1),
             *w_gate.stride())
     return out
+
+
+# ---------------------------------------------------------------------------
+# Ragged dW  (replaces kernel.py:ftimm_gemm_ragged_dw).  The ragged axis is
+# the contraction: dW[g] = x[o_g:o_{g+1}]^T . dy[o_g:o_{g+1}] -> (G, D, F),
+# same offsets contract as the ragged forward; an empty group gives a zero
+# panel and rows past offsets[G] enter no panel.
+# ---------------------------------------------------------------------------
+
+def ftimm_gemm_ragged_dw_plain(x, dy, group_offsets, *,
+                               out_dtype=None) -> torch.Tensor:
+    """Plain version of ``ftimm_gemm_ragged_dw``: the masked per-group
+    oracle."""
+    return ref.ragged_matmul_dw_ref(x, dy, group_offsets,
+                                    out_dtype=out_dtype or x.dtype)
+
+
+def ftimm_gemm_ragged_dw(x: torch.Tensor, dy: torch.Tensor,
+                         group_offsets: torch.Tensor, *, bm: int, bn: int,
+                         bk: int, out_dtype=None) -> torch.Tensor:
+    """x (T, D), dy (T, F) -> (G, D, F).  ``bm`` / ``bn`` tile the (D, F)
+    panel, ``bk`` is the step over a group's rows (the tile's own)."""
+    if (x.ndim != 2 or dy.ndim != 2 or x.shape[0] != dy.shape[0]
+            or group_offsets.ndim != 1 or group_offsets.shape[0] < 1):
+        raise ValueError(f"ragged dW shapes {tuple(x.shape)} x "
+                         f"{tuple(dy.shape)}, offsets "
+                         f"{tuple(group_offsets.shape)}")
+    (t, d), f = x.shape, dy.shape[1]
+    g = group_offsets.shape[0] - 1
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu":
+        return ftimm_gemm_ragged_dw_plain(x, dy, group_offsets,
+                                          out_dtype=out_dtype)
+    types = _cuda_operands("ftimm_gemm_ragged_dw", x, dy, out_dtype,
+                           group_offsets)
+    if g > 65535:
+        raise ValueError(f"{g} groups exceed the grid's y extent (65535)")
+    tile = tile_id(bm, bn, bk)
+    offs = group_offsets.to(torch.int32).contiguous()
+    out = torch.empty((g, d, f), dtype=out_dtype, device=x.device)
+    if g == 0 or d == 0 or f == 0:
+        return out
+    _launch("ftimm_gemm_ragged_dw", x.device, tile, types, x.data_ptr(),
+            dy.data_ptr(), offs.data_ptr(), out.data_ptr(), t, d, f, g,
+            x.stride(0), x.stride(1), dy.stride(0), dy.stride(1))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Split-K dense GEMM  (replaces kernel.py:ftimm_gemm_splitk)
+# ---------------------------------------------------------------------------
+
+def ftimm_gemm_splitk_plain(a, b, *, bk: int, nsplit: int, trans: str = "nn",
+                            out_dtype=None, epilogue: Epilogue = IDENTITY,
+                            bias=None, residual=None,
+                            scale=None) -> torch.Tensor:
+    """Plain version of ``ftimm_gemm_splitk``: the fp32 partials over the
+    kernel's K split summed in split order, then the epilogue, then the
+    cast."""
+    z = ref.matmul_splitk(a, b, nsplit, bk=bk, trans=trans,
+                          out_dtype=torch.float32)
+    if not epilogue.is_identity:
+        z = epilogue.apply(z, bias=bias, residual=residual, scale=scale)
+    return z.to(out_dtype or a.dtype)
+
+
+def ftimm_gemm_splitk(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int,
+                      bk: int, nsplit: int, trans: str = "nn",
+                      dim_order: str = "mn", out_dtype=None,
+                      epilogue: Epilogue = IDENTITY, bias=None,
+                      residual=None, scale=None) -> torch.Tensor:
+    """K-parallel C = epi(sum_s op(A)[:, K_s] . op(B)[K_s, :]) -> (M, N).
+    The kernel writes the (nsplit, M, N) fp32 partials; they are summed
+    here in split order (no atomics: replays are bit-identical) and the
+    epilogue runs on the fp32 sum, as in the reference.  Operands as for
+    ``ftimm_gemm``."""
+    m, k, n = mkn(trans, a.shape, b.shape)
+    out_dtype = out_dtype or a.dtype
+    if nsplit < 1:
+        raise ValueError(f"nsplit must be >= 1, got {nsplit}")
+    if a.device.type == "cpu":
+        return ftimm_gemm_splitk_plain(a, b, bk=bk, nsplit=nsplit,
+                                       trans=trans, out_dtype=out_dtype,
+                                       epilogue=epilogue, bias=bias,
+                                       residual=residual, scale=scale)
+    bias = bias if epilogue.bias else None
+    scale = scale if epilogue.scale_vec else None
+    residual = residual if epilogue.residual else None
+    types = _cuda_operands("ftimm_gemm_splitk", a, b, out_dtype, bias,
+                           residual, scale)
+    if nsplit > 65535:
+        raise ValueError(f"{nsplit} splits exceed the grid's z extent")
+    tile = tile_id(bm, bn, bk)
+    sam, sak = ((a.stride(1), a.stride(0)) if trans == "tn"
+                else (a.stride(0), a.stride(1)))
+    sbk, sbn = ((b.stride(1), b.stride(0)) if trans == "nt"
+                else (b.stride(0), b.stride(1)))
+    partials = torch.empty((nsplit, m, n), dtype=torch.float32,
+                           device=a.device)
+    if m and n:
+        _launch("ftimm_gemm_splitk", a.device, tile, types, a.data_ptr(),
+                b.data_ptr(), partials.data_ptr(), m, n, k, nsplit,
+                ref.k_per_split(k, bk, nsplit), sam, sak, sbk, sbn,
+                int(dim_order == "nm"))
+    z = partials.sum(dim=0)
+    if not epilogue.is_identity:
+        z = epilogue.apply(z, bias=bias, residual=residual, scale=scale)
+    return z.to(out_dtype)

@@ -1,6 +1,7 @@
-"""Public wrappers around the ftIMM kernels: ``gemm``, ``gemm_swiglu``,
-``batched_gemm``, ``batched_gemm_swiglu``, ``ragged_gemm``,
-``ragged_gemm_swiglu`` and the timing primitive ``bench``.
+"""Public wrappers around the ftIMM kernels: ``gemm`` (M-parallel, or
+K-parallel with ``nsplit > 1``), ``gemm_swiglu``, ``batched_gemm``,
+``batched_gemm_swiglu``, ``ragged_gemm``, ``ragged_gemm_swiglu``,
+``ragged_gemm_dw`` and the timing primitive ``bench``.
 
 Edges are always masked in-kernel: unpadded operands go straight to the
 kernels and the output comes back unsliced, so no pad or slice copy ever
@@ -37,6 +38,12 @@ def clamp_tile(m: int, n: int, bm: int, bn: int) -> tuple[int, int, int]:
     return _k.TILES[0]
 
 
+def clamp_nsplit(k: int, bk: int, nsplit: int) -> int:
+    """The split count ``gemm`` runs: at most one split per K block of the
+    tile, at least 1 (the M-parallel kernel)."""
+    return max(1, min(nsplit, -(-k // bk)))
+
+
 def bench(fn, *args, warmup: int = 1, repeats: int = 3) -> float:
     """Median seconds of one ``fn(*args)``.  When an argument lies on a
     CUDA device each repeat is timed with CUDA events around the call (the
@@ -63,15 +70,26 @@ def bench(fn, *args, warmup: int = 1, repeats: int = 3) -> float:
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bn: int = 128,
-         bk: int = 16, trans: str = "nn", dim_order: str = "mn",
-         out_dtype=None, epilogue: Epilogue | None = None, bias=None,
-         residual=None, scale=None) -> torch.Tensor:
+         bk: int = 16, nsplit: int = 1, trans: str = "nn",
+         dim_order: str = "mn", out_dtype=None,
+         epilogue: Epilogue | None = None, bias=None, residual=None,
+         scale=None) -> torch.Tensor:
     """Dense ftIMM GEMM with the epilogue fused at the flush.  ``scale`` is
-    the (N,) dequant vector when ``epilogue.scale_vec``."""
+    the (N,) dequant vector when ``epilogue.scale_vec``.  ``nsplit > 1``
+    selects the K-parallel kernel (the epilogue then runs on the fp32 sum
+    of the partials); the split count is clamped to the K blocks of the
+    chosen tile, and degenerates to 1, the M-parallel kernel."""
     if dim_order not in ("mn", "nm"):
         raise ValueError(f"unknown dim_order: {dim_order!r}")
-    m, _, n = _k.mkn(trans, a.shape, b.shape)
+    m, k, n = _k.mkn(trans, a.shape, b.shape)
     bm, bn, bk = clamp_tile(m, n, bm, bn)
+    nsplit = clamp_nsplit(k, bk, nsplit)
+    if nsplit > 1:
+        return _k.ftimm_gemm_splitk(
+            a, b, bm=bm, bn=bn, bk=bk, nsplit=nsplit, trans=trans,
+            dim_order=dim_order, out_dtype=out_dtype,
+            epilogue=epilogue or _k.IDENTITY, bias=bias, residual=residual,
+            scale=scale)
     return _k.ftimm_gemm(a, b, bm=bm, bn=bn, bk=bk, trans=trans,
                          dim_order=dim_order, out_dtype=out_dtype,
                          epilogue=epilogue or _k.IDENTITY, bias=bias,
@@ -142,3 +160,21 @@ def ragged_gemm_swiglu(x: torch.Tensor, w_gate: torch.Tensor,
     bm, bn, bk = clamp_tile(x.shape[0], w_gate.shape[2], bm, bn)
     return _k.ftimm_gemm_ragged_swiglu(x, w_gate, w_up, group_offsets, bm=bm,
                                        bn=bn, bk=bk, out_dtype=out_dtype)
+
+
+def ragged_gemm_dw(x: torch.Tensor, dy: torch.Tensor,
+                   group_offsets: torch.Tensor, *, bm: int = 128,
+                   bn: int = 128, bk: int = 16,
+                   out_dtype=None) -> torch.Tensor:
+    """Ragged T2 grouped GEMM: dW[g] = x[rows_g].T @ dy[rows_g] -> (G, D, F).
+    ``bm`` / ``bn`` tile the per-group (D, F) panel; the contraction runs
+    over each group's rows.  Same offsets contract as ``ragged_gemm``;
+    empty groups yield zero panels, and T = 0 gives all-zero panels."""
+    g = group_offsets.shape[0] - 1
+    out_dtype = out_dtype or x.dtype
+    if x.shape[0] == 0:
+        return torch.zeros((g, x.shape[1], dy.shape[1]), dtype=out_dtype,
+                           device=x.device)
+    bm, bn, bk = clamp_tile(x.shape[1], dy.shape[1], bm, bn)
+    return _k.ftimm_gemm_ragged_dw(x, dy, group_offsets, bm=bm, bn=bn, bk=bk,
+                                   out_dtype=out_dtype)

@@ -51,6 +51,22 @@ def ragged_matmul_ref(x: torch.Tensor, w: torch.Tensor,
     return acc.to(out_dtype)
 
 
+def ragged_matmul_dw_ref(x: torch.Tensor, dy: torch.Tensor,
+                         group_offsets: torch.Tensor,
+                         out_dtype=None) -> torch.Tensor:
+    """Dense oracle for the ragged T2 backward: per-group x^T @ dy with the
+    rows outside the group masked to zero -> (G, D, F).  An empty group
+    gives a zero panel; rows outside every group enter no panel."""
+    out_dtype = out_dtype or x.dtype
+    rows = torch.arange(x.shape[0], device=x.device)[:, None]
+    xf, dyf = x.to(torch.float32), dy.to(torch.float32)
+    panels = []
+    for g in range(group_offsets.shape[0] - 1):
+        mask = (rows >= group_offsets[g]) & (rows < group_offsets[g + 1])
+        panels.append(torch.where(mask, xf, 0.0).T @ dyf)
+    return torch.stack(panels).to(out_dtype)
+
+
 def ragged_swiglu_ref(x: torch.Tensor, w_gate: torch.Tensor,
                       w_up: torch.Tensor, group_offsets: torch.Tensor,
                       out_dtype=None) -> torch.Tensor:
@@ -58,3 +74,29 @@ def ragged_swiglu_ref(x: torch.Tensor, w_gate: torch.Tensor,
     a = ragged_matmul_ref(x, w_gate, group_offsets, out_dtype=torch.float32)
     b = ragged_matmul_ref(x, w_up, group_offsets, out_dtype=torch.float32)
     return (a * torch.sigmoid(a) * b).to(out_dtype or x.dtype)
+
+
+def k_per_split(k: int, bk: int, nsplit: int) -> int:
+    """K extent of one split of the K-parallel kernel: cdiv(cdiv(K, bk),
+    nsplit) blocks of ``bk``."""
+    return -(-(-(-k // bk)) // nsplit) * bk
+
+
+def matmul_splitk(a: torch.Tensor, b: torch.Tensor, nsplit: int, *,
+                  bk: int, trans: str = "nn", out_dtype=None) -> torch.Tensor:
+    """Oracle for the K-parallel strategy (paper Alg. 5): fp32 partial
+    products over K slices, summed in split order at the end.  The K split
+    is the kernel's (``k_per_split``), so K need not divide evenly (a split
+    past the end contributes zeros)."""
+    out_dtype = out_dtype or a.dtype
+    a_ = a.transpose(-1, -2) if trans == "tn" else a        # (M, K)
+    b_ = b.transpose(-1, -2) if trans == "nt" else b        # (K, N)
+    k = a_.shape[1]
+    per = k_per_split(k, bk, nsplit)
+    partials = torch.zeros((nsplit, a_.shape[0], b_.shape[1]),
+                           dtype=torch.float32, device=a.device)
+    for s in range(nsplit):
+        lo, hi = min(s * per, k), min((s + 1) * per, k)
+        partials[s] = a_[:, lo:hi].to(torch.float32) @ b_[lo:hi].to(
+            torch.float32)
+    return partials.sum(dim=0).to(out_dtype)

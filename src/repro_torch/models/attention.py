@@ -11,7 +11,9 @@ The score and value products (``_bmm_qk`` / ``_bmm_pv``) are the paper's
 irregular batched GEMMs -- at decode, K = cache length >> M = query group --
 and run through ``batched_matmul`` on the grouped ftIMM kernel, in fp32 as
 in the reference.  The softmax around them is plain PyTorch, as the
-reference composes it with jnp.
+reference composes it with jnp, so the training path (``blockwise_attention``
+without a cache) is differentiable end to end: its backward runs the
+grouped kernel's dX / dW products.
 """
 from __future__ import annotations
 
@@ -25,26 +27,29 @@ NEG_INF = -1e30
 _PAD_POS = (2 ** 31 - 1) // 2      # position of padded KV rows (never valid)
 
 
-def frozen(t: torch.Tensor) -> nn.Parameter:
-    """A weight of the serving model: no gradient in this forward-only port."""
-    return nn.Parameter(t, requires_grad=False)
+def param(t: torch.Tensor, requires_grad: bool = False) -> nn.Parameter:
+    """A weight of the model: frozen for serving, trainable for training."""
+    return nn.Parameter(t, requires_grad=requires_grad)
 
 
 class AttentionParams(nn.Module):
-    """wq (D, H*hd), wk / wv (D, KVH*hd), wo (H*hd, D) in the compute dtype;
-    the qk-norm scales (hd,) in fp32 when the config has qk_norm."""
+    """wq (D, H*hd), wk / wv (D, KVH*hd), wo (H*hd, D); the qk-norm scales
+    (hd,) in fp32 when the config has qk_norm."""
 
-    def __init__(self, wq, wk, wv, wo, q_norm=None, k_norm=None):
+    def __init__(self, wq, wk, wv, wo, q_norm=None, k_norm=None, *,
+                 requires_grad: bool = False):
         super().__init__()
-        self.wq, self.wk, self.wv, self.wo = map(frozen, (wq, wk, wv, wo))
-        self.q_norm = None if q_norm is None else frozen(q_norm)
-        self.k_norm = None if k_norm is None else frozen(k_norm)
+        self.wq, self.wk, self.wv, self.wo = (
+            param(t, requires_grad) for t in (wq, wk, wv, wo))
+        self.q_norm = None if q_norm is None else param(q_norm, requires_grad)
+        self.k_norm = None if k_norm is None else param(k_norm, requires_grad)
 
 
 def init_attention_params(gen: torch.Generator, d_model: int, num_heads: int,
                           num_kv_heads: int, head_dim: int, *,
                           qk_norm: bool, dtype: torch.dtype,
-                          device: torch.device) -> AttentionParams:
+                          device: torch.device,
+                          requires_grad: bool = False) -> AttentionParams:
     """The reference's initialisation (normal, He-scaled), drawn from
     ``gen`` in fp32 and cast to ``dtype``."""
     def normal(shape, fan_in):
@@ -59,7 +64,7 @@ def init_attention_params(gen: torch.Generator, d_model: int, num_heads: int,
         normal((d_model, num_kv_heads * head_dim), d_model),
         normal((d_model, num_kv_heads * head_dim), d_model),
         normal((num_heads * head_dim, d_model), num_heads * head_dim),
-        **norms)
+        **norms, requires_grad=requires_grad)
 
 
 def _bmm_qk(qg: torch.Tensor, k_blk: torch.Tensor) -> torch.Tensor:

@@ -2,10 +2,10 @@
 
 All dense contractions route through ``core.gemm.project`` so the ftIMM
 planner sees every GEMM and the CUDA kernels run them on the card.  Weights
-are cast to ``compute_dtype`` once, when the model is built
-(``models.model.init_params`` / ``models.weights.from_numpy_params``); the
-reference casts its fp32 master weights at every use, which gives the same
-values.
+are cast to ``compute_dtype`` at use, as in the reference: a training model
+keeps fp32 masters and the cast is part of its graph, while a serving
+model's weights already have the compute dtype, where ``Tensor.to``
+returns the tensor itself (no copy per step).
 
 Elementwise layer tails fuse into their producing GEMM: ``dense`` takes
 optional ``bias`` / ``residual`` / ``activation`` (an ``Epilogue`` applied at

@@ -1,12 +1,14 @@
-"""Top-level model API of the dense and MoE decoders: init / prefill /
-bucketed prefill / decode, and the KV cache.
+"""Top-level model API of the dense and MoE decoders: init / training
+forward and loss / prefill / bucketed prefill / decode, and the KV cache.
 
-Batch dict convention, as in the reference: ``tokens`` (B, S) int.  The
+Batch dict convention, as in the reference: ``tokens`` (B, S) int, and for
+training ``labels`` (B, S) int and ``loss_mask`` (B, S) float.  The
 parameters are one ``DenseLM`` module (the reference's parameter pytree):
-the (V_pad, D) embedding table in the compute dtype, shared by the embed
-and the unembed, the fp32 final-norm scale, and one ``DenseBlock`` per
-layer, whose feed-forward is a SwiGLU MLP (dense) or routed experts (moe).
-Forward only: serving needs no gradient.
+the (V_pad, D) embedding table, shared by the embed and the unembed, the
+fp32 final-norm scale, and one ``DenseBlock`` per layer, whose feed-forward
+is a SwiGLU MLP (dense) or routed experts (moe).  A serving model holds its
+weights in the compute dtype and no gradient; a training model holds fp32
+masters (``cfg.param_dtype``) that require grad, cast at use.
 
 In the capacity-dispatch MoE, every token of a stack pass is routed and
 takes capacity, the right-padding of a bucket prefill and the idle slots of
@@ -19,44 +21,86 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..core.device import resolve_device
-from .attention import frozen
+from .attention import param
 from .layers import embed, rms_norm, unembed
-from .transformer import (DenseBlock, check_family, compute_dtype,
-                          init_cache, init_dense_block, stack_cached)
+from .transformer import (DenseBlock, as_dtype, check_family, compute_dtype,
+                          init_cache, init_dense_block, stack_cached,
+                          stack_train)
 
-__all__ = ["DenseLM", "init_params", "prefill", "prefill_bucket",
-           "decode_step", "make_cache"]
+__all__ = ["DenseLM", "init_params", "forward_train", "loss_fn", "prefill",
+           "prefill_bucket", "decode_step", "make_cache"]
 
 
 class DenseLM(nn.Module):
     def __init__(self, embed_table: torch.Tensor, final_norm: torch.Tensor,
-                 layers: list[DenseBlock]):
+                 layers: list[DenseBlock], *, requires_grad: bool = False):
         super().__init__()
-        self.embed = frozen(embed_table)
-        self.final_norm = frozen(final_norm)
+        self.embed = param(embed_table, requires_grad)
+        self.final_norm = param(final_norm, requires_grad)
         self.layers = nn.ModuleList(layers)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *,
-                device: str | torch.device | None = None) -> DenseLM:
+                device: str | torch.device | None = None,
+                dtype: str | torch.dtype | None = None) -> DenseLM:
     """Random weights from a ``torch.Generator`` seeded with ``seed``, with
     the reference's distributions (embedding N(0, 0.02^2), He-scaled
-    projections, router and experts, zero norm scales).  Runs on the CUDA card unless
-    ``device`` says otherwise; raises when no card is present and no device
-    is given."""
+    projections, router and experts, zero norm scales).  Runs on the CUDA
+    card unless ``device`` says otherwise; raises when no card is present
+    and no device is given.
+
+    ``dtype=None`` (serving) keeps the weights in the compute dtype, with no
+    gradient.  A ``dtype`` asks for training masters (``cfg.param_dtype``):
+    the weights in that dtype, requiring grad, cast to the compute dtype at
+    use.  Norm scales are fp32 either way."""
     check_family(cfg)
     device = resolve_device(device)
+    train = dtype is not None
+    dt = as_dtype(dtype) if train else compute_dtype(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     table = (torch.randn((cfg.vocab_padded, cfg.d_model), generator=gen,
-                         device=device) * 0.02).to(compute_dtype(cfg))
-    layers = [init_dense_block(gen, cfg, device)
+                         device=device) * 0.02).to(dt)
+    layers = [init_dense_block(gen, cfg, device, dt, train)
               for _ in range(cfg.num_layers)]
-    return DenseLM(table, torch.zeros(cfg.d_model, device=device), layers)
+    return DenseLM(table, torch.zeros(cfg.d_model, device=device), layers,
+                   requires_grad=train)
 
 
 def _embed_inputs(model: DenseLM, cfg: ModelConfig, batch: dict):
     h = embed(batch["tokens"], model.embed, compute_dtype(cfg))
     return h, torch.arange(h.shape[1], device=h.device)
+
+
+def forward_train(model: DenseLM, cfg: ModelConfig,
+                  batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence fp32 logits for training.  -> (logits (B, S, V_pad),
+    aux loss)."""
+    h, positions = _embed_inputs(model, cfg, batch)
+    h, aux = stack_train(model.layers, cfg, h, positions)
+    h = rms_norm(h, model.final_norm)
+    logits = unembed(h, model.embed, cfg.vocab_size, compute_dtype(cfg))
+    return logits, aux
+
+
+def loss_fn(model: DenseLM, cfg: ModelConfig, batch: dict,
+            aux_weight: float = 0.01) -> tuple[torch.Tensor, dict]:
+    """Masked next-token cross entropy over fp32 logits (logsumexp minus
+    the label's logit), plus ``aux_weight`` x the MoE aux loss.  -> (total,
+    {"loss": ce, "aux_loss": aux, "tokens": mask sum})."""
+    logits, aux = forward_train(model, cfg, batch)
+    labels = batch["labels"].to(torch.long)
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, labels[..., None])[..., 0]
+    nll = lse - picked
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    ce = (nll * mask).sum() / denom
+    total = ce + aux_weight * aux
+    return total, {"loss": ce, "aux_loss": aux, "tokens": mask.sum()}
 
 
 def make_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,

@@ -16,7 +16,11 @@ on the device.
 
 The router is the paper's T1 shape (tokens x d_model x E, E = 8..16) and
 runs through ``project`` on the dense kernel.  Both modes return
-(y, aux) with the Switch-style load-balancing loss, which serving ignores.
+(y, aux) with the Switch-style load-balancing loss, which serving ignores
+and training adds to the loss.  Both are differentiable as in the
+reference: gradients flow through the gate weights, the capacity scatter
+(an ``index_add_`` into a fresh buffer) and the ragged un-sort; the
+routing itself (top-k indices, ranks, offsets) carries none.
 Expert parallelism (the reference's ``ep_ragged_moe``) and quantized
 expert panels are not ported; on one device the reference never takes the
 expert-parallel branch.
@@ -28,22 +32,23 @@ from torch import nn
 
 from ..core.gemm import (grouped_matmul, grouped_swiglu, plan_moe_dispatch,
                          project, ragged_matmul, ragged_swiglu)
-from .attention import frozen
+from .attention import param
 
 
 class MoEParams(nn.Module):
-    """router (D, E), w_gate / w_up (E, D, F) and w_down (E, F, D), in the
-    compute dtype."""
+    """router (D, E), w_gate / w_up (E, D, F) and w_down (E, F, D)."""
 
-    def __init__(self, router, w_gate, w_up, w_down):
+    def __init__(self, router, w_gate, w_up, w_down, *,
+                 requires_grad: bool = False):
         super().__init__()
-        self.router, self.w_gate, self.w_up, self.w_down = map(
-            frozen, (router, w_gate, w_up, w_down))
+        self.router, self.w_gate, self.w_up, self.w_down = (
+            param(t, requires_grad) for t in (router, w_gate, w_up, w_down))
 
 
 def init_moe_params(gen: torch.Generator, d_model: int, d_ff: int,
                     num_experts: int, *, dtype: torch.dtype,
-                    device: torch.device) -> MoEParams:
+                    device: torch.device,
+                    requires_grad: bool = False) -> MoEParams:
     """The reference's initialisation (normal, He-scaled by fan-in), drawn
     from ``gen`` in fp32 and cast to ``dtype``."""
     s_in, s_out = (2.0 / d_model) ** 0.5, (2.0 / d_ff) ** 0.5
@@ -55,7 +60,8 @@ def init_moe_params(gen: torch.Generator, d_model: int, d_ff: int,
     return MoEParams(normal((d_model, e), s_in),
                      normal((e, d_model, d_ff), s_in),
                      normal((e, d_model, d_ff), s_in),
-                     normal((e, d_ff, d_model), s_out))
+                     normal((e, d_ff, d_model), s_out),
+                     requires_grad=requires_grad)
 
 
 def capacity(num_tokens: int, num_experts: int, top_k: int,

@@ -1,35 +1,45 @@
-"""The decoder stack of the dense and MoE families: per-layer modules and
-the cached forward.
+"""The decoder stack of the dense and MoE families: per-layer modules, the
+training forward and the cached forward.
 
 The reference scans one traced body over layer-stacked parameters
 (``lax.scan``); PyTorch runs eagerly, so here each layer is its own module
 and the stack is a Python loop over them.  Caches keep the reference's
 layer-stacked layout -- dense (L, B, S, KVH, D) or the paged pool
-(L, P, page, KVH, D) -- and are written in place.
+(L, P, page, KVH, D) -- and are written in place.  The training stack
+(``stack_train``) rematerialises each block in its backward when
+``cfg.remat`` is "full" (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint`` of the scan body).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
-from .attention import AttentionParams, attention, frozen, init_attention_params
+from .attention import AttentionParams, attention, init_attention_params, param
 from .layers import rms_norm, swiglu
 from .moe import MoEParams, init_moe_params, moe_mlp
 
 PORTED_FAMILIES = ("dense", "moe")
 
 
+def as_dtype(dtype: str | torch.dtype) -> torch.dtype:
+    """A torch dtype from a config's name for it ("bfloat16") or itself."""
+    return getattr(torch, dtype) if isinstance(dtype, str) else dtype
+
+
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
-    return getattr(torch, cfg.compute_dtype)
+    return as_dtype(cfg.compute_dtype)
 
 
 class MLPParams(nn.Module):
-    """w_gate / w_up (D, F) and w_down (F, D), in the compute dtype."""
+    """w_gate / w_up (D, F) and w_down (F, D)."""
 
-    def __init__(self, w_gate, w_up, w_down):
+    def __init__(self, w_gate, w_up, w_down, *, requires_grad: bool = False):
         super().__init__()
-        self.w_gate, self.w_up, self.w_down = map(frozen, (w_gate, w_up, w_down))
+        self.w_gate, self.w_up, self.w_down = (
+            param(t, requires_grad) for t in (w_gate, w_up, w_down))
 
 
 class DenseBlock(nn.Module):
@@ -39,11 +49,13 @@ class DenseBlock(nn.Module):
     fp32 either way)."""
 
     def __init__(self, ln1, attn: AttentionParams, ln2,
-                 mlp: MLPParams | None = None, moe: MoEParams | None = None):
+                 mlp: MLPParams | None = None, moe: MoEParams | None = None,
+                 *, requires_grad: bool = False):
         super().__init__()
         if (mlp is None) == (moe is None):
             raise ValueError("a block has either an MLP or experts")
-        self.ln1, self.ln2 = frozen(ln1), frozen(ln2)
+        self.ln1 = param(ln1, requires_grad)
+        self.ln2 = param(ln2, requires_grad)
         self.attn, self.mlp, self.moe = attn, mlp, moe
 
 
@@ -55,10 +67,11 @@ def check_family(cfg: ModelConfig) -> None:
 
 
 def init_dense_block(gen: torch.Generator, cfg: ModelConfig,
-                     device: torch.device) -> DenseBlock:
+                     device: torch.device, dtype: torch.dtype,
+                     requires_grad: bool = False) -> DenseBlock:
     """The reference's initialisation, drawn from ``gen``: He-scaled normal
-    projections, zero norm scales."""
-    dt = compute_dtype(cfg)
+    projections in ``dtype``, zero fp32 norm scales."""
+    dt, rg = dtype, requires_grad
     d, f = cfg.d_model, cfg.d_ff
 
     def he(shape, fan_in):
@@ -67,24 +80,26 @@ def init_dense_block(gen: torch.Generator, cfg: ModelConfig,
 
     attn = init_attention_params(
         gen, d, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_,
-        qk_norm=cfg.qk_norm, dtype=dt, device=device)
+        qk_norm=cfg.qk_norm, dtype=dt, device=device, requires_grad=rg)
     if cfg.family == "moe":
         ffn = {"moe": init_moe_params(gen, d, f, cfg.num_experts, dtype=dt,
-                                      device=device)}
+                                      device=device, requires_grad=rg)}
     else:
-        ffn = {"mlp": MLPParams(he((d, f), d), he((d, f), d), he((f, d), f))}
+        ffn = {"mlp": MLPParams(he((d, f), d), he((d, f), d), he((f, d), f),
+                                requires_grad=rg)}
     zeros = torch.zeros(d, device=device)
-    return DenseBlock(zeros, attn, zeros.clone(), **ffn)
+    return DenseBlock(zeros, attn, zeros.clone(), **ffn, requires_grad=rg)
 
 
 def dense_block(h: torch.Tensor, p: DenseBlock, cfg: ModelConfig, *,
                 positions: torch.Tensor, window: int, kv=None,
                 cache_index=None, causal: bool = True, use_rope: bool = True,
                 page_table: torch.Tensor | None = None):
-    """Returns (h, new_kv).  The residual adds ride the out-projections'
-    fused epilogues instead of separate elementwise passes; an MoE block
-    adds its experts' output to the residual stream after them, and its
-    aux loss is dropped (serving does not use it, as in the reference)."""
+    """Returns (h, new_kv, aux).  The residual adds ride the
+    out-projections' fused epilogues instead of separate elementwise
+    passes; an MoE block adds its experts' output to the residual stream
+    after them.  ``aux`` is the MoE block's load-balancing loss, None for a
+    dense block."""
     cdt = compute_dtype(cfg)
     h, new_kv = attention(
         rms_norm(h, p.ln1), p.attn,
@@ -96,14 +111,41 @@ def dense_block(h: torch.Tensor, p: DenseBlock, cfg: ModelConfig, *,
     x = rms_norm(h, p.ln2)
     if p.moe is not None:
         b, s, d = x.shape
-        y, _ = moe_mlp(x.reshape(b * s, d), p.moe,
-                       num_experts=cfg.num_experts, top_k=cfg.top_k,
-                       capacity_factor=cfg.capacity_factor,
-                       compute_dtype=cdt, dispatch=cfg.moe_dispatch,
-                       quant=cfg.quant)
-        return h + y.reshape(b, s, d), new_kv
+        y, aux = moe_mlp(x.reshape(b * s, d), p.moe,
+                         num_experts=cfg.num_experts, top_k=cfg.top_k,
+                         capacity_factor=cfg.capacity_factor,
+                         compute_dtype=cdt, dispatch=cfg.moe_dispatch,
+                         quant=cfg.quant)
+        return h + y.reshape(b, s, d), new_kv, aux
     h = swiglu(x, p.mlp.w_gate, p.mlp.w_up, p.mlp.w_down, cdt, residual=h)
-    return h, new_kv
+    return h, new_kv, None
+
+
+def stack_train(layers: nn.ModuleList, cfg: ModelConfig, h: torch.Tensor,
+                positions: torch.Tensor, *, causal: bool = True,
+                use_rope: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run the stack without caches (training).  -> (h, aux), ``aux`` the
+    MoE load-balancing losses summed over the layers (0 for a dense
+    stack).  ``cfg.remat``: "full" recomputes each block in the backward
+    (non-reentrant ``torch.utils.checkpoint``), "none" keeps every
+    activation."""
+    if cfg.remat not in ("full", "none"):
+        raise NotImplementedError(
+            f"remat={cfg.remat!r}: the port runs 'full' and 'none'")
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for p, w in zip(layers, cfg.windows()):
+        def block(hh, p=p, w=w):
+            out, _, a = dense_block(hh, p, cfg, positions=positions,
+                                    window=w, causal=causal,
+                                    use_rope=use_rope)
+            return out, a
+        if cfg.remat == "full":
+            h, a = checkpoint(block, h, use_reentrant=False)
+        else:
+            h, a = block(h)
+        if a is not None:
+            aux = aux + a
+    return h, aux
 
 
 def stack_cached(layers: nn.ModuleList, cfg: ModelConfig, h: torch.Tensor,
@@ -115,7 +157,7 @@ def stack_cached(layers: nn.ModuleList, cfg: ModelConfig, h: torch.Tensor,
     (B, max_pages): the cache leaves are paged pools shared by every slot
     (one table for every layer)."""
     for layer, (p, w) in enumerate(zip(layers, cfg.windows())):
-        h, _ = dense_block(
+        h, _, _ = dense_block(
             h, p, cfg, positions=positions, window=w,
             kv=(cache["k"][layer], cache["v"][layer]),
             cache_index=cache_index, causal=causal, use_rope=use_rope,

@@ -1,0 +1,5 @@
+from .adamw import (OptConfig, apply_updates, global_norm, init_opt_state,
+                    schedule)
+
+__all__ = ["OptConfig", "apply_updates", "global_norm", "init_opt_state",
+           "schedule"]

@@ -1,0 +1,93 @@
+"""AdamW with warmup + cosine schedule and global-norm clipping.
+
+The state mirrors the parameters: ``m`` and ``v`` are dicts keyed by the
+parameter names (``dict(model.named_parameters())``), each tensor in its
+parameter's dtype and on its device, as ``zeros_like`` gives, plus the
+step count.  Unlike the reference's pure functions, ``apply_updates``
+updates the parameters and the moments IN PLACE (no second copy of the
+model or its state on the card); it returns them for symmetry.  The lr and
+clipping scale stay device tensors, so a step never waits for the host.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+F32 = torch.float32
+
+
+@dataclass(frozen=True)
+class OptConfig:
+    lr: float = 3e-4
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    min_lr_ratio: float = 0.1
+    clip_norm: float = 1.0
+
+
+def schedule(step: torch.Tensor, cfg: OptConfig) -> torch.Tensor:
+    """Linear warmup to ``cfg.lr``, then cosine decay to ``min_lr_ratio``
+    x lr at ``total_steps`` (fp32, on the step's device)."""
+    step = step.to(F32)
+    warm = step / max(cfg.warmup_steps, 1)
+    prog = (step - cfg.warmup_steps) / max(cfg.total_steps
+                                           - cfg.warmup_steps, 1)
+    prog = torch.clamp(prog, 0.0, 1.0)
+    cos = cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * 0.5 * (
+        1 + torch.cos(math.pi * prog))
+    return cfg.lr * torch.where(step < cfg.warmup_steps, warm, cos)
+
+
+def init_opt_state(params: dict[str, torch.Tensor]) -> dict:
+    """{"m": zeros, "v": zeros (each like its parameter), "step": 0}."""
+    device = next(iter(params.values())).device
+    return {"m": {k: torch.zeros_like(p) for k, p in params.items()},
+            "v": {k: torch.zeros_like(p) for k, p in params.items()},
+            "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in fp32."""
+    total = None
+    for t in tensors:
+        sq = torch.sum(torch.square(t.to(F32)))
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
+
+
+@torch.no_grad()
+def apply_updates(params: dict[str, torch.Tensor],
+                  grads: dict[str, torch.Tensor], state: dict,
+                  cfg: OptConfig):
+    """One AdamW step in place.  -> (params, state, {"grad_norm", "lr"})."""
+    step = state["step"] + 1
+    lr = schedule(step, cfg)
+    gnorm = global_norm(grads.values())
+    scale = torch.clamp(cfg.clip_norm / torch.clamp_min(gnorm, 1e-12),
+                        max=1.0)
+    b1, b2 = cfg.beta1, cfg.beta2
+    bc1 = 1 - torch.pow(torch.tensor(b1, dtype=F32, device=step.device),
+                        step.to(F32))
+    bc2 = 1 - torch.pow(torch.tensor(b2, dtype=F32, device=step.device),
+                        step.to(F32))
+    for name, p in params.items():
+        m, v = state["m"][name], state["v"][name]
+        g = grads[name].to(F32) * scale
+        m.mul_(b1).add_((1 - b1) * g)
+        v.mul_(b2).add_((1 - b2) * g * g)
+        del g
+        # In place where the reference's expression allows, to hold at most
+        # a few parameter-sized temporaries (the largest leaf is GBs).
+        denom = (v / bc2).sqrt_().add_(cfg.eps)
+        delta = (m / bc1).div_(denom)
+        del denom
+        delta.add_(cfg.weight_decay * p.to(F32)).mul_(lr)
+        p.copy_(p.to(F32) - delta)
+    state["step"] = step
+    return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -1,0 +1,52 @@
+"""The train step factory used by the trainer and the tests."""
+from __future__ import annotations
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..models.model import DenseLM, loss_fn
+from ..optim.adamw import OptConfig, apply_updates
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
+                    accum_steps: int = 1, aux_weight: float = 0.01):
+    """Returns train_step(model, opt_state, batch) -> (model, opt_state,
+    metrics), updating the model and the state in place.
+
+    The batch is a dict of tensors on the model's device.  ``accum_steps >
+    1`` splits it along the batch into microbatches run one after the
+    other, their fp32 gradients summed in the parameters' ``.grad`` and
+    divided by ``accum_steps`` (gradient accumulation, as the reference's
+    scan); the metrics are the last microbatch's.  Metrics are 0-d device
+    tensors: reading one waits for the step."""
+
+    def single(model: DenseLM, batch: dict) -> dict:
+        total, metrics = loss_fn(model, cfg, batch, aux_weight=aux_weight)
+        total.backward()
+        metrics["total_loss"] = total
+        return {k: v.detach() for k, v in metrics.items()}
+
+    def train_step(model: DenseLM, opt_state: dict, batch: dict):
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.grad = None
+        if accum_steps == 1:
+            metrics = single(model, batch)
+        else:
+            rows = batch["tokens"].shape[0]
+            if rows % accum_steps:
+                raise ValueError(f"batch of {rows} rows does not split into "
+                                 f"{accum_steps} microbatches")
+            mb = rows // accum_steps
+            for i in range(accum_steps):
+                metrics = single(model, {k: v[i * mb:(i + 1) * mb]
+                                         for k, v in batch.items()})
+            with torch.no_grad():
+                for p in params.values():
+                    p.grad.div_(accum_steps)
+        grads = {name: p.grad for name, p in params.items()}
+        _, opt_state, stats = apply_updates(params, grads, opt_state, opt_cfg)
+        metrics.update(stats)
+        return model, opt_state, metrics
+
+    return train_step

@@ -248,3 +248,211 @@ def test_moe_kernels_launch_and_count(dev):
         assert all(counts[k] == 1 for k in kernels), counts
         want, _ = moe.moe_mlp(x.cpu(), p.to("cpu"), **kw)
         _close(y.cpu(), want)
+
+
+# 4 rows to 4 distinct groups, all rows to one group, empty groups, one
+# group over several tiles, T = 0; and (below) rows outside every group.
+DW_DISTS = RAGGED_DISTS + [[16, 16, 16, 16], [0, 0, 0]]
+
+
+@pytest.mark.parametrize("tile", K.TILES)
+@pytest.mark.parametrize("sizes", DW_DISTS)
+@pytest.mark.parametrize("tail", [0, 4])
+@pytest.mark.parametrize("types", [(torch.bfloat16, torch.bfloat16),
+                                   (torch.bfloat16, torch.float32),
+                                   (torch.float32, torch.float32)])
+def test_ragged_dw_kernel(dev, tile, sizes, tail, types):
+    """dW[g] = x[rows_g]^T dy[rows_g]; empty groups give zero panels and the
+    ``tail`` rows past offsets[G] enter no panel."""
+    g, t, d, f = len(sizes), sum(sizes) + tail, 257, 96
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn(t, d, generator=gen, device=dev).to(types[0])
+    dy = torch.randn(t, f, generator=gen, device=dev).to(types[0])
+    offs = _offsets(sizes, dev)
+    bm, bn, bk = tile
+    got = K.ftimm_gemm_ragged_dw(x, dy, offs, bm=bm, bn=bn, bk=bk,
+                                 out_dtype=types[1])
+    torch.cuda.synchronize()
+    want = K.ftimm_gemm_ragged_dw_plain(x, dy, offs, out_dtype=types[1])
+    if t - tail:
+        _close(got, want)
+    for i, n in enumerate(sizes):
+        if n == 0:
+            assert (got[i] == 0).all()
+
+
+def test_ragged_dw_is_deterministic(dev):
+    gen = torch.Generator(device=dev).manual_seed(13)
+    x = torch.randn(300, 130, generator=gen, device=dev).to(torch.bfloat16)
+    dy = torch.randn(300, 70, generator=gen, device=dev).to(torch.bfloat16)
+    offs = _offsets([0, 250, 50], dev)
+    runs = [ops.ragged_gemm_dw(x, dy, offs) for _ in range(3)]
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+
+
+@pytest.mark.parametrize("tile", K.TILES)
+@pytest.mark.parametrize("trans", ["nn", "tn", "nt"])
+@pytest.mark.parametrize("nsplit", [2, 4, 8])
+@pytest.mark.parametrize("m,k,n", [(33, 257, 65), (64, 1024, 96)])
+@pytest.mark.parametrize("types", [(torch.bfloat16, torch.bfloat16),
+                                   (torch.bfloat16, torch.float32),
+                                   (torch.float32, torch.float32)])
+def test_splitk_kernel(dev, tile, trans, nsplit, m, k, n, types):
+    a, b = _operands(trans, m, k, n, types[0], dev, seed=14)
+    bm, bn, bk = tile
+    got = K.ftimm_gemm_splitk(a, b, bm=bm, bn=bn, bk=bk, nsplit=nsplit,
+                              trans=trans, out_dtype=types[1])
+    torch.cuda.synchronize()
+    _close(got, K.ftimm_gemm_splitk_plain(a, b, bk=bk, nsplit=nsplit,
+                                          trans=trans, out_dtype=types[1]))
+    again = K.ftimm_gemm_splitk(a, b, bm=bm, bn=bn, bk=bk, nsplit=nsplit,
+                                trans=trans, out_dtype=types[1])
+    assert torch.equal(got, again)      # no atomics: replays are identical
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_splitk_epilogue_after_the_sum(dev, dtype):
+    m, k, n = 33, 300, 65
+    a, b = _operands("nn", m, k, n, dtype, dev, seed=15)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    bias = torch.randn(n, generator=gen, device=dev).to(dtype)
+    res = torch.randn(m, n, generator=gen, device=dev).to(dtype)
+    epi = Epilogue(bias=True, activation="silu", residual=True)
+    K.reset_launch_counts()
+    got = ops.gemm(a, b, nsplit=4, epilogue=epi, bias=bias, residual=res)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["ftimm_gemm_splitk"] == 1
+    _close(got, K.ftimm_gemm_plain(a, b, epilogue=epi, bias=bias,
+                                   residual=res))
+
+
+def _grads_match(fn, inputs, dev):
+    """fn's output and every float input's gradient for one cotangent, on
+    the card (the kernels) against the CPU (the plain versions)."""
+    outs = {}
+    for device in (dev, torch.device("cpu")):
+        xs = [x.to(device).requires_grad_(x.is_floating_point())
+              for x in inputs]
+        y = fn(*xs)
+        ct = torch.linspace(-1, 1, y.numel(), device=device).reshape(y.shape)
+        grads = torch.autograd.grad(
+            y, [x for x in xs if x.requires_grad], ct)
+        outs[device.type] = [y.detach().cpu()] + [g.cpu() for g in grads]
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        _close(got, want)
+
+
+def _randn_cpu():
+    gen = torch.Generator().manual_seed(17)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen)
+
+    return r
+
+
+def test_matmul_autograd_on_the_card(dev):
+    from repro_torch.core.gemm import dispatch as d
+    r = _randn_cpu()
+    epi = Epilogue(bias=True, activation="gelu", residual=True)
+    for trans, sa, sb in (("nn", (33, 40), (40, 24)), ("tn", (40, 33), (40, 24)),
+                          ("nt", (33, 40), (24, 40))):
+        _grads_match(lambda a, b, bias, res: d.matmul(
+            a, b, trans=trans, epilogue=epi, bias=bias, residual=res),
+            [r(*sa), r(*sb), r(24), r(33, 24)], dev)
+        _grads_match(lambda a, b: d.matmul(a, b, trans=trans),
+                     [r(*sa), r(*sb)], dev)
+
+
+def test_batched_and_swiglu_autograd_on_the_card(dev):
+    from repro_torch.core.gemm import dispatch as d
+    r = _randn_cpu()
+    _grads_match(lambda a, b: d.batched_matmul(a, b, trans="nt"),
+                 [r(3, 7, 20), r(3, 12, 20)], dev)
+    _grads_match(lambda a, b, bias: d.batched_matmul(a, b, bias=bias),
+                 [r(3, 7, 20), r(20, 12), r(3, 12)], dev)
+    _grads_match(d.matmul_swiglu, [r(9, 32), r(32, 24), r(32, 24)], dev)
+    _grads_match(d.grouped_swiglu, [r(4, 8, 32), r(4, 32, 24),
+                                    r(4, 32, 24)], dev)
+
+
+def test_ragged_autograd_on_the_card(dev):
+    from repro_torch.core.gemm import dispatch as d
+    r = _randn_cpu()
+    offs = _offsets([5, 0, 17, 3, 0], "cpu")
+    _grads_match(lambda x, w, o, b: d.ragged_matmul(x, w, o, bias=b),
+                 [r(25, 24), r(5, 24, 20), offs, r(5, 20)], dev)
+    _grads_match(d.ragged_swiglu, [r(25, 24), r(5, 24, 20), r(5, 24, 20),
+                                   offs], dev)
+    K.reset_launch_counts()
+    x = r(25, 24).to(dev).requires_grad_()
+    w = r(5, 24, 20).to(dev).requires_grad_()
+    d.ragged_matmul(x, w, offs.to(dev)).sum().backward()
+    assert K.launch_counts()["ftimm_gemm_ragged_dw"] == 1
+
+
+MIXED_TYPES = [(torch.bfloat16, torch.float32, torch.bfloat16),
+               (torch.bfloat16, torch.float32, torch.float32),
+               (torch.float32, torch.bfloat16, torch.bfloat16),
+               (torch.float32, torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.parametrize("tile", K.TILES)
+@pytest.mark.parametrize("types", MIXED_TYPES,
+                         ids=["bf16xf32-bf16", "bf16xf32-f32",
+                              "f32xbf16-bf16", "f32xbf16-f32"])
+def test_mixed_operand_kernels(dev, tile, types):
+    """bf16 x fp32 operands in either order (an fp32 cotangent against
+    bf16 weights in the backward), on every kernel that takes them."""
+    ta, tb, out = types
+    bm, bn, bk = tile
+    for trans in ("nn", "tn", "nt"):
+        a, b = _operands(trans, 33, 257, 65, torch.float32, dev, seed=21)
+        a, b = a.to(ta), b.to(tb)
+        got = K.ftimm_gemm(a, b, bm=bm, bn=bn, bk=bk, trans=trans,
+                           out_dtype=out)
+        _close(got, K.ftimm_gemm_plain(a, b, trans=trans, out_dtype=out))
+        got = K.ftimm_gemm_splitk(a, b, bm=bm, bn=bn, bk=bk, nsplit=3,
+                                  trans=trans, out_dtype=out)
+        _close(got, K.ftimm_gemm_splitk_plain(a, b, bk=bk, nsplit=3,
+                                              trans=trans, out_dtype=out))
+        ga = torch.stack([a, a.flip(0)])
+        got = K.ftimm_gemm_grouped(ga, b, bm=bm, bn=bn, bk=bk, trans=trans,
+                                   out_dtype=out)
+        _close(got, K.ftimm_gemm_grouped_plain(ga, b, trans=trans,
+                                               out_dtype=out))
+    gen = torch.Generator(device=dev).manual_seed(22)
+    offs = _offsets([5, 0, 17, 3, 0], dev)
+    x = torch.randn(29, 257, generator=gen, device=dev).to(ta)
+    for trans in ("nn", "nt"):
+        shape = (5, 257, 96) if trans == "nn" else (5, 96, 257)
+        w = torch.randn(shape, generator=gen, device=dev).to(tb)
+        got = K.ftimm_gemm_ragged(x, w, offs, bm=bm, bn=bn, bk=bk,
+                                  trans=trans, out_dtype=out)
+        _close(got, K.ftimm_gemm_ragged_plain(x, w, offs, trans=trans,
+                                              out_dtype=out))
+    dy = torch.randn(29, 96, generator=gen, device=dev).to(tb)
+    got = K.ftimm_gemm_ragged_dw(x, dy, offs, bm=bm, bn=bn, bk=bk,
+                                 out_dtype=out)
+    torch.cuda.synchronize()
+    _close(got, K.ftimm_gemm_ragged_dw_plain(x, dy, offs, out_dtype=out))
+
+
+def test_single_type_kernels_refuse_mixed_operands(dev):
+    x = torch.randn(8, 16, device=dev, dtype=torch.bfloat16)
+    w = torch.randn(16, 8, device=dev)
+    with pytest.raises(NotImplementedError):
+        K.ftimm_gemm_swiglu(x, w, w, bm=16, bn=32, bk=64)
+
+
+def test_fp32_out_autograd_on_the_card(dev):
+    """bf16 operands with fp32 output (the unembed, the router): the fp32
+    cotangent reaches the mixed kernels unrounded, on the card as on the
+    CPU."""
+    from repro_torch.core.gemm import dispatch as d
+    r = _randn_cpu()
+    for trans, sa, sb in (("nn", (33, 40), (40, 24)), ("tn", (40, 33), (40, 24)),
+                          ("nt", (33, 40), (24, 40))):
+        _grads_match(lambda a, b: d.matmul(a, b, trans=trans,
+                                           out_dtype=torch.float32),
+                     [r(*sa).bfloat16(), r(*sb).bfloat16()], dev)

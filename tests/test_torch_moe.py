@@ -228,8 +228,9 @@ def test_plan_moe_dispatch_rows_match_jax(dispatch, t, e, k, elt):
 
 def test_ragged_and_grouped_swiglu_plans():
     """Ragged plans come from the compiled tile menu (one grid walk), price
-    the two SwiGLU panels' shared memory, and only the forward is ported;
-    the grouped SwiGLU plan carries two panels too."""
+    the two SwiGLU panels' shared memory, and the dW plan (``ragged="k"``)
+    writes each of the G panels once, empty ones too; the grouped SwiGLU
+    plan carries two panels too."""
     from repro_torch.core.gemm import (estimate_ragged, plan_batched_gemm,
                                        plan_ragged_gemm)
     from repro_torch.kernels.ftimm.kernel import TILES, smem_bytes
@@ -239,8 +240,14 @@ def test_ragged_and_grouped_swiglu_plans():
         assert plan.dim_order == "mn"
         assert plan.est.smem_bytes == smem_bytes(plan.bm, plan.bn, plan.bk,
                                                  panels)
-    with pytest.raises(NotImplementedError):
-        plan_ragged_gemm(16, 4, 5120, 8192, ragged="k")
+    dw = plan_ragged_gemm(16, 1024, 5120, 8192, 2, 2, ragged="k")
+    assert (dw.bm, dw.bn, dw.bk) in TILES and dw.nsplit == 1
+    for t in (0, 4, 1024):
+        e = estimate_ragged(16, t, 5120, 8192, bm=dw.bm, bn=dw.bn, bk=dw.bk,
+                            ragged="k", in_bytes=2, out_bytes=2)
+        assert e.hbm_bytes >= 16 * 5120 * 8192 * 2
+    with pytest.raises(ValueError):
+        plan_ragged_gemm(16, 4, 5120, 8192, ragged="n")
     plan = plan_batched_gemm(8, 16, 4096, 14336, 2, 2, "none", panels=2)
     assert plan.est.smem_bytes == smem_bytes(plan.bm, plan.bn, plan.bk, 2)
     # More rows never price lower; the price follows the total rows (plus
