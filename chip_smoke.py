@@ -19,7 +19,14 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    8), unaligned shapes, every trans, the epilogues, the shared 2-D
    operand, and ragged group distributions (4 rows to 4 distinct groups,
    all rows to one group, empty groups, a group spanning several tiles,
-   rows outside every group, totals not a multiple of 16).  Normwise
+   rows outside every group, totals not a multiple of 16), and the
+   tensor-core and weight-stream bodies of ftimm_gemm and the tensor-core
+   ragged dW called directly at extents that are not tile multiples (every
+   trans, both outputs, the epilogues, 1 / 4 / 16 rows, one or several K
+   slices, the ragged distributions).  Then the planner's body choice
+   through the dispatch layer (a misaligned operand takes the FMA body, 4
+   rows the stream, 200 the tensor cores) and bit-identical reruns of the
+   stream and the tensor-core ragged dW.  Normwise
    tolerance max|kernel - plain| / max|plain|: 2e-2 for a bf16 output
    (2^-8 is one bf16 ulp), 1e-4 for fp32 (the same fp32 products summed in
    another order);
@@ -38,7 +45,9 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    at a time, through ServeEngine: 6 greedy requests over 4 slots, prompts
    in two length buckets, 16 new tokens each.  The launch counts are zeroed
    just before each run and read just after; every kernel of that model's
-   path must have launched.  Then one prompt's full-width qwen3 prefill
+   path must have launched, and every ftimm_gemm of a decode step (4
+   rows) must have taken the stream body.  Then one prompt's full-width
+   qwen3 prefill
    logits are held against the plain versions on the CPU (5e-2 normwise:
    28 bf16 layers, each of whose activations may round one bf16 ulp apart);
 6. [train-reference] training in fp32, card against CPU, same weights and
@@ -57,7 +66,11 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    every kernel of that model's training path must have launched
    (``ftimm_gemm_ragged_dw`` for llama4-scout's expert dW, the grouped
    kernel for mixtral's).  The loss must be finite and lower at step 5 than
-   at step 1.  Prints the median step time, tokens/s and peak device
+   at step 1; ftimm_gemm must have taken the tensor-core or stream body
+   for every bf16 product of 128 or more columns, the FMA body only for
+   the mixed and fp32 pairs (the fp32 cotangents of the logits and the
+   router) and the bf16 routers the planner gives it, and the ragged dW
+   the tensor cores.  Prints the median step time, tokens/s and peak device
    memory.  Every distinct kernel call of these runs is recorded (kernel,
    operand shapes, strides and dtypes, trans, tile, epilogue, out dtype;
    the ragged offsets as routed);
@@ -74,7 +87,9 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    the gates are that bf16 and fp32 give the same step-1 loss within 1e-2
    and the same step-2 loss within 5e-2;
 10. [time] each kernel at the decode-step shapes of the model it serves, and
-   the two backward kernels at the training shapes (CUDA events around
+   the two backward kernels at the training shapes, and ftimm_gemm at
+   qwen3-1.7b's training forward shapes, its unembed and the mixed fp32 x
+   bf16 unembed dX (CUDA events around
    calls enqueued behind a sleep kernel, so the card runs them back to
    back; operands rotated through more copies than the 50 MB L2 holds)
    beside its plain version, one PyTorch library call where one computes
@@ -118,6 +133,7 @@ from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.kernels.ftimm import kernel as K  # noqa: E402
 from repro_torch.kernels.ftimm import ops  # noqa: E402
 from repro_torch.kernels.ftimm.epilogue import Epilogue  # noqa: E402
+from repro_torch.launch.timing import sleep_ms_per_mcycle, time_ms  # noqa: E402
 from repro_torch.launch.train import opt_config  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
@@ -240,21 +256,29 @@ def _randn(gen, shape, dtype, scale=1.0):
             * scale).to(dtype)
 
 
+def _name(dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
 def _size(dtype) -> int:
     return torch.tensor([], dtype=dtype).element_size()
 
 
 def dense_case(label, m, k, n, *, trans="nn", dtype=BF16, out=None,
-               residual=False, per_step=0, phase="serve",
-               timed=False) -> Case:
+               residual=False, per_step=0, phase="serve", timed=False,
+               b_dtype=None) -> Case:
+    """``b_dtype``: B's type when it differs from A's (an fp32 cotangent
+    against bf16 weights: no one PyTorch call takes the pair, and the
+    bound counts fp32 operations)."""
     out = out or dtype
+    b_dtype = b_dtype or dtype
     sa = {"nn": (m, k), "tn": (k, m), "nt": (m, k)}[trans]
     sb = {"nn": (k, n), "tn": (k, n), "nt": (n, k)}[trans]
     epi = Epilogue(residual=True) if residual else None
 
     def make(gen):
         res = _randn(gen, (m, n), dtype) if residual else None
-        return (_randn(gen, sa, dtype), _randn(gen, sb, dtype, k ** -0.5),
+        return (_randn(gen, sa, dtype), _randn(gen, sb, b_dtype, k ** -0.5),
                 res)
 
     def ops_(a, b):
@@ -264,8 +288,8 @@ def dense_case(label, m, k, n, *, trans="nn", dtype=BF16, out=None,
         a, b = ops_(a, b)
         return torch.matmul(a, b) if res is None else torch.addmm(res, a, b)
 
-    nbytes = ((m * k + k * n + (m * n if residual else 0)) * _size(dtype)
-              + m * n * _size(out))
+    nbytes = (m * k * _size(dtype) + k * n * _size(b_dtype)
+              + (m * n * _size(dtype) if residual else 0) + m * n * _size(out))
     return Case(
         "ftimm_gemm", label, make,
         lambda a, b, r: matmul(a, b, trans=trans, out_dtype=out,
@@ -273,8 +297,40 @@ def dense_case(label, m, k, n, *, trans="nn", dtype=BF16, out=None,
         lambda a, b, r: K.ftimm_gemm_plain(a, b, trans=trans, out_dtype=out,
                                            epilogue=epi or K.IDENTITY,
                                            residual=r),
-        library, nbytes, 2.0 * m * n * k, dtype, out, per_step,
+        library if b_dtype == dtype else None, nbytes, 2.0 * m * n * k,
+        FP32 if FP32 in (dtype, b_dtype) else dtype, out, per_step,
         phase=phase, timed=timed)
+
+
+def body_case(label, m, k, n, *, body, trans="nn", out=BF16, kslices=1,
+              tile=(128, 128, 64), epi=None) -> Case:
+    """``ftimm_gemm``'s tensor-core or stream body called directly (the
+    planner may choose another at this shape), bf16 operands; ``epi`` with
+    an (N,) fp32 bias or scale vector and a bf16 (M, N) residual."""
+    epi = epi or K.IDENTITY
+    sa = {"nn": (m, k), "tn": (k, m), "nt": (m, k)}[trans]
+    sb = {"nn": (k, n), "tn": (k, n), "nt": (n, k)}[trans]
+    bm, bn, bk = tile
+
+    def make(gen):
+        vec = (_randn(gen, (n,), FP32) if epi.bias or epi.scale_vec
+               else None)
+        res = _randn(gen, (m, n), BF16) if epi.residual else None
+        return (_randn(gen, sa, BF16), _randn(gen, sb, BF16, k ** -0.5),
+                vec, res)
+
+    def kw(vec, res):
+        return dict(trans=trans, out_dtype=out, epilogue=epi,
+                    bias=vec if epi.bias else None,
+                    scale=vec if epi.scale_vec else None, residual=res)
+
+    return Case(
+        "ftimm_gemm", f"{body} {label}", make,
+        lambda a, b, v, r: K.ftimm_gemm(a, b, bm=bm, bn=bn, bk=bk, body=body,
+                                        kslices=kslices, **kw(v, r)),
+        lambda a, b, v, r: K.ftimm_gemm_plain(a, b, **kw(v, r)),
+        None, (m * k + k * n) * 2 + m * n * _size(out), 2.0 * m * n * k,
+        BF16, out)
 
 
 def splitk_case(label, m, k, n, nsplit, *, trans="tn", dtype=BF16,
@@ -444,9 +500,11 @@ def ragged_dw_case(label, sizes, d, f, *, dtype=BF16, tail=0,
                 _offsets(sizes, gen.device))
 
     def run(x, dy, offs):
+        x_mn, dy_mn = K.ragged_dw_operands_mn(x, dy)
         plan = plan_ragged_gemm(g, t, d, f, _size(dtype), _size(dtype),
-                                ragged="k")
-        return ops.ragged_gemm_dw(x, dy, offs, bm=plan.bm, bn=plan.bn)
+                                ragged="k", a_ok=x_mn, b_ok=dy_mn)
+        return ops.ragged_gemm_dw(x, dy, offs, bm=plan.bm, bn=plan.bn,
+                                  bk=plan.bk, body=plan.body)
 
     def library(x, dy, offs):
         return torch._grouped_mm(x.t(), dy, offs=offs[1:])
@@ -485,6 +543,18 @@ def train_cases() -> list[Case]:
     for ns in (2, 4, 8):
         cases.append(splitk_case(f"llama4 router dW {d}x{e} nsplit {ns}", d,
                                  TRAIN_TOKENS, e, ns))
+    t, v = TRAIN_TOKENS, qw.vocab_padded
+    cases += [
+        dense_case(f"qwen train fwd q/o {t}x{dq}x{dq}", t, dq, dq,
+                   phase="train", timed=True),
+        dense_case(f"qwen train fwd down {t}x{fq}x{dq}", t, fq, dq,
+                   phase="train", timed=True),
+        dense_case(f"qwen train unembed {t}x{dq}x{v}", t, dq, v, trans="nt",
+                   out=FP32, phase="train", timed=True),
+        # the fp32 logits' cotangent against the bf16 table: FMA body
+        dense_case(f"qwen train unembed dX fp32 x bf16 {t}x{v}x{dq}", t, v,
+                   dq, dtype=FP32, b_dtype=BF16, out=BF16, phase="train",
+                   timed=True)]
     return cases
 
 
@@ -616,7 +686,102 @@ def edge_cases() -> list[Case]:
     cases.append(splitk_case("qwen train dW 2048x2048 bias+silu+residual "
                              "nsplit 4", 2048, TRAIN_TOKENS, 2048, 4,
                              epilogue=True))
+    cases += new_body_cases()
     return cases
+
+
+NEW_BODY_EPILOGUES = (
+    ("residual", Epilogue(residual=True)),
+    ("bias+silu", Epilogue(bias=True, activation="silu")),
+    ("bias+gelu+scale+residual", Epilogue(bias=True, activation="gelu",
+                                          scale=0.5, residual=True)),
+    ("scale_vec", Epilogue(scale_vec=True)))
+
+
+def new_body_cases() -> list[Case]:
+    """The tensor-core and stream bodies of ftimm_gemm and the
+    tensor-core ragged dW at extents that are not tile multiples (every
+    stride still a multiple of 16 bytes): every trans, both outputs, both
+    tensor-core tiles, 1 / 4 / 16 rows and 1 or 3 K slices on the stream
+    (with a short last slice and a partial last strip), the epilogues;
+    the ragged dW's distributions at aligned widths."""
+    cases = []
+    for trans in ("nn", "tn", "nt"):
+        for out in (BF16, FP32):
+            for tile in K.TC_TILES:
+                for m, k, n in ((40, 264, 72), (200, 1032, 264)):
+                    cases.append(body_case(
+                        f"{m}x{k}x{n} {trans} ->{_name(out)} {tile[1]}", m, k, n,
+                        body="tc", trans=trans, out=out, tile=tile))
+            for m in (1, 4, 16):
+                for kslices, k in ((1, 520), (3, 1032)):
+                    cases.append(body_case(
+                        f"{m}x{k}x520 {trans} ->{_name(out)} {kslices} slices", m,
+                        k, 520, body="stream", trans=trans, out=out,
+                        kslices=kslices))
+    for label, epi in NEW_BODY_EPILOGUES:
+        for out in (BF16, FP32):
+            cases.append(body_case(f"200x520x264 {label} ->{_name(out)}", 200, 520,
+                                   264, body="tc", out=out, epi=epi))
+            cases.append(body_case(f"4x1032x264 {label} ->{_name(out)} 5 slices",
+                                   4, 1032, 264, body="stream", out=out,
+                                   kslices=5, epi=epi))
+    for label, sizes, tail in (("all rows to one group", [0, 37, 0, 0], 0),
+                               ("empty groups", [5, 0, 17, 3, 0], 0),
+                               ("one group over 9 tiles", [3, 150, 2], 0),
+                               ("skewed", [0, 200, 1, 0, 0, 0, 0, 55], 0),
+                               ("singleton", [1], 0),
+                               ("rows outside every group", [5, 0, 17, 3], 4),
+                               ("T = 0", [0, 0, 0], 0)):
+        cases.append(ragged_dw_case(f"{label} 264x520 bf16", sizes, 264, 520,
+                                    tail=tail))
+    return cases
+
+
+def check_bodies(dev) -> dict:
+    """The planner's body choice through the dispatch layer, and what the
+    new bodies promise: a misaligned operand takes the FMA body; 4 rows the
+    stream, 200 the tensor cores; the stream and the tensor-core ragged dW
+    give bit-identical reruns."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    a = _randn(gen, (200, 2056), BF16)
+    b = _randn(gen, (2048, 2048), BF16, 2048 ** -0.5)
+    seen = {}
+    for label, x in (("misaligned A (base + 2 bytes)", a[:, 1:2049]),
+                     ("4 rows", a[:4, :2048]), ("200 rows", a[:, :2048])):
+        K.reset_launch_counts()
+        got = matmul(x, b)
+        want = K.ftimm_gemm_plain(x, b)
+        torch.cuda.synchronize()
+        rel, _ = rel_err(got, want)
+        bodies = {k: v for k, v in K.body_counts()["ftimm_gemm"].items() if v}
+        seen[label] = bodies
+        log(f"  {label}: bodies {bodies}, normwise {rel:.2e}")
+        if rel > TOL[BF16]:
+            raise AssertionError(f"{label}: normwise {rel:.3g}")
+    want = {"misaligned A (base + 2 bytes)": {"fma": 1}, "4 rows": {"stream": 1},
+            "200 rows": {"tc": 1}}
+    if seen != want:
+        raise AssertionError(f"planned bodies {seen}, expected {want}")
+    x, w = _randn(gen, (4, 6144), BF16), _randn(gen, (6144, 2048), BF16)
+    dw = ragged_dw_case("rerun", np.random.default_rng(7).multinomial(
+        TRAIN_TOKENS, [1 / 16] * 16).tolist(), 5120, 8192)
+    xs, dy, offs = dw.make(gen)
+    K.reset_launch_counts()
+    runs = [matmul(x, w, out_dtype=FP32) for _ in range(3)]
+    dws = [dw.run(xs, dy, offs) for _ in range(2)]
+    torch.cuda.synchronize()
+    bodies = K.body_counts()
+    if (bodies["ftimm_gemm"]["stream"] != 3
+            or bodies["ftimm_gemm_ragged_dw"]["tc"] != 2):
+        raise AssertionError(f"reruns took the bodies {bodies}")
+    if not all(torch.equal(r, runs[0]) for r in runs[1:]):
+        raise AssertionError("the stream body's reruns differ")
+    if not torch.equal(dws[0], dws[1]):
+        raise AssertionError("the tensor-core ragged dW's reruns differ")
+    log("  stream (4 x 6144 x 2048) x3 and tensor-core ragged dW (llama4 "
+        "gate/up) x2: bit-identical reruns")
+    return seen
 
 
 def check(cases: list[Case], dev) -> dict[str, float]:
@@ -640,53 +805,6 @@ def check(cases: list[Case], dev) -> dict[str, float]:
     return worst
 
 
-def _sleep_ms_per_mcycle() -> float:
-    """Device milliseconds of ``torch.cuda._sleep(10**6)``."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(10 ** 6)
-    start.record()
-    torch.cuda._sleep(10 ** 7)
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / 10
-
-
-def time_ms(fn, inputs: list[tuple], reps: int,
-            sleep_ms_per_mcycle: float) -> float:
-    """Mean device milliseconds of one call, cycling through ``inputs``.
-
-    A small GEMM takes less time on the card than its Python call takes on
-    the host, so timing a loop of calls would time the host.  The stream is
-    first held by a sleep kernel long enough for the host to enqueue every
-    call; the events then bracket the calls running back to back.  The
-    device's launch queue holds about a thousand launches: a call made of
-    many small launches (a plain version's loop over the groups) can fill
-    it during the hold and block the host, so such a call is timed again
-    with fewer repetitions."""
-    t0 = time.perf_counter()
-    for i in range(min(len(inputs), 3)):
-        fn(*inputs[i])
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) * 1e3 / min(len(inputs), 3)
-    for n in (reps, max(reps // 8, 2)):
-        hold_ms = 2.0 * n * host_ms + 5.0
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(hold_ms / sleep_ms_per_mcycle * 10 ** 6))
-        t0 = time.perf_counter()
-        start.record()
-        for i in range(n):
-            fn(*inputs[i % len(inputs)])
-        end.record()
-        enqueue_ms = (time.perf_counter() - t0) * 1e3
-        end.synchronize()
-        if enqueue_ms <= hold_ms:
-            return start.elapsed_time(end) / n
-    raise AssertionError(f"enqueue of {n} calls took {enqueue_ms:.1f} ms, "
-                         f"longer than the {hold_ms:.1f} ms hold")
-
-
 def library_ms(c: Case, inputs, reps, sleep_ms) -> tuple[float | None, str]:
     """The library call's time, or None and why: it must run on these
     operands and agree with the plain version."""
@@ -704,7 +822,7 @@ def library_ms(c: Case, inputs, reps, sleep_ms) -> tuple[float | None, str]:
 
 def timings(cases: list[Case], dev) -> list[dict]:
     gen = torch.Generator(device=dev).manual_seed(2)
-    sleep_ms = _sleep_ms_per_mcycle()
+    sleep_ms = sleep_ms_per_mcycle()
     rows = []
     for c in cases:
         if not (c.per_step or c.timed):
@@ -887,6 +1005,11 @@ def serve(arch: str, dev) -> tuple[dict, ServeEngine, dict]:
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = K.launch_counts()
+    bodies = K.body_counts()
+    decode = list(engine.walls["decode"])
+    prefill = {}
+    for bkt, s in engine.walls["prefill"]:
+        prefill.setdefault(bkt, []).append(s)
 
     for r in reqs:
         if not r.done or r.timed_out or len(r.out_tokens) != NEW_TOKENS:
@@ -902,10 +1025,20 @@ def serve(arch: str, dev) -> tuple[dict, ServeEngine, dict]:
         raise AssertionError(f"{arch}: {missing} never launched: {launches}")
     engine.alloc.check()
 
-    decode = engine.walls["decode"]
-    prefill = {}
-    for bkt, s in engine.walls["prefill"]:
-        prefill.setdefault(bkt, []).append(s)
+    # Outside the timed run: serve the first prompts again for a few tokens
+    # with every kernel call recorded; each ftimm_gemm of a decode step
+    # (SLOTS rows) must take the stream body.  The plans are a function of
+    # the shapes, so the timed run's decode steps took the same bodies.
+    again = [Request(rid=len(reqs) + i, prompt=r.prompt, max_new_tokens=3)
+             for i, r in enumerate(reqs[:SLOTS])]
+    with CallRecorder() as recorder:
+        engine.run(again)
+    by_rows = gemm_calls_by_rows_and_body(recorder)
+    decode_bodies = {b: n for (m, b), n in by_rows.items() if m <= SLOTS}
+    if set(decode_bodies) != {"stream"}:
+        raise AssertionError(f"{arch} decode GEMMs took the bodies "
+                             f"{decode_bodies}, not only the stream")
+
     tokens = sum(len(r.out_tokens) for r in reqs)
     stats = {"layers": cfg.num_layers, "requests": len(reqs),
              "tokens": tokens, "wall_s": wall,
@@ -916,7 +1049,9 @@ def serve(arch: str, dev) -> tuple[dict, ServeEngine, dict]:
              "peak_device_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
              "buckets": list(engine.buckets),
              "view_len": engine.kv.table.shape[1] * PAGE,
-             "launches": launches}
+             "launches": launches, "bodies": bodies,
+             "ftimm_gemm_calls_by_rows_and_body_untimed": {
+                 f"{m} {b}": n for (m, b), n in sorted(by_rows.items())}}
     log(f"  served {len(reqs)} requests, {tokens} tokens in {wall:.2f} s: "
         f"{stats['tokens_per_s']:.1f} tokens/s; {len(decode)} decode steps,"
         f" median {stats['decode_step_median_ms']:.2f} ms (first "
@@ -924,7 +1059,10 @@ def serve(arch: str, dev) -> tuple[dict, ServeEngine, dict]:
         + ", ".join(f"{b}: {[round(x, 1) for x in v]}"
                     for b, v in stats["prefill_ms"].items())
         + f"; peak device memory {stats['peak_device_gb']:.2f} GB")
-    log(f"  launches in the serving run: {launches}")
+    log(f"  launches in the serving run: {launches}; bodies {bodies}; "
+        f"ftimm_gemm calls by (rows, body) in {len(again)} more requests of "
+        f"3 tokens, untimed: "
+        f"{stats['ftimm_gemm_calls_by_rows_and_body_untimed']}")
     for r in reqs[:2]:
         log(f"  req {r.rid} ({len(r.prompt)} prompt tokens): {r.out_tokens}")
     return stats, engine, launches
@@ -980,6 +1118,60 @@ class CallRecorder:
                 "kwargs": {k: self._spec(v) for k, v in kwargs.items()}}
         call["count"] += 1
         return fn(*args, **kwargs)
+
+
+def gemm_calls_by_rows_and_body(recorder: CallRecorder) -> dict:
+    """``ftimm_gemm`` launches of a recorded run by (rows M, body)."""
+    out: dict[tuple[int, str], int] = {}
+    for call in recorder.calls.values():
+        if call["kernel"] != "ftimm_gemm":
+            continue
+        a, b = call["args"][:2]
+        key = (K.mkn(call["kwargs"].get("trans", "nn"), a[1], b[1])[0],
+               call["kwargs"].get("body", "fma"))
+        out[key] = out.get(key, 0) + call["count"]
+    return out
+
+
+def gemm_bodies_by_pair(recorder: CallRecorder) -> dict[str, int]:
+    """``ftimm_gemm`` launches of a recorded run by operand pair (bf16 x
+    bf16 with N >= 128, bf16 x bf16 with N < 128, or a mixed / fp32 pair)
+    and body."""
+    out: dict[str, int] = {}
+    for call in recorder.calls.values():
+        if call["kernel"] != "ftimm_gemm":
+            continue
+        a, b = call["args"][:2]
+        trans = call["kwargs"].get("trans", "nn")
+        n = K.mkn(trans, a[1], b[1])[2]
+        if a[3] == b[3] == BF16:
+            pair = "bf16" if n >= 128 else "bf16 N<128"
+        else:
+            pair = "mixed/fp32"
+        key = f"{pair} {call['kwargs'].get('body', 'fma')}"
+        out[key] = out.get(key, 0) + call["count"]
+    return dict(sorted(out.items()))
+
+
+def check_train_bodies(arch: str, by_pair: dict, bodies: dict) -> None:
+    """A bf16 training run launches ``ftimm_gemm`` through the tensor-core
+    and stream bodies, and the FMA body only for the mixed and fp32 pairs
+    (the fp32 cotangents of the logits and the router) and for the bf16
+    products of fewer than 128 columns that the CMR model plans on it (the
+    routers' 8 or 16 experts); the ragged dW takes the tensor cores."""
+    bad = {k: v for k, v in by_pair.items()
+           if k.startswith("bf16 fma") or (k.startswith("mixed/fp32")
+                                            and not k.endswith(" fma"))}
+    if bad:
+        raise AssertionError(f"{arch} train: ftimm_gemm bodies {by_pair}")
+    fma = sum(v for k, v in by_pair.items() if k.endswith(" fma"))
+    if fma != bodies["ftimm_gemm"]["fma"]:
+        raise AssertionError(f"{arch} train: {fma} FMA calls recorded, "
+                             f"{bodies['ftimm_gemm']['fma']} counted")
+    dw = bodies["ftimm_gemm_ragged_dw"]
+    if dw["fma"]:
+        raise AssertionError(f"{arch} train: the ragged dW took the FMA "
+                             f"body: {dw}")
 
 
 def _strided(spec, gen):
@@ -1186,6 +1378,10 @@ def train(arch: str, dev, opt_cfg: OptConfig, *, compute_dtype=None,
     if gate and missing:
         raise AssertionError(f"{arch} train: {missing} never launched: "
                              f"{launches}")
+    bodies = K.body_counts()
+    by_pair = gemm_bodies_by_pair(recorder)
+    if gate:
+        check_train_bodies(arch, by_pair, bodies)
     walls = [log_[0]["wall_s"]] + [b["wall_s"] - a["wall_s"]
                                    for a, b in zip(log_, log_[1:])]
     median = statistics.median(walls[1:])
@@ -1198,7 +1394,8 @@ def train(arch: str, dev, opt_cfg: OptConfig, *, compute_dtype=None,
              "peak_device_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
              "launches": launches,
              "launches_per_step": {k: v / TRAIN_STEPS
-                                   for k, v in launches.items() if v}}
+                                   for k, v in launches.items() if v},
+             "bodies": bodies, "ftimm_gemm_bodies_by_pair": by_pair}
     log(f"  {arch}: {cfg.num_layers} layers, {params / 1e9:.3f} B params, "
         f"{cfg.compute_dtype} compute, {TRAIN_STEPS} steps of {TRAIN_BATCH} "
         f"x {TRAIN_SEQ}, lr {[f'{x:.2e}' for x in stats['lrs']]}: losses "
@@ -1207,7 +1404,8 @@ def train(arch: str, dev, opt_cfg: OptConfig, *, compute_dtype=None,
         f"{walls[0]:.2f} s), {stats['tokens_per_s']:.1f} tokens/s; peak "
         f"device memory {stats['peak_device_gb']:.2f} GB")
     log(f"  launches per step: {stats['launches_per_step']}; "
-        f"{len(recorder.calls)} distinct kernel calls")
+        f"{len(recorder.calls)} distinct kernel calls; bodies {bodies}; "
+        f"ftimm_gemm launches by operand pair and body: {by_pair}")
     free_card()
     return stats, launches, recorder
 
@@ -1242,7 +1440,7 @@ def schedule_witness(dev) -> dict:
 # The kernels line
 # ---------------------------------------------------------------------------
 
-def kernel_entries(rows, launches, worst) -> list[dict]:
+def kernel_entries(rows, launches, worst, bodies) -> list[dict]:
     entries = []
     for name in K.KERNELS:
         phase, model = home = HOME[name]
@@ -1275,6 +1473,9 @@ def kernel_entries(rows, launches, worst) -> list[dict]:
             "library_ms": lib, "per": per,
             "launches_by_run": {f"{p} {m}": launches[(p, m)][name]
                                 for p, m in launches},
+            **({"bodies_by_run": {f"{p} {m}": bodies[(p, m)][name]
+                                  for p, m in bodies}}
+               if name in K.body_counts() else {}),
             "shapes": [{k: r[k] for k in ("model", "phase", "label",
                                           "per_step", "entry_calls", "ms",
                                           "plain_ms",
@@ -1315,6 +1516,7 @@ def main() -> int:
     trn_cases = train_cases()
     log("[check] kernels against their plain versions")
     worst = check(qwen_cases + moe_cases + trn_cases + edge_cases(), dev)
+    bodies_check = check_bodies(dev)
     free_card()
     phases["check"] = time.monotonic() - t0
     log(f"[check] done in {phases['check']:.1f} s")
@@ -1390,11 +1592,16 @@ def main() -> int:
             f"{r['plain_ms'] * 1e3:9.1f} us  library {lib_s:>9s} us  "
             f"bound {r['bound_ms'] * 1e3:7.1f} us ({r['bound_by']})")
     phases["all"] = time.monotonic() - t_all
-    log(json.dumps({"serve": stats, "moe_reference": refs,
+    log(json.dumps({"bodies_check": bodies_check, "serve": stats,
+                    "moe_reference": refs,
                     "train_reference": train_refs, "train": train_stats,
                     "train_schedule": witness, "phases_s": phases}))
     log(card)
-    print(json.dumps({"kernels": kernel_entries(rows, launches, worst)}))
+    bodies = {("serve", a): stats[a]["bodies"] for a in stats}
+    bodies.update({("train", a): train_stats[a]["bodies"]
+                   for a in train_stats})
+    print(json.dumps({"kernels": kernel_entries(rows, launches, worst,
+                                                bodies)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -14,13 +14,18 @@ per candidate tile:
     leaves SMs idle -- the GPU counterpart of the paper's per-shape upper
     bound on utilization.
 
-The estimate only ranks tiles; it is not a claim about the card's speed.
+Each body of the kernels runs at its own peak: the tensor cores' bf16 rate,
+the CUDA cores' fp32 FMA rate, and the weight stream (bytes-bound by design:
+its FMAs are priced at the FMA rate, its grid fills the SMs with K slices).
+The estimate only ranks tiles and bodies; it is not a claim about the
+card's speed.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-from ...kernels.ftimm.kernel import smem_bytes
+from ...kernels.ftimm.kernel import (STREAM_STRIP, smem_bytes, stream_rows,
+                                     stream_slice)
 
 
 def ceil_to(x: int, b: int) -> int:
@@ -38,17 +43,32 @@ class HopperSpec:
     sms: int = 132
     smem_per_block: int = 232_448          # 227 KB usable by one block
     hbm_bw: float = 3.35e12                # bytes/s
+    l2_bytes: float = 50e6
     peak_flops_bf16: float = 989e12        # tensor cores
     peak_flops_fp32: float = 67e12         # CUDA cores, FMA
 
-    def kernel_flops(self) -> float:
-        """Peak of the engine the port's kernels use: every operand type is
-        widened to fp32 and multiplied with FMAs on the CUDA cores (tensor
-        core MMA is later work)."""
-        return self.peak_flops_fp32
+    def kernel_flops(self, body: str = "fma") -> float:
+        """Peak of the engine a kernel body uses: the tensor cores' bf16 rate
+        for "tc"; CUDA-core fp32 FMAs for "fma" (every operand widened to
+        fp32) and for "stream" (FMAs on the unpacked bf16 pairs)."""
+        return self.peak_flops_bf16 if body == "tc" else self.peak_flops_fp32
 
 
 H100 = HopperSpec()
+# A tensor-core CTA's TMA copies run several stages deep, so one CTA can
+# draw more than its 1/132 share of device-memory bandwidth; the model
+# grants it up to this many shares.  The FMA body's loads pass through
+# registers and get their one share.  The value decides the small grids:
+# at the bucket prefills' projections (128 rows) it plans the tensor-core
+# 128 x 128 tile, where one share would plan an FMA tile that
+# ``launch.sweep_gemm --set prefill`` timed 7-15x slower (PERF.md).
+TC_SM_BW_SHARES = 4
+# CTAs of the stream body the model puts on one SM.  More resident CTAs
+# fit (256 threads of about 90 registers each), but one per SM with longer
+# K slices was as fast or faster at the decode shapes than two with
+# shorter ones (``launch.sweep_gemm``, PERF.md): the fixed cost of a CTA
+# (staging its rows, the slice reduction) is paid once per slice.
+STREAM_CTAS_PER_SM = 1
 
 
 def occupancy(ctas: int, spec: HopperSpec = H100) -> float:
@@ -76,34 +96,82 @@ class PlanEstimate:
 
 def _estimate(g: int, m: int, k: int, n: int, *, bm: int, bn: int, bk: int,
               a_reads: int, b_reads: int, in_bytes: int, out_bytes: int,
-              panels: int, spec: HopperSpec) -> PlanEstimate:
+              panels: int, spec: HopperSpec, body: str = "fma",
+              stages: int = 4, dim_order: str = "mn") -> PlanEstimate:
     gm, gn, gk = cdiv(m, bm), cdiv(n, bn), cdiv(k, bk)
     ctas = g * gm * gn
     occ = max(occupancy(ctas, spec), 1e-3)
     flops_useful = 2.0 * g * m * n * k * panels
     flops_padded = 2.0 * ctas * bm * bn * gk * bk * panels
-    hbm = (a_reads * m * k * gn * in_bytes
-           + b_reads * k * n * gm * in_bytes * panels
-           + g * m * n * out_bytes)
+    if body == "tc":
+        # The grid walks the inner dimension of dim_order fastest, so the
+        # outer operand's panel is reused from L2 by the consecutive tiles
+        # and read once; the inner operand is read once too when it fits
+        # half the L2, else once per outer tile.
+        a_once, b_once = m * k * in_bytes, k * n * in_bytes
+        fits = spec.l2_bytes / 2
+        if dim_order == "mn":
+            hbm = a_once + b_once * (1 if b_once <= fits else gm)
+        else:
+            hbm = b_once + a_once * (1 if a_once <= fits else gn)
+        hbm += m * n * out_bytes
+    else:
+        hbm = (a_reads * m * k * gn * in_bytes
+               + b_reads * k * n * gm * in_bytes * panels
+               + g * m * n * out_bytes)
+    bw_share = min(occ * TC_SM_BW_SHARES, 1.0) if body == "tc" else occ
     return PlanEstimate(
         flops_useful=flops_useful,
         flops_padded=flops_padded,
         hbm_bytes=float(hbm),
-        t_compute=flops_padded / (spec.kernel_flops() * occ),
-        t_memory=hbm / (spec.hbm_bw * occ),
-        smem_bytes=smem_bytes(bm, bn, bk, panels),
+        t_compute=flops_padded / (spec.kernel_flops(body) * occ),
+        t_memory=hbm / (spec.hbm_bw * bw_share),
+        smem_bytes=smem_bytes(bm, bn, bk, panels, body=body, stages=stages),
         occupancy=occ,
     )
 
 
 def estimate(m: int, k: int, n: int, *, bm: int, bn: int, bk: int,
              in_bytes: int = 4, out_bytes: int = 4, panels: int = 1,
-             spec: HopperSpec = H100) -> PlanEstimate:
+             spec: HopperSpec = H100, body: str = "fma",
+             stages: int = 4, dim_order: str = "mn") -> PlanEstimate:
     """Model one tile of C(M,N) = A(M,K) B(K,N) on one card.  ``panels`` = 2
-    prices the fused SwiGLU pair (two B panels against one A panel)."""
+    prices the fused SwiGLU pair (two B panels against one A panel);
+    ``body`` "tc" the tensor-core body with a ``stages``-deep ring, whose
+    operand traffic follows the grid order's L2 reuse."""
     return _estimate(1, m, k, n, bm=bm, bn=bn, bk=bk, a_reads=1, b_reads=1,
                      in_bytes=in_bytes, out_bytes=out_bytes, panels=panels,
-                     spec=spec)
+                     spec=spec, body=body, stages=stages, dim_order=dim_order)
+
+
+def estimate_stream(m: int, k: int, n: int, *, kslices: int,
+                    in_bytes: int = 2, out_bytes: int = 4,
+                    spec: HopperSpec = H100) -> PlanEstimate:
+    """Model the weight-stream body (M <= 16): one CTA per (STREAM_STRIP-wide
+    N strip, K slice), STREAM_CTAS_PER_SM of them resident on an SM.  The
+    weight is read once, and so is A: its at most 16 rows stay in the 50 MB
+    L2 for the other strips.  With more than one slice each slice's fp32
+    partial is written and read back once.  The FMAs run on the compiled
+    row count, at the CUDA cores' rate."""
+    rows = stream_rows(m)
+    sl, slices = stream_slice(k, kslices)
+    strips = cdiv(n, STREAM_STRIP)
+    ctas = strips * slices
+    # Its CTAs are short loops of loads: once the grid fills every slot the
+    # card's bandwidth is saturated, and a last partial wave is only a tail.
+    occ = max(min(ctas / (spec.sms * STREAM_CTAS_PER_SM), 1.0), 1e-3)
+    flops_padded = 2.0 * ctas * rows * STREAM_STRIP * sl
+    hbm = (k * n * in_bytes + m * k * in_bytes + m * n * out_bytes
+           + (2 * slices * m * n * 4 if slices > 1 else 0))
+    return PlanEstimate(
+        flops_useful=2.0 * m * n * k,
+        flops_padded=flops_padded,
+        hbm_bytes=float(hbm),
+        t_compute=flops_padded / (spec.kernel_flops("stream") * occ),
+        t_memory=hbm / (spec.hbm_bw * occ),
+        smem_bytes=smem_bytes(rows, STREAM_STRIP, sl, body="stream"),
+        occupancy=occ,
+    )
 
 
 def estimate_batched(g: int, m: int, k: int, n: int, *, bm: int, bn: int,
@@ -123,7 +191,8 @@ def estimate_batched(g: int, m: int, k: int, n: int, *, bm: int, bn: int,
 def estimate_ragged(g: int, total: int, k: int, n: int, *, bm: int, bn: int,
                     bk: int, ragged: str = "m", in_bytes: int = 4,
                     out_bytes: int = 4, panels: int = 1,
-                    spec: HopperSpec = H100) -> PlanEstimate:
+                    spec: HopperSpec = H100, body: str = "fma",
+                    stages: int = 2) -> PlanEstimate:
     """Model one tile of the ragged grouped GEMM over ``g`` groups.
 
     ``ragged == "m"`` (the forward): ``total`` rows of a flat (total, k)
@@ -139,7 +208,8 @@ def estimate_ragged(g: int, total: int, k: int, n: int, *, bm: int, bn: int,
     is (D tile x F tile, group): both row operands stream once per output
     tile of their group, the rows are walked in ``bk`` steps with one
     partial step per group, and each of the G panels is written once,
-    empty ones too."""
+    empty ones too.  ``body`` "tc" prices the dW on the tensor-core body
+    with a ``stages``-deep ring."""
     if ragged == "k":
         gm, gn = cdiv(k, bm), cdiv(n, bn)
         steps = cdiv(total, bk) + max(min(g, total) - 1, 0)
@@ -148,17 +218,20 @@ def estimate_ragged(g: int, total: int, k: int, n: int, *, bm: int, bn: int,
         flops_padded = 2.0 * gm * bm * gn * bn * steps * bk
         hbm = (total * k * gn * in_bytes + total * n * gm * in_bytes
                + g * k * n * out_bytes)
+        bw_share = min(occ * TC_SM_BW_SHARES, 1.0) if body == "tc" else occ
         return PlanEstimate(
             flops_useful=2.0 * total * k * n,
             flops_padded=flops_padded,
             hbm_bytes=float(hbm),
-            t_compute=flops_padded / (spec.kernel_flops() * occ),
-            t_memory=hbm / (spec.hbm_bw * occ),
-            smem_bytes=smem_bytes(bm, bn, bk),
+            t_compute=flops_padded / (spec.kernel_flops(body) * occ),
+            t_memory=hbm / (spec.hbm_bw * bw_share),
+            smem_bytes=smem_bytes(bm, bn, bk, body=body, stages=stages),
             occupancy=occ,
         )
     if ragged != "m":
         raise ValueError(f"unknown ragged axis: {ragged!r}")
+    if body != "fma":
+        raise ValueError("the ragged forward has only the FMA body")
     gn, gk = cdiv(n, bn), cdiv(k, bk)
     chunks = cdiv(total, bm) + max(min(g, total) - 1, 0)
     ctas = gn * chunks
@@ -170,7 +243,7 @@ def estimate_ragged(g: int, total: int, k: int, n: int, *, bm: int, bn: int,
         flops_useful=2.0 * total * n * k * panels,
         flops_padded=flops_padded,
         hbm_bytes=float(hbm),
-        t_compute=flops_padded / (spec.kernel_flops() * occ),
+        t_compute=flops_padded / (spec.kernel_flops(body) * occ),
         t_memory=hbm / (spec.hbm_bw * occ),
         smem_bytes=smem_bytes(bm, bn, bk, panels),
         occupancy=occ,

@@ -32,7 +32,8 @@ import torch
 
 from ...kernels.ftimm import ops as _ops
 from ...kernels.ftimm.epilogue import IDENTITY, Epilogue
-from ...kernels.ftimm.kernel import mkn, row_groups
+from ...kernels.ftimm.kernel import (gemm_operands_ok, mkn,
+                                     ragged_dw_operands_mn, row_groups)
 from .tuner import (note_epilogue, note_plan_use, plan_batched_gemm,
                     plan_gemm, plan_ragged_gemm)
 
@@ -62,9 +63,12 @@ def _needs_grad(*tensors) -> bool:
 
 def _run_dense(a, b, trans: str, out_dtype, epi: Epilogue = IDENTITY,
                bias=None, residual=None, scale=None) -> torch.Tensor:
-    """Plan one dense GEMM and run it."""
+    """Plan one dense GEMM (its body too: the planner sees the operand
+    widths and whether TMA can read them as laid out) and run it."""
     m, k, n = mkn(trans, a.shape, b.shape)
-    plan = plan_gemm(m, k, n, a.element_size(), out_dtype.itemsize)
+    a_ok, b_ok = gemm_operands_ok(a, b, trans)
+    plan = plan_gemm(m, k, n, a.element_size(), out_dtype.itemsize,
+                     b_bytes=b.element_size(), a_ok=a_ok, b_ok=b_ok)
     note_plan_use("dense", plan)
     if not epi.is_identity:
         note_epilogue("dense", True)
@@ -380,11 +384,14 @@ def _run_ragged_dw(x, dy, offsets, out_dtype) -> torch.Tensor:
     """The ragged T2 backward dW, planned with ragged="k" (the ragged rows
     are the contraction; each group owns a D x F panel)."""
     g = offsets.shape[0] - 1
+    x_mn, dy_mn = ragged_dw_operands_mn(x, dy)
     plan = plan_ragged_gemm(g, x.shape[0], x.shape[1], dy.shape[1],
-                            x.element_size(), out_dtype.itemsize, ragged="k")
+                            x.element_size(), out_dtype.itemsize, ragged="k",
+                            b_bytes=dy.element_size(), a_ok=x_mn, b_ok=dy_mn)
     note_plan_use("ragged", plan)
     return _ops.ragged_gemm_dw(x, dy, offsets, bm=plan.bm, bn=plan.bn,
-                               bk=plan.bk, out_dtype=out_dtype)
+                               bk=plan.bk, out_dtype=out_dtype,
+                               body=plan.body)
 
 
 class _Ragged(torch.autograd.Function):

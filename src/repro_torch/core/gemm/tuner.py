@@ -1,9 +1,13 @@
-"""Dynamic adjusting (paper Sec. IV-C): choose the tile of each GEMM shape
-from the CMR model, once per shape signature.
+"""Dynamic adjusting (paper Sec. IV-C): choose the body and tile of each
+GEMM shape from the CMR model, once per shape signature.
 
-The candidates are exactly the tiles the CUDA kernels are compiled for
-(``kernels.ftimm.kernel.TILES``) in both grid orders, filtered by the
-227 KB shared-memory budget of a block, and scored with ``cmr.estimate*``.
+The candidates are exactly what the CUDA kernels are compiled for: the FMA
+body's tiles (``kernels.ftimm.kernel.TILES``) in both grid orders, and,
+where the call's operand types and layouts allow them
+(``kernel.gemm_bodies`` / ``kernel.ragged_dw_bodies``), the tensor-core
+tiles (``kernel.TC_TILES``) and the weight stream's K slice counts; each
+is filtered by the 227 KB shared-memory budget of a block and scored with
+``cmr.estimate*`` at its body's own rate.
 Plans are LRU-cached per signature, so planning happens once per shape and
 is free afterwards.  Every plan is analytic (the CMR argmin): the measured
 plan store, autotuning, calibration and placement on a mesh are not ported
@@ -16,9 +20,12 @@ import collections
 import functools
 from dataclasses import dataclass
 
-from ...kernels.ftimm.kernel import TILES
+from ...kernels.ftimm.kernel import (STREAM_SMEM, STREAM_STRIP,
+                                     TC_STAGES, TC_TILES, TILES, gemm_bodies,
+                                     ragged_dw_bodies, stream_rows,
+                                     stream_slice)
 from .cmr import (H100, HopperSpec, PlanEstimate, ceil_to, estimate,
-                  estimate_batched, estimate_ragged)
+                  estimate_batched, estimate_ragged, estimate_stream)
 from .shapes import GemmClass, classify
 
 
@@ -27,11 +34,14 @@ class GemmPlan:
     bm: int
     bn: int
     bk: int
-    nsplit: int = 1                 # in-kernel split-K factor
+    nsplit: int = 1                 # the split-K kernel's factor (always 1
+                                    # on the model paths, as in the reference)
     dim_order: str = "mn"
     gemm_class: GemmClass = GemmClass.REGULAR
     est: PlanEstimate | None = None
     mode: str = "analytic"
+    body: str = "fma"               # "fma" | "tc" | "stream"
+    kslices: int = 1                # the stream body's K slices
 
     @property
     def t_total(self) -> float:
@@ -39,32 +49,74 @@ class GemmPlan:
 
     def kernel_kwargs(self) -> dict:
         return dict(bm=self.bm, bn=self.bn, bk=self.bk, nsplit=self.nsplit,
-                    dim_order=self.dim_order)
+                    dim_order=self.dim_order, body=self.body,
+                    kslices=self.kslices)
 
 
 def _candidates(cls: GemmClass, estimator, spec: HopperSpec,
-                orders: tuple[str, ...] = ("mn", "nm")) -> list[GemmPlan]:
+                orders: tuple[str, ...] = ("mn", "nm"), tiles=TILES,
+                body: str = "fma",
+                order_aware: bool = False) -> list[GemmPlan]:
     cands = []
-    for bm, bn, bk in TILES:
-        e = estimator(bm=bm, bn=bn, bk=bk)
-        if e.smem_bytes > spec.smem_per_block:
-            continue
-        # The model does not see L2 locality, so the two grid orders tie
-        # and the argmin keeps "mn"; both stay candidates for measurement.
+    for bm, bn, bk in tiles:
         for order in orders:
+            # An ``order_aware`` estimator (the dense tensor-core body)
+            # prices the grid order's L2 reuse; the others do not see L2
+            # locality, so the two orders tie and the argmin keeps "mn"
+            # (both stay candidates).
+            e = (estimator(bm=bm, bn=bn, bk=bk, dim_order=order)
+                 if order_aware else estimator(bm=bm, bn=bn, bk=bk))
+            if e.smem_bytes > spec.smem_per_block:
+                continue
             cands.append(GemmPlan(bm=bm, bn=bn, bk=bk, dim_order=order,
-                                  gemm_class=cls, est=e))
+                                  gemm_class=cls, est=e, body=body))
+    return cands
+
+
+def _stream_candidates(cls: GemmClass, m: int, k: int, n: int, in_bytes: int,
+                       out_bytes: int, spec: HopperSpec) -> list[GemmPlan]:
+    """The stream body at each K slice count 1, 2, 4, ... 64 (as cut by
+    ``stream_slice``) whose slice of staged rows fits STREAM_SMEM."""
+    rows = stream_rows(m)
+    cands, seen = [], set()
+    for want in (1, 2, 4, 8, 16, 32, 64):
+        sl, slices = stream_slice(k, want)
+        if slices in seen or rows * sl * 2 > STREAM_SMEM:
+            continue
+        seen.add(slices)
+        e = estimate_stream(m, k, n, kslices=slices, in_bytes=in_bytes,
+                            out_bytes=out_bytes, spec=spec)
+        cands.append(GemmPlan(bm=rows, bn=STREAM_STRIP, bk=sl,
+                              gemm_class=cls, est=e, body="stream",
+                              kslices=slices))
     return cands
 
 
 def gemm_candidates(m: int, k: int, n: int, in_bytes: int = 4,
                     out_bytes: int = 4, spec: HopperSpec = H100, *,
-                    panels: int = 1) -> list[GemmPlan]:
-    """Every compiled tile (x grid order) that fits a block's shared memory,
-    scored by the CMR model.  ``panels`` = 2 for the fused SwiGLU pair."""
-    est = functools.partial(estimate, m, k, n, in_bytes=in_bytes,
-                            out_bytes=out_bytes, panels=panels, spec=spec)
-    return _candidates(classify(m, k, n), est, spec)
+                    panels: int = 1, b_bytes: int | None = None,
+                    a_ok: bool = True, b_ok: bool = True) -> list[GemmPlan]:
+    """Every compiled tile (x grid order) of every body the call allows
+    (``gemm_bodies``: the operand widths ``in_bytes`` for A and ``b_bytes``
+    for B, and whether TMA can read A and B as laid out) that fits a
+    block's shared memory, scored by the CMR model.  ``panels`` = 2 for the
+    fused SwiGLU pair (FMA only)."""
+    b_bytes = b_bytes or in_bytes
+    cls = classify(m, k, n)
+    cands = []
+    for body in gemm_bodies(in_bytes, b_bytes, m, a_ok, b_ok, panels):
+        if body == "stream":
+            cands += _stream_candidates(cls, m, k, n, max(in_bytes, b_bytes),
+                                        out_bytes, spec)
+            continue
+        est = functools.partial(estimate, m, k, n,
+                                in_bytes=max(in_bytes, b_bytes),
+                                out_bytes=out_bytes, panels=panels, spec=spec,
+                                body=body, stages=TC_STAGES["ftimm_gemm"])
+        cands += _candidates(cls, est, spec,
+                             tiles=TC_TILES if body == "tc" else TILES,
+                             body=body, order_aware=body == "tc")
+    return cands
 
 
 def batched_candidates(g: int, m: int, k: int, n: int, in_bytes: int = 4,
@@ -82,19 +134,31 @@ def batched_candidates(g: int, m: int, k: int, n: int, in_bytes: int = 4,
 
 def ragged_candidates(g: int, total: int, k: int, n: int, in_bytes: int = 4,
                       out_bytes: int = 4, ragged: str = "m",
-                      spec: HopperSpec = H100, *,
-                      panels: int = 1) -> list[GemmPlan]:
+                      spec: HopperSpec = H100, *, panels: int = 1,
+                      b_bytes: int | None = None, a_ok: bool = True,
+                      b_ok: bool = True) -> list[GemmPlan]:
     """Candidate tiles for the ragged grouped GEMM: the compiled menu,
     scored by ``estimate_ragged``.  The per-group *mean* shape is
     classified: (rows, k, n) for the forward, (k, rows, n) for the dW
-    (``ragged="k"``, whose contraction is the rows).  No grid-order choice:
-    the ragged kernels fix their walk."""
-    est = functools.partial(estimate_ragged, g, total, k, n, ragged=ragged,
-                            in_bytes=in_bytes, out_bytes=out_bytes,
-                            panels=panels, spec=spec)
+    (``ragged="k"``, whose contraction is the rows).  The dW also offers
+    the tensor-core tiles where ``ragged_dw_bodies`` allows them (``a_ok``
+    / ``b_ok``: TMA reads x^T and dy MN-major).  No grid-order choice: the
+    ragged kernels fix their walk."""
     mean = max(total // max(g, 1), 1)
     cls = classify(mean, k, n) if ragged == "m" else classify(k, mean, n)
-    return _candidates(cls, est, spec, orders=("mn",))
+    bodies = (ragged_dw_bodies(in_bytes, b_bytes or in_bytes, a_ok, b_ok)
+              if ragged == "k" else ("fma",))
+    cands = []
+    for body in bodies:
+        est = functools.partial(estimate_ragged, g, total, k, n,
+                                ragged=ragged, in_bytes=in_bytes,
+                                out_bytes=out_bytes, panels=panels, spec=spec,
+                                body=body,
+                                stages=TC_STAGES["ftimm_gemm_ragged_dw"])
+        cands += _candidates(cls, est, spec, orders=("mn",),
+                             tiles=TC_TILES if body == "tc" else TILES,
+                             body=body)
+    return cands
 
 
 def _better(a: GemmPlan, b: GemmPlan) -> bool:
@@ -119,11 +183,17 @@ def argmin_plan(cands: list[GemmPlan]) -> GemmPlan:
 
 @functools.lru_cache(maxsize=8192)
 def plan_gemm(m: int, k: int, n: int, in_bytes: int = 4, out_bytes: int = 4,
-              spec: HopperSpec = H100, *, panels: int = 1) -> GemmPlan:
-    """Pick the tile for C(M,N) = A(M,K) B(K,N).  The epilogue is always
-    fused into the flush, so it does not change the choice."""
+              spec: HopperSpec = H100, *, panels: int = 1,
+              b_bytes: int | None = None, a_ok: bool = True,
+              b_ok: bool = True) -> GemmPlan:
+    """Pick the body and tile for C(M,N) = A(M,K) B(K,N).  ``in_bytes`` /
+    ``b_bytes``: A's and B's element widths (B defaults to A's); ``a_ok`` /
+    ``b_ok``: whether TMA can read each operand as laid out
+    (``kernel.gemm_operands_ok``).  The epilogue is always fused into the
+    flush, so it does not change the choice."""
     return argmin_plan(gemm_candidates(m, k, n, in_bytes, out_bytes, spec,
-                                       panels=panels))
+                                       panels=panels, b_bytes=b_bytes,
+                                       a_ok=a_ok, b_ok=b_ok))
 
 
 @functools.lru_cache(maxsize=8192)
@@ -141,17 +211,22 @@ def plan_batched_gemm(g: int, m: int, k: int, n: int, in_bytes: int = 4,
 @functools.lru_cache(maxsize=8192)
 def plan_ragged_gemm(g: int, total: int, k: int, n: int, in_bytes: int = 4,
                      out_bytes: int = 4, ragged: str = "m",
-                     spec: HopperSpec = H100, *,
-                     panels: int = 1) -> GemmPlan:
+                     spec: HopperSpec = H100, *, panels: int = 1,
+                     b_bytes: int | None = None, a_ok: bool = True,
+                     b_ok: bool = True) -> GemmPlan:
     """Pick the tile for a ragged grouped GEMM over ``g`` groups.  The key
     (g, total, k, n, widths) is the distribution signature: the per-group
     counts stay on the device, so the plan prices the aggregate (total
     rows plus one partial chunk per group) and serves every call with the
     same signature.  ``ragged="m"``: the forward, rows are ragged;
     ``ragged="k"``: the dW, the ragged rows are the contraction and ``k`` x
-    ``n`` is each group's output panel (D x F)."""
+    ``n`` is each group's output panel (D x F); ``a_ok`` / ``b_ok`` say
+    whether TMA reads x^T and dy MN-major (``kernel.ragged_dw_operands_mn``),
+    ``b_bytes`` is dy's width (defaults to x's)."""
     return argmin_plan(ragged_candidates(g, total, k, n, in_bytes, out_bytes,
-                                         ragged, spec, panels=panels))
+                                         ragged, spec, panels=panels,
+                                         b_bytes=b_bytes, a_ok=a_ok,
+                                         b_ok=b_ok))
 
 
 def capacity_multiple(elt_bytes: int) -> int:

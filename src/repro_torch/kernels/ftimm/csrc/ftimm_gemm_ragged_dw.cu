@@ -13,26 +13,46 @@
 // group changes -- a protocol that needs the grid to run in order.  Here the
 // grid is (D tile x F tile, group): each CTA reads offsets[g] and
 // offsets[g + 1] on the device (clamped to [0, T]), walks only its own
-// group's rows in BK-row steps through the shared dense body
-// (ftimm_common.cuh: accumulate, which masks the row remainder on BOTH
-// operands, since 0 * NaN is NaN), keeps the fp32 sums in registers and
-// stores its panel tile once.  No two CTAs touch one output element, so there
-// are no atomics and no host synchronisation, and the result is the same on
-// every run.
+// group's rows, keeps the fp32 sums in registers and stores its panel tile
+// once.  No two CTAs touch one output element, so there are no atomics and
+// no host synchronisation, and the result is the same on every run.
+//
+// Two bodies; the planner (plan_ragged_gemm, ragged="k") picks one among
+// those the operands allow (kernel.py, ragged_dw_bodies):
+//
+// * Tensor cores ("tc", ftimm_gemm_ragged_dw_tc_launch): bf16 x bf16 with x
+//   and dy row-major (D and F unit-stride).  The body of ftimm_tc.cuh with a
+//   2-stage ring: op(A) = x^T (D x rows) and op(B) = dy (rows x F) are
+//   both MN-major, read by TMA as 64-wide blocks of 64 rows from row
+//   offsets[g] on, and multiplied by wgmma into fp32 accumulators.  The
+//   group's row tail: the last 64-row step reads rows past offsets[g + 1],
+//   which belong to the next group (TMA zero-fills only past T), so the
+//   consumers zero those lines of both operands in shared memory before the
+//   wgmma reads them.  The tile is stored through a staging tile with
+//   16-byte vectors; an empty group runs no step and stores its zero panel
+//   the same way.  Its sums run in the tensor cores' order, so the result
+//   is not bit-identical to the plain version's, but it is the same on
+//   every run.
+// * CUDA-core FMAs ("fma", ftimm_gemm_ragged_dw_launch): the fp32 and mixed
+//   bf16 x fp32 pairs and operands TMA cannot read, through the shared
+//   dense body (ftimm_common.cuh: accumulate, which masks the row remainder
+//   on BOTH operands, since 0 * NaN is NaN) in BK-row steps.
 //
 // What bounds it on the H100: at the llama4-scout training shape (T = 1024
 // routed rows, D = 5120, F = 8192, G = 16, bf16) the output, not the
 // arithmetic: 16 x 5120 x 8192 bf16 = 1.34 GB written (0.40 ms at 3.35
 // TB/s) against 27 MB of inputs and 86 GFLOP (0.087 ms at 989 TFLOP/s).
-// Every panel is written whole, empty ones too.  The store is coalesced: the
-// threads of a warp write neighbouring columns of one output row.  With
-// skewed routing one expert owns most rows and its CTAs walk long K loops
-// while the others only store zeros; that imbalance is accepted for now
-// (PERF.md records the time).
+// Every panel is written whole, empty ones too, so the store path decides
+// the time: whole 16-byte vectors, and a ring of only 2 stages (a group's
+// rows are few: at T = 1024 over 16 experts one or two 64-row steps).
+// With skewed routing one expert owns most rows
+// and its CTAs walk long K loops while the others only store zeros.
 //
-// C interface, bound from kernel.py with ctypes.  Returns cudaGetLastError()
-// after the launch (0 = launched).
+// C interface, bound from kernel.py with ctypes.  Each entry returns
+// cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for a tile, type code or operand it does not take.
 #include "ftimm_common.cuh"
+#include "ftimm_tc.cuh"
 
 struct RaggedDwArgs {
   const void* x;
@@ -105,4 +125,77 @@ extern "C" int ftimm_gemm_ragged_dw_launch(int device, int tile, int types, cons
   }
   if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core body
+// ---------------------------------------------------------------------------
+
+struct RaggedDwTcArgs {
+  const int* offsets;
+  void* c;
+  int T, D, F;
+};
+
+template <class Tl, typename TC>
+__global__ void __launch_bounds__(ftimm::tc::THREADS, 1)
+    ftimm_gemm_ragged_dw_tc_kernel(const __grid_constant__ CUtensorMap tx,
+                                   const __grid_constant__ CUtensorMap tdy, RaggedDwTcArgs p) {
+  int m0, n0;
+  ftimm::tile_coords(ftimm::tc::BM, Tl::BN, p.D, p.F, 0, m0, n0);
+  const int g = blockIdx.y;
+  const int lo = min(max(p.offsets[g], 0), p.T);
+  const int hi = min(max(p.offsets[g + 1], lo), p.T);
+  const ftimm::EpiArgs none{nullptr, 0, 0, 0.f, nullptr, 0, 0, nullptr, 0};
+  TC* c = static_cast<TC*>(p.c) + (int64_t)g * p.D * p.F;
+  ftimm::tc::run_tile<Tl, true, true, __nv_bfloat16, TC>(&tx, &tdy, m0, n0, lo, hi, true, c, p.F,
+                                                          p.D, p.F, none, g);
+}
+
+template <class Tl, typename TC>
+static int launch_tc(const CUtensorMap& tx, const CUtensorMap& tdy, const RaggedDwTcArgs& p,
+                     int G, cudaStream_t stream) {
+  auto kernel = ftimm_gemm_ragged_dw_tc_kernel<Tl, TC>;
+  constexpr int smem = Tl::SMEM;
+  const cudaError_t err = ftimm::tc::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(ftimm::cdiv(p.D, ftimm::tc::BM) * ftimm::cdiv(p.F, Tl::BN), G);
+  kernel<<<grid, ftimm::tc::THREADS, smem, stream>>>(tx, tdy, p);
+  return (int)cudaGetLastError();
+}
+
+// The tensor-core tile menu (kernel.py's TC_TILES), with a 2-stage ring.
+using DwTcTile0 = ftimm::tc::Tile<128, 2>;
+using DwTcTile1 = ftimm::tc::Tile<256, 2>;
+#define FTIMM_DW_TC_TILES(X) X(0, DwTcTile0) X(1, DwTcTile1)
+
+template <class Tl>
+static int launch_tc_tile(int types, const void* x, const void* dy, int64_t sxt, int64_t sxd,
+                          int64_t syt, int64_t syf, const RaggedDwTcArgs& p, int G,
+                          cudaStream_t s) {
+  // op(A)(d, t) = x[t][d], op(B)(t, f) = dy[t][f]: both must be MN-major.
+  CUtensorMap tx, tdy;
+  if (ftimm::tc::encode_operand(&tx, x, p.D, p.T, sxd, sxt, ftimm::tc::BM) != 1 ||
+      ftimm::tc::encode_operand(&tdy, dy, p.F, p.T, syf, syt, Tl::BN) != 1)
+    return (int)cudaErrorInvalidValue;
+  if (types == 0) return launch_tc<Tl, __nv_bfloat16>(tx, tdy, p, G, s);
+  if (types == 1) return launch_tc<Tl, float>(tx, tdy, p, G, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int ftimm_gemm_ragged_dw_tc_launch(int device, int tile, int types, const void* x,
+                                              const void* dy, const int* offsets, void* c, int T,
+                                              int D, int F, int G, long long sxt, long long sxd,
+                                              long long syt, long long syf, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const RaggedDwTcArgs p{offsets, c, T, D, F};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (tile) {
+#define FTIMM_TILE(ID, Tl) \
+  case ID: return launch_tc_tile<Tl>(types, x, dy, sxt, sxd, syt, syf, p, G, s);
+    FTIMM_DW_TC_TILES(FTIMM_TILE)
+#undef FTIMM_TILE
+  }
+  return (int)cudaErrorInvalidValue;
 }

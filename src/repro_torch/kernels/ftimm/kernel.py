@@ -14,6 +14,17 @@ The kernels are CUDA C++ for ``sm_90a`` in ``csrc/``, one source per kernel:
   * ``ftimm_gemm_splitk``   dense fp32 partial products over K slices
                             (summed, then the epilogue, by the wrapper).
 
+``ftimm_gemm`` has three bodies, and ``ftimm_gemm_ragged_dw`` the first
+two: CUDA-core FMAs on any operand types and strides (``"fma"``, the body
+the other kernels share), tensor cores for bf16 x bf16 operands TMA can
+read (``"tc"``: TMA, an mbarrier ring and wgmma, ``csrc/ftimm_tc.cuh``),
+and a K-parallel weight stream for bf16 x bf16 calls of at most 16 rows
+(``"stream"``).  The planner picks the body (``core.gemm.tuner``) among
+those ``gemm_bodies`` / ``ragged_dw_bodies`` allow for the call's types
+and operand layouts, a rule decided before the launch; the wrapper raises
+on a body the operands do not allow.  ``body_counts`` shows which body
+carried a run.
+
 Each is compiled by ``nvcc`` at first use into a shared library with a plain
 C interface under the git-ignored ``build/ftimm/`` directory of the checkout
 (one ``nvcc`` per source, all started together; a library is named by the
@@ -49,9 +60,25 @@ BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "ftimm"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# The compiled tile menu (bm, bn, bk), in the order of Tile0..Tile3 in
-# csrc/ftimm_common.cuh.  The planner chooses among exactly these.
+# The compiled tile menu (bm, bn, bk) of the FMA body, in the order of
+# Tile0..Tile3 in csrc/ftimm_common.cuh.  The planner chooses among exactly
+# these.
 TILES = ((16, 32, 64), (32, 64, 32), (64, 64, 32), (128, 128, 16))
+# The tensor-core body's tiles (FTIMM_TC_TILES / FTIMM_DW_TC_TILES in
+# csrc), and each kernel's ring depth: the dense GEMM walks long K, a ragged
+# dW group's rows are one or two 64-row steps.
+TC_TILES = ((128, 128, 64), (128, 256, 64))
+TC_STAGES = {"ftimm_gemm": 4, "ftimm_gemm_ragged_dw": 2}
+# The weight-stream body: the compiled row counts (a call of M <= 16 rows
+# runs the smallest that holds M), the output columns of one CTA, the K
+# granularity of a slice, and the shared memory a slice's staged rows may
+# take.
+STREAM_ROWS = (4, 8, 16)
+STREAM_STRIP = 128
+STREAM_SLICE_STEP = 64
+STREAM_SMEM = 24 * 1024
+BODIES = ("fma", "tc", "stream")
+_BODY_KERNELS = {"ftimm_gemm": BODIES, "ftimm_gemm_ragged_dw": ("fma", "tc")}
 
 # (A dtype, B dtype, output dtype) -> the type code of the C entries
 # (FTIMM_TYPES / FTIMM_MIXED_TYPES in csrc/ftimm_common.cuh).  The mixed
@@ -69,6 +96,8 @@ _MIXED = frozenset({"ftimm_gemm", "ftimm_gemm_grouped", "ftimm_gemm_ragged",
 _ACT_CODES = {"none": 0, "silu": 1, "gelu": 2}
 
 _launches = dict.fromkeys(KERNELS, 0)
+_body_launches = {(k, b): 0 for k, bodies in _BODY_KERNELS.items()
+                  for b in bodies}
 
 
 def launch_counts() -> dict[str, int]:
@@ -76,15 +105,137 @@ def launch_counts() -> dict[str, int]:
     return dict(_launches)
 
 
+def body_counts() -> dict[str, dict[str, int]]:
+    """{kernel: {body: launches}} since the last ``reset_launch_counts``,
+    for the kernels with more than one body; each kernel's bodies sum to its
+    ``launch_counts`` entry."""
+    out: dict[str, dict[str, int]] = {}
+    for (kernel, body), n in _body_launches.items():
+        out.setdefault(kernel, {})[body] = n
+    return out
+
+
 def reset_launch_counts() -> None:
     for name in _launches:
         _launches[name] = 0
+    for key in _body_launches:
+        _body_launches[key] = 0
 
 
-def smem_bytes(bm: int, bn: int, bk: int, panels: int = 1) -> int:
-    """Static shared memory of one CTA: fp32 [bk][bm+1] A panel plus
-    ``panels`` [bk][bn+1] B panels (2 for the fused SwiGLU pair)."""
-    return 4 * (bk * (bm + 1) + panels * bk * (bn + 1))
+def smem_bytes(bm: int, bn: int, bk: int, panels: int = 1, *,
+               body: str = "fma", stages: int = 4) -> int:
+    """Shared memory of one CTA.  FMA body: the static fp32 [bk][bm+1] A
+    panel plus ``panels`` [bk][bn+1] B panels (2 for the fused SwiGLU pair).
+    Tensor cores: the ``stages``-deep bf16 ring of (bm x bk) and (bn x bk)
+    boxes, or the flush's fp32 staging tile (bm, bn + 8) if larger, the
+    ring's barriers and 1 KB to align it (csrc/ftimm_tc.cuh, Tile::SMEM).
+    Stream (bm = the compiled row count, bk = the slice): the staged bf16
+    rows, the reduction's fp32 (8 warps x bn) and (bm x bn) tiles."""
+    if body == "fma":
+        return 4 * (bk * (bm + 1) + panels * bk * (bn + 1))
+    if body == "tc":
+        ring = stages * (bm * bk + bn * bk) * 2
+        return max(ring, bm * (bn + 8) * 4) + 16 * stages + 1024
+    if body == "stream":
+        return bm * (bk + 7) // 8 * 8 * 2 + 4 * (8 * bn + bm * bn) + 4
+    raise ValueError(f"unknown body: {body!r}")
+
+
+def tma_major(ptr: int, rows: int, k: int, s_rows: int,
+              s_k: int) -> str | None:
+    """How the tensor-core body reads one operand op(X)(r, k) = X[r * s_rows
+    + k * s_k] of ``rows`` x ``k`` elements: "k" (K has unit stride),
+    "mn" (the rows do), or None when TMA cannot read it -- no unit-stride
+    dimension, a base not 16-byte aligned, or the other stride not a
+    multiple of 16 bytes or shorter than the unit-stride extent (an extent
+    of 1 takes any stride).  The operands are bf16: 16 bytes are 8
+    elements.  The C entries (csrc/ftimm_tc.cuh, encode_operand) apply the
+    same rule."""
+    if rows < 1 or k < 1 or ptr % 16:
+        return None
+    if s_k == 1:
+        major, other, stride, inner = "k", rows, s_rows, k
+    elif s_rows == 1:
+        major, other, stride, inner = "mn", k, s_k, rows
+    else:
+        return None
+    if other == 1:
+        return major
+    return major if stride % 8 == 0 and stride >= inner else None
+
+
+def op_strides(trans: str, a: torch.Tensor,
+               b: torch.Tensor) -> tuple[int, int, int, int]:
+    """(sam, sak, sbk, sbn): element strides of op(A) (M, K) and op(B)
+    (K, N) for ``trans``."""
+    sam, sak = ((a.stride(1), a.stride(0)) if trans == "tn"
+                else (a.stride(0), a.stride(1)))
+    sbk, sbn = ((b.stride(1), b.stride(0)) if trans == "nt"
+                else (b.stride(0), b.stride(1)))
+    return sam, sak, sbk, sbn
+
+
+def gemm_operands_ok(a: torch.Tensor, b: torch.Tensor,
+                     trans: str) -> tuple[bool, bool]:
+    """Whether TMA (and the stream body's 16-byte loads) can read op(A) and
+    op(B) of a dense call, as laid out."""
+    m, k, n = mkn(trans, a.shape, b.shape)
+    sam, sak, sbk, sbn = op_strides(trans, a, b)
+    return (tma_major(a.data_ptr(), m, k, sam, sak) is not None,
+            tma_major(b.data_ptr(), n, k, sbn, sbk) is not None)
+
+
+def gemm_bodies(a_bytes: int, b_bytes: int, m: int, a_ok: bool, b_ok: bool,
+                panels: int = 1) -> tuple[str, ...]:
+    """The bodies of ``ftimm_gemm`` that can take a call, for the planner to
+    choose among: the FMA body takes every type pair and layout; the
+    tensor-core body bf16 x bf16 (2-byte operands: the port has no other)
+    when TMA can read both operands; the stream body bf16 x bf16 of at most
+    16 rows when its 16-byte loads can read B (A is staged element by
+    element).  The fused SwiGLU pair (``panels`` = 2) is FMA only."""
+    bodies = ["fma"]
+    if panels == 1 and a_bytes == b_bytes == 2:
+        if a_ok and b_ok:
+            bodies.append("tc")
+        if m <= STREAM_ROWS[-1] and b_ok:
+            bodies.append("stream")
+    return tuple(bodies)
+
+
+def ragged_dw_bodies(x_bytes: int, dy_bytes: int, x_mn: bool,
+                     dy_mn: bool) -> tuple[str, ...]:
+    """The bodies of ``ftimm_gemm_ragged_dw`` that can take a call: FMA
+    always; tensor cores for bf16 x bf16 when TMA reads x^T and dy
+    MN-major (both row-major, D and F unit-stride), the layout whose
+    group row tail the kernel masks."""
+    if x_bytes == dy_bytes == 2 and x_mn and dy_mn:
+        return ("fma", "tc")
+    return ("fma",)
+
+
+def ragged_dw_operands_mn(x: torch.Tensor, dy: torch.Tensor) -> tuple[bool, bool]:
+    """Whether TMA reads x^T (D x T) and dy (T x F) MN-major."""
+    (t, d), f = x.shape, dy.shape[1]
+    return (tma_major(x.data_ptr(), d, t, x.stride(1), x.stride(0)) == "mn",
+            tma_major(dy.data_ptr(), f, t, dy.stride(1), dy.stride(0)) == "mn")
+
+
+def stream_rows(m: int) -> int:
+    """The compiled row count of the stream body that holds ``m`` rows."""
+    for rows in STREAM_ROWS:
+        if m <= rows:
+            return rows
+    raise ValueError(f"the stream body takes at most {STREAM_ROWS[-1]} rows, "
+                     f"got {m}")
+
+
+def stream_slice(k: int, kslices: int) -> tuple[int, int]:
+    """(slice, slices): K cut into ``kslices`` slices of a whole number of
+    STREAM_SLICE_STEP rows; the count that results (the last slice may be
+    short, none is empty)."""
+    step = STREAM_SLICE_STEP
+    sl = max(-(-max(k, 1) // max(kslices, 1)) + step - 1, step) // step * step
+    return sl, -(-max(k, 1) // sl)
 
 
 def tile_id(bm: int, bn: int, bk: int) -> int:
@@ -163,6 +314,11 @@ _VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_fl
 _ARGTYPES = {
     "ftimm_gemm": [_I, _I, _I, _VP, _VP, _VP, _I, _I, _I, _LL, _LL, _LL, _LL,
                    _I, _VP, _I, _F, _VP, _I, _VP, _VP],
+    "ftimm_gemm_tc": [_I, _I, _I, _VP, _VP, _VP, _I, _I, _I, _LL, _LL, _LL,
+                      _LL, _I, _VP, _I, _F, _VP, _I, _VP, _VP],
+    "ftimm_gemm_stream": [_I, _I, _I, _VP, _VP, _VP, _I, _I, _I, _LL, _LL,
+                          _LL, _LL, _I, _I, _VP, _VP, _VP, _I, _F, _VP, _I,
+                          _VP, _VP],
     "ftimm_gemm_swiglu": [_I, _I, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _LL, _LL,
                           _LL, _LL, _VP],
     "ftimm_gemm_grouped": [_I, _I, _I, _VP, _VP, _VP, _I, _I, _I, _I, _LL, _LL,
@@ -177,6 +333,8 @@ _ARGTYPES = {
                                  _I, _I, _LL, _LL, _LL, _LL, _LL, _VP],
     "ftimm_gemm_ragged_dw": [_I, _I, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
                              _LL, _LL, _LL, _LL, _VP],
+    "ftimm_gemm_ragged_dw_tc": [_I, _I, _I, _VP, _VP, _VP, _VP, _I, _I, _I,
+                                _I, _LL, _LL, _LL, _LL, _VP],
     "ftimm_gemm_splitk": [_I, _I, _I, _VP, _VP, _VP, _I, _I, _I, _I, _I, _LL,
                           _LL, _LL, _LL, _I, _VP],
 }
@@ -184,24 +342,48 @@ _entries: dict[str, object] = {}
 _libs: list[ctypes.CDLL] = []     # keeps the loaded libraries alive
 
 
-def _entry(name: str):
-    fn = _entries.get(name)
+def _entry(name: str, body: str = "fma"):
+    """The C entry of ``name``'s ``body``: ``<name>_launch`` for the FMA
+    body, ``<name>_<body>_launch`` for the others, from the kernel's one
+    library."""
+    key = name if body == "fma" else f"{name}_{body}"
+    fn = _entries.get(key)
     if fn is None:
         lib = ctypes.CDLL(str(build()[name]))
         _libs.append(lib)
-        fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = _ARGTYPES[name]
+        fn = getattr(lib, f"{key}_launch")
+        fn.argtypes = _ARGTYPES[key]
         fn.restype = ctypes.c_int
-        _entries[name] = fn
+        _entries[key] = fn
     return fn
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
+def _launch(name: str, device: torch.device, *args, body: str = "fma") -> None:
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = _entry(name)(device.index or 0, *args, stream)
+    err = _entry(name, body)(device.index or 0, *args, stream)
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} ({body} body) launch failed: CUDA error "
+                           f"{err}")
     _launches[name] += 1
+    if (name, body) in _body_launches:
+        _body_launches[(name, body)] += 1
+
+
+_stream_counters: dict[tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    """The stream body's per-strip arrival counters for the current CUDA
+    stream of ``device``: zeros between launches (the last CTA of a strip
+    resets its own), kept across calls, grown when a call has more strips.
+    One buffer per CUDA stream, so launches that share it run one after
+    another and never count each other's arrivals."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _stream_counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _stream_counters[key] = buf
+    return buf
 
 
 def _cuda_operands(name: str, a: torch.Tensor, b: torch.Tensor, out_dtype,
@@ -269,12 +451,17 @@ def ftimm_gemm_plain(a, b, *, trans: str = "nn", out_dtype=None,
 def ftimm_gemm(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int, bk: int,
                trans: str = "nn", dim_order: str = "mn", out_dtype=None,
                epilogue: Epilogue = IDENTITY, bias=None, residual=None,
-               scale=None) -> torch.Tensor:
+               scale=None, body: str = "fma", kslices: int = 1) -> torch.Tensor:
     """C = epi(op(A) . op(B)) -> (M, N).  trans "nn": A (M,K), B (K,N);
     "tn": A (K,M); "nt": B (N,K).  Operands may be any strided 2-D views.
     ``bias`` / ``scale`` (N,) and ``residual`` (M, N) ride along when the
     epilogue asks for them; the residual has A's dtype.  A and B may be
-    bf16 and fp32 in either order (the product of their exact values)."""
+    bf16 and fp32 in either order (the product of their exact values).
+
+    ``body``: "fma" runs the (bm, bn, bk) tile of TILES; "tc" the (bm, bn,
+    bk) tile of TC_TILES; "stream" cuts K into ``kslices`` slices
+    (``stream_slice``) and ignores the tile.  A body the operands do not
+    allow (``gemm_bodies``) raises."""
     m, k, n = mkn(trans, a.shape, b.shape)
     out_dtype = out_dtype or a.dtype
     if a.device.type == "cpu":
@@ -284,20 +471,47 @@ def ftimm_gemm(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int, bk: int,
     bias = bias if epilogue.bias else None
     scale = scale if epilogue.scale_vec else None
     types = _cuda_operands("ftimm_gemm", a, b, out_dtype, bias, residual, scale)
-    tile = tile_id(bm, bn, bk)
     res = _residual(residual if epilogue.residual else None, (m, n), a.dtype)
     bias32, scale32 = _vec(bias), _vec(scale)
-    sam, sak = ((a.stride(1), a.stride(0)) if trans == "tn"
-                else (a.stride(0), a.stride(1)))
-    sbk, sbn = ((b.stride(1), b.stride(0)) if trans == "nt"
-                else (b.stride(0), b.stride(1)))
+    sam, sak, sbk, sbn = op_strides(trans, a, b)
+    if body != "fma" and body not in gemm_bodies(
+            a.element_size(), b.element_size(), m,
+            *gemm_operands_ok(a, b, trans)):
+        raise ValueError(f"ftimm_gemm: the {body} body cannot take "
+                         f"{a.dtype} x {b.dtype}, M = {m}, strides "
+                         f"{a.stride()} x {b.stride()} ({trans})")
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0:
         return c
     has_scale, scale_val, act = _epi_scalars(epilogue)
-    _launch("ftimm_gemm", a.device, tile, types, a.data_ptr(), b.data_ptr(),
-            c.data_ptr(), m, n, k, sam, sak, sbk, sbn, int(dim_order == "nm"),
-            _ptr(scale32), has_scale, scale_val, _ptr(bias32), act, _ptr(res))
+    epi = (_ptr(scale32), has_scale, scale_val, _ptr(bias32), act, _ptr(res))
+    if body == "fma":
+        _launch("ftimm_gemm", a.device, tile_id(bm, bn, bk), types,
+                a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, sam, sak,
+                sbk, sbn, int(dim_order == "nm"), *epi)
+    elif body == "tc":
+        if (bm, bn, bk) not in TC_TILES:
+            raise ValueError(f"({bm}, {bn}, {bk}) is not a tensor-core tile; "
+                             f"the menu is {TC_TILES}")
+        _launch("ftimm_gemm", a.device, TC_TILES.index((bm, bn, bk)), types,
+                a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, sam, sak,
+                sbk, sbn, int(dim_order == "nm"), *epi, body="tc")
+    elif body == "stream":
+        rows = stream_rows(m)
+        sl, slices = stream_slice(k, kslices)
+        if rows * sl * 2 > STREAM_SMEM or slices > 65535:
+            raise ValueError(f"ftimm_gemm: a stream slice of {sl} x {rows} "
+                             f"rows exceeds {STREAM_SMEM} bytes (K = {k}, "
+                             f"{kslices} slices)")
+        strips = -(-n // STREAM_STRIP)
+        ws = (torch.empty((slices, m, n), dtype=torch.float32,
+                          device=a.device) if slices > 1 else None)
+        counters = _counters(a.device, strips) if slices > 1 else None
+        _launch("ftimm_gemm", a.device, rows, types, a.data_ptr(),
+                b.data_ptr(), c.data_ptr(), m, n, k, sam, sak, sbk, sbn,
+                slices, sl, _ptr(ws), _ptr(counters), *epi, body="stream")
+    else:
+        raise ValueError(f"unknown body: {body!r}")
     return c
 
 
@@ -615,9 +829,12 @@ def ftimm_gemm_ragged_dw_plain(x, dy, group_offsets, *,
 
 def ftimm_gemm_ragged_dw(x: torch.Tensor, dy: torch.Tensor,
                          group_offsets: torch.Tensor, *, bm: int, bn: int,
-                         bk: int, out_dtype=None) -> torch.Tensor:
+                         bk: int, out_dtype=None,
+                         body: str = "fma") -> torch.Tensor:
     """x (T, D), dy (T, F) -> (G, D, F).  ``bm`` / ``bn`` tile the (D, F)
-    panel, ``bk`` is the step over a group's rows (the tile's own)."""
+    panel, ``bk`` is the step over a group's rows (the tile's own): a tile
+    of TILES for ``body`` "fma", of TC_TILES for "tc" (which raises when
+    ``ragged_dw_bodies`` does not allow it)."""
     if (x.ndim != 2 or dy.ndim != 2 or x.shape[0] != dy.shape[0]
             or group_offsets.ndim != 1 or group_offsets.shape[0] < 1):
         raise ValueError(f"ragged dW shapes {tuple(x.shape)} x "
@@ -633,14 +850,27 @@ def ftimm_gemm_ragged_dw(x: torch.Tensor, dy: torch.Tensor,
                            group_offsets)
     if g > 65535:
         raise ValueError(f"{g} groups exceed the grid's y extent (65535)")
-    tile = tile_id(bm, bn, bk)
+    if body == "fma":
+        tile = tile_id(bm, bn, bk)
+    elif body == "tc":
+        if (bm, bn, bk) not in TC_TILES:
+            raise ValueError(f"({bm}, {bn}, {bk}) is not a tensor-core tile; "
+                             f"the menu is {TC_TILES}")
+        if body not in ragged_dw_bodies(x.element_size(), dy.element_size(),
+                                        *ragged_dw_operands_mn(x, dy)):
+            raise ValueError(f"ftimm_gemm_ragged_dw: the tc body cannot take "
+                             f"{x.dtype} x {dy.dtype}, strides {x.stride()} "
+                             f"x {dy.stride()}")
+        tile = TC_TILES.index((bm, bn, bk))
+    else:
+        raise ValueError(f"unknown body: {body!r}")
     offs = group_offsets.to(torch.int32).contiguous()
     out = torch.empty((g, d, f), dtype=out_dtype, device=x.device)
     if g == 0 or d == 0 or f == 0:
         return out
     _launch("ftimm_gemm_ragged_dw", x.device, tile, types, x.data_ptr(),
             dy.data_ptr(), offs.data_ptr(), out.data_ptr(), t, d, f, g,
-            x.stride(0), x.stride(1), dy.stride(0), dy.stride(1))
+            x.stride(0), x.stride(1), dy.stride(0), dy.stride(1), body=body)
     return out
 
 
@@ -689,10 +919,7 @@ def ftimm_gemm_splitk(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int,
     if nsplit > 65535:
         raise ValueError(f"{nsplit} splits exceed the grid's z extent")
     tile = tile_id(bm, bn, bk)
-    sam, sak = ((a.stride(1), a.stride(0)) if trans == "tn"
-                else (a.stride(0), a.stride(1)))
-    sbk, sbn = ((b.stride(1), b.stride(0)) if trans == "nt"
-                else (b.stride(0), b.stride(1)))
+    sam, sak, sbk, sbn = op_strides(trans, a, b)
     partials = torch.empty((nsplit, m, n), dtype=torch.float32,
                            device=a.device)
     if m and n:

@@ -5,9 +5,12 @@ K-parallel with ``nsplit > 1``), ``gemm_swiglu``, ``batched_gemm``,
 
 Edges are always masked in-kernel: unpadded operands go straight to the
 kernels and the output comes back unsliced, so no pad or slice copy ever
-touches device memory.  Requested blocks are clamped to the problem extent
-and mapped onto the compiled tile menu (``kernel.TILES``); each compiled
-tile carries its own K step, so ``bk`` follows the tile.  The ragged
+touches device memory.  For the FMA body, requested blocks are clamped to
+the problem extent and mapped onto the compiled tile menu
+(``kernel.TILES``); each compiled tile carries its own K step, so ``bk``
+follows the tile.  The tensor-core body takes a tile of
+``kernel.TC_TILES`` as it is (TMA fills the edges), and the stream body
+its K slice count.  The ragged
 wrappers pass the device prefix sums straight to the kernels, which find
 each group's rows themselves: the TPU path's host-built visit list
 (``_ragged_metadata``) has no counterpart here.
@@ -73,14 +76,25 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bn: int = 128,
          bk: int = 16, nsplit: int = 1, trans: str = "nn",
          dim_order: str = "mn", out_dtype=None,
          epilogue: Epilogue | None = None, bias=None, residual=None,
-         scale=None) -> torch.Tensor:
+         scale=None, body: str = "fma", kslices: int = 1) -> torch.Tensor:
     """Dense ftIMM GEMM with the epilogue fused at the flush.  ``scale`` is
-    the (N,) dequant vector when ``epilogue.scale_vec``.  ``nsplit > 1``
-    selects the K-parallel kernel (the epilogue then runs on the fp32 sum
-    of the partials); the split count is clamped to the K blocks of the
-    chosen tile, and degenerates to 1, the M-parallel kernel."""
+    the (N,) dequant vector when ``epilogue.scale_vec``.  ``body`` picks
+    the FMA, tensor-core or stream body of ``ftimm_gemm`` (the stream body
+    cuts K into ``kslices`` slices).  ``nsplit > 1`` selects the split-K
+    kernel (the epilogue then runs on the fp32 sum of the partials); the
+    split count is clamped to the K blocks of the chosen tile, and
+    degenerates to 1, the M-parallel kernel."""
     if dim_order not in ("mn", "nm"):
         raise ValueError(f"unknown dim_order: {dim_order!r}")
+    if body != "fma":
+        if nsplit > 1:
+            raise ValueError(f"nsplit {nsplit} runs the split-K kernel, an "
+                             f"FMA body; the {body} body splits no K")
+        return _k.ftimm_gemm(a, b, bm=bm, bn=bn, bk=bk, trans=trans,
+                             dim_order=dim_order, out_dtype=out_dtype,
+                             epilogue=epilogue or _k.IDENTITY, bias=bias,
+                             residual=residual, scale=scale, body=body,
+                             kslices=kslices)
     m, k, n = _k.mkn(trans, a.shape, b.shape)
     bm, bn, bk = clamp_tile(m, n, bm, bn)
     nsplit = clamp_nsplit(k, bk, nsplit)
@@ -164,17 +178,19 @@ def ragged_gemm_swiglu(x: torch.Tensor, w_gate: torch.Tensor,
 
 def ragged_gemm_dw(x: torch.Tensor, dy: torch.Tensor,
                    group_offsets: torch.Tensor, *, bm: int = 128,
-                   bn: int = 128, bk: int = 16,
-                   out_dtype=None) -> torch.Tensor:
+                   bn: int = 128, bk: int = 16, out_dtype=None,
+                   body: str = "fma") -> torch.Tensor:
     """Ragged T2 grouped GEMM: dW[g] = x[rows_g].T @ dy[rows_g] -> (G, D, F).
     ``bm`` / ``bn`` tile the per-group (D, F) panel; the contraction runs
     over each group's rows.  Same offsets contract as ``ragged_gemm``;
-    empty groups yield zero panels, and T = 0 gives all-zero panels."""
+    empty groups yield zero panels, and T = 0 gives all-zero panels.
+    ``body`` "tc" takes a tile of ``kernel.TC_TILES`` as it is."""
     g = group_offsets.shape[0] - 1
     out_dtype = out_dtype or x.dtype
     if x.shape[0] == 0:
         return torch.zeros((g, x.shape[1], dy.shape[1]), dtype=out_dtype,
                            device=x.device)
-    bm, bn, bk = clamp_tile(x.shape[1], dy.shape[1], bm, bn)
+    if body == "fma":
+        bm, bn, bk = clamp_tile(x.shape[1], dy.shape[1], bm, bn)
     return _k.ftimm_gemm_ragged_dw(x, dy, group_offsets, bm=bm, bn=bn, bk=bk,
-                                   out_dtype=out_dtype)
+                                   out_dtype=out_dtype, body=body)

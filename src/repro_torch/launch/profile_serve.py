@@ -38,7 +38,9 @@ GROUPS = (("ftimm_gemm_swiglu", "ftimm_gemm_swiglu_kernel"),
           ("ftimm_gemm_grouped", "ftimm_gemm_grouped_kernel"),
           ("ftimm_gemm_ragged_swiglu", "ftimm_gemm_ragged_swiglu_kernel"),
           ("ftimm_gemm_ragged", "ftimm_gemm_ragged_kernel"),
-          ("ftimm_gemm", "ftimm_gemm_kernel"),
+          ("ftimm_gemm stream", "ftimm_gemm_stream_"),
+          ("ftimm_gemm tensor cores", "ftimm_gemm_tc_kernel"),
+          ("ftimm_gemm fma", "ftimm_gemm_kernel"),
           ("host <-> device copy", "memcpy"),
           ("copy / cast", "copy"),
           ("index / gather / scatter", "index"),

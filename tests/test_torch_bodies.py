@@ -1,0 +1,225 @@
+"""The body-selection rule of the ftIMM GEMM kernels and the planner's
+choice among the bodies (CPU: the rule and the planner are plain Python).
+
+``ftimm_gemm`` has an FMA body (any types and strides), a tensor-core body
+(bf16 x bf16, both operands TMA-readable) and a K-parallel weight stream
+(bf16 x bf16, at most 16 rows, B vector-readable); ``ftimm_gemm_ragged_dw``
+the first two.  ``plan_gemm`` / ``plan_ragged_gemm`` pick the body from the
+CMR model among those the rule allows; the split-K kernel stays off every
+model path (``nsplit`` 1, as in the reference).
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.gemm import (H100, estimate_stream, plan_gemm,  # noqa: E402
+                                   plan_ragged_gemm)
+from repro_torch.core.gemm.cmr import STREAM_CTAS_PER_SM  # noqa: E402
+from repro_torch.kernels.ftimm import kernel as K  # noqa: E402
+
+BF16, F32 = torch.bfloat16, torch.float32
+MODELS = ("qwen3-1.7b", "mixtral-8x7b", "llama4-scout-17b-a16e")
+
+
+def _widths(arch):
+    c = get_config(arch)
+    hq, hkv = c.num_heads * c.head_dim_, c.num_kv_heads * c.head_dim_
+    return c, c.d_model, hq, hkv, c.d_ff
+
+
+def _decode_shapes(arch, rows=4):
+    """(m, k, n, out_bytes) of every ftimm_gemm of one decode step."""
+    c, d, hq, hkv, f = _widths(arch)
+    shapes = [(rows, d, hq, 2), (rows, d, hkv, 2), (rows, hq, d, 2),
+              (rows, d, c.vocab_padded, 4)]
+    if c.family == "moe":
+        shapes.append((rows, d, c.num_experts, 4))       # the router
+    else:
+        shapes.append((rows, f, d, 2))                   # the dense down
+    return shapes
+
+
+@pytest.mark.parametrize("a,b,m,a_ok,b_ok,panels,want", [
+    (2, 2, 4, True, True, 1, ("fma", "tc", "stream")),
+    (2, 2, 16, True, True, 1, ("fma", "tc", "stream")),
+    (2, 2, 17, True, True, 1, ("fma", "tc")),
+    (2, 2, 1024, True, True, 1, ("fma", "tc")),
+    (2, 2, 4, False, True, 1, ("fma", "stream")),     # A is staged, not TMA'd
+    (2, 2, 4, True, False, 1, ("fma",)),
+    (2, 2, 200, False, True, 1, ("fma",)),
+    (2, 4, 1024, True, True, 1, ("fma",)),             # bf16 x fp32
+    (4, 2, 4, True, True, 1, ("fma",)),                # fp32 x bf16
+    (4, 4, 4, True, True, 1, ("fma",)),                # fp32 x fp32
+    (2, 2, 4, True, True, 2, ("fma",)),                # the SwiGLU pair
+])
+def test_gemm_body_rule(a, b, m, a_ok, b_ok, panels, want):
+    assert K.gemm_bodies(a, b, m, a_ok, b_ok, panels) == want
+
+
+@pytest.mark.parametrize("ptr,rows,k,s_rows,s_k,want", [
+    (0, 4, 2048, 2048, 1, "k"),          # A (M, K) row-major
+    (0, 2048, 1024, 1, 2048, "mn"),      # tn: A (K, M) row-major
+    (0, 1, 72, 999, 1, "k"),             # one row: any row stride
+    (0, 33, 264, 1, 33, None),           # K stride 66 bytes
+    (2, 64, 64, 64, 1, None),            # base not 16-byte aligned
+    (0, 64, 64, 8, 8, None),             # no unit-stride dimension
+    (0, 64, 128, 64, 1, None),           # rows overlap (stride < extent)
+    (0, 0, 64, 64, 1, None),             # empty
+    (0, 64, 0, 64, 1, None),
+])
+def test_tma_major_rule(ptr, rows, k, s_rows, s_k, want):
+    assert K.tma_major(ptr, rows, k, s_rows, s_k) == want
+
+
+@pytest.mark.parametrize("trans", ["nn", "tn", "nt"])
+def test_operand_rule_follows_layout_and_alignment(trans):
+    m, k, n = 64, 256, 128
+    sa = {"nn": (m, k), "tn": (k, m), "nt": (m, k)}[trans]
+    sb = {"nn": (k, n), "tn": (k, n), "nt": (n, k)}[trans]
+    a, b = torch.zeros(sa, dtype=BF16), torch.zeros(sb, dtype=BF16)
+    assert K.gemm_operands_ok(a, b, trans) == (True, True)
+    # A transposed view keeps a unit-stride dimension: still readable.
+    assert K.gemm_operands_ok(a.t().contiguous().t(), b, trans)[0]
+    # A view 2 bytes off a 16-byte boundary is not.
+    big = torch.zeros((sa[0], sa[1] + 8), dtype=BF16)
+    off = big[:, 1:sa[1] + 1]
+    assert off.data_ptr() % 16 == 2
+    assert K.gemm_operands_ok(off, b, trans)[0] is False
+    x, dy = torch.zeros(100, 64, dtype=BF16), torch.zeros(100, 96, dtype=BF16)
+    assert K.ragged_dw_operands_mn(x, dy) == (True, True)
+    assert K.ragged_dw_operands_mn(x.t().contiguous().t(), dy) == (False, True)
+    assert K.ragged_dw_bodies(2, 2, True, True) == ("fma", "tc")
+    assert K.ragged_dw_bodies(2, 4, True, True) == ("fma",)
+    assert K.ragged_dw_bodies(2, 2, False, True) == ("fma",)
+
+
+@pytest.mark.parametrize("arch", MODELS)
+def test_plan_streams_every_decode_shape(arch):
+    for m, k, n, out in _decode_shapes(arch):
+        plan = plan_gemm(m, k, n, 2, out)
+        assert plan.body == "stream", (arch, m, k, n, plan)
+        assert plan.nsplit == 1
+        assert plan.bm == K.stream_rows(m) and plan.bn == K.STREAM_STRIP
+        sl, slices = K.stream_slice(k, plan.kslices)
+        assert (sl, slices) == (plan.bk, plan.kslices)
+        assert plan.bm * plan.bk * 2 <= K.STREAM_SMEM
+
+
+@pytest.mark.parametrize("arch", MODELS)
+def test_stream_slices_fill_the_card(arch):
+    """The K slice count puts at least one CTA in every slot of the card
+    where N and K leave room for it: else the slices are as many as the
+    planner offers (64) or as short as a slice can be (64 rows)."""
+    for m, k, n, out in _decode_shapes(arch):
+        plan = plan_gemm(m, k, n, 2, out)
+        ctas = -(-n // K.STREAM_STRIP) * plan.kslices
+        filled = ctas >= 0.9 * H100.sms * STREAM_CTAS_PER_SM
+        assert filled or plan.kslices >= 40 or plan.bk == K.STREAM_SLICE_STEP, (
+            arch, m, k, n, plan.kslices, ctas)
+        # and no more slices than it takes: one fewer halving would not fill
+        if plan.kslices > 1 and filled:
+            fewer = estimate_stream(m, k, n, kslices=max(plan.kslices // 2, 1),
+                                    in_bytes=2, out_bytes=out)
+            assert fewer.t_total >= 0.98 * plan.est.t_total
+
+
+@pytest.mark.parametrize("arch", MODELS)
+def test_plan_takes_tensor_cores_for_bf16_large_m(arch):
+    """Training (8 x 128 tokens) and the bucket prefills (4 slots x 32 or
+    64 rows): every projection, its dX ("nt") and dW ("tn": M = the weight's
+    rows, K = the tokens) and the unembed forward plan the tensor cores."""
+    c, d, hq, hkv, f = _widths(arch)
+    for t in (128, 256, 1024):
+        for (m, k, n) in ((t, d, hq), (t, d, hkv), (t, hq, d), (t, f, d),
+                          (t, d, f)):
+            for shape in ((m, k, n), (m, n, k), (k, m, n)):   # fwd, dX, dW
+                plan = plan_gemm(*shape, 2, 2)
+                assert plan.body == "tc", (arch, shape, plan)
+                assert (plan.bm, plan.bn, plan.bk) in K.TC_TILES
+        plan = plan_gemm(t, d, c.vocab_padded, 2, 4)
+        assert plan.body == "tc" and plan.nsplit == 1
+
+
+@pytest.mark.parametrize("arch", MODELS)
+def test_plan_keeps_fp32_and_mixed_pairs_on_fma(arch):
+    """The fp32 references and the fp32 cotangents of the logits and the
+    router (a bf16 x fp32 pair, in either order) stay on the FMA body."""
+    c, d, hq, hkv, f = _widths(arch)
+    for m, k, n in ((1024, d, hq), (4, d, hq), (1024, c.vocab_padded, d),
+                    (d, 1024, c.vocab_padded)):
+        for a, b in ((4, 4), (2, 4), (4, 2)):
+            plan = plan_gemm(m, k, n, a, 4, b_bytes=b)
+            assert plan.body == "fma" and (plan.bm, plan.bn, plan.bk) in K.TILES
+    # Operands TMA cannot read also plan the FMA body.
+    assert plan_gemm(1024, d, hq, 2, 2, a_ok=False).body == "fma"
+    assert plan_gemm(4, d, hq, 2, 2, b_ok=False).body == "fma"
+
+
+def test_ragged_dw_plans_tensor_cores_and_nsplit_stays_1():
+    l4 = get_config("llama4-scout-17b-a16e")
+    e, d, f = l4.num_experts, l4.d_model, l4.d_ff
+    for (k, n) in ((d, f), (f, d)):
+        plan = plan_ragged_gemm(e, 1024, k, n, 2, 2, ragged="k")
+        assert plan.body == "tc" and (plan.bm, plan.bn, plan.bk) in K.TC_TILES
+        assert plan.nsplit == 1
+        assert plan_ragged_gemm(e, 1024, k, n, 2, 2, ragged="k",
+                                a_ok=False).body == "fma"
+        assert plan_ragged_gemm(e, 1024, k, n, 4, 4, ragged="k").body == "fma"
+        assert plan_ragged_gemm(e, 1024, k, n, 2, 4, ragged="k",
+                                b_bytes=4).body == "fma"
+
+
+@pytest.mark.parametrize("arch", MODELS)
+def test_nsplit_stays_1_on_every_model_plan(arch):
+    c, d, hq, hkv, f = _widths(arch)
+    for t in (4, 128, 256, 1024):
+        for (m, k, n) in ((t, d, hq), (t, hq, d), (t, f, d), (t, d, f),
+                          (d, t, hq), (t, d, c.vocab_padded)):
+            for a, out in ((2, 2), (2, 4), (4, 4)):
+                assert plan_gemm(m, k, n, a, out).nsplit == 1
+
+
+@pytest.mark.parametrize("tile", K.TC_TILES)
+@pytest.mark.parametrize("stages", sorted(set(K.TC_STAGES.values())))
+def test_tc_tiles_fit_shared_memory(tile, stages):
+    bm, bn, bk = tile
+    ring = stages * (bm + bn) * bk * 2
+    got = K.smem_bytes(bm, bn, bk, body="tc", stages=stages)
+    assert max(ring, bm * (bn + 8) * 4) < got <= H100.smem_per_block
+    assert got > 48 * 1024                  # needs the dynamic-smem attribute
+
+
+@pytest.mark.parametrize("rows", K.STREAM_ROWS)
+def test_stream_slices_fit_shared_memory(rows):
+    """The largest slice the planner offers for each row count fits the
+    48 KB a block gets without the dynamic-smem attribute."""
+    sl = K.STREAM_SMEM // (rows * 2) // K.STREAM_SLICE_STEP * K.STREAM_SLICE_STEP
+    assert K.smem_bytes(rows, K.STREAM_STRIP, sl, body="stream") <= 48 * 1024
+
+
+@pytest.mark.parametrize("k,kslices", [(2048, 8), (1032, 3), (6144, 12),
+                                       (64, 8), (1, 1), (5120, 40)])
+def test_stream_slice_cuts_k_without_empty_slices(k, kslices):
+    sl, slices = K.stream_slice(k, kslices)
+    assert sl % K.STREAM_SLICE_STEP == 0 and slices <= max(kslices, 1)
+    assert (slices - 1) * sl < k <= slices * sl
+
+
+def test_stream_rows_menu():
+    assert [K.stream_rows(m) for m in (1, 4, 5, 8, 9, 16)] == [4, 4, 8, 8, 16, 16]
+    with pytest.raises(ValueError):
+        K.stream_rows(17)
+
+
+@pytest.mark.parametrize("body", ["tc", "stream"])
+def test_cpu_tensors_take_the_plain_version_whatever_the_body(body):
+    """The device decides: on the CPU every body is the plain version."""
+    g = torch.Generator().manual_seed(0)
+    a = torch.randn(4, 96, generator=g).to(BF16)
+    b = torch.randn(96, 40, generator=g).to(BF16)
+    K.reset_launch_counts()
+    got = K.ftimm_gemm(a, b, bm=128, bn=128, bk=64, body=body, kslices=3)
+    assert torch.equal(got, K.ftimm_gemm_plain(a, b))
+    assert K.launch_counts()["ftimm_gemm"] == 0
+    assert sum(K.body_counts()["ftimm_gemm"].values()) == 0

@@ -456,3 +456,206 @@ def test_fp32_out_autograd_on_the_card(dev):
         _grads_match(lambda a, b: d.matmul(a, b, trans=trans,
                                            out_dtype=torch.float32),
                      [r(*sa).bfloat16(), r(*sb).bfloat16()], dev)
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core and weight-stream bodies of ftimm_gemm, and the
+# tensor-core ragged dW.  The shapes are not tile multiples but keep every
+# stride a multiple of 16 bytes, so TMA and the 16-byte loads take them.
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+TC_SHAPES = [(40, 264, 72), (24, 136, 520), (64, 512, 96), (200, 1024, 264)]
+
+
+@pytest.mark.parametrize("tile", K.TC_TILES)
+@pytest.mark.parametrize("trans", ["nn", "tn", "nt"])
+@pytest.mark.parametrize("m,k,n", TC_SHAPES)
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+def test_tc_body(dev, tile, trans, m, k, n, out):
+    a, b = _operands(trans, m, k, n, BF16, dev, seed=31)
+    bm, bn, bk = tile
+    K.reset_launch_counts()
+    for order in ("mn", "nm"):
+        got = K.ftimm_gemm(a, b, bm=bm, bn=bn, bk=bk, trans=trans,
+                           dim_order=order, out_dtype=out, body="tc")
+        torch.cuda.synchronize()
+        _close(got, K.ftimm_gemm_plain(a, b, trans=trans, out_dtype=out))
+    assert K.body_counts()["ftimm_gemm"] == {"fma": 0, "tc": 2, "stream": 0}
+
+
+@pytest.mark.parametrize("trans", ["nn", "tn", "nt"])
+@pytest.mark.parametrize("m", [1, 4, 16])
+@pytest.mark.parametrize("kslices", [1, 3, 8])
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+def test_stream_body(dev, trans, m, kslices, out):
+    # a short last slice (or one slice that is not a multiple of 64), a
+    # partial last strip; one slice of 16 staged rows fits at K = 520
+    k, n = (1032 if kslices > 1 else 520), 520
+    a, b = _operands(trans, m, k, n, BF16, dev, seed=32)
+    K.reset_launch_counts()
+    got = K.ftimm_gemm(a, b, bm=16, bn=32, bk=64, trans=trans, out_dtype=out,
+                       body="stream", kslices=kslices)
+    torch.cuda.synchronize()
+    _close(got, K.ftimm_gemm_plain(a, b, trans=trans, out_dtype=out))
+    assert K.body_counts()["ftimm_gemm"]["stream"] == 1
+
+
+EPILOGUES = [Epilogue(residual=True), Epilogue(bias=True, activation="silu"),
+             Epilogue(bias=True, activation="gelu", scale=0.5, residual=True),
+             Epilogue(scale_vec=True), Epilogue(scale=0.25)]
+
+
+@pytest.mark.parametrize("epi", EPILOGUES)
+@pytest.mark.parametrize("body,m,kslices", [("tc", 200, 1), ("stream", 4, 1),
+                                            ("stream", 4, 5)])
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+def test_new_bodies_epilogue(dev, epi, body, m, kslices, out):
+    k, n = 520, 264
+    a, b = _operands("nn", m, k, n, BF16, dev, seed=33)
+    g = torch.Generator(device=dev).manual_seed(34)
+    bias = torch.randn(n, generator=g, device=dev).to(BF16)
+    res = torch.randn(m, n, generator=g, device=dev).to(BF16)
+    scale = torch.rand(n, generator=g, device=dev)
+    kw = dict(epilogue=epi, bias=bias if epi.bias else None,
+              residual=res if epi.residual else None,
+              scale=scale if epi.scale_vec else None, out_dtype=out)
+    got = K.ftimm_gemm(a, b, bm=128, bn=128, bk=64, body=body,
+                       kslices=kslices, **kw)
+    torch.cuda.synchronize()
+    _close(got, K.ftimm_gemm_plain(a, b, **kw))
+
+
+def test_stream_reruns_are_bit_identical(dev):
+    """The slices' partials are summed in slice order by the last CTA of a
+    strip: no atomics on the output, so a rerun gives the same bits."""
+    a, b = _operands("nn", 4, 6144, 2048, BF16, dev, seed=35)
+    runs = [K.ftimm_gemm(a, b, bm=4, bn=32, bk=768, body="stream",
+                         kslices=8, out_dtype=torch.float32)
+            for _ in range(5)]
+    torch.cuda.synchronize()
+    for r in runs[1:]:
+        assert torch.equal(r, runs[0])
+    _close(runs[0], K.ftimm_gemm_plain(a, b, out_dtype=torch.float32))
+
+
+def test_stream_body_on_two_cuda_streams(dev):
+    """Stream-body GEMMs running at once on two CUDA streams keep their own
+    arrival counters: each gives the bits it gives alone."""
+    ops_ = [_operands("nn", 4, 6144, 2048, BF16, dev, seed=37),
+            _operands("nn", 4, 2048, 2048, BF16, dev, seed=38)]
+
+    def run(a, b):
+        return K.ftimm_gemm(a, b, bm=4, bn=K.STREAM_STRIP, bk=256,
+                            body="stream", kslices=8,
+                            out_dtype=torch.float32)
+
+    alone = [run(a, b) for a, b in ops_]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(dev) for _ in ops_]
+    outs = [[] for _ in ops_]
+    for s, (a, b), out in zip(streams, ops_, outs):
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(10 ** 6)
+            out += [run(a, b) for _ in range(8)]
+    torch.cuda.synchronize()
+    for want, out in zip(alone, outs):
+        for got in out:
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 64, 200])
+@pytest.mark.parametrize("trans", ["nn", "tn", "nt"])
+def test_planned_body_through_dispatch(dev, m, trans):
+    """core.gemm.matmul plans the body: the stream at M <= 16, the tensor
+    cores at qwen's widths from M = 64 on; the answer holds either way."""
+    from repro_torch.core.gemm import matmul, plan_gemm
+    k, n = 2048, 2048
+    a, b = _operands(trans, m, k, n, BF16, dev, seed=36)
+    K.reset_launch_counts()
+    got = matmul(a, b, trans=trans)
+    torch.cuda.synchronize()
+    _close(got, K.ftimm_gemm_plain(a, b, trans=trans))
+    body = plan_gemm(m, k, n, 2, 2).body
+    assert K.body_counts()["ftimm_gemm"][body] == 1
+    if m <= 16:
+        assert body == "stream"
+    if m >= 64:
+        assert body == "tc"
+
+
+def test_misaligned_operand_takes_the_fma_body(dev):
+    """A view whose base is not 16-byte aligned (or whose row stride is not
+    a multiple of 16 bytes) cannot be read by TMA: the planner sends it to
+    the FMA body, and the tensor-core body refuses it outright."""
+    from repro_torch.core.gemm import matmul
+    a_full, b = _operands("nn", 200, 1025, 512, BF16, dev, seed=37)
+    a, b = a_full[:, 1:], b[1:]            # A: base + 2 bytes, stride 1025
+    K.reset_launch_counts()
+    got = matmul(a, b)
+    torch.cuda.synchronize()
+    _close(got, K.ftimm_gemm_plain(a, b))
+    assert K.body_counts()["ftimm_gemm"] == {"fma": 1, "tc": 0, "stream": 0}
+    with pytest.raises(ValueError):
+        K.ftimm_gemm(a, b, bm=128, bn=128, bk=64, body="tc")
+    with pytest.raises(ValueError):     # fp32 has only the FMA body
+        K.ftimm_gemm(a.float(), b.float(), bm=4, bn=32, bk=64, body="stream")
+
+
+TC_DW_DISTS = [[16, 16, 16, 16], [0, 37, 0], [5, 0, 17, 3, 0], [3, 150, 2],
+               [1], [0, 0, 0], [0, 200, 1, 0, 0, 0, 0, 55]]
+
+
+@pytest.mark.parametrize("tile", K.TC_TILES)
+@pytest.mark.parametrize("sizes", TC_DW_DISTS)
+@pytest.mark.parametrize("tail", [0, 5])
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+def test_ragged_dw_tc_body(dev, tile, sizes, tail, out):
+    """Empty, skewed, singleton and all-empty distributions, rows outside
+    every group; deterministic across runs (the tensor cores' sum order
+    differs from the plain version's, so the comparison is normwise)."""
+    g, t, d, f = len(sizes), sum(sizes) + tail, 264, 520
+    gen = torch.Generator(device=dev).manual_seed(38)
+    x = torch.randn(t, d, generator=gen, device=dev).to(BF16)
+    dy = torch.randn(t, f, generator=gen, device=dev).to(BF16)
+    offs = _offsets(sizes, dev)
+    bm, bn, bk = tile
+    if t == 0:      # TMA has nothing to read: the wrapper of ops answers
+        with pytest.raises(ValueError):
+            K.ftimm_gemm_ragged_dw(x, dy, offs, bm=bm, bn=bn, bk=bk,
+                                   out_dtype=out, body="tc")
+        assert not ops.ragged_gemm_dw(x, dy, offs, out_dtype=out).any()
+        return
+    K.reset_launch_counts()
+    runs = [K.ftimm_gemm_ragged_dw(x, dy, offs, bm=bm, bn=bn, bk=bk,
+                                   out_dtype=out, body="tc")
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    for r in runs[1:]:
+        assert torch.equal(r, runs[0])
+    _close(runs[0], K.ftimm_gemm_ragged_dw_plain(x, dy, offs, out_dtype=out))
+    assert K.body_counts()["ftimm_gemm_ragged_dw"]["tc"] == 3
+
+
+def test_ragged_dw_t0_and_planned_body(dev):
+    """T = 0 gives zero panels without a launch; a row-major bf16 pair plans
+    the tensor-core body, a transposed x the FMA body."""
+    from repro_torch.core.gemm import dispatch as d
+    offs = _offsets([0, 0, 0], dev)
+    x = torch.zeros(0, 264, device=dev, dtype=BF16)
+    dy = torch.zeros(0, 520, device=dev, dtype=BF16)
+    out = ops.ragged_gemm_dw(x, dy, offs)
+    assert out.shape == (3, 264, 520) and not out.any()
+    gen = torch.Generator(device=dev).manual_seed(39)
+    offs = _offsets([40, 0, 88], dev)
+    x = torch.randn(128, 264, generator=gen, device=dev).to(BF16)
+    dy = torch.randn(128, 520, generator=gen, device=dev).to(BF16)
+    K.reset_launch_counts()
+    got = d._run_ragged_dw(x, dy, offs, BF16)
+    xt = x.t().contiguous().t()                       # D unit-stride no more
+    got_t = d._run_ragged_dw(xt, dy, offs, BF16)
+    torch.cuda.synchronize()
+    want = K.ftimm_gemm_ragged_dw_plain(x, dy, offs)
+    _close(got, want)
+    _close(got_t, want)
+    assert K.body_counts()["ftimm_gemm_ragged_dw"] == {"fma": 1, "tc": 1}

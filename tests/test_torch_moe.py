@@ -233,7 +233,7 @@ def test_ragged_and_grouped_swiglu_plans():
     plan carries two panels too."""
     from repro_torch.core.gemm import (estimate_ragged, plan_batched_gemm,
                                        plan_ragged_gemm)
-    from repro_torch.kernels.ftimm.kernel import TILES, smem_bytes
+    from repro_torch.kernels.ftimm.kernel import TC_TILES, TILES, smem_bytes
     for panels in (1, 2):
         plan = plan_ragged_gemm(16, 4, 5120, 8192, 2, 2, panels=panels)
         assert (plan.bm, plan.bn, plan.bk) in TILES
@@ -241,7 +241,8 @@ def test_ragged_and_grouped_swiglu_plans():
         assert plan.est.smem_bytes == smem_bytes(plan.bm, plan.bn, plan.bk,
                                                  panels)
     dw = plan_ragged_gemm(16, 1024, 5120, 8192, 2, 2, ragged="k")
-    assert (dw.bm, dw.bn, dw.bk) in TILES and dw.nsplit == 1
+    assert (dw.bm, dw.bn, dw.bk) in (TC_TILES if dw.body == "tc" else TILES)
+    assert dw.nsplit == 1
     for t in (0, 4, 1024):
         e = estimate_ragged(16, t, 5120, 8192, bm=dw.bm, bn=dw.bn, bk=dw.bk,
                             ragged="k", in_bytes=2, out_bytes=2)
