@@ -20,13 +20,19 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    operand, and ragged group distributions (4 rows to 4 distinct groups,
    all rows to one group, empty groups, a group spanning several tiles,
    rows outside every group, totals not a multiple of 16), and the
-   tensor-core and weight-stream bodies of ftimm_gemm and the tensor-core
-   ragged dW called directly at extents that are not tile multiples (every
-   trans, both outputs, the epilogues, 1 / 4 / 16 rows, one or several K
-   slices, the ragged distributions).  Then the planner's body choice
-   through the dispatch layer (a misaligned operand takes the FMA body, 4
-   rows the stream, 200 the tensor cores) and bit-identical reruns of the
-   stream and the tensor-core ragged dW.  Normwise
+   tensor-core and weight-stream bodies of ftimm_gemm, ftimm_gemm_grouped
+   and ftimm_gemm_ragged and the tensor-core ragged dW called directly at
+   extents that are not tile multiples (every trans each body takes, both
+   outputs, the epilogues with (G, N) vectors and the grouped residual, a
+   shared 2-D operand, 1 / 4 / 16 rows, one or several K slices, a K tail
+   at every group's edge, the ragged distributions: empty groups, a group
+   of exactly 16 rows, rows outside every group), and at the MoE home
+   shapes.  Then the planner's body choice through the dispatch layer (a
+   misaligned operand takes the FMA body, 4 rows the stream, 200 the
+   tensor cores; mixtral's 16-row expert buffers and llama4's 4 routed
+   rows the grouped / ragged stream, 320 and 1024 rows the tensor cores,
+   fp32 the FMA body) and bit-identical reruns of the streams, the
+   tensor-core ragged dW and the grouped / ragged tensor cores.  Normwise
    tolerance max|kernel - plain| / max|plain|: 2e-2 for a bf16 output
    (2^-8 is one bf16 ulp), 1e-4 for fp32 (the same fp32 products summed in
    another order);
@@ -46,7 +52,9 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    in two length buckets, 16 new tokens each.  The launch counts are zeroed
    just before each run and read just after; every kernel of that model's
    path must have launched, and every ftimm_gemm of a decode step (4
-   rows) must have taken the stream body.  Then one prompt's full-width
+   rows) and every bf16 expert-down launch of a decode step (mixtral's 16
+   rows an expert, llama4's 4 routed rows) must have taken a stream body,
+   the fp32 attention products the FMA body.  Then one prompt's full-width
    qwen3 prefill
    logits are held against the plain versions on the CPU (5e-2 normwise:
    28 bf16 layers, each of whose activations may round one bf16 ulp apart);
@@ -69,8 +77,10 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    at step 1; ftimm_gemm must have taken the tensor-core or stream body
    for every bf16 product of 128 or more columns, the FMA body only for
    the mixed and fp32 pairs (the fp32 cotangents of the logits and the
-   router) and the bf16 routers the planner gives it, and the ragged dW
-   the tensor cores.  Prints the median step time, tokens/s and peak device
+   router) and the bf16 routers the planner gives it, the ragged dW and
+   every bf16 x bf16 grouped and ragged expert product the tensor cores,
+   and the fp32 attention and mixed grouped / ragged products the FMA
+   body.  Prints the median step time, tokens/s and peak device
    memory.  Every distinct kernel call of these runs is recorded (kernel,
    operand shapes, strides and dtypes, trans, tile, epilogue, out dtype;
    the ragged offsets as routed);
@@ -89,11 +99,15 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
 10. [time] each kernel at the decode-step shapes of the model it serves, and
    the two backward kernels at the training shapes, and ftimm_gemm at
    qwen3-1.7b's training forward shapes, its unembed and the mixed fp32 x
-   bf16 unembed dX (CUDA events around
+   bf16 unembed dX, and the MoE expert-down products on the FMA body beside
+   the planned stream at decode and on the tensor cores and the FMA body at
+   mixtral's training capacity 320 and llama4's 1024 routed rows (CUDA
+   events around
    calls enqueued behind a sleep kernel, so the card runs them back to
    back; operands rotated through more copies than the 50 MB L2 holds)
    beside its plain version, one PyTorch library call where one computes
-   the same function (``torch.matmul`` for the split-K kernel, which is
+   the same function (``torch.bmm`` / ``torch._grouped_mm`` for the MoE
+   expert products, ``torch.matmul`` for the split-K kernel, which is
    also timed beside ``ftimm_gemm`` at nsplit = 1), and its bound: the
    larger of the bytes this input needs / 3.35 TB/s and its operations /
    peak (989 TFLOP/s bf16, 67 TFLOP/s fp32; NVIDIA's H100 SXM data sheet).
@@ -126,8 +140,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
-from repro_torch.core.gemm import (batched_matmul, grouped_swiglu,  # noqa: E402
-                                   matmul, matmul_swiglu, plan_ragged_gemm,
+from repro_torch.core.gemm import (batched_matmul, grouped_matmul,  # noqa: E402
+                                   grouped_swiglu, matmul, matmul_swiglu,
+                                   plan_batched_gemm, plan_ragged_gemm,
                                    ragged_matmul, ragged_swiglu)
 from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.kernels.ftimm import kernel as K  # noqa: E402
@@ -423,6 +438,57 @@ def grouped_swiglu_case(label, g, m, k, n, *, shared=False, dtype=BF16,
                 4.0 * g * m * n * k, dtype, dtype, per_step, model)
 
 
+def _body_tile(body: str, fma_plan) -> tuple[int, int, int]:
+    if body == "tc":
+        return K.GROUP_TC_TILE
+    if body == "stream":
+        return (K.GSTREAM_ROWS, K.STREAM_STRIP, 64)
+    return fma_plan.bm, fma_plan.bn, fma_plan.bk
+
+
+def grouped_body_case(label, g, m, k, n, *, body, trans="nn", shared="none",
+                      out=BF16, kslices=1, epi=None, phase="serve",
+                      timed=False) -> Case:
+    """``ftimm_gemm_grouped``'s ``body`` called directly on bf16 operands
+    (the FMA body at the tile the planner gives it); ``epi`` with (G, N)
+    fp32 bias / scale vectors and a (G, M, N) bf16 residual."""
+    epi = epi or K.IDENTITY
+    sa = {"nn": (m, k), "tn": (k, m), "nt": (m, k)}[trans]
+    sb = {"nn": (k, n), "tn": (k, n), "nt": (n, k)}[trans]
+    fma = plan_batched_gemm(g, m, k, n, 2, _size(out), shared, a_major=None)
+    bm, bn, bk = _body_tile(body, fma)
+
+    def make(gen):
+        vec = (_randn(gen, (g, n), FP32) if epi.bias or epi.scale_vec
+               else None)
+        res = _randn(gen, (g, m, n), BF16) if epi.residual else None
+        return (_randn(gen, sa if shared == "a" else (g,) + sa, BF16),
+                _randn(gen, sb if shared == "b" else (g,) + sb, BF16,
+                       k ** -0.5), vec, res)
+
+    def kw(vec, res):
+        return dict(trans=trans, out_dtype=out, epilogue=epi,
+                    bias=vec if epi.bias else None,
+                    scale=vec if epi.scale_vec else None, residual=res)
+
+    def library(a, b, vec, res):
+        a = a.transpose(-1, -2) if trans == "tn" else a
+        b = b.transpose(-1, -2) if trans == "nt" else b
+        return torch.bmm(a, b).to(out)
+
+    ga, gb = (1 if shared == "a" else g), (1 if shared == "b" else g)
+    return Case(
+        "ftimm_gemm_grouped", f"{body} {label}", make,
+        lambda a, b, v, r: K.ftimm_gemm_grouped(
+            a, b, bm=bm, bn=bn, bk=bk, body=body, kslices=kslices,
+            dim_order=fma.dim_order if body == "fma" else "mn", **kw(v, r)),
+        lambda a, b, v, r: K.ftimm_gemm_grouped_plain(a, b, **kw(v, r)),
+        library if epi.is_identity and shared == "none" else None,
+        (ga * m * k + gb * k * n) * 2 + g * m * n * _size(out),
+        2.0 * g * m * n * k, BF16, out, model=MIXTRAL, phase=phase,
+        timed=timed)
+
+
 def _offsets(sizes, device) -> torch.Tensor:
     return torch.tensor([0, *np.cumsum(sizes).tolist()], dtype=torch.int32,
                         device=device)
@@ -468,6 +534,44 @@ def ragged_case(label, sizes, k, n, *, trans="nn", dtype=BF16, epi=None,
     return Case("ftimm_gemm_ragged", label, make, run, plain, library,
                 nbytes, 2.0 * (t - tail) * k * n, dtype, dtype, per_step,
                 model)
+
+
+def ragged_body_case(label, sizes, k, n, *, body, trans="nn", out=BF16,
+                     kslices=1, epi=None, tail=0, phase="serve",
+                     timed=False) -> Case:
+    """``ftimm_gemm_ragged``'s ``body`` called directly on bf16 operands
+    (the FMA body at the tile the planner gives it); ``epi`` with (G, N)
+    fp32 bias / scale vectors; ``tail`` more rows that no group owns."""
+    g, t = len(sizes), sum(sizes) + tail
+    epi = epi or K.IDENTITY
+    w_shape = (g, k, n) if trans == "nn" else (g, n, k)
+    fma = plan_ragged_gemm(g, t, k, n, 2, _size(out), a_ok=False)
+    bm, bn, bk = _body_tile(body, fma)
+
+    def make(gen):
+        vec = (_randn(gen, (g, n), FP32) if epi.bias or epi.scale_vec
+               else None)
+        return (_randn(gen, (t, k), BF16),
+                _randn(gen, w_shape, BF16, k ** -0.5),
+                _offsets(sizes, gen.device), vec)
+
+    def kw(vec):
+        return dict(trans=trans, out_dtype=out, epilogue=epi,
+                    bias=vec if epi.bias else None,
+                    scale=vec if epi.scale_vec else None)
+
+    touched = sum(1 for s in sizes if s)
+    return Case(
+        "ftimm_gemm_ragged", f"{body} {label}", make,
+        lambda x, w, o, v: K.ftimm_gemm_ragged(
+            x, w, o, bm=bm, bn=bn, bk=bk, body=body, kslices=kslices,
+            **kw(v)),
+        lambda x, w, o, v: K.ftimm_gemm_ragged_plain(x, w, o, **kw(v)),
+        (lambda x, w, o, v: _grouped_mm(x, w, o, v).to(out))
+        if epi.is_identity and trans == "nn" and not tail else None,
+        (t * k + touched * k * n) * 2 + t * n * _size(out),
+        2.0 * (t - tail) * k * n, BF16, out, model=LLAMA4, phase=phase,
+        timed=timed)
 
 
 def ragged_swiglu_case(label, sizes, k, n, *, dtype=BF16, tail=0,
@@ -531,6 +635,19 @@ def train_cases() -> list[Case]:
     cases = [ragged_dw_case("llama4 train gate/up dW", routed, d, f,
                             per_step=2),
              ragged_dw_case("llama4 train down dW", routed, f, d, per_step=1)]
+    # The expert-down forward of training on the tensor cores and on the
+    # FMA body: mixtral's capacity 320, llama4's 1024 routed rows.
+    mix = get_config(MIXTRAL)
+    c = MOE.capacity(TRAIN_TOKENS, mix.num_experts, mix.top_k,
+                     mix.capacity_factor, dtype=BF16)
+    for body in ("tc", "fma"):
+        cases += [grouped_body_case(
+                      f"mixtral train down C={c}", mix.num_experts, c,
+                      mix.d_ff, mix.d_model, body=body, phase="train",
+                      timed=True),
+                  ragged_body_case(f"llama4 train down T={TRAIN_TOKENS}",
+                                   routed, f, d, body=body, phase="train",
+                                   timed=True)]
     dq, fq = qw.d_model, qw.d_ff
     for n in (dq, fq):
         for ns in (2, 4, 8):
@@ -608,6 +725,9 @@ def moe_path_cases() -> list[Case]:
                                 per_step=steps),
             grouped_case(f"mixtral {label} down C={c}", e, c, f, d,
                          dtype=BF16, per_step=steps, model=MIXTRAL)]
+        if label == "decode":   # the FMA body beside the planned stream
+            cases.append(grouped_body_case(f"mixtral decode down C={c}", e,
+                                           c, f, d, body="fma", timed=True))
     e, d, f = l4.num_experts, l4.d_model, l4.d_ff
     decode = [1 if i % 4 == 0 else 0 for i in range(e)]   # 4 distinct
     bucket = np.random.default_rng(5).multinomial(
@@ -619,6 +739,8 @@ def moe_path_cases() -> list[Case]:
             ragged_swiglu_case(f"llama4 {label} gate/up", sizes, d, f,
                                per_step=steps),
             ragged_case(f"llama4 {label} down", sizes, f, d, per_step=steps)]
+    cases.append(ragged_body_case("llama4 decode 4 experts down", decode, f,
+                                  d, body="fma", timed=True))
     return cases
 
 
@@ -735,6 +857,78 @@ def new_body_cases() -> list[Case]:
                                ("T = 0", [0, 0, 0], 0)):
         cases.append(ragged_dw_case(f"{label} 264x520 bf16", sizes, 264, 520,
                                     tail=tail))
+    return cases + group_body_cases()
+
+
+def group_body_cases() -> list[Case]:
+    """The tensor-core and stream bodies of the grouped and ragged kernels
+    called directly: K = 1032 and N = 264 not multiples of the 64-deep box
+    or the 128-column tile (a K tail at every group's edge), every trans
+    each body takes, a shared 2-D operand, both outputs, 1 / 4 / 16 rows a
+    group and 1 or 3 K slices on the stream, (G, N) vectors and the
+    residual at the flush; the ragged distributions (empty groups, a group
+    of exactly 16 rows, rows outside every group, one group over several
+    chunks); then both bodies and the FMA body at the MoE home shapes."""
+    k, n, cases = 1032, 264, []
+    for out in (BF16, FP32):
+        o = _name(out)
+        for trans in ("nn", "tn", "nt"):
+            for shared in ("none", "a", "b"):
+                cases.append(grouped_body_case(
+                    f"5x200x{k}x{n} {trans} shared {shared} ->{o}", 5, 200,
+                    k, n, body="tc", trans=trans, shared=shared, out=out))
+        for trans in ("nn", "nt"):
+            for m in (1, 4, 16):
+                for ks in (1, 3):
+                    cases.append(grouped_body_case(
+                        f"5x{m}x{k}x{n} {trans} {ks} slices ->{o}", 5, m, k,
+                        n, body="stream", trans=trans, out=out, kslices=ks))
+            for shared in ("a", "b"):
+                cases.append(grouped_body_case(
+                    f"5x16x{k}x{n} {trans} shared {shared} ->{o}", 5, 16, k,
+                    n, body="stream", trans=trans, shared=shared, out=out))
+        for label, epi in NEW_BODY_EPILOGUES:
+            for body, m, ks in (("tc", 200, 1), ("stream", 16, 3)):
+                cases.append(grouped_body_case(
+                    f"3x{m}x{k}x{n} (G,N) {label} ->{o}", 3, m, k, n,
+                    body=body, out=out, kslices=ks, epi=epi))
+        stream_dists = (("4 rows to 4 groups", [1, 0, 0, 1, 0, 1, 1, 0], 0),
+                        ("a group of 16 rows", [0, 16, 0], 0),
+                        ("empty groups", [5, 0, 7, 3, 0], 0),
+                        ("rows outside every group", [2, 0, 3], 4))
+        tc_dists = (("one group over 2 chunks", [3, 150, 2], 0),
+                    ("skewed", [0, 200, 1, 0, 0, 0, 0, 55], 0),
+                    ("rows outside every group", [40, 0, 88], 7))
+        for trans in ("nn", "nt"):
+            for body, dists in (("stream", stream_dists), ("tc", tc_dists)):
+                for label, sizes, tail in dists:
+                    for ks in ((1, 3) if body == "stream" else (1,)):
+                        cases.append(ragged_body_case(
+                            f"{label} {k}x{n} {trans} {ks} slices ->{o}",
+                            sizes, k, n, body=body, trans=trans, out=out,
+                            kslices=ks, tail=tail))
+        for label, epi in NEW_BODY_EPILOGUES:
+            if epi.residual:
+                continue
+            for body, sizes in (("stream", [5, 0, 7, 3, 0]),
+                                ("tc", [3, 150, 2, 0])):
+                cases.append(ragged_body_case(
+                    f"(G,N) {label} {k}x{n} ->{o}", sizes, k, n, body=body,
+                    out=out, kslices=2, epi=epi))
+    mix, l4 = get_config(MIXTRAL), get_config(LLAMA4)
+    decode = [1 if i % 4 == 0 else 0 for i in range(l4.num_experts)]
+    routed = np.random.default_rng(7).multinomial(
+        TRAIN_TOKENS, [1.0 / l4.num_experts] * l4.num_experts).tolist()
+    for body in ("stream", "tc", "fma"):
+        cases += [grouped_body_case("mixtral decode down C=16",
+                                    mix.num_experts, 16, mix.d_ff,
+                                    mix.d_model, body=body),
+                  ragged_body_case("llama4 decode 4 experts down", decode,
+                                   l4.d_ff, l4.d_model, body=body)]
+    cases += [grouped_body_case("mixtral train down C=320", mix.num_experts,
+                                320, mix.d_ff, mix.d_model, body="tc"),
+              ragged_body_case(f"llama4 train down T={TRAIN_TOKENS}", routed,
+                               l4.d_ff, l4.d_model, body="tc")]
     return cases
 
 
@@ -781,6 +975,73 @@ def check_bodies(dev) -> dict:
         raise AssertionError("the tensor-core ragged dW's reruns differ")
     log("  stream (4 x 6144 x 2048) x3 and tensor-core ragged dW (llama4 "
         "gate/up) x2: bit-identical reruns")
+    seen.update(check_group_bodies(gen))
+    return seen
+
+
+def check_group_bodies(gen) -> dict:
+    """The grouped and ragged kernels through the dispatch layer: bf16
+    mixtral expert-down buffers of 16 rows a group plan the stream, 320 the
+    tensor cores, fp32 the FMA body; llama4's 4 routed rows the stream, 1024
+    the tensor cores.  Then two runs of each new body at the home shapes
+    (the stream at 1 and 4 K slices) give the same bits."""
+    mix, l4 = get_config(MIXTRAL), get_config(LLAMA4)
+    e, f, d = mix.num_experts, mix.d_ff, mix.d_model
+    routed = np.random.default_rng(7).multinomial(
+        TRAIN_TOKENS, [1.0 / l4.num_experts] * l4.num_experts).tolist()
+    decode = [1 if i % 4 == 0 else 0 for i in range(l4.num_experts)]
+    seen, want = {}, {}
+    for label, c, dtype, body in (("mixtral C=16 bf16", 16, BF16, "stream"),
+                                  ("mixtral C=320 bf16", 320, BF16, "tc"),
+                                  ("mixtral C=16 fp32", 16, FP32, "fma")):
+        a = _randn(gen, (e, c, f), dtype)
+        b = _randn(gen, (e, f, d), dtype, f ** -0.5)
+        K.reset_launch_counts()
+        got = grouped_matmul(a, b)
+        rel, _ = rel_err(got, K.ftimm_gemm_grouped_plain(a, b))
+        seen[label] = {k: v for k, v in
+                       K.body_counts()["ftimm_gemm_grouped"].items() if v}
+        want[label] = {body: 1}
+        log(f"  grouped {label}: bodies {seen[label]}, normwise {rel:.2e}")
+        if rel > TOL[dtype]:
+            raise AssertionError(f"grouped {label}: normwise {rel:.3g}")
+        del a, b, got
+    for label, sizes, body in (("llama4 T=4", decode, "stream"),
+                               (f"llama4 T={TRAIN_TOKENS}", routed, "tc")):
+        x = _randn(gen, (sum(sizes), l4.d_ff), BF16)
+        w = _randn(gen, (l4.num_experts, l4.d_ff, l4.d_model), BF16,
+                   l4.d_ff ** -0.5)
+        offs = _offsets(sizes, gen.device)
+        K.reset_launch_counts()
+        got = ragged_matmul(x, w, offs)
+        rel, _ = rel_err(got, K.ftimm_gemm_ragged_plain(x, w, offs))
+        seen[label] = {k: v for k, v in
+                       K.body_counts()["ftimm_gemm_ragged"].items() if v}
+        want[label] = {body: 1}
+        log(f"  ragged {label}: bodies {seen[label]}, normwise {rel:.2e}")
+        if rel > TOL[BF16]:
+            raise AssertionError(f"ragged {label}: normwise {rel:.3g}")
+        del x, w, got
+    if seen != want:
+        raise AssertionError(f"planned bodies {seen}, expected {want}")
+    reruns = [grouped_body_case("mixtral decode down C=16", e, 16, f, d,
+                                body="stream", kslices=ks) for ks in (1, 4)]
+    reruns += [ragged_body_case("llama4 decode down", decode, l4.d_ff,
+                                l4.d_model, body="stream", kslices=ks)
+               for ks in (1, 4)]
+    reruns += [grouped_body_case("mixtral train down C=320", e, 320, f, d,
+                                 body="tc"),
+               ragged_body_case(f"llama4 train down T={TRAIN_TOKENS}", routed,
+                                l4.d_ff, l4.d_model, body="tc")]
+    for c in reruns:
+        inputs = c.make(gen)
+        runs = [c.run(*inputs) for _ in range(2)]
+        torch.cuda.synchronize()
+        if not torch.equal(runs[0], runs[1]):
+            raise AssertionError(f"{c.kernel} {c.label}: reruns differ")
+        del inputs, runs
+    log(f"  {len(reruns)} grouped / ragged stream and tensor-core calls at "
+        "the home shapes: bit-identical reruns")
     return seen
 
 
@@ -1038,6 +1299,16 @@ def serve(arch: str, dev) -> tuple[dict, ServeEngine, dict]:
     if set(decode_bodies) != {"stream"}:
         raise AssertionError(f"{arch} decode GEMMs took the bodies "
                              f"{decode_bodies}, not only the stream")
+    # Each bf16 expert-down launch of a decode step (mixtral: 16 rows an
+    # expert; llama4: SLOTS routed rows) on the stream; fp32 (attention)
+    # on the FMA body.
+    expert = group_calls_by_body(recorder)
+    for (kernel, pair, rows, body), n in expert.items():
+        decode_rows = rows <= (16 if kernel == "ftimm_gemm_grouped" else SLOTS)
+        if ((pair == "bf16" and decode_rows and body != "stream")
+                or (pair != "bf16" and body != "fma")):
+            raise AssertionError(f"{arch}: {kernel} {pair} calls of {rows} "
+                                 f"rows took the {body} body ({expert})")
 
     tokens = sum(len(r.out_tokens) for r in reqs)
     stats = {"layers": cfg.num_layers, "requests": len(reqs),
@@ -1051,7 +1322,10 @@ def serve(arch: str, dev) -> tuple[dict, ServeEngine, dict]:
              "view_len": engine.kv.table.shape[1] * PAGE,
              "launches": launches, "bodies": bodies,
              "ftimm_gemm_calls_by_rows_and_body_untimed": {
-                 f"{m} {b}": n for (m, b), n in sorted(by_rows.items())}}
+                 f"{m} {b}": n for (m, b), n in sorted(by_rows.items())},
+             "grouped_ragged_calls_by_pair_rows_and_body_untimed": {
+                 " ".join(map(str, key)): n
+                 for key, n in sorted(expert.items())}}
     log(f"  served {len(reqs)} requests, {tokens} tokens in {wall:.2f} s: "
         f"{stats['tokens_per_s']:.1f} tokens/s; {len(decode)} decode steps,"
         f" median {stats['decode_step_median_ms']:.2f} ms (first "
@@ -1062,7 +1336,9 @@ def serve(arch: str, dev) -> tuple[dict, ServeEngine, dict]:
     log(f"  launches in the serving run: {launches}; bodies {bodies}; "
         f"ftimm_gemm calls by (rows, body) in {len(again)} more requests of "
         f"3 tokens, untimed: "
-        f"{stats['ftimm_gemm_calls_by_rows_and_body_untimed']}")
+        f"{stats['ftimm_gemm_calls_by_rows_and_body_untimed']}; grouped / "
+        "ragged calls by (kernel, pair, rows, body): "
+        f"{stats['grouped_ragged_calls_by_pair_rows_and_body_untimed']}")
     for r in reqs[:2]:
         log(f"  req {r.rid} ({len(r.prompt)} prompt tokens): {r.out_tokens}")
     return stats, engine, launches
@@ -1133,6 +1409,25 @@ def gemm_calls_by_rows_and_body(recorder: CallRecorder) -> dict:
     return out
 
 
+def group_calls_by_body(recorder: CallRecorder) -> dict[tuple, int]:
+    """``ftimm_gemm_grouped`` / ``ftimm_gemm_ragged`` launches of a recorded
+    run by (kernel, operand pair "bf16" or "mixed/fp32", rows a group (the
+    ragged kernel: all rows), body)."""
+    out: dict[tuple, int] = {}
+    for call in recorder.calls.values():
+        name = call["kernel"]
+        if name not in ("ftimm_gemm_grouped", "ftimm_gemm_ragged"):
+            continue
+        a, b = call["args"][:2]
+        pair = "bf16" if a[3] == b[3] == BF16 else "mixed/fp32"
+        trans = call["kwargs"].get("trans", "nn")
+        rows = (K.mkn(trans, a[1][-2:], b[1][-2:])[0]
+                if name == "ftimm_gemm_grouped" else a[1][0])
+        key = (name, pair, rows, call["kwargs"].get("body", "fma"))
+        out[key] = out.get(key, 0) + call["count"]
+    return out
+
+
 def gemm_bodies_by_pair(recorder: CallRecorder) -> dict[str, int]:
     """``ftimm_gemm`` launches of a recorded run by operand pair (bf16 x
     bf16 with N >= 128, bf16 x bf16 with N < 128, or a mixed / fp32 pair)
@@ -1153,12 +1448,21 @@ def gemm_bodies_by_pair(recorder: CallRecorder) -> dict[str, int]:
     return dict(sorted(out.items()))
 
 
-def check_train_bodies(arch: str, by_pair: dict, bodies: dict) -> None:
+def check_train_bodies(arch: str, by_pair: dict, bodies: dict,
+                       expert: dict) -> None:
     """A bf16 training run launches ``ftimm_gemm`` through the tensor-core
     and stream bodies, and the FMA body only for the mixed and fp32 pairs
     (the fp32 cotangents of the logits and the router) and for the bf16
     products of fewer than 128 columns that the CMR model plans on it (the
-    routers' 8 or 16 experts); the ragged dW takes the tensor cores."""
+    routers' 8 or 16 experts); the ragged dW takes the tensor cores; the
+    grouped and ragged kernels take the tensor cores for their bf16 x bf16
+    expert products and the FMA body for the fp32 attention products and
+    the mixed pairs (``expert``: ``group_calls_by_body``)."""
+    for (kernel, pair, rows, body), n in expert.items():
+        if (pair == "bf16") != (body == "tc"):
+            raise AssertionError(f"{arch} train: {kernel} {pair} calls of "
+                                 f"{rows} rows took the {body} body "
+                                 f"({expert})")
     bad = {k: v for k, v in by_pair.items()
            if k.startswith("bf16 fma") or (k.startswith("mixed/fp32")
                                             and not k.endswith(" fma"))}
@@ -1380,8 +1684,9 @@ def train(arch: str, dev, opt_cfg: OptConfig, *, compute_dtype=None,
                              f"{launches}")
     bodies = K.body_counts()
     by_pair = gemm_bodies_by_pair(recorder)
+    expert = group_calls_by_body(recorder)
     if gate:
-        check_train_bodies(arch, by_pair, bodies)
+        check_train_bodies(arch, by_pair, bodies, expert)
     walls = [log_[0]["wall_s"]] + [b["wall_s"] - a["wall_s"]
                                    for a, b in zip(log_, log_[1:])]
     median = statistics.median(walls[1:])
@@ -1395,7 +1700,10 @@ def train(arch: str, dev, opt_cfg: OptConfig, *, compute_dtype=None,
              "launches": launches,
              "launches_per_step": {k: v / TRAIN_STEPS
                                    for k, v in launches.items() if v},
-             "bodies": bodies, "ftimm_gemm_bodies_by_pair": by_pair}
+             "bodies": bodies, "ftimm_gemm_bodies_by_pair": by_pair,
+             "grouped_ragged_calls_by_pair_rows_and_body": {
+                 " ".join(map(str, key)): n
+                 for key, n in sorted(expert.items())}}
     log(f"  {arch}: {cfg.num_layers} layers, {params / 1e9:.3f} B params, "
         f"{cfg.compute_dtype} compute, {TRAIN_STEPS} steps of {TRAIN_BATCH} "
         f"x {TRAIN_SEQ}, lr {[f'{x:.2e}' for x in stats['lrs']]}: losses "
@@ -1405,7 +1713,9 @@ def train(arch: str, dev, opt_cfg: OptConfig, *, compute_dtype=None,
         f"device memory {stats['peak_device_gb']:.2f} GB")
     log(f"  launches per step: {stats['launches_per_step']}; "
         f"{len(recorder.calls)} distinct kernel calls; bodies {bodies}; "
-        f"ftimm_gemm launches by operand pair and body: {by_pair}")
+        f"ftimm_gemm launches by operand pair and body: {by_pair}; grouped /"
+        " ragged launches by (kernel, pair, rows, body): "
+        f"{stats['grouped_ragged_calls_by_pair_rows_and_body']}")
     free_card()
     return stats, launches, recorder
 

@@ -1,7 +1,7 @@
 """ftIMM GEMM planning and dispatch for the port: the shape taxonomy,
 the Hopper CMR model, the tile planner and the forward dispatch layer."""
 from .cmr import (H100, HopperSpec, PlanEstimate, estimate, estimate_batched,
-                  estimate_ragged, estimate_stream)
+                  estimate_group_stream, estimate_ragged, estimate_stream)
 from .dispatch import (batched_matmul, grouped_matmul, grouped_swiglu, matmul,
                        matmul_swiglu, project, project_swiglu, ragged_matmul,
                        ragged_swiglu)
@@ -11,7 +11,7 @@ from .tuner import (GemmPlan, MoeDispatchPlan, clear_plan_cache,
                     plan_mode_stats, plan_moe_dispatch, plan_ragged_gemm)
 
 __all__ = ["H100", "HopperSpec", "PlanEstimate", "estimate", "estimate_batched",
-           "estimate_ragged", "estimate_stream", "matmul", "project", "matmul_swiglu",
+           "estimate_group_stream", "estimate_ragged", "estimate_stream", "matmul", "project", "matmul_swiglu",
            "project_swiglu", "batched_matmul", "grouped_matmul",
            "grouped_swiglu", "ragged_matmul", "ragged_swiglu", "GemmClass",
            "classify", "is_irregular", "GemmPlan", "MoeDispatchPlan",

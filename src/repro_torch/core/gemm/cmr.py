@@ -15,8 +15,9 @@ per candidate tile:
     bound on utilization.
 
 Each body of the kernels runs at its own peak: the tensor cores' bf16 rate,
-the CUDA cores' fp32 FMA rate, and the weight stream (bytes-bound by design:
-its FMAs are priced at the FMA rate, its grid fills the SMs with K slices).
+the CUDA cores' fp32 FMA rate, and the weight streams (bytes-bound by design,
+their grids fill the SMs with K slices: ``ftimm_gemm``'s FMAs priced at the
+FMA rate, the grouped / ragged stream's wgmma at the tensor cores').
 The estimate only ranks tiles and bodies; it is not a claim about the
 card's speed.
 """
@@ -24,7 +25,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from ...kernels.ftimm.kernel import (STREAM_STRIP, smem_bytes, stream_rows,
+from ...kernels.ftimm.kernel import (GSTREAM_ROWS, STREAM_STRIP,
+                                     gstream_smem, smem_bytes, stream_rows,
                                      stream_slice)
 
 
@@ -104,17 +106,18 @@ def _estimate(g: int, m: int, k: int, n: int, *, bm: int, bn: int, bk: int,
     flops_useful = 2.0 * g * m * n * k * panels
     flops_padded = 2.0 * ctas * bm * bn * gk * bk * panels
     if body == "tc":
-        # The grid walks the inner dimension of dim_order fastest, so the
-        # outer operand's panel is reused from L2 by the consecutive tiles
-        # and read once; the inner operand is read once too when it fits
-        # half the L2, else once per outer tile.
-        a_once, b_once = m * k * in_bytes, k * n * in_bytes
+        # The grid walks the inner dimension of dim_order fastest (within
+        # each group), so the outer operand's panel is reused from L2 by the
+        # consecutive tiles and read once; the inner operand's panel is read
+        # once too when it fits half the L2, else once per outer tile.
+        a_once = a_reads * m * k * in_bytes
+        b_once = b_reads * k * n * in_bytes
         fits = spec.l2_bytes / 2
         if dim_order == "mn":
-            hbm = a_once + b_once * (1 if b_once <= fits else gm)
+            hbm = a_once + b_once * (1 if k * n * in_bytes <= fits else gm)
         else:
-            hbm = b_once + a_once * (1 if a_once <= fits else gn)
-        hbm += m * n * out_bytes
+            hbm = b_once + a_once * (1 if m * k * in_bytes <= fits else gn)
+        hbm += g * m * n * out_bytes
     else:
         hbm = (a_reads * m * k * gn * in_bytes
                + b_reads * k * n * gm * in_bytes * panels
@@ -174,18 +177,53 @@ def estimate_stream(m: int, k: int, n: int, *, kslices: int,
     )
 
 
+def estimate_group_stream(groups: int, rows: int, k: int, n: int, *,
+                          kslices: int, in_bytes: int = 2,
+                          out_bytes: int = 2,
+                          spec: HopperSpec = H100) -> PlanEstimate:
+    """Model the grouped / ragged weight stream: ``groups`` panels reached
+    (k, n) each, ``rows`` output rows in all (at most GSTREAM_ROWS a
+    group).  One CTA per (STREAM_STRIP-wide N strip, K slice, reached
+    group), STREAM_CTAS_PER_SM of them on an SM; every reached panel is
+    read once, the rows' activations once (their re-reads by the other
+    strips hit the L2), and with more than one slice each slice's fp32
+    partial is written and read back once.  The math is wgmma at the
+    tensor cores' rate on GSTREAM_ROWS token columns a group."""
+    sl, slices = stream_slice(k, kslices)
+    ctas = groups * cdiv(n, STREAM_STRIP) * slices
+    occ = max(min(ctas / (spec.sms * STREAM_CTAS_PER_SM), 1.0), 1e-3)
+    flops_padded = 2.0 * ctas * GSTREAM_ROWS * STREAM_STRIP * sl
+    hbm = (groups * k * n * in_bytes + rows * k * in_bytes
+           + rows * n * out_bytes + (2 * slices * rows * n * 4
+                                     if slices > 1 else 0))
+    return PlanEstimate(
+        flops_useful=2.0 * rows * n * k,
+        flops_padded=flops_padded,
+        hbm_bytes=float(hbm),
+        t_compute=flops_padded / (spec.peak_flops_bf16 * occ),
+        t_memory=hbm / (spec.hbm_bw * occ),
+        smem_bytes=gstream_smem(),
+        occupancy=occ,
+    )
+
+
 def estimate_batched(g: int, m: int, k: int, n: int, *, bm: int, bn: int,
                      bk: int, shared_a: bool = False, shared_b: bool = False,
                      in_bytes: int = 4, out_bytes: int = 4, panels: int = 1,
-                     spec: HopperSpec = H100) -> PlanEstimate:
+                     spec: HopperSpec = H100, body: str = "fma",
+                     stages: int = 4, dim_order: str = "mn") -> PlanEstimate:
     """Model one tile of the grouped GEMM C(g) = A(g) B(g), g < G.  A shared
     2-D operand is read from device memory once and re-read by the other
     groups' CTAs from the 50 MB L2.  ``panels`` = 2 prices the grouped
-    SwiGLU pair (two B panels per group, and their shared memory)."""
+    SwiGLU pair (two B panels per group, and their shared memory).
+    ``body`` "tc" prices the tensor-core body with a ``stages``-deep ring,
+    its operand traffic following the grid order's L2 reuse; the stream
+    body has its own model (``estimate_group_stream``)."""
     return _estimate(g, m, k, n, bm=bm, bn=bn, bk=bk,
                      a_reads=1 if shared_a else g, b_reads=1 if shared_b else g,
                      in_bytes=in_bytes, out_bytes=out_bytes, panels=panels,
-                     spec=spec)
+                     spec=spec, body=body, stages=stages,
+                     dim_order=dim_order)
 
 
 def estimate_ragged(g: int, total: int, k: int, n: int, *, bm: int, bn: int,
@@ -208,8 +246,9 @@ def estimate_ragged(g: int, total: int, k: int, n: int, *, bm: int, bn: int,
     is (D tile x F tile, group): both row operands stream once per output
     tile of their group, the rows are walked in ``bk`` steps with one
     partial step per group, and each of the G panels is written once,
-    empty ones too.  ``body`` "tc" prices the dW on the tensor-core body
-    with a ``stages``-deep ring."""
+    empty ones too.  ``body`` "tc" prices either on the tensor-core body
+    with a ``stages``-deep ring; the forward's stream body has its own
+    model (``estimate_group_stream``)."""
     if ragged == "k":
         gm, gn = cdiv(k, bm), cdiv(n, bn)
         steps = cdiv(total, bk) + max(min(g, total) - 1, 0)
@@ -230,8 +269,9 @@ def estimate_ragged(g: int, total: int, k: int, n: int, *, bm: int, bn: int,
         )
     if ragged != "m":
         raise ValueError(f"unknown ragged axis: {ragged!r}")
-    if body != "fma":
-        raise ValueError("the ragged forward has only the FMA body")
+    if body not in ("fma", "tc"):
+        raise ValueError(f"estimate_ragged prices the fma and tc bodies, not "
+                         f"{body!r} (estimate_group_stream)")
     gn, gk = cdiv(n, bn), cdiv(k, bk)
     chunks = cdiv(total, bm) + max(min(g, total) - 1, 0)
     ctas = gn * chunks
@@ -239,12 +279,13 @@ def estimate_ragged(g: int, total: int, k: int, n: int, *, bm: int, bn: int,
     flops_padded = 2.0 * ctas * bm * bn * gk * bk * panels
     hbm = (total * k * gn * in_bytes + chunks * k * n * in_bytes * panels
            + total * n * out_bytes)
+    bw_share = min(occ * TC_SM_BW_SHARES, 1.0) if body == "tc" else occ
     return PlanEstimate(
         flops_useful=2.0 * total * n * k * panels,
         flops_padded=flops_padded,
         hbm_bytes=float(hbm),
         t_compute=flops_padded / (spec.kernel_flops(body) * occ),
-        t_memory=hbm / (spec.hbm_bw * occ),
-        smem_bytes=smem_bytes(bm, bn, bk, panels),
+        t_memory=hbm / (spec.hbm_bw * bw_share),
+        smem_bytes=smem_bytes(bm, bn, bk, panels, body=body, stages=stages),
         occupancy=occ,
     )

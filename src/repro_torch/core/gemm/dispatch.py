@@ -32,8 +32,9 @@ import torch
 
 from ...kernels.ftimm import ops as _ops
 from ...kernels.ftimm.epilogue import IDENTITY, Epilogue
-from ...kernels.ftimm.kernel import (gemm_operands_ok, mkn,
-                                     ragged_dw_operands_mn, row_groups)
+from ...kernels.ftimm.kernel import (gemm_operands_ok, grouped_operands,
+                                     mkn, ragged_dw_operands_mn,
+                                     ragged_operands, row_groups)
 from .tuner import (note_epilogue, note_plan_use, plan_batched_gemm,
                     plan_gemm, plan_ragged_gemm)
 
@@ -256,20 +257,24 @@ def project_swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _run_batched(a, b, trans: str, out_dtype, bias=None) -> torch.Tensor:
-    """Plan one batched / grouped GEMM and run it (``bias``: the "nn"
-    flush vector, (N,) or (G, N))."""
+    """Plan one batched / grouped GEMM (its body too: the planner sees the
+    operand widths and how TMA can read them) and run it (``bias``: the
+    "nn" flush vector, (N,) or (G, N))."""
     m, k, n = mkn(trans, a.shape[-2:], b.shape[-2:])
     shared = "a" if a.ndim == 2 else ("b" if b.ndim == 2 else "none")
     g = b.shape[0] if shared == "a" else a.shape[0]
+    a_major, b_ok = grouped_operands(a, b, trans)
     plan = plan_batched_gemm(g, m, k, n, a.element_size(), out_dtype.itemsize,
-                             shared)
+                             shared, b_bytes=b.element_size(),
+                             a_major=a_major, b_ok=b_ok)
     note_plan_use("batched", plan)
     epi = IDENTITY if bias is None else Epilogue(bias=True)
     if bias is not None:
         note_epilogue("batched", True)
     return _ops.batched_gemm(a, b, bm=plan.bm, bn=plan.bn, bk=plan.bk,
                              dim_order=plan.dim_order, trans=trans,
-                             out_dtype=out_dtype, epilogue=epi, bias=bias)
+                             out_dtype=out_dtype, epilogue=epi, bias=bias,
+                             body=plan.body, kslices=plan.kslices)
 
 
 class _Batched(torch.autograd.Function):
@@ -364,20 +369,25 @@ def grouped_swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 
 def _run_ragged(x, w, offsets, trans: str, out_dtype,
                 bias=None) -> torch.Tensor:
-    """Plan one ragged grouped GEMM off its distribution signature and run
-    it.  ``w`` (G, K, N) "nn" or (G, N, K) "nt"; ``bias`` (G, N)."""
+    """Plan one ragged grouped GEMM off its distribution signature (its
+    body too, from the total rows, the widths and how TMA reads x and the
+    panels) and run it.  ``w`` (G, K, N) "nn" or (G, N, K) "nt"; ``bias``
+    (G, N)."""
     g = w.shape[0]
     k, n = (w.shape[1], w.shape[2]) if trans == "nn" else (w.shape[2],
                                                             w.shape[1])
+    x_k, w_ok = ragged_operands(x, w, trans)
     plan = plan_ragged_gemm(g, x.shape[0], k, n, x.element_size(),
-                            out_dtype.itemsize)
+                            out_dtype.itemsize, b_bytes=w.element_size(),
+                            a_ok=x_k, b_ok=w_ok)
     note_plan_use("ragged", plan)
     epi = None if bias is None else Epilogue(bias=True)
     if bias is not None:
         note_epilogue("ragged", True)
     return _ops.ragged_gemm(x, w, offsets, bm=plan.bm, bn=plan.bn,
                             bk=plan.bk, trans=trans, out_dtype=out_dtype,
-                            epilogue=epi, bias=bias)
+                            epilogue=epi, bias=bias, body=plan.body,
+                            kslices=plan.kslices)
 
 
 def _run_ragged_dw(x, dy, offsets, out_dtype) -> torch.Tensor:

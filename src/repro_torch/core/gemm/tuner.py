@@ -4,10 +4,12 @@ GEMM shape from the CMR model, once per shape signature.
 The candidates are exactly what the CUDA kernels are compiled for: the FMA
 body's tiles (``kernels.ftimm.kernel.TILES``) in both grid orders, and,
 where the call's operand types and layouts allow them
-(``kernel.gemm_bodies`` / ``kernel.ragged_dw_bodies``), the tensor-core
-tiles (``kernel.TC_TILES``) and the weight stream's K slice counts; each
-is filtered by the 227 KB shared-memory budget of a block and scored with
-``cmr.estimate*`` at its body's own rate.
+(``kernel.gemm_bodies`` / ``grouped_bodies`` / ``ragged_bodies`` /
+``ragged_dw_bodies``), the tensor-core tiles (``kernel.TC_TILES``;
+``GROUP_TC_TILE`` for the grouped and ragged kernels) and the weight
+streams' K slice counts; each is filtered by the 227 KB shared-memory
+budget of a block and scored with ``cmr.estimate*`` at its body's own
+rate.
 Plans are LRU-cached per signature, so planning happens once per shape and
 is free afterwards.  Every plan is analytic (the CMR argmin): the measured
 plan store, autotuning, calibration and placement on a mesh are not ported
@@ -20,12 +22,15 @@ import collections
 import functools
 from dataclasses import dataclass
 
-from ...kernels.ftimm.kernel import (STREAM_SMEM, STREAM_STRIP,
-                                     TC_STAGES, TC_TILES, TILES, gemm_bodies,
+from ...kernels.ftimm.kernel import (GROUP_TC_TILE, GSTREAM_ROWS,
+                                     STREAM_SMEM, STREAM_STRIP, TC_STAGES,
+                                     TC_TILES, TILES, gemm_bodies,
+                                     grouped_bodies, ragged_bodies,
                                      ragged_dw_bodies, stream_rows,
                                      stream_slice)
 from .cmr import (H100, HopperSpec, PlanEstimate, ceil_to, estimate,
-                  estimate_batched, estimate_ragged, estimate_stream)
+                  estimate_batched, estimate_group_stream, estimate_ragged,
+                  estimate_stream)
 from .shapes import GemmClass, classify
 
 
@@ -41,7 +46,7 @@ class GemmPlan:
     est: PlanEstimate | None = None
     mode: str = "analytic"
     body: str = "fma"               # "fma" | "tc" | "stream"
-    kslices: int = 1                # the stream body's K slices
+    kslices: int = 1                # a stream body's K slices
 
     @property
     def t_total(self) -> float:
@@ -92,6 +97,27 @@ def _stream_candidates(cls: GemmClass, m: int, k: int, n: int, in_bytes: int,
     return cands
 
 
+def _group_stream_candidates(cls: GemmClass, groups: int, rows: int, k: int,
+                             n: int, in_bytes: int, out_bytes: int,
+                             spec: HopperSpec) -> list[GemmPlan]:
+    """The grouped / ragged stream at each K slice count 1, 2, 4, ... 64 (as
+    cut by ``stream_slice``), ``groups`` panels reached, ``rows`` rows in
+    all.  Its slices stage no rows, so every count fits shared memory."""
+    cands, seen = [], set()
+    for want in (1, 2, 4, 8, 16, 32, 64):
+        sl, slices = stream_slice(k, want)
+        if slices in seen:
+            continue
+        seen.add(slices)
+        e = estimate_group_stream(groups, rows, k, n, kslices=slices,
+                                  in_bytes=in_bytes, out_bytes=out_bytes,
+                                  spec=spec)
+        cands.append(GemmPlan(bm=GSTREAM_ROWS, bn=STREAM_STRIP, bk=sl,
+                              gemm_class=cls, est=e, body="stream",
+                              kslices=slices))
+    return cands
+
+
 def gemm_candidates(m: int, k: int, n: int, in_bytes: int = 4,
                     out_bytes: int = 4, spec: HopperSpec = H100, *,
                     panels: int = 1, b_bytes: int | None = None,
@@ -121,15 +147,33 @@ def gemm_candidates(m: int, k: int, n: int, in_bytes: int = 4,
 
 def batched_candidates(g: int, m: int, k: int, n: int, in_bytes: int = 4,
                        out_bytes: int = 4, shared: str = "none",
-                       spec: HopperSpec = H100, *,
-                       panels: int = 1) -> list[GemmPlan]:
-    """Candidate tiles for the grouped GEMM (same menu as the dense one);
-    ``panels`` = 2 for the grouped SwiGLU pair."""
-    est = functools.partial(estimate_batched, g, m, k, n,
-                            shared_a=shared == "a", shared_b=shared == "b",
-                            in_bytes=in_bytes, out_bytes=out_bytes,
-                            panels=panels, spec=spec)
-    return _candidates(classify(m, k, n), est, spec)
+                       spec: HopperSpec = H100, *, panels: int = 1,
+                       b_bytes: int | None = None, a_major: str | None = "k",
+                       b_ok: bool = True) -> list[GemmPlan]:
+    """Candidates for the grouped GEMM: every body ``grouped_bodies``
+    allows (``in_bytes`` / ``b_bytes``: A's and B's widths; ``a_major``:
+    how TMA reads op(A), "k", "mn" or None; ``b_ok``: whether it reads
+    op(B)) -- the FMA tiles in both grid orders, the tensor-core tile in
+    both, the weight stream's slice counts (every group's M rows, all G
+    panels read).  ``panels`` = 2 for the grouped SwiGLU pair (FMA only)."""
+    cls = classify(m, k, n)
+    cands = []
+    for body in grouped_bodies(in_bytes, b_bytes or in_bytes, m, a_major,
+                               b_ok, panels):
+        if body == "stream":
+            cands += _group_stream_candidates(cls, g, g * m, k, n, in_bytes,
+                                              out_bytes, spec)
+            continue
+        est = functools.partial(estimate_batched, g, m, k, n,
+                                shared_a=shared == "a",
+                                shared_b=shared == "b", in_bytes=in_bytes,
+                                out_bytes=out_bytes, panels=panels,
+                                spec=spec, body=body,
+                                stages=TC_STAGES["ftimm_gemm_grouped"])
+        cands += _candidates(cls, est, spec,
+                             tiles=(GROUP_TC_TILE,) if body == "tc" else TILES,
+                             body=body, order_aware=body == "tc")
+    return cands
 
 
 def ragged_candidates(g: int, total: int, k: int, n: int, in_bytes: int = 4,
@@ -137,26 +181,39 @@ def ragged_candidates(g: int, total: int, k: int, n: int, in_bytes: int = 4,
                       spec: HopperSpec = H100, *, panels: int = 1,
                       b_bytes: int | None = None, a_ok: bool = True,
                       b_ok: bool = True) -> list[GemmPlan]:
-    """Candidate tiles for the ragged grouped GEMM: the compiled menu,
-    scored by ``estimate_ragged``.  The per-group *mean* shape is
-    classified: (rows, k, n) for the forward, (k, rows, n) for the dW
-    (``ragged="k"``, whose contraction is the rows).  The dW also offers
-    the tensor-core tiles where ``ragged_dw_bodies`` allows them (``a_ok``
-    / ``b_ok``: TMA reads x^T and dy MN-major).  No grid-order choice: the
-    ragged kernels fix their walk."""
+    """Candidates for the ragged grouped GEMM, scored by
+    ``estimate_ragged`` (the stream: ``estimate_group_stream``).  The
+    per-group *mean* shape is classified: (rows, k, n) for the forward,
+    (k, rows, n) for the dW (``ragged="k"``, whose contraction is the
+    rows).  The forward offers every body ``ragged_bodies`` allows
+    (``a_ok``: TMA reads x K-major; ``b_ok``: it reads the panels; the
+    stream prices the min(g, total) panels ``total`` rows can reach); the
+    dW the tensor-core tiles where ``ragged_dw_bodies`` allows them
+    (``a_ok`` / ``b_ok``: TMA reads x^T and dy MN-major).  No grid-order
+    choice: the ragged kernels fix their walk."""
     mean = max(total // max(g, 1), 1)
     cls = classify(mean, k, n) if ragged == "m" else classify(k, mean, n)
-    bodies = (ragged_dw_bodies(in_bytes, b_bytes or in_bytes, a_ok, b_ok)
-              if ragged == "k" else ("fma",))
+    b_bytes = b_bytes or in_bytes
+    if ragged == "k":
+        bodies, kernel, tc_tiles = (ragged_dw_bodies(in_bytes, b_bytes, a_ok,
+                                                     b_ok),
+                                    "ftimm_gemm_ragged_dw", TC_TILES)
+    else:
+        bodies, kernel, tc_tiles = (ragged_bodies(in_bytes, b_bytes, total,
+                                                  a_ok, b_ok, panels),
+                                    "ftimm_gemm_ragged", (GROUP_TC_TILE,))
     cands = []
     for body in bodies:
+        if body == "stream":
+            cands += _group_stream_candidates(cls, min(g, total), total, k, n,
+                                              in_bytes, out_bytes, spec)
+            continue
         est = functools.partial(estimate_ragged, g, total, k, n,
                                 ragged=ragged, in_bytes=in_bytes,
                                 out_bytes=out_bytes, panels=panels, spec=spec,
-                                body=body,
-                                stages=TC_STAGES["ftimm_gemm_ragged_dw"])
+                                body=body, stages=TC_STAGES[kernel])
         cands += _candidates(cls, est, spec, orders=("mn",),
-                             tiles=TC_TILES if body == "tc" else TILES,
+                             tiles=tc_tiles if body == "tc" else TILES,
                              body=body)
     return cands
 
@@ -199,13 +256,18 @@ def plan_gemm(m: int, k: int, n: int, in_bytes: int = 4, out_bytes: int = 4,
 @functools.lru_cache(maxsize=8192)
 def plan_batched_gemm(g: int, m: int, k: int, n: int, in_bytes: int = 4,
                       out_bytes: int = 4, shared: str = "none",
-                      spec: HopperSpec = H100, *,
-                      panels: int = 1) -> GemmPlan:
-    """Pick the tile for the grouped GEMM C(g) = A(g) B(g); ``shared`` marks
-    a 2-D operand used by every group ("a" | "b" | "none"); ``panels`` = 2
-    plans the grouped SwiGLU pair."""
+                      spec: HopperSpec = H100, *, panels: int = 1,
+                      b_bytes: int | None = None, a_major: str | None = "k",
+                      b_ok: bool = True) -> GemmPlan:
+    """Pick the body and tile for the grouped GEMM C(g) = A(g) B(g);
+    ``shared`` marks a 2-D operand used by every group ("a" | "b" |
+    "none"); ``panels`` = 2 plans the grouped SwiGLU pair; ``b_bytes``,
+    ``a_major`` and ``b_ok`` as for ``batched_candidates``
+    (``kernel.grouped_operands`` gives the last two)."""
     return argmin_plan(batched_candidates(g, m, k, n, in_bytes, out_bytes,
-                                          shared, spec, panels=panels))
+                                          shared, spec, panels=panels,
+                                          b_bytes=b_bytes, a_major=a_major,
+                                          b_ok=b_ok))
 
 
 @functools.lru_cache(maxsize=8192)
@@ -218,7 +280,9 @@ def plan_ragged_gemm(g: int, total: int, k: int, n: int, in_bytes: int = 4,
     (g, total, k, n, widths) is the distribution signature: the per-group
     counts stay on the device, so the plan prices the aggregate (total
     rows plus one partial chunk per group) and serves every call with the
-    same signature.  ``ragged="m"``: the forward, rows are ragged;
+    same signature.  ``ragged="m"``: the forward, rows are ragged; ``a_ok``
+    / ``b_ok`` say whether TMA reads x K-major and the panels
+    (``kernel.ragged_operands``), ``b_bytes`` is the panels' width.
     ``ragged="k"``: the dW, the ragged rows are the contraction and ``k`` x
     ``n`` is each group's output panel (D x F); ``a_ok`` / ``b_ok`` say
     whether TMA reads x^T and dy MN-major (``kernel.ragged_dw_operands_mn``),

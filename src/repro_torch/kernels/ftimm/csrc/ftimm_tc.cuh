@@ -112,6 +112,27 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// The same copy from a rank-3 map: c2 is the group.
+__device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A box of an operand's map at (c0, c1), at group g of a rank-3 map when
+// g >= 0.
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                        int c1, int g) {
+  if (g >= 0) {
+    tma_load3(dst, map, bar, c0, c1, g);
+  } else {
+    tma_load(dst, map, bar, c0, c1);
+  }
+}
+
 // wgmma shared-memory descriptor, 128-byte swizzle.  For a K-major operand
 // the stride byte offset is the 1024 bytes between 8-row groups (the
 // leading offset is unused); for an MN-major one the leading offset is the
@@ -199,12 +220,15 @@ __device__ __forceinline__ void zero_tail(unsigned char* slot, int keep) {
 
 // One 128 x BN tile: C[m0:, n0:] = epi(op(A)[m0:, k_lo:k_hi] . op(B)[k_lo:k_hi, n0:]).
 // A's tensor map is read at coordinates {k, m} (K-major) or {m, k}
-// (MN-major), B's at {k, n} or {n, k}.  Every thread of the CTA calls it.
+// (MN-major), B's at {k, n} or {n, k}, and at group ga / gb of a rank-3
+// map when that is >= 0 (the grouped and ragged kernels: TMA then
+// zero-fills each group's K edge).  Rows m >= M are not stored.  Every
+// thread of the CTA calls it.
 template <class T, bool A_MN, bool B_MN, typename TR, typename TC>
 __device__ __forceinline__ void run_tile(const CUtensorMap* ta, const CUtensorMap* tb, int m0,
                                          int n0, int k_lo, int k_hi, bool mask_tail,
                                          TC* __restrict__ c, int64_t ldc, int M, int N,
-                                         const EpiArgs& epi, int g) {
+                                         const EpiArgs& epi, int g, int ga = -1, int gb = -1) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t pad = (1024u - (raw & 1023u)) & 1023u;
@@ -237,16 +261,16 @@ __device__ __forceinline__ void run_tile(const CUtensorMap* ta, const CUtensorMa
         const int k0 = k_lo + it * BK;
         mbar_expect_tx(fb, T::STAGE_BYTES);
         if (A_MN) {
-          tma_load(sa, ta, fb, m0, k0);
-          tma_load(sa + BLOCK_BYTES, ta, fb, m0 + 64, k0);
+          tma_box(sa, ta, fb, m0, k0, ga);
+          tma_box(sa + BLOCK_BYTES, ta, fb, m0 + 64, k0, ga);
         } else {
-          tma_load(sa, ta, fb, k0, m0);
+          tma_box(sa, ta, fb, k0, m0, ga);
         }
         if (B_MN) {
 #pragma unroll
-          for (int j = 0; j < T::BN / 64; ++j) tma_load(sb + j * BLOCK_BYTES, tb, fb, n0 + 64 * j, k0);
+          for (int j = 0; j < T::BN / 64; ++j) tma_box(sb + j * BLOCK_BYTES, tb, fb, n0 + 64 * j, k0, gb);
         } else {
-          tma_load(sb, tb, fb, k0, n0);
+          tma_box(sb, tb, fb, k0, n0, gb);
         }
       }
     }
@@ -376,13 +400,17 @@ static inline EncodeTiled encode_tiled() {
 // -1 when TMA cannot take it.  The same rule as kernel.py's tma_major: K
 // has unit stride first, else the rows; a 16-byte aligned base; the other
 // stride a multiple of 8 elements and at least the unit-stride extent (a
-// dimension of extent 1 takes any stride).
+// dimension of extent 1 takes any stride).  G > 1 groups G panels s_g
+// elements apart into a rank-3 map (box depth 1), so that a box never
+// reads one group's K rows into another's: s_g a multiple of 8 elements
+// and at least one panel (kernel.py's tma_major3).
 static inline int encode_operand(CUtensorMap* map, const void* base, int64_t R, int64_t K,
-                                 int64_t s_r, int64_t s_k, int box_rows) {
-  if (R < 1 || K < 1 || reinterpret_cast<uintptr_t>(base) % 16 != 0) return -1;
+                                 int64_t s_r, int64_t s_k, int box_rows, int64_t G = 1,
+                                 int64_t s_g = 0) {
+  if (R < 1 || K < 1 || G < 1 || reinterpret_cast<uintptr_t>(base) % 16 != 0) return -1;
   int mn;
-  cuuint64_t dims[2], stride[1];
-  cuuint32_t box[2];
+  cuuint64_t dims[3], stride[2];
+  cuuint32_t box[3] = {0, 0, 1};
   int64_t outer_stride;
   if (s_k == 1) {
     mn = 0;
@@ -401,10 +429,16 @@ static inline int encode_operand(CUtensorMap* map, const void* base, int64_t R, 
   }
   if (outer_stride % 8 != 0) return -1;
   stride[0] = (cuuint64_t)outer_stride * 2;
-  const cuuint32_t estride[2] = {1, 1};
+  const int rank = G > 1 ? 3 : 2;
+  if (rank == 3) {
+    if (s_g % 8 != 0 || s_g < outer_stride * (int64_t)dims[1]) return -1;
+    dims[2] = G;
+    stride[1] = (cuuint64_t)s_g * 2;
+  }
+  const cuuint32_t estride[3] = {1, 1, 1};
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return -1;
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
                         stride, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

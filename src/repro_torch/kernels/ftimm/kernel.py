@@ -14,16 +14,21 @@ The kernels are CUDA C++ for ``sm_90a`` in ``csrc/``, one source per kernel:
   * ``ftimm_gemm_splitk``   dense fp32 partial products over K slices
                             (summed, then the epilogue, by the wrapper).
 
-``ftimm_gemm`` has three bodies, and ``ftimm_gemm_ragged_dw`` the first
-two: CUDA-core FMAs on any operand types and strides (``"fma"``, the body
-the other kernels share), tensor cores for bf16 x bf16 operands TMA can
-read (``"tc"``: TMA, an mbarrier ring and wgmma, ``csrc/ftimm_tc.cuh``),
-and a K-parallel weight stream for bf16 x bf16 calls of at most 16 rows
-(``"stream"``).  The planner picks the body (``core.gemm.tuner``) among
-those ``gemm_bodies`` / ``ragged_dw_bodies`` allow for the call's types
-and operand layouts, a rule decided before the launch; the wrapper raises
-on a body the operands do not allow.  ``body_counts`` shows which body
-carried a run.
+``ftimm_gemm``, ``ftimm_gemm_grouped`` and ``ftimm_gemm_ragged`` have
+three bodies, and ``ftimm_gemm_ragged_dw`` the first two: CUDA-core FMAs
+on any operand types and strides (``"fma"``, the body the other kernels
+share), tensor cores for bf16 x bf16 operands TMA can read (``"tc"``: TMA,
+an mbarrier ring and wgmma, ``csrc/ftimm_tc.cuh``; the grouped and ragged
+kernels read their panels through 3-D tensor maps), and a K-parallel
+weight stream for bf16 x bf16 calls of at most 16 rows (``"stream"``:
+``ftimm_gemm``'s register stream, and for the grouped and ragged kernels
+a TMA ring per (N strip, K slice, group) feeding wgmma with the weight as
+the 64-row operand, ``csrc/ftimm_gstream.cuh``).  The planner picks the
+body (``core.gemm.tuner``) among those ``gemm_bodies`` /
+``grouped_bodies`` / ``ragged_bodies`` / ``ragged_dw_bodies`` allow for
+the call's types and operand layouts, a rule decided before the launch;
+the wrapper raises on a body the operands do not allow.  ``body_counts``
+shows which body carried a run.
 
 Each is compiled by ``nvcc`` at first use into a shared library with a plain
 C interface under the git-ignored ``build/ftimm/`` directory of the checkout
@@ -68,7 +73,11 @@ TILES = ((16, 32, 64), (32, 64, 32), (64, 64, 32), (128, 128, 16))
 # csrc), and each kernel's ring depth: the dense GEMM walks long K, a ragged
 # dW group's rows are one or two 64-row steps.
 TC_TILES = ((128, 128, 64), (128, 256, 64))
-TC_STAGES = {"ftimm_gemm": 4, "ftimm_gemm_ragged_dw": 2}
+TC_STAGES = {"ftimm_gemm": 4, "ftimm_gemm_ragged_dw": 2,
+             "ftimm_gemm_grouped": 4, "ftimm_gemm_ragged": 4}
+# The grouped and ragged kernels' one tensor-core tile (GroupedTcTile /
+# RaggedTcTile in csrc).
+GROUP_TC_TILE = TC_TILES[0]
 # The weight-stream body: the compiled row counts (a call of M <= 16 rows
 # runs the smallest that holds M), the output columns of one CTA, the K
 # granularity of a slice, and the shared memory a slice's staged rows may
@@ -77,8 +86,15 @@ STREAM_ROWS = (4, 8, 16)
 STREAM_STRIP = 128
 STREAM_SLICE_STEP = 64
 STREAM_SMEM = 24 * 1024
+# The grouped and ragged weight stream (csrc/ftimm_gstream.cuh): at most
+# GSTREAM_ROWS rows a group (the ragged kernel: in all), 64-row K boxes of
+# a 128-column strip through a GSTREAM_STAGES-deep ring.
+GSTREAM_ROWS = 16
+GSTREAM_STAGES = 4
 BODIES = ("fma", "tc", "stream")
-_BODY_KERNELS = {"ftimm_gemm": BODIES, "ftimm_gemm_ragged_dw": ("fma", "tc")}
+_BODY_KERNELS = {"ftimm_gemm": BODIES, "ftimm_gemm_grouped": BODIES,
+                 "ftimm_gemm_ragged": BODIES,
+                 "ftimm_gemm_ragged_dw": ("fma", "tc")}
 
 # (A dtype, B dtype, output dtype) -> the type code of the C entries
 # (FTIMM_TYPES / FTIMM_MIXED_TYPES in csrc/ftimm_common.cuh).  The mixed
@@ -141,6 +157,16 @@ def smem_bytes(bm: int, bn: int, bk: int, panels: int = 1, *,
     raise ValueError(f"unknown body: {body!r}")
 
 
+def gstream_smem() -> int:
+    """Shared memory of one CTA of the grouped / ragged weight stream: the
+    GSTREAM_STAGES-deep ring of (64 K x 128 N) weight and (64 K x 16 rows)
+    activation boxes, the fp32 (16, 128 + 4) staging tile, the barriers and
+    1 KB to align the ring (csrc/ftimm_gstream.cuh, SMEM)."""
+    stage = STREAM_STRIP * 64 * 2 + GSTREAM_ROWS * 64 * 2
+    return GSTREAM_STAGES * stage + GSTREAM_ROWS * (STREAM_STRIP + 4) * 4 \
+        + 16 * GSTREAM_STAGES + 1024
+
+
 def tma_major(ptr: int, rows: int, k: int, s_rows: int,
               s_k: int) -> str | None:
     """How the tensor-core body reads one operand op(X)(r, k) = X[r * s_rows
@@ -162,6 +188,22 @@ def tma_major(ptr: int, rows: int, k: int, s_rows: int,
     if other == 1:
         return major
     return major if stride % 8 == 0 and stride >= inner else None
+
+
+def tma_major3(ptr: int, g: int, rows: int, k: int, s_g: int, s_rows: int,
+               s_k: int) -> str | None:
+    """``tma_major`` for a grouped operand of ``g`` panels ``s_g`` elements
+    apart: a 2-D map when the panel is shared (``s_g`` 0) or alone, else a
+    rank-3 map, which TMA takes when ``s_g`` is a multiple of 8 elements and
+    at least one panel (csrc/ftimm_tc.cuh, encode_operand)."""
+    major = tma_major(ptr, rows, k, s_rows, s_k)
+    if major is None or g <= 1 or s_g == 0:
+        return major
+    if major == "k":
+        outer, extent = (s_rows if rows > 1 else -(-k // 8) * 8), rows
+    else:
+        outer, extent = (s_k if k > 1 else -(-rows // 8) * 8), k
+    return major if s_g % 8 == 0 and s_g >= outer * extent else None
 
 
 def op_strides(trans: str, a: torch.Tensor,
@@ -198,6 +240,70 @@ def gemm_bodies(a_bytes: int, b_bytes: int, m: int, a_ok: bool, b_ok: bool,
         if a_ok and b_ok:
             bodies.append("tc")
         if m <= STREAM_ROWS[-1] and b_ok:
+            bodies.append("stream")
+    return tuple(bodies)
+
+
+def _group_strides(t: torch.Tensor, rows_first: bool) -> tuple[int, int, int]:
+    """(group, row, k) element strides of op(X) for a 3-D operand, or a
+    2-D one shared by every group (group stride 0)."""
+    gs = t.stride(0) if t.ndim == 3 else 0
+    s0, s1 = t.stride(-2), t.stride(-1)
+    return (gs, s0, s1) if rows_first else (gs, s1, s0)
+
+
+def grouped_operands(a: torch.Tensor, b: torch.Tensor,
+                     trans: str) -> tuple[str | None, bool]:
+    """How TMA reads op(A) of a grouped call ("k", "mn" or None) and
+    whether it can read op(B), as laid out."""
+    m, k, n = mkn(trans, a.shape[-2:], b.shape[-2:])
+    g = a.shape[0] if a.ndim == 3 else b.shape[0]
+    sag, sam, sak = _group_strides(a, trans != "tn")
+    sbg, sbk, sbn = _group_strides(b, trans != "nt")
+    return (tma_major3(a.data_ptr(), g, m, k, sag, sam, sak),
+            tma_major3(b.data_ptr(), g, n, k, sbg, sbn, sbk) is not None)
+
+
+def grouped_bodies(a_bytes: int, b_bytes: int, m: int, a_major: str | None,
+                   b_ok: bool, panels: int = 1) -> tuple[str, ...]:
+    """The bodies of ``ftimm_gemm_grouped`` that can take a call: FMA
+    always; for bf16 x bf16 with op(B) TMA-readable the tensor cores when
+    TMA reads op(A) too (``a_major`` not None), and the weight stream when
+    a group has at most GSTREAM_ROWS rows and op(A) is K-major.  fp32 (the
+    attention products), the mixed pairs and the grouped SwiGLU pair
+    (``panels`` = 2) stay FMA."""
+    bodies = ["fma"]
+    if panels == 1 and a_bytes == b_bytes == 2 and b_ok and a_major:
+        bodies.append("tc")
+        if m <= GSTREAM_ROWS and a_major == "k":
+            bodies.append("stream")
+    return tuple(bodies)
+
+
+def ragged_operands(x: torch.Tensor, w: torch.Tensor,
+                    trans: str) -> tuple[bool, bool]:
+    """Whether TMA reads x (T, K) K-major and the panels op(W_g) as laid
+    out (``trans`` "nn": W (G, K, N); "nt": W (G, N, K))."""
+    (t, k), g = x.shape, w.shape[0]
+    n = w.shape[2] if trans == "nn" else w.shape[1]
+    swk, swn = ((w.stride(1), w.stride(2)) if trans == "nn"
+                else (w.stride(2), w.stride(1)))
+    return (tma_major(x.data_ptr(), t, k, x.stride(0), x.stride(1)) == "k",
+            tma_major3(w.data_ptr(), g, n, k, w.stride(0), swn, swk)
+            is not None)
+
+
+def ragged_bodies(x_bytes: int, w_bytes: int, total: int, x_k: bool,
+                  w_ok: bool, panels: int = 1) -> tuple[str, ...]:
+    """The bodies of ``ftimm_gemm_ragged`` that can take a call: FMA
+    always; for bf16 x bf16 with x K-major and the panels TMA-readable the
+    tensor cores, and the weight stream when all ``total`` rows are at most
+    GSTREAM_ROWS (then no group holds more; the per-group counts stay on
+    the device).  The SwiGLU pair (``panels`` = 2) stays FMA."""
+    bodies = ["fma"]
+    if panels == 1 and x_bytes == w_bytes == 2 and x_k and w_ok:
+        bodies.append("tc")
+        if total <= GSTREAM_ROWS:
             bodies.append("stream")
     return tuple(bodies)
 
@@ -324,11 +430,17 @@ _ARGTYPES = {
     "ftimm_gemm_grouped": [_I, _I, _I, _VP, _VP, _VP, _I, _I, _I, _I, _LL, _LL,
                            _LL, _LL, _LL, _LL, _I, _VP, _LL, _I, _F, _VP, _LL,
                            _I, _VP, _VP],
+    "ftimm_gemm_grouped_stream": [_I, _I, _VP, _VP, _VP, _I, _I, _I, _I, _LL,
+                                  _LL, _LL, _LL, _LL, _LL, _I, _I, _VP, _VP,
+                                  _VP, _LL, _I, _F, _VP, _LL, _I, _VP, _VP],
     "ftimm_gemm_grouped_swiglu": [_I, _I, _I, _VP, _VP, _VP, _VP, _I, _I, _I,
                                   _I, _LL, _LL, _LL, _LL, _LL, _LL, _VP],
     "ftimm_gemm_ragged": [_I, _I, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _LL,
                           _LL, _LL, _LL, _LL, _VP, _LL, _I, _F, _VP, _LL, _I,
                           _VP],
+    "ftimm_gemm_ragged_stream": [_I, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
+                                 _LL, _LL, _LL, _LL, _LL, _I, _I, _VP, _VP,
+                                 _VP, _LL, _I, _F, _VP, _LL, _I, _VP],
     "ftimm_gemm_ragged_swiglu": [_I, _I, _I, _VP, _VP, _VP, _VP, _VP, _I, _I,
                                  _I, _I, _LL, _LL, _LL, _LL, _LL, _VP],
     "ftimm_gemm_ragged_dw": [_I, _I, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
@@ -338,6 +450,10 @@ _ARGTYPES = {
     "ftimm_gemm_splitk": [_I, _I, _I, _VP, _VP, _VP, _I, _I, _I, _I, _I, _LL,
                           _LL, _LL, _LL, _I, _VP],
 }
+# The grouped and ragged tensor-core entries take their FMA entry's arguments
+# but the tile: they run GROUP_TC_TILE.
+_ARGTYPES["ftimm_gemm_grouped_tc"] = [_I] + _ARGTYPES["ftimm_gemm_grouped"][2:]
+_ARGTYPES["ftimm_gemm_ragged_tc"] = [_I] + _ARGTYPES["ftimm_gemm_ragged"][2:]
 _entries: dict[str, object] = {}
 _libs: list[ctypes.CDLL] = []     # keeps the loaded libraries alive
 
@@ -373,7 +489,8 @@ _stream_counters: dict[tuple[torch.device, int], torch.Tensor] = {}
 
 
 def _counters(device: torch.device, n: int) -> torch.Tensor:
-    """The stream body's per-strip arrival counters for the current CUDA
+    """The stream bodies' arrival counters (one per strip; the grouped and
+    ragged streams: one per group and strip) for the current CUDA
     stream of ``device``: zeros between launches (the last CTA of a strip
     resets its own), kept across calls, grown when a call has more strips.
     One buffer per CUDA stream, so launches that share it run one after
@@ -573,14 +690,31 @@ def ftimm_gemm_grouped_plain(a, b, *, trans: str = "nn", out_dtype=None,
     return z.to(out_dtype)
 
 
+def _stream_plan(k: int, kslices: int, name: str) -> tuple[int, int]:
+    """(slice, slices) of the grouped / ragged weight stream; raises on a
+    count the grid cannot hold."""
+    sl, slices = stream_slice(k, kslices)
+    if slices > 65535:
+        raise ValueError(f"{name}: {slices} K slices exceed the grid's y "
+                         "extent")
+    return sl, slices
+
+
 def ftimm_gemm_grouped(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int,
                        bk: int, trans: str = "nn", dim_order: str = "mn",
                        out_dtype=None, epilogue: Epilogue = IDENTITY,
-                       bias=None, residual=None, scale=None) -> torch.Tensor:
+                       bias=None, residual=None, scale=None,
+                       body: str = "fma",
+                       kslices: int = 1) -> torch.Tensor:
     """Grouped GEMM -> (G, M, N).  Either operand may be 3-D (one panel per
     group) or 2-D (one panel shared by every group); at least one is 3-D.
     ``bias`` / ``scale`` are (N,) shared or (G, N) per group, ``residual``
-    (G, M, N)."""
+    (G, M, N).
+
+    ``body``: "fma" runs the (bm, bn, bk) tile of TILES; "tc" runs
+    GROUP_TC_TILE and "stream" cuts K into ``kslices`` slices
+    (``stream_slice``), both whatever the tile.  A body the operands do not
+    allow (``grouped_bodies``) raises."""
     if a.ndim not in (2, 3) or b.ndim not in (2, 3) or a.ndim + b.ndim < 5:
         raise ValueError(f"grouped GEMM needs a 3-D operand: {tuple(a.shape)}"
                          f" x {tuple(b.shape)}")
@@ -604,28 +738,42 @@ def ftimm_gemm_grouped(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int,
         if v is not None and tuple(v.shape) not in ((n,), (g, n)):
             raise ValueError(f"epilogue vector {tuple(v.shape)} is neither "
                              f"({n},) nor ({g}, {n})")
-    tile = tile_id(bm, bn, bk)
+    if body != "fma" and body not in grouped_bodies(
+            a.element_size(), b.element_size(), m,
+            *grouped_operands(a, b, trans)):
+        raise ValueError(f"ftimm_gemm_grouped: the {body} body cannot take "
+                         f"{a.dtype} x {b.dtype}, M = {m}, strides "
+                         f"{a.stride()} x {b.stride()} ({trans})")
     res = _residual(residual if epilogue.residual else None, (g, m, n),
                     a.dtype)
     bias32, scale32 = _vec(bias), _vec(scale)
-
-    def strides(t, rows_first: bool):
-        gs = t.stride(0) if t.ndim == 3 else 0
-        s0, s1 = t.stride(-2), t.stride(-1)
-        return (gs, s0, s1) if rows_first else (gs, s1, s0)
-
-    sag, sam, sak = strides(a, trans != "tn")
-    sbg, sbk, sbn = strides(b, trans != "nt")
+    sag, sam, sak = _group_strides(a, trans != "tn")
+    sbg, sbk, sbn = _group_strides(b, trans != "nt")
     c = torch.empty((g, m, n), dtype=out_dtype, device=a.device)
     if g == 0 or m == 0 or n == 0:
         return c
     has_scale, scale_val, act = _epi_scalars(epilogue)
-    _launch("ftimm_gemm_grouped", a.device, tile, types, a.data_ptr(),
-            b.data_ptr(), c.data_ptr(), g, m, n, k, sag, sam, sak, sbg, sbk,
-            sbn, int(dim_order == "nm"), _ptr(scale32),
-            0 if scale is None or scale.ndim == 1 else n, has_scale, scale_val,
-            _ptr(bias32), 0 if bias is None or bias.ndim == 1 else n, act,
-            _ptr(res))
+    epi = (_ptr(scale32), 0 if scale is None or scale.ndim == 1 else n,
+           has_scale, scale_val, _ptr(bias32),
+           0 if bias is None or bias.ndim == 1 else n, act, _ptr(res))
+    operands = (a.data_ptr(), b.data_ptr(), c.data_ptr(), g, m, n, k, sag,
+                sam, sak, sbg, sbk, sbn)
+    if body == "fma":
+        _launch("ftimm_gemm_grouped", a.device, tile_id(bm, bn, bk), types,
+                *operands, int(dim_order == "nm"), *epi)
+    elif body == "tc":
+        _launch("ftimm_gemm_grouped", a.device, types, *operands,
+                int(dim_order == "nm"), *epi, body="tc")
+    elif body == "stream":
+        sl, slices = _stream_plan(k, kslices, "ftimm_gemm_grouped")
+        ws = (torch.empty((slices, g * m, n), dtype=torch.float32,
+                          device=a.device) if slices > 1 else None)
+        counters = (_counters(a.device, g * -(-n // STREAM_STRIP))
+                    if slices > 1 else None)
+        _launch("ftimm_gemm_grouped", a.device, types, *operands,
+                slices, sl, _ptr(ws), _ptr(counters), *epi, body="stream")
+    else:
+        raise ValueError(f"unknown body: {body!r}")
     return c
 
 
@@ -731,10 +879,12 @@ def ftimm_gemm_ragged(x: torch.Tensor, w: torch.Tensor,
                       group_offsets: torch.Tensor, *, bm: int, bn: int,
                       bk: int, trans: str = "nn", out_dtype=None,
                       epilogue: Epilogue = IDENTITY, bias=None,
-                      scale=None) -> torch.Tensor:
+                      scale=None, body: str = "fma",
+                      kslices: int = 1) -> torch.Tensor:
     """y[o_g:o_{g+1}] = epi(x[o_g:o_{g+1}] . op(W_g)) -> (T, N).  ``w`` is
     (G, K, N) "nn" or (G, N, K) "nt"; ``bias`` / ``scale`` are (N,) shared
-    or (G, N) per group.  There is no residual operand."""
+    or (G, N) per group.  There is no residual operand.  ``body`` as for
+    ``ftimm_gemm_grouped`` (the rule: ``ragged_bodies``)."""
     t, k, n = _ragged_shape(x, w, group_offsets, trans)
     if epilogue.residual:
         raise ValueError("the ragged kernel has no residual operand")
@@ -754,7 +904,12 @@ def ftimm_gemm_ragged(x: torch.Tensor, w: torch.Tensor,
         if v is not None and tuple(v.shape) not in ((n,), (g, n)):
             raise ValueError(f"epilogue vector {tuple(v.shape)} is neither "
                              f"({n},) nor ({g}, {n})")
-    tile = tile_id(bm, bn, bk)
+    if body != "fma" and body not in ragged_bodies(
+            x.element_size(), w.element_size(), t,
+            *ragged_operands(x, w, trans)):
+        raise ValueError(f"ftimm_gemm_ragged: the {body} body cannot take "
+                         f"{x.dtype} x {w.dtype}, T = {t}, strides "
+                         f"{x.stride()} x {w.stride()} ({trans})")
     offs = group_offsets.to(torch.int32).contiguous()
     bias32, scale32 = _vec(bias), _vec(scale)
     swk, swn = ((w.stride(1), w.stride(2)) if trans == "nn"
@@ -763,12 +918,27 @@ def ftimm_gemm_ragged(x: torch.Tensor, w: torch.Tensor,
     if t == 0 or n == 0:
         return c
     has_scale, scale_val, act = _epi_scalars(epilogue)
-    _launch("ftimm_gemm_ragged", x.device, tile, types, x.data_ptr(),
-            w.data_ptr(), offs.data_ptr(), c.data_ptr(), t, n, k, g,
-            x.stride(0), x.stride(1), w.stride(0), swk, swn, _ptr(scale32),
-            0 if scale is None or scale.ndim == 1 else n, has_scale,
-            scale_val, _ptr(bias32), 0 if bias is None or bias.ndim == 1 else n,
-            act)
+    operands = (x.data_ptr(), w.data_ptr(), offs.data_ptr(), c.data_ptr(), t,
+                n, k, g, x.stride(0), x.stride(1), w.stride(0), swk, swn)
+    epi = (_ptr(scale32), 0 if scale is None or scale.ndim == 1 else n,
+           has_scale, scale_val, _ptr(bias32),
+           0 if bias is None or bias.ndim == 1 else n, act)
+    if body == "fma":
+        _launch("ftimm_gemm_ragged", x.device, tile_id(bm, bn, bk), types,
+                *operands, *epi)
+    elif body == "tc":
+        _launch("ftimm_gemm_ragged", x.device, types, *operands, *epi,
+                body="tc")
+    elif body == "stream":
+        sl, slices = _stream_plan(k, kslices, "ftimm_gemm_ragged")
+        ws = (torch.empty((slices, t, n), dtype=torch.float32,
+                          device=x.device) if slices > 1 else None)
+        counters = (_counters(x.device, g * -(-n // STREAM_STRIP))
+                    if slices > 1 else None)
+        _launch("ftimm_gemm_ragged", x.device, types, *operands,
+                slices, sl, _ptr(ws), _ptr(counters), *epi, body="stream")
+    else:
+        raise ValueError(f"unknown body: {body!r}")
     return c
 
 

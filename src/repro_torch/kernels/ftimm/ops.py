@@ -9,8 +9,9 @@ touches device memory.  For the FMA body, requested blocks are clamped to
 the problem extent and mapped onto the compiled tile menu
 (``kernel.TILES``); each compiled tile carries its own K step, so ``bk``
 follows the tile.  The tensor-core body takes a tile of
-``kernel.TC_TILES`` as it is (TMA fills the edges), and the stream body
-its K slice count.  The ragged
+``kernel.TC_TILES`` (the grouped and ragged kernels: ``GROUP_TC_TILE``)
+as it is (TMA fills the edges), and a stream body its K slice count.  The
+ragged
 wrappers pass the device prefix sums straight to the kernels, which find
 each group's rows themselves: the TPU path's host-built visit list
 (``_ragged_metadata``) has no counterpart here.
@@ -114,18 +115,22 @@ def batched_gemm(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
                  bn: int = 128, bk: int = 16, trans: str = "nn",
                  dim_order: str = "mn", out_dtype=None,
                  epilogue: Epilogue | None = None, bias=None, residual=None,
-                 scale=None) -> torch.Tensor:
+                 scale=None, body: str = "fma",
+                 kslices: int = 1) -> torch.Tensor:
     """Batched / grouped entry.  Either operand may be 2-D (shared across
     the batch); ``bias`` and ``scale`` are (N,) shared or (G, N) per group,
-    ``residual`` (G, M, N)."""
+    ``residual`` (G, M, N).  ``body`` picks the FMA, tensor-core or stream
+    body of ``ftimm_gemm_grouped`` (the stream cuts K into ``kslices``)."""
     if dim_order not in ("mn", "nm"):
         raise ValueError(f"unknown dim_order: {dim_order!r}")
-    m, _, n = _k.mkn(trans, a.shape[-2:], b.shape[-2:])
-    bm, bn, bk = clamp_tile(m, n, bm, bn)
+    if body == "fma":
+        m, _, n = _k.mkn(trans, a.shape[-2:], b.shape[-2:])
+        bm, bn, bk = clamp_tile(m, n, bm, bn)
     return _k.ftimm_gemm_grouped(a, b, bm=bm, bn=bn, bk=bk, trans=trans,
                                  dim_order=dim_order, out_dtype=out_dtype,
                                  epilogue=epilogue or _k.IDENTITY, bias=bias,
-                                 residual=residual, scale=scale)
+                                 residual=residual, scale=scale, body=body,
+                                 kslices=kslices)
 
 
 def gemm_swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
@@ -152,17 +157,19 @@ def ragged_gemm(x: torch.Tensor, w: torch.Tensor, group_offsets: torch.Tensor,
                 *, bm: int = 128, bn: int = 128, bk: int = 16,
                 trans: str = "nn", out_dtype=None,
                 epilogue: Epilogue | None = None, bias=None,
-                scale=None) -> torch.Tensor:
+                scale=None, body: str = "fma",
+                kslices: int = 1) -> torch.Tensor:
     """Capacity-free grouped GEMM: y[o_g:o_{g+1}] = x[o_g:o_{g+1}] @ W_g.
     ``w`` (G, K, N) "nn" | (G, N, K) "nt"; ``group_offsets`` (G+1,) prefix
     sums on the operands' device; ``bias`` / ``scale`` per-group (G, N)
-    vectors applied at the flush."""
-    n = w.shape[2] if trans == "nn" else w.shape[1]
-    bm, bn, bk = clamp_tile(x.shape[0], n, bm, bn)
+    vectors applied at the flush.  ``body`` as for ``batched_gemm``."""
+    if body == "fma":
+        n = w.shape[2] if trans == "nn" else w.shape[1]
+        bm, bn, bk = clamp_tile(x.shape[0], n, bm, bn)
     return _k.ftimm_gemm_ragged(x, w, group_offsets, bm=bm, bn=bn, bk=bk,
                                 trans=trans, out_dtype=out_dtype,
                                 epilogue=epilogue or _k.IDENTITY, bias=bias,
-                                scale=scale)
+                                scale=scale, body=body, kslices=kslices)
 
 
 def ragged_gemm_swiglu(x: torch.Tensor, w_gate: torch.Tensor,

@@ -36,8 +36,12 @@ from ..serve.engine import Request, ServeEngine
 GROUPS = (("ftimm_gemm_swiglu", "ftimm_gemm_swiglu_kernel"),
           ("ftimm_gemm_grouped_swiglu", "ftimm_gemm_grouped_swiglu_kernel"),
           ("ftimm_gemm_grouped", "ftimm_gemm_grouped_kernel"),
+          ("ftimm_gemm_grouped stream", "ftimm_gemm_grouped_stream"),
+          ("ftimm_gemm_grouped tensor cores", "ftimm_gemm_grouped_tc_kernel"),
           ("ftimm_gemm_ragged_swiglu", "ftimm_gemm_ragged_swiglu_kernel"),
           ("ftimm_gemm_ragged", "ftimm_gemm_ragged_kernel"),
+          ("ftimm_gemm_ragged stream", "ftimm_gemm_ragged_stream"),
+          ("ftimm_gemm_ragged tensor cores", "ftimm_gemm_ragged_tc_kernel"),
           ("ftimm_gemm stream", "ftimm_gemm_stream_"),
           ("ftimm_gemm tensor cores", "ftimm_gemm_tc_kernel"),
           ("ftimm_gemm fma", "ftimm_gemm_kernel"),

@@ -1,11 +1,16 @@
 """Time the bodies of ``ftimm_gemm`` at the main path's shapes on the card:
 the stream body at each K slice count, the tensor-core tiles in both grid
 orders, the FMA body's planned tile, the planner's own choice, and
-``torch.matmul`` as the yardstick.  It is the measurement the planner's
-stream and tensor-core constants (``core/gemm/cmr.py``) are checked
-against.
+``torch.matmul`` as the yardstick.  The ``moe`` set does the same for
+``ftimm_gemm_grouped`` and ``ftimm_gemm_ragged`` at the MoE expert-down
+shapes of decode, prefill and training (mixtral's capacity buffers,
+llama4's routed rows): the FMA body, the tensor-core tile, the weight
+stream at each slice count, ``ftimm_gemm``'s register stream launched
+once per reached group, beside ``torch.bmm`` /
+``torch._grouped_mm``.  It is the measurement the planner's stream and
+tensor-core constants (``core/gemm/cmr.py``) are checked against.
 
-    PYTHONPATH=src python -m repro_torch.launch.sweep_gemm [--set decode|prefill|train]
+    PYTHONPATH=src python -m repro_torch.launch.sweep_gemm [--set decode|prefill|train|moe]
 
 Each variant is timed by ``launch.timing.time_ms`` (CUDA events around
 calls enqueued behind a sleep kernel, so the card runs them back to back,
@@ -23,7 +28,9 @@ import subprocess
 
 import torch
 
-from ..core.gemm import plan_gemm
+import numpy as np
+
+from ..core.gemm import plan_batched_gemm, plan_gemm, plan_ragged_gemm
 from ..kernels.ftimm import kernel as K
 from .timing import sleep_ms_per_mcycle, time_ms
 
@@ -54,6 +61,158 @@ SETS = {
 }
 
 
+# The MoE expert-down products: (label, kind, groups or routed sizes, rows
+# a group, k, n, trans).  mixtral: 8 experts, capacity 16 at decode (4
+# slots), 48 / 80 at the bucket prefills of 32 / 64 tokens a slot, 320 in
+# training (8 x 128 tokens, top-2); training also runs the dX ("nt") and dW
+# ("tn").  llama4: 16 experts, top-1, 4 decode rows to 4 experts, 256
+# prefill rows and 1024 training rows routed at random (seed 5 / 7); its
+# training runs the forward, the fp32 remat of the gate / up pair and the
+# dX ("nt").
+_L4 = 16
+
+
+def _routed(total, seed):
+    return np.random.default_rng(seed).multinomial(
+        total, [1.0 / _L4] * _L4).tolist()
+
+
+MOE = [("mixtral decode down", "grouped", 8, 16, 14336, 4096, "nn", BF16),
+       ("mixtral bucket32 down", "grouped", 8, 48, 14336, 4096, "nn", BF16),
+       ("mixtral bucket64 down", "grouped", 8, 80, 14336, 4096, "nn", BF16),
+       ("mixtral train down", "grouped", 8, 320, 14336, 4096, "nn", BF16),
+       ("mixtral train down dX", "grouped", 8, 320, 4096, 14336, "nt", BF16),
+       ("mixtral train down dW", "grouped", 8, 14336, 320, 4096, "tn", BF16),
+       ("llama4 decode down", "ragged", [1, 0, 0, 0] * 4, 0, 8192, 5120,
+        "nn", BF16),
+       ("llama4 bucket64 down", "ragged", _routed(256, 5), 0, 8192, 5120,
+        "nn", BF16),
+       ("llama4 train down", "ragged", _routed(1024, 7), 0, 8192, 5120, "nn",
+        BF16),
+       ("llama4 train gate remat", "ragged", _routed(1024, 7), 0, 5120, 8192,
+        "nn", F32),
+       ("llama4 train down dX", "ragged", _routed(1024, 7), 0, 5120, 8192,
+        "nt", BF16)]
+
+
+def moe_inputs(kind, groups, m, k, n, trans, gen, dev):
+    """One set of operands: grouped (a, b); ragged (x, w, offsets)."""
+    if kind == "grouped":
+        sa = (groups, k, m) if trans == "tn" else (groups, m, k)
+        sb = (groups, n, k) if trans == "nt" else (groups, k, n)
+        return (torch.randn(sa, generator=gen, device=dev).to(BF16),
+                (torch.randn(sb, generator=gen, device=dev)
+                 * k ** -0.5).to(BF16))
+    t = sum(groups)
+    w_shape = (len(groups), k, n) if trans == "nn" else (len(groups), n, k)
+    offs = torch.tensor([0, *np.cumsum(groups).tolist()], dtype=torch.int32,
+                        device=dev)
+    return (torch.randn((t, k), generator=gen, device=dev).to(BF16),
+            (torch.randn(w_shape, generator=gen, device=dev)
+             * k ** -0.5).to(BF16), offs)
+
+
+def moe_variants(kind, groups, m, k, n, trans, out):
+    """(name, fn(*inputs)) for every body and slice count that can take
+    the shape, ftimm_gemm's register stream once per reached group, and the
+    library call."""
+    ob = out.itemsize
+    if kind == "grouped":
+        g, rows = groups, m
+        major = "mn" if trans == "tn" else "k"
+        planned = plan_batched_gemm(g, m, k, n, 2, ob, "none", b_bytes=2,
+                                    a_major=major)
+        fma = plan_batched_gemm(g, m, k, n, 2, ob, "none", a_major=None)
+        allowed = K.grouped_bodies(2, 2, m, major, True)
+        kern = K.ftimm_gemm_grouped
+    else:
+        g, rows = len(groups), sum(groups)
+        planned = plan_ragged_gemm(g, rows, k, n, 2, ob)
+        fma = plan_ragged_gemm(g, rows, k, n, 2, ob, a_ok=False)
+        allowed = K.ragged_bodies(2, 2, rows, True, True)
+        kern = K.ftimm_gemm_ragged
+    vs = [(f"planned {planned.body} {planned.bm}x{planned.bn}x{planned.bk}"
+           f" ks={planned.kslices}", dict(planned.kernel_kwargs())),
+          (f"fma {fma.bm}x{fma.bn}x{fma.bk}", dict(fma.kernel_kwargs()))]
+    if "tc" in allowed:
+        bm, bn, bk = K.GROUP_TC_TILE
+        for order in (("mn", "nm") if kind == "grouped" else ("mn",)):
+            vs.append((f"tc {bm}x{bn} {order}", dict(
+                bm=bm, bn=bn, bk=bk, dim_order=order, body="tc")))
+    if "stream" in allowed:
+        for want in (1, 2, 4, 8, 16):
+            sl, slices = K.stream_slice(k, want)
+            if want != slices:
+                continue
+            vs.append((f"stream ks={slices}",
+                       dict(bm=K.GSTREAM_ROWS, bn=K.STREAM_STRIP, bk=sl,
+                            body="stream", kslices=slices)))
+    for name, kw in vs:
+        kw.pop("nsplit", None)
+        if kind == "ragged":
+            kw.pop("dim_order", None)
+        yield name, (lambda *ins, kw=kw: kern(*ins, trans=trans,
+                                               out_dtype=out, **kw))
+    if "stream" in allowed:
+        # ftimm_gemm's register stream body, one launch per reached group.
+        plan = plan_gemm(rows if kind == "grouped" else 1, k, n, 2, ob)
+        kw = dict(bm=plan.bm, bn=plan.bn, bk=plan.bk, body="stream",
+                  kslices=plan.kslices, trans=trans, out_dtype=out)
+        if kind == "grouped":
+            yield (f"ftimm_gemm stream x{g} ks={plan.kslices}",
+                   lambda a, b: torch.stack([K.ftimm_gemm(a[i], b[i], **kw)
+                                             for i in range(g)]))
+        else:
+            bounds = np.cumsum([0, *groups]).tolist()
+            reached = [i for i in range(g) if groups[i]]
+
+            def per_group(x, w, offs):
+                y = torch.zeros((rows, n), dtype=out, device=x.device)
+                for i in reached:
+                    lo, hi = bounds[i], bounds[i + 1]
+                    y[lo:hi] = K.ftimm_gemm(x[lo:hi], w[i], **kw)
+                return y
+            yield f"ftimm_gemm stream x{len(reached)} ks={plan.kslices}", \
+                per_group
+    if kind == "grouped":
+        yield "torch.bmm", lambda a, b: torch.bmm(
+            a.transpose(1, 2) if trans == "tn" else a,
+            b.transpose(1, 2) if trans == "nt" else b).to(out)
+    elif trans == "nn":
+        yield "torch._grouped_mm", lambda x, w, offs: torch._grouped_mm(
+            x, w, offs=offs[1:]).to(out)
+
+
+def moe_rows(args, gen, dev, sleep_ms) -> list[dict]:
+    rows = []
+    for label, kind, groups, m, k, n, trans, out in MOE:
+        inputs = [moe_inputs(kind, groups, m, k, n, trans, gen, dev)]
+        nbytes = sum(t.numel() * t.element_size() for t in inputs[0])
+        while len(inputs) * nbytes < 3 * L2_BYTES and len(inputs) < 64:
+            inputs.append(moe_inputs(kind, groups, m, k, n, trans, gen, dev))
+        reps = max(args.reps, len(inputs))
+        ref = None
+        for name, fn in moe_variants(kind, groups, m, k, n, trans, out):
+            try:
+                got = fn(*inputs[0]).float()
+            except (RuntimeError, TypeError, ValueError) as e:
+                print(f"{label:24s} {name:32s} skipped: "
+                      f"{str(e).splitlines()[0][:100]}", flush=True)
+                continue
+            ref = got if ref is None else ref
+            err = ((got - ref).abs().max() / ref.abs().max()).item()
+            ms = time_ms(fn, inputs, reps, sleep_ms)
+            rows.append({"set": "moe", "shape": label, "kind": kind,
+                         "groups": groups, "m": m, "k": k, "n": n,
+                         "trans": trans, "variant": name, "us": ms * 1e3,
+                         "normwise_vs_first": err})
+            print(f"{label:24s} {kind} {m}x{k}x{n} {trans}  {name:34s} "
+                  f"{ms * 1e3:9.1f} us  (vs first {err:.1e})", flush=True)
+        del inputs
+        torch.cuda.empty_cache()
+    return rows
+
+
 def variants(m, k, n, trans, out):
     """(name, fn(a, b)) for every body that can take the shape."""
     out_bytes = torch.tensor([], dtype=out).element_size()
@@ -82,18 +241,21 @@ def variants(m, k, n, trans, out):
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--set", choices=sorted(SETS), nargs="+",
-                    default=sorted(SETS))
+    ap.add_argument("--set", choices=sorted([*SETS, "moe"]), nargs="+",
+                    default=sorted([*SETS, "moe"]))
     ap.add_argument("--reps", type=int, default=50)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("sweep_gemm needs a CUDA card")
     dev = torch.device("cuda", 0)
-    K.build(["ftimm_gemm"])
+    K.build(["ftimm_gemm", "ftimm_gemm_grouped", "ftimm_gemm_ragged"])
     sleep_ms = sleep_ms_per_mcycle()
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
     for set_name in args.set:
+        if set_name == "moe":
+            rows += moe_rows(args, gen, dev, sleep_ms)
+            continue
         for label, m, k, n, trans, out in SETS[set_name]:
             sa = (k, m) if trans == "tn" else (m, k)
             sb = (n, k) if trans == "nt" else (k, n)

@@ -3,9 +3,12 @@ choice among the bodies (CPU: the rule and the planner are plain Python).
 
 ``ftimm_gemm`` has an FMA body (any types and strides), a tensor-core body
 (bf16 x bf16, both operands TMA-readable) and a K-parallel weight stream
-(bf16 x bf16, at most 16 rows, B vector-readable); ``ftimm_gemm_ragged_dw``
-the first two.  ``plan_gemm`` / ``plan_ragged_gemm`` pick the body from the
-CMR model among those the rule allows; the split-K kernel stays off every
+(bf16 x bf16, at most 16 rows, B vector-readable); ``ftimm_gemm_grouped``
+and ``ftimm_gemm_ragged`` the same three (their stream: at most 16 rows a
+group, or in all for the ragged kernel, A K-major; their panels through
+3-D tensor maps); ``ftimm_gemm_ragged_dw`` the first two.  ``plan_gemm`` /
+``plan_batched_gemm`` / ``plan_ragged_gemm`` pick the body from the CMR
+model among those the rule allows; the split-K kernel stays off every
 model path (``nsplit`` 1, as in the reference).
 """
 import pytest
@@ -13,8 +16,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core.gemm import (H100, estimate_stream, plan_gemm,  # noqa: E402
-                                   plan_ragged_gemm)
+from repro_torch.core.gemm import (H100, estimate_stream, plan_batched_gemm,  # noqa: E402
+                                   plan_gemm, plan_ragged_gemm)
 from repro_torch.core.gemm.cmr import STREAM_CTAS_PER_SM  # noqa: E402
 from repro_torch.kernels.ftimm import kernel as K  # noqa: E402
 
@@ -223,3 +226,241 @@ def test_cpu_tensors_take_the_plain_version_whatever_the_body(body):
     assert torch.equal(got, K.ftimm_gemm_plain(a, b))
     assert K.launch_counts()["ftimm_gemm"] == 0
     assert sum(K.body_counts()["ftimm_gemm"].values()) == 0
+
+
+# ---------------------------------------------------------------------------
+# The grouped and ragged kernels' bodies
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("a,b,m,a_major,b_ok,panels,want", [
+    (2, 2, 16, "k", True, 1, ("fma", "tc", "stream")),   # mixtral decode
+    (2, 2, 1, "k", True, 1, ("fma", "tc", "stream")),
+    (2, 2, 17, "k", True, 1, ("fma", "tc")),
+    (2, 2, 320, "k", True, 1, ("fma", "tc")),             # mixtral train
+    (2, 2, 16, "mn", True, 1, ("fma", "tc")),             # tn: A MN-major
+    (2, 2, 16, None, True, 1, ("fma",)),
+    (2, 2, 16, "k", False, 1, ("fma",)),
+    (4, 4, 2, "k", True, 1, ("fma",)),                    # fp32 attention
+    (2, 4, 320, "k", True, 1, ("fma",)),                  # bf16 x fp32
+    (4, 2, 320, "k", True, 1, ("fma",)),                  # fp32 x bf16
+    (2, 2, 16, "k", True, 2, ("fma",)),                   # the SwiGLU pair
+])
+def test_grouped_body_rule(a, b, m, a_major, b_ok, panels, want):
+    assert K.grouped_bodies(a, b, m, a_major, b_ok, panels) == want
+
+
+@pytest.mark.parametrize("x,w,total,x_k,w_ok,panels,want", [
+    (2, 2, 4, True, True, 1, ("fma", "tc", "stream")),    # llama4 decode
+    (2, 2, 16, True, True, 1, ("fma", "tc", "stream")),
+    (2, 2, 17, True, True, 1, ("fma", "tc")),
+    (2, 2, 1024, True, True, 1, ("fma", "tc")),           # llama4 train
+    (2, 2, 4, False, True, 1, ("fma",)),                  # x not K-major
+    (2, 2, 4, True, False, 1, ("fma",)),
+    (4, 2, 1024, True, True, 1, ("fma",)),                # fp32 cotangent
+    (4, 4, 4, True, True, 1, ("fma",)),
+    (2, 2, 4, True, True, 2, ("fma",)),                   # the SwiGLU pair
+])
+def test_ragged_body_rule(x, w, total, x_k, w_ok, panels, want):
+    assert K.ragged_bodies(x, w, total, x_k, w_ok, panels) == want
+
+
+@pytest.mark.parametrize("g,rows,k,s_g,s_rows,s_k,want", [
+    (8, 16, 14336, 16 * 14336, 14336, 1, "k"),      # A (G, M, K)
+    (8, 4096, 14336, 14336 * 4096, 1, 4096, "mn"),  # B (G, K, N): N unit
+    (8, 16, 14336, 0, 14336, 1, "k"),               # shared: a 2-D map
+    (1, 16, 64, 3, 64, 1, "k"),                     # one group: 2-D
+    (8, 16, 64, 16 * 64 + 4, 64, 1, None),          # group stride 8 bytes off
+    (8, 16, 64, 15 * 64, 64, 1, None),              # panels overlap
+    (8, 1, 72, 72, 999, 1, "k"),                    # one row: K padded to 72
+    (8, 1, 70, 70, 999, 1, None),                   # ... 70 is not 16 bytes
+])
+def test_tma_major3_rule(g, rows, k, s_g, s_rows, s_k, want):
+    assert K.tma_major3(0, g, rows, k, s_g, s_rows, s_k) == want
+
+
+@pytest.mark.parametrize("trans", ["nn", "tn", "nt"])
+@pytest.mark.parametrize("shared", ["none", "a", "b"])
+def test_grouped_operands_follow_layout(trans, shared):
+    g, m, k, n = 4, 16, 256, 128
+    sa = {"nn": (m, k), "tn": (k, m), "nt": (m, k)}[trans]
+    sb = {"nn": (k, n), "tn": (k, n), "nt": (n, k)}[trans]
+    a = torch.zeros(sa if shared == "a" else (g,) + sa, dtype=BF16)
+    b = torch.zeros(sb if shared == "b" else (g,) + sb, dtype=BF16)
+    major, b_ok = K.grouped_operands(a, b, trans)
+    assert (major, b_ok) == ("mn" if trans == "tn" else "k", True)
+    # a group stride that is not a whole number of 16 bytes
+    big = torch.zeros(g * (m * k + 4), dtype=BF16)
+    a_odd = big.as_strided((g, m, k), (m * k + 4, k, 1))
+    assert K.grouped_operands(a_odd, b if b.ndim == 3 else b.expand(
+        (g,) + sb), "nn" if trans == "tn" else trans)[0] is None
+
+
+def test_ragged_operands_follow_layout():
+    x = torch.zeros(4, 512, dtype=BF16)
+    w = torch.zeros(16, 512, 256, dtype=BF16)
+    assert K.ragged_operands(x, w, "nn") == (True, True)
+    assert K.ragged_operands(x, w.transpose(1, 2), "nt") == (True, True)
+    assert K.ragged_operands(x.t().contiguous().t(), w, "nn")[0] is False
+    assert K.ragged_operands(x[:, 1:257], w[:, :256], "nn")[0] is False
+
+
+def _moe(arch):
+    c = get_config(arch)
+    return c, c.num_experts, c.d_model, c.d_ff
+
+
+def _capacity(tokens, cfg):
+    from repro_torch.models.moe import capacity
+    return capacity(tokens, cfg.num_experts, cfg.top_k, cfg.capacity_factor,
+                    dtype=BF16)
+
+
+def test_plan_moe_decode_takes_the_stream():
+    """mixtral's 16-row capacity buffers (4 decode slots) and llama4's 4
+    routed rows: the expert-down product plans the grouped / ragged stream
+    with its slices covering K, none empty."""
+    mix, e, d, f = _moe("mixtral-8x7b")
+    c = _capacity(4, mix)
+    assert c == 16
+    l4, e4, d4, f4 = _moe("llama4-scout-17b-a16e")
+    plans = [(plan_batched_gemm(e, c, f, d, 2, 2, "none"), f),
+             (plan_ragged_gemm(e4, 4, f4, d4, 2, 2), f4)]
+    for plan, k in plans:
+        assert plan.body == "stream" and plan.bm == K.GSTREAM_ROWS
+        assert plan.bn == K.STREAM_STRIP and plan.nsplit == 1
+        sl, slices = K.stream_slice(k, plan.kslices)
+        assert (sl, slices) == (plan.bk, plan.kslices)
+        assert (slices - 1) * sl < k <= slices * sl
+        assert plan.est.smem_bytes == K.gstream_smem()
+
+
+def test_plan_moe_prefill_and_train_take_tensor_cores():
+    """mixtral's bucket-prefill and training capacities (48, 80, 320) and
+    llama4's 256 / 1024 routed rows, bf16: forward, remat (fp32 out), dX
+    ("nt") and the grouped dW ("tn") plan the tensor cores."""
+    mix, e, d, f = _moe("mixtral-8x7b")
+    for tokens in (128, 256, 1024):
+        c = _capacity(tokens, mix)
+        for (m, k, n), major in (((c, f, d), "k"), ((c, d, f), "k"),
+                                 ((f, c, d), "mn")):
+            for out in (2, 4):
+                plan = plan_batched_gemm(e, m, k, n, 2, out, "none",
+                                         a_major=major)
+                assert plan.body == "tc", (tokens, m, k, n, plan)
+                assert (plan.bm, plan.bn, plan.bk) == K.GROUP_TC_TILE
+    l4, e4, d4, f4 = _moe("llama4-scout-17b-a16e")
+    for t in (256, 1024):
+        for k, n in ((f4, d4), (d4, f4)):
+            for out in (2, 4):
+                plan = plan_ragged_gemm(e4, t, k, n, 2, out)
+                assert plan.body == "tc", (t, k, n, plan)
+                assert (plan.bm, plan.bn, plan.bk) == K.GROUP_TC_TILE
+
+
+def test_plan_keeps_attention_mixed_and_swiglu_on_fma():
+    """fp32 attention (QK^T and PV groups), the mixed bf16 x fp32 pairs and
+    the SwiGLU pairs plan the FMA body at every MoE shape."""
+    mix, e, d, f = _moe("mixtral-8x7b")
+    l4, e4, d4, f4 = _moe("llama4-scout-17b-a16e")
+    for g, m, k, n in ((32, 2, 128, 96), (32, 128, 128, 128),
+                       (32, 128, 128, 64)):
+        assert plan_batched_gemm(g, m, k, n, 4, 4, "none").body == "fma"
+    for c in (16, 320):
+        for a, b in ((2, 4), (4, 2), (4, 4)):
+            plan = plan_batched_gemm(e, c, f, d, a, 4, "none", b_bytes=b)
+            assert plan.body == "fma" and (plan.bm, plan.bn, plan.bk) in K.TILES
+        assert plan_batched_gemm(e, c, d, f, 2, 2, "none",
+                                 panels=2).body == "fma"
+    for t in (4, 1024):
+        for a, b in ((2, 4), (4, 2), (4, 4)):
+            assert plan_ragged_gemm(e4, t, f4, d4, a, 4,
+                                    b_bytes=b).body == "fma"
+        assert plan_ragged_gemm(e4, t, d4, f4, 2, 2, panels=2).body == "fma"
+        assert plan_ragged_gemm(e4, t, f4, d4, 2, 2, a_ok=False).body == "fma"
+
+
+def test_group_stream_ring_fits_shared_memory():
+    """The ring's shared memory (the stages, the staging tile, the
+    barriers, the alignment slack) fits a block's 227 KB."""
+    stage = K.STREAM_STRIP * 64 * 2 + K.GSTREAM_ROWS * 64 * 2
+    assert stage % 1024 == 0                   # boxes stay 1 KB aligned
+    got = K.gstream_smem()
+    assert K.GSTREAM_STAGES * stage < got <= H100.smem_per_block
+
+
+@pytest.mark.parametrize("k", [1032, 8192, 14336, 5120, 64, 65])
+@pytest.mark.parametrize("kslices", [1, 2, 3, 4, 8, 16])
+def test_group_stream_slices_cover_k(k, kslices):
+    sl, slices = K.stream_slice(k, kslices)
+    assert sl % K.STREAM_SLICE_STEP == 0 and 1 <= slices <= kslices
+    assert (slices - 1) * sl < k <= slices * sl
+
+
+def test_group_stream_slices_fill_the_card():
+    """At the MoE decode shapes the planned grid (strips x slices x reached
+    groups) fills the card's 132 SMs, and fewer slices win where it does."""
+    from repro_torch.core.gemm import estimate_group_stream
+    for groups, rows, k, n in ((8, 128, 14336, 4096), (4, 4, 8192, 5120)):
+        if rows == 4:
+            plan = plan_ragged_gemm(16, rows, k, n, 2, 2)
+        else:
+            plan = plan_batched_gemm(groups, rows // groups, k, n, 2, 2,
+                                     "none")
+        ctas = groups * -(-n // K.STREAM_STRIP) * plan.kslices
+        assert ctas >= H100.sms
+        more = estimate_group_stream(groups, rows, k, n,
+                                     kslices=plan.kslices * 2)
+        assert more.t_total >= plan.est.t_total
+
+
+@pytest.mark.parametrize("body", ["tc", "stream"])
+def test_grouped_and_ragged_cpu_tensors_take_the_plain_version(body):
+    """The device decides: on the CPU every body of the grouped and ragged
+    kernels is the plain version, and no launch is counted."""
+    g = torch.Generator().manual_seed(0)
+    a = torch.randn(3, 4, 96, generator=g).to(BF16)
+    b = torch.randn(3, 96, 40, generator=g).to(BF16)
+    x = torch.randn(5, 96, generator=g).to(BF16)
+    offs = torch.tensor([0, 2, 2, 4], dtype=torch.int32)
+    K.reset_launch_counts()
+    got = K.ftimm_gemm_grouped(a, b, bm=128, bn=128, bk=64, body=body,
+                               kslices=3)
+    assert torch.equal(got, K.ftimm_gemm_grouped_plain(a, b))
+    got = K.ftimm_gemm_ragged(x, b, offs, bm=128, bn=128, bk=64, body=body,
+                              kslices=3)
+    assert torch.equal(got, K.ftimm_gemm_ragged_plain(x, b, offs))
+    assert not got[4:].any()
+    assert K.launch_counts()["ftimm_gemm_grouped"] == 0
+    assert K.launch_counts()["ftimm_gemm_ragged"] == 0
+    for kernel in ("ftimm_gemm_grouped", "ftimm_gemm_ragged"):
+        assert sum(K.body_counts()[kernel].values()) == 0
+
+
+def _c_entries() -> dict[str, list]:
+    """{entry key: ctypes of its parameters} from the ``extern "C"``
+    signatures in csrc/*.cu."""
+    import ctypes
+    import re
+    ctype = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+             "float": ctypes.c_float}
+    entries = {}
+    for src in sorted(K.CSRC.glob("*.cu")):
+        for name, params in re.findall(r'extern "C" int (\w+)_launch\((.*?)\)',
+                                       src.read_text(), re.S):
+            types = []
+            for p in params.split(","):
+                decl = " ".join(p.split()).rsplit(" ", 1)[0]
+                types.append(ctypes.c_void_p if "*" in p
+                             else ctype[decl.replace("const ", "")])
+            entries[name] = types
+    return entries
+
+
+@pytest.mark.parametrize("key", sorted(K._ARGTYPES))
+def test_ctypes_signatures_match_the_c_entries(key):
+    """Each C entry's ctypes argument list (kernel._ARGTYPES) has the
+    entry's parameters, in order: a mismatch would pass wrong values to the
+    kernel without an error."""
+    entries = _c_entries()
+    assert sorted(entries) == sorted(K._ARGTYPES)
+    assert entries[key] == K._ARGTYPES[key]

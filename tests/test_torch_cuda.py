@@ -659,3 +659,207 @@ def test_ragged_dw_t0_and_planned_body(dev):
     _close(got, want)
     _close(got_t, want)
     assert K.body_counts()["ftimm_gemm_ragged_dw"] == {"fma": 1, "tc": 1}
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core and weight-stream bodies of the grouped and ragged
+# kernels.  K = 1032 is not a multiple of the 64-deep box, N = 264 not one
+# of the 128-column tile or strip: every group's K edge is a box tail (the
+# 3-D maps zero-fill it).  Two runs of each call must give the same bits.
+# ---------------------------------------------------------------------------
+
+GK, GN = 1032, 264
+
+
+def _grouped_operands(trans, g, m, shared, dev, seed):
+    a, b = _operands(trans, m, GK, GN, BF16, dev, seed=seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    if shared != "a":
+        a = torch.randn((g,) + tuple(a.shape), generator=gen,
+                        device=dev).to(BF16)
+    if shared != "b":
+        b = (torch.randn((g,) + tuple(b.shape), generator=gen, device=dev)
+             * GK ** -0.5).to(BF16)
+    return a, b
+
+
+def _twice(fn):
+    runs = [fn(), fn()]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    return runs[0]
+
+
+@pytest.mark.parametrize("trans", ["nn", "tn", "nt"])
+@pytest.mark.parametrize("m", [16, 200])
+@pytest.mark.parametrize("shared", ["none", "a", "b"])
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+def test_grouped_tc_body(dev, trans, m, shared, out):
+    a, b = _grouped_operands(trans, 5, m, shared, dev, seed=40)
+    K.reset_launch_counts()
+    for order in ("mn", "nm"):
+        got = _twice(lambda: K.ftimm_gemm_grouped(
+            a, b, bm=128, bn=128, bk=64, trans=trans, dim_order=order,
+            out_dtype=out, body="tc"))
+        _close(got, K.ftimm_gemm_grouped_plain(a, b, trans=trans,
+                                               out_dtype=out))
+    assert K.body_counts()["ftimm_gemm_grouped"] == {"fma": 0, "tc": 4,
+                                                     "stream": 0}
+
+
+@pytest.mark.parametrize("trans", ["nn", "nt"])
+@pytest.mark.parametrize("m", [1, 4, 16])
+@pytest.mark.parametrize("kslices", [1, 3])
+@pytest.mark.parametrize("shared", ["none", "a", "b"])
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+def test_grouped_stream_body(dev, trans, m, kslices, shared, out):
+    a, b = _grouped_operands(trans, 5, m, shared, dev, seed=42)
+    K.reset_launch_counts()
+    got = _twice(lambda: K.ftimm_gemm_grouped(
+        a, b, bm=16, bn=128, bk=64, trans=trans, out_dtype=out,
+        body="stream", kslices=kslices))
+    _close(got, K.ftimm_gemm_grouped_plain(a, b, trans=trans, out_dtype=out))
+    assert K.body_counts()["ftimm_gemm_grouped"]["stream"] == 2
+
+
+@pytest.mark.parametrize("body,m,kslices", [("tc", 200, 1), ("stream", 16, 1),
+                                            ("stream", 4, 3)])
+@pytest.mark.parametrize("per_group", [False, True])
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+def test_grouped_new_bodies_epilogue(dev, body, m, kslices, per_group, out):
+    """(G, N) or (N,) bias and scale vectors, the scalar scale, the
+    activations and the (G, M, N) residual at the flush."""
+    g = 3
+    a, b = _grouped_operands("nn", g, m, "none", dev, seed=46)
+    gen = torch.Generator(device=dev).manual_seed(47)
+    vshape = (g, GN) if per_group else (GN,)
+    bias = torch.randn(vshape, generator=gen, device=dev)
+    scale = torch.rand(vshape, generator=gen, device=dev)
+    res = torch.randn(g, m, GN, generator=gen, device=dev).to(BF16)
+    for epi in (Epilogue(bias=True, activation="silu", residual=True),
+                Epilogue(scale_vec=True, scale=0.5, activation="gelu")):
+        kw = dict(epilogue=epi, bias=bias if epi.bias else None,
+                  residual=res if epi.residual else None,
+                  scale=scale if epi.scale_vec else None, out_dtype=out)
+        got = _twice(lambda: K.ftimm_gemm_grouped(
+            a, b, bm=128 if body == "tc" else 16, bn=128, bk=64, body=body,
+            kslices=kslices, **kw))
+        _close(got, K.ftimm_gemm_grouped_plain(a, b, **kw))
+
+
+def test_grouped_bodies_refuse_what_they_cannot_take(dev):
+    a, b = _grouped_operands("nn", 3, 17, "none", dev, seed=48)
+    with pytest.raises(ValueError):       # 17 rows: not the stream
+        K.ftimm_gemm_grouped(a, b, bm=16, bn=128, bk=64, body="stream")
+    with pytest.raises(ValueError):       # fp32: FMA only
+        K.ftimm_gemm_grouped(a.float(), b.float(), bm=128, bn=128, bk=64,
+                             body="tc")
+    a, b = _grouped_operands("nn", 3, 16, "none", dev, seed=49)
+    at = a.transpose(1, 2).contiguous().transpose(1, 2)   # A MN-major
+    with pytest.raises(ValueError):       # the stream reads A K-major
+        K.ftimm_gemm_grouped(at, b, bm=16, bn=128, bk=64, body="stream")
+    got = _twice(lambda: K.ftimm_gemm_grouped(at, b, bm=128, bn=128, bk=64,
+                                              body="tc"))
+    _close(got, K.ftimm_gemm_grouped_plain(at, b))
+
+
+# Ragged distributions.  The stream (T <= 16): 4 rows to 4 groups, a group
+# of exactly 16 rows, empty groups, rows outside every group.  The tensor
+# cores: one group over several chunks, skewed, empty groups, a tail.
+STREAM_DISTS = [([1, 0, 0, 1, 0, 1, 1, 0], 0), ([0, 16, 0], 0),
+                ([5, 0, 7, 3, 0], 0), ([2, 0, 3], 4), ([1], 0)]
+RAGGED_TC_DISTS = [([3, 150, 2], 0), ([0, 200, 1, 0, 0, 0, 0, 55], 0),
+                   ([5, 0, 17, 3, 0], 0), ([40, 0, 88], 7), ([0, 16, 0], 0)]
+
+
+def _ragged_operands(sizes, tail, trans, dev, seed):
+    g, t = len(sizes), sum(sizes) + tail
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(t, GK, generator=gen, device=dev).to(BF16)
+    w_shape = (g, GK, GN) if trans == "nn" else (g, GN, GK)
+    w = (torch.randn(w_shape, generator=gen, device=dev)
+         * GK ** -0.5).to(BF16)
+    return x, w, _offsets(sizes, dev)
+
+
+@pytest.mark.parametrize("body,dist", [("stream", d) for d in STREAM_DISTS]
+                         + [("tc", d) for d in RAGGED_TC_DISTS])
+@pytest.mark.parametrize("trans", ["nn", "nt"])
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+def test_ragged_new_bodies(dev, body, dist, trans, out):
+    sizes, tail = dist
+    x, w, offs = _ragged_operands(sizes, tail, trans, dev, seed=50)
+    K.reset_launch_counts()
+    for kslices in ((1, 3) if body == "stream" else (1,)):
+        got = _twice(lambda: K.ftimm_gemm_ragged(
+            x, w, offs, bm=128 if body == "tc" else 16, bn=128, bk=64,
+            trans=trans, out_dtype=out, body=body, kslices=kslices))
+        want = K.ftimm_gemm_ragged_plain(x, w, offs, trans=trans,
+                                         out_dtype=out)
+        _close(got, want)
+        if tail:
+            assert not got[sum(sizes):].any()
+    assert K.body_counts()["ftimm_gemm_ragged"][body] == (
+        4 if body == "stream" else 2)
+
+
+@pytest.mark.parametrize("body,dist", [("stream", ([5, 0, 7, 3, 0], 0)),
+                                       ("tc", ([3, 150, 2, 0], 5))])
+@pytest.mark.parametrize("per_group", [False, True])
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+def test_ragged_new_bodies_epilogue(dev, body, dist, per_group, out):
+    sizes, tail = dist
+    g = len(sizes)
+    x, w, offs = _ragged_operands(sizes, tail, "nn", dev, seed=52)
+    gen = torch.Generator(device=dev).manual_seed(53)
+    vshape = (g, GN) if per_group else (GN,)
+    bias = torch.randn(vshape, generator=gen, device=dev)
+    scale = torch.rand(vshape, generator=gen, device=dev)
+    for epi in (Epilogue(bias=True, activation="silu"),
+                Epilogue(scale_vec=True, scale=0.5, activation="gelu")):
+        kw = dict(epilogue=epi, bias=bias if epi.bias else None,
+                  scale=scale if epi.scale_vec else None, out_dtype=out)
+        got = _twice(lambda: K.ftimm_gemm_ragged(
+            x, w, offs, bm=128 if body == "tc" else 16, bn=128, bk=64,
+            body=body, kslices=2, **kw))
+        _close(got, K.ftimm_gemm_ragged_plain(x, w, offs, **kw))
+
+
+def test_ragged_bodies_refuse_what_they_cannot_take(dev):
+    x, w, offs = _ragged_operands([5, 0, 12], 0, "nn", dev, seed=54)
+    with pytest.raises(ValueError):       # 17 rows: not the stream
+        K.ftimm_gemm_ragged(x, w, offs, bm=16, bn=128, bk=64, body="stream")
+    with pytest.raises(ValueError):       # an fp32 cotangent: FMA only
+        K.ftimm_gemm_ragged(x.float(), w, offs, bm=128, bn=128, bk=64,
+                            body="tc")
+    xt = x.t().contiguous().t()           # x not K-major
+    with pytest.raises(ValueError):
+        K.ftimm_gemm_ragged(xt, w, offs, bm=128, bn=128, bk=64, body="tc")
+
+
+@pytest.mark.parametrize("rows,body", [(16, "stream"), (320, "tc")])
+def test_grouped_planned_body_through_dispatch(dev, rows, body):
+    """grouped_matmul plans the body: the stream at 16 rows a group, the
+    tensor cores at mixtral's training capacity; fp32 stays FMA."""
+    from repro_torch.core.gemm import batched_matmul, grouped_matmul
+    a, b = _grouped_operands("nn", 4, rows, "none", dev, seed=56)
+    K.reset_launch_counts()
+    got = grouped_matmul(a, b)
+    s = batched_matmul(a.float(), b.float(), out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    _close(got, K.ftimm_gemm_grouped_plain(a, b))
+    _close(s, K.ftimm_gemm_grouped_plain(a.float(), b.float()))
+    counts = K.body_counts()["ftimm_gemm_grouped"]
+    assert counts[body] == 1 and counts["fma"] == 1
+
+
+@pytest.mark.parametrize("sizes,body", [([1, 0, 2, 1], "stream"),
+                                        ([300, 0, 500, 224], "tc")])
+def test_ragged_planned_body_through_dispatch(dev, sizes, body):
+    from repro_torch.core.gemm import ragged_matmul
+    x, w, offs = _ragged_operands(sizes, 0, "nn", dev, seed=58)
+    K.reset_launch_counts()
+    got = ragged_matmul(x, w, offs)
+    torch.cuda.synchronize()
+    _close(got, K.ftimm_gemm_ragged_plain(x, w, offs))
+    assert K.body_counts()["ftimm_gemm_ragged"][body] == 1

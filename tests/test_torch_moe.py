@@ -227,19 +227,26 @@ def test_plan_moe_dispatch_rows_match_jax(dispatch, t, e, k, elt):
 
 
 def test_ragged_and_grouped_swiglu_plans():
-    """Ragged plans come from the compiled tile menu (one grid walk), price
-    the two SwiGLU panels' shared memory, and the dW plan (``ragged="k"``)
-    writes each of the G panels once, empty ones too; the grouped SwiGLU
-    plan carries two panels too."""
+    """Ragged plans come from the compiled menu (one grid walk): the SwiGLU
+    pair's FMA tiles price its two panels' shared memory, a bf16 4-row
+    forward takes the weight stream (its ring's shared memory), and the dW
+    plan (``ragged="k"``) writes each of the G panels once, empty ones too;
+    the grouped SwiGLU plan carries two panels too."""
     from repro_torch.core.gemm import (estimate_ragged, plan_batched_gemm,
                                        plan_ragged_gemm)
-    from repro_torch.kernels.ftimm.kernel import TC_TILES, TILES, smem_bytes
+    from repro_torch.kernels.ftimm.kernel import (GSTREAM_ROWS, TC_TILES,
+                                                  TILES, gstream_smem,
+                                                  smem_bytes)
     for panels in (1, 2):
         plan = plan_ragged_gemm(16, 4, 5120, 8192, 2, 2, panels=panels)
-        assert (plan.bm, plan.bn, plan.bk) in TILES
         assert plan.dim_order == "mn"
-        assert plan.est.smem_bytes == smem_bytes(plan.bm, plan.bn, plan.bk,
-                                                 panels)
+        if panels == 1:
+            assert plan.body == "stream" and plan.bm == GSTREAM_ROWS
+            assert plan.est.smem_bytes == gstream_smem()
+        else:
+            assert plan.body == "fma" and (plan.bm, plan.bn, plan.bk) in TILES
+            assert plan.est.smem_bytes == smem_bytes(plan.bm, plan.bn,
+                                                     plan.bk, panels)
     dw = plan_ragged_gemm(16, 1024, 5120, 8192, 2, 2, ragged="k")
     assert (dw.bm, dw.bn, dw.bk) in (TC_TILES if dw.body == "tc" else TILES)
     assert dw.nsplit == 1
