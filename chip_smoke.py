@@ -20,8 +20,9 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    operand, and ragged group distributions (4 rows to 4 distinct groups,
    all rows to one group, empty groups, a group spanning several tiles,
    rows outside every group, totals not a multiple of 16), and the
-   tensor-core and weight-stream bodies of ftimm_gemm, ftimm_gemm_grouped
-   and ftimm_gemm_ragged and the tensor-core ragged dW called directly at
+   tensor-core and weight-stream bodies of ftimm_gemm, ftimm_gemm_grouped,
+   ftimm_gemm_ragged and the grouped and ragged SwiGLU pairs and the
+   tensor-core ragged dW called directly at
    extents that are not tile multiples (every trans each body takes, both
    outputs, the epilogues with (G, N) vectors and the grouped residual, a
    shared 2-D operand, 1 / 4 / 16 rows, one or several K slices, a K tail
@@ -30,9 +31,11 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    shapes.  Then the planner's body choice through the dispatch layer (a
    misaligned operand takes the FMA body, 4 rows the stream, 200 the
    tensor cores; mixtral's 16-row expert buffers and llama4's 4 routed
-   rows the grouped / ragged stream, 320 and 1024 rows the tensor cores,
-   fp32 the FMA body) and bit-identical reruns of the streams, the
-   tensor-core ragged dW and the grouped / ragged tensor cores.  Normwise
+   rows the grouped / ragged stream, for the down projection and the
+   gate/up pair, 320 and 1024 rows the tensor cores, fp32 the FMA body) and
+   bit-identical reruns of the streams (the pairs' at 1 and 4 K slices),
+   the tensor-core ragged dW and the grouped / ragged tensor cores and
+   pairs.  Normwise
    tolerance max|kernel - plain| / max|plain|: 2e-2 for a bf16 output
    (2^-8 is one bf16 ulp), 1e-4 for fp32 (the same fp32 products summed in
    another order);
@@ -52,9 +55,10 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    in two length buckets, 16 new tokens each.  The launch counts are zeroed
    just before each run and read just after; every kernel of that model's
    path must have launched, and every ftimm_gemm of a decode step (4
-   rows) and every bf16 expert-down launch of a decode step (mixtral's 16
-   rows an expert, llama4's 4 routed rows) must have taken a stream body,
-   the fp32 attention products the FMA body.  Then one prompt's full-width
+   rows) and every bf16 expert launch (gate/up pair and down) of at most 16
+   rows (mixtral's 16 rows an expert, llama4's 4 routed rows) must have
+   taken a stream body, of more rows (the bucket prefills) the tensor
+   cores, the fp32 attention products the FMA body.  Then one prompt's full-width
    qwen3 prefill
    logits are held against the plain versions on the CPU (5e-2 normwise:
    28 bf16 layers, each of whose activations may round one bf16 ulp apart);
@@ -99,16 +103,18 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
 10. [time] each kernel at the decode-step shapes of the model it serves, and
    the two backward kernels at the training shapes, and ftimm_gemm at
    qwen3-1.7b's training forward shapes, its unembed and the mixed fp32 x
-   bf16 unembed dX, and the MoE expert-down products on the FMA body beside
-   the planned stream at decode and on the tensor cores and the FMA body at
-   mixtral's training capacity 320 and llama4's 1024 routed rows (CUDA
-   events around
-   calls enqueued behind a sleep kernel, so the card runs them back to
-   back; operands rotated through more copies than the 50 MB L2 holds)
-   beside its plain version, one PyTorch library call where one computes
-   the same function (``torch.bmm`` / ``torch._grouped_mm`` for the MoE
-   expert products, ``torch.matmul`` for the split-K kernel, which is
-   also timed beside ``ftimm_gemm`` at nsplit = 1), and its bound: the
+   bf16 unembed dX, and the MoE expert-down products and gate/up pairs on
+   the FMA body beside the planned stream at decode and on the tensor
+   cores and the FMA body at mixtral's training capacity 320 and llama4's
+   1024 routed rows (CUDA events around calls enqueued behind a sleep
+   kernel, so the card runs them back to back; operands rotated through
+   more copies than the 50 MB L2 holds) beside its plain version, one
+   PyTorch library call where one computes the same function
+   (``torch.bmm`` / ``torch._grouped_mm`` for the MoE expert products,
+   ``torch.matmul`` for the split-K kernel, which is also timed beside
+   ``ftimm_gemm`` at nsplit = 1; for the bf16 SwiGLU pairs, which no one
+   call computes, two such calls and the elementwise silu(g) * u, reported
+   apart as ``yardstick_ms``), and its bound: the
    larger of the bytes this input needs / 3.35 TB/s and its operations /
    peak (989 TFLOP/s bf16, 67 TFLOP/s fp32; NVIDIA's H100 SXM data sheet).
    A ragged call's bytes count only the expert panels its rows reach (the
@@ -264,6 +270,10 @@ class Case:
     timed: bool = False     # timed even with per_step 0
     entry_calls: int = 0    # calls the kernels line sums for a kernel that
                             # no step launches (split-K)
+    yardstick: object | None = None  # inputs -> output through more than
+                            # one PyTorch call (the SwiGLU pairs: a library
+                            # GEMM per panel, then silu(g) * u), timed
+                            # beside the kernel, not a library_ms
 
 
 def _randn(gen, shape, dtype, scale=1.0):
@@ -423,6 +433,24 @@ def grouped_case(label, g, m, k, n, *, trans="nn", shared="none", dtype=FP32,
                 2.0 * g * m * n * k, dtype, dtype, per_step, model)
 
 
+def _silu_mul(g, u, out):
+    return (torch.nn.functional.silu(g.float()) * u.float()).to(out)
+
+
+def _pair_bmm(x, wg, wu, out=None):
+    """The grouped pair through PyTorch: one ``bmm`` (a ``matmul`` for a
+    shared 2-D x) per panel, then silu(g) * u."""
+    mm = torch.bmm if x.ndim == 3 else torch.matmul
+    return _silu_mul(mm(x, wg), mm(x, wu), out or x.dtype)
+
+
+def _pair_grouped_mm(x, wg, wu, offs, out=None):
+    """The ragged pair through PyTorch: one ``_grouped_mm`` per panel, then
+    silu(g) * u (for calls whose every row a group owns)."""
+    gm = functools.partial(torch._grouped_mm, offs=offs[1:])
+    return _silu_mul(gm(x, wg), gm(x, wu), out or x.dtype)
+
+
 def grouped_swiglu_case(label, g, m, k, n, *, shared=False, dtype=BF16,
                         per_step=0, model=MIXTRAL) -> Case:
     def make(gen):
@@ -435,7 +463,37 @@ def grouped_swiglu_case(label, g, m, k, n, *, shared=False, dtype=BF16,
                 lambda x, wg, wu: grouped_swiglu(x, wg, wu),
                 lambda x, wg, wu: K.ftimm_gemm_grouped_swiglu_plain(x, wg, wu),
                 None, (gx * m * k + 2 * g * k * n + g * m * n) * _size(dtype),
-                4.0 * g * m * n * k, dtype, dtype, per_step, model)
+                4.0 * g * m * n * k, dtype, dtype, per_step, model,
+                yardstick=_pair_bmm if dtype == BF16 else None)
+
+
+def grouped_swiglu_body_case(label, g, m, k, n, *, body, shared=False,
+                             out=BF16, kslices=1, phase="serve",
+                             timed=False) -> Case:
+    """``ftimm_gemm_grouped_swiglu``'s ``body`` called directly on bf16
+    operands (the FMA body at the tile the planner gives it)."""
+    fma = plan_batched_gemm(g, m, k, n, 2, _size(out),
+                            "a" if shared else "none", panels=2,
+                            a_major=None)
+    bm, bn, bk = _body_tile(body, fma)
+
+    def make(gen):
+        return (_randn(gen, (m, k) if shared else (g, m, k), BF16),
+                _randn(gen, (g, k, n), BF16, k ** -0.5),
+                _randn(gen, (g, k, n), BF16, k ** -0.5))
+
+    gx = 1 if shared else g
+    return Case(
+        "ftimm_gemm_grouped_swiglu", f"{body} {label}", make,
+        lambda x, wg, wu: K.ftimm_gemm_grouped_swiglu(
+            x, wg, wu, bm=bm, bn=bn, bk=bk, out_dtype=out, body=body,
+            kslices=kslices),
+        lambda x, wg, wu: K.ftimm_gemm_grouped_swiglu_plain(x, wg, wu,
+                                                            out_dtype=out),
+        None, (gx * m * k + 2 * g * k * n) * 2 + g * m * n * _size(out),
+        4.0 * g * m * n * k, BF16, out, model=MIXTRAL, phase=phase,
+        timed=timed,
+        yardstick=functools.partial(_pair_bmm, out=out))
 
 
 def _body_tile(body: str, fma_plan) -> tuple[int, int, int]:
@@ -590,7 +648,40 @@ def ragged_swiglu_case(label, sizes, k, n, *, dtype=BF16, tail=0,
                 lambda x, wg, wu, o: K.ftimm_gemm_ragged_swiglu_plain(
                     x, wg, wu, o),
                 None, (t * k + 2 * touched * k * n + t * n) * _size(dtype),
-                4.0 * (t - tail) * k * n, dtype, dtype, per_step, model)
+                4.0 * (t - tail) * k * n, dtype, dtype, per_step, model,
+                yardstick=(_pair_grouped_mm if dtype == BF16 and not tail
+                           else None))
+
+
+def ragged_swiglu_body_case(label, sizes, k, n, *, body, out=BF16,
+                            kslices=1, tail=0, phase="serve",
+                            timed=False) -> Case:
+    """``ftimm_gemm_ragged_swiglu``'s ``body`` called directly on bf16
+    operands (the FMA body at the tile the planner gives it); ``tail`` more
+    rows that no group owns."""
+    g, t = len(sizes), sum(sizes) + tail
+    fma = plan_ragged_gemm(g, t, k, n, 2, _size(out), panels=2, a_ok=False)
+    bm, bn, bk = _body_tile(body, fma)
+
+    def make(gen):
+        return (_randn(gen, (t, k), BF16),
+                _randn(gen, (g, k, n), BF16, k ** -0.5),
+                _randn(gen, (g, k, n), BF16, k ** -0.5),
+                _offsets(sizes, gen.device))
+
+    touched = sum(1 for s in sizes if s)
+    return Case(
+        "ftimm_gemm_ragged_swiglu", f"{body} {label}", make,
+        lambda x, wg, wu, o: K.ftimm_gemm_ragged_swiglu(
+            x, wg, wu, o, bm=bm, bn=bn, bk=bk, out_dtype=out, body=body,
+            kslices=kslices),
+        lambda x, wg, wu, o: K.ftimm_gemm_ragged_swiglu_plain(
+            x, wg, wu, o, out_dtype=out),
+        None, (t * k + 2 * touched * k * n) * 2 + t * n * _size(out),
+        4.0 * (t - tail) * k * n, BF16, out, model=LLAMA4, phase=phase,
+        timed=timed,
+        yardstick=(functools.partial(_pair_grouped_mm, out=out)
+                   if not tail else None))
 
 
 def ragged_dw_case(label, sizes, d, f, *, dtype=BF16, tail=0,
@@ -647,7 +738,14 @@ def train_cases() -> list[Case]:
                       timed=True),
                   ragged_body_case(f"llama4 train down T={TRAIN_TOKENS}",
                                    routed, f, d, body=body, phase="train",
-                                   timed=True)]
+                                   timed=True),
+                  grouped_swiglu_body_case(
+                      f"mixtral train gate/up C={c}", mix.num_experts, c,
+                      mix.d_model, mix.d_ff, body=body, phase="train",
+                      timed=True),
+                  ragged_swiglu_body_case(
+                      f"llama4 train gate/up T={TRAIN_TOKENS}", routed, d, f,
+                      body=body, phase="train", timed=True)]
     dq, fq = qw.d_model, qw.d_ff
     for n in (dq, fq):
         for ns in (2, 4, 8):
@@ -726,8 +824,11 @@ def moe_path_cases() -> list[Case]:
             grouped_case(f"mixtral {label} down C={c}", e, c, f, d,
                          dtype=BF16, per_step=steps, model=MIXTRAL)]
         if label == "decode":   # the FMA body beside the planned stream
-            cases.append(grouped_body_case(f"mixtral decode down C={c}", e,
-                                           c, f, d, body="fma", timed=True))
+            cases += [grouped_body_case(f"mixtral decode down C={c}", e, c,
+                                        f, d, body="fma", timed=True),
+                      grouped_swiglu_body_case(
+                          f"mixtral decode gate/up C={c}", e, c, d, f,
+                          body="fma", timed=True)]
     e, d, f = l4.num_experts, l4.d_model, l4.d_ff
     decode = [1 if i % 4 == 0 else 0 for i in range(e)]   # 4 distinct
     bucket = np.random.default_rng(5).multinomial(
@@ -739,8 +840,10 @@ def moe_path_cases() -> list[Case]:
             ragged_swiglu_case(f"llama4 {label} gate/up", sizes, d, f,
                                per_step=steps),
             ragged_case(f"llama4 {label} down", sizes, f, d, per_step=steps)]
-    cases.append(ragged_body_case("llama4 decode 4 experts down", decode, f,
-                                  d, body="fma", timed=True))
+    cases += [ragged_body_case("llama4 decode 4 experts down", decode, f, d,
+                               body="fma", timed=True),
+              ragged_swiglu_body_case("llama4 decode 4 experts gate/up",
+                                      decode, d, f, body="fma", timed=True)]
     return cases
 
 
@@ -862,13 +965,14 @@ def new_body_cases() -> list[Case]:
 
 def group_body_cases() -> list[Case]:
     """The tensor-core and stream bodies of the grouped and ragged kernels
-    called directly: K = 1032 and N = 264 not multiples of the 64-deep box
-    or the 128-column tile (a K tail at every group's edge), every trans
-    each body takes, a shared 2-D operand, both outputs, 1 / 4 / 16 rows a
-    group and 1 or 3 K slices on the stream, (G, N) vectors and the
-    residual at the flush; the ragged distributions (empty groups, a group
-    of exactly 16 rows, rows outside every group, one group over several
-    chunks); then both bodies and the FMA body at the MoE home shapes."""
+    and of their SwiGLU pairs called directly: K = 1032 and N = 264 not
+    multiples of the 64-deep box or the 128-column tile (a K tail at every
+    group's edge), every trans each body takes, a shared 2-D operand, both
+    outputs, 1 / 4 / 16 rows a group and 1 or 3 K slices on the stream,
+    (G, N) vectors and the residual at the flush; the ragged distributions
+    (empty groups, a group of exactly 16 rows, rows outside every group,
+    one group over several chunks); then both bodies and the FMA body at
+    the MoE home shapes."""
     k, n, cases = 1032, 264, []
     for out in (BF16, FP32):
         o = _name(out)
@@ -915,20 +1019,64 @@ def group_body_cases() -> list[Case]:
                 cases.append(ragged_body_case(
                     f"(G,N) {label} {k}x{n} ->{o}", sizes, k, n, body=body,
                     out=out, kslices=2, epi=epi))
+        cases += pair_body_cases(k, n, out)
     mix, l4 = get_config(MIXTRAL), get_config(LLAMA4)
     decode = [1 if i % 4 == 0 else 0 for i in range(l4.num_experts)]
     routed = np.random.default_rng(7).multinomial(
         TRAIN_TOKENS, [1.0 / l4.num_experts] * l4.num_experts).tolist()
+    bucket = np.random.default_rng(5).multinomial(
+        SLOTS * 64, [1.0 / l4.num_experts] * l4.num_experts).tolist()
+    e, d, f = mix.num_experts, mix.d_model, mix.d_ff
+    d4, f4 = l4.d_model, l4.d_ff
     for body in ("stream", "tc", "fma"):
-        cases += [grouped_body_case("mixtral decode down C=16",
-                                    mix.num_experts, 16, mix.d_ff,
-                                    mix.d_model, body=body),
+        cases += [grouped_body_case("mixtral decode down C=16", e, 16, f, d,
+                                    body=body),
                   ragged_body_case("llama4 decode 4 experts down", decode,
-                                   l4.d_ff, l4.d_model, body=body)]
-    cases += [grouped_body_case("mixtral train down C=320", mix.num_experts,
-                                320, mix.d_ff, mix.d_model, body="tc"),
+                                   f4, d4, body=body),
+                  grouped_swiglu_body_case("mixtral decode gate/up C=16", e,
+                                           16, d, f, body=body),
+                  ragged_swiglu_body_case("llama4 decode 4 experts gate/up",
+                                          decode, d4, f4, body=body)]
+    cases += [grouped_body_case("mixtral train down C=320", e, 320, f, d,
+                                body="tc"),
               ragged_body_case(f"llama4 train down T={TRAIN_TOKENS}", routed,
-                               l4.d_ff, l4.d_model, body="tc")]
+                               f4, d4, body="tc")]
+    for c in (48, 80, 320):
+        cases.append(grouped_swiglu_body_case(f"mixtral gate/up C={c}", e, c,
+                                              d, f, body="tc"))
+    for label, sizes in (("bucket 64", bucket), (f"T={TRAIN_TOKENS}", routed)):
+        cases.append(ragged_swiglu_body_case(f"llama4 gate/up {label}",
+                                             sizes, d4, f4, body="tc"))
+    return cases
+
+
+def pair_body_cases(k: int, n: int, out) -> list[Case]:
+    """The SwiGLU pairs' stream and tensor-core bodies at K = k, N = n:
+    1 / 4 / 16 rows a group at 1 and 3 K slices on the stream, 16 and 200
+    rows on the tensor cores, each with its own x and with a shared 2-D x;
+    the ragged distributions of the one-panel bodies."""
+    cases, o = [], _name(out)
+    for m, body, slices in ([(m, "stream", ks) for m in (1, 4, 16)
+                             for ks in (1, 3)]
+                            + [(16, "tc", 1), (200, "tc", 1)]):
+        for shared in (False, True):
+            cases.append(grouped_swiglu_body_case(
+                f"pair 5x{m}x{k}x{n} {slices} slices{' shared x' * shared}"
+                f" ->{o}", 5, m, k, n, body=body, shared=shared, out=out,
+                kslices=slices))
+    dists = {"stream": (("4 rows to 4 groups", [1, 0, 0, 1, 0, 1, 1, 0], 0),
+                        ("a group of 16 rows", [0, 16, 0], 0),
+                        ("empty groups", [5, 0, 7, 3, 0], 0),
+                        ("rows outside every group", [2, 0, 3], 4)),
+             "tc": (("one group over 2 chunks", [3, 150, 2], 0),
+                    ("skewed", [0, 200, 1, 0, 0, 0, 0, 55], 0),
+                    ("rows outside every group", [40, 0, 88], 7))}
+    for body, cuts in dists.items():
+        for label, sizes, tail in cuts:
+            for ks in ((1, 3) if body == "stream" else (1,)):
+                cases.append(ragged_swiglu_body_case(
+                    f"pair {label} {k}x{n} {ks} slices ->{o}", sizes, k, n,
+                    body=body, out=out, kslices=ks, tail=tail))
     return cases
 
 
@@ -980,11 +1128,11 @@ def check_bodies(dev) -> dict:
 
 
 def check_group_bodies(gen) -> dict:
-    """The grouped and ragged kernels through the dispatch layer: bf16
-    mixtral expert-down buffers of 16 rows a group plan the stream, 320 the
-    tensor cores, fp32 the FMA body; llama4's 4 routed rows the stream, 1024
-    the tensor cores.  Then two runs of each new body at the home shapes
-    (the stream at 1 and 4 K slices) give the same bits."""
+    """The grouped and ragged kernels and their SwiGLU pairs through the
+    dispatch layer: bf16 mixtral expert buffers of 16 rows a group plan the
+    stream, 320 the tensor cores, fp32 the FMA body; llama4's 4 routed rows
+    the stream, 1024 the tensor cores.  Then two runs of each new body at
+    the home shapes (the stream at 1 and 4 K slices) give the same bits."""
     mix, l4 = get_config(MIXTRAL), get_config(LLAMA4)
     e, f, d = mix.num_experts, mix.d_ff, mix.d_model
     routed = np.random.default_rng(7).multinomial(
@@ -1022,6 +1170,29 @@ def check_group_bodies(gen) -> dict:
         if rel > TOL[BF16]:
             raise AssertionError(f"ragged {label}: normwise {rel:.3g}")
         del x, w, got
+    pairs = (("mixtral gate/up C=16 bf16",
+              grouped_swiglu_case("", e, 16, d, f), "stream"),
+             ("mixtral gate/up C=320 bf16",
+              grouped_swiglu_case("", e, 320, d, f), "tc"),
+             ("mixtral gate/up C=16 fp32",
+              grouped_swiglu_case("", e, 16, d, f, dtype=FP32), "fma"),
+             ("llama4 gate/up T=4", ragged_swiglu_case(
+                 "", decode, l4.d_model, l4.d_ff), "stream"),
+             (f"llama4 gate/up T={TRAIN_TOKENS}", ragged_swiglu_case(
+                 "", routed, l4.d_model, l4.d_ff), "tc"))
+    for label, c, body in pairs:
+        inputs = c.make(gen)
+        K.reset_launch_counts()
+        got = c.run(*inputs)
+        rel, _ = rel_err(got, c.plain(*inputs))
+        seen[label] = {k: v for k, v in K.body_counts()[c.kernel].items()
+                       if v}
+        want[label] = {body: 1}
+        log(f"  {c.kernel} {label}: bodies {seen[label]}, normwise "
+            f"{rel:.2e}")
+        if rel > TOL[c.out_dtype]:
+            raise AssertionError(f"{c.kernel} {label}: normwise {rel:.3g}")
+        del inputs, got
     if seen != want:
         raise AssertionError(f"planned bodies {seen}, expected {want}")
     reruns = [grouped_body_case("mixtral decode down C=16", e, 16, f, d,
@@ -1033,6 +1204,18 @@ def check_group_bodies(gen) -> dict:
                                  body="tc"),
                ragged_body_case(f"llama4 train down T={TRAIN_TOKENS}", routed,
                                 l4.d_ff, l4.d_model, body="tc")]
+    for ks in (1, 4):
+        reruns += [grouped_swiglu_body_case("mixtral decode gate/up C=16", e,
+                                            16, d, f, body="stream",
+                                            kslices=ks),
+                   ragged_swiglu_body_case("llama4 decode gate/up", decode,
+                                           l4.d_model, l4.d_ff,
+                                           body="stream", kslices=ks)]
+    reruns += [grouped_swiglu_body_case("mixtral train gate/up C=320", e,
+                                        320, d, f, body="tc"),
+               ragged_swiglu_body_case(f"llama4 train gate/up T={TRAIN_TOKENS}",
+                                       routed, l4.d_model, l4.d_ff,
+                                       body="tc")]
     for c in reruns:
         inputs = c.make(gen)
         runs = [c.run(*inputs) for _ in range(2)]
@@ -1040,8 +1223,8 @@ def check_group_bodies(gen) -> dict:
         if not torch.equal(runs[0], runs[1]):
             raise AssertionError(f"{c.kernel} {c.label}: reruns differ")
         del inputs, runs
-    log(f"  {len(reruns)} grouped / ragged stream and tensor-core calls at "
-        "the home shapes: bit-identical reruns")
+    log(f"  {len(reruns)} grouped / ragged (and SwiGLU pair) stream and "
+        "tensor-core calls at the home shapes: bit-identical reruns")
     return seen
 
 
@@ -1066,19 +1249,21 @@ def check(cases: list[Case], dev) -> dict[str, float]:
     return worst
 
 
-def library_ms(c: Case, inputs, reps, sleep_ms) -> tuple[float | None, str]:
-    """The library call's time, or None and why: it must run on these
-    operands and agree with the plain version."""
-    if c.library is None:
+def library_ms(c: Case, fn, inputs, reps,
+               sleep_ms) -> tuple[float | None, str]:
+    """The time of ``fn``, the case's library call (or its yardstick), or
+    None and why: it must run on these operands and agree with the plain
+    version."""
+    if fn is None:
         return None, "no single PyTorch call computes this function"
     try:
-        got = c.library(*inputs[0])
+        got = fn(*inputs[0])
     except (RuntimeError, TypeError, ValueError, NotImplementedError) as e:
         return None, f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
     rel, _ = rel_err(got, c.plain(*inputs[0]))
     if rel > max(TOL.get(got.dtype, 0.0), TOL[c.out_dtype]):
         return None, f"disagrees with the plain version (normwise {rel:.2e})"
-    return time_ms(c.library, inputs, reps, sleep_ms), ""
+    return time_ms(fn, inputs, reps, sleep_ms), ""
 
 
 def timings(cases: list[Case], dev) -> list[dict]:
@@ -1093,9 +1278,12 @@ def timings(cases: list[Case], dev) -> list[dict]:
         reps = max(20, copies)
         t_bytes = c.nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = c.flops / PEAK_FLOPS[c.dtype] * 1e3
-        lib, why = library_ms(c, inputs, reps, sleep_ms)
+        lib, why = library_ms(c, c.library, inputs, reps, sleep_ms)
         if why:
             log(f"  {c.kernel} {c.label}: library_ms null ({why})")
+        yard, ywhy = library_ms(c, c.yardstick, inputs, reps, sleep_ms)
+        if c.yardstick is not None and ywhy:
+            log(f"  {c.kernel} {c.label}: yardstick_ms null ({ywhy})")
         rows.append({
             "kernel": c.kernel, "label": c.label, "model": c.model,
             "phase": c.phase, "per_step": c.per_step,
@@ -1103,7 +1291,7 @@ def timings(cases: list[Case], dev) -> list[dict]:
             "ms": time_ms(c.run, inputs, reps, sleep_ms),
             "plain_ms": time_ms(c.plain, inputs, reps, sleep_ms),
             "library_ms": lib, "library_note": why or None,
-            "bound_ms": max(t_bytes, t_ops),
+            "yardstick_ms": yard, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes_ms": t_bytes, "ops_ms": t_ops})
         del inputs
@@ -1299,16 +1487,24 @@ def serve(arch: str, dev) -> tuple[dict, ServeEngine, dict]:
     if set(decode_bodies) != {"stream"}:
         raise AssertionError(f"{arch} decode GEMMs took the bodies "
                              f"{decode_bodies}, not only the stream")
-    # Each bf16 expert-down launch of a decode step (mixtral: 16 rows an
-    # expert; llama4: SLOTS routed rows) on the stream; fp32 (attention)
-    # on the FMA body.
+    # Each bf16 expert launch (gate/up pair and down) of at most 16 rows (a
+    # group: mixtral's decode capacity; in all: llama4's SLOTS routed decode
+    # rows) on the stream, of more (the bucket prefills) on the tensor
+    # cores; fp32 (attention) on the FMA body.
     expert = group_calls_by_body(recorder)
     for (kernel, pair, rows, body), n in expert.items():
-        decode_rows = rows <= (16 if kernel == "ftimm_gemm_grouped" else SLOTS)
-        if ((pair == "bf16" and decode_rows and body != "stream")
-                or (pair != "bf16" and body != "fma")):
+        planned = ("fma" if pair != "bf16"
+                   else "stream" if rows <= K.GSTREAM_ROWS else "tc")
+        if body != planned:
             raise AssertionError(f"{arch}: {kernel} {pair} calls of {rows} "
                                  f"rows took the {body} body ({expert})")
+    # ... and so did the timed run: its bf16 pair launches took the stream
+    # (decode) and the tensor cores (prefill), none the FMA body.
+    pair = {MIXTRAL: "ftimm_gemm_grouped_swiglu",
+            LLAMA4: "ftimm_gemm_ragged_swiglu"}.get(arch)
+    if pair and not (bodies[pair]["stream"] and bodies[pair]["tc"]
+                     and not bodies[pair]["fma"]):
+        raise AssertionError(f"{arch}: {pair} bodies {bodies[pair]}")
 
     tokens = sum(len(r.out_tokens) for r in reqs)
     stats = {"layers": cfg.num_layers, "requests": len(reqs),
@@ -1409,20 +1605,24 @@ def gemm_calls_by_rows_and_body(recorder: CallRecorder) -> dict:
     return out
 
 
+GROUP_KERNELS = ("ftimm_gemm_grouped", "ftimm_gemm_grouped_swiglu",
+                 "ftimm_gemm_ragged", "ftimm_gemm_ragged_swiglu")
+
+
 def group_calls_by_body(recorder: CallRecorder) -> dict[tuple, int]:
-    """``ftimm_gemm_grouped`` / ``ftimm_gemm_ragged`` launches of a recorded
-    run by (kernel, operand pair "bf16" or "mixed/fp32", rows a group (the
-    ragged kernel: all rows), body)."""
+    """Launches of the grouped and ragged kernels and their SwiGLU pairs in
+    a recorded run by (kernel, operand pair "bf16" or "mixed/fp32", rows a
+    group (the ragged kernels: all rows), body)."""
     out: dict[tuple, int] = {}
     for call in recorder.calls.values():
         name = call["kernel"]
-        if name not in ("ftimm_gemm_grouped", "ftimm_gemm_ragged"):
+        if name not in GROUP_KERNELS:
             continue
         a, b = call["args"][:2]
         pair = "bf16" if a[3] == b[3] == BF16 else "mixed/fp32"
         trans = call["kwargs"].get("trans", "nn")
         rows = (K.mkn(trans, a[1][-2:], b[1][-2:])[0]
-                if name == "ftimm_gemm_grouped" else a[1][0])
+                if name.startswith("ftimm_gemm_grouped") else a[1][0])
         key = (name, pair, rows, call["kwargs"].get("body", "fma"))
         out[key] = out.get(key, 0) + call["count"]
     return out
@@ -1455,9 +1655,10 @@ def check_train_bodies(arch: str, by_pair: dict, bodies: dict,
     (the fp32 cotangents of the logits and the router) and for the bf16
     products of fewer than 128 columns that the CMR model plans on it (the
     routers' 8 or 16 experts); the ragged dW takes the tensor cores; the
-    grouped and ragged kernels take the tensor cores for their bf16 x bf16
-    expert products and the FMA body for the fp32 attention products and
-    the mixed pairs (``expert``: ``group_calls_by_body``)."""
+    grouped and ragged kernels and their SwiGLU pairs take the tensor cores
+    for their bf16 x bf16 expert products and the FMA body for the fp32
+    attention products and the mixed pairs (``expert``:
+    ``group_calls_by_body``)."""
     for (kernel, pair, rows, body), n in expert.items():
         if (pair == "bf16") != (body == "tc"):
             raise AssertionError(f"{arch} train: {kernel} {pair} calls of "
@@ -1761,6 +1962,8 @@ def kernel_entries(rows, launches, worst, bodies) -> list[dict]:
                  for key in ("ms", "plain_ms", "bound_ms")}
         lib = (None if any(r["library_ms"] is None for n, r in calls if n)
                else sum(n * r["library_ms"] for n, r in calls))
+        yard = (None if any(r["yardstick_ms"] is None for n, r in calls if n)
+                else sum(n * r["yardstick_ms"] for n, r in calls))
         t_bytes = sum(n * r["bytes_ms"] for n, r in calls)
         t_ops = sum(n * r["ops_ms"] for n, r in calls)
         if name == "ftimm_gemm_splitk":
@@ -1781,6 +1984,10 @@ def kernel_entries(rows, launches, worst, bodies) -> list[dict]:
             "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib, "per": per,
+            **({"yardstick_ms": yard,
+                "yardstick": "a library GEMM per panel (torch.bmm / "
+                             "torch._grouped_mm), then silu(g) * u"}
+               if yard is not None else {}),
             "launches_by_run": {f"{p} {m}": launches[(p, m)][name]
                                 for p, m in launches},
             **({"bodies_by_run": {f"{p} {m}": bodies[(p, m)][name]
@@ -1790,7 +1997,8 @@ def kernel_entries(rows, launches, worst, bodies) -> list[dict]:
                                           "per_step", "entry_calls", "ms",
                                           "plain_ms",
                                           "library_ms", "library_note",
-                                          "bound_ms", "bound_by")}
+                                          "yardstick_ms", "bound_ms",
+                                          "bound_by")}
                        for r in rows if r["kernel"] == name]})
     return entries
 
@@ -1895,11 +2103,12 @@ def main() -> int:
 
     log("kernels:")
     for r in rows:
-        lib_s = ("-" if r["library_ms"] is None
-                 else f"{r['library_ms'] * 1e3:.1f}")
+        lib_s, yard_s = ("-" if r[key] is None else f"{r[key] * 1e3:.1f}"
+                         for key in ("library_ms", "yardstick_ms"))
         log(f"  {r['kernel']:25s} {r['label']:32s} x{r['per_step']:<3d} "
             f"kernel {r['ms'] * 1e3:9.1f} us  plain "
             f"{r['plain_ms'] * 1e3:9.1f} us  library {lib_s:>9s} us  "
+            f"two calls + silu {yard_s:>9s} us  "
             f"bound {r['bound_ms'] * 1e3:7.1f} us ({r['bound_by']})")
     phases["all"] = time.monotonic() - t_all
     log(json.dumps({"bodies_check": bodies_check, "serve": stats,

@@ -111,7 +111,7 @@ def _estimate(g: int, m: int, k: int, n: int, *, bm: int, bn: int, bk: int,
         # consecutive tiles and read once; the inner operand's panel is read
         # once too when it fits half the L2, else once per outer tile.
         a_once = a_reads * m * k * in_bytes
-        b_once = b_reads * k * n * in_bytes
+        b_once = b_reads * k * n * in_bytes * panels
         fits = spec.l2_bytes / 2
         if dim_order == "mn":
             hbm = a_once + b_once * (1 if k * n * in_bytes <= fits else gm)
@@ -179,30 +179,32 @@ def estimate_stream(m: int, k: int, n: int, *, kslices: int,
 
 def estimate_group_stream(groups: int, rows: int, k: int, n: int, *,
                           kslices: int, in_bytes: int = 2,
-                          out_bytes: int = 2,
+                          out_bytes: int = 2, panels: int = 1,
                           spec: HopperSpec = H100) -> PlanEstimate:
     """Model the grouped / ragged weight stream: ``groups`` panels reached
-    (k, n) each, ``rows`` output rows in all (at most GSTREAM_ROWS a
+    (k, n) each (``panels`` = 2: the SwiGLU pair reads a gate and an up
+    panel of each), ``rows`` output rows in all (at most GSTREAM_ROWS a
     group).  One CTA per (STREAM_STRIP-wide N strip, K slice, reached
     group), STREAM_CTAS_PER_SM of them on an SM; every reached panel is
     read once, the rows' activations once (their re-reads by the other
     strips hit the L2), and with more than one slice each slice's fp32
-    partial is written and read back once.  The math is wgmma at the
-    tensor cores' rate on GSTREAM_ROWS token columns a group."""
+    partials (one per panel) are written and read back once.  The math is
+    wgmma at the tensor cores' rate on GSTREAM_ROWS token columns a
+    group."""
     sl, slices = stream_slice(k, kslices)
     ctas = groups * cdiv(n, STREAM_STRIP) * slices
     occ = max(min(ctas / (spec.sms * STREAM_CTAS_PER_SM), 1.0), 1e-3)
-    flops_padded = 2.0 * ctas * GSTREAM_ROWS * STREAM_STRIP * sl
-    hbm = (groups * k * n * in_bytes + rows * k * in_bytes
-           + rows * n * out_bytes + (2 * slices * rows * n * 4
+    flops_padded = 2.0 * ctas * GSTREAM_ROWS * STREAM_STRIP * sl * panels
+    hbm = (groups * k * n * in_bytes * panels + rows * k * in_bytes
+           + rows * n * out_bytes + (2 * slices * panels * rows * n * 4
                                      if slices > 1 else 0))
     return PlanEstimate(
-        flops_useful=2.0 * rows * n * k,
+        flops_useful=2.0 * rows * n * k * panels,
         flops_padded=flops_padded,
         hbm_bytes=float(hbm),
         t_compute=flops_padded / (spec.peak_flops_bf16 * occ),
         t_memory=hbm / (spec.hbm_bw * occ),
-        smem_bytes=gstream_smem(),
+        smem_bytes=gstream_smem(panels),
         occupancy=occ,
     )
 

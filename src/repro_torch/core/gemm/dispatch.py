@@ -195,14 +195,20 @@ def _run_swiglu(x, wg, wu, out_dtype) -> torch.Tensor:
 
 
 def _run_grouped_swiglu(x, wg, wu, out_dtype) -> torch.Tensor:
+    """Plan the grouped SwiGLU pair (its body from the widths and how TMA
+    reads x and both panels) and run it."""
     g, k, n = wg.shape
+    a_major, g_ok = grouped_operands(x, wg, "nn")
     plan = plan_batched_gemm(g, x.shape[-2], k, n, x.element_size(),
                              out_dtype.itemsize,
-                             "a" if x.ndim == 2 else "none", panels=2)
+                             "a" if x.ndim == 2 else "none", panels=2,
+                             b_bytes=wg.element_size(), a_major=a_major,
+                             b_ok=g_ok and grouped_operands(x, wu, "nn")[1])
     note_plan_use("batched", plan)
     note_epilogue("batched", True)
     return _ops.batched_gemm_swiglu(x, wg, wu, bm=plan.bm, bn=plan.bn,
-                                    bk=plan.bk, out_dtype=out_dtype)
+                                    bk=plan.bk, out_dtype=out_dtype,
+                                    body=plan.body, kslices=plan.kslices)
 
 
 class _Swiglu(torch.autograd.Function):
@@ -453,14 +459,21 @@ def ragged_matmul(x: torch.Tensor, w: torch.Tensor,
 
 
 def _run_ragged_swiglu(x, wg, wu, offsets, out_dtype) -> torch.Tensor:
+    """Plan the ragged SwiGLU pair off its distribution signature (its body
+    from the total rows, the widths and how TMA reads x and both panels)
+    and run it."""
     g, k, n = wg.shape
+    x_k, g_ok = ragged_operands(x, wg, "nn")
     plan = plan_ragged_gemm(g, x.shape[0], k, n, x.element_size(),
-                            out_dtype.itemsize, panels=2)
+                            out_dtype.itemsize, panels=2,
+                            b_bytes=wg.element_size(), a_ok=x_k,
+                            b_ok=g_ok and ragged_operands(x, wu, "nn")[1])
     note_plan_use("ragged", plan)
     note_epilogue("ragged", True)
     return _ops.ragged_gemm_swiglu(x, wg, wu, offsets, bm=plan.bm,
                                    bn=plan.bn, bk=plan.bk,
-                                   out_dtype=out_dtype)
+                                   out_dtype=out_dtype, body=plan.body,
+                                   kslices=plan.kslices)
 
 
 class _RaggedSwiglu(torch.autograd.Function):

@@ -99,10 +99,12 @@ def _stream_candidates(cls: GemmClass, m: int, k: int, n: int, in_bytes: int,
 
 def _group_stream_candidates(cls: GemmClass, groups: int, rows: int, k: int,
                              n: int, in_bytes: int, out_bytes: int,
-                             spec: HopperSpec) -> list[GemmPlan]:
+                             spec: HopperSpec,
+                             panels: int = 1) -> list[GemmPlan]:
     """The grouped / ragged stream at each K slice count 1, 2, 4, ... 64 (as
-    cut by ``stream_slice``), ``groups`` panels reached, ``rows`` rows in
-    all.  Its slices stage no rows, so every count fits shared memory."""
+    cut by ``stream_slice``), ``groups`` panels reached (``panels`` = 2:
+    the SwiGLU pair's two each), ``rows`` rows in all.  Its slices stage no
+    rows, so every count fits shared memory."""
     cands, seen = [], set()
     for want in (1, 2, 4, 8, 16, 32, 64):
         sl, slices = stream_slice(k, want)
@@ -111,7 +113,7 @@ def _group_stream_candidates(cls: GemmClass, groups: int, rows: int, k: int,
         seen.add(slices)
         e = estimate_group_stream(groups, rows, k, n, kslices=slices,
                                   in_bytes=in_bytes, out_bytes=out_bytes,
-                                  spec=spec)
+                                  panels=panels, spec=spec)
         cands.append(GemmPlan(bm=GSTREAM_ROWS, bn=STREAM_STRIP, bk=sl,
                               gemm_class=cls, est=e, body="stream",
                               kslices=slices))
@@ -155,14 +157,15 @@ def batched_candidates(g: int, m: int, k: int, n: int, in_bytes: int = 4,
     how TMA reads op(A), "k", "mn" or None; ``b_ok``: whether it reads
     op(B)) -- the FMA tiles in both grid orders, the tensor-core tile in
     both, the weight stream's slice counts (every group's M rows, all G
-    panels read).  ``panels`` = 2 for the grouped SwiGLU pair (FMA only)."""
+    panels read).  ``panels`` = 2 for the grouped SwiGLU pair, which takes
+    the same bodies with two B panels (``b_ok``: TMA reads both)."""
     cls = classify(m, k, n)
     cands = []
     for body in grouped_bodies(in_bytes, b_bytes or in_bytes, m, a_major,
-                               b_ok, panels):
+                               b_ok):
         if body == "stream":
             cands += _group_stream_candidates(cls, g, g * m, k, n, in_bytes,
-                                              out_bytes, spec)
+                                              out_bytes, spec, panels)
             continue
         est = functools.partial(estimate_batched, g, m, k, n,
                                 shared_a=shared == "a",
@@ -200,13 +203,14 @@ def ragged_candidates(g: int, total: int, k: int, n: int, in_bytes: int = 4,
                                     "ftimm_gemm_ragged_dw", TC_TILES)
     else:
         bodies, kernel, tc_tiles = (ragged_bodies(in_bytes, b_bytes, total,
-                                                  a_ok, b_ok, panels),
+                                                  a_ok, b_ok),
                                     "ftimm_gemm_ragged", (GROUP_TC_TILE,))
     cands = []
     for body in bodies:
         if body == "stream":
             cands += _group_stream_candidates(cls, min(g, total), total, k, n,
-                                              in_bytes, out_bytes, spec)
+                                              in_bytes, out_bytes, spec,
+                                              panels)
             continue
         est = functools.partial(estimate_ragged, g, total, k, n,
                                 ragged=ragged, in_bytes=in_bytes,

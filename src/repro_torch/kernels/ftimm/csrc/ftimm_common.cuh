@@ -197,6 +197,11 @@ __device__ __forceinline__ float apply_epi(float v, const EpiArgs& e, int g, int
   return v;
 }
 
+// The SwiGLU pair's flush: silu(g) * u on the fp32 pre-activations.
+__device__ __forceinline__ float silu_mul(float g, float u) {
+  return g * (1.f / (1.f + expf(-g))) * u;
+}
+
 // Which output tile this CTA owns: blockIdx.x walks the (M, N) tile grid with
 // M outer ("mn") or N outer ("nm"), the reference's dim_order.
 __device__ __forceinline__ void tile_coords(int BM, int BN, int M, int N, int nm_order, int& m0,

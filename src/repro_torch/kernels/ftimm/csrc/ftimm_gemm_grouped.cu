@@ -207,7 +207,7 @@ extern "C" int ftimm_gemm_grouped_stream_launch(
   ftimm::gs::Args p{c, ws, counters, nullptr, G, M, G * M, N, K, slice, 0, 0,
                     ftimm::EpiArgs{scale_vec, scale_vec_g, has_scale, scale, bias, bias_g, act,
                                    residual, (int64_t)M * N}};
-  return ftimm::gs::launch<ftimm_gemm_grouped_stream>(types, a, M, sag, sam,
-                                                      sak, b, sbg, sbk, sbn, p, slices, G,
+  return ftimm::gs::launch<ftimm_gemm_grouped_stream>(types, a, M, sag, sam, sak, b, nullptr,
+                                                      sbg, sbk, sbn, p, slices, G,
                                                       static_cast<cudaStream_t>(stream));
 }

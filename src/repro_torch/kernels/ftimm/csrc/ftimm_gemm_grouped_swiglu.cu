@@ -5,23 +5,39 @@
 // the capacity-mode MoE gate/up projections (E, C, D) x 2 (E, D, F) in one
 // launch, with no (E, C, F) fp32 intermediates in device memory.  x may be
 // one 2-D panel shared by every group: it is passed with group stride 0, as in
-// the grouped kernel.
+// the grouped kernel.  The pair takes no epilogue, as in the reference.
 //
-// The body is ftimm_gemm_swiglu.cu's with a group grid axis: groups on
-// blockIdx.z, output tiles on blockIdx.x, and per-group operand strides.
+// Three bodies, those of ftimm_gemm_grouped.cu with a second weight panel;
+// the planner (core/gemm/tuner.py, plan_batched_gemm with panels = 2) picks
+// one among those the operands allow (kernel.py, grouped_bodies):
 //
-// What bounds it on the H100: capacity dispatch runs every expert on its
-// padded capacity rows whatever the router did, so at mixtral-8x7b decode
-// (C = 16) the launch streams both panels of all 8 experts every step,
-// 2 x 8 x 4096 x 14336 bf16 = 1.88 GB, 0.56 ms at 3.35 TB/s.  The design
-// loads each x tile into shared memory once for both panels and keeps two
-// fp32 accumulators per thread (the SwiGLU product is formed in registers at
-// the flush); the planner gives the skinny capacity rows the 16-row tile,
-// which puts the most CTAs, and so the most loads in flight, on the 132 SMs.
+// * Weight stream ("stream", ftimm_gemm_grouped_swiglu_stream_launch): bf16 x
+//   bf16, at most 16 rows a group, x K-major -- mixtral-8x7b at decode
+//   (capacity 16): every step streams both panels of all 8 experts, 2 x 8 x
+//   4096 x 14336 bf16 = 1.88 GB, 0.56 ms at 3.35 TB/s, whatever the router
+//   did.  The body of ftimm_gstream.cuh with PANELS = 2: each stage of a
+//   (strip, K slice, group) CTA's TMA ring holds the Wg box, the Wu box at
+//   the same (k0, n0) and the group's x box, and the warpgroup keeps one
+//   wgmma accumulator set per panel; silu(g) * u is formed after the K
+//   slices are summed, each panel alone.
+// * Tensor cores ("tc", ftimm_gemm_grouped_swiglu_tc_launch): bf16 x bf16
+//   with every operand TMA-readable -- the bucket prefills (capacity 48 / 80)
+//   and training (capacity 320: 2 x 301 GFLOP a launch, bound by the 989
+//   TFLOP/s of the tensor cores).  ftimm_tc.cuh's 128 x 256 tile with the
+//   pair's two halves: Wg at n0 and Wu at n0 into one 48 KB stage, two
+//   128-column accumulator halves per consumer thread, silu(g) * u formed in
+//   registers at the flush of a 128 x 128 output tile; 3-D maps (group
+//   outermost) zero-fill each group's K edge, a shared x keeps a 2-D map.
+// * CUDA-core FMAs ("fma", ftimm_gemm_grouped_swiglu_launch): fp32 pairs and
+//   operands TMA cannot read: ftimm_common.cuh's accumulate with two B
+//   panels against one x panel, groups on blockIdx.z.
 //
-// C interface, bound from kernel.py with ctypes.  Returns cudaGetLastError()
-// after the launch (0 = launched).
+// C interface, bound from kernel.py with ctypes.  Each entry returns
+// cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for a tile, type code or operand it does not take.
 #include "ftimm_common.cuh"
+#include "ftimm_gstream.cuh"
+#include "ftimm_tc.cuh"
 
 struct GroupedSwigluArgs {
   const void* x;
@@ -52,11 +68,8 @@ __global__ void __launch_bounds__(C::THREADS) ftimm_gemm_grouped_swiglu_kernel(G
 #pragma unroll
     for (int j = 0; j < C::TN; ++j) {
       const int col = n0 + tx + j * (C::BN / C::TN);
-      if (row < p.M && col < p.N) {
-        const float gv = acc[0][i][j];
-        out[(int64_t)row * p.N + col] =
-            ftimm::from_f<TC>(gv * (1.f / (1.f + expf(-gv))) * acc[1][i][j]);
-      }
+      if (row < p.M && col < p.N)
+        out[(int64_t)row * p.N + col] = ftimm::from_f<TC>(ftimm::silu_mul(acc[0][i][j], acc[1][i][j]));
     }
   }
 }
@@ -95,4 +108,98 @@ extern "C" int ftimm_gemm_grouped_swiglu_launch(int device, int tile, int types,
   }
   if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core body
+// ---------------------------------------------------------------------------
+
+// The pair's tile: a 128 x 256 B stage whose halves are Wg and Wu at the
+// same 128 output columns (kernel.py's GROUP_TC_TILE, panels = 2), a
+// 4-stage ring of 48 KB stages.
+using PairTcTile = ftimm::tc::Tile<256, 4>;
+constexpr int PAIR_N = 128;  // output columns of one tile
+
+struct PairTcArgs {
+  void* out;
+  int M, N, K;
+  int x3d, w3d;  // the operand's map is rank 3 (read at the group)
+};
+
+template <bool X_MN, bool W_MN, typename TC>
+__global__ void __launch_bounds__(ftimm::tc::THREADS, 1)
+    ftimm_gemm_grouped_swiglu_tc_kernel(const __grid_constant__ CUtensorMap tx,
+                                        const __grid_constant__ CUtensorMap tg,
+                                        const __grid_constant__ CUtensorMap tu, PairTcArgs p) {
+  const int g = blockIdx.z;
+  int m0, n0;
+  ftimm::tile_coords(ftimm::tc::BM, PAIR_N, p.M, p.N, 0, m0, n0);
+  TC* out = static_cast<TC*>(p.out) + (int64_t)g * p.M * p.N;
+  ftimm::tc::run_tile<PairTcTile, X_MN, W_MN, __nv_bfloat16, TC, true>(
+      &tx, &tg, m0, n0, 0, p.K, false, out, p.N, p.M, p.N, ftimm::EpiArgs{}, g,
+      p.x3d ? g : -1, p.w3d ? g : -1, &tu);
+}
+
+template <bool X_MN, bool W_MN, typename TC>
+static int launch_tc(const CUtensorMap& tx, const CUtensorMap& tg, const CUtensorMap& tu,
+                     const PairTcArgs& p, int G, cudaStream_t stream) {
+  auto kernel = ftimm_gemm_grouped_swiglu_tc_kernel<X_MN, W_MN, TC>;
+  constexpr int smem = PairTcTile::SMEM;
+  const cudaError_t err = ftimm::tc::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(ftimm::cdiv(p.M, ftimm::tc::BM) * ftimm::cdiv(p.N, PAIR_N), 1, G);
+  kernel<<<grid, ftimm::tc::THREADS, smem, stream>>>(tx, tg, tu, p);
+  return (int)cudaGetLastError();
+}
+
+template <typename TC>
+static int launch_tc_layout(int x_mn, int w_mn, const CUtensorMap& tx, const CUtensorMap& tg,
+                            const CUtensorMap& tu, const PairTcArgs& p, int G, cudaStream_t s) {
+  if (x_mn && w_mn) return launch_tc<true, true, TC>(tx, tg, tu, p, G, s);
+  if (x_mn) return launch_tc<true, false, TC>(tx, tg, tu, p, G, s);
+  if (w_mn) return launch_tc<false, true, TC>(tx, tg, tu, p, G, s);
+  return launch_tc<false, false, TC>(tx, tg, tu, p, G, s);
+}
+
+extern "C" int ftimm_gemm_grouped_swiglu_tc_launch(int device, int types, const void* x,
+                                                   const void* wg, const void* wu, void* out,
+                                                   int G, int M, int N, int K, long long sxg,
+                                                   long long sxm, long long sxk, long long swg,
+                                                   long long swk, long long swn, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (G > 65535) return (int)cudaErrorInvalidValue;
+  CUtensorMap tx, tg, tu;
+  const int64_t gx = sxg != 0 ? G : 1, gw = swg != 0 ? G : 1;
+  const int x_mn = ftimm::tc::encode_operand(&tx, x, M, K, sxm, sxk, ftimm::tc::BM, gx, sxg);
+  const int w_mn = ftimm::tc::encode_operand(&tg, wg, N, K, swn, swk, PAIR_N, gw, swg);
+  if (x_mn < 0 || w_mn < 0 ||
+      ftimm::tc::encode_operand(&tu, wu, N, K, swn, swk, PAIR_N, gw, swg) != w_mn)
+    return (int)cudaErrorInvalidValue;
+  const PairTcArgs p{out, M, N, K, gx > 1, gw > 1};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (types == 0) return launch_tc_layout<__nv_bfloat16>(x_mn, w_mn, tx, tg, tu, p, G, s);
+  if (types == 1) return launch_tc_layout<float>(x_mn, w_mn, tx, tg, tu, p, G, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// Weight-stream body (at most 16 rows a group)
+// ---------------------------------------------------------------------------
+
+// Names this kernel's stream instantiations (and their profile entries).
+struct ftimm_gemm_grouped_swiglu_stream {};
+
+extern "C" int ftimm_gemm_grouped_swiglu_stream_launch(
+    int device, int types, const void* x, const void* wg, const void* wu, void* out, int G,
+    int M, int N, int K, long long sxg, long long sxm, long long sxk, long long swg,
+    long long swk, long long swn, int slices, int slice, float* ws, int* counters,
+    void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  ftimm::gs::Args p{out, ws, counters, nullptr, G, M, G * M, N, K, slice, 0, 0,
+                    ftimm::EpiArgs{}};
+  return ftimm::gs::launch<ftimm_gemm_grouped_swiglu_stream, 2>(
+      types, x, M, sxg, sxm, sxk, wg, wu, swg, swk, swn, p, slices, G,
+      static_cast<cudaStream_t>(stream));
 }

@@ -233,7 +233,7 @@ extern "C" int ftimm_gemm_ragged_stream_launch(
   ftimm::gs::Args p{c, ws, counters, offsets, G, 0, T, N, K, slice, 0, 0,
                     ftimm::EpiArgs{scale_vec, scale_vec_g, has_scale, scale, bias, bias_g, act,
                                    nullptr, 0}};
-  return ftimm::gs::launch<ftimm_gemm_ragged_stream>(types, x, T, 0, sxm,
-                                                     sxk, w, swg, swk, swn, p, slices, G + 1,
+  return ftimm::gs::launch<ftimm_gemm_ragged_stream>(types, x, T, 0, sxm, sxk, w, nullptr, swg,
+                                                     swk, swn, p, slices, G + 1,
                                                      static_cast<cudaStream_t>(stream));
 }

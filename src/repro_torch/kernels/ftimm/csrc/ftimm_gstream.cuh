@@ -1,6 +1,8 @@
-// Group-aware weight stream of the grouped and ragged ftIMM kernels for
-// Hopper (sm_90a): the MoE decode body ("stream").  bf16 x bf16, at most
-// NT = 16 token rows per group, each group against its own weight panel.
+// Group-aware weight stream of the grouped and ragged ftIMM kernels and
+// their SwiGLU pairs for Hopper (sm_90a): the MoE decode body ("stream").
+// bf16 x bf16, at most NT = 16 token rows per group, each group against its
+// own weight panel, or its two (PANELS = 2: the gate and up panels of the
+// SwiGLU pair, silu(x . Wg) * (x . Wu)).
 //
 // What bounds it: at decode every weight byte feeds 16 FMAs at most (16
 // rows) -- far below the card's ~295 bf16 FLOP/byte ridge -- so the panels'
@@ -38,6 +40,15 @@
 //     and applies the epilogue, so reruns are bit-identical.  Each output
 //     row has exactly one writer; the ragged kernel's extra z slot writes
 //     zeros to the rows no group owns.
+//   * The pair (PANELS = 2): each stage holds the Wg box, the Wu box at the
+//     same (k0, n0) and the x box (34 KB; 4 stages and the staging tiles
+//     make one 154 KB CTA an SM, 136 KB of weights in flight), and the
+//     warpgroup keeps one accumulator set per panel.  Both sets have the
+//     same fragment layout, so with one K slice silu(g) * u is formed in
+//     registers.  SiLU is not linear: with several slices each CTA writes
+//     both fp32 partials, and the last CTA sums g and u separately, in slice
+//     order, before it forms silu(g) * u.  The pair takes no epilogue, as in
+//     the reference.
 #pragma once
 
 #include "ftimm_tc.cuh"
@@ -52,18 +63,24 @@ constexpr int CONSUMERS = 128;
 constexpr int THREADS = CONSUMERS + 32;  // + the producer warp
 constexpr int W_BYTES = STRIP * BK * 2;  // 16 KB
 constexpr int X_BYTES = NT * BK * 2;     // 2 KB
-constexpr int STAGE_BYTES = W_BYTES + X_BYTES;
 constexpr int PITCH = STRIP + 4;         // fp32 staging row pitch
 constexpr int STAGES = 4;                // kernel.py's GSTREAM_STAGES
-constexpr int RING = STAGES * STAGE_BYTES;
-constexpr int STAGING = NT * PITCH * 4;
-// + the barriers, + slack to align the ring to 1024 bytes by hand.
-constexpr int SMEM = RING + STAGING + 16 * STAGES + 1024;
-static_assert(STAGE_BYTES % 1024 == 0, "stages stay aligned to the 128-byte swizzle's 1 KB");
+constexpr int STAGING = NT * PITCH * 4;  // one panel's fp32 (NT, STRIP) tile
+
+// The shared memory of one CTA streaming PANELS weight panels (kernel.py's
+// gstream_smem): the ring, a staging tile per panel, the barriers, and
+// slack to align the ring to 1024 bytes by hand.
+template <int PANELS>
+struct Ring {
+  static constexpr int STAGE_BYTES = PANELS * W_BYTES + X_BYTES;
+  static constexpr int BYTES = STAGES * STAGE_BYTES;
+  static constexpr int SMEM = BYTES + PANELS * STAGING + 16 * STAGES + 1024;
+  static_assert(STAGE_BYTES % 1024 == 0, "stages stay aligned to the 128-byte swizzle's 1 KB");
+};
 
 struct Args {
   void* c;             // output rows (grouped: (G, M, N); ragged: (T, N))
-  float* ws;           // (slices, rows, N) fp32 partials when gridDim.y > 1
+  float* ws;           // (slices, PANELS, rows, N) fp32 partials when gridDim.y > 1
   int* counters;       // G x strips, 0 between launches
   const int* offsets;  // ragged: (G + 1,) device prefix sums; grouped: null
   int G, M, T, N, K;   // M: rows of a group (grouped); T: output rows
@@ -84,12 +101,25 @@ __device__ __forceinline__ void wgmma_m64n16k16(float (&d)[8], uint64_t da, uint
       : "l"(da), "l"(db), "r"(1), "n"(TA));
 }
 
+// The output value of one (row, column) from the fp32 sums of each panel.
+template <int PANELS, typename TC>
+__device__ __forceinline__ TC flush_value(const float (&v)[PANELS], const Args& p, int g, int erow,
+                                          int n) {
+  if constexpr (PANELS == 2) {
+    return from_f<TC>(silu_mul(v[0], v[1]));
+  } else {
+    return from_f<TC>(apply_epi<__nv_bfloat16>(v[0], p.epi, g, erow, n, p.N));
+  }
+}
+
 // Tag: the calling kernel's own type, so that each kernel's stream has its
-// own symbol (and name in a profile).
-template <class Tag, bool W_MN, typename TC>
+// own symbol (and name in a profile).  tu: the up panels' map (PANELS = 2).
+template <class Tag, bool W_MN, typename TC, int PANELS>
 __global__ void __launch_bounds__(THREADS)
     group_stream_kernel(const __grid_constant__ CUtensorMap tx,
-                        const __grid_constant__ CUtensorMap tw, Args p) {
+                        const __grid_constant__ CUtensorMap tw,
+                        const __grid_constant__ CUtensorMap tu, Args p) {
+  using R = Ring<PANELS>;
   extern __shared__ unsigned char smem_raw[];
   __shared__ int last;
   const int tid = threadIdx.x, g = blockIdx.z, strip = blockIdx.x;
@@ -123,8 +153,8 @@ __global__ void __launch_bounds__(THREADS)
   const uint32_t pad = (1024u - (raw & 1023u)) & 1023u;
   unsigned char* smem = smem_raw + pad;
   const uint32_t ring = raw + pad;
-  float* stage = reinterpret_cast<float*>(smem + RING);
-  const uint32_t full0 = ring + RING + STAGING;
+  float* stage = reinterpret_cast<float*>(smem + R::BYTES);
+  const uint32_t full0 = ring + R::BYTES + PANELS * STAGING;
   const uint32_t empty0 = full0 + 8 * STAGES;
   const int k_lo = s * p.slice, k_hi = min(p.K, k_lo + p.slice);
   const int ktiles = k_hi > k_lo ? cdiv(k_hi - k_lo, BK) : 0;
@@ -147,53 +177,75 @@ __global__ void __launch_bounds__(THREADS)
       for (int it = 0; it < ktiles; ++it) {
         const int st = it % STAGES;
         if (it >= STAGES) tc::mbar_wait(empty0 + 8 * st, ((it / STAGES) - 1) & 1);
-        const uint32_t fb = full0 + 8 * st, sw = ring + st * STAGE_BYTES;
+        const uint32_t fb = full0 + 8 * st, sw = ring + st * R::STAGE_BYTES;
         const int k0 = k_lo + it * BK;
-        tc::mbar_expect_tx(fb, STAGE_BYTES);
-        if (W_MN) {
-          tc::tma_box(sw, &tw, fb, n0, k0, wg);
-          tc::tma_box(sw + tc::BLOCK_BYTES, &tw, fb, n0 + 64, k0, wg);
-        } else {
-          tc::tma_box(sw, &tw, fb, k0, n0, wg);
+        tc::mbar_expect_tx(fb, R::STAGE_BYTES);
+#pragma unroll
+        for (int q = 0; q < PANELS; ++q) {
+          const CUtensorMap* map = q == 0 ? &tw : &tu;
+          const uint32_t dst = sw + q * W_BYTES;
+          if (W_MN) {
+            tc::tma_box(dst, map, fb, n0, k0, wg);
+            tc::tma_box(dst + tc::BLOCK_BYTES, map, fb, n0 + 64, k0, wg);
+          } else {
+            tc::tma_box(dst, map, fb, k0, n0, wg);
+          }
         }
-        tc::tma_box(sw + W_BYTES, &tx, fb, k0, xrow, xg);
+        tc::tma_box(sw + PANELS * W_BYTES, &tx, fb, k0, xrow, xg);
       }
     }
   } else {
     // ---- consumer warpgroup: C^T = W^T . X^T on the tensor cores ----
-    float acc[2][8];
+    // acc[q][h]: panel q, 64-column half h of the strip.
+    float acc[PANELS][2][8];
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
+    for (int q = 0; q < PANELS; ++q)
 #pragma unroll
-      for (int i = 0; i < 8; ++i) acc[h][i] = 0.f;
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[q][h][i] = 0.f;
     for (int it = 0; it < ktiles; ++it) {
       const int st = it % STAGES;
       tc::mbar_wait(full0 + 8 * st, (it / STAGES) & 1);
-      const uint32_t sw = ring + st * STAGE_BYTES, sx = sw + W_BYTES;
-      tc::fence_regs(acc[0]);
-      tc::fence_regs(acc[1]);
+      const uint32_t sw = ring + st * R::STAGE_BYTES, sx = sw + PANELS * W_BYTES;
+#pragma unroll
+      for (int q = 0; q < PANELS; ++q) {
+        tc::fence_regs(acc[q][0]);
+        tc::fence_regs(acc[q][1]);
+      }
       tc::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
         const uint64_t db = tc::smem_desc(sx + kk * 32, 16, 1024);
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const uint32_t blk = sw + h * tc::BLOCK_BYTES;
-          const uint64_t da = W_MN ? tc::smem_desc(blk + kk * 2048, tc::BLOCK_BYTES, 1024)
-                                   : tc::smem_desc(blk + kk * 32, 16, 1024);
-          wgmma_m64n16k16<W_MN ? 1 : 0>(acc[h], da, db);
-        }
+        for (int q = 0; q < PANELS; ++q)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const uint32_t blk = sw + q * W_BYTES + h * tc::BLOCK_BYTES;
+            const uint64_t da = W_MN ? tc::smem_desc(blk + kk * 2048, tc::BLOCK_BYTES, 1024)
+                                     : tc::smem_desc(blk + kk * 32, 16, 1024);
+            wgmma_m64n16k16<W_MN ? 1 : 0>(acc[q][h], da, db);
+          }
       }
       tc::wgmma_commit();
-      tc::fence_regs(acc[0]);
-      tc::fence_regs(acc[1]);
+#pragma unroll
+      for (int q = 0; q < PANELS; ++q) {
+        tc::fence_regs(acc[q][0]);
+        tc::fence_regs(acc[q][1]);
+      }
       tc::wgmma_wait<1>();  // the previous step's group has retired: release its slot
       if (it > 0) tc::mbar_arrive(empty0 + 8 * ((it - 1) % STAGES));
     }
     tc::wgmma_wait<0>();
-    tc::fence_regs(acc[0]);
-    tc::fence_regs(acc[1]);
-    // Fragment (row = N column, column = token) -> staging [token][column].
+#pragma unroll
+    for (int q = 0; q < PANELS; ++q) {
+      tc::fence_regs(acc[q][0]);
+      tc::fence_regs(acc[q][1]);
+    }
+    // Fragment (row = N column, column = token) -> staging [token][column]:
+    // with one slice the pair's silu(g) * u (the panels' fragments share a
+    // layout), else each panel's fp32 sum in its own tile.
+    const bool fuse = PANELS == 2 && S == 1;
     const int lane = tid % 32, wi = tid / 32;
 #pragma unroll
     for (int h = 0; h < 2; ++h)
@@ -204,26 +256,36 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int nl = h * 64 + wi * 16 + lane / 4 + 8 * half;
-            const int t = j * 8 + 2 * (lane % 4) + e;
-            stage[t * PITCH + nl] = acc[h][j * 4 + 2 * half + e];
+            const int t = j * 8 + 2 * (lane % 4) + e, i = j * 4 + 2 * half + e;
+            if (fuse) {
+              stage[t * PITCH + nl] = silu_mul(acc[0][h][i], acc[PANELS - 1][h][i]);
+            } else {
+#pragma unroll
+              for (int q = 0; q < PANELS; ++q) stage[q * NT * PITCH + t * PITCH + nl] = acc[q][h][i];
+            }
           }
   }
-  __syncthreads();  // the staging tile is complete
+  __syncthreads();  // the staging tiles are complete
 
   // Epilogue rows: the grouped residual is indexed within the group.
   const int erow0 = p.offsets != nullptr ? row0 : 0;
   if (S == 1) {
     for (int i = tid; i < rows * STRIP; i += THREADS) {
       const int t = i / STRIP, nl = i % STRIP, n = n0 + nl;
-      if (n < p.N)
-        c[(int64_t)(row0 + t) * p.N + n] = from_f<TC>(
-            apply_epi<__nv_bfloat16>(stage[t * PITCH + nl], p.epi, g, erow0 + t, n, p.N));
+      if (n >= p.N) continue;
+      const float v = stage[t * PITCH + nl];  // the pair: silu(g) * u already
+      c[(int64_t)(row0 + t) * p.N + n] =
+          PANELS == 2 ? from_f<TC>(v)
+                      : from_f<TC>(apply_epi<__nv_bfloat16>(v, p.epi, g, erow0 + t, n, p.N));
     }
     return;
   }
-  for (int i = tid; i < rows * STRIP; i += THREADS) {
-    const int t = i / STRIP, nl = i % STRIP, n = n0 + nl;
-    if (n < p.N) p.ws[((int64_t)s * p.T + row0 + t) * p.N + n] = stage[t * PITCH + nl];
+  for (int i = tid; i < PANELS * rows * STRIP; i += THREADS) {
+    const int q = i / (rows * STRIP), r = i % (rows * STRIP);
+    const int t = r / STRIP, nl = r % STRIP, n = n0 + nl;
+    if (n < p.N)
+      p.ws[(((int64_t)s * PANELS + q) * p.T + row0 + t) * p.N + n] =
+          stage[q * NT * PITCH + t * PITCH + nl];
   }
   __threadfence();
   __syncthreads();
@@ -235,41 +297,49 @@ __global__ void __launch_bounds__(THREADS)
   for (int i = tid; i < rows * STRIP; i += THREADS) {
     const int t = i / STRIP, n = n0 + i % STRIP;
     if (n >= p.N) continue;
-    float v = 0.f;
-    for (int q = 0; q < S; ++q) v += __ldcg(&p.ws[((int64_t)q * p.T + row0 + t) * p.N + n]);
-    c[(int64_t)(row0 + t) * p.N + n] =
-        from_f<TC>(apply_epi<__nv_bfloat16>(v, p.epi, g, erow0 + t, n, p.N));
+    float v[PANELS];
+#pragma unroll
+    for (int q = 0; q < PANELS; ++q) {  // each panel summed alone, in slice order
+      v[q] = 0.f;
+      for (int sl = 0; sl < S; ++sl)
+        v[q] += __ldcg(&p.ws[(((int64_t)sl * PANELS + q) * p.T + row0 + t) * p.N + n]);
+    }
+    c[(int64_t)(row0 + t) * p.N + n] = flush_value<PANELS, TC>(v, p, g, erow0 + t, n);
   }
   if (tid == 0) *counter = 0;
 }
 
-// Launch the kernel of (weight layout, output type) with the grid (strips,
-// slices, groups); 0 or the CUDA error.
-template <class Tag, bool W_MN, typename TC>
-static int launch_one(const CUtensorMap& tx, const CUtensorMap& tw, const Args& p, int slices,
-                      int zslots, cudaStream_t stream) {
-  auto kernel = group_stream_kernel<Tag, W_MN, TC>;
-  const cudaError_t err = tc::allow_smem(kernel, SMEM);
+// Launch the kernel of (weight layout, output type, panels) with the grid
+// (strips, slices, groups); 0 or the CUDA error.
+template <class Tag, bool W_MN, typename TC, int PANELS>
+static int launch_one(const CUtensorMap& tx, const CUtensorMap& tw, const CUtensorMap& tu,
+                      const Args& p, int slices, int zslots, cudaStream_t stream) {
+  auto kernel = group_stream_kernel<Tag, W_MN, TC, PANELS>;
+  constexpr int smem = Ring<PANELS>::SMEM;
+  const cudaError_t err = tc::allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(cdiv(p.N, STRIP), slices, zslots);
-  kernel<<<grid, THREADS, SMEM, stream>>>(tx, tw, p);
+  kernel<<<grid, THREADS, smem, stream>>>(tx, tw, tu, p);
   return (int)cudaGetLastError();
 }
 
-template <class Tag, typename TC>
-static int launch_layout(int w_mn, const CUtensorMap& tx, const CUtensorMap& tw, const Args& p,
-                         int slices, int zslots, cudaStream_t s) {
-  if (w_mn) return launch_one<Tag, true, TC>(tx, tw, p, slices, zslots, s);
-  return launch_one<Tag, false, TC>(tx, tw, p, slices, zslots, s);
+template <class Tag, typename TC, int PANELS>
+static int launch_layout(int w_mn, const CUtensorMap& tx, const CUtensorMap& tw,
+                         const CUtensorMap& tu, const Args& p, int slices, int zslots,
+                         cudaStream_t s) {
+  if (w_mn) return launch_one<Tag, true, TC, PANELS>(tx, tw, tu, p, slices, zslots, s);
+  return launch_one<Tag, false, TC, PANELS>(tx, tw, tu, p, slices, zslots, s);
 }
 
 // Encode the maps and launch.  A: x rows (R_x rows of K, K-major, groups
 // s_xg apart or 0 = one flat / shared operand); W: op(W)(n, k) = w[n * s_wn
-// + k * s_wk], groups s_wg apart.  Returns cudaErrorInvalidValue for what
-// the body does not take (kernel.py's grouped_bodies / ragged_bodies rule).
-template <class Tag>
-static inline int launch(int types, const void* x, int64_t R_x,
-                         int64_t s_xg, int64_t s_xm, int64_t s_xk, const void* w, int64_t s_wg,
+// + k * s_wk], groups s_wg apart; PANELS = 2: the up panels wu with W's
+// strides, and ws holds (slices, 2, rows, N).  Returns
+// cudaErrorInvalidValue for what the body does not take (kernel.py's
+// grouped_bodies / ragged_bodies rule).
+template <class Tag, int PANELS = 1>
+static inline int launch(int types, const void* x, int64_t R_x, int64_t s_xg, int64_t s_xm,
+                         int64_t s_xk, const void* w, const void* wu, int64_t s_wg,
                          int64_t s_wk, int64_t s_wn, Args p, int slices, int zslots,
                          cudaStream_t s) {
   const int64_t rows = p.offsets != nullptr ? p.T : p.M;
@@ -277,17 +347,21 @@ static inline int launch(int types, const void* x, int64_t R_x,
       (int64_t)p.slice * (slices - 1) >= p.K || zslots > 65535 ||
       (slices > 1 && (p.ws == nullptr || p.counters == nullptr)))
     return (int)cudaErrorInvalidValue;
-  CUtensorMap tx, tw;
+  CUtensorMap tx, tw, tu;
   const int64_t gx = s_xg != 0 ? p.G : 1, gw = s_wg != 0 ? p.G : 1;
   if (tc::encode_operand(&tx, x, R_x, p.K, s_xm, s_xk, NT, gx, s_xg) != 0)
     return (int)cudaErrorInvalidValue;
   const int w_mn = tc::encode_operand(&tw, w, p.N, p.K, s_wn, s_wk, STRIP, gw, s_wg);
   if (w_mn < 0) return (int)cudaErrorInvalidValue;
+  tu = tw;
+  if (PANELS == 2 &&
+      tc::encode_operand(&tu, wu, p.N, p.K, s_wn, s_wk, STRIP, gw, s_wg) != w_mn)
+    return (int)cudaErrorInvalidValue;
   p.x3d = gx > 1;
   p.w3d = gw > 1;
   if (types == 0)
-    return launch_layout<Tag, __nv_bfloat16>(w_mn, tx, tw, p, slices, zslots, s);
-  if (types == 1) return launch_layout<Tag, float>(w_mn, tx, tw, p, slices, zslots, s);
+    return launch_layout<Tag, __nv_bfloat16, PANELS>(w_mn, tx, tw, tu, p, slices, zslots, s);
+  if (types == 1) return launch_layout<Tag, float, PANELS>(w_mn, tx, tw, tu, p, slices, zslots, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -39,6 +39,12 @@
 // residual, apply_epi), casts, and stores one 16-byte vector (scalar
 // stores only where a row's end is not 16-byte aligned or past N).
 //
+// The SwiGLU pair (PAIR, a Tile<256, ...>): the second 128-column half of
+// each stage's B box comes from the up panels' map at the same n0, not from
+// B's at n0 + 128, so the two accumulator halves hold g = x . Wg and u =
+// x . Wu at the same (row, column) of a 128 x 128 output tile.  The flush
+// forms silu(g) * u in registers and stages only that tile.
+//
 // What the body cannot take: an operand without a unit-stride dimension,
 // with a base not 16-byte aligned, or with its other stride not a multiple
 // of 16 bytes.  kernel.py's rule (tma_major) sends such operands to the FMA
@@ -223,12 +229,15 @@ __device__ __forceinline__ void zero_tail(unsigned char* slot, int keep) {
 // (MN-major), B's at {k, n} or {n, k}, and at group ga / gb of a rank-3
 // map when that is >= 0 (the grouped and ragged kernels: TMA then
 // zero-fills each group's K edge).  Rows m >= M are not stored.  Every
-// thread of the CTA calls it.
-template <class T, bool A_MN, bool B_MN, typename TR, typename TC>
+// thread of the CTA calls it.  PAIR: tu is the up panels' map, read as B's
+// (K-major boxes of 128 rows); the tile stores silu(g) * u, 128 columns.
+template <class T, bool A_MN, bool B_MN, typename TR, typename TC, bool PAIR = false>
 __device__ __forceinline__ void run_tile(const CUtensorMap* ta, const CUtensorMap* tb, int m0,
                                          int n0, int k_lo, int k_hi, bool mask_tail,
                                          TC* __restrict__ c, int64_t ldc, int M, int N,
-                                         const EpiArgs& epi, int g, int ga = -1, int gb = -1) {
+                                         const EpiArgs& epi, int g, int ga = -1, int gb = -1,
+                                         const CUtensorMap* tu = nullptr) {
+  static_assert(!PAIR || T::NH == 2, "the pair holds g and u in the tile's two halves");
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t pad = (1024u - (raw & 1023u)) & 1023u;
@@ -268,7 +277,12 @@ __device__ __forceinline__ void run_tile(const CUtensorMap* ta, const CUtensorMa
         }
         if (B_MN) {
 #pragma unroll
-          for (int j = 0; j < T::BN / 64; ++j) tma_box(sb + j * BLOCK_BYTES, tb, fb, n0 + 64 * j, k0, gb);
+          for (int j = 0; j < T::BN / 64; ++j)
+            tma_box(sb + j * BLOCK_BYTES, PAIR && j >= 2 ? tu : tb, fb,
+                    n0 + 64 * (PAIR ? j % 2 : j), k0, gb);
+        } else if (PAIR) {
+          tma_box(sb, tb, fb, k0, n0, gb);
+          tma_box(sb + 128 * 128, tu, fb, k0, n0, gb);
         } else {
           tma_box(sb, tb, fb, k0, n0, gb);
         }
@@ -324,23 +338,27 @@ __device__ __forceinline__ void run_tile(const CUtensorMap* ta, const CUtensorMa
     // Flush: stage the fp32 accumulators, then each thread takes 16 bytes
     // of outputs at a time: the epilogue, the cast, one vector store.
     consumer_sync<1>();  // both warpgroups are done reading the ring
-    constexpr int P = T::BN + 8;
+    constexpr int OUT_N = PAIR ? 128 : T::BN;  // the tile's output columns
+    constexpr int P = OUT_N + 8;
     float* stage = reinterpret_cast<float*>(smem);
     const int lane = tid % 32, wi = (tid % 128) / 32;
 #pragma unroll
-    for (int h = 0; h < T::NH; ++h)
+    for (int h = 0; h < OUT_N / 128; ++h)
 #pragma unroll
       for (int j = 0; j < 16; ++j)
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int rl = w * 64 + wi * 16 + lane / 4 + 8 * half;
           const int cl = h * 128 + j * 8 + 2 * (lane % 4);
+          const int i = j * 4 + 2 * half;
           *reinterpret_cast<float2*>(stage + rl * P + cl) =
-              make_float2(acc[h][j * 4 + 2 * half], acc[h][j * 4 + 2 * half + 1]);
+              PAIR ? make_float2(silu_mul(acc[0][i], acc[T::NH - 1][i]),
+                                 silu_mul(acc[0][i + 1], acc[T::NH - 1][i + 1]))
+                   : make_float2(acc[h][i], acc[h][i + 1]);
         }
     consumer_sync<1>();
     constexpr int VEC = 16 / (int)sizeof(TC);
-    constexpr int CHUNKS = T::BN / VEC;
+    constexpr int CHUNKS = OUT_N / VEC;
     const bool vec_ok = (ldc % VEC == 0) && (reinterpret_cast<uintptr_t>(c) % 16 == 0);
     const bool has_epi = epi.scale_vec || epi.has_scale || epi.bias || epi.act || epi.residual;
 #pragma unroll 1

@@ -14,16 +14,18 @@ The kernels are CUDA C++ for ``sm_90a`` in ``csrc/``, one source per kernel:
   * ``ftimm_gemm_splitk``   dense fp32 partial products over K slices
                             (summed, then the epilogue, by the wrapper).
 
-``ftimm_gemm``, ``ftimm_gemm_grouped`` and ``ftimm_gemm_ragged`` have
-three bodies, and ``ftimm_gemm_ragged_dw`` the first two: CUDA-core FMAs
-on any operand types and strides (``"fma"``, the body the other kernels
-share), tensor cores for bf16 x bf16 operands TMA can read (``"tc"``: TMA,
-an mbarrier ring and wgmma, ``csrc/ftimm_tc.cuh``; the grouped and ragged
-kernels read their panels through 3-D tensor maps), and a K-parallel
-weight stream for bf16 x bf16 calls of at most 16 rows (``"stream"``:
-``ftimm_gemm``'s register stream, and for the grouped and ragged kernels
-a TMA ring per (N strip, K slice, group) feeding wgmma with the weight as
-the 64-row operand, ``csrc/ftimm_gstream.cuh``).  The planner picks the
+``ftimm_gemm``, ``ftimm_gemm_grouped``, ``ftimm_gemm_ragged`` and the
+grouped and ragged SwiGLU pairs have three bodies, and
+``ftimm_gemm_ragged_dw`` the first two: CUDA-core FMAs on any operand
+types and strides (``"fma"``, the body the other kernels share), tensor
+cores for bf16 x bf16 operands TMA can read (``"tc"``: TMA, an mbarrier
+ring and wgmma, ``csrc/ftimm_tc.cuh``; the grouped and ragged kernels read
+their panels through 3-D tensor maps, the pairs both panels into one
+stage), and a K-parallel weight stream for bf16 x bf16 calls of at most 16
+rows (``"stream"``: ``ftimm_gemm``'s register stream, and for the grouped
+and ragged kernels and their pairs a TMA ring per (N strip, K slice,
+group) feeding wgmma with the weight as the 64-row operand,
+``csrc/ftimm_gstream.cuh``).  The planner picks the
 body (``core.gemm.tuner``) among those ``gemm_bodies`` /
 ``grouped_bodies`` / ``ragged_bodies`` / ``ragged_dw_bodies`` allow for
 the call's types and operand layouts, a rule decided before the launch;
@@ -93,7 +95,9 @@ GSTREAM_ROWS = 16
 GSTREAM_STAGES = 4
 BODIES = ("fma", "tc", "stream")
 _BODY_KERNELS = {"ftimm_gemm": BODIES, "ftimm_gemm_grouped": BODIES,
+                 "ftimm_gemm_grouped_swiglu": BODIES,
                  "ftimm_gemm_ragged": BODIES,
+                 "ftimm_gemm_ragged_swiglu": BODIES,
                  "ftimm_gemm_ragged_dw": ("fma", "tc")}
 
 # (A dtype, B dtype, output dtype) -> the type code of the C entries
@@ -142,28 +146,31 @@ def smem_bytes(bm: int, bn: int, bk: int, panels: int = 1, *,
                body: str = "fma", stages: int = 4) -> int:
     """Shared memory of one CTA.  FMA body: the static fp32 [bk][bm+1] A
     panel plus ``panels`` [bk][bn+1] B panels (2 for the fused SwiGLU pair).
-    Tensor cores: the ``stages``-deep bf16 ring of (bm x bk) and (bn x bk)
-    boxes, or the flush's fp32 staging tile (bm, bn + 8) if larger, the
-    ring's barriers and 1 KB to align it (csrc/ftimm_tc.cuh, Tile::SMEM).
+    Tensor cores: the ``stages``-deep bf16 ring of (bm x bk) and
+    ``panels`` (bn x bk) boxes (the pair: a 128 x 256 stage), or the
+    flush's fp32 staging tile (bm, panels x bn + 8) if larger, the ring's
+    barriers and 1 KB to align it (csrc/ftimm_tc.cuh, Tile::SMEM).
     Stream (bm = the compiled row count, bk = the slice): the staged bf16
     rows, the reduction's fp32 (8 warps x bn) and (bm x bn) tiles."""
     if body == "fma":
         return 4 * (bk * (bm + 1) + panels * bk * (bn + 1))
     if body == "tc":
-        ring = stages * (bm * bk + bn * bk) * 2
-        return max(ring, bm * (bn + 8) * 4) + 16 * stages + 1024
+        ring = stages * (bm * bk + panels * bn * bk) * 2
+        return max(ring, bm * (panels * bn + 8) * 4) + 16 * stages + 1024
     if body == "stream":
         return bm * (bk + 7) // 8 * 8 * 2 + 4 * (8 * bn + bm * bn) + 4
     raise ValueError(f"unknown body: {body!r}")
 
 
-def gstream_smem() -> int:
+def gstream_smem(panels: int = 1) -> int:
     """Shared memory of one CTA of the grouped / ragged weight stream: the
-    GSTREAM_STAGES-deep ring of (64 K x 128 N) weight and (64 K x 16 rows)
-    activation boxes, the fp32 (16, 128 + 4) staging tile, the barriers and
-    1 KB to align the ring (csrc/ftimm_gstream.cuh, SMEM)."""
-    stage = STREAM_STRIP * 64 * 2 + GSTREAM_ROWS * 64 * 2
-    return GSTREAM_STAGES * stage + GSTREAM_ROWS * (STREAM_STRIP + 4) * 4 \
+    GSTREAM_STAGES-deep ring of ``panels`` (64 K x 128 N) weight boxes (2:
+    the SwiGLU pair's Wg and Wu) and a (64 K x 16 rows) activation box a
+    stage, an fp32 (16, 128 + 4) staging tile per panel, the barriers and
+    1 KB to align the ring (csrc/ftimm_gstream.cuh, Ring::SMEM)."""
+    stage = panels * STREAM_STRIP * 64 * 2 + GSTREAM_ROWS * 64 * 2
+    return GSTREAM_STAGES * stage \
+        + panels * GSTREAM_ROWS * (STREAM_STRIP + 4) * 4 \
         + 16 * GSTREAM_STAGES + 1024
 
 
@@ -265,15 +272,16 @@ def grouped_operands(a: torch.Tensor, b: torch.Tensor,
 
 
 def grouped_bodies(a_bytes: int, b_bytes: int, m: int, a_major: str | None,
-                   b_ok: bool, panels: int = 1) -> tuple[str, ...]:
-    """The bodies of ``ftimm_gemm_grouped`` that can take a call: FMA
-    always; for bf16 x bf16 with op(B) TMA-readable the tensor cores when
-    TMA reads op(A) too (``a_major`` not None), and the weight stream when
-    a group has at most GSTREAM_ROWS rows and op(A) is K-major.  fp32 (the
-    attention products), the mixed pairs and the grouped SwiGLU pair
-    (``panels`` = 2) stay FMA."""
+                   b_ok: bool) -> tuple[str, ...]:
+    """The bodies of ``ftimm_gemm_grouped`` and of its SwiGLU pair
+    (``ftimm_gemm_grouped_swiglu``, whose op(B) is each of its two panels)
+    that can take a call: FMA always; for bf16 x bf16 with op(B)
+    TMA-readable the tensor cores when TMA reads op(A) too (``a_major`` not
+    None), and the weight stream when a group has at most GSTREAM_ROWS rows
+    and op(A) is K-major.  fp32 (the attention products) and the mixed
+    pairs stay FMA."""
     bodies = ["fma"]
-    if panels == 1 and a_bytes == b_bytes == 2 and b_ok and a_major:
+    if a_bytes == b_bytes == 2 and b_ok and a_major:
         bodies.append("tc")
         if m <= GSTREAM_ROWS and a_major == "k":
             bodies.append("stream")
@@ -294,14 +302,15 @@ def ragged_operands(x: torch.Tensor, w: torch.Tensor,
 
 
 def ragged_bodies(x_bytes: int, w_bytes: int, total: int, x_k: bool,
-                  w_ok: bool, panels: int = 1) -> tuple[str, ...]:
-    """The bodies of ``ftimm_gemm_ragged`` that can take a call: FMA
-    always; for bf16 x bf16 with x K-major and the panels TMA-readable the
-    tensor cores, and the weight stream when all ``total`` rows are at most
+                  w_ok: bool) -> tuple[str, ...]:
+    """The bodies of ``ftimm_gemm_ragged`` and of its SwiGLU pair
+    (``ftimm_gemm_ragged_swiglu``) that can take a call: FMA always; for
+    bf16 x bf16 with x K-major and the panels TMA-readable the tensor
+    cores, and the weight stream when all ``total`` rows are at most
     GSTREAM_ROWS (then no group holds more; the per-group counts stay on
-    the device).  The SwiGLU pair (``panels`` = 2) stays FMA."""
+    the device)."""
     bodies = ["fma"]
-    if panels == 1 and x_bytes == w_bytes == 2 and x_k and w_ok:
+    if x_bytes == w_bytes == 2 and x_k and w_ok:
         bodies.append("tc")
         if total <= GSTREAM_ROWS:
             bodies.append("stream")
@@ -450,10 +459,15 @@ _ARGTYPES = {
     "ftimm_gemm_splitk": [_I, _I, _I, _VP, _VP, _VP, _I, _I, _I, _I, _I, _LL,
                           _LL, _LL, _LL, _I, _VP],
 }
-# The grouped and ragged tensor-core entries take their FMA entry's arguments
-# but the tile: they run GROUP_TC_TILE.
-_ARGTYPES["ftimm_gemm_grouped_tc"] = [_I] + _ARGTYPES["ftimm_gemm_grouped"][2:]
-_ARGTYPES["ftimm_gemm_ragged_tc"] = [_I] + _ARGTYPES["ftimm_gemm_ragged"][2:]
+# The grouped and ragged tensor-core entries (and their pairs') take their
+# FMA entry's arguments but the tile: they run GROUP_TC_TILE.  The pairs'
+# stream entries add (slices, slice, workspace, counters) before the stream.
+for _name in ("ftimm_gemm_grouped", "ftimm_gemm_ragged",
+              "ftimm_gemm_grouped_swiglu", "ftimm_gemm_ragged_swiglu"):
+    _ARGTYPES[f"{_name}_tc"] = [_I] + _ARGTYPES[_name][2:]
+for _name in ("ftimm_gemm_grouped_swiglu", "ftimm_gemm_ragged_swiglu"):
+    _ARGTYPES[f"{_name}_stream"] = ([_I] + _ARGTYPES[_name][2:-1]
+                                    + [_I, _I, _VP, _VP, _VP])
 _entries: dict[str, object] = {}
 _libs: list[ctypes.CDLL] = []     # keeps the loaded libraries alive
 
@@ -690,14 +704,23 @@ def ftimm_gemm_grouped_plain(a, b, *, trans: str = "nn", out_dtype=None,
     return z.to(out_dtype)
 
 
-def _stream_plan(k: int, kslices: int, name: str) -> tuple[int, int]:
-    """(slice, slices) of the grouped / ragged weight stream; raises on a
-    count the grid cannot hold."""
+def _stream_plan(name: str, device, k: int, kslices: int, rows: int,
+                 n: int, groups: int, panels: int = 1
+                 ) -> tuple[int, int, torch.Tensor | None,
+                            torch.Tensor | None]:
+    """(slice, slices, workspace, counters) of the grouped / ragged weight
+    stream: with more than one K slice the (slices, panels x rows, N) fp32
+    partials (the SwiGLU pair keeps both panels') and one arrival counter
+    per (group, strip).  Raises on a count the grid cannot hold."""
     sl, slices = stream_slice(k, kslices)
     if slices > 65535:
         raise ValueError(f"{name}: {slices} K slices exceed the grid's y "
                          "extent")
-    return sl, slices
+    if slices == 1:
+        return sl, slices, None, None
+    ws = torch.empty((slices, panels * rows, n), dtype=torch.float32,
+                     device=device)
+    return sl, slices, ws, _counters(device, groups * -(-n // STREAM_STRIP))
 
 
 def ftimm_gemm_grouped(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int,
@@ -765,11 +788,8 @@ def ftimm_gemm_grouped(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int,
         _launch("ftimm_gemm_grouped", a.device, types, *operands,
                 int(dim_order == "nm"), *epi, body="tc")
     elif body == "stream":
-        sl, slices = _stream_plan(k, kslices, "ftimm_gemm_grouped")
-        ws = (torch.empty((slices, g * m, n), dtype=torch.float32,
-                          device=a.device) if slices > 1 else None)
-        counters = (_counters(a.device, g * -(-n // STREAM_STRIP))
-                    if slices > 1 else None)
+        sl, slices, ws, counters = _stream_plan(
+            "ftimm_gemm_grouped", a.device, k, kslices, g * m, n, g)
         _launch("ftimm_gemm_grouped", a.device, types, *operands,
                 slices, sl, _ptr(ws), _ptr(counters), *epi, body="stream")
     else:
@@ -790,9 +810,16 @@ def ftimm_gemm_grouped_swiglu_plain(x, w_gate, w_up, *,
 
 def ftimm_gemm_grouped_swiglu(x: torch.Tensor, w_gate: torch.Tensor,
                               w_up: torch.Tensor, *, bm: int, bn: int,
-                              bk: int, out_dtype=None) -> torch.Tensor:
+                              bk: int, out_dtype=None, body: str = "fma",
+                              kslices: int = 1) -> torch.Tensor:
     """silu(x_g @ Wg_g) * (x_g @ Wu_g) per group -> (G, M, N).  ``x`` is
-    (G, M, K), or (M, K) shared by every group; both panels (G, K, N)."""
+    (G, M, K), or (M, K) shared by every group; both panels (G, K, N).
+
+    ``body``: "fma" runs the (bm, bn, bk) tile of TILES; "tc" runs
+    GROUP_TC_TILE (both panels into one stage) and "stream" cuts K into
+    ``kslices`` slices (``stream_slice``), both whatever the tile.  A body
+    the operands do not allow (``grouped_bodies``, each panel as op(B))
+    raises."""
     if (x.ndim not in (2, 3) or w_gate.ndim != 3
             or w_up.shape != w_gate.shape or x.shape[-1] != w_gate.shape[1]
             or (x.ndim == 3 and x.shape[0] != w_gate.shape[0])):
@@ -804,20 +831,38 @@ def ftimm_gemm_grouped_swiglu(x: torch.Tensor, w_gate: torch.Tensor,
     if x.device.type == "cpu":
         return ftimm_gemm_grouped_swiglu_plain(x, w_gate, w_up,
                                                out_dtype=out_dtype)
-    types = _cuda_operands("ftimm_gemm_grouped_swiglu", x, w_gate, out_dtype,
-                           w_up)
+    name = "ftimm_gemm_grouped_swiglu"
+    types = _cuda_operands(name, x, w_gate, out_dtype, w_up)
     if w_up.dtype != x.dtype or w_up.stride() != w_gate.stride():
         raise ValueError("swiglu panels must share dtype and layout")
     if g > 65535:
         raise ValueError(f"{g} groups exceed the grid's z extent (65535)")
-    tile = tile_id(bm, bn, bk)
+    if body != "fma":
+        a_major, g_ok = grouped_operands(x, w_gate, "nn")
+        if body not in grouped_bodies(x.element_size(), w_gate.element_size(),
+                                      m, a_major,
+                                      g_ok and grouped_operands(x, w_up,
+                                                                "nn")[1]):
+            raise ValueError(f"{name}: the {body} body cannot take "
+                             f"{x.dtype} x {w_gate.dtype}, M = {m}, strides "
+                             f"{x.stride()} x {w_gate.stride()}")
     out = torch.empty((g, m, n), dtype=out_dtype, device=x.device)
     if g == 0 or m == 0 or n == 0:
         return out
-    _launch("ftimm_gemm_grouped_swiglu", x.device, tile, types, x.data_ptr(),
-            w_gate.data_ptr(), w_up.data_ptr(), out.data_ptr(), g, m, n, k,
-            x.stride(0) if x.ndim == 3 else 0, x.stride(-2), x.stride(-1),
-            *w_gate.stride())
+    operands = (x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
+                out.data_ptr(), g, m, n, k, x.stride(0) if x.ndim == 3 else 0,
+                x.stride(-2), x.stride(-1), *w_gate.stride())
+    if body == "fma":
+        _launch(name, x.device, tile_id(bm, bn, bk), types, *operands)
+    elif body == "tc":
+        _launch(name, x.device, types, *operands, body="tc")
+    elif body == "stream":
+        sl, slices, ws, counters = _stream_plan(name, x.device, k, kslices,
+                                                g * m, n, g, panels=2)
+        _launch(name, x.device, types, *operands, slices, sl, _ptr(ws),
+                _ptr(counters), body="stream")
+    else:
+        raise ValueError(f"unknown body: {body!r}")
     return out
 
 
@@ -930,11 +975,8 @@ def ftimm_gemm_ragged(x: torch.Tensor, w: torch.Tensor,
         _launch("ftimm_gemm_ragged", x.device, types, *operands, *epi,
                 body="tc")
     elif body == "stream":
-        sl, slices = _stream_plan(k, kslices, "ftimm_gemm_ragged")
-        ws = (torch.empty((slices, t, n), dtype=torch.float32,
-                          device=x.device) if slices > 1 else None)
-        counters = (_counters(x.device, g * -(-n // STREAM_STRIP))
-                    if slices > 1 else None)
+        sl, slices, ws, counters = _stream_plan(
+            "ftimm_gemm_ragged", x.device, k, kslices, t, n, g)
         _launch("ftimm_gemm_ragged", x.device, types, *operands,
                 slices, sl, _ptr(ws), _ptr(counters), *epi, body="stream")
     else:
@@ -952,9 +994,11 @@ def ftimm_gemm_ragged_swiglu_plain(x, w_gate, w_up, group_offsets, *,
 def ftimm_gemm_ragged_swiglu(x: torch.Tensor, w_gate: torch.Tensor,
                              w_up: torch.Tensor, group_offsets: torch.Tensor,
                              *, bm: int, bn: int, bk: int,
-                             out_dtype=None) -> torch.Tensor:
+                             out_dtype=None, body: str = "fma",
+                             kslices: int = 1) -> torch.Tensor:
     """silu(x[o_g:o_{g+1}] @ Wg_g) * (x[o_g:o_{g+1}] @ Wu_g) -> (T, N); both
-    panels (G, K, N)."""
+    panels (G, K, N).  ``body`` as for ``ftimm_gemm_grouped_swiglu`` (the
+    rule: ``ragged_bodies``, each panel as W)."""
     t, k, n = _ragged_shape(x, w_gate, group_offsets, "nn")
     if w_up.shape != w_gate.shape:
         raise ValueError(f"swiglu panels {tuple(w_gate.shape)} / "
@@ -964,21 +1008,39 @@ def ftimm_gemm_ragged_swiglu(x: torch.Tensor, w_gate: torch.Tensor,
     if x.device.type == "cpu":
         return ftimm_gemm_ragged_swiglu_plain(x, w_gate, w_up, group_offsets,
                                               out_dtype=out_dtype)
-    types = _cuda_operands("ftimm_gemm_ragged_swiglu", x, w_gate, out_dtype,
-                           w_up, group_offsets)
+    name = "ftimm_gemm_ragged_swiglu"
+    types = _cuda_operands(name, x, w_gate, out_dtype, w_up, group_offsets)
     if w_up.dtype != x.dtype or w_up.stride() != w_gate.stride():
         raise ValueError("swiglu panels must share dtype and layout")
     if g + 1 > 65535:
         raise ValueError(f"{g} groups exceed the grid's y extent (65534)")
-    tile = tile_id(bm, bn, bk)
+    if body != "fma":
+        x_k, g_ok = ragged_operands(x, w_gate, "nn")
+        if body not in ragged_bodies(x.element_size(), w_gate.element_size(),
+                                     t, x_k,
+                                     g_ok and ragged_operands(x, w_up,
+                                                              "nn")[1]):
+            raise ValueError(f"{name}: the {body} body cannot take "
+                             f"{x.dtype} x {w_gate.dtype}, T = {t}, strides "
+                             f"{x.stride()} x {w_gate.stride()}")
     offs = group_offsets.to(torch.int32).contiguous()
     out = torch.empty((t, n), dtype=out_dtype, device=x.device)
     if t == 0 or n == 0:
         return out
-    _launch("ftimm_gemm_ragged_swiglu", x.device, tile, types, x.data_ptr(),
-            w_gate.data_ptr(), w_up.data_ptr(), offs.data_ptr(),
-            out.data_ptr(), t, n, k, g, x.stride(0), x.stride(1),
-            *w_gate.stride())
+    operands = (x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
+                offs.data_ptr(), out.data_ptr(), t, n, k, g, x.stride(0),
+                x.stride(1), *w_gate.stride())
+    if body == "fma":
+        _launch(name, x.device, tile_id(bm, bn, bk), types, *operands)
+    elif body == "tc":
+        _launch(name, x.device, types, *operands, body="tc")
+    elif body == "stream":
+        sl, slices, ws, counters = _stream_plan(name, x.device, k, kslices,
+                                                t, n, g, panels=2)
+        _launch(name, x.device, types, *operands, slices, sl, _ptr(ws),
+                _ptr(counters), body="stream")
+    else:
+        raise ValueError(f"unknown body: {body!r}")
     return out
 
 

@@ -144,13 +144,16 @@ def gemm_swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 
 def batched_gemm_swiglu(x: torch.Tensor, w_gate: torch.Tensor,
                         w_up: torch.Tensor, *, bm: int = 128, bn: int = 128,
-                        bk: int = 16, out_dtype=None) -> torch.Tensor:
+                        bk: int = 16, out_dtype=None, body: str = "fma",
+                        kslices: int = 1) -> torch.Tensor:
     """Grouped fused SwiGLU pair -- the capacity-mode MoE gate/up projections
     (E, C, D) @ 2 x (E, D, F) in one launch.  ``x`` may be (M, K), shared
-    by every group."""
-    bm, bn, bk = clamp_tile(x.shape[-2], w_gate.shape[-1], bm, bn)
+    by every group.  ``body`` as for ``batched_gemm``."""
+    if body == "fma":
+        bm, bn, bk = clamp_tile(x.shape[-2], w_gate.shape[-1], bm, bn)
     return _k.ftimm_gemm_grouped_swiglu(x, w_gate, w_up, bm=bm, bn=bn, bk=bk,
-                                        out_dtype=out_dtype)
+                                        out_dtype=out_dtype, body=body,
+                                        kslices=kslices)
 
 
 def ragged_gemm(x: torch.Tensor, w: torch.Tensor, group_offsets: torch.Tensor,
@@ -175,12 +178,15 @@ def ragged_gemm(x: torch.Tensor, w: torch.Tensor, group_offsets: torch.Tensor,
 def ragged_gemm_swiglu(x: torch.Tensor, w_gate: torch.Tensor,
                        w_up: torch.Tensor, group_offsets: torch.Tensor, *,
                        bm: int = 128, bn: int = 128, bk: int = 16,
-                       out_dtype=None) -> torch.Tensor:
+                       out_dtype=None, body: str = "fma",
+                       kslices: int = 1) -> torch.Tensor:
     """Fused ragged pair: silu(x @ Wg_g) * (x @ Wu_g) per group, one launch
-    (same contract as ``ragged_gemm``)."""
-    bm, bn, bk = clamp_tile(x.shape[0], w_gate.shape[2], bm, bn)
+    (same contract as ``ragged_gemm``, ``body`` too)."""
+    if body == "fma":
+        bm, bn, bk = clamp_tile(x.shape[0], w_gate.shape[2], bm, bn)
     return _k.ftimm_gemm_ragged_swiglu(x, w_gate, w_up, group_offsets, bm=bm,
-                                       bn=bn, bk=bk, out_dtype=out_dtype)
+                                       bn=bn, bk=bk, out_dtype=out_dtype,
+                                       body=body, kslices=kslices)
 
 
 def ragged_gemm_dw(x: torch.Tensor, dy: torch.Tensor,

@@ -32,9 +32,20 @@ from ..core.device import resolve_device
 from ..models.model import init_params
 from ..serve.engine import Request, ServeEngine
 
-# Device-event groups, matched by substring of the kernel name in order.
+# Device-event groups, matched by substring of the kernel name in order:
+# the SwiGLU pairs' bodies before the one-panel kernels' (each body's
+# symbol names its kernel: the stream's Tag type, the tensor cores' and the
+# FMA body's kernel function).
 GROUPS = (("ftimm_gemm_swiglu", "ftimm_gemm_swiglu_kernel"),
+          ("ftimm_gemm_grouped_swiglu stream",
+           "ftimm_gemm_grouped_swiglu_stream"),
+          ("ftimm_gemm_grouped_swiglu tensor cores",
+           "ftimm_gemm_grouped_swiglu_tc_kernel"),
           ("ftimm_gemm_grouped_swiglu", "ftimm_gemm_grouped_swiglu_kernel"),
+          ("ftimm_gemm_ragged_swiglu stream",
+           "ftimm_gemm_ragged_swiglu_stream"),
+          ("ftimm_gemm_ragged_swiglu tensor cores",
+           "ftimm_gemm_ragged_swiglu_tc_kernel"),
           ("ftimm_gemm_grouped", "ftimm_gemm_grouped_kernel"),
           ("ftimm_gemm_grouped stream", "ftimm_gemm_grouped_stream"),
           ("ftimm_gemm_grouped tensor cores", "ftimm_gemm_grouped_tc_kernel"),

@@ -7,7 +7,9 @@ shapes of decode, prefill and training (mixtral's capacity buffers,
 llama4's routed rows): the FMA body, the tensor-core tile, the weight
 stream at each slice count, ``ftimm_gemm``'s register stream launched
 once per reached group, beside ``torch.bmm`` /
-``torch._grouped_mm``.  It is the measurement the planner's stream and
+``torch._grouped_mm``; and for their SwiGLU pairs at the gate/up shapes
+every body and slice count beside two such library calls (one per panel)
+and the elementwise silu(g) * u.  It is the measurement the planner's stream and
 tensor-core constants (``core/gemm/cmr.py``) are checked against.
 
     PYTHONPATH=src python -m repro_torch.launch.sweep_gemm [--set decode|prefill|train|moe]
@@ -92,11 +94,37 @@ MOE = [("mixtral decode down", "grouped", 8, 16, 14336, 4096, "nn", BF16),
        ("llama4 train gate remat", "ragged", _routed(1024, 7), 0, 5120, 8192,
         "nn", F32),
        ("llama4 train down dX", "ragged", _routed(1024, 7), 0, 5120, 8192,
-        "nt", BF16)]
+        "nt", BF16),
+       # The gate/up pairs: x (rows, 4096 / 5120) against two panels.
+       ("mixtral decode gate/up", "grouped_swiglu", 8, 16, 4096, 14336, "nn",
+        BF16),
+       ("mixtral bucket32 gate/up", "grouped_swiglu", 8, 48, 4096, 14336,
+        "nn", BF16),
+       ("mixtral bucket64 gate/up", "grouped_swiglu", 8, 80, 4096, 14336,
+        "nn", BF16),
+       ("mixtral train gate/up", "grouped_swiglu", 8, 320, 4096, 14336, "nn",
+        BF16),
+       ("llama4 decode gate/up", "ragged_swiglu", [1, 0, 0, 0] * 4, 0, 5120,
+        8192, "nn", BF16),
+       ("llama4 bucket64 gate/up", "ragged_swiglu", _routed(256, 5), 0, 5120,
+        8192, "nn", BF16),
+       ("llama4 train gate/up", "ragged_swiglu", _routed(1024, 7), 0, 5120,
+        8192, "nn", BF16)]
 
 
 def moe_inputs(kind, groups, m, k, n, trans, gen, dev):
-    """One set of operands: grouped (a, b); ragged (x, w, offsets)."""
+    """One set of operands: grouped (a, b); ragged (x, w, offsets); the
+    pairs (x, w_gate, w_up[, offsets])."""
+    if kind.endswith("swiglu"):
+        g = groups if kind == "grouped_swiglu" else len(groups)
+        rows = (g, m) if kind == "grouped_swiglu" else (sum(groups),)
+        x = torch.randn((*rows, k), generator=gen, device=dev).to(BF16)
+        wg, wu = ((torch.randn((g, k, n), generator=gen, device=dev)
+                   * k ** -0.5).to(BF16) for _ in range(2))
+        if kind == "grouped_swiglu":
+            return x, wg, wu
+        return x, wg, wu, torch.tensor([0, *np.cumsum(groups).tolist()],
+                                       dtype=torch.int32, device=dev)
     if kind == "grouped":
         sa = (groups, k, m) if trans == "tn" else (groups, m, k)
         sb = (groups, n, k) if trans == "nt" else (groups, k, n)
@@ -112,10 +140,61 @@ def moe_inputs(kind, groups, m, k, n, trans, gen, dev):
              * k ** -0.5).to(BF16), offs)
 
 
+def pair_variants(kind, groups, m, k, n, out):
+    """(name, fn(*inputs)) of a SwiGLU pair: every body and slice count
+    that can take the shape, and two library calls plus silu(g) * u."""
+    ob = out.itemsize
+    if kind == "grouped_swiglu":
+        g, rows = groups, m
+        planned = plan_batched_gemm(g, m, k, n, 2, ob, "none", panels=2)
+        fma = plan_batched_gemm(g, m, k, n, 2, ob, "none", panels=2,
+                                a_major=None)
+        allowed = K.grouped_bodies(2, 2, m, "k", True)
+        kern = K.ftimm_gemm_grouped_swiglu
+    else:
+        g, rows = len(groups), sum(groups)
+        planned = plan_ragged_gemm(g, rows, k, n, 2, ob, panels=2)
+        fma = plan_ragged_gemm(g, rows, k, n, 2, ob, panels=2, a_ok=False)
+        allowed = K.ragged_bodies(2, 2, rows, True, True)
+        kern = K.ftimm_gemm_ragged_swiglu
+    vs = [(f"planned {planned.body} {planned.bm}x{planned.bn}x{planned.bk}"
+           f" ks={planned.kslices}", planned),
+          (f"fma {fma.bm}x{fma.bn}x{fma.bk}", fma)]
+    if "tc" in allowed:
+        bm, bn, bk = K.GROUP_TC_TILE
+        vs.append((f"tc {bm}x{bn}", dict(bm=bm, bn=bn, bk=bk, body="tc")))
+    if "stream" in allowed:
+        for want in (1, 2, 4, 8, 16):
+            sl, slices = K.stream_slice(k, want)
+            if want == slices:
+                vs.append((f"stream ks={slices}",
+                           dict(bm=K.GSTREAM_ROWS, bn=K.STREAM_STRIP, bk=sl,
+                                body="stream", kslices=slices)))
+    for name, kw in vs:
+        if not isinstance(kw, dict):
+            kw = dict(bm=kw.bm, bn=kw.bn, bk=kw.bk, body=kw.body,
+                      kslices=kw.kslices)
+        yield name, (lambda *ins, kw=kw: kern(*ins, out_dtype=out, **kw))
+
+    def silu_mul(gv, uv):
+        return (torch.nn.functional.silu(gv.float()) * uv.float()).to(out)
+    if kind == "grouped_swiglu":
+        yield "torch.bmm x2 + silu(g) * u", lambda x, wg, wu: silu_mul(
+            torch.bmm(x, wg), torch.bmm(x, wu))
+    else:
+        yield ("torch._grouped_mm x2 + silu(g) * u",
+               lambda x, wg, wu, offs: silu_mul(
+                   torch._grouped_mm(x, wg, offs=offs[1:]),
+                   torch._grouped_mm(x, wu, offs=offs[1:])))
+
+
 def moe_variants(kind, groups, m, k, n, trans, out):
     """(name, fn(*inputs)) for every body and slice count that can take
     the shape, ftimm_gemm's register stream once per reached group, and the
     library call."""
+    if kind.endswith("swiglu"):
+        yield from pair_variants(kind, groups, m, k, n, out)
+        return
     ob = out.itemsize
     if kind == "grouped":
         g, rows = groups, m
@@ -248,7 +327,8 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("sweep_gemm needs a CUDA card")
     dev = torch.device("cuda", 0)
-    K.build(["ftimm_gemm", "ftimm_gemm_grouped", "ftimm_gemm_ragged"])
+    K.build(["ftimm_gemm", "ftimm_gemm_grouped", "ftimm_gemm_ragged",
+             "ftimm_gemm_grouped_swiglu", "ftimm_gemm_ragged_swiglu"])
     sleep_ms = sleep_ms_per_mcycle()
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []

@@ -4,9 +4,10 @@ choice among the bodies (CPU: the rule and the planner are plain Python).
 ``ftimm_gemm`` has an FMA body (any types and strides), a tensor-core body
 (bf16 x bf16, both operands TMA-readable) and a K-parallel weight stream
 (bf16 x bf16, at most 16 rows, B vector-readable); ``ftimm_gemm_grouped``
-and ``ftimm_gemm_ragged`` the same three (their stream: at most 16 rows a
-group, or in all for the ragged kernel, A K-major; their panels through
-3-D tensor maps); ``ftimm_gemm_ragged_dw`` the first two.  ``plan_gemm`` /
+and ``ftimm_gemm_ragged`` and their SwiGLU pairs the same three (their
+stream: at most 16 rows a group, or in all for the ragged kernels, A
+K-major; their panels through 3-D tensor maps); ``ftimm_gemm_ragged_dw``
+the first two.  ``plan_gemm`` /
 ``plan_batched_gemm`` / ``plan_ragged_gemm`` pick the body from the CMR
 model among those the rule allows; the split-K kernel stays off every
 model path (``nsplit`` 1, as in the reference).
@@ -243,10 +244,12 @@ def test_cpu_tensors_take_the_plain_version_whatever_the_body(body):
     (4, 4, 2, "k", True, 1, ("fma",)),                    # fp32 attention
     (2, 4, 320, "k", True, 1, ("fma",)),                  # bf16 x fp32
     (4, 2, 320, "k", True, 1, ("fma",)),                  # fp32 x bf16
-    (2, 2, 16, "k", True, 2, ("fma",)),                   # the SwiGLU pair
+    (2, 2, 16, "k", True, 2, ("fma", "tc", "stream")),   # the SwiGLU pair
 ])
 def test_grouped_body_rule(a, b, m, a_major, b_ok, panels, want):
-    assert K.grouped_bodies(a, b, m, a_major, b_ok, panels) == want
+    """The SwiGLU pair (``panels`` 2, each panel as op(B)) takes the rule
+    of one panel."""
+    assert K.grouped_bodies(a, b, m, a_major, b_ok) == want
 
 
 @pytest.mark.parametrize("x,w,total,x_k,w_ok,panels,want", [
@@ -258,10 +261,12 @@ def test_grouped_body_rule(a, b, m, a_major, b_ok, panels, want):
     (2, 2, 4, True, False, 1, ("fma",)),
     (4, 2, 1024, True, True, 1, ("fma",)),                # fp32 cotangent
     (4, 4, 4, True, True, 1, ("fma",)),
-    (2, 2, 4, True, True, 2, ("fma",)),                   # the SwiGLU pair
+    (2, 2, 4, True, True, 2, ("fma", "tc", "stream")),   # the SwiGLU pair
 ])
 def test_ragged_body_rule(x, w, total, x_k, w_ok, panels, want):
-    assert K.ragged_bodies(x, w, total, x_k, w_ok, panels) == want
+    """The SwiGLU pair (``panels`` 2, each panel as W) takes the rule of
+    one panel."""
+    assert K.ragged_bodies(x, w, total, x_k, w_ok) == want
 
 
 @pytest.mark.parametrize("g,rows,k,s_g,s_rows,s_k,want", [
@@ -358,8 +363,10 @@ def test_plan_moe_prefill_and_train_take_tensor_cores():
 
 
 def test_plan_keeps_attention_mixed_and_swiglu_on_fma():
-    """fp32 attention (QK^T and PV groups), the mixed bf16 x fp32 pairs and
-    the SwiGLU pairs plan the FMA body at every MoE shape."""
+    """fp32 attention (QK^T and PV groups) and the mixed bf16 x fp32 pairs
+    plan the FMA body at every MoE shape, and so does the dense SwiGLU pair
+    (``ftimm_gemm_swiglu`` has no other body yet) at qwen's decode and
+    training rows."""
     mix, e, d, f = _moe("mixtral-8x7b")
     l4, e4, d4, f4 = _moe("llama4-scout-17b-a16e")
     for g, m, k, n in ((32, 2, 128, 96), (32, 128, 128, 128),
@@ -369,14 +376,85 @@ def test_plan_keeps_attention_mixed_and_swiglu_on_fma():
         for a, b in ((2, 4), (4, 2), (4, 4)):
             plan = plan_batched_gemm(e, c, f, d, a, 4, "none", b_bytes=b)
             assert plan.body == "fma" and (plan.bm, plan.bn, plan.bk) in K.TILES
-        assert plan_batched_gemm(e, c, d, f, 2, 2, "none",
-                                 panels=2).body == "fma"
     for t in (4, 1024):
         for a, b in ((2, 4), (4, 2), (4, 4)):
             assert plan_ragged_gemm(e4, t, f4, d4, a, 4,
                                     b_bytes=b).body == "fma"
-        assert plan_ragged_gemm(e4, t, d4, f4, 2, 2, panels=2).body == "fma"
         assert plan_ragged_gemm(e4, t, f4, d4, 2, 2, a_ok=False).body == "fma"
+    qwen, dq, fq = get_config("qwen3-1.7b"), 2048, 6144
+    assert (qwen.d_model, qwen.d_ff) == (dq, fq)
+    for m in (4, 1024):
+        assert plan_gemm(m, dq, fq, 2, 2, panels=2).body == "fma"
+
+
+def test_plan_swiglu_pairs_take_the_new_bodies():
+    """The grouped and ragged SwiGLU pairs plan the bodies of one panel:
+    mixtral's 16-row decode capacity the stream (a shared 2-D x too), its
+    bucket-prefill and training capacities (48, 80, 320) the tensor cores,
+    fp32 the FMA body; llama4's 4 routed decode rows the stream, 256 and
+    1024 the tensor cores.  Each plan prices both panels' shared memory."""
+    mix, e, d, f = _moe("mixtral-8x7b")
+    for tokens, body in ((4, "stream"), (128, "tc"), (256, "tc"),
+                         (1024, "tc")):
+        c = _capacity(tokens, mix)
+        for shared in ("none", "a"):
+            plan = plan_batched_gemm(e, c, d, f, 2, 2, shared, panels=2)
+            assert plan.body == body, (c, shared, plan)
+        assert plan_batched_gemm(e, c, d, f, 4, 4, "none",
+                                 panels=2).body == "fma"
+    assert [_capacity(t, mix) for t in (4, 128, 256, 1024)] == [16, 48, 80,
+                                                                 320]
+    stream = plan_batched_gemm(e, 16, d, f, 2, 2, "none", panels=2)
+    assert stream.bm == K.GSTREAM_ROWS and stream.bn == K.STREAM_STRIP
+    assert stream.est.smem_bytes == K.gstream_smem(2)
+    tc = plan_batched_gemm(e, 320, d, f, 2, 2, "none", panels=2)
+    assert (tc.bm, tc.bn, tc.bk) == K.GROUP_TC_TILE
+    assert tc.est.smem_bytes == K.smem_bytes(*K.GROUP_TC_TILE, 2, body="tc")
+    l4, e4, d4, f4 = _moe("llama4-scout-17b-a16e")
+    for t, body in ((4, "stream"), (256, "tc"), (1024, "tc")):
+        assert plan_ragged_gemm(e4, t, d4, f4, 2, 2,
+                                panels=2).body == body, t
+        assert plan_ragged_gemm(e4, t, d4, f4, 4, 4, panels=2).body == "fma"
+        assert plan_ragged_gemm(e4, t, d4, f4, 2, 2, panels=2,
+                                a_ok=False).body == "fma"
+
+
+def test_swiglu_pair_shared_memory_fits_a_block():
+    """The pair's stream CTA (a 34 KB stage: two weight boxes and the x
+    box) and its tensor-core CTA (a 48 KB stage of x and both 128-column
+    panel boxes) fit a block's 227 KB, and each stage stays 1 KB aligned."""
+    stage = 2 * K.STREAM_STRIP * 64 * 2 + K.GSTREAM_ROWS * 64 * 2
+    assert stage == 34 * 1024
+    assert K.GSTREAM_STAGES * stage < K.gstream_smem(2) <= H100.smem_per_block
+    assert K.gstream_smem(2) > 2 * K.gstream_smem(1) - 16 * 1024
+    bm, bn, bk = K.GROUP_TC_TILE
+    assert (bm * bk + 2 * bn * bk) * 2 == 48 * 1024
+    pair = K.smem_bytes(bm, bn, bk, 2, body="tc",
+                        stages=K.TC_STAGES["ftimm_gemm_grouped"])
+    assert pair == K.smem_bytes(bm, 2 * bn, bk, body="tc")   # Tile<256, 4>
+    assert pair <= H100.smem_per_block
+
+
+@pytest.mark.parametrize("panels", [1, 2])
+@pytest.mark.parametrize("k,kslices", [(4096, 1), (4096, 4), (1032, 3)])
+def test_stream_workspace_holds_each_panels_partials(monkeypatch, panels, k,
+                                                     kslices):
+    """The grouped / ragged stream keeps each panel's fp32 partials (the
+    SwiGLU pair: both, summed apart before silu): a (slices, panels x rows,
+    N) workspace and a counter per (group, strip), none at one slice."""
+    monkeypatch.setattr(K, "_counters",
+                        lambda device, n: torch.zeros(n, dtype=torch.int32))
+    rows, n, groups = 8 * 16, 264, 8
+    sl, slices, ws, counters = K._stream_plan(
+        "ftimm_gemm_grouped_swiglu", torch.device("cpu"), k, kslices, rows,
+        n, groups, panels)
+    assert (sl, slices) == K.stream_slice(k, kslices)
+    if slices == 1:
+        assert ws is None and counters is None
+    else:
+        assert tuple(ws.shape) == (slices, panels * rows, n)
+        assert ws.dtype == torch.float32
+        assert counters.numel() == groups * -(-n // K.STREAM_STRIP)
 
 
 def test_group_stream_ring_fits_shared_memory():
@@ -434,6 +512,57 @@ def test_grouped_and_ragged_cpu_tensors_take_the_plain_version(body):
     assert K.launch_counts()["ftimm_gemm_ragged"] == 0
     for kernel in ("ftimm_gemm_grouped", "ftimm_gemm_ragged"):
         assert sum(K.body_counts()[kernel].values()) == 0
+
+
+@pytest.mark.parametrize("body", ["tc", "stream"])
+def test_swiglu_pairs_cpu_tensors_take_the_plain_version(body):
+    """The device decides for the pairs too: on the CPU every body of the
+    grouped and ragged SwiGLU pairs is the plain version, and no launch is
+    counted."""
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(3, 4, 96, generator=g).to(BF16)
+    wg = torch.randn(3, 96, 40, generator=g).to(BF16)
+    wu = torch.randn(3, 96, 40, generator=g).to(BF16)
+    xr = torch.randn(5, 96, generator=g).to(BF16)
+    offs = torch.tensor([0, 2, 2, 4], dtype=torch.int32)
+    K.reset_launch_counts()
+    for xg in (x, x[0]):
+        got = K.ftimm_gemm_grouped_swiglu(xg, wg, wu, bm=128, bn=128, bk=64,
+                                          body=body, kslices=3)
+        assert torch.equal(got, K.ftimm_gemm_grouped_swiglu_plain(xg, wg, wu))
+    got = K.ftimm_gemm_ragged_swiglu(xr, wg, wu, offs, bm=128, bn=128,
+                                     bk=64, body=body, kslices=3)
+    assert torch.equal(got,
+                       K.ftimm_gemm_ragged_swiglu_plain(xr, wg, wu, offs))
+    assert not got[4:].any()
+    for kernel in ("ftimm_gemm_grouped_swiglu", "ftimm_gemm_ragged_swiglu"):
+        assert K.launch_counts()[kernel] == 0
+        assert sum(K.body_counts()[kernel].values()) == 0
+
+
+@pytest.mark.parametrize("symbol,group", [
+    ("void ftimm::gs::group_stream_kernel<ftimm_gemm_grouped_swiglu_stream, "
+     "true, __nv_bfloat16, 2>(CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, ftimm::gs::Args)", "ftimm_gemm_grouped_swiglu stream"),
+    ("void ftimm_gemm_grouped_swiglu_tc_kernel<false, true, __nv_bfloat16>"
+     "(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, PairTcArgs)",
+     "ftimm_gemm_grouped_swiglu tensor cores"),
+    ("void ftimm_gemm_grouped_swiglu_kernel<ftimm::TileCfg<16, 32, 64, 2, 2>,"
+     " float, float>(GroupedSwigluArgs)", "ftimm_gemm_grouped_swiglu"),
+    ("void ftimm::gs::group_stream_kernel<ftimm_gemm_ragged_swiglu_stream, "
+     "true, float, 2>(CUtensorMap_st)", "ftimm_gemm_ragged_swiglu stream"),
+    ("void ftimm_gemm_ragged_swiglu_tc_kernel<true, __nv_bfloat16>"
+     "(CUtensorMap_st)", "ftimm_gemm_ragged_swiglu tensor cores"),
+    ("void ftimm::gs::group_stream_kernel<ftimm_gemm_grouped_stream, true, "
+     "__nv_bfloat16, 1>(CUtensorMap_st)", "ftimm_gemm_grouped stream"),
+    ("void ftimm::gs::group_stream_kernel<ftimm_gemm_ragged_stream, true, "
+     "__nv_bfloat16, 1>(CUtensorMap_st)", "ftimm_gemm_ragged stream"),
+])
+def test_profile_groups_name_each_body(symbol, group):
+    """``profile_serve`` files each body's kernel symbol under its own
+    kernel and body, the pairs' before the one-panel kernels'."""
+    from repro_torch.launch.profile_serve import group_of
+    assert group_of(symbol) == group
 
 
 def _c_entries() -> dict[str, list]:

@@ -863,3 +863,136 @@ def test_ragged_planned_body_through_dispatch(dev, sizes, body):
     torch.cuda.synchronize()
     _close(got, K.ftimm_gemm_ragged_plain(x, w, offs))
     assert K.body_counts()["ftimm_gemm_ragged"][body] == 1
+
+
+# ---------------------------------------------------------------------------
+# The SwiGLU pairs' weight-stream and tensor-core bodies: the shapes,
+# slices and ragged distributions of the one-panel bodies above, against the
+# plain pairs; two runs of each call must give the same bits.
+# ---------------------------------------------------------------------------
+
+def _pair_panels(g, dev, seed, trans="nn"):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (g, GK, GN) if trans == "nn" else (g, GN, GK)
+    wg, wu = ((torch.randn(shape, generator=gen, device=dev)
+               * GK ** -0.5).to(BF16) for _ in range(2))
+    if trans == "nt":       # (G, K, N) views whose K has unit stride
+        wg, wu = wg.transpose(1, 2), wu.transpose(1, 2)
+    return wg, wu
+
+
+@pytest.mark.parametrize("body,m,kslices", [("stream", m, ks)
+                                            for m in (1, 4, 16)
+                                            for ks in (1, 3)]
+                         + [("tc", 16, 1), ("tc", 200, 1)])
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("trans", ["nn", "nt"])
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+def test_grouped_swiglu_new_bodies(dev, body, m, kslices, shared, trans,
+                                   out):
+    g = 5
+    gen = torch.Generator(device=dev).manual_seed(60)
+    x = torch.randn((m, GK) if shared else (g, m, GK), generator=gen,
+                    device=dev).to(BF16)
+    wg, wu = _pair_panels(g, dev, 61, trans)
+    K.reset_launch_counts()
+    got = _twice(lambda: K.ftimm_gemm_grouped_swiglu(
+        x, wg, wu, bm=128, bn=128, bk=64, out_dtype=out, body=body,
+        kslices=kslices))
+    _close(got, K.ftimm_gemm_grouped_swiglu_plain(x, wg, wu, out_dtype=out))
+    assert K.body_counts()["ftimm_gemm_grouped_swiglu"][body] == 2
+
+
+@pytest.mark.parametrize("body,dist,kslices", [("stream", d, ks)
+                                               for d in STREAM_DISTS
+                                               for ks in (1, 3)]
+                         + [("tc", d, 1) for d in RAGGED_TC_DISTS])
+@pytest.mark.parametrize("trans", ["nn", "nt"])
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+def test_ragged_swiglu_new_bodies(dev, body, dist, kslices, trans, out):
+    sizes, tail = dist
+    x, _, offs = _ragged_operands(sizes, tail, "nn", dev, seed=62)
+    wg, wu = _pair_panels(len(sizes), dev, 63, trans)
+    K.reset_launch_counts()
+    got = _twice(lambda: K.ftimm_gemm_ragged_swiglu(
+        x, wg, wu, offs, bm=128, bn=128, bk=64, out_dtype=out, body=body,
+        kslices=kslices))
+    _close(got, K.ftimm_gemm_ragged_swiglu_plain(x, wg, wu, offs,
+                                                 out_dtype=out))
+    if tail:
+        assert not got[sum(sizes):].any()
+    assert K.body_counts()["ftimm_gemm_ragged_swiglu"][body] == 2
+
+
+def test_swiglu_pair_bodies_refuse_what_they_cannot_take(dev):
+    """A body the operands do not allow raises before any launch: no
+    fallback to the FMA body or the plain version."""
+    g = 3
+    gen = torch.Generator(device=dev).manual_seed(64)
+    wg, wu = _pair_panels(g, dev, 65)
+    x17 = torch.randn(g, 17, GK, generator=gen, device=dev).to(BF16)
+    x16 = x17[:, :16].contiguous()
+    xt = x16.transpose(1, 2).contiguous().transpose(1, 2)   # x MN-major
+    big = torch.randn(g, GK, GN + 8, generator=gen, device=dev).to(BF16)
+    wu_odd = big[:, :, 1:GN + 1]              # base 2 bytes off 16
+    wg_odd = big[:, :, :GN]
+    offs = _offsets([5, 0, 12], dev)
+    K.reset_launch_counts()
+    for call in (
+            lambda: K.ftimm_gemm_grouped_swiglu(x17, wg, wu, bm=16, bn=128,
+                                                bk=64, body="stream"),
+            lambda: K.ftimm_gemm_grouped_swiglu(xt, wg, wu, bm=16, bn=128,
+                                                bk=64, body="stream"),
+            lambda: K.ftimm_gemm_grouped_swiglu(
+                x16.float(), wg.float(), wu.float(), bm=128, bn=128, bk=64,
+                body="tc"),
+            lambda: K.ftimm_gemm_grouped_swiglu(x16, wg_odd, wu_odd, bm=128,
+                                                bn=128, bk=64, body="tc"),
+            lambda: K.ftimm_gemm_ragged_swiglu(x17[0], wg, wu, offs, bm=16,
+                                               bn=128, bk=64, body="stream"),
+            lambda: K.ftimm_gemm_ragged_swiglu(
+                x17[0].t().contiguous().t(), wg, wu, offs, bm=128, bn=128,
+                bk=64, body="tc"),
+            lambda: K.ftimm_gemm_ragged_swiglu(x17[0], wg_odd, wu_odd, offs,
+                                               bm=128, bn=128, bk=64,
+                                               body="tc")):
+        with pytest.raises(ValueError):
+            call()
+    for kernel in ("ftimm_gemm_grouped_swiglu", "ftimm_gemm_ragged_swiglu"):
+        assert K.launch_counts()[kernel] == 0
+    got = _twice(lambda: K.ftimm_gemm_grouped_swiglu(xt, wg, wu, bm=128,
+                                                     bn=128, bk=64,
+                                                     body="tc"))
+    _close(got, K.ftimm_gemm_grouped_swiglu_plain(xt, wg, wu))
+
+
+@pytest.mark.parametrize("rows,body", [(16, "stream"), (320, "tc")])
+def test_grouped_swiglu_planned_body_through_dispatch(dev, rows, body):
+    """grouped_swiglu plans the pair's body: the stream at 16 rows a group,
+    the tensor cores at mixtral's training capacity; fp32 stays FMA."""
+    from repro_torch.core.gemm import grouped_swiglu
+    gen = torch.Generator(device=dev).manual_seed(66)
+    x = torch.randn(4, rows, GK, generator=gen, device=dev).to(BF16)
+    wg, wu = _pair_panels(4, dev, 67)
+    K.reset_launch_counts()
+    got = grouped_swiglu(x, wg, wu)
+    s = grouped_swiglu(x.float(), wg.float(), wu.float())
+    torch.cuda.synchronize()
+    _close(got, K.ftimm_gemm_grouped_swiglu_plain(x, wg, wu))
+    _close(s, K.ftimm_gemm_grouped_swiglu_plain(x.float(), wg.float(),
+                                                wu.float()))
+    counts = K.body_counts()["ftimm_gemm_grouped_swiglu"]
+    assert counts[body] == 1 and counts["fma"] == 1
+
+
+@pytest.mark.parametrize("sizes,body", [([1, 0, 2, 1], "stream"),
+                                        ([300, 0, 500, 224], "tc")])
+def test_ragged_swiglu_planned_body_through_dispatch(dev, sizes, body):
+    from repro_torch.core.gemm import ragged_swiglu
+    x, _, offs = _ragged_operands(sizes, 0, "nn", dev, seed=68)
+    wg, wu = _pair_panels(len(sizes), dev, 69)
+    K.reset_launch_counts()
+    got = ragged_swiglu(x, wg, wu, offs)
+    torch.cuda.synchronize()
+    _close(got, K.ftimm_gemm_ragged_swiglu_plain(x, wg, wu, offs))
+    assert K.body_counts()["ftimm_gemm_ragged_swiglu"][body] == 1

@@ -227,11 +227,12 @@ def test_plan_moe_dispatch_rows_match_jax(dispatch, t, e, k, elt):
 
 
 def test_ragged_and_grouped_swiglu_plans():
-    """Ragged plans come from the compiled menu (one grid walk): the SwiGLU
-    pair's FMA tiles price its two panels' shared memory, a bf16 4-row
-    forward takes the weight stream (its ring's shared memory), and the dW
-    plan (``ragged="k"``) writes each of the G panels once, empty ones too;
-    the grouped SwiGLU plan carries two panels too."""
+    """Ragged plans come from the compiled menu (one grid walk): a bf16
+    4-row forward takes the weight stream, the SwiGLU pair's too (its ring
+    prices both panels' shared memory), the fp32 pair's FMA tiles price its
+    two panels' shared memory, and the dW plan (``ragged="k"``) writes each
+    of the G panels once, empty ones too; the grouped SwiGLU plan carries
+    two panels too."""
     from repro_torch.core.gemm import (estimate_ragged, plan_batched_gemm,
                                        plan_ragged_gemm)
     from repro_torch.kernels.ftimm.kernel import (GSTREAM_ROWS, TC_TILES,
@@ -240,13 +241,11 @@ def test_ragged_and_grouped_swiglu_plans():
     for panels in (1, 2):
         plan = plan_ragged_gemm(16, 4, 5120, 8192, 2, 2, panels=panels)
         assert plan.dim_order == "mn"
-        if panels == 1:
-            assert plan.body == "stream" and plan.bm == GSTREAM_ROWS
-            assert plan.est.smem_bytes == gstream_smem()
-        else:
-            assert plan.body == "fma" and (plan.bm, plan.bn, plan.bk) in TILES
-            assert plan.est.smem_bytes == smem_bytes(plan.bm, plan.bn,
-                                                     plan.bk, panels)
+        assert plan.body == "stream" and plan.bm == GSTREAM_ROWS
+        assert plan.est.smem_bytes == gstream_smem(panels)
+    plan = plan_ragged_gemm(16, 4, 5120, 8192, 4, 4, panels=2)
+    assert plan.body == "fma" and (plan.bm, plan.bn, plan.bk) in TILES
+    assert plan.est.smem_bytes == smem_bytes(plan.bm, plan.bn, plan.bk, 2)
     dw = plan_ragged_gemm(16, 1024, 5120, 8192, 2, 2, ragged="k")
     assert (dw.bm, dw.bn, dw.bk) in (TC_TILES if dw.body == "tc" else TILES)
     assert dw.nsplit == 1
@@ -257,6 +256,8 @@ def test_ragged_and_grouped_swiglu_plans():
     with pytest.raises(ValueError):
         plan_ragged_gemm(16, 4, 5120, 8192, ragged="n")
     plan = plan_batched_gemm(8, 16, 4096, 14336, 2, 2, "none", panels=2)
+    assert plan.body == "stream" and plan.est.smem_bytes == gstream_smem(2)
+    plan = plan_batched_gemm(8, 16, 4096, 14336, 4, 4, "none", panels=2)
     assert plan.est.smem_bytes == smem_bytes(plan.bm, plan.bn, plan.bk, 2)
     # More rows never price lower; the price follows the total rows (plus
     # one partial chunk per group), not groups x the largest group.
