@@ -21,21 +21,23 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    all rows to one group, empty groups, a group spanning several tiles,
    rows outside every group, totals not a multiple of 16), and the
    tensor-core and weight-stream bodies of ftimm_gemm, ftimm_gemm_grouped,
-   ftimm_gemm_ragged and the grouped and ragged SwiGLU pairs and the
-   tensor-core ragged dW called directly at
+   ftimm_gemm_ragged and the three SwiGLU pairs, and the tensor-core
+   bodies of the ragged dW and of split-K (its partials summed in split
+   order inside the kernel, nsplit 2 / 4 / 8 / 40) called directly at
    extents that are not tile multiples (every trans each body takes, both
    outputs, the epilogues with (G, N) vectors and the grouped residual, a
    shared 2-D operand, 1 / 4 / 16 rows, one or several K slices, a K tail
    at every group's edge, the ragged distributions: empty groups, a group
-   of exactly 16 rows, rows outside every group), and at the MoE home
-   shapes.  Then the planner's body choice through the dispatch layer (a
-   misaligned operand takes the FMA body, 4 rows the stream, 200 the
-   tensor cores; mixtral's 16-row expert buffers and llama4's 4 routed
-   rows the grouped / ragged stream, for the down projection and the
-   gate/up pair, 320 and 1024 rows the tensor cores, fp32 the FMA body) and
-   bit-identical reruns of the streams (the pairs' at 1 and 4 K slices),
-   the tensor-core ragged dW and the grouped / ragged tensor cores and
-   pairs.  Normwise
+   of exactly 16 rows, rows outside every group), and at the MoE and qwen
+   home shapes.  Then the planner's body choice through the dispatch layer
+   (a misaligned operand takes the FMA body, 4 rows the stream, 200 the
+   tensor cores; mixtral's 16-row expert buffers, llama4's 4 routed rows
+   and qwen's 4 decode rows of the dense gate/up pair the grouped / ragged
+   stream, for the down projection and the gate/up pairs, 128, 320 and
+   1024 rows the tensor cores, fp32 the FMA body) and bit-identical reruns
+   of the streams (the pairs' at 1 and 4 K slices), the tensor-core ragged
+   dW, the grouped / ragged / dense tensor cores and pairs and split-K's
+   tensor cores at qwen's dW shape.  Normwise
    tolerance max|kernel - plain| / max|plain|: 2e-2 for a bf16 output
    (2^-8 is one bf16 ulp), 1e-4 for fp32 (the same fp32 products summed in
    another order);
@@ -55,10 +57,11 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    in two length buckets, 16 new tokens each.  The launch counts are zeroed
    just before each run and read just after; every kernel of that model's
    path must have launched, and every ftimm_gemm of a decode step (4
-   rows) and every bf16 expert launch (gate/up pair and down) of at most 16
-   rows (mixtral's 16 rows an expert, llama4's 4 routed rows) must have
-   taken a stream body, of more rows (the bucket prefills) the tensor
-   cores, the fp32 attention products the FMA body.  Then one prompt's full-width
+   rows) and every bf16 SwiGLU pair or expert launch (gate/up pair and
+   down) of at most 16 rows (qwen's 4 decode rows, mixtral's 16 rows an
+   expert, llama4's 4 routed rows) must have taken a stream body, of more
+   rows (the bucket prefills) the tensor cores, the fp32 attention
+   products the FMA body.  Then one prompt's full-width
    qwen3 prefill
    logits are held against the plain versions on the CPU (5e-2 normwise:
    28 bf16 layers, each of whose activations may round one bf16 ulp apart);
@@ -81,10 +84,11 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    at step 1; ftimm_gemm must have taken the tensor-core or stream body
    for every bf16 product of 128 or more columns, the FMA body only for
    the mixed and fp32 pairs (the fp32 cotangents of the logits and the
-   router) and the bf16 routers the planner gives it, the ragged dW and
-   every bf16 x bf16 grouped and ragged expert product the tensor cores,
-   and the fp32 attention and mixed grouped / ragged products the FMA
-   body.  Prints the median step time, tokens/s and peak device
+   router) and the bf16 routers the planner gives it, the ragged dW,
+   every bf16 x bf16 grouped and ragged expert product and qwen's dense
+   gate/up pair (56 launches a step: 28 layers, forward and remat) the
+   tensor cores, and the fp32 attention and mixed grouped / ragged
+   products the FMA body.  Prints the median step time, tokens/s and peak device
    memory.  Every distinct kernel call of these runs is recorded (kernel,
    operand shapes, strides and dtypes, trans, tile, epilogue, out dtype;
    the ragged offsets as routed);
@@ -101,10 +105,13 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    the gates are that bf16 and fp32 give the same step-1 loss within 1e-2
    and the same step-2 loss within 5e-2;
 10. [time] each kernel at the decode-step shapes of the model it serves, and
-   the two backward kernels at the training shapes, and ftimm_gemm at
-   qwen3-1.7b's training forward shapes, its unembed and the mixed fp32 x
-   bf16 unembed dX, and the MoE expert-down products and gate/up pairs on
-   the FMA body beside the planned stream at decode and on the tensor
+   the two backward kernels at the training shapes (split-K on its
+   tensor-core and FMA bodies), and ftimm_gemm at qwen3-1.7b's training
+   forward shapes, its unembed and the mixed fp32 x bf16 unembed dX, qwen's
+   dense gate/up pair on the FMA body beside the planned stream at decode,
+   at both bucket prefills and on the tensor cores and the FMA body at the
+   1024 training rows, and the MoE expert-down products and gate/up pairs
+   on the FMA body beside the planned stream at decode and on the tensor
    cores and the FMA body at mixtral's training capacity 320 and llama4's
    1024 routed rows (CUDA events around calls enqueued behind a sleep
    kernel, so the card runs them back to back; operands rotated through
@@ -113,8 +120,9 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    (``torch.bmm`` / ``torch._grouped_mm`` for the MoE expert products,
    ``torch.matmul`` for the split-K kernel, which is also timed beside
    ``ftimm_gemm`` at nsplit = 1; for the bf16 SwiGLU pairs, which no one
-   call computes, two such calls and the elementwise silu(g) * u, reported
-   apart as ``yardstick_ms``), and its bound: the
+   call computes, two such calls -- ``torch.matmul`` for the dense pair --
+   and the elementwise silu(g) * u, reported apart as ``yardstick_ms``),
+   and its bound: the
    larger of the bytes this input needs / 3.35 TB/s and its operations /
    peak (989 TFLOP/s bf16, 67 TFLOP/s fp32; NVIDIA's H100 SXM data sheet).
    A ragged call's bytes count only the expert panels its rows reach (the
@@ -148,8 +156,9 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.core.gemm import (batched_matmul, grouped_matmul,  # noqa: E402
                                    grouped_swiglu, matmul, matmul_swiglu,
-                                   plan_batched_gemm, plan_ragged_gemm,
-                                   ragged_matmul, ragged_swiglu)
+                                   plan_batched_gemm, plan_gemm,
+                                   plan_ragged_gemm, ragged_matmul,
+                                   ragged_swiglu)
 from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.kernels.ftimm import kernel as K  # noqa: E402
 from repro_torch.kernels.ftimm import ops  # noqa: E402
@@ -359,14 +368,18 @@ def body_case(label, m, k, n, *, body, trans="nn", out=BF16, kslices=1,
 
 
 def splitk_case(label, m, k, n, nsplit, *, trans="tn", dtype=BF16,
-                epilogue=False, entry_calls=0, timed=False) -> Case:
-    """The split-K kernel through ``ops.gemm(nsplit=...)``; ``epilogue``
-    adds bias + silu + residual, applied after the sum."""
+                epilogue=False, entry_calls=0, timed=False,
+                body="fma") -> Case:
+    """The split-K kernel through ``ops.gemm(nsplit=...)`` on ``body``
+    ("fma": the tile ``ops`` clamps to; "tc": the 128 x 128 tensor-core
+    tile, K cut at its bk of 64); ``epilogue`` adds bias + silu +
+    residual, applied after the sum."""
     sa = {"nn": (m, k), "tn": (k, m), "nt": (m, k)}[trans]
     sb = {"nn": (k, n), "tn": (k, n), "nt": (n, k)}[trans]
     epi = (Epilogue(bias=True, activation="silu", residual=True) if epilogue
            else None)
-    _, _, bk = ops.clamp_tile(m, n, 128, 128)
+    bm, bn, bk = (K.TC_TILES[0] if body == "tc"
+                  else ops.clamp_tile(m, n, 128, 128))
     ns = ops.clamp_nsplit(k, bk, nsplit)
 
     def make(gen):
@@ -383,10 +396,11 @@ def splitk_case(label, m, k, n, nsplit, *, trans="tn", dtype=BF16,
     nbytes = ((m * k + k * n + m * n) * _size(dtype)
               + ((4 * n + m * n * _size(dtype)) if epilogue else 0))
     return Case(
-        "ftimm_gemm_splitk", label, make,
-        lambda a, b, bias, res: ops.gemm(a, b, trans=trans, nsplit=nsplit,
+        "ftimm_gemm_splitk", f"{body} {label}", make,
+        lambda a, b, bias, res: ops.gemm(a, b, bm=bm, bn=bn, bk=bk,
+                                         trans=trans, nsplit=nsplit,
                                          epilogue=epi, bias=bias,
-                                         residual=res),
+                                         residual=res, body=body),
         lambda a, b, bias, res: K.ftimm_gemm_splitk_plain(
             a, b, bk=bk, nsplit=ns, trans=trans, epilogue=epi or K.IDENTITY,
             bias=bias, residual=res, out_dtype=dtype),
@@ -394,7 +408,19 @@ def splitk_case(label, m, k, n, nsplit, *, trans="tn", dtype=BF16,
         0, ARCH, "train", timed, entry_calls)
 
 
-def swiglu_case(label, m, k, n, *, dtype=BF16, per_step=0) -> Case:
+def _silu_mul(g, u, out):
+    return (torch.nn.functional.silu(g.float()) * u.float()).to(out)
+
+
+def _pair_matmul(x, wg, wu, out=None):
+    """The dense pair through PyTorch: one ``matmul`` per panel, then
+    silu(g) * u."""
+    return _silu_mul(torch.matmul(x, wg), torch.matmul(x, wu), out or x.dtype)
+
+
+def swiglu_case(label, m, k, n, *, dtype=BF16, per_step=0, phase="serve",
+                timed=False) -> Case:
+    """The dense pair through ``matmul_swiglu`` (the planned body)."""
     def make(gen):
         return (_randn(gen, (m, k), dtype),
                 _randn(gen, (k, n), dtype, k ** -0.5),
@@ -404,7 +430,32 @@ def swiglu_case(label, m, k, n, *, dtype=BF16, per_step=0) -> Case:
                 lambda x, g, u: matmul_swiglu(x, g, u),
                 lambda x, g, u: K.ftimm_gemm_swiglu_plain(x, g, u),
                 None, (m * k + 2 * k * n + m * n) * _size(dtype),
-                4.0 * m * n * k, dtype, dtype, per_step)
+                4.0 * m * n * k, dtype, dtype, per_step, phase=phase,
+                timed=timed,
+                yardstick=_pair_matmul if dtype == BF16 else None)
+
+
+def swiglu_body_case(label, m, k, n, *, body, out=BF16, kslices=1,
+                     dim_order="mn", phase="serve", timed=False) -> Case:
+    """``ftimm_gemm_swiglu``'s ``body`` called directly on bf16 operands
+    (the FMA body at the tile the planner gives it)."""
+    fma = plan_gemm(m, k, n, 2, _size(out), panels=2, a_ok=False)
+    bm, bn, bk = _body_tile(body, fma)
+
+    def make(gen):
+        return (_randn(gen, (m, k), BF16),
+                _randn(gen, (k, n), BF16, k ** -0.5),
+                _randn(gen, (k, n), BF16, k ** -0.5))
+
+    return Case(
+        "ftimm_gemm_swiglu", f"{body} {label}", make,
+        lambda x, wg, wu: K.ftimm_gemm_swiglu(
+            x, wg, wu, bm=bm, bn=bn, bk=bk, out_dtype=out, body=body,
+            kslices=kslices, dim_order=dim_order),
+        lambda x, wg, wu: K.ftimm_gemm_swiglu_plain(x, wg, wu, out_dtype=out),
+        None, (m * k + 2 * k * n) * 2 + m * n * _size(out), 4.0 * m * n * k,
+        BF16, out, phase=phase, timed=timed,
+        yardstick=functools.partial(_pair_matmul, out=out))
 
 
 def grouped_case(label, g, m, k, n, *, trans="nn", shared="none", dtype=FP32,
@@ -431,10 +482,6 @@ def grouped_case(label, g, m, k, n, *, trans="nn", shared="none", dtype=FP32,
                                                         out_dtype=dtype),
                 library, (ga * m * k + gb * k * n + g * m * n) * _size(dtype),
                 2.0 * g * m * n * k, dtype, dtype, per_step, model)
-
-
-def _silu_mul(g, u, out):
-    return (torch.nn.functional.silu(g.float()) * u.float()).to(out)
 
 
 def _pair_bmm(x, wg, wu, out=None):
@@ -716,9 +763,12 @@ def train_cases() -> list[Case]:
     """The two backward kernels at the training shapes (seq 128 x batch 8
     = 1024 tokens): the llama4-scout expert dW (its gate / up and down
     panels, with the launches of one 1-layer train step) under random
-    top-1 routing, and the split-K kernel at the T2 dW shapes of qwen3-1.7b
-    (q / o and gate / up projections) and of the llama4-scout router, with
-    ``ftimm_gemm`` (nsplit 1) at the same qwen shapes beside it."""
+    top-1 routing, and the split-K kernel on its tensor-core and FMA
+    bodies at the T2 dW shapes of qwen3-1.7b (q / o and gate / up
+    projections) and of the llama4-scout router, with ``ftimm_gemm``
+    (nsplit 1) and ``torch.matmul`` at the same qwen shapes beside it; and
+    qwen3-1.7b's gate/up pair at the 1024 training rows on the tensor cores
+    and the FMA body."""
     l4, qw = get_config(LLAMA4), get_config(ARCH)
     e, d, f = l4.num_experts, l4.d_model, l4.d_ff
     routed = np.random.default_rng(7).multinomial(
@@ -747,17 +797,26 @@ def train_cases() -> list[Case]:
                       f"llama4 train gate/up T={TRAIN_TOKENS}", routed, d, f,
                       body=body, phase="train", timed=True)]
     dq, fq = qw.d_model, qw.d_ff
+    order = plan_gemm(TRAIN_TOKENS, dq, fq, 2, 2, panels=2).dim_order
+    for body in ("tc", "fma"):
+        cases.append(swiglu_body_case(
+            f"qwen train gate/up {TRAIN_TOKENS}", TRAIN_TOKENS, dq, fq,
+            body=body, dim_order=order, phase="train", timed=True))
+    # The kernels line times split-K's tensor-core body at nsplit 4.
     for n in (dq, fq):
-        for ns in (2, 4, 8):
-            cases.append(splitk_case(f"qwen train dW {dq}x{n} nsplit {ns}",
-                                     dq, TRAIN_TOKENS, n, ns,
-                                     entry_calls=int(ns == 4), timed=True))
+        for body in ("tc", "fma"):
+            for ns in (2, 4, 8):
+                cases.append(splitk_case(
+                    f"qwen train dW {dq}x{n} nsplit {ns}", dq, TRAIN_TOKENS,
+                    n, ns, entry_calls=int(ns == 4 and body == "tc"),
+                    timed=True, body=body))
         cases.append(dense_case(f"qwen train dW {dq}x{n} nsplit 1", dq,
                                 TRAIN_TOKENS, n, trans="tn", phase="train",
                                 timed=True))
-    for ns in (2, 4, 8):
-        cases.append(splitk_case(f"llama4 router dW {d}x{e} nsplit {ns}", d,
-                                 TRAIN_TOKENS, e, ns))
+    for body in ("tc", "fma"):
+        for ns in (2, 4, 8):
+            cases.append(splitk_case(f"llama4 router dW {d}x{e} nsplit {ns}",
+                                     d, TRAIN_TOKENS, e, ns, body=body))
     t, v = TRAIN_TOKENS, qw.vocab_padded
     cases += [
         dense_case(f"qwen train fwd q/o {t}x{dq}x{dq}", t, dq, dq,
@@ -791,6 +850,8 @@ def main_path_cases(cfg, view_len: int, bucket: int) -> list[Case]:
         dense_case("decode unembed", SLOTS, d, v, trans="nt", out=FP32,
                    per_step=1),
         swiglu_case("decode gate/up", SLOTS, d, f, per_step=n_layers),
+        swiglu_body_case("decode gate/up", SLOTS, d, f, body="fma",
+                         timed=True),
         grouped_case("decode qk^T", groups, qpg, hd, view_len, trans="nt",
                      per_step=n_layers),
         grouped_case("decode pv", groups, qpg, view_len, hd,
@@ -799,7 +860,10 @@ def main_path_cases(cfg, view_len: int, bucket: int) -> list[Case]:
         dense_case("prefill k/v", rows, d, hkv),
         dense_case("prefill o+res", rows, hq, d, residual=True),
         dense_case("prefill down+res", rows, f, d, residual=True),
-        swiglu_case("prefill gate/up", rows, d, f),
+        swiglu_case("prefill gate/up bucket 32", SLOTS * 32, d, f,
+                    timed=True),
+        swiglu_case(f"prefill gate/up bucket {bucket}", rows, d, f,
+                    timed=True),
         grouped_case("prefill qk^T", groups, bucket * qpg, hd, bucket,
                      trans="nt"),
         grouped_case("prefill pv", groups, bucket * qpg, bucket, hd),
@@ -908,10 +972,55 @@ def edge_cases() -> list[Case]:
             cases.append(splitk_case(f"33x257x65 {trans} {dtype} bias+silu"
                                      "+residual nsplit 4", 33, 257, 65, 4,
                                      trans=trans, dtype=dtype, epilogue=True))
-    cases.append(splitk_case("qwen train dW 2048x2048 bias+silu+residual "
-                             "nsplit 4", 2048, TRAIN_TOKENS, 2048, 4,
-                             epilogue=True))
+    for body in ("fma", "tc"):
+        cases.append(splitk_case("qwen train dW 2048x2048 bias+silu+residual"
+                                 " nsplit 4", 2048, TRAIN_TOKENS, 2048, 4,
+                                 epilogue=True, body=body))
     cases += new_body_cases()
+    cases += pair_and_splitk_body_cases()
+    return cases
+
+
+def pair_and_splitk_body_cases() -> list[Case]:
+    """The dense pair's stream and tensor-core bodies and split-K's
+    tensor-core body called directly: K = 1032 and N = 264 (a K tail, a
+    partial last strip and tile), both outputs; the pair's stream at 1 / 4
+    / 16 rows and 1, 3 and 8 K slices, its tensor cores at 17 and 200 rows
+    in both grid orders; split-K at every trans, nsplit 2 / 4 / 8 and 40
+    (more splits than K steps), with the bias + silu + residual
+    epilogue after the sum.  Then the pair at qwen3-1.7b's home shapes:
+    the 4 decode rows on the stream at 1-16 slices and on the FMA body,
+    the bucket prefills' 128 and 256 rows on the tensor cores."""
+    k, n, cases = 1032, 264, []
+    for out in (BF16, FP32):
+        o = _name(out)
+        for m in (1, 4, 16):
+            for ks in (1, 3, 8):
+                cases.append(swiglu_body_case(
+                    f"pair {m}x{k}x{n} {ks} slices ->{o}", m, k, n,
+                    body="stream", out=out, kslices=ks))
+        for m in (17, 200):
+            for order in ("mn", "nm"):
+                cases.append(swiglu_body_case(
+                    f"pair {m}x{k}x{n} {order} ->{o}", m, k, n, body="tc",
+                    out=out, dim_order=order))
+    for trans in ("nn", "tn", "nt"):
+        for ns in (2, 4, 8, 40):
+            cases.append(splitk_case(f"200x{k}x{n} {trans} nsplit {ns}", 200,
+                                     k, n, ns, trans=trans, body="tc"))
+        cases.append(splitk_case(f"200x{k}x{n} {trans} bias+silu+residual "
+                                 "nsplit 4", 200, k, n, 4, trans=trans,
+                                 epilogue=True, body="tc"))
+    qw = get_config(ARCH)
+    d, f = qw.d_model, qw.d_ff
+    for ks in (1, 2, 4, 8, 16):
+        cases.append(swiglu_body_case(f"qwen decode gate/up {ks} slices",
+                                      SLOTS, d, f, body="stream", kslices=ks))
+    cases.append(swiglu_body_case("qwen decode gate/up", SLOTS, d, f,
+                                  body="fma"))
+    for m in (SLOTS * 32, SLOTS * 64):
+        cases.append(swiglu_body_case(f"qwen prefill gate/up {m}", m, d, f,
+                                      body="tc"))
     return cases
 
 
@@ -1124,6 +1233,61 @@ def check_bodies(dev) -> dict:
     log("  stream (4 x 6144 x 2048) x3 and tensor-core ragged dW (llama4 "
         "gate/up) x2: bit-identical reruns")
     seen.update(check_group_bodies(gen))
+    seen.update(check_pair_and_splitk(gen))
+    return seen
+
+
+def check_pair_and_splitk(gen) -> dict:
+    """qwen3-1.7b's gate/up pair through the dispatch layer: its 4 decode
+    rows plan the group stream, 128 and 1024 rows the tensor cores, fp32
+    the FMA body.  Then two runs of the pair's stream (1 and 4 K slices)
+    and tensor cores, and of split-K's tensor-core body at qwen's dW shape
+    (nsplit 2, 4, 8), give the same bits."""
+    qw = get_config(ARCH)
+    d, f = qw.d_model, qw.d_ff
+    seen, want = {}, {}
+    for rows, dtype, body in ((SLOTS, BF16, "stream"), (128, BF16, "tc"),
+                              (TRAIN_TOKENS, BF16, "tc"),
+                              (SLOTS, FP32, "fma")):
+        c = swiglu_case("", rows, d, f, dtype=dtype)
+        inputs = c.make(gen)
+        K.reset_launch_counts()
+        got = c.run(*inputs)
+        rel, _ = rel_err(got, c.plain(*inputs))
+        label = f"qwen gate/up {rows} rows {_name(dtype)}"
+        seen[label] = {k: v for k, v in
+                       K.body_counts()["ftimm_gemm_swiglu"].items() if v}
+        want[label] = {body: 1}
+        log(f"  ftimm_gemm_swiglu {label}: bodies {seen[label]}, normwise "
+            f"{rel:.2e}")
+        if rel > TOL[dtype]:
+            raise AssertionError(f"ftimm_gemm_swiglu {label}: normwise "
+                                 f"{rel:.3g}")
+        del inputs, got
+    if seen != want:
+        raise AssertionError(f"planned bodies {seen}, expected {want}")
+    reruns = [swiglu_body_case("qwen decode gate/up", SLOTS, d, f,
+                               body="stream", kslices=ks) for ks in (1, 4)]
+    reruns += [swiglu_body_case(f"qwen train gate/up {TRAIN_TOKENS}",
+                                TRAIN_TOKENS, d, f, body="tc",
+                                dim_order=order) for order in ("mn", "nm")]
+    reruns += [splitk_case(f"qwen train dW {d}x{f} nsplit {ns}", d,
+                           TRAIN_TOKENS, f, ns, body="tc")
+               for ns in (2, 4, 8)]
+    K.reset_launch_counts()
+    for c in reruns:
+        inputs = c.make(gen)
+        runs = [c.run(*inputs) for _ in range(2)]
+        torch.cuda.synchronize()
+        if not torch.equal(runs[0], runs[1]):
+            raise AssertionError(f"{c.kernel} {c.label}: reruns differ")
+        del inputs, runs
+    bodies = K.body_counts()
+    if (bodies["ftimm_gemm_swiglu"] != {"fma": 0, "tc": 4, "stream": 4}
+            or bodies["ftimm_gemm_splitk"] != {"fma": 0, "tc": 6}):
+        raise AssertionError(f"reruns took the bodies {bodies}")
+    log(f"  {len(reruns)} dense-pair stream / tensor-core and split-K "
+        "tensor-core calls at qwen's shapes: bit-identical reruns")
     return seen
 
 
@@ -1490,7 +1654,9 @@ def serve(arch: str, dev) -> tuple[dict, ServeEngine, dict]:
     # Each bf16 expert launch (gate/up pair and down) of at most 16 rows (a
     # group: mixtral's decode capacity; in all: llama4's SLOTS routed decode
     # rows) on the stream, of more (the bucket prefills) on the tensor
-    # cores; fp32 (attention) on the FMA body.
+    # cores; fp32 (attention) on the FMA body.  So too qwen's dense gate/up
+    # pair: its SLOTS decode rows on the stream, the prefills' on the
+    # tensor cores.
     expert = group_calls_by_body(recorder)
     for (kernel, pair, rows, body), n in expert.items():
         planned = ("fma" if pair != "bf16"
@@ -1500,10 +1666,10 @@ def serve(arch: str, dev) -> tuple[dict, ServeEngine, dict]:
                                  f"rows took the {body} body ({expert})")
     # ... and so did the timed run: its bf16 pair launches took the stream
     # (decode) and the tensor cores (prefill), none the FMA body.
-    pair = {MIXTRAL: "ftimm_gemm_grouped_swiglu",
-            LLAMA4: "ftimm_gemm_ragged_swiglu"}.get(arch)
-    if pair and not (bodies[pair]["stream"] and bodies[pair]["tc"]
-                     and not bodies[pair]["fma"]):
+    pair = {ARCH: "ftimm_gemm_swiglu", MIXTRAL: "ftimm_gemm_grouped_swiglu",
+            LLAMA4: "ftimm_gemm_ragged_swiglu"}[arch]
+    if not (bodies[pair]["stream"] and bodies[pair]["tc"]
+            and not bodies[pair]["fma"]):
         raise AssertionError(f"{arch}: {pair} bodies {bodies[pair]}")
 
     tokens = sum(len(r.out_tokens) for r in reqs)
@@ -1605,14 +1771,16 @@ def gemm_calls_by_rows_and_body(recorder: CallRecorder) -> dict:
     return out
 
 
-GROUP_KERNELS = ("ftimm_gemm_grouped", "ftimm_gemm_grouped_swiglu",
-                 "ftimm_gemm_ragged", "ftimm_gemm_ragged_swiglu")
+GROUP_KERNELS = ("ftimm_gemm_swiglu", "ftimm_gemm_grouped",
+                 "ftimm_gemm_grouped_swiglu", "ftimm_gemm_ragged",
+                 "ftimm_gemm_ragged_swiglu")
 
 
 def group_calls_by_body(recorder: CallRecorder) -> dict[tuple, int]:
-    """Launches of the grouped and ragged kernels and their SwiGLU pairs in
-    a recorded run by (kernel, operand pair "bf16" or "mixed/fp32", rows a
-    group (the ragged kernels: all rows), body)."""
+    """Launches of the three SwiGLU pairs and the grouped and ragged
+    kernels in a recorded run by (kernel, operand pair "bf16" or
+    "mixed/fp32", rows a group (the dense pair and the ragged kernels: all
+    rows), body)."""
     out: dict[tuple, int] = {}
     for call in recorder.calls.values():
         name = call["kernel"]
@@ -1655,10 +1823,11 @@ def check_train_bodies(arch: str, by_pair: dict, bodies: dict,
     (the fp32 cotangents of the logits and the router) and for the bf16
     products of fewer than 128 columns that the CMR model plans on it (the
     routers' 8 or 16 experts); the ragged dW takes the tensor cores; the
-    grouped and ragged kernels and their SwiGLU pairs take the tensor cores
-    for their bf16 x bf16 expert products and the FMA body for the fp32
+    grouped and ragged kernels and the three SwiGLU pairs take the tensor
+    cores for their bf16 x bf16 products and the FMA body for the fp32
     attention products and the mixed pairs (``expert``:
-    ``group_calls_by_body``)."""
+    ``group_calls_by_body``); qwen3-1.7b launches its dense pair on the
+    tensor cores twice a layer a step (the forward and its remat)."""
     for (kernel, pair, rows, body), n in expert.items():
         if (pair == "bf16") != (body == "tc"):
             raise AssertionError(f"{arch} train: {kernel} {pair} calls of "
@@ -1677,6 +1846,13 @@ def check_train_bodies(arch: str, by_pair: dict, bodies: dict,
     if dw["fma"]:
         raise AssertionError(f"{arch} train: the ragged dW took the FMA "
                              f"body: {dw}")
+    if arch == ARCH:
+        want = {"fma": 0, "tc": 2 * depth("train", arch) * TRAIN_STEPS,
+                "stream": 0}
+        if bodies["ftimm_gemm_swiglu"] != want:
+            raise AssertionError(f"{arch} train: ftimm_gemm_swiglu bodies "
+                                 f"{bodies['ftimm_gemm_swiglu']}, expected "
+                                 f"{want}")
 
 
 def _strided(spec, gen):
@@ -1951,6 +2127,16 @@ def schedule_witness(dev) -> dict:
 # The kernels line
 # ---------------------------------------------------------------------------
 
+# What each SwiGLU pair's yardstick_ms times: no one PyTorch call computes
+# the pair.
+YARDSTICKS = {
+    "ftimm_gemm_swiglu": "two torch.matmul (one per panel), then silu(g) * u",
+    "ftimm_gemm_grouped_swiglu": "two torch.bmm (one per panel), then "
+                                 "silu(g) * u",
+    "ftimm_gemm_ragged_swiglu": "two torch._grouped_mm (one per panel), "
+                                "then silu(g) * u"}
+
+
 def kernel_entries(rows, launches, worst, bodies) -> list[dict]:
     entries = []
     for name in K.KERNELS:
@@ -1968,8 +2154,9 @@ def kernel_entries(rows, launches, worst, bodies) -> list[dict]:
         t_ops = sum(n * r["ops_ms"] for n, r in calls)
         if name == "ftimm_gemm_splitk":
             per = ("one call each at qwen3-1.7b's T2 dW shapes (1024 tokens "
-                   "-> 2048x2048 and 2048x6144), nsplit 4; no model path "
-                   "launches it (the planner never picks nsplit > 1)")
+                   "-> 2048x2048 and 2048x6144), nsplit 4, tensor-core "
+                   "body; no model path launches it (the planner never "
+                   "picks nsplit > 1)")
         elif phase == "train":
             per = (f"one train step of {model} at {depth(phase, model)} "
                    f"layers, {TRAIN_BATCH} x {TRAIN_SEQ} tokens")
@@ -1984,9 +2171,7 @@ def kernel_entries(rows, launches, worst, bodies) -> list[dict]:
             "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib, "per": per,
-            **({"yardstick_ms": yard,
-                "yardstick": "a library GEMM per panel (torch.bmm / "
-                             "torch._grouped_mm), then silu(g) * u"}
+            **({"yardstick_ms": yard, "yardstick": YARDSTICKS[name]}
                if yard is not None else {}),
             "launches_by_run": {f"{p} {m}": launches[(p, m)][name]
                                 for p, m in launches},

@@ -71,6 +71,13 @@ TC_SM_BW_SHARES = 4
 # shorter ones (``launch.sweep_gemm``, PERF.md): the fixed cost of a CTA
 # (staging its rows, the slice reduction) is paid once per slice.
 STREAM_CTAS_PER_SM = 1
+# The grouped / ragged weight stream (a TMA ring, as the tensor-core body)
+# gets the same TC_SM_BW_SHARES a CTA; cutting its K into slices costs it
+# this share of its bandwidth.  Measured on the H100 (``launch.sweep_gemm``,
+# PERF.md): one slice was the fastest at every shape swept -- the MoE pairs'
+# 896 / 256 CTAs and qwen3-1.7b's dense pair, whose 48 one-slice CTAs took
+# 21.8 us against 27.2 us at 2 slices (96 CTAs) and 29.0-43.3 us at 4-16.
+GSTREAM_SLICED_BW = 0.8
 
 
 def occupancy(ctas: int, spec: HopperSpec = H100) -> float:
@@ -188,12 +195,16 @@ def estimate_group_stream(groups: int, rows: int, k: int, n: int, *,
     group), STREAM_CTAS_PER_SM of them on an SM; every reached panel is
     read once, the rows' activations once (their re-reads by the other
     strips hit the L2), and with more than one slice each slice's fp32
-    partials (one per panel) are written and read back once.  The math is
+    partials (one per panel) are written and read back once.  Each CTA
+    draws up to TC_SM_BW_SHARES of the card's bandwidth, a grid cut into
+    K slices GSTREAM_SLICED_BW of what it would draw uncut.  The math is
     wgmma at the tensor cores' rate on GSTREAM_ROWS token columns a
     group."""
     sl, slices = stream_slice(k, kslices)
     ctas = groups * cdiv(n, STREAM_STRIP) * slices
     occ = max(min(ctas / (spec.sms * STREAM_CTAS_PER_SM), 1.0), 1e-3)
+    bw_share = (min(occ * TC_SM_BW_SHARES, 1.0)
+                * (GSTREAM_SLICED_BW if slices > 1 else 1.0))
     flops_padded = 2.0 * ctas * GSTREAM_ROWS * STREAM_STRIP * sl * panels
     hbm = (groups * k * n * in_bytes * panels + rows * k * in_bytes
            + rows * n * out_bytes + (2 * slices * panels * rows * n * 4
@@ -203,7 +214,7 @@ def estimate_group_stream(groups: int, rows: int, k: int, n: int, *,
         flops_padded=flops_padded,
         hbm_bytes=float(hbm),
         t_compute=flops_padded / (spec.peak_flops_bf16 * occ),
-        t_memory=hbm / (spec.hbm_bw * occ),
+        t_memory=hbm / (spec.hbm_bw * bw_share),
         smem_bytes=gstream_smem(panels),
         occupancy=occ,
     )

@@ -34,7 +34,8 @@ from ...kernels.ftimm import ops as _ops
 from ...kernels.ftimm.epilogue import IDENTITY, Epilogue
 from ...kernels.ftimm.kernel import (gemm_operands_ok, grouped_operands,
                                      mkn, ragged_dw_operands_mn,
-                                     ragged_operands, row_groups)
+                                     ragged_operands, row_groups,
+                                     swiglu_operands)
 from .tuner import (note_epilogue, note_plan_use, plan_batched_gemm,
                     plan_gemm, plan_ragged_gemm)
 
@@ -186,12 +187,17 @@ def _swiglu_bwd(x, wg, wu, a, b, g, nt, dw):
 
 
 def _run_swiglu(x, wg, wu, out_dtype) -> torch.Tensor:
+    """Plan the dense SwiGLU pair (its body from the widths and how TMA
+    reads x and both panels) and run it."""
+    x_k, w_ok = swiglu_operands(x, wg, wu)
     plan = plan_gemm(x.shape[0], x.shape[1], wg.shape[1], x.element_size(),
-                     out_dtype.itemsize, panels=2)
+                     out_dtype.itemsize, panels=2, b_bytes=wg.element_size(),
+                     a_ok=x_k, b_ok=w_ok)
     note_plan_use("dense", plan)
     note_epilogue("dense", True)
     return _ops.gemm_swiglu(x, wg, wu, bm=plan.bm, bn=plan.bn, bk=plan.bk,
-                            out_dtype=out_dtype)
+                            out_dtype=out_dtype, body=plan.body,
+                            kslices=plan.kslices, dim_order=plan.dim_order)
 
 
 def _run_grouped_swiglu(x, wg, wu, out_dtype) -> torch.Tensor:

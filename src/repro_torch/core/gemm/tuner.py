@@ -127,22 +127,29 @@ def gemm_candidates(m: int, k: int, n: int, in_bytes: int = 4,
     """Every compiled tile (x grid order) of every body the call allows
     (``gemm_bodies``: the operand widths ``in_bytes`` for A and ``b_bytes``
     for B, and whether TMA can read A and B as laid out) that fits a
-    block's shared memory, scored by the CMR model.  ``panels`` = 2 for the
-    fused SwiGLU pair (FMA only)."""
+    block's shared memory, scored by the CMR model.  ``panels`` = 2 plans
+    the dense SwiGLU pair (``ftimm_gemm_swiglu``; ``a_ok``: TMA reads x
+    K-major, ``b_ok``: both panels): its stream is the group stream with
+    one group (``estimate_group_stream``), its tensor cores the pair tile
+    GROUP_TC_TILE with both panels priced."""
     b_bytes = b_bytes or in_bytes
     cls = classify(m, k, n)
+    width = max(in_bytes, b_bytes)
     cands = []
     for body in gemm_bodies(in_bytes, b_bytes, m, a_ok, b_ok, panels):
         if body == "stream":
-            cands += _stream_candidates(cls, m, k, n, max(in_bytes, b_bytes),
-                                        out_bytes, spec)
+            cands += (_group_stream_candidates(cls, 1, m, k, n, width,
+                                               out_bytes, spec, panels=2)
+                      if panels == 2 else
+                      _stream_candidates(cls, m, k, n, width, out_bytes,
+                                         spec))
             continue
-        est = functools.partial(estimate, m, k, n,
-                                in_bytes=max(in_bytes, b_bytes),
+        est = functools.partial(estimate, m, k, n, in_bytes=width,
                                 out_bytes=out_bytes, panels=panels, spec=spec,
                                 body=body, stages=TC_STAGES["ftimm_gemm"])
+        tc_tiles = (GROUP_TC_TILE,) if panels == 2 else TC_TILES
         cands += _candidates(cls, est, spec,
-                             tiles=TC_TILES if body == "tc" else TILES,
+                             tiles=tc_tiles if body == "tc" else TILES,
                              body=body, order_aware=body == "tc")
     return cands
 

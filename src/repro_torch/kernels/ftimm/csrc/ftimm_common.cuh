@@ -202,16 +202,21 @@ __device__ __forceinline__ float silu_mul(float g, float u) {
   return g * (1.f / (1.f + expf(-g))) * u;
 }
 
-// Which output tile this CTA owns: blockIdx.x walks the (M, N) tile grid with
-// M outer ("mn") or N outer ("nm"), the reference's dim_order.
-__device__ __forceinline__ void tile_coords(int BM, int BN, int M, int N, int nm_order, int& m0,
-                                            int& n0) {
+// Which output tile tile t is: t walks the (M, N) tile grid with M outer
+// ("mn") or N outer ("nm"), the reference's dim_order.
+__device__ __forceinline__ void tile_coords_of(int t, int BM, int BN, int M, int N, int nm_order,
+                                               int& m0, int& n0) {
   const int gm = cdiv(M, BM), gn = cdiv(N, BN);
-  const int t = blockIdx.x;
   const int mt = nm_order ? t % gm : t / gn;
   const int nt = nm_order ? t / gm : t % gn;
   m0 = mt * BM;
   n0 = nt * BN;
+}
+
+// The output tile this CTA owns: tile blockIdx.x.
+__device__ __forceinline__ void tile_coords(int BM, int BN, int M, int N, int nm_order, int& m0,
+                                            int& n0) {
+  tile_coords_of(blockIdx.x, BM, BN, M, N, nm_order, m0, n0);
 }
 
 // The ragged kernels' grid: blockIdx.x = (row chunk, N tile) with N inner,

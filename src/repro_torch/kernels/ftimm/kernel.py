@@ -11,22 +11,23 @@ The kernels are CUDA C++ for ``sm_90a`` in ``csrc/``, one source per kernel:
   * ``ftimm_gemm_ragged_swiglu``  the ragged SwiGLU pair;
   * ``ftimm_gemm_ragged_dw``  per-group x^T . dy over each group's rows, the
                             weight gradient of the ragged experts;
-  * ``ftimm_gemm_splitk``   dense fp32 partial products over K slices
-                            (summed, then the epilogue, by the wrapper).
+  * ``ftimm_gemm_splitk``   dense products over K slices, the fp32 partials
+                            summed in split order, then the epilogue.
 
 ``ftimm_gemm``, ``ftimm_gemm_grouped``, ``ftimm_gemm_ragged`` and the
-grouped and ragged SwiGLU pairs have three bodies, and
-``ftimm_gemm_ragged_dw`` the first two: CUDA-core FMAs on any operand
-types and strides (``"fma"``, the body the other kernels share), tensor
-cores for bf16 x bf16 operands TMA can read (``"tc"``: TMA, an mbarrier
-ring and wgmma, ``csrc/ftimm_tc.cuh``; the grouped and ragged kernels read
-their panels through 3-D tensor maps, the pairs both panels into one
-stage), and a K-parallel weight stream for bf16 x bf16 calls of at most 16
-rows (``"stream"``: ``ftimm_gemm``'s register stream, and for the grouped
-and ragged kernels and their pairs a TMA ring per (N strip, K slice,
-group) feeding wgmma with the weight as the 64-row operand,
-``csrc/ftimm_gstream.cuh``).  The planner picks the
-body (``core.gemm.tuner``) among those ``gemm_bodies`` /
+three SwiGLU pairs have three bodies, and ``ftimm_gemm_ragged_dw`` and
+``ftimm_gemm_splitk`` the first two: CUDA-core FMAs on any operand types
+and strides (``"fma"``), tensor cores for bf16 x bf16 operands TMA can
+read (``"tc"``: TMA, an mbarrier ring and wgmma, ``csrc/ftimm_tc.cuh``;
+the grouped and ragged kernels read their panels through 3-D tensor maps,
+the pairs both panels into one stage, split-K sums its partials in split
+order inside the kernel), and a K-parallel weight stream for bf16 x bf16
+calls of at most 16 rows (``"stream"``: ``ftimm_gemm``'s register stream,
+and for the grouped and ragged kernels and the three pairs a TMA ring per
+(N strip, K slice, group) feeding wgmma with the weight as the 64-row
+operand, ``csrc/ftimm_gstream.cuh``; the dense pair is its one group).
+The planner picks the body (``core.gemm.tuner``) among those
+``gemm_bodies`` /
 ``grouped_bodies`` / ``ragged_bodies`` / ``ragged_dw_bodies`` allow for
 the call's types and operand layouts, a rule decided before the launch;
 the wrapper raises on a body the operands do not allow.  ``body_counts``
@@ -94,11 +95,13 @@ STREAM_SMEM = 24 * 1024
 GSTREAM_ROWS = 16
 GSTREAM_STAGES = 4
 BODIES = ("fma", "tc", "stream")
-_BODY_KERNELS = {"ftimm_gemm": BODIES, "ftimm_gemm_grouped": BODIES,
+_BODY_KERNELS = {"ftimm_gemm": BODIES, "ftimm_gemm_swiglu": BODIES,
+                 "ftimm_gemm_grouped": BODIES,
                  "ftimm_gemm_grouped_swiglu": BODIES,
                  "ftimm_gemm_ragged": BODIES,
                  "ftimm_gemm_ragged_swiglu": BODIES,
-                 "ftimm_gemm_ragged_dw": ("fma", "tc")}
+                 "ftimm_gemm_ragged_dw": ("fma", "tc"),
+                 "ftimm_gemm_splitk": ("fma", "tc")}
 
 # (A dtype, B dtype, output dtype) -> the type code of the C entries
 # (FTIMM_TYPES / FTIMM_MIXED_TYPES in csrc/ftimm_common.cuh).  The mixed
@@ -236,19 +239,40 @@ def gemm_operands_ok(a: torch.Tensor, b: torch.Tensor,
 
 def gemm_bodies(a_bytes: int, b_bytes: int, m: int, a_ok: bool, b_ok: bool,
                 panels: int = 1) -> tuple[str, ...]:
-    """The bodies of ``ftimm_gemm`` that can take a call, for the planner to
+    """The bodies of ``ftimm_gemm`` (and of ``ftimm_gemm_splitk``, which
+    takes its "fma" and "tc") that can take a call, for the planner to
     choose among: the FMA body takes every type pair and layout; the
     tensor-core body bf16 x bf16 (2-byte operands: the port has no other)
     when TMA can read both operands; the stream body bf16 x bf16 of at most
     16 rows when its 16-byte loads can read B (A is staged element by
-    element).  The fused SwiGLU pair (``panels`` = 2) is FMA only."""
+    element).  The dense SwiGLU pair (``panels`` = 2, ``ftimm_gemm_swiglu``;
+    ``a_ok``: TMA reads x K-major, ``b_ok``: it reads both panels,
+    ``swiglu_operands``) takes the grouped pair's rule with one group: for
+    bf16 x bf16 the tensor cores, and the group stream at most
+    GSTREAM_ROWS rows."""
     bodies = ["fma"]
-    if panels == 1 and a_bytes == b_bytes == 2:
-        if a_ok and b_ok:
-            bodies.append("tc")
-        if m <= STREAM_ROWS[-1] and b_ok:
-            bodies.append("stream")
+    if a_bytes != 2 or b_bytes != 2:
+        return tuple(bodies)
+    if panels == 2:
+        return grouped_bodies(a_bytes, b_bytes, m, "k" if a_ok else None,
+                              b_ok)
+    if a_ok and b_ok:
+        bodies.append("tc")
+    if m <= STREAM_ROWS[-1] and b_ok:
+        bodies.append("stream")
     return tuple(bodies)
+
+
+def swiglu_operands(x: torch.Tensor, w_gate: torch.Tensor,
+                    w_up: torch.Tensor) -> tuple[bool, bool]:
+    """Whether TMA reads x (M, K) K-major, and both panels (K, N) as laid
+    out (in one layout), for the dense pair's ``gemm_bodies`` rule."""
+    m, k = x.shape
+    n = w_gate.shape[1]
+    majors = {tma_major(w.data_ptr(), n, k, w.stride(1), w.stride(0))
+              for w in (w_gate, w_up)}
+    return (tma_major(x.data_ptr(), m, k, x.stride(0), x.stride(1)) == "k",
+            None not in majors and len(majors) == 1)
 
 
 def _group_strides(t: torch.Tensor, rows_first: bool) -> tuple[int, int, int]:
@@ -458,6 +482,9 @@ _ARGTYPES = {
                                 _I, _LL, _LL, _LL, _LL, _VP],
     "ftimm_gemm_splitk": [_I, _I, _I, _VP, _VP, _VP, _I, _I, _I, _I, _I, _LL,
                           _LL, _LL, _LL, _I, _VP],
+    "ftimm_gemm_splitk_tc": [_I, _I, _I, _VP, _VP, _VP, _I, _I, _I, _I, _I,
+                             _LL, _LL, _LL, _LL, _I, _VP, _VP, _VP, _I, _F,
+                             _VP, _I, _VP, _VP],
 }
 # The grouped and ragged tensor-core entries (and their pairs') take their
 # FMA entry's arguments but the tile: they run GROUP_TC_TILE.  The pairs'
@@ -465,9 +492,14 @@ _ARGTYPES = {
 for _name in ("ftimm_gemm_grouped", "ftimm_gemm_ragged",
               "ftimm_gemm_grouped_swiglu", "ftimm_gemm_ragged_swiglu"):
     _ARGTYPES[f"{_name}_tc"] = [_I] + _ARGTYPES[_name][2:]
-for _name in ("ftimm_gemm_grouped_swiglu", "ftimm_gemm_ragged_swiglu"):
+for _name in ("ftimm_gemm_swiglu", "ftimm_gemm_grouped_swiglu",
+              "ftimm_gemm_ragged_swiglu"):
     _ARGTYPES[f"{_name}_stream"] = ([_I] + _ARGTYPES[_name][2:-1]
                                     + [_I, _I, _VP, _VP, _VP])
+# The dense pair's tensor-core entry: its FMA entry's arguments but the
+# tile, and the grid order.
+_ARGTYPES["ftimm_gemm_swiglu_tc"] = ([_I] + _ARGTYPES["ftimm_gemm_swiglu"][2:-1]
+                                     + [_I, _VP])
 _entries: dict[str, object] = {}
 _libs: list[ctypes.CDLL] = []     # keeps the loaded libraries alive
 
@@ -659,8 +691,17 @@ def ftimm_gemm_swiglu_plain(x, w_gate, w_up, *, out_dtype=None) -> torch.Tensor:
 
 def ftimm_gemm_swiglu(x: torch.Tensor, w_gate: torch.Tensor,
                       w_up: torch.Tensor, *, bm: int, bn: int, bk: int,
-                      out_dtype=None) -> torch.Tensor:
-    """silu(x @ Wg) * (x @ Wu): x (M, K), both panels (K, N) -> (M, N)."""
+                      out_dtype=None, body: str = "fma", kslices: int = 1,
+                      dim_order: str = "mn") -> torch.Tensor:
+    """silu(x @ Wg) * (x @ Wu): x (M, K), both panels (K, N) -> (M, N).
+
+    ``body``: "fma" runs the (bm, bn, bk) tile of TILES; "tc" runs
+    GROUP_TC_TILE (both panels into one stage, walked in ``dim_order``)
+    and "stream" the group stream with one group, K cut into ``kslices``
+    slices (``stream_slice``), both whatever the tile.  A body the
+    operands do not allow (``gemm_bodies`` with ``panels`` = 2: x and
+    both panels TMA-readable bf16, x K-major; the stream at most
+    GSTREAM_ROWS rows) raises."""
     m, k = x.shape
     kw, n = w_gate.shape
     if kw != k or w_up.shape != w_gate.shape:
@@ -669,16 +710,34 @@ def ftimm_gemm_swiglu(x: torch.Tensor, w_gate: torch.Tensor,
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
         return ftimm_gemm_swiglu_plain(x, w_gate, w_up, out_dtype=out_dtype)
-    types = _cuda_operands("ftimm_gemm_swiglu", x, w_gate, out_dtype, w_up)
+    name = "ftimm_gemm_swiglu"
+    types = _cuda_operands(name, x, w_gate, out_dtype, w_up)
     if w_up.dtype != x.dtype or w_up.stride() != w_gate.stride():
         raise ValueError("swiglu panels must share dtype and layout")
-    tile = tile_id(bm, bn, bk)
+    if body != "fma" and body not in gemm_bodies(
+            x.element_size(), w_gate.element_size(), m,
+            *swiglu_operands(x, w_gate, w_up), panels=2):
+        raise ValueError(f"{name}: the {body} body cannot take {x.dtype} x "
+                         f"{w_gate.dtype}, M = {m}, strides {x.stride()} x "
+                         f"{w_gate.stride()}")
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return out
-    _launch("ftimm_gemm_swiglu", x.device, tile, types, x.data_ptr(),
-            w_gate.data_ptr(), w_up.data_ptr(), out.data_ptr(), m, n, k,
-            x.stride(0), x.stride(1), w_gate.stride(0), w_gate.stride(1))
+    operands = (x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
+                out.data_ptr(), m, n, k, x.stride(0), x.stride(1),
+                w_gate.stride(0), w_gate.stride(1))
+    if body == "fma":
+        _launch(name, x.device, tile_id(bm, bn, bk), types, *operands)
+    elif body == "tc":
+        _launch(name, x.device, types, *operands, int(dim_order == "nm"),
+                body="tc")
+    elif body == "stream":
+        sl, slices, ws, counters = _stream_plan(name, x.device, k, kslices,
+                                                m, n, 1, panels=2)
+        _launch(name, x.device, types, *operands, slices, sl, _ptr(ws),
+                _ptr(counters), body="stream")
+    else:
+        raise ValueError(f"unknown body: {body!r}")
     return out
 
 
@@ -1128,12 +1187,18 @@ def ftimm_gemm_splitk(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int,
                       bk: int, nsplit: int, trans: str = "nn",
                       dim_order: str = "mn", out_dtype=None,
                       epilogue: Epilogue = IDENTITY, bias=None,
-                      residual=None, scale=None) -> torch.Tensor:
-    """K-parallel C = epi(sum_s op(A)[:, K_s] . op(B)[K_s, :]) -> (M, N).
-    The kernel writes the (nsplit, M, N) fp32 partials; they are summed
-    here in split order (no atomics: replays are bit-identical) and the
-    epilogue runs on the fp32 sum, as in the reference.  Operands as for
-    ``ftimm_gemm``."""
+                      residual=None, scale=None,
+                      body: str = "fma") -> torch.Tensor:
+    """K-parallel C = epi(sum_s op(A)[:, K_s] . op(B)[K_s, :]) -> (M, N),
+    the fp32 partials summed in split order (no atomics on the output:
+    replays are bit-identical) and the epilogue on the fp32 sum, as in the
+    reference.  Operands as for ``ftimm_gemm``.
+
+    ``body``: "fma" runs the (bm, bn, bk) tile of TILES and writes the
+    (nsplit, M, N) partials, summed here; "tc" runs the (bm, bn, bk) tile
+    of TC_TILES (K cut at its bk of 64) and sums the partials and applies
+    the epilogue inside the kernel, for bf16 x bf16 operands TMA can read
+    (``gemm_bodies``), and raises on others."""
     m, k, n = mkn(trans, a.shape, b.shape)
     out_dtype = out_dtype or a.dtype
     if nsplit < 1:
@@ -1148,10 +1213,39 @@ def ftimm_gemm_splitk(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int,
     residual = residual if epilogue.residual else None
     types = _cuda_operands("ftimm_gemm_splitk", a, b, out_dtype, bias,
                            residual, scale)
+    sam, sak, sbk, sbn = op_strides(trans, a, b)
+    if body == "tc":
+        # One CTA per (output tile, split); the last of a tile's splits to
+        # finish sums the partials and applies the epilogue.
+        if (bm, bn, bk) not in TC_TILES:
+            raise ValueError(f"({bm}, {bn}, {bk}) is not a tensor-core tile;"
+                             f" the menu is {TC_TILES}")
+        if "tc" not in gemm_bodies(a.element_size(), b.element_size(), m,
+                                   *gemm_operands_ok(a, b, trans)):
+            raise ValueError(f"ftimm_gemm_splitk: the tc body cannot take "
+                             f"{a.dtype} x {b.dtype}, strides {a.stride()} "
+                             f"x {b.stride()} ({trans})")
+        res = _residual(residual, (m, n), a.dtype)
+        bias32, scale32 = _vec(bias), _vec(scale)
+        c = torch.empty((m, n), dtype=out_dtype, device=a.device)
+        if m == 0 or n == 0:
+            return c
+        ws = torch.empty((nsplit, m, n), dtype=torch.float32,
+                         device=a.device)
+        counters = _counters(a.device, -(-m // bm) * -(-n // bn))
+        has_scale, scale_val, act = _epi_scalars(epilogue)
+        _launch("ftimm_gemm_splitk", a.device, TC_TILES.index((bm, bn, bk)),
+                types, a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
+                nsplit, ref.k_per_split(k, bk, nsplit), sam, sak, sbk, sbn,
+                int(dim_order == "nm"), ws.data_ptr(), counters.data_ptr(),
+                _ptr(scale32), has_scale, scale_val, _ptr(bias32), act,
+                _ptr(res), body="tc")
+        return c
+    if body != "fma":
+        raise ValueError(f"ftimm_gemm_splitk has no {body!r} body")
     if nsplit > 65535:
         raise ValueError(f"{nsplit} splits exceed the grid's z extent")
     tile = tile_id(bm, bn, bk)
-    sam, sak, sbk, sbn = op_strides(trans, a, b)
     partials = torch.empty((nsplit, m, n), dtype=torch.float32,
                            device=a.device)
     if m and n:

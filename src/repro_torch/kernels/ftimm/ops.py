@@ -44,7 +44,8 @@ def clamp_tile(m: int, n: int, bm: int, bn: int) -> tuple[int, int, int]:
 
 def clamp_nsplit(k: int, bk: int, nsplit: int) -> int:
     """The split count ``gemm`` runs: at most one split per K block of the
-    tile, at least 1 (the M-parallel kernel)."""
+    tile (the tensor-core body's: its bk of 64), at least 1 (the
+    M-parallel kernel)."""
     return max(1, min(nsplit, -(-k // bk)))
 
 
@@ -82,33 +83,30 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bn: int = 128,
     the (N,) dequant vector when ``epilogue.scale_vec``.  ``body`` picks
     the FMA, tensor-core or stream body of ``ftimm_gemm`` (the stream body
     cuts K into ``kslices`` slices).  ``nsplit > 1`` selects the split-K
-    kernel (the epilogue then runs on the fp32 sum of the partials); the
-    split count is clamped to the K blocks of the chosen tile, and
-    degenerates to 1, the M-parallel kernel."""
+    kernel on the FMA or tensor-core ``body`` (the epilogue then runs on
+    the fp32 sum of the partials; the stream body splits K its own way and
+    raises); the split count is clamped to the K blocks of the body's tile,
+    and degenerates to 1, the M-parallel kernel."""
     if dim_order not in ("mn", "nm"):
         raise ValueError(f"unknown dim_order: {dim_order!r}")
-    if body != "fma":
-        if nsplit > 1:
-            raise ValueError(f"nsplit {nsplit} runs the split-K kernel, an "
-                             f"FMA body; the {body} body splits no K")
-        return _k.ftimm_gemm(a, b, bm=bm, bn=bn, bk=bk, trans=trans,
-                             dim_order=dim_order, out_dtype=out_dtype,
-                             epilogue=epilogue or _k.IDENTITY, bias=bias,
-                             residual=residual, scale=scale, body=body,
-                             kslices=kslices)
+    if body == "stream" and nsplit > 1:
+        raise ValueError(f"nsplit {nsplit} runs the split-K kernel, which "
+                         "has no stream body (the stream splits K into "
+                         "kslices)")
     m, k, n = _k.mkn(trans, a.shape, b.shape)
-    bm, bn, bk = clamp_tile(m, n, bm, bn)
+    if body == "fma":
+        bm, bn, bk = clamp_tile(m, n, bm, bn)
     nsplit = clamp_nsplit(k, bk, nsplit)
+    epilogue = epilogue or _k.IDENTITY
     if nsplit > 1:
         return _k.ftimm_gemm_splitk(
             a, b, bm=bm, bn=bn, bk=bk, nsplit=nsplit, trans=trans,
-            dim_order=dim_order, out_dtype=out_dtype,
-            epilogue=epilogue or _k.IDENTITY, bias=bias, residual=residual,
-            scale=scale)
+            dim_order=dim_order, out_dtype=out_dtype, epilogue=epilogue,
+            bias=bias, residual=residual, scale=scale, body=body)
     return _k.ftimm_gemm(a, b, bm=bm, bn=bn, bk=bk, trans=trans,
                          dim_order=dim_order, out_dtype=out_dtype,
-                         epilogue=epilogue or _k.IDENTITY, bias=bias,
-                         residual=residual, scale=scale)
+                         epilogue=epilogue, bias=bias, residual=residual,
+                         scale=scale, body=body, kslices=kslices)
 
 
 def batched_gemm(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
@@ -135,11 +133,16 @@ def batched_gemm(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
 
 def gemm_swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
                 *, bm: int = 128, bn: int = 128, bk: int = 16,
-                out_dtype=None) -> torch.Tensor:
-    """Dense fused SwiGLU pair: silu(x @ Wg) * (x @ Wu) in one launch."""
-    bm, bn, bk = clamp_tile(x.shape[0], w_gate.shape[1], bm, bn)
+                out_dtype=None, body: str = "fma", kslices: int = 1,
+                dim_order: str = "mn") -> torch.Tensor:
+    """Dense fused SwiGLU pair: silu(x @ Wg) * (x @ Wu) in one launch.
+    ``body`` picks the FMA, tensor-core or stream body of
+    ``ftimm_gemm_swiglu`` (the stream cuts K into ``kslices``)."""
+    if body == "fma":
+        bm, bn, bk = clamp_tile(x.shape[0], w_gate.shape[1], bm, bn)
     return _k.ftimm_gemm_swiglu(x, w_gate, w_up, bm=bm, bn=bn, bk=bk,
-                                out_dtype=out_dtype)
+                                out_dtype=out_dtype, body=body,
+                                kslices=kslices, dim_order=dim_order)
 
 
 def batched_gemm_swiglu(x: torch.Tensor, w_gate: torch.Tensor,

@@ -36,7 +36,9 @@ from ..serve.engine import Request, ServeEngine
 # the SwiGLU pairs' bodies before the one-panel kernels' (each body's
 # symbol names its kernel: the stream's Tag type, the tensor cores' and the
 # FMA body's kernel function).
-GROUPS = (("ftimm_gemm_swiglu", "ftimm_gemm_swiglu_kernel"),
+GROUPS = (("ftimm_gemm_swiglu stream", "ftimm_gemm_swiglu_stream"),
+          ("ftimm_gemm_swiglu tensor cores", "ftimm_gemm_swiglu_tc_kernel"),
+          ("ftimm_gemm_swiglu", "ftimm_gemm_swiglu_kernel"),
           ("ftimm_gemm_grouped_swiglu stream",
            "ftimm_gemm_grouped_swiglu_stream"),
           ("ftimm_gemm_grouped_swiglu tensor cores",
@@ -53,6 +55,8 @@ GROUPS = (("ftimm_gemm_swiglu", "ftimm_gemm_swiglu_kernel"),
           ("ftimm_gemm_ragged", "ftimm_gemm_ragged_kernel"),
           ("ftimm_gemm_ragged stream", "ftimm_gemm_ragged_stream"),
           ("ftimm_gemm_ragged tensor cores", "ftimm_gemm_ragged_tc_kernel"),
+          ("ftimm_gemm_splitk tensor cores", "ftimm_gemm_splitk_tc_kernel"),
+          ("ftimm_gemm_splitk", "ftimm_gemm_splitk_kernel"),
           ("ftimm_gemm stream", "ftimm_gemm_stream_"),
           ("ftimm_gemm tensor cores", "ftimm_gemm_tc_kernel"),
           ("ftimm_gemm fma", "ftimm_gemm_kernel"),

@@ -1,7 +1,13 @@
 """Time the bodies of ``ftimm_gemm`` at the main path's shapes on the card:
 the stream body at each K slice count, the tensor-core tiles in both grid
 orders, the FMA body's planned tile, the planner's own choice, and
-``torch.matmul`` as the yardstick.  The ``moe`` set does the same for
+``torch.matmul`` as the yardstick.  The same sets time qwen3-1.7b's dense
+gate/up pair (``ftimm_gemm_swiglu``: the group stream at each slice count,
+the pair tile in both grid orders, the FMA body) beside two ``matmul`` and
+the elementwise silu(g) * u, and the ``train`` set split-K at qwen's dW
+shapes (``ftimm_gemm_splitk``'s tensor-core and FMA bodies at nsplit 1-8;
+nsplit 1 is ``ftimm_gemm``) beside ``matmul``.  The ``moe`` set does the
+same for
 ``ftimm_gemm_grouped`` and ``ftimm_gemm_ragged`` at the MoE expert-down
 shapes of decode, prefill and training (mixtral's capacity buffers,
 llama4's routed rows): the FMA body, the tensor-core tile, the weight
@@ -25,7 +31,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
 import subprocess
 
 import torch
@@ -34,6 +39,7 @@ import numpy as np
 
 from ..core.gemm import plan_batched_gemm, plan_gemm, plan_ragged_gemm
 from ..kernels.ftimm import kernel as K
+from ..kernels.ftimm import ops
 from .timing import sleep_ms_per_mcycle, time_ms
 
 BF16, F32 = torch.bfloat16, torch.float32
@@ -61,6 +67,93 @@ SETS = {
               ("qwen dX nt", 1024, 6144, 2048, "nt", BF16),
               ("qwen unembed", 1024, 2048, 151936, "nt", F32)],
 }
+
+
+# qwen3-1.7b's dense gate/up pair, x (m, 2048) against two (2048, 6144)
+# panels: (label, m, k, n, out dtype), and the split-K products of its
+# training dW, tn (k = 1024 tokens): (label, m, k, n).
+PAIRS = {"decode": [("qwen gate/up", 4, 2048, 6144, BF16)],
+         "prefill": [("qwen gate/up", 128, 2048, 6144, BF16),
+                     ("qwen gate/up", 256, 2048, 6144, BF16)],
+         "train": [("qwen gate/up", 1024, 2048, 6144, BF16)]}
+SPLITK = {"train": [("qwen dW q/o", 2048, 1024, 2048),
+                    ("qwen dW gate/up", 2048, 1024, 6144)]}
+
+
+def pair_dense_variants(m, k, n, out):
+    """(name, fn(x, wg, wu)) of the dense pair: the planned body, the FMA
+    tile, the pair tile in both grid orders, the stream at each slice
+    count, and two ``matmul`` plus silu(g) * u."""
+    ob = out.itemsize
+    planned = plan_gemm(m, k, n, 2, ob, panels=2)
+    fma = plan_gemm(m, k, n, 2, ob, panels=2, a_ok=False)
+    allowed = K.gemm_bodies(2, 2, m, True, True, panels=2)
+    vs = [(f"planned {planned.body} {planned.bm}x{planned.bn}x{planned.bk}"
+           f" {planned.dim_order} ks={planned.kslices}", planned),
+          (f"fma {fma.bm}x{fma.bn}x{fma.bk}", fma)]
+    if "tc" in allowed:
+        bm, bn, bk = K.GROUP_TC_TILE
+        for order in ("mn", "nm"):
+            vs.append((f"tc {bm}x{bn} {order}", dict(
+                bm=bm, bn=bn, bk=bk, body="tc", dim_order=order)))
+    if "stream" in allowed:
+        for want in (1, 2, 4, 8, 16):
+            sl, slices = K.stream_slice(k, want)
+            if want == slices:
+                vs.append((f"stream ks={slices}",
+                           dict(bm=K.GSTREAM_ROWS, bn=K.STREAM_STRIP, bk=sl,
+                                body="stream", kslices=slices)))
+    for name, kw in vs:
+        if not isinstance(kw, dict):
+            kw = dict(bm=kw.bm, bn=kw.bn, bk=kw.bk, body=kw.body,
+                      kslices=kw.kslices, dim_order=kw.dim_order)
+        yield name, (lambda x, wg, wu, kw=kw: K.ftimm_gemm_swiglu(
+            x, wg, wu, out_dtype=out, **kw))
+    yield "torch.matmul x2 + silu(g) * u", lambda x, wg, wu: (
+        torch.nn.functional.silu(torch.matmul(x, wg).float())
+        * torch.matmul(x, wu).float()).to(out)
+
+
+def splitk_variants(m, k, n):
+    """(name, fn(a, b)) of split-K at a tn dW shape: the tensor-core (128 x
+    128 tile) and FMA bodies at nsplit 1, 2, 4, 8 through ``ops.gemm``
+    (nsplit 1 runs ``ftimm_gemm``), and ``torch.matmul``."""
+    fma = ops.clamp_tile(m, n, 128, 128)
+    for body, tile in (("tc", K.TC_TILES[0]), ("fma", fma)):
+        for ns in (1, 2, 4, 8):
+            bm, bn, bk = tile
+            yield (f"{body} {bm}x{bn}x{bk} nsplit {ns}",
+                   lambda a, b, body=body, ns=ns, bm=bm, bn=bn, bk=bk:
+                   ops.gemm(a, b, bm=bm, bn=bn, bk=bk, trans="tn", nsplit=ns,
+                            body=body))
+    yield "torch.matmul", lambda a, b: torch.matmul(a.t(), b)
+
+
+def time_variants(set_name, label, meta, make, variants, reps, gen,
+                  sleep_ms) -> list[dict]:
+    """Time each (name, fn) of ``variants`` on operands from ``make(gen)``,
+    rotated through more copies than the L2 holds; one row each, with its
+    normwise distance from the first variant's output."""
+    inputs = [make(gen)]
+    nbytes = sum(t.numel() * t.element_size() for t in inputs[0])
+    while len(inputs) * nbytes < 3 * L2_BYTES and len(inputs) < 64:
+        inputs.append(make(gen))
+    reps = max(reps, len(inputs))
+    rows, ref = [], None
+    for name, fn in variants:
+        got = fn(*inputs[0]).float()
+        ref = got if ref is None else ref
+        err = ((got - ref).abs().max() / ref.abs().max()).item()
+        ms = time_ms(fn, inputs, reps, sleep_ms)
+        rows.append({"set": set_name, "shape": label, **meta,
+                     "variant": name, "us": ms * 1e3,
+                     "normwise_vs_first": err})
+        dims = "x".join(str(meta[d]) for d in ("m", "k", "n"))
+        print(f"{label:16s} {dims} {meta.get('trans', ''):2s}  {name:34s} "
+              f"{ms * 1e3:9.1f} us  (vs first {err:.1e})", flush=True)
+    del inputs
+    torch.cuda.empty_cache()
+    return rows
 
 
 # The MoE expert-down products: (label, kind, groups or routed sizes, rows
@@ -327,8 +420,7 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("sweep_gemm needs a CUDA card")
     dev = torch.device("cuda", 0)
-    K.build(["ftimm_gemm", "ftimm_gemm_grouped", "ftimm_gemm_ragged",
-             "ftimm_gemm_grouped_swiglu", "ftimm_gemm_ragged_swiglu"])
+    K.build()
     sleep_ms = sleep_ms_per_mcycle()
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
@@ -339,29 +431,36 @@ def main(argv=None) -> None:
         for label, m, k, n, trans, out in SETS[set_name]:
             sa = (k, m) if trans == "tn" else (m, k)
             sb = (n, k) if trans == "nt" else (k, n)
-            nbytes = 2 * (m * k + k * n) + m * n * out.itemsize
-            copies = min(max(math.ceil(3 * L2_BYTES / nbytes), 1), 64)
-            inputs = [(torch.randn(sa, generator=gen, device=dev).to(BF16),
-                       torch.randn(sb, generator=gen, device=dev).to(BF16))
-                      for _ in range(copies)]
-            reps = max(args.reps, copies)
-            ref = None
-            for name, fn in [*variants(m, k, n, trans, out),
-                             ("torch.matmul", lambda a, b: torch.matmul(
-                                 a.t() if trans == "tn" else a,
-                                 b.t() if trans == "nt" else b))]:
-                got = fn(*inputs[0]).float()
-                ref = got if ref is None else ref
-                err = ((got - ref).abs().max() / ref.abs().max()).item()
-                ms = time_ms(fn, inputs, reps, sleep_ms)
-                rows.append({"set": set_name, "shape": label, "m": m, "k": k,
-                             "n": n, "trans": trans, "variant": name,
-                             "us": ms * 1e3, "normwise_vs_first": err})
-                print(f"{label:14s} {m}x{k}x{n} {trans}  {name:32s} "
-                      f"{ms * 1e3:9.1f} us  (vs first {err:.1e})",
-                      flush=True)
-            del inputs
-            torch.cuda.empty_cache()
+
+            def make(g, sa=sa, sb=sb):
+                return (torch.randn(sa, generator=g, device=dev).to(BF16),
+                        torch.randn(sb, generator=g, device=dev).to(BF16))
+            rows += time_variants(
+                set_name, label, dict(m=m, k=k, n=n, trans=trans), make,
+                [*variants(m, k, n, trans, out),
+                 ("torch.matmul", lambda a, b, trans=trans: torch.matmul(
+                     a.t() if trans == "tn" else a,
+                     b.t() if trans == "nt" else b))],
+                args.reps, gen, sleep_ms)
+        for label, m, k, n, out in PAIRS.get(set_name, ()):
+            def make(g, m=m, k=k, n=n):
+                return (torch.randn(m, k, generator=g, device=dev).to(BF16),
+                        *((torch.randn(k, n, generator=g, device=dev)
+                           * k ** -0.5).to(BF16) for _ in range(2)))
+            rows += time_variants(set_name, label,
+                                  dict(m=m, k=k, n=n, kind="swiglu"), make,
+                                  pair_dense_variants(m, k, n, out),
+                                  args.reps, gen, sleep_ms)
+        for label, m, k, n in SPLITK.get(set_name, ()):
+            def make(g, m=m, k=k, n=n):
+                return (torch.randn(k, m, generator=g, device=dev).to(BF16),
+                        (torch.randn(k, n, generator=g, device=dev)
+                         * k ** -0.5).to(BF16))
+            rows += time_variants(set_name, label,
+                                  dict(m=m, k=k, n=n, trans="tn",
+                                       kind="splitk"), make,
+                                  splitk_variants(m, k, n), args.reps, gen,
+                                  sleep_ms)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()

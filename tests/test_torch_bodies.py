@@ -4,10 +4,11 @@ choice among the bodies (CPU: the rule and the planner are plain Python).
 ``ftimm_gemm`` has an FMA body (any types and strides), a tensor-core body
 (bf16 x bf16, both operands TMA-readable) and a K-parallel weight stream
 (bf16 x bf16, at most 16 rows, B vector-readable); ``ftimm_gemm_grouped``
-and ``ftimm_gemm_ragged`` and their SwiGLU pairs the same three (their
+and ``ftimm_gemm_ragged`` and the three SwiGLU pairs the same three (their
 stream: at most 16 rows a group, or in all for the ragged kernels, A
-K-major; their panels through 3-D tensor maps); ``ftimm_gemm_ragged_dw``
-the first two.  ``plan_gemm`` /
+K-major; the grouped and ragged panels through 3-D tensor maps; the dense
+pair is the grouped pair's rule with one group); ``ftimm_gemm_ragged_dw``
+and ``ftimm_gemm_splitk`` the first two.  ``plan_gemm`` /
 ``plan_batched_gemm`` / ``plan_ragged_gemm`` pick the body from the CMR
 model among those the rule allows; the split-K kernel stays off every
 model path (``nsplit`` 1, as in the reference).
@@ -55,7 +56,14 @@ def _decode_shapes(arch, rows=4):
     (2, 4, 1024, True, True, 1, ("fma",)),             # bf16 x fp32
     (4, 2, 4, True, True, 1, ("fma",)),                # fp32 x bf16
     (4, 4, 4, True, True, 1, ("fma",)),                # fp32 x fp32
-    (2, 2, 4, True, True, 2, ("fma",)),                # the SwiGLU pair
+    (2, 2, 4, True, True, 2, ("fma", "tc", "stream")),  # the SwiGLU pair
+    (2, 2, 16, True, True, 2, ("fma", "tc", "stream")),
+    (2, 2, 17, True, True, 2, ("fma", "tc")),
+    (2, 2, 1024, True, True, 2, ("fma", "tc")),
+    (2, 2, 4, False, True, 2, ("fma",)),               # x not K-major
+    (2, 2, 4, True, False, 2, ("fma",)),               # a panel TMA can't read
+    (4, 4, 4, True, True, 2, ("fma",)),                # the fp32 pair
+    (2, 4, 4, True, True, 2, ("fma",)),
 ])
 def test_gemm_body_rule(a, b, m, a_ok, b_ok, panels, want):
     assert K.gemm_bodies(a, b, m, a_ok, b_ok, panels) == want
@@ -364,9 +372,9 @@ def test_plan_moe_prefill_and_train_take_tensor_cores():
 
 def test_plan_keeps_attention_mixed_and_swiglu_on_fma():
     """fp32 attention (QK^T and PV groups) and the mixed bf16 x fp32 pairs
-    plan the FMA body at every MoE shape, and so does the dense SwiGLU pair
-    (``ftimm_gemm_swiglu`` has no other body yet) at qwen's decode and
-    training rows."""
+    plan the FMA body at every MoE shape, and so does the fp32 dense
+    SwiGLU pair at qwen's decode and training rows (its bf16 plans:
+    ``test_plan_dense_swiglu_pair_takes_the_stream_and_tensor_cores``)."""
     mix, e, d, f = _moe("mixtral-8x7b")
     l4, e4, d4, f4 = _moe("llama4-scout-17b-a16e")
     for g, m, k, n in ((32, 2, 128, 96), (32, 128, 128, 128),
@@ -384,7 +392,32 @@ def test_plan_keeps_attention_mixed_and_swiglu_on_fma():
     qwen, dq, fq = get_config("qwen3-1.7b"), 2048, 6144
     assert (qwen.d_model, qwen.d_ff) == (dq, fq)
     for m in (4, 1024):
-        assert plan_gemm(m, dq, fq, 2, 2, panels=2).body == "fma"
+        assert plan_gemm(m, dq, fq, 4, 4, panels=2).body == "fma"
+
+
+def test_plan_dense_swiglu_pair_takes_the_stream_and_tensor_cores():
+    """qwen's dense gate/up pair plans the group stream with one group at
+    its 4 decode rows (the stream's shared memory: both panels' ring), the
+    pair tile on the tensor cores at the 128 / 256-row bucket prefills and
+    the 1024 training rows (both panels' 48 KB stages); fp32, an x TMA
+    cannot read K-major and panels it cannot read plan the FMA body."""
+    qwen, dq, fq = get_config("qwen3-1.7b"), 2048, 6144
+    assert (qwen.d_model, qwen.d_ff) == (dq, fq)
+    stream = plan_gemm(4, dq, fq, 2, 2, panels=2)
+    assert stream.body == "stream" and stream.nsplit == 1
+    assert (stream.bm, stream.bn) == (K.GSTREAM_ROWS, K.STREAM_STRIP)
+    assert stream.est.smem_bytes == K.gstream_smem(2)
+    assert K.stream_slice(dq, stream.kslices) == (stream.bk, stream.kslices)
+    for m in (128, 256, 1024):
+        tc = plan_gemm(m, dq, fq, 2, 2, panels=2)
+        assert tc.body == "tc", (m, tc)
+        assert (tc.bm, tc.bn, tc.bk) == K.GROUP_TC_TILE
+        assert tc.est.smem_bytes == K.smem_bytes(*K.GROUP_TC_TILE, 2,
+                                                 body="tc")
+    for m in (4, 1024):
+        assert plan_gemm(m, dq, fq, 4, 4, panels=2).body == "fma"
+        assert plan_gemm(m, dq, fq, 2, 2, panels=2, a_ok=False).body == "fma"
+        assert plan_gemm(m, dq, fq, 2, 2, panels=2, b_ok=False).body == "fma"
 
 
 def test_plan_swiglu_pairs_take_the_new_bodies():
@@ -514,11 +547,11 @@ def test_grouped_and_ragged_cpu_tensors_take_the_plain_version(body):
         assert sum(K.body_counts()[kernel].values()) == 0
 
 
-@pytest.mark.parametrize("body", ["tc", "stream"])
+@pytest.mark.parametrize("body", ["tc", "stream", "fma"])
 def test_swiglu_pairs_cpu_tensors_take_the_plain_version(body):
     """The device decides for the pairs too: on the CPU every body of the
-    grouped and ragged SwiGLU pairs is the plain version, and no launch is
-    counted."""
+    three SwiGLU pairs, and the split-K kernel's "fma" and "tc", is the
+    plain version, and no launch is counted."""
     g = torch.Generator().manual_seed(1)
     x = torch.randn(3, 4, 96, generator=g).to(BF16)
     wg = torch.randn(3, 96, 40, generator=g).to(BF16)
@@ -535,9 +568,52 @@ def test_swiglu_pairs_cpu_tensors_take_the_plain_version(body):
     assert torch.equal(got,
                        K.ftimm_gemm_ragged_swiglu_plain(xr, wg, wu, offs))
     assert not got[4:].any()
-    for kernel in ("ftimm_gemm_grouped_swiglu", "ftimm_gemm_ragged_swiglu"):
+    got = K.ftimm_gemm_swiglu(x[0], wg[0], wu[0], bm=128, bn=128, bk=64,
+                              body=body, kslices=3)
+    assert torch.equal(got, K.ftimm_gemm_swiglu_plain(x[0], wg[0], wu[0]))
+    kernels = ["ftimm_gemm_swiglu", "ftimm_gemm_grouped_swiglu",
+               "ftimm_gemm_ragged_swiglu"]
+    if body != "stream":
+        a, b = x[0].t().contiguous(), wg[0]          # tn: a (K, M)
+        got = K.ftimm_gemm_splitk(a, b, bm=128, bn=128, bk=64, nsplit=3,
+                                  trans="tn", body=body)
+        assert torch.equal(got, K.ftimm_gemm_splitk_plain(
+            a, b, bk=64, nsplit=3, trans="tn"))
+        kernels.append("ftimm_gemm_splitk")
+    for kernel in kernels:
         assert K.launch_counts()[kernel] == 0
         assert sum(K.body_counts()[kernel].values()) == 0
+
+
+def test_split_k_takes_the_fma_and_tc_bodies_not_the_stream():
+    """``ops.gemm`` with nsplit > 1 passes its body to the split-K kernel
+    -- the FMA tile clamped to the menu, the tensor-core tile as given, K
+    cut at the tile's bk -- and raises for the stream body, which splits K
+    its own way."""
+    from repro_torch.kernels.ftimm import ops
+    g = torch.Generator().manual_seed(2)
+    a = torch.randn(256, 24, generator=g).to(BF16)
+    b = torch.randn(256, 40, generator=g).to(BF16)
+    with pytest.raises(ValueError, match="stream"):
+        ops.gemm(a, b, trans="tn", nsplit=4, body="stream")
+    calls, splitk = [], K.ftimm_gemm_splitk
+
+    def spy(*args, **kw):
+        calls.append((kw["body"], kw["bk"], kw["nsplit"]))
+        return splitk(*args, **kw)
+
+    K.ftimm_gemm_splitk = spy
+    try:
+        for body, bk in (("fma", 16), ("tc", 64)):
+            got = ops.gemm(a, b, bm=128, bn=128, bk=bk, trans="tn", nsplit=8,
+                           body=body)
+            assert torch.equal(got, K.ftimm_gemm_splitk_plain(
+                a, b, bk=calls[-1][1], nsplit=calls[-1][2], trans="tn"))
+    finally:
+        K.ftimm_gemm_splitk = splitk
+    # The FMA tile for 24 x 40 is the 32 x 64 tile (bk 32): 8 K blocks;
+    # the tensor-core tile's bk of 64 gives 4.
+    assert calls == [("fma", 32, 8), ("tc", 64, 4)]
 
 
 @pytest.mark.parametrize("symbol,group", [
@@ -557,6 +633,19 @@ def test_swiglu_pairs_cpu_tensors_take_the_plain_version(body):
      "__nv_bfloat16, 1>(CUtensorMap_st)", "ftimm_gemm_grouped stream"),
     ("void ftimm::gs::group_stream_kernel<ftimm_gemm_ragged_stream, true, "
      "__nv_bfloat16, 1>(CUtensorMap_st)", "ftimm_gemm_ragged stream"),
+    ("void ftimm::gs::group_stream_kernel<ftimm_gemm_swiglu_stream, true, "
+     "__nv_bfloat16, 2>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "ftimm::gs::Args)", "ftimm_gemm_swiglu stream"),
+    ("void ftimm_gemm_swiglu_tc_kernel<true, __nv_bfloat16>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, PairTcArgs)",
+     "ftimm_gemm_swiglu tensor cores"),
+    ("void ftimm_gemm_swiglu_kernel<ftimm::TileCfg<16, 32, 64, 2, 2>, "
+     "__nv_bfloat16, __nv_bfloat16>(SwigluArgs)", "ftimm_gemm_swiglu"),
+    ("void ftimm_gemm_splitk_tc_kernel<ftimm::tc::Tile<128, 4>, true, true, "
+     "__nv_bfloat16>(CUtensorMap_st, CUtensorMap_st, SplitkTcArgs)",
+     "ftimm_gemm_splitk tensor cores"),
+    ("void ftimm_gemm_splitk_kernel<ftimm::TileCfg<128, 128, 16, 8, 8>, "
+     "__nv_bfloat16, float>(SplitkArgs)", "ftimm_gemm_splitk"),
 ])
 def test_profile_groups_name_each_body(symbol, group):
     """``profile_serve`` files each body's kernel symbol under its own

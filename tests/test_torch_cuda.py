@@ -996,3 +996,167 @@ def test_ragged_swiglu_planned_body_through_dispatch(dev, sizes, body):
     torch.cuda.synchronize()
     _close(got, K.ftimm_gemm_ragged_swiglu_plain(x, wg, wu, offs))
     assert K.body_counts()["ftimm_gemm_ragged_swiglu"][body] == 1
+
+
+# ---------------------------------------------------------------------------
+# The dense SwiGLU pair's stream and tensor-core bodies: K = 1032 and N =
+# 264 not multiples of the 64-deep box or the 128-column strip, both panel
+# layouts (nn: N-contiguous, nt: K-contiguous views), both outputs; two runs
+# of each call must give the same bits.
+# ---------------------------------------------------------------------------
+
+def _dense_pair(m, trans, dev, seed, k=GK, n=GN):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(m, k, generator=gen, device=dev).to(BF16)
+    shape = (k, n) if trans == "nn" else (n, k)
+    wg, wu = ((torch.randn(shape, generator=gen, device=dev)
+               * k ** -0.5).to(BF16) for _ in range(2))
+    if trans == "nt":       # (K, N) views whose K has unit stride
+        wg, wu = wg.t(), wu.t()
+    return x, wg, wu
+
+
+@pytest.mark.parametrize("m", [1, 4, 16])
+@pytest.mark.parametrize("kslices", [1, 3, 8])
+@pytest.mark.parametrize("trans", ["nn", "nt"])
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+def test_dense_swiglu_stream_body(dev, m, kslices, trans, out):
+    x, wg, wu = _dense_pair(m, trans, dev, seed=70)
+    K.reset_launch_counts()
+    got = _twice(lambda: K.ftimm_gemm_swiglu(
+        x, wg, wu, bm=16, bn=128, bk=64, out_dtype=out, body="stream",
+        kslices=kslices))
+    _close(got, K.ftimm_gemm_swiglu_plain(x, wg, wu, out_dtype=out))
+    assert K.body_counts()["ftimm_gemm_swiglu"]["stream"] == 2
+
+
+@pytest.mark.parametrize("m", [17, 128, 1024])
+@pytest.mark.parametrize("trans", ["nn", "nt"])
+@pytest.mark.parametrize("order", ["mn", "nm"])
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+def test_dense_swiglu_tc_body(dev, m, trans, order, out):
+    x, wg, wu = _dense_pair(m, trans, dev, seed=71)
+    K.reset_launch_counts()
+    got = _twice(lambda: K.ftimm_gemm_swiglu(
+        x, wg, wu, bm=128, bn=128, bk=64, out_dtype=out, body="tc",
+        dim_order=order))
+    _close(got, K.ftimm_gemm_swiglu_plain(x, wg, wu, out_dtype=out))
+    assert K.body_counts()["ftimm_gemm_swiglu"]["tc"] == 2
+
+
+def test_dense_swiglu_bodies_refuse_what_they_cannot_take(dev):
+    """A body the operands do not allow raises before any launch: more
+    than 16 rows on the stream, an x that is not K-major, fp32, a panel
+    TMA cannot read, panels in two layouts.  No fallback."""
+    x17, wg, wu = _dense_pair(17, "nn", dev, seed=72)
+    x16 = x17[:16].contiguous()
+    xt = x16.t().contiguous().t()                 # x MN-major
+    big = torch.randn(2, GK, GN + 8, device=dev).to(BF16)
+    wg_odd, wu_odd = big[0, :, 1:GN + 1], big[1, :, 1:GN + 1]   # base + 2 B
+    K.reset_launch_counts()
+    for call in (
+            lambda: K.ftimm_gemm_swiglu(x17, wg, wu, bm=16, bn=128, bk=64,
+                                        body="stream"),
+            lambda: K.ftimm_gemm_swiglu(xt, wg, wu, bm=16, bn=128, bk=64,
+                                        body="stream"),
+            lambda: K.ftimm_gemm_swiglu(xt, wg, wu, bm=128, bn=128, bk=64,
+                                        body="tc"),
+            lambda: K.ftimm_gemm_swiglu(x16.float(), wg.float(), wu.float(),
+                                        bm=128, bn=128, bk=64, body="tc"),
+            lambda: K.ftimm_gemm_swiglu(x16, wg_odd, wu_odd, bm=128, bn=128,
+                                        bk=64, body="tc"),
+            lambda: K.ftimm_gemm_swiglu(x16, wg, wu.t().contiguous().t(),
+                                        bm=128, bn=128, bk=64, body="tc")):
+        with pytest.raises(ValueError):
+            call()
+    assert K.launch_counts()["ftimm_gemm_swiglu"] == 0
+
+
+@pytest.mark.parametrize("rows,body", [(4, "stream"), (128, "tc"),
+                                       (1024, "tc")])
+def test_dense_swiglu_planned_body_through_dispatch(dev, rows, body):
+    """matmul_swiglu plans the pair's body at qwen's widths: the stream at
+    the 4 decode rows, the tensor cores at a bucket prefill's 128 rows and
+    the 1024 training rows; fp32 stays on the FMA body.  With gradients the
+    forward takes the same body and the backward the planned ftimm_gemm
+    products, the gradients holding against the CPU."""
+    from repro_torch.core.gemm import matmul_swiglu
+    x, wg, wu = _dense_pair(rows, "nn", dev, seed=73, k=2048, n=6144)
+    K.reset_launch_counts()
+    got = matmul_swiglu(x, wg, wu)
+    s = matmul_swiglu(x.float(), wg.float(), wu.float())
+    torch.cuda.synchronize()
+    _close(got, K.ftimm_gemm_swiglu_plain(x, wg, wu))
+    _close(s, K.ftimm_gemm_swiglu_plain(x.float(), wg.float(), wu.float()))
+    counts = K.body_counts()["ftimm_gemm_swiglu"]
+    assert counts[body] == 1 and counts["fma"] == 1
+    K.reset_launch_counts()
+    _grads_match(matmul_swiglu, [t.cpu() for t in (x, wg, wu)], dev)
+    assert K.body_counts()["ftimm_gemm_swiglu"] == {
+        "fma": 0, "tc": int(body == "tc"), "stream": int(body == "stream")}
+
+
+# ---------------------------------------------------------------------------
+# Split-K on the tensor cores: the partials summed in split order inside
+# the kernel, the epilogue after the sum; every trans, K tails, split
+# counts above the K steps (those splits contribute zeros).
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("tile", K.TC_TILES)
+@pytest.mark.parametrize("trans", ["nn", "tn", "nt"])
+@pytest.mark.parametrize("nsplit", [1, 2, 4, 8, 40])
+@pytest.mark.parametrize("m,k,n", [(200, 1032, 264), (40, 264, 520)])
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+def test_splitk_tc_body(dev, tile, trans, nsplit, m, k, n, out):
+    a, b = _operands(trans, m, k, n, BF16, dev, seed=74)
+    bm, bn, bk = tile
+    K.reset_launch_counts()
+    got = _twice(lambda: K.ftimm_gemm_splitk(
+        a, b, bm=bm, bn=bn, bk=bk, nsplit=nsplit, trans=trans,
+        out_dtype=out, body="tc"))
+    _close(got, K.ftimm_gemm_splitk_plain(a, b, bk=64, nsplit=nsplit,
+                                          trans=trans, out_dtype=out))
+    assert K.body_counts()["ftimm_gemm_splitk"]["tc"] == 2
+
+
+@pytest.mark.parametrize("epi", EPILOGUES)
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+def test_splitk_tc_epilogue_after_the_sum(dev, epi, out):
+    m, k, n = 200, 1032, 264
+    a, b = _operands("tn", m, k, n, BF16, dev, seed=75)
+    g = torch.Generator(device=dev).manual_seed(76)
+    bias = torch.randn(n, generator=g, device=dev).to(BF16)
+    res = torch.randn(m, n, generator=g, device=dev).to(BF16)
+    scale = torch.rand(n, generator=g, device=dev)
+    kw = dict(epilogue=epi, bias=bias if epi.bias else None,
+              residual=res if epi.residual else None,
+              scale=scale if epi.scale_vec else None, out_dtype=out)
+    K.reset_launch_counts()
+    got = ops.gemm(a, b, bm=128, bn=128, bk=64, trans="tn", nsplit=4,
+                   body="tc", **kw)
+    torch.cuda.synchronize()
+    assert K.body_counts()["ftimm_gemm_splitk"] == {"fma": 0, "tc": 1}
+    _close(got, K.ftimm_gemm_plain(a, b, trans="tn", **kw))
+
+
+def test_splitk_tc_body_refuses_what_it_cannot_take(dev):
+    """fp32 and mixed pairs, operands TMA cannot read and tiles off the
+    tensor-core menu raise before any launch; ops.gemm's stream body has no
+    split-K."""
+    a, b = _operands("tn", 200, 1032, 264, BF16, dev, seed=77)
+    odd = torch.randn(1032, 209, device=dev).to(BF16)[:, 1:]   # base + 2 B
+    K.reset_launch_counts()
+    for call in (
+            lambda: K.ftimm_gemm_splitk(a.float(), b.float(), bm=128, bn=128,
+                                        bk=64, nsplit=4, trans="tn",
+                                        body="tc"),
+            lambda: K.ftimm_gemm_splitk(a, b.float(), bm=128, bn=128, bk=64,
+                                        nsplit=4, trans="tn", body="tc"),
+            lambda: K.ftimm_gemm_splitk(odd, b, bm=128, bn=128, bk=64,
+                                        nsplit=4, trans="tn", body="tc"),
+            lambda: K.ftimm_gemm_splitk(a, b, bm=128, bn=128, bk=16,
+                                        nsplit=4, trans="tn", body="tc"),
+            lambda: ops.gemm(a, b, trans="tn", nsplit=4, body="stream")):
+        with pytest.raises(ValueError):
+            call()
+    assert K.launch_counts()["ftimm_gemm_splitk"] == 0
