@@ -104,7 +104,30 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    (with this 1-step warmup they spike at full width, in fp32 as in bf16);
    the gates are that bf16 and fp32 give the same step-1 loss within 1e-2
    and the same step-2 loss within 5e-2;
-10. [time] each kernel at the decode-step shapes of the model it serves, and
+10. [autotune] the measured plan store on qwen3-1.7b at full width: every
+   GEMM signature its main path plans (recorded at the dispatch layer
+   while it serves the 6 requests -- decode at 4 rows, the 128- and
+   256-row bucket prefills -- and takes two train steps of 8 x 128: the
+   forward, dX and dW) tuned on the card at its served shape, the top 4
+   of the CMR shortlist each (``core.gemm.autotune``, operands rotated
+   past the L2); per signature the analytic plan and its time, the
+   measured winner and its time and the model's estimate; each winner
+   re-timed beside the analytic plan on new operands (it must not be above
+   1.10x); a calibration fitted on the decode and prefill signatures and
+   its prediction error on the training ones, before and after, and the
+   signatures whose analytic pick it would move, each timed under both
+   picks (reported, not gated; the calibration is not stored, so the
+   store serves measured plans only and unstored shapes plan as before);
+   the store saved to ``build/plan_cache_<card>.json``,
+   cleared and loaded back (every plan adopted, none quarantined); the 6
+   requests served again on the stored plans (every plan served must be
+   ``cached``, the first decode step's logits on the same inputs within
+   2e-2 normwise of the analytic run's; the greedy tokens that agree and
+   both decode-step medians are printed); then one stored record with
+   nsplit 4 for qwen's gate / up dW, (1024, 2048)^T (1024, 6144), and two
+   qwen train steps: ``ftimm_gemm_splitk`` must launch, and the losses and
+   the step-1 gradient norm must stay within 1e-3 of the analytic steps';
+11. [time] each kernel at the decode-step shapes of the model it serves, and
    the two backward kernels at the training shapes (split-K on its
    tensor-core and FMA bodies), and ftimm_gemm at qwen3-1.7b's training
    forward shapes, its unembed and the mixed fp32 x bf16 unembed dX, qwen's
@@ -154,6 +177,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.core.gemm import autotune, plan_store, tuner  # noqa: E402
+from repro_torch.core.gemm import dispatch as D  # noqa: E402
 from repro_torch.core.gemm import (batched_matmul, grouped_matmul,  # noqa: E402
                                    grouped_swiglu, matmul, matmul_swiglu,
                                    plan_batched_gemm, plan_gemm,
@@ -169,6 +194,7 @@ from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models.weights import to_numpy_tree  # noqa: E402
 from repro_torch.optim import OptConfig, init_opt_state  # noqa: E402
+from repro_torch.serve import engine as E  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.train import Trainer, make_train_step  # noqa: E402
 
@@ -191,10 +217,11 @@ ARCH, MIXTRAL, LLAMA4 = "qwen3-1.7b", "mixtral-8x7b", "llama4-scout-17b-a16e"
 MOE_LAYERS = 8          # served depth of the MoE models (width as published)
 REF_LAYERS = 2          # depth of their fp32 card-vs-CPU reference
 # The kernels each run must launch (serving, then training), and the run
-# whose step each kernel's entry in the kernels line is timed for.  No
-# model path launches the split-K kernel (the planner never picks nsplit >
-# 1, as in the reference); its entry is timed per call at qwen's dW shapes
-# and its launches read from the qwen training run.
+# whose step each kernel's entry in the kernels line is timed for.  The
+# analytic planner never picks split-K (nsplit > 1, as in the reference):
+# its entry is timed per call at qwen's dW shapes, and its launches are
+# read from [autotune]'s qwen train steps, which reach it through a stored
+# plan record (LAUNCH_RUN).
 PATH_KERNELS = {
     ("serve", ARCH): ("ftimm_gemm", "ftimm_gemm_swiglu", "ftimm_gemm_grouped"),
     ("serve", MIXTRAL): ("ftimm_gemm", "ftimm_gemm_grouped",
@@ -214,6 +241,7 @@ HOME = {"ftimm_gemm": ("serve", ARCH), "ftimm_gemm_swiglu": ("serve", ARCH),
         "ftimm_gemm_ragged_swiglu": ("serve", LLAMA4),
         "ftimm_gemm_ragged_dw": ("train", LLAMA4),
         "ftimm_gemm_splitk": ("train", ARCH)}
+LAUNCH_RUN = {"ftimm_gemm_splitk": ("autotune", ARCH)}
 SLOTS, NEW_TOKENS, PAGE, MAX_LEN = 4, 16, 16, 96
 PROMPT_LENS = (24, 24, 24, 50, 50, 50)     # buckets 32 and 64
 L2_BYTES = 50e6
@@ -2124,6 +2152,344 @@ def schedule_witness(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Measured tuning: the plan store on qwen3-1.7b's main path
+# ---------------------------------------------------------------------------
+
+TUNE_TOP_K = 4
+RETIME_LIMIT = 1.10     # a winner re-timed above this x the analytic plan:
+                        # the harness picked by noise
+SPLITK_RECORD = {"body": "tc", "bm": 128, "bn": 128, "bk": 64,
+                 "dim_order": "mn", "nsplit": 4}
+# Per planner of the dispatch layer: its family's search, replay and
+# candidate generator, which all name their arguments as the planner does.
+FAMILIES = {"plan_gemm": (autotune.autotune_gemm, autotune.time_dense_plans,
+                          tuner.gemm_candidates),
+            "plan_batched_gemm": (autotune.autotune_batched_gemm,
+                                  autotune.time_batched_plans,
+                                  tuner.batched_candidates),
+            "plan_ragged_gemm": (autotune.autotune_ragged_gemm,
+                                 autotune.time_ragged_plans,
+                                 tuner.ragged_candidates)}
+
+
+class PlanRecorder:
+    """Notes the distinct planner calls of a run, by phase: while entered,
+    the dispatch layer's three planners are wrapped so that each call
+    counts its arguments (the signature, widths and layout flags the plan
+    store keys on) under ``phase``; the engine's ``decode_step`` is wrapped
+    to set the phase "decode" for its calls and to keep the first decode
+    step's inputs and logits.  Plans are computed as ever."""
+
+    def __init__(self):
+        self.calls: dict[tuple, int] = {}
+        self.phase = "other"
+        self.decode_steps = 0
+        self.first_decode = None      # (cloned inputs, logits)
+        self._saved: dict[str, object] = {}
+
+    def __enter__(self):
+        for name in FAMILIES:
+            self._saved[name] = fn = getattr(D, name)
+            setattr(D, name, functools.partial(self._plan, name, fn))
+        self._decode = E.decode_step
+        E.decode_step = self._decode_step
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(D, name, fn)
+        E.decode_step = self._decode
+
+    def _plan(self, name, fn, *args, **kwargs):
+        key = (self.phase, name, args, tuple(sorted(kwargs.items())))
+        self.calls[key] = self.calls.get(key, 0) + 1
+        return fn(*args, **kwargs)
+
+    def _decode_step(self, model, cfg, tokens, cache, pos, page_table=None):
+        if self.first_decode is None:
+            inputs = (tokens.clone(), {k: v.clone() for k, v in
+                                       cache.items()},
+                      pos.clone(), page_table.clone())
+        prev, self.phase = self.phase, "decode"
+        try:
+            logits, cache = self._decode(model, cfg, tokens, cache, pos,
+                                         page_table=page_table)
+        finally:
+            self.phase = prev
+        self.decode_steps += 1
+        if self.first_decode is None:
+            self.first_decode = (inputs, logits.clone())
+        return logits, cache
+
+    def signatures(self, phase: str | None = None) -> dict[tuple, int]:
+        """{(planner, args, kwargs): calls} of ``phase`` (None: all)."""
+        out: dict[tuple, int] = {}
+        for (ph, *sig), n in self.calls.items():
+            if phase is None or ph == phase:
+                out[tuple(sig)] = out.get(tuple(sig), 0) + n
+        return out
+
+
+def _plan_str(p) -> str:
+    return (f"{p.body} {p.bm}x{p.bn}x{p.bk} {p.dim_order}"
+            + (f" k/{p.kslices}" if p.body == "stream" else "")
+            + (f" nsplit {p.nsplit}" if p.nsplit > 1 else "")
+            + ("" if p.fuse else " unfused"))
+
+
+def _named(name: str, args, kwargs) -> dict:
+    """A recorded planner call's arguments by name."""
+    return dict(inspect.signature(getattr(tuner, name)).bind(
+        *args, **dict(kwargs)).arguments)
+
+
+def _retime(name: str, call: dict, plans, dev) -> list[float]:
+    """``plans`` timed again, on operands made from another seed:
+    ``time_dense_plans`` and its counterparts."""
+    return FAMILIES[name][1](plans=plans, device=dev, seed=1, **call)
+
+
+def _argmin(name: str, call: dict, spec):
+    """The CMR argmin of a recorded call under ``spec``, whatever the store
+    holds (the layout ``trans`` keys the store, not the candidates)."""
+    flags = {k: v for k, v in call.items() if k != "trans"}
+    return tuner.argmin_plan(FAMILIES[name][2](spec=spec, **flags))
+
+
+def _qwen_steps(dev, steps: int) -> tuple[list[dict], dict, dict]:
+    """``steps`` qwen3-1.7b train steps (28 layers, [train]'s batch, seed
+    and optimizer) under the current plans; its metrics, body counts and
+    launch counts."""
+    cfg = get_config(ARCH)
+    shape = ShapeConfig("chip", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                        kind="train")
+    free_card()
+    trainer = Trainer(cfg, shape, OptConfig(warmup_steps=TRAIN_WARMUP,
+                                            total_steps=10 * TRAIN_WARMUP),
+                      seed=0, log_every=1, device=dev)
+    K.reset_launch_counts()
+    model, opt = trainer.run(steps)
+    torch.cuda.synchronize()
+    bodies, launches = K.body_counts(), K.launch_counts()
+    del model, opt
+    free_card()
+    return trainer.metrics_log, bodies, launches
+
+
+def _serve_qwen(model, cfg, dev, recorder=None) -> tuple[list, list]:
+    """chip_smoke's 6 requests on ``model`` through a fresh ServeEngine;
+    the requests and the decode-step walls."""
+    engine = ServeEngine(cfg, model, batch_slots=SLOTS, max_len=MAX_LEN,
+                         page_size=PAGE, device=dev)
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(2, cfg.vocab_size, n).astype(
+        np.int32), max_new_tokens=NEW_TOKENS)
+        for i, n in enumerate(PROMPT_LENS)]
+    if recorder is None:
+        engine.run(reqs)
+    else:
+        with recorder:
+            engine.run(reqs)
+    torch.cuda.synchronize()
+    if any(engine.faults.values()) or not all(r.done for r in reqs):
+        raise AssertionError(f"serving faults {engine.faults}")
+    return reqs, list(engine.walls["decode"])
+
+
+def autotune_phase(dev) -> dict:
+    """[autotune]: tune every GEMM signature of qwen3-1.7b's main path at
+    its served shape on the card, re-time each winner beside its analytic
+    plan, calibrate, round-trip the store through a file, serve again with
+    the stored plans, and send qwen's dW through a stored split-K record."""
+    tuner.clear_plan_cache()
+    cfg = get_config(ARCH)
+
+    # 1. The analytic run: serving (decode and the bucket prefills) and two
+    # train steps, every planner call recorded.
+    model = M.init_params(cfg, 0, device=dev)
+    serve_rec = PlanRecorder()
+    reqs_a, walls_a = _serve_qwen(model, cfg, dev, serve_rec)
+    train_rec = PlanRecorder()
+    with train_rec:
+        log_a, _, _ = _qwen_steps(dev, 2)
+    decode = serve_rec.signatures("decode")
+    sigs = [("decode", s) for s in decode]
+    sigs += [("prefill", s) for s in serve_rec.signatures("other")
+             if s not in decode]
+    seen = {s for _, s in sigs}
+    sigs += [("train", s) for s in train_rec.signatures() if s not in seen]
+    log(f"  {len(sigs)} signatures: "
+        + ", ".join(f"{sum(1 for p, _ in sigs if p == ph)} {ph}"
+                    for ph in ("decode", "prefill", "train")))
+
+    # 2. Tune each at its served shape, then re-time winner and analytic.
+    t0 = time.monotonic()
+    rows, results = [], []
+    for phase, (name, args, kwargs) in sigs:
+        call = _named(name, args, kwargs)
+        r = FAMILIES[name][0](**call, top_k=TUNE_TOP_K, device=dev)
+        if r.measured_dims != r.dims:
+            raise AssertionError(f"{r.key} scaled to {r.measured_dims}")
+        results.append((phase, r))
+        t_win, t_ana = _retime(name, call, [r.plan, r.analytic_plan], dev)
+        per_step = (decode.get((name, args, kwargs), 0)
+                    / max(serve_rec.decode_steps, 1))
+        rows.append({
+            "phase": phase, "key": r.key, "per_decode_step": per_step,
+            "analytic": _plan_str(r.analytic_plan),
+            "analytic_us": r.t_analytic * 1e6,
+            "winner": _plan_str(r.plan), "winner_us": r.t_measured * 1e6,
+            "model_us": r.plan.est.t_total * 1e6,
+            "retime_winner_us": t_win * 1e6,
+            "retime_analytic_us": t_ana * 1e6,
+            "changed": r.plan != dataclasses.replace(r.analytic_plan,
+                                                     mode="measured")})
+        row = rows[-1]
+        log(f"  {phase:7s} {r.key:58s} analytic "
+            f"{row['analytic']:26s} {row['analytic_us']:9.1f} us | winner "
+            f"{row['winner']:26s} {row['winner_us']:9.1f} us | model "
+            f"{row['model_us']:9.1f} us | re-timed {t_win * 1e6:9.1f} / "
+            f"{t_ana * 1e6:9.1f} us")
+        if t_win > RETIME_LIMIT * t_ana:
+            raise AssertionError(f"{r.key}: the winner re-timed at "
+                                 f"{t_win / t_ana:.3f}x the analytic plan")
+    tune_s = time.monotonic() - t0
+
+    # 3. Calibrate on decode and prefill; judge on the training signatures.
+    # Not stored: the store serves measured plans only, and the picks the
+    # calibration would move are timed beside the analytic ones instead.
+    fit = [r for ph, r in results if ph != "train"]
+    held = [(r.est_measured, r.t_measured) for ph, r in results
+            if ph == "train"]
+    cal = autotune.calibrate(fit, store=False)
+    calib = {"flops_frac": cal.flops_frac, "bw_frac": cal.bw_frac,
+             "n_samples": cal.n_samples,
+             "heldout_error_before": autotune.prediction_error(held),
+             "heldout_error_after": autotune.prediction_error(
+                 held, cal.flops_frac, cal.bw_frac),
+             "heldout_bias_before": autotune.geomean_ratio(held),
+             "heldout_bias_after": autotune.geomean_ratio(
+                 held, cal.flops_frac, cal.bw_frac)}
+    log(f"  calibration on {cal.n_samples} decode / prefill signatures: "
+        f"flops_frac {cal.flops_frac:.4g}, bw_frac {cal.bw_frac:.4g}; on "
+        f"the {len(held)} training signatures prediction error "
+        f"{calib['heldout_error_before']:.3f}x -> "
+        f"{calib['heldout_error_after']:.3f}x (bias "
+        f"{calib['heldout_bias_before']:.3f} -> "
+        f"{calib['heldout_bias_after']:.3f})")
+    cal_spec = tuner.H100.calibrated(cal.flops_frac, cal.bw_frac)
+    moved = []
+    for (phase, (name, args, kwargs)), (_, r) in zip(sigs, results):
+        call = _named(name, args, kwargs)
+        ana, pick = (_argmin(name, call, sp) for sp in (tuner.H100, cal_spec))
+        if _plan_str(ana) == _plan_str(pick):
+            continue
+        t_cal, t_ana = _retime(name, call, [pick, ana], dev)
+        moved.append({"phase": phase, "key": r.key,
+                      "analytic": _plan_str(ana),
+                      "calibrated": _plan_str(pick),
+                      "analytic_us": t_ana * 1e6,
+                      "calibrated_us": t_cal * 1e6})
+        log(f"  calibrated pick {phase:7s} {r.key:58s} analytic "
+            f"{moved[-1]['analytic']:26s} {t_ana * 1e6:9.1f} us | calibrated "
+            f"{moved[-1]['calibrated']:26s} {t_cal * 1e6:9.1f} us")
+    ratios = [x["calibrated_us"] / x["analytic_us"] for x in moved]
+    calib.update(moved=moved, moved_geomean=math.exp(
+        sum(map(math.log, ratios)) / len(ratios)) if ratios else 1.0)
+    log(f"  the calibration moves {len(moved)} of {len(sigs)} analytic picks; "
+        f"calibrated / analytic time geomean {calib['moved_geomean']:.3f}"
+        + (f", {min(ratios):.3f}-{max(ratios):.3f}" if ratios else ""))
+
+    # 4. The store through a file.
+    kind = plan_store.device_kind()
+    path = ROOT / "build" / f"plan_cache_{kind}.json"
+    autotune.save_plan_cache(str(path))
+    plan_store.reset_store()
+    adopted = autotune.load_plan_cache(str(path))
+    store = plan_store.get_store()
+    if adopted != len(results) or store.quarantined:
+        raise AssertionError(f"store round trip: {adopted} of "
+                             f"{len(results)} adopted, quarantined "
+                             f"{store.quarantined}")
+    log(f"  store: {adopted} plans saved to {path.relative_to(ROOT)} and "
+        "loaded back, none quarantined")
+
+    # 5. Serve again with the stored plans.
+    tuner.PLAN_MODE_COUNTS.clear()
+    reqs_c, walls_c = _serve_qwen(model, cfg, dev)
+    modes = tuner.plan_mode_stats()
+    served = {fam: v for fam, v in modes.items() if fam != "epilogue"}
+    if any(set(v) != {"cached"} for v in served.values()):
+        raise AssertionError(f"served plans not all cached: {modes}")
+    inputs, logits_a = serve_rec.first_decode
+    with torch.no_grad():
+        logits_c, _ = M.decode_step(model, cfg, inputs[0], inputs[1],
+                                    inputs[2], page_table=inputs[3])
+    rel, _ = rel_err(logits_c, logits_a)
+    if rel > TOL[BF16]:
+        raise AssertionError(f"first decode step logits, stored vs analytic "
+                             f"plans: normwise {rel:.3g} > {TOL[BF16]}")
+    agree = sum(x == y for a, c in zip(reqs_a, reqs_c)
+                for x, y in zip(a.out_tokens, c.out_tokens))
+    total = sum(len(r.out_tokens) for r in reqs_a)
+    med_a, med_c = (statistics.median(w[1:]) * 1e3 for w in (walls_a,
+                                                             walls_c))
+    dec = [r for r in rows if r["phase"] == "decode"]
+    gemm_a = sum(r["per_decode_step"] * r["analytic_us"] for r in dec) / 1e3
+    gemm_w = sum(r["per_decode_step"] * r["winner_us"] for r in dec) / 1e3
+    log(f"  served with the stored plans: plan modes {served}; first decode "
+        f"step logits normwise {rel:.2e} from the analytic run's; greedy "
+        f"tokens agree {agree} / {total}; decode-step median "
+        f"{med_a:.2f} ms analytic, {med_c:.2f} ms stored; the decode step's "
+        f"GEMMs {gemm_a:.3f} ms analytic, {gemm_w:.3f} ms measured "
+        f"(device, summed per signature)")
+    del model
+    free_card()
+
+    # 6. A stored split-K record for the gate / up panels' dW,
+    # (1024, 2048)^T (1024, 6144) in qwen.
+    plan_store.reset_store()
+    tuner.clear_planner_caches()
+    dw_mkn = (cfg.d_model, TRAIN_TOKENS, cfg.d_ff)
+    dw = [(args, kw) for (name, args, kw) in train_rec.signatures()
+          if name == "plan_gemm" and args[:3] == dw_mkn
+          and dict(kw).get("trans") == "tn"]
+    if len(dw) != 1:
+        raise AssertionError(f"qwen's dW signature: {dw}")
+    (m, k, n, ib, ob), kw = dw[0]
+    plan_store.get_store().put(tuner.dense_key(m, k, n, ib, ob, **dict(kw)),
+                               SPLITK_RECORD)
+    tuner.clear_planner_caches()
+    log_s, bodies, splitk_launches = _qwen_steps(dev, 2)
+    splitk = bodies["ftimm_gemm_splitk"]
+    if not splitk["tc"]:
+        raise AssertionError(f"ftimm_gemm_splitk did not launch: {bodies}")
+    cmp = {}
+    for key, i in (("loss", 0), ("loss", 1), ("grad_norm", 0)):
+        a, b = log_a[i][key], log_s[i][key]
+        cmp[f"step{i + 1}_{key}"] = [a, b]
+        if abs(a - b) > TRAIN_REF_TOL * abs(a):
+            raise AssertionError(f"split-K step {i + 1} {key} {b} vs "
+                                 f"analytic {a} (> {TRAIN_REF_TOL})")
+    log(f"  split-K record (nsplit 4, tc) at "
+        f"{tuner.dense_key(m, k, n, ib, ob, **dict(kw))}: {splitk['tc']} "
+        "launches in 2 qwen train steps; analytic vs split-K "
+        + ", ".join(f"{k_} {a:.6g} / {b:.6g}" for k_, (a, b) in cmp.items()))
+    tuner.clear_plan_cache()
+    return {"signatures": len(sigs), "changed": sum(r["changed"]
+                                                    for r in rows),
+            "tune_s": tune_s, "rows": rows, "calibration": calib,
+            "store_path": str(path.relative_to(ROOT)), "adopted": adopted,
+            "served_plan_modes": served, "first_decode_logits_rel": rel,
+            "greedy_agree": [agree, total],
+            "decode_step_median_ms": {"analytic": med_a, "stored": med_c},
+            "decode_gemm_device_ms": {"analytic": gemm_a,
+                                      "measured": gemm_w},
+            "splitk": {"launches_tc": splitk["tc"], **cmp},
+            "launches": splitk_launches}
+
+
+# ---------------------------------------------------------------------------
 # The kernels line
 # ---------------------------------------------------------------------------
 
@@ -2155,8 +2521,9 @@ def kernel_entries(rows, launches, worst, bodies) -> list[dict]:
         if name == "ftimm_gemm_splitk":
             per = ("one call each at qwen3-1.7b's T2 dW shapes (1024 tokens "
                    "-> 2048x2048 and 2048x6144), nsplit 4, tensor-core "
-                   "body; no model path launches it (the planner never "
-                   "picks nsplit > 1)")
+                   "body; launches: [autotune]'s 2 qwen train steps, which "
+                   "reach it through a stored nsplit-4 record (the "
+                   "analytic planner never picks nsplit > 1)")
         elif phase == "train":
             per = (f"one train step of {model} at {depth(phase, model)} "
                    f"layers, {TRAIN_BATCH} x {TRAIN_SEQ} tokens")
@@ -2166,7 +2533,8 @@ def kernel_entries(rows, launches, worst, bodies) -> list[dict]:
         entries.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/ftimm/csrc/{name}.cu",
-            "replaces": REPLACES[name], "launches": launches[home][name],
+            "replaces": REPLACES[name],
+            "launches": launches[LAUNCH_RUN.get(name, home)][name],
             "max_abs_err": worst[name], "ms": total["ms"],
             "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -2281,6 +2649,13 @@ def main() -> int:
     log(f"[train-schedule] done in {phases['train_schedule']:.1f} s")
 
     t0 = time.monotonic()
+    log("[autotune] qwen3-1.7b's GEMM signatures measured on the card")
+    tuned = autotune_phase(dev)
+    launches[("autotune", ARCH)] = tuned.pop("launches")
+    phases["autotune"] = time.monotonic() - t0
+    log(f"[autotune] done in {phases['autotune']:.1f} s")
+
+    t0 = time.monotonic()
     log("[time] decode-step and training shapes")
     rows = timings(qwen_cases + moe_cases + trn_cases, dev)
     phases["time"] = time.monotonic() - t0
@@ -2299,7 +2674,8 @@ def main() -> int:
     log(json.dumps({"bodies_check": bodies_check, "serve": stats,
                     "moe_reference": refs,
                     "train_reference": train_refs, "train": train_stats,
-                    "train_schedule": witness, "phases_s": phases}))
+                    "train_schedule": witness, "autotune": tuned,
+                    "phases_s": phases}))
     log(card)
     bodies = {("serve", a): stats[a]["bodies"] for a in stats}
     bodies.update({("train", a): train_stats[a]["bodies"]

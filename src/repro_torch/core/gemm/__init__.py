@@ -1,20 +1,33 @@
 """ftIMM GEMM planning and dispatch for the port: the shape taxonomy,
-the Hopper CMR model, the tile planner and the forward dispatch layer."""
+the Hopper CMR model, the tile planner, the forward dispatch layer, and the
+measured tuning loop (the plan store, ``autotune`` and calibration)."""
+from . import autotune, plan_store
+from .autotune import (TuneResult, autotune_batched_gemm, autotune_gemm,
+                       autotune_ragged_gemm, calibrate, calibrate_ici,
+                       clear_plan_store, load_plan_cache, save_plan_cache,
+                       time_placed_dense_e2e, time_placed_ragged_e2e)
 from .cmr import (H100, HopperSpec, PlanEstimate, estimate, estimate_batched,
                   estimate_group_stream, estimate_ragged, estimate_stream)
 from .dispatch import (batched_matmul, grouped_matmul, grouped_swiglu, matmul,
                        matmul_swiglu, project, project_swiglu, ragged_matmul,
                        ragged_swiglu)
+from .plan_store import Calibration, PlanStore
 from .shapes import GemmClass, classify, is_irregular
 from .tuner import (GemmPlan, MoeDispatchPlan, clear_plan_cache,
-                    epilogue_stats, plan_batched_gemm, plan_gemm,
-                    plan_mode_stats, plan_moe_dispatch, plan_ragged_gemm)
+                    effective_spec, epilogue_stats, plan_batched_gemm,
+                    plan_gemm, plan_mode_stats, plan_moe_dispatch,
+                    plan_ragged_gemm)
 
-__all__ = ["H100", "HopperSpec", "PlanEstimate", "estimate", "estimate_batched",
-           "estimate_group_stream", "estimate_ragged", "estimate_stream", "matmul", "project", "matmul_swiglu",
+__all__ = ["H100", "HopperSpec", "PlanEstimate", "estimate",
+           "estimate_batched", "estimate_group_stream", "estimate_ragged",
+           "estimate_stream", "matmul", "project", "matmul_swiglu",
            "project_swiglu", "batched_matmul", "grouped_matmul",
            "grouped_swiglu", "ragged_matmul", "ragged_swiglu", "GemmClass",
            "classify", "is_irregular", "GemmPlan", "MoeDispatchPlan",
            "plan_gemm", "plan_batched_gemm", "plan_ragged_gemm",
            "plan_moe_dispatch", "plan_mode_stats", "epilogue_stats",
-           "clear_plan_cache"]
+           "effective_spec", "clear_plan_cache", "TuneResult",
+           "autotune_gemm", "autotune_batched_gemm", "autotune_ragged_gemm",
+           "calibrate", "calibrate_ici", "clear_plan_store",
+           "load_plan_cache", "save_plan_cache", "time_placed_dense_e2e",
+           "time_placed_ragged_e2e", "Calibration", "PlanStore"]

@@ -23,7 +23,7 @@ card's speed.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 from ...kernels.ftimm.kernel import (GSTREAM_ROWS, STREAM_STRIP,
                                      gstream_smem, smem_bytes, stream_rows,
@@ -54,6 +54,16 @@ class HopperSpec:
         for "tc"; CUDA-core fp32 FMAs for "fma" (every operand widened to
         fp32) and for "stream" (FMAs on the unpacked bf16 pairs)."""
         return self.peak_flops_bf16 if body == "tc" else self.peak_flops_fp32
+
+    def calibrated(self, flops_frac: float, bw_frac: float) -> "HopperSpec":
+        """The measured-effective view of this card: both peak rates scaled
+        by the achievable-flops fraction and the device-memory bandwidth by
+        the effective fraction (``autotune.calibrate`` fits both).
+        Capacities and tiles stay nominal."""
+        return replace(self, name=f"{self.name}+cal",
+                       peak_flops_bf16=self.peak_flops_bf16 * flops_frac,
+                       peak_flops_fp32=self.peak_flops_fp32 * flops_frac,
+                       hbm_bw=self.hbm_bw * bw_frac)
 
 
 H100 = HopperSpec()
@@ -141,17 +151,33 @@ def _estimate(g: int, m: int, k: int, n: int, *, bm: int, bn: int, bk: int,
     )
 
 
+def with_epilogue(e: PlanEstimate, m: int, n: int, out_bytes: int,
+                  epi_ops: int, fused: bool,
+                  spec: HopperSpec = H100) -> PlanEstimate:
+    """``e`` with an elementwise tail of ``epi_ops`` ops: fused it rides
+    the flush for free; unfused each op is a separate pass that reads and
+    writes the (m, n) output once more, at the card's full bandwidth."""
+    if fused or epi_ops <= 0:
+        return e
+    extra = float(epi_ops) * 2.0 * m * n * out_bytes
+    return replace(e, hbm_bytes=e.hbm_bytes + extra,
+                   t_memory=e.t_memory + extra / spec.hbm_bw)
+
+
 def estimate(m: int, k: int, n: int, *, bm: int, bn: int, bk: int,
              in_bytes: int = 4, out_bytes: int = 4, panels: int = 1,
              spec: HopperSpec = H100, body: str = "fma",
-             stages: int = 4, dim_order: str = "mn") -> PlanEstimate:
+             stages: int = 4, dim_order: str = "mn", epi_ops: int = 0,
+             epi_fused: bool = True) -> PlanEstimate:
     """Model one tile of C(M,N) = A(M,K) B(K,N) on one card.  ``panels`` = 2
     prices the fused SwiGLU pair (two B panels against one A panel);
     ``body`` "tc" the tensor-core body with a ``stages``-deep ring, whose
-    operand traffic follows the grid order's L2 reuse."""
-    return _estimate(1, m, k, n, bm=bm, bn=bn, bk=bk, a_reads=1, b_reads=1,
-                     in_bytes=in_bytes, out_bytes=out_bytes, panels=panels,
-                     spec=spec, body=body, stages=stages, dim_order=dim_order)
+    operand traffic follows the grid order's L2 reuse; ``epi_ops`` an
+    elementwise tail, fused or not (``with_epilogue``)."""
+    e = _estimate(1, m, k, n, bm=bm, bn=bn, bk=bk, a_reads=1, b_reads=1,
+                  in_bytes=in_bytes, out_bytes=out_bytes, panels=panels,
+                  spec=spec, body=body, stages=stages, dim_order=dim_order)
+    return with_epilogue(e, m, n, out_bytes, epi_ops, epi_fused, spec)
 
 
 def estimate_stream(m: int, k: int, n: int, *, kslices: int,

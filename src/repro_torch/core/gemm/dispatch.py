@@ -9,7 +9,10 @@ attention products and the capacity-MoE experts) or ``ragged_matmul`` /
 goes to the ftIMM kernel wrapper.  The tensor's device picks the engine
 there: a CPU tensor takes the plain version (``kernels.ftimm.ref``), a CUDA
 tensor takes the planned kernel or raises.  There is no fallback ladder: a
-kernel that fails on the card fails the call.
+kernel that fails on the card fails the call.  A plan served from the
+measured plan store may run the epilogue as separate passes over the
+output (``fuse`` False) or split K (``nsplit`` > 1, ``ftimm_gemm_splitk``):
+that is the plan's choice, made before the launch.
 
 When an operand requires grad, each entry point runs as a
 ``torch.autograd.Function`` that matches the reference's custom VJP: the
@@ -66,17 +69,22 @@ def _needs_grad(*tensors) -> bool:
 def _run_dense(a, b, trans: str, out_dtype, epi: Epilogue = IDENTITY,
                bias=None, residual=None, scale=None) -> torch.Tensor:
     """Plan one dense GEMM (its body too: the planner sees the operand
-    widths and whether TMA can read them as laid out) and run it."""
+    widths and whether TMA can read them as laid out) and run it.  A plan
+    that declines fusion runs the identity kernel to fp32 and then the
+    tail one op at a time (``Epilogue.decompose``), as the tuner timed
+    it."""
     m, k, n = mkn(trans, a.shape, b.shape)
     a_ok, b_ok = gemm_operands_ok(a, b, trans)
     plan = plan_gemm(m, k, n, a.element_size(), out_dtype.itemsize,
-                     b_bytes=b.element_size(), a_ok=a_ok, b_ok=b_ok)
+                     b_bytes=b.element_size(), a_ok=a_ok, b_ok=b_ok,
+                     trans=trans)
     note_plan_use("dense", plan)
     if not epi.is_identity:
-        note_epilogue("dense", True)
-    return _ops.gemm(a, b, trans=trans, out_dtype=out_dtype, epilogue=epi,
-                     bias=bias, residual=residual, scale=scale,
-                     **plan.kernel_kwargs())
+        note_epilogue("dense", plan.fuse)
+    gemm = _ops.gemm if plan.fuse or epi.is_identity else _ops.gemm_unfused
+    return gemm(a, b, trans=trans, out_dtype=out_dtype, epilogue=epi,
+                bias=bias, residual=residual, scale=scale,
+                **plan.kernel_kwargs())
 
 
 def _dense_grads(a, b, dz, trans: str, need_a: bool, need_b: bool):
@@ -278,7 +286,7 @@ def _run_batched(a, b, trans: str, out_dtype, bias=None) -> torch.Tensor:
     a_major, b_ok = grouped_operands(a, b, trans)
     plan = plan_batched_gemm(g, m, k, n, a.element_size(), out_dtype.itemsize,
                              shared, b_bytes=b.element_size(),
-                             a_major=a_major, b_ok=b_ok)
+                             a_major=a_major, b_ok=b_ok, trans=trans)
     note_plan_use("batched", plan)
     epi = IDENTITY if bias is None else Epilogue(bias=True)
     if bias is not None:
@@ -391,7 +399,7 @@ def _run_ragged(x, w, offsets, trans: str, out_dtype,
     x_k, w_ok = ragged_operands(x, w, trans)
     plan = plan_ragged_gemm(g, x.shape[0], k, n, x.element_size(),
                             out_dtype.itemsize, b_bytes=w.element_size(),
-                            a_ok=x_k, b_ok=w_ok)
+                            a_ok=x_k, b_ok=w_ok, trans=trans)
     note_plan_use("ragged", plan)
     epi = None if bias is None else Epilogue(bias=True)
     if bias is not None:

@@ -43,6 +43,46 @@ class Epilogue:
         return (not self.bias and not self.residual and not self.scale_vec
                 and self.activation == "none" and self.scale is None)
 
+    @property
+    def num_ops(self) -> int:
+        """How many separate elementwise passes over the output the unfused
+        tail runs: what fusing it into the flush saves."""
+        return (int(self.scale_vec) + int(self.scale is not None)
+                + int(self.bias) + int(self.activation != "none")
+                + int(self.residual))
+
+    def unpack(self, extras):
+        """(bias, residual, scale) from a positional ``extras`` tuple that
+        holds, in this order, the operands whose flags are set."""
+        i = 0
+        bias = residual = scale = None
+        if self.bias:
+            bias = extras[i]
+            i += 1
+        if self.residual:
+            residual = extras[i]
+            i += 1
+        if self.scale_vec:
+            scale = extras[i]
+        return bias, residual, scale
+
+    def decompose(self) -> tuple["Epilogue", ...]:
+        """The tail as single-op epilogues in the order ``apply`` runs them:
+        the unfused path's separate passes.  Applied one after another they
+        give ``apply``."""
+        ops = []
+        if self.scale_vec:
+            ops.append(Epilogue(scale_vec=True))
+        if self.scale is not None:
+            ops.append(Epilogue(scale=self.scale))
+        if self.bias:
+            ops.append(Epilogue(bias=True))
+        if self.activation != "none":
+            ops.append(Epilogue(activation=self.activation))
+        if self.residual:
+            ops.append(Epilogue(residual=True))
+        return tuple(ops)
+
     def apply(self, acc: torch.Tensor, bias=None, residual=None,
               scale=None) -> torch.Tensor:
         """fp32 in / fp32 out: the one definition of the tail's math, used

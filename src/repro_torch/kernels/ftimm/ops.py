@@ -1,5 +1,6 @@
 """Public wrappers around the ftIMM kernels: ``gemm`` (M-parallel, or
-K-parallel with ``nsplit > 1``), ``gemm_swiglu``, ``batched_gemm``,
+K-parallel with ``nsplit > 1``; ``gemm_unfused``: its epilogue as separate
+passes), ``gemm_swiglu``, ``batched_gemm``,
 ``batched_gemm_swiglu``, ``ragged_gemm``, ``ragged_gemm_swiglu``,
 ``ragged_gemm_dw`` and the timing primitive ``bench``.
 
@@ -107,6 +108,19 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bn: int = 128,
                          dim_order=dim_order, out_dtype=out_dtype,
                          epilogue=epilogue, bias=bias, residual=residual,
                          scale=scale, body=body, kslices=kslices)
+
+
+def gemm_unfused(a: torch.Tensor, b: torch.Tensor, *, epilogue: Epilogue,
+                 out_dtype=None, bias=None, residual=None, scale=None,
+                 **kw) -> torch.Tensor:
+    """``gemm`` with the epilogue not fused: the identity kernel to fp32
+    (``kw``: its trans, tile, body, ...), then the tail one op at a time
+    (``Epilogue.decompose``), a separate pass over the output each, then
+    the cast."""
+    z = gemm(a, b, out_dtype=torch.float32, **kw)
+    for op in epilogue.decompose():
+        z = op.apply(z, bias=bias, residual=residual, scale=scale)
+    return z.to(out_dtype or a.dtype)
 
 
 def batched_gemm(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,

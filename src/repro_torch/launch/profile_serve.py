@@ -11,8 +11,10 @@ time per step (the sum of CUDA kernel and copy durations in the trace), the
 device idle share, and device time by kernel group.  The last line is one
 JSON object with the same numbers.  ``--layers`` cuts the depth (every
 width as published), so that a model whose full depth does not fit one
-card -- mixtral-8x7b, llama4-scout-17b-a16e -- can be profiled.  Needs a
-CUDA card.
+card -- mixtral-8x7b, llama4-scout-17b-a16e -- can be profiled.  With
+``$REPRO_PLAN_CACHE`` naming a measured plan store (``core.gemm.autotune``)
+the step serves its plans; the plan modes printed say how many did.  Needs
+a CUDA card.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..configs import get_config
 from ..core.device import resolve_device
+from ..core.gemm import plan_mode_stats
 from ..models.model import init_params
 from ..serve.engine import Request, ServeEngine
 
@@ -125,7 +128,7 @@ def main(argv=None) -> None:
     wall_ms = statistics.median(walls) * 1e3
     print(f"{torch.cuda.get_device_name(device)}: {args.arch} at "
           f"{cfg.num_layers} layers, {args.slots} slots, {args.steps} decode "
-          "steps profiled")
+          f"steps profiled; plan modes {plan_mode_stats()}")
     print(f"step wall median {wall_ms:.2f} ms; device busy "
           f"{busy_ms:.2f} ms/step; idle share {1 - busy_ms / wall_ms:.3f}")
     for group, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
@@ -143,7 +146,7 @@ def main(argv=None) -> None:
         "device_ms_per_step": {g: us / 1e3 / args.steps
                                for g, us in by_group.items()},
         "launches_per_step": sum(c for c, _ in by_kernel.values())
-        / args.steps}))
+        / args.steps, "plan_modes": plan_mode_stats()}))
 
 
 if __name__ == "__main__":

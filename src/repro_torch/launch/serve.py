@@ -1,24 +1,57 @@
 """Serving launcher: batched requests through the slot engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
-        --requests 8 --max-new 16
+        --requests 8 --max-new 16 [--plan-cache build/plan_cache_<card>.json]
 
 Runs on the CUDA card, every GEMM through the ftIMM kernels; with no card
 it raises unless ``--device cpu`` asks for the plain versions on the CPU
 (``--arch qwen3-1.7b-smoke --device cpu`` is the CPU-sized run).
+
+Warmup loads a measured plan store (``--plan-cache``, else
+``$REPRO_PLAN_CACHE``, else ``results/plan_cache.json`` when present)
+before the engine plans anything, so every GEMM whose signature the store
+holds for this device serves its measured plan (``mode == "cached"``).  A
+store measured on another device adopts nothing.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import pathlib
 
 import numpy as np
 
 from ..configs import get_config
 from ..core.device import resolve_device
-from ..core.gemm import epilogue_stats, plan_mode_stats
+from ..core.gemm import (autotune, epilogue_stats, plan_mode_stats,
+                         plan_store)
 from ..kernels.ftimm import launch_counts
 from ..models.model import init_params
 from ..serve.engine import Request, ServeEngine
+
+_DEFAULT_CACHE = pathlib.Path(__file__).resolve().parents[3] \
+    / "results" / "plan_cache.json"
+
+
+def load_plan_cache(path: str | None) -> int:
+    """The warmup load: ``path``, else ``$REPRO_PLAN_CACHE``, else the
+    repo's ``results/plan_cache.json`` when present.  Returns the plans
+    adopted (0 when nothing loads: serving goes on with analytic plans) and
+    prints them and the records quarantined."""
+    path = path or os.environ.get(plan_store.ENV_VAR) \
+        or (str(_DEFAULT_CACHE) if _DEFAULT_CACHE.exists() else None)
+    if not path:
+        return 0
+    n = autotune.load_plan_cache(path)
+    store = plan_store.get_store()
+    print(f"plan cache: {n} measured plans adopted from {path} "
+          f"(device {plan_store.device_kind()}), "
+          f"{len(store.quarantined)} quarantined")
+    if store.quarantined:
+        codes = sorted({c for v in store.quarantined.values() for c in v})
+        print(f"plan cache: quarantined records ({', '.join(codes)}) plan "
+              "analytically")
+    return n
 
 
 def fusion_coverage() -> str:
@@ -51,9 +84,12 @@ def main(argv=None) -> None:
                          "against it once calibrated")
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card (raises without one)")
+    ap.add_argument("--plan-cache", default=None,
+                    help="measured plan store to load at warmup")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    load_plan_cache(args.plan_cache)
     cfg = get_config(args.arch)
     params = init_params(cfg, args.seed, device=device)
     engine = ServeEngine(cfg, params, batch_slots=args.slots,
@@ -62,7 +98,9 @@ def main(argv=None) -> None:
                          seed=args.seed, device=device)
     cost = engine.cost.snapshot()
     print(f"warmup: buckets={cost['buckets']} "
-          f"planned {cost['warmed_signatures']} GEMM signatures, "
+          f"planned {cost['warmed_signatures']} GEMM signatures "
+          f"(plan-store lookups={cost['store_lookups']} "
+          f"hits={cost['store_hits']}), "
           f"KV pool {engine.alloc.total} pages x {engine.page_size} rows "
           f"on {device}")
     rng = np.random.default_rng(args.seed)

@@ -6,16 +6,16 @@ shapes the engine runs (right-padding is exact for causal attention, see
 bucket that fits, and a prompt beyond the ladder takes the exact-length
 prefill rung.
 
-Pricing goes through the port's CMR planner: each bucket's prefill and the
+Pricing goes through the port's planner: each bucket's prefill and the
 fused decode tick decompose into the GEMM signatures of the stack, and
-``plan_gemm`` prices each one (which also plans every serving signature
-before the first request).  The CMR numbers only rank tiles, so
+``plan_gemm`` prices each one (a measured record from the plan store when
+there is one, the CMR argmin otherwise; this also plans every serving
+signature before the first request).  The CMR numbers only rank tiles, so
 ``CostModel`` calibrates them against measured wall times: observed buckets
 use their wall EWMA directly, never-observed buckets scale their model
 price by the measured/modeled ratio of the buckets that have run.
 Admission control (``engine.ServeEngine.submit``) prices deadlines against
-these estimates.  The measured-plan store is not ported yet, so its
-lookup / hit counters read 0.
+these estimates.
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ import dataclasses
 import torch
 
 from ..configs.base import ModelConfig
-from ..core.gemm import plan_gemm
+from ..core.gemm import plan_gemm, plan_store
 
 __all__ = ["make_buckets", "bucket_for", "gemm_signatures", "CostModel"]
 
@@ -82,7 +82,9 @@ class CostModel:
 
     ``observe_*`` feed measured wall times; ``prefill_s`` / ``step_s``
     return calibrated estimates, or None while nothing has been measured
-    (admission control admits unconditionally until calibrated)."""
+    (admission control admits unconditionally until calibrated).
+    ``store_lookups`` / ``store_hits``: what pricing the buckets asked of
+    the plan store, and what it served."""
     cfg: ModelConfig
     buckets: tuple[int, ...]
     slots: int
@@ -95,6 +97,8 @@ class CostModel:
     store_hits: int = 0
 
     def __post_init__(self):
+        store = plan_store.get_store()
+        lookups, hits = store.lookups, store.hits
         for b in self.buckets:
             # A bucket prefill runs the whole batch's rows through the
             # stack in one pass; logits are one row per request.
@@ -103,6 +107,8 @@ class CostModel:
             self.warmed += len(gemm_signatures(self.cfg, self.slots * b)) + 1
         self.model_step = _stack_price_s(self.cfg, self.slots, self.slots)
         self.warmed += len(gemm_signatures(self.cfg, self.slots)) + 1
+        self.store_lookups = store.lookups - lookups
+        self.store_hits = store.hits - hits
 
     # -- measurement feedback --------------------------------------------
 
