@@ -127,7 +127,36 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    nsplit 4 for qwen's gate / up dW, (1024, 2048)^T (1024, 6144), and two
    qwen train steps: ``ftimm_gemm_splitk`` must launch, and the losses and
    the step-1 gradient norm must stay within 1e-3 of the analytic steps';
-11. [time] each kernel at the decode-step shapes of the model it serves, and
+11. [quant] the quantized type paths (int8 / fp8 / weight-only int8,
+   ``core.quant``): ``ftimm_gemm``'s FMA body at every quantized code
+   (qwen's and llama4's 4 decode rows, 128 prefill rows, unaligned
+   extents; nn, and nt for the straight-through dX) and
+   ``ftimm_gemm_ragged``'s at llama4's decode distribution (4 rows to 4 of
+   16 experts) and a prefill distribution with an empty expert and rows no
+   expert owns, (G, N) dequant vectors, each against its plain version:
+   int8 x int8 bitwise (an exact int32 sum and the same fp32 flush), the
+   others within the [check] tolerances (fp32 sums of exact products in
+   another order); the tensor-core and stream bodies and the kernels
+   without the quantized codes must raise on int8 operands; one forward /
+   backward each of ``matmul(quant=)`` (with a bias / silu / residual
+   tail) and ``ragged_matmul(quant=)`` for w8, int8 and fp8_e4m3, card vs
+   CPU (1e-4).  Then llama4-scout-17b-a16e-w8 at full width and 8 layers
+   and -int8 / -w4 at 2 layers (a depth cut), [serve]'s 6 requests, each
+   served twice: the greedy tokens must agree, every ``ftimm_gemm_ragged``
+   launch must be its FMA body on 1-byte panels and no ragged SwiGLU pair
+   may launch, and the first decode step's logits must lie within 5e-2
+   (Frobenius-normwise, the reference's MoE bound) of the same weights
+   served unquantized (w8, int8; w4 reported); the decode-step median and
+   peak memory; for w8 ``launch.profile_serve``'s device ms a step by
+   kernel group with the per-call weight quantization as its own line;
+   that pass's time for one expert stack; and each quantized path at the
+   decode shapes timed as [time] does, beside its bound (bytes / 3.35
+   TB/s with 1-byte weights, or operations / 1,979 TOP/s for int8 and fp8,
+   989 for bf16 x int8) and its yardstick: ``torch._int_mm`` /
+   ``torch._scaled_mm`` where their shape and type rules allow,
+   dequantize + ``torch.matmul`` / ``torch._grouped_mm`` (two calls) for
+   w8;
+12. [time] each kernel at the decode-step shapes of the model it serves, and
    the two backward kernels at the training shapes (split-K on its
    tensor-core and FMA bodies), and ftimm_gemm at qwen3-1.7b's training
    forward shapes, its unembed and the mixed fp32 x bf16 unembed dX, qwen's
@@ -156,6 +185,7 @@ the last line.  Any failure raises and exits non-zero before that line.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -177,6 +207,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.core import quant as QUANT  # noqa: E402
 from repro_torch.core.gemm import autotune, plan_store, tuner  # noqa: E402
 from repro_torch.core.gemm import dispatch as D  # noqa: E402
 from repro_torch.core.gemm import (batched_matmul, grouped_matmul,  # noqa: E402
@@ -188,6 +219,7 @@ from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.kernels.ftimm import kernel as K  # noqa: E402
 from repro_torch.kernels.ftimm import ops  # noqa: E402
 from repro_torch.kernels.ftimm.epilogue import Epilogue  # noqa: E402
+from repro_torch.launch.profile_serve import profile_decode  # noqa: E402
 from repro_torch.launch.timing import sleep_ms_per_mcycle, time_ms  # noqa: E402
 from repro_torch.launch.train import opt_config  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -199,9 +231,11 @@ from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.train import Trainer, make_train_step  # noqa: E402
 
 BF16, FP32 = torch.bfloat16, torch.float32
+I8, E4, E5 = torch.int8, torch.float8_e4m3fn, torch.float8_e5m2
 CPU = torch.device("cpu")
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {BF16: 989e12, FP32: 67e12}
+PEAK_FLOPS = {BF16: 989e12, FP32: 67e12, I8: 1979e12, E4: 1979e12,
+              E5: 1979e12}
 TOL = {BF16: 2e-2, FP32: 1e-4}
 MOE_REF_TOL = 1e-3
 _TPU = "src/repro/kernels/ftimm/kernel.py"
@@ -1769,7 +1803,8 @@ class CallRecorder:
 
     @staticmethod
     def _spec(x):
-        if isinstance(x, torch.Tensor) and not x.is_floating_point():
+        if isinstance(x, torch.Tensor) and x.dtype in (torch.int32,
+                                                       torch.int64):
             return x.detach().clone()
         return CallRecorder._key(x)
 
@@ -2238,9 +2273,13 @@ def _plan_str(p) -> str:
 
 
 def _named(name: str, args, kwargs) -> dict:
-    """A recorded planner call's arguments by name."""
-    return dict(inspect.signature(getattr(tuner, name)).bind(
+    """A recorded planner call's arguments by name.  ``fp8`` is left out:
+    the tuner times 1-byte operands as int8, and qwen's calls are wide."""
+    call = dict(inspect.signature(getattr(tuner, name)).bind(
         *args, **dict(kwargs)).arguments)
+    if call.pop("fp8", False):
+        raise AssertionError(f"{name}{args}: the tuner does not time fp8")
+    return call
 
 
 def _retime(name: str, call: dict, plans, dev) -> list[float]:
@@ -2490,6 +2529,474 @@ def autotune_phase(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Quantization: the 1-byte type paths of ftimm_gemm and ftimm_gemm_ragged,
+# and llama4-scout served with quantized experts
+# ---------------------------------------------------------------------------
+
+QUANT_PAIRS = ((BF16, I8), (FP32, I8), (I8, I8), (E4, E4), (E5, E5))
+QUANT_DX_PAIRS = tuple((a, b) for a in (BF16, FP32) for b in (I8, E4, E5))
+# Served depth per mode: w8 at the [serve] depth, the others a depth cut.
+QUANT_LAYERS = {"w8": MOE_LAYERS, "int8": 2, "w4": 2}
+# The reference's MoE bound (tests/test_quant.py), Frobenius-normwise, on
+# the first decode step's logits against the same weights unquantized.
+# Gated for w8 and int8; w4 (7 levels) is reported.
+QUANT_REF_TOL = 5e-2
+QUANT_GATED = ("w8", "int8")
+
+
+def _q(t: torch.Tensor, dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """An fp32 tensor as a quantized operand of ``dtype`` and the scale
+    that decodes it: int8 codes at its own per-tensor scale, fp8 scaled
+    into the format's range, or a plain cast (scale 1)."""
+    if dtype == I8:
+        s = QUANT.symmetric_scale(t)
+        return QUANT.quantize(t, s), s
+    if dtype in (E4, E5):
+        return QUANT.quantize_fp8(t, "e4m3" if dtype == E4 else "e5m2")
+    return t.to(dtype), torch.ones((), device=t.device)
+
+
+def _pair_name(pair) -> str:
+    return " x ".join(_name(d).replace("float8_", "") for d in pair)
+
+
+def _peak_dtype(pair):
+    """The type whose peak bounds a pair's operations: a 1-byte pair at
+    the int8 / fp8 tensor-core rate, a mixed one at its float operand's."""
+    a, b = pair
+    return a if _size(a) == 1 and _size(b) == 1 else (
+        FP32 if FP32 in pair else BF16)
+
+
+def quant_dense_case(label, m, k, n, *, pair, out, trans="nn", epi=True,
+                     library=False, timed=False) -> Case:
+    """``ftimm_gemm`` planned through the dispatch layer on pre-quantized
+    operands (1-byte codes take its FMA body), the (N,) dequant vector at
+    the flush (``epi``).  ``library``: the yardstick where one PyTorch call
+    computes the same function (no epilogue then): ``torch._int_mm`` for
+    int8 x int8, ``torch._scaled_mm`` for fp8 (B column-major, as it
+    requires); for bf16 x int8, dequantize + ``torch.matmul``, two calls
+    (``yardstick``)."""
+    a_dt, b_dt = pair
+    sb = (k, n) if trans == "nn" else (n, k)
+    e = Epilogue(scale_vec=True) if epi else K.IDENTITY
+    col_major = library and _size(a_dt) == 1 and a_dt != I8
+
+    def make(gen):
+        # The dequant vector decodes the product as the quantized matmul's
+        # does (the two scales), times a per-column factor in [0.5, 1.5).
+        b, sb_ = _q(_randn(gen, sb, FP32), b_dt)
+        if col_major:
+            b = b.t().contiguous().t()
+        a, sa_ = _q(_randn(gen, (m, k), FP32), a_dt)
+        return (a, b, sa_ * sb_ * (torch.rand(n, generator=gen,
+                                                device=gen.device) + 0.5))
+
+    def run(a, b, sv):
+        return D._run_dense(a, b, trans, out, e, scale=sv if epi else None)
+
+    def plain(a, b, sv):
+        return K.ftimm_gemm_plain(a, b, trans=trans, out_dtype=out,
+                                  epilogue=e, scale=sv if epi else None)
+
+    lib = yard = None
+    if library and pair == (I8, I8):
+        lib = lambda a, b, sv: torch._int_mm(a, b)  # noqa: E731
+    elif library and col_major:
+        def lib(a, b, sv):
+            one = torch.ones((), device=a.device)
+            return torch._scaled_mm(a, b, scale_a=one, scale_b=one,
+                                    out_dtype=out)
+    elif library:       # in the activations' type, as a library call is
+        yard = lambda a, b, sv: torch.matmul(  # noqa: E731
+            a, QUANT.dequantize(b, sv, dtype=a_dt))
+    nbytes = (m * k * _size(a_dt) + k * n * _size(b_dt) + 4 * n
+              + m * n * _size(out))
+    return Case("ftimm_gemm", f"{_pair_name(pair)} {label}", make, run,
+                plain, lib, nbytes, 2.0 * m * n * k, _peak_dtype(pair), out,
+                model=LLAMA4, phase="quant", timed=timed, yardstick=yard)
+
+
+def quant_ragged_case(label, sizes, k, n, *, pair, out, tail=0,
+                      library=False, timed=False) -> Case:
+    """``ftimm_gemm_ragged`` planned through the dispatch layer on
+    pre-quantized panels with the (G, N) dequant vector; ``tail`` rows no
+    group owns.  ``library``: for bf16 x int8, dequantize +
+    ``torch._grouped_mm``, two calls (``yardstick``); no PyTorch call
+    takes int8 x int8 per group."""
+    a_dt, b_dt = pair
+    g, t = len(sizes), sum(sizes) + tail
+    e = Epilogue(scale_vec=True)
+
+    def make(gen):
+        (x, sx), (w, sw) = (_q(_randn(gen, shape, FP32), dt) for shape, dt
+                            in (((t, k), a_dt), ((g, k, n), b_dt)))
+        return (x, w, _offsets(sizes, gen.device),
+                sx * sw * (torch.rand(g, n, generator=gen,
+                                      device=gen.device) + 0.5))
+
+    def run(x, w, offs, sv):
+        return D._run_ragged(x, w, offs, "nn", out, scale=sv)
+
+    def plain(x, w, offs, sv):
+        return K.ftimm_gemm_ragged_plain(x, w, offs, out_dtype=out,
+                                         epilogue=e, scale=sv)
+
+    yard = None
+    if library and a_dt == BF16 and b_dt == I8 and not tail:
+        yard = lambda x, w, offs, sv: torch._grouped_mm(  # noqa: E731
+            x, QUANT.dequantize(w, sv[:, None, :], dtype=BF16),
+            offs=offs[1:])          # bf16 out: held at bf16's tolerance
+    touched = sum(1 for s in sizes if s)
+    nbytes = (t * k * _size(a_dt) + touched * k * n * _size(b_dt)
+              + 4 * touched * n + t * n * _size(out))
+    return Case("ftimm_gemm_ragged", f"{_pair_name(pair)} {label}", make,
+                run, plain, None, nbytes, 2.0 * (t - tail) * k * n,
+                _peak_dtype(pair), out, model=LLAMA4, phase="quant",
+                timed=timed, yardstick=yard)
+
+
+def quant_cases() -> tuple[list[Case], list[Case]]:
+    """(checked, timed): every quantized code of ``ftimm_gemm`` at qwen's
+    and llama4's decode rows, a 128-row prefill and unaligned extents, nn
+    (the forward) and nt (the straight-through dX); of
+    ``ftimm_gemm_ragged`` at every shape the quantized llama4 serve
+    launches: the decode distribution (4 rows to 4 of 16 experts), gate/up
+    (5120 -> 8192) and down (8192 -> 5120), and the bucket prefills' 128
+    and 256 routed rows (one expert empty) at the serve's output types
+    (gate/up fp32, down bf16); and at an unaligned prefill distribution
+    with an empty group and rows no group owns.  Timed: the decode shapes
+    of the quantized llama4 step and their yardsticks."""
+    l4, qw = get_config(LLAMA4), get_config(ARCH)
+    e, d, f = l4.num_experts, l4.d_model, l4.d_ff
+    decode = [1 if i % 4 == 0 else 0 for i in range(e)]
+    rng = np.random.default_rng(9)
+
+    def spread(rows):               # ``rows`` over e experts, expert 3 empty
+        sizes = rng.multinomial(rows, [1.0 / (e - 1)] * (e - 1)).tolist()
+        return sizes[:3] + [0] + sizes[3:]
+
+    prefill = spread(123)
+    buckets = {rows: spread(rows) for rows in (128, 256)}
+    checked = []
+    for pair in QUANT_PAIRS:
+        for out in (BF16, FP32):
+            checked += [
+                quant_dense_case(f"qwen decode {qw.d_model}x{qw.d_ff}", 4,
+                                 qw.d_model, qw.d_ff, pair=pair, out=out),
+                quant_dense_case(f"llama4 decode {d}x{f}", 4, d, f,
+                                 pair=pair, out=out),
+                quant_dense_case(f"prefill 128 rows {qw.d_model}x{qw.d_ff}",
+                                 128, qw.d_model, qw.d_ff, pair=pair,
+                                 out=out),
+                quant_dense_case("unaligned 33x257x65", 33, 257, 65,
+                                 pair=pair, out=out),
+                quant_ragged_case("llama4 decode gate/up", decode, d, f,
+                                  pair=pair, out=out),
+                quant_ragged_case("llama4 decode down", decode, f, d,
+                                  pair=pair, out=out),
+                quant_ragged_case(f"prefill {sum(prefill)}+5 rows (an empty "
+                                  "expert, 5 unowned) 1100x1000", prefill,
+                                  1100, 1000, pair=pair, out=out, tail=5)]
+        for rows, sizes in buckets.items():
+            checked += [
+                quant_ragged_case(f"llama4 prefill {rows} rows gate/up",
+                                  sizes, d, f, pair=pair, out=FP32),
+                quant_ragged_case(f"llama4 prefill {rows} rows down", sizes,
+                                  f, d, pair=pair, out=BF16)]
+    for pair in QUANT_DX_PAIRS:
+        checked += [
+            quant_dense_case(f"dX nt llama4 decode {f}x{d}", 4, f, d,
+                             pair=pair, out=FP32, trans="nt", epi=False),
+            quant_dense_case("dX nt unaligned 33x257x65", 33, 257, 65,
+                             pair=pair, out=FP32, trans="nt", epi=False)]
+    timed = [
+        quant_ragged_case("llama4 decode gate/up (w8)", decode, d, f,
+                          pair=(BF16, I8), out=FP32, library=True,
+                          timed=True),
+        quant_ragged_case("llama4 decode down (w8)", decode, f, d,
+                          pair=(BF16, I8), out=BF16, library=True,
+                          timed=True),
+        quant_ragged_case("llama4 decode gate/up (int8)", decode, d, f,
+                          pair=(I8, I8), out=FP32, timed=True),
+        quant_ragged_case("llama4 decode down (int8)", decode, f, d,
+                          pair=(I8, I8), out=BF16, timed=True)]
+    # Dense (the matmul(quant=) API's; no model path quantizes a dense
+    # layer): w8 with its dequant vector beside dequantize + matmul, int8
+    # and fp8 bare beside torch._int_mm / torch._scaled_mm.
+    for label, m in (("decode", 4), ("prefill 128 rows", 128)):
+        timed += [quant_dense_case(f"{label} {d}x{f}", m, d, f, pair=pair,
+                                   out=FP32 if pair[0] == I8 else BF16,
+                                   epi=pair == (BF16, I8), library=True,
+                                   timed=True)
+                  for pair in ((BF16, I8), (I8, I8), (E4, E4), (E5, E5))]
+    return checked, timed
+
+
+def check_quant(cases: list[Case], dev) -> dict[str, float]:
+    """Each quantized case against its plain version on the card: int8 x
+    int8 bitwise (an exact int32 sum, the same fp32 flush), the mixed and
+    fp8 pairs within TOL (fp32 sums of exact products in another order)."""
+    worst: dict[str, float] = {}
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for c in cases:
+        inputs = c.make(gen)
+        got, want = c.run(*inputs), c.plain(*inputs)
+        torch.cuda.synchronize()
+        rel, err = rel_err(got, want)
+        exact = inputs[0].dtype == inputs[1].dtype == I8
+        ok = torch.equal(got, want) if exact else rel <= TOL[c.out_dtype]
+        if got.dtype != c.out_dtype or not ok:
+            raise AssertionError(f"{c.kernel} {c.label} -> {c.out_dtype}: "
+                                 f"normwise {rel:.3g}"
+                                 + (" (must be bitwise)" if exact else ""))
+        worst[c.kernel] = max(worst.get(c.kernel, 0.0), err)
+        log(f"  ok  {c.kernel:18s} {c.label:66s} -> {_name(c.out_dtype):8s} "
+            + ("bitwise" if exact else f"normwise {rel:.2e}"))
+    return worst
+
+
+def check_quant_refusals(dev) -> None:
+    """The tensor-core and stream bodies, and every kernel without the
+    quantized codes, raise on a 1-byte operand, each with its own message;
+    nothing launches.  The card tests call this too."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    a, _ = _q(_randn(gen, (4, 256), FP32), I8)
+    b, _ = _q(_randn(gen, (256, 256), FP32), I8)
+    x = _randn(gen, (4, 256), BF16)
+    w, _ = _q(_randn(gen, (2, 256, 256), FP32), I8)
+    offs = _offsets([2, 2], dev)
+    body = (ValueError, "body cannot take")
+    calls = [(f"ftimm_gemm {name}", body, functools.partial(
+                 K.ftimm_gemm, a, b, bm=tile[0], bn=tile[1], bk=tile[2],
+                 out_dtype=FP32, body=name))
+             for name, tile in (("tc", K.TC_TILES[0]), ("stream", K.TILES[0]))]
+    calls += [(f"ftimm_gemm_ragged {name}", body, functools.partial(
+                  K.ftimm_gemm_ragged, x, w, offs, bm=16, bn=32, bk=64,
+                  out_dtype=FP32, body=name)) for name in ("tc", "stream")]
+    calls += [("ftimm_gemm_grouped", (NotImplementedError,
+                                      "ftimm_gemm_ragged"),
+               lambda: K.ftimm_gemm_grouped(a[None], b[None], bm=16, bn=32,
+                                            bk=64, out_dtype=FP32)),
+              ("ftimm_gemm_ragged_swiglu", (NotImplementedError, ""),
+               lambda: K.ftimm_gemm_ragged_swiglu(x, w, w, offs, bm=16, bn=32,
+                                                  bk=64, out_dtype=FP32)),
+              ("ftimm_gemm_splitk", (NotImplementedError, ""),
+               lambda: K.ftimm_gemm_splitk(a, b, bm=16, bn=32, bk=64,
+                                           nsplit=2, out_dtype=FP32))]
+    K.reset_launch_counts()
+    for label, (exc, words), call in calls:
+        try:
+            call()
+        except exc as err:
+            if words not in str(err):
+                raise AssertionError(f"{label}: {err!r} does not say "
+                                     f"{words!r}") from err
+            continue
+        raise AssertionError(f"{label} took a 1-byte operand")
+    if any(K.launch_counts().values()):
+        raise AssertionError(f"refused calls launched: {K.launch_counts()}")
+    log(f"  {len(calls)} refusals: the tensor-core and stream bodies and the "
+        "kernels without the quantized codes raise on int8 operands")
+
+
+def check_quant_backward(dev, modes=("w8", "int8", "fp8_e4m3")) -> dict:
+    """matmul(quant=) with a bias / silu / residual tail and
+    ragged_matmul(quant=), forward and straight-through backward, card
+    against the plain versions on the CPU, same inputs, for each of
+    ``modes``.  The card tests call this too."""
+    gen = torch.Generator().manual_seed(9)
+    shapes = ((40, 300), (300, 72), (72,), (40, 72), (21, 300),
+              (3, 300, 72), (40, 72))
+    a, b, bias, res, x, w, cot = (torch.randn(s, generator=gen)
+                                  for s in shapes)
+    offs = torch.tensor([0, 9, 9, 21], dtype=torch.int32)
+    epi = Epilogue(bias=True, activation="silu", residual=True)
+    worst = {}
+    for mode in modes:
+        grads = []          # on the CPU, then on the card
+        for d in (CPU, dev):
+            ins = [t.detach().to(d).requires_grad_()
+                   for t in (a, b, bias, res, x, w)]
+            y = matmul(ins[0], ins[1], quant=mode, out_dtype=FP32,
+                       epilogue=epi, bias=ins[2], residual=ins[3])
+            z = ragged_matmul(ins[4], ins[5], offs.to(d), quant=mode,
+                              out_dtype=FP32)
+            ((y * cot.to(d)).sum() + (z ** 2).sum()).backward()
+            grads.append([y.detach(), z.detach()] + [t.grad for t in ins])
+        rel = max(rel_err(g.cpu(), c)[0] for g, c in zip(grads[1],
+                                                          grads[0]))
+        if rel > TOL[FP32]:
+            raise AssertionError(f"quant={mode} backward: normwise {rel:.3g}")
+        worst[mode] = rel
+        log(f"  quant={mode}: forward and straight-through backward (dense "
+            f"with a tail, ragged), card vs CPU: normwise {rel:.2e}")
+    return worst
+
+
+def serve_quant(mode: str, dev, profile: bool = False) -> dict:
+    """llama4-scout with ``mode`` experts at full width and
+    QUANT_LAYERS[mode] layers through ServeEngine, [serve]'s 6 requests;
+    served twice (the second run recorded): the tokens must agree, every
+    ragged launch must be the FMA body on 1-byte panels and no ragged
+    SwiGLU pair may launch; the first decode step's logits against the
+    same weights unquantized."""
+    cfg = dataclasses.replace(get_config(f"{LLAMA4}-{mode}"),
+                              num_layers=QUANT_LAYERS[mode])
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    model = M.init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, cfg.vocab_size, n).astype(np.int32)
+               for n in PROMPT_LENS]
+    runs = []
+    for rec in (False, True):
+        engine = ServeEngine(cfg, model, batch_slots=SLOTS, max_len=MAX_LEN,
+                             page_size=PAGE, device=dev)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+                for i, p in enumerate(prompts)]
+        K.reset_launch_counts()
+        recorder = CallRecorder() if rec else contextlib.nullcontext()
+        with PlanRecorder() as first, recorder:
+            t0 = time.monotonic()
+            engine.run(reqs)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        for r in reqs:
+            if not r.done or len(r.out_tokens) != NEW_TOKENS:
+                raise AssertionError(f"{cfg.name} request {r.rid} did not "
+                                     f"finish: {len(r.out_tokens)} tokens")
+        runs.append((reqs, wall, list(engine.walls["decode"]),
+                     K.launch_counts(), K.body_counts(), recorder, first))
+    # Timing and logits from the first run; the counts from the second,
+    # the one the recorder saw.
+    (reqs, wall, decode, _, _, _, first), \
+        (reqs2, _, _, launches, bodies, recorder, _) = runs
+    if [r.out_tokens for r in reqs] != [r.out_tokens for r in reqs2]:
+        raise AssertionError(f"{cfg.name}: greedy tokens differ between two "
+                             "runs")
+    ragged = {}         # (x type, W type, rows, output type, body): calls
+    for c in recorder.calls.values():
+        if c["kernel"] == "ftimm_gemm_ragged":
+            (_, (t, _), _, x_dt), (_, _, _, w_dt) = c["args"][:2]
+            key = (_name(x_dt), _name(w_dt), t,
+                   _name(c["kwargs"].get("out_dtype") or x_dt),
+                   c["kwargs"].get("body", "fma"))
+            ragged[key] = ragged.get(key, 0) + c["count"]
+    bad = [key for key in ragged
+           if key[1] not in ("int8", "float8_e4m3fn", "float8_e5m2")
+           or key[4] != "fma"]
+    rb = bodies["ftimm_gemm_ragged"]
+    if not ragged or bad or launches["ftimm_gemm_ragged_swiglu"] \
+            or not sum(rb.values()) == rb["fma"] \
+            == launches["ftimm_gemm_ragged"] == sum(ragged.values()):
+        raise AssertionError(f"{cfg.name}: ragged calls {bad}, launches "
+                             f"{launches}, bodies {bodies}")
+    if launches["ftimm_gemm_ragged"] < 3 * cfg.num_layers * len(decode):
+        raise AssertionError(f"{cfg.name}: {launches['ftimm_gemm_ragged']} "
+                             f"ragged launches in {len(decode)} decode steps")
+    if first.first_decode is None:
+        raise AssertionError(f"{cfg.name}: no decode step")
+    inputs, logits = first.first_decode
+    with torch.no_grad():
+        want, _ = M.decode_step(model, dataclasses.replace(cfg, quant="none"),
+                                inputs[0], inputs[1], inputs[2],
+                                page_table=inputs[3])
+    diff = (logits.float() - want.float())
+    rel = float(torch.linalg.norm(diff) / torch.linalg.norm(want.float()))
+    maxrel, _ = rel_err(logits, want)
+    if mode in QUANT_GATED and rel > QUANT_REF_TOL:
+        raise AssertionError(f"{cfg.name}: first decode step logits "
+                             f"{rel:.3g} from unquantized > {QUANT_REF_TOL}")
+    out = {"layers": cfg.num_layers, "init_s": init_s, "wall_s": wall,
+           "tokens": sum(len(r.out_tokens) for r in reqs),
+           "decode_steps": len(decode),
+           "decode_step_median_ms": statistics.median(decode[1:]) * 1e3,
+           "peak_device_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "launches": launches, "ragged_bodies": bodies["ftimm_gemm_ragged"],
+           "ragged_calls_by_x_w_rows_out_body": {
+               " ".join(map(str, key)): n for key, n in sorted(
+                   ragged.items())},
+           "first_decode_logits_rel_fro": rel,
+           "first_decode_logits_rel_max": maxrel,
+           "gated": mode in QUANT_GATED}
+    log(f"  {cfg.name} at {cfg.num_layers} layers (init {init_s:.1f} s): "
+        f"{out['tokens']} tokens in {wall:.2f} s, {len(decode)} decode steps,"
+        f" median {out['decode_step_median_ms']:.2f} ms; peak device memory "
+        f"{out['peak_device_gb']:.2f} GB; ftimm_gemm_ragged {launches['ftimm_gemm_ragged']}"
+        f" launches, all FMA on 1-byte panels, no ragged SwiGLU pair; "
+        f"tokens identical over two runs; first decode step logits vs "
+        f"unquantized: {rel:.3e} Frobenius, {maxrel:.3e} max-normwise"
+        + (f" (gate {QUANT_REF_TOL})" if mode in QUANT_GATED else
+           " (reported, not gated)"))
+    if profile:
+        prof = profile_decode(cfg, model, slots=SLOTS, device=dev)
+        top = prof.pop("top_kernels")
+        log(f"  profile_serve --arch {LLAMA4}-{mode} --layers "
+            f"{cfg.num_layers}: device busy {prof['device_busy_ms']:.2f} "
+            f"ms / step, wall {prof['step_wall_ms']:.2f} ms, idle share "
+            f"{prof['idle_share']:.3f}")
+        for group, ms in sorted(prof["device_ms_per_step"].items(),
+                                key=lambda kv: -kv[1]):
+            log(f"    {group:34s} {ms:9.3f} ms / step")
+        for name, count, ms in top[:6]:
+            log(f"    top {ms:8.3f} ms x{count:<4d} {name[:90]}")
+        out["profile"] = prof
+    del model
+    free_card()
+    return out
+
+
+def quant_pass_ms(dev) -> dict:
+    """Device ms of the dispatch layer's per-call weight quantization of
+    one llama4 expert stack, (16, 5120, 8192) bf16, per mode; a decode
+    step runs it 3 times a layer."""
+    l4 = get_config(LLAMA4)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    w = [_randn(gen, (l4.num_experts, l4.d_model, l4.d_ff), BF16)
+         for _ in range(2)]
+    sleep = sleep_ms_per_mcycle()
+    out = {}
+    for mode in ("w8", "w4", "int8"):
+        qcfg = QUANT.QuantConfig(mode)
+        out[mode] = time_ms(lambda t: D._quantize_weight(t, qcfg),
+                            [(t,) for t in w], 4, sleep)
+    gb = w[0].numel() * 2 / 1e9
+    log(f"  weight quantization of one expert stack ({gb:.2f} GB bf16): "
+        + ", ".join(f"{m} {ms:.3f} ms" for m, ms in out.items())
+        + f"; one bf16 read is {gb / HBM_BYTES_PER_S * 1e12:.3f} ms; x "
+        f"{3 * MOE_LAYERS} a decode step at {MOE_LAYERS} layers")
+    del w
+    free_card()
+    return out
+
+
+def quant_phase(dev) -> tuple[dict, dict[str, float], list[dict]]:
+    checked, timed = quant_cases()
+    worst = check_quant(checked, dev)
+    check_quant_refusals(dev)
+    backward = check_quant_backward(dev)
+    free_card()
+    serving = {}
+    for mode in ("w8", "int8", "w4"):
+        serving[mode] = serve_quant(mode, dev, profile=mode == "w8")
+    passes = quant_pass_ms(dev)
+    rows = timings(timed, dev)
+    for r in rows:
+        log(f"  {r['kernel']:18s} {r['label']:52s} kernel "
+            f"{r['ms'] * 1e3:9.1f} us  plain {r['plain_ms'] * 1e3:9.1f} us  "
+            f"library " + ("-" if r["library_ms"] is None
+                           else f"{r['library_ms'] * 1e3:.1f}")
+            + " us  yardstick " + ("-" if r["yardstick_ms"] is None
+                                   else f"{r['yardstick_ms'] * 1e3:.1f}")
+            + f" us  bound {r['bound_ms'] * 1e3:7.1f} us ({r['bound_by']})")
+    return ({"backward_rel": backward, "serving": serving,
+             "quant_pass_ms": passes, "checked": len(checked)}, worst, rows)
+
+
+# ---------------------------------------------------------------------------
 # The kernels line
 # ---------------------------------------------------------------------------
 
@@ -2503,7 +3010,11 @@ YARDSTICKS = {
                                 "then silu(g) * u"}
 
 
-def kernel_entries(rows, launches, worst, bodies) -> list[dict]:
+def kernel_entries(rows, launches, worst, bodies,
+                   quant_rows=()) -> list[dict]:
+    """One entry per kernel, its numbers from its home run; the quantized
+    type paths of ``ftimm_gemm`` and ``ftimm_gemm_ragged`` ([quant]) ride
+    along in their entries' ``quant`` lists."""
     entries = []
     for name in K.KERNELS:
         phase, model = home = HOME[name]
@@ -2552,7 +3063,12 @@ def kernel_entries(rows, launches, worst, bodies) -> list[dict]:
                                           "library_ms", "library_note",
                                           "yardstick_ms", "bound_ms",
                                           "bound_by")}
-                       for r in rows if r["kernel"] == name]})
+                       for r in rows if r["kernel"] == name],
+            **({"quant": [{k: r[k] for k in (
+                "label", "ms", "plain_ms", "library_ms", "library_note",
+                "yardstick_ms", "bound_ms", "bound_by")}
+                for r in quant_rows if r["kernel"] == name]}
+               if any(r["kernel"] == name for r in quant_rows) else {})})
     return entries
 
 
@@ -2656,6 +3172,15 @@ def main() -> int:
     log(f"[autotune] done in {phases['autotune']:.1f} s")
 
     t0 = time.monotonic()
+    log("[quant] the quantized type paths of ftimm_gemm and "
+        "ftimm_gemm_ragged, and llama4-scout served with quantized experts")
+    quant, quant_worst, quant_rows = quant_phase(dev)
+    for name, err in quant_worst.items():
+        worst[name] = max(worst.get(name, 0.0), err)
+    phases["quant"] = time.monotonic() - t0
+    log(f"[quant] done in {phases['quant']:.1f} s")
+
+    t0 = time.monotonic()
     log("[time] decode-step and training shapes")
     rows = timings(qwen_cases + moe_cases + trn_cases, dev)
     phases["time"] = time.monotonic() - t0
@@ -2675,13 +3200,13 @@ def main() -> int:
                     "moe_reference": refs,
                     "train_reference": train_refs, "train": train_stats,
                     "train_schedule": witness, "autotune": tuned,
-                    "phases_s": phases}))
+                    "quant": quant, "phases_s": phases}))
     log(card)
     bodies = {("serve", a): stats[a]["bodies"] for a in stats}
     bodies.update({("train", a): train_stats[a]["bodies"]
                    for a in train_stats})
     print(json.dumps({"kernels": kernel_entries(rows, launches, worst,
-                                                bodies)}))
+                                                bodies, quant_rows)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

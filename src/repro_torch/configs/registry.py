@@ -2,10 +2,14 @@
 
 The dense decoder and the two MoE decoders on the serving path are ported;
 every other architecture of the reference raises until its family is
-ported, and so do the reference's quantization suffixes (``-w8`` / ``-w4``
-/ ``-int8``), which come with quantization.
+ported.  The reference's variant suffixes compose in either order:
+``-smoke`` and ``-w8`` / ``-w4`` / ``-int8`` (``ModelConfig.quant``, the
+quantized ragged experts).  As in the reference, the dense family ignores
+``quant``, and capacity dispatch with it raises in the forward pass.
 """
 from __future__ import annotations
+
+from dataclasses import replace
 
 from .base import ModelConfig, smoke_config
 from .llama4_scout_17b_a16e import CONFIG as _llama4
@@ -19,15 +23,28 @@ _QUANT_SUFFIXES = ("w8", "w4", "int8")
 
 
 def get_config(name: str) -> ModelConfig:
-    """Resolve an arch name; ``<arch>-smoke`` shrinks it for CPU tests."""
-    base = name[:-len("-smoke")] if name.endswith("-smoke") else name
-    if base.rsplit("-", 1)[-1] in _QUANT_SUFFIXES:
-        raise KeyError(f"{name!r}: quantized variants are not ported yet")
+    """Resolve an arch name with its variant suffixes, in either order:
+    ``<arch>-smoke`` shrinks it for CPU tests, ``<arch>-w8`` / ``-w4`` /
+    ``-int8`` sets ``quant`` (``llama4-scout-17b-a16e-w8-smoke`` and
+    ``...-smoke-w8`` are one config)."""
+    base, quant, smoke = name, "none", False
+    while True:
+        if base.endswith("-smoke") and not smoke:
+            base, smoke = base[:-len("-smoke")], True
+            continue
+        tail = base.rsplit("-", 1)[-1]
+        if tail in _QUANT_SUFFIXES and quant == "none":
+            base, quant = base[:-len(tail) - 1], tail
+            continue
+        break
     if base not in ARCHS:
         raise KeyError(f"{name!r} is not ported yet (the port runs "
-                       f"{sorted(ARCHS)}, each optionally with -smoke)")
+                       f"{sorted(ARCHS)}, each optionally with -smoke and "
+                       f"one of {_QUANT_SUFFIXES})")
     cfg = ARCHS[base]
-    return smoke_config(cfg) if base != name else cfg
+    if smoke:
+        cfg = smoke_config(cfg)
+    return replace(cfg, quant=quant) if quant != "none" else cfg
 
 
 def list_archs() -> list[str]:

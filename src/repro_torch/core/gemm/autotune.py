@@ -35,8 +35,7 @@ this module closes the loop on the card, in the reference's four steps:
 The entry points run on the CUDA card unless the caller passes
 ``device="cpu"``, and raise where there is no card.  Not ported: the
 placed search over a mesh (``num_shards`` > 1), ``calibrate_ici`` and the
-end-to-end placed timings (ROADMAP Queue 1 item 10), and the int8 fraction
-of ``calibrate`` (item 5: the port has no 1-byte path).
+end-to-end placed timings (ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -69,12 +68,12 @@ F32 = torch.float32
 
 def _dtype(nbytes: int) -> torch.dtype:
     try:
-        return {4: torch.float32, 2: torch.bfloat16}[int(nbytes)]
+        return {4: torch.float32, 2: torch.bfloat16,
+                1: torch.int8}[int(nbytes)]
     except KeyError:
         raise ValueError(
             f"unsupported operand width for measured tuning: {nbytes} bytes "
-            "(4 = float32, 2 = bfloat16; 1-byte operands come with "
-            "quantization, ROADMAP Queue 1 item 5)") from None
+            "(4 = float32, 2 = bfloat16, 1 = int8)") from None
 
 
 def _no_placement(num_shards: int) -> None:
@@ -199,8 +198,12 @@ def _stored(shape: tuple, dtype, gen, ok: bool = True) -> torch.Tensor:
     read."""
     cols = shape[-1]
     ld = cols if ok else cols + (1 if (cols + 1) % 8 else 3)
-    t = torch.randn((*shape[:-1], ld), generator=gen, device=gen.device,
-                    dtype=F32).to(dtype)
+    if dtype == torch.int8:     # full-range codes, as quantized operands
+        t = torch.randint(-127, 128, (*shape[:-1], ld), generator=gen,
+                          device=gen.device, dtype=torch.int32).to(dtype)
+    else:
+        t = torch.randn((*shape[:-1], ld), generator=gen, device=gen.device,
+                        dtype=F32).to(dtype)
     return t[..., :cols]
 
 
@@ -691,14 +694,34 @@ def calibrate(results, *, spec: HopperSpec = H100,
     install it in the plan store, where ``tuner.effective_spec`` applies it
     to every later default-spec plan.  ``est_measured`` is always in the
     raw spec, so a refit with a calibration installed composes instead of
-    collapsing to ~1."""
-    if any(r.in_bytes == 1 for r in results):
-        raise NotImplementedError(
-            "the int8 flops fraction comes with quantization, ROADMAP "
-            "Queue 1 item 5")
+    collapsing to ~1.
+
+    1-byte results (``in_bytes == 1``: int8 x int8, priced at the FMA
+    body's integer rate, ``HopperSpec.peak_ops_int32``) are fitted apart
+    into ``flops_frac_int8``, against the wide results' bandwidth fraction
+    (the memory does not change with the arithmetic), or jointly with
+    their own bandwidth fraction when there are no wide results.  Mixed
+    weight-only results (``b_bytes`` 1, wide activations) compute in fp32
+    and stay in the main fit.  The harness makes its 1-byte operands int8,
+    so the fraction covers int8 x int8 only: fp8 x fp8 prices at the fp32
+    rate (``HopperSpec.kernel_flops``) and takes the main fraction."""
     engines = {r.engine for r in results}
-    cal = fit_calibration([(r.est_measured, r.t_measured) for r in results],
+    wide = [r for r in results if r.in_bytes != 1]
+    narrow = [(r.est_measured, r.t_measured) for r in results
+              if r.in_bytes == 1]
+    cal = fit_calibration([(r.est_measured, r.t_measured) for r in wide],
                           engine=",".join(sorted(engines)), spec=spec)
+    if narrow:
+        if wide:
+            fracs = (10.0 ** (e * 4.0 / 64) for e in range(-64, 65))
+            int8_frac = min(fracs, key=lambda ff: prediction_error(
+                narrow, ff, cal.bw_frac))
+        else:
+            ncal = fit_calibration(narrow, engine=cal.engine, spec=spec)
+            cal = replace(cal, bw_frac=ncal.bw_frac)
+            int8_frac = ncal.flops_frac
+        cal = replace(cal, flops_frac_int8=int8_frac,
+                      n_samples=len(results))
     if store:
         st = plan_store.get_store()
         if st.calibration is not None:   # keep a fitted ICI fraction

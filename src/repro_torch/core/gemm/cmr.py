@@ -48,21 +48,36 @@ class HopperSpec:
     l2_bytes: float = 50e6
     peak_flops_bf16: float = 989e12        # tensor cores
     peak_flops_fp32: float = 67e12         # CUDA cores, FMA
+    peak_ops_int32: float = 33.5e12        # CUDA cores, integer multiply-add
+                                           # (NVIDIA's H100 white paper)
 
-    def kernel_flops(self, body: str = "fma") -> float:
+    def kernel_flops(self, body: str = "fma", in_bytes: int = 4,
+                     fp8: bool = False) -> float:
         """Peak of the engine a kernel body uses: the tensor cores' bf16 rate
         for "tc"; CUDA-core fp32 FMAs for "fma" (every operand widened to
-        fp32) and for "stream" (FMAs on the unpacked bf16 pairs)."""
-        return self.peak_flops_bf16 if body == "tc" else self.peak_flops_fp32
+        fp32) and for "stream" (FMAs on the unpacked bf16 pairs); the FMA
+        body's integer multiply-adds for int8 x int8 (``in_bytes`` 1, which
+        sums in int32, and the rate ``calibrate`` fits ``flops_frac_int8``
+        against).  fp8 x fp8 (``fp8``) is widened to fp32 and summed with
+        fp32 FMAs, at their rate."""
+        if body == "tc":
+            return self.peak_flops_bf16
+        if body == "fma" and in_bytes == 1 and not fp8:
+            return self.peak_ops_int32
+        return self.peak_flops_fp32
 
-    def calibrated(self, flops_frac: float, bw_frac: float) -> "HopperSpec":
-        """The measured-effective view of this card: both peak rates scaled
-        by the achievable-flops fraction and the device-memory bandwidth by
-        the effective fraction (``autotune.calibrate`` fits both).
-        Capacities and tiles stay nominal."""
+    def calibrated(self, flops_frac: float, bw_frac: float,
+                   int8_frac: float | None = None) -> "HopperSpec":
+        """The measured-effective view of this card: the peak rates scaled
+        by the achievable-flops fraction (the 1-byte rate by its own
+        ``int8_frac`` when the calibration fitted one) and the device-memory
+        bandwidth by the effective fraction (``autotune.calibrate`` fits
+        them).  Capacities and tiles stay nominal."""
         return replace(self, name=f"{self.name}+cal",
                        peak_flops_bf16=self.peak_flops_bf16 * flops_frac,
                        peak_flops_fp32=self.peak_flops_fp32 * flops_frac,
+                       peak_ops_int32=self.peak_ops_int32
+                       * (flops_frac if int8_frac is None else int8_frac),
                        hbm_bw=self.hbm_bw * bw_frac)
 
 
@@ -116,7 +131,8 @@ class PlanEstimate:
 def _estimate(g: int, m: int, k: int, n: int, *, bm: int, bn: int, bk: int,
               a_reads: int, b_reads: int, in_bytes: int, out_bytes: int,
               panels: int, spec: HopperSpec, body: str = "fma",
-              stages: int = 4, dim_order: str = "mn") -> PlanEstimate:
+              stages: int = 4, dim_order: str = "mn",
+              fp8: bool = False) -> PlanEstimate:
     gm, gn, gk = cdiv(m, bm), cdiv(n, bn), cdiv(k, bk)
     ctas = g * gm * gn
     occ = max(occupancy(ctas, spec), 1e-3)
@@ -144,7 +160,8 @@ def _estimate(g: int, m: int, k: int, n: int, *, bm: int, bn: int, bk: int,
         flops_useful=flops_useful,
         flops_padded=flops_padded,
         hbm_bytes=float(hbm),
-        t_compute=flops_padded / (spec.kernel_flops(body) * occ),
+        t_compute=flops_padded / (spec.kernel_flops(body, in_bytes, fp8)
+                                  * occ),
         t_memory=hbm / (spec.hbm_bw * bw_share),
         smem_bytes=smem_bytes(bm, bn, bk, panels, body=body, stages=stages),
         occupancy=occ,
@@ -168,15 +185,17 @@ def estimate(m: int, k: int, n: int, *, bm: int, bn: int, bk: int,
              in_bytes: int = 4, out_bytes: int = 4, panels: int = 1,
              spec: HopperSpec = H100, body: str = "fma",
              stages: int = 4, dim_order: str = "mn", epi_ops: int = 0,
-             epi_fused: bool = True) -> PlanEstimate:
+             epi_fused: bool = True, fp8: bool = False) -> PlanEstimate:
     """Model one tile of C(M,N) = A(M,K) B(K,N) on one card.  ``panels`` = 2
     prices the fused SwiGLU pair (two B panels against one A panel);
     ``body`` "tc" the tensor-core body with a ``stages``-deep ring, whose
     operand traffic follows the grid order's L2 reuse; ``epi_ops`` an
-    elementwise tail, fused or not (``with_epilogue``)."""
+    elementwise tail, fused or not (``with_epilogue``); ``fp8``: 1-byte
+    operands are fp8, not int8 (``HopperSpec.kernel_flops``)."""
     e = _estimate(1, m, k, n, bm=bm, bn=bn, bk=bk, a_reads=1, b_reads=1,
                   in_bytes=in_bytes, out_bytes=out_bytes, panels=panels,
-                  spec=spec, body=body, stages=stages, dim_order=dim_order)
+                  spec=spec, body=body, stages=stages, dim_order=dim_order,
+                  fp8=fp8)
     return with_epilogue(e, m, n, out_bytes, epi_ops, epi_fused, spec)
 
 
@@ -269,7 +288,7 @@ def estimate_ragged(g: int, total: int, k: int, n: int, *, bm: int, bn: int,
                     bk: int, ragged: str = "m", in_bytes: int = 4,
                     out_bytes: int = 4, panels: int = 1,
                     spec: HopperSpec = H100, body: str = "fma",
-                    stages: int = 2) -> PlanEstimate:
+                    stages: int = 2, fp8: bool = False) -> PlanEstimate:
     """Model one tile of the ragged grouped GEMM over ``g`` groups.
 
     ``ragged == "m"`` (the forward): ``total`` rows of a flat (total, k)
@@ -287,7 +306,8 @@ def estimate_ragged(g: int, total: int, k: int, n: int, *, bm: int, bn: int,
     partial step per group, and each of the G panels is written once,
     empty ones too.  ``body`` "tc" prices either on the tensor-core body
     with a ``stages``-deep ring; the forward's stream body has its own
-    model (``estimate_group_stream``)."""
+    model (``estimate_group_stream``).  ``fp8``: 1-byte operands are fp8,
+    not int8 (``HopperSpec.kernel_flops``)."""
     if ragged == "k":
         gm, gn = cdiv(k, bm), cdiv(n, bn)
         steps = cdiv(total, bk) + max(min(g, total) - 1, 0)
@@ -323,7 +343,8 @@ def estimate_ragged(g: int, total: int, k: int, n: int, *, bm: int, bn: int,
         flops_useful=2.0 * total * n * k * panels,
         flops_padded=flops_padded,
         hbm_bytes=float(hbm),
-        t_compute=flops_padded / (spec.kernel_flops(body) * occ),
+        t_compute=flops_padded / (spec.kernel_flops(body, in_bytes, fp8)
+                                  * occ),
         t_memory=hbm / (spec.hbm_bw * bw_share),
         smem_bytes=smem_bytes(bm, bn, bk, panels, body=body, stages=stages),
         occupancy=occ,

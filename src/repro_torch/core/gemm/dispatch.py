@@ -28,11 +28,26 @@ cotangent, to the operand type) and nowhere else: an fp32 cotangent of a
 bf16 product with fp32 output (the logits, the router) enters its dX / dW
 products in fp32, on the kernels' mixed bf16 x fp32 instantiations.  Group
 offsets get no gradient.
+
+``quant=`` (``matmul`` / ``project`` / ``ragged_matmul``; a
+``core.quant`` mode or ``QuantConfig``) is the reference's managed
+quantized GEMM: the call quantizes its operands itself (the weight per
+channel -- per expert and channel for the ragged panels --, the
+activations per tensor for "int8" and the fp8 modes; w4 round-trips its
+nibble packing), runs the 1-byte product with the combined dequant vector
+in the epilogue's ``scale_vec`` and then the caller's tail, and its
+backward is straight-through: dA against the quantized panel with the
+weight scale folded into the cotangent (dense), or dX against the
+dequantized panels (ragged); dW is the full-precision product.  The
+weights are quantized on every call, as in the reference's serving.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
+from .. import quant as _quant
 from ...kernels.ftimm import ops as _ops
 from ...kernels.ftimm.epilogue import IDENTITY, Epilogue
 from ...kernels.ftimm.kernel import (gemm_operands_ok, grouped_operands,
@@ -66,6 +81,13 @@ def _needs_grad(*tensors) -> bool:
 # Dense
 # ---------------------------------------------------------------------------
 
+def _fp8(a, b) -> bool:
+    """Both operands 1-byte floats: the FMA body sums them with fp32 FMAs,
+    not the int8 path's integer multiply-adds (the planner's ``fp8``)."""
+    return all(t.element_size() == 1 and t.dtype.is_floating_point
+               for t in (a, b))
+
+
 def _run_dense(a, b, trans: str, out_dtype, epi: Epilogue = IDENTITY,
                bias=None, residual=None, scale=None) -> torch.Tensor:
     """Plan one dense GEMM (its body too: the planner sees the operand
@@ -77,7 +99,7 @@ def _run_dense(a, b, trans: str, out_dtype, epi: Epilogue = IDENTITY,
     a_ok, b_ok = gemm_operands_ok(a, b, trans)
     plan = plan_gemm(m, k, n, a.element_size(), out_dtype.itemsize,
                      b_bytes=b.element_size(), a_ok=a_ok, b_ok=b_ok,
-                     trans=trans)
+                     trans=trans, fp8=_fp8(a, b))
     note_plan_use("dense", plan)
     if not epi.is_identity:
         note_epilogue("dense", plan.fuse)
@@ -103,6 +125,24 @@ def _dense_grads(a, b, dz, trans: str, need_a: bool, need_b: bool):
     return da, db
 
 
+def _tail_grads(epi: Epilogue, z, extras, g):
+    """(dz, [d_bias, d_residual, d_scale][:len(extras)]) of ``epi.apply(z,
+    *extras)`` for the cotangent ``g``, in fp32; each operand's gradient
+    in its own dtype, None where the operand is absent."""
+    live = [i for i, t in enumerate(extras) if t is not None]
+    with torch.enable_grad():
+        z_ = z.detach().requires_grad_()
+        ins = [t.detach().requires_grad_() if t is not None else None
+               for t in extras]
+        y = epi.apply(z_, *ins)
+        grads = torch.autograd.grad(y, [z_] + [ins[i] for i in live],
+                                    g.to(F32))
+    d_extras = [None] * len(extras)
+    for i, d in zip(live, grads[1:]):
+        d_extras[i] = d.to(extras[i].dtype)
+    return grads[0], d_extras
+
+
 class _Matmul(torch.autograd.Function):
     """The reference's ``_pallas_fn`` custom VJP."""
 
@@ -116,30 +156,91 @@ class _Matmul(torch.autograd.Function):
     def backward(ctx, g):
         a, b, bias, residual, scale = ctx.saved_tensors
         trans, epi = ctx.trans, ctx.epi
-        extras = (bias, residual, scale)
         d_extras = [None, None, None]
         if epi.is_identity:
             dz = g.contiguous()
         else:
-            g32 = g.to(F32)
             # The epilogue's gradient depends on z only through an
             # activation or the scale vector's own cotangent; otherwise the
             # pre-epilogue product is not rematerialised (any z will do).
             z = (_run_dense(a, b, trans, F32)
-                 if epi.activation != "none" or epi.scale_vec else g32)
-            live = [i for i, t in enumerate(extras) if t is not None]
-            with torch.enable_grad():
-                z_ = z.detach().requires_grad_()
-                ins = [t.detach().requires_grad_() if t is not None else None
-                       for t in extras]
-                y = epi.apply(z_, bias=ins[0], residual=ins[1], scale=ins[2])
-                grads = torch.autograd.grad(y, [z_] + [ins[i] for i in live],
-                                            g32)
-            dz = grads[0].to(a.dtype)
-            for i, d in zip(live, grads[1:]):
-                d_extras[i] = d.to(extras[i].dtype)
+                 if epi.activation != "none" or epi.scale_vec else g.to(F32))
+            dz, d_extras = _tail_grads(epi, z, (bias, residual, scale), g)
+            dz = dz.to(a.dtype)
         need_a, need_b = ctx.needs_input_grad[:2]
         da, db = _dense_grads(a, b, dz, trans, need_a, need_b)
+        return (da, db, *d_extras, None, None, None)
+
+
+# The profiler range around the weight quantization of a quantized call
+# (``launch.profile_serve`` reports its kernels as a group of their own).
+QUANT_RANGE = "ftimm weight quantization"
+
+
+def _quantize_weight(w: torch.Tensor, qcfg: "_quant.QuantConfig"):
+    """(W_q, scale): the panel(s) per channel, w4 through its nibble
+    packing (the kernel reads int8, holding what the packed storage
+    holds)."""
+    with torch.profiler.record_function(QUANT_RANGE):
+        w_q, w_scale = _quant.quantize_weights(w, qcfg)
+        if qcfg.mode == "w4":
+            w_q = _quant.unpack_int4(_quant.pack_int4(w_q))
+    return w_q, w_scale
+
+
+def _quantize_operands(a, b, qcfg: "_quant.QuantConfig"):
+    """(A as the kernel reads it, W_q, the weight scale, the combined
+    (N,) or (G, N) dequant vector): weight-only modes keep A, the others
+    quantize it per tensor."""
+    w_q, w_scale = _quantize_weight(b, qcfg)
+    if qcfg.weight_only:
+        return a, w_q, w_scale, w_scale
+    a_q, a_scale = _quant.quantize_activations(a, qcfg)
+    return a_q, w_q, w_scale, w_scale * a_scale
+
+
+def _run_quant(a, b, qcfg, out_dtype, epi: Epilogue, bias, residual):
+    """The quantized dense forward: the 1-byte (or mixed) product with the
+    dequant vector at the flush, then the caller's tail."""
+    a_q, w_q, _, sv = _quantize_operands(a, b, qcfg)
+    return _run_dense(a_q, w_q, "nn", out_dtype,
+                      dataclasses.replace(epi, scale_vec=True), bias,
+                      residual, sv)
+
+
+class _QuantMatmul(torch.autograd.Function):
+    """The reference's ``_quant_fn`` custom VJP: straight-through against
+    the dequantized weight.  dA is the planned "nt" product of the
+    cotangent, its columns scaled by the weight scale, against W_q (the
+    1-byte panel, on ``ftimm_gemm``'s mixed FMA instantiations); dB the
+    full-precision T2 product.  With a tail the pre-tail value (the
+    dequantized product) is rematerialised for the tail's gradient."""
+
+    @staticmethod
+    def forward(ctx, a, b, bias, residual, qcfg, out_dtype, epi):
+        ctx.save_for_backward(a, b, bias, residual)
+        ctx.qcfg, ctx.epi = qcfg, epi
+        return _run_quant(a, b, qcfg, out_dtype, epi, bias, residual)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b, bias, residual = ctx.saved_tensors
+        epi = ctx.epi
+        a_q, w_q, w_scale, sv = _quantize_operands(a, b, ctx.qcfg)
+        d_extras = [None, None]
+        if epi.is_identity:
+            dz = g.to(F32)
+        else:
+            z = _run_dense(a_q, w_q, "nn", F32, Epilogue(scale_vec=True),
+                           scale=sv)
+            dz, d_extras = _tail_grads(epi, z, (bias, residual), g)
+        need_a, need_b = ctx.needs_input_grad[:2]
+        da = db = None
+        if need_a:
+            da = _run_dense((dz * w_scale.to(F32)).to(a.dtype), w_q, "nt",
+                            F32).to(a.dtype)
+        if need_b:
+            db = _run_dense(a, dz.to(a.dtype), "tn", F32).to(b.dtype)
         return (da, db, *d_extras, None, None, None)
 
 
@@ -147,13 +248,32 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, trans: str = "nn",
            out_dtype=None, epilogue: Epilogue | None = None,
            bias: torch.Tensor | None = None,
            residual: torch.Tensor | None = None,
-           scale: torch.Tensor | None = None) -> torch.Tensor:
+           scale: torch.Tensor | None = None,
+           quant: "_quant.QuantConfig | str | None" = None) -> torch.Tensor:
     """2-D GEMM through the ftIMM planner, fp32 accumulation always.
     ``epilogue`` fuses the elementwise tail into the accumulator flush:
     ``bias`` (N,), ``residual`` (M, N), ``scale`` the (N,) dequant vector;
-    all are differentiable."""
+    all are differentiable.  ``quant`` ("w8" / "w4" / "int8" / "fp8_e4m3"
+    / "fp8_e5m2", or a ``QuantConfig``) quantizes the operands in the call
+    and runs the quantized product (the module docstring), for ``trans``
+    "nn" only and without ``scale``."""
     epi = IDENTITY if epilogue is None else epilogue
     out_dtype = out_dtype or a.dtype
+    qcfg = _quant.resolve(quant)
+    if not qcfg.is_noop:
+        if trans != "nn":
+            raise ValueError("quantized matmul is defined for trans='nn' "
+                             f"only (got trans={trans!r})")
+        if epi.scale_vec or scale is not None:
+            raise ValueError(
+                "quant= derives its own dequant scale; for manual control "
+                "pass pre-quantized operands with epilogue.scale_vec "
+                "instead")
+        _check_epi(epi, bias, residual, None)
+        if _needs_grad(a, b, bias, residual):
+            return _QuantMatmul.apply(a, b, bias, residual, qcfg, out_dtype,
+                                      epi)
+        return _run_quant(a, b, qcfg, out_dtype, epi, bias, residual)
     _check_epi(epi, bias, residual, scale)
     if _needs_grad(a, b, bias, residual, scale):
         return _Matmul.apply(a, b, bias, residual, scale, trans, out_dtype,
@@ -164,16 +284,18 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, trans: str = "nn",
 def project(x: torch.Tensor, w: torch.Tensor, *, trans: str = "nn",
             out_dtype=None, epilogue: Epilogue | None = None,
             bias: torch.Tensor | None = None,
-            residual: torch.Tensor | None = None) -> torch.Tensor:
+            residual: torch.Tensor | None = None,
+            quant: "_quant.QuantConfig | str | None" = None) -> torch.Tensor:
     """(..., D) against a (D, N) weight ("nn") or an (N, D) one ("nt") ->
     (..., N), the leading dims flattened into the paper's M (tokens).
-    ``residual`` (..., N) is flattened alongside x."""
+    ``residual`` (..., N) is flattened alongside x; ``quant`` as for
+    ``matmul``."""
     lead = x.shape[:-1]
     n = w.shape[-1] if trans == "nn" else w.shape[0]
     res = None if residual is None else residual.reshape(-1, n)
     y = matmul(x.reshape(-1, x.shape[-1]), w, trans=trans,
                out_dtype=out_dtype, epilogue=epilogue, bias=bias,
-               residual=res)
+               residual=res, quant=quant)
     return y.reshape(*lead, n)
 
 
@@ -388,25 +510,27 @@ def grouped_swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _run_ragged(x, w, offsets, trans: str, out_dtype,
-                bias=None) -> torch.Tensor:
+                bias=None, scale=None) -> torch.Tensor:
     """Plan one ragged grouped GEMM off its distribution signature (its
     body too, from the total rows, the widths and how TMA reads x and the
     panels) and run it.  ``w`` (G, K, N) "nn" or (G, N, K) "nt"; ``bias``
-    (G, N)."""
+    or ``scale`` (the dequant vector): a (G, N) flush vector."""
     g = w.shape[0]
     k, n = (w.shape[1], w.shape[2]) if trans == "nn" else (w.shape[2],
                                                             w.shape[1])
     x_k, w_ok = ragged_operands(x, w, trans)
     plan = plan_ragged_gemm(g, x.shape[0], k, n, x.element_size(),
                             out_dtype.itemsize, b_bytes=w.element_size(),
-                            a_ok=x_k, b_ok=w_ok, trans=trans)
+                            a_ok=x_k, b_ok=w_ok, trans=trans,
+                            fp8=_fp8(x, w))
     note_plan_use("ragged", plan)
-    epi = None if bias is None else Epilogue(bias=True)
-    if bias is not None:
+    epi = Epilogue(bias=bias is not None, scale_vec=scale is not None)
+    if not epi.is_identity:
         note_epilogue("ragged", True)
     return _ops.ragged_gemm(x, w, offsets, bm=plan.bm, bn=plan.bn,
                             bk=plan.bk, trans=trans, out_dtype=out_dtype,
-                            epilogue=epi, bias=bias, body=plan.body,
+                            epilogue=None if epi.is_identity else epi,
+                            bias=bias, scale=scale, body=plan.body,
                             kslices=plan.kslices)
 
 
@@ -450,23 +574,63 @@ class _Ragged(torch.autograd.Function):
         return dx, dw, None, dbias, None
 
 
+def _run_quant_ragged(x, w, offsets, qcfg, out_dtype) -> torch.Tensor:
+    """The quantized ragged forward: per-expert per-channel panels (and
+    the per-tensor rows for "int8" / fp8), the (G, N) dequant vector at
+    the flush."""
+    x_run, w_q, _, sv = _quantize_operands(x, w, qcfg)
+    return _run_ragged(x_run, w_q, offsets, "nn", out_dtype, scale=sv)
+
+
+class _QuantRagged(torch.autograd.Function):
+    """The reference's ``_quant_ragged_fn`` custom VJP: straight-through,
+    dX the planned "nt" ragged product against the dequantized panels,
+    dW the full-precision ragged-K product."""
+
+    @staticmethod
+    def forward(ctx, x, w, offsets, qcfg, out_dtype):
+        ctx.save_for_backward(x, w, offsets)
+        ctx.qcfg = qcfg
+        return _run_quant_ragged(x, w, offsets, qcfg, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, offsets = ctx.saved_tensors
+        need_x, need_w = ctx.needs_input_grad[:2]
+        dy = g.contiguous()
+        dx = dw = None
+        if need_x:
+            w_q, w_scale = _quantize_weight(w, ctx.qcfg)
+            w_dq = _quant.dequantize(w_q, w_scale[:, None, :], dtype=x.dtype)
+            dx = _run_ragged(dy, w_dq, offsets, "nt", x.dtype)
+        if need_w:
+            dw = _run_ragged_dw(x, dy, offsets, w.dtype)
+        return dx, dw, None, None, None
+
+
 def ragged_matmul(x: torch.Tensor, w: torch.Tensor,
                   group_offsets: torch.Tensor, *, out_dtype=None,
                   bias: torch.Tensor | None = None,
-                  quant: str | None = None) -> torch.Tensor:
+                  quant: "_quant.QuantConfig | str | None" = None
+                  ) -> torch.Tensor:
     """Ragged grouped GEMM through the ftIMM planner; fp32 accumulation.
 
     ``x`` (T, D) flat rows sorted so each group's rows are contiguous;
     ``group_offsets`` (G+1,) prefix sums on x's device, offsets[0] == 0 and
     offsets[G] == T (every row owned: capacity-free, nothing dropped); ``w``
     (G, D, F) per-group panels.  Returns (T, F).  ``bias`` (G, F) adds a
-    per-expert bias at the flush.  Quantized panels (``quant``) are not
-    ported yet and raise."""
-    if quant not in (None, "none"):
-        raise NotImplementedError(
-            f"quant={quant!r}: quantized expert panels come with "
-            "quantization (int8 / fp8 / mixed kernels are not built yet)")
+    per-expert bias at the flush.  ``quant`` quantizes the panels per
+    expert and channel in the call (the module docstring); it takes no
+    bias."""
     out_dtype = out_dtype or x.dtype
+    qcfg = _quant.resolve(quant)
+    if not qcfg.is_noop:
+        if bias is not None:
+            raise ValueError("quantized ragged matmul does not take a bias "
+                             "operand; apply it as a separate epilogue")
+        if _needs_grad(x, w):
+            return _QuantRagged.apply(x, w, group_offsets, qcfg, out_dtype)
+        return _run_quant_ragged(x, w, group_offsets, qcfg, out_dtype)
     if _needs_grad(x, w, bias):
         return _Ragged.apply(x, w, group_offsets, bias, out_dtype)
     return _run_ragged(x, w, group_offsets, "nn", out_dtype, bias)

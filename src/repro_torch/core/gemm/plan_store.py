@@ -42,7 +42,7 @@ import torch
 from ...kernels.ftimm.kernel import (BODIES, GROUP_TC_TILE, GSTREAM_ROWS,
                                      STREAM_ROWS, STREAM_SLICE_STEP,
                                      STREAM_SMEM, STREAM_STRIP, TC_STAGES,
-                                     TC_TILES, TILES, gstream_smem,
+                                     TC_TILES, fma_tiles, gstream_smem,
                                      smem_bytes)
 from .cmr import H100
 
@@ -237,6 +237,21 @@ class PlanStore:
         return path
 
 
+def _widths(key: str) -> tuple[int, int] | None:
+    """(A's width, B's width) of a key: its ``ib`` field and its ``bb``
+    fragment (B's width when it differs from A's); None if unparseable."""
+    parts = key.split("|")
+    try:
+        ib = int(parts[2].removeprefix("ib"))
+    except (IndexError, ValueError):
+        return None
+    bb = ib
+    for frag in (parts[4].split("+") if len(parts) > 4 else ()):
+        if frag.startswith("bb") and frag[2:].isdigit():
+            bb = int(frag[2:])
+    return ib, bb
+
+
 def _variant(key: str) -> tuple[str, int, bool] | None:
     """(kernel, panels, group stream) of a key's family and fragments, or
     None for an unknown family: the kernel whose tile menu and ring depth
@@ -283,9 +298,17 @@ def record_violations(key: str, rec: dict) -> list[str]:
         return bad + ["unknown_body"]
     if nsplit > 1 and (kernel != "ftimm_gemm" or body == "stream"):
         bad.append("nsplit_invalid")    # split-K: dense, fma or tc only
+    widths = _widths(key)
+    if widths is None:
+        return bad + ["malformed_key"]
+    if nsplit > 1 and (widths[0] != widths[1] or 1 in widths):
+        # No split-K kernel takes a mixed or 1-byte pair (the reference's
+        # conservative quarantine: no such variant is ever measured).
+        bad.append("splitk_mixed_dtype")
     staged = 0              # the register stream's staged rows
     if body == "fma":
-        ok, smem = (bm, bn, bk) in TILES, smem_bytes(bm, bn, bk, panels)
+        ok = (bm, bn, bk) in fma_tiles(*widths)
+        smem = smem_bytes(bm, bn, bk, panels)
     elif body == "tc":
         menu = TC_TILES if kernel in ("ftimm_gemm", "ftimm_gemm_ragged_dw") \
             else (GROUP_TC_TILE,)

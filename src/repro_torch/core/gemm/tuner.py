@@ -28,7 +28,8 @@ from dataclasses import dataclass, replace
 
 from ...kernels.ftimm.kernel import (GROUP_TC_TILE, GSTREAM_ROWS,
                                      STREAM_SMEM, STREAM_STRIP, TC_STAGES,
-                                     TC_TILES, TILES, gemm_bodies,
+                                     TC_TILES, TILES, fma_tiles,
+                                     gemm_bodies,
                                      grouped_bodies, ragged_bodies,
                                      ragged_dw_bodies, stream_rows,
                                      stream_slice)
@@ -76,11 +77,11 @@ def dense_estimate(m: int, k: int, n: int, in_bytes: int = 4,
                    body: str, bm: int, bn: int, bk: int,
                    dim_order: str = "mn", kslices: int = 1, panels: int = 1,
                    b_bytes: int | None = None, epi_ops: int = 0,
-                   fuse: bool = True) -> PlanEstimate:
+                   fuse: bool = True, fp8: bool = False) -> PlanEstimate:
     """The CMR price of one dense plan (``panels`` = 2: the SwiGLU pair,
     whose stream is the group stream with one group), at the wider of the
     two operand widths, with an unfused tail's passes when ``fuse`` is
-    False."""
+    False; ``fp8``: 1-byte operands are fp8, not int8."""
     width = max(in_bytes, b_bytes or in_bytes)
     if body == "stream" and panels == 2:
         return estimate_group_stream(1, m, k, n, kslices=kslices,
@@ -93,7 +94,7 @@ def dense_estimate(m: int, k: int, n: int, in_bytes: int = 4,
         e = estimate(m, k, n, bm=bm, bn=bn, bk=bk, in_bytes=width,
                      out_bytes=out_bytes, panels=panels, spec=spec,
                      body=body, stages=TC_STAGES["ftimm_gemm"],
-                     dim_order=dim_order)
+                     dim_order=dim_order, fp8=fp8)
     return with_epilogue(e, m, n, out_bytes, epi_ops if panels == 1 else 0,
                          fuse, spec)
 
@@ -121,10 +122,10 @@ def ragged_estimate(g: int, total: int, k: int, n: int, in_bytes: int = 4,
                     out_bytes: int = 4, ragged: str = "m",
                     spec: HopperSpec = H100, *, body: str, bm: int, bn: int,
                     bk: int, dim_order: str = "mn", kslices: int = 1,
-                    panels: int = 1) -> PlanEstimate:
+                    panels: int = 1, fp8: bool = False) -> PlanEstimate:
     """The CMR price of one ragged plan (the kernels fix their walk, so
     ``dim_order`` prices nothing): the stream reaches min(g, total)
-    panels."""
+    panels; ``fp8``: 1-byte operands are fp8, not int8."""
     if body == "stream":
         return estimate_group_stream(min(g, total), total, k, n,
                                      kslices=kslices, in_bytes=in_bytes,
@@ -134,7 +135,7 @@ def ragged_estimate(g: int, total: int, k: int, n: int, in_bytes: int = 4,
     return estimate_ragged(g, total, k, n, bm=bm, bn=bn, bk=bk,
                            ragged=ragged, in_bytes=in_bytes,
                            out_bytes=out_bytes, panels=panels, spec=spec,
-                           body=body, stages=TC_STAGES[kernel])
+                           body=body, stages=TC_STAGES[kernel], fp8=fp8)
 
 
 def _candidates(cls: GemmClass, price, spec: HopperSpec,
@@ -180,7 +181,7 @@ def gemm_candidates(m: int, k: int, n: int, in_bytes: int = 4,
                     out_bytes: int = 4, spec: HopperSpec = H100, *,
                     panels: int = 1, b_bytes: int | None = None,
                     a_ok: bool = True, b_ok: bool = True,
-                    epi_ops: int = 0) -> list[GemmPlan]:
+                    epi_ops: int = 0, fp8: bool = False) -> list[GemmPlan]:
     """Every compiled tile (x grid order) of every body the call allows
     (``gemm_bodies``: the operand widths ``in_bytes`` for A and ``b_bytes``
     for B, and whether TMA can read A and B as laid out) that fits a
@@ -191,11 +192,12 @@ def gemm_candidates(m: int, k: int, n: int, in_bytes: int = 4,
     GROUP_TC_TILE with both panels priced.  ``epi_ops`` > 0 declares an
     elementwise tail of that many ops (``Epilogue.num_ops``): every
     candidate then also comes unfused (``fuse`` False), priced with the
-    tail's extra passes (``cmr.with_epilogue``)."""
+    tail's extra passes (``cmr.with_epilogue``).  ``fp8``: 1-byte operands
+    are fp8, not int8 (they price at the fp32 FMA rate)."""
     b_bytes = b_bytes or in_bytes
     cls = classify(m, k, n)
     price = functools.partial(dense_estimate, m, k, n, in_bytes, out_bytes,
-                              spec, panels=panels, b_bytes=b_bytes)
+                              spec, panels=panels, b_bytes=b_bytes, fp8=fp8)
     cands = []
     for body in gemm_bodies(in_bytes, b_bytes, m, a_ok, b_ok, panels):
         if body == "stream":
@@ -205,7 +207,8 @@ def gemm_candidates(m: int, k: int, n: int, in_bytes: int = 4,
             continue
         tc_tiles = (GROUP_TC_TILE,) if panels == 2 else TC_TILES
         cands += _candidates(cls, price, spec,
-                             tiles=tc_tiles if body == "tc" else TILES,
+                             tiles=(tc_tiles if body == "tc"
+                                    else fma_tiles(in_bytes, b_bytes)),
                              body=body)
     if epi_ops > 0 and panels == 1:
         cands = [replace(c, fuse=fuse, est=with_epilogue(
@@ -246,7 +249,7 @@ def ragged_candidates(g: int, total: int, k: int, n: int, in_bytes: int = 4,
                       out_bytes: int = 4, ragged: str = "m",
                       spec: HopperSpec = H100, *, panels: int = 1,
                       b_bytes: int | None = None, a_ok: bool = True,
-                      b_ok: bool = True) -> list[GemmPlan]:
+                      b_ok: bool = True, fp8: bool = False) -> list[GemmPlan]:
     """Candidates for the ragged grouped GEMM, scored by
     ``ragged_estimate``.  The per-group *mean* shape is classified: (rows,
     k, n) for the forward, (k, rows, n) for the dW (``ragged="k"``, whose
@@ -255,8 +258,8 @@ def ragged_candidates(g: int, total: int, k: int, n: int, in_bytes: int = 4,
     reads the panels; the stream prices the min(g, total) panels ``total``
     rows can reach); the dW the tensor-core tiles where
     ``ragged_dw_bodies`` allows them (``a_ok`` / ``b_ok``: TMA reads x^T
-    and dy MN-major).  No grid-order choice: the ragged kernels fix their
-    walk."""
+    and dy MN-major; ``fp8``: 1-byte operands are fp8, not int8).  No
+    grid-order choice: the ragged kernels fix their walk."""
     mean = max(total // max(g, 1), 1)
     cls = classify(mean, k, n) if ragged == "m" else classify(k, mean, n)
     b_bytes = b_bytes or in_bytes
@@ -267,14 +270,15 @@ def ragged_candidates(g: int, total: int, k: int, n: int, in_bytes: int = 4,
         bodies, tc_tiles = (ragged_bodies(in_bytes, b_bytes, total, a_ok,
                                           b_ok), (GROUP_TC_TILE,))
     price = functools.partial(ragged_estimate, g, total, k, n, in_bytes,
-                              out_bytes, ragged, spec, panels=panels)
+                              out_bytes, ragged, spec, panels=panels, fp8=fp8)
     cands = []
     for body in bodies:
         if body == "stream":
             cands += _stream_candidates(cls, price, k, GSTREAM_ROWS, False)
             continue
         cands += _candidates(cls, price, spec, orders=("mn",),
-                             tiles=tc_tiles if body == "tc" else TILES,
+                             tiles=(tc_tiles if body == "tc"
+                                    else fma_tiles(in_bytes, b_bytes)),
                              body=body)
     return cands
 
@@ -340,21 +344,23 @@ def effective_spec(spec: HopperSpec) -> HopperSpec:
     cal = plan_store.get_store().calibration
     if cal is None or cal.base_spec != H100.name:
         return spec
-    return spec.calibrated(cal.flops_frac, cal.bw_frac)
+    return spec.calibrated(cal.flops_frac, cal.bw_frac, cal.flops_frac_int8)
 
 
 def key_extra(base: str = "", *, in_bytes: int | None = None,
               b_bytes: int | None = None, panels: int = 1,
               a_ok: bool = True, b_ok: bool = True,
-              a_major: str | None = "k", trans: str = "nn") -> str:
+              a_major: str | None = "k", trans: str = "nn",
+              fp8: bool = False) -> str:
     """The store key's variant fragments joined with "+": the reference's
     ``base`` ("shared:..." / "ragged:...") and mixed width ``bb{n}`` (B's
     width when it differs from A's), then the port's: ``pair`` (the SwiGLU
     kernels, ``panels`` = 2), the operand-layout flags that gate TMA when
     they are not the default (``a_ok:0``, ``b_ok:0``, ``a_major:mn`` /
-    ``a_major:none``), and ``trans:tn`` / ``trans:nt`` (the layout the
-    winner was timed in).  A call with none of these keeps the reference's
-    key."""
+    ``a_major:none``), ``trans:tn`` / ``trans:nt`` (the layout the winner
+    was timed in) and ``fp8`` (1-byte operands that are fp8: the tuner
+    times int8, so its records are not theirs).  A call with none of these
+    keeps the reference's key."""
     frags = [base] if base else []
     if b_bytes is not None and b_bytes != in_bytes:
         frags.append(f"bb{int(b_bytes)}")
@@ -368,16 +374,19 @@ def key_extra(base: str = "", *, in_bytes: int | None = None,
         frags.append(f"a_major:{str(a_major).lower()}")
     if trans != "nn":
         frags.append(f"trans:{trans}")
+    if fp8:
+        frags.append("fp8")
     return "+".join(frags)
 
 
 def dense_key(m, k, n, in_bytes, out_bytes, *, panels=1, b_bytes=None,
-              a_ok=True, b_ok=True, trans="nn") -> str:
+              a_ok=True, b_ok=True, trans="nn", fp8=False) -> str:
     return plan_store.shape_key("dense", (m, k, n), in_bytes, out_bytes,
                                 extra=key_extra(in_bytes=in_bytes,
                                                 b_bytes=b_bytes,
                                                 panels=panels, a_ok=a_ok,
-                                                b_ok=b_ok, trans=trans))
+                                                b_ok=b_ok, trans=trans,
+                                                fp8=fp8))
 
 
 def batched_key(g, m, k, n, in_bytes, out_bytes, shared="none", *,
@@ -392,12 +401,12 @@ def batched_key(g, m, k, n, in_bytes, out_bytes, shared="none", *,
 
 def ragged_key(g, total, k, n, in_bytes, out_bytes, ragged="m", *,
                panels=1, b_bytes=None, a_ok=True, b_ok=True,
-               trans="nn") -> str:
+               trans="nn", fp8=False) -> str:
     return plan_store.shape_key(
         "ragged", (g, total, k, n), in_bytes, out_bytes,
         extra=key_extra(f"ragged:{ragged}", in_bytes=in_bytes,
                         b_bytes=b_bytes, panels=panels, a_ok=a_ok,
-                        b_ok=b_ok, trans=trans))
+                        b_ok=b_ok, trans=trans, fp8=fp8))
 
 
 def _plan_from_record(rec: dict, cands: list[GemmPlan],
@@ -452,23 +461,25 @@ def _cached_ragged(g, total, k, n, in_bytes, out_bytes, ragged, cands,
 def plan_gemm(m: int, k: int, n: int, in_bytes: int = 4, out_bytes: int = 4,
               spec: HopperSpec = H100, *, panels: int = 1,
               b_bytes: int | None = None, a_ok: bool = True,
-              b_ok: bool = True, trans: str = "nn") -> GemmPlan:
+              b_ok: bool = True, trans: str = "nn",
+              fp8: bool = False) -> GemmPlan:
     """Pick the body and tile for C(M,N) = op(A)(M,K) op(B)(K,N): a
     measured record for the signature when the store has one
     (``mode == "cached"``), else the CMR argmin.  ``in_bytes`` /
     ``b_bytes``: A's and B's element widths (B defaults to A's); ``a_ok`` /
     ``b_ok``: whether TMA can read each operand as laid out
     (``kernel.gemm_operands_ok``); ``trans``: the operands' layout, which
-    keys the store (the analytic choice does not depend on it).  The
+    keys the store (the analytic choice does not depend on it); ``fp8``:
+    1-byte operands are fp8, not int8 (the price and the key).  The
     analytic plan always fuses the epilogue into the flush; a measured
     winner may not (``fuse``)."""
     spec = effective_spec(spec)
     cands = gemm_candidates(m, k, n, in_bytes, out_bytes, spec,
                             panels=panels, b_bytes=b_bytes, a_ok=a_ok,
-                            b_ok=b_ok)
+                            b_ok=b_ok, fp8=fp8)
     return _cached_dense(m, k, n, in_bytes, out_bytes, cands, panels=panels,
                          b_bytes=b_bytes, a_ok=a_ok, b_ok=b_ok,
-                         trans=trans) or argmin_plan(cands)
+                         trans=trans, fp8=fp8) or argmin_plan(cands)
 
 
 @functools.lru_cache(maxsize=8192)
@@ -497,7 +508,8 @@ def plan_ragged_gemm(g: int, total: int, k: int, n: int, in_bytes: int = 4,
                      out_bytes: int = 4, ragged: str = "m",
                      spec: HopperSpec = H100, *, panels: int = 1,
                      b_bytes: int | None = None, a_ok: bool = True,
-                     b_ok: bool = True, trans: str = "nn") -> GemmPlan:
+                     b_ok: bool = True, trans: str = "nn",
+                     fp8: bool = False) -> GemmPlan:
     """Pick the tile for a ragged grouped GEMM over ``g`` groups.  The key
     (g, total, k, n, widths) is the distribution signature: the per-group
     counts stay on the device, so the plan prices the aggregate (total
@@ -510,14 +522,15 @@ def plan_ragged_gemm(g: int, total: int, k: int, n: int, in_bytes: int = 4,
     whether TMA reads x^T and dy MN-major (``kernel.ragged_dw_operands_mn``),
     ``b_bytes`` is dy's width (defaults to x's).  The store is consulted
     first, as in ``plan_gemm`` (``trans``: the forward's "nn" or the dX's
-    "nt" keys it)."""
+    "nt" keys it; ``fp8`` as for ``plan_gemm``)."""
     spec = effective_spec(spec)
     cands = ragged_candidates(g, total, k, n, in_bytes, out_bytes, ragged,
                               spec, panels=panels, b_bytes=b_bytes,
-                              a_ok=a_ok, b_ok=b_ok)
+                              a_ok=a_ok, b_ok=b_ok, fp8=fp8)
     return _cached_ragged(g, total, k, n, in_bytes, out_bytes, ragged, cands,
                           panels=panels, b_bytes=b_bytes, a_ok=a_ok,
-                          b_ok=b_ok, trans=trans) or argmin_plan(cands)
+                          b_ok=b_ok, trans=trans,
+                          fp8=fp8) or argmin_plan(cands)
 
 
 def capacity_multiple(elt_bytes: int) -> int:

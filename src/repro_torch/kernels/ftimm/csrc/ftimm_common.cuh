@@ -22,19 +22,52 @@
 // The epilogue runs on the fp32 accumulator at the flush, in the order
 // scale_vec -> scale -> bias -> activation -> residual, then the cast to the
 // output type -- the order of the reference's Epilogue.apply.
+//
+// The dtype axis (the reference's _acc_dtype / _dot_operands): int8 x int8
+// accumulates in int32 (an exact integer sum; K * 127^2 passes fp32's 2^24
+// at K > 1,040, so an fp32 sum would drift from it), converted to fp32 at
+// the flush, where the dequant vector (scale_vec) multiplies it.  Every
+// other pair -- bf16 / fp32 with int8 (weight-only quantization), fp8 with
+// fp8, bf16 / fp32 with fp8 (the straight-through dX) -- is widened to fp32
+// at load (int8 and fp8 values are exact in fp32) and summed in fp32.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace ftimm {
+
+using fp8e4 = __nv_fp8_e4m3;
+using fp8e5 = __nv_fp8_e5m2;
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+template <> __device__ __forceinline__ float to_f<int8_t>(int8_t x) { return (float)x; }
+template <> __device__ __forceinline__ float to_f<fp8e4>(fp8e4 x) { return static_cast<float>(x); }
+template <> __device__ __forceinline__ float to_f<fp8e5>(fp8e5 x) { return static_cast<float>(x); }
+
+// The accumulator type of an operand pair: int for int8 x int8, else float.
+template <typename TA, typename TB> struct AccOf { using type = float; };
+template <> struct AccOf<int8_t, int8_t> { using type = int; };
+
+// An operand element widened to the accumulator type.
+template <typename V, typename T> __device__ __forceinline__ V widen(T x) { return to_f(x); }
+template <> __device__ __forceinline__ int widen<int, int8_t>(int8_t x) { return (int)x; }
+
+__device__ __forceinline__ float mac(float a, float b, float acc) { return fmaf(a, b, acc); }
+__device__ __forceinline__ int mac(int a, int b, int acc) { return a * b + acc; }
+
+// The residual's type: A's, or fp32 when A is a 1-byte quantized operand
+// (the wrapper widens the caller's bf16 / fp32 residual to fp32, exactly).
+template <typename TA> struct ResidualOf { using type = TA; };
+template <> struct ResidualOf<int8_t> { using type = float; };
+template <> struct ResidualOf<fp8e4> { using type = float; };
+template <> struct ResidualOf<fp8e5> { using type = float; };
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
@@ -73,15 +106,41 @@ using Tile3 = TileCfg<128, 128, 16, 8, 8>;   // large M: most reuse per byte
   X(4, __nv_bfloat16, float, float)         \
   X(5, float, __nv_bfloat16, __nv_bfloat16) \
   X(6, float, __nv_bfloat16, float)
+// Codes 7-16 are the quantized forward products, taken by the dense and
+// ragged kernels' FMA bodies only: weight-only (bf16 / fp32 x int8), full
+// int8 (int8 x int8, int32 accumulator) and fp8 (e4m3 x e4m3, e5m2 x e5m2),
+// each to bf16 or fp32.  Codes 17-20 are the straight-through dX of the
+// dense kernel: a bf16 / fp32 cotangent against the fp8 panel ("nt"), to
+// fp32 (the int8 panel's dX is code 8 or 10).  They are compiled for the
+// tiles of FTIMM_QUANT_TILES only, the menu the planner gives a call with
+// a 1-byte operand (kernel.py, QUANT_TILES).
+#define FTIMM_QUANT_TYPES(X)               \
+  X(7, __nv_bfloat16, int8_t, __nv_bfloat16) \
+  X(8, __nv_bfloat16, int8_t, float)         \
+  X(9, float, int8_t, __nv_bfloat16)         \
+  X(10, float, int8_t, float)                \
+  X(11, int8_t, int8_t, __nv_bfloat16)       \
+  X(12, int8_t, int8_t, float)               \
+  X(13, ftimm::fp8e4, ftimm::fp8e4, __nv_bfloat16) \
+  X(14, ftimm::fp8e4, ftimm::fp8e4, float)   \
+  X(15, ftimm::fp8e5, ftimm::fp8e5, __nv_bfloat16) \
+  X(16, ftimm::fp8e5, ftimm::fp8e5, float)
+#define FTIMM_QUANT_DX_TYPES(X)        \
+  X(17, __nv_bfloat16, ftimm::fp8e4, float) \
+  X(18, float, ftimm::fp8e4, float)      \
+  X(19, __nv_bfloat16, ftimm::fp8e5, float) \
+  X(20, float, ftimm::fp8e5, float)
+#define FTIMM_QUANT_TILES(X) X(0, ftimm::Tile0) X(2, ftimm::Tile2)
 
 __host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// ROWS x BK panel of one operand for one K step, staged in registers.
-template <int ROWS, int BK, int THREADS, typename T>
+// ROWS x BK panel of one operand for one K step, staged in registers as
+// the accumulator type V.
+template <int ROWS, int BK, int THREADS, typename T, typename V = float>
 struct Panel {
   static_assert((ROWS * BK) % THREADS == 0, "panel must split evenly over the CTA");
   static constexpr int PER = ROWS * BK / THREADS;
-  float r[PER];
+  V r[PER];
 
   __device__ __forceinline__ void load(const T* __restrict__ p, int64_t s_row, int64_t s_k,
                                        int row0, int rows, int k0, int K, bool k_fast,
@@ -92,13 +151,13 @@ struct Panel {
       const int rr = k_fast ? idx / BK : idx % ROWS;
       const int kk = k_fast ? idx % BK : idx / ROWS;
       const int gr = row0 + rr, gk = k0 + kk;
-      r[i] = (gr < rows && gk < K) ? to_f(p[(int64_t)gr * s_row + (int64_t)gk * s_k]) : 0.f;
+      r[i] = (gr < rows && gk < K) ? widen<V>(p[(int64_t)gr * s_row + (int64_t)gk * s_k]) : V(0);
     }
   }
 
   // Shared layout [BK][ROWS + 1]: the odd row pitch keeps both walk orders
   // free of bank conflicts.
-  __device__ __forceinline__ void store(float (*s)[ROWS + 1], bool k_fast, int tid) const {
+  __device__ __forceinline__ void store(V (*s)[ROWS + 1], bool k_fast, int tid) const {
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
       const int idx = tid + i * THREADS;
@@ -110,14 +169,15 @@ struct Panel {
 };
 
 // acc[nb] += op(A)[m0:m0+BM, :] . op(B_nb)[:, n0:n0+BN] for NB panels B_nb
-// that share the A panel (NB = 2 is the fused SwiGLU pair).
-template <class C, int NB, typename TA, typename TB>
-__device__ __forceinline__ void accumulate(float (&acc)[NB][C::TM][C::TN],
+// that share the A panel (NB = 2 is the fused SwiGLU pair).  Acc is the
+// pair's accumulator type (AccOf): the panels are staged in it.
+template <class C, int NB, typename Acc, typename TA, typename TB>
+__device__ __forceinline__ void accumulate(Acc (&acc)[NB][C::TM][C::TN],
                                            const TA* __restrict__ a, int64_t sam, int64_t sak,
                                            const TB* const (&b)[NB], int64_t sbk, int64_t sbn,
                                            int M, int N, int K, int m0, int n0) {
-  __shared__ float sA[C::BK][C::BM + 1];
-  __shared__ float sB[NB][C::BK][C::BN + 1];
+  __shared__ Acc sA[C::BK][C::BM + 1];
+  __shared__ Acc sB[NB][C::BK][C::BN + 1];
   const int tid = threadIdx.x;
   const int tx = tid % (C::BN / C::TN);
   const int ty = tid / (C::BN / C::TN);
@@ -129,10 +189,10 @@ __device__ __forceinline__ void accumulate(float (&acc)[NB][C::TM][C::TN],
 #pragma unroll
     for (int i = 0; i < C::TM; ++i)
 #pragma unroll
-      for (int j = 0; j < C::TN; ++j) acc[nb][i][j] = 0.f;
+      for (int j = 0; j < C::TN; ++j) acc[nb][i][j] = Acc(0);
 
-  Panel<C::BM, C::BK, C::THREADS, TA> pa;
-  Panel<C::BN, C::BK, C::THREADS, TB> pb[NB];
+  Panel<C::BM, C::BK, C::THREADS, TA, Acc> pa;
+  Panel<C::BN, C::BK, C::THREADS, TB, Acc> pb[NB];
   pa.load(a, sam, sak, m0, M, 0, K, a_kfast, tid);
 #pragma unroll
   for (int nb = 0; nb < NB; ++nb) pb[nb].load(b[nb], sbn, sbk, n0, N, 0, K, b_kfast, tid);
@@ -151,16 +211,16 @@ __device__ __forceinline__ void accumulate(float (&acc)[NB][C::TM][C::TN],
     }
 #pragma unroll
     for (int kk = 0; kk < C::BK; ++kk) {
-      float av[C::TM];
+      Acc av[C::TM];
 #pragma unroll
       for (int i = 0; i < C::TM; ++i) av[i] = sA[kk][ty + i * (C::BM / C::TM)];
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
         for (int j = 0; j < C::TN; ++j) {
-          const float bv = sB[nb][kk][tx + j * (C::BN / C::TN)];
+          const Acc bv = sB[nb][kk][tx + j * (C::BN / C::TN)];
 #pragma unroll
-          for (int i = 0; i < C::TM; ++i) acc[nb][i][j] = fmaf(av[i], bv, acc[nb][i][j]);
+          for (int i = 0; i < C::TM; ++i) acc[nb][i][j] = mac(av[i], bv, acc[nb][i][j]);
         }
     }
   }

@@ -42,11 +42,17 @@
 //
 // * CUDA-core FMAs ("fma", ftimm_gemm_launch): everything else -- fp32 and
 //   mixed bf16 x fp32 pairs (the fp32 cotangents of the logits and the
-//   router), and operands TMA cannot read (no unit-stride dimension, a
-//   misaligned base or stride).  The shared strided body of
-//   ftimm_common.cuh (accumulate): one CTA per tile of the FTIMM_TILES
-//   menu, operands widened to fp32 in registers, staged in shared memory,
-//   CUDA-core FMAs (67 TFLOP/s).
+//   router), operands TMA cannot read (no unit-stride dimension, a
+//   misaligned base or stride), and every product with a 1-byte operand
+//   (the quantized matmul's forward, int8 / fp8 / weight-only int8, and
+//   its straight-through dX against the 1-byte panel).  The shared strided
+//   body of ftimm_common.cuh (accumulate): one CTA per tile of the
+//   FTIMM_TILES menu (FTIMM_QUANT_TILES for the quantized codes), operands
+//   widened in registers, staged in shared memory, CUDA-core FMAs (67
+//   TFLOP/s) -- or, for int8 x int8, integer multiply-adds into an int32
+//   accumulator (33.5 TOP/s), exact as the reference's int32 MXU sum.  A
+//   quantized decode call (M <= 16) is bound by its weight bytes, now one
+//   a weight: wgmma / the stream for 1-byte operands are later work.
 //
 // C interface, bound from kernel.py with ctypes.  Each entry returns
 // cudaGetLastError() after the launch (0 = launched), or
@@ -71,9 +77,10 @@ struct GemmArgs {
 
 template <class C, typename TA, typename TB, typename TC>
 __global__ void __launch_bounds__(C::THREADS) ftimm_gemm_kernel(GemmArgs p) {
+  using TR = typename ftimm::ResidualOf<TA>::type;
   int m0, n0;
   ftimm::tile_coords(C::BM, C::BN, p.M, p.N, p.nm_order, m0, n0);
-  float acc[1][C::TM][C::TN];
+  typename ftimm::AccOf<TA, TB>::type acc[1][C::TM][C::TN];
   const TB* bs[1] = {static_cast<const TB*>(p.b)};
   ftimm::accumulate<C, 1>(acc, static_cast<const TA*>(p.a), p.sam, p.sak, bs, p.sbk, p.sbn,
                           p.M, p.N, p.K, m0, n0);
@@ -88,7 +95,7 @@ __global__ void __launch_bounds__(C::THREADS) ftimm_gemm_kernel(GemmArgs p) {
       const int col = n0 + tx + j * (C::BN / C::TN);
       if (row < p.M && col < p.N)
         c[(int64_t)row * p.N + col] =
-            ftimm::from_f<TC>(ftimm::apply_epi<TA>(acc[0][i][j], p.epi, 0, row, col, p.N));
+            ftimm::from_f<TC>(ftimm::apply_epi<TR>((float)acc[0][i][j], p.epi, 0, row, col, p.N));
     }
   }
 }
@@ -111,6 +118,19 @@ static bool launch_types(int types, const GemmArgs& p, cudaStream_t stream) {
   return false;
 }
 
+// The quantized codes, on the tiles of FTIMM_QUANT_TILES only.
+template <class C>
+static bool launch_quant_types(int types, const GemmArgs& p, cudaStream_t stream) {
+  switch (types) {
+#define FTIMM_TYPE(ID, TA, TB, TC) \
+  case ID: launch<C, TA, TB, TC>(p, stream); return true;
+    FTIMM_QUANT_TYPES(FTIMM_TYPE)
+    FTIMM_QUANT_DX_TYPES(FTIMM_TYPE)
+#undef FTIMM_TYPE
+  }
+  return false;
+}
+
 extern "C" int ftimm_gemm_launch(int device, int tile, int types, const void* a, const void* b,
                                  void* c, int M, int N, int K, long long sam, long long sak,
                                  long long sbk, long long sbn, int nm_order,
@@ -128,6 +148,14 @@ extern "C" int ftimm_gemm_launch(int device, int tile, int types, const void* a,
   case ID: ok = launch_types<T>(types, p, s); break;
     FTIMM_TILES(FTIMM_TILE)
 #undef FTIMM_TILE
+  }
+  if (!ok) {
+    switch (tile) {
+#define FTIMM_TILE(ID, T) \
+  case ID: ok = launch_quant_types<T>(types, p, s); break;
+      FTIMM_QUANT_TILES(FTIMM_TILE)
+#undef FTIMM_TILE
+    }
   }
   if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

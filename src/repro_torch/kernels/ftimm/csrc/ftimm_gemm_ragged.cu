@@ -43,8 +43,14 @@
 //   masked in shared memory, and the panels go through a 3-D map (group
 //   outermost) that zero-fills each panel's K edge.
 // * CUDA-core FMAs ("fma", ftimm_gemm_ragged_launch): fp32 and mixed bf16 x
-//   fp32 pairs and operands TMA cannot read, through the shared strided
-//   body (ftimm_common.cuh: accumulate).
+//   fp32 pairs, operands TMA cannot read, and the quantized expert panels
+//   (int8 weights against bf16 / fp32 rows, int8 x int8 into an int32
+//   accumulator, fp8 x fp8), through the shared strided body
+//   (ftimm_common.cuh: accumulate); the (G, N) dequant vector rides in
+//   EpiArgs' scale_vec at the group's row.  At llama4's decode (4 rows to
+//   4 experts) a quantized call reads 1-byte panels but only 32 contiguous
+//   bytes of a K row a CTA (Tile0), so it is far from its bytes bound:
+//   putting 1-byte panels on the stream and the tensor cores is later work.
 //
 // C interface, bound from kernel.py with ctypes.  Each entry returns
 // cudaGetLastError() after the launch (0 = launched), or
@@ -73,7 +79,7 @@ __global__ void __launch_bounds__(C::THREADS) ftimm_gemm_ragged_kernel(RaggedArg
     return;
   }
   if (r.rows <= 0) return;
-  float acc[1][C::TM][C::TN];
+  typename ftimm::AccOf<TA, TB>::type acc[1][C::TM][C::TN];
   const TA* x = static_cast<const TA*>(p.x) + (int64_t)r.row0 * p.sxm;
   const TB* ws[1] = {static_cast<const TB*>(p.w) + (int64_t)r.g * p.swg};
   ftimm::accumulate<C, 1>(acc, x, p.sxm, p.sxk, ws, p.swk, p.swn, r.rows, p.N, p.K, 0, r.n0);
@@ -87,7 +93,7 @@ __global__ void __launch_bounds__(C::THREADS) ftimm_gemm_ragged_kernel(RaggedArg
       const int col = r.n0 + tx + j * (C::BN / C::TN);
       if (row < r.rows && col < p.N)
         c[(int64_t)(r.row0 + row) * p.N + col] = ftimm::from_f<TC>(
-            ftimm::apply_epi<TA>(acc[0][i][j], p.epi, r.g, r.row0 + row, col, p.N));
+            ftimm::apply_epi<float>((float)acc[0][i][j], p.epi, r.g, r.row0 + row, col, p.N));
     }
   }
 }
@@ -105,6 +111,18 @@ static bool launch_types(int types, const RaggedArgs& p, cudaStream_t stream) {
   case ID: launch<C, TA, TB, TC>(p, stream); return true;
     FTIMM_TYPES(FTIMM_TYPE)
     FTIMM_MIXED_TYPES(FTIMM_TYPE)
+#undef FTIMM_TYPE
+  }
+  return false;
+}
+
+// The quantized forward codes, on the tiles of FTIMM_QUANT_TILES only.
+template <class C>
+static bool launch_quant_types(int types, const RaggedArgs& p, cudaStream_t stream) {
+  switch (types) {
+#define FTIMM_TYPE(ID, TA, TB, TC) \
+  case ID: launch<C, TA, TB, TC>(p, stream); return true;
+    FTIMM_QUANT_TYPES(FTIMM_TYPE)
 #undef FTIMM_TYPE
   }
   return false;
@@ -129,6 +147,14 @@ extern "C" int ftimm_gemm_ragged_launch(int device, int tile, int types, const v
   case ID: ok = launch_types<T>(types, p, s); break;
     FTIMM_TILES(FTIMM_TILE)
 #undef FTIMM_TILE
+  }
+  if (!ok) {
+    switch (tile) {
+#define FTIMM_TILE(ID, T) \
+  case ID: ok = launch_quant_types<T>(types, p, s); break;
+      FTIMM_QUANT_TILES(FTIMM_TILE)
+#undef FTIMM_TILE
+    }
   }
   if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

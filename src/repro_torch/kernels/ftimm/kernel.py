@@ -17,7 +17,10 @@ The kernels are CUDA C++ for ``sm_90a`` in ``csrc/``, one source per kernel:
 ``ftimm_gemm``, ``ftimm_gemm_grouped``, ``ftimm_gemm_ragged`` and the
 three SwiGLU pairs have three bodies, and ``ftimm_gemm_ragged_dw`` and
 ``ftimm_gemm_splitk`` the first two: CUDA-core FMAs on any operand types
-and strides (``"fma"``), tensor cores for bf16 x bf16 operands TMA can
+and strides (``"fma"``; the only body that takes the quantized pairs of
+``ftimm_gemm`` and ``ftimm_gemm_ragged``: bf16 / fp32 x int8, int8 x int8
+summed in int32, fp8 x fp8, and the dense kernel's bf16 / fp32 x fp8
+straight-through dX), tensor cores for bf16 x bf16 operands TMA can
 read (``"tc"``: TMA, an mbarrier ring and wgmma, ``csrc/ftimm_tc.cuh``;
 the grouped and ragged kernels read their panels through 3-D tensor maps,
 the pairs both panels into one stage, split-K sums its partials in split
@@ -104,18 +107,36 @@ _BODY_KERNELS = {"ftimm_gemm": BODIES, "ftimm_gemm_swiglu": BODIES,
                  "ftimm_gemm_splitk": ("fma", "tc")}
 
 # (A dtype, B dtype, output dtype) -> the type code of the C entries
-# (FTIMM_TYPES / FTIMM_MIXED_TYPES in csrc/ftimm_common.cuh).  The mixed
-# bf16 x fp32 pairs are built for the kernels in _MIXED, whose operands are
+# (FTIMM_TYPES / FTIMM_MIXED_TYPES / FTIMM_QUANT_TYPES /
+# FTIMM_QUANT_DX_TYPES in csrc/ftimm_common.cuh).  The mixed bf16 x fp32
+# pairs are built for the kernels in _MIXED, whose operands are
 # independent: the backward meets them where an fp32 cotangent (the logits',
-# the router's) multiplies bf16 weights or activations.
-_BF16, _F32 = torch.bfloat16, torch.float32
+# the router's) multiplies bf16 weights or activations.  The quantized
+# codes (7-16: weight-only bf16 / fp32 x int8, int8 x int8 with an int32
+# accumulator, fp8 x fp8) are built for the FMA bodies of the kernels in
+# _QUANT, the straight-through dX codes (17-20: a bf16 / fp32 cotangent x
+# an fp8 panel, to fp32) for ``ftimm_gemm`` only.
+_BF16, _F32, _I8 = torch.bfloat16, torch.float32, torch.int8
+_E4M3, _E5M2 = torch.float8_e4m3fn, torch.float8_e5m2
 _TYPE_CODES = {
     (_BF16, _BF16, _BF16): 0, (_BF16, _BF16, _F32): 1, (_F32, _F32, _F32): 2,
     (_BF16, _F32, _BF16): 3, (_BF16, _F32, _F32): 4,
     (_F32, _BF16, _BF16): 5, (_F32, _BF16, _F32): 6,
+    (_BF16, _I8, _BF16): 7, (_BF16, _I8, _F32): 8,
+    (_F32, _I8, _BF16): 9, (_F32, _I8, _F32): 10,
+    (_I8, _I8, _BF16): 11, (_I8, _I8, _F32): 12,
+    (_E4M3, _E4M3, _BF16): 13, (_E4M3, _E4M3, _F32): 14,
+    (_E5M2, _E5M2, _BF16): 15, (_E5M2, _E5M2, _F32): 16,
+    (_BF16, _E4M3, _F32): 17, (_F32, _E4M3, _F32): 18,
+    (_BF16, _E5M2, _F32): 19, (_F32, _E5M2, _F32): 20,
 }
 _MIXED = frozenset({"ftimm_gemm", "ftimm_gemm_grouped", "ftimm_gemm_ragged",
                     "ftimm_gemm_ragged_dw", "ftimm_gemm_splitk"})
+_QUANT = {"ftimm_gemm": range(7, 21), "ftimm_gemm_ragged": range(7, 17)}
+# The FMA tiles the quantized codes are compiled for (FTIMM_QUANT_TILES):
+# the decode tile and the 64 x 64 one; the planner gives a call with a
+# 1-byte operand no other (``fma_tiles``).
+QUANT_TILES = (TILES[0], TILES[2])
 _ACT_CODES = {"none": 0, "silu": 1, "gelu": 2}
 
 _launches = dict.fromkeys(KERNELS, 0)
@@ -241,15 +262,15 @@ def gemm_bodies(a_bytes: int, b_bytes: int, m: int, a_ok: bool, b_ok: bool,
                 panels: int = 1) -> tuple[str, ...]:
     """The bodies of ``ftimm_gemm`` (and of ``ftimm_gemm_splitk``, which
     takes its "fma" and "tc") that can take a call, for the planner to
-    choose among: the FMA body takes every type pair and layout; the
-    tensor-core body bf16 x bf16 (2-byte operands: the port has no other)
-    when TMA can read both operands; the stream body bf16 x bf16 of at most
-    16 rows when its 16-byte loads can read B (A is staged element by
-    element).  The dense SwiGLU pair (``panels`` = 2, ``ftimm_gemm_swiglu``;
-    ``a_ok``: TMA reads x K-major, ``b_ok``: it reads both panels,
-    ``swiglu_operands``) takes the grouped pair's rule with one group: for
-    bf16 x bf16 the tensor cores, and the group stream at most
-    GSTREAM_ROWS rows."""
+    choose among: the FMA body takes every type pair and layout (a pair
+    with a 1-byte operand, int8 or fp8, takes only it); the tensor-core
+    body bf16 x bf16 when TMA can read both operands; the stream body
+    bf16 x bf16 of at most 16 rows when its 16-byte loads can read B (A is
+    staged element by element).  The dense SwiGLU pair (``panels`` = 2,
+    ``ftimm_gemm_swiglu``; ``a_ok``: TMA reads x K-major, ``b_ok``: it
+    reads both panels, ``swiglu_operands``) takes the grouped pair's rule
+    with one group: for bf16 x bf16 the tensor cores, and the group stream
+    at most GSTREAM_ROWS rows."""
     bodies = ["fma"]
     if a_bytes != 2 or b_bytes != 2:
         return tuple(bodies)
@@ -377,12 +398,18 @@ def stream_slice(k: int, kslices: int) -> tuple[int, int]:
     return sl, -(-max(k, 1) // sl)
 
 
-def tile_id(bm: int, bn: int, bk: int) -> int:
-    try:
-        return TILES.index((bm, bn, bk))
-    except ValueError:
+def fma_tiles(a_bytes: int, b_bytes: int) -> tuple:
+    """The FMA body's compiled tiles for an operand pair: QUANT_TILES when
+    either operand is 1 byte, else TILES."""
+    return QUANT_TILES if 1 in (a_bytes, b_bytes) else TILES
+
+
+def tile_id(bm: int, bn: int, bk: int, tiles: tuple = TILES) -> int:
+    """The C entries' id of a tile of ``tiles`` (its index in TILES)."""
+    if (bm, bn, bk) not in tiles:
         raise ValueError(f"({bm}, {bn}, {bk}) is not a compiled tile; "
-                         f"the menu is {TILES}") from None
+                         f"the menu is {tiles}")
+    return TILES.index((bm, bn, bk))
 
 
 def mkn(trans: str, a_shape, b_shape) -> tuple[int, int, int]:
@@ -559,12 +586,16 @@ def _cuda_operands(name: str, a: torch.Tensor, b: torch.Tensor, out_dtype,
         if t is not None and t.device != a.device:
             raise ValueError(f"{name}: operands on {a.device} and {t.device}")
     code = _TYPE_CODES.get((a.dtype, b.dtype, out_dtype))
-    if code is None or (a.dtype != b.dtype and name not in _MIXED):
+    if (code is None or (3 <= code <= 6 and name not in _MIXED)
+            or (code >= 7 and code not in _QUANT.get(name, ()))):
         raise NotImplementedError(
-            f"{name}: {a.dtype} x {b.dtype} -> {out_dtype} has no kernel yet "
+            f"{name}: {a.dtype} x {b.dtype} -> {out_dtype} has no kernel "
             "(bf16 -> bf16/fp32 and fp32 -> fp32 are built, and bf16 x fp32 "
-            "in either order for the kernels with independent operands; the "
-            "int8 and fp8 paths come with quantization)")
+            "in either order for the kernels with independent operands; "
+            "the quantized pairs -- bf16/fp32 x int8, int8 x int8 and fp8 x "
+            "fp8, to bf16/fp32 -- for ftimm_gemm and ftimm_gemm_ragged, and "
+            "the straight-through dX, bf16/fp32 x fp8 to fp32, for "
+            "ftimm_gemm; only their FMA bodies take 1-byte operands)")
     return code
 
 
@@ -577,11 +608,17 @@ def _ptr(t: torch.Tensor | None) -> int | None:
 
 
 def _residual(residual, shape, dtype) -> torch.Tensor | None:
+    """The residual as the kernel reads it: contiguous, of A's dtype -- or,
+    when A is a 1-byte quantized operand, any float type widened to fp32
+    (exact; the kernel reads an fp32 residual then, ResidualOf in csrc)."""
     if residual is None:
         return None
     if tuple(residual.shape) != tuple(shape) or not residual.is_contiguous():
         raise ValueError(f"residual must be contiguous {tuple(shape)}, got "
                          f"{tuple(residual.shape)}")
+    if torch.tensor([], dtype=dtype).element_size() == 1 \
+            and residual.dtype in (_BF16, _F32):
+        return residual.to(_F32)
     if residual.dtype != dtype:
         raise ValueError(f"residual must have A's dtype {dtype}, "
                          f"got {residual.dtype}")
@@ -649,9 +686,11 @@ def ftimm_gemm(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int, bk: int,
     has_scale, scale_val, act = _epi_scalars(epilogue)
     epi = (_ptr(scale32), has_scale, scale_val, _ptr(bias32), act, _ptr(res))
     if body == "fma":
-        _launch("ftimm_gemm", a.device, tile_id(bm, bn, bk), types,
-                a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, sam, sak,
-                sbk, sbn, int(dim_order == "nm"), *epi)
+        tile = tile_id(bm, bn, bk, fma_tiles(a.element_size(),
+                                             b.element_size()))
+        _launch("ftimm_gemm", a.device, tile, types, a.data_ptr(),
+                b.data_ptr(), c.data_ptr(), m, n, k, sam, sak, sbk, sbn,
+                int(dim_order == "nm"), *epi)
     elif body == "tc":
         if (bm, bn, bk) not in TC_TILES:
             raise ValueError(f"({bm}, {bn}, {bk}) is not a tensor-core tile; "
@@ -1028,8 +1067,9 @@ def ftimm_gemm_ragged(x: torch.Tensor, w: torch.Tensor,
            has_scale, scale_val, _ptr(bias32),
            0 if bias is None or bias.ndim == 1 else n, act)
     if body == "fma":
-        _launch("ftimm_gemm_ragged", x.device, tile_id(bm, bn, bk), types,
-                *operands, *epi)
+        tile = tile_id(bm, bn, bk, fma_tiles(x.element_size(),
+                                             w.element_size()))
+        _launch("ftimm_gemm_ragged", x.device, tile, types, *operands, *epi)
     elif body == "tc":
         _launch("ftimm_gemm_ragged", x.device, types, *operands, *epi,
                 body="tc")

@@ -31,16 +31,18 @@ def _ceil_to(x: int, b: int) -> int:
     return (x + b - 1) // b * b
 
 
-def clamp_tile(m: int, n: int, bm: int, bn: int) -> tuple[int, int, int]:
-    """The largest compiled tile within the requested blocks, after the
+def clamp_tile(m: int, n: int, bm: int, bn: int,
+               tiles: tuple = _k.TILES) -> tuple[int, int, int]:
+    """The largest compiled tile of ``tiles`` (``kernel.fma_tiles``: the
+    quantized pairs have fewer) within the requested blocks, after the
     blocks are clamped to the (rounded) problem extent: a 4-row GEMM under a
     128-row request runs the 16-row tile instead of masking 124 rows."""
     bm_ = min(bm, _ceil_to(max(m, 1), 16))
     bn_ = min(bn, _ceil_to(max(n, 1), 32))
-    for tile in reversed(_k.TILES):
+    for tile in reversed(tiles):
         if tile[0] <= bm_ and tile[1] <= bn_:
             return tile
-    return _k.TILES[0]
+    return tiles[0]
 
 
 def clamp_nsplit(k: int, bk: int, nsplit: int) -> int:
@@ -96,7 +98,8 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bn: int = 128,
                          "kslices)")
     m, k, n = _k.mkn(trans, a.shape, b.shape)
     if body == "fma":
-        bm, bn, bk = clamp_tile(m, n, bm, bn)
+        bm, bn, bk = clamp_tile(m, n, bm, bn, _k.fma_tiles(
+            a.element_size(), b.element_size()))
     nsplit = clamp_nsplit(k, bk, nsplit)
     epilogue = epilogue or _k.IDENTITY
     if nsplit > 1:
@@ -185,7 +188,8 @@ def ragged_gemm(x: torch.Tensor, w: torch.Tensor, group_offsets: torch.Tensor,
     vectors applied at the flush.  ``body`` as for ``batched_gemm``."""
     if body == "fma":
         n = w.shape[2] if trans == "nn" else w.shape[1]
-        bm, bn, bk = clamp_tile(x.shape[0], n, bm, bn)
+        bm, bn, bk = clamp_tile(x.shape[0], n, bm, bn, _k.fma_tiles(
+            x.element_size(), w.element_size()))
     return _k.ftimm_gemm_ragged(x, w, group_offsets, bm=bm, bn=bn, bk=bk,
                                 trans=trans, out_dtype=out_dtype,
                                 epilogue=epilogue or _k.IDENTITY, bias=bias,

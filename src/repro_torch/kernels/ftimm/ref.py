@@ -1,17 +1,35 @@
 """Plain PyTorch oracles for the ftIMM GEMM kernels.
 
 The ground truth the CUDA kernels in ``csrc/`` are held to, and the engine
-the kernel wrappers use for tensors on the CPU.  C = op(A) x op(B) with fp32
-accumulation; the result is cast to ``out_dtype``.
+the kernel wrappers use for tensors on the CPU.  C = op(A) x op(B); the
+result is cast to ``out_dtype``.
+
+The dtype axis is the reference's (``_acc_dtype`` / ``_dot_operands``):
+int x int sums exactly, as the reference's int32 accumulator does (here in
+float64, where every partial sum of int8 products is an integer far below
+2^53, so the sum is exact in any order and runs on the CPU and the card
+alike), then becomes fp32; every other pair (float x int, fp8, bf16, fp32)
+is widened to fp32 and summed in fp32.
 """
 from __future__ import annotations
 
 import torch
 
+F32 = torch.float32
+
+
+def acc_dtype(a_dtype: torch.dtype, b_dtype: torch.dtype) -> torch.dtype:
+    """The type the plain versions sum ``a_dtype`` x ``b_dtype`` in:
+    float64 (exact) for two integer types, else fp32."""
+    ints = [not (d.is_floating_point or d.is_complex)
+            for d in (a_dtype, b_dtype)]
+    return torch.float64 if all(ints) else F32
+
 
 def _f32_matmul(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.Tensor:
-    out = torch.matmul(a.to(torch.float32), b.to(torch.float32))
-    return out.to(out_dtype)
+    acc = acc_dtype(a.dtype, b.dtype)
+    out = torch.matmul(a.to(acc), b.to(acc))
+    return out.to(F32).to(out_dtype)
 
 
 def matmul_nn(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor:
@@ -36,19 +54,20 @@ def ragged_matmul_ref(x: torch.Tensor, w: torch.Tensor,
                       group_offsets: torch.Tensor, trans: str = "nn",
                       out_dtype=None) -> torch.Tensor:
     """Dense oracle for the ragged grouped GEMM: one masked full-width GEMM
-    per group, fp32 accumulation.  x (T, K), w (G, K, N) "nn" | (G, N, K)
+    per group, summed as ``acc_dtype`` says.  x (T, K), w (G, K, N) "nn" | (G, N, K)
     "nt", ``group_offsets`` (G+1,) prefix sums (read on the device, never
     on the host).  Rows outside every group (offsets[G] < T) yield zeros."""
     out_dtype = out_dtype or x.dtype
     rows = torch.arange(x.shape[0], device=x.device)[:, None]
     n = w.shape[2] if trans == "nn" else w.shape[1]
-    xf = x.to(torch.float32)
-    acc = torch.zeros((x.shape[0], n), dtype=torch.float32, device=x.device)
+    dt = acc_dtype(x.dtype, w.dtype)
+    xf = x.to(dt)
+    acc = torch.zeros((x.shape[0], n), dtype=dt, device=x.device)
     for g in range(w.shape[0]):
         mask = (rows >= group_offsets[g]) & (rows < group_offsets[g + 1])
-        wg = w[g].to(torch.float32)
+        wg = w[g].to(dt)
         acc = acc + torch.where(mask, xf, 0.0) @ (wg if trans == "nn" else wg.T)
-    return acc.to(out_dtype)
+    return acc.to(F32).to(out_dtype)
 
 
 def ragged_matmul_dw_ref(x: torch.Tensor, dy: torch.Tensor,

@@ -23,16 +23,19 @@ from ..kernels.ftimm.epilogue import Epilogue
 def dense(x: torch.Tensor, w: torch.Tensor, compute_dtype=torch.bfloat16, *,
           bias: torch.Tensor | None = None,
           residual: torch.Tensor | None = None,
-          activation: str = "none") -> torch.Tensor:
+          activation: str = "none", quant: str | None = None) -> torch.Tensor:
     """y = act(x @ w + bias) + residual with fp32 accumulation; the tail,
-    when present, is a fused GEMM epilogue."""
+    when present, is a fused GEMM epilogue.  ``quant`` (a ``core.quant``
+    mode) runs the managed quantized GEMM: the panel quantized per channel
+    in the call, the dequant at the flush, a straight-through backward."""
     epi = Epilogue(bias=bias is not None, activation=activation,
                    residual=residual is not None)
     return project(
         x.to(compute_dtype), w.to(compute_dtype), out_dtype=compute_dtype,
         epilogue=None if epi.is_identity else epi,
         bias=None if bias is None else bias.to(compute_dtype),
-        residual=None if residual is None else residual.to(compute_dtype))
+        residual=None if residual is None else residual.to(compute_dtype),
+        quant=quant)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,

@@ -21,9 +21,14 @@ and training adds to the loss.  Both are differentiable as in the
 reference: gradients flow through the gate weights, the capacity scatter
 (an ``index_add_`` into a fresh buffer) and the ragged un-sort; the
 routing itself (top-k indices, ranks, offsets) carries none.
-Expert parallelism (the reference's ``ep_ragged_moe``) and quantized
-expert panels are not ported; on one device the reference never takes the
-expert-parallel branch.
+``quant`` (a ``core.quant`` mode) quantizes the ragged experts as the
+reference does: the gate and up products are two quantized
+``ragged_matmul`` calls to fp32 (the fused pair would need two dequant
+vectors in one flush), silu(g) * u runs in fp32 and is cast to the compute
+type, then the quantized down product.  The router is never quantized.
+Capacity dispatch with ``quant`` raises, as in the reference.  Expert
+parallelism (the reference's ``ep_ragged_moe``) is not ported; on one
+device the reference never takes the expert-parallel branch.
 """
 from __future__ import annotations
 
@@ -32,6 +37,8 @@ from torch import nn
 
 from ..core.gemm import (grouped_matmul, grouped_swiglu, plan_moe_dispatch,
                          project, ragged_matmul, ragged_swiglu)
+from ..core.quant import QuantConfig
+from ..core.quant import resolve as resolve_quant
 from .attention import param
 
 
@@ -99,16 +106,18 @@ def moe_mlp(x: torch.Tensor, params: MoEParams, *, num_experts: int,
             quant: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """(T, D) flat tokens -> (output (T, D), aux loss).  See the module
     docstring for the dispatch modes; ``capacity_factor`` is ignored by
-    "ragged".  ``quant`` other than none raises (quantized experts are not
-    ported)."""
-    if quant not in (None, "none"):
-        raise NotImplementedError(f"quant={quant!r}: quantized experts are "
-                                  "not ported yet")
+    "ragged".  ``quant`` quantizes the ragged experts' panels; with
+    capacity dispatch it raises."""
+    qcfg = resolve_quant(quant)
     if dispatch == "ragged":
         return _moe_mlp_ragged(x, params, num_experts=num_experts,
-                               top_k=top_k, compute_dtype=compute_dtype)
+                               top_k=top_k, compute_dtype=compute_dtype,
+                               qcfg=qcfg)
     if dispatch != "capacity":
         raise ValueError(f"unknown moe dispatch: {dispatch}")
+    if not qcfg.is_noop:
+        raise ValueError("quantized experts require the ragged (zero-drop) "
+                         f"dispatch, not {dispatch!r}")
     t, d = x.shape
     e = num_experts
     c = capacity(t, e, top_k, capacity_factor, dtype=compute_dtype)
@@ -140,9 +149,11 @@ def moe_mlp(x: torch.Tensor, params: MoEParams, *, num_experts: int,
 
 
 def _moe_mlp_ragged(x: torch.Tensor, params: MoEParams, *, num_experts: int,
-                    top_k: int, compute_dtype=torch.bfloat16):
+                    top_k: int, compute_dtype=torch.bfloat16,
+                    qcfg: QuantConfig = QuantConfig()):
     """Capacity-free dispatch: stable sort by expert, device prefix sums,
-    the fused ragged gate/up pair and the ragged down projection, then the
+    the fused ragged gate/up pair (or, quantized, the two quantized
+    products and silu(g) * u) and the ragged down projection, then the
     gate-weighted un-sort (a scatter-add; with top-1 it has no duplicate
     rows, so it is deterministic)."""
     t, d = x.shape
@@ -159,9 +170,18 @@ def _moe_mlp_ragged(x: torch.Tensor, params: MoEParams, *, num_experts: int,
                          torch.cumsum(counts, dim=0, dtype=torch.int32)])
 
     xs = xc[tok_sorted]                                         # (T*K, D)
-    h = ragged_swiglu(xs, params.w_gate.to(compute_dtype),
-                      params.w_up.to(compute_dtype), offsets)   # (T*K, F)
-    ys = ragged_matmul(h, params.w_down.to(compute_dtype), offsets)
+    wg, wu, wd = (w.to(compute_dtype)
+                  for w in (params.w_gate, params.w_up, params.w_down))
+    if qcfg.is_noop:
+        h = ragged_swiglu(xs, wg, wu, offsets)                  # (T*K, F)
+        ys = ragged_matmul(h, wd, offsets)
+    else:
+        hg = ragged_matmul(xs, wg, offsets, quant=qcfg,
+                           out_dtype=torch.float32)
+        hu = ragged_matmul(xs, wu, offsets, quant=qcfg,
+                           out_dtype=torch.float32)
+        h = (hg * torch.sigmoid(hg) * hu).to(compute_dtype)
+        ys = ragged_matmul(h, wd, offsets, quant=qcfg)
 
     gw_sorted = gate_w.reshape(-1)[order]
     y = torch.zeros((t, d), dtype=compute_dtype, device=x.device).index_add_(

@@ -240,7 +240,10 @@ def test_unsupported_operand_width_rejected():
     with pytest.raises(ValueError, match="unsupported operand width"):
         autotune.autotune_gemm(64, 64, 64, 8, 4, device="cpu", store=False)
     with pytest.raises(ValueError, match="unsupported operand width"):
-        autotune.autotune_gemm(64, 64, 64, 1, 4, device="cpu", store=False)
+        autotune.autotune_gemm(64, 64, 64, 3, 4, device="cpu", store=False)
+    # 1 byte is int8 (the quantized products), a width the harness takes.
+    r = autotune.autotune_gemm(64, 64, 64, 1, 4, device="cpu", store=False)
+    assert r.in_bytes == 1 and r.plan.body == "fma"
 
 
 def test_unported_parts_raise_and_name_their_roadmap_item():
@@ -250,10 +253,12 @@ def test_unported_parts_raise_and_name_their_roadmap_item():
         autotune.calibrate_ici(None)
     with pytest.raises(NotImplementedError, match="item 10"):
         autotune.time_placed_dense_e2e(64, 64, 64, mesh=None)
+    # The int8 fraction is ported now: a 1-byte result is fitted apart.
     r = _tune(store=False)
     import dataclasses
-    with pytest.raises(NotImplementedError, match="item 5"):
-        autotune.calibrate([dataclasses.replace(r, in_bytes=1)])
+    cal = autotune.calibrate([r, dataclasses.replace(r, in_bytes=1)],
+                             store=False)
+    assert cal.flops_frac_int8 is not None and cal.flops_frac_int8 > 0
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")

@@ -9,6 +9,11 @@ interpret mode).  Tolerances are normwise, max|kernel - plain| / max|plain|:
 2e-2 for a bf16 output (one bf16 ulp is 2^-8 relative) and 1e-4 for fp32
 (the two sum the same fp32 products in different orders).
 """
+import functools
+import importlib.util
+import sys
+from pathlib import Path
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -1224,3 +1229,115 @@ def test_cached_split_k_record_launches_split_k(dev, clean_store):
     assert K.body_counts()["ftimm_gemm_splitk"] == {"fma": 0, "tc": 1}
     assert K.launch_counts()["ftimm_gemm"] == 0
     _close(got, K.ftimm_gemm_splitk_plain(a, b, bk=64, nsplit=4, trans="tn"))
+
+
+# ---------------------------------------------------------------------------
+# The quantized type codes (the FMA bodies of ftimm_gemm and
+# ftimm_gemm_ragged): int8 x int8 bitwise (an exact int32 sum, the same
+# fp32 flush), the mixed and fp8 pairs at the tolerances above (fp32 sums
+# of exact products in another order).
+# ---------------------------------------------------------------------------
+
+FP32, I8 = torch.float32, torch.int8
+E4, E5 = torch.float8_e4m3fn, torch.float8_e5m2
+QUANT_PAIRS = [(BF16, I8), (FP32, I8), (I8, I8), (E4, E4), (E5, E5)]
+
+
+def _quantized(shape, dtype, gen, dev):
+    from repro_torch.core import quant
+    x = torch.randn(shape, generator=gen, device=dev)
+    if dtype == I8:
+        return quant.quantize(x, quant.symmetric_scale(x))
+    if dtype in (E4, E5):
+        return quant.quantize_fp8(x, "e4m3" if dtype == E4 else "e5m2")[0]
+    return x.to(dtype)
+
+
+def _quant_close(got, want, pair):
+    if pair == (I8, I8):
+        assert torch.equal(got, want)
+    else:
+        _close(got, want)
+
+
+@pytest.mark.parametrize("tile", K.QUANT_TILES)
+@pytest.mark.parametrize("trans", ["nn", "nt"])
+@pytest.mark.parametrize("m,k,n", [(33, 257, 65), (4, 5120, 1024),
+                                   (128, 1100, 96)])
+@pytest.mark.parametrize("pair", QUANT_PAIRS, ids=str)
+@pytest.mark.parametrize("out", [BF16, FP32])
+def test_quant_dense_kernel(dev, tile, trans, m, k, n, pair, out):
+    gen = torch.Generator(device=dev).manual_seed(m + k)
+    a = _quantized((m, k), pair[0], gen, dev)
+    b = _quantized((k, n) if trans == "nn" else (n, k), pair[1], gen, dev)
+    sv = torch.rand(n, generator=gen, device=dev) + 0.5
+    epi = Epilogue(scale_vec=True)
+    got = K.ftimm_gemm(a, b, bm=tile[0], bn=tile[1], bk=tile[2], trans=trans,
+                       out_dtype=out, epilogue=epi, scale=sv)
+    torch.cuda.synchronize()
+    _quant_close(got, K.ftimm_gemm_plain(a, b, trans=trans, out_dtype=out,
+                                         epilogue=epi, scale=sv), pair)
+
+
+@pytest.mark.parametrize("b_dtype", [I8, E4, E5])
+@pytest.mark.parametrize("a_dtype", [BF16, FP32])
+def test_quant_dense_dx_kernel(dev, a_dtype, b_dtype):
+    """The straight-through dX: a cotangent against the 1-byte panel."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    dz = torch.randn(37, 96, generator=gen, device=dev).to(a_dtype)
+    w = _quantized((200, 96), b_dtype, gen, dev)
+    got = ops.gemm(dz, w, trans="nt", out_dtype=FP32)
+    torch.cuda.synchronize()
+    _close(got, K.ftimm_gemm_plain(dz, w, trans="nt", out_dtype=FP32))
+
+
+@pytest.mark.parametrize("tile", K.QUANT_TILES)
+@pytest.mark.parametrize("sizes", RAGGED_DISTS)
+@pytest.mark.parametrize("pair", QUANT_PAIRS, ids=str)
+@pytest.mark.parametrize("tail", [0, 5])
+def test_quant_ragged_kernel(dev, tile, sizes, pair, tail):
+    g, k, n = len(sizes), 1100, 96
+    t = sum(sizes) + tail
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = _quantized((t, k), pair[0], gen, dev)
+    w = _quantized((g, k, n), pair[1], gen, dev)
+    sv = torch.rand(g, n, generator=gen, device=dev) + 0.5
+    offs = _offsets(sizes, dev)
+    epi = Epilogue(scale_vec=True)
+    for out in (BF16, FP32):
+        got = K.ftimm_gemm_ragged(x, w, offs, bm=tile[0], bn=tile[1],
+                                  bk=tile[2], out_dtype=out, epilogue=epi,
+                                  scale=sv)
+        torch.cuda.synchronize()
+        _quant_close(got, K.ftimm_gemm_ragged_plain(
+            x, w, offs, out_dtype=out, epilogue=epi, scale=sv), pair)
+
+
+@functools.lru_cache(maxsize=None)
+def _chip_smoke():
+    """The repo's chip_smoke.py as a module: its [quant] card checks are
+    the one copy of the checks below."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = sys.modules[spec.name] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_quant_operands_refused_where_not_built(dev):
+    """The tensor-core and stream bodies and the kernels without the
+    quantized codes raise on a 1-byte operand; nothing falls back."""
+    _chip_smoke().check_quant_refusals(dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    a = _quantized((4, 256), I8, gen, dev)
+    b = _quantized((256, 256), I8, gen, dev)
+    with pytest.raises(ValueError, match="not a compiled tile"):
+        K.ftimm_gemm(a, b, bm=128, bn=128, bk=16, out_dtype=FP32)
+
+
+@pytest.mark.parametrize("mode", ["w8", "w4", "int8", "fp8_e4m3",
+                                  "fp8_e5m2"])
+def test_quant_matmul_forward_and_backward_on_the_card(dev, mode):
+    """matmul(quant=) and ragged_matmul(quant=) with a tail, forward and
+    straight-through backward, card against CPU on the same inputs."""
+    _chip_smoke().check_quant_backward(dev, modes=(mode,))

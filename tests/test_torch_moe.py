@@ -102,10 +102,12 @@ def test_moe_mlp_matches_jax(dispatch, e, k, factor):
 
 
 def test_moe_mlp_rejects_quantized_experts():
+    # As in the reference: quantized experts run with ragged dispatch only
+    # (the ragged path's parity with the reference: test_torch_quant.py).
     _, tp = _moe_params(32, 48, 4, 0)
-    with pytest.raises(NotImplementedError, match="quant"):
+    with pytest.raises(ValueError, match="ragged"):
         tmoe.moe_mlp(torch.zeros(3, 32), tp, num_experts=4, top_k=2,
-                     dispatch="ragged", quant="w8")
+                     dispatch="capacity", quant="w8")
 
 
 def _configs(arch, layers=None):
@@ -209,10 +211,21 @@ def test_moe_init_params_shapes():
 
 
 def test_quantized_variants_still_raise():
-    for name in ("mixtral-8x7b-w8", "llama4-scout-17b-a16e-w8-smoke",
-                 "llama4-scout-17b-a16e-smoke-int8", "mixtral-8x7b-w4"):
-        with pytest.raises(KeyError, match="quantized"):
-            get_config(name)
+    # The quantized variants resolve now, as in the reference; the capacity
+    # model's still raises, in its forward pass (as the reference's does).
+    for name, mode in (("mixtral-8x7b-w8", "w8"),
+                       ("llama4-scout-17b-a16e-w8-smoke", "w8"),
+                       ("llama4-scout-17b-a16e-smoke-int8", "int8"),
+                       ("mixtral-8x7b-w4", "w4")):
+        assert get_config(name).quant == mode
+    cfg = get_config("mixtral-8x7b-smoke-w8")
+    _, tp = _moe_params(cfg.d_model, cfg.d_ff, cfg.num_experts, 0)
+    with pytest.raises(ValueError, match="ragged"):
+        tmoe.moe_mlp(torch.zeros(3, cfg.d_model), tp,
+                     num_experts=cfg.num_experts, top_k=cfg.top_k,
+                     dispatch=cfg.moe_dispatch, quant=cfg.quant)
+    with pytest.raises(KeyError, match="not ported"):
+        get_config("gemma3-4b-w8")
 
 
 @pytest.mark.parametrize("dispatch", ["capacity", "ragged"])
