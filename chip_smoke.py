@@ -13,7 +13,11 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
 3. [check] hold each kernel against its plain PyTorch version on the card:
    the shapes that serving qwen3-1.7b, mixtral-8x7b and
    llama4-scout-17b-a16e gives it (decode at 4 slots, and the bucket
-   prefills), the shapes training gives the two backward kernels (the
+   prefills), the shapes of the recurrent path (mamba2-370m's and
+   zamba2-7b's SSM in / out projections, N = 4384 / 14576, at 4, 40 and
+   300 rows, their unembeds, and zamba2's shared block: q / k / v, o and
+   down with the residual, the gate/up pair, the fp32 QK^T / PV at
+   head_dim 112), the shapes training gives the two backward kernels (the
    llama4-scout expert dW, T = 1024 routed rows; the split-K kernel at the
    T2 dW shapes of qwen3-1.7b and the llama4-scout router, nsplit 2 / 4 /
    8), unaligned shapes, every trans, the epilogues, the shared 2-D
@@ -30,8 +34,8 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    at every group's edge, the ragged distributions: empty groups, a group
    of exactly 16 rows, rows outside every group), and at the MoE and qwen
    home shapes.  Then the planner's body choice through the dispatch layer
-   (a misaligned operand takes the FMA body, 4 rows the stream, 200 the
-   tensor cores; mixtral's 16-row expert buffers, llama4's 4 routed rows
+   (a misaligned operand takes the FMA body, 4 rows the stream -- so does
+   every bf16 decode GEMM of the recurrent path -- 200 the tensor cores; mixtral's 16-row expert buffers, llama4's 4 routed rows
    and qwen's 4 decode rows of the dense gate/up pair the grouped / ragged
    stream, for the down projection and the gate/up pairs, 128, 320 and
    1024 rows the tensor cores, fp32 the FMA body) and bit-identical reruns
@@ -65,13 +69,32 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    qwen3 prefill
    logits are held against the plain versions on the CPU (5e-2 normwise:
    28 bf16 layers, each of whose activations may round one bf16 ulp apart);
-6. [train-reference] training in fp32, card against CPU, same weights and
+6. [recurrent] mamba2-370m (SSM, 48 layers) and zamba2-7b (hybrid: 81
+   Mamba2 layers, one shared attention + MLP block after every 6) on
+   ServeEngine's dense-slot rung.  fp32 references, card against CPU:
+   the smoke configs (zamba2 at 5 layers: 2 groups and a remainder),
+   prefill logits within 1e-4 and the same greedy tokens; full width at a
+   depth cut (mamba2 2 layers, zamba2 7: a group of 6 and a remainder of
+   1), a prefill and 2 decode steps, the logits and every cache leaf
+   within 1e-3.  Then both at full width and depth in bf16, random
+   weights from seed 0, one on the card at a time: 6 greedy requests over
+   4 slots, prompts of 2, 17, 40 and 300 tokens (the last spans more than
+   one SSD chunk), 16 new tokens each.  Every kernel of the path must
+   launch, with no non-finite logits; every ftimm_gemm of at most 4 rows
+   (decode, the conv tails, the 2-token prompt) on the stream body, the
+   dense pair of at most 16 rows on the stream and more on the tensor
+   cores, the fp32 attention on the FMA body; one decode step launches
+   ftimm_gemm 97 times (mamba2) or 228, the pair 13 and the grouped
+   kernel 26 times (zamba2).  Prints the decode median, the prefill walls,
+   peak memory, launches a step and ``profile_decode``'s device busy,
+   idle share and device time by kernel group;
+7. [train-reference] training in fp32, card against CPU, same weights and
    batches: qwen3-1.7b at full width and 2 layers, 2 AdamW steps of batch 2
    x seq 32 (the loss of each step and every step-1 gradient leaf within
    1e-3 normwise); llama4-scout-17b-a16e at full width and 1 layer, one
    forward / backward of 64 tokens (the same experts for every token on
    both, then the loss and every gradient leaf within 1e-3);
-7. [train] through ``Trainer``, bf16 compute on fp32 masters, AdamW (the
+8. [train] through ``Trainer``, bf16 compute on fp32 masters, AdamW (the
    first 5 steps of a 20-step warmup to lr 3e-4), seq 128 x batch 8 (the
    launcher's defaults), one model on the card at a time: qwen3-1.7b at
    full width and depth (28 layers), and llama4-scout-17b-a16e and
@@ -92,19 +115,19 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    memory.  Every distinct kernel call of these runs is recorded (kernel,
    operand shapes, strides and dtypes, trans, tile, epilogue, out dtype;
    the ragged offsets as routed);
-8. [train-check] each recorded call replayed on random operands of its
+9. [train-check] each recorded call replayed on random operands of its
    shapes against the kernel's plain version, at the tolerances of
    [check]: the forward, remat, dX and dW products of the three training
    steps, the mixed bf16 x fp32 products of the fp32 logits' and router's
    cotangents included;
-9. [train-schedule] the launcher's own schedule for a 5-step run (a 1-step
+10. [train-schedule] the launcher's own schedule for a 5-step run (a 1-step
    warmup to lr 3e-4, ``launch.train.opt_config``): llama4-scout at 1 layer
    in bf16 and in fp32 compute from the same masters and batches, and
    qwen3-1.7b at 28 layers in bf16.  The losses are recorded, not gated
    (with this 1-step warmup they spike at full width, in fp32 as in bf16);
    the gates are that bf16 and fp32 give the same step-1 loss within 1e-2
    and the same step-2 loss within 5e-2;
-10. [autotune] the measured plan store on qwen3-1.7b at full width: every
+11. [autotune] the measured plan store on qwen3-1.7b at full width: every
    GEMM signature its main path plans (recorded at the dispatch layer
    while it serves the 6 requests -- decode at 4 rows, the 128- and
    256-row bucket prefills -- and takes two train steps of 8 x 128: the
@@ -127,7 +150,7 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    nsplit 4 for qwen's gate / up dW, (1024, 2048)^T (1024, 6144), and two
    qwen train steps: ``ftimm_gemm_splitk`` must launch, and the losses and
    the step-1 gradient norm must stay within 1e-3 of the analytic steps';
-11. [quant] the quantized type paths (int8 / fp8 / weight-only int8,
+12. [quant] the quantized type paths (int8 / fp8 / weight-only int8,
    ``core.quant``): ``ftimm_gemm``'s FMA body at every quantized code
    (qwen's and llama4's 4 decode rows, 128 prefill rows, unaligned
    extents; nn, and nt for the straight-through dX) and
@@ -156,7 +179,7 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    ``torch._scaled_mm`` where their shape and type rules allow,
    dequantize + ``torch.matmul`` / ``torch._grouped_mm`` (two calls) for
    w8;
-12. [time] each kernel at the decode-step shapes of the model it serves, and
+13. [time] each kernel at the decode-step shapes of the model it serves, and
    the two backward kernels at the training shapes (split-K on its
    tensor-core and FMA bodies), and ftimm_gemm at qwen3-1.7b's training
    forward shapes, its unembed and the mixed fp32 x bf16 unembed dX, qwen's
@@ -224,6 +247,7 @@ from repro_torch.launch.timing import sleep_ms_per_mcycle, time_ms  # noqa: E402
 from repro_torch.launch.train import opt_config  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
+from repro_torch.models.ssm import ssm_dims  # noqa: E402
 from repro_torch.models.weights import to_numpy_tree  # noqa: E402
 from repro_torch.optim import OptConfig, init_opt_state  # noqa: E402
 from repro_torch.serve import engine as E  # noqa: E402
@@ -248,6 +272,8 @@ REPLACES = {"ftimm_gemm": f"{_TPU}:202",
             "ftimm_gemm_ragged_dw": f"{_TPU}:698",
             "ftimm_gemm_splitk": f"{_TPU}:759"}
 ARCH, MIXTRAL, LLAMA4 = "qwen3-1.7b", "mixtral-8x7b", "llama4-scout-17b-a16e"
+MAMBA, ZAMBA = "mamba2-370m", "zamba2-7b"
+RECURRENT = (MAMBA, ZAMBA)      # served at full width and depth
 MOE_LAYERS = 8          # served depth of the MoE models (width as published)
 REF_LAYERS = 2          # depth of their fp32 card-vs-CPU reference
 # The kernels each run must launch (serving, then training), and the run
@@ -262,6 +288,9 @@ PATH_KERNELS = {
                          "ftimm_gemm_grouped_swiglu"),
     ("serve", LLAMA4): ("ftimm_gemm", "ftimm_gemm_grouped",
                         "ftimm_gemm_ragged", "ftimm_gemm_ragged_swiglu"),
+    ("serve", MAMBA): ("ftimm_gemm",),
+    ("serve", ZAMBA): ("ftimm_gemm", "ftimm_gemm_swiglu",
+                       "ftimm_gemm_grouped"),
     ("train", ARCH): ("ftimm_gemm", "ftimm_gemm_swiglu", "ftimm_gemm_grouped"),
     ("train", LLAMA4): ("ftimm_gemm", "ftimm_gemm_grouped",
                         "ftimm_gemm_ragged", "ftimm_gemm_ragged_swiglu",
@@ -290,6 +319,15 @@ TRAIN_REF_TOL = 1e-3
 # above its start, in fp32 compute as in bf16 ([train-schedule] shows it;
 # PERF.md, Findings).
 TRAIN_WARMUP = 20
+# [recurrent]: the dense-slot rung.  Prompts of 2 tokens (the conv tail's
+# zero row), 17, 40 and 300 (more than one SSD chunk: 256 for mamba2, 128
+# for zamba2); slot caches of REC_MAX_LEN rows.
+REC_PROMPT_LENS = (2, 17, 40, 300, 17, 40)
+REC_MAX_LEN = 320
+REC_PREFILL_ROWS = (40, 300)    # the exact-length prefills [check] holds
+REC_SMOKE_LAYERS = {MAMBA: None, ZAMBA: 5}   # zamba2: 2 groups + 1
+REC_REF_LAYERS = {MAMBA: 2, ZAMBA: 7}        # zamba2: 1 group of 6 + 1
+REC_REF_TOL = 1e-3
 
 
 def log(*args) -> None:
@@ -299,7 +337,8 @@ def log(*args) -> None:
 def depth(phase: str, arch: str) -> int:
     if phase == "train":
         return TRAIN_LAYERS[arch] or get_config(arch).num_layers
-    return get_config(arch).num_layers if arch == ARCH else MOE_LAYERS
+    full = arch in (ARCH,) + RECURRENT
+    return get_config(arch).num_layers if full else MOE_LAYERS
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -362,7 +401,7 @@ def _size(dtype) -> int:
 
 def dense_case(label, m, k, n, *, trans="nn", dtype=BF16, out=None,
                residual=False, per_step=0, phase="serve", timed=False,
-               b_dtype=None) -> Case:
+               b_dtype=None, model=ARCH) -> Case:
     """``b_dtype``: B's type when it differs from A's (an fp32 cotangent
     against bf16 weights: no one PyTorch call takes the pair, and the
     bound counts fp32 operations)."""
@@ -394,7 +433,7 @@ def dense_case(label, m, k, n, *, trans="nn", dtype=BF16, out=None,
                                            epilogue=epi or K.IDENTITY,
                                            residual=r),
         library if b_dtype == dtype else None, nbytes, 2.0 * m * n * k,
-        FP32 if FP32 in (dtype, b_dtype) else dtype, out, per_step,
+        FP32 if FP32 in (dtype, b_dtype) else dtype, out, per_step, model,
         phase=phase, timed=timed)
 
 
@@ -481,7 +520,7 @@ def _pair_matmul(x, wg, wu, out=None):
 
 
 def swiglu_case(label, m, k, n, *, dtype=BF16, per_step=0, phase="serve",
-                timed=False) -> Case:
+                timed=False, model=ARCH) -> Case:
     """The dense pair through ``matmul_swiglu`` (the planned body)."""
     def make(gen):
         return (_randn(gen, (m, k), dtype),
@@ -492,7 +531,7 @@ def swiglu_case(label, m, k, n, *, dtype=BF16, per_step=0, phase="serve",
                 lambda x, g, u: matmul_swiglu(x, g, u),
                 lambda x, g, u: K.ftimm_gemm_swiglu_plain(x, g, u),
                 None, (m * k + 2 * k * n + m * n) * _size(dtype),
-                4.0 * m * n * k, dtype, dtype, per_step, phase=phase,
+                4.0 * m * n * k, dtype, dtype, per_step, model, phase=phase,
                 timed=timed,
                 yardstick=_pair_matmul if dtype == BF16 else None)
 
@@ -971,6 +1010,90 @@ def moe_path_cases() -> list[Case]:
               ragged_swiglu_body_case("llama4 decode 4 experts gate/up",
                                       decode, d, f, body="fma", timed=True)]
     return cases
+
+
+def recurrent_path_cases() -> list[Case]:
+    """Every GEMM shape of one decode step of mamba2-370m and zamba2-7b at
+    SLOTS slots on the dense-slot rung (with its launch count at full
+    depth), and of their exact-length prefills of REC_PREFILL_ROWS tokens:
+    the SSM in / out projections (N = 4384 and 14576 end in a 32- and a
+    112-column edge tile), the unembed, and zamba2's shared block -- q, k,
+    v, o + residual, the gate/up pair, down + residual and the fp32 QK^T /
+    PV at head_dim 112 -- applied after each of its 13 groups."""
+    cases = []
+    for arch in RECURRENT:
+        cfg = get_config(arch)
+        d, layers, tag = cfg.d_model, cfg.num_layers, arch.split("-")[0]
+        di, heads, n = ssm_dims(d, cfg.ssm_state)
+        groups = layers // cfg.attn_every if cfg.attn_every else 0
+        for rows in (SLOTS,) + REC_PREFILL_ROWS:
+            label = (f"{tag} decode" if rows == SLOTS
+                     else f"{tag} prefill {rows}")
+            dec = rows == SLOTS
+            cases += [
+                dense_case(f"{label} in_proj", rows, d, 2 * di + 2 * n + heads,
+                           per_step=layers if dec else 0, model=arch),
+                dense_case(f"{label} out_proj", rows, di, d,
+                           per_step=layers if dec else 0, model=arch)]
+            if not groups:
+                continue
+            hd, h = cfg.head_dim_, cfg.num_heads
+            qkv = cfg.num_heads * hd
+            cases += [
+                dense_case(f"{label} shared q/k/v", rows, d, qkv,
+                           per_step=3 * groups if dec else 0, model=arch),
+                dense_case(f"{label} shared o+res", rows, qkv, d,
+                           residual=True, per_step=groups if dec else 0,
+                           model=arch),
+                swiglu_case(f"{label} shared gate/up", rows, d, cfg.d_ff,
+                            per_step=groups if dec else 0, model=arch),
+                dense_case(f"{label} shared down+res", rows, cfg.d_ff, d,
+                           residual=True, per_step=groups if dec else 0,
+                           model=arch)]
+            if dec:     # one query row a head over the whole slot cache
+                cases += [
+                    grouped_case(f"{label} shared qk^T", SLOTS * h, 1, hd,
+                                 REC_MAX_LEN, trans="nt", per_step=groups,
+                                 model=arch),
+                    grouped_case(f"{label} shared pv", SLOTS * h, 1,
+                                 REC_MAX_LEN, hd, per_step=groups,
+                                 model=arch)]
+            else:       # one prompt: one group a head
+                cases += [
+                    grouped_case(f"{label} shared qk^T", h, rows, hd, rows,
+                                 trans="nt", model=arch),
+                    grouped_case(f"{label} shared pv", h, rows, rows, hd,
+                                 model=arch)]
+        cases += [dense_case(f"{tag} decode unembed", SLOTS, d,
+                             cfg.vocab_padded, trans="nt", out=FP32,
+                             per_step=1, model=arch),
+                  dense_case(f"{tag} prefill unembed", 1, d,
+                             cfg.vocab_padded, trans="nt", out=FP32,
+                             model=arch)]
+    return cases
+
+
+def check_recurrent_bodies(cases: list[Case], dev) -> dict:
+    """Each bf16 decode GEMM of the recurrent path (``ftimm_gemm`` and the
+    dense pair at SLOTS rows) through the dispatch layer: it must take the
+    stream body and agree with its plain version."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    seen = {}
+    for c in cases:
+        if c.per_step == 0 or c.dtype != BF16:
+            continue
+        inputs = c.make(gen)
+        K.reset_launch_counts()
+        got = c.run(*inputs)
+        rel, _ = rel_err(got, c.plain(*inputs))
+        bodies = {b: v for b, v in K.body_counts()[c.kernel].items() if v}
+        seen[c.label] = bodies
+        if bodies != {"stream": 1} or rel > TOL[c.out_dtype]:
+            raise AssertionError(f"{c.label}: bodies {bodies}, normwise "
+                                 f"{rel:.3g}")
+    log(f"  {len(seen)} recurrent decode shapes through dispatch: all on the "
+        "stream body")
+    return seen
 
 
 def edge_cases() -> list[Case]:
@@ -1529,11 +1652,14 @@ def timings(cases: list[Case], dev) -> list[dict]:
 # References
 # ---------------------------------------------------------------------------
 
-def small_reference(dev) -> None:
-    """qwen3-1.7b-smoke in fp32: the kernels on the card against the plain
-    versions on the CPU, same weights."""
-    cfg = dataclasses.replace(get_config(ARCH + "-smoke"),
+def small_reference(dev, arch: str = ARCH,
+                    layers: int | None = None) -> None:
+    """``arch``-smoke (at ``layers`` layers) in fp32: the kernels on the
+    card against the plain versions on the CPU, same weights."""
+    cfg = dataclasses.replace(get_config(arch + "-smoke"),
                               compute_dtype="float32")
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     cpu_model = M.init_params(cfg, 0, device="cpu")
     gpu_model = copy.deepcopy(cpu_model).to(dev)
     toks = np.random.default_rng(3).integers(2, cfg.vocab_size, (2, 12))
@@ -1551,12 +1677,14 @@ def small_reference(dev) -> None:
         out[name] = (logits.cpu(), [r.out_tokens for r in reqs])
     rel, _ = rel_err(out["gpu"][0], out["cpu"][0])
     if rel > 1e-4:
-        raise AssertionError(f"smoke prefill logits: normwise {rel:.3g}")
+        raise AssertionError(f"{cfg.name} prefill logits: normwise "
+                             f"{rel:.3g}")
     if out["gpu"][1] != out["cpu"][1]:
-        raise AssertionError(f"smoke tokens differ: {out['gpu'][1]} vs "
-                             f"{out['cpu'][1]}")
-    log(f"  smoke fp32 reference: logits normwise {rel:.2e}, "
-        f"{sum(map(len, out['gpu'][1]))} tokens identical")
+        raise AssertionError(f"{cfg.name} tokens differ: {out['gpu'][1]} "
+                             f"vs {out['cpu'][1]}")
+    log(f"  {cfg.name} ({cfg.num_layers} layers) fp32 reference: logits "
+        f"normwise {rel:.2e}, {sum(map(len, out['gpu'][1]))} tokens "
+        "identical")
 
 
 def moe_reference(arch: str, dev) -> dict:
@@ -1766,6 +1894,219 @@ def serve(arch: str, dev) -> tuple[dict, ServeEngine, dict]:
     for r in reqs[:2]:
         log(f"  req {r.rid} ({len(r.prompt)} prompt tokens): {r.out_tokens}")
     return stats, engine, launches
+
+
+# ---------------------------------------------------------------------------
+# The recurrent families: mamba2-370m (SSM) and zamba2-7b (hybrid)
+# ---------------------------------------------------------------------------
+
+def recurrent_reference(arch: str, dev) -> dict:
+    """``arch`` in fp32 at full width and REC_REF_LAYERS layers: a 20-token
+    prefill of 2 prompts and two decode steps on the card (the kernels) and
+    on the CPU (the plain versions), same weights.  The logits and every
+    cache leaf (the SSM state h and conv window; zamba2's shared-block K /
+    V) must agree within REC_REF_TOL normwise."""
+    cfg = dataclasses.replace(get_config(arch),
+                              num_layers=REC_REF_LAYERS[arch],
+                              compute_dtype="float32")
+    t0 = time.monotonic()
+    gpu_model = M.init_params(cfg, 0, device=dev)
+    cpu_model = copy.deepcopy(gpu_model).to(CPU)
+    rng = np.random.default_rng(8)
+    prompt = rng.integers(2, cfg.vocab_size, (2, 20))
+    nxt = rng.integers(2, cfg.vocab_size, (2, 2))
+    runs = {}
+    for name, model, device in (("gpu", gpu_model, dev),
+                                ("cpu", cpu_model, CPU)):
+        t1 = time.monotonic()
+        cache = M.make_cache(cfg, 2, 24, device=device)
+        logits, cache = M.prefill(
+            model, cfg, {"tokens": torch.as_tensor(prompt).to(device)}, cache)
+        out = [logits]
+        for step in range(2):
+            logits, cache = M.decode_step(
+                model, cfg, torch.as_tensor(nxt[:, step:step + 1]).to(device),
+                cache, 20 + step)
+            out.append(logits)
+        # The padded vocab rows hold -1e30 on both sides: compare the rest.
+        out = [t[:, :cfg.vocab_size].cpu() for t in out]
+        runs[name] = (out, {k: v.cpu() for k, v in cache.items()},
+                      time.monotonic() - t1)
+    del gpu_model, cpu_model
+    free_card()
+    (g_out, g_cache, g_s), (c_out, c_cache, c_s) = runs["gpu"], runs["cpu"]
+    logits_rel = max(rel_err(a, b)[0] for a, b in zip(g_out, c_out))
+    state_rel = {k: rel_err(g_cache[k], c_cache[k])[0] for k in g_cache}
+    worst = max(logits_rel, *state_rel.values())
+    log(f"  {arch} fp32, {cfg.num_layers} layers, full width: logits "
+        f"normwise {logits_rel:.2e}, cache leaves "
+        + ", ".join(f"{k} {v:.2e}" for k, v in state_rel.items())
+        + f" (card {g_s:.1f} s, CPU {c_s:.1f} s, "
+        f"{time.monotonic() - t0:.1f} s in all)")
+    if worst > REC_REF_TOL:
+        raise AssertionError(f"{arch} fp32 reference: normwise {worst:.3g} "
+                             f"> {REC_REF_TOL}")
+    return {"layers": cfg.num_layers, "logits_normwise": logits_rel,
+            "cache_normwise": state_rel}
+
+
+def decode_launches(engine: ServeEngine, dev) -> dict[str, int]:
+    """Kernel launches of one fused decode step over every slot of
+    ``engine``'s cache (after its run), and the check that they are the
+    path's: two SSM projections a layer, the unembed, and after each of the
+    hybrid's groups q, k, v, o and down, the gate/up pair and the two fp32
+    attention products."""
+    cfg = engine.cfg
+    K.reset_launch_counts()
+    M.decode_step(engine.params, cfg,
+                  torch.zeros((engine.b, 1), dtype=torch.long, device=dev),
+                  engine.cache, torch.as_tensor(engine.pos, dtype=torch.long))
+    torch.cuda.synchronize()
+    got = {k: v for k, v in K.launch_counts().items() if v}
+    groups = cfg.num_layers // cfg.attn_every if cfg.attn_every else 0
+    want = {"ftimm_gemm": 2 * cfg.num_layers + 5 * groups + 1}
+    if groups:
+        want.update(ftimm_gemm_swiglu=groups, ftimm_gemm_grouped=2 * groups)
+    if got != want:
+        raise AssertionError(f"{cfg.name}: a decode step launched {got}, "
+                             f"the path has {want}")
+    return got
+
+
+def serve_recurrent(arch: str, dev) -> tuple[dict, dict, dict]:
+    """Serve ``arch`` at full width and depth through ServeEngine's
+    dense-slot rung: 6 greedy requests of REC_PROMPT_LENS tokens over SLOTS
+    slots, NEW_TOKENS each.  Returns (stats, the launch counts of just this
+    run, its body counts)."""
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    model = M.init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    params = sum(p.numel() for p in model.parameters())
+    log(f"  {arch}: {cfg.num_layers} layers, d {cfg.d_model}, SSM state "
+        f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}, "
+        + (f"a shared attention + MLP block after every {cfg.attn_every} "
+           f"(heads {cfg.num_heads}/{cfg.num_kv_heads} of "
+           f"{cfg.head_dim_}, d_ff {cfg.d_ff}), " if cfg.attn_every else "")
+        + f"vocab {cfg.vocab_size}; init {time.monotonic() - t0:.1f} s, "
+        f"{params / 1e9:.3f} B params")
+    engine = ServeEngine(cfg, model, batch_slots=SLOTS, max_len=REC_MAX_LEN,
+                         device=dev)
+    if engine.paged:
+        raise AssertionError(f"{arch} took the paged rung")
+    cache_gb = sum(t.numel() * t.element_size()
+                   for t in engine.cache.values()) / 1e9
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, max_new_tokens=NEW_TOKENS, prompt=rng.integers(
+        2, cfg.vocab_size, n).astype(np.int32))
+        for i, n in enumerate(REC_PROMPT_LENS)]
+
+    K.reset_launch_counts()
+    t0 = time.monotonic()
+    engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches, bodies = K.launch_counts(), K.body_counts()
+    decode = list(engine.walls["decode"])
+    prefill = [s for _, s in engine.walls["prefill"]]
+    for r in reqs:
+        if not r.done or r.timed_out or len(r.out_tokens) != NEW_TOKENS:
+            raise AssertionError(f"{arch} request {r.rid} did not finish: "
+                                 f"{len(r.out_tokens)} tokens")
+        if not all(0 <= t < cfg.vocab_size for t in r.out_tokens):
+            raise AssertionError(f"{arch} request {r.rid}: token out of "
+                                 "range")
+    if any(engine.faults.values()):     # non-finite logits quarantine
+        raise AssertionError(f"{arch} engine faults: {engine.faults}")
+    missing = [k for k in PATH_KERNELS[("serve", arch)] if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{arch}: {missing} never launched: {launches}")
+
+    # Untimed: the first prompts again for 3 tokens with every kernel call
+    # recorded.  Every ftimm_gemm of at most SLOTS rows (the decode steps,
+    # the 2-token prompt, the 3-row conv tails, the 1-row prefill unembed)
+    # must take the stream body; the dense pair of at most 16 rows the
+    # stream, of more the tensor cores; the fp32 attention the FMA body.
+    again = [Request(rid=len(reqs) + i, prompt=r.prompt, max_new_tokens=3)
+             for i, r in enumerate(reqs[:SLOTS])]
+    with CallRecorder() as recorder:
+        engine.run(again)
+    by_rows = gemm_calls_by_rows_and_body(recorder)
+    small = {b: n for (m, b), n in by_rows.items() if m <= SLOTS}
+    if set(small) != {"stream"}:
+        raise AssertionError(f"{arch} GEMMs of <= {SLOTS} rows took the "
+                             f"bodies {small}, not only the stream")
+    grouped = group_calls_by_body(recorder)
+    for (kernel, pair, rows, body), n in grouped.items():
+        planned = ("fma" if pair != "bf16"
+                   else "stream" if rows <= K.GSTREAM_ROWS else "tc")
+        if body != planned:
+            raise AssertionError(f"{arch}: {kernel} {pair} calls of {rows} "
+                                 f"rows took the {body} body ({grouped})")
+    per_step = decode_launches(engine, dev)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    del engine
+    free_card()
+
+    prof = profile_decode(cfg, model, slots=SLOTS, prompt_len=24, warm=3,
+                          steps=5, device=dev)
+    prof.pop("top_kernels")
+    tokens = sum(len(r.out_tokens) for r in reqs)
+    stats = {"layers": cfg.num_layers, "params_b": params / 1e9,
+             "requests": len(reqs), "tokens": tokens, "wall_s": wall,
+             "tokens_per_s": tokens / wall, "decode_steps": len(decode),
+             "decode_step_median_ms": statistics.median(decode[1:]) * 1e3,
+             "prefill_ms_by_prompt": [[n, s * 1e3] for n, s in zip(
+                 REC_PROMPT_LENS, prefill)],
+             "slot_cache_gb": cache_gb, "peak_device_gb": peak,
+             "launches": launches, "bodies": bodies,
+             "launches_per_decode_step": per_step,
+             "ftimm_gemm_calls_by_rows_and_body_untimed": {
+                 f"{m} {b}": n for (m, b), n in sorted(by_rows.items())},
+             "group_calls_by_pair_rows_and_body_untimed": {
+                 " ".join(map(str, key)): n
+                 for key, n in sorted(grouped.items())},
+             "profile": prof}
+    log(f"  served {len(reqs)} requests, {tokens} tokens in {wall:.2f} s: "
+        f"{stats['tokens_per_s']:.1f} tokens/s; {len(decode)} decode steps, "
+        f"median {stats['decode_step_median_ms']:.2f} ms (first "
+        f"{decode[0] * 1e3:.1f} ms); exact prefill ms by prompt length "
+        + ", ".join(f"{n}: {s:.1f}" for n, s in stats["prefill_ms_by_prompt"])
+        + f"; slot cache {cache_gb:.3f} GB; peak device memory {peak:.2f} GB")
+    log(f"  launches in the serving run: "
+        f"{ {k: v for k, v in launches.items() if v} }; bodies "
+        f"{ {k: v for k, v in bodies.items() if any(v.values())} }; one "
+        f"decode step launches {per_step}; ftimm_gemm calls by (rows, body)"
+        f" in {len(again)} more requests of 3 tokens, untimed: "
+        f"{stats['ftimm_gemm_calls_by_rows_and_body_untimed']}")
+    log(f"  profile_decode, {SLOTS} slots, 5 steps: wall median "
+        f"{prof['step_wall_ms']:.2f} ms, device busy "
+        f"{prof['device_busy_ms']:.2f} ms, idle share "
+        f"{prof['idle_share']:.3f}, {prof['launches_per_step']:.0f} device "
+        "launches a step; device ms a step by group: "
+        + ", ".join(f"{g} {ms:.3f}" for g, ms in sorted(
+            prof["device_ms_per_step"].items(), key=lambda kv: -kv[1])))
+    for r in reqs[:2]:
+        log(f"  req {r.rid} ({len(r.prompt)} prompt tokens): {r.out_tokens}")
+    del model
+    free_card()
+    return stats, launches, bodies
+
+
+def recurrent_phase(dev) -> tuple[dict, dict, dict]:
+    """[recurrent]: the smoke and full-width fp32 references of both
+    families, then each served at full width and depth, one model on the
+    card at a time.  Returns (stats, launches and bodies by run)."""
+    out = {"reference": {}, "serve": {}}
+    launches, bodies = {}, {}
+    for arch in RECURRENT:
+        small_reference(dev, arch, REC_SMOKE_LAYERS[arch])
+        out["reference"][arch] = recurrent_reference(arch, dev)
+    for arch in RECURRENT:
+        out["serve"][arch], launches[("serve", arch)], bodies[
+            ("serve", arch)] = serve_recurrent(arch, dev)
+    return out, launches, bodies
 
 
 # ---------------------------------------------------------------------------
@@ -3100,17 +3441,20 @@ def main() -> int:
     view_len = math.ceil(MAX_LEN / PAGE) * PAGE
     qwen_cases = main_path_cases(cfg, view_len, bucket=64)
     moe_cases = moe_path_cases()
+    rec_cases = recurrent_path_cases()
     trn_cases = train_cases()
     log("[check] kernels against their plain versions")
-    worst = check(qwen_cases + moe_cases + trn_cases + edge_cases(), dev)
+    worst = check(qwen_cases + moe_cases + rec_cases + trn_cases
+                  + edge_cases(), dev)
     bodies_check = check_bodies(dev)
+    bodies_check["recurrent decode"] = check_recurrent_bodies(rec_cases, dev)
     free_card()
     phases["check"] = time.monotonic() - t0
     log(f"[check] done in {phases['check']:.1f} s")
 
     t0 = time.monotonic()
     log("[reference] small input, and the MoE models in fp32 at full width")
-    small_reference(dev)
+    small_reference(dev, ARCH)
     refs = {arch: moe_reference(arch, dev) for arch in (MIXTRAL, LLAMA4)}
     phases["reference"] = time.monotonic() - t0
     log(f"[reference] done in {phases['reference']:.1f} s")
@@ -3129,6 +3473,14 @@ def main() -> int:
         free_card()
     phases["serve"] = time.monotonic() - t0
     log(f"[serve] done in {phases['serve']:.1f} s")
+
+    t0 = time.monotonic()
+    log("[recurrent] mamba2-370m and zamba2-7b on the dense-slot rung: "
+        "fp32 references, then served at full width and depth")
+    recurrent, rec_launches, rec_bodies = recurrent_phase(dev)
+    launches.update(rec_launches)
+    phases["recurrent"] = time.monotonic() - t0
+    log(f"[recurrent] done in {phases['recurrent']:.1f} s")
 
     t0 = time.monotonic()
     log("[train-reference] fp32 training, card against CPU, full width")
@@ -3182,7 +3534,7 @@ def main() -> int:
 
     t0 = time.monotonic()
     log("[time] decode-step and training shapes")
-    rows = timings(qwen_cases + moe_cases + trn_cases, dev)
+    rows = timings(qwen_cases + moe_cases + rec_cases + trn_cases, dev)
     phases["time"] = time.monotonic() - t0
     log(f"[time] done in {phases['time']:.1f} s")
 
@@ -3197,12 +3549,13 @@ def main() -> int:
             f"bound {r['bound_ms'] * 1e3:7.1f} us ({r['bound_by']})")
     phases["all"] = time.monotonic() - t_all
     log(json.dumps({"bodies_check": bodies_check, "serve": stats,
-                    "moe_reference": refs,
+                    "moe_reference": refs, "recurrent": recurrent,
                     "train_reference": train_refs, "train": train_stats,
                     "train_schedule": witness, "autotune": tuned,
                     "quant": quant, "phases_s": phases}))
     log(card)
     bodies = {("serve", a): stats[a]["bodies"] for a in stats}
+    bodies.update(rec_bodies)
     bodies.update({("train", a): train_stats[a]["bodies"]
                    for a in train_stats})
     print(json.dumps({"kernels": kernel_entries(rows, launches, worst,

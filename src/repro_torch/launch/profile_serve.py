@@ -17,7 +17,11 @@ the step serves its plans; the plan modes printed say how many did.  For a
 quantized arch (``-w8`` / ``-w4`` / ``-int8``) the kernels launched inside
 the dispatch layer's weight-quantization range (``QUANT_RANGE``) are moved
 out of their groups into a ``weight quantization`` line of their own.
-Needs a CUDA card.
+The SSM families (``mamba2-370m``, ``zamba2-7b``) profile their
+dense-slot engine; their SSD contractions are PyTorch library calls
+(``torch.matmul`` / ``einsum``, as the reference's ``jnp.einsum``), grouped
+as ``library GEMM (SSD)`` beside the elementwise kernels.  Needs a CUDA
+card.
 """
 from __future__ import annotations
 
@@ -64,11 +68,14 @@ GROUPS = (("ftimm_gemm_swiglu stream", "ftimm_gemm_swiglu_stream"),
           ("ftimm_gemm_ragged", "ftimm_gemm_ragged_kernel"),
           ("ftimm_gemm_ragged stream", "ftimm_gemm_ragged_stream"),
           ("ftimm_gemm_ragged tensor cores", "ftimm_gemm_ragged_tc_kernel"),
+          ("ftimm_gemm_ragged_dw", "ftimm_gemm_ragged_dw"),
           ("ftimm_gemm_splitk tensor cores", "ftimm_gemm_splitk_tc_kernel"),
           ("ftimm_gemm_splitk", "ftimm_gemm_splitk_kernel"),
           ("ftimm_gemm stream", "ftimm_gemm_stream_"),
           ("ftimm_gemm tensor cores", "ftimm_gemm_tc_kernel"),
           ("ftimm_gemm fma", "ftimm_gemm_kernel"),
+          ("library GEMM (SSD)", "gemm"),
+          ("library GEMM (SSD)", "gemv"),
           ("host <-> device copy", "memcpy"),
           ("copy / cast", "copy"),
           ("index / gather / scatter", "index"),

@@ -5,7 +5,10 @@
 
 Runs on the CUDA card, every GEMM through the ftIMM kernels; with no card
 it raises unless ``--device cpu`` asks for the plain versions on the CPU
-(``--arch qwen3-1.7b-smoke --device cpu`` is the CPU-sized run).
+(``--arch qwen3-1.7b-smoke --device cpu`` is the CPU-sized run).  The
+recurrent families (``mamba2-370m``, ``zamba2-7b``) serve on the engine's
+dense-slot rung: exact-length prefill into a slot cache, no page pool, no
+buckets and no cost model.
 
 Warmup loads a measured plan store (``--plan-cache``, else
 ``$REPRO_PLAN_CACHE``, else ``results/plan_cache.json`` when present)
@@ -96,13 +99,20 @@ def main(argv=None) -> None:
                          max_len=args.prompt_len + args.max_new + 8,
                          page_size=args.page_size, num_pages=args.num_pages,
                          seed=args.seed, device=device)
-    cost = engine.cost.snapshot()
-    print(f"warmup: buckets={cost['buckets']} "
-          f"planned {cost['warmed_signatures']} GEMM signatures "
-          f"(plan-store lookups={cost['store_lookups']} "
-          f"hits={cost['store_hits']}), "
-          f"KV pool {engine.alloc.total} pages x {engine.page_size} rows "
-          f"on {device}")
+    if engine.paged:
+        cost = engine.cost.snapshot()
+        print(f"warmup: buckets={cost['buckets']} "
+              f"planned {cost['warmed_signatures']} GEMM signatures "
+              f"(plan-store lookups={cost['store_lookups']} "
+              f"hits={cost['store_hits']}), "
+              f"KV pool {engine.alloc.total} pages x {engine.page_size} "
+              f"rows on {device}")
+    else:
+        mb = sum(t.numel() * t.element_size()
+                 for t in engine.cache.values()) / 1e6
+        print(f"warmup: exact-length prefill (no buckets, no cost model), "
+              f"slot cache {mb:.1f} MB ({args.slots} slots, "
+              f"{', '.join(engine.cache)}) on {device}")
     rng = np.random.default_rng(args.seed)
     reqs = [Request(rid=i,
                     prompt=rng.integers(2, cfg.vocab_size,

@@ -1,14 +1,19 @@
-"""Top-level model API of the dense and MoE decoders: init / training
-forward and loss / prefill / bucketed prefill / decode, and the KV cache.
+"""Top-level model API of the dense, MoE, SSM and hybrid decoders: init /
+training forward and loss / prefill / bucketed prefill / decode, and the
+cache.
 
 Batch dict convention, as in the reference: ``tokens`` (B, S) int, and for
 training ``labels`` (B, S) int and ``loss_mask`` (B, S) float.  The
 parameters are one ``DenseLM`` module (the reference's parameter pytree):
 the (V_pad, D) embedding table, shared by the embed and the unembed, the
-fp32 final-norm scale, and one ``DenseBlock`` per layer, whose feed-forward
-is a SwiGLU MLP (dense) or routed experts (moe).  A serving model holds its
-weights in the compute dtype and no gradient; a training model holds fp32
-masters (``cfg.param_dtype``) that require grad, cast at use.
+fp32 final-norm scale, one block per layer -- a ``DenseBlock``, whose
+feed-forward is a SwiGLU MLP (dense) or routed experts (moe), or an
+``SSMBlock`` (ssm, hybrid) -- and, for the hybrid, the one
+``shared_attn`` ``DenseBlock`` applied after every ``attn_every`` layers.
+A serving model holds its weights in the compute dtype and no gradient; a
+training model holds fp32 masters (``cfg.param_dtype``) that require grad,
+cast at use.  Norm scales and the SSM's A_log / D_skip / dt_bias stay
+fp32 in both.
 
 In the capacity-dispatch MoE, every token of a stack pass is routed and
 takes capacity, the right-padding of a bucket prefill and the idle slots of
@@ -23,8 +28,9 @@ from ..configs.base import ModelConfig
 from ..core.device import resolve_device
 from .attention import param
 from .layers import embed, rms_norm, unembed
-from .transformer import (DenseBlock, as_dtype, check_family, compute_dtype,
-                          init_cache, init_dense_block, stack_cached,
+from .transformer import (RECURRENT_FAMILIES, DenseBlock, SSMBlock, as_dtype,
+                          check_family, compute_dtype, init_cache,
+                          init_dense_block, init_ssm_block, stack_cached,
                           stack_train)
 
 __all__ = ["DenseLM", "init_params", "forward_train", "loss_fn", "prefill",
@@ -33,11 +39,14 @@ __all__ = ["DenseLM", "init_params", "forward_train", "loss_fn", "prefill",
 
 class DenseLM(nn.Module):
     def __init__(self, embed_table: torch.Tensor, final_norm: torch.Tensor,
-                 layers: list[DenseBlock], *, requires_grad: bool = False):
+                 layers: list[DenseBlock] | list[SSMBlock], *,
+                 shared_attn: DenseBlock | None = None,
+                 requires_grad: bool = False):
         super().__init__()
         self.embed = param(embed_table, requires_grad)
         self.final_norm = param(final_norm, requires_grad)
         self.layers = nn.ModuleList(layers)
+        self.shared_attn = shared_attn
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *,
@@ -45,7 +54,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
                 dtype: str | torch.dtype | None = None) -> DenseLM:
     """Random weights from a ``torch.Generator`` seeded with ``seed``, with
     the reference's distributions (embedding N(0, 0.02^2), He-scaled
-    projections, router and experts, zero norm scales).  Runs on the CUDA
+    projections, router and experts, zero norm scales; the SSM's as
+    ``ssm.init_ssm_params``).  Runs on the CUDA
     card unless ``device`` says otherwise; raises when no card is present
     and no device is given.
 
@@ -60,10 +70,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     gen = torch.Generator(device=device).manual_seed(seed)
     table = (torch.randn((cfg.vocab_padded, cfg.d_model), generator=gen,
                          device=device) * 0.02).to(dt)
-    layers = [init_dense_block(gen, cfg, device, dt, train)
+    block = (init_ssm_block if cfg.family in RECURRENT_FAMILIES
+             else init_dense_block)
+    layers = [block(gen, cfg, device, dt, train)
               for _ in range(cfg.num_layers)]
+    shared = (init_dense_block(gen, cfg, device, dt, train)
+              if cfg.family == "hybrid" else None)
     return DenseLM(table, torch.zeros(cfg.d_model, device=device), layers,
-                   requires_grad=train)
+                   shared_attn=shared, requires_grad=train)
 
 
 def _embed_inputs(model: DenseLM, cfg: ModelConfig, batch: dict):
@@ -76,7 +90,8 @@ def forward_train(model: DenseLM, cfg: ModelConfig,
     """Full-sequence fp32 logits for training.  -> (logits (B, S, V_pad),
     aux loss)."""
     h, positions = _embed_inputs(model, cfg, batch)
-    h, aux = stack_train(model.layers, cfg, h, positions)
+    h, aux = stack_train(model.layers, cfg, h, positions,
+                         shared=model.shared_attn)
     h = rms_norm(h, model.final_norm)
     logits = unembed(h, model.embed, cfg.vocab_size, compute_dtype(cfg))
     return logits, aux
@@ -105,7 +120,8 @@ def loss_fn(model: DenseLM, cfg: ModelConfig, batch: dict,
 
 def make_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
                device: torch.device) -> dict:
-    """KV cache sized for ``max_len`` positions."""
+    """KV cache sized for ``max_len`` positions, or the SSM state (and the
+    hybrid's shared-block KV) of ``batch_size`` rows."""
     return init_cache(cfg, batch_size, max_len, device)
 
 
@@ -115,7 +131,8 @@ def prefill(model: DenseLM, cfg: ModelConfig, batch: dict,
     """Run the prompt through the stack, filling ``cache`` in place.
     Returns (last-position logits (B, V), cache)."""
     h, positions = _embed_inputs(model, cfg, batch)
-    h, cache = stack_cached(model.layers, cfg, h, positions, cache, 0)
+    h, cache = stack_cached(model.layers, cfg, h, positions, cache, 0,
+                            shared=model.shared_attn)
     h = rms_norm(h[:, -1:], model.final_norm)
     logits = unembed(h, model.embed, cfg.vocab_size, compute_dtype(cfg))
     return logits[:, 0], cache
@@ -129,7 +146,10 @@ def prefill_bucket(model: DenseLM, cfg: ModelConfig, batch: dict,
     true lengths) run through one stack pass, and each row's logits are
     taken at its own last valid position.  Causality makes the padding
     exact: row r's logits at lens[r]-1 attend only to positions below
-    lens[r].  Returns ((B, V) logits, cache)."""
+    lens[r].  Returns ((B, V) logits, cache).  Attention-cache families
+    only: pad tokens would run through a recurrent state."""
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"bucketed prefill unsupported for {cfg.family}")
     h, positions = _embed_inputs(model, cfg, batch)
     h, cache = stack_cached(model.layers, cfg, h, positions, cache, 0)
     idx = lens.to(device=h.device, dtype=torch.long) - 1
@@ -148,7 +168,9 @@ def decode_step(model: DenseLM, cfg: ModelConfig, tokens: torch.Tensor,
     already in the cache, an int or a (B,) vector of per-slot depths (slots
     at mixed depths in one step, each writing and masking at its own row).
     ``page_table`` (B, max_pages): ``cache`` holds paged pools shared by
-    every slot (``serve.kv_pages``).  Returns (logits (B, V), cache)."""
+    every slot (``serve.kv_pages``; attention families only).  The SSM
+    families advance every row's state one token whatever its ``pos``.
+    Returns (logits (B, V), cache)."""
     h = embed(tokens, model.embed, compute_dtype(cfg))
     if isinstance(pos, torch.Tensor) and pos.ndim:
         pos = pos.to(device=h.device, dtype=torch.long)
@@ -157,7 +179,7 @@ def decode_step(model: DenseLM, cfg: ModelConfig, tokens: torch.Tensor,
         pos = int(pos)
         positions = torch.arange(pos, pos + 1, device=h.device)
     h, cache = stack_cached(model.layers, cfg, h, positions, cache, pos,
-                            page_table=page_table)
+                            shared=model.shared_attn, page_table=page_table)
     h = rms_norm(h, model.final_norm)
     logits = unembed(h, model.embed, cfg.vocab_size, compute_dtype(cfg))
     return logits[:, 0], cache

@@ -1,0 +1,241 @@
+"""Mamba2 blocks: SSD, the state-space duality (arXiv:2405.21060).
+
+The layout is the reference's: d_inner = 2 * d_model, head dim P = 64,
+one group (n_groups = 1), a depthwise causal conv of width 4 and a scalar
+decay A per head.  The in-projection's width, 2 * d_inner + 2 * N + heads
+(4384 for mamba2-370m, 14576 for zamba2-7b), is an irregular N that ends
+in an edge tile of the ftIMM kernels.
+
+Training and prefill run the chunked scan (chunk Q = ``ssm_chunk``): the
+masked intra-chunk products and the inter-chunk state recurrence, a Python
+loop over chunks where the reference scans (``lax.scan``).  Decode is the
+O(1) recurrent update of (h, conv).
+
+The in / out projections go through ``layers.dense`` (``ftimm_gemm`` on
+the card).  The SSD contractions are plain ``torch.matmul`` / ``einsum``:
+the reference computes them with ``jnp.einsum`` outside any Pallas kernel.
+The intra-chunk product is (C Bᵀ ⊙ decay) batched over (batch, head)
+against x·dt, so no (B, Q, Q, H, P) tensor is ever formed.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .attention import param
+from .layers import dense, rms_norm
+
+CONV_WIDTH = 4
+HEADDIM = 64
+_MASKED = -1e30
+
+
+def ssm_dims(d_model: int, ssm_state: int) -> tuple[int, int, int]:
+    """(d_inner, heads, state width N)."""
+    d_inner = 2 * d_model
+    return d_inner, d_inner // HEADDIM, ssm_state
+
+
+class SSMParams(nn.Module):
+    """in_proj (D, 2·d_inner + 2N + H), conv_w (W, d_inner + 2N), conv_b,
+    A_log / D_skip / dt_bias (H,), norm (d_inner,), out_proj (d_inner, D).
+    A_log, D_skip, dt_bias and norm are fp32 in every model: the reference
+    reads them as fp32 masters, and rounding them to bf16 would move the
+    decay rates."""
+
+    def __init__(self, in_proj, conv_w, conv_b, A_log, D_skip, dt_bias,
+                 norm, out_proj, *, requires_grad: bool = False):
+        super().__init__()
+        self.in_proj = param(in_proj, requires_grad)
+        self.conv_w = param(conv_w, requires_grad)
+        self.conv_b = param(conv_b, requires_grad)
+        self.A_log = param(A_log, requires_grad)
+        self.D_skip = param(D_skip, requires_grad)
+        self.dt_bias = param(dt_bias, requires_grad)
+        self.norm = param(norm, requires_grad)
+        self.out_proj = param(out_proj, requires_grad)
+
+
+def init_ssm_params(gen: torch.Generator, d_model: int, ssm_state: int, *,
+                    dtype: torch.dtype, device: torch.device,
+                    requires_grad: bool = False) -> SSMParams:
+    """The reference's initialisation, drawn from ``gen``: He-scaled normal
+    projections, conv taps N(0, 0.25), A = 1..16 over the heads, D = 1,
+    dt bias -2, zero norm scale and conv bias."""
+    d_inner, nheads, n = ssm_dims(d_model, ssm_state)
+    conv_ch = d_inner + 2 * n
+    proj_out = 2 * d_inner + 2 * n + nheads
+
+    def normal(shape, scale):
+        return (torch.randn(shape, generator=gen, device=device)
+                * scale).to(dtype)
+
+    in_proj = normal((d_model, proj_out), (2.0 / d_model) ** 0.5)
+    conv_w = normal((CONV_WIDTH, conv_ch), 0.5)
+    out_proj = normal((d_inner, d_model), (2.0 / d_inner) ** 0.5)
+    f32 = dict(dtype=torch.float32, device=device)
+    return SSMParams(
+        in_proj, conv_w, torch.zeros(conv_ch, dtype=dtype, device=device),
+        torch.log(torch.linspace(1.0, 16.0, nheads, **f32)),
+        torch.ones(nheads, **f32), torch.full((nheads,), -2.0, **f32),
+        torch.zeros(d_inner, **f32), out_proj, requires_grad=requires_grad)
+
+
+def _split_proj(zxbcdt: torch.Tensor, d_inner: int, n: int):
+    """z, x, B, C, dt along the last axis of the in-projection."""
+    z = zxbcdt[..., :d_inner]
+    x = zxbcdt[..., d_inner:2 * d_inner]
+    b = zxbcdt[..., 2 * d_inner:2 * d_inner + n]
+    c = zxbcdt[..., 2 * d_inner + n:2 * d_inner + 2 * n]
+    dt = zxbcdt[..., 2 * d_inner + 2 * n:]
+    return z, x, b, c, dt
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^x) as ``jax.nn.softplus`` computes it (``logaddexp(x,
+    0)``): ``F.softplus`` turns into the identity above 20."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over (B, S, C) with taps w (W, C), then silu."""
+    out = torch.zeros_like(x)
+    for i in range(CONV_WIDTH):
+        shifted = F.pad(x, (0, 0, i, 0))[:, :x.shape[1]]
+        out = out + shifted * w[CONV_WIDTH - 1 - i]
+    return F.silu(out + b)
+
+
+def _chunk_step(h, x_q, b_q, c_q, dt_q, a, causal):
+    """One chunk of the scan, in fp32: (h (B, H, P, N), the chunk's x (B,
+    Q, H, P), B / C (B, Q, N), dt (B, Q, H)) -> (y (B, Q, H, P), h')."""
+    x_f, b_f, c_f = x_q.float(), b_q.float(), c_q.float()
+    lcum = torch.cumsum(dt_q * a, dim=1)                      # (B, Q, H)
+    # M[i, j] = exp(L_i - L_j) for j <= i.  Mask before the exp: j > i
+    # has a positive difference that overflows, and the gradient of a
+    # masked inf is NaN.
+    diff = lcum[:, :, None, :] - lcum[:, None, :, :]          # (B, Q, Q, H)
+    m = torch.exp(diff.masked_fill(~causal[None, :, :, None], _MASKED))
+    cb = torch.matmul(c_f, b_f.transpose(1, 2))               # (B, Q, Q)
+    xdt = x_f * dt_q[..., None]                               # (B, Q, H, P)
+    # y_intra[b, i, h] = sum_j cb[b, i, j] m[b, i, j, h] xdt[b, j, h]
+    weights = (cb[..., None] * m).permute(0, 3, 1, 2)         # (B, H, Q, Q)
+    y_intra = torch.matmul(weights, xdt.transpose(1, 2))      # (B, H, Q, P)
+    # the carried state's share, decayed to each position
+    y_inter = (torch.einsum("bin,bhpn->bhip", c_f, h)
+               * torch.exp(lcum).transpose(1, 2)[..., None])
+    # h' = exp(sum da) h + sum_j exp(L_Q - L_j) xdt_j b_j
+    w = torch.exp(lcum[:, -1:, :] - lcum)                     # (B, Q, H)
+    h_new = (torch.exp(lcum[:, -1, :])[:, :, None, None] * h
+             + torch.einsum("bjhp,bjn->bhpn", xdt * w[..., None], b_f))
+    return (y_intra + y_inter).transpose(1, 2), h_new
+
+
+def ssd_forward(x: torch.Tensor, params: SSMParams, *, ssm_state: int,
+                chunk: int = 256, compute_dtype=torch.bfloat16,
+                initial_state: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chunked SSD scan over x (B, S, D).  Returns (y (B, S, D),
+    final state (B, H, P, N) fp32).  The sequence is right-padded to whole
+    chunks with dt = 0 (decay 1, no input), which leaves the state as the
+    last real position left it."""
+    cdt = compute_dtype
+    bsz, s, d_model = x.shape
+    d_inner, nheads, n = ssm_dims(d_model, ssm_state)
+    p = HEADDIM
+
+    zxbcdt = dense(x, params.in_proj, cdt)
+    z, xs, b, c, dt = _split_proj(zxbcdt, d_inner, n)
+    xbc = _causal_conv(torch.cat([xs, b, c], dim=-1), params.conv_w.to(cdt),
+                       params.conv_b.to(cdt))
+    xs = xbc[..., :d_inner].reshape(bsz, s, nheads, p)
+    b = xbc[..., d_inner:d_inner + n]
+    c = xbc[..., d_inner + n:]
+    a = -torch.exp(params.A_log.float())                      # (H,)
+    dt = _softplus(dt.float() + params.dt_bias.float())       # (B, S, H)
+
+    pad = (-s) % chunk
+    if pad:
+        xs_p = F.pad(xs, (0, 0, 0, 0, 0, pad))
+        b, c, dt = (F.pad(t, (0, 0, 0, pad)) for t in (b, c, dt))
+    else:
+        xs_p = xs
+    h = (initial_state if initial_state is not None else torch.zeros(
+        bsz, nheads, p, n, dtype=torch.float32, device=x.device))
+    causal = torch.ones(chunk, chunk, dtype=torch.bool,
+                        device=x.device).tril()
+    ys = []
+    for start in range(0, s + pad, chunk):
+        q = slice(start, start + chunk)
+        y_q, h = _chunk_step(h, xs_p[:, q], b[:, q], c[:, q], dt[:, q], a,
+                             causal)
+        ys.append(y_q)
+    y = torch.cat(ys, dim=1)[:, :s]                           # fp32
+    y = y + xs * params.D_skip.to(cdt)[None, None, :, None]
+    y = y.reshape(bsz, s, d_inner).to(cdt)
+    y = y * F.silu(z)
+    y = rms_norm(y, params.norm)
+    return dense(y, params.out_proj, cdt), h
+
+
+def conv_tail(x: torch.Tensor, params: SSMParams, *, ssm_state: int,
+              compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """The conv state a prefill of x (B, S, D) leaves for decode: the conv
+    inputs (the x, B and C channels of the in-projection) of the last
+    CONV_WIDTH - 1 positions, re-projected, (B, W - 1, d_inner + 2N).  A
+    prompt shorter than that is left-padded with zero rows, the causal
+    conv's own padding (the reference leaves the missing rows as the cache
+    held them)."""
+    d_inner, _, n = ssm_dims(x.shape[-1], ssm_state)
+    tail = dense(x[:, -(CONV_WIDTH - 1):], params.in_proj, compute_dtype)
+    xbc = tail[..., d_inner:2 * d_inner + 2 * n]
+    short = CONV_WIDTH - 1 - xbc.shape[1]
+    return F.pad(xbc, (0, 0, short, 0)) if short else xbc
+
+
+def ssd_decode_step(x: torch.Tensor, params: SSMParams, state: dict, *,
+                    ssm_state: int, compute_dtype=torch.bfloat16
+                    ) -> tuple[torch.Tensor, dict]:
+    """The O(1) recurrent step for x (B, 1, D) from ``state`` {"h": (B, H,
+    P, N) fp32, "conv": (B, W - 1, C)}.  Returns (y (B, 1, D), the new
+    state); ``state`` is not written."""
+    cdt = compute_dtype
+    bsz, _, d_model = x.shape
+    d_inner, nheads, n = ssm_dims(d_model, ssm_state)
+
+    zxbcdt = dense(x[:, 0], params.in_proj, cdt)
+    z, xs, b, c, dt = _split_proj(zxbcdt, d_inner, n)
+    xbc = torch.cat([xs, b, c], dim=-1)                       # (B, C)
+    window = torch.cat([state["conv"], xbc[:, None, :]], dim=1)   # (B, W, C)
+    xbc_out = F.silu((window * params.conv_w.to(cdt)).sum(dim=1)
+                     + params.conv_b.to(cdt))
+
+    xs = xbc_out[:, :d_inner].reshape(bsz, nheads, HEADDIM)
+    b = xbc_out[:, d_inner:d_inner + n].float()
+    c = xbc_out[:, d_inner + n:].float()
+    a = -torch.exp(params.A_log.float())
+    dt = _softplus(dt.float() + params.dt_bias.float())       # (B, H)
+
+    xdt = xs.float() * dt[..., None]                          # (B, H, P)
+    h_new = (torch.exp(dt * a)[:, :, None, None] * state["h"]
+             + xdt[..., None] * b[:, None, None, :])
+    y = torch.einsum("bhpn,bn->bhp", h_new, c)
+    y = y + xs.float() * params.D_skip.float()[None, :, None]
+    y = y.reshape(bsz, d_inner).to(cdt)
+    y = y * F.silu(z)
+    y = rms_norm(y, params.norm)
+    out = dense(y, params.out_proj, cdt)
+    return out[:, None, :], {"h": h_new, "conv": window[:, 1:]}
+
+
+def init_ssm_state(bsz: int, d_model: int, ssm_state: int, *,
+                   dtype: torch.dtype, device: torch.device) -> dict:
+    """A zero state: h (B, H, P, N) fp32 and the conv window (B, W - 1,
+    d_inner + 2N) in ``dtype``."""
+    d_inner, nheads, n = ssm_dims(d_model, ssm_state)
+    return {"h": torch.zeros(bsz, nheads, HEADDIM, n, dtype=torch.float32,
+                             device=device),
+            "conv": torch.zeros(bsz, CONV_WIDTH - 1, d_inner + 2 * n,
+                                dtype=dtype, device=device)}

@@ -1,14 +1,21 @@
-"""The decoder stack of the dense and MoE families: per-layer modules, the
-training forward and the cached forward.
+"""The decoder stacks of the dense, MoE, SSM and hybrid families: per-layer
+modules, the training forward and the cached forward.
 
 The reference scans one traced body over layer-stacked parameters
 (``lax.scan``); PyTorch runs eagerly, so here each layer is its own module
 and the stack is a Python loop over them.  Caches keep the reference's
-layer-stacked layout -- dense (L, B, S, KVH, D) or the paged pool
-(L, P, page, KVH, D) -- and are written in place.  The training stack
+layer-stacked layout -- dense (L, B, S, KVH, D), the paged pool
+(L, P, page, KVH, D), the SSM state h (L, B, H, P, N) and conv window
+(L, B, W - 1, C) -- and are written in place.  The training stack
 (``stack_train``) rematerialises each block in its backward when
 ``cfg.remat`` is "full" (``torch.utils.checkpoint``, the reference's
-``jax.checkpoint`` of the scan body).
+``jax.checkpoint`` of the scan body; the hybrid's reference remats a whole
+group of ``attn_every`` layers, which moves memory, not values).
+
+The hybrid (zamba2) runs groups of ``attn_every`` Mamba2 layers, each group
+followed by ONE shared attention + MLP block -- the same module at every
+application, never a copy -- and then the remaining Mamba2 layers with no
+attention after them (zamba2-7b's 81 layers: 13 groups of 6, then 3).
 """
 from __future__ import annotations
 
@@ -20,8 +27,11 @@ from ..configs.base import ModelConfig
 from .attention import AttentionParams, attention, init_attention_params, param
 from .layers import rms_norm, swiglu
 from .moe import MoEParams, init_moe_params, moe_mlp
+from .ssm import (SSMParams, conv_tail, init_ssm_params, init_ssm_state,
+                  ssd_decode_step, ssd_forward)
 
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+RECURRENT_FAMILIES = ("ssm", "hybrid")
 
 
 def as_dtype(dtype: str | torch.dtype) -> torch.dtype:
@@ -59,6 +69,16 @@ class DenseBlock(nn.Module):
         self.attn, self.mlp, self.moe = attn, mlp, moe
 
 
+class SSMBlock(nn.Module):
+    """One Mamba2 layer: ln -> the SSD mixer (``ssm``), residual added.
+    The norm scale stays fp32."""
+
+    def __init__(self, ln, ssm: SSMParams, *, requires_grad: bool = False):
+        super().__init__()
+        self.ln = param(ln, requires_grad)
+        self.ssm = ssm
+
+
 def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
@@ -91,6 +111,16 @@ def init_dense_block(gen: torch.Generator, cfg: ModelConfig,
     return DenseBlock(zeros, attn, zeros.clone(), **ffn, requires_grad=rg)
 
 
+def init_ssm_block(gen: torch.Generator, cfg: ModelConfig,
+                   device: torch.device, dtype: torch.dtype,
+                   requires_grad: bool = False) -> SSMBlock:
+    return SSMBlock(torch.zeros(cfg.d_model, device=device),
+                    init_ssm_params(gen, cfg.d_model, cfg.ssm_state,
+                                    dtype=dtype, device=device,
+                                    requires_grad=requires_grad),
+                    requires_grad=requires_grad)
+
+
 def dense_block(h: torch.Tensor, p: DenseBlock, cfg: ModelConfig, *,
                 positions: torch.Tensor, window: int, kv=None,
                 cache_index=None, causal: bool = True, use_rope: bool = True,
@@ -121,28 +151,71 @@ def dense_block(h: torch.Tensor, p: DenseBlock, cfg: ModelConfig, *,
     return h, new_kv, None
 
 
+def ssm_block(h: torch.Tensor, p: SSMBlock, cfg: ModelConfig,
+              state: dict | None = None):
+    """Returns (h, new_state).  No ``state``: the training forward (new
+    state None).  One token: the recurrent decode step.  More: the chunked
+    scan from ``state["h"]`` and a fresh conv tail (the prompt's own conv
+    inputs; the conv window in ``state`` is not read, as in the
+    reference's prefill)."""
+    cdt = compute_dtype(cfg)
+    x = rms_norm(h, p.ln)
+    kw = dict(ssm_state=cfg.ssm_state, compute_dtype=cdt)
+    if state is None:
+        y, _ = ssd_forward(x, p.ssm, chunk=cfg.ssm_chunk, **kw)
+        return h + y, None
+    if x.shape[1] == 1:
+        y, new_state = ssd_decode_step(x, p.ssm, state, **kw)
+        return h + y, new_state
+    y, h_final = ssd_forward(x, p.ssm, chunk=cfg.ssm_chunk,
+                             initial_state=state["h"], **kw)
+    return h + y, {"h": h_final, "conv": conv_tail(x, p.ssm, **kw)}
+
+
+def _shared_after(cfg: ModelConfig, layer: int) -> int | None:
+    """The hybrid's group index whose shared block follows ``layer``, or
+    None (inside a group, the remainder, or a pure SSM stack)."""
+    if cfg.family != "hybrid" or (layer + 1) % cfg.attn_every:
+        return None
+    return (layer + 1) // cfg.attn_every - 1
+
+
+def _remat(fn, cfg: ModelConfig, *args):
+    if cfg.remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def stack_train(layers: nn.ModuleList, cfg: ModelConfig, h: torch.Tensor,
-                positions: torch.Tensor, *, causal: bool = True,
+                positions: torch.Tensor, *, shared: DenseBlock | None = None,
+                causal: bool = True,
                 use_rope: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """Run the stack without caches (training).  -> (h, aux), ``aux`` the
-    MoE load-balancing losses summed over the layers (0 for a dense
-    stack).  ``cfg.remat``: "full" recomputes each block in the backward
+    MoE load-balancing losses summed over the layers (0 for the other
+    families).  ``shared``: the hybrid's shared attention + MLP block.
+    ``cfg.remat``: "full" recomputes each block in the backward
     (non-reentrant ``torch.utils.checkpoint``), "none" keeps every
     activation."""
     if cfg.remat not in ("full", "none"):
         raise NotImplementedError(
             f"remat={cfg.remat!r}: the port runs 'full' and 'none'")
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.family in RECURRENT_FAMILIES:
+        def shared_block(hh):
+            return dense_block(hh, shared, cfg, positions=positions,
+                               window=0)[0]
+        for layer, p in enumerate(layers):
+            h = _remat(lambda hh, p=p: ssm_block(hh, p, cfg)[0], cfg, h)
+            if _shared_after(cfg, layer) is not None:
+                h = _remat(shared_block, cfg, h)
+        return h, aux
     for p, w in zip(layers, cfg.windows()):
         def block(hh, p=p, w=w):
             out, _, a = dense_block(hh, p, cfg, positions=positions,
                                     window=w, causal=causal,
                                     use_rope=use_rope)
             return out, a
-        if cfg.remat == "full":
-            h, a = checkpoint(block, h, use_reentrant=False)
-        else:
-            h, a = block(h)
+        h, a = _remat(block, cfg, h)
         if a is not None:
             aux = aux + a
     return h, aux
@@ -150,12 +223,33 @@ def stack_train(layers: nn.ModuleList, cfg: ModelConfig, h: torch.Tensor,
 
 def stack_cached(layers: nn.ModuleList, cfg: ModelConfig, h: torch.Tensor,
                  positions: torch.Tensor, cache: dict, cache_index, *,
-                 causal: bool = True, use_rope: bool = True,
+                 shared: DenseBlock | None = None, causal: bool = True,
+                 use_rope: bool = True,
                  page_table: torch.Tensor | None = None):
-    """Run the stack with KV caches (prefill and decode), writing each
-    layer's K/V into ``cache`` in place.  -> (h, cache).  ``page_table``
-    (B, max_pages): the cache leaves are paged pools shared by every slot
-    (one table for every layer)."""
+    """Run the stack with its caches (prefill and decode), writing each
+    layer's K/V or SSM state into ``cache`` in place.  -> (h, cache).
+    ``page_table`` (B, max_pages): the cache leaves are paged pools shared
+    by every slot (one table for every layer; attention families only).
+    ``shared``: the hybrid's shared block, whose K/V go to
+    ``cache["attn_k"][group]``."""
+    if cfg.family in RECURRENT_FAMILIES:
+        if page_table is not None:
+            raise ValueError(f"paged KV unsupported for {cfg.family}")
+        hk, ck = (("h", "conv") if cfg.family == "ssm"
+                  else ("ssm_h", "ssm_conv"))
+        for layer, p in enumerate(layers):
+            h, new = ssm_block(h, p, cfg, state={"h": cache[hk][layer],
+                                                 "conv": cache[ck][layer]})
+            cache[hk][layer].copy_(new["h"])
+            cache[ck][layer].copy_(new["conv"])
+            group = _shared_after(cfg, layer)
+            if group is not None:
+                h, _, _ = dense_block(
+                    h, shared, cfg, positions=positions, window=0,
+                    kv=(cache["attn_k"][group], cache["attn_v"][group]),
+                    cache_index=cache_index, causal=causal,
+                    use_rope=use_rope)
+        return h, cache
     for layer, (p, w) in enumerate(zip(layers, cfg.windows())):
         h, _, _ = dense_block(
             h, p, cfg, positions=positions, window=w,
@@ -167,8 +261,24 @@ def stack_cached(layers: nn.ModuleList, cfg: ModelConfig, h: torch.Tensor,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: torch.device, dtype: torch.dtype | None = None) -> dict:
+    """Zero caches with the reference's keys: k / v (dense, moe); h / conv
+    (ssm); ssm_h / ssm_conv and the shared block's attn_k / attn_v, one
+    per group (hybrid).  The SSM state h is fp32."""
     check_family(cfg)
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim_)
     dtype = dtype or compute_dtype(cfg)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    kv = (batch, max_len, cfg.num_kv_heads, cfg.head_dim_)
+    if cfg.family not in RECURRENT_FAMILIES:
+        return {"k": torch.zeros((cfg.num_layers,) + kv, dtype=dtype,
+                                 device=device),
+                "v": torch.zeros((cfg.num_layers,) + kv, dtype=dtype,
+                                 device=device)}
+    st = init_ssm_state(batch, cfg.d_model, cfg.ssm_state, dtype=dtype,
+                        device=device)
+    h, conv = (t.new_zeros((cfg.num_layers,) + t.shape)
+               for t in (st["h"], st["conv"]))
+    if cfg.family == "ssm":
+        return {"h": h, "conv": conv}
+    groups = cfg.num_layers // cfg.attn_every
+    return {"ssm_h": h, "ssm_conv": conv,
+            "attn_k": torch.zeros((groups,) + kv, dtype=dtype, device=device),
+            "attn_v": torch.zeros((groups,) + kv, dtype=dtype, device=device)}

@@ -16,10 +16,21 @@ and in the MoE family ``layers.moe`` in place of ``layers.mlp``:
     {"router": (L, D, E), "w_gate": (L, E, D, F), "w_up": (L, E, D, F),
      "w_down": (L, E, F, D)}
 
-Projection weights and the embedding table come in the config's compute
-dtype for serving; with a ``dtype`` they are training masters in that
-dtype that require grad (cast at use, as in the reference).  Norm scales
-stay fp32.  ``to_numpy_tree`` is the inverse: tensors keyed by the
+The SSM family's layers are Mamba2 blocks,
+
+    {"ln": (L, D),
+     "ssm": {"in_proj": (L, D, 2·Di + 2N + H), "conv_w": (L, 4, Di + 2N),
+             "conv_b": (L, Di + 2N), "A_log": (L, H), "D_skip": (L, H),
+             "dt_bias": (L, H), "norm": (L, Di), "out_proj": (L, Di, D)}}
+
+and the hybrid adds ``shared_attn``, one dense block's dict without the
+(L,) axis.
+
+Projection weights, the conv taps and the embedding table come in the
+config's compute dtype for serving; with a ``dtype`` they are training
+masters in that dtype that require grad (cast at use, as in the
+reference).  Norm scales and the SSM's A_log / D_skip / dt_bias stay
+fp32.  ``to_numpy_tree`` is the inverse: tensors keyed by the
 model's parameter names (its parameters, ``to_numpy_params``, or the
 optimizer's moments) back to the tree, so tests and checkpoints compare
 leaf by leaf with the reference; ``load_numpy_tree`` copies a tree back
@@ -34,8 +45,9 @@ from ..configs.base import ModelConfig
 from .attention import AttentionParams
 from .model import DenseLM
 from .moe import MoEParams
-from .transformer import (DenseBlock, MLPParams, as_dtype, check_family,
-                          compute_dtype)
+from .ssm import SSMParams
+from .transformer import (RECURRENT_FAMILIES, DenseBlock, MLPParams, SSMBlock,
+                          as_dtype, check_family, compute_dtype)
 
 
 def from_numpy_params(tree: dict, cfg: ModelConfig,
@@ -45,34 +57,50 @@ def from_numpy_params(tree: dict, cfg: ModelConfig,
     device = torch.device(device)
     rg = dtype is not None
     cdt = as_dtype(dtype) if rg else compute_dtype(cfg)
+    f32 = torch.float32
 
     def t(x, dtype):
         return torch.tensor(np.asarray(x, np.float32)).to(device, dtype)
 
-    lay = tree["layers"]
-    blocks = []
-    for i in range(cfg.num_layers):
-        a = lay["attn"]
-        norms = ({"q_norm": t(a["q_norm"][i], torch.float32),
-                  "k_norm": t(a["k_norm"][i], torch.float32)}
+    def dense_block(node: dict, pick) -> DenseBlock:
+        """A DenseBlock from ``node``, each leaf taken through ``pick``
+        (one layer of a stacked leaf, or the leaf itself)."""
+        a = node["attn"]
+        norms = ({"q_norm": t(pick(a["q_norm"]), f32),
+                  "k_norm": t(pick(a["k_norm"]), f32)}
                  if cfg.qk_norm else {})
-        attn = AttentionParams(t(a["wq"][i], cdt), t(a["wk"][i], cdt),
-                               t(a["wv"][i], cdt), t(a["wo"][i], cdt),
+        attn = AttentionParams(*(t(pick(a[n]), cdt)
+                                 for n in ("wq", "wk", "wv", "wo")),
                                **norms, requires_grad=rg)
-        if cfg.family == "moe":
-            m = lay["moe"]
-            ffn = {"moe": MoEParams(*(t(m[n][i], cdt) for n in (
+        if "moe" in node:
+            ffn = {"moe": MoEParams(*(t(pick(node["moe"][n]), cdt) for n in (
                 "router", "w_gate", "w_up", "w_down")), requires_grad=rg)}
         else:
-            m = lay["mlp"]
-            ffn = {"mlp": MLPParams(t(m["w_gate"][i], cdt),
-                                    t(m["w_up"][i], cdt),
-                                    t(m["w_down"][i], cdt), requires_grad=rg)}
-        blocks.append(DenseBlock(t(lay["ln1"][i], torch.float32), attn,
-                                 t(lay["ln2"][i], torch.float32), **ffn,
-                                 requires_grad=rg))
-    return DenseLM(t(tree["embed"], cdt), t(tree["final_norm"], torch.float32),
-                   blocks, requires_grad=rg)
+            ffn = {"mlp": MLPParams(*(t(pick(node["mlp"][n]), cdt) for n in (
+                "w_gate", "w_up", "w_down")), requires_grad=rg)}
+        return DenseBlock(t(pick(node["ln1"]), f32), attn,
+                          t(pick(node["ln2"]), f32), **ffn, requires_grad=rg)
+
+    def ssm_block(i: int) -> SSMBlock:
+        mixer = tree["layers"]["ssm"]
+        dtypes = {"in_proj": cdt, "conv_w": cdt, "conv_b": cdt,
+                  "A_log": f32, "D_skip": f32, "dt_bias": f32, "norm": f32,
+                  "out_proj": cdt}
+        return SSMBlock(t(tree["layers"]["ln"][i], f32),
+                        SSMParams(**{n: t(mixer[n][i], d)
+                                     for n, d in dtypes.items()},
+                                  requires_grad=rg),
+                        requires_grad=rg)
+
+    if cfg.family in RECURRENT_FAMILIES:
+        blocks = [ssm_block(i) for i in range(cfg.num_layers)]
+    else:
+        blocks = [dense_block(tree["layers"], lambda x, i=i: x[i])
+                  for i in range(cfg.num_layers)]
+    shared = (dense_block(tree["shared_attn"], lambda x: x)
+              if cfg.family == "hybrid" else None)
+    return DenseLM(t(tree["embed"], cdt), t(tree["final_norm"], f32), blocks,
+                   shared_attn=shared, requires_grad=rg)
 
 
 def _tree_path(name: str) -> tuple[tuple[str, ...], int | None]:

@@ -1,19 +1,26 @@
 """Overload-safe batched serving engine: bucketed batch prefill, paged KV,
-CMR-priced admission control, over the prefill and decode of the dense and
-MoE decoders (``models.transformer.PORTED_FAMILIES``, the attention-cache
-families that the reference pages).
+CMR-priced admission control, over the prefill and decode of the ported
+families (``models.transformer.PORTED_FAMILIES``).
 
-The engine owns B decode slots.  The KV lives in a paged pool
-(``serve.kv_pages``): each request owns just the pages its depth needs,
-taken from a free-list allocator as decode crosses page boundaries, and a
-(B, max_pages) page table routes the fused ``decode_step``.  Prompts are
-admitted through length-bucketed batch prefill (``serve.buckets`` /
-``prefill_bucket``), right-padding exact by causality; a prompt beyond the
-ladder takes the exact-length prefill rung.
+The engine owns B decode slots.  For the attention-cache families (dense,
+moe) the KV lives in a paged pool (``serve.kv_pages``): each request owns
+just the pages its depth needs, taken from a free-list allocator as decode
+crosses page boundaries, and a (B, max_pages) page table routes the fused
+``decode_step``.  Prompts are admitted through length-bucketed batch
+prefill (``serve.buckets`` / ``prefill_bucket``), right-padding exact by
+causality; a prompt beyond the ladder takes the exact-length prefill rung.
 
-One fused ``decode_step`` advances every active slot one token per tick
-with per-slot positions, so slots at different depths write and mask at
-their own rows.  Sampling is greedy or temperature (a seeded
+The recurrent families (ssm, hybrid) keep the dense-slot rung
+(``paged=False``; a dense model may take it too): one (L, B, ...) cache
+of every slot, an exact-length prefill of each prompt into a one-slot
+cache whose every leaf is then copied into the slot's region, since pad
+tokens would run through the recurrent state.  That rung has no pages, no
+buckets and no cost model: ``submit`` rejects nothing.
+
+One fused ``decode_step`` advances every slot one token per tick with
+per-slot positions, so slots at different depths write and mask at their
+own rows (an idle slot decodes into its own region, which the next
+prefill there overwrites).  Sampling is greedy or temperature (a seeded
 ``torch.Generator`` on the engine's device).  Detokenization runs on a
 worker thread fed by a token queue, off the decode loop.
 
@@ -28,8 +35,8 @@ Overload safety:
     freed, request re-queued for re-prefill of prompt + generated tokens;
     greedy decode makes recovery bit-identical); admission never preempts,
     it waits;
-  * non-finite logits quarantine the slot: its pages are freed and zeroed
-    and the request re-prefills.
+  * non-finite logits quarantine the slot: its pages (or its dense-slot
+    region) are zeroed and the request re-prefills.
 
 The engine runs on the CUDA card unless ``device`` says otherwise, and
 raises when no card is present and no device is given; the parameters
@@ -53,6 +60,8 @@ from ..models.model import (DenseLM, decode_step, make_cache, prefill,
 from ..models.transformer import check_family
 from .buckets import CostModel, bucket_for, make_buckets
 from .kv_pages import PageAllocator, PagedKV, PagesExhausted, pages_for
+
+PAGED_FAMILIES = ("dense", "moe")    # the attention-cache families
 
 
 class Overloaded(RuntimeError):
@@ -131,7 +140,11 @@ class ServeEngine:
                  batch_slots: int = 4, max_len: int = 512, seed: int = 0,
                  page_size: int = 16, num_pages: int | None = None,
                  buckets: tuple[int, ...] | None = None, detokenize=None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 paged: bool | None = None):
+        """``paged``: the paged KV pool and bucketed prefill (default for
+        dense and moe), or the dense-slot rung (False; the only one of ssm
+        and hybrid)."""
         check_family(cfg)
         self.device = resolve_device(device)
         if module_device(params) != self.device:
@@ -149,25 +162,38 @@ class ServeEngine:
         self.faults = {"deadline_expired": 0, "nonfinite_quarantined": 0,
                        "admission_rejected": 0, "shed": 0,
                        "preemptions": 0, "bucket_misses": 0}
-        self.page_size = page_size
-        self.num_pages = (num_pages if num_pages is not None
-                          else batch_slots * pages_for(max_len, page_size))
-        self.alloc = PageAllocator(self.num_pages, first=1)
-        # The pool holds the reserved null page 0 in front of the
-        # allocatable ids [1, num_pages].
-        self.kv = PagedKV.build(cfg, slots=batch_slots, max_len=max_len,
-                                num_pages=self.num_pages + 1,
-                                page_size=page_size, device=self.device)
-        self.buckets = tuple(buckets) if buckets else make_buckets(max_len)
-        # Pricing every bucket plans every serving GEMM signature up front.
-        self.cost = CostModel(cfg, self.buckets, batch_slots)
+        self.paged = cfg.family in PAGED_FAMILIES if paged is None else paged
+        if self.paged and cfg.family not in PAGED_FAMILIES:
+            raise ValueError(f"paged KV unsupported for {cfg.family}")
+        if self.paged:
+            self.page_size = page_size
+            self.num_pages = (num_pages if num_pages is not None
+                              else batch_slots * pages_for(max_len, page_size))
+            self.alloc = PageAllocator(self.num_pages, first=1)
+            # The pool holds the reserved null page 0 in front of the
+            # allocatable ids [1, num_pages].
+            self.kv = PagedKV.build(cfg, slots=batch_slots, max_len=max_len,
+                                    num_pages=self.num_pages + 1,
+                                    page_size=page_size, device=self.device)
+            self.cache = None
+            self.buckets = tuple(buckets) if buckets else make_buckets(max_len)
+            # Pricing every bucket plans every serving GEMM signature up
+            # front.
+            self.cost: CostModel | None = CostModel(cfg, self.buckets,
+                                                    batch_slots)
+        else:
+            self.cache = make_cache(cfg, batch_slots, max_len,
+                                    device=self.device)
+            self.alloc = self.kv = self.cost = None
+            self.buckets = ()
         # The first call of each prefill shape (and the first decode) pays
         # one-time costs (kernel library load, allocator growth); feeding
         # it to the cost EWMAs would overprice steady state.
         self._timed_buckets: set = set()
         self._timed_step = False
         # Wall seconds of every prefill, as (bucket, s) with bucket None for
-        # the exact rung, and of every fused decode step.
+        # an exact-length prefill (either rung), and of every fused decode
+        # step.
         self.walls: dict[str, list] = {"prefill": [], "decode": []}
 
     # -------------------------- request plumbing ------------------------
@@ -183,15 +209,17 @@ class ServeEngine:
     def submit(self, req: Request) -> None:
         """Admit ``req`` to the queue, or raise typed ``Overloaded``: only
         when the request carries a deadline and the cost model has measured
-        wall times to price against, or when it could never fit the pool."""
+        wall times to price against, or when it could never fit the pool
+        (the dense-slot rung has neither: it rejects nothing)."""
         req.submitted_at = time.monotonic()
-        # Depth is also capped by max_len (decode stops there).
-        worst = pages_for(min(len(req.prompt) + req.max_new_tokens,
-                              self.max_len), self.page_size)
-        if worst > self.alloc.total:
-            self.faults["admission_rejected"] += 1
-            raise Overloaded(f"request needs {worst} KV pages, pool holds "
-                             f"{self.alloc.total}")
+        if self.paged:
+            # Depth is also capped by max_len (decode stops there).
+            worst = pages_for(min(len(req.prompt) + req.max_new_tokens,
+                                  self.max_len), self.page_size)
+            if worst > self.alloc.total:
+                self.faults["admission_rejected"] += 1
+                raise Overloaded(f"request needs {worst} KV pages, pool "
+                                 f"holds {self.alloc.total}")
         if req.deadline_s is not None:
             est = self._projected_completion_s(req)
             if est is not None and est > req.deadline_s:
@@ -203,8 +231,9 @@ class ServeEngine:
     def _projected_completion_s(self, req: Request) -> float | None:
         """Estimated seconds until ``req`` would finish if admitted now:
         amortized prefill share + fused-decode share of the backlog ahead
-        of it, plus its own service.  None while uncalibrated."""
-        if not self.cost.calibrated():
+        of it, plus its own service.  None while uncalibrated or
+        unpriced (the dense-slot rung)."""
+        if self.cost is None or not self.cost.calibrated():
             return None
         step = self.cost.step_s()
         ahead = sum(max(r.max_new_tokens - len(r.out_tokens), 0)
@@ -285,8 +314,9 @@ class ServeEngine:
         self.faults["preemptions"] += 1
 
     def _release_slot(self, slot: int, req: Request) -> None:
-        self.alloc.free_owner(id(req))
-        self.kv.clear_slot(slot)
+        if self.paged:
+            self.alloc.free_owner(id(req))
+            self.kv.clear_slot(slot)
         self.active[slot] = None
         self.pos[slot] = 0
 
@@ -311,6 +341,12 @@ class ServeEngine:
     # --------------------------- admission -------------------------------
 
     def _admit(self) -> None:
+        if not self.paged:
+            for slot in range(self.b):
+                if self.active[slot] is None and self.queue:
+                    req = self.queue.pop(0)
+                    self._prefill_one(slot, req, self._req_tokens(req))
+            return
         while self.queue:
             free = [i for i in range(self.b) if self.active[i] is None]
             if not free:
@@ -332,6 +368,20 @@ class ServeEngine:
             if not self._admit_bucket(free, batch, bkt):
                 return
 
+    def _prefill_exact(self, req: Request, toks: np.ndarray,
+                       rows: int) -> tuple[int, dict, float]:
+        """Exact-length prefill of ``toks`` into a one-slot cache of
+        ``rows`` rows and one sampled token; the wall is recorded.  ->
+        (token, cache, wall seconds)."""
+        one_cache = make_cache(self.cfg, 1, rows, device=self.device)
+        t0 = time.monotonic()
+        logits, one_cache = prefill(self.params, self.cfg,
+                                    self._tokens(toks[None, :]), one_cache)
+        tok = self._sample(logits, req)                 # syncs
+        wall = time.monotonic() - t0
+        self.walls["prefill"].append((None, wall))
+        return tok, one_cache, wall
+
     def _admit_exact(self, slot: int, req: Request,
                      toks: np.ndarray) -> bool:
         """Bucket-miss rung: exact-length prefill, then page-insert.
@@ -341,13 +391,7 @@ class ServeEngine:
         if pages is None:
             self.queue.insert(0, req)
             return False
-        one_cache = make_cache(self.cfg, 1, depth, device=self.device)
-        t0 = time.monotonic()
-        logits, one_cache = prefill(self.params, self.cfg,
-                                    self._tokens(toks[None, :]), one_cache)
-        tok = self._sample(logits, req)
-        wall = time.monotonic() - t0
-        self.walls["prefill"].append((None, wall))
+        tok, one_cache, wall = self._prefill_exact(req, toks, depth)
         key = ("exact", depth)
         if key in self._timed_buckets:
             self.cost.observe_prefill(self.buckets[-1], wall)
@@ -357,6 +401,17 @@ class ServeEngine:
         self._emit(req, tok)
         self._occupy(slot, req, depth)
         return True
+
+    def _prefill_one(self, slot: int, req: Request,
+                     toks: np.ndarray) -> None:
+        """Dense-slot rung: exact-length prefill of ``toks``, then every
+        leaf's slot region copied in place -- all of it, so nothing an
+        earlier occupant (or an idle slot's decode) left there survives."""
+        tok, one_cache, _ = self._prefill_exact(req, toks, self.max_len)
+        for name, leaf in self.cache.items():
+            leaf[:, slot].copy_(one_cache[name][:, 0])
+        self._emit(req, tok)
+        self._occupy(slot, req, len(toks))
 
     def _admit_bucket(self, free: list[int],
                       batch: list[tuple[Request, np.ndarray]],
@@ -418,7 +473,12 @@ class ServeEngine:
     def _evict_slot(self, slot: int) -> None:
         """Quarantine a slot whose occupant produced non-finite values:
         free and zero its pages (the next occupant's p @ V contracts every
-        row, masked rows at weight 0, and 0 * NaN = NaN)."""
+        row, masked rows at weight 0, and 0 * NaN = NaN); on the dense-slot
+        rung zero the slot's region of every leaf."""
+        if not self.paged:
+            for leaf in self.cache.values():
+                leaf[:, slot].zero_()
+            return
         r = self.active[slot]
         pages = self.alloc.free_owner(id(r))
         self.kv.zero_pages(pages)
@@ -430,6 +490,9 @@ class ServeEngine:
         toks = self._req_tokens(req)
         self.active[slot] = None
         self.pos[slot] = 0
+        if not self.paged:
+            self._prefill_one(slot, req, toks)
+            return
         bkt = bucket_for(len(toks), self.buckets)
         if bkt is None:
             self._admit_exact(slot, req, toks)
@@ -461,7 +524,7 @@ class ServeEngine:
         """Load shedding: drop queued requests whose deadline the current
         estimates say cannot be met, oldest first.  Nothing is shed until
         the cost model has measured wall times."""
-        if not self.cost.calibrated():
+        if self.cost is None or not self.cost.calibrated():
             return
         step = self.cost.step_s()
         ahead = sum(max(r.max_new_tokens - len(r.out_tokens), 0)
@@ -488,21 +551,22 @@ class ServeEngine:
         self.queue = kept
 
     def health(self) -> dict:
-        """Operational snapshot: slot occupancy, fault counters, page-pool
-        pressure and admission pricing."""
+        """Operational snapshot: slot occupancy, fault counters, and when
+        paged the page-pool pressure and admission pricing."""
         out = {
             "active_slots": sum(r is not None for r in self.active),
             "queue_depth": len(self.queue),
             "slot_pos": [int(p) for p in self.pos],
             "faults": dict(self.faults),
             "degraded_mode": any(self.faults.values()),
-            "pages": {"total": self.alloc.total,
-                      "free": self.alloc.available,
-                      "page_size": self.page_size,
-                      "live_owners": self.alloc.live_owners},
-            "buckets": list(self.buckets),
-            "cost": self.cost.snapshot(),
         }
+        if self.paged:
+            out["pages"] = {"total": self.alloc.total,
+                            "free": self.alloc.available,
+                            "page_size": self.page_size,
+                            "live_owners": self.alloc.live_owners}
+            out["buckets"] = list(self.buckets)
+            out["cost"] = self.cost.snapshot()
         if self._detok is not None:
             out["detok_backlog"] = self._detok.q.qsize()
         return out
@@ -513,7 +577,8 @@ class ServeEngine:
         """One decode tick across all active slots; returns #active."""
         self._expire_deadlines()
         self._admit()
-        self._ensure_pages()
+        if self.paged:
+            self._ensure_pages()
         if not any(r is not None for r in self.active):
             return 0
         last = np.zeros((self.b, 1), np.int32)
@@ -522,15 +587,16 @@ class ServeEngine:
                 last[i, 0] = r.out_tokens[-1]
         # One fused decode over all slots with per-slot positions: each row
         # writes its own cache row and masks under its own horizon.
+        cache, table = ((self.kv.cache(), self.kv.device_table())
+                        if self.paged else (self.cache, None))
         t0 = time.monotonic()
         logits, _ = decode_step(
-            self.params, self.cfg, self._tokens(last)["tokens"],
-            self.kv.cache(), torch.as_tensor(self.pos, dtype=torch.long),
-            page_table=self.kv.device_table())
+            self.params, self.cfg, self._tokens(last)["tokens"], cache,
+            torch.as_tensor(self.pos, dtype=torch.long), page_table=table)
         finite = torch.isfinite(logits).all(dim=-1).tolist()   # syncs
         wall = time.monotonic() - t0
         self.walls["decode"].append(wall)
-        if self._timed_step:
+        if self.cost is not None and self._timed_step:
             self.cost.observe_step(wall)
         self._timed_step = True
         n_active = 0

@@ -1341,3 +1341,65 @@ def test_quant_matmul_forward_and_backward_on_the_card(dev, mode):
     """matmul(quant=) and ragged_matmul(quant=) with a tail, forward and
     straight-through backward, card against CPU on the same inputs."""
     _chip_smoke().check_quant_backward(dev, modes=(mode,))
+
+
+# ------------------ the recurrent families (dense-slot rung) ---------------
+
+@pytest.mark.parametrize("m", [2, 3, 4, 40, 300])
+@pytest.mark.parametrize("k,n", [(1024, 4384), (2048, 1024), (3584, 14576),
+                                 (7168, 3584)])
+def test_ssm_projections_through_dispatch(dev, m, k, n):
+    """mamba2's and zamba2's in / out projections (N = 4384 and 14576 end
+    in a 32- and a 112-column edge tile) at decode, conv-tail and prefill
+    rows, through the planner: at most 4 rows on the stream body."""
+    from repro_torch.core.gemm import matmul
+    a, b = _operands("nn", m, k, n, torch.bfloat16, dev, seed=m)
+    K.reset_launch_counts()
+    got = matmul(a, b)
+    _close(got, K.ftimm_gemm_plain(a, b))
+    if m <= 4:
+        assert K.body_counts()["ftimm_gemm"]["stream"] == 1
+
+
+@pytest.mark.parametrize("arch,layers", [("mamba2-370m-smoke", None),
+                                         ("zamba2-7b-smoke", 5)])
+def test_recurrent_models_on_the_card_match_the_cpu(dev, arch, layers):
+    """fp32 smoke SSM and hybrid (2 groups and a remainder), same weights:
+    prefill logits and every cache leaf, then 2 decode steps, card against
+    CPU within 1e-4; the engine's dense-slot tokens are equal."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    cpu_model = M.init_params(cfg, 0, device="cpu")
+    models = {"cpu": cpu_model, "cuda": copy.deepcopy(cpu_model).to(dev)}
+    toks = np.random.default_rng(3).integers(2, cfg.vocab_size, (2, 40))
+    out = {}
+    for name, model in models.items():
+        device = torch.device(name) if name == "cpu" else dev
+        cache = M.make_cache(cfg, 2, 48, device=device)
+        logits, cache = M.prefill(model, cfg, {"tokens": torch.as_tensor(
+            toks[:, :37]).to(device)}, cache)
+        steps = [logits.cpu()]
+        for s in range(2):
+            logits, cache = M.decode_step(model, cfg, torch.as_tensor(
+                toks[:, 37 + s:38 + s]).to(device), cache, 37 + s)
+            steps.append(logits.cpu())
+        reqs = ServeEngine(cfg, model, batch_slots=2, max_len=32,
+                           device=device).run(
+            [Request(rid=i, prompt=toks[i % 2, :3 + 4 * i].astype(np.int32),
+                     max_new_tokens=4) for i in range(3)])
+        out[name] = (steps, {k: v.cpu() for k, v in cache.items()},
+                     [r.out_tokens for r in reqs])
+    for got, want in zip(out["cuda"][0], out["cpu"][0]):
+        _close(got, want)
+    for key, want in out["cpu"][1].items():
+        _close(out["cuda"][1][key], want)
+    assert out["cuda"][2] == out["cpu"][2]

@@ -226,3 +226,131 @@ def test_launcher_runs_on_the_cpu_when_asked(capsys):
                 "--slots", "2", "--max-new", "3", "--prompt-len", "6"])
     out = capsys.readouterr().out
     assert out.count("req ") == 3 and "serving done" in out
+
+
+# ------------------------- the dense-slot rung -----------------------------
+
+RECURRENT = ["mamba2-370m-smoke", "zamba2-7b-smoke"]
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_engine_matches_jax_engine(arch):
+    """The SSM and hybrid families through both engines' dense-slot rung:
+    fp32, 2 slots, 5 requests (the queue runs beyond the slots, so slots
+    are reused after an idle slot's decode), prompts of 3 or more tokens,
+    4 new tokens each: identical greedy tokens and terminal flags."""
+    jcfg = dataclasses.replace(jget_config(arch), compute_dtype="float32")
+    tcfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
+    params = jinit_params(jcfg, jax.random.PRNGKey(2))
+    model = from_numpy_params(jax.tree.map(np.asarray, params), tcfg, "cpu")
+    prompts = _prompts(5, 13, lens=(3, 12, 5, 9, 7))
+    jeng = JServeEngine(jcfg, params, batch_slots=2, max_len=32)
+    jreqs = jeng.run([JRequest(rid=i, prompt=p, max_new_tokens=4)
+                      for i, p in enumerate(prompts)])
+    teng = ServeEngine(tcfg, model, batch_slots=2, max_len=32, device="cpu")
+    treqs = teng.run([Request(rid=i, prompt=p, max_new_tokens=4)
+                      for i, p in enumerate(prompts)])
+    assert not jeng.paged and not teng.paged
+    for j, t in zip(jreqs, treqs):
+        assert t.out_tokens == j.out_tokens, (t.rid, t.out_tokens,
+                                              j.out_tokens)
+        assert (t.done, t.timed_out, t.shed) == (j.done, j.timed_out, j.shed)
+        assert t.done and len(t.out_tokens) == 4
+    assert [b for b, _ in teng.walls["prefill"]] == [None] * 5
+    health = teng.health()
+    assert set(health) == set(jeng.health()) - {"prefill_cache_size",
+                                                "degraded_servings"}
+    assert not health["degraded_mode"]
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_paged_engine_refused_for_a_recurrent_family(arch):
+    cfg = get_config(arch)
+    model = init_params(cfg, 0, device="cpu")
+    with pytest.raises(ValueError, match="paged KV unsupported"):
+        ServeEngine(cfg, model, paged=True, device="cpu")
+    eng = ServeEngine(cfg, model, device="cpu")
+    assert (eng.paged, eng.cost, eng.alloc, eng.kv, eng.buckets) == (
+        False, None, None, None, ())
+
+
+def test_dense_model_on_the_dense_slot_rung_matches_paged():
+    """qwen3-1.7b-smoke with ``paged=False`` (a dense slot cache, exact-
+    length prefills) gives the paged engine's tokens: 2 slots, 5
+    requests."""
+    prompts = _prompts(5, 14, lens=(12, 5, 9, 7, 3))
+    mk = lambda: [Request(rid=i, prompt=p, max_new_tokens=5)  # noqa: E731
+                  for i, p in enumerate(prompts)]
+    cfg = get_config(ARCH)
+    model = init_params(cfg, 0, device="cpu")
+    paged = ServeEngine(cfg, model, batch_slots=2, max_len=32, device="cpu")
+    dense = ServeEngine(cfg, model, batch_slots=2, max_len=32, device="cpu",
+                        paged=False)
+    assert paged.paged and not dense.paged
+    assert ([r.out_tokens for r in dense.run(mk())]
+            == [r.out_tokens for r in paged.run(mk())])
+    assert set(dense.cache) == {"k", "v"}
+    assert "pages" not in dense.health() and "pages" in paged.health()
+
+
+def test_dense_slot_rung_never_rejects_and_stops_one_token_requests():
+    """No pages and no cost model: a deadline cannot be priced, so submit
+    takes it; a one-token request ends on its prefill token (the port's
+    deviation from the reference's engine, ROADMAP Queue 3)."""
+    eng = _engine(get_config("mamba2-370m-smoke"), batch_slots=2, max_len=32)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=1 + i,
+                    deadline_s=60.0)
+            for i, p in enumerate(_prompts(2, 15))]
+    eng.run(reqs)
+    assert [len(r.out_tokens) for r in reqs] == [1, 2]
+    assert all(r.done and not r.timed_out for r in reqs)
+    assert eng.faults["admission_rejected"] == 0
+    assert eng.active == [None, None]
+
+
+def test_dense_slot_quarantine_zeroes_the_slot_region():
+    """A slot whose state turns non-finite is quarantined: every leaf's
+    region of that slot is zeroed, the request re-prefills prompt + tokens
+    so far and finishes with the tokens of an undisturbed run; the other
+    slot is untouched."""
+    cfg = dataclasses.replace(get_config("zamba2-7b-smoke"),
+                              compute_dtype="float32")
+    model = init_params(cfg, 0, device="cpu")
+    prompts = _prompts(2, 16, lens=(6, 9))
+    mk = lambda: [Request(rid=i, prompt=p, max_new_tokens=6)  # noqa: E731
+                  for i, p in enumerate(prompts)]
+    ref = [r.out_tokens for r in ServeEngine(
+        cfg, model, batch_slots=2, max_len=32, device="cpu").run(mk())]
+
+    eng = ServeEngine(cfg, model, batch_slots=2, max_len=32, device="cpu")
+    evicted = []
+    evict = eng._evict_slot
+
+    def spy(slot):
+        evict(slot)
+        evicted.append({k: v[:, slot].clone() for k, v in eng.cache.items()})
+
+    eng._evict_slot = spy
+    reqs = mk()
+    for r in reqs:
+        eng.submit(r)
+    eng.step()
+    eng.step()
+    eng.cache["ssm_h"][:, 1] = float("nan")       # poison slot 1
+    while eng.queue or any(eng.active):
+        eng.step()
+    assert eng.faults["nonfinite_quarantined"] == 1
+    assert len(evicted) == 1
+    assert all(not leaf.any() for leaf in evicted[0].values())
+    assert [r.out_tokens for r in reqs] == ref
+    assert all(torch.isfinite(v).all() for v in eng.cache.values())
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_launcher_serves_a_recurrent_family_on_the_cpu(arch, capsys):
+    from repro_torch.launch import serve
+    serve.main(["--arch", arch, "--device", "cpu", "--requests", "3",
+                "--slots", "2", "--max-new", "3", "--prompt-len", "6"])
+    out = capsys.readouterr().out
+    assert "slot cache" in out and "KV pool" not in out
+    assert out.count("req ") == 3 and "serving done" in out
