@@ -17,8 +17,15 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    zamba2-7b's SSM in / out projections, N = 4384 / 14576, at 4, 40 and
    300 rows, their unembeds, and zamba2's shared block: q / k / v, o and
    down with the residual, the gate/up pair, the fp32 QK^T / PV at
-   head_dim 112), the shapes training gives the two backward kernels (the
-   llama4-scout expert dW, T = 1024 routed rows; the split-K kernel at the
+   head_dim 112), the shapes of [families] (whisper-base's decode
+   projections, its unembed at N = 51872 (a 32-column edge tile), the frame
+   projection, encoder and cross K / V over 1500 rows (a 92-row edge), the
+   encoder's non-causal fp32 QK^T / PV and the cross-attention decode over
+   1024-row KV blocks; llava-next-34b's decode projections, 7168 -> 2 x
+   20480 pair, 64000-row unembed, the patch projection at 576 and 4 x 576
+   rows, the prefill at 600 and 2432 rows and the fp32 decode attention
+   over the 896-row paged view, 7 query heads a group), the shapes
+   training gives the two backward kernels (the llama4-scout expert dW, T = 1024 routed rows; the split-K kernel at the
    T2 dW shapes of qwen3-1.7b and the llama4-scout router, nsplit 2 / 4 /
    8), unaligned shapes, every trans, the epilogues, the shared 2-D
    operand, and ragged group distributions (4 rows to 4 distinct groups,
@@ -35,7 +42,8 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    of exactly 16 rows, rows outside every group), and at the MoE and qwen
    home shapes.  Then the planner's body choice through the dispatch layer
    (a misaligned operand takes the FMA body, 4 rows the stream -- so does
-   every bf16 decode GEMM of the recurrent path -- 200 the tensor cores; mixtral's 16-row expert buffers, llama4's 4 routed rows
+   every bf16 decode GEMM of the recurrent path and of [families] -- 200
+   the tensor cores; mixtral's 16-row expert buffers, llama4's 4 routed rows
    and qwen's 4 decode rows of the dense gate/up pair the grouped / ragged
    stream, for the down projection and the gate/up pairs, 128, 320 and
    1024 rows the tensor cores, fp32 the FMA body) and bit-identical reruns
@@ -52,7 +60,12 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    layers, card against CPU: a prefill and two decode steps must choose the
    same experts for every token in every layer, and then give logits within
    1e-3 normwise (in bf16 one rounding can move a near-tied token to another
-   expert, which is a different routing, not an error);
+   expert, which is a different routing, not an error); then whisper-base
+   and llava-next-34b: the smoke configs as qwen's (their frames / patches
+   seeded), and in fp32 at full width, card against CPU, whisper at full
+   depth (6 + 6 layers, 1500 seeded frames) and llava at 1 layer (576
+   seeded patches, a 24-token prompt), a prefill and two decode steps: the
+   logits and every cache leaf (the cross K / V too) within 1e-3;
 5. [serve] qwen3-1.7b at full width and depth (28 layers), then
    mixtral-8x7b and llama4-scout-17b-a16e at full width and 8 layers
    (neither fits one 80 GB card whole; 8 layers keep whole periods of each
@@ -88,18 +101,41 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    kernel 26 times (zamba2).  Prints the decode median, the prefill walls,
    peak memory, launches a step and ``profile_decode``'s device busy,
    idle share and device time by kernel group;
-7. [train-reference] training in fp32, card against CPU, same weights and
+7. [families] whisper-base (encdec: 6 encoder layers over 1500 frames, 6
+   decoder layers with cross-attention) at full width and depth on the
+   dense-slot rung (slot caches of 320 rows, each slot's cross K / V), and
+   llava-next-34b (vlm) at full width and 16 layers (68 GB whole in bf16;
+   depth is the only cut) on the paged rung with buckets, each request's
+   576 patch rows in its pages before its prompt; bf16, random weights
+   from seed 0, one model on the card at a time, the stub frontends' zero
+   frames / patches; [recurrent]'s 6 requests.  Every kernel of the path
+   must launch, with no non-finite logits; every ftimm_gemm of at most 4
+   rows on the stream body, the pair of at most 16 rows on the stream and
+   more on the tensor cores, the fp32 attention on the FMA body; one
+   decode step launches ftimm_gemm 43 / 81 times, the pair 6 / 16 and the
+   grouped kernel 36 / 32 (whisper's cross-attention spans two 1024-row
+   blocks); llava's pages held 576 + prompt + 15 rows a request.  Prints
+   the decode median, the prefill walls (whisper's with its encoder),
+   peak memory, launches a step and ``profile_decode``'s device busy,
+   idle share and device time by kernel group;
+8. [train-reference] training in fp32, card against CPU, same weights and
    batches: qwen3-1.7b at full width and 2 layers, 2 AdamW steps of batch 2
    x seq 32 (the loss of each step and every step-1 gradient leaf within
    1e-3 normwise); llama4-scout-17b-a16e at full width and 1 layer, one
    forward / backward of 64 tokens (the same experts for every token on
-   both, then the loss and every gradient leaf within 1e-3);
-8. [train] through ``Trainer``, bf16 compute on fp32 masters, AdamW (the
+   both, then the loss and every gradient leaf within 1e-3); whisper-base,
+   llava-next-34b, mamba2-370m and zamba2-7b (5 layers) at -smoke, one
+   forward / backward of 2 x 32 tokens (and the seeded frames / patches):
+   the loss and every gradient leaf within 1e-4;
+9. [train] through ``Trainer``, bf16 compute on fp32 masters, AdamW (the
    first 5 steps of a 20-step warmup to lr 3e-4), seq 128 x batch 8 (the
    launcher's defaults), one model on the card at a time: qwen3-1.7b at
    full width and depth (28 layers), and llama4-scout-17b-a16e and
    mixtral-8x7b at full width and 1 layer (fp32 masters, gradients and
-   moments of 2 layers do not fit one 80 GB card).
+   moments of 2 layers do not fit one 80 GB card), then whisper-base and
+   mamba2-370m at full width and depth, llava-next-34b at 1 layer (576
+   patches a sample) and zamba2-7b at 7 layers (a group of 6 and a
+   remainder; its masters and moments at 81 layers exceed 80 GB).
    The launch counts are zeroed just before each run and read just after;
    every kernel of that model's training path must have launched
    (``ftimm_gemm_ragged_dw`` for llama4-scout's expert dW, the grouped
@@ -115,19 +151,19 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    memory.  Every distinct kernel call of these runs is recorded (kernel,
    operand shapes, strides and dtypes, trans, tile, epilogue, out dtype;
    the ragged offsets as routed);
-9. [train-check] each recorded call replayed on random operands of its
+10. [train-check] each recorded call replayed on random operands of its
    shapes against the kernel's plain version, at the tolerances of
-   [check]: the forward, remat, dX and dW products of the three training
-   steps, the mixed bf16 x fp32 products of the fp32 logits' and router's
+   [check]: the forward, remat, dX and dW products of the seven training
+   runs' steps, the mixed bf16 x fp32 products of the fp32 logits' and router's
    cotangents included;
-10. [train-schedule] the launcher's own schedule for a 5-step run (a 1-step
+11. [train-schedule] the launcher's own schedule for a 5-step run (a 1-step
    warmup to lr 3e-4, ``launch.train.opt_config``): llama4-scout at 1 layer
    in bf16 and in fp32 compute from the same masters and batches, and
    qwen3-1.7b at 28 layers in bf16.  The losses are recorded, not gated
    (with this 1-step warmup they spike at full width, in fp32 as in bf16);
    the gates are that bf16 and fp32 give the same step-1 loss within 1e-2
    and the same step-2 loss within 5e-2;
-11. [autotune] the measured plan store on qwen3-1.7b at full width: every
+12. [autotune] the measured plan store on qwen3-1.7b at full width: every
    GEMM signature its main path plans (recorded at the dispatch layer
    while it serves the 6 requests -- decode at 4 rows, the 128- and
    256-row bucket prefills -- and takes two train steps of 8 x 128: the
@@ -150,7 +186,7 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    nsplit 4 for qwen's gate / up dW, (1024, 2048)^T (1024, 6144), and two
    qwen train steps: ``ftimm_gemm_splitk`` must launch, and the losses and
    the step-1 gradient norm must stay within 1e-3 of the analytic steps';
-12. [quant] the quantized type paths (int8 / fp8 / weight-only int8,
+13. [quant] the quantized type paths (int8 / fp8 / weight-only int8,
    ``core.quant``): ``ftimm_gemm``'s FMA body at every quantized code
    (qwen's and llama4's 4 decode rows, 128 prefill rows, unaligned
    extents; nn, and nt for the straight-through dX) and
@@ -179,7 +215,7 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    ``torch._scaled_mm`` where their shape and type rules allow,
    dequantize + ``torch.matmul`` / ``torch._grouped_mm`` (two calls) for
    w8;
-13. [time] each kernel at the decode-step shapes of the model it serves, and
+14. [time] each kernel at the decode-step shapes of the model it serves, and
    the two backward kernels at the training shapes (split-K on its
    tensor-core and FMA bodies), and ftimm_gemm at qwen3-1.7b's training
    forward shapes, its unembed and the mixed fp32 x bf16 unembed dX, qwen's
@@ -273,7 +309,9 @@ REPLACES = {"ftimm_gemm": f"{_TPU}:202",
             "ftimm_gemm_splitk": f"{_TPU}:759"}
 ARCH, MIXTRAL, LLAMA4 = "qwen3-1.7b", "mixtral-8x7b", "llama4-scout-17b-a16e"
 MAMBA, ZAMBA = "mamba2-370m", "zamba2-7b"
+WHISPER, LLAVA = "whisper-base", "llava-next-34b"
 RECURRENT = (MAMBA, ZAMBA)      # served at full width and depth
+FRONTENDS = (WHISPER, LLAVA)    # the stub-frontend families ([families])
 MOE_LAYERS = 8          # served depth of the MoE models (width as published)
 REF_LAYERS = 2          # depth of their fp32 card-vs-CPU reference
 # The kernels each run must launch (serving, then training), and the run
@@ -291,12 +329,23 @@ PATH_KERNELS = {
     ("serve", MAMBA): ("ftimm_gemm",),
     ("serve", ZAMBA): ("ftimm_gemm", "ftimm_gemm_swiglu",
                        "ftimm_gemm_grouped"),
+    ("serve", WHISPER): ("ftimm_gemm", "ftimm_gemm_swiglu",
+                         "ftimm_gemm_grouped"),
+    ("serve", LLAVA): ("ftimm_gemm", "ftimm_gemm_swiglu",
+                       "ftimm_gemm_grouped"),
     ("train", ARCH): ("ftimm_gemm", "ftimm_gemm_swiglu", "ftimm_gemm_grouped"),
     ("train", LLAMA4): ("ftimm_gemm", "ftimm_gemm_grouped",
                         "ftimm_gemm_ragged", "ftimm_gemm_ragged_swiglu",
                         "ftimm_gemm_ragged_dw"),
     ("train", MIXTRAL): ("ftimm_gemm", "ftimm_gemm_grouped",
-                         "ftimm_gemm_grouped_swiglu")}
+                         "ftimm_gemm_grouped_swiglu"),
+    ("train", WHISPER): ("ftimm_gemm", "ftimm_gemm_swiglu",
+                         "ftimm_gemm_grouped"),
+    ("train", LLAVA): ("ftimm_gemm", "ftimm_gemm_swiglu",
+                       "ftimm_gemm_grouped"),
+    ("train", MAMBA): ("ftimm_gemm",),
+    ("train", ZAMBA): ("ftimm_gemm", "ftimm_gemm_swiglu",
+                       "ftimm_gemm_grouped")}
 HOME = {"ftimm_gemm": ("serve", ARCH), "ftimm_gemm_swiglu": ("serve", ARCH),
         "ftimm_gemm_grouped": ("serve", ARCH),
         "ftimm_gemm_grouped_swiglu": ("serve", MIXTRAL),
@@ -310,7 +359,10 @@ PROMPT_LENS = (24, 24, 24, 50, 50, 50)     # buckets 32 and 64
 L2_BYTES = 50e6
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 5, 128, 8
 TRAIN_TOKENS = TRAIN_SEQ * TRAIN_BATCH
-TRAIN_LAYERS = {ARCH: None, LLAMA4: 1, MIXTRAL: 1}   # None: the full depth
+# None: the full depth.  zamba2 at 7 layers (a group of 6 and a remainder
+# of 1): its fp32 masters and moments at 81 layers exceed 80 GB.
+TRAIN_LAYERS = {ARCH: None, LLAMA4: 1, MIXTRAL: 1, WHISPER: None, LLAVA: 1,
+                MAMBA: None, ZAMBA: 7}
 TRAIN_REF_TOL = 1e-3
 # The 5 steps are the start of a 20-step warmup to the launcher's lr 3e-4.
 # At full width an Adam step moves every weight by about lr (a sign step),
@@ -328,6 +380,14 @@ REC_PREFILL_ROWS = (40, 300)    # the exact-length prefills [check] holds
 REC_SMOKE_LAYERS = {MAMBA: None, ZAMBA: 5}   # zamba2: 2 groups + 1
 REC_REF_LAYERS = {MAMBA: 2, ZAMBA: 7}        # zamba2: 1 group of 6 + 1
 REC_REF_TOL = 1e-3
+# [families]: whisper-base at full width and depth on the dense-slot rung
+# (slot caches of REC_MAX_LEN rows; its 1500 encoder rows' cross K / V in
+# each slot), llava-next-34b at full width and FAM_LAYERS[LLAVA] layers
+# (the whole model is 68 GB in bf16; depth is the only cut) on the paged
+# rung, each request's 576 patch rows in front of its prompt.  Prompts as
+# [recurrent]'s.
+FAM_LAYERS = {WHISPER: None, LLAVA: 16}
+FAM_REF_LAYERS = {WHISPER: None, LLAVA: 1}   # the fp32 references
 
 
 def log(*args) -> None:
@@ -337,6 +397,8 @@ def log(*args) -> None:
 def depth(phase: str, arch: str) -> int:
     if phase == "train":
         return TRAIN_LAYERS[arch] or get_config(arch).num_layers
+    if arch in FRONTENDS:
+        return FAM_LAYERS[arch] or get_config(arch).num_layers
     full = arch in (ARCH,) + RECURRENT
     return get_config(arch).num_layers if full else MOE_LAYERS
 
@@ -1073,10 +1135,102 @@ def recurrent_path_cases() -> list[Case]:
     return cases
 
 
-def check_recurrent_bodies(cases: list[Case], dev) -> dict:
-    """Each bf16 decode GEMM of the recurrent path (``ftimm_gemm`` and the
-    dense pair at SLOTS rows) through the dispatch layer: it must take the
-    stream body and agree with its plain version."""
+def family_path_cases() -> list[Case]:
+    """Every GEMM shape of one decode step of whisper-base (full depth, the
+    dense-slot rung, REC_MAX_LEN-row slot caches) and llava-next-34b
+    (FAM_LAYERS[LLAVA] layers, the paged rung) at SLOTS slots, with its
+    launch count, and their prefill shapes: whisper's frame projection,
+    encoder projections and cross K / V over the 1500 encoder rows (a
+    92-row edge on 128-row tiles), the encoder's non-causal fp32 QK^T / PV
+    (two 1024-row KV blocks, the second padded), the cross-attention decode
+    (1 row over those blocks, G = SLOTS x 8 heads) and the unembed's N =
+    51872 (a 32-column edge tile); llava's patch projection (576 rows, and
+    SLOTS x 576 in a bucket prefill), its projections and pair at 600 and
+    SLOTS x 608 rows (a 32-bucket prefill), its decode over the 896-row
+    paged view (576 patches + REC_MAX_LEN), 7 query heads a KV group."""
+    wh, ll = get_config(WHISPER), get_config(LLAVA)
+    d, f, layers = wh.d_model, wh.d_ff, wh.num_layers
+    hd, heads = wh.head_dim_, wh.num_heads
+    enc = wh.encoder_seq
+    block = min(1024, enc)                    # the port's KV block
+    cases = [
+        dense_case("whisper decode q/k/v (self), q (cross)", SLOTS, d, d,
+                   per_step=4 * layers, model=WHISPER),
+        dense_case("whisper decode o+res (self, cross)", SLOTS, d, d,
+                   residual=True, per_step=2 * layers, model=WHISPER),
+        dense_case("whisper decode down+res", SLOTS, f, d, residual=True,
+                   per_step=layers, model=WHISPER),
+        dense_case(f"whisper decode unembed N={wh.vocab_padded}", SLOTS, d,
+                   wh.vocab_padded, trans="nt", out=FP32, per_step=1,
+                   model=WHISPER),
+        swiglu_case("whisper decode gate/up", SLOTS, d, f, per_step=layers,
+                    model=WHISPER),
+        grouped_case("whisper decode self qk^T", SLOTS * heads, 1, hd,
+                     REC_MAX_LEN, trans="nt", per_step=layers,
+                     model=WHISPER),
+        grouped_case("whisper decode self pv", SLOTS * heads, 1,
+                     REC_MAX_LEN, hd, per_step=layers, model=WHISPER),
+        grouped_case(f"whisper decode cross qk^T {block}-row block",
+                     SLOTS * heads, 1, hd, block, trans="nt",
+                     per_step=2 * layers, model=WHISPER),
+        grouped_case(f"whisper decode cross pv {block}-row block",
+                     SLOTS * heads, 1, block, hd, per_step=2 * layers,
+                     model=WHISPER),
+        dense_case(f"whisper frame_proj / enc q/k/v/o / cross k/v {enc}",
+                   enc, d, d, model=WHISPER),
+        dense_case(f"whisper encoder down+res {enc}", enc, f, d,
+                   residual=True, model=WHISPER),
+        swiglu_case(f"whisper encoder gate/up {enc}", enc, d, f,
+                    model=WHISPER),
+        grouped_case(f"whisper encoder qk^T {enc}x{block}", heads, enc, hd,
+                     block, trans="nt", model=WHISPER),
+        grouped_case(f"whisper encoder pv {enc}x{block}", heads, enc, block,
+                     hd, model=WHISPER),
+        dense_case(f"whisper prefill unembed N={wh.vocab_padded}", 1, d,
+                   wh.vocab_padded,
+                   trans="nt", out=FP32, model=WHISPER)]
+    d, f, layers = ll.d_model, ll.d_ff, FAM_LAYERS[LLAVA]
+    hq, hkv = ll.num_heads * ll.head_dim_, ll.num_kv_heads * ll.head_dim_
+    qpg, p = ll.num_heads // ll.num_kv_heads, ll.num_patches
+    view = math.ceil((REC_MAX_LEN + p) / PAGE) * PAGE
+    bucket_rows = SLOTS * (p + 32)
+    cases += [
+        dense_case("llava decode q", SLOTS, d, hq, per_step=layers,
+                   model=LLAVA),
+        dense_case("llava decode k/v", SLOTS, d, hkv, per_step=2 * layers,
+                   model=LLAVA),
+        dense_case("llava decode o+res", SLOTS, hq, d, residual=True,
+                   per_step=layers, model=LLAVA),
+        dense_case("llava decode down+res", SLOTS, f, d, residual=True,
+                   per_step=layers, model=LLAVA),
+        dense_case("llava decode unembed", SLOTS, d, ll.vocab_padded,
+                   trans="nt", out=FP32, per_step=1, model=LLAVA),
+        swiglu_case("llava decode gate/up", SLOTS, d, f, per_step=layers,
+                    model=LLAVA),
+        grouped_case(f"llava decode qk^T {view}-row view",
+                     SLOTS * ll.num_kv_heads, qpg, ll.head_dim_, view,
+                     trans="nt", per_step=layers, model=LLAVA),
+        grouped_case(f"llava decode pv {view}-row view",
+                     SLOTS * ll.num_kv_heads, qpg, view, ll.head_dim_,
+                     per_step=layers, model=LLAVA),
+        dense_case(f"llava patch_proj {p}", p, d, d, model=LLAVA),
+        dense_case(f"llava patch_proj {SLOTS}x{p}", SLOTS * p, d, d,
+                   model=LLAVA),
+        dense_case(f"llava prefill q {p + 24}", p + 24, d, hq, model=LLAVA),
+        dense_case(f"llava prefill k/v {bucket_rows}", bucket_rows, d, hkv,
+                   model=LLAVA),
+        swiglu_case(f"llava prefill gate/up {p + 24}", p + 24, d, f,
+                    model=LLAVA),
+        swiglu_case(f"llava prefill gate/up {bucket_rows}", bucket_rows, d,
+                    f, model=LLAVA)]
+    return cases
+
+
+def check_decode_bodies(cases: list[Case], dev) -> dict:
+    """Each bf16 decode GEMM of the recurrent path, or of whisper's and
+    llava's ([families]) (``ftimm_gemm`` and the dense pair at SLOTS rows),
+    through the dispatch layer: it must take the stream body and agree with
+    its plain version."""
     gen = torch.Generator(device=dev).manual_seed(4)
     seen = {}
     for c in cases:
@@ -1091,8 +1245,8 @@ def check_recurrent_bodies(cases: list[Case], dev) -> dict:
         if bodies != {"stream": 1} or rel > TOL[c.out_dtype]:
             raise AssertionError(f"{c.label}: bodies {bodies}, normwise "
                                  f"{rel:.3g}")
-    log(f"  {len(seen)} recurrent decode shapes through dispatch: all on the "
-        "stream body")
+    log(f"  {len(seen)} decode shapes through dispatch: all on the stream "
+        "body")
     return seen
 
 
@@ -1666,7 +1820,8 @@ def small_reference(dev, arch: str = ARCH,
     out = {}
     for name, model, device in (("cpu", cpu_model, CPU),
                                 ("gpu", gpu_model, dev)):
-        batch = {"tokens": torch.as_tensor(toks).to(device)}
+        batch = {"tokens": torch.as_tensor(toks).to(device),
+                 **frontend(cfg, 2, device)}
         logits, _ = M.prefill(model, cfg, batch,
                               M.make_cache(cfg, 2, 12, device=device))
         prompts = [np.asarray(p, np.int32) for p in toks] + [toks[0, :5]]
@@ -1685,6 +1840,20 @@ def small_reference(dev, arch: str = ARCH,
     log(f"  {cfg.name} ({cfg.num_layers} layers) fp32 reference: logits "
         f"normwise {rel:.2e}, {sum(map(len, out['gpu'][1]))} tokens "
         "identical")
+
+
+def frontend(cfg, b: int, device, seed: int = 9) -> dict:
+    """The stub frontends' inputs of ``b`` rows, N(0, 0.02^2) from ``seed``
+    (the same on every device): ``frames`` (encdec), ``patch_embeds``
+    (vlm); nothing for the other families."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.family == "encdec":
+        out["frames"] = (cfg.encoder_seq, cfg.d_model)
+    if cfg.num_patches:
+        out["patch_embeds"] = (cfg.num_patches, cfg.d_model)
+    return {k: torch.as_tensor(rng.standard_normal((b,) + shape).astype(
+        np.float32) * 0.02).to(device) for k, shape in out.items()}
 
 
 def moe_reference(arch: str, dev) -> dict:
@@ -1906,27 +2075,38 @@ def recurrent_reference(arch: str, dev) -> dict:
     on the CPU (the plain versions), same weights.  The logits and every
     cache leaf (the SSM state h and conv window; zamba2's shared-block K /
     V) must agree within REC_REF_TOL normwise."""
-    cfg = dataclasses.replace(get_config(arch),
-                              num_layers=REC_REF_LAYERS[arch],
-                              compute_dtype="float32")
+    return card_cpu_reference(dataclasses.replace(
+        get_config(arch), num_layers=REC_REF_LAYERS[arch],
+        compute_dtype="float32"), dev, rows=2, prompt_len=20)
+
+
+def card_cpu_reference(cfg, dev, *, rows: int, prompt_len: int) -> dict:
+    """``cfg`` (fp32): a prefill of ``rows`` seeded prompts of
+    ``prompt_len`` tokens (after the stub frontends' seeded frames or
+    patches) and two decode steps on the card (the kernels) and on the CPU
+    (the plain versions), same weights.  The logits and every cache leaf
+    must agree within REC_REF_TOL normwise."""
+    arch = cfg.name
     t0 = time.monotonic()
     gpu_model = M.init_params(cfg, 0, device=dev)
     cpu_model = copy.deepcopy(gpu_model).to(CPU)
     rng = np.random.default_rng(8)
-    prompt = rng.integers(2, cfg.vocab_size, (2, 20))
-    nxt = rng.integers(2, cfg.vocab_size, (2, 2))
+    prompt = rng.integers(2, cfg.vocab_size, (rows, prompt_len))
+    nxt = rng.integers(2, cfg.vocab_size, (rows, 2))
+    depth = prompt_len + (cfg.num_patches or 0)
     runs = {}
     for name, model, device in (("gpu", gpu_model, dev),
                                 ("cpu", cpu_model, CPU)):
         t1 = time.monotonic()
-        cache = M.make_cache(cfg, 2, 24, device=device)
+        cache = M.make_cache(cfg, rows, prompt_len + 4, device=device)
         logits, cache = M.prefill(
-            model, cfg, {"tokens": torch.as_tensor(prompt).to(device)}, cache)
+            model, cfg, {"tokens": torch.as_tensor(prompt).to(device),
+                         **frontend(cfg, rows, device)}, cache)
         out = [logits]
         for step in range(2):
             logits, cache = M.decode_step(
                 model, cfg, torch.as_tensor(nxt[:, step:step + 1]).to(device),
-                cache, 20 + step)
+                cache, depth + step)
             out.append(logits)
         # The padded vocab rows hold -1e30 on both sides: compare the rest.
         out = [t[:, :cfg.vocab_size].cpu() for t in out]
@@ -1938,7 +2118,11 @@ def recurrent_reference(arch: str, dev) -> dict:
     logits_rel = max(rel_err(a, b)[0] for a, b in zip(g_out, c_out))
     state_rel = {k: rel_err(g_cache[k], c_cache[k])[0] for k in g_cache}
     worst = max(logits_rel, *state_rel.values())
-    log(f"  {arch} fp32, {cfg.num_layers} layers, full width: logits "
+    log(f"  {arch} fp32, {cfg.num_layers} layers"
+        + (f" (encoder {cfg.encoder_layers}, {cfg.encoder_seq} frames)"
+           if cfg.encoder_layers else "")
+        + (f" ({cfg.num_patches} patches)" if cfg.num_patches else "")
+        + f", full width, {rows} x {prompt_len} tokens: logits "
         f"normwise {logits_rel:.2e}, cache leaves "
         + ", ".join(f"{k} {v:.2e}" for k, v in state_rel.items())
         + f" (card {g_s:.1f} s, CPU {c_s:.1f} s, "
@@ -1952,51 +2136,88 @@ def recurrent_reference(arch: str, dev) -> dict:
 
 def decode_launches(engine: ServeEngine, dev) -> dict[str, int]:
     """Kernel launches of one fused decode step over every slot of
-    ``engine``'s cache (after its run), and the check that they are the
-    path's: two SSM projections a layer, the unembed, and after each of the
-    hybrid's groups q, k, v, o and down, the gate/up pair and the two fp32
-    attention products."""
+    ``engine`` (after its run; the paged rung through its page table), and
+    the check that they are the path's.  SSM and hybrid: two SSM
+    projections a layer, the unembed, and after each of the hybrid's groups
+    q, k, v, o and down, the gate/up pair and the two fp32 attention
+    products.  whisper and llava: q, k, v, o and down a layer (whisper's
+    cross-attention adds its q and o), the unembed; the gate/up pair a
+    layer; the fp32 QK^T and PV a layer over the self cache, and over each
+    1024-row block of the encoder rows."""
     cfg = engine.cfg
+    cache, table = ((engine.kv.cache(), engine.kv.device_table())
+                    if engine.paged else (engine.cache, None))
     K.reset_launch_counts()
     M.decode_step(engine.params, cfg,
                   torch.zeros((engine.b, 1), dtype=torch.long, device=dev),
-                  engine.cache, torch.as_tensor(engine.pos, dtype=torch.long))
+                  cache, torch.as_tensor(engine.pos, dtype=torch.long),
+                  page_table=table)
     torch.cuda.synchronize()
     got = {k: v for k, v in K.launch_counts().items() if v}
-    groups = cfg.num_layers // cfg.attn_every if cfg.attn_every else 0
-    want = {"ftimm_gemm": 2 * cfg.num_layers + 5 * groups + 1}
-    if groups:
-        want.update(ftimm_gemm_swiglu=groups, ftimm_gemm_grouped=2 * groups)
+    layers = cfg.num_layers
+    if cfg.family in ("ssm", "hybrid"):
+        groups = layers // cfg.attn_every if cfg.attn_every else 0
+        want = {"ftimm_gemm": 2 * layers + 5 * groups + 1}
+        if groups:
+            want.update(ftimm_gemm_swiglu=groups,
+                        ftimm_gemm_grouped=2 * groups)
+    else:
+        blocks = math.ceil(cfg.encoder_seq / 1024)
+        want = {"ftimm_gemm": 5 * layers + 1 + (2 * layers if blocks else 0),
+                "ftimm_gemm_swiglu": layers,
+                "ftimm_gemm_grouped": 2 * layers * (1 + blocks)}
     if got != want:
         raise AssertionError(f"{cfg.name}: a decode step launched {got}, "
                              f"the path has {want}")
     return got
 
 
-def serve_recurrent(arch: str, dev) -> tuple[dict, dict, dict]:
-    """Serve ``arch`` at full width and depth through ServeEngine's
-    dense-slot rung: 6 greedy requests of REC_PROMPT_LENS tokens over SLOTS
-    slots, NEW_TOKENS each.  Returns (stats, the launch counts of just this
-    run, its body counts)."""
-    cfg = get_config(arch)
+def serve_family(arch: str, dev) -> tuple[dict, dict, dict]:
+    """Serve ``arch`` at full width (``depth("serve", arch)`` deep: the
+    recurrent models and whisper-base whole, llava-next-34b at
+    FAM_LAYERS[LLAVA]) through ServeEngine: mamba2, zamba2 and whisper on
+    the dense-slot rung (slot caches of REC_MAX_LEN rows), llava on the
+    paged rung with buckets (each request's patch rows in its pages).  6
+    greedy requests of REC_PROMPT_LENS tokens over SLOTS slots, NEW_TOKENS
+    each; the stub frontends' zero frames / patches.  Returns (stats, the
+    launch counts of just this run, its body counts)."""
+    cfg = dataclasses.replace(get_config(arch),
+                              num_layers=depth("serve", arch))
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.monotonic()
     model = M.init_params(cfg, 0, device=dev)
     torch.cuda.synchronize()
     params = sum(p.numel() for p in model.parameters())
-    log(f"  {arch}: {cfg.num_layers} layers, d {cfg.d_model}, SSM state "
-        f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}, "
+    attn = (f"heads {cfg.num_heads}/{cfg.num_kv_heads} of {cfg.head_dim_}, "
+            f"d_ff {cfg.d_ff}")
+    log(f"  {arch}: {cfg.num_layers} layers, d {cfg.d_model}, "
+        + (f"SSM state {cfg.ssm_state}, chunk {cfg.ssm_chunk}, "
+           if cfg.ssm_state else "")
         + (f"a shared attention + MLP block after every {cfg.attn_every} "
-           f"(heads {cfg.num_heads}/{cfg.num_kv_heads} of "
-           f"{cfg.head_dim_}, d_ff {cfg.d_ff}), " if cfg.attn_every else "")
+           f"({attn}), " if cfg.attn_every else "")
+        + (f"{attn}, " if not cfg.ssm_state else "")
+        + (f"an encoder of {cfg.encoder_layers} over {cfg.encoder_seq} "
+           "frames, " if cfg.encoder_layers else "")
+        + (f"{cfg.num_patches} patch rows, " if cfg.num_patches else "")
         + f"vocab {cfg.vocab_size}; init {time.monotonic() - t0:.1f} s, "
         f"{params / 1e9:.3f} B params")
     engine = ServeEngine(cfg, model, batch_slots=SLOTS, max_len=REC_MAX_LEN,
-                         device=dev)
-    if engine.paged:
-        raise AssertionError(f"{arch} took the paged rung")
-    cache_gb = sum(t.numel() * t.element_size()
-                   for t in engine.cache.values()) / 1e9
+                         page_size=PAGE, device=dev)
+    paged = engine.paged
+    if paged != (cfg.family in E.PAGED_FAMILIES):
+        raise AssertionError(f"{arch} took the wrong rung (paged: {paged})")
+    leaves = engine.kv.cache() if paged else engine.cache
+    cache_gb = {k: t.numel() * t.element_size() / 1e9
+                for k, t in leaves.items()}
+    held: dict[int, int] = {}
+    alloc = engine.alloc.alloc if paged else None
+    if paged:
+        def tracking(n, owner):
+            pages = alloc(n, owner)
+            held[owner] = held.get(owner, 0) + n
+            return pages
+
+        engine.alloc.alloc = tracking
     rng = np.random.default_rng(0)
     reqs = [Request(rid=i, max_new_tokens=NEW_TOKENS, prompt=rng.integers(
         2, cfg.vocab_size, n).astype(np.int32))
@@ -2009,7 +2230,7 @@ def serve_recurrent(arch: str, dev) -> tuple[dict, dict, dict]:
     wall = time.monotonic() - t0
     launches, bodies = K.launch_counts(), K.body_counts()
     decode = list(engine.walls["decode"])
-    prefill = [s for _, s in engine.walls["prefill"]]
+    prefill = [[b, s * 1e3] for b, s in engine.walls["prefill"]]
     for r in reqs:
         if not r.done or r.timed_out or len(r.out_tokens) != NEW_TOKENS:
             raise AssertionError(f"{arch} request {r.rid} did not finish: "
@@ -2022,12 +2243,27 @@ def serve_recurrent(arch: str, dev) -> tuple[dict, dict, dict]:
     missing = [k for k in PATH_KERNELS[("serve", arch)] if launches[k] == 0]
     if missing:
         raise AssertionError(f"{arch}: {missing} never launched: {launches}")
+    rows_held = {}
+    if paged:
+        # Each request's pages held its patch rows, its prompt and every
+        # decoded row but the last token's (which no step writes).
+        engine.alloc.alloc = alloc
+        engine.alloc.check()
+        for r in reqs:
+            rows = engine.extra + len(r.prompt) + NEW_TOKENS - 1
+            rows_held[r.rid] = rows
+            if held[id(r)] != E.pages_for(rows, PAGE):
+                raise AssertionError(
+                    f"{arch} request {r.rid}: {held[id(r)]} pages held, "
+                    f"{E.pages_for(rows, PAGE)} hold its {rows} rows")
 
     # Untimed: the first prompts again for 3 tokens with every kernel call
-    # recorded.  Every ftimm_gemm of at most SLOTS rows (the decode steps,
-    # the 2-token prompt, the 3-row conv tails, the 1-row prefill unembed)
-    # must take the stream body; the dense pair of at most 16 rows the
-    # stream, of more the tensor cores; the fp32 attention the FMA body.
+    # recorded.  Every ftimm_gemm of at most SLOTS rows (decode, the
+    # 2-token prompt, the 3-row conv tails, the 1-row prefill unembed) must
+    # take the stream body; the dense pair of at most 16 rows the stream,
+    # of more the body its plan names (the tensor cores, but the FMA body
+    # for whisper's narrow 512 x 2048 pair at 17 and 40 rows); the fp32
+    # attention the FMA body.
     again = [Request(rid=len(reqs) + i, prompt=r.prompt, max_new_tokens=3)
              for i, r in enumerate(reqs[:SLOTS])]
     with CallRecorder() as recorder:
@@ -2040,7 +2276,9 @@ def serve_recurrent(arch: str, dev) -> tuple[dict, dict, dict]:
     grouped = group_calls_by_body(recorder)
     for (kernel, pair, rows, body), n in grouped.items():
         planned = ("fma" if pair != "bf16"
-                   else "stream" if rows <= K.GSTREAM_ROWS else "tc")
+                   else "stream" if rows <= K.GSTREAM_ROWS
+                   else plan_gemm(rows, cfg.d_model, cfg.d_ff, 2, 2,
+                                  panels=2).body)
         if body != planned:
             raise AssertionError(f"{arch}: {kernel} {pair} calls of {rows} "
                                  f"rows took the {body} body ({grouped})")
@@ -2057,9 +2295,8 @@ def serve_recurrent(arch: str, dev) -> tuple[dict, dict, dict]:
              "requests": len(reqs), "tokens": tokens, "wall_s": wall,
              "tokens_per_s": tokens / wall, "decode_steps": len(decode),
              "decode_step_median_ms": statistics.median(decode[1:]) * 1e3,
-             "prefill_ms_by_prompt": [[n, s * 1e3] for n, s in zip(
-                 REC_PROMPT_LENS, prefill)],
-             "slot_cache_gb": cache_gb, "peak_device_gb": peak,
+             "prefill_ms": prefill, "cache_gb": cache_gb,
+             "peak_device_gb": peak, "rows_held_by_request": rows_held,
              "launches": launches, "bodies": bodies,
              "launches_per_decode_step": per_step,
              "ftimm_gemm_calls_by_rows_and_body_untimed": {
@@ -2068,12 +2305,23 @@ def serve_recurrent(arch: str, dev) -> tuple[dict, dict, dict]:
                  " ".join(map(str, key)): n
                  for key, n in sorted(grouped.items())},
              "profile": prof}
+    if paged:
+        shown = "bucket prefill ms (bucket, ms) " + ", ".join(
+            f"{b}: {ms:.1f}" for b, ms in prefill)
+    else:
+        shown = ("exact prefill ms by prompt length"
+                 + (f" (each with the {cfg.encoder_seq}-frame encoder) "
+                    if cfg.encoder_seq else " ")
+                 + ", ".join(f"{n}: {ms:.1f}" for n, (_, ms) in zip(
+                     REC_PROMPT_LENS, prefill)))
     log(f"  served {len(reqs)} requests, {tokens} tokens in {wall:.2f} s: "
         f"{stats['tokens_per_s']:.1f} tokens/s; {len(decode)} decode steps, "
         f"median {stats['decode_step_median_ms']:.2f} ms (first "
-        f"{decode[0] * 1e3:.1f} ms); exact prefill ms by prompt length "
-        + ", ".join(f"{n}: {s:.1f}" for n, s in stats["prefill_ms_by_prompt"])
-        + f"; slot cache {cache_gb:.3f} GB; peak device memory {peak:.2f} GB")
+        f"{decode[0] * 1e3:.1f} ms); {shown}; "
+        + ("page pool" if paged else "slot cache") + " GB "
+        + ", ".join(f"{k} {v:.4f}" for k, v in cache_gb.items())
+        + f"; peak device memory {peak:.2f} GB"
+        + (f"; rows held a request {rows_held}" if rows_held else ""))
     log(f"  launches in the serving run: "
         f"{ {k: v for k, v in launches.items() if v} }; bodies "
         f"{ {k: v for k, v in bodies.items() if any(v.values())} }; one "
@@ -2105,7 +2353,35 @@ def recurrent_phase(dev) -> tuple[dict, dict, dict]:
         out["reference"][arch] = recurrent_reference(arch, dev)
     for arch in RECURRENT:
         out["serve"][arch], launches[("serve", arch)], bodies[
-            ("serve", arch)] = serve_recurrent(arch, dev)
+            ("serve", arch)] = serve_family(arch, dev)
+    return out, launches, bodies
+
+
+# ---------------------------------------------------------------------------
+# The stub-frontend families: whisper-base (encdec) and llava-next-34b (vlm)
+# ---------------------------------------------------------------------------
+
+def family_reference(arch: str, dev) -> dict:
+    """``arch`` in fp32 at full width, card against CPU: whisper-base at
+    full depth (6 + 6 layers, 1500 seeded frames), llava-next-34b at
+    FAM_REF_LAYERS layers (576 seeded patches in front of the prompt); a
+    prefill of 24 tokens and two decode steps, the logits and every cache
+    leaf (whisper's cross K / V included) within REC_REF_TOL."""
+    cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
+    if FAM_REF_LAYERS[arch]:
+        cfg = dataclasses.replace(cfg, num_layers=FAM_REF_LAYERS[arch])
+    return card_cpu_reference(cfg, dev, rows=1, prompt_len=24)
+
+
+def families_phase(dev) -> tuple[dict, dict, dict]:
+    """[families]: whisper-base and llava-next-34b served at full width
+    (llava at FAM_LAYERS[LLAVA] layers), one model on the card at a time.
+    Returns (stats, launches and bodies by run)."""
+    out, launches, bodies = {}, {}, {}
+    torch.zeros(1, device=dev)      # the allocator's stats need a context
+    for arch in FRONTENDS:
+        out[arch], launches[("serve", arch)], bodies[("serve", arch)] = \
+            serve_family(arch, dev)
     return out, launches, bodies
 
 
@@ -2425,6 +2701,44 @@ def train_reference_llama4(dev) -> dict:
                              f"{TRAIN_REF_TOL}")
     return {"loss_gpu": g_loss, "loss_cpu": c_loss, "loss_rel": loss_rel,
             "grad_normwise": grad_rel, "router_calls": len(g_ch)}
+
+
+def train_reference_smoke(arch: str, dev) -> dict:
+    """``arch``-smoke in fp32 (zamba2 at REC_SMOKE_LAYERS: 2 groups and a
+    remainder): one forward / backward of a 2 x 32 synthetic batch (with
+    its seeded frames or patches) on the card and on the CPU, same
+    weights; the loss and every gradient leaf within 1e-4 normwise."""
+    cfg = dataclasses.replace(get_config(arch + "-smoke"),
+                              compute_dtype="float32")
+    if REC_SMOKE_LAYERS.get(arch):
+        cfg = dataclasses.replace(cfg, num_layers=REC_SMOKE_LAYERS[arch])
+    gpu_model = M.init_params(cfg, 0, device=dev, dtype=cfg.param_dtype)
+    cpu_model = copy.deepcopy(gpu_model).to(CPU)
+    host = SyntheticLM(cfg, ShapeConfig("ref", 32, 2, "train"),
+                       seed=0).host_batch(0)
+    runs = {}
+    for name, model, device in (("gpu", gpu_model, dev),
+                                ("cpu", cpu_model, CPU)):
+        total, _ = M.loss_fn(model, cfg, {k: torch.as_tensor(v).to(device)
+                                          for k, v in host.items()})
+        total.backward()
+        runs[name] = (total.item(), _grad_tree(model))
+    del gpu_model, cpu_model
+    free_card()
+    (g_loss, g_grads), (c_loss, c_grads) = runs["gpu"], runs["cpu"]
+    loss_rel = abs(g_loss - c_loss) / abs(c_loss)
+    grad_rel, leaf = _worst_leaf(g_grads, c_grads)
+    stubs = sorted(set(host) - {"tokens", "labels", "loss_mask"})
+    log(f"  {cfg.name} fp32, {cfg.num_layers} layers, 2 x 32 tokens"
+        + (f" (+ {', '.join(stubs)})" if stubs else "")
+        + f": loss {g_loss:.6f} / {c_loss:.6f} (rel {loss_rel:.2e}); "
+        f"gradients worst normwise {grad_rel:.2e} ({leaf})")
+    if loss_rel > 1e-4 or grad_rel > 1e-4:
+        raise AssertionError(f"{cfg.name} train reference: loss "
+                             f"{loss_rel:.3g}, gradient {grad_rel:.3g} "
+                             f"({leaf}) > 1e-4")
+    return {"loss_gpu": g_loss, "loss_cpu": c_loss, "loss_rel": loss_rel,
+            "grad_normwise": grad_rel, "worst_leaf": leaf}
 
 
 def train(arch: str, dev, opt_cfg: OptConfig, *, compute_dtype=None,
@@ -3442,12 +3756,14 @@ def main() -> int:
     qwen_cases = main_path_cases(cfg, view_len, bucket=64)
     moe_cases = moe_path_cases()
     rec_cases = recurrent_path_cases()
+    fam_cases = family_path_cases()
     trn_cases = train_cases()
     log("[check] kernels against their plain versions")
-    worst = check(qwen_cases + moe_cases + rec_cases + trn_cases
+    worst = check(qwen_cases + moe_cases + rec_cases + fam_cases + trn_cases
                   + edge_cases(), dev)
     bodies_check = check_bodies(dev)
-    bodies_check["recurrent decode"] = check_recurrent_bodies(rec_cases, dev)
+    bodies_check["recurrent decode"] = check_decode_bodies(rec_cases, dev)
+    bodies_check["families decode"] = check_decode_bodies(fam_cases, dev)
     free_card()
     phases["check"] = time.monotonic() - t0
     log(f"[check] done in {phases['check']:.1f} s")
@@ -3456,6 +3772,12 @@ def main() -> int:
     log("[reference] small input, and the MoE models in fp32 at full width")
     small_reference(dev, ARCH)
     refs = {arch: moe_reference(arch, dev) for arch in (MIXTRAL, LLAMA4)}
+    log("[reference] whisper-base and llava-next-34b: the smoke configs, and "
+        "fp32 at full width (whisper at full depth, llava at 1 layer)")
+    fam_refs = {}
+    for arch in FRONTENDS:
+        small_reference(dev, arch)
+        fam_refs[arch] = family_reference(arch, dev)
     phases["reference"] = time.monotonic() - t0
     log(f"[reference] done in {phases['reference']:.1f} s")
 
@@ -3483,9 +3805,20 @@ def main() -> int:
     log(f"[recurrent] done in {phases['recurrent']:.1f} s")
 
     t0 = time.monotonic()
+    log("[families] whisper-base (encdec, dense-slot rung, full depth) and "
+        f"llava-next-34b (vlm, paged rung, {FAM_LAYERS[LLAVA]} layers) "
+        "served at full width")
+    families, fam_launches, fam_bodies = families_phase(dev)
+    launches.update(fam_launches)
+    phases["families"] = time.monotonic() - t0
+    log(f"[families] done in {phases['families']:.1f} s")
+
+    t0 = time.monotonic()
     log("[train-reference] fp32 training, card against CPU, full width")
     train_refs = {ARCH: train_reference_qwen(dev),
                   LLAMA4: train_reference_llama4(dev)}
+    for arch in (WHISPER, LLAVA, MAMBA, ZAMBA):
+        train_refs[arch + "-smoke"] = train_reference_smoke(arch, dev)
     phases["train_reference"] = time.monotonic() - t0
     log(f"[train-reference] done in {phases['train_reference']:.1f} s")
 
@@ -3494,7 +3827,7 @@ def main() -> int:
     train_stats, train_calls = {}, []
     opt_cfg = OptConfig(warmup_steps=TRAIN_WARMUP,
                         total_steps=10 * TRAIN_WARMUP)
-    for arch in (ARCH, LLAMA4, MIXTRAL):
+    for arch in (ARCH, LLAMA4, MIXTRAL, WHISPER, LLAVA, MAMBA, ZAMBA):
         train_stats[arch], launches[("train", arch)], recorder = train(
             arch, dev, opt_cfg)
         train_calls += recorded_cases(recorder, arch)
@@ -3503,7 +3836,7 @@ def main() -> int:
 
     t0 = time.monotonic()
     log(f"[train-check] the {len(train_calls)} distinct kernel calls of the "
-        "three training runs, each against its plain version")
+        f"{len(train_stats)} training runs, each against its plain version")
     for name, err in check(train_calls, dev).items():
         worst[name] = max(worst.get(name, 0.0), err)
     free_card()
@@ -3534,7 +3867,8 @@ def main() -> int:
 
     t0 = time.monotonic()
     log("[time] decode-step and training shapes")
-    rows = timings(qwen_cases + moe_cases + rec_cases + trn_cases, dev)
+    rows = timings(qwen_cases + moe_cases + rec_cases + fam_cases + trn_cases,
+                   dev)
     phases["time"] = time.monotonic() - t0
     log(f"[time] done in {phases['time']:.1f} s")
 
@@ -3550,12 +3884,14 @@ def main() -> int:
     phases["all"] = time.monotonic() - t_all
     log(json.dumps({"bodies_check": bodies_check, "serve": stats,
                     "moe_reference": refs, "recurrent": recurrent,
+                    "family_reference": fam_refs, "families": families,
                     "train_reference": train_refs, "train": train_stats,
                     "train_schedule": witness, "autotune": tuned,
                     "quant": quant, "phases_s": phases}))
     log(card)
     bodies = {("serve", a): stats[a]["bodies"] for a in stats}
     bodies.update(rec_bodies)
+    bodies.update(fam_bodies)
     bodies.update({("train", a): train_stats[a]["bodies"]
                    for a in train_stats})
     print(json.dumps({"kernels": kernel_entries(rows, launches, worst,

@@ -1,8 +1,9 @@
 """--arch registry of the port: the architectures it can run.
 
 The dense decoder, the two MoE decoders, the attention-free SSM
-(mamba2-370m) and the hybrid (zamba2-7b) are ported; every other
-architecture of the reference raises until its family is ported.  The
+(mamba2-370m), the hybrid (zamba2-7b), the encoder-decoder
+(whisper-base) and the vision-language decoder (llava-next-34b) are
+ported; every other architecture of the reference raises until it is.  The
 reference's variant suffixes compose in either order: ``-smoke`` and
 ``-w8`` / ``-w4`` / ``-int8`` (``ModelConfig.quant``, the quantized ragged
 experts).  As in the reference, the dense family ignores
@@ -14,13 +15,15 @@ from dataclasses import replace
 
 from .base import ModelConfig, smoke_config
 from .llama4_scout_17b_a16e import CONFIG as _llama4
+from .llava_next_34b import CONFIG as _llava
 from .mamba2_370m import CONFIG as _mamba2
 from .mixtral_8x7b import CONFIG as _mixtral
 from .qwen3_1p7b import CONFIG as _qwen17
+from .whisper_base import CONFIG as _whisper
 from .zamba2_7b import CONFIG as _zamba2
 
 ARCHS: dict[str, ModelConfig] = {c.name: c for c in [
-    _qwen17, _mixtral, _llama4, _mamba2, _zamba2]}
+    _qwen17, _mixtral, _llama4, _mamba2, _zamba2, _whisper, _llava]}
 
 _QUANT_SUFFIXES = ("w8", "w4", "int8")
 

@@ -4,8 +4,11 @@ Batches are generated from (seed, step) alone, with numpy, exactly as the
 reference generates them: the same seed and step give bitwise the same
 batch in both packages, and a restart at step k replays batch k.  The
 stream is zipfian over the vocab with document boundaries, so losses are
-not degenerate.  Batches are numpy arrays on the host; the trainer moves
-them to the card.
+not degenerate.  The stub frontends' inputs -- ``frames`` (encdec) and
+``patch_embeds`` (vlm) -- are seeded N(0, 0.02^2) noise from the same seed
+expressions as the reference's, so they too are bitwise the reference's
+(Python's ``hash`` of a tuple of ints is the same in every process).
+Batches are numpy arrays on the host; the trainer moves them to the card.
 """
 from __future__ import annotations
 
@@ -38,11 +41,28 @@ class SyntheticLM:
 
     def host_batch(self, step: int) -> dict[str, np.ndarray]:
         """The whole global batch at ``step``: tokens, labels (the tokens
-        shifted by one) and an all-ones loss mask."""
+        shifted by one), an all-ones loss mask, and the stub frontends'
+        frames / patch embeddings where the family has them."""
         b, s = self.shape.global_batch, self.shape.seq_len
         toks = self._tokens(step, 0, b)
-        return {"tokens": toks[:, :s], "labels": toks[:, 1:s + 1],
-                "loss_mask": np.ones((b, s), np.float32)}
+        return self._pack(toks)
+
+    def _pack(self, toks: np.ndarray) -> dict[str, np.ndarray]:
+        cfg, s = self.cfg, self.shape.seq_len
+        b = toks.shape[0]
+        batch = {"tokens": toks[:, :s], "labels": toks[:, 1:s + 1],
+                 "loss_mask": np.ones((b, s), np.float32)}
+        if cfg.family == "encdec":
+            rng = np.random.default_rng(
+                abs(hash((self.seed, int(toks[0, 0])))) % 2**32)
+            batch["frames"] = rng.standard_normal(
+                (b, cfg.encoder_seq, cfg.d_model)).astype(np.float32) * 0.02
+        if cfg.num_patches:
+            rng = np.random.default_rng(
+                abs(hash((self.seed, 7, int(toks[0, 0])))) % 2**32)
+            batch["patch_embeds"] = rng.standard_normal(
+                (b, cfg.num_patches, cfg.d_model)).astype(np.float32) * 0.02
+        return batch
 
 
 class Prefetcher:

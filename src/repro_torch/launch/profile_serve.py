@@ -20,8 +20,11 @@ out of their groups into a ``weight quantization`` line of their own.
 The SSM families (``mamba2-370m``, ``zamba2-7b``) profile their
 dense-slot engine; their SSD contractions are PyTorch library calls
 (``torch.matmul`` / ``einsum``, as the reference's ``jnp.einsum``), grouped
-as ``library GEMM (SSD)`` beside the elementwise kernels.  Needs a CUDA
-card.
+as ``library GEMM (SSD)`` beside the elementwise kernels.
+``whisper-base`` profiles its dense-slot engine (self- and cross-attention
+over the 1500 encoder rows), ``llava-next-34b`` (with ``--layers``) its
+paged one, each slot's 576 patch rows in front of its prompt.  Needs a
+CUDA card.
 """
 from __future__ import annotations
 

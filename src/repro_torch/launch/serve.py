@@ -6,9 +6,13 @@
 Runs on the CUDA card, every GEMM through the ftIMM kernels; with no card
 it raises unless ``--device cpu`` asks for the plain versions on the CPU
 (``--arch qwen3-1.7b-smoke --device cpu`` is the CPU-sized run).  The
-recurrent families (``mamba2-370m``, ``zamba2-7b``) serve on the engine's
-dense-slot rung: exact-length prefill into a slot cache, no page pool, no
-buckets and no cost model.
+recurrent families (``mamba2-370m``, ``zamba2-7b``) and the
+encoder-decoder (``whisper-base``) serve on the engine's dense-slot rung:
+exact-length prefill into a slot cache (whisper's holds each slot's cross
+K / V of the encoder rows), no page pool, no buckets and no cost model.
+The vision-language ``llava-next-34b`` serves on the paged rung, each
+request's pages holding its patch rows in front of its tokens.  The stub
+frontends' frames and patch embeddings are zeros, as in the reference.
 
 Warmup loads a measured plan store (``--plan-cache``, else
 ``$REPRO_PLAN_CACHE``, else ``results/plan_cache.json`` when present)
@@ -108,11 +112,14 @@ def main(argv=None) -> None:
               f"KV pool {engine.alloc.total} pages x {engine.page_size} "
               f"rows on {device}")
     else:
-        mb = sum(t.numel() * t.element_size()
-                 for t in engine.cache.values()) / 1e6
+        mb = {k: t.numel() * t.element_size() / 1e6
+              for k, t in engine.cache.items()}
+        cross = sum(v for k, v in mb.items() if k.startswith("cross"))
         print(f"warmup: exact-length prefill (no buckets, no cost model), "
-              f"slot cache {mb:.1f} MB ({args.slots} slots, "
-              f"{', '.join(engine.cache)}) on {device}")
+              f"slot cache {sum(mb.values()):.3f} MB ({args.slots} slots, "
+              f"{', '.join(engine.cache)}"
+              + (f"; cross K/V {cross:.3f} MB" if cross else "")
+              + f") on {device}")
     rng = np.random.default_rng(args.seed)
     reqs = [Request(rid=i,
                     prompt=rng.integers(2, cfg.vocab_size,

@@ -179,7 +179,8 @@ def attention(x: torch.Tensor, params: AttentionParams, *, num_heads: int,
               kv_cache: tuple[torch.Tensor, torch.Tensor] | None = None,
               cache_index=None, compute_dtype=torch.bfloat16,
               block_kv: int = 1024, residual: torch.Tensor | None = None,
-              page_table: torch.Tensor | None = None):
+              page_table: torch.Tensor | None = None,
+              cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None):
     """Full attention layer.  Returns (out, kv_cache | None).
 
     * prefill / training: kv from x; with a cache, written into it at
@@ -193,11 +194,25 @@ def attention(x: torch.Tensor, params: AttentionParams, *, num_heads: int,
       slot.  The new K/V land at each slot's physical row and each slot's
       logical view is gathered out of the pool; the reserved null page 0
       absorbs inactive slots' writes and the per-row masks keep it out.
+    * cross-attention: ``cross_kv`` the precomputed (B, S_enc, KVH, D) K /
+      V of the encoder rows, attended whole (no rope, no qk-norm, no cache
+      written).  The mask depends on those rows only, so it is built from
+      1-D positions whatever the shape of ``positions``: a (B, 1) per-slot
+      decode works.  (The reference passes the decoder's positions on, and
+      with (B, 1) ones its mask gains an axis and the step raises.)
     * ``residual``: the block's residual stream, added in the
       out-projection's fused epilogue.
     """
     b, s, _ = x.shape
     q = dense(x, params.wq, compute_dtype).reshape(b, s, num_heads, head_dim)
+    if cross_kv is not None:
+        k, v = cross_kv
+        out = blockwise_attention(
+            q, k, v, q_positions=torch.arange(s, device=x.device),
+            kv_positions=torch.arange(k.shape[1], device=x.device),
+            window=0, causal=False, block_kv=block_kv)
+        out = out.reshape(b, s, num_heads * head_dim)
+        return dense(out, params.wo, compute_dtype, residual=residual), None
     k = dense(x, params.wk, compute_dtype).reshape(b, s, num_kv_heads, head_dim)
     v = dense(x, params.wv, compute_dtype).reshape(b, s, num_kv_heads, head_dim)
     if qk_norm:

@@ -1,15 +1,24 @@
-"""Top-level model API of the dense, MoE, SSM and hybrid decoders: init /
-training forward and loss / prefill / bucketed prefill / decode, and the
+"""Top-level model API of every family -- dense, MoE, SSM, hybrid,
+encoder-decoder (encdec) and vision-language (vlm): init / training
+forward and loss / encode / prefill / bucketed prefill / decode, and the
 cache.
 
 Batch dict convention, as in the reference: ``tokens`` (B, S) int, and for
-training ``labels`` (B, S) int and ``loss_mask`` (B, S) float.  The
+training ``labels`` (B, S) int and ``loss_mask`` (B, S) float; the stub
+frontends' precomputed embeddings ``frames`` (B, S_enc, D) (encdec: audio
+frames; the conv frontend is out of scope) and ``patch_embeds`` (B, P, D)
+(vlm: one tile's patches; the vision tower is out of scope).  The
 parameters are one ``DenseLM`` module (the reference's parameter pytree):
 the (V_pad, D) embedding table, shared by the embed and the unembed, the
 fp32 final-norm scale, one block per layer -- a ``DenseBlock``, whose
-feed-forward is a SwiGLU MLP (dense) or routed experts (moe), or an
-``SSMBlock`` (ssm, hybrid) -- and, for the hybrid, the one
+feed-forward is a SwiGLU MLP (dense, encdec, vlm) or routed experts (moe),
+or an ``SSMBlock`` (ssm, hybrid) -- and, for the hybrid, the one
 ``shared_attn`` ``DenseBlock`` applied after every ``attn_every`` layers.
+The encdec model adds the (D, D) ``frame_proj``, the ``encoder`` blocks and
+the fp32 ``enc_norm``, and its decoder blocks carry cross-attention; the
+vlm model adds the (D, D) ``patch_proj``, whose patch rows are prepended
+to the token embeddings (the logits cover the text positions only, and the
+caches hold ``num_patches`` more rows).
 A serving model holds its weights in the compute dtype and no gradient; a
 training model holds fp32 masters (``cfg.param_dtype``) that require grad,
 cast at use.  Norm scales and the SSM's A_log / D_skip / dt_bias stay
@@ -21,32 +30,42 @@ a decode step included -- as in the reference.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
 from ..core.device import resolve_device
 from .attention import param
-from .layers import embed, rms_norm, unembed
+from .layers import dense, embed, rms_norm, unembed
 from .transformer import (RECURRENT_FAMILIES, DenseBlock, SSMBlock, as_dtype,
                           check_family, compute_dtype, init_cache,
                           init_dense_block, init_ssm_block, stack_cached,
                           stack_train)
 
 __all__ = ["DenseLM", "init_params", "forward_train", "loss_fn", "prefill",
-           "prefill_bucket", "decode_step", "make_cache"]
+           "prefill_bucket", "decode_step", "make_cache", "encode"]
 
 
 class DenseLM(nn.Module):
     def __init__(self, embed_table: torch.Tensor, final_norm: torch.Tensor,
                  layers: list[DenseBlock] | list[SSMBlock], *,
                  shared_attn: DenseBlock | None = None,
+                 encoder: list[DenseBlock] | None = None,
+                 enc_norm: torch.Tensor | None = None,
+                 frame_proj: torch.Tensor | None = None,
+                 patch_proj: torch.Tensor | None = None,
                  requires_grad: bool = False):
         super().__init__()
         self.embed = param(embed_table, requires_grad)
         self.final_norm = param(final_norm, requires_grad)
         self.layers = nn.ModuleList(layers)
         self.shared_attn = shared_attn
+        self.encoder = None if encoder is None else nn.ModuleList(encoder)
+        for name, t in (("enc_norm", enc_norm), ("frame_proj", frame_proj),
+                        ("patch_proj", patch_proj)):
+            setattr(self, name, None if t is None else param(t, requires_grad))
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *,
@@ -54,8 +73,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
                 dtype: str | torch.dtype | None = None) -> DenseLM:
     """Random weights from a ``torch.Generator`` seeded with ``seed``, with
     the reference's distributions (embedding N(0, 0.02^2), He-scaled
-    projections, router and experts, zero norm scales; the SSM's as
-    ``ssm.init_ssm_params``).  Runs on the CUDA
+    projections, router and experts, the frame and patch projections, zero
+    norm scales; the SSM's as ``ssm.init_ssm_params``).  Runs on the CUDA
     card unless ``device`` says otherwise; raises when no card is present
     and no device is given.
 
@@ -70,29 +89,79 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     gen = torch.Generator(device=device).manual_seed(seed)
     table = (torch.randn((cfg.vocab_padded, cfg.d_model), generator=gen,
                          device=device) * 0.02).to(dt)
+    encdec = cfg.family == "encdec"
     block = (init_ssm_block if cfg.family in RECURRENT_FAMILIES
-             else init_dense_block)
+             else functools.partial(init_dense_block, cross=encdec))
     layers = [block(gen, cfg, device, dt, train)
               for _ in range(cfg.num_layers)]
-    shared = (init_dense_block(gen, cfg, device, dt, train)
-              if cfg.family == "hybrid" else None)
-    return DenseLM(table, torch.zeros(cfg.d_model, device=device), layers,
-                   shared_attn=shared, requires_grad=train)
+    extra = {}
+    if cfg.family == "hybrid":
+        extra["shared_attn"] = init_dense_block(gen, cfg, device, dt, train)
+    if encdec:
+        extra["encoder"] = [init_dense_block(gen, cfg, device, dt, train)
+                            for _ in range(cfg.encoder_layers)]
+        extra["enc_norm"] = torch.zeros(cfg.d_model, device=device)
+    d = cfg.d_model
+    for name, wanted in (("patch_proj", cfg.num_patches),
+                         ("frame_proj", cfg.encoder_seq)):
+        if wanted:
+            extra[name] = (torch.randn((d, d), generator=gen, device=device)
+                           * (2.0 / d) ** 0.5).to(dt)
+    return DenseLM(table, torch.zeros(d, device=device), layers,
+                   requires_grad=train, **extra)
 
 
 def _embed_inputs(model: DenseLM, cfg: ModelConfig, batch: dict):
-    h = embed(batch["tokens"], model.embed, compute_dtype(cfg))
+    """Token embeddings, after the projected patch rows when the batch
+    has ``patch_embeds`` (vlm), and their positions."""
+    cdt = compute_dtype(cfg)
+    h = embed(batch["tokens"], model.embed, cdt)
+    if cfg.num_patches and "patch_embeds" in batch:
+        patches = dense(batch["patch_embeds"].to(cdt), model.patch_proj, cdt)
+        h = torch.cat([patches, h], dim=1)
     return h, torch.arange(h.shape[1], device=h.device)
+
+
+def encode(model: DenseLM, cfg: ModelConfig,
+           frames: torch.Tensor) -> torch.Tensor:
+    """The encoder stack over precomputed frame embeddings (B, S_enc, D):
+    ``frame_proj``, the non-causal dense blocks (rope over the frame
+    positions), ``enc_norm``."""
+    cdt = compute_dtype(cfg)
+    h = dense(frames.to(cdt), model.frame_proj, cdt)
+    h, _ = stack_train(model.encoder, cfg, h,
+                       torch.arange(h.shape[1], device=h.device),
+                       causal=False)
+    return rms_norm(h, model.enc_norm)
+
+
+def _cross_kv_stack(model: DenseLM, cfg: ModelConfig,
+                    enc_out: torch.Tensor) -> list:
+    """Each decoder layer's cross (K, V), (B, S_enc, KVH, D) each, from the
+    encoder output: one ``dense`` a layer for K and one for V, computed once
+    per forward or prefill."""
+    cdt = compute_dtype(cfg)
+    b, s, _ = enc_out.shape
+    shape = (b, s, cfg.num_kv_heads, cfg.head_dim_)
+    return [(dense(enc_out, p.cross.wk, cdt).reshape(shape),
+             dense(enc_out, p.cross.wv, cdt).reshape(shape))
+            for p in model.layers]
 
 
 def forward_train(model: DenseLM, cfg: ModelConfig,
                   batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence fp32 logits for training.  -> (logits (B, S, V_pad),
-    aux loss)."""
+    aux loss); for vlm over the text positions only."""
     h, positions = _embed_inputs(model, cfg, batch)
+    cross = None
+    if cfg.family == "encdec":
+        cross = _cross_kv_stack(model, cfg,
+                                encode(model, cfg, batch["frames"]))
     h, aux = stack_train(model.layers, cfg, h, positions,
-                         shared=model.shared_attn)
+                         shared=model.shared_attn, cross_kv_stack=cross)
     h = rms_norm(h, model.final_norm)
+    if cfg.num_patches:
+        h = h[:, cfg.num_patches:]
     logits = unembed(h, model.embed, cfg.vocab_size, compute_dtype(cfg))
     return logits, aux
 
@@ -120,17 +189,27 @@ def loss_fn(model: DenseLM, cfg: ModelConfig, batch: dict,
 
 def make_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
                device: torch.device) -> dict:
-    """KV cache sized for ``max_len`` positions, or the SSM state (and the
-    hybrid's shared-block KV) of ``batch_size`` rows."""
-    return init_cache(cfg, batch_size, max_len, device)
+    """KV cache sized for ``max_len`` positions (vlm: and the
+    ``num_patches`` patch rows in front of them; encdec: and the encoder
+    rows' cross K / V), or the SSM state (and the hybrid's shared-block KV)
+    of ``batch_size`` rows."""
+    return init_cache(cfg, batch_size, max_len + (cfg.num_patches or 0),
+                      device)
 
 
 @torch.no_grad()
 def prefill(model: DenseLM, cfg: ModelConfig, batch: dict,
             cache: dict) -> tuple[torch.Tensor, dict]:
-    """Run the prompt through the stack, filling ``cache`` in place.
-    Returns (last-position logits (B, V), cache)."""
+    """Run the prompt through the stack, filling ``cache`` in place (the
+    encdec model first encodes ``batch["frames"]`` and writes every layer's
+    cross K / V).  Returns (last-position logits (B, V), cache)."""
     h, positions = _embed_inputs(model, cfg, batch)
+    if cfg.family == "encdec":
+        cross = _cross_kv_stack(model, cfg,
+                                encode(model, cfg, batch["frames"]))
+        for layer, (k, v) in enumerate(cross):
+            cache["cross_k"][layer].copy_(k)
+            cache["cross_v"][layer].copy_(v)
     h, cache = stack_cached(model.layers, cfg, h, positions, cache, 0,
                             shared=model.shared_attn)
     h = rms_norm(h[:, -1:], model.final_norm)
@@ -147,12 +226,15 @@ def prefill_bucket(model: DenseLM, cfg: ModelConfig, batch: dict,
     taken at its own last valid position.  Causality makes the padding
     exact: row r's logits at lens[r]-1 attend only to positions below
     lens[r].  Returns ((B, V) logits, cache).  Attention-cache families
-    only: pad tokens would run through a recurrent state."""
-    if cfg.family not in ("dense", "moe"):
+    only: pad tokens would run through a recurrent state (and the encdec
+    model, as the reference's).  A vlm row's last position is
+    lens[r] - 1 + num_patches."""
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise ValueError(f"bucketed prefill unsupported for {cfg.family}")
     h, positions = _embed_inputs(model, cfg, batch)
     h, cache = stack_cached(model.layers, cfg, h, positions, cache, 0)
-    idx = lens.to(device=h.device, dtype=torch.long) - 1
+    idx = (lens.to(device=h.device, dtype=torch.long) - 1
+           + (cfg.num_patches or 0))
     last = h[torch.arange(h.shape[0], device=h.device), idx][:, None]
     last = rms_norm(last, model.final_norm)
     logits = unembed(last, model.embed, cfg.vocab_size, compute_dtype(cfg))
@@ -165,8 +247,9 @@ def decode_step(model: DenseLM, cfg: ModelConfig, tokens: torch.Tensor,
                 page_table: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, dict]:
     """One-token decode.  ``tokens`` (B, 1); ``pos`` the number of positions
-    already in the cache, an int or a (B,) vector of per-slot depths (slots
-    at mixed depths in one step, each writing and masking at its own row).
+    already in the cache (vlm: the patch rows included), an int or a (B,)
+    vector of per-slot depths (slots at mixed depths in one step, each
+    writing and masking at its own row).
     ``page_table`` (B, max_pages): ``cache`` holds paged pools shared by
     every slot (``serve.kv_pages``; attention families only).  The SSM
     families advance every row's state one token whatever its ``pos``.

@@ -1,5 +1,6 @@
-"""The decoder stacks of the dense, MoE, SSM and hybrid families: per-layer
-modules, the training forward and the cached forward.
+"""The stacks of the dense, MoE, SSM, hybrid, encoder-decoder and
+vision-language families: per-layer modules, the training forward and the
+cached forward.
 
 The reference scans one traced body over layer-stacked parameters
 (``lax.scan``); PyTorch runs eagerly, so here each layer is its own module
@@ -16,6 +17,14 @@ The hybrid (zamba2) runs groups of ``attn_every`` Mamba2 layers, each group
 followed by ONE shared attention + MLP block -- the same module at every
 application, never a copy -- and then the remaining Mamba2 layers with no
 attention after them (zamba2-7b's 81 layers: 13 groups of 6, then 3).
+
+The encoder-decoder (whisper) runs its encoder as a non-causal stack of
+dense blocks (``stack_train(..., causal=False)``), and each decoder block
+attends, after its self-attention, to the encoder rows through its own
+``cross`` projections (``dense_block(..., cross_kv=)``); the cross K / V are
+computed once per prefill and cached as ``cross_k`` / ``cross_v``.  The
+vision-language decoder (llava) is a dense stack whose sequence starts with
+the projected patch rows (``models.model``).
 """
 from __future__ import annotations
 
@@ -30,7 +39,7 @@ from .moe import MoEParams, init_moe_params, moe_mlp
 from .ssm import (SSMParams, conv_tail, init_ssm_params, init_ssm_state,
                   ssd_decode_step, ssd_forward)
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 RECURRENT_FAMILIES = ("ssm", "hybrid")
 
 
@@ -53,20 +62,28 @@ class MLPParams(nn.Module):
 
 
 class DenseBlock(nn.Module):
-    """One decoder layer: ln1 -> attention -> ln2 -> the SwiGLU MLP
-    (``mlp``, dense family) or the routed experts (``moe``, MoE family;
-    ``mlp`` is then None).  The norm scales stay fp32 (the norm runs in
-    fp32 either way)."""
+    """One decoder layer: ln1 -> attention -> [ln_cross -> cross-attention]
+    -> ln2 -> the SwiGLU MLP (``mlp``) or the routed experts (``moe``, MoE
+    family; ``mlp`` is then None).  ``cross`` / ``ln_cross``: the
+    encoder-decoder's cross-attention projections (no qk-norm), None
+    elsewhere.  The norm scales stay fp32 (the norm runs in fp32 either
+    way)."""
 
     def __init__(self, ln1, attn: AttentionParams, ln2,
                  mlp: MLPParams | None = None, moe: MoEParams | None = None,
-                 *, requires_grad: bool = False):
+                 *, ln_cross=None, cross: AttentionParams | None = None,
+                 requires_grad: bool = False):
         super().__init__()
         if (mlp is None) == (moe is None):
             raise ValueError("a block has either an MLP or experts")
+        if (ln_cross is None) != (cross is None):
+            raise ValueError("cross-attention needs its norm and projections")
         self.ln1 = param(ln1, requires_grad)
         self.ln2 = param(ln2, requires_grad)
         self.attn, self.mlp, self.moe = attn, mlp, moe
+        self.ln_cross = (None if ln_cross is None
+                         else param(ln_cross, requires_grad))
+        self.cross = cross
 
 
 class SSMBlock(nn.Module):
@@ -88,9 +105,11 @@ def check_family(cfg: ModelConfig) -> None:
 
 def init_dense_block(gen: torch.Generator, cfg: ModelConfig,
                      device: torch.device, dtype: torch.dtype,
-                     requires_grad: bool = False) -> DenseBlock:
+                     requires_grad: bool = False, *,
+                     cross: bool = False) -> DenseBlock:
     """The reference's initialisation, drawn from ``gen``: He-scaled normal
-    projections in ``dtype``, zero fp32 norm scales."""
+    projections in ``dtype``, zero fp32 norm scales.  ``cross``: with the
+    encoder-decoder's cross-attention (``ln_cross`` and ``cross``)."""
     dt, rg = dtype, requires_grad
     d, f = cfg.d_model, cfg.d_ff
 
@@ -107,6 +126,12 @@ def init_dense_block(gen: torch.Generator, cfg: ModelConfig,
     else:
         ffn = {"mlp": MLPParams(he((d, f), d), he((d, f), d), he((f, d), f),
                                 requires_grad=rg)}
+    if cross:
+        ffn.update(ln_cross=torch.zeros(d, device=device),
+                   cross=init_attention_params(
+                       gen, d, cfg.num_heads, cfg.num_kv_heads,
+                       cfg.head_dim_, qk_norm=False, dtype=dt,
+                       device=device, requires_grad=rg))
     zeros = torch.zeros(d, device=device)
     return DenseBlock(zeros, attn, zeros.clone(), **ffn, requires_grad=rg)
 
@@ -124,12 +149,14 @@ def init_ssm_block(gen: torch.Generator, cfg: ModelConfig,
 def dense_block(h: torch.Tensor, p: DenseBlock, cfg: ModelConfig, *,
                 positions: torch.Tensor, window: int, kv=None,
                 cache_index=None, causal: bool = True, use_rope: bool = True,
-                page_table: torch.Tensor | None = None):
+                page_table: torch.Tensor | None = None, cross_kv=None):
     """Returns (h, new_kv, aux).  The residual adds ride the
     out-projections' fused epilogues instead of separate elementwise
     passes; an MoE block adds its experts' output to the residual stream
     after them.  ``aux`` is the MoE block's load-balancing loss, None for a
-    dense block."""
+    dense block.  ``cross_kv``: the encoder rows' (K, V) for this block's
+    cross-attention, run after the self-attention (no rope, no qk-norm,
+    non-causal)."""
     cdt = compute_dtype(cfg)
     h, new_kv = attention(
         rms_norm(h, p.ln1), p.attn,
@@ -138,6 +165,12 @@ def dense_block(h: torch.Tensor, p: DenseBlock, cfg: ModelConfig, *,
         causal=causal, qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
         use_rope=use_rope, kv_cache=kv, cache_index=cache_index,
         compute_dtype=cdt, residual=h, page_table=page_table)
+    if cross_kv is not None:
+        h, _ = attention(
+            rms_norm(h, p.ln_cross), p.cross,
+            num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+            head_dim=cfg.head_dim_, positions=positions, cross_kv=cross_kv,
+            compute_dtype=cdt, residual=h)
     x = rms_norm(h, p.ln2)
     if p.moe is not None:
         b, s, d = x.shape
@@ -181,20 +214,22 @@ def _shared_after(cfg: ModelConfig, layer: int) -> int | None:
 
 
 def _remat(fn, cfg: ModelConfig, *args):
-    if cfg.remat == "full":
+    if cfg.remat == "full" and torch.is_grad_enabled():
         return checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)
 
 
 def stack_train(layers: nn.ModuleList, cfg: ModelConfig, h: torch.Tensor,
                 positions: torch.Tensor, *, shared: DenseBlock | None = None,
-                causal: bool = True,
+                cross_kv_stack: list | None = None, causal: bool = True,
                 use_rope: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
-    """Run the stack without caches (training).  -> (h, aux), ``aux`` the
-    MoE load-balancing losses summed over the layers (0 for the other
-    families).  ``shared``: the hybrid's shared attention + MLP block.
-    ``cfg.remat``: "full" recomputes each block in the backward
-    (non-reentrant ``torch.utils.checkpoint``), "none" keeps every
+    """Run the stack without caches (training; the encoder, with
+    ``causal=False``).  -> (h, aux), ``aux`` the MoE load-balancing losses
+    summed over the layers (0 for the other families).  ``shared``: the
+    hybrid's shared attention + MLP block.  ``cross_kv_stack``: one (K, V)
+    of the encoder rows per layer, for the encoder-decoder's
+    cross-attention.  ``cfg.remat``: "full" recomputes each block in the
+    backward (non-reentrant ``torch.utils.checkpoint``), "none" keeps every
     activation."""
     if cfg.remat not in ("full", "none"):
         raise NotImplementedError(
@@ -209,13 +244,15 @@ def stack_train(layers: nn.ModuleList, cfg: ModelConfig, h: torch.Tensor,
             if _shared_after(cfg, layer) is not None:
                 h = _remat(shared_block, cfg, h)
         return h, aux
-    for p, w in zip(layers, cfg.windows()):
-        def block(hh, p=p, w=w):
+    # The encoder takes the first encoder_layers windows, as the reference.
+    for layer, (p, w) in enumerate(zip(layers, cfg.windows())):
+        def block(hh, *ckv, p=p, w=w):
             out, _, a = dense_block(hh, p, cfg, positions=positions,
                                     window=w, causal=causal,
-                                    use_rope=use_rope)
+                                    use_rope=use_rope, cross_kv=ckv or None)
             return out, a
-        h, a = _remat(block, cfg, h)
+        ckv = () if cross_kv_stack is None else cross_kv_stack[layer]
+        h, a = _remat(block, cfg, h, *ckv)
         if a is not None:
             aux = aux + a
     return h, aux
@@ -231,7 +268,9 @@ def stack_cached(layers: nn.ModuleList, cfg: ModelConfig, h: torch.Tensor,
     ``page_table`` (B, max_pages): the cache leaves are paged pools shared
     by every slot (one table for every layer; attention families only).
     ``shared``: the hybrid's shared block, whose K/V go to
-    ``cache["attn_k"][group]``."""
+    ``cache["attn_k"][group]``.  The encoder-decoder's blocks read their
+    cross K / V from ``cache["cross_k"][layer]`` / ``["cross_v"]`` (written
+    by the prefill) and never change them."""
     if cfg.family in RECURRENT_FAMILIES:
         if page_table is not None:
             raise ValueError(f"paged KV unsupported for {cfg.family}")
@@ -250,28 +289,38 @@ def stack_cached(layers: nn.ModuleList, cfg: ModelConfig, h: torch.Tensor,
                     cache_index=cache_index, causal=causal,
                     use_rope=use_rope)
         return h, cache
+    encdec = cfg.family == "encdec"
+    if encdec and page_table is not None:
+        raise ValueError("paged KV unsupported for encdec")
     for layer, (p, w) in enumerate(zip(layers, cfg.windows())):
         h, _, _ = dense_block(
             h, p, cfg, positions=positions, window=w,
             kv=(cache["k"][layer], cache["v"][layer]),
             cache_index=cache_index, causal=causal, use_rope=use_rope,
-            page_table=page_table)
+            page_table=page_table,
+            cross_kv=((cache["cross_k"][layer], cache["cross_v"][layer])
+                      if encdec else None))
     return h, cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: torch.device, dtype: torch.dtype | None = None) -> dict:
-    """Zero caches with the reference's keys: k / v (dense, moe); h / conv
-    (ssm); ssm_h / ssm_conv and the shared block's attn_k / attn_v, one
-    per group (hybrid).  The SSM state h is fp32."""
+    """Zero caches with the reference's keys: k / v (dense, moe, vlm;
+    encdec adds cross_k / cross_v of the ``encoder_seq`` encoder rows); h /
+    conv (ssm); ssm_h / ssm_conv and the shared block's attn_k / attn_v,
+    one per group (hybrid).  The SSM state h is fp32."""
     check_family(cfg)
     dtype = dtype or compute_dtype(cfg)
     kv = (batch, max_len, cfg.num_kv_heads, cfg.head_dim_)
     if cfg.family not in RECURRENT_FAMILIES:
-        return {"k": torch.zeros((cfg.num_layers,) + kv, dtype=dtype,
-                                 device=device),
-                "v": torch.zeros((cfg.num_layers,) + kv, dtype=dtype,
-                                 device=device)}
+        layers = (cfg.num_layers,)
+        cache = {"k": torch.zeros(layers + kv, dtype=dtype, device=device),
+                 "v": torch.zeros(layers + kv, dtype=dtype, device=device)}
+        if cfg.family == "encdec":
+            cross = layers + (batch, cfg.encoder_seq) + kv[2:]
+            cache["cross_k"] = torch.zeros(cross, dtype=dtype, device=device)
+            cache["cross_v"] = torch.zeros(cross, dtype=dtype, device=device)
+        return cache
     st = init_ssm_state(batch, cfg.d_model, cfg.ssm_state, dtype=dtype,
                         device=device)
     h, conv = (t.new_zeros((cfg.num_layers,) + t.shape)

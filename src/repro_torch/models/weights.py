@@ -24,16 +24,23 @@ The SSM family's layers are Mamba2 blocks,
              "dt_bias": (L, H), "norm": (L, Di), "out_proj": (L, Di, D)}}
 
 and the hybrid adds ``shared_attn``, one dense block's dict without the
-(L,) axis.
+(L,) axis.  The encoder-decoder's decoder layers add the cross-attention,
+
+    {"ln_cross": (L, D), "cross": {"wq", "wk", "wv", "wo"}}   (no qk-norm)
+
+and the model adds ``encoder`` (dense layers stacked on (L_enc,)),
+``enc_norm`` (D,) and ``frame_proj`` (D, D); the vision-language model adds
+``patch_proj`` (D, D).
 
 Projection weights, the conv taps and the embedding table come in the
 config's compute dtype for serving; with a ``dtype`` they are training
 masters in that dtype that require grad (cast at use, as in the
-reference).  Norm scales and the SSM's A_log / D_skip / dt_bias stay
-fp32.  ``to_numpy_tree`` is the inverse: tensors keyed by the
-model's parameter names (its parameters, ``to_numpy_params``, or the
-optimizer's moments) back to the tree, so tests and checkpoints compare
-leaf by leaf with the reference; ``load_numpy_tree`` copies a tree back
+reference).  Norm scales (``enc_norm`` and ``ln_cross`` too) and the
+SSM's A_log / D_skip / dt_bias stay fp32.  ``to_numpy_tree`` is the
+inverse: tensors keyed by the model's parameter names (its parameters,
+``to_numpy_params``, or the optimizer's moments) back to the tree, so
+tests and checkpoints compare leaf by leaf with the reference;
+``load_numpy_tree`` copies a tree back
 into such tensors.
 """
 from __future__ import annotations
@@ -62,22 +69,26 @@ def from_numpy_params(tree: dict, cfg: ModelConfig,
     def t(x, dtype):
         return torch.tensor(np.asarray(x, np.float32)).to(device, dtype)
 
+    def attention(a: dict, pick, qk_norm: bool) -> AttentionParams:
+        norms = ({"q_norm": t(pick(a["q_norm"]), f32),
+                  "k_norm": t(pick(a["k_norm"]), f32)} if qk_norm else {})
+        return AttentionParams(*(t(pick(a[n]), cdt)
+                                 for n in ("wq", "wk", "wv", "wo")),
+                               **norms, requires_grad=rg)
+
     def dense_block(node: dict, pick) -> DenseBlock:
         """A DenseBlock from ``node``, each leaf taken through ``pick``
         (one layer of a stacked leaf, or the leaf itself)."""
-        a = node["attn"]
-        norms = ({"q_norm": t(pick(a["q_norm"]), f32),
-                  "k_norm": t(pick(a["k_norm"]), f32)}
-                 if cfg.qk_norm else {})
-        attn = AttentionParams(*(t(pick(a[n]), cdt)
-                                 for n in ("wq", "wk", "wv", "wo")),
-                               **norms, requires_grad=rg)
+        attn = attention(node["attn"], pick, cfg.qk_norm)
+        ffn = ({"ln_cross": t(pick(node["ln_cross"]), f32),
+                "cross": attention(node["cross"], pick, False)}
+               if "cross" in node else {})
         if "moe" in node:
-            ffn = {"moe": MoEParams(*(t(pick(node["moe"][n]), cdt) for n in (
-                "router", "w_gate", "w_up", "w_down")), requires_grad=rg)}
+            ffn["moe"] = MoEParams(*(t(pick(node["moe"][n]), cdt) for n in (
+                "router", "w_gate", "w_up", "w_down")), requires_grad=rg)
         else:
-            ffn = {"mlp": MLPParams(*(t(pick(node["mlp"][n]), cdt) for n in (
-                "w_gate", "w_up", "w_down")), requires_grad=rg)}
+            ffn["mlp"] = MLPParams(*(t(pick(node["mlp"][n]), cdt) for n in (
+                "w_gate", "w_up", "w_down")), requires_grad=rg)
         return DenseBlock(t(pick(node["ln1"]), f32), attn,
                           t(pick(node["ln2"]), f32), **ffn, requires_grad=rg)
 
@@ -97,18 +108,27 @@ def from_numpy_params(tree: dict, cfg: ModelConfig,
     else:
         blocks = [dense_block(tree["layers"], lambda x, i=i: x[i])
                   for i in range(cfg.num_layers)]
-    shared = (dense_block(tree["shared_attn"], lambda x: x)
-              if cfg.family == "hybrid" else None)
+    extra = {}
+    if cfg.family == "hybrid":
+        extra["shared_attn"] = dense_block(tree["shared_attn"], lambda x: x)
+    if cfg.family == "encdec":
+        extra["encoder"] = [dense_block(tree["encoder"], lambda x, i=i: x[i])
+                            for i in range(cfg.encoder_layers)]
+        extra["enc_norm"] = t(tree["enc_norm"], f32)
+    for name in ("frame_proj", "patch_proj"):
+        if name in tree:
+            extra[name] = t(tree[name], cdt)
     return DenseLM(t(tree["embed"], cdt), t(tree["final_norm"], f32), blocks,
-                   shared_attn=shared, requires_grad=rg)
+                   requires_grad=rg, **extra)
 
 
 def _tree_path(name: str) -> tuple[tuple[str, ...], int | None]:
-    """A parameter name of the port (``layers.3.attn.wq``) -> its path in
-    the reference tree (``("layers", "attn", "wq")``) and layer index."""
+    """A parameter name of the port (``layers.3.attn.wq``,
+    ``encoder.1.mlp.w_up``) -> its path in the reference tree (``("layers",
+    "attn", "wq")``) and layer index."""
     parts = name.split(".")
-    if parts[0] == "layers":
-        return ("layers", *parts[2:]), int(parts[1])
+    if parts[0] in ("layers", "encoder"):
+        return (parts[0], *parts[2:]), int(parts[1])
     return tuple(parts), None
 
 

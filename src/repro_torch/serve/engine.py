@@ -3,19 +3,26 @@ CMR-priced admission control, over the prefill and decode of the ported
 families (``models.transformer.PORTED_FAMILIES``).
 
 The engine owns B decode slots.  For the attention-cache families (dense,
-moe) the KV lives in a paged pool (``serve.kv_pages``): each request owns
-just the pages its depth needs, taken from a free-list allocator as decode
-crosses page boundaries, and a (B, max_pages) page table routes the fused
-``decode_step``.  Prompts are admitted through length-bucketed batch
+moe, vlm) the KV lives in a paged pool (``serve.kv_pages``): each request
+owns just the pages its depth needs, taken from a free-list allocator as
+decode crosses page boundaries, and a (B, max_pages) page table routes the
+fused ``decode_step``.  Prompts are admitted through length-bucketed batch
 prefill (``serve.buckets`` / ``prefill_bucket``), right-padding exact by
 causality; a prompt beyond the ladder takes the exact-length prefill rung.
 
-The recurrent families (ssm, hybrid) keep the dense-slot rung
-(``paged=False``; a dense model may take it too): one (L, B, ...) cache
-of every slot, an exact-length prefill of each prompt into a one-slot
-cache whose every leaf is then copied into the slot's region, since pad
-tokens would run through the recurrent state.  That rung has no pages, no
-buckets and no cost model: ``submit`` rejects nothing.
+The recurrent families (ssm, hybrid) and the encoder-decoder (encdec)
+keep the dense-slot rung (``paged=False``; a dense model may take it
+too): one (L, B, ...) cache of every slot, an exact-length prefill of each
+prompt into a one-slot cache whose every leaf is then copied into the
+slot's region, since pad tokens would run through the recurrent state
+(encdec: the slot's cross K / V come with it).  That rung has no pages,
+no buckets and no cost model: ``submit`` rejects nothing.
+
+The stub frontends' inputs are zeros, as in the reference: ``frames``
+(encdec) and ``patch_embeds`` (vlm).  A vlm request's depth counts its
+``num_patches`` patch rows (``self.extra``) in front of its tokens: in the
+pool's size, the pages admission takes, the slot's position and the
+decode stop at ``max_len - 1 + extra``.
 
 One fused ``decode_step`` advances every slot one token per tick with
 per-slot positions, so slots at different depths write and mask at their
@@ -61,7 +68,7 @@ from ..models.transformer import check_family
 from .buckets import CostModel, bucket_for, make_buckets
 from .kv_pages import PageAllocator, PagedKV, PagesExhausted, pages_for
 
-PAGED_FAMILIES = ("dense", "moe")    # the attention-cache families
+PAGED_FAMILIES = ("dense", "moe", "vlm")    # the attention-cache families
 
 
 class Overloaded(RuntimeError):
@@ -143,8 +150,8 @@ class ServeEngine:
                  device: str | torch.device | None = None,
                  paged: bool | None = None):
         """``paged``: the paged KV pool and bucketed prefill (default for
-        dense and moe), or the dense-slot rung (False; the only one of ssm
-        and hybrid)."""
+        dense, moe and vlm), or the dense-slot rung (False; the only one of
+        ssm, hybrid and encdec)."""
         check_family(cfg)
         self.device = resolve_device(device)
         if module_device(params) != self.device:
@@ -154,6 +161,7 @@ class ServeEngine:
         self.params = params
         self.b = batch_slots
         self.max_len = max_len
+        self.extra = cfg.num_patches or 0
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         self.pos = np.zeros(batch_slots, np.int32)       # filled length/slot
         self.active: list[Request | None] = [None] * batch_slots
@@ -167,12 +175,14 @@ class ServeEngine:
             raise ValueError(f"paged KV unsupported for {cfg.family}")
         if self.paged:
             self.page_size = page_size
+            depth_cap = max_len + self.extra
             self.num_pages = (num_pages if num_pages is not None
-                              else batch_slots * pages_for(max_len, page_size))
+                              else batch_slots * pages_for(depth_cap,
+                                                           page_size))
             self.alloc = PageAllocator(self.num_pages, first=1)
             # The pool holds the reserved null page 0 in front of the
             # allocatable ids [1, num_pages].
-            self.kv = PagedKV.build(cfg, slots=batch_slots, max_len=max_len,
+            self.kv = PagedKV.build(cfg, slots=batch_slots, max_len=depth_cap,
                                     num_pages=self.num_pages + 1,
                                     page_size=page_size, device=self.device)
             self.cache = None
@@ -215,7 +225,7 @@ class ServeEngine:
         if self.paged:
             # Depth is also capped by max_len (decode stops there).
             worst = pages_for(min(len(req.prompt) + req.max_new_tokens,
-                                  self.max_len), self.page_size)
+                                  self.max_len) + self.extra, self.page_size)
             if worst > self.alloc.total:
                 self.faults["admission_rejected"] += 1
                 raise Overloaded(f"request needs {worst} KV pages, pool "
@@ -250,9 +260,19 @@ class ServeEngine:
         return (pre_backlog + (ahead / self.b) * step + own_pre
                 + req.max_new_tokens * step)
 
-    def _tokens(self, toks: np.ndarray) -> dict:
-        return {"tokens": torch.as_tensor(toks, dtype=torch.long).to(
+    def _frontend_batch(self, toks: np.ndarray) -> dict:
+        """The model's batch for (B, S) prompt tokens: the tokens and the
+        stub frontends' zero inputs, on the engine's device."""
+        batch = {"tokens": torch.as_tensor(toks, dtype=torch.long).to(
             self.device)}
+        cfg, bsz = self.cfg, toks.shape[0]
+        if cfg.family == "encdec":
+            batch["frames"] = torch.zeros(
+                (bsz, cfg.encoder_seq, cfg.d_model), device=self.device)
+        if cfg.num_patches:
+            batch["patch_embeds"] = torch.zeros(
+                (bsz, cfg.num_patches, cfg.d_model), device=self.device)
+        return batch
 
     def _sample(self, logits: torch.Tensor, req: Request) -> int:
         """One token from a (1, V) logits row."""
@@ -371,12 +391,13 @@ class ServeEngine:
     def _prefill_exact(self, req: Request, toks: np.ndarray,
                        rows: int) -> tuple[int, dict, float]:
         """Exact-length prefill of ``toks`` into a one-slot cache of
-        ``rows`` rows and one sampled token; the wall is recorded.  ->
-        (token, cache, wall seconds)."""
+        ``rows`` rows (and the patch rows) and one sampled token; the wall
+        is recorded.  -> (token, cache, wall seconds)."""
         one_cache = make_cache(self.cfg, 1, rows, device=self.device)
         t0 = time.monotonic()
         logits, one_cache = prefill(self.params, self.cfg,
-                                    self._tokens(toks[None, :]), one_cache)
+                                    self._frontend_batch(toks[None, :]),
+                                    one_cache)
         tok = self._sample(logits, req)                 # syncs
         wall = time.monotonic() - t0
         self.walls["prefill"].append((None, wall))
@@ -386,12 +407,12 @@ class ServeEngine:
                      toks: np.ndarray) -> bool:
         """Bucket-miss rung: exact-length prefill, then page-insert.
         False = pool pressure, stop admitting this tick."""
-        depth = len(toks)
+        depth = len(toks) + self.extra
         pages = self._alloc_pages(req, pages_for(depth + 1, self.page_size))
         if pages is None:
             self.queue.insert(0, req)
             return False
-        tok, one_cache, wall = self._prefill_exact(req, toks, depth)
+        tok, one_cache, wall = self._prefill_exact(req, toks, len(toks))
         key = ("exact", depth)
         if key in self._timed_buckets:
             self.cost.observe_prefill(self.buckets[-1], wall)
@@ -411,7 +432,7 @@ class ServeEngine:
         for name, leaf in self.cache.items():
             leaf[:, slot].copy_(one_cache[name][:, 0])
         self._emit(req, tok)
-        self._occupy(slot, req, len(toks))
+        self._occupy(slot, req, len(toks) + self.extra)
 
     def _admit_bucket(self, free: list[int],
                       batch: list[tuple[Request, np.ndarray]],
@@ -425,7 +446,7 @@ class ServeEngine:
         blocked = False
         for (req, toks) in batch:
             pages = self._alloc_pages(
-                req, pages_for(len(toks) + 1, self.page_size))
+                req, pages_for(len(toks) + self.extra + 1, self.page_size))
             if pages is None:
                 self.queue.insert(0, req)
                 blocked = True
@@ -441,7 +462,7 @@ class ServeEngine:
         cache = make_cache(self.cfg, self.b, bkt, device=self.device)
         t0 = time.monotonic()
         logits, cache = prefill_bucket(self.params, self.cfg,
-                                       self._tokens(toks_pad), cache,
+                                       self._frontend_batch(toks_pad), cache,
                                        torch.as_tensor(lens))
         _sync(self.device)                   # the wall we observe
         wall = time.monotonic() - t0
@@ -450,7 +471,7 @@ class ServeEngine:
             self.cost.observe_prefill(bkt, wall)
         self._timed_buckets.add(bkt)
         for j, (slot, req, toks, pages) in enumerate(rows):
-            depth = len(toks)
+            depth = len(toks) + self.extra
             self.kv.insert(slot, pages, cache["k"][:, j, :depth],
                            cache["v"][:, j, :depth])
             self._emit(req, self._sample(logits[j:j + 1], req))
@@ -591,7 +612,8 @@ class ServeEngine:
                         if self.paged else (self.cache, None))
         t0 = time.monotonic()
         logits, _ = decode_step(
-            self.params, self.cfg, self._tokens(last)["tokens"], cache,
+            self.params, self.cfg,
+            torch.as_tensor(last, dtype=torch.long).to(self.device), cache,
             torch.as_tensor(self.pos, dtype=torch.long), page_table=table)
         finite = torch.isfinite(logits).all(dim=-1).tolist()   # syncs
         wall = time.monotonic() - t0
@@ -616,7 +638,7 @@ class ServeEngine:
                 self._emit(r, self._sample(logits[i:i + 1], r))
                 self.pos[i] += 1
             if (len(r.out_tokens) >= r.max_new_tokens
-                    or self.pos[i] >= self.max_len - 1):
+                    or self.pos[i] >= self.max_len - 1 + self.extra):
                 r.done = True
                 self._release_slot(i, r)
             else:

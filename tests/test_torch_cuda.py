@@ -1403,3 +1403,32 @@ def test_recurrent_models_on_the_card_match_the_cpu(dev, arch, layers):
     for key, want in out["cpu"][1].items():
         _close(out["cuda"][1][key], want)
     assert out["cuda"][2] == out["cpu"][2]
+
+
+# --------- the stub-frontend families: whisper-base and llava-next-34b -------
+
+def test_family_shapes_against_plain_and_decode_on_the_stream(dev):
+    """Every [families] shape of chip_smoke.py (whisper's and llava's decode
+    projections, unembeds, pairs and fp32 attention; the encoder, cross K /
+    V and patch-projection prefills) against its plain version, and each
+    bf16 4-row decode call on the stream body through dispatch."""
+    cs = _chip_smoke()
+    cases = cs.family_path_cases()
+    cs.check(cases, dev)
+    cs.check_decode_bodies(cases, dev)
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "llava-next-34b"])
+def test_family_smoke_models_on_the_card_match_the_cpu(dev, arch):
+    """fp32 smoke whisper / llava with seeded frames / patches: prefill
+    logits card against CPU within 1e-4 and the engines' greedy tokens
+    equal (whisper on the dense-slot rung, llava on the paged one)."""
+    _chip_smoke().small_reference(dev, arch)
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "llava-next-34b",
+                                  "mamba2-370m", "zamba2-7b"])
+def test_family_smoke_gradients_on_the_card_match_the_cpu(dev, arch):
+    """fp32 smoke (zamba2 at 5 layers), one forward / backward: the loss
+    and every gradient leaf, card against CPU, within 1e-4."""
+    _chip_smoke().train_reference_smoke(arch, dev)

@@ -229,4 +229,4 @@ def test_init_params_without_a_device_needs_a_card(monkeypatch):
 
 def test_unported_arch_raises():
     with pytest.raises(KeyError, match="not ported yet"):
-        get_config("whisper-base-smoke")
+        get_config("gemma3-4b-smoke")
