@@ -118,6 +118,24 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    the decode median, the prefill walls (whisper's with its encoder),
    peak memory, launches a step and ``profile_decode``'s device busy,
    idle share and device time by kernel group;
+7a. [archs] gemma3-4b (34 layers, 8/4 heads of 256, qk-norm, five layers
+   of window 1024 to one global, a 262,144-row tied unembed), minitron-4b
+   (32 layers, a 256,000-row unembed) and qwen3-8b (36 layers, d 4096,
+   d_ff 12288): their decode shapes against the plain versions (gemma3's
+   fp32 QK^T / PV at head_dim 256 over the 1,120-row paged view, the
+   unembeds ``nt`` to fp32 at 4 rows, the three pairs); an fp32
+   reference each, card against CPU, through a page table (gemma3 at 6
+   layers over a 1,100-token prompt, the others at 2 layers over 64
+   tokens, then 4 paged decode steps: logits and pools within 1e-3); then
+   each served at full width and depth in bf16 on the paged rung, one at
+   a time: [serve]'s 6 requests, and for gemma3 two more of 1,100 tokens
+   (8 new tokens each; their windowed layers drop rows).  Every kernel of
+   the path must launch, with no fault, the pool must drain; a decode step
+   launches ftimm_gemm 5 x layers + 1 times on the stream, the pair once
+   and the fp32 attention twice a layer on the FMA body.  Prints the decode
+   median, the prefill walls, peak memory, launches a step and
+   ``profile_decode``'s device busy, idle share and device time by kernel
+   group;
 8. [train-reference] training in fp32, card against CPU, same weights and
    batches: qwen3-1.7b at full width and 2 layers, 2 AdamW steps of batch 2
    x seq 32 (the loss of each step and every step-1 gradient leaf within
@@ -163,6 +181,12 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    (with this 1-step warmup they spike at full width, in fp32 as in bf16);
    the gates are that bf16 and fp32 give the same step-1 loss within 1e-2
    and the same step-2 loss within 5e-2;
+11a. [train-dots] qwen3-1.7b at 28 layers, 3 AdamW steps of 8 x 128 with
+   remat "full" and "dots" from the same seed and batches (PyTorch's own
+   ops in their deterministic algorithms): the losses and every gradient
+   leaf of every step bitwise equal, and each step's launches lower under
+   "dots" by exactly 5 ftimm_gemm and one ftimm_gemm_swiglu a layer (the
+   forward products it keeps); both peak memories and step medians;
 12. [autotune] the measured plan store on qwen3-1.7b at full width: every
    GEMM signature its main path plans (recorded at the dispatch layer
    while it serves the 6 requests -- decode at 4 rows, the 128- and
@@ -215,6 +239,21 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    ``torch._scaled_mm`` where their shape and type rules allow,
    dequantize + ``torch.matmul`` / ``torch._grouped_mm`` (two calls) for
    w8;
+13a. [chaos] the chaos sites (``repro_torch.runtime.chaos``) on
+   qwen3-1.7b at full width and 4 layers, paged rung, bf16:
+   ``kernel_fused`` armed on one decode step's o / down + residual
+   projections, on its gate/up pairs and on all of them (the degraded
+   counter rises by the faults armed, the step's logits within 2e-2 of the
+   clean step's, the unfused spellings on the kernels: the identity
+   ftimm_gemm, two ftimm_gemm for a pair, no plain version); ``kernel``
+   on a CUDA tensor raises KernelLaunchFailure with no launch and no plain
+   version; [serve]'s 6 requests clean and under ``transient_decode@1x2``
+   (tokens bit-identical, 2 retries), ``nan_logits`` and
+   ``page_exhaustion`` (the re-prefilled request's in-vocabulary tokens,
+   its re-prefill logits and its next step's within 2e-2 of the clean
+   run's, the pool drained) and ``bucket_miss`` (one exact prefill within
+   2e-2 of the bucketed one); ``plan_save_crash`` leaves the store on disk
+   intact.  Every other phase must end with no degraded serving;
 14. [time] each kernel at the decode-step shapes of the model it serves, and
    the two backward kernels at the training shapes (split-K on its
    tensor-core and FMA bodies), and ftimm_gemm at qwen3-1.7b's training
@@ -256,6 +295,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -286,6 +326,7 @@ from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models.ssm import ssm_dims  # noqa: E402
 from repro_torch.models.weights import to_numpy_tree  # noqa: E402
 from repro_torch.optim import OptConfig, init_opt_state  # noqa: E402
+from repro_torch.runtime import chaos  # noqa: E402
 from repro_torch.serve import engine as E  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.train import Trainer, make_train_step  # noqa: E402
@@ -310,6 +351,8 @@ REPLACES = {"ftimm_gemm": f"{_TPU}:202",
 ARCH, MIXTRAL, LLAMA4 = "qwen3-1.7b", "mixtral-8x7b", "llama4-scout-17b-a16e"
 MAMBA, ZAMBA = "mamba2-370m", "zamba2-7b"
 WHISPER, LLAVA = "whisper-base", "llava-next-34b"
+GEMMA, MINITRON, QWEN8 = "gemma3-4b", "minitron-4b", "qwen3-8b"
+NEW_ARCHS = (GEMMA, MINITRON, QWEN8)    # [archs], full width and depth
 RECURRENT = (MAMBA, ZAMBA)      # served at full width and depth
 FRONTENDS = (WHISPER, LLAVA)    # the stub-frontend families ([families])
 MOE_LAYERS = 8          # served depth of the MoE models (width as published)
@@ -333,6 +376,8 @@ PATH_KERNELS = {
                          "ftimm_gemm_grouped"),
     ("serve", LLAVA): ("ftimm_gemm", "ftimm_gemm_swiglu",
                        "ftimm_gemm_grouped"),
+    **{("serve", a): ("ftimm_gemm", "ftimm_gemm_swiglu", "ftimm_gemm_grouped")
+       for a in NEW_ARCHS},
     ("train", ARCH): ("ftimm_gemm", "ftimm_gemm_swiglu", "ftimm_gemm_grouped"),
     ("train", LLAMA4): ("ftimm_gemm", "ftimm_gemm_grouped",
                         "ftimm_gemm_ragged", "ftimm_gemm_ragged_swiglu",
@@ -388,6 +433,17 @@ REC_REF_TOL = 1e-3
 # [recurrent]'s.
 FAM_LAYERS = {WHISPER: None, LLAVA: 16}
 FAM_REF_LAYERS = {WHISPER: None, LLAVA: 1}   # the fp32 references
+# [archs]: gemma3-4b, minitron-4b and qwen3-8b served at full width and
+# depth on the paged rung; gemma3 also takes two requests of LONG_PROMPT
+# tokens (LONG_NEW new tokens each), so its five windowed layers of six
+# (window 1024) drop rows in decode.  The fp32 references, card against
+# CPU: (layers, prompt tokens), then ARCH_REF_STEPS paged decode steps.
+LONG_PROMPT, LONG_NEW = 1100, 8
+ARCH_MAX_LEN = {GEMMA: 1120, MINITRON: MAX_LEN, QWEN8: MAX_LEN}
+ARCH_REF = {GEMMA: (6, LONG_PROMPT), MINITRON: (2, 64), QWEN8: (2, 64)}
+ARCH_REF_STEPS = 4
+CHAOS_LAYERS = 4        # [chaos]: qwen3-1.7b at full width, 4 layers
+DOTS_STEPS = 3          # [train-dots]: qwen3-1.7b, remat "full" vs "dots"
 
 
 def log(*args) -> None:
@@ -399,7 +455,7 @@ def depth(phase: str, arch: str) -> int:
         return TRAIN_LAYERS[arch] or get_config(arch).num_layers
     if arch in FRONTENDS:
         return FAM_LAYERS[arch] or get_config(arch).num_layers
-    full = arch in (ARCH,) + RECURRENT
+    full = arch in (ARCH,) + RECURRENT + NEW_ARCHS
     return get_config(arch).num_layers if full else MOE_LAYERS
 
 
@@ -3657,6 +3713,681 @@ def quant_phase(dev) -> tuple[dict, dict[str, float], list[dict]]:
 
 # What each SwiGLU pair's yardstick_ms times: no one PyTorch call computes
 # the pair.
+# ---------------------------------------------------------------------------
+# [archs]: the last three dense architectures
+# ---------------------------------------------------------------------------
+
+def arch_path_cases(arch: str) -> list[Case]:
+    """Every GEMM shape of one decode step of ``arch`` at SLOTS slots on
+    the paged rung (with its launch count at full depth), the attention
+    over the served page view: q, k / v, o and down with the residual, the
+    tied unembed ``nt`` to fp32 (gemma3's 262,144 rows, minitron's 256,000),
+    the gate/up pair, and the fp32 QK^T / PV (gemma3 at head_dim 256)."""
+    cfg = get_config(arch)
+    d, f, v, n_layers = cfg.d_model, cfg.d_ff, cfg.vocab_padded, cfg.num_layers
+    hq, hkv = cfg.num_heads * cfg.head_dim_, cfg.num_kv_heads * cfg.head_dim_
+    hd, groups = cfg.head_dim_, SLOTS * cfg.num_kv_heads
+    qpg = cfg.num_heads // cfg.num_kv_heads
+    view = E.pages_for(ARCH_MAX_LEN[arch], PAGE) * PAGE
+    return [
+        dense_case(f"{arch} decode q", SLOTS, d, hq, per_step=n_layers,
+                   model=arch),
+        dense_case(f"{arch} decode k/v", SLOTS, d, hkv,
+                   per_step=2 * n_layers, model=arch),
+        dense_case(f"{arch} decode o+res", SLOTS, hq, d, residual=True,
+                   per_step=n_layers, model=arch),
+        dense_case(f"{arch} decode down+res", SLOTS, f, d, residual=True,
+                   per_step=n_layers, model=arch),
+        dense_case(f"{arch} decode unembed", SLOTS, d, v, trans="nt",
+                   out=FP32, per_step=1, model=arch),
+        swiglu_case(f"{arch} decode gate/up", SLOTS, d, f,
+                    per_step=n_layers, model=arch),
+        grouped_case(f"{arch} decode qk^T hd {hd}", groups, qpg, hd, view,
+                     trans="nt", per_step=n_layers, model=arch),
+        grouped_case(f"{arch} decode pv hd {hd}", groups, qpg, view, hd,
+                     per_step=n_layers, model=arch),
+    ]
+
+
+def arch_reference(arch: str, dev) -> dict:
+    """``arch`` in fp32 at full width and ARCH_REF layers, card against
+    CPU, same weights: a prefill of one seeded prompt, its rows inserted
+    into a page pool (pages in reverse order), then ARCH_REF_STEPS decode
+    steps through the page table.  The logits of every step and both page
+    pools must agree within REC_REF_TOL normwise.  gemma3 runs 6 layers
+    (five with the 1024 window, one global) over a 1,100-token prompt, so
+    its windowed layers drop rows in decode."""
+    layers, prompt_len = ARCH_REF[arch]
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                              compute_dtype="float32")
+    t0 = time.monotonic()
+    gpu_model = M.init_params(cfg, 0, device=dev)
+    cpu_model = copy.deepcopy(gpu_model).to(CPU)
+    rng = np.random.default_rng(11)
+    prompt = rng.integers(2, cfg.vocab_size, (1, prompt_len))
+    nxt = rng.integers(2, cfg.vocab_size, (1, ARCH_REF_STEPS))
+    cap = prompt_len + ARCH_REF_STEPS
+    n_pages = E.pages_for(cap, PAGE)
+    pages = list(range(n_pages, 0, -1))
+    runs = {}
+    for name, model, device in (("gpu", gpu_model, dev),
+                                ("cpu", cpu_model, CPU)):
+        t1 = time.monotonic()
+        one = M.make_cache(cfg, 1, prompt_len, device=device)
+        logits, one = M.prefill(
+            model, cfg, {"tokens": torch.as_tensor(prompt).to(device)}, one)
+        kv = E.PagedKV.build(cfg, slots=1, max_len=cap,
+                             num_pages=n_pages + 1, page_size=PAGE,
+                             device=device)
+        have = E.pages_for(prompt_len, PAGE)
+        kv.insert(0, pages[:have], one["k"][:, 0], one["v"][:, 0])
+        del one
+        out = [logits]
+        for step in range(ARCH_REF_STEPS):
+            pos = prompt_len + step
+            need = E.pages_for(pos + 1, PAGE)
+            if need > have:
+                kv.extend_slot(0, pages[have:need], have)
+                have = need
+            logits, _ = M.decode_step(
+                model, cfg, torch.as_tensor(nxt[:, step:step + 1]).to(device),
+                kv.cache(), torch.as_tensor([pos]),
+                page_table=kv.device_table())
+            out.append(logits)
+        runs[name] = ([t[:, :cfg.vocab_size].cpu() for t in out],
+                      {k: t.cpu() for k, t in kv.cache().items()},
+                      time.monotonic() - t1)
+        del kv
+    del gpu_model, cpu_model
+    free_card()
+    (g_out, g_pool, g_s), (c_out, c_pool, c_s) = runs["gpu"], runs["cpu"]
+    logits_rel = [rel_err(a, b)[0] for a, b in zip(g_out, c_out)]
+    pool_rel = {k: rel_err(g_pool[k], c_pool[k])[0] for k in g_pool}
+    worst = max(*logits_rel, *pool_rel.values())
+    log(f"  {arch} fp32, {layers} layers (windows "
+        f"{cfg.windows()}), full width, a {prompt_len}-token prompt and "
+        f"{ARCH_REF_STEPS} paged decode steps: logits normwise by step "
+        + ", ".join(f"{x:.2e}" for x in logits_rel) + "; pools "
+        + ", ".join(f"{k} {x:.2e}" for k, x in pool_rel.items())
+        + f" (card {g_s:.1f} s, CPU {c_s:.1f} s, "
+        f"{time.monotonic() - t0:.1f} s in all)")
+    if worst > REC_REF_TOL:
+        raise AssertionError(f"{arch} fp32 paged reference: normwise "
+                             f"{worst:.3g} > {REC_REF_TOL}")
+    return {"layers": layers, "prompt_len": prompt_len,
+            "windows": list(cfg.windows()),
+            "logits_normwise_by_step": logits_rel, "pool_normwise": pool_rel}
+
+
+def serve_arch(arch: str, dev) -> tuple[dict, dict, dict]:
+    """Serve ``arch`` at full width and depth, bf16, random weights from
+    seed 0, on the paged rung through ServeEngine: PROMPT_LENS's 6
+    requests of NEW_TOKENS, and for gemma3 two more of LONG_PROMPT tokens
+    and LONG_NEW new tokens each (their history passes the 1024 window).
+    Every request must finish with in-vocabulary tokens and no fault, every
+    kernel of the path launch, the pages drain; a decode step launches
+    ftimm_gemm 5 x layers + 1 times (all on the stream body), the pair
+    once and the two fp32 attention products twice a layer (FMA body).
+    Returns (stats, the launch counts of just this run, its body counts)."""
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    model = M.init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    params = sum(p.numel() for p in model.parameters())
+    log(f"  {arch}: {cfg.num_layers} layers, d {cfg.d_model}, heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} of {cfg.head_dim_}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, qk_norm {cfg.qk_norm}, windows "
+        f"{cfg.window_pattern}; init {time.monotonic() - t0:.1f} s, "
+        f"{params / 1e9:.3f} B params")
+    engine = ServeEngine(cfg, model, batch_slots=SLOTS,
+                         max_len=ARCH_MAX_LEN[arch], page_size=PAGE,
+                         device=dev)
+    rng = np.random.default_rng(0)
+    lens = list(PROMPT_LENS) + ([LONG_PROMPT] * 2 if arch == GEMMA else [])
+    news = [NEW_TOKENS] * len(PROMPT_LENS) + [LONG_NEW] * (len(lens)
+                                                           - len(PROMPT_LENS))
+    reqs = [Request(rid=i, max_new_tokens=m, prompt=rng.integers(
+        2, cfg.vocab_size, n).astype(np.int32))
+        for i, (n, m) in enumerate(zip(lens, news))]
+    K.reset_launch_counts()
+    t0 = time.monotonic()
+    engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches, bodies = K.launch_counts(), K.body_counts()
+    decode = list(engine.walls["decode"])
+    prefill = [[b, s * 1e3] for b, s in engine.walls["prefill"]]
+    for r in reqs:
+        if not r.done or r.timed_out or len(r.out_tokens) != r.max_new_tokens:
+            raise AssertionError(f"{arch} request {r.rid} did not finish: "
+                                 f"{len(r.out_tokens)} tokens")
+        if not all(0 <= t < cfg.vocab_size for t in r.out_tokens):
+            raise AssertionError(f"{arch} request {r.rid}: token out of "
+                                 "range")
+    if any(engine.faults.values()):
+        raise AssertionError(f"{arch} engine faults: {engine.faults}")
+    missing = [k for k in PATH_KERNELS[("serve", arch)] if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{arch}: {missing} never launched: {launches}")
+    engine.alloc.check()
+    if engine.alloc.available != engine.alloc.total:
+        raise AssertionError(f"{arch}: the page pool did not drain")
+    deepest = max(len(r.prompt) + len(r.out_tokens) - 1 for r in reqs)
+    per_step = decode_launches(engine, dev)
+    step_bodies = {k: {b: n for b, n in v.items() if n}
+                   for k, v in K.body_counts().items() if any(v.values())}
+    if set(step_bodies["ftimm_gemm"]) != {"stream"} or set(
+            step_bodies["ftimm_gemm_grouped"]) != {"fma"}:
+        raise AssertionError(f"{arch}: a decode step's bodies {step_bodies}")
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    view = engine.kv.table.shape[1] * PAGE
+    del engine
+    free_card()
+    prof = profile_decode(cfg, model, slots=SLOTS, prompt_len=24, warm=3,
+                          steps=5, device=dev)
+    prof.pop("top_kernels")
+    tokens = sum(len(r.out_tokens) for r in reqs)
+    stats = {"layers": cfg.num_layers, "params_b": params / 1e9,
+             "requests": len(reqs), "prompt_lens": lens, "tokens": tokens,
+             "wall_s": wall, "tokens_per_s": tokens / wall,
+             "decode_steps": len(decode),
+             "decode_step_median_ms": statistics.median(decode[1:]) * 1e3,
+             "prefill_ms": prefill, "peak_device_gb": peak,
+             "deepest_history": deepest, "view_len": view,
+             "launches": launches, "bodies": bodies,
+             "launches_per_decode_step": per_step,
+             "bodies_per_decode_step": step_bodies, "profile": prof}
+    log(f"  served {len(reqs)} requests, {tokens} tokens in {wall:.2f} s: "
+        f"{stats['tokens_per_s']:.1f} tokens/s; {len(decode)} decode steps, "
+        f"median {stats['decode_step_median_ms']:.2f} ms (first "
+        f"{decode[0] * 1e3:.1f} ms); prefill ms (bucket or None, ms) "
+        + ", ".join(f"{b}: {ms:.1f}" for b, ms in prefill)
+        + f"; deepest history {deepest} rows over a {view}-row page view; "
+        f"peak device memory {peak:.2f} GB")
+    log(f"  one decode step launches {per_step}, bodies {step_bodies}; "
+        f"profile_decode, {SLOTS} slots, 5 steps: wall median "
+        f"{prof['step_wall_ms']:.2f} ms, device busy "
+        f"{prof['device_busy_ms']:.2f} ms, idle share "
+        f"{prof['idle_share']:.3f}, {prof['launches_per_step']:.0f} device "
+        "launches a step; device ms a step by group: "
+        + ", ".join(f"{g} {ms:.3f}" for g, ms in sorted(
+            prof["device_ms_per_step"].items(), key=lambda kv: -kv[1])))
+    for r in reqs[:1] + reqs[len(PROMPT_LENS):]:
+        log(f"  req {r.rid} ({len(r.prompt)} prompt tokens): {r.out_tokens}")
+    del model
+    free_card()
+    return stats, launches, bodies
+
+
+def archs_phase(dev) -> tuple[dict, dict, dict]:
+    """[archs]: each new architecture's fp32 paged reference, then served
+    at full width and depth, one model on the card at a time.  Returns
+    (stats, launches and bodies by run)."""
+    out = {"reference": {}, "serve": {}}
+    launches, bodies = {}, {}
+    for arch in NEW_ARCHS:
+        out["reference"][arch] = arch_reference(arch, dev)
+        out["serve"][arch], launches[("serve", arch)], bodies[
+            ("serve", arch)] = serve_arch(arch, dev)
+    return out, launches, bodies
+
+
+# ---------------------------------------------------------------------------
+# [chaos]: the chaos sites and the fused -> unfused rung on the card
+# ---------------------------------------------------------------------------
+
+class LogitsRecorder:
+    """While entered, every logits tensor ``engine`` computes is kept on
+    the host: decode rows by (request id, index of the token they give),
+    prefill rows (bucketed or exact) by the token history they read."""
+
+    def __init__(self, engine: ServeEngine):
+        self.engine = engine
+        self.decode: dict[tuple[int, int], torch.Tensor] = {}
+        self.prefill: dict[tuple, torch.Tensor] = {}
+        self._saved = {}
+
+    def __enter__(self):
+        eng = self.engine
+        for name in ("decode_step", "prefill_bucket", "prefill"):
+            self._saved[name] = getattr(E, name)
+
+        def decode(*args, **kw):
+            logits, cache = self._saved["decode_step"](*args, **kw)
+            rows = logits.float().cpu()
+            for i, r in enumerate(eng.active):
+                if r is not None:
+                    self.decode[(r.rid, len(r.out_tokens))] = rows[i]
+            return logits, cache
+
+        def prefill(model, cfg, batch, cache, *lens):
+            fn = self._saved["prefill_bucket" if lens else "prefill"]
+            logits, cache = fn(model, cfg, batch, cache, *lens)
+            toks = batch["tokens"].cpu().numpy()
+            n = lens[0].tolist() if lens else [toks.shape[1]] * len(toks)
+            rows = logits.float().cpu()
+            for j in range(len(toks)):
+                self.prefill[tuple(toks[j, :n[j]].tolist())] = rows[j]
+            return logits, cache
+
+        E.decode_step, E.prefill_bucket, E.prefill = decode, prefill, prefill
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(E, name, fn)
+
+
+class PlainCounter:
+    """Counts the calls of every kernel's plain version while entered."""
+
+    def __init__(self):
+        self.calls = 0
+        self._saved = {}
+
+    def __enter__(self):
+        for name in K.KERNELS:
+            plain = name + "_plain"
+            self._saved[plain] = fn = getattr(K, plain)
+
+            def counted(*a, _fn=fn, **kw):
+                self.calls += 1
+                return _fn(*a, **kw)
+            setattr(K, plain, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(K, name, fn)
+
+
+def _chaos_engine(cfg, model, dev) -> ServeEngine:
+    return ServeEngine(cfg, model, batch_slots=SLOTS, max_len=MAX_LEN,
+                       page_size=PAGE, device=dev)
+
+
+def _chaos_requests(prompts) -> list[Request]:
+    return [Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+            for i, p in enumerate(prompts)]
+
+
+def _degraded_fused() -> int:
+    return tuner.degraded_stats().get("dense:fused->unfused", 0)
+
+
+def chaos_fused(cfg, model, dev, prompts) -> dict:
+    """``kernel_fused`` armed on one decode step of 4 busy slots: on the o
+    + residual and down + residual projections only, on the gate/up pairs
+    only, and on all of them.  Each faulted step's logits must lie within
+    TOL[BF16] of the clean step's; the degraded counter must rise by the
+    faults armed; the launch counts must show the unfused spellings on the
+    kernels (an epilogue: the identity ftimm_gemm instead of the fused
+    one; a pair: two ftimm_gemm instead of ftimm_gemm_swiglu, all on the
+    stream body), and no plain version may run."""
+    engine = _chaos_engine(cfg, model, dev)
+    for r in _chaos_requests(prompts[:SLOTS]):
+        engine.submit(r)
+    engine.step()
+    engine.step()
+    layers = cfg.num_layers
+    pair_occ: list[int] = []
+    real_pair = D._fused_pair
+
+    def step(plan):
+        last = torch.as_tensor([[r.out_tokens[-1]] for r in engine.active],
+                               dtype=torch.long).to(dev)
+        K.reset_launch_counts()
+        with chaos.chaos(plan), PlainCounter() as plain:
+            logits, _ = M.decode_step(
+                engine.params, cfg, last, engine.kv.cache(),
+                torch.as_tensor(engine.pos, dtype=torch.long),
+                page_table=engine.kv.device_table())
+            torch.cuda.synchronize()
+        if plain.calls:
+            raise AssertionError(f"[chaos] {plain.calls} plain-version "
+                                 "calls on the card")
+        return (logits.float().cpu(), K.launch_counts(),
+                K.body_counts()["ftimm_gemm"])
+
+    def spy(*args, **kw):
+        pair_occ.append(probe.counters.get("kernel_fused", 0))
+        return real_pair(*args, **kw)
+
+    probe = chaos.FaultPlan([])
+    D._fused_pair = spy
+    try:
+        clean, clean_launches, _ = step(probe)
+    finally:
+        D._fused_pair = real_pair
+    n_fused = probe.counters["kernel_fused"]
+    epi_occ = [o for o in range(n_fused) if o not in pair_occ]
+    if len(pair_occ) != layers or len(epi_occ) != 2 * layers:
+        raise AssertionError(f"[chaos] {n_fused} fused launches a step, "
+                             f"{len(pair_occ)} of them pairs")
+    base = {"ftimm_gemm": 5 * layers + 1, "ftimm_gemm_swiglu": layers,
+            "ftimm_gemm_grouped": 2 * layers}
+    if {k: v for k, v in clean_launches.items() if v} != base:
+        raise AssertionError(f"[chaos] clean step launched {clean_launches}")
+    out = {"fused_launches_per_step": n_fused}
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        for name, occ, pairs in (("epilogues", epi_occ, 0),
+                                 ("pairs", pair_occ, layers),
+                                 ("all", list(range(n_fused)), layers)):
+            before = _degraded_fused()
+            plan = chaos.FaultPlan([chaos.Fault("kernel_fused", at=o)
+                                    for o in occ])
+            logits, launches, gemm_bodies = step(plan)
+            rel, _ = rel_err(logits, clean)
+            counted = _degraded_fused() - before
+            want = dict(base, ftimm_gemm=base["ftimm_gemm"] + 2 * pairs,
+                        ftimm_gemm_swiglu=layers - pairs)
+            got = {k: v for k, v in launches.items() if v}
+            want = {k: v for k, v in want.items() if v}
+            if plan.fired.get("kernel_fused", 0) != len(occ) or counted != len(
+                    occ):
+                raise AssertionError(f"[chaos] {name}: {len(occ)} faults, "
+                                     f"{counted} degraded servings")
+            if got != want or set(
+                    b for b, n in gemm_bodies.items() if n) != {"stream"}:
+                raise AssertionError(f"[chaos] {name}: launched {got} "
+                                     f"({gemm_bodies}), want {want}")
+            if rel > TOL[BF16]:
+                raise AssertionError(f"[chaos] {name}: logits normwise "
+                                     f"{rel:.3g} from the clean step")
+            out[name] = {"faults": len(occ), "degraded": counted,
+                         "logits_normwise": rel, "launches": got}
+            log(f"  kernel_fused on the {name} ({len(occ)} faults): "
+                f"degraded +{counted}, launches {got}, logits normwise "
+                f"{rel:.2e} from the clean step")
+    warned = [str(r.message) for r in rec
+              if "gemm dispatch degraded" in str(r.message)]
+    if len(warned) != 1:
+        raise AssertionError(f"[chaos] rung warnings: {warned}")
+    engine.run([])
+    return out
+
+
+def chaos_kernel(dev) -> dict:
+    """The ``kernel`` site on CUDA tensors raises KernelLaunchFailure out
+    of the call: no launch, no plain version (kernel or raise)."""
+    a = torch.randn((SLOTS, 2048), device=dev).to(BF16)
+    b = torch.randn((2048, 2048), device=dev).to(BF16)
+    K.reset_launch_counts()
+    with chaos.chaos(chaos.FaultPlan([chaos.Fault("kernel")])), \
+            PlainCounter() as plain:
+        try:
+            matmul(a, b)
+        except chaos.KernelLaunchFailure as e:
+            raised = str(e)
+        else:
+            raise AssertionError("[chaos] the kernel site did not raise")
+        matmul(a, b)
+        torch.cuda.synchronize()
+    launched = K.launch_counts()["ftimm_gemm"]
+    if plain.calls or launched != 1:
+        raise AssertionError(f"[chaos] kernel site: {plain.calls} plain "
+                             f"calls, {launched} launches")
+    log(f"  kernel on a CUDA tensor: raised ({raised}); the next call "
+        "launched once, no plain version ran")
+    return {"raised": raised, "plain_calls": plain.calls}
+
+
+def _recovered(vocab, clean_rec, rec, clean, reqs, what) -> dict:
+    """The requests that ``what`` sent back through a prefill: every token
+    in the vocabulary; the re-prefill's logits within TOL[BF16] of the
+    clean run's decode logits for the same token, and the first decode step
+    after it within TOL[BF16] of the clean run's (compared when the
+    re-prefill chose the clean run's token, so that both steps read the
+    same history); the tokens that agree with the clean run's."""
+    for r in reqs:
+        if not all(0 <= t < vocab for t in r.out_tokens):
+            raise AssertionError(f"[chaos] {what}: request {r.rid} emitted "
+                                 f"{r.out_tokens}")
+    redone = [(key, r) for r in reqs for key in rec.prefill
+              if len(key) > len(r.prompt)
+              and key[:len(r.prompt)] == tuple(r.prompt.tolist())
+              and list(key[len(r.prompt):]) == r.out_tokens[
+                  :len(key) - len(r.prompt)]]
+    if not redone:
+        raise AssertionError(f"[chaos] {what}: no request was re-prefilled")
+    out = {}
+    for key, r in redone:
+        t = len(key) - len(r.prompt)
+        rel_pre, _ = rel_err(rec.prefill[key], clean_rec.decode[(r.rid, t)])
+        if rel_pre > TOL[BF16]:
+            raise AssertionError(f"[chaos] {what}: request {r.rid}'s "
+                                 f"re-prefill logits normwise {rel_pre:.3g}")
+        rel_next = None
+        if (r.out_tokens[t] == clean[r.rid][t]
+                and (r.rid, t + 1) in rec.decode):
+            rel_next, _ = rel_err(rec.decode[(r.rid, t + 1)],
+                                  clean_rec.decode[(r.rid, t + 1)])
+            if rel_next > TOL[BF16]:
+                raise AssertionError(f"[chaos] {what}: request {r.rid}'s "
+                                     f"first step after the re-prefill: "
+                                     f"normwise {rel_next:.3g}")
+        agree = sum(a == b for a, b in zip(r.out_tokens, clean[r.rid]))
+        out[r.rid] = {"reprefilled_at_token": t,
+                      "reprefill_logits_normwise": rel_pre,
+                      "next_step_logits_normwise": rel_next,
+                      "tokens_agreeing": agree, "tokens": len(r.out_tokens)}
+        log(f"  {what}: request {r.rid} re-prefilled at token {t}: logits "
+            f"normwise {rel_pre:.2e} from the clean decode, next step "
+            + (f"{rel_next:.2e}" if rel_next is not None else
+               "not compared (the re-prefill chose another token)")
+            + f"; {agree} of {len(r.out_tokens)} tokens as the clean run")
+    return out
+
+
+def chaos_phase(dev) -> dict:
+    """[chaos]: qwen3-1.7b at full width and CHAOS_LAYERS layers on the
+    paged rung, bf16.  The fused -> unfused rung on a decode step, the
+    ``kernel`` site's raise, then PROMPT_LENS's 6 requests served clean
+    and under each engine site: ``transient_decode@1x2`` (bit-identical
+    tokens, 2 retries), ``nan_logits`` and ``page_exhaustion`` (a slot
+    re-prefilled: the bounds of ``_recovered``; the pool checked and
+    drained), ``bucket_miss`` (the exact prefill, within TOL[BF16] of the
+    bucketed one); and ``plan_save_crash`` (the on-disk store intact)."""
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=CHAOS_LAYERS)
+    model = M.init_params(cfg, 0, device=dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, cfg.vocab_size, n).astype(np.int32)
+               for n in PROMPT_LENS]
+    out = {"fused": chaos_fused(cfg, model, dev, prompts),
+           "kernel": chaos_kernel(dev)}
+
+    eng = _chaos_engine(cfg, model, dev)
+    growth: list[bool] = []
+    real_alloc = eng._alloc_pages
+
+    def alloc(req, n, *, active_slot=None):
+        growth.append(active_slot is not None)
+        return real_alloc(req, n, active_slot=active_slot)
+
+    eng._alloc_pages = alloc
+    with LogitsRecorder(eng) as clean_rec:
+        clean = [r.out_tokens for r in eng.run(_chaos_requests(prompts))]
+
+    def faulted(fault):
+        engine = _chaos_engine(cfg, model, dev)
+        reqs = _chaos_requests(prompts)
+        with chaos.chaos(chaos.FaultPlan([fault])) as plan, \
+                LogitsRecorder(engine) as rec:
+            engine.run(reqs)
+        if plan.fired.get(fault.site) != fault.count:
+            raise AssertionError(f"[chaos] {fault.site}: fired {plan.fired}")
+        return engine, reqs, rec
+
+    engine, reqs, _ = faulted(chaos.Fault("transient_decode", at=1,
+                                          count=2))
+    if [r.out_tokens for r in reqs] != clean or engine.faults[
+            "transient_retries"] != 2:
+        raise AssertionError(f"[chaos] transient_decode: {engine.faults}")
+    out["transient_decode"] = {"retries": 2, "tokens_identical": True}
+    log("  transient_decode@1x2: 2 retries, tokens bit-identical")
+
+    engine, reqs, rec = faulted(chaos.Fault("nan_logits", at=3, slot=1))
+    if engine.faults["nonfinite_quarantined"] != 1:
+        raise AssertionError(f"[chaos] nan_logits: {engine.faults}")
+    out["nan_logits"] = _recovered(cfg.vocab_size, clean_rec, rec, clean,
+                                   reqs, "nan_logits")
+
+    at = growth.index(True)
+    engine, reqs, rec = faulted(chaos.Fault("page_exhaustion", at=at))
+    engine.alloc.check()
+    if (engine.faults["preemptions"] < 1
+            or engine.alloc.available != engine.alloc.total):
+        raise AssertionError(f"[chaos] page_exhaustion: {engine.faults}")
+    out["page_exhaustion"] = {
+        "at_allocation": at, "preemptions": engine.faults["preemptions"],
+        "requests": _recovered(cfg.vocab_size, clean_rec, rec, clean, reqs,
+                               "page_exhaustion")}
+
+    engine, reqs, rec = faulted(chaos.Fault("bucket_miss", at=0))
+    key = tuple(prompts[0].tolist())
+    rel, _ = rel_err(rec.prefill[key], clean_rec.prefill[key])
+    exact = [b for b, _ in engine.walls["prefill"] if b is None]
+    if engine.faults["bucket_misses"] != 1 or len(exact) != 1 or rel > TOL[
+            BF16]:
+        raise AssertionError(f"[chaos] bucket_miss: {engine.faults}, "
+                             f"{len(exact)} exact prefills, normwise {rel}")
+    agree = sum(a == b for r, c in zip(reqs, clean)
+                for a, b in zip(r.out_tokens, c))
+    out["bucket_miss"] = {"prefill_logits_normwise": rel,
+                          "tokens_agreeing": agree,
+                          "tokens": sum(map(len, clean))}
+    log(f"  bucket_miss: one exact-length prefill, logits normwise {rel:.2e}"
+        f" from the bucketed one; {agree} of {sum(map(len, clean))} tokens "
+        "as the clean run")
+
+    d = ROOT / "build" / "chaos"
+    d.mkdir(parents=True, exist_ok=True)
+    path = d / "plans.json"
+    st = plan_store.PlanStore()
+    kind = plan_store.device_kind(dev)
+    st.put("dense|64x64x64|ib2|ob2", {"bm": 16, "bn": 32, "bk": 64}, kind)
+    st.save(str(path))
+    before = path.read_bytes()
+    st.put("dense|128x64x64|ib2|ob2", {"bm": 16, "bn": 32, "bk": 64}, kind)
+    with chaos.chaos(chaos.FaultPlan([chaos.Fault("plan_save_crash")])):
+        try:
+            st.save(str(path))
+        except chaos.ChaosError:
+            pass
+        else:
+            raise AssertionError("[chaos] plan_save_crash did not fire")
+    litter = [p.name for p in d.iterdir() if p.name.startswith(".plan_cache")]
+    if path.read_bytes() != before or litter:
+        raise AssertionError(f"[chaos] plan_save_crash left {litter}")
+    if plan_store.PlanStore().load(str(path)) != 1:
+        raise AssertionError("[chaos] the store did not load back")
+    path.unlink()
+    out["plan_save_crash"] = {"store_intact": True}
+    log("  plan_save_crash: the store on disk byte-identical, no temp file")
+    out["degraded"] = tuner.degraded_stats()
+    # The degraded servings counted here were injected: the phases after
+    # this one start from an empty census.
+    tuner.DEGRADED_COUNTS.clear()
+    D._WARNED_RUNGS.clear()
+    del model
+    free_card()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# [train-dots]: remat="dots" against remat="full"
+# ---------------------------------------------------------------------------
+
+def train_dots_phase(dev, opt_cfg: OptConfig) -> dict:
+    """qwen3-1.7b at full width and depth, bf16 compute on fp32 masters,
+    DOTS_STEPS AdamW steps of TRAIN_BATCH x TRAIN_SEQ, from the same seed
+    and batches with remat "full" and "dots".  The losses and every
+    gradient leaf of every step must be bitwise equal (PyTorch's own ops
+    in their deterministic algorithms: the embedding's index backward
+    otherwise accumulates with atomics); each step's ftimm_gemm and
+    ftimm_gemm_swiglu launches must be lower under "dots" by exactly the
+    forward products it does not recompute: 5 and 1 a layer."""
+    base = get_config(ARCH)
+    shape = ShapeConfig("dots", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                        kind="train")
+    data = SyntheticLM(base, shape, seed=0)
+    batches = [{k: torch.as_tensor(v).to(dev)
+                for k, v in data.host_batch(s).items()}
+               for s in range(DOTS_STEPS)]
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    runs, full_grads = {}, []
+    try:
+        for remat in ("full", "dots"):
+            cfg = dataclasses.replace(base, remat=remat)
+            free_card()
+            torch.cuda.reset_peak_memory_stats(dev)
+            model = M.init_params(cfg, 0, device=dev, dtype=cfg.param_dtype)
+            opt = init_opt_state(dict(model.named_parameters()))
+            step_fn = make_train_step(cfg, opt_cfg)
+            losses, walls, launches = [], [], []
+            for i, batch in enumerate(batches):
+                K.reset_launch_counts()
+                t0 = time.monotonic()
+                model, opt, m = step_fn(model, opt, batch)
+                torch.cuda.synchronize()
+                walls.append(time.monotonic() - t0)
+                launches.append(K.launch_counts())
+                losses.append(m["loss"].item())
+                grads = {n: p.grad for n, p in model.named_parameters()}
+                if remat == "full":
+                    full_grads.append({n: g.cpu() for n, g in grads.items()})
+                    continue
+                diff = [n for n, g in grads.items()
+                        if not torch.equal(g.cpu(), full_grads[i][n])]
+                if diff:
+                    raise AssertionError(f"[train-dots] step {i}: gradients "
+                                         f"differ from remat='full': {diff}")
+            runs[remat] = {
+                "losses": losses, "step_s": walls,
+                "step_median_s": statistics.median(walls[1:]),
+                "peak_device_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                "launches_per_step": [{k: v for k, v in c.items() if v}
+                                      for c in launches]}
+            del model, opt, grads
+    finally:
+        torch.use_deterministic_algorithms(was)
+        full_grads.clear()
+        free_card()
+    full, dots = runs["full"], runs["dots"]
+    if full["losses"] != dots["losses"]:
+        raise AssertionError(f"[train-dots] losses {full['losses']} vs "
+                             f"{dots['losses']}")
+    layers = base.num_layers
+    for i, (f, d) in enumerate(zip(full["launches_per_step"],
+                                   dots["launches_per_step"])):
+        saved = {k: f.get(k, 0) - d.get(k, 0)
+                 for k in ("ftimm_gemm", "ftimm_gemm_swiglu")}
+        if saved != {"ftimm_gemm": 5 * layers, "ftimm_gemm_swiglu": layers}:
+            raise AssertionError(f"[train-dots] step {i}: launches full {f}"
+                                 f", dots {d}")
+    for remat, r in runs.items():
+        log(f"  remat={remat!r}: losses {r['losses']}; step s "
+            f"{[round(x, 3) for x in r['step_s']]} (median "
+            f"{r['step_median_s']:.3f}); peak device memory "
+            f"{r['peak_device_gb']:.2f} GB; launches a step "
+            f"{r['launches_per_step'][-1]}")
+    log(f"  losses and every gradient of {DOTS_STEPS} steps bitwise equal; "
+        f"'dots' launches {5 * layers} ftimm_gemm and {layers} "
+        "ftimm_gemm_swiglu fewer a step")
+    return {"layers": layers, "steps": DOTS_STEPS, **runs}
+
+
+def check_not_degraded(phase: str) -> None:
+    """A phase other than [chaos] must end with no degraded serving: a real
+    fused-kernel failure may not hide behind the rung."""
+    degraded = tuner.plan_mode_stats().get("degraded")
+    if degraded:
+        raise AssertionError(f"[{phase}] degraded servings: {degraded}")
+
+
 YARDSTICKS = {
     "ftimm_gemm_swiglu": "two torch.matmul (one per panel), then silu(g) * u",
     "ftimm_gemm_grouped_swiglu": "two torch.bmm (one per panel), then "
@@ -3767,6 +4498,7 @@ def main() -> int:
     free_card()
     phases["check"] = time.monotonic() - t0
     log(f"[check] done in {phases['check']:.1f} s")
+    check_not_degraded("check")
 
     t0 = time.monotonic()
     log("[reference] small input, and the MoE models in fp32 at full width")
@@ -3780,6 +4512,7 @@ def main() -> int:
         fam_refs[arch] = family_reference(arch, dev)
     phases["reference"] = time.monotonic() - t0
     log(f"[reference] done in {phases['reference']:.1f} s")
+    check_not_degraded("reference")
 
     t0 = time.monotonic()
     log("[serve] full width")
@@ -3795,6 +4528,7 @@ def main() -> int:
         free_card()
     phases["serve"] = time.monotonic() - t0
     log(f"[serve] done in {phases['serve']:.1f} s")
+    check_not_degraded("serve")
 
     t0 = time.monotonic()
     log("[recurrent] mamba2-370m and zamba2-7b on the dense-slot rung: "
@@ -3803,6 +4537,7 @@ def main() -> int:
     launches.update(rec_launches)
     phases["recurrent"] = time.monotonic() - t0
     log(f"[recurrent] done in {phases['recurrent']:.1f} s")
+    check_not_degraded("recurrent")
 
     t0 = time.monotonic()
     log("[families] whisper-base (encdec, dense-slot rung, full depth) and "
@@ -3812,6 +4547,21 @@ def main() -> int:
     launches.update(fam_launches)
     phases["families"] = time.monotonic() - t0
     log(f"[families] done in {phases['families']:.1f} s")
+    check_not_degraded("families")
+
+    t0 = time.monotonic()
+    log("[archs] gemma3-4b, minitron-4b and qwen3-8b: their decode shapes "
+        "against the plain versions, fp32 paged references, then served at "
+        "full width and depth")
+    arch_cases = [c for a in NEW_ARCHS for c in arch_path_cases(a)]
+    for name, err in check(arch_cases, dev).items():
+        worst[name] = max(worst.get(name, 0.0), err)
+    free_card()
+    archs, arch_launches, arch_bodies = archs_phase(dev)
+    launches.update(arch_launches)
+    phases["archs"] = time.monotonic() - t0
+    log(f"[archs] done in {phases['archs']:.1f} s")
+    check_not_degraded("archs")
 
     t0 = time.monotonic()
     log("[train-reference] fp32 training, card against CPU, full width")
@@ -3821,6 +4571,7 @@ def main() -> int:
         train_refs[arch + "-smoke"] = train_reference_smoke(arch, dev)
     phases["train_reference"] = time.monotonic() - t0
     log(f"[train-reference] done in {phases['train_reference']:.1f} s")
+    check_not_degraded("train-reference")
 
     t0 = time.monotonic()
     log("[train] full width, bf16 compute on fp32 masters, AdamW")
@@ -3833,6 +4584,7 @@ def main() -> int:
         train_calls += recorded_cases(recorder, arch)
     phases["train"] = time.monotonic() - t0
     log(f"[train] done in {phases['train']:.1f} s")
+    check_not_degraded("train")
 
     t0 = time.monotonic()
     log(f"[train-check] the {len(train_calls)} distinct kernel calls of the "
@@ -3842,12 +4594,22 @@ def main() -> int:
     free_card()
     phases["train_check"] = time.monotonic() - t0
     log(f"[train-check] done in {phases['train_check']:.1f} s")
+    check_not_degraded("train-check")
 
     t0 = time.monotonic()
     log("[train-schedule] the launcher's schedule (1-step warmup to 3e-4)")
     witness = schedule_witness(dev)
     phases["train_schedule"] = time.monotonic() - t0
     log(f"[train-schedule] done in {phases['train_schedule']:.1f} s")
+    check_not_degraded("train-schedule")
+
+    t0 = time.monotonic()
+    log(f"[train-dots] qwen3-1.7b, {DOTS_STEPS} steps with remat 'full' and "
+        "'dots'")
+    dots = train_dots_phase(dev, opt_cfg)
+    phases["train_dots"] = time.monotonic() - t0
+    log(f"[train-dots] done in {phases['train_dots']:.1f} s")
+    check_not_degraded("train-dots")
 
     t0 = time.monotonic()
     log("[autotune] qwen3-1.7b's GEMM signatures measured on the card")
@@ -3855,6 +4617,7 @@ def main() -> int:
     launches[("autotune", ARCH)] = tuned.pop("launches")
     phases["autotune"] = time.monotonic() - t0
     log(f"[autotune] done in {phases['autotune']:.1f} s")
+    check_not_degraded("autotune")
 
     t0 = time.monotonic()
     log("[quant] the quantized type paths of ftimm_gemm and "
@@ -3864,11 +4627,19 @@ def main() -> int:
         worst[name] = max(worst.get(name, 0.0), err)
     phases["quant"] = time.monotonic() - t0
     log(f"[quant] done in {phases['quant']:.1f} s")
+    check_not_degraded("quant")
+
+    t0 = time.monotonic()
+    log(f"[chaos] the chaos sites on qwen3-1.7b at {CHAOS_LAYERS} layers")
+    chaos_out = chaos_phase(dev)
+    phases["chaos"] = time.monotonic() - t0
+    log(f"[chaos] done in {phases['chaos']:.1f} s")
 
     t0 = time.monotonic()
     log("[time] decode-step and training shapes")
-    rows = timings(qwen_cases + moe_cases + rec_cases + fam_cases + trn_cases,
-                   dev)
+    rows = timings(qwen_cases + moe_cases + rec_cases + fam_cases + trn_cases
+                   + arch_cases, dev)
+    check_not_degraded("time")
     phases["time"] = time.monotonic() - t0
     log(f"[time] done in {phases['time']:.1f} s")
 
@@ -3887,11 +4658,13 @@ def main() -> int:
                     "family_reference": fam_refs, "families": families,
                     "train_reference": train_refs, "train": train_stats,
                     "train_schedule": witness, "autotune": tuned,
-                    "quant": quant, "phases_s": phases}))
+                    "quant": quant, "archs": archs, "train_dots": dots,
+                    "chaos": chaos_out, "phases_s": phases}))
     log(card)
     bodies = {("serve", a): stats[a]["bodies"] for a in stats}
     bodies.update(rec_bodies)
     bodies.update(fam_bodies)
+    bodies.update(arch_bodies)
     bodies.update({("train", a): train_stats[a]["bodies"]
                    for a in train_stats})
     print(json.dumps({"kernels": kernel_entries(rows, launches, worst,

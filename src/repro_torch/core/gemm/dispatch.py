@@ -8,11 +8,22 @@ attention products and the capacity-MoE experts) or ``ragged_matmul`` /
 (paper Sec. III-A), the CMR tuner picks the tile (Sec. IV-C), and the call
 goes to the ftIMM kernel wrapper.  The tensor's device picks the engine
 there: a CPU tensor takes the plain version (``kernels.ftimm.ref``), a CUDA
-tensor takes the planned kernel or raises.  There is no fallback ladder: a
-kernel that fails on the card fails the call.  A plan served from the
+tensor takes the planned kernel or raises.  A plan served from the
 measured plan store may run the epilogue as separate passes over the
 output (``fuse`` False) or split K (``nsplit`` > 1, ``ftimm_gemm_splitk``):
 that is the plan's choice, made before the launch.
+
+The fallback ladder has one rung, fused -> unfused: when the fused-epilogue
+dense launch or a one-launch SwiGLU pair fails (a real error or one
+injected at the ``kernel_fused`` chaos site), the call runs the unfused
+spelling instead -- the identity kernel to fp32 and the epilogue's passes
+(``Epilogue.decompose``), or the pair's two planned products to fp32 and
+then ``silu(a) * b``.  It launches the same hand-written kernels on a CUDA
+tensor, never the plain version.  Each such serving is counted in
+``tuner.plan_mode_stats()["degraded"]`` as ``<family>:fused->unfused`` and
+warned once per (family, rung).  Every other planned launch probes the
+``kernel`` site and fails the call when it fails: unlike the reference,
+there is no kernel -> plain-version rung.
 
 When an operand requires grad, each entry point runs as a
 ``torch.autograd.Function`` that matches the reference's custom VJP: the
@@ -43,7 +54,9 @@ weights are quantized on every call, as in the reference's serving.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import warnings
 
 import torch
 
@@ -54,10 +67,90 @@ from ...kernels.ftimm.kernel import (gemm_operands_ok, grouped_operands,
                                      mkn, ragged_dw_operands_mn,
                                      ragged_operands, row_groups,
                                      swiglu_operands)
-from .tuner import (note_epilogue, note_plan_use, plan_batched_gemm,
-                    plan_gemm, plan_ragged_gemm)
+from ...runtime import chaos as _chaos
+from .tuner import (note_degraded, note_epilogue, note_plan_use,
+                    plan_batched_gemm, plan_gemm, plan_ragged_gemm)
 
 F32 = torch.float32
+
+# (family, rung) pairs already warned about; ``tuner.clear_plan_cache``
+# empties it with the counters.
+_WARNED_RUNGS: set = set()
+
+
+def _degraded(family: str, rung: str, err: BaseException) -> None:
+    """Count one serving of a ladder rung and warn at its first use."""
+    note_degraded(family, rung)
+    key = (family, rung)
+    if key not in _WARNED_RUNGS:
+        _WARNED_RUNGS.add(key)
+        warnings.warn(
+            f"gemm dispatch degraded: {family} {rung} "
+            f"({type(err).__name__}: {err})", RuntimeWarning, stacklevel=3)
+
+
+# ---------------------------------------------------------------------------
+# remat="dots": the non-batched products are saved, not recomputed
+# ---------------------------------------------------------------------------
+
+class DotsStash:
+    """The outputs of one checkpointed block's non-batched products
+    (``matmul`` / ``project``, fused epilogues included, and the dense
+    SwiGLU pair): the reference's ``dots_with_no_batch_dims_saveable``.
+    The block's first run records each differentiable product's output;
+    every later run (the checkpoint's recompute in the backward) takes
+    them back in call order instead of launching, so only the norms, RoPE,
+    the elementwise ops and the batched / grouped / ragged products are
+    recomputed.  The ftIMM entry points are ``autograd.Function``s over
+    ``ctypes`` calls, which ``torch.utils.checkpoint``'s selective policies
+    cannot see; this stash does their job."""
+
+    def __init__(self):
+        self.outputs: list[torch.Tensor] = []
+        self.cursor: int | None = None      # None: recording
+        self._runs = 0
+
+    @contextlib.contextmanager
+    def active(self):
+        """Install the stash for one run of the block."""
+        self.cursor = None if self._runs == 0 else 0
+        self._runs += 1
+        _STASHES.append(self)
+        try:
+            yield self
+        finally:
+            _STASHES.pop()
+
+    def run(self, apply):
+        """``apply(saved)`` with ``saved`` None (record its output) or the
+        output this call gave in the first run (replay)."""
+        if self.cursor is None:
+            out = apply(None)
+            self.outputs.append(out.detach())
+            return out
+        saved = self.outputs[self.cursor]
+        self.cursor += 1
+        return apply(saved)
+
+
+_STASHES: list[DotsStash] = []
+
+
+def _stashed(apply):
+    """A differentiable non-batched product through the innermost active
+    ``DotsStash``, or launched when none is."""
+    return _STASHES[-1].run(apply) if _STASHES else apply(None)
+
+
+def _replayed(saved: torch.Tensor, *operands) -> torch.Tensor:
+    """The saved output, checked against what the replayed call would
+    give: a recompute that strays from the recorded order raises."""
+    lead = operands[0].shape[:-1]
+    if saved.shape[:-1] != lead:
+        raise RuntimeError(
+            f"remat='dots' replay out of order: saved {tuple(saved.shape)} "
+            f"for operands {[tuple(t.shape) for t in operands]}")
+    return saved.detach()
 
 
 def _check_epi(epi: Epilogue, bias, residual, scale) -> None:
@@ -92,21 +185,29 @@ def _run_dense(a, b, trans: str, out_dtype, epi: Epilogue = IDENTITY,
                bias=None, residual=None, scale=None) -> torch.Tensor:
     """Plan one dense GEMM (its body too: the planner sees the operand
     widths and whether TMA can read them as laid out) and run it.  A plan
-    that declines fusion runs the identity kernel to fp32 and then the
-    tail one op at a time (``Epilogue.decompose``), as the tuner timed
-    it."""
+    that declines fusion, or a fused launch that fails (the fused ->
+    unfused rung), runs the identity kernel to fp32 and then the tail one
+    op at a time (``Epilogue.decompose``), as the tuner timed it."""
     m, k, n = mkn(trans, a.shape, b.shape)
     a_ok, b_ok = gemm_operands_ok(a, b, trans)
     plan = plan_gemm(m, k, n, a.element_size(), out_dtype.itemsize,
                      b_bytes=b.element_size(), a_ok=a_ok, b_ok=b_ok,
                      trans=trans, fp8=_fp8(a, b))
     note_plan_use("dense", plan)
-    if not epi.is_identity:
-        note_epilogue("dense", plan.fuse)
-    gemm = _ops.gemm if plan.fuse or epi.is_identity else _ops.gemm_unfused
-    return gemm(a, b, trans=trans, out_dtype=out_dtype, epilogue=epi,
-                bias=bias, residual=residual, scale=scale,
-                **plan.kernel_kwargs())
+    kw = dict(trans=trans, out_dtype=out_dtype, epilogue=epi, bias=bias,
+              residual=residual, scale=scale, **plan.kernel_kwargs())
+    if epi.is_identity:
+        _chaos.fire("kernel")
+        return _ops.gemm(a, b, **kw)
+    note_epilogue("dense", plan.fuse)
+    if plan.fuse:
+        try:
+            _chaos.fire("kernel_fused")
+            return _ops.gemm(a, b, **kw)
+        except Exception as e:
+            _degraded("dense", "fused->unfused", e)
+    _chaos.fire("kernel")
+    return _ops.gemm_unfused(a, b, **kw)
 
 
 def _dense_grads(a, b, dz, trans: str, need_a: bool, need_b: bool):
@@ -147,9 +248,12 @@ class _Matmul(torch.autograd.Function):
     """The reference's ``_pallas_fn`` custom VJP."""
 
     @staticmethod
-    def forward(ctx, a, b, bias, residual, scale, trans, out_dtype, epi):
+    def forward(ctx, a, b, bias, residual, scale, trans, out_dtype, epi,
+                saved=None):
         ctx.save_for_backward(a, b, bias, residual, scale)
         ctx.trans, ctx.epi = trans, epi
+        if saved is not None:
+            return _replayed(saved, a if trans != "tn" else a.T)
         return _run_dense(a, b, trans, out_dtype, epi, bias, residual, scale)
 
     @staticmethod
@@ -169,7 +273,7 @@ class _Matmul(torch.autograd.Function):
             dz = dz.to(a.dtype)
         need_a, need_b = ctx.needs_input_grad[:2]
         da, db = _dense_grads(a, b, dz, trans, need_a, need_b)
-        return (da, db, *d_extras, None, None, None)
+        return (da, db, *d_extras, None, None, None, None)
 
 
 # The profiler range around the weight quantization of a quantized call
@@ -217,9 +321,12 @@ class _QuantMatmul(torch.autograd.Function):
     dequantized product) is rematerialised for the tail's gradient."""
 
     @staticmethod
-    def forward(ctx, a, b, bias, residual, qcfg, out_dtype, epi):
+    def forward(ctx, a, b, bias, residual, qcfg, out_dtype, epi,
+                saved=None):
         ctx.save_for_backward(a, b, bias, residual)
         ctx.qcfg, ctx.epi = qcfg, epi
+        if saved is not None:
+            return _replayed(saved, a)
         return _run_quant(a, b, qcfg, out_dtype, epi, bias, residual)
 
     @staticmethod
@@ -241,7 +348,7 @@ class _QuantMatmul(torch.autograd.Function):
                             F32).to(a.dtype)
         if need_b:
             db = _run_dense(a, dz.to(a.dtype), "tn", F32).to(b.dtype)
-        return (da, db, *d_extras, None, None, None)
+        return (da, db, *d_extras, None, None, None, None)
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *, trans: str = "nn",
@@ -271,13 +378,13 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, trans: str = "nn",
                 "instead")
         _check_epi(epi, bias, residual, None)
         if _needs_grad(a, b, bias, residual):
-            return _QuantMatmul.apply(a, b, bias, residual, qcfg, out_dtype,
-                                      epi)
+            return _stashed(lambda saved: _QuantMatmul.apply(
+                a, b, bias, residual, qcfg, out_dtype, epi, saved))
         return _run_quant(a, b, qcfg, out_dtype, epi, bias, residual)
     _check_epi(epi, bias, residual, scale)
     if _needs_grad(a, b, bias, residual, scale):
-        return _Matmul.apply(a, b, bias, residual, scale, trans, out_dtype,
-                             epi)
+        return _stashed(lambda saved: _Matmul.apply(
+            a, b, bias, residual, scale, trans, out_dtype, epi, saved))
     return _run_dense(a, b, trans, out_dtype, epi, bias, residual, scale)
 
 
@@ -316,6 +423,20 @@ def _swiglu_bwd(x, wg, wu, a, b, g, nt, dw):
     return dx, dw(da, wg.dtype), dw(db, wu.dtype)
 
 
+def _fused_pair(family: str, launch, unfused_product, out_dtype):
+    """The one-launch SwiGLU pair ``launch()``, or on its failure (the
+    ``kernel_fused`` site or a real error) the fused -> unfused rung: the
+    two planned products ``unfused_product(0 | 1)`` to fp32, then
+    ``silu(a) * b``."""
+    try:
+        _chaos.fire("kernel_fused")
+        return launch()
+    except Exception as e:
+        _degraded(family, "fused->unfused", e)
+    a, b = unfused_product(0), unfused_product(1)
+    return (torch.nn.functional.silu(a) * b).to(out_dtype)
+
+
 def _run_swiglu(x, wg, wu, out_dtype) -> torch.Tensor:
     """Plan the dense SwiGLU pair (its body from the widths and how TMA
     reads x and both panels) and run it."""
@@ -325,9 +446,13 @@ def _run_swiglu(x, wg, wu, out_dtype) -> torch.Tensor:
                      a_ok=x_k, b_ok=w_ok)
     note_plan_use("dense", plan)
     note_epilogue("dense", True)
-    return _ops.gemm_swiglu(x, wg, wu, bm=plan.bm, bn=plan.bn, bk=plan.bk,
-                            out_dtype=out_dtype, body=plan.body,
-                            kslices=plan.kslices, dim_order=plan.dim_order)
+    return _fused_pair(
+        "dense",
+        lambda: _ops.gemm_swiglu(x, wg, wu, bm=plan.bm, bn=plan.bn,
+                                 bk=plan.bk, out_dtype=out_dtype,
+                                 body=plan.body, kslices=plan.kslices,
+                                 dim_order=plan.dim_order),
+        lambda i: _run_dense(x, (wg, wu)[i], "nn", F32), out_dtype)
 
 
 def _run_grouped_swiglu(x, wg, wu, out_dtype) -> torch.Tensor:
@@ -342,9 +467,13 @@ def _run_grouped_swiglu(x, wg, wu, out_dtype) -> torch.Tensor:
                              b_ok=g_ok and grouped_operands(x, wu, "nn")[1])
     note_plan_use("batched", plan)
     note_epilogue("batched", True)
-    return _ops.batched_gemm_swiglu(x, wg, wu, bm=plan.bm, bn=plan.bn,
-                                    bk=plan.bk, out_dtype=out_dtype,
-                                    body=plan.body, kslices=plan.kslices)
+    return _fused_pair(
+        "batched",
+        lambda: _ops.batched_gemm_swiglu(x, wg, wu, bm=plan.bm, bn=plan.bn,
+                                         bk=plan.bk, out_dtype=out_dtype,
+                                         body=plan.body,
+                                         kslices=plan.kslices),
+        lambda i: _run_batched(x, (wg, wu)[i], "nn", F32), out_dtype)
 
 
 class _Swiglu(torch.autograd.Function):
@@ -352,9 +481,11 @@ class _Swiglu(torch.autograd.Function):
     False) or grouped (a 2-D x shared by the groups sums its dX)."""
 
     @staticmethod
-    def forward(ctx, x, wg, wu, out_dtype, grouped):
+    def forward(ctx, x, wg, wu, out_dtype, grouped, saved=None):
         ctx.save_for_backward(x, wg, wu)
         ctx.grouped = grouped
+        if saved is not None:
+            return _replayed(saved, x)
         run = _run_grouped_swiglu if grouped else _run_swiglu
         return run(x, wg, wu, out_dtype)
 
@@ -369,7 +500,7 @@ class _Swiglu(torch.autograd.Function):
             lambda p, dt: run(x, p, "tn", dt))
         if ctx.grouped and x.ndim == 2:
             dx = dx.to(F32).sum(dim=0).to(x.dtype)
-        return dx, dwg, dwu, None, None
+        return dx, dwg, dwu, None, None, None
 
 
 def matmul_swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
@@ -381,7 +512,8 @@ def matmul_swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
                          f"{tuple(w_gate.shape)} / {tuple(w_up.shape)}")
     out_dtype = out_dtype or x.dtype
     if _needs_grad(x, w_gate, w_up):
-        return _Swiglu.apply(x, w_gate, w_up, out_dtype, False)
+        return _stashed(lambda saved: _Swiglu.apply(
+            x, w_gate, w_up, out_dtype, False, saved))
     return _run_swiglu(x, w_gate, w_up, out_dtype)
 
 
@@ -413,6 +545,7 @@ def _run_batched(a, b, trans: str, out_dtype, bias=None) -> torch.Tensor:
     epi = IDENTITY if bias is None else Epilogue(bias=True)
     if bias is not None:
         note_epilogue("batched", True)
+    _chaos.fire("kernel")
     return _ops.batched_gemm(a, b, bm=plan.bm, bn=plan.bn, bk=plan.bk,
                              dim_order=plan.dim_order, trans=trans,
                              out_dtype=out_dtype, epilogue=epi, bias=bias,
@@ -527,6 +660,7 @@ def _run_ragged(x, w, offsets, trans: str, out_dtype,
     epi = Epilogue(bias=bias is not None, scale_vec=scale is not None)
     if not epi.is_identity:
         note_epilogue("ragged", True)
+    _chaos.fire("kernel")
     return _ops.ragged_gemm(x, w, offsets, bm=plan.bm, bn=plan.bn,
                             bk=plan.bk, trans=trans, out_dtype=out_dtype,
                             epilogue=None if epi.is_identity else epi,
@@ -543,6 +677,7 @@ def _run_ragged_dw(x, dy, offsets, out_dtype) -> torch.Tensor:
                             x.element_size(), out_dtype.itemsize, ragged="k",
                             b_bytes=dy.element_size(), a_ok=x_mn, b_ok=dy_mn)
     note_plan_use("ragged", plan)
+    _chaos.fire("kernel")
     return _ops.ragged_gemm_dw(x, dy, offsets, bm=plan.bm, bn=plan.bn,
                                bk=plan.bk, out_dtype=out_dtype,
                                body=plan.body)
@@ -648,10 +783,13 @@ def _run_ragged_swiglu(x, wg, wu, offsets, out_dtype) -> torch.Tensor:
                             b_ok=g_ok and ragged_operands(x, wu, "nn")[1])
     note_plan_use("ragged", plan)
     note_epilogue("ragged", True)
-    return _ops.ragged_gemm_swiglu(x, wg, wu, offsets, bm=plan.bm,
-                                   bn=plan.bn, bk=plan.bk,
-                                   out_dtype=out_dtype, body=plan.body,
-                                   kslices=plan.kslices)
+    return _fused_pair(
+        "ragged",
+        lambda: _ops.ragged_gemm_swiglu(x, wg, wu, offsets, bm=plan.bm,
+                                        bn=plan.bn, bk=plan.bk,
+                                        out_dtype=out_dtype, body=plan.body,
+                                        kslices=plan.kslices),
+        lambda i: _run_ragged(x, (wg, wu)[i], offsets, "nn", F32), out_dtype)
 
 
 class _RaggedSwiglu(torch.autograd.Function):

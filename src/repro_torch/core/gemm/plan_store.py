@@ -44,6 +44,7 @@ from ...kernels.ftimm.kernel import (BODIES, GROUP_TC_TILE, GSTREAM_ROWS,
                                      STREAM_SMEM, STREAM_STRIP, TC_STAGES,
                                      TC_TILES, fma_tiles, gstream_smem,
                                      smem_bytes)
+from ...runtime.chaos import fire as _chaos_fire
 from .cmr import H100
 
 SCHEMA_VERSION = 1
@@ -226,6 +227,7 @@ class PlanStore:
                 json.dump(blob, fp, indent=1, sort_keys=True)
                 fp.flush()
                 os.fsync(fp.fileno())
+            _chaos_fire("plan_save_crash")
             os.replace(tmp, path)
         except BaseException:
             try:

@@ -572,6 +572,7 @@ def plan_moe_dispatch(t: int, e: int, top_k: int, d_model: int, d_ff: int,
 
 PLAN_MODE_COUNTS: collections.Counter = collections.Counter()
 EPILOGUE_COUNTS: collections.Counter = collections.Counter()
+DEGRADED_COUNTS: collections.Counter = collections.Counter()
 
 
 def note_plan_use(family: str, plan: GemmPlan) -> None:
@@ -585,6 +586,21 @@ def note_epilogue(family: str, fused: bool) -> None:
     EPILOGUE_COUNTS[(family, "fused" if fused else "separate")] += 1
 
 
+def note_degraded(family: str, rung: str) -> None:
+    """Dispatch calls this when a rung of its ladder serves a GEMM whose
+    primary launch failed (injected or real), keyed (family, rung), e.g.
+    ``("dense", "fused->unfused")``: the serve engine's ``health()``
+    reports degraded mode from it."""
+    DEGRADED_COUNTS[(family, rung)] += 1
+
+
+def degraded_stats() -> dict[str, int]:
+    """{"family:rung": count} census of degraded servings (empty: every
+    planned GEMM ran as planned)."""
+    return {f"{family}:{rung}": count
+            for (family, rung), count in sorted(DEGRADED_COUNTS.items())}
+
+
 def epilogue_stats() -> dict[str, dict[str, int]]:
     """{family: {"fused"|"separate": count}} census of epilogue servings."""
     out: dict[str, dict[str, int]] = {}
@@ -596,8 +612,9 @@ def epilogue_stats() -> dict[str, dict[str, int]]:
 def plan_mode_stats() -> dict[str, dict[str, int]]:
     """{family: {mode: count}} census of plans that reached an engine, plus
     a per-family ``"quarantined"`` count of the store's records refused at
-    load (those shapes plan analytically), and an ``"epilogue"`` entry with
-    fused-vs-separate totals when any GEMM carried an epilogue."""
+    load (those shapes plan analytically), an ``"epilogue"`` entry with
+    fused-vs-separate totals when any GEMM carried an epilogue, and a
+    ``"degraded"`` entry (``degraded_stats``) when a rung served one."""
     out: dict[str, dict[str, int]] = {}
     for (family, mode), count in sorted(PLAN_MODE_COUNTS.items()):
         out.setdefault(family, {})[mode] = count
@@ -609,16 +626,22 @@ def plan_mode_stats() -> dict[str, dict[str, int]]:
         epi[kind] = epi.get(kind, 0) + count
     if epi:
         out["epilogue"] = dict(sorted(epi.items()))
+    if DEGRADED_COUNTS:
+        out["degraded"] = degraded_stats()
     return out
 
 
 def clear_plan_cache() -> None:
     """Reset every plan-serving layer: the planner caches, the in-memory
-    plan store (the file is untouched) and the telemetry counters."""
+    plan store (the file is untouched), the telemetry counters and the
+    dispatch ladder's warn-once state."""
     clear_planner_caches()
     PLAN_MODE_COUNTS.clear()
     EPILOGUE_COUNTS.clear()
+    DEGRADED_COUNTS.clear()
     plan_store.reset_store()
+    from . import dispatch       # dispatch imports the tuner
+    dispatch._WARNED_RUNGS.clear()
 
 
 def clear_planner_caches() -> None:

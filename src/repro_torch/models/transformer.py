@@ -11,7 +11,10 @@ layer-stacked layout -- dense (L, B, S, KVH, D), the paged pool
 (``stack_train``) rematerialises each block in its backward when
 ``cfg.remat`` is "full" (``torch.utils.checkpoint``, the reference's
 ``jax.checkpoint`` of the scan body; the hybrid's reference remats a whole
-group of ``attn_every`` layers, which moves memory, not values).
+group of ``attn_every`` layers, which moves memory, not values) or "dots"
+(the same checkpoint, but the non-batched products' outputs are kept from
+the forward and not launched again: ``dispatch.DotsStash``, the
+reference's ``dots_with_no_batch_dims_saveable``).
 
 The hybrid (zamba2) runs groups of ``attn_every`` Mamba2 layers, each group
 followed by ONE shared attention + MLP block -- the same module at every
@@ -33,6 +36,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..core.gemm.dispatch import DotsStash
 from .attention import AttentionParams, attention, init_attention_params, param
 from .layers import rms_norm, swiglu
 from .moe import MoEParams, init_moe_params, moe_mlp
@@ -214,9 +218,16 @@ def _shared_after(cfg: ModelConfig, layer: int) -> int | None:
 
 
 def _remat(fn, cfg: ModelConfig, *args):
-    if cfg.remat == "full" and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    if cfg.remat == "dots":
+        stash = DotsStash()
+
+        def run(*a):
+            with stash.active():
+                return fn(*a)
+        return checkpoint(run, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 def stack_train(layers: nn.ModuleList, cfg: ModelConfig, h: torch.Tensor,
@@ -229,11 +240,12 @@ def stack_train(layers: nn.ModuleList, cfg: ModelConfig, h: torch.Tensor,
     hybrid's shared attention + MLP block.  ``cross_kv_stack``: one (K, V)
     of the encoder rows per layer, for the encoder-decoder's
     cross-attention.  ``cfg.remat``: "full" recomputes each block in the
-    backward (non-reentrant ``torch.utils.checkpoint``), "none" keeps every
-    activation."""
-    if cfg.remat not in ("full", "none"):
-        raise NotImplementedError(
-            f"remat={cfg.remat!r}: the port runs 'full' and 'none'")
+    backward (non-reentrant ``torch.utils.checkpoint``), "dots" too but
+    keeps the outputs of its non-batched products from the forward, "none"
+    keeps every activation."""
+    if cfg.remat not in ("full", "dots", "none"):
+        raise ValueError(f"unknown remat {cfg.remat!r} (the reference's "
+                         "'full', 'dots' and 'none')")
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if cfg.family in RECURRENT_FAMILIES:
         def shared_block(hh):

@@ -31,7 +31,7 @@ prefill there overwrites).  Sampling is greedy or temperature (a seeded
 ``torch.Generator`` on the engine's device).  Detokenization runs on a
 worker thread fed by a token queue, off the decode loop.
 
-Overload safety:
+Overload safety (chaos-tested; see ``runtime.chaos``):
 
   * ``submit`` prices each deadline-carrying request against the
     measurement-calibrated cost model and raises typed ``Overloaded`` when
@@ -41,9 +41,13 @@ Overload safety:
   * KV page exhaustion preempts the lowest-priority active request (pages
     freed, request re-queued for re-prefill of prompt + generated tokens;
     greedy decode makes recovery bit-identical); admission never preempts,
-    it waits;
-  * non-finite logits quarantine the slot: its pages (or its dense-slot
-    region) are zeroed and the request re-prefills.
+    it waits (the ``page_exhaustion`` site forces this path);
+  * a prompt beyond the bucket ladder takes the exact-length prefill (the
+    ``bucket_miss`` site forces the rung);
+  * transient decode faults retry with exponential backoff
+    (``transient_decode`` site); non-finite logits (``nan_logits`` site)
+    quarantine the slot: its pages (or its dense-slot region) are zeroed
+    and the request re-prefills.
 
 The engine runs on the CUDA card unless ``device`` says otherwise, and
 raises when no card is present and no device is given; the parameters
@@ -62,9 +66,11 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.device import module_device, resolve_device
+from ..core.gemm import plan_mode_stats
 from ..models.model import (DenseLM, decode_step, make_cache, prefill,
                             prefill_bucket)
 from ..models.transformer import check_family
+from ..runtime import chaos as _chaos
 from .buckets import CostModel, bucket_for, make_buckets
 from .kv_pages import PageAllocator, PagedKV, PagesExhausted, pages_for
 
@@ -148,10 +154,13 @@ class ServeEngine:
                  page_size: int = 16, num_pages: int | None = None,
                  buckets: tuple[int, ...] | None = None, detokenize=None,
                  device: str | torch.device | None = None,
-                 paged: bool | None = None):
+                 paged: bool | None = None, decode_retries: int = 2,
+                 retry_backoff_s: float = 0.02):
         """``paged``: the paged KV pool and bucketed prefill (default for
         dense, moe and vlm), or the dense-slot rung (False; the only one of
-        ssm, hybrid and encdec)."""
+        ssm, hybrid and encdec).  A decode step that raises
+        ``TransientFault`` is retried up to ``decode_retries`` times, after
+        ``retry_backoff_s`` seconds doubled at each attempt."""
         check_family(cfg)
         self.device = resolve_device(device)
         if module_device(params) != self.device:
@@ -166,10 +175,12 @@ class ServeEngine:
         self.pos = np.zeros(batch_slots, np.int32)       # filled length/slot
         self.active: list[Request | None] = [None] * batch_slots
         self.queue: list[Request] = []
+        self.decode_retries = decode_retries
+        self.retry_backoff_s = retry_backoff_s
         self._detok = _Detokenizer(detokenize) if detokenize else None
-        self.faults = {"deadline_expired": 0, "nonfinite_quarantined": 0,
-                       "admission_rejected": 0, "shed": 0,
-                       "preemptions": 0, "bucket_misses": 0}
+        self.faults = {"transient_retries": 0, "deadline_expired": 0,
+                       "nonfinite_quarantined": 0, "admission_rejected": 0,
+                       "shed": 0, "preemptions": 0, "bucket_misses": 0}
         self.paged = cfg.family in PAGED_FAMILIES if paged is None else paged
         if self.paged and cfg.family not in PAGED_FAMILIES:
             raise ValueError(f"paged KV unsupported for {cfg.family}")
@@ -296,12 +307,17 @@ class ServeEngine:
         incoming request waits rather than thrash live decode.  Decode-growth
         calls preempt the lowest-priority active victim (ties: youngest
         submitted) with ``priority <= req.priority``; when the best victim
-        is ``req`` itself, it yields its own slot."""
+        is ``req`` itself, it yields its own slot.  The ``page_exhaustion``
+        chaos site forces the exhaustion branch even with free pages."""
+        forced = _chaos.should_fire("page_exhaustion") is not None
         while True:
-            try:
-                return self.alloc.alloc(n, id(req))
-            except PagesExhausted:
-                pass
+            if forced:
+                forced = False
+            else:
+                try:
+                    return self.alloc.alloc(n, id(req))
+                except PagesExhausted:
+                    pass
             if active_slot is None:
                 return None
             victim_slot = self._pick_victim(req)
@@ -373,6 +389,8 @@ class ServeEngine:
                 return
             head_toks = self._req_tokens(self.queue[0])
             bkt = bucket_for(len(head_toks), self.buckets)
+            if _chaos.should_fire("bucket_miss") is not None:
+                bkt = None
             if bkt is None:
                 self.faults["bucket_misses"] += 1
                 req = self.queue.pop(0)
@@ -571,15 +589,37 @@ class ServeEngine:
                 ahead += rem
         self.queue = kept
 
+    def _decode_with_retry(self, last: np.ndarray):
+        """Run one fused decode, retrying transient faults with exponential
+        backoff (bounded; the last attempt propagates)."""
+        cache, table = ((self.kv.cache(), self.kv.device_table())
+                        if self.paged else (self.cache, None))
+        for attempt in range(self.decode_retries + 1):
+            try:
+                _chaos.fire("transient_decode")
+                return decode_step(
+                    self.params, self.cfg,
+                    torch.as_tensor(last, dtype=torch.long).to(self.device),
+                    cache, torch.as_tensor(self.pos, dtype=torch.long),
+                    page_table=table)
+            except _chaos.TransientFault:
+                self.faults["transient_retries"] += 1
+                if attempt == self.decode_retries:
+                    raise
+                time.sleep(self.retry_backoff_s * (2 ** attempt))
+
     def health(self) -> dict:
-        """Operational snapshot: slot occupancy, fault counters, and when
-        paged the page-pool pressure and admission pricing."""
+        """Operational snapshot: slot occupancy, fault counters, the
+        dispatch ladder's degraded servings, and when paged the page-pool
+        pressure and admission pricing."""
+        degraded = plan_mode_stats().get("degraded", {})
         out = {
             "active_slots": sum(r is not None for r in self.active),
             "queue_depth": len(self.queue),
             "slot_pos": [int(p) for p in self.pos],
             "faults": dict(self.faults),
-            "degraded_mode": any(self.faults.values()),
+            "degraded_servings": dict(degraded),
+            "degraded_mode": bool(degraded) or any(self.faults.values()),
         }
         if self.paged:
             out["pages"] = {"total": self.alloc.total,
@@ -608,13 +648,9 @@ class ServeEngine:
                 last[i, 0] = r.out_tokens[-1]
         # One fused decode over all slots with per-slot positions: each row
         # writes its own cache row and masks under its own horizon.
-        cache, table = ((self.kv.cache(), self.kv.device_table())
-                        if self.paged else (self.cache, None))
         t0 = time.monotonic()
-        logits, _ = decode_step(
-            self.params, self.cfg,
-            torch.as_tensor(last, dtype=torch.long).to(self.device), cache,
-            torch.as_tensor(self.pos, dtype=torch.long), page_table=table)
+        logits, _ = self._decode_with_retry(last)
+        logits = _chaos.poison_logits(logits)
         finite = torch.isfinite(logits).all(dim=-1).tolist()   # syncs
         wall = time.monotonic() - t0
         self.walls["decode"].append(wall)

@@ -1,8 +1,12 @@
-"""Training loop on one device: the train step, prefetched synthetic data
-and asynchronous checkpoints.
+"""Training loop on one device: the train step, prefetched synthetic data,
+asynchronous checkpoints and the heartbeat hook.
 
-Mesh shardings, the elastic runner and the chaos sites of the reference
-trainer are not ported; this is its single-device loop.  Parameters are
+Each step boundary probes the reference's chaos sites: ``shard_loss``
+raises ``HostFailure`` to the supervisor (``runtime.TrainSupervisor``),
+and ``slow_step`` sleeps (a straggler).  After each step
+``monitor.beat(host, step)`` is called when a monitor is given
+(``runtime.HeartbeatMonitor``).  Mesh shardings and the elastic runner
+are not ported; this is the reference's single-device loop.  Parameters are
 fp32 masters (``cfg.param_dtype``) on the card unless ``device`` says
 otherwise; checkpoints hold the reference's tree layout, so either
 package resumes the other's.
@@ -20,6 +24,7 @@ from ..data.pipeline import Prefetcher, SyntheticLM
 from ..models.model import DenseLM, init_params
 from ..models.weights import load_numpy_tree, to_numpy_tree
 from ..optim.adamw import OptConfig, init_opt_state
+from ..runtime import chaos as _chaos
 from .train_step import make_train_step
 
 
@@ -28,7 +33,7 @@ class Trainer:
                  opt_cfg: OptConfig | None = None, *, seed: int = 0,
                  ckpt_dir: str | None = None, ckpt_every: int = 50,
                  log_every: int = 10, accum_steps: int = 1,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, monitor=None):
         self.cfg = cfg
         self.shape = shape
         self.opt_cfg = opt_cfg or OptConfig()
@@ -37,6 +42,7 @@ class Trainer:
         self.ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
         self.ckpt_every = ckpt_every
         self.log_every = log_every
+        self.monitor = monitor
         self.metrics_log: list[dict] = []
         self.dataset = SyntheticLM(cfg, shape, seed=seed)
         self.step_fn = make_train_step(cfg, self.opt_cfg, accum_steps)
@@ -68,16 +74,24 @@ class Trainer:
             start = step + 1
         return start, model, opt
 
-    def run(self, num_steps: int) -> tuple[DenseLM, dict]:
+    def run(self, num_steps: int,
+            host: str = "host0") -> tuple[DenseLM, dict]:
         start, model, opt = self.restore_or_init()
         prefetch = Prefetcher(self.dataset, start_step=start)
         t0 = time.perf_counter()
         try:
             for _ in range(start, num_steps):
-                step_i, host = prefetch.next()
+                # A step boundary is where shard loss and stragglers are
+                # noticed: an injected HostFailure propagates to the
+                # supervisor.
+                _chaos.fire("shard_loss")
+                _chaos.maybe_delay("slow_step")
+                step_i, arrays = prefetch.next()
                 batch = {k: torch.as_tensor(v).to(self.device)
-                         for k, v in host.items()}
+                         for k, v in arrays.items()}
                 model, opt, metrics = self.step_fn(model, opt, batch)
+                if self.monitor is not None:
+                    self.monitor.beat(host, step_i)
                 if step_i % self.log_every == 0 or step_i == num_steps - 1:
                     m = {k: float(v) for k, v in metrics.items()}
                     m["step"] = step_i

@@ -1432,3 +1432,119 @@ def test_family_smoke_gradients_on_the_card_match_the_cpu(dev, arch):
     """fp32 smoke (zamba2 at 5 layers), one forward / backward: the loss
     and every gradient leaf, card against CPU, within 1e-4."""
     _chip_smoke().train_reference_smoke(arch, dev)
+
+
+# ----- the last dense archs, the fused -> unfused rung, remat="dots" -------
+
+def test_arch_shapes_against_plain_and_decode_on_the_stream(dev):
+    """Every [archs] decode shape of chip_smoke.py (gemma3-4b's head_dim 256
+    fp32 attention over the paged view and 262,144-row unembed,
+    minitron-4b's 256,000-row unembed, the three models' pairs and
+    projections) against its plain version, each bf16 4-row call on the
+    stream body through dispatch."""
+    cs = _chip_smoke()
+    cases = [c for a in cs.NEW_ARCHS for c in cs.arch_path_cases(a)]
+    cs.check(cases, dev)
+    cs.check_decode_bodies(cases, dev)
+
+
+@pytest.mark.parametrize("arch", ["gemma3-4b", "minitron-4b", "qwen3-8b"])
+def test_arch_smoke_models_on_the_card_match_the_cpu(dev, arch):
+    """fp32 smoke configs: prefill logits card against CPU within 1e-4 and
+    the engines' greedy tokens equal."""
+    _chip_smoke().small_reference(dev, arch)
+
+
+def _rung_calls(dev):
+    from repro_torch.core.gemm import (grouped_swiglu, matmul, matmul_swiglu,
+                                       ragged_swiglu)
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def r(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    x, res = r(4, 512), r(4, 384)
+    w, wg, wu = r(512, 384), r(512, 384), r(512, 384)
+    xg, gg, gu = r(3, 4, 512), r(3, 512, 384), r(3, 512, 384)
+    offs = torch.tensor([0, 1, 1, 4], device=dev, dtype=torch.int32)
+    return {
+        "dense_epilogue": lambda: matmul(x, w, epilogue=Epilogue(
+            residual=True), residual=res),
+        "dense_pair": lambda: matmul_swiglu(x, wg, wu),
+        "grouped_pair": lambda: grouped_swiglu(xg, gg, gu),
+        "ragged_pair": lambda: ragged_swiglu(x, gg, gu, offs)}
+
+
+@pytest.mark.parametrize("name", ["dense_epilogue", "dense_pair",
+                                  "grouped_pair", "ragged_pair"])
+def test_fused_to_unfused_rung_on_the_card(dev, name):
+    """An injected ``kernel_fused`` failure takes the unfused spelling on
+    the kernels (no plain version): counted once, within the bf16
+    tolerance of the fused launch."""
+    import warnings
+    from repro_torch.core.gemm import tuner
+    from repro_torch.runtime import chaos
+    call = _rung_calls(dev)[name]
+    tuner.clear_plan_cache()
+    fused = call()
+    K.reset_launch_counts()
+    with chaos.chaos(chaos.FaultPlan([chaos.Fault("kernel_fused")])):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            got = call()
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in K.launch_counts().items() if v}
+    assert sum(tuner.degraded_stats().values()) == 1
+    kernel = {"dense_epilogue": "ftimm_gemm", "dense_pair": "ftimm_gemm",
+              "grouped_pair": "ftimm_gemm_grouped",
+              "ragged_pair": "ftimm_gemm_ragged"}[name]
+    assert launched == {kernel: 1 if name == "dense_epilogue" else 2}
+    _close(got, fused)
+    tuner.clear_plan_cache()
+
+
+def test_kernel_site_raises_on_the_card(dev):
+    from repro_torch.core.gemm import matmul
+    from repro_torch.runtime import chaos
+    a, b = _operands("nn", 4, 256, 128, torch.bfloat16, dev)
+    K.reset_launch_counts()
+    with chaos.chaos(chaos.FaultPlan([chaos.Fault("kernel")])):
+        with pytest.raises(chaos.KernelLaunchFailure):
+            matmul(a, b)
+    assert not any(K.launch_counts().values())
+
+
+def test_remat_dots_gradients_bitwise_on_the_card(dev):
+    """qwen3-1.7b-smoke in bf16 on fp32 masters, one forward / backward
+    under remat "full" and "dots": the loss and every gradient bitwise
+    equal (PyTorch's ops in their deterministic algorithms), and 5
+    ``ftimm_gemm`` and one pair a layer fewer under "dots"."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg0 = get_config("qwen3-1.7b-smoke")
+    g = torch.Generator(device=dev).manual_seed(3)
+    toks = torch.randint(2, cfg0.vocab_size, (2, 32), generator=g,
+                         device=dev)
+    out = {}
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for remat in ("full", "dots"):
+            cfg = dataclasses.replace(cfg0, remat=remat)
+            model = M.init_params(cfg, 0, device=dev, dtype="float32")
+            K.reset_launch_counts()
+            loss, _ = M.loss_fn(model, cfg, {"tokens": toks, "labels": toks})
+            loss.backward()
+            torch.cuda.synchronize()
+            out[remat] = (loss.detach(), K.launch_counts(),
+                          {n: p.grad for n, p in model.named_parameters()})
+    finally:
+        torch.use_deterministic_algorithms(was)
+    (lf, cf, gf), (ld, cd, gd) = out["full"], out["dots"]
+    assert torch.equal(lf, ld)
+    for name in gf:
+        assert torch.equal(gf[name], gd[name]), name
+    layers = cfg0.num_layers
+    assert cf["ftimm_gemm"] - cd["ftimm_gemm"] == 5 * layers
+    assert cf["ftimm_gemm_swiglu"] - cd["ftimm_gemm_swiglu"] == layers

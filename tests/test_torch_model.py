@@ -228,5 +228,5 @@ def test_init_params_without_a_device_needs_a_card(monkeypatch):
 
 
 def test_unported_arch_raises():
-    with pytest.raises(KeyError, match="not ported yet"):
-        get_config("gemma3-4b-smoke")
+    with pytest.raises(KeyError, match="unknown architecture"):
+        get_config("gemma9-4b-smoke")

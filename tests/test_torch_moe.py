@@ -224,8 +224,8 @@ def test_quantized_variants_still_raise():
         tmoe.moe_mlp(torch.zeros(3, cfg.d_model), tp,
                      num_experts=cfg.num_experts, top_k=cfg.top_k,
                      dispatch=cfg.moe_dispatch, quant=cfg.quant)
-    with pytest.raises(KeyError, match="not ported"):
-        get_config("gemma3-4b-w8")
+    with pytest.raises(KeyError, match="unknown architecture"):
+        get_config("gemma9-4b-w8")
 
 
 @pytest.mark.parametrize("dispatch", ["capacity", "ragged"])

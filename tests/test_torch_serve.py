@@ -258,8 +258,7 @@ def test_recurrent_engine_matches_jax_engine(arch):
         assert t.done and len(t.out_tokens) == 4
     assert [b for b, _ in teng.walls["prefill"]] == [None] * 5
     health = teng.health()
-    assert set(health) == set(jeng.health()) - {"prefill_cache_size",
-                                                "degraded_servings"}
+    assert set(health) == set(jeng.health()) - {"prefill_cache_size"}
     assert not health["degraded_mode"]
 
 

@@ -411,3 +411,95 @@ def test_init_params_dtype_makes_trainable_masters():
     assert all(p.requires_grad for p in masters.parameters())
     w = frozen.layers[0].attn.wq
     assert w.to(torch.bfloat16) is w      # serving casts copy nothing
+
+
+# ---------------------------------------------------------------------------
+# remat="dots"
+# ---------------------------------------------------------------------------
+
+def _grads(tcfg, tree, batch, remat):
+    """The port's loss and gradient tree of one forward / backward under
+    ``remat``, and the launches of each wrapper in the backward alone."""
+    from repro_torch.kernels.ftimm import ops
+    cfg = dataclasses.replace(tcfg, remat=remat)
+    model = from_numpy_params(tree, cfg, "cpu", dtype=torch.float32)
+    calls = {"forward": {}, "backward": {}}
+    phase = ["forward"]
+    saved = {name: getattr(ops, name) for name in
+             ("gemm", "gemm_unfused", "gemm_swiglu", "batched_gemm")}
+
+    def counted(name):
+        def call(*args, **kwargs):
+            seen = calls[phase[0]]
+            seen[name] = seen.get(name, 0) + 1
+            return saved[name](*args, **kwargs)
+        return call
+
+    try:
+        for name in saved:
+            setattr(ops, name, counted(name))
+        loss, _ = tmodel.loss_fn(model, cfg, _torch_batch(batch))
+        phase[0] = "backward"
+        loss.backward()
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+    grads = to_numpy_tree({n: p.grad for n, p in model.named_parameters()})
+    return float(loss.detach()), grads, calls
+
+
+def test_remat_dots_gradients_bitwise_full_and_match_jax():
+    """``remat="dots"`` on qwen3-1.7b-smoke: the loss and every gradient
+    leaf bitwise equal to ``"full"`` (and to ``"none"``), and within 1e-4
+    of the reference's ``dots_with_no_batch_dims_saveable`` gradients."""
+    jcfg, tcfg = _configs(QWEN)
+    jcfg = dataclasses.replace(jcfg, remat="dots")
+    params = jmodel.init_params(jcfg, jax.random.PRNGKey(2))
+    tree = jax.tree.map(np.asarray, params)
+    batch = _batches(jcfg, 1)[0]
+    jgrads, _ = jax.grad(jmodel.loss_fn, has_aux=True)(
+        params, jcfg, jax.tree.map(jnp.asarray, batch))
+    want = dict(_leaves(jax.tree.map(np.asarray, jgrads)))
+    runs = {remat: _grads(tcfg, tree, batch, remat)
+            for remat in ("dots", "full", "none")}
+    dots = dict(_leaves(runs["dots"][1]))
+    assert sorted(dots) == sorted(want)
+    for remat in ("full", "none"):
+        assert runs[remat][0] == runs["dots"][0]
+        for name, g in _leaves(runs[remat][1]):
+            np.testing.assert_array_equal(dots[name], g, err_msg=name)
+    for name in want:
+        assert _err(dots[name], want[name]) <= TOL, name
+
+
+def test_remat_dots_launches_no_non_batched_product_again():
+    """The recompute under ``"dots"`` launches no dense product and no
+    dense SwiGLU pair: its backward launches exactly those of ``"none"``
+    (no recompute at all), ``"full"``'s backward 5 ``gemm`` and one pair a
+    layer more; the batched attention products are recomputed."""
+    jcfg, tcfg = _configs(QWEN)
+    tree = jax.tree.map(np.asarray,
+                        jmodel.init_params(jcfg, jax.random.PRNGKey(2)))
+    batch = _batches(jcfg, 1)[0]
+    calls = {remat: _grads(tcfg, tree, batch, remat)[2]
+             for remat in ("dots", "full", "none")}
+    layers = tcfg.num_layers
+    assert calls["dots"]["forward"] == calls["full"]["forward"] \
+        == calls["none"]["forward"]
+    full, dots, none = (calls[r]["backward"] for r in ("full", "dots",
+                                                        "none"))
+    assert full["gemm"] - dots["gemm"] == 5 * layers
+    assert full["gemm_swiglu"] - dots.get("gemm_swiglu", 0) == layers
+    assert dots["gemm"] == none["gemm"]
+    assert "gemm_swiglu" not in dots and "gemm_swiglu" not in none
+    assert dots["batched_gemm"] == full["batched_gemm"] \
+        == none["batched_gemm"] + 2 * layers
+
+
+def test_remat_unknown_mode_raises():
+    _, tcfg = _configs(QWEN)
+    cfg = dataclasses.replace(tcfg, remat="offload")
+    model = tmodel.init_params(cfg, 0, device="cpu", dtype=torch.float32)
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    with pytest.raises(ValueError, match="unknown remat"):
+        tmodel.loss_fn(model, cfg, {"tokens": toks, "labels": toks})
