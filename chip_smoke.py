@@ -254,6 +254,30 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    run's, the pool drained) and ``bucket_miss`` (one exact prefill within
    2e-2 of the bucketed one); ``plan_save_crash`` leaves the store on disk
    intact.  Every other phase must end with no degraded serving;
+13b. [contracts] the static contracts (``repro_torch.analysis``) on the
+   card: the device's opt-in shared memory per block (PyTorch's device
+   properties, or the CUDA runtime's attribute) must hold
+   ``HopperSpec.smem_per_block`` and every footprint the sweep admits (the
+   full sweep, with [autotune]'s stored records); under
+   ``REPRO_VERIFY=1`` qwen3-1.7b at 4 layers, mixtral-8x7b and
+   llama4-scout at 1 layer serve [serve]'s 6 requests, llama4 takes one
+   train step at 1 layer and qwen's dW ``tn`` runs through a stored
+   nsplit-4 record: every kernel launched, each kernel's distinct plans
+   checked (printed), no ContractError; every body of every kernel at K =
+   200 (no tile's step divides it) on operands that are views into NaN
+   (past K, M, N and the groups; the ragged kernels' rows no group owns
+   NaN too), finite and within the [check] tolerances of the plain
+   version; a store of three corrupt records (an uncompiled tile, a
+   footprint over budget, split-K on the SwiGLU pair) loaded on the card:
+   each quarantined with its code, each call then served by its analytic
+   plan;
+13c. [roofline] for every config a phase profiled (mamba2-370m,
+   zamba2-7b, whisper-base, llava-next-34b at 16 layers, gemma3-4b,
+   minitron-4b, qwen3-8b, llama4-scout-w8 at 8 layers), at its served
+   depth and the profiled window's cache rows: ``roofline.step_perf``'s
+   bytes and t_memory, the parameter bytes allocated on the card against
+   ``param_count()`` x the served width (within 2 %), and
+   ``profile_decode``'s device busy over the bound;
 14. [time] each kernel at the decode-step shapes of the model it serves, and
    the two backward kernels at the training shapes (split-K on its
    tensor-core and FMA bodies), and ftimm_gemm at qwen3-1.7b's training
@@ -291,6 +315,7 @@ import gc
 import inspect
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -304,10 +329,12 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.analysis.sweep import run_sweep  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.core import quant as QUANT  # noqa: E402
 from repro_torch.core.gemm import autotune, plan_store, tuner  # noqa: E402
+from repro_torch.core.gemm.cmr import H100  # noqa: E402
 from repro_torch.core.gemm import dispatch as D  # noqa: E402
 from repro_torch.core.gemm import (batched_matmul, grouped_matmul,  # noqa: E402
                                    grouped_swiglu, matmul, matmul_swiglu,
@@ -326,6 +353,9 @@ from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models.ssm import ssm_dims  # noqa: E402
 from repro_torch.models.weights import to_numpy_tree  # noqa: E402
 from repro_torch.optim import OptConfig, init_opt_state  # noqa: E402
+from repro_torch.roofline import build_roofline  # noqa: E402
+from repro_torch.roofline import model_flops_estimate, step_perf  # noqa: E402
+from repro_torch.roofline.perf_model import served_width  # noqa: E402
 from repro_torch.runtime import chaos  # noqa: E402
 from repro_torch.serve import engine as E  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
@@ -472,6 +502,11 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
 def free_card() -> None:
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def param_bytes(model) -> int:
+    """The bytes of a model's parameters as allocated on the card."""
+    return sum(p.numel() * p.element_size() for p in model.parameters())
 
 
 # ---------------------------------------------------------------------------
@@ -2348,6 +2383,7 @@ def serve_family(arch: str, dev) -> tuple[dict, dict, dict]:
     prof.pop("top_kernels")
     tokens = sum(len(r.out_tokens) for r in reqs)
     stats = {"layers": cfg.num_layers, "params_b": params / 1e9,
+             "param_bytes": param_bytes(model),
              "requests": len(reqs), "tokens": tokens, "wall_s": wall,
              "tokens_per_s": tokens / wall, "decode_steps": len(decode),
              "decode_step_median_ms": statistics.median(decode[1:]) * 1e3,
@@ -3655,6 +3691,7 @@ def serve_quant(mode: str, dev, profile: bool = False) -> dict:
         for name, count, ms in top[:6]:
             log(f"    top {ms:8.3f} ms x{count:<4d} {name[:90]}")
         out["profile"] = prof
+        out["param_bytes"] = param_bytes(model)
     del model
     free_card()
     return out
@@ -3889,6 +3926,7 @@ def serve_arch(arch: str, dev) -> tuple[dict, dict, dict]:
     prof.pop("top_kernels")
     tokens = sum(len(r.out_tokens) for r in reqs)
     stats = {"layers": cfg.num_layers, "params_b": params / 1e9,
+             "param_bytes": param_bytes(model),
              "requests": len(reqs), "prompt_lens": lens, "tokens": tokens,
              "wall_s": wall, "tokens_per_s": tokens / wall,
              "decode_steps": len(decode),
@@ -4380,6 +4418,368 @@ def train_dots_phase(dev, opt_cfg: OptConfig) -> dict:
     return {"layers": layers, "steps": DOTS_STEPS, **runs}
 
 
+# ---------------------------------------------------------------------------
+# [contracts]: the static contracts against the card, REPRO_VERIFY=1 on it,
+# NaN past every remainder, and the quarantine of corrupt records
+# ---------------------------------------------------------------------------
+
+VERIFY_LAYERS = {ARCH: 4, MIXTRAL: 1, LLAMA4: 1}   # served under REPRO_VERIFY
+POISON_K = 200      # no tile's K step (16, 32, 64) nor a slice divides it
+
+
+def smem_optin(dev) -> int:
+    """The device's opt-in shared memory per block, as PyTorch reports it
+    (or the CUDA runtime: cudaDevAttrMaxSharedMemoryPerBlockOptin)."""
+    props = torch.cuda.get_device_properties(dev)
+    value = getattr(props, "shared_memory_per_block_optin", None)
+    if value:
+        return int(value)
+    import ctypes
+    rt = ctypes.CDLL("libcudart.so")
+    out = ctypes.c_int()
+    if rt.cudaDeviceGetAttribute(ctypes.byref(out), 97, dev.index or 0):
+        raise RuntimeError("cudaDeviceGetAttribute failed")
+    return out.value
+
+
+def _verify_serve(arch: str, dev) -> None:
+    """[serve]'s 6 requests at VERIFY_LAYERS[arch] layers, every request
+    finished."""
+    cfg = dataclasses.replace(get_config(arch),
+                              num_layers=VERIFY_LAYERS[arch])
+    model = M.init_params(cfg, 0, device=dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, cfg.vocab_size, n).astype(np.int32)
+               for n in PROMPT_LENS]
+    done = _chaos_engine(cfg, model, dev).run(_chaos_requests(prompts))
+    if any(len(r.out_tokens) != NEW_TOKENS for r in done):
+        raise AssertionError(f"{arch}: a request did not finish under "
+                             "REPRO_VERIFY")
+    del model
+    free_card()
+
+
+def _verify_train(dev) -> float:
+    """One llama4-scout train step at 1 layer, 2 x 64 tokens."""
+    cfg = dataclasses.replace(get_config(LLAMA4), num_layers=1)
+    trainer = Trainer(cfg, ShapeConfig("verify", 64, 2, "train"), OptConfig(),
+                      seed=0, log_every=1, device=dev)
+    model, opt = trainer.run(1)
+    loss = trainer.metrics_log[0]["loss"]
+    del model, opt, trainer
+    free_card()
+    if not math.isfinite(loss):
+        raise AssertionError(f"llama4 train step under REPRO_VERIFY: {loss}")
+    return loss
+
+
+def _splitk_call(dev) -> float:
+    """qwen's gate / up dW, (1024, 2048)^T (1024, 6144) ``tn``, through a
+    stored nsplit-4 record; its normwise error against the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    a = _randn(gen, (TRAIN_TOKENS, 2048), BF16)
+    b = _randn(gen, (TRAIN_TOKENS, 6144), BF16, TRAIN_TOKENS ** -0.5)
+    a_ok, b_ok = K.gemm_operands_ok(a, b, "tn")
+    plan_store.get_store().put(
+        tuner.dense_key(2048, TRAIN_TOKENS, 6144, 2, 2, b_bytes=2, a_ok=a_ok,
+                        b_ok=b_ok, trans="tn"), SPLITK_RECORD)
+    tuner.clear_planner_caches()
+    got = matmul(a, b, trans="tn")
+    rel, _ = rel_err(got, K.ftimm_gemm_plain(a, b, trans="tn"))
+    plan_store.reset_store()
+    tuner.clear_planner_caches()
+    if rel > TOL[BF16]:
+        raise AssertionError(f"split-K under REPRO_VERIFY: {rel:.3g}")
+    return rel
+
+
+def verify_on_card(dev) -> dict:
+    """(b): REPRO_VERIFY=1 over runs that together launch all eight kernels;
+    every planned call's contracts asserted before its launch, counted by
+    kernel."""
+    os.environ["REPRO_VERIFY"] = "1"
+    tuner.clear_plan_cache()
+    K.reset_launch_counts()
+    try:
+        for arch in (ARCH, MIXTRAL, LLAMA4):
+            _verify_serve(arch, dev)
+        loss = _verify_train(dev)
+        splitk_rel = _splitk_call(dev)
+    finally:
+        del os.environ["REPRO_VERIFY"]
+    checked, launches = D.verify_stats(), K.launch_counts()
+    missing = [k for k in K.KERNELS if not checked.get(k) or not launches[k]]
+    if missing:
+        raise AssertionError(f"REPRO_VERIFY: {missing} not checked or not "
+                             f"launched: plans {checked}, launches {launches}")
+    log(f"  REPRO_VERIFY=1: qwen3-1.7b at {VERIFY_LAYERS[ARCH]} layers, "
+        f"mixtral-8x7b and llama4-scout at 1 layer served ({len(PROMPT_LENS)}"
+        f" requests each), one llama4 train step at 1 layer (loss "
+        f"{loss:.4f}), qwen's dW through a stored nsplit-4 record "
+        f"({splitk_rel:.2e} from plain); distinct plans checked by kernel "
+        f"{checked}; launches {launches}; no ContractError")
+    tuner.clear_plan_cache()
+    return {"plans_checked": checked, "launches": launches,
+            "llama4_train_loss": loss, "splitk_rel": splitk_rel}
+
+
+def _poisoned(gen, shape, dtype, scale=1.0, nan_rows=()) -> torch.Tensor:
+    """A (..., rows, cols) view into a larger buffer of NaN: every element
+    past its rows, its columns and its groups is NaN, and so are the rows
+    ``nan_rows`` of the view; rows stay 16-byte aligned (the tensor cores'
+    and streams' operands)."""
+    cols = shape[-1] + 8
+    cols += -cols % 8
+    full = [s + 3 for s in shape[:-1]] + [cols]
+    buf = torch.full(full, float("nan"), dtype=dtype, device=gen.device)
+    view = buf[tuple(slice(0, s) for s in shape)]
+    view.copy_(_randn(gen, shape, dtype, scale))
+    for r in nan_rows:
+        view[..., r, :] = float("nan")
+    return view
+
+
+def poison_cases(gen) -> list[tuple[str, str, object, object, torch.dtype]]:
+    """(kernel, label, run, plain, output type) for each body of each
+    kernel at K = POISON_K, every operand a view into NaN (``_poisoned``);
+    the ragged kernels' rows no group owns NaN too."""
+    k = POISON_K
+    s = k ** -0.5
+
+    def pz(shape, dtype, scale=1.0, nan_rows=()):
+        return _poisoned(gen, shape, dtype, scale, nan_rows)
+
+    cases = []
+    for body, dt, m in (("fma", FP32, 100), ("tc", BF16, 130),
+                        ("stream", BF16, 4)):
+        tile = {"fma": K.TILES[1], "tc": K.TC_TILES[0],
+                "stream": (4, 128, 64)}[body]
+        a, b = pz((m, k), dt), pz((k, 300), dt, s)
+        bt = pz((300, k), dt, s)
+        for trans, bb in (("nn", b), ("nt", bt)):
+            for ks in ((1, 2) if body == "stream" else (1,)):
+                cases.append((
+                    "ftimm_gemm", f"{body} {trans} x{ks}",
+                    functools.partial(K.ftimm_gemm, a, bb, bm=tile[0],
+                                      bn=tile[1], bk=tile[2], trans=trans,
+                                      body=body, kslices=ks),
+                    functools.partial(K.ftimm_gemm_plain, a, bb, trans=trans),
+                    dt))
+        x, wg, wu = pz((m, k), dt), pz((k, 300), dt, s), pz((k, 300), dt, s)
+        cases.append(("ftimm_gemm_swiglu", body, functools.partial(
+            K.ftimm_gemm_swiglu, x, wg, wu, bm=32, bn=64, bk=32, body=body),
+            functools.partial(K.ftimm_gemm_swiglu_plain, x, wg, wu), dt))
+        gm = min(m, 16) if body == "stream" else m // 5
+        ga, gb = pz((3, gm, k), dt), pz((3, k, 150), dt, s)
+        cases.append(("ftimm_gemm_grouped", body, functools.partial(
+            K.ftimm_gemm_grouped, ga, gb, bm=32, bn=64, bk=32, body=body),
+            functools.partial(K.ftimm_gemm_grouped_plain, ga, gb), dt))
+        gu = pz((3, k, 150), dt, s)
+        cases.append(("ftimm_gemm_grouped_swiglu", body, functools.partial(
+            K.ftimm_gemm_grouped_swiglu, ga, gb, gu, bm=32, bn=64, bk=32,
+            body=body), functools.partial(K.ftimm_gemm_grouped_swiglu_plain,
+                                          ga, gb, gu), dt))
+        sizes = (3, 0, 6, 2) if body == "stream" else (10, 0, 27, 8)
+        offs = _offsets(sizes, gen.device)
+        t = sum(sizes) + 5              # 5 rows no group owns
+        xr = pz((t, k), dt, nan_rows=range(sum(sizes), t))
+        wr, ur = pz((4, k, 150), dt, s), pz((4, k, 150), dt, s)
+        cases.append(("ftimm_gemm_ragged", body, functools.partial(
+            K.ftimm_gemm_ragged, xr, wr, offs, bm=32, bn=64, bk=32,
+            body=body), functools.partial(K.ftimm_gemm_ragged_plain, xr, wr,
+                                          offs), dt))
+        cases.append(("ftimm_gemm_ragged_swiglu", body, functools.partial(
+            K.ftimm_gemm_ragged_swiglu, xr, wr, ur, offs, bm=32, bn=64,
+            bk=32, body=body), functools.partial(
+                K.ftimm_gemm_ragged_swiglu_plain, xr, wr, ur, offs), dt))
+        if body == "stream":
+            continue
+        tile = K.TILES[1] if body == "fma" else K.TC_TILES[0]
+        sizes = (40, 0, 61, 39)
+        offs = _offsets(sizes, gen.device)
+        t = sum(sizes) + 10
+        xd = pz((t, 100), dt, nan_rows=range(sum(sizes), t))
+        dy = pz((t, 120), dt)
+        cases.append(("ftimm_gemm_ragged_dw", body, functools.partial(
+            K.ftimm_gemm_ragged_dw, xd, dy, offs, bm=tile[0], bn=tile[1],
+            bk=tile[2], body=body), functools.partial(
+                K.ftimm_gemm_ragged_dw_plain, xd, dy, offs), dt))
+        sa, sb = pz((m, k), dt), pz((k, 150), dt, s)
+        cases.append(("ftimm_gemm_splitk", f"{body} nsplit 3",
+                      functools.partial(K.ftimm_gemm_splitk, sa, sb,
+                                        bm=tile[0], bn=tile[1], bk=tile[2],
+                                        nsplit=3, body=body),
+                      functools.partial(K.ftimm_gemm_splitk_plain, sa, sb,
+                                        bk=tile[2], nsplit=3), dt))
+    return cases
+
+
+def check_poisoned(dev) -> dict[str, float]:
+    """(c): each body of each kernel against its plain version with NaN
+    past every remainder; the output must be finite and within TOL."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    worst: dict[str, float] = {}
+    K.reset_launch_counts()
+    for kernel, label, run, plain, dt in poison_cases(gen):
+        rel, _ = rel_err(run(), plain())
+        if rel > TOL[dt]:
+            raise AssertionError(f"{kernel} {label} with NaN past K = "
+                                 f"{POISON_K}: {rel:.3g} > {TOL[dt]}")
+        worst[f"{kernel} {label}"] = rel
+    bodies = K.body_counts()
+    unused = [(k, b) for k, v in bodies.items() for b, n in v.items()
+              if not n]
+    if unused:
+        raise AssertionError(f"bodies the poisoned cases missed: {unused}")
+    log(f"  NaN past K = {POISON_K} (not a multiple of any tile's step), M, "
+        f"N, the groups and the rows no group owns: {len(worst)} cases, "
+        "every body of every kernel, all finite; worst normwise "
+        + ", ".join(f"{k} {v:.1e}" for k, v in sorted(
+            worst.items(), key=lambda kv: -kv[1])[:4]))
+    free_card()
+    return worst
+
+
+def quarantine_on_card(dev) -> dict:
+    """(d): a store of three corrupt records for qwen's decode signatures,
+    loaded on the card: each quarantined with its code, each call then
+    served by its analytic plan, within TOL of the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    x, x2 = _randn(gen, (4, 2048), BF16), _randn(gen, (4, 6144), BF16)
+    w = _randn(gen, (2048, 6144), BF16, 2048 ** -0.5)
+    w2 = _randn(gen, (6144, 2048), BF16, 6144 ** -0.5)
+    wu = _randn(gen, (2048, 6144), BF16, 2048 ** -0.5)
+    up_ok, down_ok = K.gemm_operands_ok(x, w, "nn"), K.gemm_operands_ok(
+        x2, w2, "nn")
+    x_k, w_ok = K.swiglu_operands(x, w, wu)
+    records = {
+        tuner.dense_key(4, 2048, 6144, 2, 2, b_bytes=2, a_ok=up_ok[0],
+                        b_ok=up_ok[1]): (
+            {"body": "fma", "bm": 100, "bn": 32, "bk": 64},
+            "tile_not_compiled"),
+        tuner.dense_key(4, 6144, 2048, 2, 2, b_bytes=2, a_ok=down_ok[0],
+                        b_ok=down_ok[1]): (
+            {"body": "stream", "bm": 4, "bn": 128, "bk": 4096},
+            "smem_over_budget"),
+        tuner.dense_key(4, 2048, 6144, 2, 2, panels=2, b_bytes=2, a_ok=x_k,
+                        b_ok=w_ok): (
+            {"body": "fma", "bm": 16, "bn": 32, "bk": 64, "nsplit": 2},
+            "splitk_nonlinear_epilogue")}
+    path = ROOT / "build" / "corrupt_plans.json"
+    path.write_text(json.dumps({
+        "schema": plan_store.SCHEMA_VERSION,
+        "device_kind": plan_store.device_kind(dev),
+        "entries": {key: rec for key, (rec, _) in records.items()}}))
+    tuner.clear_plan_cache()
+    adopted = autotune.load_plan_cache(str(path))
+    quarantined = dict(plan_store.get_store().quarantined)
+    wrong = {key: quarantined.get(key) for key, (_, code) in records.items()
+             if code not in quarantined.get(key, [])}
+    if adopted or wrong:
+        raise AssertionError(f"corrupt records: {adopted} adopted, codes "
+                             f"{wrong}")
+    errs = {"up": rel_err(matmul(x, w), K.ftimm_gemm_plain(x, w))[0],
+            "down": rel_err(matmul(x2, w2), K.ftimm_gemm_plain(x2, w2))[0],
+            "pair": rel_err(matmul_swiglu(x, w, wu),
+                            K.ftimm_gemm_swiglu_plain(x, w, wu))[0]}
+    modes = tuner.plan_mode_stats()
+    if modes.get("dense") != {"analytic": 3, "quarantined": 3} or max(
+            errs.values()) > TOL[BF16]:
+        raise AssertionError(f"after the quarantine: plan modes {modes}, "
+                             f"errors {errs}")
+    log(f"  corrupt store loaded on the card: 0 adopted, quarantined "
+        f"{quarantined}; the three calls served by their analytic plans "
+        f"({modes['dense']}), normwise from plain "
+        + ", ".join(f"{k} {v:.1e}" for k, v in errs.items()))
+    tuner.clear_plan_cache()
+    return {"quarantined": quarantined, "plan_modes": modes["dense"],
+            "rel_err": errs}
+
+
+def contracts_phase(dev, store_path: str | None) -> dict:
+    """[contracts]: (a) the budget of the static contracts and of every
+    footprint the sweep admits against the card's opt-in shared memory per
+    block; (b) REPRO_VERIFY=1 on the card (``verify_on_card``); (c)
+    contract 3, NaN past every remainder (``check_poisoned``); (d) corrupt
+    records quarantined on the card (``quarantine_on_card``)."""
+    optin = smem_optin(dev)
+    t0 = time.monotonic()
+    report = run_sweep(cache_path=store_path)
+    sweep_s = time.monotonic() - t0
+    admitted = max(report["smem_admitted"].values())
+    log(f"  opt-in shared memory per block: {optin} B (the device); "
+        f"HopperSpec.smem_per_block {H100.smem_per_block} B; the largest "
+        f"footprint the sweep admits {admitted} B; sweep of "
+        f"{report['candidates_checked']} candidates, "
+        f"{report['coverage_contracts']} store contracts, "
+        f"{report['ragged_row_proofs']} ragged row proofs and "
+        f"{report['plan_cache']['entries']} stored records ({store_path}) "
+        f"in {sweep_s:.1f} s, {len(report['violations'])} violations")
+    if report["violations"] or max(H100.smem_per_block, admitted) > optin:
+        raise AssertionError(f"budget {H100.smem_per_block} / admitted "
+                             f"{admitted} vs the device's {optin}; "
+                             f"violations {report['violations'][:3]}")
+    return {"smem_optin": optin, "smem_per_block": H100.smem_per_block,
+            "smem_admitted": report["smem_admitted"], "sweep_s": sweep_s,
+            "sweep_candidates": report["candidates_checked"],
+            "stored_records": report["plan_cache"]["entries"],
+            "verify": verify_on_card(dev), "poisoned": check_poisoned(dev),
+            "quarantine": quarantine_on_card(dev)}
+
+
+# ---------------------------------------------------------------------------
+# [roofline]: the perf model's bound for each profiled decode step
+# ---------------------------------------------------------------------------
+
+PROFILE_ROWS = 24 + 3 + 5 // 2      # profile_decode: prompt, warm, mid-window
+
+
+def roofline_phase(profiled: dict[str, dict]) -> dict:
+    """For each config a phase profiled (``profile_decode``, 4 slots), at
+    the depth it served: ``step_perf``'s bytes and t_memory at that decode
+    shape (the cache rows of the profiled window, the patch rows in front
+    for llava), the parameter bytes allocated on the card against
+    ``param_count()`` x the served width (within 2 %), and the profiled
+    device busy over the bound."""
+    out = {}
+    for name, stats in profiled.items():
+        cfg = dataclasses.replace(get_config(name), num_layers=stats["layers"])
+        prof = stats["profile"]
+        shape = ShapeConfig("profiled decode",
+                            seq_len=PROFILE_ROWS + cfg.num_patches,
+                            global_batch=prof["slots"], kind="decode")
+        perf = step_perf(cfg, shape)
+        roof = build_roofline(arch=name, shape=shape.name,
+                              analytic_flops=perf.flops,
+                              analytic_bytes=perf.bytes_hbm,
+                              model_flops=model_flops_estimate(cfg, shape,
+                                                               "decode"))
+        counted = cfg.param_count() * served_width(cfg)
+        allocated = stats["param_bytes"]
+        if abs(counted - allocated) > 0.02 * allocated:
+            raise AssertionError(f"{name}: param_count x width {counted} B "
+                                 f"vs {allocated} B allocated")
+        busy = prof["device_busy_ms"]
+        out[name] = {"layers": cfg.num_layers, "bytes": perf.bytes_hbm,
+                     "weights_bytes": perf.breakdown["weights"][1],
+                     "t_memory_ms": roof.t_memory * 1e3,
+                     "t_compute_ms": roof.t_compute * 1e3,
+                     "param_bytes_counted": counted,
+                     "param_bytes_allocated": allocated,
+                     "device_busy_ms": busy,
+                     "busy_over_bound": busy / (roof.t_bound * 1e3),
+                     "roofline_fraction": roof.roofline_fraction}
+        log(f"  {name} at {cfg.num_layers} layers, {prof['slots']} x "
+            f"{shape.seq_len} rows: step_perf {perf.bytes_hbm / 1e9:.4f} GB "
+            f"(weights {perf.breakdown['weights'][1] / 1e9:.4f}) -> "
+            f"t_memory {roof.t_memory * 1e3:.3f} ms; parameters "
+            f"{allocated / 1e9:.4f} GB allocated, param_count x "
+            f"{served_width(cfg)} B = {counted / 1e9:.4f} GB "
+            f"({counted / allocated - 1:+.2%}); device busy {busy:.3f} ms "
+            f"= {out[name]['busy_over_bound']:.2f} x the bound")
+    return out
+
+
 def check_not_degraded(phase: str) -> None:
     """A phase other than [chaos] must end with no degraded serving: a real
     fused-kernel failure may not hide behind the rung."""
@@ -4636,6 +5036,22 @@ def main() -> int:
     log(f"[chaos] done in {phases['chaos']:.1f} s")
 
     t0 = time.monotonic()
+    log("[contracts] the static contracts on the card: the shared-memory "
+        "budget, REPRO_VERIFY=1, NaN past every remainder, corrupt records")
+    contracts_out = contracts_phase(dev, tuned["store_path"])
+    phases["contracts"] = time.monotonic() - t0
+    log(f"[contracts] done in {phases['contracts']:.1f} s")
+    check_not_degraded("contracts")
+
+    t0 = time.monotonic()
+    log("[roofline] the perf model's bound for every profiled decode step")
+    profiled = {**recurrent["serve"], **families, **archs["serve"],
+                f"{LLAMA4}-w8": quant["serving"]["w8"]}
+    roofline = roofline_phase(profiled)
+    phases["roofline"] = time.monotonic() - t0
+    log(f"[roofline] done in {phases['roofline']:.1f} s")
+
+    t0 = time.monotonic()
     log("[time] decode-step and training shapes")
     rows = timings(qwen_cases + moe_cases + rec_cases + fam_cases + trn_cases
                    + arch_cases, dev)
@@ -4659,7 +5075,8 @@ def main() -> int:
                     "train_reference": train_refs, "train": train_stats,
                     "train_schedule": witness, "autotune": tuned,
                     "quant": quant, "archs": archs, "train_dots": dots,
-                    "chaos": chaos_out, "phases_s": phases}))
+                    "chaos": chaos_out, "contracts": contracts_out,
+                    "roofline": roofline, "phases_s": phases}))
     log(card)
     bodies = {("serve", a): stats[a]["bodies"] for a in stats}
     bodies.update(rec_bodies)

@@ -54,17 +54,22 @@ weights are quantized on every call, as in the reference's serving.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
+import functools
+import os
 import warnings
 
 import torch
 
 from .. import quant as _quant
+from ...analysis import contracts as _contracts
 from ...kernels.ftimm import ops as _ops
 from ...kernels.ftimm.epilogue import IDENTITY, Epilogue
-from ...kernels.ftimm.kernel import (gemm_operands_ok, grouped_operands,
-                                     mkn, ragged_dw_operands_mn,
+from ...kernels.ftimm.kernel import (check_vectors, gemm_operands_ok,
+                                     grouped_operands, mkn,
+                                     ragged_dw_operands_mn,
                                      ragged_operands, row_groups,
                                      swiglu_operands)
 from ...runtime import chaos as _chaos
@@ -153,6 +158,55 @@ def _replayed(saved: torch.Tensor, *operands) -> torch.Tensor:
     return saved.detach()
 
 
+# ``REPRO_VERIFY=1``: the distinct (shape, plan) pairs whose contracts were
+# asserted, by kernel (``verify_stats``).  The variable is read once, by
+# ``reset_verify``, which ``tuner.clear_plan_cache`` calls.
+VERIFY_COUNTS: collections.Counter = collections.Counter()
+_VERIFY = False
+
+
+@functools.lru_cache(maxsize=4096)
+def _verify_cached(family: str, dims: tuple, plan, in_bytes: int,
+                   out_bytes: int, epi, swiglu: bool, ragged: str,
+                   b_bytes: int) -> bool:
+    _contracts.assert_plan(family, dims, plan, in_bytes=in_bytes,
+                           out_bytes=out_bytes, epilogue=epi, swiglu=swiglu,
+                           ragged=ragged, b_bytes=b_bytes, coverage=True)
+    VERIFY_COUNTS[_contracts.plan_kernel(
+        family, panels=2 if swiglu else 1, nsplit=plan.nsplit,
+        ragged=ragged)] += 1
+    return True
+
+
+def _verify(family: str, dims, plan, in_bytes: int, out_bytes: int, *,
+            epi=None, swiglu: bool = False, ragged: str = "m",
+            b_bytes: int | None = None) -> None:
+    """``REPRO_VERIFY=1`` mode: assert the static contracts
+    (``analysis.contracts.check_plan``, the launch's store coverage
+    included) on every planned call, raising ``ContractError`` before any
+    launch; memoized per (shape, plan).  Off, it costs one flag test."""
+    if _VERIFY:
+        _verify_cached(family, tuple(int(d) for d in dims), plan,
+                       int(in_bytes), int(out_bytes), epi, swiglu, ragged,
+                       int(b_bytes or in_bytes))
+
+
+def reset_verify() -> None:
+    """Read ``REPRO_VERIFY`` again and forget the plans already checked."""
+    global _VERIFY
+    _VERIFY = os.environ.get("REPRO_VERIFY", "") not in ("", "0")
+    _verify_cached.cache_clear()
+    VERIFY_COUNTS.clear()
+
+
+reset_verify()
+
+
+def verify_stats() -> dict[str, int]:
+    """{kernel: distinct plans whose contracts ``REPRO_VERIFY`` asserted}."""
+    return dict(sorted(VERIFY_COUNTS.items()))
+
+
 def _check_epi(epi: Epilogue, bias, residual, scale) -> None:
     for flag, operand, name in ((epi.bias, bias, "bias"),
                                 (epi.residual, residual, "residual"),
@@ -189,10 +243,13 @@ def _run_dense(a, b, trans: str, out_dtype, epi: Epilogue = IDENTITY,
     unfused rung), runs the identity kernel to fp32 and then the tail one
     op at a time (``Epilogue.decompose``), as the tuner timed it."""
     m, k, n = mkn(trans, a.shape, b.shape)
+    check_vectors(epi, bias, scale, n)    # before the rung can catch it
     a_ok, b_ok = gemm_operands_ok(a, b, trans)
     plan = plan_gemm(m, k, n, a.element_size(), out_dtype.itemsize,
                      b_bytes=b.element_size(), a_ok=a_ok, b_ok=b_ok,
                      trans=trans, fp8=_fp8(a, b))
+    _verify("dense", (m, k, n), plan, a.element_size(), out_dtype.itemsize,
+            epi=epi, b_bytes=b.element_size())
     note_plan_use("dense", plan)
     kw = dict(trans=trans, out_dtype=out_dtype, epilogue=epi, bias=bias,
               residual=residual, scale=scale, **plan.kernel_kwargs())
@@ -444,6 +501,9 @@ def _run_swiglu(x, wg, wu, out_dtype) -> torch.Tensor:
     plan = plan_gemm(x.shape[0], x.shape[1], wg.shape[1], x.element_size(),
                      out_dtype.itemsize, panels=2, b_bytes=wg.element_size(),
                      a_ok=x_k, b_ok=w_ok)
+    _verify("dense", (x.shape[0], x.shape[1], wg.shape[1]), plan,
+            x.element_size(), out_dtype.itemsize, swiglu=True,
+            b_bytes=wg.element_size())
     note_plan_use("dense", plan)
     note_epilogue("dense", True)
     return _fused_pair(
@@ -465,6 +525,8 @@ def _run_grouped_swiglu(x, wg, wu, out_dtype) -> torch.Tensor:
                              "a" if x.ndim == 2 else "none", panels=2,
                              b_bytes=wg.element_size(), a_major=a_major,
                              b_ok=g_ok and grouped_operands(x, wu, "nn")[1])
+    _verify("batched", (g, x.shape[-2], k, n), plan, x.element_size(),
+            out_dtype.itemsize, swiglu=True, b_bytes=wg.element_size())
     note_plan_use("batched", plan)
     note_epilogue("batched", True)
     return _fused_pair(
@@ -541,8 +603,10 @@ def _run_batched(a, b, trans: str, out_dtype, bias=None) -> torch.Tensor:
     plan = plan_batched_gemm(g, m, k, n, a.element_size(), out_dtype.itemsize,
                              shared, b_bytes=b.element_size(),
                              a_major=a_major, b_ok=b_ok, trans=trans)
-    note_plan_use("batched", plan)
     epi = IDENTITY if bias is None else Epilogue(bias=True)
+    _verify("batched", (g, m, k, n), plan, a.element_size(),
+            out_dtype.itemsize, epi=epi, b_bytes=b.element_size())
+    note_plan_use("batched", plan)
     if bias is not None:
         note_epilogue("batched", True)
     _chaos.fire("kernel")
@@ -656,8 +720,10 @@ def _run_ragged(x, w, offsets, trans: str, out_dtype,
                             out_dtype.itemsize, b_bytes=w.element_size(),
                             a_ok=x_k, b_ok=w_ok, trans=trans,
                             fp8=_fp8(x, w))
-    note_plan_use("ragged", plan)
     epi = Epilogue(bias=bias is not None, scale_vec=scale is not None)
+    _verify("ragged", (g, x.shape[0], k, n), plan, x.element_size(),
+            out_dtype.itemsize, epi=epi, b_bytes=w.element_size())
+    note_plan_use("ragged", plan)
     if not epi.is_identity:
         note_epilogue("ragged", True)
     _chaos.fire("kernel")
@@ -676,6 +742,9 @@ def _run_ragged_dw(x, dy, offsets, out_dtype) -> torch.Tensor:
     plan = plan_ragged_gemm(g, x.shape[0], x.shape[1], dy.shape[1],
                             x.element_size(), out_dtype.itemsize, ragged="k",
                             b_bytes=dy.element_size(), a_ok=x_mn, b_ok=dy_mn)
+    _verify("ragged", (g, x.shape[0], x.shape[1], dy.shape[1]), plan,
+            x.element_size(), out_dtype.itemsize, ragged="k",
+            b_bytes=dy.element_size())
     note_plan_use("ragged", plan)
     _chaos.fire("kernel")
     return _ops.ragged_gemm_dw(x, dy, offsets, bm=plan.bm, bn=plan.bn,
@@ -781,6 +850,8 @@ def _run_ragged_swiglu(x, wg, wu, offsets, out_dtype) -> torch.Tensor:
                             out_dtype.itemsize, panels=2,
                             b_bytes=wg.element_size(), a_ok=x_k,
                             b_ok=g_ok and ragged_operands(x, wu, "nn")[1])
+    _verify("ragged", (g, x.shape[0], k, n), plan, x.element_size(),
+            out_dtype.itemsize, swiglu=True, b_bytes=wg.element_size())
     note_plan_use("ragged", plan)
     note_epilogue("ragged", True)
     return _fused_pair(

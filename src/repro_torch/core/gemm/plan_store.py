@@ -19,8 +19,9 @@ measured on one card model is ignored wholesale on another, and on the CPU.
 Missing, corrupt or wrong-schema files are ignored: ``load`` returns 0 and
 never raises.  Records the port's kernels cannot run at all (an unknown
 body, a tile the kernels are not compiled for, shared memory over a
-block's budget, the TPU's padded-edge policy) are quarantined at load with
-a reason code each and never served.
+block's budget, the TPU's padded-edge policy, split-K where no split-K
+kernel is) are quarantined at load with the static contracts' reason codes
+(``analysis.contracts.check_record``) and never served.
 
 The file also carries the calibration fitted by ``autotune.calibrate``:
 the achievable fractions of the card's peak rate and bandwidth, so that
@@ -39,13 +40,8 @@ from dataclasses import dataclass, field
 
 import torch
 
-from ...kernels.ftimm.kernel import (BODIES, GROUP_TC_TILE, GSTREAM_ROWS,
-                                     STREAM_ROWS, STREAM_SLICE_STEP,
-                                     STREAM_SMEM, STREAM_STRIP, TC_STAGES,
-                                     TC_TILES, fma_tiles, gstream_smem,
-                                     smem_bytes)
+from ...analysis.contracts import check_record, errors
 from ...runtime.chaos import fire as _chaos_fire
-from .cmr import H100
 
 SCHEMA_VERSION = 1
 ENV_VAR = "REPRO_PLAN_CACHE"
@@ -239,97 +235,11 @@ class PlanStore:
         return path
 
 
-def _widths(key: str) -> tuple[int, int] | None:
-    """(A's width, B's width) of a key: its ``ib`` field and its ``bb``
-    fragment (B's width when it differs from A's); None if unparseable."""
-    parts = key.split("|")
-    try:
-        ib = int(parts[2].removeprefix("ib"))
-    except (IndexError, ValueError):
-        return None
-    bb = ib
-    for frag in (parts[4].split("+") if len(parts) > 4 else ()):
-        if frag.startswith("bb") and frag[2:].isdigit():
-            bb = int(frag[2:])
-    return ib, bb
-
-
-def _variant(key: str) -> tuple[str, int, bool] | None:
-    """(kernel, panels, group stream) of a key's family and fragments, or
-    None for an unknown family: the kernel whose tile menu and ring depth
-    the record must fit."""
-    parts = key.split("|")
-    if len(parts) < 4:
-        return None
-    frags = set(parts[4].split("+")) if len(parts) > 4 else set()
-    panels = 2 if "pair" in frags else 1
-    if parts[0] == "dense":
-        kernel = "ftimm_gemm_swiglu" if panels == 2 else "ftimm_gemm"
-        return kernel, panels, panels == 2
-    if parts[0] == "batched":
-        return "ftimm_gemm_grouped", panels, True
-    if parts[0] == "ragged":
-        if "ragged:k" in frags:
-            return "ftimm_gemm_ragged_dw", 1, False
-        return "ftimm_gemm_ragged", panels, True
-    return None
-
-
 def record_violations(key: str, rec: dict) -> list[str]:
     """Reason codes for a record the port's kernels cannot run: the
-    load-time quarantine.  Empty for a runnable record."""
-    variant = _variant(key)
-    if variant is None:
-        return ["malformed_key"]
-    kernel, panels, group = variant
-    try:
-        bm, bn, bk = int(rec["bm"]), int(rec["bn"]), int(rec["bk"])
-        body = str(rec.get("body", "fma"))
-        nsplit = int(rec.get("nsplit", 1))
-        kslices = int(rec.get("kslices", 1))
-        order = str(rec.get("dim_order", "mn"))
-    except (KeyError, TypeError, ValueError):
-        return ["malformed_record"]
-    bad = []
-    if order not in ("mn", "nm") or nsplit < 1 or kslices < 1:
-        bad.append("malformed_record")
-    if rec.get("edge", "masked") != "masked":
-        bad.append("edge_padded")       # every Hopper body masks its edges
-    if body not in BODIES or (body == "stream"
-                              and kernel == "ftimm_gemm_ragged_dw"):
-        return bad + ["unknown_body"]
-    if nsplit > 1 and (kernel != "ftimm_gemm" or body == "stream"):
-        bad.append("nsplit_invalid")    # split-K: dense, fma or tc only
-    widths = _widths(key)
-    if widths is None:
-        return bad + ["malformed_key"]
-    if nsplit > 1 and (widths[0] != widths[1] or 1 in widths):
-        # No split-K kernel takes a mixed or 1-byte pair (the reference's
-        # conservative quarantine: no such variant is ever measured).
-        bad.append("splitk_mixed_dtype")
-    staged = 0              # the register stream's staged rows
-    if body == "fma":
-        ok = (bm, bn, bk) in fma_tiles(*widths)
-        smem = smem_bytes(bm, bn, bk, panels)
-    elif body == "tc":
-        menu = TC_TILES if kernel in ("ftimm_gemm", "ftimm_gemm_ragged_dw") \
-            else (GROUP_TC_TILE,)
-        stages = TC_STAGES.get(kernel, TC_STAGES["ftimm_gemm"])
-        ok = (bm, bn, bk) in menu
-        smem = smem_bytes(bm, bn, bk, panels, body="tc", stages=stages)
-    elif group:
-        ok = bm == GSTREAM_ROWS and bn == STREAM_STRIP \
-            and bk > 0 and bk % STREAM_SLICE_STEP == 0
-        smem = gstream_smem(panels)
-    else:
-        ok = bm in STREAM_ROWS and bn == STREAM_STRIP \
-            and bk > 0 and bk % STREAM_SLICE_STEP == 0
-        smem, staged = smem_bytes(bm, bn, bk, body="stream"), bm * bk * 2
-    if not ok:
-        bad.append("tile_not_compiled")
-    if smem > H100.smem_per_block or staged > STREAM_SMEM:
-        bad.append("smem_over_budget")
-    return bad
+    load-time quarantine, ``analysis.contracts.check_record``'s errors.
+    Empty for a runnable record."""
+    return [v.code for v in errors(check_record(key, rec))]
 
 
 _STORE = PlanStore()

@@ -633,8 +633,9 @@ def plan_mode_stats() -> dict[str, dict[str, int]]:
 
 def clear_plan_cache() -> None:
     """Reset every plan-serving layer: the planner caches, the in-memory
-    plan store (the file is untouched), the telemetry counters and the
-    dispatch ladder's warn-once state."""
+    plan store (the file is untouched), the telemetry counters, the
+    dispatch ladder's warn-once state and its ``REPRO_VERIFY`` memo (the
+    variable read again)."""
     clear_planner_caches()
     PLAN_MODE_COUNTS.clear()
     EPILOGUE_COUNTS.clear()
@@ -642,6 +643,7 @@ def clear_plan_cache() -> None:
     plan_store.reset_store()
     from . import dispatch       # dispatch imports the tuner
     dispatch._WARNED_RUNGS.clear()
+    dispatch.reset_verify()
 
 
 def clear_planner_caches() -> None:

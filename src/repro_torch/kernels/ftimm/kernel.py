@@ -55,8 +55,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+from dataclasses import dataclass
 from pathlib import Path
+from typing import Callable
 
+import numpy as np
 import torch
 
 from . import ref
@@ -80,7 +83,9 @@ TILES = ((16, 32, 64), (32, 64, 32), (64, 64, 32), (128, 128, 16))
 # dW group's rows are one or two 64-row steps.
 TC_TILES = ((128, 128, 64), (128, 256, 64))
 TC_STAGES = {"ftimm_gemm": 4, "ftimm_gemm_ragged_dw": 2,
-             "ftimm_gemm_grouped": 4, "ftimm_gemm_ragged": 4}
+             "ftimm_gemm_grouped": 4, "ftimm_gemm_ragged": 4,
+             "ftimm_gemm_splitk": 4, "ftimm_gemm_swiglu": 4,
+             "ftimm_gemm_grouped_swiglu": 4, "ftimm_gemm_ragged_swiglu": 4}
 # The grouped and ragged kernels' one tensor-core tile (GroupedTcTile /
 # RaggedTcTile in csrc).
 GROUP_TC_TILE = TC_TILES[0]
@@ -425,6 +430,210 @@ def mkn(trans: str, a_shape, b_shape) -> tuple[int, int, int]:
 
 
 # ---------------------------------------------------------------------------
+# Launch grids: the grid each C entry launches and what each CTA stores,
+# for the static contracts (``analysis.contracts``).  The functions take
+# numpy arrays of block indices (x, y, z) and mirror the kernels' own
+# decode of blockIdx (csrc/ftimm_common.cuh: tile_coords_of, ragged_chunk;
+# csrc/ftimm_gstream.cuh: group_stream_kernel).
+# ---------------------------------------------------------------------------
+
+TC_BM = 128         # ftimm_tc.cuh: tc::BM, the tensor-core tile's rows
+PAIR_N = 128        # the SwiGLU pairs' tensor-core tile: output columns
+# The kernels whose C entries take the grid order (``nm_order``); the
+# others walk "mn" whatever the plan says.
+_ORDERED = {("ftimm_gemm", "fma"), ("ftimm_gemm", "tc"),
+            ("ftimm_gemm_swiglu", "tc"), ("ftimm_gemm_grouped", "fma"),
+            ("ftimm_gemm_grouped", "tc"), ("ftimm_gemm_splitk", "fma"),
+            ("ftimm_gemm_splitk", "tc")}
+_RAGGED = ("ftimm_gemm_ragged", "ftimm_gemm_ragged_swiglu")
+_GROUP_STREAM = {"ftimm_gemm_swiglu", "ftimm_gemm_grouped",
+                 "ftimm_gemm_grouped_swiglu", *_RAGGED}
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def tile_coords_of(t, bm: int, bn: int, m: int, n: int, nm_order: bool):
+    """(row tile, column tile) of tile ``t`` of the (M, N) grid, M outer
+    ("mn") or N outer ("nm"): csrc/ftimm_common.cuh, tile_coords_of."""
+    gm, gn = _cdiv(m, bm), _cdiv(n, bn)
+    return (t % gm, t // gm) if nm_order else (t // gn, t % gn)
+
+
+@dataclass(frozen=True)
+class LaunchGrid:
+    """One launch as its C entry sets it up.  ``grid``: the CUDA grid (x,
+    y, z).  ``arrival(x, y, z)`` -> (counter, slice): the CTAs that share
+    a counter sum ``slices`` K slices into one output, the last to arrive
+    storing it (a kernel without slices: one counter per CTA, slice 0).
+    ``store(x, y, z)`` -> the output tile a CTA stores, as a tuple of index
+    arrays over ``out_extent``.  The ragged forward kernels store rows that
+    the device offsets decide: ``store`` is None and ``rows(x, y, z,
+    offsets)`` -> (group, lo, hi, skip_lo, skip_hi) says that a CTA writes
+    rows [lo, hi) but [skip_lo, skip_hi) (its zero-fill slot skips the
+    rows some group owns), every column tile alike."""
+    kernel: str
+    body: str
+    grid: tuple[int, int, int]
+    out_extent: tuple[int, ...]
+    slices: int
+    arrival: Callable
+    store: Callable | None = None
+    rows: Callable | None = None
+
+
+def _one_per_cta(grid):
+    """Each CTA its own counter, slice 0."""
+    gx, gy, _ = grid
+    return lambda x, y, z: (x + gx * (y + gy * z), 0 * x)
+
+
+def _ragged_rows(bm: int, gn: int, t: int, g: int):
+    """csrc/ftimm_common.cuh, ragged_chunk (and ragged_zero_fill): CTA (x,
+    y) owns chunk x // gn of group y's rows, y == G the rows of chunk x //
+    gn that no group owns."""
+    def rows(x, y, z, offsets):
+        offs = np.asarray(offsets, dtype=np.int64)
+        chunk = x // gn
+        lo_all = np.clip(offs[0], 0, t)
+        hi_all = np.clip(offs[g], lo_all, t)
+        yg = np.minimum(y, g - 1) if g else y
+        lo = np.clip(offs[yg], 0, t)
+        hi = np.clip(offs[np.minimum(yg + 1, g)], lo, t)
+        zero = y == g
+        row0 = np.where(zero, chunk * bm, lo + chunk * bm)
+        end = np.where(zero, np.minimum(row0 + bm, t),
+                       np.minimum(row0 + bm, hi))
+        end = np.maximum(end, row0)
+        return (y, row0, end, np.where(zero, lo_all, 0),
+                np.where(zero, hi_all, 0))
+    return rows
+
+
+def _gstream_rows(t: int, g: int):
+    """csrc/ftimm_gstream.cuh, group_stream_kernel with offsets: slot z <
+    G writes the first min(rows, 16) rows of group z (the last CTA of its
+    counter); slot G, at slice 0 only, the rows no group owns."""
+    def rows(x, y, z, offsets):
+        offs = np.asarray(offsets, dtype=np.int64)
+        lo_all = np.clip(offs[0], 0, t)
+        hi_all = np.clip(offs[g], lo_all, t)
+        zg = np.minimum(z, g - 1) if g else z
+        lo = np.clip(offs[zg], 0, t)
+        hi = np.clip(offs[np.minimum(zg + 1, g)], lo, t)
+        zero = z == g
+        row0 = np.where(zero, 0, lo)
+        end = np.where(zero, np.where(y == 0, t, 0),
+                       lo + np.minimum(hi - lo, GSTREAM_ROWS))
+        return (z, row0, end, np.where(zero, lo_all, 0),
+                np.where(zero, hi_all, 0))
+    return rows
+
+
+def launch_grid(kernel: str, body: str, dims, tile, *,
+                dim_order: str = "mn", kslices: int = 1,
+                nsplit: int = 1) -> LaunchGrid:
+    """The grid ``kernel``'s ``body`` launches for ``dims`` ((M, K, N) for
+    ``ftimm_gemm``, its pair and split-K; (G, M, K, N) grouped; (G, T, K,
+    N) ragged; (G, T, D, F) the ragged dW) and the plan's ``tile`` (bm,
+    bn, bk; a stream's bm is its row count), as the C entries set it:
+    ftimm_gemm.cu (FMA, tensor cores, register stream), the grouped,
+    ragged and pair entries, ftimm_gemm_ragged_dw.cu, ftimm_gemm_splitk.cu,
+    and ftimm_gstream.cuh's (strip, slice, group) grid."""
+    bm, bn, _ = (int(v) for v in tile)
+    nm = (kernel, body) in _ORDERED and dim_order == "nm"
+    if body == "tc":
+        bm = TC_BM
+        if kernel not in ("ftimm_gemm", "ftimm_gemm_splitk",
+                          "ftimm_gemm_ragged_dw"):
+            bn = PAIR_N if "swiglu" in kernel else GROUP_TC_TILE[1]
+    if body == "stream":
+        if kernel in _GROUP_STREAM:
+            return _group_stream_grid(kernel, dims, kslices)
+        m, k, n = dims
+        _, slices = stream_slice(k, kslices)
+        strips = _cdiv(n, STREAM_STRIP)
+        return LaunchGrid(kernel, body, (strips, slices, 1),
+                          (_cdiv(m, bm), strips), slices,
+                          arrival=lambda x, y, z: (x, y),
+                          store=lambda x, y, z: (0 * x, x))
+    if kernel in _RAGGED:
+        g, t, _, n = dims
+        gn = _cdiv(n, bn)
+        grid = (_cdiv(t, bm) * gn, g + 1, 1)
+        return LaunchGrid(kernel, body, grid, (t, gn), 1,
+                          arrival=_one_per_cta(grid),
+                          rows=_ragged_rows(bm, gn, t, g))
+    if kernel == "ftimm_gemm_ragged_dw":
+        g, _, d, f = dims
+        gm, gn = _cdiv(d, bm), _cdiv(f, bn)
+        grid = (gm * gn, g, 1)
+        return LaunchGrid(
+            kernel, body, grid, (g, gm, gn), 1, arrival=_one_per_cta(grid),
+            store=lambda x, y, z: (y, *tile_coords_of(x, bm, bn, d, f,
+                                                      False)))
+    if kernel == "ftimm_gemm_splitk":
+        m, _, n = dims
+        gm, gn = _cdiv(m, bm), _cdiv(n, bn)
+        if body == "tc":    # blockIdx.x = tile * nsplit + split
+            grid = (gm * gn * nsplit, 1, 1)
+            return LaunchGrid(
+                kernel, body, grid, (gm, gn), nsplit,
+                arrival=lambda x, y, z: (x // nsplit, x % nsplit),
+                store=lambda x, y, z: tile_coords_of(x // nsplit, bm, bn, m,
+                                                     n, nm))
+        grid = (gm * gn, 1, nsplit)     # split z writes partial plane z
+        return LaunchGrid(
+            kernel, body, grid, (nsplit, gm, gn), 1,
+            arrival=_one_per_cta(grid),
+            store=lambda x, y, z: (z, *tile_coords_of(x, bm, bn, m, n, nm)))
+    if kernel in ("ftimm_gemm", "ftimm_gemm_swiglu"):
+        m, _, n = dims
+        gm, gn = _cdiv(m, bm), _cdiv(n, bn)
+        grid = (gm * gn, 1, 1)
+        return LaunchGrid(kernel, body, grid, (gm, gn), 1,
+                          arrival=_one_per_cta(grid),
+                          store=lambda x, y, z: tile_coords_of(x, bm, bn, m,
+                                                               n, nm))
+    if kernel in ("ftimm_gemm_grouped", "ftimm_gemm_grouped_swiglu"):
+        g, m, _, n = dims
+        gm, gn = _cdiv(m, bm), _cdiv(n, bn)
+        grid = (gm * gn, 1, g)
+        return LaunchGrid(
+            kernel, body, grid, (g, gm, gn), 1, arrival=_one_per_cta(grid),
+            store=lambda x, y, z: (z, *tile_coords_of(x, bm, bn, m, n, nm)))
+    raise ValueError(f"no launch grid for {kernel!r} ({body} body)")
+
+
+def _group_stream_grid(kernel: str, dims, kslices: int) -> LaunchGrid:
+    """ftimm_gstream.cuh's grid (128-column strip, K slice, group slot): one
+    slot for the dense pair, G for the grouped kernels, G + 1 for the
+    ragged (the last zero-fills the rows no group owns)."""
+    if kernel == "ftimm_gemm_swiglu":
+        (m, k, n), g = dims, 1
+    else:
+        g, m, k, n = dims
+    _, slices = stream_slice(k, kslices)
+    strips = _cdiv(n, STREAM_STRIP)
+
+    def arrival(x, y, z):
+        return z * strips + x, y
+
+    if kernel in _RAGGED:
+        return LaunchGrid(kernel, "stream", (strips, slices, g + 1),
+                          (m, strips), slices, arrival=arrival,
+                          rows=_gstream_rows(m, g))
+    if kernel == "ftimm_gemm_swiglu":
+        return LaunchGrid(kernel, "stream", (strips, slices, 1),
+                          (_cdiv(m, GSTREAM_ROWS), strips), slices,
+                          arrival=arrival, store=lambda x, y, z: (0 * x, x))
+    return LaunchGrid(kernel, "stream", (strips, slices, g),
+                      (g, _cdiv(m, GSTREAM_ROWS), strips), slices,
+                      arrival=arrival, store=lambda x, y, z: (z, 0 * x, x))
+
+
+# ---------------------------------------------------------------------------
 # Build and bind
 # ---------------------------------------------------------------------------
 
@@ -623,6 +832,25 @@ def _residual(residual, shape, dtype) -> torch.Tensor | None:
         raise ValueError(f"residual must have A's dtype {dtype}, "
                          f"got {residual.dtype}")
     return residual
+
+
+def vector_shapes(n: int, g: int | None = None) -> tuple:
+    """The shapes a flush vector (bias, scale) may take: (N,), broadcast
+    over the rows, and for the grouped and ragged kernels (``g`` groups)
+    also (G, N), one row per group."""
+    return ((n,),) if g is None else ((n,), (g, n))
+
+
+def check_vectors(epilogue: Epilogue, bias, scale, n: int,
+                  g: int | None = None) -> None:
+    """Raise ValueError when a flush vector the epilogue takes is not of
+    ``vector_shapes(n, g)``."""
+    for flag, v in ((epilogue.bias, bias), (epilogue.scale_vec, scale)):
+        if flag and v is not None and tuple(v.shape) not in vector_shapes(
+                n, g):
+            want = vector_shapes(n, g)
+            raise ValueError(f"epilogue vector {tuple(v.shape)} is not "
+                             + " nor ".join(str(s) for s in want))
 
 
 def _epi_scalars(epi: Epilogue) -> tuple[int, float, int]:
@@ -845,6 +1073,7 @@ def ftimm_gemm_grouped(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int,
     g = a.shape[0] if a.ndim == 3 else b.shape[0]
     m, k, n = mkn(trans, a.shape[-2:], b.shape[-2:])
     out_dtype = out_dtype or a.dtype
+    check_vectors(epilogue, bias, scale, n, g)
     if a.device.type == "cpu":
         return ftimm_gemm_grouped_plain(a, b, trans=trans, out_dtype=out_dtype,
                                         epilogue=epilogue, bias=bias,
@@ -855,10 +1084,6 @@ def ftimm_gemm_grouped(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int,
                            residual, scale)
     if g > 65535:
         raise ValueError(f"{g} groups exceed the grid's z extent (65535)")
-    for v in (bias, scale):
-        if v is not None and tuple(v.shape) not in ((n,), (g, n)):
-            raise ValueError(f"epilogue vector {tuple(v.shape)} is neither "
-                             f"({n},) nor ({g}, {n})")
     if body != "fma" and body not in grouped_bodies(
             a.element_size(), b.element_size(), m,
             *grouped_operands(a, b, trans)):
@@ -1033,6 +1258,7 @@ def ftimm_gemm_ragged(x: torch.Tensor, w: torch.Tensor,
         raise ValueError("the ragged kernel has no residual operand")
     g = w.shape[0]
     out_dtype = out_dtype or x.dtype
+    check_vectors(epilogue, bias, scale, n, g)
     if x.device.type == "cpu":
         return ftimm_gemm_ragged_plain(x, w, group_offsets, trans=trans,
                                        out_dtype=out_dtype, epilogue=epilogue,
@@ -1043,10 +1269,6 @@ def ftimm_gemm_ragged(x: torch.Tensor, w: torch.Tensor,
                            group_offsets, bias, scale)
     if g + 1 > 65535:
         raise ValueError(f"{g} groups exceed the grid's y extent (65534)")
-    for v in (bias, scale):
-        if v is not None and tuple(v.shape) not in ((n,), (g, n)):
-            raise ValueError(f"epilogue vector {tuple(v.shape)} is neither "
-                             f"({n},) nor ({g}, {n})")
     if body != "fma" and body not in ragged_bodies(
             x.element_size(), w.element_size(), t,
             *ragged_operands(x, w, trans)):

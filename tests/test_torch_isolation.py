@@ -38,7 +38,9 @@ def test_port_file_imports_neither_jax_nor_repro(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.serve, "
             "repro_torch.launch.serve, repro_torch.models.weights, "
-            "repro_torch.train, repro_torch.launch.train; "
+            "repro_torch.train, repro_torch.launch.train, "
+            "repro_torch.analysis, repro_torch.analysis.sweep, "
+            "repro_torch.roofline, repro_torch.configs.shapes; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad; print('clean')")
