@@ -278,6 +278,37 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    bytes and t_memory, the parameter bytes allocated on the card against
    ``param_count()`` x the served width (within 2 %), and
    ``profile_decode``'s device busy over the bound;
+13d. [dist] the mesh executors on process groups.  One H100 cannot run
+   NCCL across GPUs (NCCL refuses two ranks on one GPU), so two ranks
+   spawned after the build share cuda:0 over gloo (the host transport:
+   every exchange staged through host memory), meeting on a file://
+   store.  (a) each rank, bf16, against the one-rank call on the card:
+   ``dist_matmul`` k_parallel (gather and ring) at qwen3-1.7b's
+   down-projection (4, 6144)·(6144, 2048) + residual and m_parallel at a
+   prefill's (1024, 2048)·(2048, 6144), within 2e-2 normwise;
+   ``ep_ragged_moe`` forward and backward at llama4-scout's experts (16,
+   5120 x 8192 / 8192 x 5120), 64 rows skewed, all on one expert (rank
+   0's window empty) and balanced, both schedules, within 2e-2, each
+   rank launching the ragged pair, the ragged product and the ragged dW;
+   the identity round trip bitwise; ``ep_ring`` armed on both ranks and
+   on rank 0 only: both take the gather rung, counted on both, bitwise
+   the gather schedule's result.  (b) llama4-scout at full width and 8
+   layers on a (data 1, model 2) mesh, experts cut over "model" as they
+   are drawn (8 of 16 a rank), flash-decode over 40 of the 80 cache rows
+   a rank: 4 prompts of 50 tokens, ``prefill`` and 16 scalar-position
+   ``decode_step`` s fed the one-rank run's greedy tokens (that run first,
+   in this process, the card freed after it).  Held row by row: every
+   expert choice equal, or flipped at a near tie (the one-rank top-1
+   minus top-2 router logit < 0.1: one bf16 rounding moves such a token,
+   a different routing, not an error), and each row's logits before its
+   first flip within 5e-2 normwise with the same greedy token; the same
+   run in fp32 at 2 layers and 4 steps: every choice equal, logits within
+   1e-3, greedy tokens equal.  Each rank's decode median, launches a
+   step by kernel (flash-decode's ``ftimm_gemm_grouped``, EP's ragged
+   pair and product), staged bytes and host syncs a step.  (c) a one-rank
+   NCCL world (the device transport): (a)'s ``ep_ragged_moe`` and
+   ``dist_matmul`` calls bitwise the one-device composition of the same
+   products.  A rank's failure or the world's timeout fails the phase;
 14. [time] each kernel at the decode-step shapes of the model it serves, and
    the two backward kernels at the training shapes (split-K on its
    tensor-core and FMA bodies), and ftimm_gemm at qwen3-1.7b's training
@@ -4780,6 +4811,578 @@ def roofline_phase(profiled: dict[str, dict]) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# [dist]: the mesh executors on process groups
+# ---------------------------------------------------------------------------
+
+DIST_RANKS = 2
+DIST_TIMEOUT = 900          # seconds the spawned world may take in all
+DIST_TRANSPORT = "host (gloo: one GPU, NCCL needs one GPU a rank)"
+DIST_PROMPTS, DIST_PROMPT_LEN = 4, 50
+DIST_STEPS = 16
+DIST_MAX_LEN = 80           # 40 cache rows a rank
+SERVE_TOL = 5e-2            # full_width_reference's bf16 bound
+EP_ROWS = 64
+EP_ROUTINGS = {             # llama4-scout's 16 experts, 64 routed rows
+    "skewed": [34] + [2] * 15,
+    "one_expert": [0] * 12 + [EP_ROWS] + [0] * 3,   # rank 0's window empty
+    "balanced": [4] * 16}
+QWEN_DOWN = (4, 6144, 2048)         # k_parallel: decode down + residual
+QWEN_PREFILL = (1024, 2048, 6144)   # m_parallel: a prefill's gate / up
+
+
+def _seeded(shape, seed, dev, scale=1.0, dtype=BF16):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+
+def _ep_inputs(dev, routing: str):
+    """llama4-scout's expert panels (all 16) and one routing's rows."""
+    cfg = get_config(LLAMA4)
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    offs = _offsets(EP_ROUTINGS[routing], dev)
+    x = _seeded((EP_ROWS, d), 1, dev)
+    ct = _seeded((EP_ROWS, d), 2, dev)
+    panels = (_seeded((e, d, f), 3, dev, d ** -0.5),
+              _seeded((e, d, f), 4, dev, d ** -0.5),
+              _seeded((e, f, d), 5, dev, f ** -0.5))
+    return x, ct, panels, offs
+
+
+def _local_panels(panels, mesh, axis, grad=False):
+    nc, s = mesh.axis_size(axis), mesh.axis_index(axis)
+    g_l = panels[0].shape[0] // nc
+    return [w[s * g_l:(s + 1) * g_l].detach().clone().requires_grad_(grad)
+            for w in panels]
+
+
+def _one_device_moe(x, panels, offs, ct=None):
+    """The one-rank call: the ragged pair and down product on all panels
+    (with ``ct``: its backward too)."""
+    grad = ct is not None
+    xs = x.detach().clone().requires_grad_(grad)
+    ws = [w.detach().clone().requires_grad_(grad) for w in panels]
+    y = ragged_matmul(ragged_swiglu(xs, ws[0], ws[1], offs), ws[2], offs)
+    if not grad:
+        return y, None, None
+    y.backward(ct)
+    return y.detach(), xs.grad, [w.grad for w in ws]
+
+
+def _launched(before: dict) -> dict:
+    now = K.launch_counts()
+    return {k: now[k] - before.get(k, 0) for k in now if now[k] - before.get(
+        k, 0)}
+
+
+def _worst(pairs) -> float:
+    return max(rel_err(got, want)[0] for got, want in pairs)
+
+
+def dist_executor_cases(dev, mesh, axis) -> list[dict]:
+    """(a): each executor call on this rank beside the one-rank call on the
+    card; per case the worst normwise error, this rank's launches by
+    kernel, staged bytes and host syncs."""
+    from repro_torch.core.gemm import collective as COLL
+    from repro_torch.core.gemm import distributed as X
+    rank = mesh.axis_index(axis)
+    cases = []
+
+    def run(name, fn, tol=None, bitwise=False):
+        COLL.reset_counts()
+        tuner.DEGRADED_COUNTS.clear()
+        before = K.launch_counts()
+        torch.cuda.synchronize(dev)
+        t0 = time.monotonic()
+        err, extra = fn()
+        torch.cuda.synchronize(dev)
+        row = {"case": name, "rank": rank, "worst": err,
+               "launches": _launched(before), **COLL.counts(),
+               "s": time.monotonic() - t0, **extra}
+        if bitwise and err != 0.0:
+            raise AssertionError(f"[dist] {name}: not bitwise ({err})")
+        if tol is not None and err > tol:
+            raise AssertionError(f"[dist] {name}: error {err} > {tol}")
+        cases.append(row)
+
+    m, k, n = QWEN_DOWN
+    a, b = _seeded((m, k), 6, dev), _seeded((k, n), 7, dev, k ** -0.5)
+    res = _seeded((m, n), 8, dev)
+    want = matmul(a, b, epilogue=Epilogue(residual=True), residual=res)
+    for sched in ("gather", "ring"):
+        run(f"dist_matmul k_parallel {sched} {m}x{k}x{n} +residual",
+            lambda sched=sched: (rel_err(X.dist_matmul(
+                a, b, mesh=mesh, axis=axis, strategy="k_parallel",
+                schedule=sched, epilogue=Epilogue(residual=True),
+                residual=res), want)[0], {}), tol=TOL[BF16])
+    m, k, n = QWEN_PREFILL
+    a, b = _seeded((m, k), 9, dev), _seeded((k, n), 10, dev, k ** -0.5)
+    want = matmul(a, b)
+    run(f"dist_matmul m_parallel {m}x{k}x{n}",
+        lambda: (rel_err(X.dist_matmul(a, b, mesh=mesh, axis=axis,
+                                       strategy="m_parallel"), want)[0], {}),
+        tol=TOL[BF16])
+    del a, b, res, want
+
+    eye = torch.eye(get_config(LLAMA4).d_model, device=dev, dtype=BF16)
+    for routing in EP_ROUTINGS:
+        x, ct, panels, offs = _ep_inputs(dev, routing)
+        y1, dx1, dw1 = _one_device_moe(x, panels, offs, ct)
+        g_l = panels[0].shape[0] // mesh.axis_size(axis)
+        for sched in ("gather", "ring"):
+            def ep_case(sched=sched):
+                local = _local_panels(panels, mesh, axis, grad=True)
+                xg = x.detach().clone().requires_grad_(True)
+                y = X.ep_ragged_moe(xg, *local, offs, mesh=mesh, axis=axis,
+                                    schedule=sched)
+                y.backward(ct)
+                dws = [w.grad for w in local]
+                mine = [wd[rank * g_l:(rank + 1) * g_l] for wd in dw1]
+                return _worst([(y, y1), (xg.grad, dx1), *zip(dws, mine)]), {}
+            run(f"ep_ragged_moe {routing} {sched} fwd+bwd", ep_case,
+                tol=TOL[BF16])
+            eyes = eye.expand(g_l, -1, -1).contiguous()
+
+            def roundtrip(sched=sched):
+                got = X.ep_ragged_matmul(x, eyes, offs, mesh=mesh, axis=axis,
+                                         schedule=sched)
+                return (got.float() - x.float()).abs().max().item(), {}
+            run(f"identity round trip {routing} {sched}", roundtrip,
+                bitwise=True)
+            del eyes
+        del x, ct, panels, y1, dx1, dw1
+        free_card()
+    return cases
+
+
+def dist_ladder_cases(dev, mesh, axis, armed_on: tuple[int, ...]) -> dict:
+    """The ladder with ``ep_ring`` armed on the ranks ``armed_on``: every
+    rank must take the gather rung (counted on each) and give the gather
+    schedule's result bitwise."""
+    from repro_torch.core.gemm import distributed as X
+    rank = mesh.axis_index(axis)
+    x, _, panels, offs = _ep_inputs(dev, "skewed")
+    local = _local_panels(panels, mesh, axis)
+    want = X.ep_ragged_moe(x, *local, offs, mesh=mesh, axis=axis,
+                           schedule="gather")
+    tuner.DEGRADED_COUNTS.clear()
+    plan = chaos.parse_env("ep_ring@0") if rank in armed_on else None
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        with chaos.chaos(plan):
+            got = X.ep_ragged_moe(x, *local, offs, mesh=mesh, axis=axis,
+                                  schedule="ring")
+    degraded = tuner.degraded_stats()
+    tuner.DEGRADED_COUNTS.clear()
+    if degraded != {"ep:ring->gather": 1} or not torch.equal(got, want):
+        raise AssertionError(f"[dist] ladder armed on {armed_on}: rank "
+                             f"{rank} degraded {degraded}, equal "
+                             f"{torch.equal(got, want)}")
+    return {"armed_on": list(armed_on), "rank": rank, "degraded": degraded,
+            "bitwise_gather": True}
+
+
+# The two served runs of (b): bf16 at MOE_LAYERS layers (the main path),
+# and fp32 at REF_LAYERS layers (the gated reference: no near-tie routing).
+DIST_RUNS = {"bf16": (MOE_LAYERS, "bfloat16", DIST_STEPS),
+             "fp32": (REF_LAYERS, "float32", 4)}
+NEAR_TIE = 0.1      # top-1 minus top-2 router logit of a flipped choice
+
+
+def _llama4_path_cfg(kind: str = "bf16"):
+    layers, dtype, _ = DIST_RUNS[kind]
+    return dataclasses.replace(get_config(LLAMA4), num_layers=layers,
+                               compute_dtype=dtype)
+
+
+def _dist_prompts(cfg) -> torch.Tensor:
+    rng = np.random.default_rng(24)
+    return torch.as_tensor(rng.integers(2, cfg.vocab_size, (
+        DIST_PROMPTS, DIST_PROMPT_LEN)).astype(np.int64))
+
+
+@contextlib.contextmanager
+def _routing_log(calls: list):
+    """Record each router call's expert choices and input rows (kept on
+    the device until the run ends)."""
+    router = MOE._router
+
+    def recording(x, w, e, k):
+        out = router(x, w, e, k)
+        calls.append((out[1].detach().clone(), x.detach().clone()))
+        return out
+
+    MOE._router = recording
+    try:
+        yield calls
+    finally:
+        MOE._router = router
+
+
+def _drive_llama4(model, cfg, dev, steps: int, tokens=None):
+    """``prefill`` then ``steps`` scalar-position ``decode_step`` s, greedy
+    (or, with ``tokens`` (B, steps), fed those): -> the logits of every
+    call and every router call's choices and inputs on the CPU, the
+    tokens, the decode walls and the launches of the path."""
+    from repro_torch.core.gemm import collective as COLL
+    prompts = _dist_prompts(cfg).to(dev)
+    cache = M.make_cache(cfg, DIST_PROMPTS, DIST_MAX_LEN, device=dev)
+    calls: list = []
+    K.reset_launch_counts()
+    COLL.reset_counts()
+    with _routing_log(calls):
+        logits, cache = M.prefill(model, cfg, {"tokens": prompts}, cache)
+        torch.cuda.synchronize(dev)
+        before, coll0 = K.launch_counts(), COLL.counts()
+        outs, fed, walls = [logits], [], []
+        pos = DIST_PROMPT_LEN
+        for i in range(steps):
+            nxt = (logits.argmax(-1) if tokens is None
+                   else tokens[:, i].to(dev))[:, None]
+            fed.append(nxt)
+            t0 = time.monotonic()
+            logits, cache = M.decode_step(model, cfg, nxt, cache, pos)
+            torch.cuda.synchronize(dev)
+            walls.append(time.monotonic() - t0)
+            outs.append(logits)
+            pos += 1
+    launches = K.launch_counts()
+    coll = COLL.counts()
+    per_step = {k: (launches[k] - before[k]) / steps
+                for k in launches if launches[k] - before[k]}
+    return {"logits": [o.float().cpu() for o in outs],
+            "routing": [(i.cpu(), x.cpu()) for i, x in calls],
+            "tokens": torch.cat(fed, dim=1).cpu(),
+            "decode_ms": [w * 1e3 for w in walls],
+            "decode_median_ms": statistics.median(walls) * 1e3,
+            "launches": launches, "launches_per_step": per_step,
+            "staged_bytes_per_step": (coll["staged_bytes"]
+                                      - coll0["staged_bytes"]) / steps,
+            "host_syncs_per_step": (coll["host_syncs"]
+                                    - coll0["host_syncs"]) / steps,
+            "prefill_staged_bytes": coll0["staged_bytes"],
+            "cache_rows": cache["k"].shape[2]}
+
+
+def dist_one_rank(kind: str, dev, work: Path) -> dict:
+    """The one-rank run of ``kind`` in this process (greedy), its tokens
+    saved for the ranks; the logits, routing and router weights kept on
+    the CPU, the card freed."""
+    cfg = _llama4_path_cfg(kind)
+    model = M.init_params(cfg, 0, device=dev)
+    with torch.no_grad():
+        out = _drive_llama4(model, cfg, dev, DIST_RUNS[kind][2])
+    out["routers"] = [blk.moe.router.detach().float().cpu()
+                      for blk in model.layers]
+    del model
+    free_card()
+    torch.save({"tokens": out["tokens"]}, work / f"one_{kind}.pt")
+    return out
+
+
+def dist_serve_rank(dev, work: Path, kind: str) -> dict:
+    """(b) on this rank: llama4-scout at full width on a (data 1, model 2)
+    mesh, experts cut over "model" as they are drawn, the cache's sequence
+    cut over "model", fed the one-rank run's greedy tokens; its logits and
+    routing saved for the parent."""
+    from repro_torch.core import dist as DIST
+    from repro_torch.launch import sharding as SHARD
+    from repro_torch.launch.mesh import make_mesh
+    cfg = _llama4_path_cfg(kind)
+    mesh = make_mesh((1, DIST_RANKS), ("data", "model"), backend="gloo",
+                     device=dev)
+    ax = SHARD.expert_axis(mesh, True, "model", cfg.num_experts)
+    if ax != "model":
+        raise AssertionError(f"[dist] expert axis {ax!r}, not 'model'")
+    ctx = DIST.DistContext(mesh, sp_decode=True, moe_ep_axis=ax)
+    free_card()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = M.init_params(cfg, 0, device=dev, dist=ctx)
+    torch.cuda.synchronize(dev)
+    experts = {w.moe.w_gate.shape[0] for w in model.layers}
+    if experts != {cfg.num_experts // DIST_RANKS}:
+        raise AssertionError(f"[dist] a rank holds {experts} experts")
+    want = torch.load(work / f"one_{kind}.pt")
+    with torch.no_grad(), DIST.use_dist(ctx):
+        out = _drive_llama4(model, cfg, dev, DIST_RUNS[kind][2],
+                            tokens=want["tokens"])
+    rank = mesh.axis_index("model")
+    torch.save({"logits": out.pop("logits"),
+                "routing": [i for i, _ in out.pop("routing")]},
+               work / f"rank{rank}_{kind}.pt")
+    out.pop("tokens")
+    out.update(rank=rank, kind=kind, layers=cfg.num_layers,
+               param_gb=param_bytes(model) / 1e9,
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               experts=experts.pop())
+    del model
+    free_card()
+    return out
+
+
+def dist_hold(kind: str, one: dict, rank_out: dict, work: Path) -> dict:
+    """Hold one rank's run of ``kind`` against the one-rank run, sequence
+    by sequence (nothing mixes the batch rows).  fp32: every expert choice
+    equal, the logits within MOE_REF_TOL, the greedy tokens equal.  bf16:
+    a row's expert choice may flip only at a near tie -- each row's first
+    flipped choices have a one-rank top-1 minus top-2 router logit under
+    NEAR_TIE (one bf16 rounding moves such a token to another expert: a
+    different routing, not an error) -- and every row's logits before its
+    first flip must lie within SERVE_TOL with the same greedy token; after
+    it the row is reported, not gated."""
+    got = torch.load(work / f"rank{rank_out['rank']}_{kind}.pt")
+    layers = rank_out["layers"]
+    if len(got["routing"]) != len(one["routing"]):
+        raise AssertionError(f"[dist] {kind}: {len(got['routing'])} router "
+                             f"calls, one rank {len(one['routing'])}")
+    first: dict[int, tuple[int, int]] = {}      # row -> (step, call)
+    flips, gaps = 0, []
+    for i, (mine, (want, x)) in enumerate(zip(got["routing"],
+                                              one["routing"])):
+        step = i // layers
+        per_row = DIST_PROMPT_LEN if step == 0 else 1
+        bad = (mine != want).any(dim=-1).nonzero().flatten().tolist()
+        flips += len(bad)
+        for t in bad:
+            first.setdefault(t // per_row, (step, i))
+        fresh = [t for t in bad if first[t // per_row][1] == i]
+        if fresh:
+            logit = x[fresh].float() @ one["routers"][i % layers]
+            top = logit.topk(2, dim=-1).values
+            gaps += (top[:, 0] - top[:, 1]).tolist()
+    errs, same = [], []
+    for j, (g, w) in enumerate(zip(got["logits"], one["logits"])):
+        for row in range(g.shape[0]):
+            if row in first and j >= first[row][0]:
+                continue
+            errs.append(rel_err(g[row], w[row])[0])
+            same.append(bool(g[row].argmax() == w[row].argmax()))
+    everything = [rel_err(g, w)[0] for g, w in zip(got["logits"],
+                                                   one["logits"])]
+    tol = MOE_REF_TOL if kind == "fp32" else SERVE_TOL
+    if ((kind == "fp32" and flips) or any(g >= NEAR_TIE for g in gaps)
+            or max(errs, default=0.0) > tol or not all(same)):
+        raise AssertionError(
+            f"[dist] {kind} rank {rank_out['rank']}: {flips} expert "
+            f"choices flipped (rows' first flips {first}, gaps {gaps}), "
+            f"gated logits {errs}, greedy equal {same}")
+    return {"expert_choices": sum(int(i.numel()) for i in got["routing"]),
+            "flipped": flips, "first_flip_gaps": gaps,
+            "rows_flipped": {r: s for r, (s, _) in sorted(first.items())},
+            "gated": len(errs), "worst_logits_gated": max(errs, default=0.0),
+            "greedy_equal_gated": all(same),
+            "worst_logits": max(everything)}
+
+
+def dist_rank(rank: int, device: str, store: str, work: str, out_q) -> None:
+    """One rank of the [dist] world: gloo with its tensors on ``device``
+    (cuda:0 for both ranks: the host transport), the executor cases, the
+    ladder, then the served path."""
+    import traceback
+
+    import torch.distributed as tdist
+    from repro_torch.launch.mesh import make_mesh
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        tdist.init_process_group("gloo", init_method=f"file://{store}",
+                                 rank=rank, world_size=DIST_RANKS)
+        mesh = make_mesh((DIST_RANKS,), ("x",), backend="gloo", device=dev)
+        res = {"transport": mesh.transport, "backend": mesh.backend}
+        t0 = time.monotonic()
+        res["executors"] = dist_executor_cases(dev, mesh, "x")
+        res["ladder"] = [dist_ladder_cases(dev, mesh, "x", armed)
+                         for armed in ((0, 1), (0,))]
+        res["executors_s"] = time.monotonic() - t0
+        free_card()
+        t0 = time.monotonic()
+        res["serve"] = {kind: dist_serve_rank(dev, Path(work), kind)
+                        for kind in DIST_RUNS}
+        res["serve_s"] = time.monotonic() - t0
+        out_q.put(("ok", rank, res))
+    except BaseException:       # noqa: BLE001 -- reported, and the phase fails
+        out_q.put(("error", rank, traceback.format_exc()))
+    finally:
+        if "tdist" in locals() and tdist.is_initialized():
+            tdist.destroy_process_group()
+
+
+def dist_world(work: Path, dev) -> list[dict]:
+    """Spawn the DIST_RANKS ranks, all on ``dev``; wait for each one's
+    result (a rank's failure or the world's timeout fails the phase); stop
+    them all."""
+    import multiprocessing as mp
+    import queue
+    ctx = mp.get_context("spawn")
+    out_q = ctx.Queue()
+    procs = [ctx.Process(target=dist_rank,
+                         args=(r, str(dev), str(work / "store"), str(work),
+                               out_q))
+             for r in range(DIST_RANKS)]
+    for p in procs:
+        p.start()
+    results = [None] * DIST_RANKS
+    deadline = time.monotonic() + DIST_TIMEOUT
+    try:
+        for _ in range(DIST_RANKS):
+            left = deadline - time.monotonic()
+            try:
+                status, rank, value = out_q.get(timeout=max(left, 1))
+            except queue.Empty:
+                raise AssertionError(f"[dist] the {DIST_RANKS}-rank world "
+                                     f"did not finish in {DIST_TIMEOUT} s"
+                                     ) from None
+            if status != "ok":
+                raise AssertionError(f"[dist] rank {rank} failed:\n{value}")
+            results[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    return results
+
+
+def nccl_world_of_one(dev, work: Path) -> dict:
+    """(c): a one-rank NCCL world on the card (the device transport) runs
+    (a)'s ``ep_ragged_moe`` (a one-rank axis takes the gather schedule and
+    the dense realization: the probe needs two ranks, as the reference's)
+    and ``dist_matmul`` (three modes) calls; each must be bitwise the
+    one-device composition of the same products (the collectives of one
+    rank move nothing, and the executors take no shortcut)."""
+    import torch.distributed as tdist
+    from repro_torch.core.gemm import collective as COLL
+    from repro_torch.core.gemm import distributed as X
+    from repro_torch.launch.mesh import make_mesh
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    tdist.init_process_group(backend, init_method=f"file://{work}/one",
+                             rank=0, world_size=1)
+    out = {}
+    try:
+        mesh = make_mesh((1,), ("x",), device=dev)
+        if mesh.backend != backend or (backend == "nccl") != (
+                mesh.transport == "device"):
+            raise AssertionError(f"[dist] one-rank mesh {mesh.backend} / "
+                                 f"{mesh.transport}")
+        COLL.reset_counts()
+        before = K.launch_counts()
+        x, _, panels, offs = _ep_inputs(dev, "skewed")
+        want, _, _ = _one_device_moe(x, panels, offs)
+        for sched in ("gather", "ring"):      # a one-rank axis runs gather
+            got = X.ep_ragged_moe(x, *panels, offs, mesh=mesh, axis="x",
+                                  schedule=sched)
+            out[f"ep_ragged_moe {sched}"] = torch.equal(got, want)
+        out["exchange"] = COLL.exchange_method(mesh, "x")
+        del x, panels, want
+        m, k, n = QWEN_DOWN
+        a, b = _seeded((m, k), 6, dev), _seeded((k, n), 7, dev, k ** -0.5)
+        res = _seeded((m, n), 8, dev)
+        epi = Epilogue(residual=True)
+        want = epi.apply(matmul(a, b, out_dtype=FP32),
+                         residual=res).to(BF16)
+        for sched in ("gather", "ring"):
+            got = X.dist_matmul(a, b, mesh=mesh, axis="x",
+                                strategy="k_parallel", schedule=sched,
+                                epilogue=epi, residual=res)
+            out[f"dist_matmul k_parallel {sched}"] = torch.equal(got, want)
+        got = X.dist_matmul(a, b, mesh=mesh, axis="x", strategy="m_parallel",
+                            epilogue=epi, residual=res)
+        out["dist_matmul m_parallel"] = torch.equal(
+            got, matmul(a, b, epilogue=epi, residual=res))
+        torch.cuda.synchronize(dev)
+        launched = _launched(before)
+    finally:
+        tdist.destroy_process_group()
+    bad = [name for name, ok in out.items() if ok is False]
+    if bad:
+        raise AssertionError(f"[dist] one-rank NCCL not bitwise: {bad}")
+    return {"bitwise": out, "launches": launched}
+
+
+def dist_phase(dev) -> tuple[dict, dict]:
+    """[dist]: the one-rank llama4 runs (in this process, their results
+    moved to the CPU and the card freed), the 2-rank gloo world on cuda:0
+    ((a) the executors, the ladder; (b) llama4 served across the two
+    ranks, bf16 and the fp32 reference), then (c) the one-rank NCCL world.
+    -> (the phase's figures, each rank's launches of the bf16 path)."""
+    import tempfile
+    t_phase = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="dist_") as tmp:
+        work = Path(tmp)
+        t0 = time.monotonic()
+        one = {kind: dist_one_rank(kind, dev, work) for kind in DIST_RUNS}
+        one_s = time.monotonic() - t0
+        log(f"  one rank, bf16: decode median "
+            f"{one['bf16']['decode_median_ms']:.2f} ms, launches a step "
+            f"{one['bf16']['launches_per_step']}")
+        t0 = time.monotonic()
+        ranks = dist_world(work, dev)
+        world_s = time.monotonic() - t0
+        serve = []
+        for r in ranks:
+            for kind, s in r["serve"].items():
+                held = dist_hold(kind, one[kind], s, work)
+                if kind == "bf16":
+                    for name in ("ftimm_gemm_grouped", "ftimm_gemm",
+                                 "ftimm_gemm_ragged_swiglu",
+                                 "ftimm_gemm_ragged"):
+                        if not s["launches_per_step"].get(name):
+                            raise AssertionError(
+                                f"[dist] rank {s['rank']}: no {name} in a "
+                                "decode step")
+                serve.append({**s, **held})
+        for r in ranks:
+            for c in r["executors"]:
+                need = ["ftimm_gemm_ragged_swiglu", "ftimm_gemm_ragged"]
+                if "fwd+bwd" in c["case"]:
+                    need.append("ftimm_gemm_ragged_dw")
+                if c["case"].startswith("ep_ragged_moe") and not all(
+                        c["launches"].get(k) for k in need):
+                    raise AssertionError(f"[dist] {c['case']} rank "
+                                         f"{c['rank']}: launches "
+                                         f"{c['launches']}")
+        t0 = time.monotonic()
+        nccl = nccl_world_of_one(dev, work)
+        nccl_s = time.monotonic() - t0
+    for r in ranks:
+        for c in r["executors"]:
+            log(f"  rank {c['rank']} {c['case']:48s} worst {c['worst']:.2e} "
+                f"staged {c['staged_bytes']} B syncs {c['host_syncs']} "
+                f"launches {c['launches']}")
+    for s in serve:
+        log(f"  rank {s['rank']} {s['kind']} ({s['layers']} l.): "
+            f"{s['experts']} experts, {s['cache_rows']} cache rows, params "
+            f"{s['param_gb']:.2f} GB, peak {s['peak_gb']:.2f} GB; decode "
+            f"median {s['decode_median_ms']:.2f} ms (one rank "
+            f"{one[s['kind']]['decode_median_ms']:.2f} ms); a step: "
+            f"{s['launches_per_step']}, staged "
+            f"{s['staged_bytes_per_step']:.0f} B, host syncs "
+            f"{s['host_syncs_per_step']:.1f}; {s['flipped']} of "
+            f"{s['expert_choices']} expert choices flipped (rows' first "
+            f"flip steps {s['rows_flipped']}, gaps {s['first_flip_gaps']});"
+            f" logits {s['worst_logits_gated']:.2e} over {s['gated']} gated "
+            f"(row, call) pairs, {s['worst_logits']:.2e} in all")
+    launches = {(f"dist rank {s['rank']}", LLAMA4): s.pop("launches")
+                for s in serve if s["kind"] == "bf16"}
+    for s in serve:
+        s.pop("launches", None)
+    out = {"transport": DIST_TRANSPORT,
+           "one_rank": {kind: {k: o[k] for k in (
+               "decode_median_ms", "decode_ms", "launches_per_step",
+               "cache_rows")} for kind, o in one.items()},
+           "ranks": [{k: v for k, v in r.items() if k != "serve"}
+                     for r in ranks],
+           "serve": serve, "nccl_world_of_one": nccl,
+           "seconds": {"one_rank": one_s, "world": world_s, "nccl": nccl_s,
+                       "phase": time.monotonic() - t_phase}}
+    log(json.dumps({"dist": out}))
+    return out, launches
+
+
 def check_not_degraded(phase: str) -> None:
     """A phase other than [chaos] must end with no degraded serving: a real
     fused-kernel failure may not hide behind the rung."""
@@ -5044,6 +5647,17 @@ def main() -> int:
     check_not_degraded("contracts")
 
     t0 = time.monotonic()
+    log(f"[dist] the mesh executors on process groups: {DIST_RANKS} ranks on "
+        f"one card over {DIST_TRANSPORT}, llama4-scout at {MOE_LAYERS} "
+        "layers across them, and a one-rank NCCL world")
+    free_card()
+    dist_out, dist_launches = dist_phase(dev)
+    launches.update(dist_launches)
+    phases["dist"] = time.monotonic() - t0
+    log(f"[dist] done in {phases['dist']:.1f} s")
+    check_not_degraded("dist")
+
+    t0 = time.monotonic()
     log("[roofline] the perf model's bound for every profiled decode step")
     profiled = {**recurrent["serve"], **families, **archs["serve"],
                 f"{LLAMA4}-w8": quant["serving"]["w8"]}
@@ -5076,6 +5690,7 @@ def main() -> int:
                     "train_schedule": witness, "autotune": tuned,
                     "quant": quant, "archs": archs, "train_dots": dots,
                     "chaos": chaos_out, "contracts": contracts_out,
+                    "dist": dist_out,
                     "roofline": roofline, "phases_s": phases}))
     log(card)
     bodies = {("serve", a): stats[a]["bodies"] for a in stats}

@@ -28,9 +28,15 @@ a launch:
      nonlinear tail and a flush vector neither (N,) nor (G, N) are
      violations (``check_schedule``, ``check_epilogue_vectors``).
 
-The store keys' placement rules (strategy, schedule, the expert count a
-shard count divides) belong to the port's distributed layer, which is not
-ported: a sharded key is checked as a one-device record.
+  5. Placement (``check_placement``) -- a placed plan's strategy and
+     schedule are ones the mesh executors run: expert parallelism needs
+     the group count divisible by the shard count (as
+     ``launch.sharding.expert_axis`` rules), the ring schedule exists only
+     for dense k_parallel and ragged expert_parallel, and k_parallel should
+     leave every shard at least one tensor-core K step (a warning).  A
+     store key with ``|shardsN`` is held to these rules and to a tile the
+     body is compiled for; its local shape is the option's, not the key's,
+     so no shape check applies to it.
 
 This module imports nothing of ``core.gemm`` at module level (``dispatch``
 and ``plan_store`` import it); the device spec is resolved when a check
@@ -49,6 +55,12 @@ from ..kernels.ftimm import kernel as K
 from ..kernels.ftimm import ref as _ref
 
 FAMILIES = ("dense", "batched", "ragged")
+STRATEGIES = ("m_parallel", "k_parallel", "expert_parallel")
+SCHEDULES = ("gather", "ring")
+# The (family, strategy) pairs with an overlapped ring schedule: dense
+# K-parallel (``collective.ring_kparallel``) and ragged EP
+# (``collective.ring_forward`` / ``ring_backward``).
+_RING_LEGAL = {("dense", "k_parallel"), ("ragged", "expert_parallel")}
 _NDIMS = {"dense": 3, "batched": 4, "ragged": 4}
 _ORDERS = ("mn", "nm")
 # The kernels with a compiled 1-byte (quantized) type code, on their FMA
@@ -642,6 +654,65 @@ def check_contraction_masking(csrc: str | Path | None = None
 
 
 # ---------------------------------------------------------------------------
+# Contract 5: placement
+# ---------------------------------------------------------------------------
+
+def _placement_rules(family: str, dims: Sequence[int], strategy: Any,
+                     schedule: Any, nshards: int) -> list[Violation]:
+    """The rules a placement and a sharded store record share."""
+    if strategy not in STRATEGIES:
+        return [Violation("bad_strategy", f"placement strategy {strategy!r} "
+                                          f"not in {STRATEGIES}")]
+    if nshards < 1:
+        return [Violation("bad_shards", f"num_shards={nshards} must be >= 1")]
+    if schedule not in SCHEDULES:
+        return [Violation("bad_schedule", f"placement schedule {schedule!r} "
+                                          f"not in {SCHEDULES}")]
+    v: list[Violation] = []
+    if schedule == "ring" and (family, strategy) not in _RING_LEGAL:
+        v.append(Violation(
+            "ring_undefined",
+            f"ring schedule is undefined for ({family}, {strategy}); legal "
+            f"pairs: {sorted(_RING_LEGAL)}"))
+    if strategy == "expert_parallel":
+        if family not in ("batched", "ragged"):
+            v.append(Violation("strategy_family",
+                               f"expert_parallel is undefined for {family}"))
+        elif int(dims[0]) % nshards:
+            v.append(Violation(
+                "ep_indivisible",
+                f"{int(dims[0])} experts over {nshards} shards leaves ragged "
+                "expert placement; launch.sharding.expert_axis refuses this"))
+    elif strategy == "k_parallel" and family != "dense":
+        v.append(Violation("strategy_family",
+                           f"k_parallel is undefined for {family}"))
+    return v
+
+
+def check_placement(family: str, dims: Sequence[int], placement: Any,
+                    spec: Any = None) -> list[Violation]:
+    """Placement contracts of one plan: a known strategy, shard count and
+    schedule; the ring only where a chunk rotation is defined; EP only for
+    the grouped and ragged families, with the group count divisible by the
+    shard count; k_parallel only for dense, warned when a shard's K slice
+    is shorter than one tensor-core K step (``kernel.TC_TILES``)."""
+    nshards = int(getattr(placement, "num_shards", 1))
+    strategy = getattr(placement, "strategy", None)
+    v = _placement_rules(family, dims, strategy,
+                         getattr(placement, "schedule", "gather"), nshards)
+    if (strategy == "k_parallel" and family == "dense" and not errors(v)
+            and nshards > 1):
+        step = min(t[2] for t in K.TC_TILES)
+        k = int(dims[1])
+        if nshards > _cdiv(max(k, 1), step):
+            v.append(Violation(
+                "kparallel_overshard",
+                f"{nshards} K-shards over K={k} leave shards without a full "
+                f"{step}-wide tensor-core K step", severity="warning"))
+    return v
+
+
+# ---------------------------------------------------------------------------
 # The umbrella check
 # ---------------------------------------------------------------------------
 
@@ -672,6 +743,9 @@ def check_plan(family: str, dims: Sequence[int], plan: Any, *,
                           spec=spec, **tile)
     v += check_schedule(nsplit=nsplit, fuse=getattr(plan, "fuse", True),
                         epilogue=epilogue, swiglu=swiglu)
+    placement = getattr(plan, "placement", None)
+    if placement is not None and int(getattr(placement, "num_shards", 1)) > 1:
+        v += check_placement(family, dims, placement, spec=spec)
     if (coverage and not errors(v)
             and not (family == "ragged" and ragged == "m")):
         v += verify_contract(variant_contract(family, dims, plan,
@@ -736,8 +810,13 @@ def check_record(key: str, rec: Any, spec: Any = None) -> list[Violation]:
     split count, ``splitk_mixed_dtype`` (no split-K kernel takes such a
     pair, so no such record is ever measured); the rest are the plan
     contracts at the key's shape, widths and variant (``ragged:k`` the dW,
-    ``pair`` a SwiGLU pair, ``bb{n}`` B's width).  A ``|shardsN`` key is
-    checked as a one-device record."""
+    ``pair`` a SwiGLU pair, ``bb{n}`` B's width).  A ``|shardsN`` key's
+    record is a placed one: its ``strategy`` and ``schedule`` are held to
+    the placement rules (``bad_strategy``, ``bad_schedule``,
+    ``ring_undefined``, ``ep_indivisible``, ``strategy_family``) and its
+    tile to the tiles the body is compiled for (``tile_not_compiled``,
+    ``nonpositive_block``); the local shape it was measured at is the
+    placement option's, so no shape contract applies."""
     pk = parse_key(key)
     if (pk is None or pk.family not in FAMILIES
             or len(pk.dims) != _NDIMS[pk.family]):
@@ -778,6 +857,21 @@ def check_record(key: str, rec: Any, spec: Any = None) -> list[Violation]:
             "splitk_mixed_dtype",
             f"record for widths {widths} claims nsplit={nsplit}; no split-K "
             "kernel takes a mixed or 1-byte pair")]
+    if pk.num_shards > 1:
+        v = _placement_rules(pk.family, pk.dims, rec.get("strategy"),
+                             rec.get("schedule", "gather"), pk.num_shards)
+        if errors(v):
+            return v
+        if min(bm, bn, bk) <= 0 or nsplit <= 0:
+            return v + [Violation("nonpositive_block",
+                                  f"bm={bm} bn={bn} bk={bk} nsplit={nsplit}")]
+        kernel = plan_kernel(pk.family, panels=panels, nsplit=nsplit,
+                             ragged=ragged)
+        if not _tile_compiled(kernel, body, bm, bn, bk, widths):
+            v.append(Violation("tile_not_compiled",
+                               f"({bm}, {bn}, {bk}) is not a tile "
+                               f"{kernel}'s {body} body is compiled for"))
+        return v
     return check_plan(
         pk.family, pk.dims,
         _Record(bm, bn, bk, nsplit, dim_order, edge, body, kslices, fuse),

@@ -20,6 +20,11 @@ their grids fill the SMs with K slices: ``ftimm_gemm``'s FMAs priced at the
 FMA rate, the grouped / ragged stream's wgmma at the tensor cores').
 The estimate only ranks tiles and bodies; it is not a claim about the
 card's speed.
+
+A plan placed on a mesh adds an interconnect term: the bytes a rank
+sends over its NVLinks (``HopperSpec.link_bw``, the data sheet's 18
+links) for the K-parallel reduction or the expert-parallel exchange
+(``estimate_ep``, priced at the bottleneck rank).
 """
 from __future__ import annotations
 
@@ -50,6 +55,17 @@ class HopperSpec:
     peak_flops_fp32: float = 67e12         # CUDA cores, FMA
     peak_ops_int32: float = 33.5e12        # CUDA cores, integer multiply-add
                                            # (NVIDIA's H100 white paper)
+    # The interconnect term of a placed plan (the reference's ICI): the
+    # H100 SXM's fourth-generation NVLink, 18 links of 50 GB/s both ways
+    # together (900 GB/s a GPU, NVIDIA's data sheet) -- 25 GB/s a link in
+    # each direction, the rate one rank sends at.
+    nvlink_bw_per_link: float = 25e9       # bytes/s, one direction
+    nvlink_links: int = 18
+
+    @property
+    def link_bw(self) -> float:
+        """Bytes/s one GPU sends over all its NVLinks at once."""
+        return self.nvlink_bw_per_link * self.nvlink_links
 
     def kernel_flops(self, body: str = "fma", in_bytes: int = 4,
                      fp8: bool = False) -> float:
@@ -349,3 +365,43 @@ def estimate_ragged(g: int, total: int, k: int, n: int, *, bm: int, bn: int,
         smem_bytes=smem_bytes(bm, bn, bk, panels, body=body, stages=stages),
         occupancy=occ,
     )
+
+
+@dataclass(frozen=True)
+class EpEstimate:
+    """Modeled cost of ONE expert-parallel exchange leg over NVLink."""
+    link_bytes: float       # global bytes crossing the links (all ranks)
+    t_exchange: float       # seconds, set by the BOTTLENECK rank
+    imbalance: float = 1.0  # max-rank rows / mean-rank rows
+
+    def __add__(self, other: "EpEstimate") -> "EpEstimate":
+        return EpEstimate(self.link_bytes + other.link_bytes,
+                          self.t_exchange + other.t_exchange,
+                          max(self.imbalance, other.imbalance))
+
+
+EP_ZERO = EpEstimate(0.0, 0.0)
+
+
+def estimate_ep(rows: int, width: int, num_shards: int, *,
+                elt_bytes: int = 4, spec: HopperSpec = H100,
+                max_shard_rows: int | None = None) -> EpEstimate:
+    """Price one leg of the EP token exchange (the reference's
+    ``estimate_ep``, over NVLink).  A (rows, width) token matrix is
+    row-sharded over ``num_shards`` ranks, and each must send the
+    (num_shards - 1) / num_shards share of its rows that route to experts
+    other ranks own.  Bandwidth-bound, so t is one rank's send time over
+    its links -- and, as the slowest participant sets the clock, that of
+    the *max* rank: ``max_shard_rows`` (the largest rank's rows, when the
+    distribution is known) scales it by max / mean; None assumes balance.
+    One EP GEMM pays TWO legs (dispatch + return): add the estimates."""
+    if num_shards <= 1:
+        return EP_ZERO
+    frac = (num_shards - 1) / num_shards
+    link_bytes = float(rows) * width * elt_bytes * frac
+    mean_rows = rows / num_shards
+    imbalance = 1.0
+    if max_shard_rows is not None and mean_rows > 0:
+        imbalance = max(1.0, float(max_shard_rows) / mean_rows)
+    bottleneck = (link_bytes / num_shards) * imbalance
+    return EpEstimate(link_bytes, bottleneck / spec.link_bw, imbalance)

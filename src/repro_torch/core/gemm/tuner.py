@@ -16,9 +16,24 @@ is free afterwards.  Each planner first consults the measured plan store
 for the signature's key is matched against the call's candidates and
 served as ``mode == "cached"``; otherwise the plan is the CMR argmin
 (``"analytic"``), under the store's calibration when it has one
-(``effective_spec``).  Placement on a mesh is not ported yet.
-``plan_moe_dispatch`` sizes an MoE layer's expert GEMM rows and holds the
-capacity rounding rule that decides which tokens drop.
+(``effective_spec``).
+
+Placed on a mesh (``num_shards`` > 1), a plan also carries a ``Placement``:
+the paper's strategy lifted to the ranks -- m_parallel (Alg. 4: rows
+sharded, panels replicated, no collective), k_parallel (Alg. 5: the
+contraction sharded, the fp32 partials reduced over the links) or
+expert_parallel (the group dim sharded, the tokens exchanged) -- with its
+modeled interconnect term (``cmr.estimate_ep`` for the exchange, the ring
+all-reduce for K-parallel, both over the H100's NVLink) and its overlap
+``schedule`` ("gather": collective then product, times summed; "ring":
+chunks rotate while the next is computed, times maxed).  The candidate
+layouts are ``PlacementOption``s; the first (collective-free) one is
+preferred and a challenger must beat it by its margin (``_select_placed``,
+the paper's "clear modeled win").  Strategy and local tile are one
+decision: the placed plan's tile is the local shard's.
+``preferred_ep_schedule`` is what the EP executors ask when no schedule is
+forced.  ``plan_moe_dispatch`` sizes an MoE layer's expert GEMM rows and
+holds the capacity rounding rule that decides which tokens drop.
 """
 from __future__ import annotations
 
@@ -34,10 +49,33 @@ from ...kernels.ftimm.kernel import (GROUP_TC_TILE, GSTREAM_ROWS,
                                      ragged_dw_bodies, stream_rows,
                                      stream_slice)
 from . import plan_store
-from .cmr import (H100, HopperSpec, PlanEstimate, ceil_to, estimate,
-                  estimate_batched, estimate_group_stream, estimate_ragged,
-                  estimate_stream, with_epilogue)
+from .cmr import (H100, HopperSpec, PlanEstimate, cdiv, ceil_to, estimate,
+                  estimate_batched, estimate_ep, estimate_group_stream,
+                  estimate_ragged, estimate_stream, with_epilogue)
 from .shapes import GemmClass, classify
+
+
+@dataclass(frozen=True)
+class Placement:
+    """Where a plan runs on the mesh (None placement: one device).
+
+    ``strategy``: "m_parallel" (Alg. 4: shard the rows, replicate the
+    panels, no steady-state collective), "k_parallel" (Alg. 5: shard the
+    contraction, reduce the fp32 partials) or "expert_parallel" (shard the
+    group dim, exchange the tokens with their owning rank and back).
+    ``t_collective`` is the modeled NVLink term of that choice,
+    ``link_bytes`` the global bytes it moves, ``waste`` the load-imbalance
+    multiplier on the local estimate.  ``schedule`` "gather" runs the
+    collective and the local product back to back (``t_total`` sums them),
+    "ring" rotates chunks so each hop's transfer overlaps the next chunk's
+    product (``t_total`` takes the max)."""
+    strategy: str
+    num_shards: int = 1
+    axis: str | None = None         # the mesh axis (advisory; executors bind)
+    t_collective: float = 0.0
+    link_bytes: float = 0.0
+    waste: float = 1.0
+    schedule: str = "gather"
 
 
 @dataclass(frozen=True)
@@ -56,10 +94,25 @@ class GemmPlan:
     kslices: int = 1                # a stream body's K slices
     fuse: bool = True               # the epilogue in the flush, or (False,
                                     # a measured winner) as separate passes
+    placement: Placement | None = None
 
     @property
     def t_total(self) -> float:
-        return self.est.t_total if self.est is not None else 0.0
+        """The local estimate, composed with the placement's collective
+        term: x waste + collective ("gather"), max of the two ("ring")."""
+        t = self.est.t_total if self.est is not None else 0.0
+        p = self.placement
+        if p is not None:
+            if p.schedule == "ring":
+                t = max(t * p.waste, p.t_collective)
+            else:
+                t = t * p.waste + p.t_collective
+        return t
+
+    @property
+    def strategy(self) -> str:
+        return self.placement.strategy if self.placement is not None \
+            else "single"
 
     def kernel_kwargs(self) -> dict:
         return dict(bm=self.bm, bn=self.bn, bk=self.bk, nsplit=self.nsplit,
@@ -457,12 +510,279 @@ def _cached_ragged(g, total, k, n, in_bytes, out_bytes, ragged, cands,
                               **flags), cands)
 
 
+# ---------------------------------------------------------------------------
+# Placement options: the cross-rank layouts each family chooses between,
+# with their modeled NVLink and waste terms.
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class PlacementOption:
+    """One candidate cross-rank layout: the per-shard local problem
+    (``local_dims`` in the family's positional order), the modeled
+    ``Placement``, and the margin a challenger must beat the preferred
+    (first, collective-free) option by -- the paper's "clear modeled win"
+    rule for accepting a reduction or exchange."""
+    family: str
+    local_dims: tuple
+    placement: Placement
+    margin: float = 1.0
+    extra: str = ""
+
+    def candidates(self, in_bytes: int, out_bytes: int,
+                   spec: HopperSpec) -> list[GemmPlan]:
+        """The local problem's candidates (the store's records match
+        against them)."""
+        if self.family == "dense":
+            return gemm_candidates(*self.local_dims, in_bytes, out_bytes,
+                                   spec)
+        if self.family == "batched":
+            return batched_candidates(*self.local_dims, in_bytes, out_bytes,
+                                      self.extra, spec)
+        return ragged_candidates(*self.local_dims, in_bytes, out_bytes,
+                                 self.extra, spec)
+
+    def plan_local(self, in_bytes: int, out_bytes: int,
+                   spec: HopperSpec) -> GemmPlan:
+        if self.family == "dense":
+            return plan_gemm(*self.local_dims, in_bytes, out_bytes, spec)
+        if self.family == "batched":
+            return plan_batched_gemm(*self.local_dims, in_bytes, out_bytes,
+                                     self.extra, spec)
+        return plan_ragged_gemm(*self.local_dims, in_bytes, out_bytes,
+                                self.extra, spec)
+
+
+def _ring_allreduce_bytes(m: int, n: int, nc: int) -> float:
+    """Bytes one rank sends in a ring all-reduce of an (m, n) fp32 array."""
+    return 2.0 * (nc - 1) / nc * m * n * 4
+
+
+def dense_placement_options(m: int, k: int, n: int, nc: int,
+                            in_bytes: int = 4, out_bytes: int = 4,
+                            spec: HopperSpec = H100,
+                            axis: str | None = None) -> list[PlacementOption]:
+    """M-parallel vs K-parallel across ``nc`` ranks (paper Alg. 4 vs 5).
+    M-parallel shards M (a waste term when M does not fill the ranks) with
+    no steady-state collective.  K-parallel shards K and reduces the fp32
+    partials -- a ring all-reduce over NVLink -- so it must win by a clear
+    margin (paper Sec. IV-C: K-parallel "brings additional overhead of
+    reduction"), under both schedules: "gather" (product, then the
+    reduction: times summed) and "ring" (output chunks rotate while the
+    next chunk's partial is computed: the same bytes, times maxed).  The
+    reference rounds the local M to its TPU sublane and K to its 128-lane
+    panel; the H100's kernels mask both edges, so the local extents are
+    the exact quotients."""
+    m_local = max(cdiv(m, nc), 1)
+    waste_m = (cdiv(m, nc) * nc) / max(m, 1)
+    opts = [PlacementOption(
+        "dense", (m_local, k, n),
+        Placement("m_parallel", nc, axis=axis, waste=waste_m))]
+    k_local = max(cdiv(k, nc), 1)
+    sent = _ring_allreduce_bytes(m, n, nc)
+    for schedule in ("ring", "gather"):
+        opts.append(PlacementOption(
+            "dense", (m, k_local, n),
+            Placement("k_parallel", nc, axis=axis,
+                      t_collective=sent / spec.link_bw,
+                      link_bytes=sent * nc, schedule=schedule),
+            margin=1.15))
+    return opts
+
+
+def batched_placement_options(g: int, m: int, k: int, n: int, nc: int,
+                              in_bytes: int = 4, out_bytes: int = 4,
+                              shared: str = "none", spec: HopperSpec = H100,
+                              axis: str | None = None
+                              ) -> list[PlacementOption]:
+    """Per-entry m_parallel (rows sharded, every rank streams all G panels)
+    vs expert_parallel (the G dim sharded, the tokens exchanged with their
+    owning rank and back, priced by ``estimate_ep``); EP must amortize its
+    exchange before it displaces the collective-free layout."""
+    m_l = max(cdiv(m, nc), 1)
+    waste_m = (cdiv(m, nc) * nc) / max(m, 1)
+    opts = [PlacementOption(
+        "batched", (g, m_l, k, n),
+        Placement("m_parallel", nc, axis=axis, waste=waste_m), extra=shared)]
+    g_l = max(cdiv(g, nc), 1)
+    ex = (estimate_ep(g * m, k, nc, elt_bytes=in_bytes, spec=spec)
+          + estimate_ep(g * m, n, nc, elt_bytes=out_bytes, spec=spec))
+    opts.append(PlacementOption(
+        "batched", (g_l, m, k, n),
+        Placement("expert_parallel", nc, axis=axis,
+                  t_collective=ex.t_exchange, link_bytes=ex.link_bytes,
+                  waste=(g_l * nc) / max(g, 1)),
+        margin=1.1, extra=shared))
+    return opts
+
+
+def ragged_placement_options(g: int, total: int, k: int, n: int, nc: int,
+                             in_bytes: int = 4, out_bytes: int = 4,
+                             ragged: str = "m", spec: HopperSpec = H100,
+                             axis: str | None = None
+                             ) -> list[PlacementOption]:
+    """Token-parallel (rows sharded, panels replicated) vs expert-parallel
+    (groups sharded plus the two exchange legs), EP under both schedules.
+    EP "ring": token blocks rotate and each rank computes only the blocks
+    that meet its owned window, priced as min(total, 2 x t_l) local rows
+    with the rotation's bytes hidden behind them (times maxed).  EP
+    "gather": the exchange, then ONE local product over the worst-case
+    window -- every row could route to this rank's experts, so its local
+    estimate prices all ``total`` rows.  The EP dW (``ragged`` "k")
+    contracts rows that already live on the owning rank after the
+    forward's exchange: expert-local, no collective, no alternative."""
+    t_l = max(cdiv(total, nc), 1)
+    g_l = max(cdiv(g, nc), 1)
+    waste = (cdiv(total, nc) * nc) / max(total, 1)
+    if ragged == "k":
+        return [PlacementOption(
+            "ragged", (g_l, t_l, k, n),
+            Placement("expert_parallel", nc, axis=axis, waste=waste),
+            extra="k")]
+    opts = [PlacementOption(
+        "ragged", (g, t_l, k, n),
+        Placement("m_parallel", nc, axis=axis, waste=waste), extra="m")]
+    # Ring: (nc - 1) x-block hops and nc output-block hops a rank.
+    per_shard = (nc - 1) * t_l * k * in_bytes + nc * t_l * n * out_bytes
+    opts.append(PlacementOption(
+        "ragged", (g_l, min(total, 2 * t_l), k, n),
+        Placement("expert_parallel", nc, axis=axis,
+                  t_collective=per_shard / spec.link_bw,
+                  link_bytes=float(per_shard) * nc, waste=waste,
+                  schedule="ring"),
+        margin=1.1, extra="m"))
+    ex = (estimate_ep(total, k, nc, elt_bytes=in_bytes, spec=spec)
+          + estimate_ep(total, n, nc, elt_bytes=out_bytes, spec=spec))
+    opts.append(PlacementOption(
+        "ragged", (g_l, total, k, n),
+        Placement("expert_parallel", nc, axis=axis,
+                  t_collective=ex.t_exchange, link_bytes=ex.link_bytes,
+                  waste=waste),
+        margin=1.1, extra="m"))
+    return opts
+
+
+def _select_placed(scored: list[tuple[PlacementOption, GemmPlan]]
+                   ) -> GemmPlan:
+    """The first (collective-free) option is preferred; a challenger must
+    beat it by its margin (the paper's "clear modeled win" rule)."""
+    best = scored[0][1]
+    for opt, cand in scored[1:]:
+        if cand.t_total * opt.margin < best.t_total:
+            best = cand
+    return best
+
+
+def _placed(family: str, dims: tuple, in_bytes: int, out_bytes: int,
+            num_shards: int, options: list[PlacementOption],
+            spec: HopperSpec, extra: str = "") -> GemmPlan:
+    """The placed plan: a measured record under the ``|shardsN`` key when
+    the store has one whose strategy, schedule and local tile name an
+    option's candidate (``mode`` "cached"), else the analytic choice among
+    the options' local argmins."""
+    rec = plan_store.get_store().lookup(plan_store.shape_key(
+        family, dims, in_bytes, out_bytes, num_shards=num_shards,
+        extra=extra))
+    if rec is not None:
+        for opt in options:
+            if (opt.placement.strategy != rec.get("strategy")
+                    or opt.placement.schedule
+                    != rec.get("schedule", "gather")):
+                continue
+            local = _plan_from_record(
+                rec, opt.candidates(in_bytes, out_bytes, spec))
+            if local is not None:
+                return replace(local, placement=opt.placement)
+            break
+    return _select_placed([(o, replace(o.plan_local(in_bytes, out_bytes,
+                                                    spec),
+                                       placement=o.placement))
+                           for o in options])
+
+
+@functools.lru_cache(maxsize=4096)
+def preferred_ep_schedule(g: int, total: int, k: int, n: int,
+                          in_bytes: int = 4, out_bytes: int = 4,
+                          num_shards: int = 1, spec: HopperSpec = H100,
+                          serial: int = 1) -> str:
+    """Which EP schedule the model prefers for this ragged shape, "ring"
+    or "gather": what the EP executors take when the caller forces none.
+    ``serial`` multiplies every option's LOCAL term: the number of ranks
+    whose local products share one device and so run one after another
+    (the executors read it from the mesh: on a CPU gloo world or with two
+    ranks on one card it is the shard count; with a GPU a rank it is 1).
+    There the gather schedule's full-window product serializes over the
+    ranks while the ring's owned-rows-only product does not."""
+    if num_shards <= 1:
+        return "gather"
+    spec = effective_spec(spec)
+    best_t, best_s = float("inf"), "gather"
+    for o in ragged_placement_options(g, total, k, n, num_shards, in_bytes,
+                                      out_bytes, "m", spec):
+        if o.placement.strategy != "expert_parallel":
+            continue
+        local = (o.plan_local(in_bytes, out_bytes, spec).est.t_total
+                 * o.placement.waste * max(1, serial))
+        t = (max(local, o.placement.t_collective)
+             if o.placement.schedule == "ring"
+             else local + o.placement.t_collective)
+        if t < best_t:
+            best_t, best_s = t, o.placement.schedule
+    return best_s
+
+
+@dataclass(frozen=True)
+class DistPlan:
+    """The dense placed plan as the reference's compat view: ``local`` is
+    the per-shard ``GemmPlan``; the strategy and the costs read through to
+    its ``Placement``."""
+    local: GemmPlan
+    placement: Placement
+    mode: str = "analytic"
+
+    @property
+    def est(self) -> PlanEstimate | None:
+        return self.local.est
+
+    @property
+    def t_total(self) -> float:
+        return self.local.t_total
+
+    @property
+    def strategy(self) -> str:
+        return self.placement.strategy
+
+    @property
+    def num_cores(self) -> int:
+        return self.placement.num_shards
+
+    @property
+    def t_collective(self) -> float:
+        return self.placement.t_collective
+
+
+@functools.lru_cache(maxsize=8192)
+def plan_distributed(m: int, k: int, n: int, num_cores: int,
+                     in_bytes: int = 4, out_bytes: int = 4,
+                     spec: HopperSpec = H100) -> DistPlan:
+    """M-parallel vs K-parallel across ``num_cores`` ranks: the dense-only
+    entry point (``plan_gemm(..., num_shards=n)`` is the unified spelling
+    and returns the same placed plan).  A single-rank request still gets
+    an (m_parallel, 1 shard) placement, so ``strategy`` always reads."""
+    spec = effective_spec(spec)
+    nc = max(num_cores, 1)
+    p = _placed("dense", (m, k, n), in_bytes, out_bytes, nc,
+                dense_placement_options(m, k, n, nc, in_bytes, out_bytes,
+                                        spec), spec)
+    return DistPlan(local=p, placement=p.placement, mode=p.mode)
+
+
 @functools.lru_cache(maxsize=8192)
 def plan_gemm(m: int, k: int, n: int, in_bytes: int = 4, out_bytes: int = 4,
               spec: HopperSpec = H100, *, panels: int = 1,
               b_bytes: int | None = None, a_ok: bool = True,
               b_ok: bool = True, trans: str = "nn",
-              fp8: bool = False) -> GemmPlan:
+              fp8: bool = False, num_shards: int = 1,
+              axis: str | None = None) -> GemmPlan:
     """Pick the body and tile for C(M,N) = op(A)(M,K) op(B)(K,N): a
     measured record for the signature when the store has one
     (``mode == "cached"``), else the CMR argmin.  ``in_bytes`` /
@@ -472,8 +792,15 @@ def plan_gemm(m: int, k: int, n: int, in_bytes: int = 4, out_bytes: int = 4,
     keys the store (the analytic choice does not depend on it); ``fp8``:
     1-byte operands are fp8, not int8 (the price and the key).  The
     analytic plan always fuses the epilogue into the flush; a measured
-    winner may not (``fuse``)."""
+    winner may not (``fuse``).  ``num_shards`` > 1 places the product on
+    ``axis`` of a mesh too: the plan is the winning layout's local tile
+    with its ``Placement`` (m_parallel vs k_parallel; the layout flags then
+    take their defaults, as the executors' local products do)."""
     spec = effective_spec(spec)
+    if num_shards > 1:
+        return _placed("dense", (m, k, n), in_bytes, out_bytes, num_shards,
+                       dense_placement_options(m, k, n, num_shards, in_bytes,
+                                               out_bytes, spec, axis), spec)
     cands = gemm_candidates(m, k, n, in_bytes, out_bytes, spec,
                             panels=panels, b_bytes=b_bytes, a_ok=a_ok,
                             b_ok=b_ok, fp8=fp8)
@@ -487,14 +814,23 @@ def plan_batched_gemm(g: int, m: int, k: int, n: int, in_bytes: int = 4,
                       out_bytes: int = 4, shared: str = "none",
                       spec: HopperSpec = H100, *, panels: int = 1,
                       b_bytes: int | None = None, a_major: str | None = "k",
-                      b_ok: bool = True, trans: str = "nn") -> GemmPlan:
+                      b_ok: bool = True, trans: str = "nn",
+                      num_shards: int = 1,
+                      axis: str | None = None) -> GemmPlan:
     """Pick the body and tile for the grouped GEMM C(g) = A(g) B(g), from
     the store first (as ``plan_gemm``); ``shared`` marks a 2-D operand
     used by every group ("a" | "b" | "none"); ``panels`` = 2 plans the
     grouped SwiGLU pair; ``b_bytes``, ``a_major`` and ``b_ok`` as for
     ``batched_candidates`` (``kernel.grouped_operands`` gives the last
-    two); ``trans`` keys the store."""
+    two); ``trans`` keys the store.  ``num_shards`` > 1: per-entry
+    m_parallel vs expert_parallel on ``axis``."""
     spec = effective_spec(spec)
+    if num_shards > 1:
+        return _placed("batched", (g, m, k, n), in_bytes, out_bytes,
+                       num_shards, batched_placement_options(
+                           g, m, k, n, num_shards, in_bytes, out_bytes,
+                           shared, spec, axis), spec,
+                       extra=f"shared:{shared}")
     cands = batched_candidates(g, m, k, n, in_bytes, out_bytes, shared, spec,
                                panels=panels, b_bytes=b_bytes,
                                a_major=a_major, b_ok=b_ok)
@@ -509,7 +845,8 @@ def plan_ragged_gemm(g: int, total: int, k: int, n: int, in_bytes: int = 4,
                      spec: HopperSpec = H100, *, panels: int = 1,
                      b_bytes: int | None = None, a_ok: bool = True,
                      b_ok: bool = True, trans: str = "nn",
-                     fp8: bool = False) -> GemmPlan:
+                     fp8: bool = False, num_shards: int = 1,
+                     axis: str | None = None) -> GemmPlan:
     """Pick the tile for a ragged grouped GEMM over ``g`` groups.  The key
     (g, total, k, n, widths) is the distribution signature: the per-group
     counts stay on the device, so the plan prices the aggregate (total
@@ -522,8 +859,16 @@ def plan_ragged_gemm(g: int, total: int, k: int, n: int, in_bytes: int = 4,
     whether TMA reads x^T and dy MN-major (``kernel.ragged_dw_operands_mn``),
     ``b_bytes`` is dy's width (defaults to x's).  The store is consulted
     first, as in ``plan_gemm`` (``trans``: the forward's "nn" or the dX's
-    "nt" keys it; ``fp8`` as for ``plan_gemm``)."""
+    "nt" keys it; ``fp8`` as for ``plan_gemm``).  ``num_shards`` > 1:
+    token-parallel vs expert-parallel (both schedules) on ``axis``; the dW
+    is expert-local."""
     spec = effective_spec(spec)
+    if num_shards > 1:
+        return _placed("ragged", (g, total, k, n), in_bytes, out_bytes,
+                       num_shards, ragged_placement_options(
+                           g, total, k, n, num_shards, in_bytes, out_bytes,
+                           ragged, spec, axis), spec,
+                       extra=f"ragged:{ragged}")
     cands = ragged_candidates(g, total, k, n, in_bytes, out_bytes, ragged,
                               spec, panels=panels, b_bytes=b_bytes,
                               a_ok=a_ok, b_ok=b_ok, fp8=fp8)
@@ -560,7 +905,9 @@ def plan_moe_dispatch(t: int, e: int, top_k: int, d_model: int, d_ff: int,
     capacity is int(T * top_k * factor / E) rounded up to
     ``capacity_multiple(elt_bytes)``.  ``d_model`` / ``d_ff`` stay in the
     signature as in the reference (they size the layer's GEMMs for callers
-    that price the rows).  Expert placement on a mesh is not ported."""
+    that price the rows).  The reference's ``num_shards`` here is not
+    ported: the expert GEMMs' placement is ``plan_ragged_gemm`` /
+    ``plan_batched_gemm(num_shards=)``'s."""
     if dispatch == "ragged":
         return MoeDispatchPlan(rows=t * top_k)
     if dispatch != "capacity":
@@ -653,3 +1000,5 @@ def clear_planner_caches() -> None:
     plan_batched_gemm.cache_clear()
     plan_ragged_gemm.cache_clear()
     plan_moe_dispatch.cache_clear()
+    plan_distributed.cache_clear()
+    preferred_ep_schedule.cache_clear()

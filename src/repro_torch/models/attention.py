@@ -14,13 +14,23 @@ in the reference.  The softmax around them is plain PyTorch, as the
 reference composes it with jnp, so the training path (``blockwise_attention``
 without a cache) is differentiable end to end: its backward runs the
 grouped kernel's dX / dW products.
+
+Under a ``core.dist.DistContext`` with ``sp_decode`` and a model axis of
+more than one rank, a scalar-position decode takes ``flash_decode``, the
+paper's K-parallel strategy across ranks: each rank holds the cache rows
+[s S_l, (s+1) S_l) (``models.model.make_cache`` builds that block), writes
+a token's K / V only where it owns the row, computes its partial
+attention over its block and the partials merge with the log-sum-exp
+correction over the model axis.  The paged and per-row-position branches
+stay single-device, as in the reference.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from ..core.gemm import batched_matmul
+from ..core.dist import current_dist
+from ..core.gemm import batched_matmul, collective
 from .layers import dense, rms_norm, rope
 
 NEG_INF = -1e30
@@ -172,6 +182,62 @@ def decode_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, *,
     return out.reshape(b, sq, h, d).to(q.dtype)
 
 
+def sp_decoding(ctx) -> bool:
+    """Whether ``ctx`` (a ``DistContext`` or None) cuts the KV cache's
+    sequence over its model axis and decodes with ``flash_decode``."""
+    return ctx is not None and ctx.sp_decode and ctx.model_size > 1
+
+
+def flash_decode(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, *,
+                 pos: int, window: int, dist) -> torch.Tensor:
+    """Sequence-parallel decode attention (the reference's
+    ``flash_decode``): the paper's K-parallel strategy (Alg. 5) across the
+    model axis, a.k.a. flash-decoding.  q (B, 1, H, D) replicated; ck / cv
+    this rank's (B, S_l, KVH, D) block of the cache, rows [s S_l, (s+1)
+    S_l); ``pos`` the newest valid position.  Each rank computes its
+    partial (running max m, denominator l, accumulator) over its rows with
+    the grouped kernel (QK^T "nt", PV "nn", fp32 as in the reference); the
+    partials merge over the model axis with the log-sum-exp correction:
+    all_reduce(MAX) of m, then all_reduce(SUM) of l * corr and acc * corr.
+    A rank whose rows are all masked contributes corr = 0."""
+    b, _, h, d = q.shape
+    s_loc, kvh = ck.shape[1], ck.shape[2]
+    g = h // kvh
+    mesh, axis = dist.mesh, dist.model_axis
+    kv_pos = (mesh.axis_index(axis) * s_loc
+              + torch.arange(s_loc, device=q.device))
+    qg = q[:, 0].reshape(b * kvh, g, d).to(torch.float32)
+    kf = ck.to(torch.float32).permute(0, 2, 1, 3).reshape(b * kvh, s_loc, d)
+    s_ = batched_matmul(qg, kf, trans="nt", out_dtype=torch.float32
+                        ).reshape(b, kvh, g, s_loc) * (d ** -0.5)
+    pos_t = torch.tensor([pos], device=q.device)
+    msk = _mask(pos_t, kv_pos, window, causal=True)[0]
+    s_ = s_.masked_fill(~msk[None, None, None, :], NEG_INF)
+    m = s_.amax(dim=-1)
+    p = torch.exp(s_ - m[..., None])
+    l = p.sum(dim=-1)
+    vf = cv.to(torch.float32).permute(0, 2, 1, 3).reshape(b * kvh, s_loc, d)
+    acc = batched_matmul(p.reshape(b * kvh, g, s_loc), vf, trans="nn",
+                         out_dtype=torch.float32).reshape(b, kvh, g, d)
+    # The LSE-corrected reduction over the model axis (Alg. 5 line 12).
+    gm = collective.raw_all_reduce(m, mesh, axis, "max")
+    corr = torch.exp(m - gm)
+    l_g = collective.raw_all_reduce(l * corr, mesh, axis)
+    acc_g = collective.raw_all_reduce(acc * corr[..., None], mesh, axis)
+    out = acc_g / torch.clamp_min(l_g, 1e-30)[..., None]
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def _write_owned(cache: torch.Tensor, new: torch.Tensor, idx: int,
+                 r0: int) -> None:
+    """Write positions [idx, idx + S) of ``new`` into the rows of the
+    cache block that starts at global row ``r0`` and owns them."""
+    lo = max(idx, r0)
+    hi = min(idx + new.shape[1], r0 + cache.shape[1])
+    if lo < hi:
+        cache[:, lo - r0:hi - r0] = new[:, lo - idx:hi - idx].to(cache.dtype)
+
+
 def attention(x: torch.Tensor, params: AttentionParams, *, num_heads: int,
               num_kv_heads: int, head_dim: int, positions: torch.Tensor,
               window: int = 0, causal: bool = True, qk_norm: bool = False,
@@ -253,14 +319,25 @@ def attention(x: torch.Tensor, params: AttentionParams, *, num_heads: int,
                                    window=window)
         else:
             idx = int(cache_index)
-            ck[:, idx:idx + s] = k.to(ck.dtype)
-            cv[:, idx:idx + s] = v.to(cv.dtype)
+            ctx = current_dist()
+            sp = sp_decoding(ctx)
+            if sp:
+                r0 = ctx.mesh.axis_index(ctx.model_axis) * ck.shape[1]
+                _write_owned(ck, k, idx, r0)
+                _write_owned(cv, v, idx, r0)
+            else:
+                ck[:, idx:idx + s] = k.to(ck.dtype)
+                cv[:, idx:idx + s] = v.to(cv.dtype)
             if s > 1:
                 # Prefill from an empty cache: the fresh K/V span the whole
                 # valid range, so attend over them directly.
                 out = blockwise_attention(
                     q, k, v, q_positions=positions, kv_positions=positions,
                     window=window, causal=causal, block_kv=block_kv)
+            elif sp:
+                # K-parallel decode across ranks (paper Alg. 5).
+                out = flash_decode(q, ck, cv, pos=idx + s - 1,
+                                   window=window, dist=ctx)
             else:
                 kv_pos = torch.arange(ck.shape[1], device=x.device)
                 out = blockwise_attention(

@@ -37,7 +37,9 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..core.device import resolve_device
-from .attention import param
+from ..core.dist import current_dist
+from ..launch.sharding import shard_block
+from .attention import param, sp_decoding
 from .layers import dense, embed, rms_norm, unembed
 from .transformer import (RECURRENT_FAMILIES, DenseBlock, SSMBlock, as_dtype,
                           check_family, compute_dtype, init_cache,
@@ -70,7 +72,8 @@ class DenseLM(nn.Module):
 
 def init_params(cfg: ModelConfig, seed: int = 0, *,
                 device: str | torch.device | None = None,
-                dtype: str | torch.dtype | None = None) -> DenseLM:
+                dtype: str | torch.dtype | None = None,
+                dist=None) -> DenseLM:
     """Random weights from a ``torch.Generator`` seeded with ``seed``, with
     the reference's distributions (embedding N(0, 0.02^2), He-scaled
     projections, router and experts, the frame and patch projections, zero
@@ -81,7 +84,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     ``dtype=None`` (serving) keeps the weights in the compute dtype, with no
     gradient.  A ``dtype`` asks for training masters (``cfg.param_dtype``):
     the weights in that dtype, requiring grad, cast to the compute dtype at
-    use.  Norm scales are fp32 either way."""
+    use.  Norm scales are fp32 either way.
+
+    ``dist`` (a ``core.dist.DistContext``): this rank's serving state, each
+    block cut by ``launch.sharding.shard_block`` as soon as it is drawn --
+    the draws are the one-device model's, bitwise, and a rank never holds
+    more than one layer's other experts at a time."""
     check_family(cfg)
     device = resolve_device(device)
     train = dtype is not None
@@ -92,8 +100,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     encdec = cfg.family == "encdec"
     block = (init_ssm_block if cfg.family in RECURRENT_FAMILIES
              else functools.partial(init_dense_block, cross=encdec))
-    layers = [block(gen, cfg, device, dt, train)
-              for _ in range(cfg.num_layers)]
+    layers = []
+    for _ in range(cfg.num_layers):
+        layers.append(block(gen, cfg, device, dt, train))
+        if dist is not None:
+            shard_block(layers[-1], dist)
     extra = {}
     if cfg.family == "hybrid":
         extra["shared_attn"] = init_dense_block(gen, cfg, device, dt, train)
@@ -192,9 +203,20 @@ def make_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
     """KV cache sized for ``max_len`` positions (vlm: and the
     ``num_patches`` patch rows in front of them; encdec: and the encoder
     rows' cross K / V), or the SSM state (and the hybrid's shared-block KV)
-    of ``batch_size`` rows."""
-    return init_cache(cfg, batch_size, max_len + (cfg.num_patches or 0),
-                      device)
+    of ``batch_size`` rows.  Under a ``DistContext`` that decodes
+    sequence-parallel (``attention.sp_decoding``), a dense, moe or vlm
+    model's K / V caches hold this rank's block of the positions, S / nc
+    rows (the model axis size must divide S); the other families' caches
+    stay whole (the SSM head cut is not ported: ROADMAP Queue 1 item 10)."""
+    rows = max_len + (cfg.num_patches or 0)
+    ctx = current_dist()
+    if sp_decoding(ctx) and cfg.family in ("dense", "moe", "vlm"):
+        nc = ctx.model_size
+        if rows % nc:
+            raise ValueError(f"a {rows}-row cache does not divide over the "
+                             f"{nc} ranks of the model axis")
+        rows //= nc
+    return init_cache(cfg, batch_size, rows, device)
 
 
 @torch.no_grad()

@@ -26,19 +26,32 @@ reference does: the gate and up products are two quantized
 ``ragged_matmul`` calls to fp32 (the fused pair would need two dequant
 vectors in one flush), silu(g) * u runs in fp32 and is cast to the compute
 type, then the quantized down product.  The router is never quantized.
-Capacity dispatch with ``quant`` raises, as in the reference.  Expert
-parallelism (the reference's ``ep_ragged_moe``) is not ported; on one
-device the reference never takes the expert-parallel branch.
+Capacity dispatch with ``quant`` raises, as in the reference.
+
+Expert parallelism: under a ``core.dist.DistContext`` whose
+``moe_ep_axis`` has more than one rank and divides the expert count
+(``launch.sharding.ep_axis``, the reference's ``_ep_axis``), the ragged
+mode runs its expert GEMMs through ``ep_ragged_moe``: the routing (router,
+sort, offsets) is computed alike on every rank, the tokens go to the rank
+that owns their expert and back, and the block's panels are this rank's
+G / nc experts (``launch.sharding.shard_block`` cut them).  As in the
+reference, that branch comes first and runs the panels unquantized: the
+exchange moves activations, not panels, so a ``quant`` mode buys it no
+wire bytes.  Capacity dispatch is not expert-parallel, as in the
+reference.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from ..core.gemm import (grouped_matmul, grouped_swiglu, plan_moe_dispatch,
-                         project, ragged_matmul, ragged_swiglu)
+from ..core.dist import current_dist
+from ..core.gemm import (ep_ragged_moe, grouped_matmul, grouped_swiglu,
+                         plan_moe_dispatch, project, ragged_matmul,
+                         ragged_swiglu)
 from ..core.quant import QuantConfig
 from ..core.quant import resolve as resolve_quant
+from ..launch.sharding import ep_axis
 from .attention import param
 
 
@@ -153,7 +166,8 @@ def _moe_mlp_ragged(x: torch.Tensor, params: MoEParams, *, num_experts: int,
                     qcfg: QuantConfig = QuantConfig()):
     """Capacity-free dispatch: stable sort by expert, device prefix sums,
     the fused ragged gate/up pair (or, quantized, the two quantized
-    products and silu(g) * u) and the ragged down projection, then the
+    products and silu(g) * u; or, expert-parallel, ``ep_ragged_moe`` on
+    this rank's panels) and the ragged down projection, then the
     gate-weighted un-sort (a scatter-add; with top-1 it has no duplicate
     rows, so it is deterministic)."""
     t, d = x.shape
@@ -172,7 +186,13 @@ def _moe_mlp_ragged(x: torch.Tensor, params: MoEParams, *, num_experts: int,
     xs = xc[tok_sorted]                                         # (T*K, D)
     wg, wu, wd = (w.to(compute_dtype)
                   for w in (params.w_gate, params.w_up, params.w_down))
-    if qcfg.is_noop:
+    ctx = current_dist()
+    axis = ep_axis(ctx, e)
+    if axis is not None:
+        # Fused EP pipeline: one d_model-wide exchange each way; the
+        # (rows, d_ff) hidden stays on the rank owning the expert.
+        ys = ep_ragged_moe(xs, wg, wu, wd, offsets, mesh=ctx.mesh, axis=axis)
+    elif qcfg.is_noop:
         h = ragged_swiglu(xs, wg, wu, offsets)                  # (T*K, F)
         ys = ragged_matmul(h, wd, offsets)
     else:

@@ -14,16 +14,18 @@ probe calls the production code already makes (``fire``/``should_fire``) —
 when no plan is active the probe is one attribute read, so the hot paths
 pay nothing.
 
-Sites (the port wires all but ``ep_ring``, ``ep_gather`` and
-``burst_arrival``, which belong to its expert-parallel executors and serve
-benchmark; ``parse_env`` accepts them all, as the reference's does):
+Sites (the port wires all but ``burst_arrival``, which belongs to the
+serve benchmark, not ported yet; ``parse_env`` accepts them all, as the
+reference's does):
 
     kernel          any planned ftIMM kernel launch (the port raises:
                     kernel or raise, there is no plain-version rung)
     kernel_fused    only the fused-epilogue kernel and the one-launch
                     SwiGLU pairs (fused -> unfused rung)
-    ep_ring         the EP ring-schedule executor (ring -> gather rung)
-    ep_gather       the EP gather exchange (gather -> single-device rung)
+    ep_ring         the EP ring-schedule executor (ring -> gather rung;
+                    the ranks agree before any takes it)
+    ep_gather       the EP gather exchange (gather -> single rung: the
+                    panels gathered, the ragged kernels on all of them)
     shard_loss      a training step boundary (raises ``HostFailure``;
                     payload ``chips`` = lost chip count)
     nan_logits      serve decode output (poisons one slot's logits row;

@@ -388,6 +388,9 @@ def test_plan_store_quarantines_with_the_contracts_codes(tmp_path):
                                            "nsplit": 2},
         "dense|128x2048x6144|ib2|ob2": {"bm": 100, "bn": 32, "bk": 64},
         "dense|128x2048x6144|ib2|ob2|shards4": {"bm": 100, "bn": 32,
+                                                "bk": 64,
+                                                "strategy": "m_parallel"},
+        "dense|128x2048x6144|ib2|ob2|shards2": {"bm": 128, "bn": 128,
                                                 "bk": 64},
         "dense|12xab|ib4|ob4": {"bm": 16, "bn": 32, "bk": 64},
         "ragged|4x16x64x64|ib2|ob2|ragged:m": {"bm": 16, "bn": "x",
@@ -402,6 +405,7 @@ def test_plan_store_quarantines_with_the_contracts_codes(tmp_path):
                                            "splitk_unsupported"],
         "dense|128x2048x6144|ib2|ob2": ["tile_not_compiled"],
         "dense|128x2048x6144|ib2|ob2|shards4": ["tile_not_compiled"],
+        "dense|128x2048x6144|ib2|ob2|shards2": ["bad_strategy"],
         "dense|12xab|ib4|ob4": ["malformed_key"],
         "ragged|4x16x64x64|ib2|ob2|ragged:m": ["malformed_record"]}
     assert st.lookup(good) is not None

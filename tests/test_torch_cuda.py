@@ -1548,3 +1548,103 @@ def test_remat_dots_gradients_bitwise_on_the_card(dev):
     layers = cfg0.num_layers
     assert cf["ftimm_gemm"] - cd["ftimm_gemm"] == 5 * layers
     assert cf["ftimm_gemm_swiglu"] - cd["ftimm_gemm_swiglu"] == layers
+
+
+# ---------------------------------------------------------------------------
+# The mesh executors on the card (-k dist).  One H100 cannot test NCCL
+# across GPUs (NCCL refuses two ranks on one GPU): two ranks share the card
+# over gloo (the host transport), and a one-rank NCCL world runs the device
+# transport's calls.
+# ---------------------------------------------------------------------------
+
+def _dist_moe_inputs(dev, sizes, d=256, f=512, seed=5):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(torch.bfloat16)
+
+    g = len(sizes)
+    offs = _offsets(sizes, dev)
+    t = int(offs[-1].item())
+    return (r(t, d), (r(g, d, f, scale=d ** -0.5), r(g, d, f, scale=d ** -0.5),
+                      r(g, f, d, scale=f ** -0.5)), offs)
+
+
+def test_dist_nccl_world_of_one_is_bitwise(dev, tmp_path):
+    """A one-rank NCCL mesh (the device transport): ``ep_ragged_moe`` and
+    ``dist_matmul``'s three modes equal the one-device composition of the
+    same products bitwise, and launch the kernels."""
+    import torch.distributed as tdist
+    from repro_torch.core.gemm import distributed as X
+    from repro_torch.core.gemm import dispatch as d
+    from repro_torch.launch.mesh import make_mesh
+    tdist.init_process_group("nccl", init_method=f"file://{tmp_path}/s",
+                             rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1,), ("x",), device=dev)
+        assert (mesh.backend, mesh.transport) == ("nccl", "device")
+        x, panels, offs = _dist_moe_inputs(dev, [9, 0, 30, 3])
+        want = d.ragged_matmul(d.ragged_swiglu(x, panels[0], panels[1], offs),
+                               panels[2], offs)
+        K.reset_launch_counts()
+        for sched in ("gather", "ring"):
+            got = X.ep_ragged_moe(x, *panels, offs, mesh=mesh, axis="x",
+                                  schedule=sched)
+            assert torch.equal(got, want), sched
+        assert K.launch_counts()["ftimm_gemm_ragged_swiglu"] == 2
+        a = torch.randn(4, 1536, device=dev).to(torch.bfloat16)
+        b = torch.randn(1536, 512, device=dev).to(torch.bfloat16)
+        res = torch.randn(4, 512, device=dev).to(torch.bfloat16)
+        epi = Epilogue(residual=True)
+        kp = epi.apply(d.matmul(a, b, out_dtype=torch.float32),
+                       residual=res).to(torch.bfloat16)
+        for sched in ("gather", "ring"):
+            assert torch.equal(X.dist_matmul(
+                a, b, mesh=mesh, axis="x", strategy="k_parallel",
+                schedule=sched, epilogue=epi, residual=res), kp), sched
+        assert torch.equal(X.dist_matmul(
+            a, b, mesh=mesh, axis="x", strategy="m_parallel", epilogue=epi,
+            residual=res), d.matmul(a, b, epilogue=epi, residual=res))
+    finally:
+        tdist.destroy_process_group()
+
+
+def test_dist_two_ranks_share_the_card_over_gloo(dev, tmp_path):
+    """Two ranks on one card, gloo with CUDA tensors (the host transport):
+    the identity round trip is bitwise under both schedules and both
+    realizations, and ``ep_ragged_moe``'s forward and backward (fp32)
+    launch the ragged kernels on every rank, within 1e-4 of the one-device
+    call."""
+    import numpy as np
+    sys.path.insert(0, str(Path(__file__).parent))
+    from torch_world import World
+    from repro_torch.core.gemm import dispatch as d
+    world = World(2, tmp_path, timeout=300)
+    try:
+        sizes = [9, 0, 30, 3]
+        x, panels, offs = _dist_moe_inputs(dev, sizes, d=128, f=256)
+        offs_np = offs.cpu().numpy()
+        xf = x.float().cpu().numpy()
+        eye = np.broadcast_to(np.eye(128, dtype=np.float32),
+                              (4, 128, 128)).copy()
+        for sched in ("gather", "ring"):
+            for a2a in ("dense", "primitive"):
+                for r in world.run("ep", "matmul", xf, [eye], offs_np,
+                                   schedule=sched, a2a=a2a, device="cuda"):
+                    np.testing.assert_array_equal(r["y"], xf)
+                    assert r["launches"]["ftimm_gemm_ragged"] >= 1
+        p32 = [w.float() for w in panels]
+        want = d.ragged_matmul(d.ragged_swiglu(x.float(), p32[0], p32[1],
+                                               offs), p32[2], offs).cpu()
+        ws = [w.cpu().numpy() for w in p32]
+        ct = np.ones((x.shape[0], 128), np.float32)
+        for r in world.run("ep", "moe", xf, ws, offs_np, schedule="gather",
+                           ct=ct, device="cuda"):
+            _close(torch.from_numpy(r["y"]), want)
+            assert r["counts"]["staged_bytes"] > 0
+            for name in ("ftimm_gemm_ragged", "ftimm_gemm_ragged_swiglu",
+                         "ftimm_gemm_ragged_dw"):
+                assert r["launches"].get(name), (name, r["launches"])
+    finally:
+        world.close()
