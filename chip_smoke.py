@@ -309,6 +309,34 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    NCCL world (the device transport): (a)'s ``ep_ragged_moe`` and
    ``dist_matmul`` calls bitwise the one-device composition of the same
    products.  A rank's failure or the world's timeout fails the phase;
+13e. [mesh-train] training on a mesh (``Trainer(mesh=...)``): two ranks
+   share cuda:0 over gloo, as in [dist]; the one-rank runs first, in this
+   process.  3 steps of 8 x 128 (bf16 on fp32 masters, AdamW) a case,
+   each beside the one-rank ``Trainer`` from the same seed: (a)
+   qwen3-1.7b, 28 layers, (data 2, model 1), ZeRO-3: the losses within
+   2e-2 relative a step, and at 2 layers in fp32 compute within 1e-5;
+   (b) the same on (data 1, model 2), tensor parallel: every rank's
+   ``ftimm_gemm`` and ``ftimm_gemm_swiglu`` launched on its half panels
+   (the recorded shapes: wq (2048, 1024), wo (1024, 2048), the pair
+   (2048, 3072), down (3072, 2048); no whole panel); (c)
+   llama4-scout-17b-a16e, 1 layer, (data 2), the experts over data (8 a
+   rank), each rank launching the ragged pair, product and dW, the losses
+   within 2e-2; (d) mamba2-370m, 48 layers, (data 1, model 2) with its SSD
+   heads over model: the losses within 2e-2, then 4 prompts of 40 tokens
+   prefilled into the head-cut dense-slot cache and 8 decode steps fed
+   the one-rank run's greedy tokens, in fp32 compute: every call's logits
+   (the real vocabulary) within 1e-3 of the one-rank run's and the greedy
+   tokens equal, or flipped where the two tokens' one-rank logits differ
+   by at most twice the row's largest logit difference; the same in bf16
+   reported (48 random bf16 layers in another summation order); (e)
+   ``compress_allreduce`` of 4,194,304 fp32 elements a rank: 1 byte an
+   element plus the 4-byte max staged each way, the mean within 0.2 of
+   the fp32 mean; (f) ``ElasticRunner`` at qwen3-1.7b-smoke in fp32, 12
+   steps of 8 x 32: a ``shard_loss`` at step 6 (1 rank lost) re-meshes (2,
+   1) onto (1, 1) and restores step 4: the history, and steps 6-11 within
+   1e-5 of the clean run's.  No plain version runs in (a)-(d).  Per case
+   and rank: staged bytes a step, the step median, parameters and peak
+   memory, launches by kernel;
 14. [time] each kernel at the decode-step shapes of the model it serves, and
    the two backward kernels at the training shapes (split-K on its
    tensor-core and FMA bodies), and ftimm_gemm at qwen3-1.7b's training
@@ -5383,6 +5411,498 @@ def dist_phase(dev) -> tuple[dict, dict]:
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# [mesh-train]: training on a mesh, two ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+MT_RANKS = 2
+MT_TIMEOUT = 900            # seconds the spawned world may take in all
+MT_STEPS = 3
+MT_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
+MT_SERVE = (4, 40, 8)       # (d): prompts, prompt tokens, decode steps
+MT_SERVE_KINDS = ("float32", "bfloat16")    # (d)'s compute dtypes
+MT_COMPRESS = 1 << 22       # (e): fp32 elements of a rank's gradient
+MT_ELASTIC = (12, 32, 8, "shard_loss@6:chips=1")   # steps, seq, batch, fault
+# case -> (arch, (data, model), layers (None: all), compute dtype,
+# Trainer options); "a32" / "b32": (a) / (b) at 2 layers in fp32.
+MT_CASES = {
+    "a": (ARCH, (2, 1), None, "bfloat16", {}),
+    "a32": (ARCH, (2, 1), 2, "float32", {}),
+    "b": (ARCH, (1, 2), None, "bfloat16", {}),
+    "b32": (ARCH, (1, 2), 2, "float32", {}),
+    "c": (LLAMA4, (2, 1), 1, "bfloat16", {"moe_ep": True}),
+    "d": (MAMBA, (1, 2), None, "bfloat16", {"ssm_head_shard": True})}
+MT_ONE_RANK = {"a": "a", "a32": "a32", "b": "a", "b32": "a32", "c": "c",
+               "d": "d"}
+MT_KERNELS = {"a": ("ftimm_gemm", "ftimm_gemm_swiglu", "ftimm_gemm_grouped"),
+              "b": ("ftimm_gemm", "ftimm_gemm_swiglu", "ftimm_gemm_grouped"),
+              "c": ("ftimm_gemm", "ftimm_gemm_grouped",
+                    "ftimm_gemm_ragged_swiglu", "ftimm_gemm_ragged",
+                    "ftimm_gemm_ragged_dw"),
+              "d": ("ftimm_gemm",)}
+# (b): the weight panels (K, N) a rank's forward GEMMs read -- qwen3-1.7b's
+# halves -- and the whole ones none may read.
+MT_TP_HALVES = {"ftimm_gemm": [(2048, 1024), (2048, 512), (1024, 2048),
+                               (3072, 2048)],
+                "ftimm_gemm_swiglu": [(2048, 3072)]}
+MT_TP_WHOLE = {"ftimm_gemm": [(2048, 2048), (6144, 2048)],
+               "ftimm_gemm_swiglu": [(2048, 6144)]}
+
+
+def mt_cfg(case: str):
+    arch, _, layers, cdt, _ = MT_CASES[case]
+    cfg = dataclasses.replace(get_config(arch), compute_dtype=cdt)
+    return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
+
+
+def mt_opt() -> OptConfig:
+    return OptConfig(warmup_steps=TRAIN_WARMUP, total_steps=10 * TRAIN_WARMUP)
+
+
+def mt_shape() -> ShapeConfig:
+    return ShapeConfig("chip", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                       kind="train")
+
+
+def mt_walls(log_: list[dict]) -> list[float]:
+    return [log_[0]["wall_s"]] + [b["wall_s"] - a["wall_s"]
+                                  for a, b in zip(log_, log_[1:])]
+
+
+def mt_serve(cfg, model, dev, tokens=None) -> dict:
+    """(d)'s request list: MT_SERVE's prompts prefilled into the dense-slot
+    cache (head-cut under ``ssm_head_shard``), then its decode steps, each
+    fed the greedy token or ``tokens``'s."""
+    n, length, steps = MT_SERVE
+    g = torch.Generator().manual_seed(11)
+    prompts = torch.randint(1, cfg.vocab_size, (n, length), generator=g)
+    cache = M.make_cache(cfg, n, length + steps, device=dev)
+    with torch.no_grad():
+        logits, cache = M.prefill(model, cfg, {"tokens": prompts.to(dev)},
+                                  cache)
+        outs, toks = [logits.float().cpu()], []
+        for i in range(steps):
+            nxt = logits.argmax(-1) if tokens is None else tokens[i].to(dev)
+            toks.append(nxt.cpu())
+            logits, cache = M.decode_step(model, cfg, nxt[:, None], cache,
+                                          length + i)
+            outs.append(logits.float().cpu())
+    return {"logits": outs, "tokens": toks,
+            "cache": {k: list(v.shape) for k, v in cache.items()}}
+
+
+def mt_one_rank(case: str, dev, work: Path) -> dict:
+    """The one-rank ``Trainer`` run of ``case`` in this process (and (d)'s
+    request list, its greedy tokens saved for the ranks)."""
+    cfg = mt_cfg(case)
+    free_card()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tr = Trainer(cfg, mt_shape(), mt_opt(), seed=0, log_every=1, device=dev)
+    model, opt = tr.run(MT_STEPS)
+    torch.cuda.synchronize(dev)
+    walls = mt_walls(tr.metrics_log)
+    out = {"losses": [m["loss"] for m in tr.metrics_log],
+           "grad_norms": [m["grad_norm"] for m in tr.metrics_log],
+           "step_s": walls, "step_median_s": statistics.median(walls[1:]),
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    del model, opt, tr
+    free_card()
+    if case == "d":
+        out["serve"] = {}
+        for kind in MT_SERVE_KINDS:
+            scfg = dataclasses.replace(cfg, compute_dtype=kind)
+            model = M.init_params(scfg, 1, device=dev)
+            served = out["serve"][kind] = mt_serve(scfg, model, dev)
+            del model
+            free_card()
+            torch.save({"tokens": served["tokens"]},
+                       work / f"mt_one_d_{kind}.pt")
+    return out
+
+
+def mt_recorded_panels(recorder: CallRecorder) -> dict[str, list]:
+    """The weight panels (K, N) of the recorded forward ("nn") GEMMs and
+    SwiGLU pairs with bf16 operands."""
+    out: dict[str, set] = {"ftimm_gemm": set(), "ftimm_gemm_swiglu": set()}
+    for call in recorder.calls.values():
+        name = call["kernel"]
+        if name not in out or call["kwargs"].get("trans", "nn") != "nn":
+            continue
+        b = call["args"][1]
+        if b[3] == BF16:
+            out[name].add(tuple(b[1]))
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def mt_train_case(case: str, dev) -> dict:
+    """One case of [mesh-train] on this rank: ``Trainer(mesh=...)`` for
+    MT_STEPS steps.  -> its losses, step walls, staged bytes, parameters,
+    peak memory, launches and recorded panels."""
+    from repro_torch.core.gemm import collective as COLL
+    from repro_torch.launch.mesh import make_mesh
+    arch, dims, _, cdt, kw = MT_CASES[case]
+    cfg = mt_cfg(case)
+    mesh = make_mesh(dims, ("data", "model"), backend="gloo", device=dev)
+    free_card()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tr = Trainer(cfg, mt_shape(), mt_opt(), mesh=mesh, seed=0, log_every=1,
+                 **kw)
+    COLL.reset_counts()
+    K.reset_launch_counts()
+    with CallRecorder() as rec, PlainCounter() as plain:
+        model, opt = tr.run(MT_STEPS)
+    torch.cuda.synchronize(dev)
+    staged = COLL.counts()["staged_bytes"]
+    launches = K.launch_counts()
+    params = sum(p.numel() for p in model.parameters())
+    log_ = tr.metrics_log
+    walls = mt_walls(log_)
+    del model, opt, tr
+    free_card()
+    return {"case": case, "arch": arch, "mesh": list(dims), "dtype": cdt,
+            "layers": cfg.num_layers, "rank": mesh.axis_index(("data",
+                                                                "model")),
+            "plain_calls": plain.calls,
+            "losses": [m["loss"] for m in log_],
+            "grad_norms": [m["grad_norm"] for m in log_],
+            "step_s": walls, "step_median_s": statistics.median(walls[1:]),
+            "staged_bytes_per_step": staged / MT_STEPS,
+            "params_rank": params,
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "launches": dict(launches),
+            "launches_per_step": {k: v / MT_STEPS
+                                  for k, v in launches.items() if v},
+            "panels": mt_recorded_panels(rec)}
+
+
+def mt_serve_case(dev, work: Path) -> dict:
+    """(d)'s request list on this rank, in fp32 and in bf16 compute:
+    mamba2-370m's serving weights whole (the seed of the one-rank run),
+    the SSM cache cut to this rank's heads under ``ssm_head_shard``, fed
+    the one-rank run's greedy tokens."""
+    from repro_torch.core import dist as DIST
+    from repro_torch.core.gemm import collective as COLL
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((1, MT_RANKS), ("data", "model"), backend="gloo",
+                     device=dev)
+    ctx = DIST.DistContext(mesh, ssm_head_shard=True)
+    outs = {}
+    for kind in MT_SERVE_KINDS:
+        cfg = dataclasses.replace(mt_cfg("d"), compute_dtype=kind)
+        free_card()
+        model = M.init_params(cfg, 1, device=dev)
+        want = torch.load(work / f"mt_one_d_{kind}.pt")
+        COLL.reset_counts()
+        K.reset_launch_counts()
+        t0 = time.monotonic()
+        with DIST.use_dist(ctx), PlainCounter() as plain:
+            out = mt_serve(cfg, model, dev, tokens=want["tokens"])
+        torch.cuda.synchronize(dev)
+        out.update(wall_s=time.monotonic() - t0, plain_calls=plain.calls,
+                   staged_bytes=COLL.counts()["staged_bytes"],
+                   launches={k: v for k, v in K.launch_counts().items()
+                             if v})
+        outs[kind] = out
+        del model
+    free_card()
+    return outs
+
+
+def mt_compress_case(dev) -> dict:
+    """(e): ``compress_allreduce`` of MT_COMPRESS fp32 elements a rank on
+    CUDA tensors over gloo: the staged bytes and the mean's error."""
+    from repro_torch.core.gemm import collective as COLL
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.compression import compress_allreduce
+    mesh = make_mesh((MT_RANKS,), ("dp",), backend="gloo", device=dev)
+    g = _seeded((MT_COMPRESS,), 30 + mesh.axis_index("dp"), dev, 0.01, FP32)
+    err = torch.zeros_like(g)
+    COLL.reset_counts()
+    mean, new_err = compress_allreduce(g, err, mesh, "dp")
+    torch.cuda.synchronize(dev)
+    staged = COLL.counts()["staged_bytes"]
+    true = COLL.raw_all_reduce(g, mesh, "dp") / MT_RANKS
+    rel = float((mean - true).abs().max() / true.abs().max())
+    return {"elements": MT_COMPRESS, "staged_bytes": staged,
+            "expected_staged_bytes": 2 * (MT_COMPRESS + 4),
+            "mean_rel_err": rel,
+            "err_finite": bool(torch.isfinite(new_err).all())}
+
+
+def mt_elastic_case(dev, work: Path) -> dict:
+    """(f): ``ElasticRunner`` on the two ranks, clean and with MT_ELASTIC's
+    fault; the host logic at qwen3-1.7b-smoke in fp32."""
+    from repro_torch.runtime.elastic import ElasticRunner
+    steps, seq, batch, fault = MT_ELASTIC
+    cfg = dataclasses.replace(get_config(ARCH + "-smoke"),
+                              compute_dtype="float32")
+    out = {}
+    for name, spec in (("clean", None), ("faulted", fault)):
+        runner = ElasticRunner(cfg, ShapeConfig("elastic", seq, batch,
+                                                "train"),
+                               OptConfig(lr=1e-3, warmup_steps=2,
+                                         total_steps=steps),
+                               ckpt_dir=str(work / f"elastic_{name}"),
+                               model_parallel=1, seed=0, ckpt_every=4,
+                               log_every=1, backend="gloo", device=dev)
+        plan = chaos.parse_env(spec) if spec else chaos.FaultPlan()
+        with chaos.chaos(plan):
+            left = runner.run(steps) is None
+        out[name] = {"history": runner.history, "left": left,
+                     "losses": {m["step"]: m["loss"]
+                                for m in runner.metrics_log}}
+    return out
+
+
+def mt_rank(rank: int, device: str, store: str, work: str, out_q) -> None:
+    """One rank of the [mesh-train] world: every case in turn."""
+    import traceback
+
+    import torch.distributed as tdist
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device(device)
+        torch.cuda.set_device(dev)
+        torch.zeros(1, device=dev)
+        tdist.init_process_group("gloo", init_method=f"file://{store}",
+                                 rank=rank, world_size=MT_RANKS)
+        res, secs = {}, {}
+        for case in MT_CASES:
+            t0 = time.monotonic()
+            res[case] = mt_train_case(case, dev)
+            secs[case] = time.monotonic() - t0
+        t0 = time.monotonic()
+        res["d_serve"] = mt_serve_case(dev, Path(work))
+        res["e"] = mt_compress_case(dev)
+        secs["d_serve+e"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        res["f"] = mt_elastic_case(dev, Path(work))
+        secs["f"] = time.monotonic() - t0
+        res["seconds"] = secs
+        out_q.put(("ok", rank, res))
+    except BaseException:       # noqa: BLE001 -- reported, and the phase fails
+        out_q.put(("error", rank, traceback.format_exc()))
+    finally:
+        if "tdist" in locals() and tdist.is_initialized():
+            tdist.destroy_process_group()
+
+
+def mt_hold(case: str, one: dict, got: dict) -> dict:
+    """One rank's run of ``case`` against the one-rank run."""
+    want = one[MT_ONE_RANK[case]]
+    tol = MT_TOL[MT_CASES[case][3]]
+    errs = [abs(g - w) / abs(w) for g, w in zip(got["losses"],
+                                                 want["losses"])]
+    if (len(errs) != MT_STEPS or max(errs) > tol
+            or not all(map(math.isfinite, got["losses"]))):
+        raise AssertionError(f"[mesh-train] ({case}) rank {got['rank']}: "
+                             f"losses {got['losses']} against one rank's "
+                             f"{want['losses']} (tolerance {tol})")
+    if got["plain_calls"]:
+        raise AssertionError(f"[mesh-train] ({case}): {got['plain_calls']} "
+                             "plain versions ran on CUDA tensors")
+    need = MT_KERNELS.get(case, ())
+    if MT_CASES[case][3] == "bfloat16" and not all(
+            got["launches"].get(k) for k in need):
+        raise AssertionError(f"[mesh-train] ({case}) rank {got['rank']}: "
+                             f"launches {got['launches']}, need {need}")
+    if case == "b":
+        for name, halves in MT_TP_HALVES.items():
+            seen = set(map(tuple, got["panels"][name]))
+            missing = [h for h in halves if h not in seen]
+            whole = [w for w in MT_TP_WHOLE[name] if w in seen]
+            if missing or whole:
+                raise AssertionError(
+                    f"[mesh-train] (b) rank {got['rank']}: {name} panels "
+                    f"{sorted(seen)}; missing halves {missing}, whole "
+                    f"{whole}")
+    return {"loss_rel_errs": errs, "tol": tol}
+
+
+def mt_hold_serve(one: dict, got: dict) -> dict:
+    """(d)'s request list on one rank against the one-rank run, over the
+    real vocabulary (the padded slots hold -1e30), by compute dtype: the
+    logits' normwise error of every call and the greedy flips, each with
+    the two tokens' one-rank logit gap and the row's largest logit
+    difference.  Gated in fp32: every call within REC_REF_TOL, a flip
+    only where the gap is at most twice the row's difference (a tie
+    within the rounding).  bf16 is reported: 48 bf16 layers of random
+    weights carry another summation order (the head-cut panels take other
+    kernel bodies and the row sums round once) far from the start."""
+    vocab = mt_cfg("d").vocab_size
+    ref = one["d"]["serve"]
+    # bf16's own distance from fp32 on one rank, the same weights, the
+    # prefill logits: the scale the bf16 mesh difference is read against.
+    out = {"one_rank_bf16_vs_fp32_prefill": rel_err(
+        ref["bfloat16"]["logits"][0][:, :vocab],
+        ref["float32"]["logits"][0][:, :vocab])[0]}
+    for kind, mine in got.items():
+        want = one["d"]["serve"][kind]
+        errs, gaps = [], []
+        for g, w in zip(mine["logits"], want["logits"]):
+            g, w = g[:, :vocab], w[:, :vocab]
+            errs.append(rel_err(g, w)[0])
+            for r in (g.argmax(-1) != w.argmax(-1)).nonzero().flatten():
+                gaps.append((float(w[r].max() - w[r, g[r].argmax()]),
+                             float((g[r] - w[r]).abs().max())))
+        bad = (mine["plain_calls"] or not mine["launches"].get("ftimm_gemm")
+               or (kind == "float32" and (
+                   max(errs) > REC_REF_TOL
+                   or any(gap > 2 * err for gap, err in gaps))))
+        if bad:
+            raise AssertionError(f"[mesh-train] (d) serve {kind}: logits "
+                                 f"{errs}, greedy flips (gap, row error) "
+                                 f"{gaps}, plain {mine['plain_calls']}, "
+                                 f"launches {mine['launches']}")
+        out[kind] = {"logits_errs": errs, "worst_logits": max(errs),
+                     "greedy_flips": len(gaps),
+                     "flip_gaps_and_row_errors": gaps,
+                     "cache": mine["cache"],
+                     "staged_bytes": mine["staged_bytes"],
+                     "wall_s": mine["wall_s"],
+                     "launches": mine["launches"]}
+    return out
+
+
+def mt_hold_elastic(ranks: list[dict]) -> dict:
+    """(f) on both ranks: the faulted history and the recovered losses."""
+    out = []
+    for rank, r in enumerate(ranks):
+        f, c = r["f"]["faulted"], r["f"]["clean"]
+        hist = [h.get("failure") for h in f["history"]]
+        ok = (hist == [None, "HostFailure", None]
+              and f["history"][0]["mesh"] == (2, 1)
+              and f["history"][2]["mesh"] == (1, 1)
+              and f["left"] == (rank == 1) and len(c["history"]) == 1)
+        errs = []
+        if rank == 0:
+            ok = ok and f["history"][2]["start"] == 5
+            steps = MT_ELASTIC[0]
+            errs = [abs(f["losses"][s] - c["losses"][s]) / c["losses"][s]
+                    for s in range(6, steps)]
+            ok = ok and len(errs) == steps - 6 and max(errs) <= 1e-5
+        if not ok:
+            raise AssertionError(f"[mesh-train] (f) rank {rank}: history "
+                                 f"{f['history']}, clean {c['history']}, "
+                                 f"loss errors {errs}")
+        out.append({"history": f["history"], "loss_rel_errs": errs})
+    return {"ranks": out}
+
+
+def mt_world(work: Path, dev) -> list[dict]:
+    """Spawn the MT_RANKS ranks on ``dev``; wait for each one's result (a
+    rank's failure or the timeout fails the phase); stop them all."""
+    import multiprocessing as mp
+    import queue
+    ctx = mp.get_context("spawn")
+    out_q = ctx.Queue()
+    procs = [ctx.Process(target=mt_rank,
+                         args=(r, str(dev), str(work / "mt_store"),
+                               str(work), out_q))
+             for r in range(MT_RANKS)]
+    for p in procs:
+        p.start()
+    results = [None] * MT_RANKS
+    deadline = time.monotonic() + MT_TIMEOUT
+    try:
+        for _ in range(MT_RANKS):
+            try:
+                status, rank, value = out_q.get(
+                    timeout=max(deadline - time.monotonic(), 1))
+            except queue.Empty:
+                raise AssertionError(f"[mesh-train] the {MT_RANKS}-rank "
+                                     f"world did not finish in {MT_TIMEOUT}"
+                                     " s") from None
+            if status != "ok":
+                raise AssertionError(f"[mesh-train] rank {rank} failed:\n"
+                                     f"{value}")
+            results[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    return results
+
+
+def mesh_train_phase(dev) -> tuple[dict, dict]:
+    """[mesh-train]: the one-rank runs in this process, then the two ranks
+    on the card.  -> (the phase's figures, each rank's launches of (a)-(d)
+    in bf16)."""
+    import tempfile
+    t_phase = time.monotonic()
+    torch.zeros(1, device=dev)          # the card's context, before its stats
+    with tempfile.TemporaryDirectory(prefix="mesh_train_") as tmp:
+        work = Path(tmp)
+        t0 = time.monotonic()
+        one = {case: mt_one_rank(case, dev, work)
+               for case in ("a", "a32", "c", "d")}
+        one_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        ranks = mt_world(work, dev)
+        world_s = time.monotonic() - t0
+    held, launches = {}, {}
+    for r, res in enumerate(ranks):
+        for case in MT_CASES:
+            got = res[case]
+            held[(case, r)] = {**{k: v for k, v in got.items()
+                                  if k not in ("launches", "panels")},
+                               **mt_hold(case, one, got)}
+            if MT_CASES[case][3] == "bfloat16":
+                launches[(f"mesh-train ({case}) rank {r}",
+                          MT_CASES[case][0])] = got["launches"]
+        e = res["e"]
+        if (e["staged_bytes"] != e["expected_staged_bytes"]
+                or e["mean_rel_err"] >= 0.2 or not e["err_finite"]):
+            raise AssertionError(f"[mesh-train] (e) rank {r}: {e}")
+    serve = [mt_hold_serve(one, res["d_serve"]) for res in ranks]
+    elastic = mt_hold_elastic(ranks)
+    for case in MT_CASES:
+        w = one[MT_ONE_RANK[case]]
+        for r in range(MT_RANKS):
+            h = held[(case, r)]
+            log(f"  ({case}) {h['arch']} {h['layers']} l. {h['dtype']} mesh "
+                f"{tuple(h['mesh'])} rank {r}: losses "
+                f"{[round(x, 5) for x in h['losses']]} (one rank "
+                f"{[round(x, 5) for x in w['losses']]}, worst "
+                f"{max(h['loss_rel_errs']):.2e}); step median "
+                f"{h['step_median_s']:.3f} s (one rank "
+                f"{w['step_median_s']:.3f} s); staged "
+                f"{h['staged_bytes_per_step'] / 1e9:.3f} GB a step; params "
+                f"{h['params_rank'] / 1e9:.3f} B, peak {h['peak_gb']:.2f} GB "
+                f"(one rank {w['peak_gb']:.2f} GB); launches a step "
+                f"{h['launches_per_step']}")
+    log(f"  (d) one rank, bf16 against fp32 prefill logits: "
+        f"{serve[0]['one_rank_bf16_vs_fp32_prefill']:.2e}")
+    for r, (served, res) in enumerate(zip(serve, ranks)):
+        for kind in MT_SERVE_KINDS:
+            sv = served[kind]
+            per_call = [f"{x:.2e}" for x in sv["logits_errs"]]
+            log(f"  (d) serve {kind} rank {r}: logits worst "
+                f"{sv['worst_logits']:.2e} ({per_call}), "
+                f"{sv['greedy_flips']} greedy flips (gap, row error) "
+                f"{sv['flip_gaps_and_row_errors']}, cache {sv['cache']}, "
+                f"staged {sv['staged_bytes']} B, {sv['wall_s']:.2f} s")
+        log(f"  (e) rank {r}: staged {res['e']['staged_bytes']} B for "
+            f"{MT_COMPRESS} elements, mean {res['e']['mean_rel_err']:.3e}; "
+            f"seconds {res['seconds']}")
+    log(f"  (f) {elastic}")
+    for r in range(MT_RANKS):
+        log(f"  (b) rank {r} panels: {ranks[r]['b']['panels']}")
+    out = {"transport": DIST_TRANSPORT,
+           "one_rank": {c: {k: v for k, v in o.items() if k != "serve"}
+                        for c, o in one.items()},
+           "cases": {f"{c} rank {r}": h for (c, r), h in held.items()},
+           "serve": serve, "compress": [res["e"] for res in ranks],
+           "elastic": elastic,
+           "seconds": {"one_rank": one_s, "world": world_s,
+                       "ranks": [res["seconds"] for res in ranks],
+                       "phase": time.monotonic() - t_phase}}
+    log(json.dumps({"mesh_train": out}, default=str))
+    return out, launches
+
+
 def check_not_degraded(phase: str) -> None:
     """A phase other than [chaos] must end with no degraded serving: a real
     fused-kernel failure may not hide behind the rung."""
@@ -5658,6 +6178,18 @@ def main() -> int:
     check_not_degraded("dist")
 
     t0 = time.monotonic()
+    log(f"[mesh-train] training on a mesh: {MT_RANKS} ranks on one card "
+        f"over {DIST_TRANSPORT}; qwen3-1.7b ZeRO-3 and tensor parallel, "
+        "llama4-scout expert parallel, mamba2-370m head-sharded, the int8 "
+        "all-reduce, the elastic re-mesh")
+    free_card()
+    mesh_train, mt_launches = mesh_train_phase(dev)
+    launches.update(mt_launches)
+    phases["mesh_train"] = time.monotonic() - t0
+    log(f"[mesh-train] done in {phases['mesh_train']:.1f} s")
+    check_not_degraded("mesh-train")
+
+    t0 = time.monotonic()
     log("[roofline] the perf model's bound for every profiled decode step")
     profiled = {**recurrent["serve"], **families, **archs["serve"],
                 f"{LLAMA4}-w8": quant["serving"]["w8"]}
@@ -5690,7 +6222,7 @@ def main() -> int:
                     "train_schedule": witness, "autotune": tuned,
                     "quant": quant, "archs": archs, "train_dots": dots,
                     "chaos": chaos_out, "contracts": contracts_out,
-                    "dist": dist_out,
+                    "dist": dist_out, "mesh_train": mesh_train,
                     "roofline": roofline, "phases_s": phases}))
     log(card)
     bodies = {("serve", a): stats[a]["bodies"] for a in stats}

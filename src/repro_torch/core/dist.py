@@ -13,6 +13,14 @@ cuts its operands to this rank's block and gathers or reduces what it
 returns -- and ``launch.sharding`` cuts the weights and caches.  So
 ``shard_act`` is not ported, rather than ported as a function that does
 nothing.
+
+Training on a mesh (``train.Trainer(mesh=...)``) sets the port's own field
+``sharded_params``: every parameter is then this rank's block under
+``launch.sharding.param_specs`` (ZeRO-3 over the data axes, tensor
+parallelism over ``model``) and ``launch.sharding.gathered`` brings it to
+the layout the local compute reads; the batch is cut over the data axes.
+``ssm_head_shard`` runs the SSD scan on this rank's heads
+(``models.ssm``) with the weights whole or cut.
 """
 from __future__ import annotations
 
@@ -29,9 +37,12 @@ class DistContext:
     flash-decode on or off (``sp_decode``), and the mesh axis (or tuple of
     axes) that owns the MoE expert dimension (``moe_ep_axis``, from
     ``launch.sharding.expert_axis``), under which the ragged MoE runs
-    expert-parallel.  ``moe_buf_shard``, ``ssm_head_shard``, ``rms_bf16``
-    and ``sp_inputs`` are carried for the reference's launchers; no port
-    code reads them yet (ROADMAP Queue 1 item 10)."""
+    expert-parallel; ``ssm_head_shard``, the SSD's heads cut over the model
+    axis.  ``moe_buf_shard``, ``rms_bf16`` and ``sp_inputs`` are carried
+    for the reference's launchers (GSPMD layout hints with no eager
+    counterpart).  ``sharded_params`` (the port's own): the parameters are
+    this rank's ``param_specs`` blocks and the rows are cut over the data
+    axes, as the trainer lays them out."""
     mesh: Mesh
     dp_axes: tuple[str, ...] = ("data",)
     model_axis: str = "model"
@@ -41,6 +52,7 @@ class DistContext:
     ssm_head_shard: bool = False
     rms_bf16: bool = False
     sp_inputs: bool = False
+    sharded_params: bool = False
 
     @property
     def dp_size(self) -> int:
@@ -49,6 +61,24 @@ class DistContext:
     @property
     def model_size(self) -> int:
         return int(self.mesh.shape[self.model_axis])
+
+    @property
+    def tp(self) -> int:
+        """The tensor-parallel degree: the model axis's size when the
+        parameters are cut over it (``sharded_params``), else 1."""
+        return self.model_size if self.sharded_params else 1
+
+    @property
+    def head_shard(self) -> int:
+        """The SSD's head-parallel degree: the model axis's size under
+        ``ssm_head_shard``, else 1."""
+        return self.model_size if self.ssm_head_shard else 1
+
+    @property
+    def rows_cut(self) -> bool:
+        """Whether the ranks of the data axes hold different rows (the
+        trainer's batch cut) rather than the same ones."""
+        return self.sharded_params and self.dp_size > 1
 
 
 _CURRENT: DistContext | None = None

@@ -35,7 +35,7 @@ this module closes the loop on the card, in the reference's four steps:
 The entry points run on the CUDA card unless the caller passes
 ``device="cpu"``, and raise where there is no card.  Not ported: the
 placed search over a mesh (``num_shards`` > 1), ``calibrate_ici`` and the
-end-to-end placed timings (slice 15 of ROADMAP Queue 1 item 10).
+end-to-end placed timings (slice 16 of ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -80,7 +80,7 @@ def _no_placement(num_shards: int) -> None:
     if num_shards > 1:
         raise NotImplementedError(
             "the measured placed search (num_shards > 1) is not ported: "
-            "slice 15 of ROADMAP Queue 1 item 10 (the analytic placement, "
+            "slice 16 of ROADMAP Queue 1 item 10 (the analytic placement, "
             "tuner.plan_*(num_shards=), is)")
 
 
@@ -739,20 +739,20 @@ def calibrate_ici(*args, **kwargs):
     """Not ported: the interconnect fraction is fitted by the measured
     placed search."""
     raise NotImplementedError("calibrate_ici comes with the measured placed "
-                              "search, slice 15 of ROADMAP Queue 1 item 10")
+                              "search, slice 16 of ROADMAP Queue 1 item 10")
 
 
 def time_placed_ragged_e2e(*args, **kwargs):
     """Not ported: part of the measured placed search."""
     raise NotImplementedError("placed end-to-end timing comes with the "
-                              "measured placed search, slice 15 of ROADMAP "
+                              "measured placed search, slice 16 of ROADMAP "
                               "Queue 1 item 10")
 
 
 def time_placed_dense_e2e(*args, **kwargs):
     """Not ported: part of the measured placed search."""
     raise NotImplementedError("placed end-to-end timing comes with the "
-                              "measured placed search, slice 15 of ROADMAP "
+                              "measured placed search, slice 16 of ROADMAP "
                               "Queue 1 item 10")
 
 

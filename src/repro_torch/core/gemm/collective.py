@@ -61,6 +61,14 @@ The differentiable wrappers (``shard``, ``replicate``, ``gather``,
 ``shard_map`` transpose does for a loss every rank computes alike: a
 sharded input's gradient is gathered, a replicated input's summed over
 the axis, a gathered output's cotangent sliced to the rank's block.
+
+``zero_gather`` is the parameter gather of ZeRO-3 over the data axes,
+whose ranks compute on DIFFERENT rows: the forward all-gathers the
+blocks (in the compute dtype, the bytes the wire moves), the backward sums
+the gradient over the axes in fp32 and keeps this rank's block (a reduce-
+scatter; under gloo the all-reduce and a narrow, as ``raw_reduce_scatter``).
+``gather``'s backward, which only slices, is right where every rank of the
+axis computed on the same rows and wrong here.
 """
 from __future__ import annotations
 
@@ -260,6 +268,37 @@ class _PPermute(torch.autograd.Function):
                              -ctx.shift)[0], None, None, None)
 
 
+class _ZeroGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, p, mesh, axis, dim, dtype):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.in_dtype = mesh, axis, dim, p.dtype
+        w = p.to(dtype)
+        if dim is None:
+            return w.view_as(w)
+        return raw_all_gather(w, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = raw_all_reduce(g.to(torch.float32), ctx.mesh, ctx.axis)
+        if ctx.dim is not None:
+            _, nc, s = axis_info(ctx.mesh, ctx.axis)
+            g = _block(g, nc, s, ctx.dim).contiguous()
+        return g.to(ctx.in_dtype), None, None, None, None
+
+
+def zero_gather(p: torch.Tensor, mesh, axis, dim: int | None,
+                dtype: torch.dtype) -> torch.Tensor:
+    """A parameter block ``p`` cast to ``dtype`` and gathered along ``dim``
+    over ``axis`` (the data axes; ``dim`` None: a parameter the axes do not
+    cut, used whole).  Its gradient: the axes' fp32 sum of the cotangents,
+    this rank's block of it, in ``p``'s dtype -- each rank of the data axes
+    computed on its own rows, so every one holds a part of the gradient."""
+    if _grad(p):
+        return _ZeroGather.apply(p, mesh, axis, dim, dtype)
+    w = p.to(dtype)
+    return w if dim is None else raw_all_gather(w, mesh, axis, dim)
+
+
 def shard(x: torch.Tensor, mesh, axis, dim: int = 0) -> torch.Tensor:
     """This rank's block of a replicated ``x`` along ``dim`` (divisible by
     the axis size); its gradient is gathered over the axis."""
@@ -423,6 +462,12 @@ def _primitive_probe_ok(mesh, axis) -> bool:
 
 
 _METHODS: dict = {}
+
+
+def clear_exchange_methods() -> None:
+    """Forget every (mesh, axis) verdict of ``exchange_method``: a re-mesh
+    probes its new axes afresh."""
+    _METHODS.clear()
 
 
 def exchange_method(mesh, axis) -> str:

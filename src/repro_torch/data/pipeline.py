@@ -67,11 +67,16 @@ class SyntheticLM:
 
 class Prefetcher:
     """A background thread generating the next ``depth`` batches from
-    ``start_step`` on, in order.  ``next()`` -> (step, batch)."""
+    ``start_step`` on, in order.  ``next()`` -> (step, batch).  ``cut``: a
+    function of a global batch giving this rank's part of it (a training
+    mesh's ``launch.sharding.cut_batch``: its rows under ``batch_specs``,
+    bitwise the global rows), as the reference puts each batch to its
+    shardings."""
 
     def __init__(self, dataset: SyntheticLM, depth: int = 2,
-                 start_step: int = 0):
+                 start_step: int = 0, cut=None):
         self.dataset = dataset
+        self.cut = cut
         self.q: queue.Queue = queue.Queue(maxsize=depth)
         self.step = start_step
         self._stop = threading.Event()
@@ -81,6 +86,8 @@ class Prefetcher:
     def _work(self) -> None:
         while not self._stop.is_set():
             batch = self.dataset.host_batch(self.step)
+            if self.cut is not None:
+                batch = self.cut(batch)
             while not self._stop.is_set():
                 try:
                     self.q.put((self.step, batch), timeout=0.1)

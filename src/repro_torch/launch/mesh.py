@@ -25,10 +25,12 @@ Nothing switches the transport later, on a failure or otherwise.
 
 The caller starts the world (``torch.distributed.init_process_group``
 with its address, world size and rank); ``make_mesh`` only builds the
-groups over it.  An ``abstract`` mesh has shape and names and no groups:
-the sharding rules (``launch.sharding``) read nothing else.  The
-reference's ``make_production_mesh`` (512 devices) and ``mesh_from_plan``
-(the elastic re-mesh) are not ported here (ROADMAP Queue 1 item 10).
+groups over it, or over its first ranks (``mesh_from_plan``, the elastic
+re-mesh: the survivors' mesh, whose groups every rank of the world builds
+before the others leave).  An ``abstract`` mesh has shape and names and no
+groups: the sharding rules (``launch.sharding``) read nothing else.  The
+reference's ``make_production_mesh`` (512 devices) is not ported here: it
+comes with the lowering of a production step (ROADMAP Queue 1, slice 16).
 """
 from __future__ import annotations
 
@@ -118,8 +120,9 @@ def _rank_of(shape: tuple[int, ...], coords: tuple[int, ...]) -> int:
 
 
 def _new_groups(mesh: Mesh, ax: tuple[str, ...]):
-    """Every group along ``ax`` (all ranks create all of them, in the same
-    order, as ``dist.new_group`` requires); returns this rank's."""
+    """Every group along ``ax`` (all ranks of the world create all of them,
+    in the same order, as ``dist.new_group`` requires; a rank outside the
+    mesh has no ``coords``); returns this rank's."""
     names = mesh.axis_names
     sizes = tuple(mesh.shape.values())
     others = [a for a in names if a not in ax]
@@ -131,7 +134,8 @@ def _new_groups(mesh: Mesh, ax: tuple[str, ...]):
             c = dict(fixed, **dict(zip(ax, along)))
             ranks.append(_rank_of(sizes, tuple(c[a] for a in names)))
         g = dist.new_group(sorted(ranks), backend=mesh.backend)
-        if all(fixed[a] == mesh.coords[a] for a in others):
+        if mesh.coords is not None and all(fixed[a] == mesh.coords[a]
+                                           for a in others):
             mine = g
     return mine
 
@@ -157,7 +161,8 @@ def _one_gpu_a_rank(device: torch.device) -> bool:
 
 def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,
               backend: str | None = None,
-              device: str | torch.device | None = None) -> Mesh:
+              device: str | torch.device | None = None,
+              first_ranks: bool = False) -> Mesh | None:
     """This rank's ``Mesh`` of ``shape`` over ``axes`` on the running world
     (its size must be prod(shape)).  ``device``: where this rank's tensors
     live (default: the current CUDA device; with no card, ``device="cpu"``
@@ -165,16 +170,20 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,
     None picks NCCL on a GPU and gloo on the CPU; "gloo" takes gloo
     whatever the device (with CUDA tensors the exchanges then stage
     through host memory); "nccl" on the CPU, or NCCL with two ranks on one
-    GPU, raises."""
+    GPU, raises.  ``first_ranks``: the mesh spans the first prod(shape)
+    ranks of a world that may be larger; every rank of the world calls
+    this, and one past the mesh gets None.  The groups of each axis and
+    of all axes together are built at once."""
     _check_shape(shape, axes)
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a running torch.distributed "
                            "world (init_process_group with its address, "
                            "world size and rank)")
     world, rank = dist.get_world_size(), dist.get_rank()
-    if math.prod(shape) != world:
+    need = math.prod(shape)
+    if need > world or (need != world and not first_ranks):
         raise ValueError(f"mesh {dict(zip(axes, shape))} needs "
-                         f"{math.prod(shape)} ranks, the world has {world}")
+                         f"{need} ranks, the world has {world}")
     device = resolve_device(device)
     if backend not in (None, "nccl", "gloo"):
         raise ValueError(f"unknown backend {backend!r}")
@@ -193,8 +202,27 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,
         coords[a] = r % n
         r //= n
     transport = "device" if backend == "nccl" else "host"
-    mesh = Mesh(dict(zip(axes, shape)), {a: coords[a] for a in axes},
+    member = rank < need
+    mesh = Mesh(dict(zip(axes, shape)),
+                {a: coords[a] for a in axes} if member else None,
                 backend, transport, device)
-    for a in axes:              # every rank builds every axis's groups now
+    for a in list(axes) + [tuple(axes)]:    # every rank builds them now
         mesh.group(a)
-    return mesh
+    return mesh if member else None
+
+
+def mesh_from_plan(plan, *, backend: str | None = None,
+                   device: str | torch.device | None = None) -> Mesh | None:
+    """The shrunken (data, model) mesh an ``ElasticPlan`` prescribes, over
+    the first ``plan.chips`` ranks of the running world: the survivors
+    (lost and dropped ranks come off the tail, as the reference takes the
+    first ``plan.chips`` devices).  Every rank of the world calls it --
+    building a process group needs them all -- and a rank past the plan
+    gets None and leaves.  Raises when the world has fewer ranks than the
+    plan needs, so a stale plan cannot oversubscribe."""
+    world = dist.get_world_size()
+    if world < plan.chips:
+        raise ValueError(f"elastic plan needs {plan.chips} ranks but the "
+                         f"world has {world}")
+    return make_mesh(tuple(plan.mesh_shape), ("data", "model"),
+                     backend=backend, device=device, first_ranks=True)

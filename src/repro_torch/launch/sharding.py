@@ -19,17 +19,36 @@ What a rank holds when it serves (``shard_block`` / ``serving_state``) is
 the reference's *result*, not its full layout: the expert panels cut on
 their expert dimension under expert parallelism (``expert_axis``), the KV
 cache cut on its sequence dimension under ``sp_decode``
-(``models.model.make_cache``), everything else replicated.  The
-tensor-parallel / ZeRO-3 layout of the dense panels under ``param_specs``,
-which the reference's GSPMD applies, comes with the trainer on a mesh
-(ROADMAP Queue 1 item 10, slice 15).
+(``models.model.make_cache``), everything else replicated.
+
+What a rank holds when it trains on a mesh is the full layout the
+reference's GSPMD applies: ``shard_params`` cuts every parameter of a
+port model to its block under ``param_specs`` (ZeRO-3 over the data axes,
+tensor parallelism over ``model``) and tags it with its spec
+(``p.mesh_spec``); the AdamW moments, drawn like the blocks, follow.  At
+use, ``gathered`` brings each block to the layout the local compute
+reads: the data axes' cut gathered (``collective.zero_gather``: the
+gradient summed over those axes in fp32 and cut back to the block), the
+model axis's cut kept where the local compute runs tensor-parallel on it
+(the column panels ``wq wk wv w_gate w_up``, the row panels ``wo
+w_down``, ``out_proj`` under ``ssm_head_shard``, the expert dim under
+expert parallelism; such a tensor carries ``model_cut`` = (mesh, model
+axis), which ``models.layers`` reads) and gathered elsewhere
+(``collective.gather``: the ranks of ``model`` compute on the same rows).
+``full_tensor`` / ``load_blocks`` carry blocks to and from the
+reference's whole tree for checkpoints, and ``cut_batch`` takes this
+rank's rows of a global batch under ``batch_specs``.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
+import numpy as np
 import torch
 
+from ..core.dist import current_dist
+from ..core.gemm import collective
 from .mesh import Mesh
 
 _REPLICATED = {
@@ -132,6 +151,32 @@ def _map_with_path(fn, tree, path=()):
     return _normal(fn(list(path), tree))
 
 
+def _param_spec(names: list[str], shape: tuple, mesh: Mesh, zero_stage: int,
+                moe_ep: bool, moe_ep_axis: str) -> tuple:
+    spec = _leaf_spec(names, shape, mesh)
+    name = names[-1]
+    stacked = int(any(p in _STACKED for p in names[:-1]))
+    dims = shape[stacked:]
+    dp = dp_axes(mesh) or None
+    if moe_ep and name in (_COL | _ROW) and len(dims) == 3:
+        e_ax = dp if moe_ep_axis == "dp" else "model"
+        other = dp if moe_ep_axis != "dp" else None
+        parts = [None] * stacked + [_maybe(dims[0], e_ax, mesh), None, None]
+        if name in _COL:   # (E, D, F)
+            parts[stacked + 1] = _maybe(dims[1], other, mesh)
+            parts[stacked + 2] = (_maybe(dims[2], "model", mesh)
+                                  if moe_ep_axis == "dp" else None)
+        else:              # (E, F, D)
+            parts[stacked + 1] = (_maybe(dims[1], "model", mesh)
+                                  if moe_ep_axis == "dp" else None)
+            parts[stacked + 2] = _maybe(dims[2], other, mesh)
+        return tuple(parts)
+    if zero_stage < 3:
+        return tuple(None if p is not None and p != "model" else p
+                     for p in spec)
+    return spec
+
+
 def param_specs(params_shape, mesh: Mesh, *, zero_stage: int = 3,
                 moe_ep: bool = False, moe_ep_axis: str = "dp"):
     """Spec tree matching a parameter (or optimizer-state) tree.
@@ -139,32 +184,10 @@ def param_specs(params_shape, mesh: Mesh, *, zero_stage: int = 3,
     ``moe_ep``: the expert panels sharded on their EXPERT dim over
     ``moe_ep_axis`` ("dp" or a mesh axis), the other weight dim
     ZeRO-sharded over the data axes when EP rides the model axis."""
-    def walk(names, leaf):
-        shape = tuple(leaf.shape)
-        spec = _leaf_spec(names, shape, mesh)
-        name = names[-1]
-        stacked = int(any(p in _STACKED for p in names[:-1]))
-        dims = shape[stacked:]
-        dp = dp_axes(mesh) or None
-        if moe_ep and name in (_COL | _ROW) and len(dims) == 3:
-            e_ax = dp if moe_ep_axis == "dp" else "model"
-            other = dp if moe_ep_axis != "dp" else None
-            parts = [None] * stacked + [_maybe(dims[0], e_ax, mesh),
-                                        None, None]
-            if name in _COL:   # (E, D, F)
-                parts[stacked + 1] = _maybe(dims[1], other, mesh)
-                parts[stacked + 2] = (_maybe(dims[2], "model", mesh)
-                                      if moe_ep_axis == "dp" else None)
-            else:              # (E, F, D)
-                parts[stacked + 1] = (_maybe(dims[1], "model", mesh)
-                                      if moe_ep_axis == "dp" else None)
-                parts[stacked + 2] = _maybe(dims[2], other, mesh)
-            return tuple(parts)
-        if zero_stage < 3:
-            return tuple(None if p is not None and p != "model" else p
-                         for p in spec)
-        return spec
-    return _map_with_path(walk, params_shape)
+    return _map_with_path(
+        lambda names, leaf: _param_spec(names, tuple(leaf.shape), mesh,
+                                        zero_stage, moe_ep, moe_ep_axis),
+        params_shape)
 
 
 def batch_specs(cfg, batch_shape, mesh: Mesh):
@@ -257,3 +280,187 @@ def serving_state(model, ctx):
     for block in model.layers:
         shard_block(block, ctx)
     return model
+
+
+# ---------------------------------------------------------------------------
+# The training layout: every parameter cut to this rank's block
+# ---------------------------------------------------------------------------
+
+# Leaves the model reads in fp32 whatever the compute dtype (norm scales,
+# the SSM's decay, skip and dt bias): ``gathered`` leaves their dtype.
+_FP32_LEAVES = {"ln1", "ln2", "ln_cross", "ln", "norm", "final_norm",
+                "enc_norm", "q_norm", "k_norm", "A_log", "D_skip",
+                "dt_bias"}
+# (name, ndim) -> the dim the local compute reads cut over ``model``.
+_TP_DIM = {("wq", 2): 1, ("wk", 2): 1, ("wv", 2): 1, ("w_gate", 2): 1,
+           ("w_up", 2): 1, ("wo", 2): 0, ("w_down", 2): 0}
+
+
+def param_path(name: str) -> tuple[list[str], bool]:
+    """A port parameter name (``layers.3.attn.wq``) -> its path in the
+    reference tree (``["layers", "attn", "wq"]``) and whether the tree
+    stacks it on a leading layer axis."""
+    parts = name.split(".")
+    if parts[0] in _STACKED:
+        return [parts[0], *parts[2:]], True
+    return parts, False
+
+
+def named_specs(named: dict, mesh: Mesh, *, zero_stage: int = 3,
+                moe_ep: bool = False, moe_ep_axis: str = "dp") -> dict:
+    """{parameter name: spec} for a port model's (full) parameters: the
+    reference's ``param_specs`` of the stacked tree, the layer axis
+    dropped."""
+    out = {}
+    for name, t in named.items():
+        path, stacked = param_path(name)
+        shape = ((1,) if stacked else ()) + tuple(t.shape)
+        spec = _normal(_param_spec(path, shape, mesh, zero_stage, moe_ep,
+                                   moe_ep_axis))
+        out[name] = spec[1:] if stacked else spec
+    return out
+
+
+def shard_params(model: torch.nn.Module, specs: dict, mesh: Mesh) -> None:
+    """Cut every parameter of ``model`` (full, as ``init_params`` draws it)
+    to this rank's block under ``specs`` ({name: spec}) in place, each new
+    parameter tagged with its spec (``mesh_spec``)."""
+    for name, full in list(model.named_parameters()):
+        *mods, leaf = name.split(".")
+        owner = model.get_submodule(".".join(mods)) if mods else model
+        spec = specs[name]
+        block = torch.nn.Parameter(shard_tensor(full.detach(), spec, mesh),
+                                   requires_grad=full.requires_grad)
+        block.mesh_spec = spec
+        setattr(owner, leaf, block)
+
+
+def full_tensor(block: torch.Tensor, spec: tuple, mesh: Mesh) -> torch.Tensor:
+    """The whole tensor of which ``block`` is this rank's part under
+    ``spec`` (every rank of the mesh calls it; no gradient)."""
+    out = block.detach()
+    for dim, axes in enumerate(spec):
+        if axes is not None:
+            out = collective.raw_all_gather(out, mesh, axes, dim)
+    return out
+
+
+def load_blocks(named: dict, tree: dict, specs: dict, mesh: Mesh) -> None:
+    """Copy into each block of ``named`` its part of the leaf of the same
+    name in a whole tree of the reference's layout (``to_numpy_tree``)."""
+    with torch.no_grad():
+        for name, dst in named.items():
+            path, stacked = param_path(name)
+            node = tree
+            for key in path:
+                node = node[key]
+            src = np.asarray(node[int(name.split(".")[1])] if stacked
+                             else node)
+            dst.copy_(shard_tensor(torch.as_tensor(src), specs[name], mesh))
+
+
+def replicas(spec: tuple, mesh: Mesh) -> int:
+    """How many ranks of the mesh hold the same block under ``spec``."""
+    return mesh.size // math.prod(mesh.axis_size(a) for a in spec
+                                  if a is not None)
+
+
+def cut_batch(cfg, batch: dict, mesh: Mesh) -> dict:
+    """This rank's rows of a global host batch (numpy leaves) under
+    ``batch_specs``: contiguous blocks of the batch dim over the data axes,
+    bitwise the global rows."""
+    specs = batch_specs(cfg, batch, mesh)
+    out = {}
+    for k, v in batch.items():
+        axes = specs[k][0]
+        if axes is None:
+            out[k] = v
+            continue
+        n = mesh.axis_size(axes)
+        rows = v.shape[0] // n
+        i = mesh.axis_index(axes)
+        out[k] = v[i * rows:(i + 1) * rows]
+    return out
+
+
+def _dp_entry(entry, dp: tuple) -> bool:
+    if entry is None or entry == "model":
+        return False
+    axes = (entry,) if isinstance(entry, str) else tuple(entry)
+    if set(axes) != set(dp):
+        raise ValueError(f"a spec entry {entry} that is not the data axes "
+                         f"{dp} or 'model'")
+    return True
+
+
+def _kept_dims(name: str, p: torch.Tensor, spec: tuple, ctx) -> set[int]:
+    """The dims the local compute reads cut (see the module docstring)."""
+    keep = set()
+    if (name, p.ndim) in _TP_DIM:
+        keep.add(_TP_DIM[(name, p.ndim)])
+    if name == "out_proj" and ctx.head_shard > 1:
+        keep.add(0)
+    if p.ndim == 3 and spec[0] is not None:    # expert-parallel panels
+        keep.add(0)
+    return keep
+
+
+def _materialize(p: torch.Tensor, name: str, ctx, dtype) -> torch.Tensor:
+    spec, mesh = p.mesh_spec, ctx.mesh
+    dt = p.dtype if name in _FP32_LEAVES else dtype
+    keep = _kept_dims(name, p, spec, ctx)
+    dp_dims = [d for d, e in enumerate(spec) if _dp_entry(e, ctx.dp_axes)]
+    gather_dp = [d for d in dp_dims if d not in keep]
+    if len(gather_dp) > 1:
+        raise ValueError(f"{name}: spec {spec} cuts two dims over the data "
+                         "axes")
+    if ctx.dp_size > 1 and len(gather_dp) == len(dp_dims):
+        # Every rank of the data axes holds a part of the gradient: the
+        # ZeRO gather (or, uncut, the fp32 sum of the gradient alone).
+        w = collective.zero_gather(p, mesh, ctx.dp_axes,
+                                   gather_dp[0] if gather_dp else None, dt)
+    else:
+        w = p.to(dt).view_as(p)        # a tensor of its own, never p
+    cut = False
+    for dim, entry in enumerate(spec):
+        if entry == "model":
+            if dim in keep:
+                cut = True
+            else:
+                w = collective.gather(w, mesh, ctx.model_axis, dim)
+    if cut:
+        w.model_cut = (mesh, ctx.model_axis)
+    return w
+
+
+@contextlib.contextmanager
+def gathered(*modules, dtype: torch.dtype, recurse: bool = True):
+    """Under a ``DistContext`` with ``sharded_params``: each tagged block of
+    ``modules`` (their submodules too unless ``recurse`` is False) read as
+    the local compute needs it (the module docstring), in ``dtype`` (the
+    fp32 leaves in theirs), until the block ends; the parameters
+    themselves stay this rank's blocks.  Called inside a rematerialised
+    block, the gathers run again in its recompute.  Elsewhere a no-op."""
+    ctx = current_dist()
+    if ctx is None or not ctx.sharded_params:
+        yield
+        return
+    shadowed = []
+    try:
+        for mod in modules:
+            if mod is None:
+                continue
+            subs = mod.modules() if recurse else (mod,)
+            for m in subs:
+                for name, p in m.named_parameters(recurse=False):
+                    if (getattr(p, "mesh_spec", None) is None
+                            or name in m.__dict__):
+                        continue
+                    # An instance attribute shadows the registered
+                    # parameter for attribute reads until it is deleted.
+                    m.__dict__[name] = _materialize(p, name, ctx, dtype)
+                    shadowed.append((m, name))
+        yield
+    finally:
+        for m, name in shadowed:
+            del m.__dict__[name]

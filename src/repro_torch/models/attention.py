@@ -23,6 +23,13 @@ a token's K / V only where it owns the row, computes its partial
 attention over its block and the partials merge with the log-sum-exp
 correction over the model axis.  The paged and per-row-position branches
 stay single-device, as in the reference.
+
+Tensor parallelism (a training mesh, ``launch.sharding.gathered``): with
+``wq`` cut over the model axis a rank runs its H / tp query heads and the
+KV heads they read -- its block of ``wk`` / ``wv`` when KVH divides tp (the
+GQA map stays aligned), else the needed heads' columns of the whole
+panels -- with the qk-norm scales replicated, and ``wo`` is a row panel
+(``layers.row_parallel``: the residual added once, after the sum).
 """
 from __future__ import annotations
 
@@ -31,7 +38,7 @@ from torch import nn
 
 from ..core.dist import current_dist
 from ..core.gemm import batched_matmul, collective
-from .layers import dense, rms_norm, rope
+from .layers import column_input, dense, rms_norm, rope, row_parallel, tp_of
 
 NEG_INF = -1e30
 _PAD_POS = (2 ** 31 - 1) // 2      # position of padded KV rows (never valid)
@@ -238,6 +245,36 @@ def _write_owned(cache: torch.Tensor, new: torch.Tensor, idx: int,
         cache[:, lo - r0:hi - r0] = new[:, lo - idx:hi - idx].to(cache.dtype)
 
 
+def _tp_projections(params: AttentionParams, num_heads: int,
+                    num_kv_heads: int, head_dim: int, tp):
+    """This rank's (wq, wk, wv, q_norm, k_norm, query heads, KV heads)
+    under tensor parallelism ``tp`` = (mesh, model axis)."""
+    mesh, axis = tp
+    nc, s = mesh.axis_size(axis), mesh.axis_index(axis)
+    h_l = num_heads // nc
+    if num_heads % nc or params.wq.shape[1] != h_l * head_dim:
+        raise ValueError(f"{num_heads} query heads do not divide over the "
+                         f"{nc} ranks of the model axis")
+    g = num_heads // num_kv_heads
+    if h_l % g and g % h_l:
+        raise ValueError(f"a rank's {h_l} query heads split a group of "
+                         f"{g} heads that share a KV head")
+    kv_l, k0 = max(h_l // g, 1), s * h_l // g
+
+    def kv(w):
+        if num_kv_heads % nc == 0 and tp_of(w) is not None:
+            return w                  # the aligned block: heads k0 + [0, kv_l)
+        whole = w if tp_of(w) is None else collective.gather(w, mesh, axis, 1)
+        whole = collective.replicate(whole, mesh, axis)
+        return whole[:, k0 * head_dim:(k0 + kv_l) * head_dim]
+
+    def norm(t):
+        return None if t is None else collective.replicate(t, mesh, axis)
+
+    return (params.wq, kv(params.wk), kv(params.wv), norm(params.q_norm),
+            norm(params.k_norm), h_l, kv_l)
+
+
 def attention(x: torch.Tensor, params: AttentionParams, *, num_heads: int,
               num_kv_heads: int, head_dim: int, positions: torch.Tensor,
               window: int = 0, causal: bool = True, qk_norm: bool = False,
@@ -270,7 +307,17 @@ def attention(x: torch.Tensor, params: AttentionParams, *, num_heads: int,
       out-projection's fused epilogue.
     """
     b, s, _ = x.shape
-    q = dense(x, params.wq, compute_dtype).reshape(b, s, num_heads, head_dim)
+    tp = tp_of(params.wq)
+    wq, wk, wv = params.wq, params.wk, params.wv
+    q_norm, k_norm = params.q_norm, params.k_norm
+    if tp is not None:
+        if cross_kv is not None or kv_cache is not None:
+            raise NotImplementedError("tensor-parallel attention runs the "
+                                      "training forward only")
+        x = column_input(x, tp)
+        wq, wk, wv, q_norm, k_norm, num_heads, num_kv_heads = \
+            _tp_projections(params, num_heads, num_kv_heads, head_dim, tp)
+    q = dense(x, wq, compute_dtype).reshape(b, s, num_heads, head_dim)
     if cross_kv is not None:
         k, v = cross_kv
         out = blockwise_attention(
@@ -279,11 +326,11 @@ def attention(x: torch.Tensor, params: AttentionParams, *, num_heads: int,
             window=0, causal=False, block_kv=block_kv)
         out = out.reshape(b, s, num_heads * head_dim)
         return dense(out, params.wo, compute_dtype, residual=residual), None
-    k = dense(x, params.wk, compute_dtype).reshape(b, s, num_kv_heads, head_dim)
-    v = dense(x, params.wv, compute_dtype).reshape(b, s, num_kv_heads, head_dim)
+    k = dense(x, wk, compute_dtype).reshape(b, s, num_kv_heads, head_dim)
+    v = dense(x, wv, compute_dtype).reshape(b, s, num_kv_heads, head_dim)
     if qk_norm:
-        q = rms_norm(q, params.q_norm)
-        k = rms_norm(k, params.k_norm)
+        q = rms_norm(q, q_norm)
+        k = rms_norm(k, k_norm)
     if use_rope:
         pos2 = positions if positions.ndim == 2 else positions[None, :]
         q = rope(q, pos2, rope_theta)
@@ -351,4 +398,7 @@ def attention(x: torch.Tensor, params: AttentionParams, *, num_heads: int,
             window=window, causal=causal, block_kv=block_kv)
         new_cache = None
     out = out.reshape(b, s, num_heads * head_dim)
+    if tp is not None:
+        return (row_parallel(out, params.wo, tp, compute_dtype, residual),
+                new_cache)
     return dense(out, params.wo, compute_dtype, residual=residual), new_cache

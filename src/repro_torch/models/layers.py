@@ -11,13 +11,46 @@ Elementwise layer tails fuse into their producing GEMM: ``dense`` takes
 optional ``bias`` / ``residual`` / ``activation`` (an ``Epilogue`` applied at
 the fp32 accumulator flush), and ``swiglu`` runs its gate/up pair as one
 fused kernel launch with the residual add fused into the down projection.
+
+Tensor parallelism (Megatron): a panel that ``launch.sharding.gathered``
+left cut over the model axis carries ``model_cut`` (``tp_of``).  The
+input of a column panel goes through ``collective.replicate`` (its
+gradient summed over the axis), and a row panel's partial product is
+summed over the axis in fp32 (``row_parallel``) before the residual is
+added -- once, after the sum, not on every rank -- and the result rounded
+to the compute dtype: one rounding, as the fused epilogue's.
 """
 from __future__ import annotations
 
 import torch
 
-from ..core.gemm import project, project_swiglu
+from ..core.gemm import collective, project, project_swiglu
 from ..kernels.ftimm.epilogue import Epilogue
+
+
+def tp_of(w: torch.Tensor):
+    """(mesh, model axis) when ``w`` is this rank's tensor-parallel block,
+    else None."""
+    return getattr(w, "model_cut", None)
+
+
+def column_input(x: torch.Tensor, tp) -> torch.Tensor:
+    """The input of a column panel: every rank reads it whole, and its
+    gradient is the sum of the ranks' partial ones."""
+    return x if tp is None else collective.replicate(x, *tp)
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor, tp, compute_dtype,
+                 residual: torch.Tensor | None = None) -> torch.Tensor:
+    """x @ w for a row panel ``w`` cut over the model axis: the fp32
+    partial products summed over it, then the residual, then one rounding
+    to ``compute_dtype``."""
+    part = project(x.to(compute_dtype), w.to(compute_dtype),
+                   out_dtype=torch.float32)
+    y = collective.reduce_sum(part, *tp)
+    if residual is not None:
+        y = y + residual.to(torch.float32)
+    return y.to(compute_dtype)
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, compute_dtype=torch.bfloat16, *,
@@ -53,9 +86,13 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            residual: torch.Tensor | None = None) -> torch.Tensor:
     """SwiGLU MLP: down(silu(gate(x)) * up(x)) [+ residual], the gate/up
     pair as one fused launch and the residual add in the down projection's
-    epilogue."""
-    h = project_swiglu(x.to(compute_dtype), w_gate.to(compute_dtype),
-                       w_up.to(compute_dtype), out_dtype=compute_dtype)
+    epilogue (tensor-parallel on cut panels: ``row_parallel``)."""
+    tp = tp_of(w_down)
+    h = project_swiglu(column_input(x, tp).to(compute_dtype),
+                       w_gate.to(compute_dtype), w_up.to(compute_dtype),
+                       out_dtype=compute_dtype)
+    if tp is not None:
+        return row_parallel(h, w_down, tp, compute_dtype, residual)
     return dense(h, w_down, compute_dtype, residual=residual)
 
 

@@ -38,7 +38,8 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..core.device import resolve_device
 from ..core.dist import current_dist
-from ..launch.sharding import shard_block
+from ..core.gemm import collective
+from ..launch.sharding import gathered, shard_block
 from .attention import param, sp_decoding
 from .layers import dense, embed, rms_norm, unembed
 from .transformer import (RECURRENT_FAMILIES, DenseBlock, SSMBlock, as_dtype,
@@ -122,6 +123,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
                    requires_grad=train, **extra)
 
 
+def _top_level(model: DenseLM, cfg: ModelConfig):
+    """The model's own leaves (embedding table, final norm, projections;
+    not its blocks) as the compute reads them (``gathered``: a no-op off a
+    training mesh)."""
+    return gathered(model, dtype=compute_dtype(cfg), recurse=False)
+
+
 def _embed_inputs(model: DenseLM, cfg: ModelConfig, batch: dict):
     """Token embeddings, after the projected patch rows when the batch
     has ``patch_embeds`` (vlm), and their positions."""
@@ -154,26 +162,34 @@ def _cross_kv_stack(model: DenseLM, cfg: ModelConfig,
     cdt = compute_dtype(cfg)
     b, s, _ = enc_out.shape
     shape = (b, s, cfg.num_kv_heads, cfg.head_dim_)
-    return [(dense(enc_out, p.cross.wk, cdt).reshape(shape),
-             dense(enc_out, p.cross.wv, cdt).reshape(shape))
-            for p in model.layers]
+    out = []
+    for p in model.layers:
+        with gathered(p.cross, dtype=cdt):
+            out.append((dense(enc_out, p.cross.wk, cdt).reshape(shape),
+                        dense(enc_out, p.cross.wv, cdt).reshape(shape)))
+    return out
 
 
 def forward_train(model: DenseLM, cfg: ModelConfig,
                   batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence fp32 logits for training.  -> (logits (B, S, V_pad),
     aux loss); for vlm over the text positions only."""
-    h, positions = _embed_inputs(model, cfg, batch)
-    cross = None
-    if cfg.family == "encdec":
-        cross = _cross_kv_stack(model, cfg,
-                                encode(model, cfg, batch["frames"]))
-    h, aux = stack_train(model.layers, cfg, h, positions,
-                         shared=model.shared_attn, cross_kv_stack=cross)
-    h = rms_norm(h, model.final_norm)
-    if cfg.num_patches:
-        h = h[:, cfg.num_patches:]
-    logits = unembed(h, model.embed, cfg.vocab_size, compute_dtype(cfg))
+    ctx = current_dist()
+    if cfg.family == "encdec" and ctx is not None and ctx.tp > 1:
+        raise NotImplementedError("the encoder-decoder's cross-attention "
+                                  "does not run tensor-parallel")
+    with _top_level(model, cfg):
+        h, positions = _embed_inputs(model, cfg, batch)
+        cross = None
+        if cfg.family == "encdec":
+            cross = _cross_kv_stack(model, cfg,
+                                    encode(model, cfg, batch["frames"]))
+        h, aux = stack_train(model.layers, cfg, h, positions,
+                             shared=model.shared_attn, cross_kv_stack=cross)
+        h = rms_norm(h, model.final_norm)
+        if cfg.num_patches:
+            h = h[:, cfg.num_patches:]
+        logits = unembed(h, model.embed, cfg.vocab_size, compute_dtype(cfg))
     return logits, aux
 
 
@@ -181,7 +197,13 @@ def loss_fn(model: DenseLM, cfg: ModelConfig, batch: dict,
             aux_weight: float = 0.01) -> tuple[torch.Tensor, dict]:
     """Masked next-token cross entropy over fp32 logits (logsumexp minus
     the label's logit), plus ``aux_weight`` x the MoE aux loss.  -> (total,
-    {"loss": ce, "aux_loss": aux, "tokens": mask sum})."""
+    {"loss": ce, "aux_loss": aux, "tokens": mask sum}).
+
+    On a training mesh whose data axes cut the rows, the denominator is the
+    global token count (all-reduced), so each rank's ``total`` is its share
+    of the global batch's loss plus the (global) aux loss and the ranks'
+    gradients sum to the global one; ``loss`` and ``tokens`` are the global
+    batch's."""
     logits, aux = forward_train(model, cfg, batch)
     labels = batch["labels"].to(torch.long)
     mask = batch.get("loss_mask")
@@ -192,10 +214,19 @@ def loss_fn(model: DenseLM, cfg: ModelConfig, batch: dict,
     lse = torch.logsumexp(logits, dim=-1)
     picked = logits.gather(-1, labels[..., None])[..., 0]
     nll = lse - picked
-    denom = torch.clamp_min(mask.sum(), 1.0)
+    tokens = mask.sum()
+    ctx = current_dist()
+    if ctx is not None and ctx.rows_cut:
+        # The global token count: the ranks' losses then sum to the
+        # global batch's, whatever each rank's mask holds.
+        tokens = collective.raw_all_reduce(tokens.detach(), ctx.mesh,
+                                           ctx.dp_axes)
+    denom = torch.clamp_min(tokens, 1.0)
     ce = (nll * mask).sum() / denom
     total = ce + aux_weight * aux
-    return total, {"loss": ce, "aux_loss": aux, "tokens": mask.sum()}
+    if ctx is not None and ctx.rows_cut:
+        ce = collective.raw_all_reduce(ce.detach(), ctx.mesh, ctx.dp_axes)
+    return total, {"loss": ce, "aux_loss": aux, "tokens": tokens}
 
 
 def make_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
@@ -206,8 +237,12 @@ def make_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
     of ``batch_size`` rows.  Under a ``DistContext`` that decodes
     sequence-parallel (``attention.sp_decoding``), a dense, moe or vlm
     model's K / V caches hold this rank's block of the positions, S / nc
-    rows (the model axis size must divide S); the other families' caches
-    stay whole (the SSM head cut is not ported: ROADMAP Queue 1 item 10)."""
+    rows (the model axis size must divide S).  Under ``ssm_head_shard`` the
+    SSM state (ssm, hybrid) holds this rank's H / tp heads, as
+    ``cache_specs`` cuts it, and the conv window the channels those heads'
+    scan reads (their d_inner / tp ``x`` channels, all of B and C; where
+    ``cache_specs`` cuts the window's channels in halves); the other caches
+    stay whole."""
     rows = max_len + (cfg.num_patches or 0)
     ctx = current_dist()
     if sp_decoding(ctx) and cfg.family in ("dense", "moe", "vlm"):
@@ -216,7 +251,8 @@ def make_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
             raise ValueError(f"a {rows}-row cache does not divide over the "
                              f"{nc} ranks of the model axis")
         rows //= nc
-    return init_cache(cfg, batch_size, rows, device)
+    heads = ctx.head_shard if ctx is not None else 1
+    return init_cache(cfg, batch_size, rows, device, head_shard=heads)
 
 
 @torch.no_grad()
@@ -225,17 +261,18 @@ def prefill(model: DenseLM, cfg: ModelConfig, batch: dict,
     """Run the prompt through the stack, filling ``cache`` in place (the
     encdec model first encodes ``batch["frames"]`` and writes every layer's
     cross K / V).  Returns (last-position logits (B, V), cache)."""
-    h, positions = _embed_inputs(model, cfg, batch)
-    if cfg.family == "encdec":
-        cross = _cross_kv_stack(model, cfg,
-                                encode(model, cfg, batch["frames"]))
-        for layer, (k, v) in enumerate(cross):
-            cache["cross_k"][layer].copy_(k)
-            cache["cross_v"][layer].copy_(v)
-    h, cache = stack_cached(model.layers, cfg, h, positions, cache, 0,
-                            shared=model.shared_attn)
-    h = rms_norm(h[:, -1:], model.final_norm)
-    logits = unembed(h, model.embed, cfg.vocab_size, compute_dtype(cfg))
+    with _top_level(model, cfg):
+        h, positions = _embed_inputs(model, cfg, batch)
+        if cfg.family == "encdec":
+            cross = _cross_kv_stack(model, cfg,
+                                    encode(model, cfg, batch["frames"]))
+            for layer, (k, v) in enumerate(cross):
+                cache["cross_k"][layer].copy_(k)
+                cache["cross_v"][layer].copy_(v)
+        h, cache = stack_cached(model.layers, cfg, h, positions, cache, 0,
+                                shared=model.shared_attn)
+        h = rms_norm(h[:, -1:], model.final_norm)
+        logits = unembed(h, model.embed, cfg.vocab_size, compute_dtype(cfg))
     return logits[:, 0], cache
 
 
@@ -276,15 +313,17 @@ def decode_step(model: DenseLM, cfg: ModelConfig, tokens: torch.Tensor,
     every slot (``serve.kv_pages``; attention families only).  The SSM
     families advance every row's state one token whatever its ``pos``.
     Returns (logits (B, V), cache)."""
-    h = embed(tokens, model.embed, compute_dtype(cfg))
-    if isinstance(pos, torch.Tensor) and pos.ndim:
-        pos = pos.to(device=h.device, dtype=torch.long)
-        positions = pos[:, None]
-    else:
-        pos = int(pos)
-        positions = torch.arange(pos, pos + 1, device=h.device)
-    h, cache = stack_cached(model.layers, cfg, h, positions, cache, pos,
-                            shared=model.shared_attn, page_table=page_table)
-    h = rms_norm(h, model.final_norm)
-    logits = unembed(h, model.embed, cfg.vocab_size, compute_dtype(cfg))
+    with _top_level(model, cfg):
+        h = embed(tokens, model.embed, compute_dtype(cfg))
+        if isinstance(pos, torch.Tensor) and pos.ndim:
+            pos = pos.to(device=h.device, dtype=torch.long)
+            positions = pos[:, None]
+        else:
+            pos = int(pos)
+            positions = torch.arange(pos, pos + 1, device=h.device)
+        h, cache = stack_cached(model.layers, cfg, h, positions, cache, pos,
+                                shared=model.shared_attn,
+                                page_table=page_table)
+        h = rms_norm(h, model.final_norm)
+        logits = unembed(h, model.embed, cfg.vocab_size, compute_dtype(cfg))
     return logits[:, 0], cache

@@ -39,6 +39,18 @@ reference, that branch comes first and runs the panels unquantized: the
 exchange moves activations, not panels, so a ``quant`` mode buys it no
 wire bytes.  Capacity dispatch is not expert-parallel, as in the
 reference.
+
+On a training mesh whose data axes cut the rows (``DistContext.rows_cut``)
+the aux loss is the global batch's: it is E · Σ mean(probs) · mean(top-1
+one-hot), a product of means, so the per-expert sums and the row count are
+summed over the data axes before it is formed (each rank adds the global
+aux to its loss; the sums' gradient reaches each rank's own rows).  Under
+expert parallelism over the data axes the executor needs the global row
+array: the ranks' rows are gathered, routed and sorted alike on every
+rank, and each rank keeps its own rows of the result (the result's
+cotangent summed over the axes first, the executor's convention).
+Capacity dispatch there would size the buckets from the global batch,
+which the port does not do: it raises.
 """
 from __future__ import annotations
 
@@ -46,9 +58,9 @@ import torch
 from torch import nn
 
 from ..core.dist import current_dist
-from ..core.gemm import (ep_ragged_moe, grouped_matmul, grouped_swiglu,
-                         plan_moe_dispatch, project, ragged_matmul,
-                         ragged_swiglu)
+from ..core.gemm import (collective, ep_ragged_moe, grouped_matmul,
+                         grouped_swiglu, plan_moe_dispatch, project,
+                         ragged_matmul, ragged_swiglu)
 from ..core.quant import QuantConfig
 from ..core.quant import resolve as resolve_quant
 from ..launch.sharding import ep_axis
@@ -100,14 +112,24 @@ def capacity(num_tokens: int, num_experts: int, top_k: int,
 def _router(x: torch.Tensor, router: torch.Tensor, num_experts: int,
             top_k: int):
     """Router head: the T1 GEMM to fp32 logits, top-k gates (normalised
-    when top_k > 1) and the Switch-style aux loss.  -> (gate_w (T, K) fp32,
-    gate_idx (T, K), aux)."""
+    when top_k > 1) and the Switch-style aux loss (over the global batch
+    when the data axes cut the rows).  -> (gate_w (T, K) fp32, gate_idx
+    (T, K), aux)."""
     logits = project(x, router.to(x.dtype), out_dtype=torch.float32)
     probs = torch.softmax(logits, dim=-1)
     gate_w, gate_idx = torch.topk(probs, top_k, dim=-1)
     if top_k > 1:
         gate_w = gate_w / gate_w.sum(dim=-1, keepdim=True)
     experts = torch.arange(num_experts, device=x.device)
+    ctx = current_dist()
+    if ctx is not None and ctx.rows_cut:
+        hits = (gate_idx[:, :1] == experts).to(torch.float32).sum(dim=0)
+        rows = torch.full((1,), float(x.shape[0]), device=x.device)
+        stats = collective.reduce_sum(
+            torch.cat([probs.sum(dim=0), hits, rows]), ctx.mesh, ctx.dp_axes)
+        p_sum, hits, rows = stats.split([num_experts, num_experts, 1])
+        aux = num_experts * torch.sum((p_sum / rows) * (hits / rows).detach())
+        return gate_w, gate_idx, aux
     ce = (gate_idx[:, :1] == experts).to(torch.float32).mean(dim=0)
     aux = num_experts * torch.sum(probs.mean(dim=0) * ce)
     return gate_w, gate_idx, aux
@@ -131,6 +153,12 @@ def moe_mlp(x: torch.Tensor, params: MoEParams, *, num_experts: int,
     if not qcfg.is_noop:
         raise ValueError("quantized experts require the ragged (zero-drop) "
                          f"dispatch, not {dispatch!r}")
+    ctx = current_dist()
+    if ctx is not None and ctx.rows_cut:
+        raise NotImplementedError(
+            "capacity dispatch with the rows cut over the data axes: the "
+            "buckets would be sized from this rank's rows, not the global "
+            "batch's")
     t, d = x.shape
     e = num_experts
     c = capacity(t, e, top_k, capacity_factor, dtype=compute_dtype)
@@ -174,6 +202,11 @@ def _moe_mlp_ragged(x: torch.Tensor, params: MoEParams, *, num_experts: int,
     e = num_experts
     xc = x.to(compute_dtype)
     gate_w, gate_idx, aux = _router(xc, params.router, e, top_k)
+    ctx = current_dist()
+    axis = ep_axis(ctx, e)
+    if axis is not None and ctx.rows_cut:
+        return _ep_rows_cut(xc, gate_w, gate_idx, params, ctx, axis,
+                            top_k, compute_dtype).to(x.dtype), aux
 
     flat_idx = gate_idx.reshape(-1)                             # (T*K,)
     order = torch.argsort(flat_idx, stable=True)
@@ -186,8 +219,6 @@ def _moe_mlp_ragged(x: torch.Tensor, params: MoEParams, *, num_experts: int,
     xs = xc[tok_sorted]                                         # (T*K, D)
     wg, wu, wd = (w.to(compute_dtype)
                   for w in (params.w_gate, params.w_up, params.w_down))
-    ctx = current_dist()
-    axis = ep_axis(ctx, e)
     if axis is not None:
         # Fused EP pipeline: one d_model-wide exchange each way; the
         # (rows, d_ff) hidden stays on the rank owning the expert.
@@ -207,3 +238,42 @@ def _moe_mlp_ragged(x: torch.Tensor, params: MoEParams, *, num_experts: int,
     y = torch.zeros((t, d), dtype=compute_dtype, device=x.device).index_add_(
         0, tok_sorted, ys * gw_sorted[:, None].to(compute_dtype))
     return y.to(x.dtype), aux
+
+
+def _ep_rows_cut(xc: torch.Tensor, gate_w: torch.Tensor,
+                 gate_idx: torch.Tensor, params: MoEParams, ctx, axis,
+                 top_k: int, compute_dtype) -> torch.Tensor:
+    """Expert parallelism over the data axes, each rank with its own rows:
+    the rows and their routing gathered over the axes (rank order, so the
+    global row array is the global batch's), sorted by expert alike on
+    every rank, ``ep_ragged_moe`` on this rank's panels, and this rank's
+    copies read back and gate-weighted (summed over k in k order; with
+    top-1, the one-device un-sort exactly)."""
+    mesh = ctx.mesh
+    e = params.router.shape[-1]
+    t = xc.shape[0]
+    if mesh.axes(axis) != tuple(ctx.dp_axes):
+        raise ValueError(f"expert axis {axis} is not the data axes "
+                         f"{ctx.dp_axes}")
+    x_g = collective.gather(xc, mesh, axis)                     # (T_g, D)
+    idx_g = collective.raw_all_gather(gate_idx, mesh, axis)     # (T_g, K)
+    flat = idx_g.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    counts = torch.zeros(e, dtype=torch.int32, device=xc.device).index_add_(
+        0, flat, torch.ones_like(flat, dtype=torch.int32))
+    offsets = torch.cat([counts.new_zeros(1),
+                         torch.cumsum(counts, dim=0, dtype=torch.int32)])
+    wg, wu, wd = (w.to(compute_dtype)
+                  for w in (params.w_gate, params.w_up, params.w_down))
+    ys = ep_ragged_moe(x_g[order // top_k], wg, wu, wd, offsets, mesh=mesh,
+                       axis=axis)
+    ys = collective.replicate(ys, mesh, axis)
+    where = torch.empty_like(order)
+    where[order] = torch.arange(order.numel(), device=order.device)
+    r0 = mesh.axis_index(axis) * t * top_k
+    mine = ys[where[r0:r0 + t * top_k]].reshape(t, top_k, -1)
+    w = gate_w.to(compute_dtype)
+    y = mine[:, 0] * w[:, :1]
+    for k in range(1, top_k):
+        y = y + mine[:, k] * w[:, k:k + 1]
+    return y

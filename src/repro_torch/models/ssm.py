@@ -16,15 +16,33 @@ the card).  The SSD contractions are plain ``torch.matmul`` / ``einsum``:
 the reference computes them with ``jnp.einsum`` outside any Pallas kernel.
 The intra-chunk product is (C Bᵀ ⊙ decay) batched over (batch, head)
 against x·dt, so no (B, Q, Q, H, P) tensor is ever formed.
+
+Head sharding (``DistContext(ssm_head_shard=True)``, the reference's
+``ssm.py:105-109``): a rank of the model axis (size tp) runs the scan on
+its H / tp heads (``_heads``).  The in-projection's columns are
+``[z | x | B | C | dt]``; the specs' model cut runs across that
+concatenation (mamba2-370m's 4384 columns split at 2192, inside ``x``), so
+the whole panel is read (gathered at use on a training mesh) and the rank
+takes its heads' columns of z, x and dt and all of B and C (one group);
+the conv taps the same channels.  The replicated leaves a rank reads in
+part (the panel, the taps, conv_b, A_log, D_skip, dt_bias, the norm scale)
+and the input go through ``collective.replicate``: the rank's gradient is
+its part, summed over the axis.  The gated RMS norm spans every head: its
+sum of squares is summed over the axis.  ``out_proj`` is a row panel
+(``layers.row_parallel``), its rows this rank's heads, whole or cut.
 """
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.dist import current_dist
+from ..core.gemm import collective
 from .attention import param
-from .layers import dense, rms_norm
+from .layers import column_input, dense, rms_norm, row_parallel
 
 CONV_WIDTH = 4
 HEADDIM = 64
@@ -80,6 +98,78 @@ def init_ssm_params(gen: torch.Generator, d_model: int, ssm_state: int, *,
         torch.log(torch.linspace(1.0, 16.0, nheads, **f32)),
         torch.ones(nheads, **f32), torch.full((nheads,), -2.0, **f32),
         torch.zeros(d_inner, **f32), out_proj, requires_grad=requires_grad)
+
+
+def _heads(params: SSMParams, d_model: int, ssm_state: int):
+    """The leaves as this rank's heads read them, the local d_inner and
+    head count, and ``tp`` = (mesh, model axis) under head sharding (else
+    None, and the leaves themselves)."""
+    d_inner, nheads, n = ssm_dims(d_model, ssm_state)
+    ctx = current_dist()
+    names = ("in_proj", "conv_w", "conv_b", "A_log", "D_skip", "dt_bias",
+             "norm", "out_proj")
+    view = SimpleNamespace(**{k: getattr(params, k) for k in names},
+                           d_inner=d_inner, nheads=nheads, tp=None,
+                           d_full=d_inner)
+    if ctx is None or ctx.head_shard == 1:
+        return view
+    tp = (ctx.mesh, ctx.model_axis)
+    nc, s = ctx.mesh.axis_size(ctx.model_axis), ctx.mesh.axis_index(
+        ctx.model_axis)
+    if nheads % nc:
+        raise ValueError(f"{nheads} SSD heads do not divide over the {nc} "
+                         "ranks of the model axis")
+    h_l = nheads // nc
+    di_l = h_l * HEADDIM
+    dev = params.in_proj.device
+    mine = torch.arange(s * di_l, (s + 1) * di_l, device=dev)
+    bc = torch.arange(2 * n, device=dev)
+    cols = torch.cat([mine, d_inner + mine, 2 * d_inner + bc,
+                      2 * d_inner + 2 * n + torch.arange(
+                          s * h_l, (s + 1) * h_l, device=dev)])
+    chans = torch.cat([mine, d_inner + bc])
+
+    def part(t, dim, idx):
+        return collective.replicate(t, *tp).index_select(dim, idx)
+
+    for name, full in (("in_proj", 2 * d_inner + 2 * n + nheads),
+                       ("conv_w", d_inner + 2 * n)):
+        if getattr(params, name).shape[1] != full:
+            raise ValueError(f"head sharding reads {name} whole")
+    heads = slice(s * h_l, (s + 1) * h_l)
+    out = params.out_proj
+    if out.shape[0] == d_inner:       # whole: this rank's heads' rows
+        out = collective.shard(out, *tp, dim=0)
+    return SimpleNamespace(
+        in_proj=part(params.in_proj, 1, cols),
+        conv_w=part(params.conv_w, 1, chans),
+        conv_b=part(params.conv_b, 0, chans),
+        A_log=collective.replicate(params.A_log, *tp)[heads],
+        D_skip=collective.replicate(params.D_skip, *tp)[heads],
+        dt_bias=collective.replicate(params.dt_bias, *tp)[heads],
+        norm=collective.replicate(params.norm, *tp)[s * di_l:(s + 1) * di_l],
+        out_proj=out, d_inner=di_l, nheads=h_l, tp=tp, d_full=d_inner)
+
+
+def _gated_norm(y: torch.Tensor, v) -> torch.Tensor:
+    """``rms_norm`` over the whole d_inner: under head sharding the sum of
+    squares of this rank's channels summed over the model axis (its
+    gradient too: each rank reads it for its own channels)."""
+    if v.tp is None:
+        return rms_norm(y, v.norm)
+    yf = y.to(torch.float32)
+    ss = collective.reduce_sum(torch.sum(torch.square(yf), dim=-1,
+                                         keepdim=True), *v.tp)
+    ss = collective.replicate(ss, *v.tp)
+    out = yf * torch.rsqrt(ss / v.d_full + 1e-6) * (
+        1.0 + v.norm.to(torch.float32))
+    return out.to(y.dtype)
+
+
+def _out(y: torch.Tensor, v, cdt) -> torch.Tensor:
+    if v.tp is None:
+        return dense(y, v.out_proj, cdt)
+    return row_parallel(y, v.out_proj, v.tp, cdt)
 
 
 def _split_proj(zxbcdt: torch.Tensor, d_inner: int, n: int):
@@ -143,18 +233,19 @@ def ssd_forward(x: torch.Tensor, params: SSMParams, *, ssm_state: int,
     last real position left it."""
     cdt = compute_dtype
     bsz, s, d_model = x.shape
-    d_inner, nheads, n = ssm_dims(d_model, ssm_state)
+    v = _heads(params, d_model, ssm_state)
+    d_inner, nheads, n = v.d_inner, v.nheads, ssm_state
     p = HEADDIM
 
-    zxbcdt = dense(x, params.in_proj, cdt)
+    zxbcdt = dense(column_input(x, v.tp), v.in_proj, cdt)
     z, xs, b, c, dt = _split_proj(zxbcdt, d_inner, n)
-    xbc = _causal_conv(torch.cat([xs, b, c], dim=-1), params.conv_w.to(cdt),
-                       params.conv_b.to(cdt))
+    xbc = _causal_conv(torch.cat([xs, b, c], dim=-1), v.conv_w.to(cdt),
+                       v.conv_b.to(cdt))
     xs = xbc[..., :d_inner].reshape(bsz, s, nheads, p)
     b = xbc[..., d_inner:d_inner + n]
     c = xbc[..., d_inner + n:]
-    a = -torch.exp(params.A_log.float())                      # (H,)
-    dt = _softplus(dt.float() + params.dt_bias.float())       # (B, S, H)
+    a = -torch.exp(v.A_log.float())                           # (H,)
+    dt = _softplus(dt.float() + v.dt_bias.float())            # (B, S, H)
 
     pad = (-s) % chunk
     if pad:
@@ -173,11 +264,11 @@ def ssd_forward(x: torch.Tensor, params: SSMParams, *, ssm_state: int,
                              causal)
         ys.append(y_q)
     y = torch.cat(ys, dim=1)[:, :s]                           # fp32
-    y = y + xs * params.D_skip.to(cdt)[None, None, :, None]
+    y = y + xs * v.D_skip.to(cdt)[None, None, :, None]
     y = y.reshape(bsz, s, d_inner).to(cdt)
     y = y * F.silu(z)
-    y = rms_norm(y, params.norm)
-    return dense(y, params.out_proj, cdt), h
+    y = _gated_norm(y, v)
+    return _out(y, v, cdt), h
 
 
 def conv_tail(x: torch.Tensor, params: SSMParams, *, ssm_state: int,
@@ -188,8 +279,9 @@ def conv_tail(x: torch.Tensor, params: SSMParams, *, ssm_state: int,
     prompt shorter than that is left-padded with zero rows, the causal
     conv's own padding (the reference leaves the missing rows as the cache
     held them)."""
-    d_inner, _, n = ssm_dims(x.shape[-1], ssm_state)
-    tail = dense(x[:, -(CONV_WIDTH - 1):], params.in_proj, compute_dtype)
+    v = _heads(params, x.shape[-1], ssm_state)
+    d_inner, n = v.d_inner, ssm_state
+    tail = dense(x[:, -(CONV_WIDTH - 1):], v.in_proj, compute_dtype)
     xbc = tail[..., d_inner:2 * d_inner + 2 * n]
     short = CONV_WIDTH - 1 - xbc.shape[1]
     return F.pad(xbc, (0, 0, short, 0)) if short else xbc
@@ -203,38 +295,46 @@ def ssd_decode_step(x: torch.Tensor, params: SSMParams, state: dict, *,
     state); ``state`` is not written."""
     cdt = compute_dtype
     bsz, _, d_model = x.shape
-    d_inner, nheads, n = ssm_dims(d_model, ssm_state)
+    v = _heads(params, d_model, ssm_state)
+    d_inner, nheads, n = v.d_inner, v.nheads, ssm_state
 
-    zxbcdt = dense(x[:, 0], params.in_proj, cdt)
+    zxbcdt = dense(column_input(x[:, 0], v.tp), v.in_proj, cdt)
     z, xs, b, c, dt = _split_proj(zxbcdt, d_inner, n)
     xbc = torch.cat([xs, b, c], dim=-1)                       # (B, C)
     window = torch.cat([state["conv"], xbc[:, None, :]], dim=1)   # (B, W, C)
-    xbc_out = F.silu((window * params.conv_w.to(cdt)).sum(dim=1)
-                     + params.conv_b.to(cdt))
+    xbc_out = F.silu((window * v.conv_w.to(cdt)).sum(dim=1)
+                     + v.conv_b.to(cdt))
 
     xs = xbc_out[:, :d_inner].reshape(bsz, nheads, HEADDIM)
     b = xbc_out[:, d_inner:d_inner + n].float()
     c = xbc_out[:, d_inner + n:].float()
-    a = -torch.exp(params.A_log.float())
-    dt = _softplus(dt.float() + params.dt_bias.float())       # (B, H)
+    a = -torch.exp(v.A_log.float())
+    dt = _softplus(dt.float() + v.dt_bias.float())            # (B, H)
 
     xdt = xs.float() * dt[..., None]                          # (B, H, P)
     h_new = (torch.exp(dt * a)[:, :, None, None] * state["h"]
              + xdt[..., None] * b[:, None, None, :])
     y = torch.einsum("bhpn,bn->bhp", h_new, c)
-    y = y + xs.float() * params.D_skip.float()[None, :, None]
+    y = y + xs.float() * v.D_skip.float()[None, :, None]
     y = y.reshape(bsz, d_inner).to(cdt)
     y = y * F.silu(z)
-    y = rms_norm(y, params.norm)
-    out = dense(y, params.out_proj, cdt)
+    y = _gated_norm(y, v)
+    out = _out(y, v, cdt)
     return out[:, None, :], {"h": h_new, "conv": window[:, 1:]}
 
 
 def init_ssm_state(bsz: int, d_model: int, ssm_state: int, *,
-                   dtype: torch.dtype, device: torch.device) -> dict:
+                   dtype: torch.dtype, device: torch.device,
+                   head_shard: int = 1) -> dict:
     """A zero state: h (B, H, P, N) fp32 and the conv window (B, W - 1,
-    d_inner + 2N) in ``dtype``."""
+    d_inner + 2N) in ``dtype``; ``head_shard`` tp: one rank's H / tp heads
+    and their d_inner / tp channels of the window (``_heads``)."""
     d_inner, nheads, n = ssm_dims(d_model, ssm_state)
+    if nheads % head_shard:
+        raise ValueError(f"{nheads} SSD heads do not divide over "
+                         f"{head_shard} ranks")
+    nheads //= head_shard
+    d_inner //= head_shard
     return {"h": torch.zeros(bsz, nheads, HEADDIM, n, dtype=torch.float32,
                              device=device),
             "conv": torch.zeros(bsz, CONV_WIDTH - 1, d_inner + 2 * n,

@@ -28,6 +28,11 @@ attends, after its self-attention, to the encoder rows through its own
 computed once per prefill and cached as ``cross_k`` / ``cross_v``.  The
 vision-language decoder (llava) is a dense stack whose sequence starts with
 the projected patch rows (``models.model``).
+
+On a training mesh (``DistContext(sharded_params=True)``) each block's
+parameters are this rank's blocks, brought to the layout the block's
+compute reads by ``launch.sharding.gathered`` inside the rematerialised
+function, so the recompute gathers them again (ZeRO-3).
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.gemm.dispatch import DotsStash
+from ..launch.sharding import gathered
 from .attention import AttentionParams, attention, init_attention_params, param
 from .layers import rms_norm, swiglu
 from .moe import MoEParams, init_moe_params, moe_mlp
@@ -247,21 +253,29 @@ def stack_train(layers: nn.ModuleList, cfg: ModelConfig, h: torch.Tensor,
         raise ValueError(f"unknown remat {cfg.remat!r} (the reference's "
                          "'full', 'dots' and 'none')")
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    cdt = compute_dtype(cfg)
     if cfg.family in RECURRENT_FAMILIES:
         def shared_block(hh):
-            return dense_block(hh, shared, cfg, positions=positions,
-                               window=0)[0]
+            with gathered(shared, dtype=cdt):
+                return dense_block(hh, shared, cfg, positions=positions,
+                                   window=0)[0]
+
+        def mamba_block(hh, p):
+            with gathered(p, dtype=cdt):
+                return ssm_block(hh, p, cfg)[0]
         for layer, p in enumerate(layers):
-            h = _remat(lambda hh, p=p: ssm_block(hh, p, cfg)[0], cfg, h)
+            h = _remat(mamba_block, cfg, h, p)
             if _shared_after(cfg, layer) is not None:
                 h = _remat(shared_block, cfg, h)
         return h, aux
     # The encoder takes the first encoder_layers windows, as the reference.
     for layer, (p, w) in enumerate(zip(layers, cfg.windows())):
         def block(hh, *ckv, p=p, w=w):
-            out, _, a = dense_block(hh, p, cfg, positions=positions,
-                                    window=w, causal=causal,
-                                    use_rope=use_rope, cross_kv=ckv or None)
+            with gathered(p, dtype=cdt):
+                out, _, a = dense_block(hh, p, cfg, positions=positions,
+                                        window=w, causal=causal,
+                                        use_rope=use_rope,
+                                        cross_kv=ckv or None)
             return out, a
         ckv = () if cross_kv_stack is None else cross_kv_stack[layer]
         h, a = _remat(block, cfg, h, *ckv)
@@ -283,44 +297,51 @@ def stack_cached(layers: nn.ModuleList, cfg: ModelConfig, h: torch.Tensor,
     ``cache["attn_k"][group]``.  The encoder-decoder's blocks read their
     cross K / V from ``cache["cross_k"][layer]`` / ``["cross_v"]`` (written
     by the prefill) and never change them."""
+    cdt = compute_dtype(cfg)
     if cfg.family in RECURRENT_FAMILIES:
         if page_table is not None:
             raise ValueError(f"paged KV unsupported for {cfg.family}")
         hk, ck = (("h", "conv") if cfg.family == "ssm"
                   else ("ssm_h", "ssm_conv"))
         for layer, p in enumerate(layers):
-            h, new = ssm_block(h, p, cfg, state={"h": cache[hk][layer],
-                                                 "conv": cache[ck][layer]})
+            with gathered(p, dtype=cdt):
+                h, new = ssm_block(h, p, cfg,
+                                   state={"h": cache[hk][layer],
+                                          "conv": cache[ck][layer]})
             cache[hk][layer].copy_(new["h"])
             cache[ck][layer].copy_(new["conv"])
             group = _shared_after(cfg, layer)
             if group is not None:
-                h, _, _ = dense_block(
-                    h, shared, cfg, positions=positions, window=0,
-                    kv=(cache["attn_k"][group], cache["attn_v"][group]),
-                    cache_index=cache_index, causal=causal,
-                    use_rope=use_rope)
+                with gathered(shared, dtype=cdt):
+                    h, _, _ = dense_block(
+                        h, shared, cfg, positions=positions, window=0,
+                        kv=(cache["attn_k"][group], cache["attn_v"][group]),
+                        cache_index=cache_index, causal=causal,
+                        use_rope=use_rope)
         return h, cache
     encdec = cfg.family == "encdec"
     if encdec and page_table is not None:
         raise ValueError("paged KV unsupported for encdec")
     for layer, (p, w) in enumerate(zip(layers, cfg.windows())):
-        h, _, _ = dense_block(
-            h, p, cfg, positions=positions, window=w,
-            kv=(cache["k"][layer], cache["v"][layer]),
-            cache_index=cache_index, causal=causal, use_rope=use_rope,
-            page_table=page_table,
-            cross_kv=((cache["cross_k"][layer], cache["cross_v"][layer])
-                      if encdec else None))
+        with gathered(p, dtype=cdt):
+            h, _, _ = dense_block(
+                h, p, cfg, positions=positions, window=w,
+                kv=(cache["k"][layer], cache["v"][layer]),
+                cache_index=cache_index, causal=causal, use_rope=use_rope,
+                page_table=page_table,
+                cross_kv=((cache["cross_k"][layer], cache["cross_v"][layer])
+                          if encdec else None))
     return h, cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device: torch.device, dtype: torch.dtype | None = None) -> dict:
+               device: torch.device, dtype: torch.dtype | None = None, *,
+               head_shard: int = 1) -> dict:
     """Zero caches with the reference's keys: k / v (dense, moe, vlm;
     encdec adds cross_k / cross_v of the ``encoder_seq`` encoder rows); h /
     conv (ssm); ssm_h / ssm_conv and the shared block's attn_k / attn_v,
-    one per group (hybrid).  The SSM state h is fp32."""
+    one per group (hybrid).  The SSM state h is fp32; ``head_shard``: the
+    SSM state of one rank's heads (``ssm.init_ssm_state``)."""
     check_family(cfg)
     dtype = dtype or compute_dtype(cfg)
     kv = (batch, max_len, cfg.num_kv_heads, cfg.head_dim_)
@@ -334,7 +355,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             cache["cross_v"] = torch.zeros(cross, dtype=dtype, device=device)
         return cache
     st = init_ssm_state(batch, cfg.d_model, cfg.ssm_state, dtype=dtype,
-                        device=device)
+                        device=device, head_shard=head_shard)
     h, conv = (t.new_zeros((cfg.num_layers,) + t.shape)
                for t in (st["h"], st["conv"]))
     if cfg.family == "ssm":

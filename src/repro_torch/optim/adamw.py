@@ -7,6 +7,8 @@ step count.  Unlike the reference's pure functions, ``apply_updates``
 updates the parameters and the moments IN PLACE (no second copy of the
 model or its state on the card); it returns them for symmetry.  The lr and
 clipping scale stay device tensors, so a step never waits for the host.
+On a mesh (``launch.sharding.shard_params``) everything here is a block:
+only the gradient norm needs the other ranks (``global_norm(mesh=)``).
 """
 from __future__ import annotations
 
@@ -14,6 +16,9 @@ import math
 from dataclasses import dataclass
 
 import torch
+
+from ..core.gemm import collective
+from ..launch.sharding import replicas as _replicas
 
 F32 = torch.float32
 
@@ -52,23 +57,35 @@ def init_opt_state(params: dict[str, torch.Tensor]) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in fp32."""
+def global_norm(tensors, *, mesh=None, replicas=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in fp32.  On a mesh
+    each tensor is this rank's block of a leaf that ``replicas[i]`` ranks
+    hold alike: each block's squares count once over the mesh (divided by
+    its replica count, then summed over every rank)."""
     total = None
-    for t in tensors:
+    for i, t in enumerate(tensors):
         sq = torch.sum(torch.square(t.to(F32)))
+        if replicas is not None:
+            sq = sq / replicas[i]
         total = sq if total is None else total + sq
+    if mesh is not None:
+        total = collective.raw_all_reduce(total, mesh, mesh.axis_names)
     return torch.sqrt(total)
 
 
 @torch.no_grad()
 def apply_updates(params: dict[str, torch.Tensor],
                   grads: dict[str, torch.Tensor], state: dict,
-                  cfg: OptConfig):
-    """One AdamW step in place.  -> (params, state, {"grad_norm", "lr"})."""
+                  cfg: OptConfig, *, mesh=None):
+    """One AdamW step in place.  -> (params, state, {"grad_norm", "lr"}).
+    ``mesh``: the parameters, gradients and moments are this rank's blocks
+    (each parameter's ``mesh_spec``); the gradient norm is the whole
+    model's, and the update runs on the blocks."""
     step = state["step"] + 1
     lr = schedule(step, cfg)
-    gnorm = global_norm(grads.values())
+    reps = (None if mesh is None else
+            [_replicas(params[k].mesh_spec, mesh) for k in grads])
+    gnorm = global_norm(grads.values(), mesh=mesh, replicas=reps)
     scale = torch.clamp(cfg.clip_norm / torch.clamp_min(gnorm, 1e-12),
                         max=1.0)
     b1, b2 = cfg.beta1, cfg.beta2

@@ -1,7 +1,8 @@
 """Fault injection and fault tolerance of the port: the chaos sites'
 schedule (``chaos``) and the single-host pieces of the reference's
-training supervisor (``fault_tolerance``).  The elastic mesh runner needs
-a mesh and is not ported."""
+training supervisor (``fault_tolerance``).  The elastic mesh runner,
+``runtime.elastic``, imports the training stack and is not re-exported
+here (as in the reference): import it as ``repro_torch.runtime.elastic``."""
 from . import chaos
 from .chaos import Fault, FaultPlan
 from .fault_tolerance import (ElasticPlan, HeartbeatMonitor, HostFailure,

@@ -4,6 +4,7 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ModelConfig
+from ..core.dist import current_dist
 from ..models.model import DenseLM, loss_fn
 from ..optim.adamw import OptConfig, apply_updates
 
@@ -18,12 +19,20 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
     other, their fp32 gradients summed in the parameters' ``.grad`` and
     divided by ``accum_steps`` (gradient accumulation, as the reference's
     scan); the metrics are the last microbatch's.  Metrics are 0-d device
-    tensors: reading one waits for the step."""
+    tensors: reading one waits for the step.
+
+    Under a ``DistContext`` with ``sharded_params`` (``train.Trainer`` on a
+    mesh) the model holds this rank's blocks and the batch this rank's
+    rows; the gradients land on the blocks through the gathers' backward
+    (``launch.sharding.gathered``), microbatches split the local rows, and
+    the update runs on the blocks with the whole model's gradient norm."""
 
     def single(model: DenseLM, batch: dict) -> dict:
         total, metrics = loss_fn(model, cfg, batch, aux_weight=aux_weight)
         total.backward()
-        metrics["total_loss"] = total
+        # The global batch's (on a mesh, ``total`` is this rank's share).
+        metrics["total_loss"] = (metrics["loss"]
+                                 + aux_weight * metrics["aux_loss"])
         return {k: v.detach() for k, v in metrics.items()}
 
     def train_step(model: DenseLM, opt_state: dict, batch: dict):
@@ -45,7 +54,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
                 for p in params.values():
                     p.grad.div_(accum_steps)
         grads = {name: p.grad for name, p in params.items()}
-        _, opt_state, stats = apply_updates(params, grads, opt_state, opt_cfg)
+        ctx = current_dist()
+        mesh = ctx.mesh if ctx is not None and ctx.sharded_params else None
+        _, opt_state, stats = apply_updates(params, grads, opt_state, opt_cfg,
+                                            mesh=mesh)
         metrics.update(stats)
         return model, opt_state, metrics
 

@@ -1648,3 +1648,55 @@ def test_dist_two_ranks_share_the_card_over_gloo(dev, tmp_path):
                 assert r["launches"].get(name), (name, r["launches"])
     finally:
         world.close()
+
+
+def test_mesh_train_step_two_ranks_share_the_card(dev, tmp_path):
+    """A (data 2, model 1) ZeRO-3 step of qwen3-1.7b-smoke in fp32 on two
+    ranks sharing the card over gloo: every rank launches ``ftimm_gemm``,
+    ``ftimm_gemm_swiglu`` and ``ftimm_gemm_grouped``, and the losses,
+    gradient norms and gathered parameters of 2 steps are the one-rank
+    step's on the card within 1e-4."""
+    import dataclasses
+
+    import numpy as np
+    sys.path.insert(0, str(Path(__file__).parent))
+    from torch_world import World
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.models.weights import (from_numpy_params,
+                                            to_numpy_params)
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+    arch = "qwen3-1.7b-smoke"
+    cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
+    tree = to_numpy_params(M.init_params(cfg, 0, device="cpu",
+                                         dtype="float32"))
+    data = SyntheticLM(cfg, ShapeConfig("t", 32, 4, "train"))
+    batches = [data.host_batch(i) for i in range(2)]
+    model = from_numpy_params(tree, cfg, dev, dtype=torch.float32)
+    step = make_train_step(cfg, adamw.OptConfig())
+    opt = adamw.init_opt_state(dict(model.named_parameters()))
+    want = []
+    for b in batches:
+        model, opt, m = step(model, opt, {k: torch.as_tensor(v).to(dev)
+                                          for k, v in b.items()})
+        want.append({k: float(v) for k, v in m.items()})
+    world = World(2, tmp_path, timeout=300)
+    try:
+        ranks = world.run("mesh_steps", arch, (2, 1), tree, batches,
+                          device="cuda")
+    finally:
+        world.close()
+    for r in ranks:
+        for name in ("ftimm_gemm", "ftimm_gemm_swiglu",
+                     "ftimm_gemm_grouped"):
+            assert r["launches"].get(name), (name, r["launches"])
+        for got, w in zip(r["metrics"], want):
+            for key in ("loss", "grad_norm"):
+                assert abs(got[key] - w[key]) <= 1e-4 * abs(w[key]), key
+    mine = to_numpy_params(model)
+    for name in ("embed", "final_norm"):
+        _close(torch.from_numpy(np.asarray(ranks[0]["params"][name])),
+               torch.from_numpy(np.asarray(mine[name])))

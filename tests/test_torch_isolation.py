@@ -40,7 +40,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.launch.serve, repro_torch.models.weights, "
             "repro_torch.train, repro_torch.launch.train, "
             "repro_torch.analysis, repro_torch.analysis.sweep, "
-            "repro_torch.roofline, repro_torch.configs.shapes; "
+            "repro_torch.roofline, repro_torch.configs.shapes, "
+            "repro_torch.optim.compression, repro_torch.runtime.elastic; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad; print('clean')")

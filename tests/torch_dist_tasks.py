@@ -24,7 +24,7 @@ from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import attention as A
 from repro_torch.models import model as M
 from repro_torch.models import moe as MOE
-from repro_torch.models.weights import from_numpy_params
+from repro_torch.models.weights import from_numpy_params, to_numpy_tree
 from repro_torch.runtime import chaos
 
 CPU = torch.device("cpu")
@@ -35,13 +35,14 @@ EP_FNS = {"matmul": X.ep_ragged_matmul, "swiglu": X.ep_ragged_swiglu,
 
 def mesh(shape=None, axes=("x",), device="cpu"):
     """This rank's gloo mesh of ``shape`` (default: the whole world on one
-    axis) with its tensors on ``device``, built once."""
+    axis) with its tensors on ``device``, built once; over the first ranks
+    when ``shape`` is smaller than the world (None on the others)."""
     if shape is None:
         shape = (torch.distributed.get_world_size(),)
     key = (tuple(shape), tuple(axes), str(device))
     if key not in _MESHES:
         _MESHES[key] = make_mesh(tuple(shape), tuple(axes), backend="gloo",
-                                 device=device)
+                                 device=device, first_ranks=True)
     return _MESHES[key]
 
 
@@ -256,3 +257,170 @@ def moe_grads(x, router, wg, wu, wd, top_k, ct):
             "w": [_n(getattr(p, n).grad)
                   for n in ("w_gate", "w_up", "w_down")]}
     return out
+
+
+# ---------------------------------------------------------------------------
+# Training on a mesh
+# ---------------------------------------------------------------------------
+
+def _train_cfg(arch, depth=None):
+    cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
+    return dataclasses.replace(cfg, num_layers=depth) if depth else cfg
+
+
+def mesh_steps(arch, mesh_shape, tree, batches, *, moe_ep=False,
+               ssm_head_shard=False, opt=None, depth=None, device="cpu",
+               accum_steps=1):
+    """``make_train_step`` on this rank's blocks of ``tree`` (a whole
+    reference-layout parameter tree) under a (data, model) mesh of
+    ``mesh_shape`` with its tensors on ``device``, one step per global
+    batch of ``batches`` (this rank's rows cut from each): -> each step's
+    metrics, the whole updated tree (rank 0), this rank's parameter block
+    shapes and kernel launches."""
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+    cfg = _train_cfg(arch, depth)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    m = mesh(tuple(mesh_shape), ("data", "model"), dev)
+    if m is None:
+        return None
+    K.reset_launch_counts()
+    model = from_numpy_params(tree, cfg, dev, dtype=torch.float32)
+    specs = S.named_specs(dict(model.named_parameters()), m, moe_ep=moe_ep)
+    S.shard_params(model, specs, m)
+    ep = S.expert_axis(m, True, "dp", cfg.num_experts) if moe_ep else None
+    ctx = D.DistContext(m, S.dp_axes(m), "model", moe_ep_axis=ep,
+                        ssm_head_shard=ssm_head_shard, sharded_params=True)
+    ocfg = adamw.OptConfig(**(opt or {}))
+    step = make_train_step(cfg, ocfg, accum_steps)
+    state = adamw.init_opt_state(dict(model.named_parameters()))
+    metrics = []
+    with D.use_dist(ctx):
+        for batch in batches:
+            local = {k: _t(v).to(dev) for k, v in S.cut_batch(cfg, batch,
+                                                              m).items()}
+            model, state, mt = step(model, state, local)
+            metrics.append({k: float(v) for k, v in mt.items()})
+    named = dict(model.named_parameters())
+    full = {k: S.full_tensor(p, p.mesh_spec, m).cpu()
+            for k, p in named.items()}
+    return {"metrics": metrics,
+            "params": (to_numpy_tree(full)
+                       if torch.distributed.get_rank() == 0 else None),
+            "shapes": {k: tuple(p.shape) for k, p in named.items()},
+            "launches": {k: v for k, v in K.launch_counts().items() if v}}
+
+
+def mesh_trainer(arch, mesh_shape, steps, ckpt_dir, *, seq=32, batch=4,
+                 ckpt_every=50, opt=None):
+    """``Trainer(mesh=...)`` for ``steps`` steps on a (data, model) mesh of
+    ``mesh_shape``, checkpointing to ``ckpt_dir``: -> its metrics log."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.optim import adamw
+    from repro_torch.train import Trainer
+    m = mesh(tuple(mesh_shape), ("data", "model"))
+    if m is None:
+        return None
+    tr = Trainer(_train_cfg(arch), ShapeConfig("t", seq, batch, "train"),
+                 adamw.OptConfig(**(opt or {})), mesh=m, seed=0,
+                 ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, log_every=1)
+    tr.run(steps)
+    return tr.metrics_log
+
+
+def head_cut_decode(arch, tree, prompt, steps, max_len, nc=2):
+    """``prefill`` then a ``decode_step`` per column of ``steps`` on a
+    (1, nc) mesh with ``ssm_head_shard``: whole serving weights, the SSM
+    cache cut to this rank's heads.  -> every call's logits and the cache
+    leaf shapes (None past the mesh)."""
+    cfg = _train_cfg(arch)
+    m = mesh((1, nc), ("data", "model"))
+    if m is None:
+        return None
+    ctx = D.DistContext(m, ssm_head_shard=True)
+    model = from_numpy_params(tree, cfg, CPU)
+    K.reset_launch_counts()
+    with D.use_dist(ctx):
+        cache = M.make_cache(cfg, prompt.shape[0], max_len, device=CPU)
+        logits, cache = M.prefill(model, cfg, {"tokens": _t(prompt).long()},
+                                  cache)
+        outs = [_n(logits)]
+        pos = prompt.shape[1]
+        for i in range(steps.shape[1]):
+            logits, cache = M.decode_step(model, cfg,
+                                          _t(steps[:, i:i + 1]).long(),
+                                          cache, pos)
+            outs.append(_n(logits))
+            pos += 1
+    return {"logits": outs,
+            "cache": {k: tuple(v.shape) for k, v in cache.items()}}
+
+
+def compress(g, err, steps=1):
+    """``compress_allreduce`` of this rank's gradient ``g[rank]`` over the
+    whole world, ``steps`` times with error feedback: -> the mean and error
+    of each step, the dtype and size of every all-reduce buffer and the
+    int8 codes this rank put on the wire."""
+    from repro_torch.optim.compression import compress_allreduce
+    m = mesh()
+    r = torch.distributed.get_rank()
+    seen = []
+    real = torch.distributed.all_reduce
+
+    codes = []
+
+    def spy(t, *a, **k):
+        seen.append((str(t.dtype), t.numel()))
+        if t.dtype == torch.int8:
+            codes.append(_n(t))
+        return real(t, *a, **k)
+
+    e = _t(err[r])
+    out = []
+    torch.distributed.all_reduce = spy
+    try:
+        for _ in range(steps):
+            mean, e = compress_allreduce(_t(g[r]), e, m, "x")
+            out.append({"mean": _n(mean), "err": _n(e)})
+    finally:
+        torch.distributed.all_reduce = real
+    return {"steps": out, "wire": seen, "codes": codes}
+
+
+def mesh_from_plan(data, model):
+    """``mesh_from_plan`` of a (data, model) plan on this world: -> this
+    rank's coords (None past the plan) or the error it raised."""
+    from repro_torch.launch.mesh import mesh_from_plan as build
+    from repro_torch.runtime.fault_tolerance import ElasticPlan
+    try:
+        got = build(ElasticPlan(data=data, model=model, chips=data * model,
+                                dropped_chips=0), backend="gloo",
+                    device=CPU)
+    except ValueError as e:
+        return {"error": str(e)}
+    return {"coords": None if got is None else dict(got.coords)}
+
+
+def elastic(arch, ckpt_dir, steps, *, fault=None, seq=32, batch=8,
+            ckpt_every=4, opt=None):
+    """``ElasticRunner`` over the whole world (``fault``: a ``REPRO_CHAOS``
+    spec armed on every rank): -> its history, metrics log, the plan
+    servings of the run and whether this rank left."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.elastic import ElasticRunner
+    tuner.clear_plan_cache()
+    runner = ElasticRunner(_train_cfg(arch),
+                           ShapeConfig("elastic", seq, batch, "train"),
+                           adamw.OptConfig(**(opt or {})), ckpt_dir=ckpt_dir,
+                           model_parallel=1, seed=0, ckpt_every=ckpt_every,
+                           log_every=1, backend="gloo", device=CPU)
+    plan = chaos.parse_env(fault) if fault else chaos.FaultPlan()
+    with chaos.chaos(plan):
+        result = runner.run(steps)
+    return {"history": runner.history, "metrics": runner.metrics_log,
+            "plans": sum(tuner.PLAN_MODE_COUNTS.values()),
+            "left": result is None}
