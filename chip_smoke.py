@@ -311,9 +311,9 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    products.  A rank's failure or the world's timeout fails the phase;
 13e. [mesh-train] training on a mesh (``Trainer(mesh=...)``): two ranks
    share cuda:0 over gloo, as in [dist]; the one-rank runs first, in this
-   process.  3 steps of 8 x 128 (bf16 on fp32 masters, AdamW) a case,
+   process.  2 steps of 8 x 128 (bf16 on fp32 masters, AdamW) a case,
    each beside the one-rank ``Trainer`` from the same seed: (a)
-   qwen3-1.7b, 28 layers, (data 2, model 1), ZeRO-3: the losses within
+   qwen3-1.7b, 4 layers, (data 2, model 1), ZeRO-3: the losses within
    2e-2 relative a step, and at 2 layers in fp32 compute within 1e-5;
    (b) the same on (data 1, model 2), tensor parallel: every rank's
    ``ftimm_gemm`` and ``ftimm_gemm_swiglu`` launched on its half panels
@@ -331,12 +331,38 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    reported (48 random bf16 layers in another summation order); (e)
    ``compress_allreduce`` of 4,194,304 fp32 elements a rank: 1 byte an
    element plus the 4-byte max staged each way, the mean within 0.2 of
-   the fp32 mean; (f) ``ElasticRunner`` at qwen3-1.7b-smoke in fp32, 12
+   the fp32 mean; the elastic re-mesh: ``ElasticRunner`` at
+   qwen3-1.7b-smoke in fp32, 12
    steps of 8 x 32: a ``shard_loss`` at step 6 (1 rank lost) re-meshes (2,
    1) onto (1, 1) and restores step 4: the history, and steps 6-11 within
-   1e-5 of the clean run's.  No plain version runs in (a)-(d).  Per case
-   and rank: staged bytes a step, the step median, parameters and peak
-   memory, launches by kernel;
+   1e-5 of the clean run's.  (f) mixtral-8x7b, 1 layer, (data 2),
+   capacity dispatch with the rows cut over data, once with the experts
+   whole (ZeRO-3) and once over data (``moe_ep``): each rank launching the
+   grouped pair and down product, the losses within 2e-2 and the first
+   step's gradient norm too (in bf16 the later norms carry a step's
+   rounding through the routing: reported), and the copies the capacity
+   keeps in the first forward summed over the ranks equal to the one-rank
+   run's; (g) whisper-base, full
+   depth, (data 1, model 2), tensor parallel (the encoder, the cross
+   projections and the cross-attention on the rank's heads): within 2e-2,
+   and in fp32 within 1e-5; (h) qwen3-1.7b, 2 layers, (data 2), ZeRO-1
+   (the parameters TP only, the moments at ZeRO-3: a rank holds about half
+   the moments): within 2e-2, and at 2 layers in fp32 within 1e-5 (the
+   gradient norms of every fp32 step too).  No
+   plain version runs in (a)-(d), (f)-(h).  Per case and rank: staged
+   bytes a step, the step median, parameters, moments and peak memory,
+   launches by kernel;
+13f. [placed] the measured placed search: ``autotune_gemm`` /
+   ``autotune_batched_gemm`` / ``autotune_ragged_gemm`` with 2 shards at
+   qwen3-1.7b's decode gate / up (4 x 2048 x 6144), its fp32 attention PV
+   (32 x 2 x 96 x 128) and llama4-scout's decode expert down (16 groups,
+   4 rows, 8192 x 5120), stored, saved, reloaded and served by the
+   planner as "cached" (each winner one of its options; every local GEMM
+   launched its kernel); then on the two gloo ranks sharing the card
+   ``calibrate_ici(store=False)`` (the fitted fraction printed: host
+   staging on one card, not NVLink) and both ``time_placed_*_e2e`` at the
+   same dense and ragged shapes, each row's measured time beside the
+   planner's; gated on finite times, not on which strategy wins;
 14. [time] each kernel at the decode-step shapes of the model it serves, and
    the two backward kernels at the training shapes (split-K on its
    tensor-core and FMA bodies), and ftimm_gemm at qwen3-1.7b's training
@@ -4839,6 +4865,29 @@ def roofline_phase(profiled: dict[str, dict]) -> dict:
     return out
 
 
+def roofline_dist(dist_out: dict) -> dict:
+    """[dist]'s llama4-scout decode on two ranks priced expert-parallel
+    (``step_perf(ep_shards=2)``) at its depth and decode shape: the
+    ``moe_a2a`` bytes a step beside each rank's measured staged bytes a
+    step.  Printed, not gated: the model prices the two exchange legs'
+    wire bytes over NVLink, the ranks stage every collective's operands
+    through host memory (the flash-decode merge and the routing too)."""
+    cfg = _llama4_path_cfg("bf16")
+    rows = DIST_PROMPTS
+    shape = ShapeConfig("dist decode", seq_len=DIST_MAX_LEN,
+                        global_batch=rows, kind="decode")
+    perf = step_perf(cfg, shape, ep_shards=DIST_RANKS)
+    a2a = perf.breakdown["moe_a2a"][2]
+    staged = [s["staged_bytes_per_step"] for s in dist_out["serve"]
+              if s["kind"] == "bf16"]
+    log(f"  [dist] llama4-scout {cfg.num_layers} l., {rows} x "
+        f"{DIST_MAX_LEN} rows, ep_shards {DIST_RANKS}: moe_a2a "
+        f"{a2a:.0f} B a step (both ranks' wire bytes), staged by each rank "
+        f"{[round(x) for x in staged]} B a step")
+    return {"layers": cfg.num_layers, "rows": rows, "moe_a2a_bytes": a2a,
+            "staged_bytes_per_step": staged}
+
+
 # ---------------------------------------------------------------------------
 # [dist]: the mesh executors on process groups
 # ---------------------------------------------------------------------------
@@ -5417,29 +5466,54 @@ def dist_phase(dev) -> tuple[dict, dict]:
 
 MT_RANKS = 2
 MT_TIMEOUT = 900            # seconds the spawned world may take in all
-MT_STEPS = 3
+MT_STEPS = 2                # a case's steps (3 would near the time limit)
 MT_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 MT_SERVE = (4, 40, 8)       # (d): prompts, prompt tokens, decode steps
 MT_SERVE_KINDS = ("float32", "bfloat16")    # (d)'s compute dtypes
 MT_COMPRESS = 1 << 22       # (e): fp32 elements of a rank's gradient
 MT_ELASTIC = (12, 32, 8, "shard_loss@6:chips=1")   # steps, seq, batch, fault
+# qwen3-1.7b's depth in (a) / (b) and under ZeRO-1 (h): a ZeRO step stages
+# every parameter's fp32 gradient through gloo (23 GB at 28 layers, ~1 GB/s
+# on one card), and the whole script has a time limit.
+MT_QWEN_LAYERS = 4
+MT_ZERO1_LAYERS = 2
 # case -> (arch, (data, model), layers (None: all), compute dtype,
-# Trainer options); "a32" / "b32": (a) / (b) at 2 layers in fp32.
+# Trainer options); "a32" / "b32" / "h32": (a) / (b) / (h) at 2 layers in
+# fp32, "g32": (g) in fp32, "f32": (f_ep) in fp32 (experts over data: the
+# fp32 experts' ZeRO gather would stage ~30 GB a step); "zero1": the
+# parameters at ``named_specs(zero_stage=1)``, the moments at ZeRO-3.
 MT_CASES = {
-    "a": (ARCH, (2, 1), None, "bfloat16", {}),
+    "a": (ARCH, (2, 1), MT_QWEN_LAYERS, "bfloat16", {}),
     "a32": (ARCH, (2, 1), 2, "float32", {}),
-    "b": (ARCH, (1, 2), None, "bfloat16", {}),
+    "b": (ARCH, (1, 2), MT_QWEN_LAYERS, "bfloat16", {}),
     "b32": (ARCH, (1, 2), 2, "float32", {}),
     "c": (LLAMA4, (2, 1), 1, "bfloat16", {"moe_ep": True}),
-    "d": (MAMBA, (1, 2), None, "bfloat16", {"ssm_head_shard": True})}
+    "d": (MAMBA, (1, 2), None, "bfloat16", {"ssm_head_shard": True}),
+    "f": (MIXTRAL, (2, 1), 1, "bfloat16", {}),
+    "f_ep": (MIXTRAL, (2, 1), 1, "bfloat16", {"moe_ep": True}),
+    "f32": (MIXTRAL, (2, 1), 1, "float32", {"moe_ep": True}),
+    "g": (WHISPER, (1, 2), None, "bfloat16", {}),
+    "g32": (WHISPER, (1, 2), None, "float32", {}),
+    "h": (ARCH, (2, 1), MT_ZERO1_LAYERS, "bfloat16", {"zero1": True}),
+    "h32": (ARCH, (2, 1), 2, "float32", {"zero1": True})}
 MT_ONE_RANK = {"a": "a", "a32": "a32", "b": "a", "b32": "a32", "c": "c",
-               "d": "d"}
+               "d": "d", "f": "f", "f_ep": "f", "f32": "f32", "g": "g",
+               "g32": "g32",
+               "h": "h", "h32": "a32"}
+MT_NEW = ("f", "f_ep", "f32", "g", "g32", "h", "h32")   # gradient norms held too
+MT_CAPACITY = ("f", "f_ep", "f32")      # kept copies held against one rank's
 MT_KERNELS = {"a": ("ftimm_gemm", "ftimm_gemm_swiglu", "ftimm_gemm_grouped"),
               "b": ("ftimm_gemm", "ftimm_gemm_swiglu", "ftimm_gemm_grouped"),
               "c": ("ftimm_gemm", "ftimm_gemm_grouped",
                     "ftimm_gemm_ragged_swiglu", "ftimm_gemm_ragged",
                     "ftimm_gemm_ragged_dw"),
-              "d": ("ftimm_gemm",)}
+              "d": ("ftimm_gemm",),
+              "f": ("ftimm_gemm", "ftimm_gemm_grouped_swiglu",
+                    "ftimm_gemm_grouped"),
+              "f_ep": ("ftimm_gemm", "ftimm_gemm_grouped_swiglu",
+                       "ftimm_gemm_grouped"),
+              "g": ("ftimm_gemm", "ftimm_gemm_swiglu", "ftimm_gemm_grouped"),
+              "h": ("ftimm_gemm", "ftimm_gemm_swiglu", "ftimm_gemm_grouped")}
 # (b): the weight panels (K, N) a rank's forward GEMMs read -- qwen3-1.7b's
 # halves -- and the whole ones none may read.
 MT_TP_HALVES = {"ftimm_gemm": [(2048, 1024), (2048, 512), (1024, 2048),
@@ -5491,6 +5565,33 @@ def mt_serve(cfg, model, dev, tokens=None) -> dict:
             "cache": {k: list(v.shape) for k, v in cache.items()}}
 
 
+class KeepCounter:
+    """While entered, ``moe.capacity_slots`` counts each call's kept and
+    routed (token, k) copies (device tensors, read at the end: no host
+    sync in the step)."""
+
+    def __init__(self):
+        self._calls: list = []
+
+    def __enter__(self):
+        self._saved = MOE.capacity_slots
+
+        def counted(gate_idx, num_experts, cap):
+            slot, keep = self._saved(gate_idx, num_experts, cap)
+            self._calls.append((keep.sum(), keep.numel()))
+            return slot, keep
+
+        MOE.capacity_slots = counted
+        return self
+
+    def __exit__(self, *exc):
+        MOE.capacity_slots = self._saved
+
+    def counts(self) -> list[tuple[int, int]]:
+        """(kept, routed) of each call, in call order."""
+        return [(int(k), n) for k, n in self._calls]
+
+
 def mt_one_rank(case: str, dev, work: Path) -> dict:
     """The one-rank ``Trainer`` run of ``case`` in this process (and (d)'s
     request list, its greedy tokens saved for the ranks)."""
@@ -5498,13 +5599,15 @@ def mt_one_rank(case: str, dev, work: Path) -> dict:
     free_card()
     torch.cuda.reset_peak_memory_stats(dev)
     tr = Trainer(cfg, mt_shape(), mt_opt(), seed=0, log_every=1, device=dev)
-    model, opt = tr.run(MT_STEPS)
+    with KeepCounter() as kept:
+        model, opt = tr.run(MT_STEPS)
     torch.cuda.synchronize(dev)
     walls = mt_walls(tr.metrics_log)
     out = {"losses": [m["loss"] for m in tr.metrics_log],
            "grad_norms": [m["grad_norm"] for m in tr.metrics_log],
            "step_s": walls, "step_median_s": statistics.median(walls[1:]),
-           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "kept": kept.counts()}
     del model, opt, tr
     free_card()
     if case == "d":
@@ -5539,22 +5642,35 @@ def mt_train_case(case: str, dev) -> dict:
     MT_STEPS steps.  -> its losses, step walls, staged bytes, parameters,
     peak memory, launches and recorded panels."""
     from repro_torch.core.gemm import collective as COLL
+    from repro_torch.launch import sharding
     from repro_torch.launch.mesh import make_mesh
     arch, dims, _, cdt, kw = MT_CASES[case]
+    kw = dict(kw)
     cfg = mt_cfg(case)
     mesh = make_mesh(dims, ("data", "model"), backend="gloo", device=dev)
     free_card()
+    if kw.pop("zero1", False):
+        # The specs from the whole model's shapes, drawn and dropped.
+        named = dict(M.init_params(cfg, 0, device=dev, dtype=cfg.param_dtype)
+                     .named_parameters())
+        kw["shardings"] = {"params": sharding.named_specs(named, mesh,
+                                                          zero_stage=1),
+                           "opt": sharding.named_specs(named, mesh)}
+        del named
+        free_card()
     torch.cuda.reset_peak_memory_stats(dev)
     tr = Trainer(cfg, mt_shape(), mt_opt(), mesh=mesh, seed=0, log_every=1,
                  **kw)
     COLL.reset_counts()
     K.reset_launch_counts()
-    with CallRecorder() as rec, PlainCounter() as plain:
+    with CallRecorder() as rec, PlainCounter() as plain, \
+            KeepCounter() as kept:
         model, opt = tr.run(MT_STEPS)
     torch.cuda.synchronize(dev)
     staged = COLL.counts()["staged_bytes"]
     launches = K.launch_counts()
     params = sum(p.numel() for p in model.parameters())
+    moments = sum(t.numel() for t in opt["m"].values())
     log_ = tr.metrics_log
     walls = mt_walls(log_)
     del model, opt, tr
@@ -5567,7 +5683,8 @@ def mt_train_case(case: str, dev) -> dict:
             "grad_norms": [m["grad_norm"] for m in log_],
             "step_s": walls, "step_median_s": statistics.median(walls[1:]),
             "staged_bytes_per_step": staged / MT_STEPS,
-            "params_rank": params,
+            "params_rank": params, "moments_rank": moments,
+            "kept": kept.counts(),
             "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
             "launches": dict(launches),
             "launches_per_step": {k: v / MT_STEPS
@@ -5676,8 +5793,8 @@ def mt_rank(rank: int, device: str, store: str, work: str, out_q) -> None:
         res["e"] = mt_compress_case(dev)
         secs["d_serve+e"] = time.monotonic() - t0
         t0 = time.monotonic()
-        res["f"] = mt_elastic_case(dev, Path(work))
-        secs["f"] = time.monotonic() - t0
+        res["elastic"] = mt_elastic_case(dev, Path(work))
+        secs["elastic"] = time.monotonic() - t0
         res["seconds"] = secs
         out_q.put(("ok", rank, res))
     except BaseException:       # noqa: BLE001 -- reported, and the phase fails
@@ -5698,9 +5815,25 @@ def mt_hold(case: str, one: dict, got: dict) -> dict:
         raise AssertionError(f"[mesh-train] ({case}) rank {got['rank']}: "
                              f"losses {got['losses']} against one rank's "
                              f"{want['losses']} (tolerance {tol})")
+    gn_errs = [abs(g - w) / abs(w) for g, w in zip(got["grad_norms"],
+                                                    want["grad_norms"])]
+    # Gradient norms: every step in fp32; in bf16 the first step's (the
+    # weights still equal), as later ones carry the steps' bf16 rounding
+    # through the routing (a capacity drop or a near-tie expert choice
+    # moves the norm), reported.
+    gated = gn_errs if MT_CASES[case][3] == "float32" else gn_errs[:1]
+    if case in MT_NEW and (len(gn_errs) != MT_STEPS or max(gated) > tol):
+        raise AssertionError(f"[mesh-train] ({case}) rank {got['rank']}: "
+                             f"gradient norms {got['grad_norms']} against "
+                             f"one rank's {want['grad_norms']}")
     if got["plain_calls"]:
         raise AssertionError(f"[mesh-train] ({case}): {got['plain_calls']} "
                              "plain versions ran on CUDA tensors")
+    if (MT_CASES[case][4].get("zero1")
+            and not got["moments_rank"] < 0.55 * got["params_rank"]):
+        raise AssertionError(f"[mesh-train] ({case}) rank {got['rank']}: "
+                             f"{got['moments_rank']} moment elements for "
+                             f"{got['params_rank']} parameter elements")
     need = MT_KERNELS.get(case, ())
     if MT_CASES[case][3] == "bfloat16" and not all(
             got["launches"].get(k) for k in need):
@@ -5716,7 +5849,29 @@ def mt_hold(case: str, one: dict, got: dict) -> dict:
                     f"[mesh-train] (b) rank {got['rank']}: {name} panels "
                     f"{sorted(seen)}; missing halves {missing}, whole "
                     f"{whole}")
-    return {"loss_rel_errs": errs, "tol": tol}
+    return {"loss_rel_errs": errs, "grad_norm_rel_errs": gn_errs, "tol": tol}
+
+
+def mt_hold_kept(case: str, one: dict, ranks: list[dict]) -> dict:
+    """(f): the copies the capacity kept in each ``capacity_slots`` call
+    (every rank on its rows) summed over the ranks against the one-rank
+    run's, and the routed copies likewise.  Gated: the first forward's
+    call in bf16 (the later ones see weights a bf16 step apart, reported),
+    every call in fp32."""
+    want = one[MT_ONE_RANK[case]]["kept"]
+    calls = [r[case]["kept"] for r in ranks]
+    summed = [tuple(map(sum, zip(*c))) for c in zip(*calls)]
+    gated = len(want) if MT_CASES[case][3] == "float32" else 1
+    if (not summed or summed[:gated] != want[:gated]
+            or len(summed) != len(want)):
+        raise AssertionError(f"[mesh-train] ({case}): kept / routed copies "
+                             f"{summed[:gated]} over the ranks, one rank "
+                             f"{want[:gated]} ({len(summed)} / {len(want)} "
+                             "calls)")
+    return {"first_forward": {"kept": want[0][0], "routed": want[0][1],
+                              "dropped": want[0][1] - want[0][0]},
+            "calls_equal": sum(a == b for a, b in zip(summed, want)),
+            "calls": len(want), "gated_calls": gated}
 
 
 def mt_hold_serve(one: dict, got: dict) -> dict:
@@ -5765,10 +5920,11 @@ def mt_hold_serve(one: dict, got: dict) -> dict:
 
 
 def mt_hold_elastic(ranks: list[dict]) -> dict:
-    """(f) on both ranks: the faulted history and the recovered losses."""
+    """The elastic re-mesh on both ranks: the faulted history and the
+    recovered losses."""
     out = []
     for rank, r in enumerate(ranks):
-        f, c = r["f"]["faulted"], r["f"]["clean"]
+        f, c = r["elastic"]["faulted"], r["elastic"]["clean"]
         hist = [h.get("failure") for h in f["history"]]
         ok = (hist == [None, "HostFailure", None]
               and f["history"][0]["mesh"] == (2, 1)
@@ -5782,39 +5938,41 @@ def mt_hold_elastic(ranks: list[dict]) -> dict:
                     for s in range(6, steps)]
             ok = ok and len(errs) == steps - 6 and max(errs) <= 1e-5
         if not ok:
-            raise AssertionError(f"[mesh-train] (f) rank {rank}: history "
+            raise AssertionError(f"[mesh-train] (elastic) rank {rank}: "
+                                 f"history "
                                  f"{f['history']}, clean {c['history']}, "
                                  f"loss errors {errs}")
         out.append({"history": f["history"], "loss_rel_errs": errs})
     return {"ranks": out}
 
 
-def mt_world(work: Path, dev) -> list[dict]:
-    """Spawn the MT_RANKS ranks on ``dev``; wait for each one's result (a
-    rank's failure or the timeout fails the phase); stop them all."""
+def spawn_world(target, phase: str, work: Path, dev, timeout: float,
+                ranks: int = MT_RANKS) -> list[dict]:
+    """Spawn ``ranks`` processes running ``target(rank, device, store, work,
+    out_q)`` on ``dev``; wait for each one's result (a rank's failure or
+    the timeout fails ``phase``); stop them all."""
     import multiprocessing as mp
     import queue
     ctx = mp.get_context("spawn")
     out_q = ctx.Queue()
-    procs = [ctx.Process(target=mt_rank,
-                         args=(r, str(dev), str(work / "mt_store"),
-                               str(work), out_q))
-             for r in range(MT_RANKS)]
+    store = work / f"{phase}_store"
+    procs = [ctx.Process(target=target,
+                         args=(r, str(dev), str(store), str(work), out_q))
+             for r in range(ranks)]
     for p in procs:
         p.start()
-    results = [None] * MT_RANKS
-    deadline = time.monotonic() + MT_TIMEOUT
+    results = [None] * ranks
+    deadline = time.monotonic() + timeout
     try:
-        for _ in range(MT_RANKS):
+        for _ in range(ranks):
             try:
                 status, rank, value = out_q.get(
                     timeout=max(deadline - time.monotonic(), 1))
             except queue.Empty:
-                raise AssertionError(f"[mesh-train] the {MT_RANKS}-rank "
-                                     f"world did not finish in {MT_TIMEOUT}"
-                                     " s") from None
+                raise AssertionError(f"[{phase}] the {ranks}-rank world did "
+                                     f"not finish in {timeout} s") from None
             if status != "ok":
-                raise AssertionError(f"[mesh-train] rank {rank} failed:\n"
+                raise AssertionError(f"[{phase}] rank {rank} failed:\n"
                                      f"{value}")
             results[rank] = value
     finally:
@@ -5824,6 +5982,7 @@ def mt_world(work: Path, dev) -> list[dict]:
                 p.terminate()
                 p.join(timeout=10)
     return results
+
 
 
 def mesh_train_phase(dev) -> tuple[dict, dict]:
@@ -5837,10 +5996,10 @@ def mesh_train_phase(dev) -> tuple[dict, dict]:
         work = Path(tmp)
         t0 = time.monotonic()
         one = {case: mt_one_rank(case, dev, work)
-               for case in ("a", "a32", "c", "d")}
+               for case in sorted(set(MT_ONE_RANK.values()))}
         one_s = time.monotonic() - t0
         t0 = time.monotonic()
-        ranks = mt_world(work, dev)
+        ranks = spawn_world(mt_rank, "mesh-train", work, dev, MT_TIMEOUT)
         world_s = time.monotonic() - t0
     held, launches = {}, {}
     for r, res in enumerate(ranks):
@@ -5858,6 +6017,7 @@ def mesh_train_phase(dev) -> tuple[dict, dict]:
             raise AssertionError(f"[mesh-train] (e) rank {r}: {e}")
     serve = [mt_hold_serve(one, res["d_serve"]) for res in ranks]
     elastic = mt_hold_elastic(ranks)
+    kept = {case: mt_hold_kept(case, one, ranks) for case in MT_CAPACITY}
     for case in MT_CASES:
         w = one[MT_ONE_RANK[case]]
         for r in range(MT_RANKS):
@@ -5870,9 +6030,17 @@ def mesh_train_phase(dev) -> tuple[dict, dict]:
                 f"{h['step_median_s']:.3f} s (one rank "
                 f"{w['step_median_s']:.3f} s); staged "
                 f"{h['staged_bytes_per_step'] / 1e9:.3f} GB a step; params "
-                f"{h['params_rank'] / 1e9:.3f} B, peak {h['peak_gb']:.2f} GB "
-                f"(one rank {w['peak_gb']:.2f} GB); launches a step "
+                f"{h['params_rank'] / 1e9:.3f} B, moments "
+                f"{h['moments_rank'] / 1e9:.3f} B, peak {h['peak_gb']:.2f} "
+                f"GB (one rank {w['peak_gb']:.2f} GB); gradient norms "
+                f"{[round(x, 4) for x in h['grad_norms']]} (one rank "
+                f"{[round(x, 4) for x in w['grad_norms']]}); launches a step "
                 f"{h['launches_per_step']}")
+    for case, k in kept.items():
+        log(f"  ({case}) capacity copies, first forward: {k['first_forward']}"
+            f" summed over the ranks = one rank's; {k['calls_equal']} of "
+            f"{k['calls']} capacity_slots calls equal ({k['gated_calls']} "
+            "gated)")
     log(f"  (d) one rank, bf16 against fp32 prefill logits: "
         f"{serve[0]['one_rank_bf16_vs_fp32_prefill']:.2e}")
     for r, (served, res) in enumerate(zip(serve, ranks)):
@@ -5887,7 +6055,7 @@ def mesh_train_phase(dev) -> tuple[dict, dict]:
         log(f"  (e) rank {r}: staged {res['e']['staged_bytes']} B for "
             f"{MT_COMPRESS} elements, mean {res['e']['mean_rel_err']:.3e}; "
             f"seconds {res['seconds']}")
-    log(f"  (f) {elastic}")
+    log(f"  (elastic) {elastic}")
     for r in range(MT_RANKS):
         log(f"  (b) rank {r} panels: {ranks[r]['b']['panels']}")
     out = {"transport": DIST_TRANSPORT,
@@ -5895,11 +6063,177 @@ def mesh_train_phase(dev) -> tuple[dict, dict]:
                         for c, o in one.items()},
            "cases": {f"{c} rank {r}": h for (c, r), h in held.items()},
            "serve": serve, "compress": [res["e"] for res in ranks],
-           "elastic": elastic,
+           "elastic": elastic, "capacity_kept": kept,
            "seconds": {"one_rank": one_s, "world": world_s,
                        "ranks": [res["seconds"] for res in ranks],
                        "phase": time.monotonic() - t_phase}}
     log(json.dumps({"mesh_train": out}, default=str))
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
+# [placed]: the measured placed search, and its mesh measurements
+# ---------------------------------------------------------------------------
+
+PLACED_SHARDS = 2
+PLACED_TIMEOUT = 300
+PLACED_REPEATS = 10
+# (autotune function, its positional signature, planner, planner's
+# positional signature): qwen3-1.7b's decode gate / up and fp32 attention
+# PV, llama4-scout's decode expert down.
+PLACED_CASES = {
+    "dense": ("autotune_gemm", (4, 2048, 6144, 2, 2), plan_gemm),
+    "batched": ("autotune_batched_gemm", (32, 2, 96, 128, 4, 4),
+                plan_batched_gemm),
+    "ragged": ("autotune_ragged_gemm", (16, 4, 8192, 5120, 2, 2),
+               plan_ragged_gemm)}
+PLACED_KERNELS = {"dense": "ftimm_gemm", "batched": "ftimm_gemm_grouped",
+                  "ragged": "ftimm_gemm_ragged"}
+PLACED_E2E = {"ragged": (16, 4, 8192, 5120), "dense": (4, 6144, 2048)}
+
+
+def placed_rank(rank: int, device: str, store: str, work: str,
+                out_q) -> None:
+    """One rank of the [placed] world: ``calibrate_ici(store=False)``, then
+    both end-to-end placed timings in bf16, each with its launches."""
+    import traceback
+
+    import torch.distributed as tdist
+    from repro_torch.launch.mesh import make_mesh
+    try:
+        dev = torch.device(device)
+        torch.cuda.set_device(dev)
+        torch.zeros(1, device=dev)
+        tdist.init_process_group("gloo", init_method=f"file://{store}",
+                                 rank=rank, world_size=PLACED_SHARDS)
+        mesh = make_mesh((PLACED_SHARDS,), ("x",), backend="gloo",
+                         device=dev)
+        res = {}
+        t0 = time.monotonic()
+        cal = autotune.calibrate_ici(mesh, "x", repeats=PLACED_REPEATS,
+                                     store=False)
+        res["ici"] = {"cal": cal.to_json(),
+                      "seconds": time.monotonic() - t0,
+                      "stored": plan_store.get_store().calibration
+                      is not None}
+        for kind, dims in PLACED_E2E.items():
+            fn = (autotune.time_placed_ragged_e2e if kind == "ragged"
+                  else autotune.time_placed_dense_e2e)
+            K.reset_launch_counts()
+            t0 = time.monotonic()
+            rows = fn(*dims, mesh=mesh, axis="x", in_bytes=2, out_bytes=2,
+                      repeats=PLACED_REPEATS)
+            torch.cuda.synchronize(dev)
+            res[kind] = {"rows": rows, "launches": dict(K.launch_counts()),
+                         "seconds": time.monotonic() - t0}
+        out_q.put(("ok", rank, res))
+    except BaseException:       # noqa: BLE001 -- reported, and the phase fails
+        out_q.put(("error", rank, traceback.format_exc()))
+    finally:
+        if "tdist" in locals() and tdist.is_initialized():
+            tdist.destroy_process_group()
+
+
+def placed_search(dev, work: Path) -> dict:
+    """The three placed searches in this process, stored, the store saved,
+    cleared and reloaded, and the planner's placed plans read back."""
+    out = {}
+    autotune.clear_plan_store()
+    for kind, (fn, dims, _) in PLACED_CASES.items():
+        K.reset_launch_counts()
+        t0 = time.monotonic()
+        r = getattr(autotune, fn)(*dims, num_shards=PLACED_SHARDS,
+                                  device=dev, repeats=PLACED_REPEATS)
+        torch.cuda.synchronize(dev)
+        launched = K.launch_counts()[PLACED_KERNELS[kind]]
+        opts = {"dense": tuner.dense_placement_options,
+                "batched": tuner.batched_placement_options,
+                "ragged": tuner.ragged_placement_options}[kind]
+        strategies = {(o.placement.strategy, o.placement.schedule)
+                      for o in opts(*dims[:-2], PLACED_SHARDS, *dims[-2:])}
+        won = (r.plan.placement.strategy, r.plan.placement.schedule)
+        if (won not in strategies or not launched
+                or not all(map(math.isfinite, (r.t_measured,
+                                               r.t_analytic)))):
+            raise AssertionError(f"[placed] {kind}: winner {won} of "
+                                 f"{sorted(strategies)}, launches {launched},"
+                                 f" times {r.t_measured} / {r.t_analytic}")
+        out[kind] = {"key": r.key, "strategy": won[0], "schedule": won[1],
+                     "tile": [r.plan.body, r.plan.bm, r.plan.bn, r.plan.bk],
+                     "t_measured_us": r.t_measured * 1e6,
+                     "t_analytic_us": r.t_analytic * 1e6,
+                     "analytic": [r.analytic_plan.placement.strategy,
+                                  r.analytic_plan.placement.schedule],
+                     "local_timed": len(r.timed), "launches": launched,
+                     "seconds": time.monotonic() - t0}
+    path = str(work / "placed_plans.json")
+    autotune.save_plan_cache(path)
+    autotune.clear_plan_store()
+    loaded = autotune.load_plan_cache(path)
+    for kind, (_, dims, planner) in PLACED_CASES.items():
+        served = planner(*dims, num_shards=PLACED_SHARDS)
+        got = (served.mode, served.placement.strategy,
+               served.placement.schedule)
+        want = ("cached", out[kind]["strategy"], out[kind]["schedule"])
+        if got != want:
+            raise AssertionError(f"[placed] {kind}: served {got}, stored "
+                                 f"{want}")
+        out[kind]["served"] = served.mode
+    autotune.clear_plan_store()
+    out["records_loaded"] = loaded
+    if loaded < len(PLACED_CASES):
+        raise AssertionError(f"[placed] {loaded} records read back")
+    return out
+
+
+def placed_phase(dev) -> tuple[dict, dict]:
+    """[placed]: the searches in this process, then the two ranks sharing
+    the card.  -> (the phase's figures, the launches of each search and of
+    each rank's end-to-end timings)."""
+    import tempfile
+    t_phase = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="placed_") as tmp:
+        work = Path(tmp)
+        search = placed_search(dev, work)
+        free_card()
+        ranks = spawn_world(placed_rank, "placed", work, dev, PLACED_TIMEOUT,
+                            ranks=PLACED_SHARDS)
+    launches = {}
+    for kind in PLACED_CASES:
+        s = search[kind]
+        log(f"  {kind} {s['key']}: {s['strategy']} / {s['schedule']} "
+            f"{s['tile']}, {s['t_measured_us']:.1f} us (analytic placed "
+            f"choice {s['analytic']} {s['t_analytic_us']:.1f} us), served "
+            f"{s['served']}; {s['launches']} launches of "
+            f"{PLACED_KERNELS[kind]}")
+    for r, res in enumerate(ranks):
+        frac = res["ici"]["cal"]["ici_frac"]
+        if (not math.isfinite(frac) or frac <= 0
+                or res["ici"]["stored"]):
+            raise AssertionError(f"[placed] rank {r}: calibrate_ici "
+                                 f"{res['ici']}")
+        log(f"  rank {r} calibrate_ici: ici_frac {frac:.4g} (host staging "
+            f"over gloo on one card, not NVLink; not stored)")
+        for kind, kernel in (("ragged", "ftimm_gemm_ragged"),
+                             ("dense", "ftimm_gemm")):
+            e2e = res[kind]
+            bad = [row for row in e2e["rows"]
+                   if not (math.isfinite(row["t_measured"])
+                           and row["t_measured"] > 0
+                           and math.isfinite(row["t_model"]))]
+            if bad or not e2e["launches"].get(kernel):
+                raise AssertionError(f"[placed] rank {r} {kind} e2e: {e2e}")
+            launches[(f"placed {kind} e2e rank {r}", ARCH)] = e2e["launches"]
+            for row in e2e["rows"]:
+                log(f"  rank {r} {kind} {PLACED_E2E[kind]} "
+                    f"{row['strategy']:15s} {row['schedule']:6s} measured "
+                    f"{row['t_measured'] * 1e3:9.3f} ms, model "
+                    f"{row['t_model'] * 1e3:9.4f} ms")
+            e2e.pop("launches")
+    out = {"transport": DIST_TRANSPORT, "search": search,
+           "ranks": [{k: v for k, v in res.items()} for res in ranks],
+           "seconds": time.monotonic() - t_phase}
+    log(json.dumps({"placed": out}, default=str))
     return out, launches
 
 
@@ -6181,7 +6515,9 @@ def main() -> int:
     log(f"[mesh-train] training on a mesh: {MT_RANKS} ranks on one card "
         f"over {DIST_TRANSPORT}; qwen3-1.7b ZeRO-3 and tensor parallel, "
         "llama4-scout expert parallel, mamba2-370m head-sharded, the int8 "
-        "all-reduce, the elastic re-mesh")
+        "all-reduce, the elastic re-mesh, mixtral-8x7b's capacity MoE with "
+        "the rows cut over data, whisper-base tensor parallel, qwen3-1.7b "
+        "ZeRO-1")
     free_card()
     mesh_train, mt_launches = mesh_train_phase(dev)
     launches.update(mt_launches)
@@ -6190,10 +6526,22 @@ def main() -> int:
     check_not_degraded("mesh-train")
 
     t0 = time.monotonic()
+    log(f"[placed] the measured placed search ({PLACED_SHARDS} shards) and "
+        f"its mesh measurements on {PLACED_SHARDS} ranks over "
+        f"{DIST_TRANSPORT}")
+    free_card()
+    placed, placed_launches = placed_phase(dev)
+    launches.update(placed_launches)
+    phases["placed"] = time.monotonic() - t0
+    log(f"[placed] done in {phases['placed']:.1f} s")
+    check_not_degraded("placed")
+
+    t0 = time.monotonic()
     log("[roofline] the perf model's bound for every profiled decode step")
     profiled = {**recurrent["serve"], **families, **archs["serve"],
                 f"{LLAMA4}-w8": quant["serving"]["w8"]}
     roofline = roofline_phase(profiled)
+    roofline["dist_ep"] = roofline_dist(dist_out)
     phases["roofline"] = time.monotonic() - t0
     log(f"[roofline] done in {phases['roofline']:.1f} s")
 
@@ -6223,6 +6571,7 @@ def main() -> int:
                     "quant": quant, "archs": archs, "train_dots": dots,
                     "chaos": chaos_out, "contracts": contracts_out,
                     "dist": dist_out, "mesh_train": mesh_train,
+                    "placed": placed,
                     "roofline": roofline, "phases_s": phases}))
     log(card)
     bodies = {("serve", a): stats[a]["bodies"] for a in stats}

@@ -38,11 +38,13 @@ class DistContext:
     axes) that owns the MoE expert dimension (``moe_ep_axis``, from
     ``launch.sharding.expert_axis``), under which the ragged MoE runs
     expert-parallel; ``ssm_head_shard``, the SSD's heads cut over the model
-    axis.  ``moe_buf_shard``, ``rms_bf16`` and ``sp_inputs`` are carried
-    for the reference's launchers (GSPMD layout hints with no eager
-    counterpart).  ``sharded_params`` (the port's own): the parameters are
-    this rank's ``param_specs`` blocks and the rows are cut over the data
-    axes, as the trainer lays them out."""
+    axis; ``rms_bf16``, ``models.layers.rms_norm`` normalizing in its
+    input's dtype (a change of numerics, read on every device).
+    ``moe_buf_shard`` and ``sp_inputs`` are carried for the reference's
+    launchers (GSPMD layout hints with no eager counterpart).
+    ``sharded_params`` (the port's own): the parameters are this rank's
+    ``param_specs`` blocks and the rows are cut over the data axes, as the
+    trainer lays them out."""
     mesh: Mesh
     dp_axes: tuple[str, ...] = ("data",)
     model_axis: str = "model"

@@ -32,10 +32,26 @@ this module closes the loop on the card, in the reference's four steps:
      never measured plan against corrected constants
      (``tuner.effective_spec``).
 
+Placed searches (``num_shards`` > 1) are hybrid, as the reference's: the
+local GEMM of each ``tuner.*_placement_options`` entry is timed on one
+device, the modeled NVLink collective is composed with it
+(``_placed_total``: a sum for the "gather" schedule, a max for "ring"),
+the options compete with the analytic placer's margins, and the winner is
+stored under the ``|shardsN`` key with its strategy and schedule, which
+``tuner.plan_*(num_shards=)`` serves as ``mode == "cached"``.
+``calibrate_ici`` times the exchange round trip on a mesh and fits the
+interconnect fraction; ``time_placed_ragged_e2e`` /
+``time_placed_dense_e2e`` time the placed executors end to end on a mesh
+beside the planner's model, each call timed by ``ops.bench`` (CUDA events
+around each call on the card: a collective staged through the host makes
+the host wait, so no sleep kernel can hold the stream ahead of it).  On
+one card two ranks share the GPU over
+gloo, so there the fitted fraction and the end-to-end times measure host
+staging, not NVLink.
+
 The entry points run on the CUDA card unless the caller passes
-``device="cpu"``, and raise where there is no card.  Not ported: the
-placed search over a mesh (``num_shards`` > 1), ``calibrate_ici`` and the
-end-to-end placed timings (slice 16 of ROADMAP Queue 1 item 10).
+``device="cpu"``, and raise where there is no card; the mesh functions
+run where the mesh's tensors live.
 """
 from __future__ import annotations
 
@@ -51,7 +67,7 @@ from ...kernels.ftimm.epilogue import Epilogue
 from ...launch.timing import sleep_ms_per_mcycle, time_ms
 from ..device import resolve_device
 from . import plan_store, tuner
-from .cmr import H100, HopperSpec, PlanEstimate
+from .cmr import H100, HopperSpec, PlanEstimate, estimate_ep
 from .plan_store import Calibration
 from .tuner import GemmPlan
 
@@ -74,14 +90,6 @@ def _dtype(nbytes: int) -> torch.dtype:
         raise ValueError(
             f"unsupported operand width for measured tuning: {nbytes} bytes "
             "(4 = float32, 2 = bfloat16, 1 = int8)") from None
-
-
-def _no_placement(num_shards: int) -> None:
-    if num_shards > 1:
-        raise NotImplementedError(
-            "the measured placed search (num_shards > 1) is not ported: "
-            "slice 16 of ROADMAP Queue 1 item 10 (the analytic placement, "
-            "tuner.plan_*(num_shards=), is)")
 
 
 @dataclass(frozen=True)
@@ -318,7 +326,8 @@ def _plan_fields(c: GemmPlan) -> dict:
                 dim_order=c.dim_order, kslices=c.kslices)
 
 
-def _store_result(res: TuneResult) -> None:
+def _store_result(res: TuneResult, *, strategy: str | None = None,
+                  schedule: str | None = None) -> None:
     p = res.plan
     rec = {
         "bm": p.bm, "bn": p.bn, "bk": p.bk, "nsplit": p.nsplit,
@@ -329,6 +338,9 @@ def _store_result(res: TuneResult) -> None:
         "t_model_us": round(res.est_measured.t_total * 1e6, 6),
         "engine": res.engine, "mode": "measured",
     }
+    if strategy is not None:
+        rec["strategy"] = strategy
+        rec["schedule"] = schedule or "gather"
     plan_store.get_store().put(res.key, rec, res.device_kind)
     tuner.clear_planner_caches()    # the next plan_* consults the new entry
 
@@ -395,9 +407,21 @@ def autotune_gemm(m: int, k: int, n: int, in_bytes: int = 4,
     also runs unfused (the identity kernel, then one pass per op), every
     candidate is timed with its tail, and the winner's ``fuse`` records
     whether fusing paid on this card.  ``b_bytes`` is B's width when it
-    differs from A's (the mixed bf16 x fp32 products)."""
-    _no_placement(num_shards)
+    differs from A's (the mixed bf16 x fp32 products).  ``num_shards`` >
+    1 runs the placed search (the module docstring) over
+    ``tuner.dense_placement_options``, whose local problems take the
+    default flags."""
     dev = resolve_device(device)
+    if num_shards > 1:
+        return _tune_placed(
+            "dense", (m, k, n), tuner.dense_placement_options(
+                m, k, n, num_shards, in_bytes, out_bytes,
+                tuner.effective_spec(spec)), in_bytes, out_bytes,
+            lambda opt: autotune_gemm(
+                *opt.local_dims, in_bytes, out_bytes, spec, top_k=top_k,
+                repeats=repeats, device=dev, max_elements=max_elements,
+                store=False, seed=seed),
+            num_shards=num_shards, store=store)
     epi_ops = epilogue.num_ops if epilogue is not None else 0
     if panels == 2 and epi_ops:
         raise ValueError("the SwiGLU pair takes no epilogue")
@@ -500,9 +524,18 @@ def autotune_batched_gemm(g: int, m: int, k: int, n: int, in_bytes: int = 4,
     """Measured search for the grouped GEMM (``panels`` = 2: the grouped
     SwiGLU pair); the contract of ``autotune_gemm``, ``shared`` marking the
     2-D operand every group uses and the flags those of
-    ``plan_batched_gemm``."""
-    _no_placement(num_shards)
+    ``plan_batched_gemm``; ``num_shards`` > 1 as ``autotune_gemm``'s."""
     dev = resolve_device(device)
+    if num_shards > 1:
+        return _tune_placed(
+            "batched", (g, m, k, n), tuner.batched_placement_options(
+                g, m, k, n, num_shards, in_bytes, out_bytes, shared,
+                tuner.effective_spec(spec)), in_bytes, out_bytes,
+            lambda opt: autotune_batched_gemm(
+                *opt.local_dims, in_bytes, out_bytes, opt.extra, spec,
+                top_k=top_k, repeats=repeats, device=dev,
+                max_elements=max_elements, store=False, seed=seed),
+            num_shards=num_shards, store=store, extra=f"shared:{shared}")
     base_spec, spec = spec, tuner.effective_spec(spec)
     flags = dict(panels=panels, b_bytes=b_bytes, a_major=a_major, b_ok=b_ok)
     sl = tuner.shortlist(tuner.batched_candidates(
@@ -607,9 +640,18 @@ def autotune_ragged_gemm(g: int, total: int, k: int, n: int,
     forward; ``panels`` = 2: the ragged SwiGLU pair) or "k" (the dW).  The
     harness times a balanced distribution of the signature: the per-group
     counts live on the device at run time, and the plan is keyed by the
-    aggregate anyway."""
-    _no_placement(num_shards)
+    aggregate anyway.  ``num_shards`` > 1 as ``autotune_gemm``'s."""
     dev = resolve_device(device)
+    if num_shards > 1:
+        return _tune_placed(
+            "ragged", (g, total, k, n), tuner.ragged_placement_options(
+                g, total, k, n, num_shards, in_bytes, out_bytes, ragged,
+                tuner.effective_spec(spec)), in_bytes, out_bytes,
+            lambda opt: autotune_ragged_gemm(
+                *opt.local_dims, in_bytes, out_bytes, opt.extra, spec,
+                top_k=top_k, repeats=repeats, device=dev,
+                max_elements=max_elements, store=False, seed=seed),
+            num_shards=num_shards, store=store, extra=f"ragged:{ragged}")
     base_spec, spec = spec, tuner.effective_spec(spec)
     flags = dict(panels=panels, b_bytes=b_bytes, a_ok=a_ok, b_ok=b_ok)
     sl = tuner.shortlist(tuner.ragged_candidates(
@@ -735,25 +777,186 @@ def calibrate(results, *, spec: HopperSpec = H100,
     return cal
 
 
-def calibrate_ici(*args, **kwargs):
-    """Not ported: the interconnect fraction is fitted by the measured
-    placed search."""
-    raise NotImplementedError("calibrate_ici comes with the measured placed "
-                              "search, slice 16 of ROADMAP Queue 1 item 10")
+# ---------------------------------------------------------------------------
+# The placed search: local GEMMs measured, collectives modeled; and the
+# mesh measurements that check the model's collective term.
+# ---------------------------------------------------------------------------
+
+def _placed_total(t_local: float, placement) -> float:
+    """A measured local time composed with the modeled collective as
+    ``GemmPlan.t_total`` composes them: a sum for the "gather" schedule, a
+    max for "ring" (the transfer hides behind the products)."""
+    if placement.schedule == "ring":
+        return max(t_local * placement.waste, placement.t_collective)
+    return t_local * placement.waste + placement.t_collective
 
 
-def time_placed_ragged_e2e(*args, **kwargs):
-    """Not ported: part of the measured placed search."""
-    raise NotImplementedError("placed end-to-end timing comes with the "
-                              "measured placed search, slice 16 of ROADMAP "
-                              "Queue 1 item 10")
+def _tune_placed(family: str, dims: tuple, options: list, in_bytes: int,
+                 out_bytes: int, tune_local, *, num_shards: int, store: bool,
+                 extra: str = "") -> TuneResult:
+    """The hybrid placed search: ``tune_local(option)`` times each option's
+    local GEMM (no store), ``_placed_total`` adds the modeled collective
+    and waste, ``tuner.pick_placed`` chooses.  ``t_analytic`` is the analytic
+    placed choice scored the same way with its analytic tiles' times: the
+    baseline of this run."""
+    locals_ = [(opt, tune_local(opt)) for opt in options]
+    measured = [(opt, _placed_total(r.t_measured, opt.placement))
+                for opt, r in locals_]
+    analytic = [(opt, _placed_total(r.t_analytic, opt.placement))
+                for opt, r in locals_]
+    w, a = tuner.pick_placed(measured), tuner.pick_placed(analytic)
+    opt, local = locals_[w]
+    a_opt, a_local = locals_[a]
+    res = replace(
+        local, family=family, dims=dims,
+        key=plan_store.shape_key(family, dims, in_bytes, out_bytes,
+                                 num_shards=num_shards, extra=extra),
+        plan=replace(local.plan, placement=opt.placement),
+        t_measured=measured[w][1], t_analytic=analytic[a][1],
+        analytic_plan=replace(a_local.analytic_plan,
+                              placement=a_opt.placement))
+    if store:
+        _store_result(res, strategy=opt.placement.strategy,
+                      schedule=opt.placement.schedule)
+    return res
 
 
-def time_placed_dense_e2e(*args, **kwargs):
-    """Not ported: part of the measured placed search."""
-    raise NotImplementedError("placed end-to-end timing comes with the "
-                              "measured placed search, slice 16 of ROADMAP "
-                              "Queue 1 item 10")
+def _mesh_rand(shape, dtype, device, seed: int) -> torch.Tensor:
+    """The same operand on every rank (drawn on the CPU from ``seed``)."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=gen).to(device=device, dtype=dtype)
+
+
+def calibrate_ici(mesh, axis="data", *, widths=(128, 256), rows: int = 4096,
+                  repeats: int = DEFAULT_REPEATS, spec: HopperSpec = H100,
+                  store: bool = True) -> Calibration:
+    """Fit the effective-interconnect fraction from timed exchanges on
+    ``mesh[axis]`` (every rank of the mesh calls it).  For each width the
+    EP round trip -- an all-gather of the ranks' (rows / nc, width) fp32
+    blocks, then a reduce-scatter back, the two legs ``cmr.estimate_ep``
+    prices -- is timed over the mesh's process group, and ``ici_frac`` is
+    the geomean of the modeled two legs over the measured time, so
+    ``t_effective = t_model / ici_frac``.  Installed into the store's
+    calibration (its fitted flops and memory fractions kept) unless
+    ``store=False``.  Where two ranks share one card over gloo the
+    fraction measures host staging, not NVLink."""
+    from . import collective
+    nc = mesh.axis_size(axis)
+    cal_base = plan_store.get_store().calibration or Calibration(
+        engine="ici", base_spec=spec.name)
+    if nc <= 1:
+        return cal_base
+    logs = []
+    for width in widths:
+        r = max(nc, rows - rows % nc)
+        x_l = _mesh_rand((r // nc, width), F32, mesh.device, seed=width)
+
+        def roundtrip(x):
+            full = collective.raw_all_gather(x, mesh, axis)
+            return collective.raw_reduce_scatter(full, mesh, axis)
+
+        t_meas = _ops.bench(roundtrip, x_l, repeats=repeats)
+        t_model = 2.0 * estimate_ep(r, width, nc, elt_bytes=4,
+                                    spec=spec).t_exchange
+        logs.append(math.log(max(t_model, 1e-12) / max(t_meas, 1e-12)))
+    cal = replace(cal_base, ici_frac=math.exp(sum(logs) / len(logs)),
+                  n_samples=cal_base.n_samples + len(logs))
+    if store:
+        st = plan_store.get_store()
+        st.kind = st.kind or plan_store.device_kind(mesh.device)
+        st.calibration = cal
+        tuner.clear_planner_caches()
+    return cal
+
+
+def _modeled(opts: dict, key: tuple, in_bytes: int, out_bytes: int) -> float:
+    """The planner's ``t_total`` of the placed option ``key`` (strategy,
+    schedule), NaN where the options have none."""
+    opt = opts.get(key)
+    if opt is None:
+        return float("nan")
+    spec = tuner.effective_spec(H100)
+    return replace(opt.plan_local(in_bytes, out_bytes, spec),
+                   placement=opt.placement).t_total
+
+
+def time_placed_ragged_e2e(g: int, total: int, k: int, n: int, *, mesh,
+                           axis="data", in_bytes: int = 4,
+                           out_bytes: int = 4,
+                           repeats: int = DEFAULT_REPEATS) -> list[dict]:
+    """Time the placed ragged options end to end on ``mesh[axis]``,
+    collectives executed (every rank calls it): one row each for
+    ``single`` (the unplaced ``ragged_matmul`` on this rank's device, the
+    m_parallel stand-in where the ranks share a device),
+    ``expert_parallel`` / ``gather`` and ``expert_parallel`` / ``ring``
+    (``ep_ragged_matmul`` on this rank's G / nc panels, the schedule
+    forced).  Each row: ``strategy``, ``schedule``, ``t_measured``
+    (seconds) and the planner's ``t_model`` of the matching option under
+    the current calibration."""
+    from .dispatch import ragged_matmul
+    from .distributed import ep_ragged_matmul
+    nc, s = mesh.axis_size(axis), mesh.axis_index(axis)
+    dev = mesh.device
+    in_dt, out_dt = _dtype(in_bytes), _dtype(out_bytes)
+    x = _mesh_rand((total, k), in_dt, dev, seed=0)
+    w = _mesh_rand((g, k, n), in_dt, dev, seed=1)
+    w_l = w[s * (g // nc):(s + 1) * (g // nc)].contiguous()
+    offsets = _balanced_offsets(g, total, dev)
+    single = [(x, w, offsets)]
+    t_single = (time_ms(lambda *a: ragged_matmul(*a, out_dtype=out_dt),
+                        single, max(repeats, 1), _sleep_ms()) / 1e3
+                if dev.type == "cuda" else
+                _ops.bench(lambda *a: ragged_matmul(*a, out_dtype=out_dt),
+                           *single[0], repeats=repeats))
+    rows = [{"strategy": "single", "schedule": "gather",
+             "t_measured": t_single,
+             "t_model": tuner.plan_ragged_gemm(g, total, k, n, in_bytes,
+                                               out_bytes).t_total}]
+    opts = {(o.placement.strategy, o.placement.schedule): o
+            for o in tuner.ragged_placement_options(
+                g, total, k, n, nc, in_bytes, out_bytes, "m",
+                tuner.effective_spec(H100))}
+    for schedule in ("gather", "ring"):
+        t = _ops.bench(lambda xx, ww, oo: ep_ragged_matmul(
+            xx, ww, oo, mesh=mesh, axis=axis, out_dtype=out_dt,
+            schedule=schedule), x, w_l, offsets, repeats=repeats)
+        rows.append({"strategy": "expert_parallel", "schedule": schedule,
+                     "t_measured": t,
+                     "t_model": _modeled(opts, ("expert_parallel", schedule),
+                                         in_bytes, out_bytes)})
+    return rows
+
+
+def time_placed_dense_e2e(m: int, k: int, n: int, *, mesh, axis="model",
+                          in_bytes: int = 4, out_bytes: int = 4,
+                          repeats: int = DEFAULT_REPEATS) -> list[dict]:
+    """Time the dense placed strategies end to end on ``mesh[axis]``
+    through ``dist_matmul`` (every rank calls it): ``m_parallel``,
+    ``k_parallel`` / ``gather`` (the fp32 partials all-reduced) and
+    ``k_parallel`` / ``ring`` (the overlapped collective matmul), each row
+    with the planner's modeled ``t_model`` beside ``t_measured``."""
+    from .distributed import dist_matmul
+    nc = mesh.axis_size(axis)
+    dev = mesh.device
+    in_dt, out_dt = _dtype(in_bytes), _dtype(out_bytes)
+    a = _mesh_rand((m, k), in_dt, dev, seed=0)
+    b = _mesh_rand((k, n), in_dt, dev, seed=1)
+    opts = {(o.placement.strategy, o.placement.schedule): o
+            for o in tuner.dense_placement_options(
+                m, k, n, nc, in_bytes, out_bytes,
+                tuner.effective_spec(H100))}
+    rows = []
+    for strategy, schedule in (("m_parallel", "gather"),
+                               ("k_parallel", "gather"),
+                               ("k_parallel", "ring")):
+        t = _ops.bench(lambda aa, bb: dist_matmul(
+            aa, bb, mesh=mesh, axis=axis, strategy=strategy,
+            schedule=schedule, out_dtype=out_dt), a, b, repeats=repeats)
+        rows.append({"strategy": strategy, "schedule": schedule,
+                     "t_measured": t,
+                     "t_model": _modeled(opts, (strategy, schedule),
+                                         in_bytes, out_bytes)})
+    return rows
 
 
 # ---------------------------------------------------------------------------

@@ -83,18 +83,22 @@ class HopperSpec:
         return self.peak_flops_fp32
 
     def calibrated(self, flops_frac: float, bw_frac: float,
-                   int8_frac: float | None = None) -> "HopperSpec":
+                   int8_frac: float | None = None, *,
+                   ici_frac: float = 1.0) -> "HopperSpec":
         """The measured-effective view of this card: the peak rates scaled
         by the achievable-flops fraction (the 1-byte rate by its own
-        ``int8_frac`` when the calibration fitted one) and the device-memory
+        ``int8_frac`` when the calibration fitted one), the device-memory
         bandwidth by the effective fraction (``autotune.calibrate`` fits
-        them).  Capacities and tiles stay nominal."""
+        them) and the NVLink rate a link by the effective-interconnect
+        fraction (``autotune.calibrate_ici``).  Capacities and tiles stay
+        nominal."""
         return replace(self, name=f"{self.name}+cal",
                        peak_flops_bf16=self.peak_flops_bf16 * flops_frac,
                        peak_flops_fp32=self.peak_flops_fp32 * flops_frac,
                        peak_ops_int32=self.peak_ops_int32
                        * (flops_frac if int8_frac is None else int8_frac),
-                       hbm_bw=self.hbm_bw * bw_frac)
+                       hbm_bw=self.hbm_bw * bw_frac,
+                       nvlink_bw_per_link=self.nvlink_bw_per_link * ici_frac)
 
 
 H100 = HopperSpec()

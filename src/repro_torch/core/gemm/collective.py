@@ -57,10 +57,11 @@ releases, so under gloo the return leg is an ``all_reduce`` and the rank's
 slice of it.
 
 The differentiable wrappers (``shard``, ``replicate``, ``gather``,
-``reduce_sum``, ``ppermute``) read a cotangent as the reference's
-``shard_map`` transpose does for a loss every rank computes alike: a
-sharded input's gradient is gathered, a replicated input's summed over
-the axis, a gathered output's cotangent sliced to the rank's block.
+``reduce_sum``, ``reduce_scatter``, ``ppermute``) read a cotangent as the
+reference's ``shard_map`` transpose does for a loss every rank computes
+alike: a sharded input's gradient is gathered, a replicated input's
+summed over the axis, a gathered output's cotangent sliced to the rank's
+block, a reduce-scattered input's gradient gathered.
 
 ``zero_gather`` is the parameter gather of ZeRO-3 over the data axes,
 whose ranks compute on DIFFERENT rows: the forward all-gathers the
@@ -256,6 +257,17 @@ class _ReduceSum(torch.autograd.Function):
         return g, None, None
 
 
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return raw_reduce_scatter(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return raw_all_gather(g.contiguous(), ctx.mesh, ctx.axis), None, None
+
+
 class _PPermute(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis, shift):
@@ -328,6 +340,14 @@ def reduce_sum(x: torch.Tensor, mesh, axis) -> torch.Tensor:
     if _grad(x):
         return _ReduceSum.apply(x, mesh, axis)
     return raw_all_reduce(x, mesh, axis)
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """Rank s's block of rows of ``x`` summed over the axis; its gradient
+    is gathered over the axis (the transpose of a reduce-scatter)."""
+    if _grad(x):
+        return _ReduceScatter.apply(x, mesh, axis)
+    return raw_reduce_scatter(x, mesh, axis)
 
 
 def ppermute(x: torch.Tensor, mesh, axis, shift: int = 1) -> torch.Tensor:

@@ -85,9 +85,10 @@ def shape_key(family: str, dims: tuple, in_bytes: int, out_bytes: int,
 
 @dataclass
 class Calibration:
-    """Fitted effective-hardware constants (fractions of the spec's peaks).
-    ``ici_frac`` and ``flops_frac_int8`` are read and written for the
-    reference's file format; the port fits neither yet."""
+    """Fitted effective-hardware constants (fractions of the spec's peaks):
+    the flops and device-memory fractions and the 1-byte rate's
+    (``autotune.calibrate``), the interconnect's (``ici_frac``,
+    ``autotune.calibrate_ici``)."""
     flops_frac: float = 1.0     # achievable fraction of the peak FLOP/s
     bw_frac: float = 1.0        # achievable fraction of the HBM bandwidth
     ici_frac: float = 1.0

@@ -388,8 +388,9 @@ def shortlist(cands: list[GemmPlan], top_k: int) -> list[GemmPlan]:
 
 def effective_spec(spec: HopperSpec) -> HopperSpec:
     """The default spec under the store's calibration, when the store has
-    one fitted against it (``autotune.calibrate``), so shapes never
-    measured plan against the card's achieved rates.  Any other spec, and a
+    one fitted against it (``autotune.calibrate``, and the interconnect
+    fraction ``autotune.calibrate_ici``), so shapes never measured plan
+    against the card's achieved rates.  Any other spec, and a
     calibration fitted against another spec (the reference's ``tpu_v5e``),
     leave ``spec`` as it is."""
     if spec is not H100:
@@ -397,7 +398,8 @@ def effective_spec(spec: HopperSpec) -> HopperSpec:
     cal = plan_store.get_store().calibration
     if cal is None or cal.base_spec != H100.name:
         return spec
-    return spec.calibrated(cal.flops_frac, cal.bw_frac, cal.flops_frac_int8)
+    return spec.calibrated(cal.flops_frac, cal.bw_frac, cal.flops_frac_int8,
+                           ici_frac=cal.ici_frac)
 
 
 def key_extra(base: str = "", *, in_bytes: int | None = None,
@@ -661,15 +663,24 @@ def ragged_placement_options(g: int, total: int, k: int, n: int, nc: int,
     return opts
 
 
+def pick_placed(scored: list[tuple[PlacementOption, float]]) -> int:
+    """Index of the chosen option among (option, seconds) pairs: the first
+    (collective-free) one is preferred, and a challenger must beat the
+    best so far by its margin (the paper's "clear modeled win" rule).  The
+    analytic placer scores each option's modeled ``t_total``, the measured
+    placed search (``autotune``) its measured local time composed with the
+    modeled collective."""
+    best = 0
+    for i, (opt, t) in enumerate(scored[1:], start=1):
+        if t * opt.margin < scored[best][1]:
+            best = i
+    return best
+
+
 def _select_placed(scored: list[tuple[PlacementOption, GemmPlan]]
                    ) -> GemmPlan:
-    """The first (collective-free) option is preferred; a challenger must
-    beat it by its margin (the paper's "clear modeled win" rule)."""
-    best = scored[0][1]
-    for opt, cand in scored[1:]:
-        if cand.t_total * opt.margin < best.t_total:
-            best = cand
-    return best
+    """The plan of the option ``pick_placed`` chooses by modeled time."""
+    return scored[pick_placed([(o, c.t_total) for o, c in scored])][1]
 
 
 def _placed(family: str, dims: tuple, in_bytes: int, out_bytes: int,
@@ -892,29 +903,47 @@ class MoeDispatchPlan:
     """``rows``: the expert-GEMM row count one MoE layer's dispatch mode
     produces -- E x capacity for "capacity" (every expert padded to the
     capacity, overflow dropped), T x top_k for "ragged" (every routed
-    copy)."""
+    copy).  ``placement``: the expert-parallel exchange on a mesh (None on
+    one device); the roofline prices the layer's GEMMs off ``rows`` and
+    its token exchange off ``placement``."""
     rows: int
+    placement: Placement | None = None
 
 
 @functools.lru_cache(maxsize=8192)
 def plan_moe_dispatch(t: int, e: int, top_k: int, d_model: int, d_ff: int,
                       *, dispatch: str = "capacity",
                       capacity_factor: float = 1.25,
-                      elt_bytes: int = 2) -> MoeDispatchPlan:
+                      elt_bytes: int = 2, num_shards: int = 1,
+                      axis: str | None = None,
+                      spec: HopperSpec = H100) -> MoeDispatchPlan:
     """Rows of one MoE layer's expert GEMMs under ``dispatch``.  The
     capacity is int(T * top_k * factor / E) rounded up to
-    ``capacity_multiple(elt_bytes)``.  ``d_model`` / ``d_ff`` stay in the
-    signature as in the reference (they size the layer's GEMMs for callers
-    that price the rows).  The reference's ``num_shards`` here is not
-    ported: the expert GEMMs' placement is ``plan_ragged_gemm`` /
-    ``plan_batched_gemm(num_shards=)``'s."""
+    ``capacity_multiple(elt_bytes)``.  ``num_shards`` > 1 attaches the
+    expert-parallel ``Placement`` on ``axis``: the fused pipeline's
+    (``ep_ragged_moe``) two exchange legs, the tokens out and back at
+    d_model width, each priced by ``cmr.estimate_ep`` over NVLink (the
+    d_ff-wide hidden stays on the rank owning the expert).  ``d_ff`` stays
+    in the signature and the cache key as in the reference: it sizes the
+    layer's GEMMs for callers that price the rows."""
+    spec = effective_spec(spec)
     if dispatch == "ragged":
-        return MoeDispatchPlan(rows=t * top_k)
-    if dispatch != "capacity":
+        rows = t * top_k
+    elif dispatch == "capacity":
+        s = capacity_multiple(elt_bytes)
+        c = int(t * top_k * capacity_factor / e)
+        rows = e * max(s, ceil_to(c, s))
+    else:
         raise ValueError(f"unknown moe dispatch: {dispatch}")
-    s = capacity_multiple(elt_bytes)
-    c = int(t * top_k * capacity_factor / e)
-    return MoeDispatchPlan(rows=e * max(s, ceil_to(c, s)))
+    placement = None
+    if num_shards > 1:
+        leg = estimate_ep(rows, d_model, num_shards, elt_bytes=elt_bytes,
+                          spec=spec)
+        ex = leg + leg                         # dispatch + return
+        placement = Placement("expert_parallel", num_shards, axis=axis,
+                              t_collective=ex.t_exchange,
+                              link_bytes=ex.link_bytes)
+    return MoeDispatchPlan(rows=rows, placement=placement)
 
 
 PLAN_MODE_COUNTS: collections.Counter = collections.Counter()

@@ -30,7 +30,8 @@ re-mesh: the survivors' mesh, whose groups every rank of the world builds
 before the others leave).  An ``abstract`` mesh has shape and names and no
 groups: the sharding rules (``launch.sharding``) read nothing else.  The
 reference's ``make_production_mesh`` (512 devices) is not ported here: it
-comes with the lowering of a production step (ROADMAP Queue 1, slice 16).
+comes with the lowering of a production step (ROADMAP Queue 1 item 10.5,
+slice 17).
 """
 from __future__ import annotations
 

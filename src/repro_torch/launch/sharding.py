@@ -25,7 +25,10 @@ What a rank holds when it trains on a mesh is the full layout the
 reference's GSPMD applies: ``shard_params`` cuts every parameter of a
 port model to its block under ``param_specs`` (ZeRO-3 over the data axes,
 tensor parallelism over ``model``) and tags it with its spec
-(``p.mesh_spec``); the AdamW moments, drawn like the blocks, follow.  At
+(``p.mesh_spec``); the AdamW moments, drawn like the blocks, follow, or
+take specs of their own that cut them further over the data axes
+(``shard_opt_state``: ZeRO-1, the parameters TP only and the moments at
+ZeRO-3).  At
 use, ``gathered`` brings each block to the layout the local compute
 reads: the data axes' cut gathered (``collective.zero_gather``: the
 gradient summed over those axes in fp32 and cut back to the block), the
@@ -357,6 +360,40 @@ def load_blocks(named: dict, tree: dict, specs: dict, mesh: Mesh) -> None:
             src = np.asarray(node[int(name.split(".")[1])] if stacked
                              else node)
             dst.copy_(shard_tensor(torch.as_tensor(src), specs[name], mesh))
+
+
+def refine_spec(param_spec: tuple, opt_spec: tuple) -> tuple:
+    """Where a moment block of ``opt_spec`` lies within its parameter's
+    block of ``param_spec``: the spec, over the parameter block, of the
+    cuts ``opt_spec`` adds (ZeRO-1: the moments cut over the data axes
+    where the parameters are not).  Raises where ``opt_spec`` does not
+    cut every dim the parameter spec cuts, the same way."""
+    if len(param_spec) != len(opt_spec):
+        raise ValueError(f"opt spec {opt_spec} for a parameter spec "
+                         f"{param_spec}")
+    out = []
+    for p_e, o_e in zip(param_spec, opt_spec):
+        if p_e is not None and p_e != o_e:
+            raise ValueError(f"opt spec {opt_spec} does not refine the "
+                             f"parameter spec {param_spec}")
+        out.append(o_e if p_e is None else None)
+    return tuple(out)
+
+
+def shard_opt_state(opt: dict, params: dict, specs: dict,
+                    mesh: Mesh) -> dict:
+    """The moments of ``opt`` (drawn like the parameter blocks of
+    ``params``) cut to this rank's blocks under ``specs`` ({name: opt
+    spec}) in place, each tagged with its spec (``mesh_spec``), which
+    ``optim.adamw.apply_updates`` reads.  Returns ``opt``."""
+    for key in ("m", "v"):
+        for name, t in opt[key].items():
+            extra = refine_spec(params[name].mesh_spec, specs[name])
+            block = (shard_tensor(t, extra, mesh) if any(
+                e is not None for e in extra) else t)
+            block.mesh_spec = specs[name]
+            opt[key][name] = block
+    return opt
 
 
 def replicas(spec: tuple, mesh: Mesh) -> int:

@@ -29,7 +29,12 @@ Tensor parallelism (a training mesh, ``launch.sharding.gathered``): with
 KV heads they read -- its block of ``wk`` / ``wv`` when KVH divides tp (the
 GQA map stays aligned), else the needed heads' columns of the whole
 panels -- with the qk-norm scales replicated, and ``wo`` is a row panel
-(``layers.row_parallel``: the residual added once, after the sum).
+(``layers.row_parallel``: the residual added once, after the sum).  The
+encoder-decoder's cross-attention runs the same way: its query heads and
+``wo`` as the self-attention's, and the cross K / V of the rank's KV heads
+(``models.model._cross_kv_stack`` projects them with the rank's columns
+of the cross ``wk`` / ``wv``).  A KV cache under TP (serving) raises: it
+is slice 17's.
 """
 from __future__ import annotations
 
@@ -245,8 +250,8 @@ def _write_owned(cache: torch.Tensor, new: torch.Tensor, idx: int,
         cache[:, lo - r0:hi - r0] = new[:, lo - idx:hi - idx].to(cache.dtype)
 
 
-def _tp_projections(params: AttentionParams, num_heads: int,
-                    num_kv_heads: int, head_dim: int, tp):
+def tp_projections(params: AttentionParams, num_heads: int,
+                   num_kv_heads: int, head_dim: int, tp):
     """This rank's (wq, wk, wv, q_norm, k_norm, query heads, KV heads)
     under tensor parallelism ``tp`` = (mesh, model axis)."""
     mesh, axis = tp
@@ -311,20 +316,26 @@ def attention(x: torch.Tensor, params: AttentionParams, *, num_heads: int,
     wq, wk, wv = params.wq, params.wk, params.wv
     q_norm, k_norm = params.q_norm, params.k_norm
     if tp is not None:
-        if cross_kv is not None or kv_cache is not None:
-            raise NotImplementedError("tensor-parallel attention runs the "
-                                      "training forward only")
+        if kv_cache is not None:
+            raise NotImplementedError(
+                "tensor-parallel attention with a KV cache (serving under "
+                "TP) is Queue 1 item 10.5, slice 17")
         x = column_input(x, tp)
         wq, wk, wv, q_norm, k_norm, num_heads, num_kv_heads = \
-            _tp_projections(params, num_heads, num_kv_heads, head_dim, tp)
+            tp_projections(params, num_heads, num_kv_heads, head_dim, tp)
     q = dense(x, wq, compute_dtype).reshape(b, s, num_heads, head_dim)
     if cross_kv is not None:
+        # Under TP ``cross_kv`` holds this rank's KV heads
+        # (``models.model._cross_kv_stack``), as q its query heads.
         k, v = cross_kv
         out = blockwise_attention(
             q, k, v, q_positions=torch.arange(s, device=x.device),
             kv_positions=torch.arange(k.shape[1], device=x.device),
             window=0, causal=False, block_kv=block_kv)
         out = out.reshape(b, s, num_heads * head_dim)
+        if tp is not None:
+            return row_parallel(out, params.wo, tp, compute_dtype,
+                                residual), None
         return dense(out, params.wo, compute_dtype, residual=residual), None
     k = dense(x, wk, compute_dtype).reshape(b, s, num_kv_heads, head_dim)
     v = dense(x, wv, compute_dtype).reshape(b, s, num_kv_heads, head_dim)

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.dist import current_dist
 from ..core.gemm import collective, project, project_swiglu
 from ..kernels.ftimm.epilogue import Epilogue
 
@@ -73,7 +74,16 @@ def dense(x: torch.Tensor, w: torch.Tensor, compute_dtype=torch.bfloat16, *,
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
-    """RMS norm in fp32 with the (1 + scale) gain, cast back to x's dtype."""
+    """RMS norm in fp32 with the (1 + scale) gain, cast back to x's dtype.
+    Under ``DistContext(rms_bf16=True)`` the variance is reduced in fp32
+    and the normalization stays in x's dtype, as the reference's: the
+    inverse root rounded to x's dtype, then ``x * inv * (1 + scale)``."""
+    ctx = current_dist()
+    if ctx is not None and ctx.rms_bf16:
+        var = torch.mean(torch.square(x.to(torch.float32)), dim=-1,
+                         keepdim=True)
+        inv = torch.rsqrt(var + eps).to(x.dtype)
+        return x * inv * (1.0 + scale.to(x.dtype))
     dtype = x.dtype
     x = x.to(torch.float32)
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)

@@ -40,8 +40,8 @@ from ..core.device import resolve_device
 from ..core.dist import current_dist
 from ..core.gemm import collective
 from ..launch.sharding import gathered, shard_block
-from .attention import param, sp_decoding
-from .layers import dense, embed, rms_norm, unembed
+from .attention import param, sp_decoding, tp_projections
+from .layers import column_input, dense, embed, rms_norm, tp_of, unembed
 from .transformer import (RECURRENT_FAMILIES, DenseBlock, SSMBlock, as_dtype,
                           check_family, compute_dtype, init_cache,
                           init_dense_block, init_ssm_block, stack_cached,
@@ -158,15 +158,25 @@ def _cross_kv_stack(model: DenseLM, cfg: ModelConfig,
                     enc_out: torch.Tensor) -> list:
     """Each decoder layer's cross (K, V), (B, S_enc, KVH, D) each, from the
     encoder output: one ``dense`` a layer for K and one for V, computed once
-    per forward or prefill."""
+    per forward or prefill.  Under tensor parallelism (the cross panels
+    cut over the model axis) a layer's K / V hold the KV heads of this
+    rank's query heads (``attention.tp_projections``), and the encoder
+    output's gradient is summed over the axis."""
     cdt = compute_dtype(cfg)
     b, s, _ = enc_out.shape
-    shape = (b, s, cfg.num_kv_heads, cfg.head_dim_)
+    hd = cfg.head_dim_
     out = []
     for p in model.layers:
         with gathered(p.cross, dtype=cdt):
-            out.append((dense(enc_out, p.cross.wk, cdt).reshape(shape),
-                        dense(enc_out, p.cross.wv, cdt).reshape(shape)))
+            wk, wv, kvh, x = p.cross.wk, p.cross.wv, cfg.num_kv_heads, enc_out
+            tp = tp_of(p.cross.wq)
+            if tp is not None:
+                x = column_input(enc_out, tp)
+                _, wk, wv, _, _, _, kvh = tp_projections(
+                    p.cross, cfg.num_heads, cfg.num_kv_heads, hd, tp)
+            shape = (b, s, kvh, hd)
+            out.append((dense(x, wk, cdt).reshape(shape),
+                        dense(x, wv, cdt).reshape(shape)))
     return out
 
 
@@ -174,10 +184,6 @@ def forward_train(model: DenseLM, cfg: ModelConfig,
                   batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence fp32 logits for training.  -> (logits (B, S, V_pad),
     aux loss); for vlm over the text positions only."""
-    ctx = current_dist()
-    if cfg.family == "encdec" and ctx is not None and ctx.tp > 1:
-        raise NotImplementedError("the encoder-decoder's cross-attention "
-                                  "does not run tensor-parallel")
     with _top_level(model, cfg):
         h, positions = _embed_inputs(model, cfg, batch)
         cross = None

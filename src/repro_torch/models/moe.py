@@ -37,8 +37,8 @@ that owns their expert and back, and the block's panels are this rank's
 G / nc experts (``launch.sharding.shard_block`` cut them).  As in the
 reference, that branch comes first and runs the panels unquantized: the
 exchange moves activations, not panels, so a ``quant`` mode buys it no
-wire bytes.  Capacity dispatch is not expert-parallel, as in the
-reference.
+wire bytes.  Capacity dispatch runs expert-parallel only where the rows
+are cut over the data axes (below).
 
 On a training mesh whose data axes cut the rows (``DistContext.rows_cut``)
 the aux loss is the global batch's: it is E · Σ mean(probs) · mean(top-1
@@ -49,8 +49,22 @@ expert parallelism over the data axes the executor needs the global row
 array: the ranks' rows are gathered, routed and sorted alike on every
 rank, and each rank keeps its own rows of the result (the result's
 cotangent summed over the axes first, the executor's convention).
-Capacity dispatch there would size the buckets from the global batch,
-which the port does not do: it raises.
+Capacity dispatch there sizes the buckets from the global batch, as
+GSPMD's one program does: the capacity is that of the T x dp global rows,
+each rank ranks its own (token, k) copies within their expert in token
+order, and the exclusive prefix over the data axes of every rank's
+per-expert counts (one all-gather of E integers) offsets those ranks, so
+each rank keeps and drops exactly the copies the one-device run keeps and
+drops.  A rank fills the global (E x C, D) buffer with its own copies;
+the buffer is reduce-scattered over the data axes by expert, each rank
+runs the grouped pair and down product on its E / dp experts (its own
+panels under ``moe_ep``, else its experts of the gathered panels), and
+the results are all-gathered for every rank to read its copies back
+(``_capacity_experts_cut``).  Bytes a layer's forward moves, per rank:
+the E integers, the reduce-scatter of E x C x D in the compute type and
+the all-gather of the same; the backward moves those two again (under
+gloo the reduce-scatter is an all-reduce of the whole buffer and a
+narrow).  The data axes' size must divide E.
 """
 from __future__ import annotations
 
@@ -154,39 +168,94 @@ def moe_mlp(x: torch.Tensor, params: MoEParams, *, num_experts: int,
         raise ValueError("quantized experts require the ragged (zero-drop) "
                          f"dispatch, not {dispatch!r}")
     ctx = current_dist()
-    if ctx is not None and ctx.rows_cut:
-        raise NotImplementedError(
-            "capacity dispatch with the rows cut over the data axes: the "
-            "buckets would be sized from this rank's rows, not the global "
-            "batch's")
+    cut = ctx is not None and ctx.rows_cut
     t, d = x.shape
     e = num_experts
-    c = capacity(t, e, top_k, capacity_factor, dtype=compute_dtype)
+    # The capacity of the global batch: on a mesh that cuts the rows, the
+    # ranks' rows are equal blocks of it (``launch.sharding.cut_batch``).
+    c = capacity(t * (ctx.dp_size if cut else 1), e, top_k, capacity_factor,
+                 dtype=compute_dtype)
     xc = x.to(compute_dtype)
     gate_w, gate_idx, aux = _router(xc, params.router, e, top_k)
 
-    # Rank of each (token, k) copy within its expert, in token order.
-    flat_idx = gate_idx.reshape(-1)                             # (T*K,)
-    sel = (flat_idx[:, None] == torch.arange(e, device=x.device)).to(
-        torch.int64)
-    pos = (torch.cumsum(sel, dim=0) - 1).gather(1, flat_idx[:, None])[:, 0]
-    keep = pos < c
-    # Dropped copies go to a spare row e*c past the buffer (the reference
-    # scatters them out of bounds in "drop" mode); kept slots are unique.
-    slot = torch.where(keep, flat_idx * c + pos, e * c)
+    slot, keep = capacity_slots(gate_idx, e, c)
     tok_idx = torch.arange(t, device=x.device).repeat_interleave(top_k)
     buf = torch.zeros((e * c + 1, d), dtype=compute_dtype, device=x.device)
     buf.index_add_(0, slot, xc[tok_idx])
-    buf = buf[:e * c].view(e, c, d)
+    buf = buf[:e * c]
 
-    h = grouped_swiglu(buf, params.w_gate.to(compute_dtype),
-                       params.w_up.to(compute_dtype))            # (E, C, F)
-    y_buf = grouped_matmul(h, params.w_down.to(compute_dtype)).reshape(e * c,
-                                                                        d)
+    wg, wu, wd = (w.to(compute_dtype)
+                  for w in (params.w_gate, params.w_up, params.w_down))
+    if cut:
+        y_buf = _capacity_experts_cut(buf, wg, wu, wd, ctx, e, c)
+    else:
+        h = grouped_swiglu(buf.view(e, c, d), wg, wu)           # (E, C, F)
+        y_buf = grouped_matmul(h, wd).reshape(e * c, d)
     y_tok = y_buf[slot.clamp(max=e * c - 1)]
     y_tok = y_tok * (keep * gate_w.reshape(-1))[:, None].to(compute_dtype)
     y = y_tok.reshape(t, top_k, d).sum(dim=1)
     return y.to(x.dtype), aux
+
+
+def capacity_slots(gate_idx: torch.Tensor, num_experts: int,
+                   cap: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each (token, k) copy's row of the (E x cap) capacity buffer and
+    whether it is kept: its rank within its expert in token order, kept
+    below ``cap``.  A dropped copy's row is E x cap, a spare row past the
+    buffer (the reference scatters it out of bounds in "drop" mode); kept
+    rows are unique.  On a mesh whose data axes cut the rows the rank is
+    over the global batch: the copies of the ranks before this one come
+    first in each expert.  -> (slot (T*K,), keep (T*K,))."""
+    e = num_experts
+    flat_idx = gate_idx.reshape(-1)                             # (T*K,)
+    sel = (flat_idx[:, None] == torch.arange(e, device=gate_idx.device)).to(
+        torch.int64)
+    pos = (torch.cumsum(sel, dim=0) - 1).gather(1, flat_idx[:, None])[:, 0]
+    ctx = current_dist()
+    if ctx is not None and ctx.rows_cut:
+        pos = pos + _rank_offsets(sel.sum(dim=0), ctx)[flat_idx]
+    keep = pos < cap
+    return torch.where(keep, flat_idx * cap + pos, e * cap), keep
+
+
+def _rank_offsets(counts: torch.Tensor, ctx) -> torch.Tensor:
+    """(E,) copies routed to each expert by the ranks before this one along
+    the data axes: the exclusive prefix, in rank order, of every rank's
+    per-expert counts."""
+    mesh, axes = ctx.mesh, ctx.dp_axes
+    every = collective.raw_all_gather(counts[None], mesh, axes)  # (nc, E)
+    return every[:mesh.axis_index(axes)].sum(dim=0)
+
+
+def _capacity_experts_cut(buf: torch.Tensor, wg: torch.Tensor,
+                          wu: torch.Tensor, wd: torch.Tensor, ctx, e: int,
+                          c: int) -> torch.Tensor:
+    """The expert GEMMs of a capacity buffer whose rows this rank filled
+    with its own copies only (the other ranks' slots zero).  Each rank of
+    the data axes runs E / nc experts: the buffer is reduce-scattered over
+    the axes by expert (every slot was written by one rank, so the sum only
+    merges them), the rank's experts run the grouped pair and down
+    product, and the (E / nc, C, D) results are all-gathered.  The
+    gradient takes the transposes: the results' cotangents summed over
+    the axes in fp32 and cut to the rank's experts, the buffer's gathered.
+    The panels are this rank's experts under expert parallelism over the
+    data axes (``moe_ep``), else the whole gathered panels, read at the
+    rank's experts.  -> (E * C, D), every rank's copies' rows."""
+    mesh, axes = ctx.mesh, ctx.dp_axes
+    nc, s = ctx.dp_size, mesh.axis_index(axes)
+    if e % nc:
+        raise ValueError(f"capacity dispatch with the rows cut needs data "
+                         f"axes whose size divides the {e} experts, not {nc}")
+    ep = ep_axis(ctx, e)
+    if ep is not None and mesh.axes(ep) != tuple(axes):
+        raise ValueError(f"expert axis {ep} is not the data axes {axes}")
+    e_l, d = e // nc, buf.shape[-1]
+    if ep is None:
+        wg, wu, wd = (w[s * e_l:(s + 1) * e_l] for w in (wg, wu, wd))
+    mine = collective.reduce_scatter(buf, mesh, axes).view(e_l, c, d)
+    h = grouped_swiglu(mine, wg, wu)                            # (E_l, C, F)
+    y_l = grouped_matmul(h, wd).reshape(e_l * c, d)
+    return collective.zero_gather(y_l, mesh, axes, 0, y_l.dtype)
 
 
 def _moe_mlp_ragged(x: torch.Tensor, params: MoEParams, *, num_experts: int,

@@ -9,6 +9,11 @@ model or its state on the card); it returns them for symmetry.  The lr and
 clipping scale stay device tensors, so a step never waits for the host.
 On a mesh (``launch.sharding.shard_params``) everything here is a block:
 only the gradient norm needs the other ranks (``global_norm(mesh=)``).
+Moments whose spec (their ``mesh_spec``, ``launch.sharding.shard_opt_state``)
+cuts them further than their parameter's (ZeRO-1) make each rank update
+only the part of the parameter block its moments cover; the updated parts
+are then gathered over the axes of that further cut, so every rank holds
+its whole parameter block again.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ from dataclasses import dataclass
 import torch
 
 from ..core.gemm import collective
+from ..launch.sharding import full_tensor, refine_spec, shard_tensor
 from ..launch.sharding import replicas as _replicas
 
 F32 = torch.float32
@@ -79,8 +85,9 @@ def apply_updates(params: dict[str, torch.Tensor],
                   cfg: OptConfig, *, mesh=None):
     """One AdamW step in place.  -> (params, state, {"grad_norm", "lr"}).
     ``mesh``: the parameters, gradients and moments are this rank's blocks
-    (each parameter's ``mesh_spec``); the gradient norm is the whole
-    model's, and the update runs on the blocks."""
+    (each parameter's ``mesh_spec``, each moment's where it has its own);
+    the gradient norm is the whole model's, and the update runs on the
+    blocks."""
     step = state["step"] + 1
     lr = schedule(step, cfg)
     reps = (None if mesh is None else
@@ -95,7 +102,12 @@ def apply_updates(params: dict[str, torch.Tensor],
                         step.to(F32))
     for name, p in params.items():
         m, v = state["m"][name], state["v"][name]
-        g = grads[name].to(F32) * scale
+        g, target, extra = grads[name], p, None
+        ospec = getattr(m, "mesh_spec", None)
+        if mesh is not None and ospec is not None and ospec != p.mesh_spec:
+            extra = refine_spec(p.mesh_spec, ospec)
+            g, target = (shard_tensor(t, extra, mesh) for t in (g, p))
+        g = g.to(F32) * scale
         m.mul_(b1).add_((1 - b1) * g)
         v.mul_(b2).add_((1 - b2) * g * g)
         del g
@@ -104,7 +116,11 @@ def apply_updates(params: dict[str, torch.Tensor],
         denom = (v / bc2).sqrt_().add_(cfg.eps)
         delta = (m / bc1).div_(denom)
         del denom
-        delta.add_(cfg.weight_decay * p.to(F32)).mul_(lr)
-        p.copy_(p.to(F32) - delta)
+        delta.add_(cfg.weight_decay * target.to(F32)).mul_(lr)
+        if extra is None:
+            p.copy_(p.to(F32) - delta)
+        else:
+            p.copy_(full_tensor((target.to(F32) - delta).to(p.dtype), extra,
+                                mesh))
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}

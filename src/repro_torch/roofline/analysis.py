@@ -5,9 +5,13 @@
 
 with the rates of ``core.gemm.cmr.H100`` (989 TFLOP/s bf16 on the tensor
 cores, 3.35 TB/s; NVIDIA's H100 SXM data sheet).  The reference's third
-term, the collective time from the compiled program's collectives, comes
-with the port's distributed layer: until then it is 0 and ``coll_by_type``
-is empty.
+term, the collective time, comes from the collectives of the compiled
+program (its ``collective_bytes`` over the lowered HLO).  The port has no
+lowered program yet -- lowering on the production mesh is Queue 1 item
+10.5, slice 17 -- so ``t_collective`` stays 0 and ``coll_by_type`` empty.
+The perf model's expert-parallel exchange (``step_perf(ep_shards=)``'s
+``moe_a2a`` bucket) is carried as ``bytes_per_device_ici``, reported
+beside the two terms and not priced into the bound.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ class Roofline:
     chips: int
     flops_per_device: float
     bytes_per_device_hbm: float
+    bytes_per_device_ici: float = 0.0   # the perf model's moe_a2a bytes
     coll_bytes_wire: float = 0.0
     coll_by_type: dict = field(default_factory=dict)
     t_compute: float = 0.0
@@ -70,13 +75,17 @@ class Roofline:
 
 def build_roofline(*, arch: str, shape: str, analytic_flops: float,
                    analytic_bytes: float, model_flops: float,
+                   analytic_ici: float = 0.0,
                    mesh_name: str = "1xH100", chips: int = 1,
                    spec: HopperSpec = H100) -> Roofline:
-    """The two-term roofline (the collective term is 0 on one card)."""
+    """The two-term roofline (the collective term stays 0 until slice 17
+    lowers a step); ``analytic_ici``: the perf model's interconnect bytes
+    (``Perf.bytes_ici``), divided over the cards as the others."""
     r = Roofline(
         arch=arch, shape=shape, mesh=mesh_name, chips=chips,
         flops_per_device=analytic_flops / chips,
         bytes_per_device_hbm=analytic_bytes / chips,
+        bytes_per_device_ici=analytic_ici / chips,
         model_flops=model_flops)
     r.t_compute = r.flops_per_device / spec.peak_flops_bf16
     r.t_memory = r.bytes_per_device_hbm / spec.hbm_bw

@@ -21,7 +21,9 @@ the hybrid reads its one shared block at each of its applications; an
 encoder-decoder's decode step reads neither the encoder nor the cross K /
 V projections.  Every other bucket equals the reference's.
 
-All numbers are for the whole step on one card.
+All numbers are for the whole step: on one card, or summed over the
+ranks of an expert-parallel mesh (``ep_shards``), whose token exchange is
+the ``moe_a2a`` bucket's interconnect bytes.
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ _WIDTH = {"bfloat16": 2, "float16": 2, "float32": 4}
 class Perf:
     flops: float = 0.0               # matmul (+ attention) flops
     bytes_hbm: float = 0.0           # device-memory traffic
-    bytes_ici: float = 0.0           # cross-device traffic (0: one card)
+    bytes_ici: float = 0.0           # cross-device traffic (moe_a2a)
     breakdown: dict = field(default_factory=dict)   # name -> [flops, hbm, ici]
 
     def add(self, name: str, flops: float = 0.0, byts: float = 0.0,
@@ -92,20 +94,28 @@ def _attn(perf: Perf, cfg: ModelConfig, n_layers_by_window: dict[int, int],
 
 
 def _mlp(perf: Perf, cfg: ModelConfig, n_l: int, t: int, cdt=2,
-         panels: bool = True):
-    """``panels``: the bucket also streams its weight panels (train)."""
+         panels: bool = True, ep_shards: int = 1):
+    """``panels``: the bucket also streams its weight panels (train).
+    ``ep_shards`` > 1: the experts are cut over that many ranks, and the
+    planner's expert-parallel placement prices the token exchange (both
+    legs) in the ``moe_a2a`` bucket -- interconnect bytes, kept out of the
+    device-memory totals."""
     d, f = cfg.d_model, cfg.d_ff
     if cfg.num_experts:
         perf.add("router", 2 * t * d * cfg.num_experts * n_l,
                  t * d * cdt * n_l)
         # The dispatch buffer's rows from the planner the GEMM stack
         # plans with: E x capacity for "capacity", T x top_k for "ragged".
-        rows = plan_moe_dispatch(
+        mp = plan_moe_dispatch(
             t, cfg.num_experts, cfg.top_k, d, f, dispatch=cfg.moe_dispatch,
-            capacity_factor=cfg.capacity_factor, elt_bytes=cdt).rows
+            capacity_factor=cfg.capacity_factor, elt_bytes=cdt,
+            num_shards=ep_shards)
+        rows = mp.rows
         weights = 3 * d * f * cdt * cfg.num_experts if panels else 0
         perf.add("moe_mlp", 6 * rows * d * f * n_l,
                  (2 * rows * d * cdt + weights) * n_l)
+        if mp.placement is not None:
+            perf.add("moe_a2a", ici=mp.placement.link_bytes * n_l)
     else:
         weights = 3 * d * f * cdt if panels else 0
         perf.add("mlp", 6 * t * d * f * n_l,
@@ -136,11 +146,14 @@ def _ssm(perf: Perf, cfg: ModelConfig, n_l: int, b: int, s: int,
                  (t * hh * p * cdt * 3) * n_l)
 
 
-def forward_perf(cfg: ModelConfig, b: int, s: int, kind: str) -> Perf:
+def forward_perf(cfg: ModelConfig, b: int, s: int, kind: str,
+                 ep_shards: int = 1) -> Perf:
     """kind: train | prefill | decode (decode: s = cache length, one new
     token).  Train counts the weight panels in the per-layer buckets, as
     the reference does; decode and prefill leave them to ``step_perf``'s
-    ``weights`` bucket."""
+    ``weights`` bucket.  ``ep_shards`` > 1 prices the MoE layers expert
+    parallel (the ``moe_a2a`` bucket): pass the size of the mesh axes that
+    hold the experts; 1 keeps every expert on each rank."""
     perf = Perf()
     decode = kind == "decode"
     panels = kind == "train"
@@ -160,7 +173,7 @@ def forward_perf(cfg: ModelConfig, b: int, s: int, kind: str) -> Perf:
             t = b * s_q
             kv_len = s_q
         _attn(perf, cfg, wins, b, s_q, kv_len, decode=decode, cdt=cdt)
-        _mlp(perf, cfg, cfg.num_layers, t, cdt, panels)
+        _mlp(perf, cfg, cfg.num_layers, t, cdt, panels, ep_shards)
         if fam == "encdec":
             se = cfg.encoder_seq
             te = b * se
@@ -183,7 +196,7 @@ def forward_perf(cfg: ModelConfig, b: int, s: int, kind: str) -> Perf:
              panels)
         g = cfg.num_layers // cfg.attn_every
         _attn(perf, cfg, {0: g}, b, s_q, kv_len, decode=decode, cdt=cdt)
-        _mlp(perf, cfg, g, t, cdt, panels)
+        _mlp(perf, cfg, g, t, cdt, panels, ep_shards)
     if cfg.num_patches and not decode:
         perf.add("patch_proj", 2 * b * cfg.num_patches * cfg.d_model ** 2)
 
@@ -245,13 +258,17 @@ def weight_bytes(cfg: ModelConfig, tokens: int, kind: str) -> float:
     return float(n * served_width(cfg))
 
 
-def step_perf(cfg: ModelConfig, shape: ShapeConfig) -> Perf:
+def step_perf(cfg: ModelConfig, shape: ShapeConfig,
+              ep_shards: int = 1) -> Perf:
     """Whole-step perf: training includes the backward, the remat recompute
     and the optimizer (the reference's accounting); decode and prefill are
     forward-only, their weights priced as the step reads them
-    (``weight_bytes``)."""
+    (``weight_bytes``).  ``ep_shards`` as in ``forward_perf``; a train
+    step's multiplier acts on ``moe_a2a`` as on every bucket (the backward
+    runs its own two legs, the remat recompute the forward's again)."""
     kind = shape.kind
-    fwd = forward_perf(cfg, shape.global_batch, shape.seq_len, kind)
+    fwd = forward_perf(cfg, shape.global_batch, shape.seq_len, kind,
+                       ep_shards)
     if kind != "train":
         tokens = shape.global_batch * (1 if kind == "decode"
                                        else shape.seq_len)

@@ -18,11 +18,14 @@ sharded_params=True))``: the model is drawn whole as on one device (the
 same seed, the same device) and cut to this rank's blocks under
 ``param_specs`` (ZeRO-3 over the data axes, tensor parallelism over
 ``model``; ``moe_ep`` the experts over the data axes, ``ssm_head_shard``
-the SSD heads over ``model``), the moments follow, and each rank reads its
-rows of the global batch.  The result is the one-device step on the global
-batch.  A checkpoint is gathered whole (every rank joins, mesh rank 0
-writes) and restored cut, so any mesh -- or one device, or the reference --
-resumes it.
+the SSD heads over ``model``), the moments follow -- or are cut by specs of
+their own, ``shardings["opt"]`` (ZeRO-1: the parameters TP only, the
+moments at ZeRO-3; each rank then updates the part of its parameter block
+that its moments cover, and the parts are gathered over the data axes) --
+and each rank reads its rows of the global batch.  The result is the
+one-device step on the global batch.  A checkpoint is gathered whole
+(every rank joins, mesh rank 0 writes) and restored cut, so any mesh -- or
+one device, or the reference -- resumes it.
 """
 from __future__ import annotations
 
@@ -56,9 +59,11 @@ class Trainer:
                  moe_ep: bool = False, ssm_head_shard: bool = False):
         """``mesh``: a ``launch.mesh.Mesh`` with a "model" axis (its other
         axes the data axes); the model lives on ``mesh.device``.
-        ``shardings``: {"params": {parameter name: spec}} (default:
-        ``launch.sharding.named_specs`` at ZeRO-3, ``moe_ep`` as given);
-        the moments follow the parameters, the batch ``batch_specs``."""
+        ``shardings``: {"params": {parameter name: spec}, "opt": {name:
+        spec}}, the reference's keys (default: ``launch.sharding.named_specs``
+        at ZeRO-3, ``moe_ep`` as given, for the parameters; the moments
+        follow them unless "opt" is given, which must cut each moment at
+        least as the parameter is cut); the batch ``batch_specs``."""
         self.cfg = cfg
         self.shape = shape
         self.opt_cfg = opt_cfg or OptConfig()
@@ -110,7 +115,13 @@ class Trainer:
                     moe_ep=self.moe_ep)
             sharding.shard_params(model, self.shardings["params"],
                                   self.mesh)
-        return model, init_opt_state(dict(model.named_parameters()))
+            self.shardings.setdefault("opt", self.shardings["params"])
+        named = dict(model.named_parameters())
+        opt = init_opt_state(named)
+        if self.mesh is not None:
+            sharding.shard_opt_state(opt, named, self.shardings["opt"],
+                                     self.mesh)
+        return model, opt
 
     def state_tree(self, model: DenseLM, opt: dict) -> dict:
         """The checkpointed state in the reference's layout, whole (on a
@@ -118,11 +129,12 @@ class Trainer:
         params = dict(model.named_parameters())
         m, v = opt["m"], opt["v"]
         if self.mesh is not None:
-            def full(named):
-                return {k: sharding.full_tensor(t, params[k].mesh_spec,
-                                                self.mesh)
+            def full(named, specs):
+                return {k: sharding.full_tensor(t, specs[k], self.mesh)
                         for k, t in named.items()}
-            params, m, v = full(params), full(m), full(v)
+            params, m, v = (full(params, self.shardings["params"]),
+                            full(m, self.shardings["opt"]),
+                            full(v, self.shardings["opt"]))
         return {"params": to_numpy_tree(params),
                 "opt": {"m": to_numpy_tree(m), "v": to_numpy_tree(v),
                         "step": opt["step"]}}
@@ -151,14 +163,14 @@ class Trainer:
             step, tree = self.ckpt.restore()
             params = dict(model.named_parameters())
             if self.mesh is None:
-                load = load_numpy_tree
+                load = load_opt = load_numpy_tree
             else:
-                load = functools.partial(
-                    sharding.load_blocks, specs=self.shardings["params"],
-                    mesh=self.mesh)
+                load, load_opt = (functools.partial(
+                    sharding.load_blocks, specs=self.shardings[key],
+                    mesh=self.mesh) for key in ("params", "opt"))
             load(params, tree["params"])
-            load(opt["m"], tree["opt"]["m"])
-            load(opt["v"], tree["opt"]["v"])
+            load_opt(opt["m"], tree["opt"]["m"])
+            load_opt(opt["v"], tree["opt"]["v"])
             opt["step"] = torch.as_tensor(tree["opt"]["step"]).to(
                 self.device, torch.int32)
             start = step + 1

@@ -1700,3 +1700,91 @@ def test_mesh_train_step_two_ranks_share_the_card(dev, tmp_path):
     for name in ("embed", "final_norm"):
         _close(torch.from_numpy(np.asarray(ranks[0]["params"][name])),
                torch.from_numpy(np.asarray(mine[name])))
+
+
+@pytest.mark.parametrize("arch,shape,kw,kernels", [
+    ("mixtral-8x7b-smoke", (2, 1), {}, ("ftimm_gemm_grouped_swiglu",
+                                        "ftimm_gemm_grouped")),
+    ("mixtral-8x7b-smoke", (2, 1), {"moe_ep": True},
+     ("ftimm_gemm_grouped_swiglu", "ftimm_gemm_grouped")),
+    ("whisper-base-smoke", (1, 2), {}, ("ftimm_gemm", "ftimm_gemm_swiglu")),
+    ("qwen3-1.7b-smoke", (2, 1), {"zero1": True},
+     ("ftimm_gemm", "ftimm_gemm_swiglu"))],
+    ids=["mixtral-capacity", "mixtral-capacity-ep", "whisper-tp",
+         "qwen-zero1"])
+def test_mesh_configs_two_ranks_share_the_card(dev, tmp_path, arch, shape,
+                                               kw, kernels):
+    """The mesh configurations of capacity MoE with the rows cut, whisper
+    under TP and ZeRO-1, in fp32 on two ranks sharing the card over gloo:
+    each rank launches the kernels of its path, and the loss and gradient
+    norm of one step are the one-rank step's on the card within 1e-4."""
+    import dataclasses
+    sys.path.insert(0, str(Path(__file__).parent))
+    from torch_world import World
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.models.weights import (from_numpy_params,
+                                            to_numpy_params)
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+    cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
+    tree = to_numpy_params(M.init_params(cfg, 0, device="cpu",
+                                         dtype="float32"))
+    batch = SyntheticLM(cfg, ShapeConfig("t", 32, 4, "train")).host_batch(0)
+    model = from_numpy_params(tree, cfg, dev, dtype=torch.float32)
+    step = make_train_step(cfg, adamw.OptConfig())
+    opt = adamw.init_opt_state(dict(model.named_parameters()))
+    _, _, m = step(model, opt, {k: torch.as_tensor(v).to(dev)
+                                for k, v in batch.items()})
+    want = {k: float(v) for k, v in m.items()}
+    world = World(2, tmp_path, timeout=300)
+    try:
+        ranks = world.run("mesh_steps", arch, shape, tree, [batch],
+                          device="cuda", **kw)
+    finally:
+        world.close()
+    for r in ranks:
+        for name in kernels:
+            assert r["launches"].get(name), (name, r["launches"])
+        for key in ("loss", "grad_norm"):
+            got = r["metrics"][0][key]
+            assert abs(got - want[key]) <= 1e-4 * abs(want[key]), key
+
+
+def test_placed_search_on_the_card(dev, tmp_path):
+    """A placed ``autotune_gemm`` / ``_ragged_gemm`` (num_shards 2) times
+    its local GEMMs on the kernels and is served as "cached"; on two ranks
+    sharing the card ``calibrate_ici`` fits a finite fraction (host
+    staging here) and both end-to-end timings give finite rows."""
+    import math
+    sys.path.insert(0, str(Path(__file__).parent))
+    from torch_world import World
+    from repro_torch.core.gemm import autotune, tuner
+    tuner.clear_plan_cache()
+    try:
+        K.reset_launch_counts()
+        autotune.autotune_gemm(4, 2048, 6144, 2, 2, num_shards=2, top_k=2,
+                               repeats=3, device=dev)
+        autotune.autotune_ragged_gemm(16, 4, 5120, 8192, 2, 2,
+                                      num_shards=2, top_k=2, repeats=3,
+                                      device=dev)
+        assert K.launch_counts()["ftimm_gemm"] > 0
+        assert K.launch_counts()["ftimm_gemm_ragged"] > 0
+        assert tuner.plan_gemm(4, 2048, 6144, 2, 2,
+                               num_shards=2).mode == "cached"
+        assert tuner.plan_ragged_gemm(16, 4, 5120, 8192, 2, 2,
+                                      num_shards=2).mode == "cached"
+    finally:
+        tuner.clear_plan_cache()
+    world = World(2, tmp_path, timeout=300)
+    try:
+        for kind in ("ici", "ragged", "dense"):
+            for r in world.run("placed", kind, device="cuda"):
+                rows = [r["cal"]] if kind == "ici" else r
+                for row in rows:
+                    t = row.get("ici_frac", row.get("t_measured"))
+                    assert math.isfinite(t) and t > 0, (kind, row)
+    finally:
+        world.close()

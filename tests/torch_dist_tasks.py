@@ -270,16 +270,19 @@ def _train_cfg(arch, depth=None):
 
 def mesh_steps(arch, mesh_shape, tree, batches, *, moe_ep=False,
                ssm_head_shard=False, opt=None, depth=None, device="cpu",
-               accum_steps=1):
+               accum_steps=1, zero1=False, capacity_factor=None):
     """``make_train_step`` on this rank's blocks of ``tree`` (a whole
     reference-layout parameter tree) under a (data, model) mesh of
     ``mesh_shape`` with its tensors on ``device``, one step per global
     batch of ``batches`` (this rank's rows cut from each): -> each step's
-    metrics, the whole updated tree (rank 0), this rank's parameter block
-    shapes and kernel launches."""
+    metrics, the whole updated tree (rank 0), this rank's parameter and
+    moment block shapes and kernel launches.  ``zero1``: the parameters at
+    ``named_specs(zero_stage=1)`` (TP only), the moments at ZeRO-3."""
     from repro_torch.optim import adamw
     from repro_torch.train import make_train_step
     cfg = _train_cfg(arch, depth)
+    if capacity_factor is not None:
+        cfg = dataclasses.replace(cfg, capacity_factor=capacity_factor)
     dev = torch.device(device)
     if dev.type == "cuda":
         dev = torch.device("cuda", dev.index or 0)
@@ -289,14 +292,20 @@ def mesh_steps(arch, mesh_shape, tree, batches, *, moe_ep=False,
         return None
     K.reset_launch_counts()
     model = from_numpy_params(tree, cfg, dev, dtype=torch.float32)
-    specs = S.named_specs(dict(model.named_parameters()), m, moe_ep=moe_ep)
+    full_named = dict(model.named_parameters())
+    specs = S.named_specs(full_named, m, moe_ep=moe_ep,
+                          zero_stage=1 if zero1 else 3)
+    opt_specs = (S.named_specs(full_named, m, moe_ep=moe_ep) if zero1
+                 else specs)
     S.shard_params(model, specs, m)
     ep = S.expert_axis(m, True, "dp", cfg.num_experts) if moe_ep else None
     ctx = D.DistContext(m, S.dp_axes(m), "model", moe_ep_axis=ep,
                         ssm_head_shard=ssm_head_shard, sharded_params=True)
     ocfg = adamw.OptConfig(**(opt or {}))
     step = make_train_step(cfg, ocfg, accum_steps)
-    state = adamw.init_opt_state(dict(model.named_parameters()))
+    named = dict(model.named_parameters())
+    state = S.shard_opt_state(adamw.init_opt_state(named), named, opt_specs,
+                              m)
     metrics = []
     with D.use_dist(ctx):
         for batch in batches:
@@ -311,22 +320,35 @@ def mesh_steps(arch, mesh_shape, tree, batches, *, moe_ep=False,
             "params": (to_numpy_tree(full)
                        if torch.distributed.get_rank() == 0 else None),
             "shapes": {k: tuple(p.shape) for k, p in named.items()},
+            "moment_shapes": {k: tuple(t.shape)
+                              for k, t in state["m"].items()},
             "launches": {k: v for k, v in K.launch_counts().items() if v}}
 
 
 def mesh_trainer(arch, mesh_shape, steps, ckpt_dir, *, seq=32, batch=4,
-                 ckpt_every=50, opt=None):
+                 ckpt_every=50, opt=None, zero1=False):
     """``Trainer(mesh=...)`` for ``steps`` steps on a (data, model) mesh of
-    ``mesh_shape``, checkpointing to ``ckpt_dir``: -> its metrics log."""
+    ``mesh_shape``, checkpointing to ``ckpt_dir``: -> its metrics log.
+    ``zero1``: ``shardings`` with the parameters at ``named_specs(
+    zero_stage=1)`` and the moments at ZeRO-3."""
     from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.model import init_params
     from repro_torch.optim import adamw
     from repro_torch.train import Trainer
     m = mesh(tuple(mesh_shape), ("data", "model"))
     if m is None:
         return None
-    tr = Trainer(_train_cfg(arch), ShapeConfig("t", seq, batch, "train"),
-                 adamw.OptConfig(**(opt or {})), mesh=m, seed=0,
-                 ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, log_every=1)
+    cfg = _train_cfg(arch)
+    shardings = None
+    if zero1:
+        named = dict(init_params(cfg, 0, device=CPU,
+                                 dtype=cfg.param_dtype).named_parameters())
+        shardings = {"params": S.named_specs(named, m, zero_stage=1),
+                     "opt": S.named_specs(named, m)}
+    tr = Trainer(cfg, ShapeConfig("t", seq, batch, "train"),
+                 adamw.OptConfig(**(opt or {})), mesh=m, shardings=shardings,
+                 seed=0, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
+                 log_every=1)
     tr.run(steps)
     return tr.metrics_log
 
@@ -424,3 +446,54 @@ def elastic(arch, ckpt_dir, steps, *, fault=None, seq=32, batch=8,
     return {"history": runner.history, "metrics": runner.metrics_log,
             "plans": sum(tuner.PLAN_MODE_COUNTS.values()),
             "left": result is None}
+
+
+# ---------------------------------------------------------------------------
+# The mesh training configurations of slice 16 and the placed search
+# ---------------------------------------------------------------------------
+
+def capacity_keep(gate_idx, num_experts, cap, mesh_shape):
+    """``moe.capacity_slots`` on this rank's rows of the global (T, K)
+    routing ``gate_idx`` under a training mesh whose data axes cut the
+    rows: -> this rank's keep mask and slots (None off the mesh)."""
+    m = mesh(tuple(mesh_shape), ("data", "model"))
+    if m is None:
+        return None
+    ctx = D.DistContext(m, S.dp_axes(m), "model", sharded_params=True)
+    nc, s = ctx.dp_size, m.axis_index(S.dp_axes(m))
+    rows = gate_idx.shape[0] // nc
+    with D.use_dist(ctx):
+        slot, keep = MOE.capacity_slots(
+            _t(gate_idx[s * rows:(s + 1) * rows]).long(), num_experts, cap)
+    return {"keep": _n(keep), "slot": _n(slot)}
+
+
+def placed(kind, *, store=True, repeats=2, device="cpu"):
+    """The placed-search measurements on a 2-rank mesh of the world's
+    first ranks with its tensors on ``device``: ``calibrate_ici`` ("ici",
+    with the store's calibration after it), ``time_placed_ragged_e2e``
+    ("ragged") or ``time_placed_dense_e2e`` ("dense"), small shapes,
+    fp32."""
+    from repro_torch.core.gemm import autotune, plan_store
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    m = mesh((2,), ("x",), dev)
+    if m is None:
+        return None
+    if kind == "ici":
+        autotune.clear_plan_store()
+        cal = autotune.calibrate_ici(m, "x", widths=(16, 32), rows=64,
+                                     repeats=repeats, store=store)
+        st = plan_store.get_store().calibration
+        out = {"cal": cal.to_json(),
+               "stored": None if st is None else st.to_json(),
+               "link_bw": tuner.effective_spec(tuner.H100).link_bw}
+        autotune.clear_plan_store()
+        return out
+    if kind == "ragged":
+        return autotune.time_placed_ragged_e2e(4, 64, 32, 16, mesh=m,
+                                               axis="x", repeats=repeats)
+    return autotune.time_placed_dense_e2e(16, 64, 32, mesh=m, axis="x",
+                                          repeats=repeats)
