@@ -313,8 +313,8 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    share cuda:0 over gloo, as in [dist]; the one-rank runs first, in this
    process.  2 steps of 8 x 128 (bf16 on fp32 masters, AdamW) a case,
    each beside the one-rank ``Trainer`` from the same seed: (a)
-   qwen3-1.7b, 4 layers, (data 2, model 1), ZeRO-3: the losses within
-   2e-2 relative a step, and at 2 layers in fp32 compute within 1e-5;
+   qwen3-1.7b, 2 layers, (data 2, model 1), ZeRO-3: the losses within
+   2e-2 relative a step, and in fp32 compute within 1e-5;
    (b) the same on (data 1, model 2), tensor parallel: every rank's
    ``ftimm_gemm`` and ``ftimm_gemm_swiglu`` launched on its half panels
    (the recorded shapes: wq (2048, 1024), wo (1024, 2048), the pair
@@ -363,6 +363,22 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    staging on one card, not NVLink) and both ``time_placed_*_e2e`` at the
    same dense and ragged shapes, each row's measured time beside the
    planner's; gated on finite times, not on which strategy wins;
+13g. [dryrun] the production-mesh dry run (``launch.dryrun``): every
+   ``--all`` cell on the abstract 16 x 16 mesh -- the baseline, and
+   ep_moe, serve_tp, ssm_shard, zero1 and l4_ep_model where they apply --
+   lowered on ``meta`` by DR_WORKERS CPU processes (each cell's dominant
+   term, t_bound and memory a device printed; a failed cell fails the
+   phase); meanwhile on two ranks sharing the card over gloo
+   (``REPRO_RAGGED_A2A=dense``) three steps run for real -- [mesh-train]'s
+   qwen3-1.7b ZeRO-3 train step on (2, 1), [dist]'s llama4-scout EP decode
+   step and qwen3-1.7b's TP decode step with its KV cache on (1, 2) --
+   each recorded (``collective.record``) and held to the same case
+   lowered on ``Mesh.abstract`` in the same process: the same (op, bytes,
+   axes) calls, the same argument bytes; the TP decode's fp32 logits
+   within 1e-5 of one rank's and its greedy tokens equal; each step's
+   tracked peak printed beside ``torch.cuda.max_memory_allocated`` (no
+   gate); each rank's launches of the three steps (zeroed just before
+   each, read just after) join the kernels line's ``launches_by_run``;
 14. [time] each kernel at the decode-step shapes of the model it serves, and
    the two backward kernels at the training shapes (split-K on its
    tensor-core and FMA bodies), and ftimm_gemm at qwen3-1.7b's training
@@ -5475,7 +5491,7 @@ MT_ELASTIC = (12, 32, 8, "shard_loss@6:chips=1")   # steps, seq, batch, fault
 # qwen3-1.7b's depth in (a) / (b) and under ZeRO-1 (h): a ZeRO step stages
 # every parameter's fp32 gradient through gloo (23 GB at 28 layers, ~1 GB/s
 # on one card), and the whole script has a time limit.
-MT_QWEN_LAYERS = 4
+MT_QWEN_LAYERS = 2
 MT_ZERO1_LAYERS = 2
 # case -> (arch, (data, model), layers (None: all), compute dtype,
 # Trainer options); "a32" / "b32" / "h32": (a) / (b) / (h) at 2 layers in
@@ -6237,6 +6253,326 @@ def placed_phase(dev) -> tuple[dict, dict]:
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# [dryrun]: the production-mesh dry run -- every production cell on the
+# abstract 16 x 16 mesh, beside real steps held to their abstract twins
+# ---------------------------------------------------------------------------
+
+DR_RANKS = 2
+DR_TIMEOUT = 600            # seconds the spawned world may take in all
+DR_WORKERS = 8              # processes lowering the production cells
+DR_QWEN_LAYERS = 2          # qwen3-1.7b's depth in the real twins
+DR_L4_LAYERS = 2            # llama4-scout's depth in [dist]'s EP decode twin
+DR_TRAIN = (128, 8)         # (seq, batch) of the ZeRO-3 train twin
+DR_DECODE = (64, 4)         # (cache rows, rows) of the TP decode twin: 63
+                            # prompt tokens, the decoded token in the last row
+DR_TOL = 1e-5               # fp32 TP decode against one rank's
+# The variants lowered beside the baseline, each where it applies.
+DR_VARIANTS = {
+    "ep_moe": lambda cfg, shape: cfg.family == "moe",
+    "serve_tp": lambda cfg, shape: shape.kind != "train",
+    "ssm_shard": lambda cfg, shape: cfg.family in ("ssm", "hybrid"),
+    "zero1": lambda cfg, shape: shape.kind == "train",
+    "l4_ep_model": lambda cfg, shape: cfg.name == LLAMA4}
+
+
+def dr_qwen_train(mesh, dev) -> dict:
+    """[mesh-train]'s qwen3-1.7b ZeRO-3 (the dry run's baseline cell at
+    DR_QWEN_LAYERS layers, DR_TRAIN tokens), on ``mesh`` and ``dev``."""
+    from repro_torch.launch import dryrun as DR
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=DR_QWEN_LAYERS)
+    cell = DR.build_cell(cfg, ShapeConfig("dr_train", *DR_TRAIN, "train"),
+                         mesh, "baseline")
+    return {"state": cell.state, "dist": cell.dist,
+            "argument_size": cell.argument_size,
+            "run": lambda: cell.step(*cell.args)}
+
+
+def dr_qwen_decode(mesh, dev) -> dict:
+    """qwen3-1.7b decoding under TP with its KV cache, fp32 (the dry run's
+    serve_tp cell at DR_QWEN_LAYERS layers, DR_DECODE): ``pre`` prefills
+    the cache, ``run`` decodes the last row and returns the logits."""
+    from repro_torch.core import dist as DIST
+    from repro_torch.launch import dryrun as DR
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=DR_QWEN_LAYERS,
+                              compute_dtype="float32")
+    rows, b = DR_DECODE
+    cell = DR.build_cell(cfg, ShapeConfig("dr_decode", rows, b, "decode"),
+                         mesh, "serve_tp")
+    model, cache, tokens, pos = cell.args
+    prompts = torch.as_tensor(np.random.default_rng(27).integers(
+        2, cfg.vocab_size, (b, pos))).to(dev)
+
+    def pre():
+        with DIST.use_dist(cell.dist):
+            M.prefill(model, cfg, {"tokens": prompts}, cache)
+
+    return {"state": cell.state, "dist": cell.dist, "cfg": cfg,
+            "argument_size": cell.argument_size, "pre": pre,
+            "prompts": prompts, "tokens": tokens, "pos": pos,
+            "run": lambda: M.decode_step(model, cfg, tokens, cache, pos)[0]}
+
+
+def dr_llama4_decode(mesh, dev) -> dict:
+    """[dist]'s llama4-scout EP decode (experts over "model", the cache's
+    sequence over "model", the other weights whole) at DR_L4_LAYERS
+    layers: ``pre`` prefills, ``run`` decodes one step."""
+    from repro_torch.core import dist as DIST
+    from repro_torch.launch import sharding as SHARD
+    cfg = dataclasses.replace(_llama4_path_cfg("bf16"),
+                              num_layers=DR_L4_LAYERS)
+    ctx = DIST.DistContext(mesh, sp_decode=True,
+                           moe_ep_axis=SHARD.expert_axis(
+                               mesh, True, "model", cfg.num_experts))
+    model = M.init_params(cfg, 0, device=dev, dist=ctx)
+    with DIST.use_dist(ctx):
+        cache = M.make_cache(cfg, DIST_PROMPTS, DIST_MAX_LEN, device=dev)
+    prompts = _dist_prompts(cfg).to(dev)
+    tokens = prompts[:, -1:].clone()
+    state = [list(model.parameters()), cache, tokens]
+
+    def pre():
+        with DIST.use_dist(ctx):
+            M.prefill(model, cfg, {"tokens": prompts}, cache)
+
+    def run():
+        with DIST.use_dist(ctx):
+            return M.decode_step(model, cfg, tokens, cache,
+                                 DIST_PROMPT_LEN)[0]
+
+    from repro_torch.launch.dryrun import _unique_bytes
+    return {"state": state, "dist": None, "pre": pre, "run": run,
+            "argument_size": _unique_bytes(state) + 4}
+
+
+# case -> (builder, (data, model), kernels its step must launch)
+DR_CASES = {
+    "qwen-zero3-train": (dr_qwen_train, (2, 1),
+                         ("ftimm_gemm", "ftimm_gemm_swiglu",
+                          "ftimm_gemm_grouped")),
+    "llama4-ep-decode": (dr_llama4_decode, (1, 2),
+                         ("ftimm_gemm", "ftimm_gemm_grouped",
+                          "ftimm_gemm_ragged", "ftimm_gemm_ragged_swiglu")),
+    "qwen-tp-decode": (dr_qwen_decode, (1, 2),
+                       ("ftimm_gemm", "ftimm_gemm_swiglu",
+                        "ftimm_gemm_grouped"))}
+
+
+def dr_twin(case: str, dev, mesh) -> dict:
+    """One real case on this rank: its collectives recorded over the step
+    (the launch counts zeroed just before it and read just after), its
+    exact argument bytes and the card's peak over the step; then the same
+    case lowered on ``Mesh.abstract`` of the mesh's shape (``meta``, this
+    process's planner state) and held to it: the same (op, bytes, axes)
+    calls, the same argument bytes."""
+    from collections import Counter
+
+    from repro_torch.core import dist as DIST
+    from repro_torch.core.gemm import collective as COLL
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.dryrun import _unique_bytes
+    from repro_torch.launch.mesh import Mesh
+    build, shape, need = DR_CASES[case]
+    c = build(mesh, dev)
+    with torch.no_grad():
+        if "pre" in c:
+            c["pre"]()
+    real_bytes = _unique_bytes(c["state"])      # the card's storages
+    torch.cuda.synchronize(dev)
+    free_card()
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_launch_counts()
+    with DIST.use_dist(c["dist"]), COLL.record() as rec:
+        out = c["run"]()
+    torch.cuda.synchronize(dev)
+    launched = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    missing = [k for k in need if not launched.get(k)]
+    if missing:
+        raise AssertionError(f"[dryrun] {case}: no {missing} in the step "
+                             f"({launched})")
+    twin_mesh = Mesh.abstract(shape, ("data", "model"), device="meta",
+                              shared_device=True)
+    t = build(twin_mesh, torch.device("meta"))
+    run = DR.trace(t["run"], t["state"], t["dist"], count_flops=False)
+    mine = Counter((e.op, e.bytes, e.axis) for e in rec)
+    twin = Counter((e.op, e.bytes, e.axis) for e in run["entries"])
+    if mine != twin or not mine:
+        raise AssertionError(f"[dryrun] {case}: the real step recorded "
+                             f"{sorted(mine.items())}, its abstract twin "
+                             f"{sorted(twin.items())}")
+    if (t["argument_size"] != c["argument_size"]
+            or _unique_bytes(t["state"]) != real_bytes):
+        raise AssertionError(f"[dryrun] {case}: argument bytes "
+                             f"{c['argument_size']} ({real_bytes} in the "
+                             f"card's storages) real, {t['argument_size']} "
+                             "abstract")
+    by_op = {op: [sum(e.bytes for e in rec if e.op == op),
+                  sum(1 for e in rec if e.op == op)]
+             for op in sorted({e.op for e in rec})}
+    res = {"collectives": by_op, "argument_size": c["argument_size"],
+           "tracked_peak": t["argument_size"] + run["temp_size"],
+           "card_peak": peak, "launches": launched,
+           "abstract_s": run["seconds"]}
+    if case == "qwen-tp-decode":
+        res.update(dr_hold_decode(c, out, dev))
+    return res
+
+
+def dr_hold_decode(c: dict, logits, dev) -> dict:
+    """The TP decode's logits and greedy tokens against one rank's decode
+    of the same weights (the same draw, whole) and prompts."""
+    cfg = c["cfg"]
+    with torch.no_grad():
+        model = M.init_params(cfg, 0, device=dev, dtype=cfg.param_dtype)
+        model.requires_grad_(False)
+        cache = M.make_cache(cfg, c["prompts"].shape[0], DR_DECODE[0],
+                             device=dev)
+        M.prefill(model, cfg, {"tokens": c["prompts"]}, cache)
+        want = M.decode_step(model, cfg, c["tokens"], cache, c["pos"])[0]
+    err = rel_err(logits.float(), want.float())[0]
+    same = bool((logits.argmax(-1) == want.argmax(-1)).all())
+    del model, cache
+    free_card()
+    if err > DR_TOL or not same:
+        raise AssertionError(f"[dryrun] qwen-tp-decode: logits {err:.2e} "
+                             f"from one rank's, greedy equal {same}")
+    return {"logits_rel_err": err, "greedy_equal": same}
+
+
+def dr_rank(rank: int, device: str, store: str, work: str, out_q) -> None:
+    """One rank of the [dryrun] world: each real case against its twin."""
+    import traceback
+
+    import torch.distributed as tdist
+    from repro_torch.launch.mesh import make_mesh
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        os.environ["REPRO_RAGGED_A2A"] = "dense"
+        dev = torch.device(device)
+        torch.cuda.set_device(dev)
+        torch.zeros(1, device=dev)
+        tdist.init_process_group("gloo", init_method=f"file://{store}",
+                                 rank=rank, world_size=DR_RANKS)
+        meshes = {shape: make_mesh(shape, ("data", "model"), backend="gloo",
+                                   device=dev)
+                  for shape in sorted({s for _, s, _ in DR_CASES.values()})}
+        res = {}
+        for case, (_, shape, _) in DR_CASES.items():
+            t0 = time.monotonic()
+            res[case] = dr_twin(case, dev, meshes[shape])
+            res[case]["seconds"] = time.monotonic() - t0
+            free_card()
+        out_q.put(("ok", rank, res))
+    except BaseException:       # noqa: BLE001 -- reported, and the phase fails
+        out_q.put(("error", rank, traceback.format_exc()))
+    finally:
+        if "tdist" in locals() and tdist.is_initialized():
+            tdist.destroy_process_group()
+
+
+def dr_cells() -> list[tuple[str, str, str]]:
+    """Every --all cell on pod16x16 under the baseline, and under each of
+    DR_VARIANTS where it applies; the costliest first."""
+    from repro_torch.configs import SHAPES, list_archs
+    cells = []
+    for arch in list_archs():
+        cfg = get_config(arch)
+        for name, shape in SHAPES.items():
+            cells.append((arch, name, "baseline"))
+            cells += [(arch, name, v) for v, applies in DR_VARIANTS.items()
+                      if applies(cfg, shape)]
+    cost = {"train": 0, "prefill": 1, "decode": 2}
+    return sorted(cells, key=lambda c: (cost[SHAPES[c[1]].kind],
+                                        -get_config(c[0]).num_layers))
+
+
+def dr_cell(cell: tuple) -> dict:
+    """One production cell (a worker of the [dryrun] pool): its status,
+    dominant term, bound and memory a device."""
+    import traceback
+
+    from repro_torch.launch import dryrun as DR
+    torch.set_num_threads(1)
+    arch, shape, variant = cell
+    t0 = time.monotonic()
+    try:
+        r = DR.run_cell(arch, shape, variant=variant, save=False,
+                        count_flops=False)
+    except Exception:   # noqa: BLE001 -- a failed cell fails the phase
+        return {"cell": DR.cell_name(arch, shape, False, variant),
+                "status": "failed", "error": traceback.format_exc()[-2000:]}
+    out = {"cell": r["cell"], "status": r["status"],
+           "seconds": time.monotonic() - t0}
+    if r["status"] == "ok":
+        roof = r["roofline"]
+        out.update(dominant=roof["dominant"], t_bound=roof["t_bound"],
+                   t_compute=roof["t_compute"], t_memory=roof["t_memory"],
+                   t_collective=roof["t_collective"],
+                   peak_memory=r["memory"]["peak_memory"],
+                   argument_size=r["memory"]["argument_size"],
+                   coll_by_type=roof["coll_by_type"])
+    else:
+        out["reason"] = r["reason"]
+    return out
+
+
+def dryrun_phase(dev) -> tuple[dict, dict]:
+    """[dryrun]: every production cell lowered by a pool of DR_WORKERS
+    processes on the CPU (``meta``: nothing allocated) while the real twins
+    run on DR_RANKS ranks sharing the card over gloo.  -> (the phase's
+    figures, each rank's launches of the twins' steps)."""
+    import multiprocessing as mp
+    import tempfile
+    t_phase = time.monotonic()
+    cells = dr_cells()
+    # The pool lowers the cells on the CPU while the twins' ranks run on
+    # the card: the phase takes about the longer of the two.
+    with mp.get_context("spawn").Pool(DR_WORKERS) as pool:
+        pending = pool.map_async(dr_cell, cells, chunksize=1)
+        t0 = time.monotonic()
+        with tempfile.TemporaryDirectory(prefix="dryrun_") as tmp:
+            ranks = spawn_world(dr_rank, "dryrun", Path(tmp), dev,
+                                DR_TIMEOUT, ranks=DR_RANKS)
+        twins_s = time.monotonic() - t0
+        lowered = pending.get(timeout=DR_TIMEOUT)
+    cells_s = time.monotonic() - t_phase
+    failed = [c for c in lowered if c["status"] == "failed"]
+    for c in lowered:
+        if c["status"] == "ok":
+            log(f"  [ok {c['seconds']:.1f}s] {c['cell']} "
+                f"dominant={c['dominant']} t_bound={c['t_bound']:.3e}s "
+                f"mem/dev={c['peak_memory'] / 2**30:.2f}GiB")
+        elif c["status"] == "skipped":
+            log(f"  [skipped] {c['cell']}: {c['reason']}")
+    if failed:
+        raise AssertionError("[dryrun] failed cells:\n" + "\n".join(
+            f"{c['cell']}: {c['error']}" for c in failed))
+    counts = {s: sum(c["status"] == s for c in lowered)
+              for s in ("ok", "skipped", "failed")}
+    log(f"  done: {counts['ok']} ok, {counts['skipped']} skipped, "
+        f"{counts['failed']} failed ({cells_s:.1f} s, {DR_WORKERS} "
+        f"processes; the twins {twins_s:.1f} s beside them)")
+    launches = {}
+    for r, res in enumerate(ranks):
+        for case, c in res.items():
+            launches[(f"dryrun rank {r}", case)] = c.pop("launches")
+            log(f"  rank {r} {case}: collectives (bytes, count) by op "
+                f"{c['collectives']} = its abstract twin's; argument "
+                f"{c['argument_size']} B both; tracked peak "
+                f"{c['tracked_peak'] / 2**20:.1f} MiB, card peak "
+                f"{c['card_peak'] / 2**20:.1f} MiB (ratio "
+                f"{c['tracked_peak'] / c['card_peak']:.2f})"
+                + (f"; logits {c['logits_rel_err']:.2e} from one rank's"
+                   if "logits_rel_err" in c else ""))
+    out = {"cells": lowered, "counts": counts, "twins": ranks,
+           "seconds": {"cells": cells_s, "twins": twins_s,
+                       "phase": time.monotonic() - t_phase}}
+    log(f"  [dryrun] phase {out['seconds']['phase']:.1f} s")
+    log(json.dumps({"dryrun": out}))
+    return out, launches
+
+
 def check_not_degraded(phase: str) -> None:
     """A phase other than [chaos] must end with no degraded serving: a real
     fused-kernel failure may not hide behind the rung."""
@@ -6537,6 +6873,17 @@ def main() -> int:
     check_not_degraded("placed")
 
     t0 = time.monotonic()
+    log("[dryrun] the production-mesh dry run: every cell on the abstract "
+        "16 x 16 mesh, and real steps on two ranks against their abstract "
+        "twins")
+    free_card()
+    dryrun, dr_launches = dryrun_phase(dev)
+    launches.update(dr_launches)
+    phases["dryrun"] = time.monotonic() - t0
+    log(f"[dryrun] done in {phases['dryrun']:.1f} s")
+    check_not_degraded("dryrun")
+
+    t0 = time.monotonic()
     log("[roofline] the perf model's bound for every profiled decode step")
     profiled = {**recurrent["serve"], **families, **archs["serve"],
                 f"{LLAMA4}-w8": quant["serving"]["w8"]}
@@ -6571,7 +6918,7 @@ def main() -> int:
                     "quant": quant, "archs": archs, "train_dots": dots,
                     "chaos": chaos_out, "contracts": contracts_out,
                     "dist": dist_out, "mesh_train": mesh_train,
-                    "placed": placed,
+                    "placed": placed, "dryrun": dryrun,
                     "roofline": roofline, "phases_s": phases}))
     log(card)
     bodies = {("serve", a): stats[a]["bodies"] for a in stats}

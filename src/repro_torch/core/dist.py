@@ -44,7 +44,9 @@ class DistContext:
     launchers (GSPMD layout hints with no eager counterpart).
     ``sharded_params`` (the port's own): the parameters are this rank's
     ``param_specs`` blocks and the rows are cut over the data axes, as the
-    trainer lays them out."""
+    trainer lays them out -- unless ``batch_cut`` is False: a batch whose
+    rows the data axes do not divide, which ``batch_specs`` leaves whole
+    on every rank (the dry run's one-row long-context decode)."""
     mesh: Mesh
     dp_axes: tuple[str, ...] = ("data",)
     model_axis: str = "model"
@@ -55,6 +57,7 @@ class DistContext:
     rms_bf16: bool = False
     sp_inputs: bool = False
     sharded_params: bool = False
+    batch_cut: bool = True
 
     @property
     def dp_size(self) -> int:
@@ -80,7 +83,7 @@ class DistContext:
     def rows_cut(self) -> bool:
         """Whether the ranks of the data axes hold different rows (the
         trainer's batch cut) rather than the same ones."""
-        return self.sharded_params and self.dp_size > 1
+        return self.sharded_params and self.batch_cut and self.dp_size > 1
 
 
 _CURRENT: DistContext | None = None

@@ -70,10 +70,32 @@ the gradient over the axes in fp32 and keeps this rank's block (a reduce-
 scatter; under gloo the all-reduce and a narrow, as ``raw_reduce_scatter``).
 ``gather``'s backward, which only slices, is right where every rank of the
 axis computed on the same rows and wrong here.
+
+**The record** (``record``): every raw collective and ``zero_gather``,
+forward and backward, adds one ``Collective`` to each open record -- the
+logical op under the reference's HLO names ("all-gather", "all-reduce",
+"reduce-scatter", "all-to-all", "collective-permute"), its result-tensor
+bytes, the axes, and the call site (the module and function that asked,
+with the layer index where a stack loop ran it; " bwd" for a backward).
+It records what the executor asked for, not how the transport realized
+it: gloo's all-reduce and narrow is a "reduce-scatter".  A collective
+over one rank moves nothing and is not recorded (XLA drops it too).
+
+**An abstract mesh** (``Mesh.abstract``: no groups) has no other rank to
+talk to: every raw collective records its call and returns the result it
+would have if every rank were this rank's twin (an all-gather repeats the
+block, a sum multiplies by the axis size, a permute returns its input), in
+the right shape, dtype and device -- on ``meta`` tensors, shapes only.
+The dry run (``launch.dryrun``) runs rank 0's step this way.  There
+``exchange_method`` is "dense": no probe can run, and the primitive
+exchange's split sizes would need a device -> host read.
 """
 from __future__ import annotations
 
+import contextlib
 import os
+import sys
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -100,12 +122,94 @@ def counts() -> dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
+# The record of logical collectives
+# ---------------------------------------------------------------------------
+
+OPS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+       "collective-permute")
+
+
+@dataclass(frozen=True)
+class Collective:
+    """One collective an executor asked for: the logical ``op`` (one of
+    ``OPS``), the ``bytes`` of its result tensor, the mesh ``axis`` names
+    and the call ``site``."""
+    op: str
+    bytes: int
+    axis: tuple
+    site: str
+
+
+_RECORDS: list[list] = []
+_HERE = {__file__, __file__.replace("collective.py", "distributed.py")}
+
+
+@contextlib.contextmanager
+def record():
+    """Collect every collective issued inside the block: yields the list
+    the ``Collective`` entries are appended to (records nest)."""
+    entries: list[Collective] = []
+    _RECORDS.append(entries)
+    try:
+        yield entries
+    finally:
+        _RECORDS.remove(entries)
+
+
+def _site() -> str:
+    """The module and function of the first frame of the port outside this
+    layer, with the stack loop's ``layer`` index when one is on the
+    stack."""
+    f = sys._getframe(2)
+    where, layer = None, None
+    while f is not None:
+        mod = f.f_globals.get("__name__", "")
+        if where is None and mod.startswith("repro_torch.") and (
+                f.f_code.co_filename not in _HERE):
+            where = f"{mod[len('repro_torch.'):]}.{f.f_code.co_name}"
+        if where is not None and mod == "repro_torch.models.transformer":
+            v = f.f_locals.get("layer")
+            if isinstance(v, int):
+                layer = v
+                break
+        f = f.f_back
+    where = where or "?"
+    return where if layer is None else f"{where} [layer {layer}]"
+
+
+def _note(op: str, nbytes: int, mesh, axis, site: str | None = None) -> None:
+    """Add one entry to every open record (a one-rank axis moves nothing
+    and adds none)."""
+    if not _RECORDS or mesh.axis_size(axis) <= 1:
+        return
+    entry = Collective(op, int(nbytes), mesh.axes(axis), site or _site())
+    for entries in _RECORDS:
+        entries.append(entry)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def current_site() -> str | None:
+    """The call site a collective issued now would record (None when no
+    record is open): what an autograd function keeps for its backward."""
+    return _site() if _RECORDS else None
+
+
+def _bwd(site: str | None) -> str | None:
+    return None if site is None else site + " bwd"
+
+
+# ---------------------------------------------------------------------------
 # Groups, staging and the raw collectives
 # ---------------------------------------------------------------------------
 
 def axis_info(mesh, axis) -> tuple:
-    """(process group, axis size nc, this rank's index s) of ``axis``."""
-    return mesh.group(axis), mesh.axis_size(axis), mesh.axis_index(axis)
+    """(process group -- None on an abstract mesh --, axis size nc, this
+    rank's index s) of ``axis``."""
+    group = None if mesh.is_abstract else mesh.group(axis)
+    return group, mesh.axis_size(axis), mesh.axis_index(axis)
 
 
 def _staged(mesh, t: torch.Tensor) -> torch.Tensor:
@@ -132,8 +236,9 @@ def _peer(group, s: int) -> int:
     return dist.get_global_rank(group, s)
 
 
-def raw_all_gather(x: torch.Tensor, mesh, axis, dim: int = 0) -> torch.Tensor:
-    """The axis's blocks of ``x`` concatenated along ``dim`` in rank order."""
+def _all_gather(x: torch.Tensor, mesh, axis, dim: int = 0) -> torch.Tensor:
+    if mesh.is_abstract:
+        return torch.cat([x] * mesh.axis_size(axis), dim=dim)
     group, nc, _ = axis_info(mesh, axis)
     w = _staged(mesh, x)
     parts = [torch.empty_like(w) for _ in range(nc)]
@@ -141,9 +246,9 @@ def raw_all_gather(x: torch.Tensor, mesh, axis, dim: int = 0) -> torch.Tensor:
     return _home(torch.cat(parts, dim=dim), x.device)
 
 
-def raw_all_reduce(x: torch.Tensor, mesh, axis, op: str = "sum"
-                   ) -> torch.Tensor:
-    """A new tensor: ``x`` reduced over the axis ("sum" | "max")."""
+def _all_reduce(x: torch.Tensor, mesh, axis, op: str = "sum") -> torch.Tensor:
+    if mesh.is_abstract:
+        return x * mesh.axis_size(axis) if op == "sum" else x.clone()
     group = mesh.group(axis)
     w = _staged(mesh, x)
     w = w.clone() if w is x else w
@@ -152,25 +257,45 @@ def raw_all_reduce(x: torch.Tensor, mesh, axis, op: str = "sum"
     return _home(w, x.device)
 
 
-def raw_reduce_scatter(x: torch.Tensor, mesh, axis) -> torch.Tensor:
+def raw_all_gather(x: torch.Tensor, mesh, axis, dim: int = 0, *,
+                   site: str | None = None) -> torch.Tensor:
+    """The axis's blocks of ``x`` concatenated along ``dim`` in rank order."""
+    _note("all-gather", _nbytes(x) * mesh.axis_size(axis), mesh, axis, site)
+    return _all_gather(x, mesh, axis, dim)
+
+
+def raw_all_reduce(x: torch.Tensor, mesh, axis, op: str = "sum", *,
+                   site: str | None = None) -> torch.Tensor:
+    """A new tensor: ``x`` reduced over the axis ("sum" | "max")."""
+    _note("all-reduce", _nbytes(x), mesh, axis, site)
+    return _all_reduce(x, mesh, axis, op)
+
+
+def raw_reduce_scatter(x: torch.Tensor, mesh, axis, *,
+                       site: str | None = None) -> torch.Tensor:
     """Rank s's block (rows [s T/nc, (s+1) T/nc)) of ``x`` summed over the
     axis."""
-    group, nc, s = axis_info(mesh, axis)
+    _, nc, s = axis_info(mesh, axis)
     tl = x.shape[0] // nc
+    _note("reduce-scatter", _nbytes(x) // nc, mesh, axis, site)
     if mesh.backend == "nccl":
         out = torch.empty((tl,) + tuple(x.shape[1:]), dtype=x.dtype,
                           device=x.device)
-        dist.reduce_scatter_tensor(out, x.contiguous(), group=group)
+        dist.reduce_scatter_tensor(out, x.contiguous(), group=mesh.group(axis))
         return out
-    return raw_all_reduce(x, mesh, axis).narrow(0, s * tl, tl).clone()
+    return _all_reduce(x, mesh, axis).narrow(0, s * tl, tl).clone()
 
 
-def raw_ppermute(tensors, mesh, axis, shift: int = 1) -> list:
+def raw_ppermute(tensors, mesh, axis, shift: int = 1, *,
+                 site: str | None = None) -> list:
     """Each tensor sent to rank (s + shift) mod nc and its counterpart
     received from (s - shift) mod nc, all in one ``batch_isend_irecv``."""
-    group, nc, s = axis_info(mesh, axis)
-    if nc == 1:
+    _, nc, s = axis_info(mesh, axis)
+    for t in tensors:
+        _note("collective-permute", _nbytes(t), mesh, axis, site)
+    if nc == 1 or mesh.is_abstract:
         return [t.clone() for t in tensors]
+    group = mesh.group(axis)
     dst, src = _peer(group, (s + shift) % nc), _peer(group, (s - shift) % nc)
     sends = [_staged(mesh, t) for t in tensors]
     recvs = [torch.empty_like(w) for w in sends]
@@ -182,20 +307,34 @@ def raw_ppermute(tensors, mesh, axis, shift: int = 1) -> list:
 
 
 def raw_all_to_all(x: torch.Tensor, send: list[int], recv: list[int],
-                   out_rows: int, mesh, axis) -> torch.Tensor:
+                   out_rows: int, mesh, axis, *,
+                   site: str | None = None) -> torch.Tensor:
     """Rows x[:sum(send)] shipped in rank order by ``send`` counts; the
     received rows, ``recv`` counts from each rank in rank order, land at
     [0, sum(recv)) of a zero (out_rows, ...) buffer."""
+    row = _nbytes(x[:1]) if x.shape[0] else 0
+    _note("all-to-all", row * sum(recv), mesh, axis, site)
+    out = torch.zeros((out_rows,) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    if mesh.is_abstract:
+        return out
     group = mesh.group(axis)
     w = _staged(mesh, x[:sum(send)])
     got = torch.empty((sum(recv),) + tuple(x.shape[1:]), dtype=x.dtype,
                       device=w.device)
     dist.all_to_all_single(got, w, output_split_sizes=list(recv),
                            input_split_sizes=list(send), group=group)
-    out = torch.zeros((out_rows,) + tuple(x.shape[1:]), dtype=x.dtype,
-                      device=x.device)
     out[:sum(recv)] = _home(got, x.device)
     return out
+
+
+def agree_max(flag: int, mesh, axis) -> int:
+    """The largest of every rank's ``flag`` over the axis (one all-reduce
+    and one device -> host read of its result; on an abstract mesh every
+    rank is this one's twin, so its own flag, and no read)."""
+    t = torch.tensor([flag], dtype=torch.int32, device=mesh.device)
+    out = raw_all_reduce(t, mesh, axis, "max")
+    return flag if mesh.is_abstract else int(out.item())
 
 
 # ---------------------------------------------------------------------------
@@ -216,30 +355,34 @@ class _Shard(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis, dim):
         ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        ctx.site = current_site()
         _, nc, s = axis_info(mesh, axis)
         return _block(x, nc, s, dim).clone()
 
     @staticmethod
     def backward(ctx, g):
-        return raw_all_gather(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+        return (raw_all_gather(g, ctx.mesh, ctx.axis, ctx.dim,
+                               site=_bwd(ctx.site)), None, None, None)
 
 
 class _Replicate(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis):
         ctx.mesh, ctx.axis = mesh, axis
+        ctx.site = current_site()
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return raw_all_reduce(g, ctx.mesh, ctx.axis), None, None
+        return (raw_all_reduce(g, ctx.mesh, ctx.axis, site=_bwd(ctx.site)),
+                None, None)
 
 
 class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis, dim):
         ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
-        return raw_all_gather(x, mesh, axis, dim)
+        return raw_all_gather(x, mesh, axis, dim, site=current_site())
 
     @staticmethod
     def backward(ctx, g):
@@ -250,7 +393,7 @@ class _Gather(torch.autograd.Function):
 class _ReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis):
-        return raw_all_reduce(x, mesh, axis)
+        return raw_all_reduce(x, mesh, axis, site=current_site())
 
     @staticmethod
     def backward(ctx, g):
@@ -261,40 +404,53 @@ class _ReduceScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis):
         ctx.mesh, ctx.axis = mesh, axis
-        return raw_reduce_scatter(x, mesh, axis)
+        ctx.site = current_site()
+        return raw_reduce_scatter(x, mesh, axis, site=ctx.site)
 
     @staticmethod
     def backward(ctx, g):
-        return raw_all_gather(g.contiguous(), ctx.mesh, ctx.axis), None, None
+        return (raw_all_gather(g.contiguous(), ctx.mesh, ctx.axis,
+                               site=_bwd(ctx.site)), None, None)
 
 
 class _PPermute(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis, shift):
         ctx.mesh, ctx.axis, ctx.shift = mesh, axis, shift
-        return raw_ppermute([x], mesh, axis, shift)[0]
+        ctx.site = current_site()
+        return raw_ppermute([x], mesh, axis, shift, site=ctx.site)[0]
 
     @staticmethod
     def backward(ctx, g):
         return (raw_ppermute([g.contiguous()], ctx.mesh, ctx.axis,
-                             -ctx.shift)[0], None, None, None)
+                             -ctx.shift, site=_bwd(ctx.site))[0],
+                None, None, None)
 
 
 class _ZeroGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, p, mesh, axis, dim, dtype):
         ctx.mesh, ctx.axis, ctx.dim, ctx.in_dtype = mesh, axis, dim, p.dtype
+        ctx.site = current_site()
         w = p.to(dtype)
         if dim is None:
             return w.view_as(w)
-        return raw_all_gather(w, mesh, axis, dim)
+        return raw_all_gather(w, mesh, axis, dim, site=ctx.site)
 
     @staticmethod
     def backward(ctx, g):
-        g = raw_all_reduce(g.to(torch.float32), ctx.mesh, ctx.axis)
-        if ctx.dim is not None:
-            _, nc, s = axis_info(ctx.mesh, ctx.axis)
-            g = _block(g, nc, s, ctx.dim).contiguous()
+        g = g.to(torch.float32)
+        mesh, axis = ctx.mesh, ctx.axis
+        if ctx.dim is None:
+            g = raw_all_reduce(g, mesh, axis, site=_bwd(ctx.site))
+        else:
+            # A reduce-scatter of the gradient (realized as the sum and
+            # this rank's block of it).
+            _, nc, s = axis_info(mesh, axis)
+            _note("reduce-scatter", _nbytes(g) // nc, mesh, axis,
+                  _bwd(ctx.site))
+            g = _block(_all_reduce(g, mesh, axis), nc, s,
+                       ctx.dim).contiguous()
         return g.to(ctx.in_dtype), None, None, None, None
 
 
@@ -477,8 +633,7 @@ def _primitive_probe_ok(mesh, axis) -> bool:
         bad = 0 if torch.equal(back, x_l) else 1
     except RuntimeError:
         bad = 1
-    flag = torch.tensor([bad], dtype=torch.int32, device=dev)
-    return int(raw_all_reduce(flag, mesh, axis, "max").item()) == 0
+    return agree_max(bad, mesh, axis) == 0
 
 
 _METHODS: dict = {}
@@ -494,11 +649,12 @@ def exchange_method(mesh, axis) -> str:
     """"primitive" when ``all_to_all_single`` passes the round-trip probe
     on this mesh's axis, "dense" otherwise; ``REPRO_RAGGED_A2A`` overrides
     ("dense": no probe; "primitive": a failed probe raises).  The verdict
-    is kept per (mesh, axis, setting)."""
+    is kept per (mesh, axis, setting).  An abstract mesh takes "dense" (no
+    probe can run there)."""
     env = os.environ.get(ENV_A2A, "auto")
     key = (mesh, mesh.axes(axis), env)
     if key not in _METHODS:
-        if env == "dense":
+        if env == "dense" or mesh.is_abstract:
             method = "dense"
         else:
             ok = _primitive_probe_ok(mesh, axis)

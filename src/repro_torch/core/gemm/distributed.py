@@ -181,8 +181,11 @@ def dist_batched_matmul(a: torch.Tensor, b: torch.Tensor, *, mesh,
 def _serial(mesh, axis) -> int:
     """How many of the axis's ranks share one device: all of them on the
     CPU or on one GPU (their local products serialize, as the reference's
-    fake CPU devices do), else 1."""
+    fake CPU devices do), else 1; an abstract mesh says which it stands
+    for (``shared_device``)."""
     nc = mesh.axis_size(axis)
+    if mesh.is_abstract:
+        return nc if mesh.shared_device else 1
     if mesh.device.type != "cuda":
         return nc
     return nc if torch.cuda.device_count() < mesh.size else 1
@@ -336,9 +339,7 @@ def _agreed_fault(site: str, mesh, axis) -> BaseException | None:
         _chaos.fire(site)
     except Exception as e:      # noqa: BLE001 -- any fault moves the rung
         err = e
-    flag = torch.tensor([0 if err is None else 1], dtype=torch.int32,
-                        device=mesh.device)
-    if int(C.raw_all_reduce(flag, mesh, axis, "max").item()) == 0:
+    if C.agree_max(0 if err is None else 1, mesh, axis) == 0:
         return None
     return err or _chaos.CollectiveFailure(f"{site} failed on a peer rank")
 

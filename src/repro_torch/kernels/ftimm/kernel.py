@@ -47,6 +47,19 @@ CPU tensor takes the plain version (the ``*_plain`` functions here, built on
 ``ref``), a CUDA tensor launches the kernel or raises -- there is no path on
 which a CUDA tensor quietly takes the plain version.  Each successful launch
 adds one to that kernel's count (``launch_counts``), and nothing else does.
+
+A ``meta`` tensor (the production-mesh dry run, ``launch.dryrun``: shapes,
+no storage) takes the plain version too, which on ``meta`` computes no
+value and moves no byte, rather than a shape function for each of the
+eight entries: the plain version's output shape and dtype are the
+kernel's by construction (the tests hold them to each other), so no
+second statement of them can drift, and its products are ``torch``
+operations that ``FlopCounterMode`` counts.  What that costs: the
+operands' fp32 copies and the ragged products' group-by-group masked
+passes of the plain versions show in the dry run's tracked temporaries
+and FLOP count, which therefore exceed the kernels' (``launch.dryrun``).
+No plain version reads a value to the host (the ragged ones read their
+offsets on the device), so none needs a bound on ``meta``.
 """
 from __future__ import annotations
 
@@ -70,6 +83,8 @@ KERNELS = ("ftimm_gemm", "ftimm_gemm_swiglu", "ftimm_gemm_grouped",
            "ftimm_gemm_ragged_swiglu", "ftimm_gemm_ragged_dw",
            "ftimm_gemm_splitk")
 CSRC = Path(__file__).with_name("csrc")
+# The devices whose tensors take the plain versions (no kernel launch).
+PLAIN_DEVICES = ("cpu", "meta")
 BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "ftimm"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -892,7 +907,7 @@ def ftimm_gemm(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int, bk: int,
     allow (``gemm_bodies``) raises."""
     m, k, n = mkn(trans, a.shape, b.shape)
     out_dtype = out_dtype or a.dtype
-    if a.device.type == "cpu":
+    if a.device.type in PLAIN_DEVICES:
         return ftimm_gemm_plain(a, b, trans=trans, out_dtype=out_dtype,
                                 epilogue=epilogue, bias=bias,
                                 residual=residual, scale=scale)
@@ -975,7 +990,7 @@ def ftimm_gemm_swiglu(x: torch.Tensor, w_gate: torch.Tensor,
         raise ValueError(f"swiglu shapes {tuple(x.shape)} x "
                          f"{tuple(w_gate.shape)} / {tuple(w_up.shape)}")
     out_dtype = out_dtype or x.dtype
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return ftimm_gemm_swiglu_plain(x, w_gate, w_up, out_dtype=out_dtype)
     name = "ftimm_gemm_swiglu"
     types = _cuda_operands(name, x, w_gate, out_dtype, w_up)
@@ -1074,7 +1089,7 @@ def ftimm_gemm_grouped(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int,
     m, k, n = mkn(trans, a.shape[-2:], b.shape[-2:])
     out_dtype = out_dtype or a.dtype
     check_vectors(epilogue, bias, scale, n, g)
-    if a.device.type == "cpu":
+    if a.device.type in PLAIN_DEVICES:
         return ftimm_gemm_grouped_plain(a, b, trans=trans, out_dtype=out_dtype,
                                         epilogue=epilogue, bias=bias,
                                         residual=residual, scale=scale)
@@ -1151,7 +1166,7 @@ def ftimm_gemm_grouped_swiglu(x: torch.Tensor, w_gate: torch.Tensor,
     g, k, n = w_gate.shape
     m = x.shape[-2]
     out_dtype = out_dtype or x.dtype
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return ftimm_gemm_grouped_swiglu_plain(x, w_gate, w_up,
                                                out_dtype=out_dtype)
     name = "ftimm_gemm_grouped_swiglu"
@@ -1259,7 +1274,7 @@ def ftimm_gemm_ragged(x: torch.Tensor, w: torch.Tensor,
     g = w.shape[0]
     out_dtype = out_dtype or x.dtype
     check_vectors(epilogue, bias, scale, n, g)
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return ftimm_gemm_ragged_plain(x, w, group_offsets, trans=trans,
                                        out_dtype=out_dtype, epilogue=epilogue,
                                        bias=bias, scale=scale)
@@ -1326,7 +1341,7 @@ def ftimm_gemm_ragged_swiglu(x: torch.Tensor, w_gate: torch.Tensor,
                          f"{tuple(w_up.shape)}")
     g = w_gate.shape[0]
     out_dtype = out_dtype or x.dtype
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return ftimm_gemm_ragged_swiglu_plain(x, w_gate, w_up, group_offsets,
                                               out_dtype=out_dtype)
     name = "ftimm_gemm_ragged_swiglu"
@@ -1396,7 +1411,7 @@ def ftimm_gemm_ragged_dw(x: torch.Tensor, dy: torch.Tensor,
     (t, d), f = x.shape, dy.shape[1]
     g = group_offsets.shape[0] - 1
     out_dtype = out_dtype or x.dtype
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return ftimm_gemm_ragged_dw_plain(x, dy, group_offsets,
                                           out_dtype=out_dtype)
     types = _cuda_operands("ftimm_gemm_ragged_dw", x, dy, out_dtype,
@@ -1465,7 +1480,7 @@ def ftimm_gemm_splitk(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int,
     out_dtype = out_dtype or a.dtype
     if nsplit < 1:
         raise ValueError(f"nsplit must be >= 1, got {nsplit}")
-    if a.device.type == "cpu":
+    if a.device.type in PLAIN_DEVICES:
         return ftimm_gemm_splitk_plain(a, b, bk=bk, nsplit=nsplit,
                                        trans=trans, out_dtype=out_dtype,
                                        epilogue=epilogue, bias=bias,

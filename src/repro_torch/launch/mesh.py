@@ -28,10 +28,12 @@ with its address, world size and rank); ``make_mesh`` only builds the
 groups over it, or over its first ranks (``mesh_from_plan``, the elastic
 re-mesh: the survivors' mesh, whose groups every rank of the world builds
 before the others leave).  An ``abstract`` mesh has shape and names and no
-groups: the sharding rules (``launch.sharding``) read nothing else.  The
-reference's ``make_production_mesh`` (512 devices) is not ported here: it
-comes with the lowering of a production step (ROADMAP Queue 1 item 10.5,
-slice 17).
+groups: the sharding rules (``launch.sharding``) read nothing else, and on
+it the collectives (``core.gemm.collective``) record each call and return
+a result of the right shape without moving data, every other rank taken
+for this one's twin -- the production-mesh dry run (``launch.dryrun``)
+runs rank 0's step on one (``make_production_mesh``: the reference's
+16 x 16 and 2 x 16 x 16 meshes).
 """
 from __future__ import annotations
 
@@ -51,20 +53,31 @@ class Mesh:
     this rank's ``coords`` {axis: index}, the ``backend`` ("nccl" | "gloo")
     and ``transport`` ("device" | "host") of its groups, and ``device``,
     where this rank's tensors live.  Built by ``make_mesh`` (with groups)
-    or ``abstract`` (without)."""
+    or ``abstract`` (without; ``shared_device``: whether its ranks stand
+    for ranks that share one device, which the EP schedule reads)."""
     shape: dict
     coords: dict
     backend: str | None = None
     transport: str | None = None
     device: torch.device = field(default_factory=lambda: torch.device("cpu"))
+    shared_device: bool = False
     _groups: dict = field(default_factory=dict, repr=False)
 
     @classmethod
-    def abstract(cls, shape: tuple[int, ...], axes: tuple[str, ...]) -> "Mesh":
-        """A mesh of ``shape`` over ``axes`` with no process group: what
-        the sharding rules need, and no world."""
+    def abstract(cls, shape: tuple[int, ...], axes: tuple[str, ...], *,
+                 device: str | torch.device = "cpu",
+                 shared_device: bool = False) -> "Mesh":
+        """A mesh of ``shape`` over ``axes`` with no process group, seen
+        from the rank at coordinate 0 on every axis: what the sharding
+        rules need, and no world.  ``device``: where its tensors live
+        ("meta" for the dry run: shapes only)."""
         _check_shape(shape, axes)
-        return cls(dict(zip(axes, shape)), dict.fromkeys(axes, 0))
+        return cls(dict(zip(axes, shape)), dict.fromkeys(axes, 0),
+                   device=torch.device(device), shared_device=shared_device)
+
+    @property
+    def is_abstract(self) -> bool:
+        return self.backend is None
 
     @property
     def axis_names(self) -> tuple[str, ...]:
@@ -210,6 +223,18 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,
     for a in list(axes) + [tuple(axes)]:    # every rank builds them now
         mesh.group(a)
     return mesh if member else None
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: str | torch.device = "meta") -> Mesh:
+    """The reference's production mesh as an abstract mesh (no world, no
+    groups): 16 x 16 = 256 ranks over ("data", "model"), or with
+    ``multi_pod`` 2 x 16 x 16 = 512 over ("pod", "data", "model") -- the
+    pod axis joins the data axes.  Its tensors live on ``device`` (the
+    dry run's "meta")."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return Mesh.abstract(shape, axes, device=device)
 
 
 def mesh_from_plan(plan, *, backend: str | None = None,

@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -203,9 +204,10 @@ def batch_specs(cfg, batch_shape, mesh: Mesh):
     return _map_with_path(per_leaf, batch_shape)
 
 
-def cache_specs(cfg, cache_shape, mesh: Mesh):
-    """Decode / prefill cache: B over dp, the sequence over model
-    (K-parallel), the SSM head dim over model."""
+def reference_cache_specs(cfg, cache_shape, mesh: Mesh):
+    """The reference's decode / prefill cache specs: B over dp, the
+    sequence over model (K-parallel; the cross K / V's encoder rows too),
+    the SSM state's head dim and the conv window's channels over model."""
     dp = dp_axes(mesh) or None
 
     def walk(names, leaf):
@@ -222,6 +224,70 @@ def cache_specs(cfg, cache_shape, mesh: Mesh):
         return (None,) * len(s)
 
     return _map_with_path(walk, cache_shape)
+
+
+@dataclass(frozen=True)
+class HeadChannels:
+    """The conv window's channel entry under ``ssm_head_shard``: of its
+    ``d_inner + 2N`` channels, the first ``d_inner`` (the heads' ``x``) are
+    cut over ``axis`` and the ``2N`` of B and C are whole on every rank
+    (``models.ssm._heads``)."""
+    axis: str
+    d_inner: int
+
+    def block(self, size: int, mesh: Mesh) -> int:
+        return self.d_inner // mesh.axis_size(self.axis) + size - self.d_inner
+
+
+def cache_specs(cfg, cache_shape, mesh: Mesh, *, head_shard: bool = False):
+    """The decode / prefill caches as the port holds them: B over dp; the
+    self-attention caches' sequence over model (the K-parallel layout
+    flash-decode reads), as the reference; the cross K / V of the encoder
+    rows whole (the reference cuts their rows over model where it divides
+    them); the SSM state and conv window whole, or with ``head_shard``
+    (``ssm_head_shard``) the state's heads over model and the window as
+    ``HeadChannels`` -- the reference cuts the heads and the window's
+    channels in contiguous blocks either way (``reference_cache_specs``;
+    the bytes differ, ROADMAP Queue 3)."""
+    dp = dp_axes(mesh) or None
+
+    def walk(names, leaf):
+        name = names[-1] if names else ""
+        s = tuple(leaf.shape)
+        rows = (None, _maybe(s[1], dp, mesh))
+        if name in ("k", "v", "attn_k", "attn_v"):
+            return rows + (_maybe(s[2], "model", mesh), None, None)
+        if name in ("h", "ssm_h"):         # (L, B, H, P, N)
+            heads = _maybe(s[2], "model", mesh) if head_shard else None
+            return rows + (heads, None, None)
+        if name in ("cross_k", "cross_v"):
+            return rows + (None, None, None)
+        if name in ("conv", "ssm_conv"):   # (L, B, W-1, C)
+            d_inner = 2 * cfg.d_model
+            cut = head_shard and _maybe(d_inner, "model", mesh) is not None
+            return rows + (None, HeadChannels("model", d_inner) if cut
+                           else None)
+        return (None,) * len(s)
+
+    return _map_with_path(walk, cache_shape)
+
+
+def block_shape(shape: tuple, spec: tuple, mesh: Mesh) -> tuple:
+    """The shape of one rank's block of a ``shape`` tensor under ``spec``
+    (an entry per dim: None, axes, or ``HeadChannels``)."""
+    if len(spec) != len(shape):
+        raise ValueError(f"spec {spec} for a {len(shape)}-D shape")
+    out = []
+    for n, e in zip(shape, spec):
+        if isinstance(e, HeadChannels):
+            out.append(e.block(n, mesh))
+        elif e is None:
+            out.append(n)
+        else:
+            if n % mesh.axis_size(e):
+                raise ValueError(f"{n} does not divide over {e}")
+            out.append(n // mesh.axis_size(e))
+    return tuple(out)
 
 
 def shard_tensor(full: torch.Tensor, spec: tuple, mesh: Mesh) -> torch.Tensor:

@@ -33,8 +33,24 @@ panels -- with the qk-norm scales replicated, and ``wo`` is a row panel
 encoder-decoder's cross-attention runs the same way: its query heads and
 ``wo`` as the self-attention's, and the cross K / V of the rank's KV heads
 (``models.model._cross_kv_stack`` projects them with the rank's columns
-of the cross ``wk`` / ``wv``).  A KV cache under TP (serving) raises: it
-is slice 17's.
+of the cross ``wk`` / ``wv``).  Where the model axis cuts the panels
+across a head (its size does not divide the query heads, as 16 ranks cut
+llama4-scout's 40; ``tp_aligned``), a rank cannot run its own heads: the
+panels are gathered whole over the axis and every rank of it computes the
+whole layer (the gather's backward keeps the rank's block of a gradient
+every rank computed alike).
+
+Serving under TP (a KV cache given, or cross K / V of every head): the
+cache keeps the reference's layout -- every head, the sequence cut over
+the model axis under ``sp_decode`` (``launch.sharding.cache_specs``) --
+so a rank computes its columns of q, k and v, gathers them over the axis
+(every head, whatever the cut), writes its rows of the cache and attends
+over its block (``flash_decode``: the partials merged with the
+log-sum-exp correction over the axis; a prefill attends over the fresh
+rows of every head), then keeps its columns of the output for the
+row-parallel ``wo``.  Every rank of the axis thus computes the attention
+of every head: the cache's bytes are the reference's, the attention's
+FLOPs the axis size times a rank's share.
 """
 from __future__ import annotations
 
@@ -280,6 +296,50 @@ def tp_projections(params: AttentionParams, num_heads: int,
             norm(params.k_norm), h_l, kv_l)
 
 
+def tp_aligned(num_heads: int, num_kv_heads: int, head_dim: int,
+               wq: torch.Tensor, tp) -> bool:
+    """Whether the model axis of ``tp`` cuts the query panel ``wq`` (this
+    rank's block) on head boundaries into equal query heads whose group
+    of a shared KV head no rank splits (what ``tp_projections`` needs)."""
+    mesh, axis = tp
+    nc = mesh.axis_size(axis)
+    if num_heads % nc or wq.shape[1] != (num_heads // nc) * head_dim:
+        return False
+    h_l, g = num_heads // nc, num_heads // num_kv_heads
+    return h_l % g == 0 or g % h_l == 0
+
+
+def whole_panel(w: torch.Tensor, dim: int) -> torch.Tensor:
+    """A panel gathered whole over the model axis along ``dim`` when it is
+    a tensor-parallel block, else itself."""
+    tp = tp_of(w)
+    return w if tp is None else collective.gather(w, *tp, dim)
+
+
+def whole_columns(x: torch.Tensor, w: torch.Tensor, compute_dtype
+                  ) -> torch.Tensor:
+    """x @ w with every output column: this rank's block of columns
+    gathered over the model axis when ``w`` is a tensor-parallel column
+    block (serving: no gradient), else the product itself."""
+    y = dense(x, w, compute_dtype)
+    tp = tp_of(w)
+    return y if tp is None else collective.gather(y, *tp, y.ndim - 1)
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor, tp, whole: bool,
+              compute_dtype, residual):
+    """The output projection: dense off TP, row-parallel on TP (``whole``:
+    ``out`` holds every head, of which this rank keeps its rows of the
+    ``wo`` block)."""
+    if tp is None or tp_of(wo) is None:
+        return dense(out, wo, compute_dtype, residual=residual)
+    if whole:
+        mesh, axis = tp
+        r = wo.shape[0]
+        out = out.narrow(-1, mesh.axis_index(axis) * r, r)
+    return row_parallel(out, wo, tp, compute_dtype, residual)
+
+
 def attention(x: torch.Tensor, params: AttentionParams, *, num_heads: int,
               num_kv_heads: int, head_dim: int, positions: torch.Tensor,
               window: int = 0, causal: bool = True, qk_norm: bool = False,
@@ -313,32 +373,43 @@ def attention(x: torch.Tensor, params: AttentionParams, *, num_heads: int,
     """
     b, s, _ = x.shape
     tp = tp_of(params.wq)
-    wq, wk, wv = params.wq, params.wk, params.wv
+    wq, wk, wv, wo = params.wq, params.wk, params.wv, params.wo
     q_norm, k_norm = params.q_norm, params.k_norm
+    whole = False       # every head, from columns gathered over the axis
     if tp is not None:
-        if kv_cache is not None:
-            raise NotImplementedError(
-                "tensor-parallel attention with a KV cache (serving under "
-                "TP) is Queue 1 item 10.5, slice 17")
-        x = column_input(x, tp)
-        wq, wk, wv, q_norm, k_norm, num_heads, num_kv_heads = \
-            tp_projections(params, num_heads, num_kv_heads, head_dim, tp)
-    q = dense(x, wq, compute_dtype).reshape(b, s, num_heads, head_dim)
+        aligned = tp_aligned(num_heads, num_kv_heads, head_dim, wq, tp)
+        if kv_cache is not None or (
+                aligned and cross_kv is not None
+                and cross_kv[0].shape[2] == num_kv_heads):
+            whole = True
+            x = column_input(x, tp)
+        elif not aligned:
+            wq, wk, wv = (whole_panel(w, 1) for w in (wq, wk, wv))
+            wo, tp = whole_panel(wo, 0), None
+        else:
+            x = column_input(x, tp)
+            wq, wk, wv, q_norm, k_norm, num_heads, num_kv_heads = \
+                tp_projections(params, num_heads, num_kv_heads, head_dim, tp)
+
+    def proj(w, heads):
+        y = (whole_columns(x, w, compute_dtype) if whole
+             else dense(x, w, compute_dtype))
+        return y.reshape(b, s, heads, head_dim)
+
+    q = proj(wq, num_heads)
     if cross_kv is not None:
         # Under TP ``cross_kv`` holds this rank's KV heads
-        # (``models.model._cross_kv_stack``), as q its query heads.
+        # (``models.model._cross_kv_stack``), as q its query heads -- or,
+        # serving, every head, as q.
         k, v = cross_kv
         out = blockwise_attention(
             q, k, v, q_positions=torch.arange(s, device=x.device),
             kv_positions=torch.arange(k.shape[1], device=x.device),
             window=0, causal=False, block_kv=block_kv)
         out = out.reshape(b, s, num_heads * head_dim)
-        if tp is not None:
-            return row_parallel(out, params.wo, tp, compute_dtype,
-                                residual), None
-        return dense(out, params.wo, compute_dtype, residual=residual), None
-    k = dense(x, wk, compute_dtype).reshape(b, s, num_kv_heads, head_dim)
-    v = dense(x, wv, compute_dtype).reshape(b, s, num_kv_heads, head_dim)
+        return _out_proj(out, wo, tp, whole, compute_dtype, residual), None
+    k = proj(wk, num_kv_heads)
+    v = proj(wv, num_kv_heads)
     if qk_norm:
         q = rms_norm(q, q_norm)
         k = rms_norm(k, k_norm)
@@ -409,7 +480,4 @@ def attention(x: torch.Tensor, params: AttentionParams, *, num_heads: int,
             window=window, causal=causal, block_kv=block_kv)
         new_cache = None
     out = out.reshape(b, s, num_heads * head_dim)
-    if tp is not None:
-        return (row_parallel(out, params.wo, tp, compute_dtype, residual),
-                new_cache)
-    return dense(out, params.wo, compute_dtype, residual=residual), new_cache
+    return _out_proj(out, wo, tp, whole, compute_dtype, residual), new_cache

@@ -40,7 +40,8 @@ from ..core.device import resolve_device
 from ..core.dist import current_dist
 from ..core.gemm import collective
 from ..launch.sharding import gathered, shard_block
-from .attention import param, sp_decoding, tp_projections
+from .attention import (param, sp_decoding, tp_aligned, tp_projections,
+                        whole_columns, whole_panel)
 from .layers import column_input, dense, embed, rms_norm, tp_of, unembed
 from .transformer import (RECURRENT_FAMILIES, DenseBlock, SSMBlock, as_dtype,
                           check_family, compute_dtype, init_cache,
@@ -90,12 +91,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     ``dist`` (a ``core.dist.DistContext``): this rank's serving state, each
     block cut by ``launch.sharding.shard_block`` as soon as it is drawn --
     the draws are the one-device model's, bitwise, and a rank never holds
-    more than one layer's other experts at a time."""
+    more than one layer's other experts at a time.
+
+    On ``device="meta"`` the model has every parameter's shape and dtype
+    and no storage, and nothing is drawn (the reference's
+    ``jax.eval_shape(init_params)``)."""
     check_family(cfg)
     device = resolve_device(device)
     train = dtype is not None
     dt = as_dtype(dtype) if train else compute_dtype(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    # On ``meta`` (the dry run's abstract state) there is nothing to draw.
+    gen = (None if device.type == "meta"
+           else torch.Generator(device=device).manual_seed(seed))
     table = (torch.randn((cfg.vocab_padded, cfg.d_model), generator=gen,
                          device=device) * 0.02).to(dt)
     encdec = cfg.family == "encdec"
@@ -155,13 +162,17 @@ def encode(model: DenseLM, cfg: ModelConfig,
 
 
 def _cross_kv_stack(model: DenseLM, cfg: ModelConfig,
-                    enc_out: torch.Tensor) -> list:
+                    enc_out: torch.Tensor, *,
+                    whole_heads: bool = False) -> list:
     """Each decoder layer's cross (K, V), (B, S_enc, KVH, D) each, from the
     encoder output: one ``dense`` a layer for K and one for V, computed once
     per forward or prefill.  Under tensor parallelism (the cross panels
     cut over the model axis) a layer's K / V hold the KV heads of this
     rank's query heads (``attention.tp_projections``), and the encoder
-    output's gradient is summed over the axis."""
+    output's gradient is summed over the axis; where the axis cuts across
+    a head (``attention.tp_aligned``), the panels are gathered whole and
+    K / V hold every head.  ``whole_heads`` (serving, whose cache holds
+    every head): each rank's columns of K / V gathered over the axis."""
     cdt = compute_dtype(cfg)
     b, s, _ = enc_out.shape
     hd = cfg.head_dim_
@@ -170,11 +181,20 @@ def _cross_kv_stack(model: DenseLM, cfg: ModelConfig,
         with gathered(p.cross, dtype=cdt):
             wk, wv, kvh, x = p.cross.wk, p.cross.wv, cfg.num_kv_heads, enc_out
             tp = tp_of(p.cross.wq)
-            if tp is not None:
+            shape = (b, s, kvh, hd)
+            if tp is not None and whole_heads:
+                x = column_input(enc_out, tp)
+                out.append(tuple(whole_columns(x, w, cdt).reshape(shape)
+                                 for w in (wk, wv)))
+                continue
+            if tp is not None and tp_aligned(cfg.num_heads, kvh, hd,
+                                             p.cross.wq, tp):
                 x = column_input(enc_out, tp)
                 _, wk, wv, _, _, _, kvh = tp_projections(
                     p.cross, cfg.num_heads, cfg.num_kv_heads, hd, tp)
-            shape = (b, s, kvh, hd)
+                shape = (b, s, kvh, hd)
+            elif tp is not None:
+                wk, wv = whole_panel(wk, 1), whole_panel(wv, 1)
             out.append((dense(x, wk, cdt).reshape(shape),
                         dense(x, wv, cdt).reshape(shape)))
     return out
@@ -241,9 +261,10 @@ def make_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
     ``num_patches`` patch rows in front of them; encdec: and the encoder
     rows' cross K / V), or the SSM state (and the hybrid's shared-block KV)
     of ``batch_size`` rows.  Under a ``DistContext`` that decodes
-    sequence-parallel (``attention.sp_decoding``), a dense, moe or vlm
-    model's K / V caches hold this rank's block of the positions, S / nc
-    rows (the model axis size must divide S).  Under ``ssm_head_shard`` the
+    sequence-parallel (``attention.sp_decoding``), the self-attention K / V
+    caches (the hybrid's shared block's too) hold this rank's block of the
+    positions, S / nc rows (the model axis size must divide S); the
+    encoder rows' cross K / V stay whole.  Under ``ssm_head_shard`` the
     SSM state (ssm, hybrid) holds this rank's H / tp heads, as
     ``cache_specs`` cuts it, and the conv window the channels those heads'
     scan reads (their d_inner / tp ``x`` channels, all of B and C; where
@@ -251,7 +272,7 @@ def make_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
     stay whole."""
     rows = max_len + (cfg.num_patches or 0)
     ctx = current_dist()
-    if sp_decoding(ctx) and cfg.family in ("dense", "moe", "vlm"):
+    if sp_decoding(ctx) and cfg.family != "ssm":
         nc = ctx.model_size
         if rows % nc:
             raise ValueError(f"a {rows}-row cache does not divide over the "
@@ -271,7 +292,8 @@ def prefill(model: DenseLM, cfg: ModelConfig, batch: dict,
         h, positions = _embed_inputs(model, cfg, batch)
         if cfg.family == "encdec":
             cross = _cross_kv_stack(model, cfg,
-                                    encode(model, cfg, batch["frames"]))
+                                    encode(model, cfg, batch["frames"]),
+                                    whole_heads=True)
             for layer, (k, v) in enumerate(cross):
                 cache["cross_k"][layer].copy_(k)
                 cache["cross_v"][layer].copy_(v)

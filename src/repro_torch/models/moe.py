@@ -37,8 +37,9 @@ that owns their expert and back, and the block's panels are this rank's
 G / nc experts (``launch.sharding.shard_block`` cut them).  As in the
 reference, that branch comes first and runs the panels unquantized: the
 exchange moves activations, not panels, so a ``quant`` mode buys it no
-wire bytes.  Capacity dispatch runs expert-parallel only where the rows
-are cut over the data axes (below).
+wire bytes.  Capacity dispatch runs expert-parallel where the rows are cut
+over the data axes, or over an axis whose ranks hold the same rows
+(below).
 
 On a training mesh whose data axes cut the rows (``DistContext.rows_cut``)
 the aux loss is the global batch's: it is E · Σ mean(probs) · mean(top-1
@@ -60,11 +61,20 @@ the buffer is reduce-scattered over the data axes by expert, each rank
 runs the grouped pair and down product on its E / dp experts (its own
 panels under ``moe_ep``, else its experts of the gathered panels), and
 the results are all-gathered for every rank to read its copies back
-(``_capacity_experts_cut``).  Bytes a layer's forward moves, per rank:
-the E integers, the reduce-scatter of E x C x D in the compute type and
-the all-gather of the same; the backward moves those two again (under
-gloo the reduce-scatter is an all-reduce of the whole buffer and a
-narrow).  The data axes' size must divide E.
+(``_capacity_experts_cut``; where the data axes outnumber the experts,
+the buffer is cut by capacity slot instead and each rank runs every
+expert on its share of the slots, ``_capacity_slots_cut``).  Bytes a layer's
+forward moves, per rank: the E integers, the reduce-scatter of E x C x D
+in the compute type and the all-gather of the same; the backward moves
+those two again (under gloo the reduce-scatter is an all-reduce of the
+whole buffer and a narrow).
+
+Under expert parallelism over an axis whose ranks hold the same rows (the
+model axis, the reference's ``moe_ep_axis="model"``; or the data axes
+when they do not cut the rows) the executor takes the rows as they are:
+the ragged mode calls ``ep_ragged_moe`` on them, and capacity dispatch
+runs the rank's experts on its slice of the capacity buffer and gathers
+the results over the axis (``_capacity_experts_local``).
 """
 from __future__ import annotations
 
@@ -186,7 +196,10 @@ def moe_mlp(x: torch.Tensor, params: MoEParams, *, num_experts: int,
 
     wg, wu, wd = (w.to(compute_dtype)
                   for w in (params.w_gate, params.w_up, params.w_down))
-    if cut:
+    ep = ep_axis(ctx, e)
+    if ep is not None and not (cut and _is_data(ep, ctx)):
+        y_buf = _capacity_experts_local(buf, wg, wu, wd, ctx.mesh, ep, e, c)
+    elif cut:
         y_buf = _capacity_experts_cut(buf, wg, wu, wd, ctx, e, c)
     else:
         h = grouped_swiglu(buf.view(e, c, d), wg, wu)           # (E, C, F)
@@ -227,6 +240,28 @@ def _rank_offsets(counts: torch.Tensor, ctx) -> torch.Tensor:
     return every[:mesh.axis_index(axes)].sum(dim=0)
 
 
+def _is_data(axis, ctx) -> bool:
+    """Whether ``axis`` is the context's data axes."""
+    return ctx.mesh.axes(axis) == tuple(ctx.dp_axes)
+
+
+def _capacity_experts_local(buf: torch.Tensor, wg: torch.Tensor,
+                            wu: torch.Tensor, wd: torch.Tensor, mesh, axis,
+                            e: int, c: int) -> torch.Tensor:
+    """The expert GEMMs of a capacity buffer under expert parallelism over
+    an axis whose ranks hold the same rows: each rank runs its E / nc
+    experts (its panels) on their slots of the buffer, and the results
+    are gathered over the axis (the gather's backward keeps the rank's
+    block of a cotangent every rank of the axis computed alike).  -> (E *
+    C, D)."""
+    nc, s = mesh.axis_size(axis), mesh.axis_index(axis)
+    e_l, d = e // nc, buf.shape[-1]
+    mine = buf.view(e, c, d)[s * e_l:(s + 1) * e_l]
+    h = grouped_swiglu(mine, wg, wu)                            # (E_l, C, F)
+    y_l = grouped_matmul(h, wd).reshape(e_l * c, d)
+    return collective.gather(y_l, mesh, axis, 0)
+
+
 def _capacity_experts_cut(buf: torch.Tensor, wg: torch.Tensor,
                           wu: torch.Tensor, wd: torch.Tensor, ctx, e: int,
                           c: int) -> torch.Tensor:
@@ -244,11 +279,8 @@ def _capacity_experts_cut(buf: torch.Tensor, wg: torch.Tensor,
     mesh, axes = ctx.mesh, ctx.dp_axes
     nc, s = ctx.dp_size, mesh.axis_index(axes)
     if e % nc:
-        raise ValueError(f"capacity dispatch with the rows cut needs data "
-                         f"axes whose size divides the {e} experts, not {nc}")
+        return _capacity_slots_cut(buf, wg, wu, wd, ctx, e, c)
     ep = ep_axis(ctx, e)
-    if ep is not None and mesh.axes(ep) != tuple(axes):
-        raise ValueError(f"expert axis {ep} is not the data axes {axes}")
     e_l, d = e // nc, buf.shape[-1]
     if ep is None:
         wg, wu, wd = (w[s * e_l:(s + 1) * e_l] for w in (wg, wu, wd))
@@ -273,7 +305,7 @@ def _moe_mlp_ragged(x: torch.Tensor, params: MoEParams, *, num_experts: int,
     gate_w, gate_idx, aux = _router(xc, params.router, e, top_k)
     ctx = current_dist()
     axis = ep_axis(ctx, e)
-    if axis is not None and ctx.rows_cut:
+    if axis is not None and ctx.rows_cut and _is_data(axis, ctx):
         return _ep_rows_cut(xc, gate_w, gate_idx, params, ctx, axis,
                             top_k, compute_dtype).to(x.dtype), aux
 
@@ -309,6 +341,28 @@ def _moe_mlp_ragged(x: torch.Tensor, params: MoEParams, *, num_experts: int,
     return y.to(x.dtype), aux
 
 
+def _capacity_slots_cut(buf: torch.Tensor, wg: torch.Tensor,
+                        wu: torch.Tensor, wd: torch.Tensor, ctx, e: int,
+                        c: int) -> torch.Tensor:
+    """``_capacity_experts_cut`` where the data axes outnumber the experts
+    (mixtral's 8 over 16 ranks): the buffer is cut over the axes by
+    capacity slot instead of by expert -- each expert's C slots padded to a
+    multiple of nc, rank s reduce-scattered the s-th block of every
+    expert's slots -- each rank runs every expert (the whole panels) on
+    its blocks, and the results are all-gathered back in place."""
+    mesh, axes = ctx.mesh, ctx.dp_axes
+    nc, d = ctx.dp_size, buf.shape[-1]
+    cb = -(-c // nc)
+    cube = torch.nn.functional.pad(buf.view(e, c, d), (0, 0, 0, cb * nc - c))
+    cube = cube.view(e, nc, cb, d).transpose(0, 1).reshape(nc * e * cb, d)
+    mine = collective.reduce_scatter(cube, mesh, axes).view(e, cb, d)
+    y_l = grouped_matmul(grouped_swiglu(mine, wg, wu), wd)     # (E, Cb, D)
+    y = collective.zero_gather(y_l.reshape(e * cb, d), mesh, axes, 0,
+                               y_l.dtype)
+    y = y.view(nc, e, cb, d).transpose(0, 1).reshape(e, nc * cb, d)
+    return y[:, :c].reshape(e * c, d)
+
+
 def _ep_rows_cut(xc: torch.Tensor, gate_w: torch.Tensor,
                  gate_idx: torch.Tensor, params: MoEParams, ctx, axis,
                  top_k: int, compute_dtype) -> torch.Tensor:
@@ -321,9 +375,6 @@ def _ep_rows_cut(xc: torch.Tensor, gate_w: torch.Tensor,
     mesh = ctx.mesh
     e = params.router.shape[-1]
     t = xc.shape[0]
-    if mesh.axes(axis) != tuple(ctx.dp_axes):
-        raise ValueError(f"expert axis {axis} is not the data axes "
-                         f"{ctx.dp_axes}")
     x_g = collective.gather(xc, mesh, axis)                     # (T_g, D)
     idx_g = collective.raw_all_gather(gate_idx, mesh, axis)     # (T_g, K)
     flat = idx_g.reshape(-1)

@@ -7,9 +7,13 @@ decay A per head.  The in-projection's width, 2 * d_inner + 2 * N + heads
 in an edge tile of the ftIMM kernels.
 
 Training and prefill run the chunked scan (chunk Q = ``ssm_chunk``): the
-masked intra-chunk products and the inter-chunk state recurrence, a Python
-loop over chunks where the reference scans (``lax.scan``).  Decode is the
-O(1) recurrent update of (h, conv).
+masked intra-chunk products and the inter-chunk state recurrence.  The
+reference scans the chunks one by one (``lax.scan``); here the products of
+``CHUNK_GROUP`` consecutive chunks run as one batch and only the state
+update passes chunk to chunk, a Python loop (each chunk's values are the
+one-by-one scan's; the batch bounds the op count of a long sequence, and
+its memory at CHUNK_GROUP chunks' worth).  Decode is the O(1) recurrent
+update of (h, conv).
 
 The in / out projections go through ``layers.dense`` (``ftimm_gemm`` on
 the card).  The SSD contractions are plain ``torch.matmul`` / ``einsum``:
@@ -46,6 +50,7 @@ from .layers import column_input, dense, rms_norm, row_parallel
 
 CONV_WIDTH = 4
 HEADDIM = 64
+CHUNK_GROUP = 16    # chunks whose intra-chunk products run as one batch
 _MASKED = -1e30
 
 
@@ -198,29 +203,37 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return F.silu(out + b)
 
 
-def _chunk_step(h, x_q, b_q, c_q, dt_q, a, causal):
-    """One chunk of the scan, in fp32: (h (B, H, P, N), the chunk's x (B,
-    Q, H, P), B / C (B, Q, N), dt (B, Q, H)) -> (y (B, Q, H, P), h')."""
-    x_f, b_f, c_f = x_q.float(), b_q.float(), c_q.float()
-    lcum = torch.cumsum(dt_q * a, dim=1)                      # (B, Q, H)
+def _chunk_group(h, x_g, b_g, c_g, dt_g, a, causal):
+    """A group of consecutive chunks of the scan, in fp32: (h (B, H, P, N)
+    entering the first, the chunks' x (B, G, Q, H, P), B / C (B, G, Q, N),
+    dt (B, G, Q, H)) -> (y (B, G, Q, H, P), h' after the last).  The
+    intra-chunk products and each chunk's own state update run batched
+    over the G chunks; the state passes chunk to chunk in order."""
+    x_f, b_f, c_f = x_g.float(), b_g.float(), c_g.float()
+    lcum = torch.cumsum(dt_g * a, dim=2)                      # (B, G, Q, H)
     # M[i, j] = exp(L_i - L_j) for j <= i.  Mask before the exp: j > i
     # has a positive difference that overflows, and the gradient of a
     # masked inf is NaN.
-    diff = lcum[:, :, None, :] - lcum[:, None, :, :]          # (B, Q, Q, H)
-    m = torch.exp(diff.masked_fill(~causal[None, :, :, None], _MASKED))
-    cb = torch.matmul(c_f, b_f.transpose(1, 2))               # (B, Q, Q)
-    xdt = x_f * dt_q[..., None]                               # (B, Q, H, P)
-    # y_intra[b, i, h] = sum_j cb[b, i, j] m[b, i, j, h] xdt[b, j, h]
-    weights = (cb[..., None] * m).permute(0, 3, 1, 2)         # (B, H, Q, Q)
-    y_intra = torch.matmul(weights, xdt.transpose(1, 2))      # (B, H, Q, P)
+    diff = lcum[:, :, :, None, :] - lcum[:, :, None, :, :]    # (B,G,Q,Q,H)
+    m = torch.exp(diff.masked_fill(~causal[None, None, :, :, None], _MASKED))
+    cb = torch.matmul(c_f, b_f.transpose(2, 3))               # (B, G, Q, Q)
+    xdt = x_f * dt_g[..., None]                               # (B,G,Q,H,P)
+    # y_intra[b, g, i, h] = sum_j cb[b, g, i, j] m[b, g, i, j, h] xdt[...j, h]
+    weights = (cb[..., None] * m).permute(0, 1, 4, 2, 3)      # (B,G,H,Q,Q)
+    y_intra = torch.matmul(weights, xdt.transpose(2, 3))      # (B,G,H,Q,P)
+    # each chunk's h' = exp(sum da) h + sum_j exp(L_Q - L_j) xdt_j b_j
+    w = torch.exp(lcum[:, :, -1:, :] - lcum)                  # (B, G, Q, H)
+    decay = torch.exp(lcum[:, :, -1, :])[..., None, None]     # (B,G,H,1,1)
+    dh = torch.einsum("bgjhp,bgjn->bghpn", xdt * w[..., None], b_f)
+    entering = []
+    for decay_g, dh_g in zip(decay.unbind(1), dh.unbind(1)):
+        entering.append(h)
+        h = decay_g * h + dh_g
     # the carried state's share, decayed to each position
-    y_inter = (torch.einsum("bin,bhpn->bhip", c_f, h)
-               * torch.exp(lcum).transpose(1, 2)[..., None])
-    # h' = exp(sum da) h + sum_j exp(L_Q - L_j) xdt_j b_j
-    w = torch.exp(lcum[:, -1:, :] - lcum)                     # (B, Q, H)
-    h_new = (torch.exp(lcum[:, -1, :])[:, :, None, None] * h
-             + torch.einsum("bjhp,bjn->bhpn", xdt * w[..., None], b_f))
-    return (y_intra + y_inter).transpose(1, 2), h_new
+    y_inter = (torch.einsum("bgin,bghpn->bghip", c_f,
+                            torch.stack(entering, dim=1))
+               * torch.exp(lcum).transpose(2, 3)[..., None])
+    return (y_intra + y_inter).transpose(2, 3), h
 
 
 def ssd_forward(x: torch.Tensor, params: SSMParams, *, ssm_state: int,
@@ -257,13 +270,20 @@ def ssd_forward(x: torch.Tensor, params: SSMParams, *, ssm_state: int,
         bsz, nheads, p, n, dtype=torch.float32, device=x.device))
     causal = torch.ones(chunk, chunk, dtype=torch.bool,
                         device=x.device).tril()
+    nq = (s + pad) // chunk
+
+    def chunks(t):
+        return t.reshape((bsz, nq, chunk) + tuple(t.shape[2:]))
+
+    xs_c, b_c, c_c, dt_c = (chunks(t) for t in (xs_p, b, c, dt))
     ys = []
-    for start in range(0, s + pad, chunk):
-        q = slice(start, start + chunk)
-        y_q, h = _chunk_step(h, xs_p[:, q], b[:, q], c[:, q], dt[:, q], a,
-                             causal)
-        ys.append(y_q)
-    y = torch.cat(ys, dim=1)[:, :s]                           # fp32
+    for g0 in range(0, nq, CHUNK_GROUP):
+        g = slice(g0, g0 + CHUNK_GROUP)
+        y_g, h = _chunk_group(h, xs_c[:, g], b_c[:, g], c_c[:, g],
+                              dt_c[:, g], a, causal)
+        ys.append(y_g)
+    y = torch.cat(ys, dim=1).reshape(bsz, nq * chunk, nheads,
+                                     p)[:, :s]               # fp32
     y = y + xs * v.D_skip.to(cdt)[None, None, :, None]
     y = y.reshape(bsz, s, d_inner).to(cdt)
     y = y * F.silu(z)

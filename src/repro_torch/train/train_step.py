@@ -1,11 +1,12 @@
-"""The train step factory used by the trainer and the tests."""
+"""Train / serve step factories used by the trainer, the dry run and the
+tests."""
 from __future__ import annotations
 
 import torch
 
 from ..configs.base import ModelConfig
 from ..core.dist import current_dist
-from ..models.model import DenseLM, loss_fn
+from ..models.model import DenseLM, decode_step, loss_fn, prefill
 from ..optim.adamw import OptConfig, apply_updates
 
 
@@ -62,3 +63,23 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
         return model, opt_state, metrics
 
     return train_step
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """Returns prefill_step(model, batch, cache) -> (greedy tokens (B,)
+    int32, cache): the prompt through the stack, the cache filled in
+    place, the argmax of the last position's logits (the reference's)."""
+    def prefill_step(model: DenseLM, batch: dict, cache: dict):
+        logits, cache = prefill(model, cfg, batch, cache)
+        return logits.argmax(dim=-1).to(torch.int32), cache
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig):
+    """Returns serve_step(model, cache, tokens, pos) -> (next tokens (B, 1)
+    int32, cache): one greedy decode step (the reference's ``serve_step``),
+    the cache written in place."""
+    def serve_step(model: DenseLM, cache: dict, tokens: torch.Tensor, pos):
+        logits, cache = decode_step(model, cfg, tokens, cache, pos)
+        return logits.argmax(dim=-1)[:, None].to(torch.int32), cache
+    return serve_step

@@ -17,7 +17,8 @@ is the reference's GSPMD step in eager form, under
 sharded_params=True))``: the model is drawn whole as on one device (the
 same seed, the same device) and cut to this rank's blocks under
 ``param_specs`` (ZeRO-3 over the data axes, tensor parallelism over
-``model``; ``moe_ep`` the experts over the data axes, ``ssm_head_shard``
+``model``; ``moe_ep`` the experts over ``moe_ep_axis``, the data axes or
+the model axis; ``ssm_head_shard``
 the SSD heads over ``model``), the moments follow -- or are cut by specs of
 their own, ``shardings["opt"]`` (ZeRO-1: the parameters TP only, the
 moments at ZeRO-3; each rank then updates the part of its parameter block
@@ -56,14 +57,17 @@ class Trainer:
                  ckpt_dir: str | None = None, ckpt_every: int = 50,
                  log_every: int = 10, accum_steps: int = 1,
                  device: str | torch.device | None = None, monitor=None,
-                 moe_ep: bool = False, ssm_head_shard: bool = False):
+                 moe_ep: bool = False, moe_ep_axis: str = "dp",
+                 ssm_head_shard: bool = False):
         """``mesh``: a ``launch.mesh.Mesh`` with a "model" axis (its other
         axes the data axes); the model lives on ``mesh.device``.
         ``shardings``: {"params": {parameter name: spec}, "opt": {name:
         spec}}, the reference's keys (default: ``launch.sharding.named_specs``
         at ZeRO-3, ``moe_ep`` as given, for the parameters; the moments
         follow them unless "opt" is given, which must cut each moment at
-        least as the parameter is cut); the batch ``batch_specs``."""
+        least as the parameter is cut); the batch ``batch_specs``.
+        ``moe_ep_axis``: the axis ``moe_ep`` cuts the experts over, "dp"
+        (the data axes) or "model" (the reference's knob)."""
         self.cfg = cfg
         self.shape = shape
         self.opt_cfg = opt_cfg or OptConfig()
@@ -71,16 +75,18 @@ class Trainer:
         self.mesh = mesh
         self.shardings = dict(shardings or {})
         self.moe_ep = moe_ep
+        self.moe_ep_axis = moe_ep_axis
         self.ctx = None
         if mesh is not None:
             if device is not None and resolve_device(device) != mesh.device:
                 raise ValueError(f"the mesh's tensors live on {mesh.device}, "
                                  f"not {device}")
-            ep = (sharding.expert_axis(mesh, True, "dp", cfg.num_experts)
-                  if moe_ep else None)
+            ep = (sharding.expert_axis(mesh, True, moe_ep_axis,
+                                       cfg.num_experts) if moe_ep else None)
             if moe_ep and ep is None:
-                raise ValueError("moe_ep needs data axes whose size divides "
-                                 f"the {cfg.num_experts} experts")
+                raise ValueError(f"moe_ep needs a {moe_ep_axis!r} axis whose "
+                                 f"size divides the {cfg.num_experts} "
+                                 "experts")
             self.ctx = DistContext(mesh, sharding.dp_axes(mesh), "model",
                                    moe_ep_axis=ep,
                                    ssm_head_shard=ssm_head_shard,
@@ -112,7 +118,7 @@ class Trainer:
             if "params" not in self.shardings:
                 self.shardings["params"] = sharding.named_specs(
                     dict(model.named_parameters()), self.mesh,
-                    moe_ep=self.moe_ep)
+                    moe_ep=self.moe_ep, moe_ep_axis=self.moe_ep_axis)
             sharding.shard_params(model, self.shardings["params"],
                                   self.mesh)
             self.shardings.setdefault("opt", self.shardings["params"])

@@ -1702,6 +1702,55 @@ def test_mesh_train_step_two_ranks_share_the_card(dev, tmp_path):
                torch.from_numpy(np.asarray(mine[name])))
 
 
+def test_tp_decode_with_a_cache_two_ranks_share_the_card(dev, tmp_path):
+    """Serving qwen3-1.7b-smoke under tensor parallelism with its KV cache
+    (every attention panel and the cache's sequence over "model", (1, 2)),
+    fp32, on two ranks sharing the card over gloo: each rank launches its
+    kernels, and the prefill and 3 decode steps' logits are one rank's
+    on the card within 1e-4, the greedy tokens equal."""
+    import dataclasses
+
+    import numpy as np
+    sys.path.insert(0, str(Path(__file__).parent))
+    from torch_world import World
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.weights import (from_numpy_params,
+                                            to_numpy_params)
+    arch = "qwen3-1.7b-smoke"
+    cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
+    tree = to_numpy_params(M.init_params(cfg, 0, device="cpu",
+                                         dtype="float32"))
+    rng = np.random.default_rng(5)
+    prompt = rng.integers(2, cfg.vocab_size, (2, 10)).astype(np.int32)
+    steps = rng.integers(2, cfg.vocab_size, (2, 3)).astype(np.int32)
+    model = from_numpy_params(tree, cfg, dev)
+    cache = M.make_cache(cfg, 2, 16, device=dev)
+    logits, cache = M.prefill(
+        model, cfg, {"tokens": torch.as_tensor(prompt).long().to(dev)}, cache)
+    want = [logits]
+    for i in range(3):
+        logits, cache = M.decode_step(
+            model, cfg, torch.as_tensor(steps[:, i:i + 1]).long().to(dev),
+            cache, 10 + i)
+        want.append(logits)
+    world = World(2, tmp_path, timeout=300)
+    try:
+        ranks = world.run("tp_serve", arch, tree, prompt, steps, 16,
+                          device="cuda")
+    finally:
+        world.close()
+    for r in ranks:
+        assert r["cache_rows"] == 8
+        for name in ("ftimm_gemm", "ftimm_gemm_swiglu",
+                     "ftimm_gemm_grouped"):
+            assert r["launches"].get(name), (name, r["launches"])
+        for got, w in zip(r["logits"], want):
+            _close(torch.from_numpy(np.asarray(got)), w.cpu())
+            assert (np.asarray(got).argmax(-1)
+                    == w.argmax(-1).cpu().numpy()).all()
+
+
 @pytest.mark.parametrize("arch,shape,kw,kernels", [
     ("mixtral-8x7b-smoke", (2, 1), {}, ("ftimm_gemm_grouped_swiglu",
                                         "ftimm_gemm_grouped")),

@@ -2,12 +2,14 @@
 and the model path on a mesh, held against the JAX package on the CPU.
 
   * ``expert_axis``, ``param_specs`` (``zero_stage`` 0 / 3, ``moe_ep`` on
-    "dp" and on "model"), ``batch_specs`` and ``cache_specs`` equal the
-    reference's, entry for entry, for every arch's smoke config, the
+    "dp" and on "model"), ``batch_specs`` and ``reference_cache_specs``
+    equal the reference's, entry for entry, for every arch's smoke config, the
     reference computed in-process on a ``jax.sharding.AbstractMesh`` over
     ``jax.eval_shape`` trees;
   * ``flash_decode`` on 2 ranks, each holding half the cache rows, against
     the single-device decode attention and JAX's ``decode_attention``;
+  * serving under tensor parallelism with a KV cache (qwen3, whisper's
+    cross-attention, zamba2's shared block): prefill and decode logits;
   * ``moe_mlp`` (ragged) under expert parallelism: output and gradients
     equal the single-device path's (reference ``tests/test_ep_gemm.py``);
   * ``llama4-scout-17b-a16e-smoke`` (4 experts) served on a (data 1,
@@ -93,7 +95,7 @@ def test_specs_match_reference(arch, mesh_i):
         assert sharding.param_specs(params, tmesh, **kw) == _specs(
             jsharding.param_specs(params, jmesh, **kw)), kw
     cache = jax.eval_shape(lambda: jmodel.make_cache(jcfg, 8, 32))
-    assert sharding.cache_specs(tcfg, cache, tmesh) == _specs(
+    assert sharding.reference_cache_specs(tcfg, cache, tmesh) == _specs(
         jsharding.cache_specs(jcfg, cache, jmesh))
     batch = {"tokens": jax.ShapeDtypeStruct((8, 32), jnp.int32),
              "labels": jax.ShapeDtypeStruct((8, 32), jnp.int32)}
@@ -223,6 +225,45 @@ def test_llama4_smoke_on_two_ranks_matches_jax(world):
                     np.concatenate(steps, axis=1), 24)
     for r in out:
         assert r["cache_rows"] == 12 and r["experts"] == 2
+        for got, w in zip(r["logits"], want):
+            _close(got, w)
+            assert (got.argmax(-1) == w.argmax(-1)).all()
+
+
+TP_SERVE = ["qwen3-1.7b-smoke", "whisper-base-smoke", "zamba2-7b-smoke"]
+
+
+@pytest.mark.parametrize("arch", TP_SERVE)
+def test_tp_prefill_and_decode_with_a_cache_match_jax(world, arch):
+    """Serving under tensor parallelism on (1, 2), the weights cut as the
+    dry run cuts them (every attention panel over "model") and the cache's
+    sequence over "model": prefill of 2 x 10 tokens and 3 scalar-position
+    decode steps over a 16-row cache (8 a rank), fed the JAX model's greedy
+    tokens, within 1e-5 of the JAX one-device model in fp32 (whisper: its
+    cross-attention too; zamba2: its shared attention block)."""
+    jcfg = dataclasses.replace(jget_config(arch), compute_dtype="float32")
+    params = jmodel.init_params(jcfg, jax.random.PRNGKey(0))
+    rng = np.random.default_rng(11)
+    prompt = rng.integers(2, jcfg.vocab_size, (2, 10)).astype(np.int32)
+    batch = {"tokens": jnp.asarray(prompt)}
+    frames = None
+    if jcfg.family == "encdec":
+        frames = (rng.standard_normal((2, jcfg.encoder_seq, jcfg.d_model))
+                  .astype(np.float32) * 0.02)
+        batch["frames"] = jnp.asarray(frames)
+    jl, jc = jmodel.prefill(params, jcfg, batch, jmodel.make_cache(jcfg, 2,
+                                                                   16))
+    want, steps = [np.asarray(jl)], []
+    for i in range(3):
+        nxt = np.asarray(jl.argmax(-1), np.int32)[:, None]
+        steps.append(nxt)
+        jl, jc = jmodel.decode_step(params, jcfg, jnp.asarray(nxt), jc,
+                                    jnp.int32(10 + i))
+        want.append(np.asarray(jl))
+    out = world.run("tp_serve", arch, jax.tree.map(np.asarray, params),
+                    prompt, np.concatenate(steps, axis=1), 16, frames)
+    for r in out:
+        assert r["cache_rows"] == 8
         for got, w in zip(r["logits"], want):
             _close(got, w)
             assert (got.argmax(-1) == w.argmax(-1)).all()

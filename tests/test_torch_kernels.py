@@ -183,20 +183,33 @@ def test_paper_shape_list_matches_jax():
 
 
 def test_cuda_tensor_never_takes_the_plain_version():
-    """The tensor's device picks the engine: only a CPU tensor takes the
-    plain version; any other launches its kernel or raises."""
+    """The tensor's device picks the engine: only a CPU or ``meta`` tensor
+    (the dry run's shapes) takes the plain version -- on ``meta`` it
+    computes the kernel's result shape and dtype, and launches nothing;
+    any other tensor goes to the kernel's operand check, which raises
+    unless it lies on the card."""
+    from repro_torch.kernels.ftimm import kernel as K
+    assert K.PLAIN_DEVICES == ("cpu", "meta")
     meta = torch.empty((8, 8), device="meta")
     offs = torch.zeros(2, dtype=torch.int32, device="meta")
-    for call in (lambda: tops.gemm(meta, meta),
-                 lambda: tops.gemm_swiglu(meta, meta, meta),
-                 lambda: tops.batched_gemm(meta[None], meta),
-                 lambda: tops.batched_gemm_swiglu(meta, meta[None],
-                                                  meta[None]),
-                 lambda: tops.ragged_gemm(meta, meta[None], offs),
-                 lambda: tops.ragged_gemm_swiglu(meta, meta[None],
-                                                 meta[None], offs)):
-        with pytest.raises(ValueError, match="no kernel"):
-            call()
+    K.reset_launch_counts()
+    for call, shape in ((lambda: tops.gemm(meta, meta), (8, 8)),
+                        (lambda: tops.gemm_swiglu(meta, meta, meta), (8, 8)),
+                        (lambda: tops.batched_gemm(meta[None], meta),
+                         (1, 8, 8)),
+                        (lambda: tops.batched_gemm_swiglu(meta, meta[None],
+                                                          meta[None]),
+                         (1, 8, 8)),
+                        (lambda: tops.ragged_gemm(meta, meta[None], offs),
+                         (8, 8)),
+                        (lambda: tops.ragged_gemm_swiglu(meta, meta[None],
+                                                         meta[None], offs),
+                         (8, 8))):
+        out = call()
+        assert out.device.type == "meta" and tuple(out.shape) == shape
+    assert not any(K.launch_counts().values())
+    with pytest.raises(ValueError, match="no kernel"):
+        K._cuda_operands("ftimm_gemm", meta, meta, torch.float32)
 
 
 # Ragged group-size distributions: 4 rows to 4 distinct groups (decode),

@@ -4,7 +4,8 @@ step on the global batch, as GSPMD's):
 
   * capacity-dispatch MoE with the rows cut over the data axes
     (``mixtral-8x7b-smoke`` on (data, model) = (2, 1), with and without
-    ``moe_ep``, and with a capacity factor of 0.5 that drops copies);
+    ``moe_ep``, and with a capacity factor of 0.5 that drops copies; and
+    with 3 experts over 4 data ranks, the buffer cut by capacity slot);
     ``moe.capacity_slots`` keeps and drops exactly the one-device run's
     copies;
   * the encoder-decoder under tensor parallelism (``whisper-base-smoke``
@@ -67,6 +68,8 @@ CASES = {
     "whisper-tp-1x2": (WHISPER, (1, 2), {}),
     "whisper-tp-2x2": (WHISPER, (2, 2), {}),
     "qwen-zero1-2x1": (QWEN, (2, 1), {"zero1": True}),
+    # 3 experts over 4 data ranks: the buffer cut by capacity slot
+    "mixtral-slots-4x1": (MIXTRAL, (4, 1), {"overrides": {"num_experts": 3}}),
 }
 
 
@@ -92,21 +95,27 @@ def _leaves(tree, prefix=""):
             yield f"{prefix}{k}", tree[k]
 
 
-def _jcfg(arch, capacity_factor=None):
-    cfg = dataclasses.replace(jget_config(arch), compute_dtype="float32")
+def _jcfg(arch, capacity_factor=None, overrides=()):
+    cfg = dataclasses.replace(jget_config(arch), compute_dtype="float32",
+                              **dict(overrides))
     if capacity_factor is not None:
         cfg = dataclasses.replace(cfg, capacity_factor=capacity_factor)
     return cfg
 
 
+def _over(case) -> tuple:
+    return tuple(sorted(CASES[case][2].get("overrides", {}).items()))
+
+
 @functools.lru_cache(maxsize=None)
-def _init(arch):
+def _init(arch, overrides=()):
     return jax.tree.map(np.asarray, jmodel.init_params(
-        _jcfg(arch), jax.random.PRNGKey(0)))
+        _jcfg(arch, overrides=overrides), jax.random.PRNGKey(0)))
 
 
-def _batches(arch, steps):
-    ds = JSynthetic(_jcfg(arch), JShape("t", SEQ, BATCH, "train"), seed=0)
+def _batches(arch, steps, overrides=()):
+    ds = JSynthetic(_jcfg(arch, overrides=overrides),
+                    JShape("t", SEQ, BATCH, "train"), seed=0)
     return [ds.host_batch(i) for i in range(steps)]
 
 
@@ -119,8 +128,9 @@ def _run(world, case, steps=1):
     AdamW steps of ``case``, computed once."""
     if (case, steps) not in _RUNS:
         arch, shape, kw = CASES[case]
-        tree, batches = _init(arch), _batches(arch, steps)
-        jcfg = _jcfg(arch, kw.get("capacity_factor"))
+        over = _over(case)
+        tree, batches = _init(arch, over), _batches(arch, steps, over)
+        jcfg = _jcfg(arch, kw.get("capacity_factor"), over)
         step = jax.jit(jmake_step(jcfg, jadamw.OptConfig()))
         params = jax.tree.map(jnp.asarray, tree)
         opt, jm = jadamw.init_opt_state(params), []
@@ -142,7 +152,8 @@ def _hold(case, jm, jp, got):
         for key in ("loss", "aux_loss", "grad_norm"):
             assert abs(m[key] - want_m[key]) <= TOL * max(
                 abs(want_m[key]), 1.0), (key, m[key], want_m[key])
-    want, init = dict(_leaves(jp)), dict(_leaves(_init(CASES[case][0])))
+    want = dict(_leaves(jp))
+    init = dict(_leaves(_init(CASES[case][0], _over(case))))
     assert sorted(want) == sorted(k for k, _ in _leaves(got["params"]))
     for k, g in _leaves(got["params"]):
         tol = ZERO_INIT_TOL if not np.any(init[k]) else TOL
@@ -158,7 +169,8 @@ def test_one_step_matches_jax(world, case):
 
 @pytest.mark.parametrize("case", ["mixtral-capacity-2x1",
                                   "mixtral-capacity-ep-2x1",
-                                  "mixtral-overflow-ep-2x1"])
+                                  "mixtral-overflow-ep-2x1",
+                                  "mixtral-slots-4x1"])
 def test_three_capacity_steps_match_jax(world, case):
     """Three AdamW steps of capacity dispatch with the rows cut, against
     the reference's three one-device steps: the backward of the cut

@@ -6,7 +6,9 @@ GSPMD layout, whose result is the one-device step on the global batch.
     ``named_specs``, ``shard_params``, ``gathered``, ``cut_batch``) for 3
     steps on bridged fp32 parameters and the reference's batches:
     ``qwen3-1.7b-smoke`` on (data, model) = (2, 1), (1, 2) and (2, 2);
-    ``llama4-scout-17b-a16e-smoke`` with its experts over data (2, 1);
+    ``llama4-scout-17b-a16e-smoke`` with its experts over data (2, 1) and
+    over model (1, 2); qwen3 with 2 heads of 64 on (1, 4), the model axis
+    cutting across a head (the panels gathered whole);
     ``mamba2-370m-smoke`` and the hybrid ``zamba2-7b-smoke`` (its shared
     block tensor-parallel) with their SSD heads over model (1, 2).  Loss,
     aux loss and gradient norm within 1e-5 relative a step, every
@@ -66,6 +68,11 @@ CASES = {"qwen-2x1": (QWEN, (2, 1), {}),
          "qwen-1x2": (QWEN, (1, 2), {}),
          "qwen-2x2": (QWEN, (2, 2), {}),
          "llama4-ep-2x1": (LLAMA4, (2, 1), {"moe_ep": True}),
+         "llama4-ep-model-1x2": (LLAMA4, (1, 2), {"moe_ep": True,
+                                                  "moe_ep_axis": "model"}),
+         # 2 heads of 64 over 4 ranks: the model axis cuts across a head
+         "qwen-heads-cut-1x4": (QWEN, (1, 4), {"overrides": {
+             "num_heads": 2, "num_kv_heads": 1, "head_dim": 64}}),
          "mamba2-heads-1x2": (MAMBA, (1, 2), {"ssm_head_shard": True}),
          "zamba2-heads-1x2": (ZAMBA, (1, 2), {"ssm_head_shard": True})}
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -93,19 +100,21 @@ def _leaves(tree, prefix=""):
             yield f"{prefix}{k}", tree[k]
 
 
-def _jcfg(arch):
-    return dataclasses.replace(jget_config(arch), compute_dtype="float32")
+def _jcfg(arch, overrides=()):
+    return dataclasses.replace(jget_config(arch), compute_dtype="float32",
+                               **dict(overrides))
 
 
-def _batches(arch, n=STEPS):
-    ds = JSynthetic(_jcfg(arch), JShape("t", SEQ, BATCH, "train"), seed=0)
+def _batches(arch, n=STEPS, overrides=()):
+    ds = JSynthetic(_jcfg(arch, overrides), JShape("t", SEQ, BATCH, "train"),
+                    seed=0)
     return [ds.host_batch(step) for step in range(n)]
 
 
-def _jax_steps(arch, tree, batches):
+def _jax_steps(arch, tree, batches, overrides=()):
     """The reference's single-device steps from ``tree`` on ``batches``:
     -> (metrics a step, the updated tree)."""
-    jcfg = _jcfg(arch)
+    jcfg = _jcfg(arch, overrides)
     params = jax.tree.map(jnp.asarray, tree)
     step = jax.jit(jmake_step(jcfg, jadamw.OptConfig()))
     opt, out = jadamw.init_opt_state(params), []
@@ -116,9 +125,9 @@ def _jax_steps(arch, tree, batches):
 
 
 @functools.lru_cache(maxsize=None)
-def _init(arch):
+def _init(arch, overrides=()):
     return jax.tree.map(np.asarray, jmodel.init_params(
-        _jcfg(arch), jax.random.PRNGKey(0)))
+        _jcfg(arch, overrides), jax.random.PRNGKey(0)))
 
 
 _RUNS: dict = {}
@@ -129,8 +138,9 @@ def _run(world, case):
     every rank's result) for one case, computed once."""
     if case not in _RUNS:
         arch, shape, kw = CASES[case]
-        tree, batches = _init(arch), _batches(arch)
-        jm, jp = _jax_steps(arch, tree, batches)
+        over = tuple(sorted(kw.get("overrides", {}).items()))
+        tree, batches = _init(arch, over), _batches(arch, overrides=over)
+        jm, jp = _jax_steps(arch, tree, batches, over)
         ranks = world.run("mesh_steps", arch, shape, tree, batches, **kw)
         _RUNS[case] = (jm, jp, ranks[0], ranks)
     return _RUNS[case]
@@ -169,7 +179,7 @@ def test_each_rank_holds_its_blocks(world, case):
     """The blocks a rank trains on are the specs' cut: ZeRO-3 halves the
     data-cut dims, TP the model-cut ones, EP the expert dim."""
     arch, (dp, tp), kw = CASES[case]
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch), **kw.get("overrides", {}))
     _, _, _, ranks = _run(world, case)
     n = dp * tp
     assert all(r is None for r in ranks[n:])
@@ -196,7 +206,8 @@ def test_each_rank_holds_its_blocks(world, case):
         assert shapes["layers.0.attn.wo"] == (cfg.num_heads * hd // tp,
                                               cfg.d_model // dp)
         if arch == LLAMA4:
-            e = cfg.num_experts // dp
+            e = cfg.num_experts // (tp if kw.get("moe_ep_axis") == "model"
+                                    else dp)
             assert shapes["layers.0.moe.w_gate"] == (e, cfg.d_model,
                                                      cfg.d_ff)
             assert shapes["layers.0.moe.w_down"] == (e, cfg.d_ff,

@@ -270,17 +270,20 @@ def _train_cfg(arch, depth=None):
 
 def mesh_steps(arch, mesh_shape, tree, batches, *, moe_ep=False,
                ssm_head_shard=False, opt=None, depth=None, device="cpu",
-               accum_steps=1, zero1=False, capacity_factor=None):
+               accum_steps=1, zero1=False, capacity_factor=None,
+               moe_ep_axis="dp", overrides=None):
     """``make_train_step`` on this rank's blocks of ``tree`` (a whole
     reference-layout parameter tree) under a (data, model) mesh of
     ``mesh_shape`` with its tensors on ``device``, one step per global
     batch of ``batches`` (this rank's rows cut from each): -> each step's
     metrics, the whole updated tree (rank 0), this rank's parameter and
     moment block shapes and kernel launches.  ``zero1``: the parameters at
-    ``named_specs(zero_stage=1)`` (TP only), the moments at ZeRO-3."""
+    ``named_specs(zero_stage=1)`` (TP only), the moments at ZeRO-3;
+    ``moe_ep_axis``: the axis ``moe_ep`` cuts the experts over;
+    ``overrides``: config fields replaced."""
     from repro_torch.optim import adamw
     from repro_torch.train import make_train_step
-    cfg = _train_cfg(arch, depth)
+    cfg = dataclasses.replace(_train_cfg(arch, depth), **(overrides or {}))
     if capacity_factor is not None:
         cfg = dataclasses.replace(cfg, capacity_factor=capacity_factor)
     dev = torch.device(device)
@@ -294,11 +297,13 @@ def mesh_steps(arch, mesh_shape, tree, batches, *, moe_ep=False,
     model = from_numpy_params(tree, cfg, dev, dtype=torch.float32)
     full_named = dict(model.named_parameters())
     specs = S.named_specs(full_named, m, moe_ep=moe_ep,
+                          moe_ep_axis=moe_ep_axis,
                           zero_stage=1 if zero1 else 3)
-    opt_specs = (S.named_specs(full_named, m, moe_ep=moe_ep) if zero1
-                 else specs)
+    opt_specs = (S.named_specs(full_named, m, moe_ep=moe_ep,
+                               moe_ep_axis=moe_ep_axis) if zero1 else specs)
     S.shard_params(model, specs, m)
-    ep = S.expert_axis(m, True, "dp", cfg.num_experts) if moe_ep else None
+    ep = (S.expert_axis(m, True, moe_ep_axis, cfg.num_experts) if moe_ep
+          else None)
     ctx = D.DistContext(m, S.dp_axes(m), "model", moe_ep_axis=ep,
                         ssm_head_shard=ssm_head_shard, sharded_params=True)
     ocfg = adamw.OptConfig(**(opt or {}))
@@ -497,3 +502,68 @@ def placed(kind, *, store=True, repeats=2, device="cpu"):
                                                axis="x", repeats=repeats)
     return autotune.time_placed_dense_e2e(16, 64, 32, mesh=m, axis="x",
                                           repeats=repeats)
+
+
+# ---------------------------------------------------------------------------
+# Serving under tensor parallelism, and the dry run's real twins
+# ---------------------------------------------------------------------------
+
+def tp_serve(arch, tree, prompt, steps, max_len, frames=None,
+             device="cpu"):
+    """``prefill`` then a scalar-position ``decode_step`` per column of
+    ``steps`` on a (1, nc) mesh with its tensors on ``device``, the
+    weights cut as the dry run cuts them (``named_specs`` at ZeRO-3: every
+    attention panel tensor-parallel) and the cache's sequence over
+    "model": -> every call's logits, the rank's cache rows and its kernel
+    launches."""
+    cfg = _train_cfg(arch)
+    nc = torch.distributed.get_world_size()
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    m = mesh((1, nc), ("data", "model"), dev)
+    K.reset_launch_counts()
+    model = from_numpy_params(tree, cfg, dev)
+    S.shard_params(model, S.named_specs(dict(model.named_parameters()), m),
+                   m)
+    ctx = D.DistContext(m, S.dp_axes(m), "model", sharded_params=True)
+    batch = {"tokens": _t(prompt).long().to(dev)}
+    if frames is not None:
+        batch["frames"] = _t(frames).to(dev)
+    with D.use_dist(ctx):
+        cache = M.make_cache(cfg, prompt.shape[0], max_len, device=dev)
+        logits, cache = M.prefill(model, cfg, batch, cache)
+        outs = [_n(logits.cpu())]
+        pos = prompt.shape[1] + (cfg.num_patches or 0)
+        for i in range(steps.shape[1]):
+            logits, cache = M.decode_step(
+                model, cfg, _t(steps[:, i:i + 1]).long().to(dev), cache,
+                pos)
+            outs.append(_n(logits.cpu()))
+            pos += 1
+    rows = cache["k" if "k" in cache else "attn_k"].shape[2]
+    return {"logits": outs, "cache_rows": rows,
+            "launches": {k: v for k, v in K.launch_counts().items() if v}}
+
+
+def dryrun_twin(arch, shape, variant, mesh_shape, overrides=None):
+    """The dry run's cell (``launch.dryrun.build_cell``) of ``arch`` (with
+    ``overrides``) at ``shape`` = (seq, batch, kind) under ``variant``, run
+    for real on this rank of a (data, model) mesh of ``mesh_shape``: ->
+    its recorded collectives as (op, bytes, axis) and its exact argument
+    bytes (None past the mesh)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as DR
+    cfg = dataclasses.replace(get_config(arch), **(overrides or {}))
+    m = mesh(tuple(mesh_shape), ("data", "model"))
+    if m is None:
+        return None
+    seq, batch, kind = shape
+    with _env(C.ENV_A2A, "dense"):
+        cell = DR.build_cell(cfg, ShapeConfig("twin", seq, batch, kind), m,
+                             variant)
+        with D.use_dist(cell.dist), C.record() as rec:
+            cell.step(*cell.args)
+    return {"record": [(e.op, e.bytes, e.axis) for e in rec],
+            "argument_size": cell.argument_size}
