@@ -379,6 +379,23 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    tracked peak printed beside ``torch.cuda.max_memory_allocated`` (no
    gate); each rank's launches of the three steps (zeroed just before
    each, read just after) join the kernels line's ``launches_by_run``;
+13h. [paper] the paper's own comparison (paper Fig. 4): the seven shapes
+   of the reference's ``benchmarks/single_core.py`` (T1 (2^20, 32 / 64,
+   32 / 64), T2 (32 / 64, 2^20, 32 / 64), T3 (20480, 20480, 32 / 96), a
+   regular 4096^3 control), each in fp32 and bf16, through ``ops.gemm``
+   with ``plan_gemm(...).kernel_kwargs()`` (as the dispatch layer runs
+   it; where ``ops.gemm``'s clamp changes its FMA tile, also as planned,
+   ``clamp=False``) and with ``tgemm_plan(...).kernel_kwargs()`` (the
+   TGEMM baseline, paper Alg. 1: one fixed tile, unclamped; run once
+   where both plans take the same body and tile); every case held to its
+   plain version (a case outside its tolerance fails the run), its launch
+   counted from 0 by kernel and body; then timed (the median of 3: CUDA
+   events around one call of 5 ms or more, else ``time_ms`` runs of
+   about 100 ms) beside ``torch.matmul`` and the plain version.  One line
+   per case: the adaptive body and tile, both medians, the measured TGEMM
+   / adaptive ratio beside the CMR model's, ``torch.matmul``'s and the
+   plain version's times, the bound, ``upper_bound_fraction`` and the
+   card's name and power limit;
 14. [time] each kernel at the decode-step shapes of the model it serves, and
    the two backward kernels at the training shapes (split-K on its
    tensor-core and FMA bodies), and ftimm_gemm at qwen3-1.7b's training
@@ -441,7 +458,8 @@ from repro_torch.core.gemm import (batched_matmul, grouped_matmul,  # noqa: E402
                                    grouped_swiglu, matmul, matmul_swiglu,
                                    plan_batched_gemm, plan_gemm,
                                    plan_ragged_gemm, ragged_matmul,
-                                   ragged_swiglu)
+                                   ragged_swiglu, tgemm_plan,
+                                   upper_bound_fraction)
 from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.kernels.ftimm import kernel as K  # noqa: E402
 from repro_torch.kernels.ftimm import ops  # noqa: E402
@@ -6573,6 +6591,187 @@ def dryrun_phase(dev) -> tuple[dict, dict]:
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# [paper]: the paper's single-core comparison on the card -- the adaptive
+# plan against the fixed TGEMM blocking (paper Alg. 1) at the paper's shapes
+# ---------------------------------------------------------------------------
+
+# benchmarks/single_core.py's CASES (name, M, K, N), copied: the paper's
+# three irregular types and a regular control.
+PAPER_CASES = (("t1_tall_small", 2**20, 32, 32),
+               ("t1_tall_small_k64", 2**20, 64, 64),
+               ("t2_skinny_tall", 32, 2**20, 32),
+               ("t2_skinny_tall_n64", 64, 2**20, 64),
+               ("t3_regular_tall", 20480, 20480, 32),
+               ("t3_regular_tall_n96", 20480, 20480, 96),
+               ("regular_control", 4096, 4096, 4096))
+PAPER_DTYPES = (FP32, BF16)
+PAPER_RUN = ("paper", "single_core shapes")     # its launches_by_run key
+PAPER_TRIALS = 3            # time_ms runs; a case's time is their median
+PAPER_TRIAL_MS = 100.0      # device time a run aims at: 3 to 20 calls
+PAPER_LONG_MS = 5.0         # a call this long is timed alone
+
+
+def paper_case(label, m, k, n, dtype, plan, *, clamp: bool) -> Case:
+    """``ops.gemm(a, b, clamp=clamp, **plan.kernel_kwargs())`` on (M, K)
+    x (K, N) operands of ``dtype`` (and output).  ``clamp`` True runs the
+    plan as the dispatch layer does (an FMA tile clamped to the extent),
+    False as planned (TGEMM's fixed tile padded by masking)."""
+    kw = dict(plan.kernel_kwargs(), clamp=clamp)
+
+    def make(gen):
+        return (_randn(gen, (m, k), dtype),
+                _randn(gen, (k, n), dtype, k ** -0.5))
+
+    return Case("ftimm_gemm", label, make,
+                lambda a, b: ops.gemm(a, b, out_dtype=dtype, **kw),
+                lambda a, b: K.ftimm_gemm_plain(a, b, out_dtype=dtype),
+                torch.matmul, (m * k + k * n + m * n) * _size(dtype),
+                2.0 * m * n * k, dtype, dtype, model=PAPER_RUN[1],
+                phase=PAPER_RUN[0], timed=True)
+
+
+def paper_ran(plan, m: int, k: int, n: int, width: int, clamp: bool):
+    """(body, tile, grid order, K slices) that ``ops.gemm`` runs for the
+    plan, and the CMR model's time of it."""
+    tile = (plan.bm, plan.bn, plan.bk)
+    if plan.body == "fma" and clamp:
+        tile = ops.clamp_tile(m, n, plan.bm, plan.bn,
+                              K.fma_tiles(width, width))
+    e = tuner.dense_estimate(m, k, n, width, width, body=plan.body,
+                             bm=tile[0], bn=tile[1], bk=tile[2],
+                             dim_order=plan.dim_order, kslices=plan.kslices)
+    return (plan.body, tile, plan.dim_order, plan.kslices), e.t_total
+
+
+def paper_median_ms(fn, inputs, sleep_ms: float) -> float:
+    """The median of PAPER_TRIALS times of ``fn``.  A call of PAPER_LONG_MS
+    or more (timed alone first) is timed alone with CUDA events
+    (``ops.bench``), its launch a negligible share; a shorter one is a
+    ``time_ms`` run of about PAPER_TRIAL_MS of device time (3 to 20 calls
+    back to back)."""
+    first = ops.bench(fn, *inputs[0], repeats=1) * 1e3
+    if first >= PAPER_LONG_MS:
+        return ops.bench(fn, *inputs[0], warmup=0,
+                         repeats=PAPER_TRIALS) * 1e3
+    reps = min(max(int(PAPER_TRIAL_MS / max(first, 1e-3)), 3), 20)
+    return statistics.median(time_ms(fn, inputs, reps, sleep_ms)
+                             for _ in range(PAPER_TRIALS))
+
+
+def paper_phase(dev, card: str) -> tuple[dict, dict, dict]:
+    """[paper]: each of PAPER_CASES in fp32 and bf16 through ``ops.gemm``
+    with the adaptive plan (``plan_gemm``, analytic: the store is cleared)
+    as the dispatch layer runs it and, where the clamp changes its FMA
+    tile, as planned; and with the TGEMM baseline (``tgemm_plan``) as
+    planned, unless it runs the adaptive plan's body and tile ("same
+    plan").  Every case is held to its plain version (``check``: a case
+    outside its tolerance raises); those runs are the phase's launches,
+    counted from 0 and checked by kernel and body.  Then each is timed
+    (``paper_median_ms``) beside ``torch.matmul`` and the plain version,
+    with its bound (the operands read once and the output written once
+    at 3.35 TB/s, or its FLOPs at the dtype's peak).
+    -> (figures, launches, bodies) for the kernels line."""
+    t_phase = time.monotonic()
+    autotune.clear_plan_store()
+    rows, cases = [], []
+    for name, m, k, n in PAPER_CASES:
+        for dtype in PAPER_DTYPES:
+            w = _size(dtype)
+            ours, fixed = plan_gemm(m, k, n, w, w), tgemm_plan(m, k, n, w, w)
+            if ours.mode != "analytic":
+                raise AssertionError(f"[paper] {name}: plan {ours.mode}")
+            label = f"{name} {_name(dtype)}"
+            row = {"name": name, "m": m, "k": k, "n": n,
+                   "dtype": _name(dtype), "t_model_planned": ours.est.t_total,
+                   "t_model_tgemm": fixed.est.t_total,
+                   "upper_bound_fraction": upper_bound_fraction(
+                       m, n, k, in_bytes=w), "cases": {}}
+            runs = {"adaptive": (ours, True), "planned": (ours, False),
+                    "tgemm": (fixed, False)}
+            seen = {}
+            for kind, (plan, clamp) in runs.items():
+                ran, t_model = paper_ran(plan, m, k, n, w, clamp)
+                row[f"ran_{kind}"] = ran
+                row[f"t_model_{kind}"] = t_model
+                if ran in seen:         # the same body and tile runs
+                    row["cases"][kind] = seen[ran]
+                    continue
+                seen[ran] = kind
+                c = paper_case(f"{kind} {label}", m, k, n, dtype, plan,
+                               clamp=clamp)
+                row["cases"][kind] = c
+                cases.append((c, plan.body))
+            rows.append(row)
+    K.reset_launch_counts()
+    worst = check([c for c, _ in cases], dev)
+    launches, bodies = K.launch_counts(), K.body_counts()
+    want = {b: sum(body == b for _, body in cases) for b in K.BODIES}
+    if (launches["ftimm_gemm"] != len(cases)
+            or any(v for kname, v in launches.items()
+                   if kname != "ftimm_gemm")
+            or bodies["ftimm_gemm"] != want):
+        raise AssertionError(f"[paper] {len(cases)} cases ({want}) "
+                             f"launched {launches}, bodies {bodies}")
+    free_card()
+    gen = torch.Generator(device=dev).manual_seed(4)
+    sleep_ms = sleep_ms_per_mcycle()
+    out = []
+    for row in rows:
+        first = row["cases"]["adaptive"]
+        inputs = [first.make(gen)]
+        lib = torch.matmul(*inputs[0])
+        rel, _ = rel_err(lib, first.plain(*inputs[0]))
+        if rel > TOL[first.out_dtype]:
+            raise AssertionError(f"[paper] {first.label}: torch.matmul "
+                                 f"disagrees with the plain version ({rel})")
+        ms = {}
+        for kind, c in row["cases"].items():
+            if isinstance(c, Case):
+                ms[kind] = paper_median_ms(c.run, inputs, sleep_ms)
+        for kind, c in row["cases"].items():
+            if not isinstance(c, Case):
+                ms[kind] = ms[c]
+        lib_ms = paper_median_ms(torch.matmul, inputs, sleep_ms)
+        plain_ms = paper_median_ms(first.plain, inputs, sleep_ms)
+        del inputs, lib
+        free_card()
+        t_bytes = first.nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = first.flops / PEAK_FLOPS[first.dtype] * 1e3
+        r = {k: v for k, v in row.items() if k != "cases"}
+        r.update({"ms": ms, "matmul_ms": lib_ms, "plain_ms": plain_ms,
+                  "bound_ms": max(t_bytes, t_ops),
+                  "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                  "same_plan": row["ran_tgemm"] == row["ran_planned"],
+                  "measured_ratio": ms["tgemm"] / ms["adaptive"],
+                  "modeled_ratio": (row["t_model_tgemm"]
+                                    / row["t_model_planned"]),
+                  "modeled_ratio_as_run": (row["t_model_tgemm"]
+                                           / row["t_model_adaptive"]),
+                  "measured_ratio_planned": ms["tgemm"] / ms["planned"]})
+        out.append(r)
+        body, tile, order, _ = r["ran_adaptive"]
+        planned = ("" if r["ran_planned"] == r["ran_adaptive"] else
+                   f" (planned {r['ran_planned'][1]}: "
+                   f"{ms['planned']:.4f} ms)")
+        tg = ("same plan" if r["same_plan"] else
+              f"tgemm {r['ran_tgemm'][0]} {r['ran_tgemm'][1]} "
+              f"{ms['tgemm']:.4f} ms")
+        as_run = r["modeled_ratio_as_run"]
+        log(f"  [paper] {r['name']:19s} {r['dtype']:8s} adaptive {body} "
+            f"{tile} {order} {ms['adaptive']:.4f} ms{planned} | {tg} | "
+            f"tgemm / adaptive measured {r['measured_ratio']:.3f}x, modeled "
+            f"{r['modeled_ratio']:.3f}x (as run {as_run:.3f}x) | "
+            f"torch.matmul {lib_ms:.4f} ms | plain {plain_ms:.4f} ms | "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) | "
+            f"upper_bound_fraction {r['upper_bound_fraction']:.4f} | {card}")
+    res = {"rows": out, "cases": len(cases), "max_abs_err": worst,
+           "launches": launches["ftimm_gemm"], "bodies": want,
+           "seconds": time.monotonic() - t_phase}
+    log(json.dumps({"paper": res}))
+    return res, {PAPER_RUN: launches}, {PAPER_RUN: bodies}
+
+
 def check_not_degraded(phase: str) -> None:
     """A phase other than [chaos] must end with no degraded serving: a real
     fused-kernel failure may not hide behind the rung."""
@@ -6651,6 +6850,14 @@ def kernel_entries(rows, launches, worst, bodies,
     return entries
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need an "
@@ -6659,10 +6866,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False   # plain fp32 is fp32
     torch.backends.cudnn.allow_tf32 = False
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    card = card_line()
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
@@ -6884,6 +7088,17 @@ def main() -> int:
     check_not_degraded("dryrun")
 
     t0 = time.monotonic()
+    log("[paper] the paper's single-core shapes in fp32 and bf16: the "
+        "adaptive plan against the fixed TGEMM blocking, beside "
+        "torch.matmul")
+    free_card()
+    paper, paper_launches, paper_bodies = paper_phase(dev, card)
+    launches.update(paper_launches)
+    phases["paper"] = time.monotonic() - t0
+    log(f"[paper] done in {phases['paper']:.1f} s")
+    check_not_degraded("paper")
+
+    t0 = time.monotonic()
     log("[roofline] the perf model's bound for every profiled decode step")
     profiled = {**recurrent["serve"], **families, **archs["serve"],
                 f"{LLAMA4}-w8": quant["serving"]["w8"]}
@@ -6918,13 +7133,14 @@ def main() -> int:
                     "quant": quant, "archs": archs, "train_dots": dots,
                     "chaos": chaos_out, "contracts": contracts_out,
                     "dist": dist_out, "mesh_train": mesh_train,
-                    "placed": placed, "dryrun": dryrun,
+                    "placed": placed, "dryrun": dryrun, "paper": paper,
                     "roofline": roofline, "phases_s": phases}))
     log(card)
     bodies = {("serve", a): stats[a]["bodies"] for a in stats}
     bodies.update(rec_bodies)
     bodies.update(fam_bodies)
     bodies.update(arch_bodies)
+    bodies.update(paper_bodies)
     bodies.update({("train", a): train_stats[a]["bodies"]
                    for a in train_stats})
     print(json.dumps({"kernels": kernel_entries(rows, launches, worst,

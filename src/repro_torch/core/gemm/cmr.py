@@ -21,6 +21,10 @@ FMA rate, the grouped / ragged stream's wgmma at the tensor cores').
 The estimate only ranks tiles and bodies; it is not a claim about the
 card's speed.
 
+``upper_bound_fraction`` gives that bound for a shape at its best
+compiled tile, and the paper's own CMR equations (Eqs. 1-4,
+``paper_f1``-``paper_f4``) are kept verbatim at the end.
+
 A plan placed on a mesh adds an interconnect term: the bytes a rank
 sends over its NVLinks (``HopperSpec.link_bw``, the data sheet's 18
 links) for the K-parallel reduction or the expert-parallel exchange
@@ -30,9 +34,9 @@ from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
-from ...kernels.ftimm.kernel import (GSTREAM_ROWS, STREAM_STRIP,
-                                     gstream_smem, smem_bytes, stream_rows,
-                                     stream_slice)
+from ...kernels.ftimm.kernel import (GSTREAM_ROWS, STREAM_STRIP, TC_TILES,
+                                     fma_tiles, gemm_bodies, gstream_smem,
+                                     smem_bytes, stream_rows, stream_slice)
 
 
 def ceil_to(x: int, b: int) -> int:
@@ -131,6 +135,40 @@ def occupancy(ctas: int, spec: HopperSpec = H100) -> float:
     return ctas / (waves * spec.sms)
 
 
+def upper_bound_fraction(m: int, n: int, k: int, spec: HopperSpec = H100,
+                         in_bytes: int = 4) -> float:
+    """Per-shape upper bound on the share of the card's peak for these
+    operands that the compiled tiles can reach (the H100 counterpart of the
+    paper's Sec. IV-A3 bound), from padding and wave quantization alone.
+
+    For every tile of the non-stream bodies ``kernel.gemm_bodies`` allows
+    for two ``in_bytes`` operands (the FMA body's ``kernel.TILES``, or
+    ``QUANT_TILES`` for 1-byte ones, via ``fma_tiles``; the tensor cores'
+    ``kernel.TC_TILES`` for bf16) the bound is the product of
+      * useful / padded FLOPs: whole (bm, bn) tiles and whole bk steps;
+      * ``occupancy``: the grid's CTAs in waves over ``HopperSpec.sms``;
+      * the body's peak over the fastest body's (``HopperSpec.kernel_flops``:
+        in bf16 an FMA tile runs at the CUDA cores' 67 of the tensor cores'
+        989 TFLOP/s).
+    The result is the best tile's.  The weight stream is left out: it is
+    bytes-bound by design.  At m = 2^20, k = 4096: fp32 gives 0.4995 at
+    n = 16 (the narrowest tile is 32 wide) and 0.99997 from n = 64; bf16
+    gives 0.123 at n = 16 (16 of a 128-wide tensor-core tile's columns)."""
+    bodies = [b for b in gemm_bodies(in_bytes, in_bytes, m, True, True)
+              if b != "stream"]
+    top = max(spec.kernel_flops(b, in_bytes) for b in bodies)
+    best = 0.0
+    for body in bodies:
+        rate = spec.kernel_flops(body, in_bytes) / top
+        tiles = TC_TILES if body == "tc" else fma_tiles(in_bytes, in_bytes)
+        for bm, bn, bk in tiles:
+            ctas = cdiv(m, bm) * cdiv(n, bn)
+            padded = float(ctas) * bm * bn * ceil_to(k, bk)
+            best = max(best, m * n * k / padded * occupancy(ctas, spec)
+                       * rate)
+    return best
+
+
 @dataclass(frozen=True)
 class PlanEstimate:
     """Roofline-style estimate for one candidate tile."""
@@ -146,6 +184,10 @@ class PlanEstimate:
     def t_total(self) -> float:
         # Loads are staged while the previous K step computes: take the max.
         return max(self.t_compute, self.t_memory)
+
+    @property
+    def bound(self) -> str:
+        return "compute" if self.t_compute >= self.t_memory else "memory"
 
 
 def _estimate(g: int, m: int, k: int, n: int, *, bm: int, bn: int, bk: int,
@@ -409,3 +451,32 @@ def estimate_ep(rows: int, width: int, num_shards: int, *,
         imbalance = max(1.0, float(max_shard_rows) / mean_rows)
     bottleneck = (link_bytes / num_shards) * imbalance
     return EpEstimate(link_bytes, bottleneck / spec.link_bw, imbalance)
+
+
+# ---------------------------------------------------------------------------
+# Paper Eqs. 1-4 (verbatim): the CMR of each strategy and memory level on
+# FT-m7032, independent of the hardware the port plans for.
+# ---------------------------------------------------------------------------
+
+def paper_f1(m_a: float, k_g: float, n_g: float, num_core: int) -> float:
+    """Eq. 1 — M-parallel, B panel in GSM; A via SM, C via AM."""
+    return (2.0 * m_a * k_g * n_g * num_core) / (
+        num_core * m_a * (k_g + 2.0 * n_g) + k_g * n_g)
+
+
+def paper_f2(m_a: float, k_a: float, n_a: float, num_core: int) -> float:
+    """Eq. 2 — M-parallel, B/C blocks resident in AM; A streamed."""
+    return (2.0 * m_a * k_a * n_a * num_core) / (
+        num_core * m_a * (k_a + 2.0 * n_a) + k_a * n_a)
+
+
+def paper_f3(m_g: float, k_a: float, n_g: float, num_core: int) -> float:
+    """Eq. 3 — K-parallel, C panel in GSM."""
+    return (2.0 * m_g * k_a * n_g * num_core) / (
+        num_core * k_a * (m_g + n_g) + 2.0 * m_g * n_g)
+
+
+def paper_f4(m_a: float, k_a: float, n_a: float, num_core: int) -> float:
+    """Eq. 4 — K-parallel, AM level."""
+    return (2.0 * m_a * k_a * n_a * num_core) / (
+        num_core * k_a * (m_a + n_a) + 2.0 * m_a * n_a)

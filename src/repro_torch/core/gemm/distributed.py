@@ -83,6 +83,14 @@ def _pad_dim(x: torch.Tensor | None, dim: int, n: int):
     return F.pad(x, pad)
 
 
+def choose_strategy(m: int, k: int, n: int, num_cores: int,
+                    in_bytes: int = 4) -> str:
+    """M-parallel or K-parallel for a dense product over ``num_cores``
+    ranks (paper Alg. 4 / 5): the strategy of ``plan_distributed``'s
+    placed plan (a single rank gets "m_parallel")."""
+    return plan_distributed(m, k, n, num_cores, in_bytes).strategy
+
+
 def dist_matmul(a: torch.Tensor, b: torch.Tensor, *, mesh, axis="model",
                 strategy: str | None = None, schedule: str | None = None,
                 out_dtype=None, epilogue: Epilogue | None = None,

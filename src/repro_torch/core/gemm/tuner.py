@@ -336,9 +336,15 @@ def ragged_candidates(g: int, total: int, k: int, n: int, in_bytes: int = 4,
     return cands
 
 
+# Two modeled times within this share of each other tie: the argmin then
+# takes the paper's tie-break (``_better``), so a plan may model up to this
+# much slower than the fastest candidate.
+ARGMIN_TIE = 0.02
+
+
 def _better(a: GemmPlan, b: GemmPlan) -> bool:
     ta, tb = a.est.t_total, b.est.t_total
-    if abs(ta - tb) > 0.02 * max(ta, tb):
+    if abs(ta - tb) > ARGMIN_TIE * max(ta, tb):
         return ta < tb
     # Tie-break as the paper does: prefer the fused epilogue (fewer device
     # memory round trips), the longer K step (more accumulator reuse per
@@ -818,6 +824,30 @@ def plan_gemm(m: int, k: int, n: int, in_bytes: int = 4, out_bytes: int = 4,
     return _cached_dense(m, k, n, in_bytes, out_bytes, cands, panels=panels,
                          b_bytes=b_bytes, a_ok=a_ok, b_ok=b_ok,
                          trans=trans, fp8=fp8) or argmin_plan(cands)
+
+
+def tgemm_plan(m: int, k: int, n: int, in_bytes: int = 4,
+               out_bytes: int = 4, spec: HopperSpec = H100) -> GemmPlan:
+    """The TGEMM baseline (paper Alg. 1): ONE fixed regular blocking for
+    every shape, (m_g=512, k_g=512, n_a=96, m_s=6) on FT-m7032.  On the
+    H100 it is the tensor-core tile ``TC_TILES[0]`` (128, 128, 64) where
+    ``gemm_bodies`` allows the tensor cores for the operands, else the
+    FMA body's largest compiled tile ((128, 128, 16); 1-byte operands:
+    (64, 64, 32)), in grid order "mn", one split, one K slice.  It is
+    priced as ``gemm_candidates`` prices that candidate, so it is one of
+    them: the analytic ``plan_gemm`` never models slower than it by more
+    than the argmin's tie window (``ARGMIN_TIE``), nor loses to it under
+    the planner's own order (``_better``).  It never consults the plan
+    store: TGEMM does not tune.  Run it with ``ops.gemm(a, b, clamp=False,
+    **plan.kernel_kwargs())``: unclamped, the FMA tile pads a narrow
+    extent as TGEMM does."""
+    tc = "tc" in gemm_bodies(in_bytes, in_bytes, m, True, True)
+    body = "tc" if tc else "fma"
+    bm, bn, bk = TC_TILES[0] if tc else fma_tiles(in_bytes, in_bytes)[-1]
+    e = dense_estimate(m, k, n, in_bytes, out_bytes, spec, body=body, bm=bm,
+                       bn=bn, bk=bk, dim_order="mn")
+    return GemmPlan(bm=bm, bn=bn, bk=bk, dim_order="mn",
+                    gemm_class=classify(m, k, n), est=e, body=body)
 
 
 @functools.lru_cache(maxsize=8192)

@@ -81,15 +81,19 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bn: int = 128,
          bk: int = 16, nsplit: int = 1, trans: str = "nn",
          dim_order: str = "mn", out_dtype=None,
          epilogue: Epilogue | None = None, bias=None, residual=None,
-         scale=None, body: str = "fma", kslices: int = 1) -> torch.Tensor:
+         scale=None, body: str = "fma", kslices: int = 1,
+         clamp: bool = True) -> torch.Tensor:
     """Dense ftIMM GEMM with the epilogue fused at the flush.  ``scale`` is
     the (N,) dequant vector when ``epilogue.scale_vec``.  ``body`` picks
     the FMA, tensor-core or stream body of ``ftimm_gemm`` (the stream body
-    cuts K into ``kslices`` slices).  ``nsplit > 1`` selects the split-K
-    kernel on the FMA or tensor-core ``body`` (the epilogue then runs on
-    the fp32 sum of the partials; the stream body splits K its own way and
-    raises); the split count is clamped to the K blocks of the body's tile,
-    and degenerates to 1, the M-parallel kernel."""
+    cuts K into ``kslices`` slices).  The FMA tile is clamped to the
+    extent (``clamp_tile``) unless ``clamp`` is False, which runs it as
+    given (``tuner.tgemm_plan``'s fixed blocking, padded by masking).
+    ``nsplit > 1`` selects the split-K kernel on the FMA or tensor-core
+    ``body`` (the epilogue then runs on the fp32 sum of the partials; the
+    stream body splits K its own way and raises); the split count is
+    clamped to the K blocks of the body's tile, and degenerates to 1, the
+    M-parallel kernel."""
     if dim_order not in ("mn", "nm"):
         raise ValueError(f"unknown dim_order: {dim_order!r}")
     if body == "stream" and nsplit > 1:
@@ -97,7 +101,7 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bn: int = 128,
                          "has no stream body (the stream splits K into "
                          "kslices)")
     m, k, n = _k.mkn(trans, a.shape, b.shape)
-    if body == "fma":
+    if body == "fma" and clamp:
         bm, bn, bk = clamp_tile(m, n, bm, bn, _k.fma_tiles(
             a.element_size(), b.element_size()))
     nsplit = clamp_nsplit(k, bk, nsplit)

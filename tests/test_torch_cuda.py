@@ -1837,3 +1837,24 @@ def test_placed_search_on_the_card(dev, tmp_path):
                     assert math.isfinite(t) and t > 0, (kind, row)
     finally:
         world.close()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(2**16, 32, 32), (32, 2**16, 32),
+                                   (2048, 2048, 96)])
+def test_paper_adaptive_and_tgemm_plans(m, k, n, dtype, dev):
+    """The paper's T1 / T2 / T3 shapes, cut: ``plan_gemm``'s and
+    ``tgemm_plan``'s ``kernel_kwargs()`` through ``ops.gemm`` (TGEMM's
+    fixed tile unclamped), each launching its body once."""
+    from repro_torch.core.gemm import plan_gemm, tgemm_plan
+    w = torch.tensor([], dtype=dtype).element_size()
+    a, b = _operands("nn", m, k, n, dtype, dev)
+    want = K.ftimm_gemm_plain(a, b, out_dtype=dtype)
+    for plan, clamp in ((plan_gemm(m, k, n, w, w), True),
+                        (tgemm_plan(m, k, n, w, w), False)):
+        K.reset_launch_counts()
+        got = ops.gemm(a, b, out_dtype=dtype, clamp=clamp,
+                       **plan.kernel_kwargs())
+        torch.cuda.synchronize()
+        assert K.body_counts()["ftimm_gemm"][plan.body] == 1
+        _close(got, want)

@@ -1,5 +1,6 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-torch and numpy, never jax and nothing of the JAX package ``repro``."""
+torch and numpy, never jax, nothing of the JAX package ``repro`` and
+nothing of its ``benchmarks``."""
 import ast
 import os
 import pathlib
@@ -30,7 +31,8 @@ def _imported_modules(path: pathlib.Path) -> set[str]:
 def test_port_file_imports_neither_jax_nor_repro(path):
     for name in _imported_modules(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), (path, name)
+        assert top not in ("jax", "jaxlib", "repro", "benchmarks"), (path,
+                                                                     name)
     text = path.read_text()
     assert "importlib" not in text and "__import__" not in text, path
 
