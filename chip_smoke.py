@@ -40,14 +40,19 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    shared 2-D operand, 1 / 4 / 16 rows, one or several K slices, a K tail
    at every group's edge, the ragged distributions: empty groups, a group
    of exactly 16 rows, rows outside every group), and at the MoE and qwen
-   home shapes.  Then the planner's body choice through the dispatch layer
+   home shapes; the grouped kernel's rows body at the decode attention
+   shapes of every family, at 1 / 3 / 7 / 8 rows a group over rows of no
+   multiple of its widths, with K slices, each epilogue field and a
+   shared 2-D operand, its reruns bitwise and NaN past K in either
+   operand kept out.  Then the planner's body choice through the dispatch layer
    (a misaligned operand takes the FMA body, 4 rows the stream -- so does
    every bf16 decode GEMM of the recurrent path and of [families] -- 200
    the tensor cores; mixtral's 16-row expert buffers, llama4's 4 routed rows
    and qwen's 4 decode rows of the dense gate/up pair the grouped / ragged
    stream, for the down projection and the gate/up pairs, 128, 320 and
-   1024 rows the tensor cores, fp32 the FMA body) and bit-identical reruns
-   of the streams (the pairs' at 1 and 4 K slices), the tensor-core ragged
+   1024 rows the tensor cores, fp32 the FMA body; qwen's and llava's fp32
+   decode QK^T / PV the rows body, 9 rows a group or a misaligned cache the
+   FMA body) and bit-identical reruns of the streams (the pairs' at 1 and 4 K slices), the tensor-core ragged
    dW, the grouped / ragged / dense tensor cores and pairs and split-K's
    tensor cores at qwen's dW shape.  Normwise
    tolerance max|kernel - plain| / max|plain|: 2e-2 for a bf16 output
@@ -78,9 +83,10 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    down) of at most 16 rows (qwen's 4 decode rows, mixtral's 16 rows an
    expert, llama4's 4 routed rows) must have taken a stream body, of more
    rows (the bucket prefills) the tensor cores, the fp32 attention
-   products the FMA body.  Then one prompt's full-width
-   qwen3 prefill
-   logits are held against the plain versions on the CPU (5e-2 normwise:
+   products of a decode step (2 rows a group) the rows body and those of
+   the prefills (more than 8 rows) the FMA body.  Then one prompt's
+   full-width qwen3 prefill logits are held against the plain versions on
+   the CPU (5e-2 normwise:
    28 bf16 layers, each of whose activations may round one bf16 ulp apart);
 6. [recurrent] mamba2-370m (SSM, 48 layers) and zamba2-7b (hybrid: 81
    Mamba2 layers, one shared attention + MLP block after every 6) on
@@ -96,9 +102,11 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    launch, with no non-finite logits; every ftimm_gemm of at most 4 rows
    (decode, the conv tails, the 2-token prompt) on the stream body, the
    dense pair of at most 16 rows on the stream and more on the tensor
-   cores, the fp32 attention on the FMA body; one decode step launches
-   ftimm_gemm 97 times (mamba2) or 228, the pair 13 and the grouped
-   kernel 26 times (zamba2).  Prints the decode median, the prefill walls,
+   cores, the fp32 attention on the rows body at most 8 rows a group
+   (decode, the 2-token prompt) and on the FMA body past it; one decode
+   step launches ftimm_gemm 97 times (mamba2) or 228, the pair 13 and the
+   grouped kernel 26 times (zamba2).  Prints the decode median, the
+   prefill walls,
    peak memory, launches a step and ``profile_decode``'s device busy,
    idle share and device time by kernel group;
 7. [families] whisper-base (encdec: 6 encoder layers over 1500 frames, 6
@@ -111,8 +119,9 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    frames / patches; [recurrent]'s 6 requests.  Every kernel of the path
    must launch, with no non-finite logits; every ftimm_gemm of at most 4
    rows on the stream body, the pair of at most 16 rows on the stream and
-   more on the tensor cores, the fp32 attention on the FMA body; one
-   decode step launches ftimm_gemm 43 / 81 times, the pair 6 / 16 and the
+   more on the tensor cores, the fp32 attention on the rows body at most
+   8 rows a group (decode) and on the FMA body past it; one decode step
+   launches ftimm_gemm 43 / 81 times, the pair 6 / 16 and the
    grouped kernel 36 / 32 (whisper's cross-attention spans two 1024-row
    blocks); llava's pages held 576 + prompt + 15 rows a request.  Prints
    the decode median, the prefill walls (whisper's with its encoder),
@@ -132,7 +141,7 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    (8 new tokens each; their windowed layers drop rows).  Every kernel of
    the path must launch, with no fault, the pool must drain; a decode step
    launches ftimm_gemm 5 x layers + 1 times on the stream, the pair once
-   and the fp32 attention twice a layer on the FMA body.  Prints the decode
+   and the fp32 attention twice a layer on the rows body.  Prints the decode
    median, the prefill walls, peak memory, launches a step and
    ``profile_decode``'s device busy, idle share and device time by kernel
    group;
@@ -164,9 +173,9 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    router) and the bf16 routers the planner gives it, the ragged dW,
    every bf16 x bf16 grouped and ragged expert product and qwen's dense
    gate/up pair (56 launches a step: 28 layers, forward and remat) the
-   tensor cores, and the fp32 attention and mixed grouped / ragged
-   products the FMA body.  Prints the median step time, tokens/s and peak device
-   memory.  Every distinct kernel call of these runs is recorded (kernel,
+   tensor cores, and the fp32 attention (128 and more rows a group) and
+   mixed grouped / ragged products the FMA body.  Prints the median step
+   time, tokens/s and peak device memory.  Every distinct kernel call of these runs is recorded (kernel,
    operand shapes, strides and dtypes, trans, tile, epilogue, out dtype;
    the ragged offsets as routed);
 10. [train-check] each recorded call replayed on random operands of its
@@ -405,8 +414,11 @@ Run from the root of a checkout; it needs one CUDA card, nvcc (PATH or
    1024 training rows, and the MoE expert-down products and gate/up pairs
    on the FMA body beside the planned stream at decode and on the tensor
    cores and the FMA body at mixtral's training capacity 320 and llama4's
-   1024 routed rows (CUDA events around calls enqueued behind a sleep
-   kernel, so the card runs them back to back; operands rotated through
+   1024 routed rows, and the decode attention products of PERF.md's rows
+   2, 2r, 2e, 2v and 2g (QK^T and PV) on the grouped kernel's FMA body
+   beside their planned calls on its rows body and ``torch.bmm`` (CUDA
+   events around calls enqueued behind a sleep kernel, so the card runs
+   them back to back; operands rotated through
    more copies than the 50 MB L2 holds) beside its plain version, one
    PyTorch library call where one computes the same function
    (``torch.bmm`` / ``torch._grouped_mm`` for the MoE expert products,
@@ -967,6 +979,50 @@ def grouped_body_case(label, g, m, k, n, *, body, trans="nn", shared="none",
         timed=timed)
 
 
+def rows_body_case(label, g, m, k, n, *, trans, body, shared="none",
+                   epi=None, per_step=0, model=ARCH,
+                   timed=False) -> Case:
+    """``ftimm_gemm_grouped``'s few-rows fp32 ``body`` ("rows" at its cut,
+    ``rows_tile``; "fma" at the tile the planner gives the FMA body) called
+    directly on fp32 operands laid out as the decode attention lays them
+    out; ``epi`` with (G, N) fp32 vectors and a (G, M, N) fp32 residual.
+    Its yardstick is ``torch.bmm`` on the same operands."""
+    epi = epi or K.IDENTITY
+    sa = (m, k)
+    sb = (n, k) if trans == "nt" else (k, n)
+    fma = plan_batched_gemm(g, m, k, n, 4, 4, shared, trans=trans,
+                            b_rows=False)
+    bm, bn, bk = (K.rows_tile(g, k, n, trans) if body == "rows"
+                  else (fma.bm, fma.bn, fma.bk))
+
+    def make(gen):
+        vec = (_randn(gen, (g, n), FP32) if epi.bias or epi.scale_vec
+               else None)
+        res = _randn(gen, (g, m, n), FP32) if epi.residual else None
+        return (_randn(gen, sa if shared == "a" else (g,) + sa, FP32),
+                _randn(gen, sb if shared == "b" else (g,) + sb, FP32,
+                       k ** -0.5), vec, res)
+
+    def kw(vec, res):
+        return dict(trans=trans, epilogue=epi,
+                    bias=vec if epi.bias else None,
+                    scale=vec if epi.scale_vec else None, residual=res)
+
+    def library(a, b, vec, res):
+        return torch.bmm(a, b.transpose(1, 2) if trans == "nt" else b)
+
+    ga, gb = (1 if shared == "a" else g), (1 if shared == "b" else g)
+    return Case(
+        "ftimm_gemm_grouped", f"{body} {label}", make,
+        lambda a, b, v, r: K.ftimm_gemm_grouped(
+            a, b, bm=bm, bn=bn, bk=bk, body=body,
+            dim_order=fma.dim_order if body == "fma" else "mn", **kw(v, r)),
+        lambda a, b, v, r: K.ftimm_gemm_grouped_plain(a, b, **kw(v, r)),
+        library if epi.is_identity and shared == "none" else None,
+        (ga * m * k + gb * k * n + g * m * n) * 4, 2.0 * g * m * n * k,
+        FP32, FP32, per_step, model, timed=timed)
+
+
 def _offsets(sizes, device) -> torch.Tensor:
     return torch.tensor([0, *np.cumsum(sizes).tolist()], dtype=torch.int32,
                         device=device)
@@ -1436,6 +1492,72 @@ def family_path_cases() -> list[Case]:
     return cases
 
 
+def rows_shapes() -> list[tuple[str, str, int, int, int, int]]:
+    """(label, model, G, M, head_dim, cache rows) of the decode attention
+    products at SLOTS slots that PERF.md's rows 2, 2r, 2e, 2v and 2g
+    time: qwen3-1.7b over its 96-row paged view, zamba2-7b's shared block
+    and whisper-base's self-attention over the REC_MAX_LEN-row slot cache,
+    whisper's cross-attention over one 1024-row block of its encoder rows,
+    llava-next-34b over its 896-row view (7 query heads a KV group) and
+    gemma3-4b over its 1,120-row view (head_dim 256)."""
+    q, z, w, ll, gm = (get_config(a) for a in (ARCH, ZAMBA, WHISPER, LLAVA,
+                                                GEMMA))
+
+    def kv(cfg, model, view, label):
+        return (label, model, SLOTS * cfg.num_kv_heads,
+                cfg.num_heads // cfg.num_kv_heads, cfg.head_dim_, view)
+
+    return [
+        kv(q, ARCH, math.ceil(MAX_LEN / PAGE) * PAGE, "qwen3-1.7b"),
+        kv(z, ZAMBA, REC_MAX_LEN, "zamba2-7b shared"),
+        kv(w, WHISPER, REC_MAX_LEN, "whisper-base self"),
+        kv(w, WHISPER, min(1024, w.encoder_seq), "whisper-base cross"),
+        kv(ll, LLAVA, math.ceil((REC_MAX_LEN + ll.num_patches) / PAGE)
+           * PAGE, "llava-next-34b"),
+        kv(gm, GEMMA, ARCH_MAX_LEN[GEMMA], "gemma3-4b")]
+
+
+def rows_path_cases() -> list[Case]:
+    """Each decode attention product of ``rows_shapes``, QK^T ("nt") and PV
+    ("nn"), on the rows body and on the FMA body, held against the plain
+    version; the FMA body is timed beside the path's own planned calls --
+    the rows body, the per-step cases of the phases' case lists -- and
+    their ``torch.bmm``."""
+    cases = []
+    for label, model, g, m, hd, view in rows_shapes():
+        for trans, k, n, what in (("nt", hd, view, "qk^T"),
+                                  ("nn", view, hd, "pv")):
+            for body in ("rows", "fma"):
+                cases.append(rows_body_case(
+                    f"{label} decode {what} G={g} M={m} {view} rows", g, m,
+                    k, n, trans=trans, body=body, model=model,
+                    timed=body == "fma"))
+    return cases
+
+
+def rows_edge_cases() -> list[Case]:
+    """The rows body at extents that are no multiple of its widths: 1, 3, 7
+    and 8 rows a group, a head_dim row of 132 floats (two float4s a lane,
+    the second past the row for most lanes) over 261 cache rows, both
+    trans; K slices on both (head_dim 300 in "nt", 300 cache rows in "nn")
+    with each epilogue field and (G, N) vectors; a shared 2-D operand."""
+    cases = []
+    for trans in ("nt", "nn"):
+        for m in (1, 3, 7, 8):
+            k, n = (132, 261) if trans == "nt" else (261, 132)
+            cases.append(rows_body_case(f"5x{m}x{k}x{n} {trans}", 5, m, k, n,
+                                        trans=trans, body="rows"))
+        for label, epi in NEW_BODY_EPILOGUES:
+            cases.append(rows_body_case(f"3x3x300x200 {trans} (G,N) {label}",
+                                        3, 3, 300, 200, trans=trans,
+                                        body="rows", epi=epi))
+        for shared in ("a", "b"):
+            cases.append(rows_body_case(f"4x2x128x200 {trans} shared {shared}",
+                                        4, 2, 128, 200, trans=trans,
+                                        body="rows", shared=shared))
+    return cases
+
+
 def check_decode_bodies(cases: list[Case], dev) -> dict:
     """Each bf16 decode GEMM of the recurrent path, or of whisper's and
     llava's ([families]) (``ftimm_gemm`` and the dense pair at SLOTS rows),
@@ -1782,6 +1904,7 @@ def check_bodies(dev) -> dict:
     log("  stream (4 x 6144 x 2048) x3 and tensor-core ragged dW (llama4 "
         "gate/up) x2: bit-identical reruns")
     seen.update(check_group_bodies(gen))
+    seen.update(check_rows_body(gen))
     seen.update(check_pair_and_splitk(gen))
     return seen
 
@@ -1938,6 +2061,101 @@ def check_group_bodies(gen) -> dict:
         del inputs, runs
     log(f"  {len(reruns)} grouped / ragged (and SwiGLU pair) stream and "
         "tensor-core calls at the home shapes: bit-identical reruns")
+    return seen
+
+
+def check_rows_body(gen) -> dict:
+    """The grouped kernel's rows body through the dispatch layer and what
+    it promises.  qwen3-1.7b's and llava's decode QK^T / PV, their K / V
+    laid out as ``models.attention`` lays them out, plan the rows body; 9
+    rows a group and a cache whose rows are not 16-byte aligned plan the
+    FMA body.  Then: reruns bit-identical (one K slice and several, both
+    trans), and NaN past K in either operand -- A's columns or B's rows /
+    elements past K -- stays out."""
+    cfg = get_config(ARCH)
+    seen, want = {}, {}
+    b, kvh, hd = SLOTS, cfg.num_kv_heads, cfg.head_dim_
+    cache = _randn(gen, (b, 96, kvh, hd), BF16)
+
+    def cache_rows(c):      # as models.attention._bmm_qk / _bmm_pv
+        return c.to(FP32).permute(0, 2, 1, 3).reshape(b * kvh, -1, hd)
+
+    for label, m, kf in (
+            ("qwen decode, 2 rows", 2, cache_rows(cache)),
+            ("llava-like, 7 rows", 7, cache_rows(cache)),
+            ("9 rows", 9, cache_rows(cache)),
+            ("rows 8 bytes off", 2, torch.empty(
+                b * kvh * 96 * hd + 2, dtype=FP32,
+                device=gen.device)[2:].view(b * kvh, 96, hd).copy_(
+                    cache_rows(cache)))):
+        q = _randn(gen, (b * kvh, m, hd), FP32)
+        planned = "rows" if m <= K.ROWS_MAX and kf.data_ptr() % 16 == 0 \
+            else "fma"
+        for trans, a, bb in (("nt", q, kf), ("nn", None, kf)):
+            if a is None:
+                a = _randn(gen, (b * kvh, m, kf.shape[1]), FP32)
+            K.reset_launch_counts()
+            got = batched_matmul(a, bb, trans=trans, out_dtype=FP32)
+            rel, _ = rel_err(got, K.ftimm_gemm_grouped_plain(a, bb,
+                                                             trans=trans))
+            key = f"rows {label} {trans}"
+            seen[key] = {k: v for k, v in
+                         K.body_counts()["ftimm_gemm_grouped"].items() if v}
+            want[key] = {planned: 1}
+            if rel > TOL[FP32]:
+                raise AssertionError(f"{key}: normwise {rel:.3g}")
+    if seen != want:
+        raise AssertionError(f"planned bodies {seen}, expected {want}")
+    log(f"  rows body through dispatch: {seen}")
+    reruns = 0
+    for g, m, k, n, trans in ((32, 2, 128, 96, "nt"), (32, 2, 96, 128, "nn"),
+                              (16, 2, 1120, 256, "nn"),
+                              (3, 5, 600, 257, "nt"), (32, 7, 896, 128, "nn")):
+        c = rows_body_case("", g, m, k, n, trans=trans, body="rows")
+        inputs = c.make(gen)
+        runs = [c.run(*inputs) for _ in range(3)]
+        torch.cuda.synchronize()
+        if not all(torch.equal(r, runs[0]) for r in runs[1:]):
+            raise AssertionError(f"rows {g}x{m}x{k}x{n} {trans}: reruns "
+                                 "differ")
+        reruns += 1
+    nan = {}
+    for trans in ("nt", "nn"):
+        for side in ("a", "b"):
+            g, m, k, n = 4, 3, 300, 200
+            a = _randn(gen, (g, m, k), FP32)
+            bb = _randn(gen, (g, n, k) if trans == "nt" else (g, k, n), FP32,
+                        k ** -0.5)
+            if side == "a":
+                pad = torch.full((g, m, k + 8), float("nan"),
+                                 device=gen.device)
+                pad[..., :k] = a
+                a = pad[..., :k]
+            elif trans == "nt":
+                pad = torch.full((g, n, k + 8), float("nan"),
+                                 device=gen.device)
+                pad[..., :k] = bb
+                bb = pad[..., :k]
+            else:
+                pad = torch.full((g, k + 5, n), float("nan"),
+                                 device=gen.device)
+                pad[:, :k] = bb
+                bb = pad[:, :k]
+            for tile in (K.rows_tile(g, k, n, trans),
+                         (K.ROWS_MAX, 64, 64) if trans == "nt"
+                         else (K.ROWS_MAX, 128, 70)):
+                got = K.ftimm_gemm_grouped(a, bb, bm=tile[0], bn=tile[1],
+                                           bk=tile[2], trans=trans,
+                                           body="rows")
+                rel, _ = rel_err(got, K.ftimm_gemm_grouped_plain(
+                    a, bb, trans=trans))
+                key = f"NaN past K in {side.upper()} {trans} {tile}"
+                nan[key] = rel
+                if not bool(torch.isfinite(got).all()) or rel > TOL[FP32]:
+                    raise AssertionError(f"rows {key}: normwise {rel:.3g}")
+    log(f"  rows body: {reruns} shapes' reruns bit-identical; NaN past K in "
+        f"either operand stays out ({len(nan)} calls, worst normwise "
+        f"{max(nan.values()):.1e})")
     return seen
 
 
@@ -2223,12 +2441,13 @@ def serve(arch: str, dev) -> tuple[dict, ServeEngine, dict]:
     # Each bf16 expert launch (gate/up pair and down) of at most 16 rows (a
     # group: mixtral's decode capacity; in all: llama4's SLOTS routed decode
     # rows) on the stream, of more (the bucket prefills) on the tensor
-    # cores; fp32 (attention) on the FMA body.  So too qwen's dense gate/up
-    # pair: its SLOTS decode rows on the stream, the prefills' on the
-    # tensor cores.
+    # cores; fp32 attention on the rows body at decode (at most ROWS_MAX
+    # rows a group), on the FMA body in the prefills.  So too qwen's dense
+    # gate/up pair: its SLOTS decode rows on the stream, the prefills' on
+    # the tensor cores.
     expert = group_calls_by_body(recorder)
     for (kernel, pair, rows, body), n in expert.items():
-        planned = ("fma" if pair != "bf16"
+        planned = (fp32_group_body(kernel, pair, rows) if pair != "bf16"
                    else "stream" if rows <= K.GSTREAM_ROWS else "tc")
         if body != planned:
             raise AssertionError(f"{arch}: {kernel} {pair} calls of {rows} "
@@ -2473,7 +2692,8 @@ def serve_family(arch: str, dev) -> tuple[dict, dict, dict]:
     # take the stream body; the dense pair of at most 16 rows the stream,
     # of more the body its plan names (the tensor cores, but the FMA body
     # for whisper's narrow 512 x 2048 pair at 17 and 40 rows); the fp32
-    # attention the FMA body.
+    # attention the rows body at most ROWS_MAX rows a group (decode, the
+    # 2-token prompt), else the FMA body.
     again = [Request(rid=len(reqs) + i, prompt=r.prompt, max_new_tokens=3)
              for i, r in enumerate(reqs[:SLOTS])]
     with CallRecorder() as recorder:
@@ -2485,7 +2705,7 @@ def serve_family(arch: str, dev) -> tuple[dict, dict, dict]:
                              f"bodies {small}, not only the stream")
     grouped = group_calls_by_body(recorder)
     for (kernel, pair, rows, body), n in grouped.items():
-        planned = ("fma" if pair != "bf16"
+        planned = (fp32_group_body(kernel, pair, rows) if pair != "bf16"
                    else "stream" if rows <= K.GSTREAM_ROWS
                    else plan_gemm(rows, cfg.d_model, cfg.d_ff, 2, 2,
                                   panels=2).body)
@@ -2669,8 +2889,8 @@ GROUP_KERNELS = ("ftimm_gemm_swiglu", "ftimm_gemm_grouped",
 
 def group_calls_by_body(recorder: CallRecorder) -> dict[tuple, int]:
     """Launches of the three SwiGLU pairs and the grouped and ragged
-    kernels in a recorded run by (kernel, operand pair "bf16" or
-    "mixed/fp32", rows a group (the dense pair and the ragged kernels: all
+    kernels in a recorded run by (kernel, operand pair "bf16", "fp32" or
+    "mixed", rows a group (the dense pair and the ragged kernels: all
     rows), body)."""
     out: dict[tuple, int] = {}
     for call in recorder.calls.values():
@@ -2678,13 +2898,23 @@ def group_calls_by_body(recorder: CallRecorder) -> dict[tuple, int]:
         if name not in GROUP_KERNELS:
             continue
         a, b = call["args"][:2]
-        pair = "bf16" if a[3] == b[3] == BF16 else "mixed/fp32"
+        pair = ("bf16" if a[3] == b[3] == BF16
+                else "fp32" if a[3] == b[3] == FP32 else "mixed")
         trans = call["kwargs"].get("trans", "nn")
         rows = (K.mkn(trans, a[1][-2:], b[1][-2:])[0]
                 if name.startswith("ftimm_gemm_grouped") else a[1][0])
         key = (name, pair, rows, call["kwargs"].get("body", "fma"))
         out[key] = out.get(key, 0) + call["count"]
     return out
+
+
+def fp32_group_body(kernel: str, pair: str, rows: int) -> str:
+    """The body a grouped / ragged kernel or pair call that is not bf16 x
+    bf16 plans: the grouped kernel's fp32 products of at most ROWS_MAX
+    rows a group (decode attention) the rows body, every other (the fp32
+    attention of prefill and training, the mixed pairs) the FMA body."""
+    return ("rows" if kernel == "ftimm_gemm_grouped" and pair == "fp32"
+            and rows <= K.ROWS_MAX else "fma")
 
 
 def gemm_bodies_by_pair(recorder: CallRecorder) -> dict[str, int]:
@@ -2715,12 +2945,14 @@ def check_train_bodies(arch: str, by_pair: dict, bodies: dict,
     products of fewer than 128 columns that the CMR model plans on it (the
     routers' 8 or 16 experts); the ragged dW takes the tensor cores; the
     grouped and ragged kernels and the three SwiGLU pairs take the tensor
-    cores for their bf16 x bf16 products and the FMA body for the fp32
-    attention products and the mixed pairs (``expert``:
+    cores for their bf16 x bf16 products and, for the fp32 attention
+    products (128 and more rows a group) and the mixed pairs, the body
+    ``fp32_group_body`` names: the FMA body (``expert``:
     ``group_calls_by_body``); qwen3-1.7b launches its dense pair on the
     tensor cores twice a layer a step (the forward and its remat)."""
     for (kernel, pair, rows, body), n in expert.items():
-        if (pair == "bf16") != (body == "tc"):
+        if body != ("tc" if pair == "bf16"
+                    else fp32_group_body(kernel, pair, rows)):
             raise AssertionError(f"{arch} train: {kernel} {pair} calls of "
                                  f"{rows} rows took the {body} body "
                                  f"({expert})")
@@ -3140,9 +3372,12 @@ def _plan_str(p) -> str:
 
 def _named(name: str, args, kwargs) -> dict:
     """A recorded planner call's arguments by name.  ``fp8`` is left out:
-    the tuner times 1-byte operands as int8, and qwen's calls are wide."""
+    the tuner times 1-byte operands as int8, and qwen's calls are wide.
+    ``b_rows`` is left out too: the tuner makes its own operands, whose
+    rows the grouped rows body reads."""
     call = dict(inspect.signature(getattr(tuner, name)).bind(
         *args, **dict(kwargs)).arguments)
+    call.pop("b_rows", None)
     if call.pop("fp8", False):
         raise AssertionError(f"{name}{args}: the tuner does not time fp8")
     return call
@@ -3156,8 +3391,10 @@ def _retime(name: str, call: dict, plans, dev) -> list[float]:
 
 def _argmin(name: str, call: dict, spec):
     """The CMR argmin of a recorded call under ``spec``, whatever the store
-    holds (the layout ``trans`` keys the store, not the candidates)."""
-    flags = {k: v for k, v in call.items() if k != "trans"}
+    holds (the layout ``trans`` keys the store; of the candidates only the
+    grouped rows body's cut follows it)."""
+    flags = {k: v for k, v in call.items()
+             if k != "trans" or name == "plan_batched_gemm"}
     return tuner.argmin_plan(FAMILIES[name][2](spec=spec, **flags))
 
 
@@ -3983,7 +4220,7 @@ def serve_arch(arch: str, dev) -> tuple[dict, dict, dict]:
     Every request must finish with in-vocabulary tokens and no fault, every
     kernel of the path launch, the pages drain; a decode step launches
     ftimm_gemm 5 x layers + 1 times (all on the stream body), the pair
-    once and the two fp32 attention products twice a layer (FMA body).
+    once and the two fp32 attention products twice a layer (rows body).
     Returns (stats, the launch counts of just this run, its body counts)."""
     cfg = get_config(arch)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -4034,7 +4271,7 @@ def serve_arch(arch: str, dev) -> tuple[dict, dict, dict]:
     step_bodies = {k: {b: n for b, n in v.items() if n}
                    for k, v in K.body_counts().items() if any(v.values())}
     if set(step_bodies["ftimm_gemm"]) != {"stream"} or set(
-            step_bodies["ftimm_gemm_grouped"]) != {"fma"}:
+            step_bodies["ftimm_gemm_grouped"]) != {"rows"}:
         raise AssertionError(f"{arch}: a decode step's bodies {step_bodies}")
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
     view = engine.kv.table.shape[1] * PAGE
@@ -4730,6 +4967,21 @@ def poison_cases(gen) -> list[tuple[str, str, object, object, torch.dtype]]:
                                         nsplit=3, body=body),
                       functools.partial(K.ftimm_gemm_splitk_plain, sa, sb,
                                         bk=tile[2], nsplit=3), dt))
+    # The grouped rows body: fp32, 5 rows a group, at its cut and at one
+    # of 64-wide K slices ("nt") / 70-row ones ("nn").
+    ra = pz((3, 5, k), FP32)
+    for trans, rb in (("nt", pz((3, 150, k), FP32, s)),
+                      ("nn", pz((3, k, 150), FP32, s))):
+        for tile in (K.rows_tile(3, k, 150, trans),
+                     (K.ROWS_MAX, 64, 64) if trans == "nt"
+                     else (K.ROWS_MAX, 128, 70)):
+            cases.append(("ftimm_gemm_grouped", f"rows {trans} {tile}",
+                          functools.partial(
+                              K.ftimm_gemm_grouped, ra, rb, bm=tile[0],
+                              bn=tile[1], bk=tile[2], trans=trans,
+                              body="rows"),
+                          functools.partial(K.ftimm_gemm_grouped_plain, ra,
+                                            rb, trans=trans), FP32))
     return cases
 
 
@@ -6886,9 +7138,10 @@ def main() -> int:
     rec_cases = recurrent_path_cases()
     fam_cases = family_path_cases()
     trn_cases = train_cases()
+    rows_cases = rows_path_cases()
     log("[check] kernels against their plain versions")
     worst = check(qwen_cases + moe_cases + rec_cases + fam_cases + trn_cases
-                  + edge_cases(), dev)
+                  + edge_cases() + rows_cases + rows_edge_cases(), dev)
     bodies_check = check_bodies(dev)
     bodies_check["recurrent decode"] = check_decode_bodies(rec_cases, dev)
     bodies_check["families decode"] = check_decode_bodies(fam_cases, dev)
@@ -7110,7 +7363,7 @@ def main() -> int:
     t0 = time.monotonic()
     log("[time] decode-step and training shapes")
     rows = timings(qwen_cases + moe_cases + rec_cases + fam_cases + trn_cases
-                   + arch_cases, dev)
+                   + arch_cases + rows_cases, dev)
     check_not_degraded("time")
     phases["time"] = time.monotonic() - t0
     log(f"[time] done in {phases['time']:.1f} s")

@@ -24,7 +24,8 @@ a launch:
   4. Plan invariants (``check_blocks``) -- the tile is one the body is
      compiled for, the stream's K slices fit the grid, the grid order is
      one the kernel walks, split-K is dense only, a 1-byte operand is on
-     the FMA body only, every edge is masked; split-K with a fused
+     the FMA body only, the rows body takes fp32 of at most ROWS_MAX rows
+     a group, every edge is masked; split-K with a fused
      nonlinear tail and a flush vector neither (N,) nor (G, N) are
      violations (``check_schedule``, ``check_epilogue_vectors``).
 
@@ -132,7 +133,9 @@ def plan_kernel(family: str, *, panels: int = 1, nsplit: int = 1,
 # ---------------------------------------------------------------------------
 
 def _tile_compiled(kernel: str, body: str, bm: int, bn: int, bk: int,
-                   widths: tuple[int, int]) -> bool:
+                   widths: tuple[int, int], trans: str = "nn") -> bool:
+    if body == "rows":
+        return K.rows_tile_ok(bm, bn, bk, trans)
     if body == "fma":
         menu = (K.fma_tiles(*widths) if kernel in _NARROW_KERNELS
                 else K.TILES)
@@ -152,13 +155,14 @@ def check_blocks(family: str, dims: Sequence[int], *, bm: int, bn: int,
                  bk: int, nsplit: int = 1, dim_order: str = "mn",
                  edge: str = "masked", in_bytes: int = 4, out_bytes: int = 4,
                  ragged: str = "m", body: str = "fma", kslices: int = 1,
-                 panels: int = 1, b_bytes: int | None = None
-                 ) -> list[Violation]:
+                 panels: int = 1, b_bytes: int | None = None,
+                 trans: str = "nn") -> list[Violation]:
     """The plan invariants of the Hopper bodies; cheap enough for the
     sweep to run on every candidate the tuner generates.  ``dims``:
     (M, K, N) dense, (G, M, K, N) batched, (G, T, K, N) ragged ((G, T, D,
     F) for the dW, ``ragged`` "k"); ``b_bytes``: B's width when it differs
-    from A's; ``panels`` 2: a SwiGLU pair."""
+    from A's; ``panels`` 2: a SwiGLU pair; ``trans``: the grouped call's
+    layout, which the rows body's cut follows (``kernel.rows_tile_ok``)."""
     if family not in FAMILIES:
         return [Violation("bad_family", f"family {family!r} not in "
                                         f"{FAMILIES}")]
@@ -202,10 +206,24 @@ def check_blocks(family: str, dims: Sequence[int], *, bm: int, bn: int,
             "narrow_operand_body",
             f"a 1-byte operand runs on the FMA body only, not {kernel}'s "
             f"{body} body"))
-    if not _tile_compiled(kernel, body, bm, bn, bk, widths):
+    if not _tile_compiled(kernel, body, bm, bn, bk, widths, trans):
         v.append(Violation("tile_not_compiled",
                            f"({bm}, {bn}, {bk}) is not a tile {kernel}'s "
-                           f"{body} body is compiled for"))
+                           f"{body} body is compiled for"
+                           + (f" ({trans})" if body == "rows" else "")))
+    if body == "rows":
+        if widths != (4, 4):
+            v.append(Violation("rows_body_types",
+                               f"the rows body takes fp32 x fp32 only, not "
+                               f"{widths[0]} x {widths[1]}-byte operands"))
+        if dims[1] > K.ROWS_MAX:
+            v.append(Violation("rows_exceeded",
+                               f"{dims[1]} rows a group exceed the rows "
+                               f"body's {K.ROWS_MAX}"))
+        if max(_cdiv(dims[2], bk), 1) > 65535:
+            v.append(Violation("rows_slices_over_grid",
+                               f"{_cdiv(dims[2], bk)} K slices exceed the "
+                               "grid's y extent (65535)"))
     if body == "stream":
         k = dims[1] if family == "dense" else dims[2]
         _, slices = K.stream_slice(k, kslices)
@@ -231,6 +249,8 @@ def smem_footprint(kernel: str, body: str, *, bm: int, bn: int, bk: int,
     the register stream stages rows, which must fit ``STREAM_SMEM``."""
     if body == "fma":
         return K.smem_bytes(bm, bn, bk, panels), 0
+    if body == "rows":
+        return K.smem_bytes(bm, bn, bk, body="rows"), 0
     if body == "tc":
         return K.smem_bytes(bm, bn, bk, panels, body="tc",
                             stages=K.TC_STAGES[kernel]), 0
@@ -571,7 +591,10 @@ def masked_operands(csrc: str | Path | None = None
     zeroes the rows past the window in A's blocks and every B block), or
     split-K's windows of whole 64-row steps; the register stream's ``k <
     kl`` guards on the staged A rows and every B load; the group stream's
-    TMA boxes over K slices of whole 64-row steps."""
+    TMA boxes over K slices of whole 64-row steps; the rows body's
+    (``ftimm_rows.cuh``) zero-byte copies of B past the K bound (the row
+    bound for "nn", the element bound for "nt": the two ``make_stream``
+    calls) and its ``k_hi`` guards on A's loads."""
     root = Path(csrc) if csrc is not None else K.CSRC
     common = _code(root / "ftimm_common.cuh")
     tc = _code(root / "ftimm_tc.cuh")
@@ -594,6 +617,15 @@ def masked_operands(csrc: str | Path | None = None
                                                                       8))
     gs_x = bool(re.search(r"tma_box\([^;]*&tx", gs))
     gs_w = bool(re.search(r"map = q == 0 \? &tw : &tu", gs))
+    rows = _code(root / "ftimm_rows.cuh")
+    rows_b = (bool(re.search(r"const int bytes = t \* U \+ u < steps && "
+                             r"r < r_hi \? tail_bytes\(e, e_hi\) : 0;", rows))
+              and bool(re.search(r"make_stream<LPR, J>\(p, g, r_lo, r_hi, "
+                                 r"k_lo, k_hi,", rows))
+              and bool(re.search(r"make_stream<LPR, J>\(p, g, k_lo, k_hi, "
+                                 r"n0, p\.N,", rows)))
+    rows_a = (bool(re.search(r"= k < k_hi \? ga\[", rows))
+              and bool(re.search(r"= r < k_hi \? ga\[", rows)))
     gs_win = (bool(re.search(r"k_hi = min\(p\.K, k_lo \+ p\.slice\)", gs))
               and bool(re.search(r"constexpr int BK = 64;", gs))
               and K.STREAM_SLICE_STEP % 64 == 0)
@@ -633,6 +665,10 @@ def masked_operands(csrc: str | Path | None = None
                      and all(re.search(r"\bk < kl\b", c) for c in loads))
                 got = int(a) + int(b)
             out[(kernel, "stream")] = (got, need)
+        if "rows" in bodies:
+            got = ((int(rows_a) + int(rows_b))
+                   if re.search(r"ftimm::rows::launch\(", text) else 0)
+            out[(kernel, "rows")] = (got, need)
     return out
 
 
@@ -719,12 +755,12 @@ def check_placement(family: str, dims: Sequence[int], placement: Any,
 def check_plan(family: str, dims: Sequence[int], plan: Any, *,
                in_bytes: int = 4, out_bytes: int = 4, spec: Any = None,
                epilogue: Any = None, swiglu: bool = False, ragged: str = "m",
-               coverage: bool = False,
-               b_bytes: int | None = None) -> list[Violation]:
+               coverage: bool = False, b_bytes: int | None = None,
+               trans: str = "nn") -> list[Violation]:
     """Check one plan (a ``tuner.GemmPlan`` or anything duck-typed like one)
     against the static contracts; ``coverage=True`` also enumerates its
     launch's stores (all families but the ragged forward, whose rows
-    ``check_ragged_rows`` proves)."""
+    ``check_ragged_rows`` proves); ``trans`` as ``check_blocks``'s."""
     nsplit = int(getattr(plan, "nsplit", 1))
     body = getattr(plan, "body", "fma")
     panels = 2 if swiglu else 1
@@ -734,7 +770,7 @@ def check_plan(family: str, dims: Sequence[int], plan: Any, *,
                      edge=getattr(plan, "edge", "masked"), in_bytes=in_bytes,
                      out_bytes=out_bytes, ragged=ragged, body=body,
                      kslices=int(getattr(plan, "kslices", 1)),
-                     panels=panels, b_bytes=b_bytes, **tile)
+                     panels=panels, b_bytes=b_bytes, trans=trans, **tile)
     codes = {x.code for x in v}
     if not codes & {"unknown_body", "bad_family", "bad_dims",
                     "nonpositive_block"}:
@@ -810,11 +846,12 @@ def check_record(key: str, rec: Any, spec: Any = None) -> list[Violation]:
     split count, ``splitk_mixed_dtype`` (no split-K kernel takes such a
     pair, so no such record is ever measured); the rest are the plan
     contracts at the key's shape, widths and variant (``ragged:k`` the dW,
-    ``pair`` a SwiGLU pair, ``bb{n}`` B's width).  A ``|shardsN`` key's
-    record is a placed one: its ``strategy`` and ``schedule`` are held to
-    the placement rules (``bad_strategy``, ``bad_schedule``,
-    ``ring_undefined``, ``ep_indivisible``, ``strategy_family``) and its
-    tile to the tiles the body is compiled for (``tile_not_compiled``,
+    ``pair`` a SwiGLU pair, ``bb{n}`` B's width, ``trans:`` the layout).
+    A ``|shardsN`` key's record is a placed one: its ``strategy`` and
+    ``schedule`` are held to the placement rules (``bad_strategy``,
+    ``bad_schedule``, ``ring_undefined``, ``ep_indivisible``,
+    ``strategy_family``) and its tile to the tiles the body is compiled
+    for (``tile_not_compiled``,
     ``nonpositive_block``); the local shape it was measured at is the
     placement option's, so no shape contract applies."""
     pk = parse_key(key)
@@ -836,10 +873,12 @@ def check_record(key: str, rec: Any, spec: Any = None) -> list[Violation]:
         return [Violation("malformed_record",
                           f"record for {key!r} is missing or mistyping its "
                           "tile fields")]
-    ragged, b_bytes, panels = "m", None, 1
+    ragged, b_bytes, panels, trans = "m", None, 1, "nn"
     for part in pk.extra.split("+"):
         if part.startswith("ragged:"):
             ragged = part[len("ragged:"):]
+        elif part.startswith("trans:"):
+            trans = part[len("trans:"):]
         elif part == "pair":
             panels = 2
         elif part.startswith("bb"):
@@ -867,7 +906,7 @@ def check_record(key: str, rec: Any, spec: Any = None) -> list[Violation]:
                                   f"bm={bm} bn={bn} bk={bk} nsplit={nsplit}")]
         kernel = plan_kernel(pk.family, panels=panels, nsplit=nsplit,
                              ragged=ragged)
-        if not _tile_compiled(kernel, body, bm, bn, bk, widths):
+        if not _tile_compiled(kernel, body, bm, bn, bk, widths, trans):
             v.append(Violation("tile_not_compiled",
                                f"({bm}, {bn}, {bk}) is not a tile "
                                f"{kernel}'s {body} body is compiled for"))
@@ -876,7 +915,7 @@ def check_record(key: str, rec: Any, spec: Any = None) -> list[Violation]:
         pk.family, pk.dims,
         _Record(bm, bn, bk, nsplit, dim_order, edge, body, kslices, fuse),
         in_bytes=pk.in_bytes, out_bytes=pk.out_bytes, spec=spec,
-        swiglu=panels == 2, ragged=ragged, b_bytes=b_bytes)
+        swiglu=panels == 2, ragged=ragged, b_bytes=b_bytes, trans=trans)
 
 
 @dataclass(frozen=True)

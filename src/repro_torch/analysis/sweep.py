@@ -7,7 +7,8 @@ time.
 
 Sweeps the full candidate space of ``tuner.gemm_candidates`` /
 ``batched_candidates`` / ``ragged_candidates`` -- every compiled tile,
-grid order, stream slice count and body the Hopper kernels allow -- at
+grid order, stream slice count and body the Hopper kernels allow, the
+grouped product in its "nn" and "nt" layouts -- at
 the port's dtype axis (fp32, bf16, bf16 -> fp32, the mixed bf16 x fp32
 pairs, the 1-byte quantized pairs where a kernel takes them) for the
 paper's 21 irregular shapes and the GEMM shapes of every registry config
@@ -31,6 +32,7 @@ gives the largest shared-memory footprint admitted for each kernel body.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import sys
 from typing import Any, Iterable, Sequence
@@ -117,14 +119,20 @@ def registry_jobs(archs: Iterable[str] | None = None) -> list[tuple]:
     return jobs
 
 
+def _layouts(family: str, panels: int) -> tuple[str, ...]:
+    """The layouts swept: the grouped product's "nn" and "nt" (the rows
+    body cuts each its own way), else "nn"."""
+    return ("nn", "nt") if family == "batched" and panels == 1 else ("nn",)
+
+
 def _candidates(family: str, dims: tuple, ib: int, ob: int, bb, ragged: str,
-                panels: int, epi_ops: int) -> list:
+                panels: int, epi_ops: int, trans: str) -> list:
     if family == "dense":
         return tuner.gemm_candidates(*dims, ib, ob, panels=panels,
                                      b_bytes=bb, epi_ops=epi_ops)
     if family == "batched":
         return tuner.batched_candidates(*dims, ib, ob, panels=panels,
-                                        b_bytes=bb)
+                                        b_bytes=bb, trans=trans)
     return tuner.ragged_candidates(*dims, ib, ob, ragged, panels=panels,
                                    b_bytes=bb)
 
@@ -152,11 +160,13 @@ def run_sweep(shapes: Sequence[tuple[str, int, int, int]] | None = None,
         kernel = contracts.plan_kernel(family, panels=panels, ragged=ragged)
         for ib, ob, bb in _widths(family, panels, ragged):
             epis = _EPI_OPS if family == "dense" and panels == 1 else (0,)
-            for epi_ops in epis:
+            for epi_ops, trans in itertools.product(
+                    epis, _layouts(family, panels)):
                 ctx = f"ib{ib} ob{ob}" + (f" bb{bb}" if bb else "") \
-                    + f" epi{epi_ops}"
+                    + f" epi{epi_ops}" + (f" {trans}" if trans != "nn"
+                                          else "")
                 cands = _candidates(family, dims, ib, ob, bb, ragged, panels,
-                                    epi_ops)
+                                    epi_ops, trans)
                 if not cands:
                     record(name, ctx, [contracts.Violation(
                         "empty_candidates",
@@ -169,7 +179,8 @@ def run_sweep(shapes: Sequence[tuple[str, int, int, int]] | None = None,
                                  f"x{plan.kslices}",
                            contracts.check_plan(
                                family, dims, plan, in_bytes=ib, out_bytes=ob,
-                               b_bytes=bb, swiglu=panels == 2, ragged=ragged))
+                               b_bytes=bb, swiglu=panels == 2, ragged=ragged,
+                               trans=trans))
                     key = f"{kernel} {plan.body}"
                     smem[key] = max(smem.get(key, 0), contracts.smem_footprint(
                         kernel, plan.body, bm=plan.bm, bn=plan.bn, bk=plan.bk,

@@ -13,7 +13,8 @@ from .autotune import (TuneResult, autotune_batched_gemm, autotune_gemm,
                        time_placed_dense_e2e, time_placed_ragged_e2e)
 from .cmr import (H100, EpEstimate, HopperSpec, PlanEstimate, estimate,
                   estimate_batched, estimate_ep, estimate_group_stream,
-                  estimate_ragged, estimate_stream, upper_bound_fraction)
+                  estimate_ragged, estimate_rows, estimate_stream,
+                  upper_bound_fraction)
 from .dispatch import (batched_matmul, grouped_matmul, grouped_swiglu, matmul,
                        matmul_swiglu, project, project_swiglu, ragged_matmul,
                        ragged_swiglu)
@@ -29,6 +30,7 @@ from .tuner import (DistPlan, GemmPlan, MoeDispatchPlan, Placement,
 
 __all__ = ["H100", "HopperSpec", "PlanEstimate", "estimate",
            "estimate_batched", "estimate_group_stream", "estimate_ragged",
+           "estimate_rows",
            "estimate_stream", "upper_bound_fraction", "Epilogue",
            "QuantConfig", "ShapeThresholds", "degraded_stats", "tgemm_plan",
            "choose_strategy", "matmul", "project", "matmul_swiglu",

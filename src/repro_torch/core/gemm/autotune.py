@@ -524,7 +524,9 @@ def autotune_batched_gemm(g: int, m: int, k: int, n: int, in_bytes: int = 4,
     """Measured search for the grouped GEMM (``panels`` = 2: the grouped
     SwiGLU pair); the contract of ``autotune_gemm``, ``shared`` marking the
     2-D operand every group uses and the flags those of
-    ``plan_batched_gemm``; ``num_shards`` > 1 as ``autotune_gemm``'s."""
+    ``plan_batched_gemm`` (the operands timed here have B's rows aligned,
+    so the rows body is a candidate where ``trans`` and the widths allow
+    it); ``num_shards`` > 1 as ``autotune_gemm``'s."""
     dev = resolve_device(device)
     if num_shards > 1:
         return _tune_placed(
@@ -539,7 +541,8 @@ def autotune_batched_gemm(g: int, m: int, k: int, n: int, in_bytes: int = 4,
     base_spec, spec = spec, tuner.effective_spec(spec)
     flags = dict(panels=panels, b_bytes=b_bytes, a_major=a_major, b_ok=b_ok)
     sl = tuner.shortlist(tuner.batched_candidates(
-        g, m, k, n, in_bytes, out_bytes, shared, spec, **flags), top_k)
+        g, m, k, n, in_bytes, out_bytes, shared, spec, trans=trans,
+        **flags), top_k)
     mdims = _scale_batched(g, m, k, n, _budget(dev, max_elements))
     key = tuner.batched_key(g, m, k, n, in_bytes, out_bytes, shared,
                             trans=trans, **flags)

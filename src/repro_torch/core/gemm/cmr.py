@@ -17,7 +17,10 @@ per candidate tile:
 Each body of the kernels runs at its own peak: the tensor cores' bf16 rate,
 the CUDA cores' fp32 FMA rate, and the weight streams (bytes-bound by design,
 their grids fill the SMs with K slices: ``ftimm_gemm``'s FMAs priced at the
-FMA rate, the grouped / ragged stream's wgmma at the tensor cores').
+FMA rate, the grouped / ragged stream's wgmma at the tensor cores', the
+grouped few-rows fp32 stream's FMAs at the FMA rate on no padding row).
+No body's price holds the launch's own fixed cost, which every body of a
+call pays alike.
 The estimate only ranks tiles and bodies; it is not a claim about the
 card's speed.
 
@@ -34,9 +37,10 @@ from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
-from ...kernels.ftimm.kernel import (GSTREAM_ROWS, STREAM_STRIP, TC_TILES,
-                                     fma_tiles, gemm_bodies, gstream_smem,
-                                     smem_bytes, stream_rows, stream_slice)
+from ...kernels.ftimm.kernel import (GSTREAM_ROWS, ROWS_MAX, STREAM_STRIP,
+                                     TC_TILES, fma_tiles, gemm_bodies,
+                                     gstream_smem, smem_bytes, stream_rows,
+                                     stream_slice)
 
 
 def ceil_to(x: int, b: int) -> int:
@@ -127,6 +131,14 @@ STREAM_CTAS_PER_SM = 1
 # 896 / 256 CTAs and qwen3-1.7b's dense pair, whose 48 one-slice CTAs took
 # 21.8 us against 27.2 us at 2 slices (96 CTAs) and 29.0-43.3 us at 4-16.
 GSTREAM_SLICED_BW = 0.8
+# The grouped few-rows fp32 stream ("rows", ftimm_rows.cuh) keeps its copies
+# in flight without registers (a per-warp cp.async ring), as TMA does, so a
+# CTA draws up to TC_SM_BW_SHARES of the card's bandwidth.  Its price is the
+# bytes alone: ``kernel.rows_tile`` fixes its cut (the K slices too), so a
+# cost per slice would not choose between rows plans, and the fixed costs
+# measured on the H100 (about 4.6 us a launch, 1.5 us more a sliced launch:
+# ``launch.sweep_gemm --set attention``, PERF.md) are left out because the
+# FMA body's price, which the rows body competes with, has none either.
 
 
 def occupancy(ctas: int, spec: HopperSpec = H100) -> float:
@@ -323,6 +335,33 @@ def estimate_group_stream(groups: int, rows: int, k: int, n: int, *,
         t_compute=flops_padded / (spec.peak_flops_bf16 * occ),
         t_memory=hbm / (spec.hbm_bw * bw_share),
         smem_bytes=gstream_smem(panels),
+        occupancy=occ,
+    )
+
+
+def estimate_rows(g: int, m: int, k: int, n: int, *, bn: int, bk: int,
+                  shared_a: bool = False, shared_b: bool = False,
+                  out_bytes: int = 4, spec: HopperSpec = H100
+                  ) -> PlanEstimate:
+    """Model the grouped few-rows fp32 stream (M <= ROWS_MAX, fp32
+    operands): one CTA per (``bn``-wide N strip, ``bk``-deep K slice,
+    group) -- the cut ``kernel.rows_tile`` gives.  B (the cache) is read
+    once, A and C once (A's re-reads by a group's other strips hit the L2),
+    each CTA draws up to TC_SM_BW_SHARES of the card's bandwidth.  The
+    FMAs run on the call's M rows at the fp32 rate."""
+    strips, slices = cdiv(n, bn), max(cdiv(k, bk), 1)
+    ctas = g * strips * slices
+    occ = max(min(ctas / spec.sms, 1.0), 1e-3)
+    flops = 2.0 * g * m * n * k
+    hbm = ((1 if shared_b else g) * k * n * 4
+           + (1 if shared_a else g) * m * k * 4 + g * m * n * out_bytes)
+    return PlanEstimate(
+        flops_useful=flops,
+        flops_padded=flops,
+        hbm_bytes=float(hbm),
+        t_compute=flops / (spec.peak_flops_fp32 * occ),
+        t_memory=hbm / (spec.hbm_bw * min(occ * TC_SM_BW_SHARES, 1.0)),
+        smem_bytes=smem_bytes(ROWS_MAX, bn, bk, body="rows"),
         occupancy=occ,
     )
 

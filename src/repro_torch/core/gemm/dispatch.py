@@ -71,7 +71,7 @@ from ...kernels.ftimm.kernel import (check_vectors, gemm_operands_ok,
                                      grouped_operands, mkn,
                                      ragged_dw_operands_mn,
                                      ragged_operands, row_groups,
-                                     swiglu_operands)
+                                     rows_operand, swiglu_operands)
 from ...runtime import chaos as _chaos
 from .tuner import (note_degraded, note_epilogue, note_plan_use,
                     plan_batched_gemm, plan_gemm, plan_ragged_gemm)
@@ -168,10 +168,11 @@ _VERIFY = False
 @functools.lru_cache(maxsize=4096)
 def _verify_cached(family: str, dims: tuple, plan, in_bytes: int,
                    out_bytes: int, epi, swiglu: bool, ragged: str,
-                   b_bytes: int) -> bool:
+                   b_bytes: int, trans: str) -> bool:
     _contracts.assert_plan(family, dims, plan, in_bytes=in_bytes,
                            out_bytes=out_bytes, epilogue=epi, swiglu=swiglu,
-                           ragged=ragged, b_bytes=b_bytes, coverage=True)
+                           ragged=ragged, b_bytes=b_bytes, coverage=True,
+                           trans=trans)
     VERIFY_COUNTS[_contracts.plan_kernel(
         family, panels=2 if swiglu else 1, nsplit=plan.nsplit,
         ragged=ragged)] += 1
@@ -180,7 +181,7 @@ def _verify_cached(family: str, dims: tuple, plan, in_bytes: int,
 
 def _verify(family: str, dims, plan, in_bytes: int, out_bytes: int, *,
             epi=None, swiglu: bool = False, ragged: str = "m",
-            b_bytes: int | None = None) -> None:
+            b_bytes: int | None = None, trans: str = "nn") -> None:
     """``REPRO_VERIFY=1`` mode: assert the static contracts
     (``analysis.contracts.check_plan``, the launch's store coverage
     included) on every planned call, raising ``ContractError`` before any
@@ -188,7 +189,7 @@ def _verify(family: str, dims, plan, in_bytes: int, out_bytes: int, *,
     if _VERIFY:
         _verify_cached(family, tuple(int(d) for d in dims), plan,
                        int(in_bytes), int(out_bytes), epi, swiglu, ragged,
-                       int(b_bytes or in_bytes))
+                       int(b_bytes or in_bytes), trans)
 
 
 def reset_verify() -> None:
@@ -594,18 +595,20 @@ def project_swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 
 def _run_batched(a, b, trans: str, out_dtype, bias=None) -> torch.Tensor:
     """Plan one batched / grouped GEMM (its body too: the planner sees the
-    operand widths and how TMA can read them) and run it (``bias``: the
-    "nn" flush vector, (N,) or (G, N))."""
+    operand widths and how TMA and the rows body can read them) and run it
+    (``bias``: the "nn" flush vector, (N,) or (G, N))."""
     m, k, n = mkn(trans, a.shape[-2:], b.shape[-2:])
     shared = "a" if a.ndim == 2 else ("b" if b.ndim == 2 else "none")
     g = b.shape[0] if shared == "a" else a.shape[0]
     a_major, b_ok = grouped_operands(a, b, trans)
     plan = plan_batched_gemm(g, m, k, n, a.element_size(), out_dtype.itemsize,
                              shared, b_bytes=b.element_size(),
-                             a_major=a_major, b_ok=b_ok, trans=trans)
+                             a_major=a_major, b_ok=b_ok, trans=trans,
+                             b_rows=rows_operand(b))
     epi = IDENTITY if bias is None else Epilogue(bias=True)
     _verify("batched", (g, m, k, n), plan, a.element_size(),
-            out_dtype.itemsize, epi=epi, b_bytes=b.element_size())
+            out_dtype.itemsize, epi=epi, b_bytes=b.element_size(),
+            trans=trans)
     note_plan_use("batched", plan)
     if bias is not None:
         note_epilogue("batched", True)

@@ -46,12 +46,13 @@ from ...kernels.ftimm.kernel import (GROUP_TC_TILE, GSTREAM_ROWS,
                                      TC_TILES, TILES, fma_tiles,
                                      gemm_bodies,
                                      grouped_bodies, ragged_bodies,
-                                     ragged_dw_bodies, stream_rows,
-                                     stream_slice)
+                                     ragged_dw_bodies, rows_tile,
+                                     stream_rows, stream_slice)
 from . import plan_store
 from .cmr import (H100, HopperSpec, PlanEstimate, cdiv, ceil_to, estimate,
                   estimate_batched, estimate_ep, estimate_group_stream,
-                  estimate_ragged, estimate_stream, with_epilogue)
+                  estimate_ragged, estimate_rows, estimate_stream,
+                  with_epilogue)
 from .shapes import GemmClass, classify
 
 
@@ -90,7 +91,7 @@ class GemmPlan:
     gemm_class: GemmClass = GemmClass.REGULAR
     est: PlanEstimate | None = None
     mode: str = "analytic"
-    body: str = "fma"               # "fma" | "tc" | "stream"
+    body: str = "fma"               # "fma" | "tc" | "stream" | "rows"
     kslices: int = 1                # a stream body's K slices
     fuse: bool = True               # the epilogue in the flush, or (False,
                                     # a measured winner) as separate passes
@@ -158,7 +159,12 @@ def batched_estimate(g: int, m: int, k: int, n: int, in_bytes: int = 4,
                      bk: int, dim_order: str = "mn", kslices: int = 1,
                      panels: int = 1) -> PlanEstimate:
     """The CMR price of one grouped plan: the stream reads every group's
-    M rows and all G panels."""
+    M rows and all G panels; the rows body (fp32, ``bn`` / ``bk`` its cut)
+    reads B once and A and C once (``estimate_rows``)."""
+    if body == "rows":
+        return estimate_rows(g, m, k, n, bn=bn, bk=bk, shared_a=shared == "a",
+                             shared_b=shared == "b", out_bytes=out_bytes,
+                             spec=spec)
     if body == "stream":
         return estimate_group_stream(g, g * m, k, n, kslices=kslices,
                                      in_bytes=in_bytes, out_bytes=out_bytes,
@@ -274,23 +280,33 @@ def batched_candidates(g: int, m: int, k: int, n: int, in_bytes: int = 4,
                        out_bytes: int = 4, shared: str = "none",
                        spec: HopperSpec = H100, *, panels: int = 1,
                        b_bytes: int | None = None, a_major: str | None = "k",
-                       b_ok: bool = True) -> list[GemmPlan]:
+                       b_ok: bool = True, trans: str = "nn",
+                       b_rows: bool = True) -> list[GemmPlan]:
     """Candidates for the grouped GEMM: every body ``grouped_bodies``
     allows (``in_bytes`` / ``b_bytes``: A's and B's widths; ``a_major``:
     how TMA reads op(A), "k", "mn" or None; ``b_ok``: whether it reads
-    op(B)) -- the FMA tiles in both grid orders, the tensor-core tile in
-    both, the weight stream's slice counts (every group's M rows, all G
-    panels read), scored by ``batched_estimate``.  ``panels`` = 2 for the
-    grouped SwiGLU pair, which takes the same bodies with two B panels
-    (``b_ok``: TMA reads both)."""
+    op(B); ``trans`` and ``b_rows``, whether the rows body reads op(B),
+    ``kernel.rows_operand``) -- the FMA tiles in both grid orders, the
+    tensor-core tile in both, the weight stream's slice counts (every
+    group's M rows, all G panels read), the rows body at its cut
+    (``kernel.rows_tile``), scored by ``batched_estimate``.  ``panels`` = 2
+    for the grouped SwiGLU pair, which takes the bf16 bodies with two B
+    panels (``b_ok``: TMA reads both) and never the rows body."""
     cls = classify(m, k, n)
     price = functools.partial(batched_estimate, g, m, k, n, in_bytes,
                               out_bytes, shared, spec, panels=panels)
     cands = []
     for body in grouped_bodies(in_bytes, b_bytes or in_bytes, m, a_major,
-                               b_ok):
+                               b_ok, trans=trans if panels == 1 else None,
+                               b_rows=b_rows):
         if body == "stream":
             cands += _stream_candidates(cls, price, k, GSTREAM_ROWS, False)
+            continue
+        if body == "rows":
+            bm, bn, bk = rows_tile(g, k, n, trans)
+            cands.append(GemmPlan(bm=bm, bn=bn, bk=bk, gemm_class=cls,
+                                  est=price(body=body, bm=bm, bn=bn, bk=bk),
+                                  body=body))
             continue
         cands += _candidates(cls, price, spec,
                              tiles=(GROUP_TC_TILE,) if body == "tc" else TILES,
@@ -856,14 +872,16 @@ def plan_batched_gemm(g: int, m: int, k: int, n: int, in_bytes: int = 4,
                       spec: HopperSpec = H100, *, panels: int = 1,
                       b_bytes: int | None = None, a_major: str | None = "k",
                       b_ok: bool = True, trans: str = "nn",
-                      num_shards: int = 1,
+                      b_rows: bool = True, num_shards: int = 1,
                       axis: str | None = None) -> GemmPlan:
     """Pick the body and tile for the grouped GEMM C(g) = A(g) B(g), from
     the store first (as ``plan_gemm``); ``shared`` marks a 2-D operand
     used by every group ("a" | "b" | "none"); ``panels`` = 2 plans the
     grouped SwiGLU pair; ``b_bytes``, ``a_major`` and ``b_ok`` as for
     ``batched_candidates`` (``kernel.grouped_operands`` gives the last
-    two); ``trans`` keys the store.  ``num_shards`` > 1: per-entry
+    two); ``trans`` keys the store and, with ``b_rows``
+    (``kernel.rows_operand``), decides whether the rows body may take an
+    fp32 call of at most ROWS_MAX rows.  ``num_shards`` > 1: per-entry
     m_parallel vs expert_parallel on ``axis``."""
     spec = effective_spec(spec)
     if num_shards > 1:
@@ -874,7 +892,8 @@ def plan_batched_gemm(g: int, m: int, k: int, n: int, in_bytes: int = 4,
                        extra=f"shared:{shared}")
     cands = batched_candidates(g, m, k, n, in_bytes, out_bytes, shared, spec,
                                panels=panels, b_bytes=b_bytes,
-                               a_major=a_major, b_ok=b_ok)
+                               a_major=a_major, b_ok=b_ok, trans=trans,
+                               b_rows=b_rows)
     return _cached_batched(g, m, k, n, in_bytes, out_bytes, shared, cands,
                            panels=panels, b_bytes=b_bytes, a_major=a_major,
                            b_ok=b_ok, trans=trans) or argmin_plan(cands)

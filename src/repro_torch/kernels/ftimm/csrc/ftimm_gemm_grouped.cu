@@ -4,7 +4,7 @@
 // (and its batched wrapper ftimm_gemm_batched).  Either operand may be one
 // 2-D panel shared by every group: it is passed with group stride 0.  bias
 // and the dequant scale vector are (N,) shared or (G, N) per group; the
-// residual is (G, M, N).  Groups go on blockIdx.z.  Three bodies; the
+// residual is (G, M, N).  Groups go on blockIdx.z.  Four bodies; the
 // planner (core/gemm/tuner.py, plan_batched_gemm) picks one among those the
 // operands allow (kernel.py, grouped_bodies):
 //
@@ -21,19 +21,25 @@
 //   tensor maps (group outermost), so TMA zero-fills each group's K edge
 //   and no box reads one group's rows into another's contraction; a shared
 //   2-D operand keeps a 2-D map (TMA encodes no zero stride).
+// * Few-rows fp32 stream ("rows", ftimm_gemm_grouped_rows_launch): fp32 x
+//   fp32 with at most 8 rows a group, trans "nt" or "nn", B's rows unit
+//   stride and 16-byte aligned -- the decode attention products QK^T ("nt",
+//   K = head_dim) and PV ("nn", K = the cache length), 1-7 query rows a
+//   group against the cache view, which the reference computes in full fp32
+//   (no TF32 here either).  Bound: the fp32 K / V bytes over 3.35 TB/s; the
+//   body of ftimm_rows.cuh (B through a per-warp cp.async ring, A on chip,
+//   the slots x kv-heads groups cut into cache-row strips or K slices).
 // * CUDA-core FMAs ("fma", ftimm_gemm_grouped_launch): everything else --
-//   the attention products QK^T ("nt", K = head_dim) and PV ("nn", K = the
-//   cache length), which the reference computes in full fp32 (no TF32
-//   here either), the mixed bf16 x fp32 pairs and operands TMA cannot read.
-//   At decode each attention group has 2 query rows against the cache view,
-//   so the fp32 K/V bytes over 3.35 TB/s bound it; the slots x kv-heads
-//   groups multiply the CTA count of one small product.
+//   fp32 products of more than 8 rows a group (prefill and training
+//   attention, fp32 experts), the mixed bf16 x fp32 pairs and operands
+//   neither TMA nor the rows body can read.
 //
 // C interface, bound from kernel.py with ctypes.  Each entry returns
 // cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for a tile, type code or operand it does not take.
 #include "ftimm_common.cuh"
 #include "ftimm_gstream.cuh"
+#include "ftimm_rows.cuh"
 #include "ftimm_tc.cuh"
 
 struct GroupedArgs {
@@ -210,4 +216,27 @@ extern "C" int ftimm_gemm_grouped_stream_launch(
   return ftimm::gs::launch<ftimm_gemm_grouped_stream>(types, a, M, sag, sam, sak, b, nullptr,
                                                       sbg, sbk, sbn, p, slices, G,
                                                       static_cast<cudaStream_t>(stream));
+}
+
+// ---------------------------------------------------------------------------
+// Few-rows fp32 stream (at most 8 rows a group; ftimm_rows.cuh)
+// ---------------------------------------------------------------------------
+
+// nt = 1: QK^T-like ("nt"), the grid (strips of `span` cache rows, K slices
+// of `width`, G); nt = 0: PV-like ("nn"), (strips of `width` columns, K
+// slices of `span` rows, G).  ws: (slices, G, M, N) fp32 and counters (G x
+// strips) when there is more than one K slice.
+extern "C" int ftimm_gemm_grouped_rows_launch(
+    int device, int types, const void* a, const void* b, void* c, int G, int M, int N, int K,
+    long long sag, long long sam, long long sak, long long sbg, long long sbk, long long sbn,
+    int nt, int width, int span, float* ws, int* counters, const float* scale_vec,
+    long long scale_vec_g, int has_scale, float scale, const float* bias, long long bias_g,
+    int act, const void* residual, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return ftimm::rows::launch(types, a, b, c, G, M, N, K, sag, sam, sak, sbg, sbk, sbn, nt, width,
+                             span, ws, counters,
+                             ftimm::EpiArgs{scale_vec, scale_vec_g, has_scale, scale, bias,
+                                            bias_g, act, residual, (int64_t)M * N},
+                             static_cast<cudaStream_t>(stream));
 }

@@ -15,8 +15,9 @@ The kernels are CUDA C++ for ``sm_90a`` in ``csrc/``, one source per kernel:
                             summed in split order, then the epilogue.
 
 ``ftimm_gemm``, ``ftimm_gemm_grouped``, ``ftimm_gemm_ragged`` and the
-three SwiGLU pairs have three bodies, and ``ftimm_gemm_ragged_dw`` and
-``ftimm_gemm_splitk`` the first two: CUDA-core FMAs on any operand types
+three SwiGLU pairs have three bodies, ``ftimm_gemm_grouped`` a fourth, and
+``ftimm_gemm_ragged_dw`` and ``ftimm_gemm_splitk`` the first two:
+CUDA-core FMAs on any operand types
 and strides (``"fma"``; the only body that takes the quantized pairs of
 ``ftimm_gemm`` and ``ftimm_gemm_ragged``: bf16 / fp32 x int8, int8 x int8
 summed in int32, fp8 x fp8, and the dense kernel's bf16 / fp32 x fp8
@@ -28,7 +29,11 @@ order inside the kernel), and a K-parallel weight stream for bf16 x bf16
 calls of at most 16 rows (``"stream"``: ``ftimm_gemm``'s register stream,
 and for the grouped and ragged kernels and the three pairs a TMA ring per
 (N strip, K slice, group) feeding wgmma with the weight as the 64-row
-operand, ``csrc/ftimm_gstream.cuh``; the dense pair is its one group).
+operand, ``csrc/ftimm_gstream.cuh``; the dense pair is its one group);
+the grouped kernel's few-rows fp32 stream takes fp32 x fp32 calls of at
+most ROWS_MAX rows a group with B's rows unit-stride and 16-byte aligned
+(``"rows"``: the decode attention products, B's rows through a per-warp
+cp.async ring, A on chip, ``csrc/ftimm_rows.cuh``).
 The planner picks the body (``core.gemm.tuner``) among those
 ``gemm_bodies`` /
 ``grouped_bodies`` / ``ragged_bodies`` / ``ragged_dw_bodies`` allow for
@@ -117,9 +122,33 @@ STREAM_SMEM = 24 * 1024
 # a 128-column strip through a GSTREAM_STAGES-deep ring.
 GSTREAM_ROWS = 16
 GSTREAM_STAGES = 4
+# The grouped kernel's few-rows fp32 stream (csrc/ftimm_rows.cuh): at most
+# ROWS_MAX rows a group; a row of B is read in float4 slices by 16 or 32
+# lanes, one or two slices a lane, so a CTA covers ROWS_WIDTHS floats of it
+# ("nt": K per slice; "nn": output columns per CTA); "nn" stages A over a K
+# slice of at most ROWS_SPAN_MAX cache rows in shared memory beside the
+# ROWS_RING_BYTES ring.  ``rows_tile`` cuts a call as the H100 sweep of
+# its cuts (``launch.sweep_gemm --set attention``, PERF.md) ran fastest:
+# "nt" into at least ROWS_CTAS CTAs (two an SM) of ROWS_MIN_STRIP or more
+# cache rows, and of at most ROWS_STRIP_BYTES of them; "nn" into the
+# narrowest column strips (64 floats: more CTAs, no reduction, never
+# slower than the wider strips), and into K slices only when one (group,
+# strip) reads more than ROWS_SLICE_MIN_BYTES -- the slices' ordered
+# reduction costs about 1.5 us -- then into slices of about
+# ROWS_SLICE_BYTES, at most ROWS_SLICES_MAX.
+ROWS_MAX = 8
+ROWS_WIDTHS = (64, 128, 256)
+ROWS_SPAN_MAX = 2048
+ROWS_RING_BYTES = 8 * 4 * 128 * 16
+ROWS_CTAS = 264
+ROWS_MIN_STRIP = 16
+ROWS_STRIP_BYTES = 16 * 1024
+ROWS_SLICE_MIN_BYTES = 160 * 1024
+ROWS_SLICE_BYTES = 64 * 1024
+ROWS_SLICES_MAX = 8
 BODIES = ("fma", "tc", "stream")
 _BODY_KERNELS = {"ftimm_gemm": BODIES, "ftimm_gemm_swiglu": BODIES,
-                 "ftimm_gemm_grouped": BODIES,
+                 "ftimm_gemm_grouped": BODIES + ("rows",),
                  "ftimm_gemm_grouped_swiglu": BODIES,
                  "ftimm_gemm_ragged": BODIES,
                  "ftimm_gemm_ragged_swiglu": BODIES,
@@ -195,7 +224,9 @@ def smem_bytes(bm: int, bn: int, bk: int, panels: int = 1, *,
     flush's fp32 staging tile (bm, panels x bn + 8) if larger, the ring's
     barriers and 1 KB to align it (csrc/ftimm_tc.cuh, Tile::SMEM).
     Stream (bm = the compiled row count, bk = the slice): the staged bf16
-    rows, the reduction's fp32 (8 warps x bn) and (bm x bn) tiles."""
+    rows, the reduction's fp32 (8 warps x bn) and (bm x bn) tiles.  Rows
+    (``rows_tile``'s (ROWS_MAX, N per CTA, K per slice)): the ring and,
+    at most, "nn"'s fp32 A over a K slice (bm x bk)."""
     if body == "fma":
         return 4 * (bk * (bm + 1) + panels * bk * (bn + 1))
     if body == "tc":
@@ -203,6 +234,8 @@ def smem_bytes(bm: int, bn: int, bk: int, panels: int = 1, *,
         return max(ring, bm * (panels * bn + 8) * 4) + 16 * stages + 1024
     if body == "stream":
         return bm * (bk + 7) // 8 * 8 * 2 + 4 * (8 * bn + bm * bn) + 4
+    if body == "rows":
+        return ROWS_RING_BYTES + 4 * bm * bk + 4
     raise ValueError(f"unknown body: {body!r}")
 
 
@@ -337,20 +370,86 @@ def grouped_operands(a: torch.Tensor, b: torch.Tensor,
 
 
 def grouped_bodies(a_bytes: int, b_bytes: int, m: int, a_major: str | None,
-                   b_ok: bool) -> tuple[str, ...]:
+                   b_ok: bool, *, trans: str | None = None,
+                   b_rows: bool = False) -> tuple[str, ...]:
     """The bodies of ``ftimm_gemm_grouped`` and of its SwiGLU pair
     (``ftimm_gemm_grouped_swiglu``, whose op(B) is each of its two panels)
     that can take a call: FMA always; for bf16 x bf16 with op(B)
     TMA-readable the tensor cores when TMA reads op(A) too (``a_major`` not
     None), and the weight stream when a group has at most GSTREAM_ROWS rows
-    and op(A) is K-major.  fp32 (the attention products) and the mixed
-    pairs stay FMA."""
+    and op(A) is K-major; for fp32 x fp32 of at most ROWS_MAX rows a group,
+    ``trans`` "nn" or "nt" and B's rows as the rows body reads them
+    (``b_rows``: ``rows_operand``) the few-rows stream -- the grouped
+    kernel's only (the pair passes no ``trans``).  The mixed pairs, and fp32
+    of more rows, stay FMA."""
     bodies = ["fma"]
     if a_bytes == b_bytes == 2 and b_ok and a_major:
         bodies.append("tc")
         if m <= GSTREAM_ROWS and a_major == "k":
             bodies.append("stream")
+    if (a_bytes == b_bytes == 4 and m <= ROWS_MAX and trans in ("nn", "nt")
+            and b_rows):
+        bodies.append("rows")
     return tuple(bodies)
+
+
+def rows_operand(b: torch.Tensor) -> bool:
+    """Whether the rows body reads op(B) of a grouped "nn" or "nt" call as
+    laid out: its rows (the last dimension: head_dim of a cache row) unit
+    stride, the base 16-byte aligned, the row and group strides multiples
+    of 4 elements (16 bytes of fp32).  An extent of 1 takes any stride.
+    The C entry (csrc/ftimm_rows.cuh, rows::launch) applies the same rule."""
+    unit = b.shape[-1] <= 1 or b.stride(-1) == 1
+    rows = b.shape[-2] <= 1 or b.stride(-2) % 4 == 0
+    groups = b.ndim == 2 or b.shape[0] <= 1 or b.stride(0) % 4 == 0
+    return unit and rows and groups and b.data_ptr() % 16 == 0
+
+
+def rows_width(length: int) -> int:
+    """Floats of a B row one rows CTA covers (a width of ROWS_WIDTHS): 16
+    lanes a row for rows of at most 64 floats, else 32, and two float4s a
+    lane past 128."""
+    for width in ROWS_WIDTHS:
+        if length <= width:
+            return width
+    return ROWS_WIDTHS[-1]
+
+
+def rows_tile(g: int, k: int, n: int, trans: str) -> tuple[int, int, int]:
+    """The rows body's cut of a grouped call, as (ROWS_MAX, N per CTA, K per
+    slice), the plan's tile.  "nt" (K = head_dim): strips of cache rows --
+    enough for ROWS_CTAS CTAs, none under ROWS_MIN_STRIP rows nor over
+    ROWS_STRIP_BYTES -- and K slices of ``rows_width(k)``.  "nn" (K = the
+    cache rows): strips of the narrowest width, and K slices of cache rows
+    only past ROWS_SLICE_MIN_BYTES of a strip's rows: about
+    ROWS_SLICE_BYTES each, at most ROWS_SLICES_MAX and ROWS_SPAN_MAX
+    rows."""
+    if trans == "nt":
+        width = rows_width(k)
+        slices = max(_cdiv(k, width), 1)
+        strip = max(_cdiv(n, _cdiv(ROWS_CTAS, g * slices)), ROWS_MIN_STRIP)
+        cap = max(ROWS_STRIP_BYTES // (4 * max(min(k, width), 1)),
+                  ROWS_MIN_STRIP)
+        return ROWS_MAX, min(strip, cap), width
+    width = ROWS_WIDTHS[0]
+    nbytes = 4 * k * min(n, width)
+    slices = (1 if nbytes <= ROWS_SLICE_MIN_BYTES
+              else min(_cdiv(nbytes, ROWS_SLICE_BYTES), ROWS_SLICES_MAX))
+    span = max(_cdiv(max(k, 1), slices), _cdiv(k, ROWS_SPAN_MAX))
+    return ROWS_MAX, width, min(span, ROWS_SPAN_MAX)
+
+
+def rows_tile_ok(bm: int, bn: int, bk: int, trans: str) -> bool:
+    """Whether the rows body takes the cut (``bm``, ``bn``, ``bk``) for
+    ``trans``: ROWS_MAX rows, a row width of ROWS_WIDTHS ("nt": ``bk``;
+    "nn": ``bn``) and a span of at least one ("nt": ``bn`` cache rows;
+    "nn": ``bk``, at most ROWS_SPAN_MAX)."""
+    if trans not in ("nn", "nt"):
+        return False
+    nt = trans == "nt"
+    width, span = (bk, bn) if nt else (bn, bk)
+    return (bm == ROWS_MAX and width in ROWS_WIDTHS and span >= 1
+            and (nt or span <= ROWS_SPAN_MAX))
 
 
 def ragged_operands(x: torch.Tensor, w: torch.Tensor,
@@ -555,7 +654,8 @@ def launch_grid(kernel: str, body: str, dims, tile, *,
     bn, bk; a stream's bm is its row count), as the C entries set it:
     ftimm_gemm.cu (FMA, tensor cores, register stream), the grouped,
     ragged and pair entries, ftimm_gemm_ragged_dw.cu, ftimm_gemm_splitk.cu,
-    and ftimm_gstream.cuh's (strip, slice, group) grid."""
+    ftimm_gstream.cuh's (strip, slice, group) grid and ftimm_rows.cuh's
+    (N strip of ``tile[1]``, K slice of ``tile[2]``, group) grid."""
     bm, bn, _ = (int(v) for v in tile)
     nm = (kernel, body) in _ORDERED and dim_order == "nm"
     if body == "tc":
@@ -563,6 +663,12 @@ def launch_grid(kernel: str, body: str, dims, tile, *,
         if kernel not in ("ftimm_gemm", "ftimm_gemm_splitk",
                           "ftimm_gemm_ragged_dw"):
             bn = PAIR_N if "swiglu" in kernel else GROUP_TC_TILE[1]
+    if body == "rows":      # ftimm_rows.cuh: (N strip, K slice, group)
+        g, _, k, n = dims
+        strips, slices = _cdiv(n, bn), max(_cdiv(k, int(tile[2])), 1)
+        return LaunchGrid(kernel, body, (strips, slices, g), (g, strips),
+                          slices, arrival=lambda x, y, z: (z * strips + x, y),
+                          store=lambda x, y, z: (z, x))
     if body == "stream":
         if kernel in _GROUP_STREAM:
             return _group_stream_grid(kernel, dims, kslices)
@@ -717,6 +823,9 @@ _ARGTYPES = {
     "ftimm_gemm_grouped_stream": [_I, _I, _VP, _VP, _VP, _I, _I, _I, _I, _LL,
                                   _LL, _LL, _LL, _LL, _LL, _I, _I, _VP, _VP,
                                   _VP, _LL, _I, _F, _VP, _LL, _I, _VP, _VP],
+    "ftimm_gemm_grouped_rows": [_I, _I, _VP, _VP, _VP, _I, _I, _I, _I, _LL,
+                                _LL, _LL, _LL, _LL, _LL, _I, _I, _I, _VP, _VP,
+                                _VP, _LL, _I, _F, _VP, _LL, _I, _VP, _VP],
     "ftimm_gemm_grouped_swiglu": [_I, _I, _I, _VP, _VP, _VP, _VP, _I, _I, _I,
                                   _I, _LL, _LL, _LL, _LL, _LL, _LL, _VP],
     "ftimm_gemm_ragged": [_I, _I, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _LL,
@@ -1077,8 +1186,10 @@ def ftimm_gemm_grouped(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int,
 
     ``body``: "fma" runs the (bm, bn, bk) tile of TILES; "tc" runs
     GROUP_TC_TILE and "stream" cuts K into ``kslices`` slices
-    (``stream_slice``), both whatever the tile.  A body the operands do not
-    allow (``grouped_bodies``) raises."""
+    (``stream_slice``), both whatever the tile; "rows" (fp32, trans "nn" /
+    "nt") cuts the call as its tile (``rows_tile``: (ROWS_MAX, N per CTA,
+    K per slice)).  A body the operands do not allow (``grouped_bodies``)
+    raises."""
     if a.ndim not in (2, 3) or b.ndim not in (2, 3) or a.ndim + b.ndim < 5:
         raise ValueError(f"grouped GEMM needs a 3-D operand: {tuple(a.shape)}"
                          f" x {tuple(b.shape)}")
@@ -1101,7 +1212,8 @@ def ftimm_gemm_grouped(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int,
         raise ValueError(f"{g} groups exceed the grid's z extent (65535)")
     if body != "fma" and body not in grouped_bodies(
             a.element_size(), b.element_size(), m,
-            *grouped_operands(a, b, trans)):
+            *grouped_operands(a, b, trans), trans=trans,
+            b_rows=rows_operand(b)):
         raise ValueError(f"ftimm_gemm_grouped: the {body} body cannot take "
                          f"{a.dtype} x {b.dtype}, M = {m}, strides "
                          f"{a.stride()} x {b.stride()} ({trans})")
@@ -1130,6 +1242,21 @@ def ftimm_gemm_grouped(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int,
             "ftimm_gemm_grouped", a.device, k, kslices, g * m, n, g)
         _launch("ftimm_gemm_grouped", a.device, types, *operands,
                 slices, sl, _ptr(ws), _ptr(counters), *epi, body="stream")
+    elif body == "rows":
+        if not rows_tile_ok(bm, bn, bk, trans):
+            raise ValueError(f"({bm}, {bn}, {bk}) is not a rows tile for "
+                             f"{trans!r} (rows_tile)")
+        nt = trans == "nt"
+        width, span = (bk, bn) if nt else (bn, bk)
+        slices = max(-(-k // bk), 1)
+        if slices > 65535:
+            raise ValueError(f"ftimm_gemm_grouped: {slices} K slices exceed "
+                             "the grid's y extent")
+        ws = (torch.empty((slices, g, m, n), dtype=torch.float32,
+                          device=a.device) if slices > 1 else None)
+        counters = _counters(a.device, g * -(-n // bn)) if slices > 1 else None
+        _launch("ftimm_gemm_grouped", a.device, types, *operands, int(nt),
+                width, span, _ptr(ws), _ptr(counters), *epi, body="rows")
     else:
         raise ValueError(f"unknown body: {body!r}")
     return c

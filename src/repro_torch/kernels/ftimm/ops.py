@@ -11,7 +11,8 @@ the problem extent and mapped onto the compiled tile menu
 (``kernel.TILES``); each compiled tile carries its own K step, so ``bk``
 follows the tile.  The tensor-core body takes a tile of
 ``kernel.TC_TILES`` (the grouped and ragged kernels: ``GROUP_TC_TILE``)
-as it is (TMA fills the edges), and a stream body its K slice count.  The
+as it is (TMA fills the edges), a stream body its K slice count and the
+grouped rows body its cut (``kernel.rows_tile``) as it is.  The
 ragged
 wrappers pass the device prefix sums straight to the kernels, which find
 each group's rows themselves: the TPU path's host-built visit list
@@ -138,8 +139,10 @@ def batched_gemm(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
                  kslices: int = 1) -> torch.Tensor:
     """Batched / grouped entry.  Either operand may be 2-D (shared across
     the batch); ``bias`` and ``scale`` are (N,) shared or (G, N) per group,
-    ``residual`` (G, M, N).  ``body`` picks the FMA, tensor-core or stream
-    body of ``ftimm_gemm_grouped`` (the stream cuts K into ``kslices``)."""
+    ``residual`` (G, M, N).  ``body`` picks the FMA, tensor-core, stream
+    or rows body of ``ftimm_gemm_grouped`` (the stream cuts K into
+    ``kslices``; the rows body takes its tile, ``kernel.rows_tile``, as
+    it is)."""
     if dim_order not in ("mn", "nm"):
         raise ValueError(f"unknown dim_order: {dim_order!r}")
     if body == "fma":

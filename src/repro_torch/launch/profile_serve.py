@@ -65,6 +65,7 @@ GROUPS = (("ftimm_gemm_swiglu stream", "ftimm_gemm_swiglu_stream"),
           ("ftimm_gemm_ragged_swiglu tensor cores",
            "ftimm_gemm_ragged_swiglu_tc_kernel"),
           ("ftimm_gemm_grouped", "ftimm_gemm_grouped_kernel"),
+          ("ftimm_gemm_grouped rows", "ftimm_gemm_grouped_rows_"),
           ("ftimm_gemm_grouped stream", "ftimm_gemm_grouped_stream"),
           ("ftimm_gemm_grouped tensor cores", "ftimm_gemm_grouped_tc_kernel"),
           ("ftimm_gemm_ragged_swiglu", "ftimm_gemm_ragged_swiglu_kernel"),

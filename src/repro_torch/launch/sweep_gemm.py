@@ -15,10 +15,17 @@ stream at each slice count, ``ftimm_gemm``'s register stream launched
 once per reached group, beside ``torch.bmm`` /
 ``torch._grouped_mm``; and for their SwiGLU pairs at the gate/up shapes
 every body and slice count beside two such library calls (one per panel)
-and the elementwise silu(g) * u.  It is the measurement the planner's stream and
-tensor-core constants (``core/gemm/cmr.py``) are checked against.
+and the elementwise silu(g) * u.  The ``attention`` set times
+``ftimm_gemm_grouped``'s fp32 decode attention products (QK^T "nt" and PV
+"nn" of qwen3-1.7b, zamba2-7b, whisper-base's self and cross attention,
+llava-next-34b and gemma3-4b at 4 slots): the planned rows body, the rows
+body at other cuts (cache-row strips for "nt", column-strip widths and K
+slice counts for "nn"),
+the FMA body's planned tile, beside ``torch.bmm``.  It is the measurement
+the planner's stream and tensor-core constants (``core/gemm/cmr.py``) and
+the rows body's cut (``kernel.rows_tile``) are checked against.
 
-    PYTHONPATH=src python -m repro_torch.launch.sweep_gemm [--set decode|prefill|train|moe]
+    PYTHONPATH=src python -m repro_torch.launch.sweep_gemm [--set decode|prefill|train|moe|attention]
 
 Each variant is timed by ``launch.timing.time_ms`` (CUDA events around
 calls enqueued behind a sleep kernel, so the card runs them back to back,
@@ -32,6 +39,7 @@ from __future__ import annotations
 import argparse
 import json
 import subprocess
+from dataclasses import replace
 
 import torch
 
@@ -385,6 +393,63 @@ def moe_rows(args, gen, dev, sleep_ms) -> list[dict]:
     return rows
 
 
+# The decode attention products at 4 slots, fp32, one group a (slot, KV
+# head): (label, groups, query rows a group, head_dim, cache rows); gemma
+# also over a short history (``profile_serve``'s 48-row view).
+ATTENTION = [("qwen3-1.7b", 32, 2, 128, 96),
+             ("zamba2-7b shared", 128, 1, 112, 320),
+             ("whisper-base self", 32, 1, 64, 320),
+             ("whisper-base cross", 32, 1, 64, 1024),
+             ("llava-next-34b", 32, 7, 128, 896),
+             ("gemma3-4b", 16, 2, 256, 1120),
+             ("gemma3-4b short", 16, 2, 256, 48)]
+
+
+def attention_variants(g, m, k, n, trans):
+    """(name, fn(a, b)): the planned body, the rows body at other cuts,
+    the FMA body's planned tile, ``torch.bmm``."""
+    planned = plan_batched_gemm(g, m, k, n, 4, 4, "none", trans=trans)
+    fma = plan_batched_gemm(g, m, k, n, 4, 4, "none", trans=trans,
+                            b_rows=False)
+    if trans == "nt":
+        width = K.rows_width(k)
+        cuts = [(f"rows strip {s}", (K.ROWS_MAX, s, width))
+                for s in (16, 32, 64, 128) if s < n]
+    else:
+        cuts = [(f"rows {w}-wide, {sl} slices", (K.ROWS_MAX, w, -(-k // sl)))
+                for w in K.ROWS_WIDTHS if w <= K.rows_width(n)
+                for sl in (1, 2, 4, 8, 16) if -(-k // sl) >= 16]
+    plans = [(f"planned {planned.body} {planned.bm}x{planned.bn}x"
+              f"{planned.bk}", planned)]
+    plans += [(name, replace(planned, body="rows", bm=t[0], bn=t[1], bk=t[2]))
+              for name, t in cuts]
+    plans.append((f"fma {fma.bm}x{fma.bn}x{fma.bk} {fma.dim_order}", fma))
+    for name, plan in plans:
+        kw = plan.kernel_kwargs()
+        kw.pop("nsplit")
+        yield name, (lambda a, b, kw=kw: ops.batched_gemm(
+            a, b, trans=trans, out_dtype=F32, **kw))
+    yield "torch.bmm", lambda a, b: torch.bmm(
+        a, b.transpose(1, 2) if trans == "nt" else b)
+
+
+def attention_rows(args, gen, dev, sleep_ms) -> list[dict]:
+    rows = []
+    for label, g, m, hd, s in ATTENTION:
+        for trans, k, n in (("nt", hd, s), ("nn", s, hd)):
+            sb = (g, n, k) if trans == "nt" else (g, k, n)
+
+            def make(gen, sb=sb, k=k):
+                return (torch.randn(g, m, k, generator=gen, device=dev),
+                        torch.randn(sb, generator=gen, device=dev))
+            rows += time_variants(
+                "attention", label, dict(m=m, k=k, n=n, trans=trans,
+                                         groups=g), make,
+                attention_variants(g, m, k, n, trans), args.reps, gen,
+                sleep_ms)
+    return rows
+
+
 def variants(m, k, n, trans, out):
     """(name, fn(a, b)) for every body that can take the shape."""
     out_bytes = torch.tensor([], dtype=out).element_size()
@@ -413,8 +478,8 @@ def variants(m, k, n, trans, out):
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--set", choices=sorted([*SETS, "moe"]), nargs="+",
-                    default=sorted([*SETS, "moe"]))
+    ap.add_argument("--set", choices=sorted([*SETS, "moe", "attention"]),
+                    nargs="+", default=sorted([*SETS, "moe", "attention"]))
     ap.add_argument("--reps", type=int, default=50)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -427,6 +492,9 @@ def main(argv=None) -> None:
     for set_name in args.set:
         if set_name == "moe":
             rows += moe_rows(args, gen, dev, sleep_ms)
+            continue
+        if set_name == "attention":
+            rows += attention_rows(args, gen, dev, sleep_ms)
             continue
         for label, m, k, n, trans, out in SETS[set_name]:
             sa = (k, m) if trans == "tn" else (m, k)

@@ -365,6 +365,76 @@ def test_mutation_removed_guard_in_a_copy_of_the_sources(tmp_path):
     assert C.check_contraction_masking(src) == []
 
 
+@pytest.mark.parametrize("old,new", [
+    # B: the copies past the K bound ("nt": elements, "nn": rows) read
+    # their bytes instead of zero-filling them.
+    ("? tail_bytes(e, e_hi) : 0;", "? 16 : 0;"),
+    ("make_stream<LPR, J>(p, g, k_lo, k_hi, n0, p.N,",
+     "make_stream<LPR, J>(p, g, k_lo, p.K, n0, p.N,"),
+    ("make_stream<LPR, J>(p, g, r_lo, r_hi, k_lo, k_hi,",
+     "make_stream<LPR, J>(p, g, r_lo, r_hi, k_lo, p.K,"),
+    # A: the loads past k_hi.
+    ("= k < k_hi ? ga[", "= k < p.K ? ga["),
+    ("= r < k_hi ? ga[", "= r < p.K ? ga["),
+])
+def test_mutation_rows_guards_in_a_copy_of_the_sources(tmp_path, old, new):
+    """The rows body masks the K remainder of both operands: a copy of the
+    sources with either guard removed fails the masking contract, for that
+    body only."""
+    src = tmp_path / "csrc"
+    shutil.copytree(K.CSRC, src)
+    name = "ftimm_rows.cuh"
+    text = (K.CSRC / name).read_text()
+    assert text.count(old) == 1, old
+    assert C.masked_operands(src)[("ftimm_gemm_grouped", "rows")] == (2, 2)
+    (src / name).write_text(text.replace(old, new))
+    found = C.check_contraction_masking(src)
+    assert {v.code for v in found} == {"missing_k_mask"}, found
+    got = {key for key, (n, need) in C.masked_operands(src).items()
+           if n < need}
+    assert got == {("ftimm_gemm_grouped", "rows")}
+
+
+def test_rows_plans_meet_the_contracts():
+    """The rows body's cut of every decode attention shape, both trans,
+    passes the plan invariants, the budget and its launch's store
+    coverage (K slices arrive on one counter a (group, strip)); a tile
+    the body does not take (one cut for "nt" is not one for "nn"), bf16
+    operands and more than ROWS_MAX rows are violations."""
+    for g, m, hd, s in ((32, 2, 128, 96), (128, 1, 112, 320),
+                        (32, 1, 64, 1024), (32, 7, 128, 896),
+                        (16, 2, 256, 1120), (3, 8, 600, 257)):
+        for trans, k, n in (("nt", hd, s), ("nn", s, hd)):
+            plan = tuner.plan_batched_gemm(g, m, k, n, 4, 4, "none",
+                                           trans=trans)
+            assert plan.body == "rows"
+            assert C.check_plan("batched", (g, m, k, n), plan,
+                                coverage=True, trans=trans) == []
+    bad = tuner.GemmPlan(bm=K.ROWS_MAX, bn=100, bk=100, body="rows")
+    codes = {v.code for v in C.check_plan("batched", (4, 2, 96, 128), bad)}
+    assert "tile_not_compiled" in codes
+    strip = tuner.GemmPlan(bm=K.ROWS_MAX, bn=100, bk=64, body="rows")
+    assert C.check_plan("batched", (4, 2, 64, 300), strip, trans="nt") == []
+    codes = {v.code for v in C.check_plan("batched", (4, 2, 64, 300), strip,
+                                          trans="nn")}
+    assert "tile_not_compiled" in codes
+    ok = tuner.GemmPlan(bm=K.ROWS_MAX, bn=128, bk=96, body="rows")
+    codes = {v.code for v in C.check_plan("batched", (4, 9, 96, 128), ok,
+                                          in_bytes=2, out_bytes=2)}
+    assert {"rows_body_types", "rows_exceeded"} <= codes
+
+
+def test_stored_rows_record_is_checked_in_its_layout():
+    """A stored rows record is held to the cut of the layout its key names:
+    an "nt" strip of 100 cache rows passes under ``trans:nt`` and is
+    quarantined under the "nn" key of the same shape."""
+    rec = {"body": "rows", "bm": K.ROWS_MAX, "bn": 100, "bk": 64}
+    nt = tuner.batched_key(4, 2, 64, 300, 4, 4, "none", trans="nt")
+    assert "trans:nt" in nt and C.check_record(nt, rec) == []
+    nn = tuner.batched_key(4, 2, 64, 300, 4, 4, "none")
+    assert "tile_not_compiled" in _codes(C.check_record(nn, rec))
+
+
 # ---------------------------------------------------------------------------
 # The plan store's quarantine asks the contracts
 # ---------------------------------------------------------------------------

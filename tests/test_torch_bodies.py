@@ -7,8 +7,11 @@ choice among the bodies (CPU: the rule and the planner are plain Python).
 and ``ftimm_gemm_ragged`` and the three SwiGLU pairs the same three (their
 stream: at most 16 rows a group, or in all for the ragged kernels, A
 K-major; the grouped and ragged panels through 3-D tensor maps; the dense
-pair is the grouped pair's rule with one group); ``ftimm_gemm_ragged_dw``
-and ``ftimm_gemm_splitk`` the first two.  ``plan_gemm`` /
+pair is the grouped pair's rule with one group), and ``ftimm_gemm_grouped``
+a fourth, the few-rows fp32 stream (fp32 x fp32, at most 8 rows a group,
+"nn" / "nt", B's rows unit-stride and 16-byte aligned: the decode
+attention products); ``ftimm_gemm_ragged_dw`` and ``ftimm_gemm_splitk``
+the first two.  ``plan_gemm`` /
 ``plan_batched_gemm`` / ``plan_ragged_gemm`` pick the body from the CMR
 model among those the rule allows; the split-K kernel stays off every
 model path (``nsplit`` 1, as in the reference).
@@ -18,8 +21,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core.gemm import (H100, estimate_stream, plan_batched_gemm,  # noqa: E402
-                                   plan_gemm, plan_ragged_gemm)
+from repro_torch.core.gemm import (H100, estimate_rows, estimate_stream,  # noqa: E402
+                                   plan_batched_gemm, plan_gemm,
+                                   plan_ragged_gemm)
 from repro_torch.core.gemm.cmr import STREAM_CTAS_PER_SM  # noqa: E402
 from repro_torch.kernels.ftimm import kernel as K  # noqa: E402
 
@@ -308,6 +312,137 @@ def test_grouped_operands_follow_layout(trans, shared):
         (g,) + sb), "nn" if trans == "tn" else trans)[0] is None
 
 
+def _grouped_b(trans, width, aligned, g=3, k=96, n=128):
+    """op(B) of a grouped "nn" / "nt" / "tn" call of ``width`` bytes, laid
+    out as the attention products lay it out (rows of the last dimension
+    contiguous); misaligned: the same layout one element past a 16-byte
+    boundary."""
+    dtype = F32 if width == 4 else BF16
+    shape = (g, n, k) if trans == "nt" else (g, k, n)
+    numel = g * k * n
+    base = torch.zeros(numel + 1, dtype=dtype)
+    flat = base[:numel] if aligned else base[1:]
+    return flat.view(shape)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("trans", ["nn", "nt", "tn"])
+@pytest.mark.parametrize("m", [1, 7, 8, 9])
+@pytest.mark.parametrize("a,b", [(4, 4), (2, 4), (4, 2), (2, 2)])
+def test_grouped_rows_rule(a, b, m, trans, aligned):
+    """The rows body is offered exactly for fp32 x fp32 of at most ROWS_MAX
+    rows a group, trans "nn" or "nt", with B's rows as it reads them; every
+    other call keeps the bodies it had."""
+    b_rows = K.rows_operand(_grouped_b(trans, b, aligned))
+    assert b_rows == aligned
+    got = K.grouped_bodies(a, b, m, "k", True, trans=trans, b_rows=b_rows)
+    want_rows = (a == b == 4 and m <= K.ROWS_MAX and trans != "tn"
+                 and aligned)
+    assert ("rows" in got) == want_rows, got
+    assert tuple(x for x in got if x != "rows") == K.grouped_bodies(
+        a, b, m, "k", True)
+    # The SwiGLU pair passes no trans: never the rows body.
+    assert "rows" not in K.grouped_bodies(a, b, m, "k", True, b_rows=b_rows)
+
+
+def test_rows_operand_rule():
+    """Unit stride along a row, the base 16-byte aligned, the row and group
+    strides multiples of 4 elements; an extent of 1 takes any stride."""
+    kv = torch.zeros(4, 96, 8, 128)                # (B, S, KVH, D) cache
+    assert K.rows_operand(kv.permute(0, 2, 1, 3).reshape(32, 96, 128))
+    assert K.rows_operand(kv[0].permute(1, 0, 2))  # a strided view
+    assert K.rows_operand(torch.zeros(96, 128))    # shared 2-D
+    assert not K.rows_operand(torch.zeros(4, 128, 96).transpose(1, 2))
+    assert not K.rows_operand(torch.zeros(4, 96, 130)[:, :, :128])
+    assert not K.rows_operand(torch.zeros(4 * 96 * 128 + 2)[2:].view(
+        4, 96, 128))                               # base 8 bytes off
+    odd_group = torch.zeros(3 * (96 * 128 + 2)).as_strided(
+        (3, 96, 128), (96 * 128 + 2, 128, 1))
+    assert not K.rows_operand(odd_group)
+    assert K.rows_operand(torch.zeros(4, 1, 128).as_strided(
+        (4, 1, 128), (128, 7, 1)))                 # one row: any row stride
+
+
+def _decode_attention():
+    """(label, G, M, head_dim, cache rows) of the decode attention products
+    at 4 slots: PERF.md's rows 2 (qwen3-1.7b, 96 rows), 2r (zamba2's shared
+    block, its 320-row slot cache), 2e (whisper-base, self over 320 rows
+    and cross over a 1024-row block), 2v (llava-next-34b, the 896-row paged
+    view), 2g (gemma3-4b, 1,120 rows), minitron-4b and qwen3-8b (96)."""
+    rows = {"qwen3-1.7b": (96,), "zamba2-7b": (320,),
+            "whisper-base": (320, 1024), "llava-next-34b": (896,),
+            "gemma3-4b": (1120,), "minitron-4b": (96,), "qwen3-8b": (96,)}
+    out = []
+    for arch, views in rows.items():
+        c = get_config(arch)
+        for s in views:
+            out.append((f"{arch} {s}", 4 * c.num_kv_heads,
+                        c.num_heads // c.num_kv_heads, c.head_dim_, s))
+    return out
+
+
+@pytest.mark.parametrize("label,g,m,hd,s", _decode_attention())
+def test_plan_takes_rows_at_decode_attention(label, g, m, hd, s):
+    """QK^T ("nt", K = head_dim) and PV ("nn", K = the cache rows) of every
+    decode attention product plan the rows body at its cut, priced within
+    a few percent of the bytes bound; with B's rows misaligned they keep
+    the FMA body."""
+    assert 1 <= m <= K.ROWS_MAX, label
+    for trans, k, n in (("nt", hd, s), ("nn", s, hd)):
+        plan = plan_batched_gemm(g, m, k, n, 4, 4, "none", trans=trans)
+        assert plan.body == "rows", (label, trans, plan)
+        assert (plan.bm, plan.bn, plan.bk) == K.rows_tile(g, k, n, trans)
+        bound = (g * k * n + g * m * k + g * m * n) * 4 / H100.hbm_bw
+        assert plan.est.t_total <= 1.05 * bound, (
+            label, trans, plan.est)
+        assert plan.est.t_total == estimate_rows(
+            g, m, k, n, bn=plan.bn, bk=plan.bk).t_total
+        assert plan_batched_gemm(g, m, k, n, 4, 4, "none", trans=trans,
+                                 b_rows=False).body == "fma"
+
+
+def test_plan_keeps_fp32_training_attention_and_experts_on_fma():
+    """fp32 products of more than ROWS_MAX rows a group keep the FMA body:
+    qwen3-1.7b's training attention (32 groups of 128 rows, both trans) and
+    mixtral's fp32 experts at decode capacity 16."""
+    for trans in ("nt", "nn", "tn"):
+        assert plan_batched_gemm(32, 128, 128, 128, 4, 4, "none",
+                                 trans=trans).body == "fma"
+    mix, e, d, f = _moe("mixtral-8x7b")
+    for k, n in ((d, f), (f, d)):
+        assert plan_batched_gemm(e, 16, k, n, 4, 4, "none").body == "fma"
+
+
+def test_rows_tile_cuts_the_call_over_the_card():
+    """"nt": strips of cache rows for about ROWS_CTAS CTAs, none under
+    ROWS_MIN_STRIP rows nor over ROWS_STRIP_BYTES, K in slices of the row
+    width; "nn": the narrowest column strips, K slices only past
+    ROWS_SLICE_MIN_BYTES of a strip's cache rows, at most ROWS_SLICES_MAX
+    of ROWS_SPAN_MAX rows or fewer."""
+    for g, m, hd, s in ((32, 2, 128, 96), (16, 2, 256, 1120),
+                        (128, 1, 112, 320), (32, 1, 64, 1024),
+                        (32, 7, 128, 896)):
+        bm, strip, width = K.rows_tile(g, hd, s, "nt")
+        row = 4 * min(hd, width)
+        assert bm == K.ROWS_MAX and width == K.rows_width(hd)
+        assert K.ROWS_MIN_STRIP <= strip
+        assert strip * row <= max(K.ROWS_STRIP_BYTES, K.ROWS_MIN_STRIP * row)
+        strips = -(-s // strip)
+        assert (g * strips >= min(K.ROWS_CTAS, g * -(-s // K.ROWS_MIN_STRIP))
+                or strip * row > K.ROWS_STRIP_BYTES // 2)
+        bm, width, span = K.rows_tile(g, s, hd, "nn")
+        assert width == K.ROWS_WIDTHS[0]
+        slices = -(-s // span)
+        if 4 * s * min(hd, width) <= K.ROWS_SLICE_MIN_BYTES:
+            assert slices == 1
+        assert 1 <= slices <= K.ROWS_SLICES_MAX
+        assert span <= K.ROWS_SPAN_MAX
+    assert K.rows_tile(2, 600, 7, "nt")[2] == 256        # 3 K slices
+    assert K.rows_tile(2, 40000, 7, "nn")[2] == K.ROWS_SPAN_MAX
+    assert [K.rows_width(x) for x in (1, 64, 65, 128, 129, 256, 9999)] == [
+        64, 64, 128, 128, 256, 256, 256]
+
+
 def test_ragged_operands_follow_layout():
     x = torch.zeros(4, 512, dtype=BF16)
     w = torch.zeros(16, 512, 256, dtype=BF16)
@@ -371,15 +506,18 @@ def test_plan_moe_prefill_and_train_take_tensor_cores():
 
 
 def test_plan_keeps_attention_mixed_and_swiglu_on_fma():
-    """fp32 attention (QK^T and PV groups) and the mixed bf16 x fp32 pairs
-    plan the FMA body at every MoE shape, and so does the fp32 dense
-    SwiGLU pair at qwen's decode and training rows (its bf16 plans:
-    ``test_plan_dense_swiglu_pair_takes_the_stream_and_tensor_cores``)."""
+    """fp32 attention of more than ROWS_MAX rows a group (QK^T and PV
+    groups at prefill and training) and the mixed bf16 x fp32 pairs plan
+    the FMA body at every MoE shape, and so does the fp32 dense SwiGLU pair
+    at qwen's decode and training rows (its bf16 plans:
+    ``test_plan_dense_swiglu_pair_takes_the_stream_and_tensor_cores``);
+    qwen's decode PV, 2 rows a group, takes the rows body."""
     mix, e, d, f = _moe("mixtral-8x7b")
     l4, e4, d4, f4 = _moe("llama4-scout-17b-a16e")
-    for g, m, k, n in ((32, 2, 128, 96), (32, 128, 128, 128),
-                       (32, 128, 128, 64)):
-        assert plan_batched_gemm(g, m, k, n, 4, 4, "none").body == "fma"
+    for g, m, k, n, body in ((32, 2, 128, 96, "rows"),
+                             (32, 128, 128, 128, "fma"),
+                             (32, 128, 128, 64, "fma")):
+        assert plan_batched_gemm(g, m, k, n, 4, 4, "none").body == body
     for c in (16, 320):
         for a, b in ((2, 4), (4, 2), (4, 4)):
             plan = plan_batched_gemm(e, c, f, d, a, 4, "none", b_bytes=b)

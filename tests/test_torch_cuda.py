@@ -709,7 +709,7 @@ def test_grouped_tc_body(dev, trans, m, shared, out):
         _close(got, K.ftimm_gemm_grouped_plain(a, b, trans=trans,
                                                out_dtype=out))
     assert K.body_counts()["ftimm_gemm_grouped"] == {"fma": 0, "tc": 4,
-                                                     "stream": 0}
+                                                     "stream": 0, "rows": 0}
 
 
 @pytest.mark.parametrize("trans", ["nn", "nt"])
@@ -750,6 +750,126 @@ def test_grouped_new_bodies_epilogue(dev, body, m, kslices, per_group, out):
             a, b, bm=128 if body == "tc" else 16, bn=128, bk=64, body=body,
             kslices=kslices, **kw))
         _close(got, K.ftimm_gemm_grouped_plain(a, b, **kw))
+
+
+def _rows_operands(trans, g, m, k, n, shared, dev, seed):
+    """fp32 A (G, M, K) and B's cache rows ("nt": (G, N, K); "nn": (G, K,
+    N)), either 2-D when shared."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sb = (n, k) if trans == "nt" else (k, n)
+    a = torch.randn(((m, k) if shared == "a" else (g, m, k)), generator=gen,
+                    device=dev)
+    b = torch.randn((sb if shared == "b" else (g,) + sb), generator=gen,
+                    device=dev) * k ** -0.5
+    return a, b
+
+
+def _rows(a, b, trans, tile=None, **kw):
+    g = a.shape[0] if a.ndim == 3 else b.shape[0]
+    _, k, n = K.mkn(trans, a.shape[-2:], b.shape[-2:])
+    bm, bn, bk = tile or K.rows_tile(g, k, n, trans)
+    return K.ftimm_gemm_grouped(a, b, bm=bm, bn=bn, bk=bk, trans=trans,
+                                body="rows", **kw)
+
+
+@pytest.mark.parametrize("trans", ["nt", "nn"])
+@pytest.mark.parametrize("m", [1, 2, 7, 8])
+@pytest.mark.parametrize("k,n", [(128, 96), (300, 260), (64, 1024)])
+@pytest.mark.parametrize("shared", ["none", "a", "b"])
+def test_grouped_rows_body(dev, trans, m, k, n, shared):
+    """The few-rows fp32 stream at 1-8 rows a group, K slices ("nt": 300
+    past its 256-float row width; "nn": its cache-row slices), strips and
+    a shared 2-D operand; reruns bit-identical."""
+    a, b = _rows_operands(trans, 5, m, k, n, shared, dev, seed=60)
+    K.reset_launch_counts()
+    got = _twice(lambda: _rows(a, b, trans))
+    _close(got, K.ftimm_gemm_grouped_plain(a, b, trans=trans))
+    assert K.body_counts()["ftimm_gemm_grouped"]["rows"] == 2
+
+
+@pytest.mark.parametrize("trans", ["nt", "nn"])
+@pytest.mark.parametrize("per_group", [False, True])
+def test_grouped_rows_body_epilogue(dev, trans, per_group):
+    """Each epilogue field at the flush, with one K slice and several."""
+    g, m, k, n = 3, 3, 300, 200
+    a, b = _rows_operands(trans, g, m, k, n, "none", dev, seed=61)
+    gen = torch.Generator(device=dev).manual_seed(62)
+    vshape = (g, n) if per_group else (n,)
+    bias = torch.randn(vshape, generator=gen, device=dev)
+    scale = torch.rand(vshape, generator=gen, device=dev)
+    res = torch.randn(g, m, n, generator=gen, device=dev)
+    one = (K.ROWS_MAX, 200, 256) if trans == "nt" else (K.ROWS_MAX, 256, 300)
+    for epi in (Epilogue(bias=True, activation="silu", residual=True),
+                Epilogue(scale_vec=True, scale=0.5, activation="gelu")):
+        kw = dict(epilogue=epi, bias=bias if epi.bias else None,
+                  residual=res if epi.residual else None,
+                  scale=scale if epi.scale_vec else None)
+        want = K.ftimm_gemm_grouped_plain(a, b, trans=trans, **kw)
+        for tile in (None, one):
+            _close(_twice(lambda: _rows(a, b, trans, tile, **kw)), want)
+
+
+@pytest.mark.parametrize("trans", ["nt", "nn"])
+@pytest.mark.parametrize("side", ["a", "b"])
+def test_grouped_rows_body_nan_past_k(dev, trans, side):
+    """NaN past K in either operand stays out (0 x NaN = NaN: both are
+    masked), at the cut and at narrow K slices."""
+    g, m, k, n = 4, 3, 300, 200
+    a, b = _rows_operands(trans, g, m, k, n, "none", dev, seed=63)
+    nan = float("nan")
+    if side == "a":
+        pad = torch.full((g, m, k + 8), nan, device=dev)
+        pad[..., :k] = a
+        a = pad[..., :k]
+    elif trans == "nt":
+        pad = torch.full((g, n, k + 8), nan, device=dev)
+        pad[..., :k] = b
+        b = pad[..., :k]
+    else:
+        pad = torch.full((g, k + 5, n), nan, device=dev)
+        pad[:, :k] = b
+        b = pad[:, :k]
+    want = K.ftimm_gemm_grouped_plain(a, b, trans=trans)
+    narrow = (K.ROWS_MAX, 64, 64) if trans == "nt" else (K.ROWS_MAX, 128, 70)
+    for tile in (None, narrow):
+        _close(_rows(a, b, trans, tile), want)
+
+
+def test_grouped_rows_planned_for_decode_attention(dev):
+    """fp32 decode QK^T / PV through the dispatch layer, the cache laid
+    out as the attention lays it out: the rows body; 9 rows a group, and
+    a cache 8 bytes off its 16-byte alignment, the FMA body."""
+    from repro_torch.core.gemm import batched_matmul
+    gen = torch.Generator(device=dev).manual_seed(64)
+    cache = torch.randn(4, 96, 8, 128, generator=gen, device=dev).to(BF16)
+    kf = cache.float().permute(0, 2, 1, 3).reshape(32, 96, 128)
+    off = torch.empty(kf.numel() + 2, device=dev)[2:].view(32, 96, 128)
+    off.copy_(kf)
+    for m, bb, body in ((2, kf, "rows"), (7, kf, "rows"), (9, kf, "fma"),
+                        (2, off, "fma")):
+        for trans in ("nt", "nn"):
+            a = torch.randn((32, m, 128 if trans == "nt" else 96),
+                            generator=gen, device=dev)
+            K.reset_launch_counts()
+            got = batched_matmul(a, bb, trans=trans, out_dtype=torch.float32)
+            _close(got, K.ftimm_gemm_grouped_plain(a, bb, trans=trans))
+            counts = K.body_counts()["ftimm_gemm_grouped"]
+            assert counts[body] == 1 and sum(counts.values()) == 1, (m, trans)
+
+
+def test_grouped_rows_body_refuses_what_it_cannot_take(dev):
+    a, b = _rows_operands("nt", 3, 9, 128, 96, "none", dev, seed=65)
+    with pytest.raises(ValueError):       # 9 rows a group
+        _rows(a, b, "nt", (K.ROWS_MAX, 16, 128))
+    a, b = _rows_operands("nt", 3, 2, 128, 96, "none", dev, seed=66)
+    with pytest.raises(ValueError):       # bf16: the rows body is fp32
+        _rows(a.to(BF16), b.to(BF16), "nt")
+    with pytest.raises(ValueError):       # B's rows not unit-stride
+        _rows(a, b.transpose(1, 2).contiguous().transpose(1, 2), "nt")
+    with pytest.raises(ValueError):       # "tn": A read K-major only
+        K.ftimm_gemm_grouped(a.transpose(1, 2).contiguous(), b.transpose(
+            1, 2).contiguous(), bm=K.ROWS_MAX, bn=128, bk=128, trans="tn",
+            body="rows")
 
 
 def test_grouped_bodies_refuse_what_they_cannot_take(dev):
